@@ -1,0 +1,397 @@
+// Fused qk-RMSNorm + rotate-half RoPE + flash attention forward for Hopper.
+//
+// Replaces qflux_tpu/ops/flash_nr.py:_fwd_nr_kernel (the Pallas TPU kernel K1,
+// driven by _fwd_nr and flash_attention_nr).  It computes, for every (b, h):
+//
+//   qn = bf16(rope(bf16(rmsnorm(q) * s_sel)))   (s_sel: row < st ? scale[0] : scale[1])
+//   kn = the same for k
+//   out = softmax(qn kn^T / sqrt(D) + segment mask) v,   lse = logsumexp of the row
+//
+// with the cast chain of the JAX forward reproduced exactly: f32 statistics,
+// a bf16 round after the norm scale, rope in f32, a bf16 round after rope,
+// f32 scores, p rounded to bf16 before the PV product, and fully masked rows
+// (segment 0, or no key of the same segment) writing 0 and lse = -1e30.
+//
+// What bounds it on an H100: at the FLUX 512^2 shape (S = 2560, H = 24,
+// D = 128) one call is 4 * S^2 * D * H = 80 GFLOP of QK^T and PV against
+// about 47 MB of q/k/v, some 1700 FLOP per byte, far above the card's ~295
+// bf16 FLOP/byte ridge: the kernel is compute-bound on the tensor cores.
+//
+// What the design does about that.  The products run on the tensor cores as
+// mma.sync m16n8k16 (bf16 in, f32 accumulate) with ldmatrix operand loads, and
+// everything of the softmax stays in registers (the FlashAttention-2 layout):
+// each of the eight warps owns 16 of the block's 128 q rows and holds their
+// normed q as A fragments, their scores, probabilities and output
+// accumulator, so shared memory carries only the K and V tiles, double
+// buffered so that one barrier per tile suffices.  The TPU kernel normed and
+// roped all of K once per (b, h) into VMEM and reused it over a sequential q
+// loop; GPU blocks run in parallel and in no order, so here each block
+// recomputes the norm and rope of each 64-row K tile it visits.  That
+// prologue is O(BK * D) per tile against O(BQ * BK * D) of tensor-core work,
+// and it keeps the normed q and k out of device memory entirely, which is the
+// point of the fusion; the 128-row q tile halves it per FLOP against a 64-row
+// one, and each warp keeps four rows' loads in flight.  K is tiled with an
+// online softmax, so unlike the TPU kernel there is no one-K-block limit, and
+// the ragged edge is masked by index instead of padded.  On an H100 the MMA
+// loop alone runs at ~180 TFLOP/s and the whole kernel at ~105: the K
+// prologue and the softmax do not overlap the MMAs at one 256-thread block
+// per SM.  wgmma, TMA and warp specialisation are left for later work.
+//
+// q/k/v/out are [B, S, H, D] bf16 (the projection layout: head h of row s at
+// offset (s * H + h) * D, no transpose copies), lse is [B, H, S] f32, scale
+// pairs [2, D] f32, cos/sin [S, D] (batch stride 0) or [B, S, D] f32, and the
+// optional segment ids [B, S] int32.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+typedef __nv_bfloat16 bf16;
+
+namespace {
+
+constexpr int D = 128;
+constexpr int NWARPS = 8;
+constexpr int NTHREADS = NWARPS * 32;
+constexpr int BQ = 16 * NWARPS;  // q rows of a block: 16 per warp
+constexpr int BK = 64;           // keys of a K/V tile
+constexpr int LD = D + 8;  // bf16 row stride of the q/k/v tiles: 16-byte rows, no bank conflicts
+constexpr float NEG_INF = -1e30f;
+constexpr float EPS = 1e-6f;
+
+constexpr size_t SMEM_BYTES = sizeof(bf16) * (BQ + 4 * BK) * LD  // q tile, 2 x (k, v) tiles
+                              + sizeof(int) * 2 * BK;            // 2 x key segment ids
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// four 8x8 bf16 matrices from shared memory; lane i gives the row address of
+// matrix i / 8, and receives in r[j] its two elements of matrix j
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// the same, each matrix transposed
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats → one register of two bf16, `lo` in the low half (the lower column)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Norm + rope of the ROWS rows [row0, row0 + ROWS) of one head into a bf16
+// smem tile (rows past S become 0).  Warp w takes rows [w, w + 1) * ROWS /
+// NWARPS, loading four of them at a time; each lane holds 4 channels, so the
+// rotate-half partner (channel c +- D/2) is 16 lanes away.  The loop's trip
+// count is a compile-time constant: over warp-dependent bounds the same loop
+// made the whole kernel 1.5x slower on an H100.  __fmul_rn and __fadd_rn keep
+// nvcc from contracting the products into FMAs, which would round otherwise
+// than the plain version.
+template <int ROWS>
+__device__ __forceinline__ void norm_rope_tile(const bf16* __restrict__ x, int row_stride,
+                                               int row0, int S,
+                                               const float* __restrict__ scale2,
+                                               const float* __restrict__ cos,
+                                               const float* __restrict__ sin, int st,
+                                               bf16* __restrict__ dst) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int c0 = lane * 4;
+  constexpr int PER_WARP = ROWS / NWARPS;
+  constexpr int U = PER_WARP < 4 ? PER_WARP : 4;
+#pragma unroll 1
+  for (int i0 = 0; i0 < PER_WARP; i0 += U) {
+    float xv[U][4], cv[U][4], sv[U][4];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int row = row0 + warp * PER_WARP + i0 + u;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) xv[u][j] = cv[u][j] = sv[u][j] = 0.f;
+      if (row < S) {
+        const uint2 raw = *reinterpret_cast<const uint2*>(x + (size_t)row * row_stride + c0);
+        const bf16* p = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) xv[u][j] = __bfloat162float(p[j]);
+        const float4 c4 = *reinterpret_cast<const float4*>(cos + (size_t)row * D + c0);
+        const float4 s4 = *reinterpret_cast<const float4*>(sin + (size_t)row * D + c0);
+        cv[u][0] = c4.x; cv[u][1] = c4.y; cv[u][2] = c4.z; cv[u][3] = c4.w;
+        sv[u][0] = s4.x; sv[u][1] = s4.y; sv[u][2] = s4.z; sv[u][3] = s4.w;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = warp * PER_WARP + i0 + u;
+      const int row = row0 + i;
+      float ss = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) ss += xv[u][j] * xv[u][j];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+      const float r = rsqrtf(ss / (float)D + EPS);
+      const float* s = scale2 + (row < st ? 0 : D) + c0;
+      float us[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) us[j] = bf16_round(__fmul_rn(__fmul_rn(xv[u][j], r), s[j]));
+      __align__(8) bf16 y[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float partner = __shfl_xor_sync(0xffffffffu, us[j], 16);
+        const float rot = lane < 16 ? -partner : partner;
+        y[j] = __float2bfloat16(__fadd_rn(__fmul_rn(us[j], cv[u][j]), __fmul_rn(rot, sv[u][j])));
+      }
+      *reinterpret_cast<uint2*>(dst + i * LD + c0) = *reinterpret_cast<const uint2*>(y);
+    }
+  }
+}
+
+// Fragment layout of mma m16n8k16 for lane = 4 * g + t: an accumulator
+// c[0..1] holds (row g, cols 2t, 2t+1) and c[2..3] (row g+8, the same cols);
+// so this thread owns rows g and g+8 of its warp's 16, two columns of each
+// 8-column tile, and a row's four owners are lanes 4g .. 4g+3.
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_nr_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const float* __restrict__ q_scale2,
+                    const float* __restrict__ k_scale2, const float* __restrict__ cos,
+                    const float* __restrict__ sin, long long cs_bstride,
+                    const int* __restrict__ seg, bf16* __restrict__ out,
+                    float* __restrict__ lse, int S, int H, int st, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* Kb = Qs + BQ * LD;                               // [2][BK][LD]
+  bf16* Vb = Kb + 2 * BK * LD;                           // [2][BK][LD]
+  int* segk = reinterpret_cast<int*>(Vb + 2 * BK * LD);  // [2][BK]
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * BQ;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int row_stride = H * D;
+  const size_t head_off = ((size_t)b * S * H + h) * D;
+  const float* cb = cos + (size_t)b * cs_bstride;
+  const float* sb = sin + (size_t)b * cs_bstride;
+  const int* segb = seg ? seg + (size_t)b * S : nullptr;
+  const int wrow = warp * 16;
+
+  // K/V tile k0, normed and roped (k) or as it is (v), into buffer `buf`, and
+  // its key segment ids; one validity rule for every case: keys past S carry
+  // segment 0, and without segment ids every real token is segment 1
+  auto fill = [&](int buf, int k0) {
+    constexpr int VITER = BK * (D / 8) / NTHREADS;
+    uint4 vr[VITER];
+#pragma unroll
+    for (int j = 0; j < VITER; ++j) {  // v loads first: in flight during the k prologue
+      const int i = tid + j * NTHREADS;
+      const int row = k0 + i / (D / 8), c = (i % (D / 8)) * 8;
+      vr[j] = row < S ? *reinterpret_cast<const uint4*>(v + head_off + (size_t)row * row_stride + c)
+                      : make_uint4(0u, 0u, 0u, 0u);
+    }
+    norm_rope_tile<BK>(k + head_off, row_stride, k0, S, k_scale2, cb, sb, st, Kb + buf * BK * LD);
+#pragma unroll
+    for (int j = 0; j < VITER; ++j) {
+      const int i = tid + j * NTHREADS;
+      *reinterpret_cast<uint4*>(Vb + buf * BK * LD + (i / (D / 8)) * LD + (i % (D / 8)) * 8) = vr[j];
+    }
+    if (tid < BK) {
+      const int row = k0 + tid;
+      segk[buf * BK + tid] = row < S ? (segb ? segb[row] : 1) : 0;
+    }
+  };
+
+  norm_rope_tile<BQ>(q + head_off, row_stride, q0, S, q_scale2, cb, sb, st, Qs);
+  fill(0, 0);
+  __syncthreads();
+
+  // this warp's 16 normed q rows as A fragments, one per 16-channel slice
+  uint32_t qf[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    ldsm_x4(qf[kk], Qs + (wrow + (lane % 16)) * LD + kk * 16 + (lane / 16) * 8);
+
+  int segq[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + wrow + g + 8 * i;
+    segq[i] = row < S ? (segb ? segb[row] : 1) : 0;
+  }
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float o[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+
+  // double-buffered K/V: tile it + 1 is filled while no warp reads its buffer
+  // any more, so one barrier per tile orders both hand-overs
+  int it = 0;
+#pragma unroll 1
+  for (int k0 = 0; k0 < S; k0 += BK, ++it) {
+    const int cur = it & 1;
+    const bf16* Ks = Kb + cur * BK * LD;
+    const bf16* Vs = Vb + cur * BK * LD;
+    const int* sk_tile = segk + cur * BK;
+
+    // scores of this warp's 16 rows against the 64 keys: s[n] is keys 8n .. 8n+7
+    float s[BK / 8][4];
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+      for (int np = 0; np < BK / 16; ++np) {
+        // matrices: keys +0/+8 (lane / 16) x channels +0/+8 ((lane / 8) % 2)
+        uint32_t kb[4];
+        ldsm_x4(kb, Ks + (np * 16 + (lane / 16) * 8 + (lane % 8)) * LD + kk * 16 +
+                        ((lane / 8) % 2) * 8);
+        mma_bf16(s[2 * np], qf[kk], kb[0], kb[1]);
+        mma_bf16(s[2 * np + 1], qf[kk], kb[2], kb[3]);
+      }
+    }
+
+    // online softmax; a masked score is exactly NEG_INF and gets p = 0
+    float tmax[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int sk = sk_tile[8 * n + 2 * t + e];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const bool ok = segq[i] != 0 && sk == segq[i];
+          const float val = ok ? s[n][2 * i + e] * scale : NEG_INF;
+          s[n][2 * i + e] = val;
+          tmax[i] = fmaxf(tmax[i], val);
+        }
+      }
+    }
+    float alpha[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 1));
+      tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 2));
+      const float m_new = fmaxf(m[i], tmax[i]);
+      alpha[i] = __expf(m[i] - m_new);
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = c / 2;
+        const float p = s[n][c] == NEG_INF ? 0.f : __expf(s[n][c] - m[i]);
+        psum[i] += p;
+        s[n][c] = p;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 1);
+      psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 2);
+      l[i] = l[i] * alpha[i] + psum[i];
+    }
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+
+    // out += p v: p (rounded to bf16) as A fragments straight from the score
+    // accumulators — keys 16kk .. 16kk+15 are score tiles 2kk and 2kk+1
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      uint32_t pf[4];
+      pf[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pf[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pf[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pf[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        // transposed matrices: keys +0/+8 ((lane / 8) % 2) x channels +0/+8 (lane / 16)
+        uint32_t vb[4];
+        ldsm_x4_t(vb, Vs + (kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LD + dp * 16 +
+                          (lane / 16) * 8);
+        mma_bf16(o[2 * dp], pf, vb[0], vb[1]);
+        mma_bf16(o[2 * dp + 1], pf, vb[2], vb[3]);
+      }
+    }
+    if (k0 + BK < S) fill(cur ^ 1, k0 + BK);
+    __syncthreads();
+  }
+
+  // epilogue: normalise, round to bf16, and stage this warp's 16 rows in its
+  // own rows of Qs (no other warp reads them) for 16-byte coalesced stores
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) inv[i] = 1.f / (l[i] == 0.f ? 1.f : l[i]);
+  bf16* stage = Qs + wrow * LD;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      *reinterpret_cast<uint32_t*>(stage + (g + 8 * i) * LD + 8 * n + 2 * t) =
+          pack_bf16(o[n][2 * i] * inv[i], o[n][2 * i + 1] * inv[i]);
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < 16 * (D / 8) / 32; ++j) {
+    const int idx = j * 32 + lane;
+    const int r = idx / (D / 8), c = (idx % (D / 8)) * 8;
+    const int row = q0 + wrow + r;
+    if (row < S)
+      *reinterpret_cast<uint4*>(out + head_off + (size_t)row * row_stride + c) =
+          *reinterpret_cast<const uint4*>(stage + r * LD + c);
+  }
+  if (t == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = q0 + wrow + g + 8 * i;
+      if (row < S) lse[((size_t)b * H + h) * S + row] = m[i] + logf(l[i] == 0.f ? 1.f : l[i]);
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int qflux_flash_nr_fwd(const void* q, const void* k, const void* v,
+                                  const void* q_scale2, const void* k_scale2,
+                                  const void* cos, const void* sin, long long cs_bstride,
+                                  const void* seg, void* out, void* lse, int B, int S,
+                                  int H, int st, float scale, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(flash_nr_fwd_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((S + BQ - 1) / BQ, H, B);
+  flash_nr_fwd_kernel<<<grid, NTHREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const float*>(q_scale2), static_cast<const float*>(k_scale2),
+      static_cast<const float*>(cos), static_cast<const float*>(sin), cs_bstride,
+      static_cast<const int*>(seg), static_cast<bf16*>(out), static_cast<float*>(lse), S, H,
+      st, scale);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* qflux_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -1,0 +1,123 @@
+"""Weight bridge: the JAX package's parameter trees → the port's modules.
+
+Takes the nested-dict trees of qflux_tpu (leaves as numpy arrays, or anything
+`np.asarray` accepts) — the FLUX DiT tree from `flux.init` or
+`porting.convert_flux_transformer`, the VAE tree, the LoRA tree — and loads
+them into the port, so that both packages compute on the same weights:
+
+  * stacked `[L, ...]` leaves ("dual", "single") are unstacked into the
+    `nn.ModuleList`s;
+  * a dense `kernel [in, out]` becomes `weight [out, in]`;
+  * a conv `kernel` HWIO becomes `weight` OIHW;
+  * the JAX MLP nodes "in"/"out" are the modules `lin_in`/`lin_out`.
+
+This module imports no jax; the trees come in as plain dicts of arrays.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from qflux_tpu_torch.ops.layers import LoraTree, raise_quantized
+
+_RENAME = {"in": "lin_in", "out": "lin_out"}
+
+
+def _np32(x) -> np.ndarray:
+    a = np.asarray(x)
+    if a.dtype.kind == "V" or a.dtype.name == "bfloat16":  # ml_dtypes bf16
+        a = a.astype(np.float32)
+    # torch.from_numpy wants a writable array (jax hands out read-only views)
+    return a if a.flags.writeable else a.copy()
+
+
+def _child(module: nn.Module, key: str) -> nn.Module:
+    name = _RENAME.get(key, key)
+    child = getattr(module, name, None)
+    if not isinstance(child, nn.Module):
+        raise KeyError(f"{type(module).__name__} has no submodule {name!r}")
+    return child
+
+
+def _load(module: nn.Module, tree: Mapping[str, Any], loaded: set, path: str) -> None:
+    for key, val in tree.items():
+        if key.startswith("kernel_q"):
+            raise_quantized(key)
+        if isinstance(val, Mapping):
+            child = _child(module, key)
+            if isinstance(child, nn.ModuleList):
+                for i, blk in enumerate(child):
+                    _load(blk, _index(val, i), loaded, f"{path}{key}/{i}/")
+            else:
+                _load(child, val, loaded, f"{path}{key}/")
+            continue
+        arr = _np32(val)
+        if key == "kernel":
+            param = module.weight
+            arr = arr.T if arr.ndim == 2 else arr.transpose(3, 2, 0, 1)  # HWIO → OIHW
+        else:
+            param = getattr(module, key, None)
+            if not isinstance(param, nn.Parameter):
+                raise KeyError(f"{path}{key}: {type(module).__name__} has no parameter {key!r}")
+        if tuple(param.shape) != arr.shape:
+            raise ValueError(f"{path}{key}: tree {arr.shape} vs module {tuple(param.shape)}")
+        with torch.no_grad():
+            param.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+        loaded.add(id(param))
+
+
+def _index(tree: Mapping[str, Any], i: int) -> dict:
+    return {k: (_index(v, i) if isinstance(v, Mapping) else np.asarray(v)[i])
+            for k, v in tree.items()}
+
+
+def load_params(module: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
+    """Copy a JAX parameter tree into `module` (any dtype/device the module
+    has); raises if a leaf has no parameter, a shape differs, or a parameter
+    of the module is left unset."""
+    loaded: set = set()
+    _load(module, tree, loaded, "")
+    missing = [n for n, p in module.named_parameters() if id(p) not in loaded]
+    if missing:
+        raise KeyError(f"parameters the tree did not set: {missing[:8]}")
+    return module
+
+
+def load_vae_params(vae: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
+    """The JAX VAE tree {"encoder", "decoder"} into the port's VAE; the
+    encoder is not ported yet, so its subtree is not read."""
+    return load_params(vae, {"decoder": tree["decoder"]})
+
+
+def lora_from_tree(model: nn.Module, tree: Mapping[str, Any], device=None,
+                   dtype=torch.float32) -> LoraTree:
+    """JAX LoRA tree (nested, stacked [L, ...] under "dual"/"single") → the
+    port's flat {path: {"a", "b", "scaling"}} dict, keyed by the model's
+    module paths ("dual/0/attn/to_q")."""
+    out: LoraTree = {}
+
+    def leaf(node):
+        scaling = np.asarray(node.get("scaling", 1.0), np.float32)
+        return {"a": torch.from_numpy(_np32(node["a"])).to(device=device, dtype=dtype),
+                "b": torch.from_numpy(_np32(node["b"])).to(device=device, dtype=dtype),
+                "scaling": float(scaling)}
+
+    def rec(module, node, path):
+        if "a" in node and "b" in node and not isinstance(node["a"], Mapping):
+            out[path.rstrip("/")] = leaf(node)
+            return
+        for key, val in node.items():
+            name = _RENAME.get(key, key)
+            child = _child(module, key)
+            if isinstance(child, nn.ModuleList):
+                for i, blk in enumerate(child):
+                    rec(blk, _index(val, i), f"{path}{name}/{i}/")
+            else:
+                rec(child, val, f"{path}{name}/")
+
+    rec(model, tree, "")
+    return out

@@ -1,0 +1,265 @@
+"""FLUX MMDiT (19 dual-stream + 38 single-stream blocks) in PyTorch.
+
+Counterpart of qflux_tpu/models/flux/transformer.py.  The JAX model is a
+pure function over a stacked-leaf pytree iterated with `lax.scan`; here the
+blocks are `DualBlock`/`SingleBlock` modules held in `nn.ModuleList`s and run
+in a Python loop.  The math, the layouts and the cast points are the JAX
+package's: rotate-half RoPE with q/k channels permuted by the JAX weight
+converter, the split single-block `proj_out`/`proj_out_mlp`, and joint
+attention through `ops.attention.qk_norm_rope_attention`, which runs the
+fused kernel K1 on the card.  Inference only: there is no remat.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from qflux_tpu_torch.models.common.embeddings import mlp_silu, sinusoidal_embedding
+from qflux_tpu_torch.ops.attention import qk_norm_rope_attention
+from qflux_tpu_torch.ops.layers import MLP, Dense, dense
+from qflux_tpu_torch.ops.norms import ada_ln_mods, layer_norm, modulate
+from qflux_tpu_torch.ops.rope import rope_from_coords
+
+
+@dataclasses.dataclass(frozen=True)
+class FluxConfig:
+    patch_size: int = 1
+    in_channels: int = 64
+    out_channels: int = 64
+    num_layers: int = 19
+    num_single_layers: int = 38
+    attention_head_dim: int = 128
+    num_attention_heads: int = 24
+    joint_attention_dim: int = 4096
+    pooled_projection_dim: int = 768
+    guidance_embeds: bool = True  # FLUX.1-Kontext-dev is guidance-distilled
+    axes_dims_rope: tuple[int, ...] = (16, 56, 56)
+    mlp_ratio: float = 4.0
+
+    @property
+    def dim(self) -> int:
+        return self.num_attention_heads * self.attention_head_dim
+
+    @classmethod
+    def tiny(cls) -> "FluxConfig":
+        """Test-scale topology, as the JAX package's FluxConfig.tiny()."""
+        return cls(num_layers=2, num_single_layers=4, attention_head_dim=32,
+                   num_attention_heads=4, joint_attention_dim=64,
+                   in_channels=16, out_channels=16,
+                   pooled_projection_dim=32, axes_dims_rope=(8, 12, 12))
+
+
+# ---------------------------------------------------------------------------
+# modules
+
+class RMSScale(nn.Module):
+    """The learned scale of a qk-RMSNorm ({"scale": [D]} in the JAX tree)."""
+
+    def __init__(self, dim: int, device=None, dtype=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(dim, device=device, dtype=dtype),
+                                  requires_grad=False)
+
+
+class AdaProj(nn.Module):
+    """AdaLN modulation projection ({"proj": dense} in the JAX tree)."""
+
+    def __init__(self, dim: int, n_mods: int, device=None, dtype=None):
+        super().__init__()
+        self.proj = Dense(dim, n_mods * dim, device=device, dtype=dtype)
+
+
+class DualAttn(nn.Module):
+    def __init__(self, cfg: FluxConfig, device=None, dtype=None):
+        super().__init__()
+        kw = {"device": device, "dtype": dtype}
+        dim, dh = cfg.dim, cfg.attention_head_dim
+        for name in ("to_q", "to_k", "to_v", "to_out", "add_q", "add_k", "add_v", "add_out"):
+            self.add_module(name, Dense(dim, dim, **kw))
+        for name in ("norm_q", "norm_k", "norm_added_q", "norm_added_k"):
+            self.add_module(name, RMSScale(dh, **kw))
+
+
+class SingleAttn(nn.Module):
+    def __init__(self, cfg: FluxConfig, device=None, dtype=None):
+        super().__init__()
+        kw = {"device": device, "dtype": dtype}
+        dim, dh = cfg.dim, cfg.attention_head_dim
+        for name in ("to_q", "to_k", "to_v"):
+            self.add_module(name, Dense(dim, dim, **kw))
+        for name in ("norm_q", "norm_k"):
+            self.add_module(name, RMSScale(dh, **kw))
+
+
+class DualBlock(nn.Module):
+    def __init__(self, cfg: FluxConfig, device=None, dtype=None):
+        super().__init__()
+        kw = {"device": device, "dtype": dtype}
+        dim, hidden = cfg.dim, int(cfg.dim * cfg.mlp_ratio)
+        self.img_mod = AdaProj(dim, 6, **kw)
+        self.txt_mod = AdaProj(dim, 6, **kw)
+        self.attn = DualAttn(cfg, **kw)
+        self.img_mlp = MLP(dim, hidden, **kw)
+        self.txt_mlp = MLP(dim, hidden, **kw)
+
+
+class SingleBlock(nn.Module):
+    def __init__(self, cfg: FluxConfig, device=None, dtype=None):
+        super().__init__()
+        kw = {"device": device, "dtype": dtype}
+        dim, hidden = cfg.dim, int(cfg.dim * cfg.mlp_ratio)
+        self.mod = AdaProj(dim, 3, **kw)
+        self.attn = SingleAttn(cfg, **kw)
+        self.proj_mlp = Dense(dim, hidden, **kw)
+        # split proj_out, as the JAX tree: o @ W[:d] (+ bias) + mlp @ W[d:]
+        self.proj_out = Dense(dim, dim, **kw)
+        self.proj_out_mlp = Dense(hidden, dim, bias=False, **kw)
+
+
+class FluxTransformer(nn.Module):
+    def __init__(self, cfg: FluxConfig, device=None, dtype=None):
+        super().__init__()
+        kw = {"device": device, "dtype": dtype}
+        dim = cfg.dim
+        self.cfg = cfg
+        self.x_embedder = Dense(cfg.in_channels, dim, **kw)
+        self.context_embedder = Dense(cfg.joint_attention_dim, dim, **kw)
+        self.time_in = MLP(256, dim, out_dim=dim, **kw)
+        if cfg.pooled_projection_dim:
+            self.pooled_in = MLP(cfg.pooled_projection_dim, dim, out_dim=dim, **kw)
+        if cfg.guidance_embeds:
+            self.guidance_in = MLP(256, dim, out_dim=dim, **kw)
+        self.dual = nn.ModuleList(DualBlock(cfg, **kw) for _ in range(cfg.num_layers))
+        self.single = nn.ModuleList(SingleBlock(cfg, **kw) for _ in range(cfg.num_single_layers))
+        self.norm_out = AdaProj(dim, 2, **kw)
+        self.proj_out = Dense(dim, cfg.patch_size ** 2 * cfg.out_channels, **kw)
+
+
+def init(generator: torch.Generator, cfg: FluxConfig, device=None,
+         dtype=torch.bfloat16) -> FluxTransformer:
+    """Random weights on `device` from `generator`, with `dense_init`'s
+    bounds (U(±1/sqrt(in)) for kernel and bias) and unit norm scales."""
+    model = FluxTransformer(cfg, device=device, dtype=dtype)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, Dense):
+                mod.init_(generator)
+    return model
+
+
+# ---------------------------------------------------------------------------
+# forward
+
+def _heads(x, n_heads):
+    b, s, _ = x.shape
+    return x.reshape(b, s, n_heads, -1)
+
+
+def _mlp(p: MLP, x):
+    return dense(p.lin_out, F.gelu(dense(p.lin_in, x), approximate="tanh"))
+
+
+def _dual_block(p: DualBlock, cfg, img, txt, temb, cos, sin, seg, attn_impl):
+    n_h = cfg.num_attention_heads
+    st = txt.shape[1]
+
+    i_shift, i_scale, i_gate, i_shift2, i_scale2, i_gate2 = ada_ln_mods(p.img_mod.proj, temb, 6)
+    t_shift, t_scale, t_gate, t_shift2, t_scale2, t_gate2 = ada_ln_mods(p.txt_mod.proj, temb, 6)
+
+    img_n = modulate(layer_norm(img), i_shift, i_scale)
+    txt_n = modulate(layer_norm(txt), t_shift, t_scale)
+
+    a = p.attn
+    # RAW q/k: the norm and rope run inside the fused attention (txt rows
+    # < st norm with the norm_added_* scales, img rows with norm_q/norm_k)
+    q = torch.cat([_heads(dense(a.add_q, txt_n), n_h), _heads(dense(a.to_q, img_n), n_h)], dim=1)
+    k = torch.cat([_heads(dense(a.add_k, txt_n), n_h), _heads(dense(a.to_k, img_n), n_h)], dim=1)
+    v = torch.cat([_heads(dense(a.add_v, txt_n), n_h), _heads(dense(a.to_v, img_n), n_h)], dim=1)
+    qs2 = torch.stack([a.norm_added_q.scale, a.norm_q.scale])
+    ks2 = torch.stack([a.norm_added_k.scale, a.norm_k.scale])
+
+    o = qk_norm_rope_attention(q, k, v, qs2, ks2, cos, sin, st,
+                               segment_ids=seg, impl=attn_impl)
+    o = o.reshape(o.shape[0], o.shape[1], -1)
+    txt_attn, img_attn = o[:, :st], o[:, st:]
+
+    img = img + i_gate[:, None, :].to(img.dtype) * dense(a.to_out, img_attn)
+    img_mlp_in = modulate(layer_norm(img), i_shift2, i_scale2)
+    img = img + i_gate2[:, None, :].to(img.dtype) * _mlp(p.img_mlp, img_mlp_in)
+
+    txt = txt + t_gate[:, None, :].to(txt.dtype) * dense(a.add_out, txt_attn)
+    txt_mlp_in = modulate(layer_norm(txt), t_shift2, t_scale2)
+    txt = txt + t_gate2[:, None, :].to(txt.dtype) * _mlp(p.txt_mlp, txt_mlp_in)
+    return img, txt
+
+
+def _single_block(p: SingleBlock, cfg, x, temb, cos, sin, seg, attn_impl):
+    n_h = cfg.num_attention_heads
+    shift, scale, gate = ada_ln_mods(p.mod.proj, temb, 3)
+    x_n = modulate(layer_norm(x), shift, scale)
+
+    a = p.attn
+    q = _heads(dense(a.to_q, x_n), n_h)
+    k = _heads(dense(a.to_k, x_n), n_h)
+    v = _heads(dense(a.to_v, x_n), n_h)
+    # single-stream: one scale for every row (st=0 → row 1 of the pair)
+    qs2 = torch.stack([a.norm_q.scale, a.norm_q.scale])
+    ks2 = torch.stack([a.norm_k.scale, a.norm_k.scale])
+    o = qk_norm_rope_attention(q, k, v, qs2, ks2, cos, sin, 0,
+                               segment_ids=seg, impl=attn_impl)
+    o = o.reshape(o.shape[0], o.shape[1], -1)
+
+    mlp = F.gelu(dense(p.proj_mlp, x_n), approximate="tanh")
+    out = dense(p.proj_out, o) + dense(p.proj_out_mlp, mlp)
+    return x + gate[:, None, :].to(x.dtype) * out
+
+
+def forward(params: FluxTransformer, cfg: FluxConfig,
+            hidden_states,              # [B, S_img, in_channels] packed latents
+            encoder_hidden_states,      # [B, S_txt, joint_attention_dim]
+            pooled_projections,         # [B, pooled_projection_dim] or None
+            timestep,                   # [B] in [0, 1]
+            img_ids,                    # [S_img, 3] or [B, S_img, 3]
+            txt_ids,                    # [S_txt, 3] or [B, S_txt, 3]
+            guidance=None,              # [B]
+            segment_ids: Optional[torch.Tensor] = None,  # [B, S_txt+S_img]; 0 = padding
+            attn_impl: str = "auto"):
+    """Returns [B, S_img, out_channels] velocity prediction (full sequence —
+    callers slice [:, :S_target] to drop control-image positions)."""
+    img = dense(params.x_embedder, hidden_states)
+    txt = dense(params.context_embedder, encoder_hidden_states)
+
+    temb = mlp_silu(params.time_in, sinusoidal_embedding(timestep))
+    if cfg.guidance_embeds:
+        if guidance is None:
+            raise ValueError("guidance_embeds model requires a guidance input")
+        temb = temb + mlp_silu(params.guidance_in, sinusoidal_embedding(guidance))
+    if cfg.pooled_projection_dim and pooled_projections is not None:
+        temb = temb + mlp_silu(params.pooled_in, pooled_projections.float())
+    temb = temb.to(img.dtype)
+
+    if txt_ids.dim() != img_ids.dim():  # mixed shared/per-sample ids
+        b = hidden_states.shape[0]
+        if txt_ids.dim() == 2:
+            txt_ids = txt_ids[None].expand(b, *txt_ids.shape)
+        if img_ids.dim() == 2:
+            img_ids = img_ids[None].expand(b, *img_ids.shape)
+    ids = torch.cat([txt_ids, img_ids], dim=-2)
+    cos, sin = rope_from_coords(ids, cfg.axes_dims_rope)
+
+    st = txt.shape[1]
+    for p in params.dual:
+        img, txt = _dual_block(p, cfg, img, txt, temb, cos, sin, segment_ids, attn_impl)
+    x = torch.cat([txt, img], dim=1)
+    for p in params.single:
+        x = _single_block(p, cfg, x, temb, cos, sin, segment_ids, attn_impl)
+    img = x[:, st:]
+
+    scale, shift = ada_ln_mods(params.norm_out.proj, temb, 2)  # continuous: scale first
+    img = modulate(layer_norm(img), shift, scale)
+    return dense(params.proj_out, img)

@@ -1,0 +1,148 @@
+"""Dense layers with LoRA, and the LoRA tree plumbing.
+
+Counterpart of qflux_tpu/ops/layers.py.  The JAX package keeps parameters in
+a nested-dict pytree and LoRA in a second tree grafted onto it by
+`merge_lora`; here a dense layer is a `Dense` module (weight [out, in], as
+nn.Linear) and a LoRA tree is a flat dict keyed by the module's '/'-path
+(`"dual/3/attn/to_q"`) holding {"a" [in, r], "b" [r, out], "scaling"}.
+`merge_lora` attaches those tensors to the matching `Dense` modules in place,
+beside the frozen base weight: there is never a second copy of the base.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Iterator, Optional
+
+import torch
+from torch import nn
+
+LoraTree = dict  # {"dual/0/attn/to_q": {"a", "b", "scaling"}, ...}
+
+
+class Dense(nn.Module):
+    """y = x @ W^T + b.  `lora` is None or the {"a", "b", "scaling"} dict
+    set by `merge_lora`."""
+
+    def __init__(self, in_dim: int, out_dim: int, bias: bool = True,
+                 device=None, dtype=None):
+        super().__init__()
+        kw = {"device": device, "dtype": dtype}
+        self.in_dim, self.out_dim = in_dim, out_dim
+        self.weight = nn.Parameter(torch.empty(out_dim, in_dim, **kw), requires_grad=False)
+        self.bias = (nn.Parameter(torch.empty(out_dim, **kw), requires_grad=False)
+                     if bias else None)
+        self.lora: Optional[dict] = None
+
+    def init_(self, generator: torch.Generator) -> None:
+        """Torch-nn.Linear-compatible init, as `dense_init`: U(±1/sqrt(in))."""
+        bound = 1.0 / (self.in_dim ** 0.5)
+        self.weight.uniform_(-bound, bound, generator=generator)
+        if self.bias is not None:
+            self.bias.uniform_(-bound, bound, generator=generator)
+
+
+class MLP(nn.Module):
+    """Linear → activation → Linear; `lin_in`/`lin_out` are the JAX tree's
+    "in"/"out" nodes."""
+
+    def __init__(self, dim: int, hidden: int, out_dim: Optional[int] = None,
+                 device=None, dtype=None):
+        super().__init__()
+        self.lin_in = Dense(dim, hidden, device=device, dtype=dtype)
+        self.lin_out = Dense(hidden, out_dim or dim, device=device, dtype=dtype)
+
+
+def _base_matmul(p: Dense, x):
+    """x @ W^T with an f32 result, as `jnp.dot(..., preferred_element_type=
+    f32)`: f32 inputs multiply in f32 (the weight cast to x.dtype, as JAX);
+    bf16 inputs accumulate in f32 and keep the f32 result (cuBLAS
+    `out_dtype` on the card; widened operands on the CPU, same math)."""
+    w = p.weight
+    if x.dtype == torch.float32:
+        return torch.matmul(x, w.to(x.dtype).t())
+    w = w.to(x.dtype)
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.is_cuda:
+        y = torch.mm(x2, w.t(), out_dtype=torch.float32)
+    else:
+        y = torch.mm(x2.float(), w.float().t())
+    return y.reshape(*x.shape[:-1], w.shape[0])
+
+
+def dense(p: Dense, x, lora_scale: float = 1.0):
+    """y = x@W + b [+ lora_scale · scaling · (x@a)@b], returned in x.dtype.
+
+    Cast points as in JAX: the base product accumulates and stays in f32;
+    both LoRA dots emit x.dtype and the scaling is rounded to x.dtype; the
+    delta and the bias are added in y's dtype (f32)."""
+    y = _base_matmul(p, x)
+    if p.lora is not None:
+        la, lb = p.lora["a"].to(x.dtype), p.lora["b"].to(x.dtype)
+        s = torch.as_tensor(float(p.lora.get("scaling", 1.0)) * lora_scale,
+                            dtype=x.dtype, device=x.device)
+        y = y + (torch.matmul(torch.matmul(x, la), lb) * s).to(y.dtype)
+    if p.bias is not None:
+        y = y + p.bias.to(y.dtype)
+    return y.to(x.dtype)
+
+
+def raise_quantized(kind: str):
+    """Quantized frozen bases (`kernel_q*` forms) are a later slice."""
+    raise NotImplementedError(
+        f"quantized dense form {kind!r} is not ported yet (ROADMAP.md: int8/int4 "
+        "bases come with the train-step and Qwen slices)")
+
+
+def iter_dense_paths(module: nn.Module) -> Iterator[tuple[str, Dense]]:
+    """(path, Dense) for every dense layer, path '/'-joined ("dual/0/attn/to_q")."""
+    for name, mod in module.named_modules():
+        if isinstance(mod, Dense):
+            yield name.replace(".", "/"), mod
+
+
+def merge_lora(model: nn.Module, lora: Optional[LoraTree]) -> nn.Module:
+    """Make `lora` the model's adapter set, in place: every Dense whose path
+    is a key of `lora` gets that {"a", "b", "scaling"} dict, every other
+    Dense gets none (so a later call without LoRA leaves no stale adapter).
+    The tensors are referenced, not copied.  Returns the model."""
+    lora = lora or {}
+    seen = set()
+    for path, node in iter_dense_paths(model):
+        leaf = lora.get(path)
+        if leaf is not None:
+            if leaf["a"].shape[-2] != node.in_dim or leaf["b"].shape[-1] != node.out_dim:
+                raise ValueError(f"LoRA {path}: a {tuple(leaf['a'].shape)} / b "
+                                 f"{tuple(leaf['b'].shape)} do not fit {node.in_dim}→{node.out_dim}")
+            seen.add(path)
+        node.lora = leaf
+    missing = sorted(set(lora) - seen)
+    if missing:
+        raise KeyError(f"LoRA paths with no dense layer in the model: {missing[:5]}")
+    return model
+
+
+def build_lora_tree(generator: torch.Generator, model: nn.Module,
+                    target_patterns: list[str], rank: int, alpha: float,
+                    dtype=torch.float32, init: str = "gaussian") -> LoraTree:
+    """A LoRA leaf for every dense layer whose '/'-path matches any regex in
+    target_patterns (reference LoraConfig.target_modules semantics): a
+    gaussian (·1/rank) or kaiming-uniform, b zeros, scaling alpha/rank.
+    Tensors live on the generator's device."""
+    pats = [re.compile(p) for p in target_patterns]
+    device = generator.device
+    tree: LoraTree = {}
+    for path, node in iter_dense_paths(model):
+        if not any(p.search(path) for p in pats):
+            continue
+        shape = (node.in_dim, rank)
+        if init == "gaussian":
+            a = torch.randn(shape, generator=generator, device=device, dtype=dtype) * (1.0 / rank)
+        else:  # kaiming-uniform, PEFT default
+            bound = (3.0 / node.in_dim) ** 0.5
+            a = torch.empty(shape, device=device, dtype=dtype).uniform_(
+                -bound, bound, generator=generator)
+        tree[path] = {"a": a,
+                      "b": torch.zeros((rank, node.out_dim), device=device, dtype=dtype),
+                      "scaling": alpha / rank}
+    return tree

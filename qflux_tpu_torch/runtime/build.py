@@ -1,0 +1,106 @@
+"""Build the port's CUDA kernels with nvcc and load them through ctypes.
+
+Every `qflux_tpu_torch/csrc/*.cu` file is compiled for Hopper (`sm_90a`) into
+ONE shared library with a plain C interface: no PyTorch headers, so the build
+takes seconds.  The library lands in `build/qflux_tpu_torch/` at the root of
+the checkout (listed in .gitignore), named by a hash of the sources and flags,
+so a changed kernel is rebuilt and an unchanged one is loaded as it is.
+
+The build happens at first use (`load_library()`), never at import: the CPU
+test suite imports every module on a machine without nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "qflux_tpu_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# name -> (restype, argtypes) of every C entry point the library exports;
+# pointers and the stream go as c_void_p (a bare Python int would be cut to
+# 32 bits)
+_SIGNATURES = {
+    "qflux_flash_nr_fwd": (_I, [_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
+                                _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P]),
+    "qflux_cuda_error_string": (ctypes.c_char_p, [_I]),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelLibrary:
+    lib: ctypes.CDLL
+    path: Path
+    build_seconds: float  # 0.0 when an existing build was loaded
+    log: str              # nvcc/ptxas output (registers, shared memory, spills)
+
+    def check(self, code: int, what: str) -> None:
+        """Raise if a C entry point returned a CUDA error."""
+        if code != 0:
+            msg = self.lib.qflux_cuda_error_string(code).decode()
+            raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
+                       "the port's CUDA kernels cannot be built on this machine")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libqflux_kernels-{h.hexdigest()[:16]}.so"
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> KernelLibrary:
+    """Build (if needed) and load the kernel library; raises if nvcc is
+    missing or the build fails.  Cached for the life of the process."""
+    path = library_path()
+    seconds, log = 0.0, ""
+    if not path.exists():
+        nvcc = _nvcc()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+        os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
+    lib = ctypes.CDLL(str(path))
+    for name, (restype, argtypes) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+    return KernelLibrary(lib=lib, path=path, build_seconds=seconds, log=log)

@@ -1,0 +1,125 @@
+"""FLUX.1-Kontext model adapter: weights, cached-embedding prep, velocity
+prediction and decoding for the port's Trainer.
+
+Counterpart of qflux_tpu/trainer/flux_kontext.py for the predict slice.  The
+batch is the embedding-cache format of the JAX package:
+
+    control_latents        [B, S_ctl, 64]   packed control latents
+    prompt_embeds          [B, S_txt, 4096] T5 sequence embeds
+    pooled_prompt_embeds   [B, 768]         CLIP pooled embeds
+    tgt_ids / ctl_ids      separately cached ids (→ img_ids)
+    txt_ids                [S_txt, 3]
+    guidance               [B] optional
+    segment_ids            [B, S_txt+S_img+S_ctl] optional (0 = padding)
+
+Text encoders and the VAE encoder (the cache pass) are a later slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+
+from qflux_tpu_torch.models.flux import transformer as flux
+from qflux_tpu_torch.models.flux import vae as flux_vae
+from qflux_tpu_torch.ops.packing import unpack_latents
+
+
+@dataclasses.dataclass
+class ModelBundle:
+    """The model components of one family."""
+
+    dit_cfg: Any
+    dit_params: Any
+    vae_cfg: Any = None
+    vae_params: Any = None
+
+
+@dataclasses.dataclass(frozen=True)
+class FluxKontextAdapter:
+    cfg: flux.FluxConfig
+    attn_impl: str = "auto"
+    vae_scale: int = 8
+
+    default_lora_targets = (
+        r"attn/(to_q|to_k|to_v|to_out|add_q|add_k|add_v|add_out)",
+    )
+
+    @classmethod
+    def load(cls, config, device, dtype=torch.bfloat16) -> tuple["FluxKontextAdapter", ModelBundle]:
+        """variant "test" → the tiny DiT and VAE; otherwise the published
+        FLUX.1-Kontext-dev topology (`FluxConfig()`, `VAEConfig()`) at full
+        width.  No checkpoint is read yet: the weights are synthetic, drawn
+        on `device` from generators seeded 0 (DiT) and 1 (VAE) with the
+        `dense_init`/`_conv_init` bounds.  The DiT is in `dtype`, the VAE in
+        float32."""
+        model = config.model
+        if getattr(model, "pretrained_model_name_or_path", None) or getattr(model, "dit_path", None):
+            raise NotImplementedError(
+                "loading FLUX.1-Kontext safetensors is not ported yet (ROADMAP.md: "
+                "real weights wait for checkpoint files in the repository)")
+        if model.variant == "test":
+            dit_cfg, vae_cfg = flux.FluxConfig.tiny(), flux_vae.VAEConfig.tiny()
+        else:
+            dit_cfg, vae_cfg = flux.FluxConfig(), flux_vae.VAEConfig()
+        device = torch.device(device)
+        dit = flux.init(torch.Generator(device).manual_seed(0), dit_cfg, device, dtype)
+        vae = flux_vae.init(torch.Generator(device).manual_seed(1), vae_cfg, device)
+        adapter = cls(dit_cfg, vae_scale=vae_cfg.downscale)
+        return adapter, ModelBundle(dit_cfg=dit_cfg, dit_params=dit, vae_cfg=vae_cfg,
+                                    vae_params=vae)
+
+    def latent_grid(self, height: int, width: int) -> tuple[int, int]:
+        return (height // (self.vae_scale * 2), width // (self.vae_scale * 2))
+
+    def prepare_cached_embeddings(self, emb: dict) -> dict:
+        """Rebuild img_ids from the separately cached target/control ids.
+        Single-res batches collapse to shared 2D ids; mixed-resolution
+        batches keep per-sample [B, S, 3] ids."""
+        if "img_ids" in emb or "tgt_ids" not in emb:
+            return emb
+        emb = dict(emb)
+        tgt = np.asarray(emb.pop("tgt_ids"))
+        ctl = np.asarray(emb.pop("ctl_ids"))
+        txt = np.asarray(emb["txt_ids"]) if "txt_ids" in emb else None
+        if tgt.ndim == 3:  # collated per-sample
+            ids = np.concatenate([tgt, ctl], axis=1)
+            same = bool((ids == ids[0]).all())
+            emb["img_ids"] = ids[0] if same else ids
+            if txt is not None:
+                emb["txt_ids"] = txt[0] if txt.ndim == 3 else txt
+        else:
+            emb["img_ids"] = np.concatenate([tgt, ctl], axis=0)
+            if txt is not None:
+                emb["txt_ids"] = txt
+        return emb
+
+    def predict_velocity(self, params, batch, latents, sigma):
+        """DiT forward over [noisy_target, control], sliced back to the
+        target tokens."""
+        ctrl = batch["control_latents"].to(latents.dtype)
+        inp = torch.cat([latents, ctrl], dim=1)
+        s_img = latents.shape[1]
+        guidance = batch.get("guidance")
+        if guidance is None and self.cfg.guidance_embeds:
+            guidance = torch.ones_like(sigma)
+        pred = flux.forward(
+            params, self.cfg, inp,
+            batch["prompt_embeds"].to(latents.dtype),
+            batch["pooled_prompt_embeds"].to(latents.dtype),
+            sigma, batch["img_ids"], batch["txt_ids"],
+            guidance=guidance, segment_ids=batch.get("segment_ids"),
+            attn_impl=self.attn_impl)
+        return pred[:, :s_img]
+
+    @torch.inference_mode()
+    def decode_latents(self, bundle: ModelBundle, packed, height: int, width: int) -> np.ndarray:
+        """Packed latents → uint8 RGB images [B, H, W, 3]."""
+        gh, gw = self.latent_grid(height, width)
+        lat = unpack_latents(packed, gh * 2, gw * 2)
+        img = flux_vae.decode(bundle.vae_params, bundle.vae_cfg, lat.float())
+        img = (torch.clamp(img, -1, 1) + 1) * 127.5
+        return torch.round(img).to(torch.uint8).cpu().numpy()
