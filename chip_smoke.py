@@ -3,25 +3,35 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — FLUX.1-Kontext-dev predict from cached
-embeddings at 512² with one 512² control image, full width (19 dual + 38
-single blocks, synthetic bf16 weights from a seed), a rank-16 LoRA on
-to_q/to_k/to_v/to_out, 20 Euler steps, full f32 VAE decode — in phases:
+Drives the port's two paths at full width (FLUX.1-Kontext-dev: 19 dual + 38
+single blocks, synthetic bf16 weights from a seed, a rank-16 LoRA on
+to_q/to_k/to_v/to_out, 512² target with one 512² control image and 512 T5
+tokens, S = 2560): predict from cached embeddings (20 Euler steps, full f32
+VAE decode) and the LoRA train step from cached embeddings (MseLoss,
+optax.adamw defaults, remat "flash"), in phases:
 
   1. device: the card's name and power limit (nvidia-smi); TF32 off;
   2. build: the hand-written kernels from qflux_tpu_torch/csrc;
   3. kernel K1 (csrc/flash_nr_fwd.cu) against its plain PyTorch version on
      the card, at the main path's shapes and at longer/masked ones, with
      median times over 10 runs;
-  4. the slice: one full-width forward through K1 and through the plain
+  4. kernel K2 (csrc/flash_nr_bwd.cu) against its plain version (f32
+     autograd through the plain forward) at the same five shapes, with
+     nonzero cotangents on padded rows;
+  5. predict: one full-width forward through K1 and through the plain
      attention (relative L2 error), then three requests through
      Trainer.predict_from_embeddings, each checked for uint8 images, finite
-     latents and exactly 57 × 20 kernel launches.
+     latents and exactly 57 × 20 K1 launches;
+  6. train: one full-width step's LoRA gradients through K1 + K2 and
+     through the plain attention (relative L2 error), then Trainer.fit at
+     bs=1 and bs=2, checked for finite losses, a LoRA b that moved, and
+     exactly 57 K1 and 57 K2 launches per step.
 
-Prints the kernel table as one JSON line before the last, and as the last
-line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
-Exits non-zero, without that line, if there is no CUDA device or any phase
-fails.
+Each path runs with the launch counts set to 0 just before it and read just
+after.  Prints the kernel table as one JSON line before the last, and as the
+last line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
+...}}.  Exits non-zero, without that line, if there is no CUDA device or any
+phase fails.
 """
 
 from __future__ import annotations
@@ -51,8 +61,27 @@ LSE_ATOL = 1e-4
 # later blocks; 3e-2 is ~8 ulps, loose enough for that and far below the
 # O(1) error of a wrong kernel.
 FORWARD_REL_TOL = 3e-2
+# K2 against its f32 plain version, per gradient.  dq/dk/dv leave the kernel
+# in bf16 (one ulp is 2^-8 = 3.9e-3 relative) and the kernel rounds p and ds
+# to bf16 before their products, as the TPU kernel does: measured ~4.8e-3
+# relative L2 on every gradient.  1.5e-2 is ~3x that, and far below the
+# O(1) error of a wrong or missing term.  The scale-pair gradients are f32
+# sums over all rows of those bf16-rounded products: the same bound.
+BWD_REL_TOL = 1.5e-2
+# and elementwise, against the largest |gradient| of the same tensor (the
+# max error sits on large elements: measured ~6e-3 of max |ref|)
+BWD_MAX_TOL = 2e-2
+# Full-width LoRA gradients, K1 + K2 vs the plain attention under autograd,
+# relative L2 over every a and b: the two paths round to bf16 at different
+# points in each of the 57 blocks' backward (the plain path at every cast of
+# the norm / rope chain, the kernels only at their outputs), and the
+# residual stream carries those differences through the earlier blocks.
+# 1e-1 is loose for that and far below the error of a lost attention
+# gradient (q/k/v LoRA gradients at 0, relative error ~1).
+GRAD_REL_TOL = 1e-1
 STEPS = 20
 HEIGHT = WIDTH = 512
+TRAIN_STEPS = 4  # Trainer.fit steps at each batch size
 
 
 def _nvidia_smi() -> str:
@@ -88,25 +117,32 @@ def _attn_inputs(gen, b, s, h=24, d=128):
     return q, k, v, qs2, ks2, cos, sin
 
 
+CASES = [  # name, B, S, st, segment ids
+    ("dual_512sq", 1, 2560, 512, None),
+    ("single_512sq", 1, 2560, 0, None),
+    ("masked_bs2", 2, 2560, 512, "masked"),
+    ("832x576", 1, 4256, 512, None),
+    ("s8192", 1, 8192, 512, None),
+]
+
+
+def _segments(seg_kind, b, s):
+    if not seg_kind:
+        return None
+    seg = torch.ones(b, s, dtype=torch.int32, device="cuda")
+    seg[0, 2100:] = 0          # sample 0 padded from token 2100
+    seg[1, 1300:] = 2          # sample 1: two segments
+    return seg
+
+
 def phase_kernel(card: str) -> dict:
     from qflux_tpu_torch.ops import flash_nr
 
     gen = torch.Generator("cuda").manual_seed(0)
-    cases = [  # name, B, S, st, segment ids
-        ("dual_512sq", 1, 2560, 512, None),
-        ("single_512sq", 1, 2560, 0, None),
-        ("masked_bs2", 2, 2560, 512, "masked"),
-        ("832x576", 1, 4256, 512, None),
-        ("s8192", 1, 8192, 512, None),
-    ]
     main = None
-    for name, b, s, st, seg_kind in cases:
+    for name, b, s, st, seg_kind in CASES:
         args = _attn_inputs(gen, b, s)
-        seg = None
-        if seg_kind:
-            seg = torch.ones(b, s, dtype=torch.int32, device="cuda")
-            seg[0, 2100:] = 0          # sample 0 padded from token 2100
-            seg[1, 1300:] = 2          # sample 1: two segments
+        seg = _segments(seg_kind, b, s)
         out, lse = flash_nr.flash_attention_nr(*args, st, segment_ids=seg)
         torch.cuda.synchronize()
         ref, ref_lse = flash_nr.flash_attention_nr_reference(*args, st, segment_ids=seg)
@@ -133,6 +169,54 @@ def phase_kernel(card: str) -> dict:
     return main
 
 
+def phase_kernel_bwd(card: str) -> dict:
+    """K2 against flash_attention_nr_bwd_reference at the K1 cases, do ~ N(0,
+    1) on every row (padded ones included), with median times."""
+    from qflux_tpu_torch.ops import flash_nr
+
+    gen = torch.Generator("cuda").manual_seed(1)
+    main = None
+    for name, b, s, st, seg_kind in CASES:
+        args = _attn_inputs(gen, b, s)
+        do = torch.randn(b, s, 24, 128, device="cuda", generator=gen).to(torch.bfloat16)
+        seg = _segments(seg_kind, b, s)
+        scale = 128 ** -0.5
+        out, lse = flash_nr._flash_nr_cuda(*args, st, seg, scale)
+        got = flash_nr._flash_nr_bwd_cuda(*args, st, seg, scale, out, lse, do)
+        torch.cuda.synchronize()
+        ref = flash_nr.flash_attention_nr_bwd_reference(*args, st, do, segment_ids=seg,
+                                                        scale=scale)
+        ok, errs, max_err = True, [], 0.0
+        for gname, g, r in zip(("dq", "dk", "dv", "dqs", "dks"), got, ref):
+            diff = g.float() - r
+            rel = (diff.norm() / r.norm()).item()
+            mx = diff.abs().max().item()
+            ok = ok and rel <= BWD_REL_TOL and mx <= BWD_MAX_TOL * r.abs().max().item()
+            ok = ok and bool(torch.isfinite(g).all())
+            if gname in ("dq", "dk", "dv"):
+                max_err = max(max_err, mx)
+            errs.append(f"{gname} rel {rel:.3e} max {mx:.3e}")
+        if seg_kind:
+            ok = ok and all(bool((g[0, 2100:] == 0).all()) for g in got[:3])
+        del got, ref
+        torch.cuda.empty_cache()
+        ms = _median_ms(lambda: flash_nr._flash_nr_bwd_cuda(*args, st, seg, scale, out, lse, do))
+        plain_ms = _median_ms(lambda: flash_nr.flash_attention_nr_bwd_reference(
+            *args, st, do, segment_ids=seg, scale=scale), n=5)
+        gflop = 14.0 * b * 24 * s * s * 128 / 1e9  # seven S x S x D GEMMs
+        print(f"[kernel_bwd] {name}: B={b} S={s} H=24 D=128 st={st} seg={seg_kind or 'none'} "
+              f"{'; '.join(errs)} (tol rel {BWD_REL_TOL}, max {BWD_MAX_TOL} x max|ref|) "
+              f"kernel {ms:.3f} ms ({gflop / ms:.1f} TFLOP/s) plain {plain_ms:.3f} ms [{card}]",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"K2 disagrees with its plain version in case {name}")
+        if main is None:
+            main = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+        del args, out, lse, do
+        torch.cuda.empty_cache()
+    return main
+
+
 def _request(rng, cfg, gh, gw, b):
     """A cached-embedding request: 512 T5 tokens × 4096, pooled CLIP 768,
     one control image of gh×gw packed tokens × 64 channels."""
@@ -150,7 +234,7 @@ def _request(rng, cfg, gh, gw, b):
     }
 
 
-def phase_slice(card: str) -> int:
+def phase_predict(card: str):
     from qflux_tpu_torch.ops import flash_nr
     from qflux_tpu_torch.ops.layers import merge_lora
     from qflux_tpu_torch.trainer.base import Trainer, predict_config
@@ -165,10 +249,7 @@ def phase_slice(card: str) -> int:
     n_vae = sum(p.numel() for p in trainer.bundle.vae_params.parameters())
     lora = trainer.build_lora()
     gen = torch.Generator("cuda").manual_seed(7)
-    for leaf in lora.values():
-        # b ~ N(0, 0.005²): the LoRA delta is then about a tenth of the base
-        # projection, so the adapter visibly changes the output
-        leaf["b"].normal_(0.0, 0.005, generator=gen)
+    _perturb_b(lora, gen)
     n_lora = sum(leaf["a"].numel() + leaf["b"].numel() for leaf in lora.values())
     print(f"[slice] DiT {cfg.num_layers} dual + {cfg.num_single_layers} single, dim {cfg.dim}: "
           f"{n_dit} params, {b_dit} bytes bf16; VAE decoder {n_vae} params f32; LoRA "
@@ -225,7 +306,121 @@ def phase_slice(card: str) -> int:
             raise AssertionError(f"request {i}: non-finite latents")
         if launched != per_request:
             raise AssertionError(f"request {i}: {launched} K1 launches, expected {per_request}")
-    return flash_nr.KERNEL_LAUNCHES
+    return trainer, flash_nr.KERNEL_LAUNCHES
+
+
+def _perturb_b(lora, gen):
+    """b ~ N(0, 0.005²): the LoRA delta is then about a tenth of the base
+    projection, so the adapter visibly changes the output and every a has
+    a gradient."""
+    with torch.no_grad():
+        for leaf in lora.values():
+            leaf["b"].normal_(0.0, 0.005, generator=gen)
+
+
+def _train_batch(rng, cfg, gh, gw, b):
+    emb = _request(rng, cfg, gh, gw, b)
+    emb["image_latents"] = rng.standard_normal((b, gh * gw, cfg.in_channels)).astype(np.float32)
+    return emb
+
+
+def phase_train(card: str, trainer) -> tuple[int, int]:
+    """The full-width gradient check, then Trainer.fit at bs=1 and bs=2 on
+    the model the predict phase loaded.  Returns the K1 and K2 launches of
+    the fit runs."""
+    from qflux_tpu_torch.losses import MseLoss
+    from qflux_tpu_torch.ops import flash_nr
+    from qflux_tpu_torch.ops.layers import mark_trainable
+    from qflux_tpu_torch.trainer.base import Trainer, train_config
+    from qflux_tpu_torch.trainer.train_step import TrainStepConfig, _loss_for_microbatch
+
+    dit, cfg = trainer.bundle.dit_params, trainer.bundle.dit_cfg
+    n_blocks = cfg.num_layers + cfg.num_single_layers
+    rng = np.random.default_rng(1)
+    gh, gw = trainer.adapter.latent_grid(HEIGHT, WIDTH)
+
+    # one full-width step's LoRA gradients, K1 + K2 (remat "flash") vs the
+    # plain attention (remat "full": there is no kernel output to save)
+    tt = Trainer(train_config(variant="full"), device="cuda")
+    tt.adapter, tt.bundle = trainer.adapter, trainer.bundle
+    batch = tt._device_batch(_train_batch(rng, cfg, gh, gw, 1))
+    gen = torch.Generator("cuda").manual_seed(8)
+    noise = torch.randn(batch["image_latents"].shape, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    sigma = torch.full((1,), 0.6, device="cuda", dtype=torch.bfloat16)
+    lora = mark_trainable(tt.build_lora())
+    _perturb_b(lora, gen)
+    plain = dataclasses.replace(trainer.adapter, attn_impl="plain", remat_policy="full")
+    grads = {}
+    for name, adapter in (("kernels", trainer.adapter), ("plain", plain)):
+        for leaf in lora.values():
+            leaf["a"].grad = leaf["b"].grad = leaf["scaling"].grad = None
+        k1, k2 = flash_nr.KERNEL_LAUNCHES, flash_nr.BWD_KERNEL_LAUNCHES
+        t0 = time.perf_counter()
+        loss = _loss_for_microbatch(dit, lora, batch, noise, sigma, adapter.predict_velocity,
+                                    MseLoss(), TrainStepConfig())
+        loss.backward()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        grads[name] = {p: torch.cat([leaf["a"].grad.flatten(), leaf["b"].grad.flatten()])
+                       for p, leaf in lora.items()}
+        launched = (flash_nr.KERNEL_LAUNCHES - k1, flash_nr.BWD_KERNEL_LAUNCHES - k2)
+        print(f"[train] gradient check, {name}: loss {loss.item():.5f}, forward + backward "
+              f"{secs:.3f} s, K1/K2 launches {launched} [{card}]", flush=True)
+        if name == "kernels" and launched != (n_blocks, n_blocks):
+            raise AssertionError(f"the kernel step launched K1/K2 {launched} times, "
+                                 f"expected {n_blocks} each")
+    rels = {}
+    for group in ("to_q", "to_k", "to_v", "to_out", ""):
+        keys = [p for p in grads["plain"] if p.endswith(group)]
+        gk = torch.cat([grads["kernels"][p] for p in keys])
+        gp = torch.cat([grads["plain"][p] for p in keys])
+        rels[group or "all"] = (gk - gp).norm().item() / gp.norm().item()
+    print(f"[train] full-width LoRA gradients, K1+K2 vs plain attention: rel L2 err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+          + f" (tol {GRAD_REL_TOL} on all) [{card}]", flush=True)
+    if not rels["all"] <= GRAD_REL_TOL or not all(
+            bool(torch.isfinite(g).all()) for g in grads["kernels"].values()):
+        raise AssertionError("full-width LoRA gradients through K1 + K2 disagree with the "
+                             "plain path")
+    if not all(g.abs().sum() > 0 for p, g in grads["kernels"].items()):
+        raise AssertionError("a LoRA layer got no gradient through the kernels")
+    del grads, lora, batch, noise, loss
+    torch.cuda.empty_cache()
+
+    # the main path: Trainer.fit, counts reset just before each run
+    k1_total = k2_total = 0
+    for b in (1, 2):
+        tt = Trainer(train_config(variant="full", max_train_steps=TRAIN_STEPS), device="cuda")
+        tt.adapter, tt.bundle = trainer.adapter, trainer.bundle
+        batches = [_train_batch(rng, cfg, gh, gw, b) for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash_nr.KERNEL_LAUNCHES = flash_nr.BWD_KERNEL_LAUNCHES = 0
+        lora = tt.fit(batches)
+        k1, k2 = flash_nr.KERNEL_LAUNCHES, flash_nr.BWD_KERNEL_LAUNCHES
+        k1_total, k2_total = k1_total + k1, k2_total + k2
+        peak = torch.cuda.max_memory_allocated()
+        hist = tt.history
+        ms = [1000 * h["step_s"] for h in hist]
+        warm = statistics.median(ms[1:]) if len(ms) > 1 else ms[0]
+        steps = ", ".join(f"{m:.1f}" for m in ms)
+        losses = ", ".join(f"{h['loss']:.5f}" for h in hist)
+        norms = ", ".join(f"{h['grad_norm']:.4e}" for h in hist)
+        print(f"[train] fit bs={b}: {len(hist)} steps, ms/step {steps} (median after the "
+              f"first {warm:.1f}), peak mem {peak} bytes, loss {losses}, grad_norm {norms}, "
+              f"lr {hist[-1]['lr']:g}, K1 launches {k1}, K2 launches {k2} [{card}]", flush=True)
+        want = n_blocks * len(hist)
+        if len(hist) != TRAIN_STEPS or not all(np.isfinite(h["loss"]) for h in hist):
+            raise AssertionError(f"fit bs={b}: {len(hist)} steps or non-finite losses")
+        if (k1, k2) != (want, want):
+            raise AssertionError(f"fit bs={b}: K1/K2 launched {k1}/{k2} times, expected "
+                                 f"{want} each ({n_blocks} per step)")
+        if not all(leaf["b"].abs().sum() > 0 for leaf in lora.values()):
+            raise AssertionError(f"fit bs={b}: a LoRA b did not move from zero")
+        del lora, batches, tt
+        torch.cuda.empty_cache()
+    return k1_total, k2_total
 
 
 def main() -> int:
@@ -252,14 +447,22 @@ def main() -> int:
     print(f"[build] {kl.path.name} in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {kl.build_seconds:.2f} s): {' | '.join(ptxas)} [{card}]", flush=True)
 
-    main_case = phase_kernel(card)
-    launches = phase_slice(card)
+    k1_case = phase_kernel(card)
+    k2_case = phase_kernel_bwd(card)
+    trainer, k1_predict = phase_predict(card)
+    k1_train, k2_train = phase_train(card, trainer)
 
-    print(json.dumps({"kernels": [{
-        "name": "flash_nr_fwd", "route": "cuda",
-        "source": "qflux_tpu_torch/csrc/flash_nr_fwd.cu",
-        "replaces": "qflux_tpu/ops/flash_nr.py:192",
-        "launches": launches, **main_case}]}), flush=True)
+    print(json.dumps({"kernels": [
+        {"name": "flash_nr_fwd", "route": "cuda",
+         "source": "qflux_tpu_torch/csrc/flash_nr_fwd.cu",
+         "replaces": "qflux_tpu/ops/flash_nr.py:192",
+         "launches": k1_predict + k1_train,
+         "launches_by_path": {"predict": k1_predict, "train": k1_train}, **k1_case},
+        {"name": "flash_nr_bwd", "route": "cuda",
+         "source": "qflux_tpu_torch/csrc/flash_nr_bwd.cu",
+         "replaces": "qflux_tpu/ops/flash_nr.py:311",
+         "launches": k2_train, "launches_by_path": {"train": k2_train}, **k2_case},
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -1,0 +1,583 @@
+// Backward of the fused qk-RMSNorm + rotate-half RoPE + flash attention, for Hopper.
+//
+// Replaces qflux_tpu/ops/flash_nr.py:_bwd_nr_kernel (the Pallas TPU kernel K2, driven
+// by _bwd_nr and the custom_vjp of flash_attention_nr).  From the RAW q/k/v, the
+// forward's out and lse and the output cotangent do, it computes for every (b, h):
+//
+//   qn, kn = the forward's normed + roped q and k, with K1's exact cast chain, so that
+//            p below is the p whose row sums produced lse
+//   delta  = rowsum(do * out)
+//   p      = exp(qn kn^T * scale - lse), 0 wherever the segment mask forbids
+//   dv     = bf16(p)^T do
+//   ds     = bf16(p * (do v^T - delta) * scale)
+//   dqn    = ds kn,  dkn = ds^T qn                    (f32)
+//   dq_raw, dk_raw and the gradients of the [2, D] norm-scale pairs: the rope
+//            transpose and the RMSNorm backward of dqn and dkn, in f32, the scale
+//            gradients split at the txt/img row boundary st
+//
+// The TPU kernel held the whole normed K of a head in VMEM and walked the q tiles in
+// order, finishing the k side at the last one.  GPU blocks run in parallel and in no
+// order, and the RMSNorm backward needs each row's COMPLETE dqn or dkn (its row
+// reduction mean(du * u)), so an FA2-style atomic dq cannot feed it.  So three kernels,
+// launched in order on one stream:
+//
+//   1. prep: one warp per (b, s, h) row norms and ropes q and k into scratch qn / kn
+//      (bf16, the values K1 kept in registers) and writes delta;
+//   2. dkv:  one block per 64-key tile of a head; four warps of 16 keys loop over all
+//      q tiles, accumulate dv and dkn in registers, and finish the k side (rope and
+//      norm backward, the block's scale-gradient partial) in their epilogue;
+//   3. dq:   one block per 64-row q tile; four warps of 16 rows loop over all K tiles,
+//      accumulate dqn in registers, and finish the q side in their epilogue.
+//
+// Each block writes its own [2, D] scale-gradient partial and the wrapper sums them:
+// no atomics, so the result is deterministic.  Fully masked rows (segment 0, lse =
+// -1e30) never evaluate exp: the mask selects p = 0 before any product, and with it ds,
+// dv and dq of those rows are 0 whatever do holds.
+//
+// What bounds it on an H100: at the FLUX 512^2 shape (S = 2560, H = 24, D = 128) a
+// call is seven S x S x D GEMMs per head (scores and dp in both kernels, dv, dk, dq),
+// 7 * 2 * S^2 * D * H = 282 GFLOP, against ~110 MB of device traffic: compute-bound on
+// the tensor cores.  The products run as mma.sync m16n8k16 with ldmatrix operands
+// (the fragments of K1), with scores, probabilities and the dq / dk / dv accumulators
+// in registers.  The norm + rope prologue runs once per row in `prep` instead of once
+// per tile visit, at the price of writing qn / kn (2 x 15.7 MB at bs=1) once.  Tiles
+// are loaded synchronously: wgmma, TMA and pipelining are left for later work.
+//
+// Layouts: q/k/v/out/do/dq/dk/dv/qn/kn are [B, S, H, D] bf16 (row stride H * D), lse
+// and delta [B, H, S] f32, scale pairs [2, D] f32, cos/sin [S, D] (batch stride 0) or
+// [B, S, D] f32, segment ids [B, S] int32 or null, the scale-gradient partials
+// [B, H, n_tiles, 2, D] f32 with n_tiles = qflux_flash_nr_bwd_tiles(S).
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int D = 128;
+constexpr int NW = 4;             // warps of a dkv / dq block
+constexpr int NT = NW * 32;
+constexpr int BR = 16 * NW;       // rows a dkv / dq block owns: 16 per warp
+constexpr int BC_KV = 32;         // q rows streamed per step of the dkv loop
+constexpr int BC_Q = 64;          // keys streamed per step of the dq loop
+constexpr int LD = D + 8;         // bf16 row stride of the smem tiles: no bank conflicts
+constexpr int LDF = D + 4;        // f32 row stride of the epilogue staging
+constexpr int PREP_WARPS = 8;
+constexpr float EPS = 1e-6f;
+
+constexpr size_t DKV_SMEM = sizeof(bf16) * (2 * BR + 2 * BC_KV) * LD  // kn, v; qn, do tiles
+                            + sizeof(float) * 3 * BC_KV;             // lse, delta, seg of q
+constexpr size_t DQ_SMEM = sizeof(bf16) * (2 * BR + 2 * BC_Q) * LD    // qn, do; kn, v tiles
+                           + sizeof(int) * BC_Q;                     // seg of the keys
+// the epilogue stages a block's f32 gradients where the two streamed (dq) or the
+// two owned (dkv) tiles were
+static_assert(sizeof(float) * BR * LDF <= sizeof(bf16) * 2 * BR * LD, "dkv staging");
+static_assert(sizeof(float) * BR * LDF <= sizeof(bf16) * 2 * BC_Q * LD, "dq staging");
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// RMSNorm (scale row `s`, already offset to this lane's channels) then rotate-half
+// rope of one row; lane holds channels 4 * lane .. + 3.  The same operations in the
+// same order as K1's norm_rope_tile, so qn / kn are K1's values bit for bit.
+__device__ __forceinline__ void norm_rope_row(const bf16* __restrict__ x,
+                                              const float* __restrict__ s,
+                                              const float* __restrict__ cos,
+                                              const float* __restrict__ sin, int lane,
+                                              bf16* __restrict__ dst) {
+  const int c0 = lane * 4;
+  const uint2 raw = *reinterpret_cast<const uint2*>(x + c0);
+  const bf16* p = reinterpret_cast<const bf16*>(&raw);
+  const float4 c4 = *reinterpret_cast<const float4*>(cos + c0);
+  const float4 s4 = *reinterpret_cast<const float4*>(sin + c0);
+  const float cv[4] = {c4.x, c4.y, c4.z, c4.w}, sv[4] = {s4.x, s4.y, s4.z, s4.w};
+  float xv[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) xv[j] = __bfloat162float(p[j]);
+  float ss = 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) ss += xv[j] * xv[j];
+  ss = warp_sum(ss);
+  const float r = rsqrtf(ss / (float)D + EPS);
+  float us[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) us[j] = bf16_round(__fmul_rn(__fmul_rn(xv[j], r), s[j]));
+  __align__(8) bf16 y[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float partner = __shfl_xor_sync(0xffffffffu, us[j], 16);
+    const float rot = lane < 16 ? -partner : partner;
+    y[j] = __float2bfloat16(__fadd_rn(__fmul_rn(us[j], cv[j]), __fmul_rn(rot, sv[j])));
+  }
+  *reinterpret_cast<uint2*>(dst + c0) = *reinterpret_cast<const uint2*>(y);
+}
+
+// Rope transpose and RMSNorm backward of one row, all in f32 (the cast rounding of
+// the forward is not part of the gradient chain, as in _rope_bwd / _norm_bwd):
+//   d_us = g * cos + [ (g*sin)[D/2:], -(g*sin)[:D/2] ]
+//   u = x * r,  du = d_us * s,  dx = r * (du - u * mean(du * u)),  dscale_row = d_us * u
+// g: the row's f32 gradient w.r.t. the normed + roped output; x: the raw row.  Writes
+// dx (bf16) and returns this lane's four dscale_row values in `dsr`.
+__device__ __forceinline__ void rope_norm_bwd_row(const float* __restrict__ g,
+                                                  const bf16* __restrict__ x,
+                                                  const float* __restrict__ s,
+                                                  const float* __restrict__ cos,
+                                                  const float* __restrict__ sin, int lane,
+                                                  bf16* __restrict__ dst, float (&dsr)[4]) {
+  const int c0 = lane * 4;
+  const float4 g4 = *reinterpret_cast<const float4*>(g + c0);
+  const float4 c4 = *reinterpret_cast<const float4*>(cos + c0);
+  const float4 s4 = *reinterpret_cast<const float4*>(sin + c0);
+  const uint2 raw = *reinterpret_cast<const uint2*>(x + c0);
+  const bf16* p = reinterpret_cast<const bf16*>(&raw);
+  const float gv[4] = {g4.x, g4.y, g4.z, g4.w};
+  const float cv[4] = {c4.x, c4.y, c4.z, c4.w}, sv[4] = {s4.x, s4.y, s4.z, s4.w};
+  float xv[4], dus[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    xv[j] = __bfloat162float(p[j]);
+    // the partner channel c +- D/2 is 16 lanes away
+    const float partner = __shfl_xor_sync(0xffffffffu, gv[j] * sv[j], 16);
+    dus[j] = gv[j] * cv[j] + (lane < 16 ? partner : -partner);
+  }
+  float ss = 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) ss += xv[j] * xv[j];
+  ss = warp_sum(ss);
+  const float r = rsqrtf(ss / (float)D + EPS);
+  float u[4], du[4], dot = 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    u[j] = xv[j] * r;
+    du[j] = dus[j] * s[c0 + j];
+    dot += du[j] * u[j];
+    dsr[j] = dus[j] * u[j];
+  }
+  const float mean = warp_sum(dot) / (float)D;
+  __align__(8) bf16 y[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) y[j] = __float2bfloat16(r * (du[j] - u[j] * mean));
+  *reinterpret_cast<uint2*>(dst + c0) = *reinterpret_cast<const uint2*>(y);
+}
+
+// ROWS rows [row0, row0 + ROWS) of one head (row stride `rs`) into a bf16 smem tile,
+// 16 bytes per thread per load; rows past S become 0
+template <int ROWS>
+__device__ __forceinline__ void load_tile(bf16* __restrict__ dst, const bf16* __restrict__ src,
+                                          int rs, int row0, int S) {
+  constexpr int ITERS = ROWS * (D / 8) / NT;
+#pragma unroll
+  for (int j = 0; j < ITERS; ++j) {
+    const int i = threadIdx.x + j * NT;
+    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
+    const int row = row0 + r;
+    *reinterpret_cast<uint4*>(dst + r * LD + c) =
+        row < S ? *reinterpret_cast<const uint4*>(src + (size_t)row * rs + c)
+                : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// The shared epilogue of dkv and dq: this warp's 16 rows of f32 gradient w.r.t. the
+// normed + roped rows, in the accumulators `acc`, go through smem `stage` (16 x LDF
+// floats of its own) to the row-wise rope + norm backward; dx rows land in `dx`, and
+// the block's scale-gradient partial (rows < st into row 0, the rest into row 1) in
+// `part` [2, D], reduced across the warps over `red` [NW][2][D].
+__device__ __forceinline__ void finish_rows(const float (&acc)[D / 8][4], float* stage, float* red,
+                                            int row0, int S, int st, const bf16* x, bf16* dx,
+                                            int rs, const float* scale2, const float* cos,
+                                            const float* sin, float* part) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<float2*>(stage + (g + 8 * i) * LDF + 8 * n + 2 * t) =
+          make_float2(acc[n][2 * i], acc[n][2 * i + 1]);
+  }
+  __syncwarp();
+  float d0[4] = {0.f, 0.f, 0.f, 0.f}, d1[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 1
+  for (int r = 0; r < 16; ++r) {
+    const int row = row0 + warp * 16 + r;
+    if (row >= S) break;  // warp-uniform
+    float dsr[4];
+    rope_norm_bwd_row(stage + r * LDF, x + (size_t)row * rs, scale2 + (row < st ? 0 : D),
+                      cos + (size_t)row * D, sin + (size_t)row * D, lane,
+                      dx + (size_t)row * rs, dsr);
+    if (row < st) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) d0[j] += dsr[j];
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) d1[j] += dsr[j];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    red[(warp * 2 + 0) * D + lane * 4 + j] = d0[j];
+    red[(warp * 2 + 1) * D + lane * 4 + j] = d1[j];
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < 2 * D; idx += NT) {
+    const int side = idx / D, c = idx % D;
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < NW; ++w) sum += red[(w * 2 + side) * D + c];
+    part[idx] = sum;
+  }
+}
+
+__global__ void __launch_bounds__(PREP_WARPS * 32)
+flash_nr_prep_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ dout, const bf16* __restrict__ out,
+                     const float* __restrict__ q_scale2, const float* __restrict__ k_scale2,
+                     const float* __restrict__ cos, const float* __restrict__ sin,
+                     long long cs_bstride, bf16* __restrict__ qn, bf16* __restrict__ kn,
+                     float* __restrict__ delta, int rows, int S, int H, int st) {
+  const int row = blockIdx.x * PREP_WARPS + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= rows) return;  // warp-uniform
+  // row = (b * S + s) * H + h: [B, S, H, D] rows are contiguous D-vectors
+  const int h = row % H, s = (row / H) % S, b = row / (H * S);
+  const size_t off = (size_t)row * D;
+  const float* cb = cos + (size_t)b * cs_bstride + (size_t)s * D;
+  const float* sb = sin + (size_t)b * cs_bstride + (size_t)s * D;
+  const int side = s < st ? 0 : D;
+  norm_rope_row(q + off, q_scale2 + side + lane * 4, cb, sb, lane, qn + off);
+  norm_rope_row(k + off, k_scale2 + side + lane * 4, cb, sb, lane, kn + off);
+  const uint2 draw = *reinterpret_cast<const uint2*>(dout + off + lane * 4);
+  const uint2 oraw = *reinterpret_cast<const uint2*>(out + off + lane * 4);
+  const bf16* dp = reinterpret_cast<const bf16*>(&draw);
+  const bf16* op = reinterpret_cast<const bf16*>(&oraw);
+  float acc = 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) acc += __bfloat162float(dp[j]) * __bfloat162float(op[j]);
+  acc = warp_sum(acc);
+  if (lane == 0) delta[((size_t)b * H + h) * S + s] = acc;
+}
+
+// dk / dv: block = 64 keys of one (b, h); warp w owns keys 16w .. 16w+15.  Per step of
+// BC_KV q rows: s^T = kn qn^T and dp^T = v do^T (A = this warp's kn / v rows, B = the
+// qn / do tile), then p^T and ds^T in registers, then dv += p^T do and dkn += ds^T qn
+// (A = the accumulators, B = the tiles transposed by ldmatrix).
+__global__ void __launch_bounds__(NT)
+flash_nr_dkv_kernel(const bf16* __restrict__ qn, const bf16* __restrict__ kn,
+                    const bf16* __restrict__ k, const bf16* __restrict__ v,
+                    const bf16* __restrict__ dout, const float* __restrict__ lse,
+                    const float* __restrict__ delta, const float* __restrict__ k_scale2,
+                    const float* __restrict__ cos, const float* __restrict__ sin,
+                    long long cs_bstride, const int* __restrict__ seg, bf16* __restrict__ dk,
+                    bf16* __restrict__ dv, float* __restrict__ dks_part, int S, int H, int st,
+                    float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem);  // [BR][LD] this block's normed keys
+  bf16* Vs = Ks + BR * LD;                   // [BR][LD]
+  bf16* Qs = Vs + BR * LD;                   // [BC_KV][LD] normed q tile
+  bf16* Ds = Qs + BC_KV * LD;                // [BC_KV][LD] do tile
+  float* lse_s = reinterpret_cast<float*>(Ds + BC_KV * LD);
+  float* del_s = lse_s + BC_KV;
+  int* segq_s = reinterpret_cast<int*>(del_s + BC_KV);
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * BR;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int rs = H * D;
+  const size_t head_off = ((size_t)b * S * H + h) * D;
+  const float* lse_bh = lse + ((size_t)b * H + h) * S;
+  const float* del_bh = delta + ((size_t)b * H + h) * S;
+  const int* segb = seg ? seg + (size_t)b * S : nullptr;
+  const int wrow = warp * 16;
+
+  load_tile<BR>(Ks, kn + head_off, rs, k0, S);
+  load_tile<BR>(Vs, v + head_off, rs, k0, S);
+  // one validity rule: rows past S carry segment 0; without ids every real token is 1
+  int segk[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = k0 + wrow + g + 8 * i;
+    segk[i] = row < S ? (segb ? segb[row] : 1) : 0;
+  }
+
+  float dva[D / 8][4], dka[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dva[n][c] = dka[n][c] = 0.f;
+
+#pragma unroll 1
+  for (int q0 = 0; q0 < S; q0 += BC_KV) {
+    __syncthreads();  // every warp is done with the previous tile
+    load_tile<BC_KV>(Qs, qn + head_off, rs, q0, S);
+    load_tile<BC_KV>(Ds, dout + head_off, rs, q0, S);
+    if (tid < BC_KV) {
+      const int row = q0 + tid;
+      const bool in = row < S;
+      lse_s[tid] = in ? lse_bh[row] : 0.f;
+      del_s[tid] = in ? del_bh[row] : 0.f;
+      segq_s[tid] = in ? (segb ? segb[row] : 1) : 0;
+    }
+    __syncthreads();
+
+    // s^T and dp^T of this warp's 16 keys against the BC_KV q rows
+    float sT[BC_KV / 8][4], dpT[BC_KV / 8][4];
+#pragma unroll
+    for (int n = 0; n < BC_KV / 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) sT[n][c] = dpT[n][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t ka[4], va[4];
+      ldsm_x4(ka, Ks + (wrow + (lane % 16)) * LD + kk * 16 + (lane / 16) * 8);
+      ldsm_x4(va, Vs + (wrow + (lane % 16)) * LD + kk * 16 + (lane / 16) * 8);
+#pragma unroll
+      for (int np = 0; np < BC_KV / 16; ++np) {
+        // matrices: q rows +0/+8 (lane / 16) x channels +0/+8 ((lane / 8) % 2)
+        const int off = (np * 16 + (lane / 16) * 8 + (lane % 8)) * LD + kk * 16 + ((lane / 8) % 2) * 8;
+        uint32_t qb[4], db[4];
+        ldsm_x4(qb, Qs + off);
+        mma_bf16(sT[2 * np], ka, qb[0], qb[1]);
+        mma_bf16(sT[2 * np + 1], ka, qb[2], qb[3]);
+        ldsm_x4(db, Ds + off);
+        mma_bf16(dpT[2 * np], va, db[0], db[1]);
+        mma_bf16(dpT[2 * np + 1], va, db[2], db[3]);
+      }
+    }
+
+    // element c of tile n: key row g + 8 * (c / 2), q column 8n + 2t + c % 2.  The mask
+    // picks p = 0 before exp is used, so a padded row's lse = -1e30 never matters.
+#pragma unroll
+    for (int n = 0; n < BC_KV / 8; ++n) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = c / 2, j = 8 * n + 2 * t + (c & 1);
+        const bool ok = segk[i] != 0 && segq_s[j] == segk[i];
+        const float p = ok ? __expf(sT[n][c] * scale - lse_s[j]) : 0.f;
+        sT[n][c] = p;
+        dpT[n][c] = p * (dpT[n][c] - del_s[j]) * scale;
+      }
+    }
+
+    // dv += p^T do, dkn += ds^T qn: the accumulators are A fragments (k = q rows)
+#pragma unroll
+    for (int kk = 0; kk < BC_KV / 16; ++kk) {
+      uint32_t pa[4], sa[4];
+      pa[0] = pack_bf16(sT[2 * kk][0], sT[2 * kk][1]);
+      pa[1] = pack_bf16(sT[2 * kk][2], sT[2 * kk][3]);
+      pa[2] = pack_bf16(sT[2 * kk + 1][0], sT[2 * kk + 1][1]);
+      pa[3] = pack_bf16(sT[2 * kk + 1][2], sT[2 * kk + 1][3]);
+      sa[0] = pack_bf16(dpT[2 * kk][0], dpT[2 * kk][1]);
+      sa[1] = pack_bf16(dpT[2 * kk][2], dpT[2 * kk][3]);
+      sa[2] = pack_bf16(dpT[2 * kk + 1][0], dpT[2 * kk + 1][1]);
+      sa[3] = pack_bf16(dpT[2 * kk + 1][2], dpT[2 * kk + 1][3]);
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        // transposed matrices: q rows +0/+8 ((lane / 8) % 2) x channels +0/+8 (lane / 16)
+        const int off = (kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LD + dp * 16 + (lane / 16) * 8;
+        uint32_t b4[4];
+        ldsm_x4_t(b4, Ds + off);
+        mma_bf16(dva[2 * dp], pa, b4[0], b4[1]);
+        mma_bf16(dva[2 * dp + 1], pa, b4[2], b4[3]);
+        ldsm_x4_t(b4, Qs + off);
+        mma_bf16(dka[2 * dp], sa, b4[0], b4[1]);
+        mma_bf16(dka[2 * dp + 1], sa, b4[2], b4[3]);
+      }
+    }
+  }
+  __syncthreads();  // every warp is done with Ks / Vs / Qs / Ds
+
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = k0 + wrow + g + 8 * i;
+      if (row < S)
+        *reinterpret_cast<uint32_t*>(dv + head_off + (size_t)row * rs + 8 * n + 2 * t) =
+            pack_bf16(dva[n][2 * i], dva[n][2 * i + 1]);
+    }
+  }
+  float* stage = reinterpret_cast<float*>(smem) + warp * 16 * LDF;  // over Ks / Vs
+  float* red = reinterpret_cast<float*>(Qs);                         // over Qs / Ds
+  const float* cb = cos + (size_t)b * cs_bstride;
+  const float* sb = sin + (size_t)b * cs_bstride;
+  finish_rows(dka, stage, red, k0, S, st, k + head_off, dk + head_off, rs, k_scale2, cb, sb,
+              dks_part + (((size_t)b * H + h) * gridDim.x + blockIdx.x) * 2 * D);
+}
+
+// dq: block = 64 q rows of one (b, h); warp w owns rows 16w .. 16w+15 and holds their
+// normed q as A fragments.  Per step of BC_Q keys: s = qn kn^T and dp = do v^T, p and
+// ds in registers, then dqn += ds kn (B = the kn tile transposed by ldmatrix).
+__global__ void __launch_bounds__(NT)
+flash_nr_dq_kernel(const bf16* __restrict__ qn, const bf16* __restrict__ kn,
+                   const bf16* __restrict__ q, const bf16* __restrict__ v,
+                   const bf16* __restrict__ dout, const float* __restrict__ lse,
+                   const float* __restrict__ delta, const float* __restrict__ q_scale2,
+                   const float* __restrict__ cos, const float* __restrict__ sin,
+                   long long cs_bstride, const int* __restrict__ seg, bf16* __restrict__ dq,
+                   float* __restrict__ dqs_part, int S, int H, int st, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);  // [BR][LD] this block's normed q rows
+  bf16* Ds = Qs + BR * LD;                   // [BR][LD] their do rows
+  bf16* Ks = Ds + BR * LD;                   // [BC_Q][LD] normed key tile
+  bf16* Vs = Ks + BC_Q * LD;                 // [BC_Q][LD]
+  int* segk_s = reinterpret_cast<int*>(Vs + BC_Q * LD);
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * BR;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int rs = H * D;
+  const size_t head_off = ((size_t)b * S * H + h) * D;
+  const int* segb = seg ? seg + (size_t)b * S : nullptr;
+  const int wrow = warp * 16;
+
+  load_tile<BR>(Qs, qn + head_off, rs, q0, S);
+  load_tile<BR>(Ds, dout + head_off, rs, q0, S);
+  float lse_r[2], del_r[2];
+  int segq[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + wrow + g + 8 * i;
+    const bool in = row < S;
+    lse_r[i] = in ? lse[((size_t)b * H + h) * S + row] : 0.f;
+    del_r[i] = in ? delta[((size_t)b * H + h) * S + row] : 0.f;
+    segq[i] = in ? (segb ? segb[row] : 1) : 0;
+  }
+  __syncthreads();
+  uint32_t qf[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    ldsm_x4(qf[kk], Qs + (wrow + (lane % 16)) * LD + kk * 16 + (lane / 16) * 8);
+
+  float dqa[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dqa[n][c] = 0.f;
+
+#pragma unroll 1
+  for (int k0 = 0; k0 < S; k0 += BC_Q) {
+    __syncthreads();  // every warp is done with the previous tile
+    load_tile<BC_Q>(Ks, kn + head_off, rs, k0, S);
+    load_tile<BC_Q>(Vs, v + head_off, rs, k0, S);
+    if (tid < BC_Q) {
+      const int row = k0 + tid;
+      segk_s[tid] = row < S ? (segb ? segb[row] : 1) : 0;
+    }
+    __syncthreads();
+
+    float s[BC_Q / 8][4], dp[BC_Q / 8][4];
+#pragma unroll
+    for (int n = 0; n < BC_Q / 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[n][c] = dp[n][c] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t da[4];
+      ldsm_x4(da, Ds + (wrow + (lane % 16)) * LD + kk * 16 + (lane / 16) * 8);
+#pragma unroll
+      for (int np = 0; np < BC_Q / 16; ++np) {
+        // matrices: keys +0/+8 (lane / 16) x channels +0/+8 ((lane / 8) % 2)
+        const int off = (np * 16 + (lane / 16) * 8 + (lane % 8)) * LD + kk * 16 + ((lane / 8) % 2) * 8;
+        uint32_t kb[4], vb[4];
+        ldsm_x4(kb, Ks + off);
+        mma_bf16(s[2 * np], qf[kk], kb[0], kb[1]);
+        mma_bf16(s[2 * np + 1], qf[kk], kb[2], kb[3]);
+        ldsm_x4(vb, Vs + off);
+        mma_bf16(dp[2 * np], da, vb[0], vb[1]);
+        mma_bf16(dp[2 * np + 1], da, vb[2], vb[3]);
+      }
+    }
+
+    // element c of tile n: q row g + 8 * (c / 2), key column 8n + 2t + c % 2; s becomes ds
+#pragma unroll
+    for (int n = 0; n < BC_Q / 8; ++n) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int i = c / 2, j = 8 * n + 2 * t + (c & 1);
+        const bool ok = segq[i] != 0 && segk_s[j] == segq[i];
+        const float p = ok ? __expf(s[n][c] * scale - lse_r[i]) : 0.f;
+        s[n][c] = p * (dp[n][c] - del_r[i]) * scale;
+      }
+    }
+
+#pragma unroll
+    for (int kk = 0; kk < BC_Q / 16; ++kk) {
+      uint32_t sa[4];
+      sa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      sa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      sa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      sa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+      for (int dd = 0; dd < D / 16; ++dd) {
+        // transposed matrices: keys +0/+8 ((lane / 8) % 2) x channels +0/+8 (lane / 16)
+        uint32_t kb[4];
+        ldsm_x4_t(kb, Ks + (kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LD + dd * 16 +
+                          (lane / 16) * 8);
+        mma_bf16(dqa[2 * dd], sa, kb[0], kb[1]);
+        mma_bf16(dqa[2 * dd + 1], sa, kb[2], kb[3]);
+      }
+    }
+  }
+  __syncthreads();  // every warp is done with Ks / Vs
+
+  float* stage = reinterpret_cast<float*>(Ks) + warp * 16 * LDF;  // over Ks / Vs
+  float* red = reinterpret_cast<float*>(smem);                     // over Qs (free now)
+  const float* cb = cos + (size_t)b * cs_bstride;
+  const float* sb = sin + (size_t)b * cs_bstride;
+  finish_rows(dqa, stage, red, q0, S, st, q + head_off, dq + head_off, rs, q_scale2, cb, sb,
+              dqs_part + (((size_t)b * H + h) * gridDim.x + blockIdx.x) * 2 * D);
+}
+
+}  // namespace
+
+extern "C" int qflux_flash_nr_bwd_tiles(int S) { return (S + BR - 1) / BR; }
+
+extern "C" int qflux_flash_nr_bwd(const void* q, const void* k, const void* v,
+                                  const void* q_scale2, const void* k_scale2, const void* cos,
+                                  const void* sin, long long cs_bstride, const void* seg,
+                                  const void* out, const void* lse, const void* dout, void* qn,
+                                  void* kn, void* delta, void* dq, void* dk, void* dv,
+                                  void* dqs_part, void* dks_part, int B, int S, int H, int st,
+                                  float scale, void* stream) {
+  cudaStream_t st_ = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaFuncSetAttribute(flash_nr_dkv_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)DKV_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(flash_nr_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)DQ_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const bf16* qb = static_cast<const bf16*>(q);
+  const bf16* kb = static_cast<const bf16*>(k);
+  const bf16* vb = static_cast<const bf16*>(v);
+  const bf16* db = static_cast<const bf16*>(dout);
+  const float* qs = static_cast<const float*>(q_scale2);
+  const float* ks = static_cast<const float*>(k_scale2);
+  const float* cs = static_cast<const float*>(cos);
+  const float* sn = static_cast<const float*>(sin);
+  const int* sg = static_cast<const int*>(seg);
+  const float* ls = static_cast<const float*>(lse);
+  bf16* qnb = static_cast<bf16*>(qn);
+  bf16* knb = static_cast<bf16*>(kn);
+  float* dl = static_cast<float*>(delta);
+
+  const int rows = B * S * H;
+  flash_nr_prep_kernel<<<(rows + PREP_WARPS - 1) / PREP_WARPS, PREP_WARPS * 32, 0, st_>>>(
+      qb, kb, db, static_cast<const bf16*>(out), qs, ks, cs, sn, cs_bstride, qnb, knb, dl, rows,
+      S, H, st);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((S + BR - 1) / BR, H, B);
+  flash_nr_dkv_kernel<<<grid, NT, DKV_SMEM, st_>>>(qnb, knb, kb, vb, db, ls, dl, ks, cs, sn,
+                                                   cs_bstride, sg, static_cast<bf16*>(dk),
+                                                   static_cast<bf16*>(dv),
+                                                   static_cast<float*>(dks_part), S, H, st, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_nr_dq_kernel<<<grid, NT, DQ_SMEM, st_>>>(qnb, knb, qb, vb, db, ls, dl, qs, cs, sn,
+                                                 cs_bstride, sg, static_cast<bf16*>(dq),
+                                                 static_cast<float*>(dqs_part), S, H, st, scale);
+  return (int)cudaGetLastError();
+}

@@ -42,11 +42,7 @@
 // pairs [2, D] f32, cos/sin [S, D] (batch stride 0) or [B, S, D] f32, and the
 // optional segment ids [B, S] int32.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-typedef __nv_bfloat16 bf16;
+#include "common.cuh"
 
 namespace {
 
@@ -61,45 +57,6 @@ constexpr float EPS = 1e-6f;
 
 constexpr size_t SMEM_BYTES = sizeof(bf16) * (BQ + 4 * BK) * LD  // q tile, 2 x (k, v) tiles
                               + sizeof(int) * 2 * BK;            // 2 x key segment ids
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16(x));
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// four 8x8 bf16 matrices from shared memory; lane i gives the row address of
-// matrix i / 8, and receives in r[j] its two elements of matrix j
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// the same, each matrix transposed
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats → one register of two bf16, `lo` in the low half (the lower column)
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // Norm + rope of the ROWS rows [row0, row0 + ROWS) of one head into a bf16
 // smem tile (rows past S become 0).  Warp w takes rows [w, w + 1) * ROWS /
@@ -165,10 +122,9 @@ __device__ __forceinline__ void norm_rope_tile(const bf16* __restrict__ x, int r
   }
 }
 
-// Fragment layout of mma m16n8k16 for lane = 4 * g + t: an accumulator
-// c[0..1] holds (row g, cols 2t, 2t+1) and c[2..3] (row g+8, the same cols);
-// so this thread owns rows g and g+8 of its warp's 16, two columns of each
-// 8-column tile, and a row's four owners are lanes 4g .. 4g+3.
+// With the mma fragment layout (common.cuh) this thread owns rows g and g+8
+// of its warp's 16, two columns of each 8-column tile, and a row's four
+// owners are lanes 4g .. 4g+3.
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_nr_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const float* __restrict__ q_scale2,

@@ -97,14 +97,14 @@ def lora_from_tree(model: nn.Module, tree: Mapping[str, Any], device=None,
                    dtype=torch.float32) -> LoraTree:
     """JAX LoRA tree (nested, stacked [L, ...] under "dual"/"single") → the
     port's flat {path: {"a", "b", "scaling"}} dict, keyed by the model's
-    module paths ("dual/0/attn/to_q")."""
+    module paths ("dual/0/attn/to_q"); scaling as a 0-dim f32 tensor."""
     out: LoraTree = {}
 
     def leaf(node):
         scaling = np.asarray(node.get("scaling", 1.0), np.float32)
         return {"a": torch.from_numpy(_np32(node["a"])).to(device=device, dtype=dtype),
                 "b": torch.from_numpy(_np32(node["b"])).to(device=device, dtype=dtype),
-                "scaling": float(scaling)}
+                "scaling": torch.tensor(float(scaling), dtype=torch.float32, device=device)}
 
     def rec(module, node, path):
         if "a" in node and "b" in node and not isinstance(node["a"], Mapping):
@@ -121,3 +121,15 @@ def lora_from_tree(model: nn.Module, tree: Mapping[str, Any], device=None,
 
     rec(model, tree, "")
     return out
+
+
+def lora_to_numpy(lora: LoraTree, grads: bool = False) -> dict:
+    """The port's LoRA tree → {path: {"a", "b", "scaling"}} of f32 numpy
+    arrays (their `.grad`s with grads=True), keyed as the port keys it; the
+    inverse direction of `lora_from_tree`, for comparing with a JAX tree."""
+    def arr(t):
+        t = t.grad if grads else t
+        return t.detach().to("cpu", torch.float32).numpy()
+
+    return {path: {k: arr(leaf[k]) for k in ("a", "b", "scaling")}
+            for path, leaf in lora.items()}

@@ -7,19 +7,32 @@ in a Python loop.  The math, the layouts and the cast points are the JAX
 package's: rotate-half RoPE with q/k channels permuted by the JAX weight
 converter, the split single-block `proj_out`/`proj_out_mlp`, and joint
 attention through `ops.attention.qk_norm_rope_attention`, which runs the
-fused kernel K1 on the card.  Inference only: there is no remat.
+fused kernels on the card (K1 forward, K2 backward).
+
+Training recomputes each block in backward (`remat`, the JAX package's
+`jax.checkpoint` per scanned block) with non-reentrant
+`torch.utils.checkpoint`.  Policies ported: "full" saves nothing inside a
+block; "flash" (the config default) saves K1's out and lse through a
+selective-checkpoint policy that sees the custom op `qflux::flash_nr_fwd`, so
+backward runs K2 on them without a second K1.  The AdaLN modulation vectors
+("mod_out" in JAX) are computed outside the checkpointed region and passed
+in: saved by construction, their f32 GEMV never reruns in backward.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from qflux_tpu_torch.models.common.embeddings import mlp_silu, sinusoidal_embedding
+from qflux_tpu_torch.ops import flash_nr
 from qflux_tpu_torch.ops.attention import qk_norm_rope_attention
 from qflux_tpu_torch.ops.layers import MLP, Dense, dense
 from qflux_tpu_torch.ops.norms import ada_ln_mods, layer_norm, modulate
@@ -164,12 +177,12 @@ def _mlp(p: MLP, x):
     return dense(p.lin_out, F.gelu(dense(p.lin_in, x), approximate="tanh"))
 
 
-def _dual_block(p: DualBlock, cfg, img, txt, temb, cos, sin, seg, attn_impl):
+def _dual_block(p: DualBlock, cfg, img, txt, i_mods, t_mods, cos, sin, seg, attn_impl):
     n_h = cfg.num_attention_heads
     st = txt.shape[1]
 
-    i_shift, i_scale, i_gate, i_shift2, i_scale2, i_gate2 = ada_ln_mods(p.img_mod.proj, temb, 6)
-    t_shift, t_scale, t_gate, t_shift2, t_scale2, t_gate2 = ada_ln_mods(p.txt_mod.proj, temb, 6)
+    i_shift, i_scale, i_gate, i_shift2, i_scale2, i_gate2 = i_mods
+    t_shift, t_scale, t_gate, t_shift2, t_scale2, t_gate2 = t_mods
 
     img_n = modulate(layer_norm(img), i_shift, i_scale)
     txt_n = modulate(layer_norm(txt), t_shift, t_scale)
@@ -198,9 +211,9 @@ def _dual_block(p: DualBlock, cfg, img, txt, temb, cos, sin, seg, attn_impl):
     return img, txt
 
 
-def _single_block(p: SingleBlock, cfg, x, temb, cos, sin, seg, attn_impl):
+def _single_block(p: SingleBlock, cfg, x, mods, cos, sin, seg, attn_impl):
     n_h = cfg.num_attention_heads
-    shift, scale, gate = ada_ln_mods(p.mod.proj, temb, 3)
+    shift, scale, gate = mods
     x_n = modulate(layer_norm(x), shift, scale)
 
     a = p.attn
@@ -219,6 +232,34 @@ def _single_block(p: SingleBlock, cfg, x, temb, cos, sin, seg, attn_impl):
     return x + gate[:, None, :].to(x.dtype) * out
 
 
+# remat policies of the JAX forward that are not ported (ROADMAP.md, queue 2)
+UNPORTED_REMAT_POLICIES = ("dots", "dots_all", "flash_qkv", "flash_mlp", "flash_single",
+                           "flash_offload")
+
+
+def _save_flash_outputs(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy "flash": keep K1's (out, lse), recompute
+    everything else (JAX save_only_these_names("flash_out", "flash_lse");
+    "mod_out" is saved by computing the mods outside the region)."""
+    if op is flash_nr.FWD_OP:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, policy: str):
+    """`fn` recomputed in backward under `policy` ("full" | "flash")."""
+    if policy == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if policy == "flash":
+        ctx = functools.partial(create_selective_checkpoint_contexts, _save_flash_outputs)
+        return functools.partial(checkpoint, fn, use_reentrant=False, context_fn=ctx)
+    if policy in UNPORTED_REMAT_POLICIES:
+        raise NotImplementedError(
+            f"remat_policy {policy!r} is not ported yet (ROADMAP.md, queue 2: the remat "
+            "policies; ported: full, flash)")
+    raise ValueError(f"unknown remat_policy {policy!r}")
+
+
 def forward(params: FluxTransformer, cfg: FluxConfig,
             hidden_states,              # [B, S_img, in_channels] packed latents
             encoder_hidden_states,      # [B, S_txt, joint_attention_dim]
@@ -228,9 +269,13 @@ def forward(params: FluxTransformer, cfg: FluxConfig,
             txt_ids,                    # [S_txt, 3] or [B, S_txt, 3]
             guidance=None,              # [B]
             segment_ids: Optional[torch.Tensor] = None,  # [B, S_txt+S_img]; 0 = padding
-            attn_impl: str = "auto"):
+            attn_impl: str = "auto",
+            remat: bool = True,
+            remat_policy: str = "full"):     # full | flash
     """Returns [B, S_img, out_channels] velocity prediction (full sequence —
-    callers slice [:, :S_target] to drop control-image positions)."""
+    callers slice [:, :S_target] to drop control-image positions).  With
+    `remat` and autograd recording, every block is recomputed in backward
+    under `remat_policy`; without autograd (inference) nothing is."""
     img = dense(params.x_embedder, hidden_states)
     txt = dense(params.context_embedder, encoder_hidden_states)
 
@@ -253,11 +298,20 @@ def forward(params: FluxTransformer, cfg: FluxConfig,
     cos, sin = rope_from_coords(ids, cfg.axes_dims_rope)
 
     st = txt.shape[1]
+    dual_fn = lambda p, img, txt, i_mods, t_mods: _dual_block(  # noqa: E731
+        p, cfg, img, txt, i_mods, t_mods, cos, sin, segment_ids, attn_impl)
+    single_fn = lambda p, x, mods: _single_block(  # noqa: E731
+        p, cfg, x, mods, cos, sin, segment_ids, attn_impl)
+    if remat:  # the policy is checked even where nothing records for backward
+        remat_dual, remat_single = _remat(dual_fn, remat_policy), _remat(single_fn, remat_policy)
+        if torch.is_grad_enabled():
+            dual_fn, single_fn = remat_dual, remat_single
     for p in params.dual:
-        img, txt = _dual_block(p, cfg, img, txt, temb, cos, sin, segment_ids, attn_impl)
+        img, txt = dual_fn(p, img, txt, ada_ln_mods(p.img_mod.proj, temb, 6),
+                           ada_ln_mods(p.txt_mod.proj, temb, 6))
     x = torch.cat([txt, img], dim=1)
     for p in params.single:
-        x = _single_block(p, cfg, x, temb, cos, sin, segment_ids, attn_impl)
+        x = single_fn(p, x, ada_ln_mods(p.mod.proj, temb, 3))
     img = x[:, st:]
 
     scale, shift = ada_ln_mods(params.norm_out.proj, temb, 2)  # continuous: scale first

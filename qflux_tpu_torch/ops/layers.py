@@ -7,6 +7,15 @@ nn.Linear) and a LoRA tree is a flat dict keyed by the module's '/'-path
 (`"dual/3/attn/to_q"`) holding {"a" [in, r], "b" [r, out], "scaling"}.
 `merge_lora` attaches those tensors to the matching `Dense` modules in place,
 beside the frozen base weight: there is never a second copy of the base.
+
+For training, `mark_trainable` makes `a`, `b` and `scaling` f32 leaf
+tensors with `requires_grad`; the base weights and biases stay frozen
+parameters.  `scaling` (alpha / r, a 0-dim f32 tensor) is differentiated
+too, because in JAX it is an f32 array leaf of the LoRA tree that
+`jax.value_and_grad` differentiates: its gradient joins the global norm
+(clip and logged grad_norm) while its update is zeroed
+(trainer/train_step.py).  Upstream PEFT keeps alpha / r a Python float with
+no gradient; the port mirrors the JAX package, not PEFT (ROADMAP.md, queue 3).
 """
 
 from __future__ import annotations
@@ -53,6 +62,23 @@ class MLP(nn.Module):
         self.lin_out = Dense(hidden, out_dim or dim, device=device, dtype=dtype)
 
 
+class _MatmulF32Out(torch.autograd.Function):
+    """x2 [N, in] @ W^T with an f32 result through cuBLAS `out_dtype`.  The
+    `aten::mm.dtype` overload has no derivative formula, so this gives it
+    one: dx = g @ W in x's dtype (bf16 operands, f32 accumulation).  W is a
+    frozen base weight: no dW is computed."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(w)
+        return torch.mm(x2, w.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        (w,) = ctx.saved_tensors
+        return torch.mm(g.to(w.dtype), w), None
+
+
 def _base_matmul(p: Dense, x):
     """x @ W^T with an f32 result, as `jnp.dot(..., preferred_element_type=
     f32)`: f32 inputs multiply in f32 (the weight cast to x.dtype, as JAX);
@@ -64,7 +90,7 @@ def _base_matmul(p: Dense, x):
     w = w.to(x.dtype)
     x2 = x.reshape(-1, x.shape[-1])
     if x.is_cuda:
-        y = torch.mm(x2, w.t(), out_dtype=torch.float32)
+        y = _MatmulF32Out.apply(x2, w)
     else:
         y = torch.mm(x2.float(), w.float().t())
     return y.reshape(*x.shape[:-1], w.shape[0])
@@ -74,13 +100,15 @@ def dense(p: Dense, x, lora_scale: float = 1.0):
     """y = x@W + b [+ lora_scale · scaling · (x@a)@b], returned in x.dtype.
 
     Cast points as in JAX: the base product accumulates and stays in f32;
-    both LoRA dots emit x.dtype and the scaling is rounded to x.dtype; the
-    delta and the bias are added in y's dtype (f32)."""
+    both LoRA dots emit x.dtype and the scaling (a float, or a tensor that
+    autograd differentiates) is rounded to x.dtype; the delta and the bias
+    are added in y's dtype (f32)."""
     y = _base_matmul(p, x)
     if p.lora is not None:
         la, lb = p.lora["a"].to(x.dtype), p.lora["b"].to(x.dtype)
-        s = torch.as_tensor(float(p.lora.get("scaling", 1.0)) * lora_scale,
-                            dtype=x.dtype, device=x.device)
+        s = p.lora.get("scaling", 1.0)
+        s = s * lora_scale if torch.is_tensor(s) else torch.tensor(float(s) * lora_scale)
+        s = s.to(device=x.device, dtype=x.dtype)
         y = y + (torch.matmul(torch.matmul(x, la), lb) * s).to(y.dtype)
     if p.bias is not None:
         y = y + p.bias.to(y.dtype)
@@ -127,8 +155,9 @@ def build_lora_tree(generator: torch.Generator, model: nn.Module,
                     dtype=torch.float32, init: str = "gaussian") -> LoraTree:
     """A LoRA leaf for every dense layer whose '/'-path matches any regex in
     target_patterns (reference LoraConfig.target_modules semantics): a
-    gaussian (·1/rank) or kaiming-uniform, b zeros, scaling alpha/rank.
-    Tensors live on the generator's device."""
+    gaussian (·1/rank) or kaiming-uniform, b zeros, scaling alpha/rank (a
+    0-dim f32 tensor).  Tensors live on the generator's device; they do not
+    require grad until `mark_trainable`."""
     pats = [re.compile(p) for p in target_patterns]
     device = generator.device
     tree: LoraTree = {}
@@ -144,5 +173,19 @@ def build_lora_tree(generator: torch.Generator, model: nn.Module,
                 -bound, bound, generator=generator)
         tree[path] = {"a": a,
                       "b": torch.zeros((rank, node.out_dim), device=device, dtype=dtype),
-                      "scaling": alpha / rank}
+                      "scaling": torch.tensor(alpha / rank, device=device, dtype=torch.float32)}
     return tree
+
+
+def mark_trainable(lora: LoraTree) -> LoraTree:
+    """Make every tensor of the tree (a, b and scaling) a leaf that requires
+    grad, in place, and return the tree.  A float scaling becomes a 0-dim f32
+    tensor: JAX differentiates it as an array leaf."""
+    for leaf in lora.values():
+        s = leaf.get("scaling", 1.0)
+        if not torch.is_tensor(s):
+            s = torch.tensor(float(s), dtype=torch.float32, device=leaf["a"].device)
+        leaf["scaling"] = s
+        for key in ("a", "b", "scaling"):
+            leaf[key] = leaf[key].detach().requires_grad_()
+    return lora

@@ -1,10 +1,12 @@
 """Build the port's CUDA kernels with nvcc and load them through ctypes.
 
-Every `qflux_tpu_torch/csrc/*.cu` file is compiled for Hopper (`sm_90a`) into
-ONE shared library with a plain C interface: no PyTorch headers, so the build
-takes seconds.  The library lands in `build/qflux_tpu_torch/` at the root of
-the checkout (listed in .gitignore), named by a hash of the sources and flags,
-so a changed kernel is rebuilt and an unchanged one is loaded as it is.
+Every `qflux_tpu_torch/csrc/*.cu` file is compiled for Hopper (`sm_90a`), one
+nvcc process per source, all started together, and the objects are linked
+into ONE shared library with a plain C interface: no PyTorch headers, so the
+build takes seconds.  The library lands in `build/qflux_tpu_torch/` at the
+root of the checkout (listed in .gitignore), named by a hash of the sources,
+the shared headers (`*.cuh`) and the flags, so a changed kernel is rebuilt
+and an unchanged one is loaded as it is.
 
 The build happens at first use (`load_library()`), never at import: the CPU
 test suite imports every module on a machine without nvcc.
@@ -26,7 +28,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "qflux_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,6 +38,10 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "qflux_flash_nr_fwd": (_I, [_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
                                 _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P]),
+    "qflux_flash_nr_bwd": (_I, [_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
+                                _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                _I, _I, _I, _I, ctypes.c_float, _P]),
+    "qflux_flash_nr_bwd_tiles": (_I, [_I]),
     "qflux_cuda_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -72,7 +78,7 @@ def _sources() -> list[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libqflux_kernels-{h.hexdigest()[:16]}.so"
@@ -87,17 +93,29 @@ def load_library() -> KernelLibrary:
     if not path.exists():
         nvcc = _nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+            objs = [Path(tmpdir) / f"{src.stem}.o" for src in _sources()]
+            procs = [(src, subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                            text=True))
+                     for src, obj in zip(_sources(), objs)]
+            failed = []
+            for src, proc in procs:
+                out, _ = proc.communicate()
+                log += f"== {src.name}\n{out}"
+                if proc.returncode != 0:
+                    failed.append(src.name)
+            if failed:
+                raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+            tmp = Path(tmpdir) / path.name
+            link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)]
+            proc = subprocess.run(link, capture_output=True, text=True)
+            log += proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n{log}")
+            os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-        os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
     lib = ctypes.CDLL(str(path))
     for name, (restype, argtypes) in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -1,9 +1,13 @@
-"""Flow-match Euler scheduler: host-side numpy plan + a torch step.
+"""Flow-match Euler scheduler: host-side numpy plan, a torch step, and the
+training-time noising and σ sampling.
 
 Counterpart of qflux_tpu/scheduler/flow_match.py (`calculate_shift`,
-`time_shift`, `SamplerPlan`, `FlowMatchScheduler.sampling_plan` / `.step`).
-Conventions as there: sigma = t/1000 in (0, 1]; x_t = (1 - σ) x0 + σ ε; the
-model predicts v = ε - x0; Euler: x_{i+1} = x_i + (σ_{i+1} - σ_i) v.
+`time_shift`, `SamplerPlan`, `FlowMatchScheduler.sampling_plan` / `.step` /
+`.add_noise` / `.training_target`, `sample_training_sigmas`).  Conventions as
+there: sigma = t/1000 in (0, 1]; x_t = (1 - σ) x0 + σ ε; the model predicts
+v = ε - x0; Euler: x_{i+1} = x_i + (σ_{i+1} - σ_i) v.  Random draws come from
+an explicit `torch.Generator`; they are not `jax.random`'s bits, so the tests
+compare distributions, or inject the same numbers into both packages.
 """
 
 from __future__ import annotations
@@ -11,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 NUM_TRAIN_TIMESTEPS = 1000
 BASE_IMAGE_SEQ_LEN = 256
@@ -79,8 +84,35 @@ class FlowMatchScheduler:
         return SamplerPlan(sigmas=sigmas, timesteps=sigmas[:-1] * self.num_train_timesteps)
 
     @staticmethod
+    def add_noise(x0, noise, sigma):
+        """x_t = (1-σ)x0 + σ·ε, σ ∈ [0,1], broadcast over trailing dims."""
+        sigma = sigma.reshape(sigma.shape + (1,) * (x0.dim() - sigma.dim()))
+        return (1.0 - sigma) * x0 + sigma * noise
+
+    @staticmethod
+    def training_target(x0, noise):
+        return noise - x0
+
+    @staticmethod
     def step(latents, v_pred, sigma: np.float32, sigma_next: np.float32):
         """latents + (σ_next - σ)·v in float32; the σ difference is taken in
         float32, as in JAX."""
         d = float(np.float32(sigma_next) - np.float32(sigma))
         return latents + d * v_pred.float()
+
+
+def sample_training_sigmas(generator: torch.Generator, batch_size: int,
+                           scheme: str = "uniform", logit_mean: float = 0.0,
+                           logit_std: float = 1.0, shift: float = 3.0):
+    """σ ∈ (0, 1) for the train step, [batch_size] f32 on the generator's
+    device.  "uniform": U[0, 1) (the FLUX trainer); "logit_normal":
+    sigmoid(N(mean, std)) through the static shift (the Qwen trainer);
+    "shift": U[0, 1) through the static shift."""
+    kw = {"generator": generator, "device": generator.device}
+    if scheme in ("uniform", "shift"):
+        u = torch.rand(batch_size, **kw)
+        return shift * u / (1 + (shift - 1) * u) if scheme == "shift" else u
+    if scheme == "logit_normal":
+        s = torch.sigmoid(torch.randn(batch_size, **kw) * logit_std + logit_mean)
+        return shift * s / (1 + (shift - 1) * s)
+    raise ValueError(f"unknown timestep sampling scheme {scheme!r}")

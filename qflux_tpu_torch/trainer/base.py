@@ -1,15 +1,19 @@
-"""The port's Trainer: load the model, build or load a LoRA, and predict from
-cached embeddings.
+"""The port's Trainer: load the model, build a LoRA, train it on cached
+embeddings, and predict from cached embeddings.
 
-Counterpart of the predict slice of qflux_tpu/trainer/base.py
-(`load_model`, `build_lora`, `predict_from_embeddings`).  Fit, cache and
-checkpointing come with later slices.
+Counterpart of the predict and train slices of qflux_tpu/trainer/base.py
+(`load_model`, `build_lora`, `build_optimizer`, `build_criterion`,
+`_build_step_config`, `fit`, `predict_from_embeddings`).  `fit` runs the
+train step over an iterable of cached-embedding batches and records loss,
+grad_norm and lr per step in `history`; checkpoint files, the LoRA
+safetensors export, logging backends, validation, resume and the cache pass
+come with later slices (ROADMAP.md, slice B item 4).
 
 The Trainer reads its settings by attribute.  The JAX package's pydantic
 `Config` works where pydantic is installed (`Trainer.from_yaml`, which
-imports `qflux_tpu.config` only when called); `predict_config()` builds the
-same fields as plain namespaces, which is what runs on a machine without
-pydantic or YAML.
+imports `qflux_tpu.config` only when called); `predict_config()` and
+`train_config()` build the same fields as plain namespaces, which is what
+runs on a machine without pydantic or YAML.
 """
 
 from __future__ import annotations
@@ -21,18 +25,29 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-from qflux_tpu_torch.ops.layers import build_lora_tree, merge_lora, raise_quantized
+from qflux_tpu_torch import losses
+from qflux_tpu_torch.ops.layers import (build_lora_tree, mark_trainable, merge_lora,
+                                        raise_quantized)
 from qflux_tpu_torch.scheduler.flow_match import FlowMatchScheduler
+from qflux_tpu_torch.scheduler.weighting import default_weighting_table
 from qflux_tpu_torch.trainer.flux_kontext import FluxKontextAdapter
 from qflux_tpu_torch.trainer.sampling import SamplingConfig, make_sampler
+from qflux_tpu_torch.trainer.train_step import (TrainStepConfig, lora_leaves,
+                                                make_lr_schedule, make_train_step)
 
 ADAPTERS = {"FluxKontextLoraTrainer": FluxKontextAdapter}
+# loss.class_path → the port's loss (the JAX names, as configs carry them)
+CRITERIA = {f"{pkg}.{name}": getattr(losses, name)
+            for pkg in ("qflux_tpu.losses", "qflux_tpu.losses.losses")
+            for name in ("MseLoss", "MaskEditLoss", "AttentionMaskMseLoss")}
+ADAMW_ARGS = ("b1", "b2", "eps", "weight_decay")  # the optax.adamw arguments ported
 
 
 def predict_config(variant: str = "test", num_inference_steps: int = 20):
     """The settings the predict slice reads, as plain namespaces.  Values are
     the JAX Config's defaults (PredictSection, LoggingSection.sampling_seed,
-    TrainSection.seed) and configs/example_fluxkontext_bf16.yaml's LoRA."""
+    TrainSection.seed, MeshSection.remat) and
+    configs/example_fluxkontext_bf16.yaml's LoRA."""
     ns = SimpleNamespace
     return ns(
         trainer=ns(value="FluxKontextLoraTrainer"),
@@ -41,9 +56,28 @@ def predict_config(variant: str = "test", num_inference_steps: int = 20):
                          target_modules=["to_q", "to_k", "to_v", "to_out"],
                          pretrained_weight=None)),
         train=ns(seed=1234, weight_dtype="bfloat16"),
+        mesh=ns(remat="flash"),
         logging=ns(sampling_seed=42),
         predict=ns(num_inference_steps=num_inference_steps, guidance=2.5,
                    true_cfg_scale=1.0, max_sequence_length=512))
+
+
+def train_config(variant: str = "test", max_train_steps: int = 1000):
+    """The settings the train slice reads, as plain namespaces: the JAX
+    Config's defaults (TrainSection, OptimizerSection = optax.adamw with b1
+    0.9, b2 0.999, weight_decay 1e-2 at lr 1e-4, LRSchedulerSection,
+    LossSection = MseLoss) on top of `predict_config`."""
+    ns = SimpleNamespace
+    cfg = predict_config(variant)
+    cfg.train = ns(seed=1234, weight_dtype="bfloat16", gradient_accumulation_steps=1,
+                   max_train_steps=max_train_steps, max_grad_norm=1.0,
+                   timestep_sampling="uniform", logit_mean=0.0, logit_std=1.0,
+                   weighting_scheme="none", weighting_table=None)
+    cfg.optimizer = ns(class_path="optax.adamw", learning_rate=1e-4,
+                       init_args={"b1": 0.9, "b2": 0.999, "weight_decay": 1e-2})
+    cfg.lr_scheduler = ns(scheduler_type="constant", warmup_steps=0)
+    cfg.loss = ns(class_path="qflux_tpu.losses.MseLoss", init_args={})
+    return cfg
 
 
 class Trainer:
@@ -68,6 +102,9 @@ class Trainer:
         # steps, decode_s (host clock around synchronised work) and whether
         # the final latents were all finite
         self.last_predict: dict = {}
+        # one entry per fit step: step, loss, grad_norm, lr, step_s (host
+        # clock around the step, which ends by reading the loss)
+        self.history: list[dict] = []
 
     @classmethod
     def from_yaml(cls, path: str, device) -> "Trainer":
@@ -100,6 +137,100 @@ class Trainer:
         return build_lora_tree(gen, self.bundle.dit_params, targets, rank=lcfg.r,
                                alpha=lcfg.lora_alpha, init=init)
 
+    def build_optimizer(self, params: list):
+        """(torch.optim.AdamW over `params`, lr schedule): `optax.adamw` with
+        the configured b1 / b2 / eps / weight_decay (optax's defaults where
+        absent) and the configured lr schedule.  Any other optimizer or
+        argument raises."""
+        ocfg = self.config.optimizer
+        if ocfg.class_path != "optax.adamw":
+            raise NotImplementedError(
+                f"optimizer {ocfg.class_path!r} is not ported yet (ROADMAP.md, queue 2: "
+                "optimizers; ported: optax.adamw)")
+        args = dict(ocfg.init_args or {})
+        unknown = sorted(set(args) - set(ADAMW_ARGS))
+        if unknown:
+            raise NotImplementedError(
+                f"optax.adamw arguments {unknown} are not ported yet (ROADMAP.md, queue 2: "
+                f"optimizers; ported: {list(ADAMW_ARGS)})")
+        schedule = make_lr_schedule(ocfg.learning_rate, self.config.lr_scheduler.scheduler_type,
+                                    self.config.lr_scheduler.warmup_steps,
+                                    self.config.train.max_train_steps)
+        opt = torch.optim.AdamW(params, lr=schedule(0),
+                                betas=(args.get("b1", 0.9), args.get("b2", 0.999)),
+                                eps=args.get("eps", 1e-8),
+                                weight_decay=args.get("weight_decay", 1e-4))
+        return opt, schedule
+
+    def build_criterion(self):
+        lcfg = self.config.loss
+        if lcfg.class_path not in CRITERIA:
+            raise NotImplementedError(
+                f"loss {lcfg.class_path!r} is not ported (ported: {sorted(CRITERIA)})")
+        return CRITERIA[lcfg.class_path](**(lcfg.init_args or {}))
+
+    def _build_step_config(self) -> TrainStepConfig:
+        """Config → TrainStepConfig, resolving the weighting scheme and table
+        as the JAX Trainer: "weighted" sampling = uniform σ + the empirical
+        loss-weight table."""
+        t = self.config.train
+        sampling = t.timestep_sampling
+        scheme, table = t.weighting_scheme, None
+        if sampling == "weighted":
+            sampling = "uniform"
+            if scheme == "none":
+                scheme = "weighted"
+        if scheme == "weighted":
+            if t.weighting_table:
+                raise NotImplementedError(
+                    "a user weighting_table file is not ported yet (ROADMAP.md, slice B "
+                    "item 4); the default table is")
+            table, scheme = default_weighting_table(), "table"
+        return TrainStepConfig(timestep_sampling=sampling, logit_mean=t.logit_mean,
+                               logit_std=t.logit_std, weighting_scheme=scheme,
+                               weighting_table=table, max_grad_norm=t.max_grad_norm,
+                               grad_accum_steps=t.gradient_accumulation_steps)
+
+    def _device_batch(self, emb: dict) -> dict:
+        """Cached embeddings (numpy or tensors) → tensors on the device:
+        floats in the weight dtype (edit_mask stays f32), as the JAX
+        Trainer's `_device_batch`; ids rebuilt by the adapter."""
+        emb = self.adapter.prepare_cached_embeddings(emb)
+        out = {}
+        for k, v in emb.items():
+            t = torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
+            if t.dtype in (torch.float32, torch.float16, torch.float64, torch.bfloat16):
+                t = t.to(torch.float32 if k == "edit_mask" else self.dtype)
+            out[k] = t.to(self.device)
+        return out
+
+    def fit(self, batches):
+        """Train a fresh LoRA on `batches` (an iterable of cached-embedding
+        dicts with `image_latents`) for at most train.max_train_steps steps.
+        Noise and σ come from a generator seeded train.seed.  Returns the
+        LoRA tree, trained in place; `history` holds one entry per step."""
+        cfg = self.config
+        if self.adapter is None:
+            self.load_model()
+        self.lora = lora = mark_trainable(self.build_lora())
+        optimizer, schedule = self.build_optimizer(lora_leaves(lora)[0])
+        step = make_train_step(self.adapter.predict_velocity, self.build_criterion(), optimizer,
+                               schedule, self._build_step_config())
+        gen = torch.Generator(self.device).manual_seed(cfg.train.seed)
+        self.history = []
+        for batch in batches:
+            if len(self.history) >= cfg.train.max_train_steps:
+                break
+            emb = self._device_batch(batch)
+            t0 = time.perf_counter()
+            metrics = step(self.bundle.dit_params, lora, emb, gen)
+            loss = float(metrics["loss"])  # waits for the device
+            self.history.append({"step": len(self.history) + 1, "loss": loss,
+                                 "grad_norm": float(metrics["grad_norm"]),
+                                 "lr": float(metrics["lr"]),
+                                 "step_s": time.perf_counter() - t0})
+        return lora
+
     def predict_from_embeddings(self, emb: dict, height: int, width: int,
                                 num_inference_steps: Optional[int] = None,
                                 lora: Optional[Any] = None,
@@ -119,25 +250,19 @@ class Trainer:
         steps = num_inference_steps or pcfg.num_inference_steps
         guidance = pcfg.guidance if guidance is None else guidance
         true_cfg_scale = pcfg.true_cfg_scale if true_cfg_scale is None else true_cfg_scale
-        emb = self.adapter.prepare_cached_embeddings(emb)
+        batch = self._device_batch(emb)
         gh, gw = self.adapter.latent_grid(height, width)
         s_img = gh * gw
         plan = self.scheduler.sampling_plan(steps, image_seq_len=s_img)
         params = merge_lora(self.bundle.dit_params, lora if lora is not None else self.lora)
         sampler = make_sampler(self.adapter.predict_velocity, SamplingConfig(
             num_inference_steps=steps, true_cfg_scale=true_cfg_scale))
-        b = int(np.shape(emb["prompt_embeds"])[0])
+        b = batch["prompt_embeds"].shape[0]
         dtype = self.dtype
         gen = torch.Generator(self.device).manual_seed(
             self.config.logging.sampling_seed if seed is None else seed)
         lat0 = torch.randn((b, s_img, self.bundle.dit_cfg.in_channels), generator=gen,
                            device=self.device, dtype=dtype)
-        batch = {}
-        for k, v in emb.items():
-            t = torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
-            if t.dtype in (torch.float32, torch.float16, torch.float64):
-                t = t.to(dtype)
-            batch[k] = t.to(self.device)
         if "guidance" not in batch:
             batch["guidance"] = torch.full((b,), guidance, dtype=dtype, device=self.device)
         t0 = time.perf_counter()

@@ -1,9 +1,10 @@
 """FLUX.1-Kontext model adapter: weights, cached-embedding prep, velocity
 prediction and decoding for the port's Trainer.
 
-Counterpart of qflux_tpu/trainer/flux_kontext.py for the predict slice.  The
-batch is the embedding-cache format of the JAX package:
+Counterpart of qflux_tpu/trainer/flux_kontext.py for the predict and train
+slices.  The batch is the embedding-cache format of the JAX package:
 
+    image_latents          [B, S_img, 64]   packed target latents (training)
     control_latents        [B, S_ctl, 64]   packed control latents
     prompt_embeds          [B, S_txt, 4096] T5 sequence embeds
     pooled_prompt_embeds   [B, 768]         CLIP pooled embeds
@@ -11,6 +12,7 @@ batch is the embedding-cache format of the JAX package:
     txt_ids                [S_txt, 3]
     guidance               [B] optional
     segment_ids            [B, S_txt+S_img+S_ctl] optional (0 = padding)
+    edit_mask              [B, S_img] optional (MaskEditLoss token weights)
 
 Text encoders and the VAE encoder (the cache pass) are a later slice.
 """
@@ -38,10 +40,20 @@ class ModelBundle:
     vae_params: Any = None
 
 
+def remat_policy_from_config(remat_cfg: str) -> str:
+    """mesh.remat YAML value → transformer remat_policy name (the JAX
+    table; the transformer raises on the names it has not ported)."""
+    return {"minimal": "dots", "full": "full", "flash": "flash",
+            "flash_mlp": "flash_mlp", "flash_single": "flash_single",
+            "flash_offload": "flash_offload"}.get(remat_cfg, "flash")
+
+
 @dataclasses.dataclass(frozen=True)
 class FluxKontextAdapter:
     cfg: flux.FluxConfig
     attn_impl: str = "auto"
+    remat: bool = True
+    remat_policy: str = "flash"
     vae_scale: int = 8
 
     default_lora_targets = (
@@ -68,7 +80,10 @@ class FluxKontextAdapter:
         device = torch.device(device)
         dit = flux.init(torch.Generator(device).manual_seed(0), dit_cfg, device, dtype)
         vae = flux_vae.init(torch.Generator(device).manual_seed(1), vae_cfg, device)
-        adapter = cls(dit_cfg, vae_scale=vae_cfg.downscale)
+        remat_cfg = config.mesh.remat
+        adapter = cls(dit_cfg, remat=remat_cfg != "none",
+                      remat_policy=remat_policy_from_config(remat_cfg),
+                      vae_scale=vae_cfg.downscale)
         return adapter, ModelBundle(dit_cfg=dit_cfg, dit_params=dit, vae_cfg=vae_cfg,
                                     vae_params=vae)
 
@@ -112,7 +127,7 @@ class FluxKontextAdapter:
             batch["pooled_prompt_embeds"].to(latents.dtype),
             sigma, batch["img_ids"], batch["txt_ids"],
             guidance=guidance, segment_ids=batch.get("segment_ids"),
-            attn_impl=self.attn_impl)
+            attn_impl=self.attn_impl, remat=self.remat, remat_policy=self.remat_policy)
         return pred[:, :s_img]
 
     @torch.inference_mode()

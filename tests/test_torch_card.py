@@ -1,0 +1,134 @@
+"""The port's CUDA kernels on the card: K1 and K2 against their plain
+versions, and LoRA gradients through both inside a small DiT.
+
+This file imports neither jax nor the JAX package, so it runs on a machine
+with a card and without JAX:
+
+    python3 -m pytest --noconftest -m cuda tests/test_torch_card.py
+
+Every test is marked `cuda` and skips where torch sees no CUDA device.
+Bounds are the ones chip_smoke.py states and explains.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from qflux_tpu_torch.ops import flash_nr as tnr
+
+B, H, D = 2, 4, 128
+ST = 96
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(autouse=True)
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (and nvcc) to build and run qflux_tpu_torch/csrc")
+
+
+def _inputs(seed, s, per_sample_rope=False):
+    """q/k/v bf16, scale pairs, cos/sin f32 ([S, D], or [B, S, D] per
+    sample) on the card; S=300 is not a multiple of the kernels' 64- and
+    128-row tiles."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((B, s, H, D)).astype(np.float32) for _ in range(3))
+    qs2, ks2 = ((1 + 0.1 * rng.standard_normal((2, D))).astype(np.float32) for _ in range(2))
+    ang = rng.uniform(0, 6.28, ((B, s) if per_sample_rope else (s,)) + (D // 2,))
+    ang = ang.astype(np.float32)
+    cos, sin = np.concatenate([np.cos(ang)] * 2, -1), np.concatenate([np.sin(ang)] * 2, -1)
+    args = [torch.from_numpy(a).cuda() for a in (q, k, v, qs2, ks2, cos, sin)]
+    return [a.to(torch.bfloat16) for a in args[:3]] + args[3:]
+
+
+def _segments(kind, s):
+    if kind is None:
+        return None
+    seg = np.ones((B, s), np.int32)
+    seg[0, 230:] = 0      # sample 0 padded from token 230
+    seg[1, ST:] = 2       # sample 1: two segments
+    return torch.from_numpy(seg).cuda()
+
+
+@pytest.mark.parametrize("seg_kind", [None, "masked"])
+def test_kernel_matches_plain_on_card(seg_kind):
+    """K1: out within 4 bf16 ulps at magnitude 1 (1.6e-2), lse within 1e-4."""
+    args = _inputs(11, 300)
+    seg = _segments(seg_kind, 300)
+    out, lse = tnr.flash_attention_nr(*args, ST, segment_ids=seg)
+    torch.cuda.synchronize()
+    ref, ref_lse = tnr.flash_attention_nr_reference(*args, ST, segment_ids=seg)
+    assert (out.float() - ref.float()).abs().max().item() <= 1.6e-2
+    valid = ref_lse > -1e29
+    assert (lse - ref_lse).abs()[valid].max().item() <= 1e-4
+    if seg is not None:
+        assert bool((out[0, 230:] == 0).all())
+
+
+@pytest.mark.parametrize("s,seg_kind,per_sample_rope", [(300, None, False),
+                                                        (300, "masked", False),
+                                                        (40, None, True)])
+def test_k2_matches_plain_on_card(s, seg_kind, per_sample_rope):
+    """K2 with nonzero do on the padded rows: relative L2 error 1.5e-2 per
+    gradient, and the padded rows' dq / dk / dv exactly 0.  S=40 is below
+    one tile, with per-sample [B, S, D] rope tables (the multi-resolution
+    layout, a nonzero cos/sin batch stride)."""
+    args = _inputs(16, s, per_sample_rope)
+    seg = _segments(seg_kind, s)
+    do = torch.randn(B, s, H, D, device="cuda").to(torch.bfloat16)
+    out, lse = tnr._flash_nr_cuda(*args, ST, seg, D ** -0.5)
+    got = tnr._flash_nr_bwd_cuda(*args, ST, seg, D ** -0.5, out, lse, do)
+    torch.cuda.synchronize()
+    ref = tnr.flash_attention_nr_bwd_reference(*args, ST, do, segment_ids=seg)
+    for g, r in zip(got, ref):
+        assert ((g.float() - r).norm() / r.norm()).item() <= 1.5e-2
+    if seg is not None:
+        assert all(not g[0, 230:].any() for g in got[:3])
+
+
+def test_lora_grads_reach_qkv_through_kernels_on_card():
+    """A two-block DiT at head dim 128, bf16, remat "flash": backward
+    through K1 (forward) and K2 (backward) gives every to_q / to_k / to_v
+    LoRA a nonzero gradient, close to the one through the plain attention
+    (relative L2 error 5e-2: bf16 rounding at different points on the two
+    paths), with one K1 and one K2 launch per block."""
+    from qflux_tpu_torch.models.flux import transformer as tflux
+    from qflux_tpu_torch.ops.layers import build_lora_tree, mark_trainable, merge_lora
+    from qflux_tpu_torch.ops.rope import flux_image_ids, flux_text_ids
+
+    cfg = dataclasses.replace(tflux.FluxConfig.tiny(), num_layers=1, num_single_layers=1,
+                              attention_head_dim=128, num_attention_heads=2,
+                              axes_dims_rope=(16, 56, 56))
+    gen = torch.Generator("cuda").manual_seed(0)
+    model = tflux.init(gen, cfg, "cuda", torch.bfloat16)
+    lora = mark_trainable(build_lora_tree(gen, model, [r"attn/(to_q|to_k|to_v)"], 4, 4.0))
+    with torch.no_grad():
+        for leaf in lora.values():
+            leaf["b"].normal_(0.0, 0.05, generator=gen)
+    merge_lora(model, lora)
+    ids = torch.from_numpy(np.concatenate([flux_image_ids(8, 8, 0),
+                                           flux_image_ids(8, 8, 1)])).cuda()
+    txt_ids = torch.from_numpy(flux_text_ids(16)).cuda()
+    bf = torch.bfloat16
+    x = torch.randn(1, 128, cfg.in_channels, device="cuda", generator=gen).to(bf)
+    txt = torch.randn(1, 16, cfg.joint_attention_dim, device="cuda", generator=gen).to(bf)
+    pooled = torch.randn(1, cfg.pooled_projection_dim, device="cuda", generator=gen).to(bf)
+    t = torch.full((1,), 0.5, device="cuda")
+
+    def grads(attn_impl):
+        for leaf in lora.values():
+            leaf["a"].grad = leaf["b"].grad = None
+        y = tflux.forward(model, cfg, x, txt, pooled, t, ids, txt_ids, guidance=t,
+                          attn_impl=attn_impl, remat_policy="flash")
+        y.float().pow(2).mean().backward()
+        for leaf in lora.values():
+            assert leaf["a"].grad.abs().sum() > 0 and leaf["b"].grad.abs().sum() > 0
+        return torch.cat([leaf[k].grad.flatten() for leaf in lora.values() for k in ("a", "b")])
+
+    k1, k2 = tnr.KERNEL_LAUNCHES, tnr.BWD_KERNEL_LAUNCHES
+    g_kernel = grads("auto")
+    assert tnr.KERNEL_LAUNCHES - k1 == 2 and tnr.BWD_KERNEL_LAUNCHES - k2 == 2
+    g_plain = grads("plain")
+    assert ((g_kernel - g_plain).norm() / g_plain.norm()).item() <= 5e-2

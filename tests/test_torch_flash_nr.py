@@ -1,18 +1,23 @@
-"""Kernel K1 of the port (qflux_tpu_torch/ops/flash_nr.py): its plain PyTorch
-version against the JAX package's `flash_attention_nr`, run as
-tests/ops/test_flash_nr.py runs it on the CPU (the Pallas kernel in
-interpret mode), and the wrapper's refusals.
+"""Kernels K1 and K2 of the port (qflux_tpu_torch/ops/flash_nr.py): their
+plain PyTorch versions against the JAX package's `flash_attention_nr` and
+its gradients, run as tests/ops/test_flash_nr.py runs them on the CPU (the
+Pallas kernels in interpret mode); the custom op's autograd wiring; and the
+wrappers' refusals.
 
-Shapes and tolerance are those of tests/ops/test_flash_nr.py: B=2, S=256,
-H=2, D=128, the txt/img boundary at 96, float32, atol 3e-5.  In float32 the
-pipeline's intermediate casts are the identity, so the two sides differ
-only in the order of the f32 sums of the softmax (online in the kernel).
+Shapes and tolerances are those of tests/ops/test_flash_nr.py: B=2, S=256,
+H=2, D=128, the txt/img boundary at 96, float32; atol 3e-5 on the forward
+(the two sides differ only in the order of the f32 softmax sums) and
+atol = rtol = 2e-3 on the gradients (the JAX backward kernel runs its own
+f32 chain, tiled and in another order, against autograd of the plain
+composition here).
 
-The CUDA kernel itself cannot run here; `test_kernel_matches_plain_on_card`
-holds it against the plain version where a card is present.
+The CUDA kernels cannot run here; tests/test_torch_card.py holds them
+against the plain versions where a card is present.
 """
 
+import functools
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -27,10 +32,12 @@ from qflux_tpu.ops import attention as jattn
 from qflux_tpu.ops import flash_nr as jnr
 from qflux_tpu_torch.ops import attention as tattn
 from qflux_tpu_torch.ops import flash_nr as tnr
+from qflux_tpu_torch.runtime import build
 
 B, S, H, D = 2, 256, 2, 128
 ST = 96
 ATOL = 3e-5
+GRAD_TOL = 2e-3
 REPO = Path(__file__).resolve().parent.parent
 
 
@@ -88,6 +95,102 @@ def test_plain_k1_matches_jax_flash_nr(s, seg_kind):
     # the public entry point takes the plain version for CPU tensors
     out2, lse2 = tnr.flash_attention_nr(*t_args, ST, segment_ids=t_seg)
     assert torch.equal(out2, out) and torch.equal(lse2, lse)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+def test_plain_k2_matches_jax_flash_nr_grads(masked):
+    """flash_attention_nr_bwd_reference against jax.grad of the JAX
+    `flash_attention_nr` (its `_bwd_nr` Pallas kernel in interpret mode):
+    dq, dk, dv and both scale-pair gradients.  The masked case pads sample 0
+    from row 239 and gives those rows a nonzero cotangent: their gradients
+    must still be 0."""
+    q, k, v, qs2, ks2, cos, sin = _inputs(2)
+    do = np.random.default_rng(12).standard_normal((B, S, H, D)).astype(np.float32)
+    seg = None
+    if masked:
+        seg = np.ones((B, S), np.int32)
+        seg[0, 239:] = 0
+
+    def loss(q_, k_, v_, a_, b_):
+        out = jnr.flash_attention_nr(q_, k_, v_, a_, b_, jnp.asarray(cos), jnp.asarray(sin), ST,
+                                     segment_ids=None if seg is None else jnp.asarray(seg))
+        return jnp.sum(out * jnp.asarray(do))
+
+    j_grads = jax.grad(loss, argnums=(0, 1, 2, 3, 4))(*map(jnp.asarray, (q, k, v, qs2, ks2)))
+    t_grads = tnr.flash_attention_nr_bwd_reference(
+        *[torch.from_numpy(a) for a in (q, k, v, qs2, ks2, cos, sin)], ST, torch.from_numpy(do),
+        segment_ids=None if seg is None else torch.from_numpy(seg))
+    for t, j, name in zip(t_grads, j_grads, ("dq", "dk", "dv", "dqs", "dks")):
+        assert t.dtype == torch.float32 and tuple(t.shape) == j.shape
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=GRAD_TOL, rtol=GRAD_TOL,
+                                   err_msg=name)
+    if masked:
+        for t in t_grads[:3]:
+            assert not t[0, 239:].any()
+
+
+def _plain_launchers(monkeypatch):
+    """Test doubles: the two low-level launchers replaced by plain math, and
+    the dispatch sending CPU tensors to the custom op instead of the plain
+    version, so the op, its autograd formula and the checkpoint policy run
+    here.  Returns nothing; the counts move as the real launches would."""
+    def fwd(q, k, v, qs, ks, cos, sin, st, seg, scale):
+        with torch.no_grad():
+            return tnr.flash_attention_nr_reference(q, k, v, qs, ks, cos, sin, st, seg, scale)
+
+    def bwd(q, k, v, qs, ks, cos, sin, st, seg, scale, out, lse, do):
+        g = tnr.flash_attention_nr_bwd_reference(q, k, v, qs, ks, cos, sin, st, do, seg, scale)
+        return tuple(x.to(q.dtype) for x in g[:3]) + tuple(g[3:])
+
+    monkeypatch.setattr(tnr, "_flash_nr_cuda", fwd)
+    monkeypatch.setattr(tnr, "_flash_nr_bwd_cuda", bwd)
+
+    def dispatch(q, k, v, q_scale2, k_scale2, cos, sin, st, segment_ids=None, scale=None):
+        scale = scale if scale is not None else q.shape[-1] ** -0.5
+        return tnr._flash_attention_nr_op(q, k, v, q_scale2, k_scale2, cos, sin, st,
+                                          segment_ids, scale)
+
+    monkeypatch.setattr(tnr, "flash_attention_nr", dispatch)
+
+
+@pytest.mark.parametrize("remat", ["none", "full", "flash"])
+def test_custom_op_autograd_and_checkpoint_policy(monkeypatch, remat):
+    """The custom op `qflux::flash_nr_fwd` with its registered autograd gives
+    the plain gradients of q, k, v and both scale pairs; under the "flash"
+    selective-checkpoint policy its out / lse are saved,
+    so a forward + backward launches K1 once (twice under "full") and K2
+    once."""
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    from qflux_tpu_torch.models.flux.transformer import _save_flash_outputs
+
+    _plain_launchers(monkeypatch)
+    q, k, v, qs2, ks2, cos, sin = (torch.from_numpy(a) for a in _inputs(13, s=64))
+    do = torch.from_numpy(np.random.default_rng(14).standard_normal((B, 64, H, D))
+                          .astype(np.float32))
+    seg = torch.from_numpy(_segments("masked", 64))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v, qs2, ks2)]
+
+    def fn(*xs):
+        return (tnr.flash_attention_nr(*xs, cos, sin, 16, segment_ids=seg)[0] * do).sum()
+
+    monkeypatch.setattr(tnr, "KERNEL_LAUNCHES", 0)
+    monkeypatch.setattr(tnr, "BWD_KERNEL_LAUNCHES", 0)
+    if remat == "none":
+        loss = fn(*leaves)
+    elif remat == "full":
+        loss = checkpoint(fn, *leaves, use_reentrant=False)
+    else:
+        ctx = functools.partial(create_selective_checkpoint_contexts, _save_flash_outputs)
+        loss = checkpoint(fn, *leaves, use_reentrant=False, context_fn=ctx)
+    assert tnr.KERNEL_LAUNCHES == 1 and tnr.BWD_KERNEL_LAUNCHES == 0
+    grads = torch.autograd.grad(loss, leaves)
+    assert tnr.KERNEL_LAUNCHES == (2 if remat == "full" else 1)
+    assert tnr.BWD_KERNEL_LAUNCHES == 1
+    ref = tnr.flash_attention_nr_bwd_reference(q, k, v, qs2, ks2, cos, sin, 16, do,
+                                               segment_ids=seg)
+    for g, r in zip(grads, ref):
+        np.testing.assert_allclose(g.numpy(), r.numpy(), atol=1e-5, rtol=1e-5)
 
 
 def test_apply_qk_norm_rope_bf16_matches_jax():
@@ -162,6 +265,29 @@ def test_cuda_entry_point_raises_instead_of_falling_back():
     assert tnr.KERNEL_LAUNCHES == before
 
 
+def test_bwd_entry_point_raises_instead_of_falling_back():
+    """K2's launcher refuses CPU tensors too, and counts nothing."""
+    q, k, v, qs2, ks2, cos, sin = (torch.from_numpy(a) for a in _inputs(15, s=64))
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    lse = torch.zeros(B, H, 64)
+    before = tnr.BWD_KERNEL_LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        tnr._flash_nr_bwd_cuda(q, k, v, qs2, ks2, cos, sin, 8, None, D ** -0.5, q, lse, q)
+    assert tnr.BWD_KERNEL_LAUNCHES == before
+
+
+def test_c_signatures_match_sources():
+    """Every C entry point of runtime/build.py's table exists in csrc/ with
+    as many parameters as the ctypes signature declares (ctypes cannot check
+    this, and a missing argument would be read as garbage on the card)."""
+    sources = "".join(p.read_text() for p in sorted(build.CSRC.glob("*.cu")))
+    for name, (_, argtypes) in build._SIGNATURES.items():
+        m = re.search(r'extern "C" [^(]*\b' + name + r"\(([^)]*)\)", sources)
+        assert m, f"{name} is not defined in csrc/"
+        params = [a for a in m.group(1).split(",") if a.strip()]
+        assert len(params) == len(argtypes), name
+
+
 def test_kernel_arg_checks():
     """What csrc/flash_nr_fwd.cu does not take is refused before a launch."""
     q, k, v, qs2, ks2, cos, sin = (torch.from_numpy(a) for a in _inputs(10, s=64))
@@ -208,8 +334,9 @@ def test_build_raises_without_nvcc(tmp_path, monkeypatch):
 
 
 def test_port_never_imports_jax(tmp_path):
-    """Importing every module of qflux_tpu_torch and running the tiny slice
-    end to end leaves jax (and the JAX package) out of sys.modules."""
+    """Importing every module of qflux_tpu_torch and running the tiny slices
+    end to end (a predict request, then two Trainer.fit steps) leaves jax
+    (and the JAX package) out of sys.modules."""
     script = tmp_path / "no_jax.py"
     script.write_text(
         "import importlib, pkgutil, sys\n"
@@ -230,6 +357,11 @@ def test_port_never_imports_jax(tmp_path):
         "       'txt_ids': flux_text_ids(8)}\n"
         "img = tr.predict_from_embeddings(emb, 32, 32)\n"
         "assert img.shape == (1, 32, 32, 3) and img.dtype == np.uint8\n"
+        "from qflux_tpu_torch.trainer.base import train_config\n"
+        "tt = Trainer(train_config(variant='test', max_train_steps=2), device='cpu')\n"
+        "emb['image_latents'] = rng.standard_normal((1, 64, 16)).astype(np.float32)\n"
+        "tt.fit([emb] * 3)\n"
+        "assert len(tt.history) == 2 and all(np.isfinite(h['loss']) for h in tt.history)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'qflux_tpu'))\n"
         "assert not bad, bad\n"
         "print('NO_JAX_OK')\n")
@@ -238,31 +370,3 @@ def test_port_never_imports_jax(tmp_path):
     res = subprocess.run([sys.executable, str(script)], cwd=tmp_path, env=env,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0 and "NO_JAX_OK" in res.stdout, res.stdout + res.stderr
-
-
-# ---------------------------------------------------------------------------
-# on the card
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("seg_kind", [None, "masked"])
-def test_kernel_matches_plain_on_card(seg_kind):
-    """K1 on the card against its plain version, bf16, at a small shape with a
-    ragged edge (S=300 is not a multiple of the 64-row tiles).  Tolerances as
-    chip_smoke.py states them: 4 bf16 ulps at magnitude 1 for out, 1e-4 for
-    lse."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU (and nvcc) to build and run csrc/flash_nr_fwd.cu")
-    q, k, v, qs2, ks2, cos, sin = _inputs(11, s=300, h=4)
-    args = [torch.from_numpy(a).cuda() for a in (q, k, v, qs2, ks2, cos, sin)]
-    for i in range(3):
-        args[i] = args[i].to(torch.bfloat16)
-    seg = _segments(seg_kind, 300)
-    seg = None if seg is None else torch.from_numpy(seg).cuda()
-    out, lse = tnr.flash_attention_nr(*args, ST, segment_ids=seg)
-    torch.cuda.synchronize()
-    ref, ref_lse = tnr.flash_attention_nr_reference(*args, ST, segment_ids=seg)
-    assert (out.float() - ref.float()).abs().max().item() <= 1.6e-2
-    valid = ref_lse > -1e29
-    assert (lse - ref_lse).abs()[valid].max().item() <= 1e-4
-    if seg is not None:
-        assert bool((out[0, 230:] == 0).all())
