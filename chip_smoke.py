@@ -3,12 +3,16 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths at full width (FLUX.1-Kontext-dev: 19 dual + 38
-single blocks, synthetic bf16 weights from a seed, a rank-16 LoRA on
-to_q/to_k/to_v/to_out, 512² target with one 512² control image and 512 T5
-tokens, S = 2560): predict from cached embeddings (20 Euler steps, full f32
-VAE decode) and the LoRA train step from cached embeddings (MseLoss,
-optax.adamw defaults, remat "flash"), in phases:
+Drives the port's three paths at full width with synthetic weights from a
+seed.  FLUX.1-Kontext-dev (19 dual + 38 single blocks, bf16, a rank-16 LoRA
+on to_q/to_k/to_v/to_out, 512² target with one 512² control image and 512
+T5 tokens, S = 2560): predict from cached embeddings (20 Euler steps, full
+f32 VAE decode) and the LoRA train step from cached embeddings (MseLoss,
+optax.adamw defaults, remat "flash").  Qwen-Image-Edit (the 20B DiT: 60
+dual-stream blocks, dim 3072, over the int4-requant base of
+configs/example_qwen_single_chip_832x576.yaml with quantize.attention off;
+832×576 target with one control image and 256 Qwen2.5-VL tokens, S = 4000):
+predict from cached embeddings.  In phases:
 
   1. device: the card's name and power limit (nvidia-smi); TF32 off;
   2. build: the hand-written kernels from qflux_tpu_torch/csrc;
@@ -25,18 +29,30 @@ optax.adamw defaults, remat "flash"), in phases:
   6. train: one full-width step's LoRA gradients through K1 + K2 and
      through the plain attention (relative L2 error), then Trainer.fit at
      bs=1 and bs=2, checked for finite losses, a LoRA b that moved, and
-     exactly 57 K1 and 57 K2 launches per step.
+     exactly 57 K1 and 57 K2 launches per step;
+  7. kernel K5a (csrc/rq_int4_fwd.cu) against its plain version at every
+     int4-requant GEMM shape of the Qwen forward (exact: max |diff| = 0),
+     with median times beside the bound and torch._int_mm;
+  8. Qwen predict (the FLUX model freed first): one full-width forward
+     through K5a + K1, through the plain requant route + K1 (identical to
+     the bit) and all plain (relative L2 error), then three requests
+     through Trainer.predict_from_embeddings, each checked for uint8
+     images, finite latents and exactly 60 K1 and 723 K5a launches per
+     forward.
 
 Each path runs with the launch counts set to 0 just before it and read just
-after.  Prints the kernel table as one JSON line before the last, and as the
-last line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count":
-...}}.  Exits non-zero, without that line, if there is no CUDA device or any
-phase fails.
+after.  Prints the kernel table as one JSON line before the last (each
+kernel's time, the bound for the same work on this card's published peaks,
+the plain version's time and one PyTorch call's time as a yardstick), the
+wall time, and as the last line {"ok": true, "device": {"platform": "gpu",
+"kind": ..., "count": ...}}.  Exits non-zero, without that line, if there is
+no CUDA device or any phase fails.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -82,6 +98,32 @@ GRAD_REL_TOL = 1e-1
 STEPS = 20
 HEIGHT = WIDTH = 512
 TRAIN_STEPS = 4  # Trainer.fit steps at each batch size
+# Qwen-Image-Edit: configs/example_qwen_single_chip_832x576.yaml as the port
+# reads it, with two cuts: no checkpoint path (the weights are synthetic,
+# from a seed) and quantize.attention off (the int8 score GEMM of K1 comes
+# with the Qwen train slice).  Written out here because the card's machine
+# has no PyYAML; tests/test_torch_qwen.py holds it to the YAML file.
+QWEN_832X576 = {
+    "trainer": "QwenImageEditTrainer",
+    "mesh": {"dp": 1, "fsdp": 1, "tp": 1, "remat": "flash_offload"},
+    "model": {"lora": {"r": 16, "lora_alpha": 16},
+              "quantize": {"enabled": True, "dtype": "int4_requant", "attention": False}},
+    "optimizer": {"class_path": "optax.adamw", "learning_rate": 1.0e-4},
+    "train": {"max_train_steps": 5000, "weight_dtype": "bfloat16",
+              "timestep_sampling": "logit_normal"},
+}
+QWEN_HEIGHT, QWEN_WIDTH = 832, 576
+QWEN_TXT, QWEN_TXT_PAD = 256, 26  # Qwen2.5-VL tokens, the last 26 padding
+# the K5a cases: every (K, N) of an int4-requant GEMM of the Qwen forward
+# (block projections, MLP up / down, txt_in, img_in, proj_out) at the image
+# stream's and the text stream's rows for bs=1, and the MLP up at bs=2
+RQ_KN = [(3072, 3072), (3072, 12288), (12288, 3072), (3584, 3072), (64, 3072), (3072, 64)]
+RQ_CASES = [(m, k, n) for m in (3744, 256) for k, n in RQ_KN] + [(7488, 3072, 12288)]
+RQ_MAIN = (3744, 3072, 12288)  # the case the kernel table reports
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense), for bounds
+PEAK_BYTES_PER_MS = 3.35e9
+PEAK_BF16_PER_MS = 989e9
+PEAK_INT8_PER_MS = 1979e9
 
 
 def _nvidia_smi() -> str:
@@ -103,6 +145,32 @@ def _median_ms(fn, n=10) -> float:
         torch.cuda.synchronize()
         times.append(e0.elapsed_time(e1))
     return statistics.median(times)
+
+
+def _bound(n_bytes: float, n_ops: float, peak_ops_per_ms: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the peak rate of their type."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_MS, n_ops / peak_ops_per_ms
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes > t_ops else "operations"}
+
+
+def _sdpa_flash_ms(qn, kn, v, do=None) -> float:
+    """One PyTorch call for the same attention on the already normed and
+    roped q/k: scaled_dot_product_attention on its flash backend (its
+    backward with `do`).  A yardstick only: the port never calls it."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q, k, vv = (t.transpose(1, 2) for t in (qn, kn, v))  # [B, H, S, D]
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        if do is None:
+            with torch.no_grad():
+                return _median_ms(lambda: F.scaled_dot_product_attention(q, k, vv))
+        q, k, vv = (t.detach().requires_grad_() for t in (q, k, vv))
+        out = F.scaled_dot_product_attention(q, k, vv)
+        g = do.transpose(1, 2)
+        return _median_ms(lambda: torch.autograd.grad(out, (q, k, vv), g, retain_graph=True))
 
 
 def _attn_inputs(gen, b, s, h=24, d=128):
@@ -162,8 +230,18 @@ def phase_kernel(card: str) -> dict:
               f"plain {plain_ms:.3f} ms [{card}]", flush=True)
         if not ok:
             raise AssertionError(f"K1 disagrees with its plain version in case {name}")
-        if main is None:
-            main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        if main is None:  # the dual-block shape of the predict path
+            q, k, v, qs2, ks2, cos, sin = args
+            qn = flash_nr.apply_qk_norm_rope(q, qs2, cos, sin, st)
+            kn = flash_nr.apply_qk_norm_rope(k, ks2, cos, sin, st)
+            lib_ms = _sdpa_flash_ms(qn, kn, v)
+            # q, k, v, out in bf16, lse f32, cos/sin f32; QK^T and PV
+            n_bytes = 4 * b * s * 24 * 128 * 2 + b * 24 * s * 4 + 2 * s * 128 * 4
+            main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                    **_bound(n_bytes, gflop * 1e9, PEAK_BF16_PER_MS)}
+            print(f"[kernel] {name}: bound {main['bound_ms']:.4f} ms ({main['bound_by']}), "
+                  f"SDPA flash on the normed/roped q,k {lib_ms:.3f} ms [{card}]", flush=True)
+            del qn, kn
         del args, out, lse, ref, ref_lse
         torch.cuda.empty_cache()
     return main
@@ -210,8 +288,22 @@ def phase_kernel_bwd(card: str) -> dict:
               flush=True)
         if not ok:
             raise AssertionError(f"K2 disagrees with its plain version in case {name}")
-        if main is None:
-            main = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms}
+        if main is None:  # the dual-block shape of the train path
+            q, k, v, qs2, ks2, cos, sin = args
+            qn = flash_nr.apply_qk_norm_rope(q, qs2, cos, sin, st)
+            kn = flash_nr.apply_qk_norm_rope(k, ks2, cos, sin, st)
+            lib_ms = _sdpa_flash_ms(qn, kn, v, do)
+            # in: q, k, v, out, do bf16, lse f32, cos/sin f32; out: dq, dk,
+            # dv bf16.  The least work is five S x S x D GEMMs (QK^T
+            # recomputed once, dP, dV, dQ, dK); the kernel does seven.
+            n_bytes = 8 * b * s * 24 * 128 * 2 + b * 24 * s * 4 + 2 * s * 128 * 4
+            main = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": lib_ms,
+                    **_bound(n_bytes, 10.0 * b * 24 * s * s * 128, PEAK_BF16_PER_MS)}
+            print(f"[kernel_bwd] {name}: bound {main['bound_ms']:.4f} ms ({main['bound_by']}), "
+                  f"SDPA flash backward on the normed/roped q,k {lib_ms:.3f} ms [{card}]",
+                  flush=True)
+            del qn, kn
         del args, out, lse, do
         torch.cuda.empty_cache()
     return main
@@ -423,6 +515,239 @@ def phase_train(card: str, trainer) -> tuple[int, int]:
     return k1_total, k2_total
 
 
+def phase_rq_kernel(card: str) -> dict:
+    """K5a against requant_int4_matmul at RQ_CASES: bf16 activations, weights
+    U(±1/sqrt(K)) quantized to int4 with groups of min(128, K).  The kernel
+    must equal the plain version to the bit.  Times: K5a alone on the
+    row-quantized activation (what the bound counts), the wrapper with its
+    plain-torch row quantization, the plain version, and torch._int_mm on
+    the same int8 operands with q8 materialized (the int GEMM JAX's default
+    XLA path runs; a yardstick only)."""
+    from qflux_tpu_torch.ops import int4_matmul, quant
+
+    gen = torch.Generator("cuda").manual_seed(3)
+    main = None
+    for m, k_in, n in RQ_CASES:
+        w = (torch.rand(k_in, n, device="cuda", generator=gen) * 2 - 1) / k_in ** 0.5
+        q4, scale = quant.quantize_kernel_int4(w, 128)
+        f, sv = quant._requant_factors(scale)
+        x = torch.randn(m, k_in, device="cuda", generator=gen).to(torch.bfloat16)
+        got = int4_matmul.rq_fused_matmul(x, q4, scale, (f, sv))
+        torch.cuda.synchronize()
+        want = quant.requant_int4_matmul(x, q4, scale, (f, sv))
+        err = (got.float() - want.float()).abs().max().item()
+        if not (torch.equal(got, want) and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"K5a differs from its plain version at M={m} K={k_in} N={n}: "
+                                 f"max |diff| {err}")
+        xq, sx = quant._rowquant(x)
+        ms = _median_ms(lambda: int4_matmul.rq_int4_fwd_cuda(xq, q4, f, sx, sv, x.dtype))
+        wrapper_ms = _median_ms(lambda: int4_matmul.rq_fused_matmul(x, q4, scale, (f, sv)))
+        plain_ms = _median_ms(lambda: quant.requant_int4_matmul(x, q4, scale, (f, sv)), n=5)
+        q8 = quant._requant_q8(q4, f)
+        try:
+            lib_ms = _median_ms(lambda: torch._int_mm(xq, q8))
+        except RuntimeError as e:  # a shape torch._int_mm refuses: no yardstick
+            lib_ms = None
+            print(f"[rq] torch._int_mm refuses M={m} K={k_in} N={n}: {e}", flush=True)
+        ops = 2.0 * m * k_in * n
+        # xq, q4, f, sx, sv read once; out (bf16) written once
+        n_bytes = m * k_in + k_in * n // 2 + f.numel() * 4 + m * 4 + n * 4 + m * n * 2
+        bound = _bound(n_bytes, ops, PEAK_INT8_PER_MS)
+        lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+        print(f"[rq] M={m} K={k_in} N={n}: max |kernel - plain| {err} (tol 0); K5a "
+              f"{ms:.4f} ms ({ops / ms / 1e9:.1f} TOPS), with row-quant {wrapper_ms:.4f} ms, "
+              f"plain {plain_ms:.3f} ms, torch._int_mm {lib}, bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}) [{card}]", flush=True)
+        if (m, k_in, n) == RQ_MAIN:
+            main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                    **bound}
+        del w, q4, scale, f, sv, x, got, want, xq, sx, q8
+        torch.cuda.empty_cache()
+    return main
+
+
+def _qwen_request(rng, cfg, gh, gw, b):
+    """A cached-embedding request of the Qwen adapter: 256 Qwen2.5-VL tokens ×
+    3584 (the last 26 padding), one control image of gh×gw packed tokens."""
+    mask = np.ones((b, QWEN_TXT), np.int64)
+    mask[:, QWEN_TXT - QWEN_TXT_PAD:] = 0
+    f32 = np.float32
+    return {
+        "control_latents": rng.standard_normal((b, gh * gw, cfg.in_channels)).astype(f32),
+        "prompt_embeds": rng.standard_normal((b, QWEN_TXT, cfg.joint_attention_dim)).astype(f32),
+        "prompt_embeds_mask": mask,
+        "img_shapes_arr": np.asarray([(1, gh, gw), (1, gh, gw)], np.int32),
+    }
+
+
+def phase_qwen_predict(card: str) -> tuple[int, int]:
+    """The 20B Qwen-Image-Edit predict path over the int4-requant base.
+    Returns the K1 and K5a launches of the three requests."""
+    from qflux_tpu_torch.config import config_from_dict
+    from qflux_tpu_torch.ops import flash_nr, int4_matmul
+    from qflux_tpu_torch.ops.layers import iter_dense_paths, merge_lora, set_int4_impl
+    from qflux_tpu_torch.trainer.base import Trainer
+
+    trainer = Trainer(config_from_dict(QWEN_832X576), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.load_model()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    dit, cfg = trainer.bundle.dit_params, trainer.bundle.dit_cfg
+    denses = [m for _, m in iter_dense_paths(dit)]
+    quantized = [m for m in denses if m.q4 is not None]
+    n_int4 = sum(2 * m.q4.numel() for m in quantized)
+    n_full = sum(p.numel() for p in dit.parameters())
+    b_nibbles = sum(m.q4.numel() for m in quantized)
+    b_scales = sum(m.scale.numel() * 4 for m in quantized)
+    b_factors = sum((m.rq_f.numel() + m.rq_s_vec.numel()) * 4 for m in quantized)
+    b_full = sum(p.numel() * p.element_size() for p in dit.parameters())
+    n_vae = sum(p.numel() for p in trainer.bundle.vae_params.parameters())
+    lora = trainer.build_lora()
+    gen = torch.Generator("cuda").manual_seed(9)
+    _perturb_b(lora, gen)
+    n_lora = sum(leaf["a"].numel() + leaf["b"].numel() for leaf in lora.values())
+    print(f"[qwen] DiT {cfg.num_layers} blocks, dim {cfg.dim}, {len(quantized)} of "
+          f"{len(denses)} dense layers int4-requant: {n_int4 + n_full} weights ({n_int4} int4, "
+          f"{n_full} bf16); {b_nibbles + b_scales + b_factors + b_full} bytes ({b_nibbles} "
+          f"packed nibbles, {b_scales} group scales, {b_factors} cached requant factors, "
+          f"{b_full} bf16); VAE decoder {n_vae} params f32; LoRA {len(lora)} layers rank "
+          f"{trainer.config.model.lora.r}, {n_lora} params; loaded in {load_s:.1f} s, peak "
+          f"{torch.cuda.max_memory_allocated()} bytes [{card}]", flush=True)
+
+    rng = np.random.default_rng(5)
+    gh, gw = trainer.adapter.latent_grid(QWEN_HEIGHT, QWEN_WIDTH)
+    n_blocks = cfg.num_layers
+    per_forward = n_blocks * 12 + 3  # 8 projections + 4 MLP GEMMs a block; img_in, txt_in, proj_out
+
+    # one full-width forward three ways
+    batch = trainer._device_batch(_qwen_request(rng, cfg, gh, gw, 1))
+    lat = torch.randn(1, gh * gw, cfg.in_channels, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    sigma = torch.full((1,), 1.0, dtype=torch.bfloat16, device="cuda")
+    plain_attn = dataclasses.replace(trainer.adapter, attn_impl="plain")
+    merge_lora(dit, lora)
+    try:
+        with torch.inference_mode():
+            k1, k5 = flash_nr.KERNEL_LAUNCHES, int4_matmul.RQ_KERNEL_LAUNCHES
+            v_k = trainer.adapter.predict_velocity(dit, batch, lat, sigma)
+            launched = (flash_nr.KERNEL_LAUNCHES - k1, int4_matmul.RQ_KERNEL_LAUNCHES - k5)
+            if launched != (n_blocks, per_forward):
+                raise AssertionError(f"the full-width Qwen forward launched K1/K5a {launched} "
+                                     f"times, expected ({n_blocks}, {per_forward})")
+            set_int4_impl(dit, "plain")
+            v_int4_plain = trainer.adapter.predict_velocity(dit, batch, lat, sigma)
+            v_p = plain_attn.predict_velocity(dit, batch, lat, sigma).float()
+    finally:
+        set_int4_impl(dit, "auto")
+    identical = torch.equal(v_k, v_int4_plain)
+    v_k = v_k.float()
+    rel = (torch.linalg.vector_norm(v_k - v_p) / torch.linalg.vector_norm(v_p)).item()
+    print(f"[qwen] full-width forward [1, {gh * gw}, {v_k.shape[-1]}], S = "
+          f"{QWEN_TXT + 2 * gh * gw}: K5a + K1 vs plain requant + K1 identical to the bit: "
+          f"{identical}; vs all plain: rel L2 err {rel:.3e} (tol {FORWARD_REL_TOL}), |v| rms "
+          f"{v_p.pow(2).mean().sqrt().item():.4f}; K1/K5a launches {launched} [{card}]",
+          flush=True)
+    if not identical:
+        raise AssertionError("the Qwen forward through K5a differs from the plain requant route")
+    if not (rel <= FORWARD_REL_TOL and bool(torch.isfinite(v_k).all())):
+        raise AssertionError("the Qwen forward through K5a + K1 disagrees with the plain path")
+    del v_k, v_p, v_int4_plain, batch
+    torch.cuda.empty_cache()
+
+    # the main path: three requests, counts reset just before
+    flash_nr.KERNEL_LAUNCHES = int4_matmul.RQ_KERNEL_LAUNCHES = 0
+    for i, (b, seed) in enumerate([(1, 42), (1, 43), (2, 44)]):
+        emb = _qwen_request(rng, cfg, gh, gw, b)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        k1, k5 = flash_nr.KERNEL_LAUNCHES, int4_matmul.RQ_KERNEL_LAUNCHES
+        t0 = time.perf_counter()
+        images = trainer.predict_from_embeddings(emb, QWEN_HEIGHT, QWEN_WIDTH, lora=lora,
+                                                 seed=seed)
+        secs = time.perf_counter() - t0
+        stats = trainer.last_predict
+        launched = (flash_nr.KERNEL_LAUNCHES - k1, int4_matmul.RQ_KERNEL_LAUNCHES - k5)
+        print(f"[qwen] request {i}: bs={b} seed={seed} {secs:.3f} s, "
+              f"{1000 * stats['denoise_s'] / stats['steps']:.1f} ms/denoising step "
+              f"({stats['steps']} steps), VAE decode {1000 * stats['decode_s']:.1f} ms, "
+              f"peak mem {torch.cuda.max_memory_allocated()} bytes, K1/K5a launches {launched}, "
+              f"images {images.dtype} {list(images.shape)} mean {images.mean():.2f} [{card}]",
+              flush=True)
+        if images.dtype != np.uint8 or images.shape != (b, QWEN_HEIGHT, QWEN_WIDTH, 3):
+            raise AssertionError(f"Qwen request {i}: images {images.dtype} {images.shape}")
+        if not stats["latents_finite"]:
+            raise AssertionError(f"Qwen request {i}: non-finite latents")
+        if launched != (STEPS * n_blocks, STEPS * per_forward):
+            raise AssertionError(f"Qwen request {i}: K1/K5a launched {launched} times, expected "
+                                 f"{(STEPS * n_blocks, STEPS * per_forward)}")
+    counts = (flash_nr.KERNEL_LAUNCHES, int4_matmul.RQ_KERNEL_LAUNCHES)
+    _profile_step(card, trainer, _qwen_request(rng, cfg, gh, gw, 1), lora)
+    return counts
+
+
+# kernel-name fragments → the groups of the step profile
+PROFILE_GROUPS = [("K5a rq_int4_fwd", ("rq_int4_fwd",)), ("K1 flash_nr_fwd", ("flash_nr_fwd",)),
+                  ("cuBLAS GEMM/GEMV", ("gemm", "gemv", "nvjet", "cutlass", "sm90_")),
+                  ("reductions", ("reduce",)), ("copies and casts", ("copy", "cast", "memcpy")),
+                  ("elementwise", ("elementwise", "vectorized", "unrolled"))]
+
+
+def _profile_step(card: str, trainer, emb: dict, lora) -> None:
+    """One Qwen denoising step at bs=1 (predict_velocity on a warm model)
+    under torch.profiler: wall time, device busy time and share, and device
+    time by kernel group and by kernel.  Informational: it checks nothing
+    and counts no launch of the main path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from qflux_tpu_torch.ops.layers import merge_lora
+
+    dit, cfg = trainer.bundle.dit_params, trainer.bundle.dit_cfg
+    batch = trainer._device_batch(emb)
+    gh, gw = trainer.adapter.latent_grid(QWEN_HEIGHT, QWEN_WIDTH)
+    lat = torch.randn(1, gh * gw, cfg.in_channels, device="cuda").to(torch.bfloat16)
+    sigma = torch.full((1,), 0.5, dtype=torch.bfloat16, device="cuda")
+    merge_lora(dit, lora)
+    with torch.inference_mode():
+        trainer.adapter.predict_velocity(dit, batch, lat, sigma)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trainer.adapter.predict_velocity(dit, batch, lat, sigma)
+            torch.cuda.synchronize()
+            wall_ms = 1000 * (time.perf_counter() - t0)
+    merge_lora(dit, None)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1000
+    groups = {name: [0.0, 0] for name, _ in PROFILE_GROUPS}
+    groups["other"] = [0.0, 0]
+    for e in kernels:
+        key = e.key.lower()
+        name = next((g for g, frags in PROFILE_GROUPS if any(f in key for f in frags)), "other")
+        groups[name][0] += e.self_device_time_total / 1000
+        groups[name][1] += e.count
+    print(f"[profile] one Qwen denoising step, bs=1, S = {QWEN_TXT + 2 * gh * gw}: wall "
+          f"{wall_ms:.1f} ms under the profiler, device busy {busy_ms:.1f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%); by group: "
+          + "; ".join(f"{g} {ms:.1f} ms ({100 * ms / busy_ms:.1f}%, {n} launches)"
+                      for g, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]))
+          + f" [{card}]", flush=True)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    print("[profile] top kernels: " + "; ".join(
+        f"{e.key[:60]} {e.self_device_time_total / 1000:.2f} ms x{e.count}" for e in top)
+        + f" [{card}]", flush=True)
+    # the aten ops by the device time of the kernels they launched (the row
+    # quantization before each K5a launch is abs, amax, div, round and a cast)
+    ops = sorted((e for e in prof.key_averages() if e.device_type ==
+                  torch.autograd.DeviceType.CPU and e.key.startswith("aten::")
+                  and e.device_time_total > 0), key=lambda e: -e.device_time_total)[:15]
+    print("[profile] aten ops by device time (inclusive): " + "; ".join(
+        f"{e.key} {e.device_time_total / 1000:.2f} ms x{e.count}" for e in ops)
+        + f" [{card}]", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: torch.cuda.is_available() is False; this smoke runs only on a "
@@ -441,7 +766,7 @@ def main() -> int:
     print(f"[device] {kind}, count {torch.cuda.device_count()}, torch {torch.__version__} "
           f"CUDA {torch.version.cuda}; TF32 off [{card}]", flush=True)
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     kl = load_library()
     ptxas = [ln.strip() for ln in kl.log.splitlines() if "registers" in ln or "spill" in ln]
     print(f"[build] {kl.path.name} in {time.perf_counter() - t0:.2f} s "
@@ -451,17 +776,29 @@ def main() -> int:
     k2_case = phase_kernel_bwd(card)
     trainer, k1_predict = phase_predict(card)
     k1_train, k2_train = phase_train(card, trainer)
+    del trainer  # free the FLUX model before the Qwen one loads
+    gc.collect()
+    torch.cuda.empty_cache()
+    k5_case = phase_rq_kernel(card)
+    k1_qwen, k5_qwen = phase_qwen_predict(card)
 
+    print(f"[smoke] wall time {time.perf_counter() - t_start:.1f} s (build included) [{card}]",
+          flush=True)
     print(json.dumps({"kernels": [
         {"name": "flash_nr_fwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/flash_nr_fwd.cu",
          "replaces": "qflux_tpu/ops/flash_nr.py:192",
-         "launches": k1_predict + k1_train,
-         "launches_by_path": {"predict": k1_predict, "train": k1_train}, **k1_case},
+         "launches": k1_predict + k1_train + k1_qwen,
+         "launches_by_path": {"predict": k1_predict, "train": k1_train,
+                              "qwen_predict": k1_qwen}, **k1_case},
         {"name": "flash_nr_bwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/flash_nr_bwd.cu",
          "replaces": "qflux_tpu/ops/flash_nr.py:311",
          "launches": k2_train, "launches_by_path": {"train": k2_train}, **k2_case},
+        {"name": "rq_int4_fwd", "route": "cuda",
+         "source": "qflux_tpu_torch/csrc/rq_int4_fwd.cu",
+         "replaces": "qflux_tpu/ops/int4_matmul.py:268",
+         "launches": k5_qwen, "launches_by_path": {"qwen_predict": k5_qwen}, **k5_case},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -8,7 +8,13 @@ them into the port, so that both packages compute on the same weights:
   * stacked `[L, ...]` leaves ("dual", "single") are unstacked into the
     `nn.ModuleList`s;
   * a dense `kernel [in, out]` becomes `weight [out, in]`;
-  * a conv `kernel` HWIO becomes `weight` OIHW;
+  * a W4A8-requant dense `{kernel_q4_rq [in/2, out], kernel_scale [in/G,
+    out]}` (qflux_tpu/ops/quant.py:quantize_tree) keeps the JAX layout: the
+    `Dense` takes it with `set_int4_requant`, dropping its full-precision
+    weight.  Every other quantized form (`kernel_q`, `kernel_q_dyn`,
+    `kernel_q4`, `kernel_q4_dyn`) raises;
+  * a conv `kernel` HWIO becomes `weight` OIHW, a 3D one [kt, kh, kw, cin,
+    cout] `weight` OIDHW;
   * the JAX MLP nodes "in"/"out" are the modules `lin_in`/`lin_out`.
 
 This module imports no jax; the trees come in as plain dicts of arrays.
@@ -22,7 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from qflux_tpu_torch.ops.layers import LoraTree, raise_quantized
+from qflux_tpu_torch.ops.layers import Dense, LoraTree, raise_quantized
 
 _RENAME = {"in": "lin_in", "out": "lin_out"}
 
@@ -44,9 +50,18 @@ def _child(module: nn.Module, key: str) -> nn.Module:
 
 
 def _load(module: nn.Module, tree: Mapping[str, Any], loaded: set, path: str) -> None:
-    for key, val in tree.items():
-        if key.startswith("kernel_q"):
+    for key in tree:
+        if key.startswith("kernel_q") and key != "kernel_q4_rq":
             raise_quantized(key)
+    if "kernel_q4_rq" in tree:
+        if not isinstance(module, Dense):
+            raise KeyError(f"{path}kernel_q4_rq: {type(module).__name__} is not a dense layer")
+        dev = (module.weight if module.weight is not None else module.q4).device
+        q4 = torch.from_numpy(np.array(tree["kernel_q4_rq"], np.int8))
+        scale = torch.from_numpy(_np32(tree["kernel_scale"]))
+        module.set_int4_requant(q4.to(dev), scale.to(dev))
+        tree = {k: v for k, v in tree.items() if k not in ("kernel_q4_rq", "kernel_scale")}
+    for key, val in tree.items():
         if isinstance(val, Mapping):
             child = _child(module, key)
             if isinstance(child, nn.ModuleList):
@@ -58,7 +73,8 @@ def _load(module: nn.Module, tree: Mapping[str, Any], loaded: set, path: str) ->
         arr = _np32(val)
         if key == "kernel":
             param = module.weight
-            arr = arr.T if arr.ndim == 2 else arr.transpose(3, 2, 0, 1)  # HWIO → OIHW
+            # [in, out] → [out, in]; HWIO → OIHW; [kt, kh, kw, cin, cout] → OIDHW
+            arr = arr.transpose({2: (1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}[arr.ndim])
         else:
             param = getattr(module, key, None)
             if not isinstance(param, nn.Parameter):

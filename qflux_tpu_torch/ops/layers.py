@@ -8,6 +8,18 @@ nn.Linear) and a LoRA tree is a flat dict keyed by the module's '/'-path
 `merge_lora` attaches those tensors to the matching `Dense` modules in place,
 beside the frozen base weight: there is never a second copy of the base.
 
+A dense layer may also hold its frozen weight in the W4A8-requant form
+(`Dense.set_int4_requant`, as `quantize_tree` leaves it): packed int4 `q4
+[K/2, N]` and group scales `scale [K/G, N]` in the JAX layout, as frozen
+buffers, with the requant factors (f, s_vec) cached beside them.  Its
+product routes as qflux_tpu/ops/layers.py:_base_matmul does: calls with at
+most 32 rows (the AdaLN modulation projections, `time_in`) dequantize the
+weight to x.dtype and multiply with an f32 result; the rest run the fused
+requant matmul (kernel K5a on the card), whose result is already in x.dtype,
+so the LoRA delta and the bias then add in x.dtype.  `set_int4_impl(model,
+"plain")` sends them to the plain requant matmul instead: an explicit
+switch for comparing with the kernel, as attn_impl="plain" is.
+
 For training, `mark_trainable` makes `a`, `b` and `scaling` f32 leaf
 tensors with `requires_grad`; the base weights and biases stay frozen
 parameters.  `scaling` (alpha / r, a 0-dim f32 tensor) is differentiated
@@ -26,12 +38,15 @@ from typing import Iterator, Optional
 import torch
 from torch import nn
 
+from qflux_tpu_torch.ops import int4_matmul, quant
+
 LoraTree = dict  # {"dual/0/attn/to_q": {"a", "b", "scaling"}, ...}
 
 
 class Dense(nn.Module):
     """y = x @ W^T + b.  `lora` is None or the {"a", "b", "scaling"} dict
-    set by `merge_lora`."""
+    set by `merge_lora`.  The weight is `weight [out, in]`, or, after
+    `set_int4_requant`, the buffers `q4`, `scale`, `rq_f` and `rq_s_vec`."""
 
     def __init__(self, in_dim: int, out_dim: int, bias: bool = True,
                  device=None, dtype=None):
@@ -42,6 +57,26 @@ class Dense(nn.Module):
         self.bias = (nn.Parameter(torch.empty(out_dim, **kw), requires_grad=False)
                      if bias else None)
         self.lora: Optional[dict] = None
+        for name in ("q4", "scale", "rq_f", "rq_s_vec"):
+            self.register_buffer(name, None)
+        self.impl = "auto"  # "plain": the plain requant matmul instead of K5a
+
+    def set_int4_requant(self, q4, scale) -> None:
+        """Hold the frozen weight as W4A8-requant int4 (q4 [in/2, out] int8,
+        scale [in/G, out] f32, the JAX `kernel_q4_rq` / `kernel_scale`),
+        dropping the full-precision weight; caches the requant factors."""
+        if tuple(q4.shape) != (self.in_dim // 2, self.out_dim) or q4.dtype != torch.int8:
+            raise ValueError(f"q4 {q4.dtype} {tuple(q4.shape)} does not fit "
+                             f"{self.in_dim}→{self.out_dim}")
+        if (scale.dim() != 2 or scale.shape[1] != self.out_dim
+                or self.in_dim % scale.shape[0]):
+            raise ValueError(f"scale {tuple(scale.shape)} does not fit "
+                             f"{self.in_dim}→{self.out_dim}")
+        self.weight = None
+        scale = scale.float()
+        f, s_vec = quant._requant_factors(scale)
+        for name, t in (("q4", q4), ("scale", scale), ("rq_f", f), ("rq_s_vec", s_vec)):
+            self.register_buffer(name, t.contiguous())
 
     def init_(self, generator: torch.Generator) -> None:
         """Torch-nn.Linear-compatible init, as `dense_init`: U(±1/sqrt(in))."""
@@ -79,12 +114,12 @@ class _MatmulF32Out(torch.autograd.Function):
         return torch.mm(g.to(w.dtype), w), None
 
 
-def _base_matmul(p: Dense, x):
-    """x @ W^T with an f32 result, as `jnp.dot(..., preferred_element_type=
-    f32)`: f32 inputs multiply in f32 (the weight cast to x.dtype, as JAX);
-    bf16 inputs accumulate in f32 and keep the f32 result (cuBLAS
-    `out_dtype` on the card; widened operands on the CPU, same math)."""
-    w = p.weight
+def _matmul_f32(x, w):
+    """x @ w^T (w [out, in]) with an f32 result, as `jnp.dot(...,
+    preferred_element_type=f32)`: f32 inputs multiply in f32 (the weight
+    cast to x.dtype, as JAX); bf16 inputs accumulate in f32 and keep the f32
+    result (cuBLAS `out_dtype` on the card; widened operands on the CPU,
+    same math)."""
     if x.dtype == torch.float32:
         return torch.matmul(x, w.to(x.dtype).t())
     w = w.to(x.dtype)
@@ -96,13 +131,29 @@ def _base_matmul(p: Dense, x):
     return y.reshape(*x.shape[:-1], w.shape[0])
 
 
+def _base_matmul(p: Dense, x):
+    """x @ W^T for whatever form the frozen weight is held in.  An int4
+    requant weight takes the JAX package's route: at most 32 rows →
+    dequantized to x.dtype, f32 result (a GEMV-shaped call gains nothing from
+    the int8 path); otherwise the requant matmul, in x.dtype."""
+    if p.q4 is None:
+        return _matmul_f32(x, p.weight)
+    if x.numel() // x.shape[-1] <= 32:
+        return _matmul_f32(x, quant.dequantize_kernel_int4(p.q4, p.scale, x.dtype).t())
+    factors = (p.rq_f, p.rq_s_vec)
+    if p.impl == "plain":
+        return quant.requant_int4_matmul(x, p.q4, p.scale, factors)
+    return int4_matmul.rq_fused_matmul(x, p.q4, p.scale, factors)
+
+
 def dense(p: Dense, x, lora_scale: float = 1.0):
     """y = x@W + b [+ lora_scale · scaling · (x@a)@b], returned in x.dtype.
 
-    Cast points as in JAX: the base product accumulates and stays in f32;
-    both LoRA dots emit x.dtype and the scaling (a float, or a tensor that
-    autograd differentiates) is rounded to x.dtype; the delta and the bias
-    are added in y's dtype (f32)."""
+    Cast points as in JAX: the base product accumulates and stays in f32
+    (the requant matmul's comes back in x.dtype); both LoRA dots emit
+    x.dtype and the scaling (a float, or a tensor that autograd
+    differentiates) is rounded to x.dtype; the delta and the bias are added
+    in y's dtype."""
     y = _base_matmul(p, x)
     if p.lora is not None:
         la, lb = p.lora["a"].to(x.dtype), p.lora["b"].to(x.dtype)
@@ -116,10 +167,21 @@ def dense(p: Dense, x, lora_scale: float = 1.0):
 
 
 def raise_quantized(kind: str):
-    """Quantized frozen bases (`kernel_q*` forms) are a later slice."""
+    """Quantized frozen bases other than W4A8-requant (`kernel_q4_rq`) are
+    later slices."""
     raise NotImplementedError(
-        f"quantized dense form {kind!r} is not ported yet (ROADMAP.md: int8/int4 "
-        "bases come with the train-step and Qwen slices)")
+        f"quantized dense form {kind!r} is not ported yet (ROADMAP.md: int8 bases come "
+        "with slice B, the other int4 forms with the remaining families; ported: "
+        "kernel_q4_rq)")
+
+
+def set_int4_impl(module: nn.Module, impl: str) -> None:
+    """Route every int4-requant dense layer of `module` through K5a
+    ("auto") or the plain requant matmul ("plain")."""
+    if impl not in ("auto", "plain"):
+        raise ValueError(f"unknown int4 impl {impl!r} (auto | plain)")
+    for _, node in iter_dense_paths(module):
+        node.impl = impl
 
 
 def iter_dense_paths(module: nn.Module) -> Iterator[tuple[str, Dense]]:

@@ -1,9 +1,11 @@
-"""Multi-axis rotary position embeddings (FLUX 3-axis ids), rotate-half layout.
+"""Multi-axis rotary position embeddings (FLUX 3-axis ids, Qwen-Image 3-axis
+coordinates), rotate-half layout.
 
 Counterpart of qflux_tpu/ops/rope.py (`rope_from_coords`, `flux_image_ids`,
-`flux_text_ids`).  The inverse frequencies are computed in float64 on the
-host and cast to float32, as in the JAX code; the q/k projection channels
-are already permuted to the rotate-half layout by the JAX weight converter.
+`flux_text_ids`, `qwen_video_coords`, `qwen_rope`).  The inverse
+frequencies are computed in float64 on the host and cast to float32, as in
+the JAX code; the q/k projection channels are already permuted to the
+rotate-half layout by the JAX weight converter.
 """
 
 from __future__ import annotations
@@ -40,3 +42,39 @@ def flux_image_ids(height: int, width: int, set_id: int = 0,
 
 def flux_text_ids(seq_len: int) -> np.ndarray:
     return np.zeros((seq_len, 3), dtype=np.float32)
+
+
+def qwen_video_coords(frame: int, height: int, width: int, idx: int = 0,
+                      scale_rope: bool = True) -> np.ndarray:
+    """[(f*h*w), 3] coords (image index, row, col) for one (frame, H, W)
+    plane; scale_rope centres rows and columns on zero: h coord ∈
+    [-(h - h//2), h//2)."""
+    f = np.full((frame, height, width), idx, dtype=np.float32)
+    if scale_rope:
+        hs = np.arange(-(height - height // 2), height // 2, dtype=np.float32)
+        ws = np.arange(-(width - width // 2), width // 2, dtype=np.float32)
+    else:
+        hs = np.arange(height, dtype=np.float32)
+        ws = np.arange(width, dtype=np.float32)
+    h = np.broadcast_to(hs[None, :, None], (frame, height, width))
+    w = np.broadcast_to(ws[None, None, :], (frame, height, width))
+    return np.stack([f, h, w], axis=-1).reshape(-1, 3)
+
+
+def qwen_rope(video_fhw: list[tuple[int, int, int]], txt_seq_len: int,
+              axes_dim=(16, 56, 56), theta: float = 10000.0, scale_rope: bool = True):
+    """(vid_cos, vid_sin, txt_cos, txt_sin) f32 tensors on the CPU for the
+    joint Qwen stream: the image planes in order, and text tokens placed past
+    the largest image coordinate on all three axes."""
+    coords = [qwen_video_coords(f, h, w, idx=i, scale_rope=scale_rope)
+              for i, (f, h, w) in enumerate(video_fhw)]
+    vid = np.concatenate(coords, axis=0)
+    if scale_rope:
+        max_vid = max(max(h // 2, w // 2) for _, h, w in video_fhw)
+    else:
+        max_vid = max(max(h, w) for _, h, w in video_fhw)
+    txt = np.repeat(np.arange(max_vid, max_vid + txt_seq_len, dtype=np.float32)[:, None], 3,
+                    axis=1)
+    vid_cos, vid_sin = rope_from_coords(torch.from_numpy(vid), axes_dim, theta)
+    txt_cos, txt_sin = rope_from_coords(torch.from_numpy(txt), axes_dim, theta)
+    return vid_cos, vid_sin, txt_cos, txt_sin

@@ -2,9 +2,9 @@
 
 Counterpart of qflux_tpu/scheduler/weighting.py: the bell-shaped
 mean-normalized weights in closed form, the half-bell variant, and the
-reference's 1000-entry empirical table, looked up by σ.  The table is data
-of the JAX package (`qflux_tpu/scheduler/default_weighting_table.npy`),
-read here by path with numpy: nothing of the JAX package is imported.
+reference's 1000-entry empirical table, looked up by σ.  The table is the
+port's own byte-for-byte copy of the JAX package's
+`qflux_tpu/scheduler/default_weighting_table.npy`, beside this module.
 """
 
 from __future__ import annotations
@@ -16,8 +16,7 @@ import numpy as np
 import torch
 
 NUM_TIMESTEPS = 1000
-DEFAULT_TABLE = (Path(__file__).resolve().parents[2] / "qflux_tpu" / "scheduler"
-                 / "default_weighting_table.npy")
+DEFAULT_TABLE = Path(__file__).resolve().parent / "default_weighting_table.npy"
 
 
 @functools.lru_cache(maxsize=None)

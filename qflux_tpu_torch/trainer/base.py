@@ -9,33 +9,41 @@ grad_norm and lr per step in `history`; checkpoint files, the LoRA
 safetensors export, logging backends, validation, resume and the cache pass
 come with later slices (ROADMAP.md, slice B item 4).
 
-The Trainer reads its settings by attribute.  The JAX package's pydantic
-`Config` works where pydantic is installed (`Trainer.from_yaml`, which
-imports `qflux_tpu.config` only when called); `predict_config()` and
-`train_config()` build the same fields as plain namespaces, which is what
-runs on a machine without pydantic or YAML.
+The Trainer reads its settings by attribute, from the namespaces of the
+port's own loader (`qflux_tpu_torch/config.py`: `Trainer.from_yaml` reads a
+YAML file of the JAX package's format; `predict_config()` and
+`train_config()` build the same namespaces in code, which is what runs on a
+machine without YAML).
+
+Two model families are ported: FLUX.1-Kontext (predict and the LoRA train
+step) and Qwen-Image-Edit (predict).  `load_model` quantizes the DiT with
+`ops/quant.quantize_tree` where `model.quantize.enabled` (int4_requant only);
+training over a quantized base is the Qwen train slice (ROADMAP.md) and
+raises.
 """
 
 from __future__ import annotations
 
 import time
-from types import SimpleNamespace
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from qflux_tpu_torch import losses
-from qflux_tpu_torch.ops.layers import (build_lora_tree, mark_trainable, merge_lora,
-                                        raise_quantized)
+from qflux_tpu_torch.config import config_from_dict, load_config_from_yaml
+from qflux_tpu_torch.ops.layers import build_lora_tree, mark_trainable, merge_lora
+from qflux_tpu_torch.ops.quant import quantize_tree
 from qflux_tpu_torch.scheduler.flow_match import FlowMatchScheduler
 from qflux_tpu_torch.scheduler.weighting import default_weighting_table
 from qflux_tpu_torch.trainer.flux_kontext import FluxKontextAdapter
+from qflux_tpu_torch.trainer.qwen_edit import QwenImageEditAdapter
 from qflux_tpu_torch.trainer.sampling import SamplingConfig, make_sampler
 from qflux_tpu_torch.trainer.train_step import (TrainStepConfig, lora_leaves,
                                                 make_lr_schedule, make_train_step)
 
-ADAPTERS = {"FluxKontextLoraTrainer": FluxKontextAdapter}
+ADAPTERS = {"FluxKontextLoraTrainer": FluxKontextAdapter,
+            "QwenImageEditTrainer": QwenImageEditAdapter}
 # loss.class_path → the port's loss (the JAX names, as configs carry them)
 CRITERIA = {f"{pkg}.{name}": getattr(losses, name)
             for pkg in ("qflux_tpu.losses", "qflux_tpu.losses.losses")
@@ -44,44 +52,27 @@ ADAMW_ARGS = ("b1", "b2", "eps", "weight_decay")  # the optax.adamw arguments po
 
 
 def predict_config(variant: str = "test", num_inference_steps: int = 20):
-    """The settings the predict slice reads, as plain namespaces.  Values are
-    the JAX Config's defaults (PredictSection, LoggingSection.sampling_seed,
-    TrainSection.seed, MeshSection.remat) and
-    configs/example_fluxkontext_bf16.yaml's LoRA."""
-    ns = SimpleNamespace
-    return ns(
-        trainer=ns(value="FluxKontextLoraTrainer"),
-        model=ns(variant=variant, quantize=None,
-                 lora=ns(r=16, lora_alpha=16.0, init_lora_weights="gaussian",
-                         target_modules=["to_q", "to_k", "to_v", "to_out"],
-                         pretrained_weight=None)),
-        train=ns(seed=1234, weight_dtype="bfloat16"),
-        mesh=ns(remat="flash"),
-        logging=ns(sampling_seed=42),
-        predict=ns(num_inference_steps=num_inference_steps, guidance=2.5,
-                   true_cfg_scale=1.0, max_sequence_length=512))
+    """The FLUX.1-Kontext predict settings as namespaces: the JAX Config's
+    defaults (`config.DEFAULTS`) and configs/example_fluxkontext_bf16.yaml's
+    LoRA targets."""
+    return config_from_dict({
+        "model": {"variant": variant,
+                  "lora": {"target_modules": ["to_q", "to_k", "to_v", "to_out"]}},
+        "predict": {"num_inference_steps": num_inference_steps}})
 
 
 def train_config(variant: str = "test", max_train_steps: int = 1000):
-    """The settings the train slice reads, as plain namespaces: the JAX
-    Config's defaults (TrainSection, OptimizerSection = optax.adamw with b1
-    0.9, b2 0.999, weight_decay 1e-2 at lr 1e-4, LRSchedulerSection,
-    LossSection = MseLoss) on top of `predict_config`."""
-    ns = SimpleNamespace
+    """The train settings: `predict_config` with train.max_train_steps set
+    (optimizer, lr schedule, loss and the train section at the JAX Config's
+    defaults: optax.adamw b1 0.9, b2 0.999, weight_decay 1e-2 at lr 1e-4,
+    constant lr, MseLoss)."""
     cfg = predict_config(variant)
-    cfg.train = ns(seed=1234, weight_dtype="bfloat16", gradient_accumulation_steps=1,
-                   max_train_steps=max_train_steps, max_grad_norm=1.0,
-                   timestep_sampling="uniform", logit_mean=0.0, logit_std=1.0,
-                   weighting_scheme="none", weighting_table=None)
-    cfg.optimizer = ns(class_path="optax.adamw", learning_rate=1e-4,
-                       init_args={"b1": 0.9, "b2": 0.999, "weight_decay": 1e-2})
-    cfg.lr_scheduler = ns(scheduler_type="constant", warmup_steps=0)
-    cfg.loss = ns(class_path="qflux_tpu.losses.MseLoss", init_args={})
+    cfg.train.max_train_steps = max_train_steps
     return cfg
 
 
 class Trainer:
-    def __init__(self, config, device):
+    def __init__(self, config, device="cuda"):
         self.config = config
         self.device = torch.device(device)
         if self.device.type == "cuda":
@@ -95,7 +86,7 @@ class Trainer:
                 f"ported: {sorted(ADAPTERS)})")
         self.adapter_cls = ADAPTERS[kind]
         self.scheduler = FlowMatchScheduler()
-        self.adapter: Optional[FluxKontextAdapter] = None
+        self.adapter = None
         self.bundle = None
         self.lora = None
         # what the last predict_from_embeddings call measured: denoise_s,
@@ -107,9 +98,7 @@ class Trainer:
         self.history: list[dict] = []
 
     @classmethod
-    def from_yaml(cls, path: str, device) -> "Trainer":
-        from qflux_tpu.config import load_config_from_yaml  # pydantic + yaml, lazily
-
+    def from_yaml(cls, path: str, device="cuda") -> "Trainer":
         return cls(load_config_from_yaml(path), device=device)
 
     @property
@@ -117,10 +106,14 @@ class Trainer:
         return torch.bfloat16 if self.config.train.weight_dtype == "bfloat16" else torch.float32
 
     def load_model(self):
-        qz = getattr(self.config.model, "quantize", None)
-        if qz and qz.enabled:
-            raise_quantized(qz.dtype)
+        """The adapter's model, then (as the JAX Trainer) the DiT quantized
+        with `quantize_tree` where model.quantize.enabled.  An adapter may
+        already have quantized its blocks while drawing them; quantize_tree
+        leaves a quantized layer as it is."""
         self.adapter, self.bundle = self.adapter_cls.load(self.config, self.device, self.dtype)
+        qz = self.config.model.quantize
+        if qz and qz.enabled:
+            self.bundle.dit_params = quantize_tree(self.bundle.dit_params, qz)
 
     def build_lora(self):
         """A fresh LoRA over the configured targets (a gaussian, b zeros),
@@ -210,6 +203,15 @@ class Trainer:
         Noise and σ come from a generator seeded train.seed.  Returns the
         LoRA tree, trained in place; `history` holds one entry per step."""
         cfg = self.config
+        qz = cfg.model.quantize
+        if qz and qz.enabled:
+            raise NotImplementedError(
+                "training over a quantized base is not ported yet (ROADMAP.md: the Qwen "
+                "train slice C2, with K5b, the requant matmul's backward)")
+        if not self.adapter_cls.trains:
+            raise NotImplementedError(
+                f"training {cfg.trainer.value} is not ported yet (ROADMAP.md: the Qwen train "
+                "slice C2)")
         if self.adapter is None:
             self.load_model()
         self.lora = lora = mark_trainable(self.build_lora())

@@ -48,6 +48,14 @@ def remat_policy_from_config(remat_cfg: str) -> str:
             "flash_offload": "flash_offload"}.get(remat_cfg, "flash")
 
 
+def attn_impl_from_config(config) -> str:
+    """`model.quantize: {enabled: true, attention: true}` → "int8", the int8
+    score GEMM of K1 (not ported yet: the attention raises on it); else
+    "auto"."""
+    qz = config.model.quantize
+    return "int8" if (qz and qz.enabled and qz.attention) else "auto"
+
+
 @dataclasses.dataclass(frozen=True)
 class FluxKontextAdapter:
     cfg: flux.FluxConfig
@@ -55,6 +63,7 @@ class FluxKontextAdapter:
     remat: bool = True
     remat_policy: str = "flash"
     vae_scale: int = 8
+    trains = True  # Trainer.fit runs this family's train step
 
     default_lora_targets = (
         r"attn/(to_q|to_k|to_v|to_out|add_q|add_k|add_v|add_out)",
@@ -81,7 +90,8 @@ class FluxKontextAdapter:
         dit = flux.init(torch.Generator(device).manual_seed(0), dit_cfg, device, dtype)
         vae = flux_vae.init(torch.Generator(device).manual_seed(1), vae_cfg, device)
         remat_cfg = config.mesh.remat
-        adapter = cls(dit_cfg, remat=remat_cfg != "none",
+        adapter = cls(dit_cfg, attn_impl=attn_impl_from_config(config),
+                      remat=remat_cfg != "none",
                       remat_policy=remat_policy_from_config(remat_cfg),
                       vae_scale=vae_cfg.downscale)
         return adapter, ModelBundle(dit_cfg=dit_cfg, dit_params=dit, vae_cfg=vae_cfg,

@@ -1,5 +1,7 @@
-"""The port's CUDA kernels on the card: K1 and K2 against their plain
-versions, and LoRA gradients through both inside a small DiT.
+"""The port's CUDA kernels on the card: K1, K2 and K5a against their plain
+versions, LoRA gradients through K1 and K2 inside a small DiT, and a
+two-block, full-width Qwen-Image forward over an int4-requant base through
+K5a and K1.
 
 This file imports neither jax nor the JAX package, so it runs on a machine
 with a card and without JAX:
@@ -132,3 +134,64 @@ def test_lora_grads_reach_qkv_through_kernels_on_card():
     assert tnr.KERNEL_LAUNCHES - k1 == 2 and tnr.BWD_KERNEL_LAUNCHES - k2 == 2
     g_plain = grads("plain")
     assert ((g_kernel - g_plain).norm() / g_plain.norm()).item() <= 5e-2
+
+
+@pytest.mark.parametrize("m,k_in,n,dtype", [(300, 3072, 64, torch.bfloat16),
+                                            (77, 64, 256, torch.float32),
+                                            (129, 3584, 136, torch.bfloat16)],
+                         ids=["proj_out_n64", "img_in_k64_straddling_group", "ragged_m_n"])
+def test_rq_kernel_bit_exact_on_card(m, k_in, n, dtype):
+    """K5a equals the plain requant matmul to the bit: ragged M and N, N=64,
+    and K=64 with one group over both nibble planes (group size min(128,
+    K)), in bf16 and f32."""
+    from qflux_tpu_torch.ops import int4_matmul, quant
+
+    gen = torch.Generator("cuda").manual_seed(m)
+    w = (torch.rand(k_in, n, device="cuda", generator=gen) * 2 - 1) / k_in ** 0.5
+    q4, scale = quant.quantize_kernel_int4(w, 128)
+    factors = quant._requant_factors(scale)
+    x = torch.randn(m, k_in, device="cuda", generator=gen).to(dtype)
+    before = int4_matmul.RQ_KERNEL_LAUNCHES
+    got = int4_matmul.rq_fused_matmul(x, q4, scale, factors)
+    torch.cuda.synchronize()
+    assert int4_matmul.RQ_KERNEL_LAUNCHES == before + 1
+    want = quant.requant_int4_matmul(x, q4, scale, factors)
+    assert got.dtype == dtype and got.shape == (m, n)
+    assert torch.equal(got, want)
+
+
+def test_qwen_forward_through_k5a_and_k1_on_card():
+    """Two blocks of the 20B Qwen-Image DiT at full width (dim 3072, 24 heads
+    × 128, joint dim 3584) over an int4-requant base, bf16: one forward
+    launches K5a 2·12 + 3 times (the block projections and MLPs, img_in,
+    txt_in, proj_out; the mods and time_in take the dequantized product) and
+    K1 twice, and equals the plain requant route to the bit."""
+    from qflux_tpu_torch.config import config_from_dict
+    from qflux_tpu_torch.models.qwen import transformer as tqwen
+    from qflux_tpu_torch.ops import int4_matmul
+    from qflux_tpu_torch.ops.layers import set_int4_impl
+    from qflux_tpu_torch.ops.quant import quantize_tree
+
+    qcfg = config_from_dict({"model": {"quantize": {"enabled": True,
+                                                    "dtype": "int4_requant"}}}).model.quantize
+    cfg = dataclasses.replace(tqwen.QwenImageConfig(), num_layers=2)
+    gen = torch.Generator("cuda").manual_seed(0)
+    model = quantize_tree(tqwen.init(gen, cfg, "cuda", torch.bfloat16, quantize=qcfg), qcfg)
+    shapes = [(1, 8, 8), (1, 8, 8)]
+    x = torch.randn(1, 128, cfg.in_channels, device="cuda", generator=gen).to(torch.bfloat16)
+    txt = torch.randn(1, 40, cfg.joint_attention_dim, device="cuda",
+                      generator=gen).to(torch.bfloat16)
+    seg = torch.ones(1, 40 + 128, dtype=torch.int32, device="cuda")
+    seg[0, 33:40] = 0
+    t = torch.full((1,), 0.5, device="cuda", dtype=torch.bfloat16)
+    with torch.inference_mode():
+        k5, k1 = int4_matmul.RQ_KERNEL_LAUNCHES, tnr.KERNEL_LAUNCHES
+        y = tqwen.forward(model, cfg, x, txt, t, shapes, segment_ids=seg)
+        torch.cuda.synchronize()
+        assert int4_matmul.RQ_KERNEL_LAUNCHES - k5 == 2 * 12 + 3
+        assert tnr.KERNEL_LAUNCHES - k1 == 2
+        set_int4_impl(model, "plain")
+        y_plain = tqwen.forward(model, cfg, x, txt, t, shapes, segment_ids=seg)
+        assert int4_matmul.RQ_KERNEL_LAUNCHES - k5 == 2 * 12 + 3
+    assert y.shape == (1, 128, 64) and bool(torch.isfinite(y).all())
+    assert torch.equal(y, y_plain)

@@ -335,8 +335,10 @@ def test_build_raises_without_nvcc(tmp_path, monkeypatch):
 
 def test_port_never_imports_jax(tmp_path):
     """Importing every module of qflux_tpu_torch and running the tiny slices
-    end to end (a predict request, then two Trainer.fit steps) leaves jax
-    (and the JAX package) out of sys.modules."""
+    end to end (a FLUX predict request, two Trainer.fit steps, and a Qwen
+    predict request over an int4-requant base loaded through
+    Trainer.from_yaml) leaves jax (and the JAX package, its config included)
+    out of sys.modules."""
     script = tmp_path / "no_jax.py"
     script.write_text(
         "import importlib, pkgutil, sys\n"
@@ -362,6 +364,21 @@ def test_port_never_imports_jax(tmp_path):
         "emb['image_latents'] = rng.standard_normal((1, 64, 16)).astype(np.float32)\n"
         "tt.fit([emb] * 3)\n"
         "assert len(tt.history) == 2 and all(np.isfinite(h['loss']) for h in tt.history)\n"
+        "from qflux_tpu_torch.ops import int4_matmul\n"
+        "cfg = open('qwen.yaml', 'w')\n"
+        "cfg.write('trainer: QwenImageEditTrainer\\nmodel:\\n  variant: test\\n'\n"
+        "          '  quantize: {enabled: true, dtype: int4_requant}\\n'\n"
+        "          'predict: {num_inference_steps: 2}\\n')\n"
+        "cfg.close()\n"
+        "qt = Trainer.from_yaml('qwen.yaml', device='cpu')\n"
+        "qt.load_model()\n"
+        "assert qt.bundle.dit_params.blocks[0].attn.to_q.q4 is not None\n"
+        "qemb = {'control_latents': rng.standard_normal((1, 16, 16)).astype(np.float32),\n"
+        "        'prompt_embeds': rng.standard_normal((1, 8, 48)).astype(np.float32),\n"
+        "        'prompt_embeds_mask': np.array([[1] * 6 + [0] * 2]),\n"
+        "        'img_shapes_arr': np.array([[1, 4, 4], [1, 4, 4]], np.int32)}\n"
+        "img = qt.predict_from_embeddings(qemb, 16, 16, lora=qt.build_lora())\n"
+        "assert img.shape == (1, 16, 16, 3) and int4_matmul.RQ_KERNEL_LAUNCHES == 0\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'qflux_tpu'))\n"
         "assert not bad, bad\n"
         "print('NO_JAX_OK')\n")

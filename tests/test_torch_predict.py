@@ -200,8 +200,8 @@ def test_trainer_predict_from_embeddings(tiny_trainer):
 
 
 def test_trainer_from_yaml_and_refusals(tmp_path):
-    """The YAML entry point goes through the JAX package's Config (imported
-    only there); what the slice does not cover raises."""
+    """The YAML entry point goes through the port's own loader
+    (qflux_tpu_torch/config.py); what the slice does not cover raises."""
     cfg = tmp_path / "cfg.yaml"
     cfg.write_text("trainer: FluxKontextLoraTrainer\nmodel:\n  variant: test\n"
                    "predict:\n  num_inference_steps: 2\n")
@@ -214,6 +214,6 @@ def test_trainer_from_yaml_and_refusals(tmp_path):
                    "  quantize: {enabled: true, dtype: int8}\n")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer.from_yaml(str(cfg), device="cpu").load_model()
-    cfg.write_text("trainer: QwenImageEditTrainer\n")
+    cfg.write_text("trainer: QwenImageEditPlusTrainer\n")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer.from_yaml(str(cfg), device="cpu")
