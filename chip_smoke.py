@@ -12,7 +12,10 @@ optax.adamw defaults, remat "flash").  Qwen-Image-Edit (the 20B DiT: 60
 dual-stream blocks, dim 3072, over the int4-requant base of
 configs/example_qwen_single_chip_832x576.yaml with quantize.attention off;
 832×576 target with one control image and 256 Qwen2.5-VL tokens, S = 4000):
-predict from cached embeddings.  In phases:
+predict from cached embeddings, and the LoRA train step from cached
+embeddings over the same base (the config's rank-16 LoRA on the eight
+attention projections, logit_normal σ, optax.adamw at lr 1e-4, MseLoss,
+clip 1.0, remat "flash_offload").  In phases:
 
   1. device: the card's name and power limit (nvidia-smi); TF32 off;
   2. build: the hand-written kernels from qflux_tpu_torch/csrc;
@@ -38,7 +41,19 @@ predict from cached embeddings.  In phases:
      the bit) and all plain (relative L2 error), then three requests
      through Trainer.predict_from_embeddings, each checked for uint8
      images, finite latents and exactly 60 K1 and 723 K5a launches per
-     forward.
+     forward;
+  9. kernel K5b (csrc/rq_int4_bwd.cu), the requant matmul's backward,
+     against its plain version at the dx of every K5a case and of the bs=2
+     MLP down-projection (exact: max |diff| = 0), with median times beside
+     the bound and torch._int_mm;
+ 10. Qwen train (the predict phase's model): one full-width step's LoRA
+     gradients through K5a + K5b + K1 + K2 under "flash_offload" against
+     the plain requant route + plain attention under "full" (relative L2
+     error), with exact launch counts; "flash_offload" against "flash" at
+     bs=1 and bs=2 (gradients identical to the bit, device memory after the
+     forward); then Trainer.fit at bs=1 and bs=2, checked for finite
+     losses, LoRA b that moved, and exactly 60 K1, 60 K2, 1,443 K5a and 712
+     K5b launches per step; then a one-step torch.profiler breakdown.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after.  Prints the kernel table as one JSON line before the last (each
@@ -95,6 +110,14 @@ BWD_MAX_TOL = 2e-2
 # 1e-1 is loose for that and far below the error of a lost attention
 # gradient (q/k/v LoRA gradients at 0, relative error ~1).
 GRAD_REL_TOL = 1e-1
+# Full-width Qwen LoRA gradients, K5a + K5b + K1 + K2 vs the plain requant
+# route + plain attention: K5a and K5b equal the plain requant matmul and its
+# backward to the bit given the same operands, so the paths differ by the
+# attention's bf16 rounding points only, as in GRAD_REL_TOL's case, over 60
+# blocks; a difference then moves some activations and cotangents across an
+# int8 step of their row quantization, which adds noise of the same order.
+# The same 1e-1 bound, for the same reason: a lost gradient term gives ~1.
+QWEN_GRAD_REL_TOL = 1e-1
 STEPS = 20
 HEIGHT = WIDTH = 512
 TRAIN_STEPS = 4  # Trainer.fit steps at each batch size
@@ -120,6 +143,9 @@ QWEN_TXT, QWEN_TXT_PAD = 256, 26  # Qwen2.5-VL tokens, the last 26 padding
 RQ_KN = [(3072, 3072), (3072, 12288), (12288, 3072), (3584, 3072), (64, 3072), (3072, 64)]
 RQ_CASES = [(m, k, n) for m in (3744, 256) for k, n in RQ_KN] + [(7488, 3072, 12288)]
 RQ_MAIN = (3744, 3072, 12288)  # the case the kernel table reports
+# the K5b cases: the dx (g [M, N] → dx [M, K]) of every K5a case and of the
+# bs=2 MLP down-projection; the table reports the dx of RQ_MAIN
+RQ_BWD_CASES = RQ_CASES + [(7488, 12288, 3072)]
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense), for bounds
 PEAK_BYTES_PER_MS = 3.35e9
 PEAK_BF16_PER_MS = 989e9
@@ -566,6 +592,65 @@ def phase_rq_kernel(card: str) -> dict:
     return main
 
 
+def phase_rq_bwd_kernel(card: str) -> dict:
+    """K5b against requant_int4_matmul_dx at RQ_BWD_CASES, through
+    rq_fused_matmul's backward (bf16 x and g, weights as in phase_rq_kernel).
+    The kernel must equal the plain version to the bit.  Times: K5b alone on
+    the row-quantized g · s_vec (what the bound counts), the backward's whole
+    work (the plain-torch row quantization, then K5b), the plain version,
+    and torch._int_mm(gq, q8ᵀ) on q8ᵀ materialized contiguous (a yardstick
+    only)."""
+    from qflux_tpu_torch.ops import int4_matmul, quant
+
+    gen = torch.Generator("cuda").manual_seed(4)
+    main = None
+    for m, k_in, n in RQ_BWD_CASES:
+        w = (torch.rand(k_in, n, device="cuda", generator=gen) * 2 - 1) / k_in ** 0.5
+        q4, scale = quant.quantize_kernel_int4(w, 128)
+        f, sv = quant._requant_factors(scale)
+        x = torch.randn(m, k_in, device="cuda", generator=gen).to(torch.bfloat16)
+        g = torch.randn(m, n, device="cuda", generator=gen).to(torch.bfloat16)
+        x.requires_grad_()
+        int4_matmul.rq_fused_matmul(x, q4, scale, (f, sv)).backward(g)
+        torch.cuda.synchronize()
+        got = x.grad
+        want = quant.requant_int4_matmul_dx(g, q4, (f, sv))
+        err = (got.float() - want.float()).abs().max().item()
+        if not (torch.equal(got, want) and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"K5b differs from its plain version at M={m} K={k_in} N={n}: "
+                                 f"max |diff| {err}")
+
+        def backward():  # the registered backward's work, uncounted
+            gq_, sg_ = quant._rowquant(g.float() * sv)
+            return int4_matmul.rq_int4_bwd_cuda(gq_, q4, f, sg_, g.dtype)
+
+        gq, sg = quant._rowquant(g.float() * sv)
+        ms = _median_ms(lambda: int4_matmul.rq_int4_bwd_cuda(gq, q4, f, sg, g.dtype))
+        wrapper_ms = _median_ms(backward)
+        plain_ms = _median_ms(lambda: quant.requant_int4_matmul_dx(g, q4, (f, sv)), n=5)
+        q8t = quant._requant_q8(q4, f).t().contiguous()
+        try:
+            lib_ms = _median_ms(lambda: torch._int_mm(gq, q8t))
+        except RuntimeError as e:  # a shape torch._int_mm refuses: no yardstick
+            lib_ms = None
+            print(f"[rq_bwd] torch._int_mm refuses M={m} N={n} K={k_in}: {e}", flush=True)
+        ops = 2.0 * m * k_in * n
+        # gq, q4, f, sg read once; dx (bf16) written once
+        n_bytes = m * n + k_in * n // 2 + f.numel() * 4 + m * 4 + m * k_in * 2
+        bound = _bound(n_bytes, ops, PEAK_INT8_PER_MS)
+        lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+        print(f"[rq_bwd] dx of M={m} K={k_in} N={n}: max |kernel - plain| {err} (tol 0); K5b "
+              f"{ms:.4f} ms ({ops / ms / 1e9:.1f} TOPS), with row-quant {wrapper_ms:.4f} ms, "
+              f"plain {plain_ms:.3f} ms, torch._int_mm {lib}, bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}) [{card}]", flush=True)
+        if (m, k_in, n) == RQ_MAIN:
+            main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                    **bound}
+        del w, q4, scale, f, sv, x, g, got, want, gq, sg, q8t
+        torch.cuda.empty_cache()
+    return main
+
+
 def _qwen_request(rng, cfg, gh, gw, b):
     """A cached-embedding request of the Qwen adapter: 256 Qwen2.5-VL tokens ×
     3584 (the last 26 padding), one control image of gh×gw packed tokens."""
@@ -580,9 +665,10 @@ def _qwen_request(rng, cfg, gh, gw, b):
     }
 
 
-def phase_qwen_predict(card: str) -> tuple[int, int]:
+def phase_qwen_predict(card: str):
     """The 20B Qwen-Image-Edit predict path over the int4-requant base.
-    Returns the K1 and K5a launches of the three requests."""
+    Returns the trainer (its model stays loaded for the train phase) and the
+    K1 and K5a launches of the three requests."""
     from qflux_tpu_torch.config import config_from_dict
     from qflux_tpu_torch.ops import flash_nr, int4_matmul
     from qflux_tpu_torch.ops.layers import iter_dense_paths, merge_lora, set_int4_impl
@@ -683,41 +769,243 @@ def phase_qwen_predict(card: str) -> tuple[int, int]:
             raise AssertionError(f"Qwen request {i}: K1/K5a launched {launched} times, expected "
                                  f"{(STEPS * n_blocks, STEPS * per_forward)}")
     counts = (flash_nr.KERNEL_LAUNCHES, int4_matmul.RQ_KERNEL_LAUNCHES)
-    _profile_step(card, trainer, _qwen_request(rng, cfg, gh, gw, 1), lora)
-    return counts
+    batch = trainer._device_batch(_qwen_request(rng, cfg, gh, gw, 1))
+    lat = torch.randn(1, gh * gw, cfg.in_channels, device="cuda").to(torch.bfloat16)
+    sigma = torch.full((1,), 0.5, dtype=torch.bfloat16, device="cuda")
+    merge_lora(dit, lora)
+
+    def denoising_step():
+        with torch.inference_mode():
+            trainer.adapter.predict_velocity(dit, batch, lat, sigma)
+
+    _profile(card, f"one Qwen denoising step, bs=1, S = {QWEN_TXT + 2 * gh * gw}",
+             denoising_step)
+    merge_lora(dit, None)
+    return trainer, counts
 
 
-# kernel-name fragments → the groups of the step profile
-PROFILE_GROUPS = [("K5a rq_int4_fwd", ("rq_int4_fwd",)), ("K1 flash_nr_fwd", ("flash_nr_fwd",)),
+def _qwen_train_batch(rng, cfg, gh, gw, b):
+    emb = _qwen_request(rng, cfg, gh, gw, b)
+    emb["image_latents"] = rng.standard_normal((b, gh * gw, cfg.in_channels)).astype(np.float32)
+    return emb
+
+
+def _launch_counts() -> tuple[int, int, int, int]:
+    """(K1, K2, K5a, K5b) launches so far."""
+    from qflux_tpu_torch.ops import flash_nr, int4_matmul
+
+    return (flash_nr.KERNEL_LAUNCHES, flash_nr.BWD_KERNEL_LAUNCHES,
+            int4_matmul.RQ_KERNEL_LAUNCHES, int4_matmul.RQ_BWD_KERNEL_LAUNCHES)
+
+
+def phase_qwen_train(card: str, trainer) -> tuple[int, int, int, int]:
+    """The Qwen LoRA train step over the int4-requant base, on the model the
+    predict phase loaded: the full-width gradient check, "flash_offload"
+    against "flash", Trainer.fit at bs=1 and bs=2, and a profiled step.
+    Returns the K1, K2, K5a and K5b launches of the fit runs."""
+    from qflux_tpu_torch.config import config_from_dict
+    from qflux_tpu_torch.losses import MseLoss
+    from qflux_tpu_torch.ops import flash_nr, int4_matmul
+    from qflux_tpu_torch.ops.layers import mark_trainable, set_int4_impl
+    from qflux_tpu_torch.trainer.base import Trainer
+    from qflux_tpu_torch.trainer.train_step import (TrainStepConfig, _loss_for_microbatch,
+                                                    lora_leaves, make_train_step)
+
+    dit, cfg = trainer.bundle.dit_params, trainer.bundle.dit_cfg
+    n = cfg.num_layers
+    # per step: K1 and K2 once a block; K5a 723 in the forward + 720 in the
+    # recompute; K5b wherever the GEMM's input needs a gradient and its
+    # output reaches the loss: 6 in block 0 (its q/k/v inputs carry none),
+    # 12 in each middle block, 9 in the last (its add_out and text MLP feed
+    # only the dropped text stream), 1 for proj_out
+    per_step = (n, n, 2 * 12 * n + 3, 6 + 12 * (n - 2) + 9 + 1)
+    # the two LoRA layers the loss does not reach: the last block's text
+    # queries and text output projection
+    zero_grad = {f"blocks/{n - 1}/attn/add_q", f"blocks/{n - 1}/attn/add_out"}
+    rng = np.random.default_rng(6)
+    gh, gw = trainer.adapter.latent_grid(QWEN_HEIGHT, QWEN_WIDTH)
+    s = QWEN_TXT + 2 * gh * gw
+
+    def make_trainer(steps=QWEN_832X576["train"]["max_train_steps"]):
+        config = config_from_dict(QWEN_832X576)
+        config.train.max_train_steps = steps
+        tt = Trainer(config, device="cuda")
+        tt.adapter, tt.bundle = trainer.adapter, trainer.bundle
+        return tt
+
+    tt = make_trainer()
+    gen = torch.Generator("cuda").manual_seed(10)
+    lora = tt.build_lora()
+    _perturb_b(lora, gen)
+    lora = mark_trainable(lora)
+
+    def one_step(adapter, batch, noise, sigma):
+        """One microbatch's loss and LoRA gradients: (loss, {path: a|b
+        gradient}, launches, device memory after the forward, peak, s)."""
+        for leaf in lora.values():
+            for t in leaf.values():
+                t.grad = None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        c0 = _launch_counts()
+        t0 = time.perf_counter()
+        loss = _loss_for_microbatch(dit, lora, batch, noise, sigma, adapter.predict_velocity,
+                                    MseLoss(), TrainStepConfig())
+        torch.cuda.synchronize()
+        after_fwd = torch.cuda.memory_allocated()
+        loss.backward()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = tuple(b - a for a, b in zip(c0, _launch_counts()))
+        grads = {p: torch.cat([torch.zeros_like(leaf[k]).flatten() if leaf[k].grad is None
+                               else leaf[k].grad.flatten() for k in ("a", "b")])
+                 for p, leaf in lora.items()}
+        return (loss.item(), grads, launched, after_fwd, torch.cuda.max_memory_allocated(),
+                secs)
+
+    # flash_offload against flash (both through the kernels), at bs=1 and 2;
+    # at bs=1 also the plain requant route + plain attention under "full"
+    offload = trainer.adapter
+    flash = dataclasses.replace(offload, remat_policy="flash")
+    plain = dataclasses.replace(offload, attn_impl="plain", remat_policy="full")
+    for b in (1, 2):
+        batch = trainer._device_batch(_qwen_train_batch(rng, cfg, gh, gw, b))
+        noise = torch.randn(batch["image_latents"].shape, device="cuda", generator=gen).to(
+            torch.bfloat16)
+        sigma = torch.full((b,), 0.6, device="cuda", dtype=torch.bfloat16)
+        runs = {name: one_step(adapter, batch, noise, sigma)
+                for name, adapter in (("flash_offload", offload), ("flash", flash))}
+        if b == 1:
+            # the plain path in bf16, and in f32 activations as the reference
+            # both bf16 paths are measured against
+            batch32 = {k: v.float() if v.is_floating_point() else v for k, v in batch.items()}
+            set_int4_impl(dit, "plain")
+            try:
+                runs["plain"] = one_step(plain, batch, noise, sigma)
+                runs["plain_f32"] = one_step(plain, batch32, noise.float(), sigma.float())
+            finally:
+                set_int4_impl(dit, "auto")
+        for name, (loss, _, launched, after_fwd, peak, secs) in runs.items():
+            print(f"[qwen_train] bs={b} {name}: loss {loss:.5f}, forward + backward "
+                  f"{secs:.3f} s, device memory after the forward {after_fwd} bytes, peak "
+                  f"{peak} bytes, K1/K2/K5a/K5b launches {launched} [{card}]", flush=True)
+            if not name.startswith("plain") and launched != per_step:
+                raise AssertionError(f"bs={b} {name}: K1/K2/K5a/K5b launched {launched} "
+                                     f"times, expected {per_step}")
+        g_off, g_flash = runs["flash_offload"][1], runs["flash"][1]
+        identical = all(torch.equal(g_off[p], g_flash[p]) for p in g_off)
+        residual = n * (b * s * cfg.dim * 2 + b * cfg.num_attention_heads * s * 4)
+        saved = runs["flash"][3] - runs["flash_offload"][3]
+        print(f"[qwen_train] bs={b}: flash_offload vs flash gradients identical to the bit: "
+              f"{identical}; device memory after the forward {saved} bytes lower under "
+              f"flash_offload (K1's out + lse over {n} blocks: {residual} bytes) [{card}]",
+              flush=True)
+        if not identical:
+            raise AssertionError(f"bs={b}: flash_offload and flash gradients differ")
+        if not saved >= 0.9 * residual:
+            raise AssertionError(f"bs={b}: flash_offload saved {saved} bytes of device memory "
+                                 f"after the forward, expected ~{residual}")
+        if b == 1:
+            g_plain, g_f32 = runs["plain"][1], runs["plain_f32"][1]
+            norm_all = torch.cat(list(g_f32.values())).norm().item()
+            rels, lines = {}, []
+            for group in ("to_q", "to_k", "to_v", "to_out", "add_q", "add_k", "add_v",
+                          "add_out", ""):
+                keys = [p for p in g_plain if p.endswith(group)]
+                gk, gp, gf = (torch.cat([g[p] for p in keys]) for g in (g_off, g_plain, g_f32))
+                rels[group or "all"] = (gk - gp).norm().item() / gp.norm().item()
+                lines.append(f"{group or 'all'}: share of |g| {gf.norm().item() / norm_all:.3e}, "
+                             f"kernels vs plain {rels[group or 'all']:.3e}, vs f32 "
+                             f"{(gk - gf).norm().item() / gf.norm().item():.3e}, plain vs f32 "
+                             f"{(gp - gf).norm().item() / gf.norm().item():.3e}")
+            print("[qwen_train] full-width LoRA gradients (rel L2 err per projection group), "
+                  "K5a + K5b + K1 + K2 (flash_offload) vs plain requant + plain attention "
+                  "(full), and each against the plain path in f32 activations: "
+                  + "; ".join(lines) + f" (tol {QWEN_GRAD_REL_TOL} on kernels vs plain, all) "
+                  f"[{card}]", flush=True)
+            if not rels["all"] <= QWEN_GRAD_REL_TOL or not all(
+                    bool(torch.isfinite(g).all()) for g in g_off.values()):
+                raise AssertionError("full-width Qwen LoRA gradients through the kernels "
+                                     "disagree with the plain path")
+            for p, g in g_off.items():
+                if bool(g.abs().sum() > 0) != (p not in zero_grad):
+                    raise AssertionError(f"LoRA layer {p}: gradient through the kernels "
+                                         f"{'zero' if p not in zero_grad else 'nonzero'}")
+        del runs, batch, noise
+        torch.cuda.empty_cache()
+    del lora
+
+    # the main path: Trainer.fit, counts reset just before each run
+    totals = [0, 0, 0, 0]
+    for b in (1, 2):
+        tt = make_trainer(TRAIN_STEPS)
+        batches = [_qwen_train_batch(rng, cfg, gh, gw, b) for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        flash_nr.KERNEL_LAUNCHES = flash_nr.BWD_KERNEL_LAUNCHES = 0
+        int4_matmul.RQ_KERNEL_LAUNCHES = int4_matmul.RQ_BWD_KERNEL_LAUNCHES = 0
+        fitted = tt.fit(batches)
+        launched = _launch_counts()
+        totals = [t + c for t, c in zip(totals, launched)]
+        peak = torch.cuda.max_memory_allocated()
+        hist = tt.history
+        ms = [1000 * h["step_s"] for h in hist]
+        warm = ms[1:] if len(ms) > 1 else ms
+        print(f"[qwen_train] fit bs={b}: {len(hist)} steps, ms/step "
+              + ", ".join(f"{m:.1f}" for m in ms)
+              + f" (median after the first {statistics.median(warm):.1f}, spread "
+              f"{min(warm):.1f}-{max(warm):.1f}), peak mem {peak} bytes, loss "
+              + ", ".join(f"{h['loss']:.5f}" for h in hist) + ", grad_norm "
+              + ", ".join(f"{h['grad_norm']:.4e}" for h in hist) + ", lr "
+              + ", ".join(f"{h['lr']:g}" for h in hist)
+              + f", K1/K2/K5a/K5b launches {launched} [{card}]", flush=True)
+        want = tuple(len(hist) * c for c in per_step)
+        if len(hist) != TRAIN_STEPS or not all(np.isfinite(h["loss"]) for h in hist):
+            raise AssertionError(f"Qwen fit bs={b}: {len(hist)} steps or non-finite losses")
+        if launched != want:
+            raise AssertionError(f"Qwen fit bs={b}: K1/K2/K5a/K5b launched {launched} times, "
+                                 f"expected {want} ({per_step} per step)")
+        for p, leaf in fitted.items():
+            if bool(leaf["b"].abs().sum() > 0) != (p not in zero_grad):
+                raise AssertionError(f"Qwen fit bs={b}: LoRA b of {p} "
+                                     f"{'did not move' if p not in zero_grad else 'moved'}")
+        del fitted, batches
+        torch.cuda.empty_cache()
+
+    # one bs=1 train step (forward, backward, clip, AdamW) under the profiler
+    lora = mark_trainable(tt.build_lora())
+    optimizer, schedule = tt.build_optimizer(lora_leaves(lora)[0])
+    step = make_train_step(tt.adapter.predict_velocity, tt.build_criterion(), optimizer,
+                           schedule, tt._build_step_config())
+    batch = tt._device_batch(_qwen_train_batch(rng, cfg, gh, gw, 1))
+    _profile(card, f"one Qwen train step, bs=1, S = {s}, remat flash_offload",
+             lambda: step(dit, lora, batch, gen)["loss"].item())
+    return tuple(totals)
+
+
+# kernel-name fragments → the groups of the step profiles
+PROFILE_GROUPS = [("K5a rq_int4_fwd", ("rq_int4_fwd",)), ("K5b rq_int4_bwd", ("rq_int4_bwd",)),
+                  ("K1 flash_nr_fwd", ("flash_nr_fwd",)),
+                  ("K2 flash_nr_bwd", ("flash_nr_prep", "flash_nr_dkv", "flash_nr_dq")),
                   ("cuBLAS GEMM/GEMV", ("gemm", "gemv", "nvjet", "cutlass", "sm90_")),
                   ("reductions", ("reduce",)), ("copies and casts", ("copy", "cast", "memcpy")),
                   ("elementwise", ("elementwise", "vectorized", "unrolled"))]
 
 
-def _profile_step(card: str, trainer, emb: dict, lora) -> None:
-    """One Qwen denoising step at bs=1 (predict_velocity on a warm model)
-    under torch.profiler: wall time, device busy time and share, and device
-    time by kernel group and by kernel.  Informational: it checks nothing
-    and counts no launch of the main path."""
+def _profile(card: str, label: str, fn) -> None:
+    """`fn` once to warm up, then once under torch.profiler: wall time,
+    device busy time and share, and device time by kernel group, by kernel
+    and by aten op.  Informational: it checks nothing, and the callers run
+    it outside the windows in which the main paths' launches are counted."""
     from torch.profiler import ProfilerActivity, profile
 
-    from qflux_tpu_torch.ops.layers import merge_lora
-
-    dit, cfg = trainer.bundle.dit_params, trainer.bundle.dit_cfg
-    batch = trainer._device_batch(emb)
-    gh, gw = trainer.adapter.latent_grid(QWEN_HEIGHT, QWEN_WIDTH)
-    lat = torch.randn(1, gh * gw, cfg.in_channels, device="cuda").to(torch.bfloat16)
-    sigma = torch.full((1,), 0.5, dtype=torch.bfloat16, device="cuda")
-    merge_lora(dit, lora)
-    with torch.inference_mode():
-        trainer.adapter.predict_velocity(dit, batch, lat, sigma)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            trainer.adapter.predict_velocity(dit, batch, lat, sigma)
-            torch.cuda.synchronize()
-            wall_ms = 1000 * (time.perf_counter() - t0)
-    merge_lora(dit, None)
+        wall_ms = 1000 * (time.perf_counter() - t0)
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1000
@@ -728,9 +1016,8 @@ def _profile_step(card: str, trainer, emb: dict, lora) -> None:
         name = next((g for g, frags in PROFILE_GROUPS if any(f in key for f in frags)), "other")
         groups[name][0] += e.self_device_time_total / 1000
         groups[name][1] += e.count
-    print(f"[profile] one Qwen denoising step, bs=1, S = {QWEN_TXT + 2 * gh * gw}: wall "
-          f"{wall_ms:.1f} ms under the profiler, device busy {busy_ms:.1f} ms "
-          f"({100 * busy_ms / wall_ms:.1f}%); by group: "
+    print(f"[profile] {label}: wall {wall_ms:.1f} ms under the profiler, device busy "
+          f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.1f}%); by group: "
           + "; ".join(f"{g} {ms:.1f} ms ({100 * ms / busy_ms:.1f}%, {n} launches)"
                       for g, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]))
           + f" [{card}]", flush=True)
@@ -739,7 +1026,8 @@ def _profile_step(card: str, trainer, emb: dict, lora) -> None:
         f"{e.key[:60]} {e.self_device_time_total / 1000:.2f} ms x{e.count}" for e in top)
         + f" [{card}]", flush=True)
     # the aten ops by the device time of the kernels they launched (the row
-    # quantization before each K5a launch is abs, amax, div, round and a cast)
+    # quantization before each K5a / K5b launch is abs, amax, div, round and
+    # a cast)
     ops = sorted((e for e in prof.key_averages() if e.device_type ==
                   torch.autograd.DeviceType.CPU and e.key.startswith("aten::")
                   and e.device_time_total > 0), key=lambda e: -e.device_time_total)[:15]
@@ -780,7 +1068,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     k5_case = phase_rq_kernel(card)
-    k1_qwen, k5_qwen = phase_qwen_predict(card)
+    qwen, (k1_qwen, k5_qwen) = phase_qwen_predict(card)
+    k5b_case = phase_rq_bwd_kernel(card)
+    k1_qt, k2_qt, k5_qt, k5b_qt = phase_qwen_train(card, qwen)
 
     print(f"[smoke] wall time {time.perf_counter() - t_start:.1f} s (build included) [{card}]",
           flush=True)
@@ -788,17 +1078,23 @@ def main() -> int:
         {"name": "flash_nr_fwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/flash_nr_fwd.cu",
          "replaces": "qflux_tpu/ops/flash_nr.py:192",
-         "launches": k1_predict + k1_train + k1_qwen,
+         "launches": k1_predict + k1_train + k1_qwen + k1_qt,
          "launches_by_path": {"predict": k1_predict, "train": k1_train,
-                              "qwen_predict": k1_qwen}, **k1_case},
+                              "qwen_predict": k1_qwen, "qwen_train": k1_qt}, **k1_case},
         {"name": "flash_nr_bwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/flash_nr_bwd.cu",
          "replaces": "qflux_tpu/ops/flash_nr.py:311",
-         "launches": k2_train, "launches_by_path": {"train": k2_train}, **k2_case},
+         "launches": k2_train + k2_qt,
+         "launches_by_path": {"train": k2_train, "qwen_train": k2_qt}, **k2_case},
         {"name": "rq_int4_fwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/rq_int4_fwd.cu",
          "replaces": "qflux_tpu/ops/int4_matmul.py:268",
-         "launches": k5_qwen, "launches_by_path": {"qwen_predict": k5_qwen}, **k5_case},
+         "launches": k5_qwen + k5_qt,
+         "launches_by_path": {"qwen_predict": k5_qwen, "qwen_train": k5_qt}, **k5_case},
+        {"name": "rq_int4_bwd", "route": "cuda",
+         "source": "qflux_tpu_torch/csrc/rq_int4_bwd.cu",
+         "replaces": "qflux_tpu/ops/int4_matmul.py:286",
+         "launches": k5b_qt, "launches_by_path": {"qwen_train": k5b_qt}, **k5b_case},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -14,7 +14,14 @@ Training recomputes each block in backward (`remat`, the JAX package's
 `torch.utils.checkpoint`.  Policies ported: "full" saves nothing inside a
 block; "flash" (the config default) saves K1's out and lse through a
 selective-checkpoint policy that sees the custom op `qflux::flash_nr_fwd`, so
-backward runs K2 on them without a second K1.  The AdaLN modulation vectors
+backward runs K2 on them without a second K1; "flash_offload" recomputes the
+block as "full" does but keeps K1's out and lse in pinned host memory
+between the forward and the recompute, which returns them to the device
+instead of launching K1 (`flash_nr.offload_contexts`): one K1 per block and
+step as under "flash", none of its residuals on the device in between, and
+the same gradients to the bit.  (`torch.autograd.graph.save_on_cpu` would
+not do: the outputs a selective checkpoint keeps are not saved tensors, so
+its hooks never see them.)  The AdaLN modulation vectors
 ("mod_out" in JAX) are computed outside the checkpointed region and passed
 in: saved by construction, their f32 GEMV never reruns in backward.
 """
@@ -233,8 +240,7 @@ def _single_block(p: SingleBlock, cfg, x, mods, cos, sin, seg, attn_impl):
 
 
 # remat policies of the JAX forward that are not ported (ROADMAP.md, queue 2)
-UNPORTED_REMAT_POLICIES = ("dots", "dots_all", "flash_qkv", "flash_mlp", "flash_single",
-                           "flash_offload")
+UNPORTED_REMAT_POLICIES = ("dots", "dots_all", "flash_qkv", "flash_mlp", "flash_single")
 
 
 def _save_flash_outputs(ctx, op, *args, **kwargs):
@@ -247,16 +253,20 @@ def _save_flash_outputs(ctx, op, *args, **kwargs):
 
 
 def _remat(fn, policy: str):
-    """`fn` recomputed in backward under `policy` ("full" | "flash")."""
+    """`fn` recomputed in backward under `policy` ("full" | "flash" |
+    "flash_offload")."""
     if policy == "full":
         return functools.partial(checkpoint, fn, use_reentrant=False)
     if policy == "flash":
         ctx = functools.partial(create_selective_checkpoint_contexts, _save_flash_outputs)
         return functools.partial(checkpoint, fn, use_reentrant=False, context_fn=ctx)
+    if policy == "flash_offload":
+        return functools.partial(checkpoint, fn, use_reentrant=False,
+                                 context_fn=flash_nr.offload_contexts)
     if policy in UNPORTED_REMAT_POLICIES:
         raise NotImplementedError(
             f"remat_policy {policy!r} is not ported yet (ROADMAP.md, queue 2: the remat "
-            "policies; ported: full, flash)")
+            "policies; ported: full, flash, flash_offload)")
     raise ValueError(f"unknown remat_policy {policy!r}")
 
 
@@ -271,7 +281,7 @@ def forward(params: FluxTransformer, cfg: FluxConfig,
             segment_ids: Optional[torch.Tensor] = None,  # [B, S_txt+S_img]; 0 = padding
             attn_impl: str = "auto",
             remat: bool = True,
-            remat_policy: str = "full"):     # full | flash
+            remat_policy: str = "full"):     # full | flash | flash_offload
     """Returns [B, S_img, out_channels] velocity prediction (full sequence —
     callers slice [:, :S_target] to drop control-image positions).  With
     `remat` and autograd recording, every block is recomputed in backward

@@ -10,15 +10,19 @@ rotate-half RoPE fused into `ops.attention.qk_norm_rope_attention` (kernel
 K1 on the card; the scale pairs are [norm_added_*, norm_*], row 0 for the
 text rows < st), GELU-tanh MLPs, temb from the sinusoidal-256 embedding
 only.  The dense layers may hold int4-requant weights (ops/layers.py), whose
-large products run kernel K5a.
+large products run kernel K5a, and their input gradients kernel K5b.
 
 The 20B model is 40.8 GB in bf16: `init` draws the blocks one at a time
 and, given a quantize config, quantizes each block as it is drawn, so the
 bf16 tree never exists whole (the int4-requant DiT is ~11.5 GB).
 
-Training through this model is the Qwen train slice (ROADMAP.md, C2); the
-remat policies are checked only when autograd records, and predict never
-applies them.
+Training recomputes each block in backward under the remat policies of
+models/flux/transformer.py (`_remat`: "full", "flash", "flash_offload"; the
+published 832×576 config runs "flash_offload").  The policies are checked
+only when autograd records, and predict never applies them.  The per-block
+AdaLN mods are computed outside the checkpointed region from temb, which
+depends on σ alone: nothing records for them, so no dequantized mod weight
+is ever saved for backward.
 """
 
 from __future__ import annotations

@@ -20,13 +20,22 @@ Counterpart of qflux_tpu/ops/flash_nr.py.  The parts:
     K2's.  The forward is a `torch.library.custom_op` (not a Python
     autograd.Function) so that a selective-checkpoint policy can see it and
     save its out and lse (the "flash" remat policy,
-    models/flux/transformer.py).
+    models/flux/transformer.py);
+  * `offload_contexts` — the "flash_offload" remat policy's pair of
+    checkpoint contexts: in a checkpointed region's forward the op copies
+    K1's out and lse to pinned host memory; in the region's recompute it
+    returns them to the device instead of launching K1 again, so backward
+    runs K2 on the same residuals as under "flash" while the device holds
+    none of them in between.
 
 The `s_int8` score GEMM of K1 is still to port (ROADMAP.md, "TPU kernels to
 port").
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 
@@ -204,17 +213,70 @@ def _flash_nr_bwd_cuda(q, k, v, q_scale2, k_scale2, cos, sin, st, segment_ids, s
     return dq, dk, dv, dqs_p.sum(dim=(0, 1, 2)), dks_p.sum(dim=(0, 1, 2))
 
 
+class _OffloadStore:
+    """K1's (out, lse) of one checkpointed region, in host memory (pinned
+    for CUDA tensors) from the region's forward to its recompute, in call
+    order."""
+
+    def __init__(self):
+        self.saved = []
+        self.next = 0
+
+    def put(self, out, lse):
+        pin = out.is_cuda
+        self.saved.append([torch.empty(t.shape, dtype=t.dtype, pin_memory=pin).copy_(
+            t, non_blocking=pin) for t in (out, lse)])
+
+    def take(self, device):
+        out, lse = self.saved[self.next]
+        self.next += 1
+        if device.type == "cpu":  # the op's outputs are fresh tensors
+            return out.clone(), lse.clone()
+        return out.to(device, non_blocking=True), lse.to(device, non_blocking=True)
+
+
+_OFFLOAD = threading.local()  # .state: (store, replaying) inside a "flash_offload" region
+
+
+@contextlib.contextmanager
+def _offload_mode(store: _OffloadStore, replaying: bool):
+    prev = getattr(_OFFLOAD, "state", None)
+    store.next = 0
+    _OFFLOAD.state = (store, replaying)
+    try:
+        yield
+    finally:
+        _OFFLOAD.state = prev
+
+
+def offload_contexts():
+    """The `context_fn` of torch.utils.checkpoint for the "flash_offload"
+    policy (JAX's save_and_offload_only_these_names("flash_out",
+    "flash_lse") to pinned_host): (forward context, recompute context) over
+    one fresh store.  The recompute context runs in whichever thread the
+    autograd engine recomputes in, and the state is per thread."""
+    store = _OffloadStore()
+    return _offload_mode(store, False), _offload_mode(store, True)
+
+
 # The custom op runs on every device type: on a CUDA tensor it launches K1,
 # on any other `_flash_nr_cuda` raises (the public entry point sends CPU
-# tensors to the plain version before they reach it).
+# tensors to the plain version before they reach it).  Inside a
+# "flash_offload" region it stores its outputs in host memory, and in the
+# region's recompute it returns them instead of launching.
 @torch.library.custom_op(
     "qflux::flash_nr_fwd", mutates_args=(),
     schema="(Tensor q, Tensor k, Tensor v, Tensor q_scale2, Tensor k_scale2, Tensor cos, "
            "Tensor sin, Tensor? segment_ids, int st, float scale) -> (Tensor, Tensor)")
 def _flash_nr_fwd_op(q, k, v, q_scale2, k_scale2, cos, sin, segment_ids, st, scale):
     global KERNEL_LAUNCHES
+    state = getattr(_OFFLOAD, "state", None)
+    if state is not None and state[1]:
+        return state[0].take(q.device)
     out, lse = _flash_nr_cuda(q, k, v, q_scale2, k_scale2, cos, sin, st, segment_ids, scale)
     KERNEL_LAUNCHES += 1
+    if state is not None:
+        state[0].put(out, lse)
     return out, lse
 
 

@@ -15,10 +15,12 @@ buffers, with the requant factors (f, s_vec) cached beside them.  Its
 product routes as qflux_tpu/ops/layers.py:_base_matmul does: calls with at
 most 32 rows (the AdaLN modulation projections, `time_in`) dequantize the
 weight to x.dtype and multiply with an f32 result; the rest run the fused
-requant matmul (kernel K5a on the card), whose result is already in x.dtype,
-so the LoRA delta and the bias then add in x.dtype.  `set_int4_impl(model,
-"plain")` sends them to the plain requant matmul instead: an explicit
-switch for comparing with the kernel, as attn_impl="plain" is.
+requant matmul (kernel K5a on the card, its input gradient kernel K5b),
+whose result is already in x.dtype, so the LoRA delta and the bias then add
+in x.dtype.  Both routes are differentiable in x and never in the frozen
+weight.  `set_int4_impl(model, "plain")` sends them to the plain requant
+matmul instead: an explicit switch for comparing with the kernels, as
+attn_impl="plain" is.
 
 For training, `mark_trainable` makes `a`, `b` and `scaling` f32 leaf
 tensors with `requires_grad`; the base weights and biases stay frozen

@@ -18,10 +18,16 @@ here is the plain version, bit-identical to the JAX function:
     has no int32 matmul);
   * the epilogue is (f32(acc) · sx) · s_vec, then one cast to x.dtype.
 
-The fused kernel K5a (ops/int4_matmul.py, csrc/rq_int4_fwd.cu) computes the
-same function without ever writing q8 to device memory.  Only the forward is
-ported: the straight-through backward (K5b) comes with the Qwen train slice,
-and the matmul raises under autograd when x needs a gradient.
+Its backward is JAX's straight-through `_rq4_vjp_bwd`, bit for bit
+(`requant_int4_matmul_dx`): the cotangent scaled by the channel scales,
+gs = f32(g) · s_vec, is row-quantized to (gq, sg), multiplied exactly by
+the same int8 weights, dxa = gq · q8ᵀ (float64 again: |dxa| ≤ 127²·N < 2³¹),
+and dx = (f32(dxa) · sg) in g's dtype.  q4 and the scales get no gradient
+(they are frozen).
+
+The fused kernels compute the same functions without ever writing q8 to
+device memory: K5a the forward, K5b the backward (ops/int4_matmul.py,
+csrc/rq_int4_fwd.cu and csrc/rq_int4_bwd.cu).
 
 Other quantized forms (int8 / fp8 weight-only, W8A8-dynamic, W4A16, W4A8
 per-group) are later slices: `quantize_tree` raises on them.
@@ -121,30 +127,53 @@ def _requant_q8(q4, f):
     return torch.cat([plane(lo, f[..., :gh, :]), plane(hi, f[..., gh:, :])], dim=-2)
 
 
-def _check_no_grad(x, what):
-    if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError(
-            f"{what}: the backward of the W4A8-requant matmul is not ported yet (ROADMAP.md: "
-            "the Qwen train slice C2, kernel K5b)")
-
-
 def _int_product(xq, q8):
     """Exact int8 [M, K] × int8 [K, N] → float64 [M, N] integers."""
     return torch.matmul(xq.to(torch.float64), q8.to(torch.float64))
 
 
-def requant_int4_matmul(x, q4, g_scale, factors=None):
-    """x [..., K] float; q4 [K/2, N] half-split packed int4; g_scale [K/G, N]
-    → [..., N] in x.dtype.  The plain version: q8 materialized, the product
-    exact in float64.  `factors` = (f, s_vec) from `_requant_factors`, if
-    already computed (they are a function of g_scale alone)."""
-    _check_no_grad(x, "requant_int4_matmul")
-    f, s_vec = factors if factors is not None else _requant_factors(g_scale)
+def _requant_fwd(x, q4, f, s_vec):
     q8 = _requant_q8(q4, f)
     xq, sx = _rowquant(x)
     acc = _int_product(xq.reshape(-1, xq.shape[-1]), q8).reshape(*x.shape[:-1], q4.shape[-1])
     # float64 → float32 rounds the exact integer once, as int32 → float32 does
     return ((acc.to(torch.float32) * sx) * s_vec).to(x.dtype)
+
+
+def requant_int4_matmul_dx(g, q4, factors):
+    """The straight-through backward, plain: g [..., N] (the cotangent of
+    the product) → dx [..., K] in g.dtype, as JAX's `_rq4_vjp_bwd`.
+    `factors` = (f, s_vec) from `_requant_factors`."""
+    f, s_vec = factors
+    q8 = _requant_q8(q4, f)
+    gq, sg = _rowquant(g.float() * s_vec)
+    dxa = _int_product(gq.reshape(-1, gq.shape[-1]), q8.t())
+    return (dxa.reshape(*g.shape[:-1], q8.shape[0]).to(torch.float32) * sg).to(g.dtype)
+
+
+class _RequantInt4Matmul(torch.autograd.Function):
+    """The plain forward with the plain straight-through backward; q4 and
+    the factors are frozen buffers, saved by reference."""
+
+    @staticmethod
+    def forward(ctx, x, q4, f, s_vec):
+        ctx.save_for_backward(q4, f, s_vec)
+        return _requant_fwd(x, q4, f, s_vec)
+
+    @staticmethod
+    def backward(ctx, g):
+        q4, f, s_vec = ctx.saved_tensors
+        return requant_int4_matmul_dx(g, q4, (f, s_vec)), None, None, None
+
+
+def requant_int4_matmul(x, q4, g_scale, factors=None):
+    """x [..., K] float; q4 [K/2, N] half-split packed int4; g_scale [K/G, N]
+    → [..., N] in x.dtype.  The plain version: q8 materialized, the product
+    exact in float64; differentiable in x (`requant_int4_matmul_dx`).
+    `factors` = (f, s_vec) from `_requant_factors`, if already computed
+    (they are a function of g_scale alone)."""
+    f, s_vec = factors if factors is not None else _requant_factors(g_scale)
+    return _RequantInt4Matmul.apply(x, q4, f, s_vec)
 
 
 def _jax_path(path: str) -> str:

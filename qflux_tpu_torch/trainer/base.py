@@ -15,11 +15,13 @@ YAML file of the JAX package's format; `predict_config()` and
 `train_config()` build the same namespaces in code, which is what runs on a
 machine without YAML).
 
-Two model families are ported: FLUX.1-Kontext (predict and the LoRA train
-step) and Qwen-Image-Edit (predict).  `load_model` quantizes the DiT with
-`ops/quant.quantize_tree` where `model.quantize.enabled` (int4_requant only);
-training over a quantized base is the Qwen train slice (ROADMAP.md) and
-raises.
+Two model families are ported: FLUX.1-Kontext and Qwen-Image-Edit, each
+with predict and the LoRA train step.  `load_model` quantizes the DiT with
+`ops/quant.quantize_tree` where `model.quantize.enabled` (int4_requant only;
+other dtypes raise there), and `fit` trains over that base (the requant
+matmul's backward is kernel K5b on the card).  `quantize.attention` (K1's
+int8 score GEMM) raises in the attention, and the remat policies not ported
+raise in the transformer.
 """
 
 from __future__ import annotations
@@ -203,15 +205,6 @@ class Trainer:
         Noise and σ come from a generator seeded train.seed.  Returns the
         LoRA tree, trained in place; `history` holds one entry per step."""
         cfg = self.config
-        qz = cfg.model.quantize
-        if qz and qz.enabled:
-            raise NotImplementedError(
-                "training over a quantized base is not ported yet (ROADMAP.md: the Qwen "
-                "train slice C2, with K5b, the requant matmul's backward)")
-        if not self.adapter_cls.trains:
-            raise NotImplementedError(
-                f"training {cfg.trainer.value} is not ported yet (ROADMAP.md: the Qwen train "
-                "slice C2)")
         if self.adapter is None:
             self.load_model()
         self.lora = lora = mark_trainable(self.build_lora())

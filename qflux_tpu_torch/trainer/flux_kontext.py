@@ -63,7 +63,6 @@ class FluxKontextAdapter:
     remat: bool = True
     remat_policy: str = "flash"
     vae_scale: int = 8
-    trains = True  # Trainer.fit runs this family's train step
 
     default_lora_targets = (
         r"attn/(to_q|to_k|to_v|to_out|add_q|add_k|add_v|add_out)",

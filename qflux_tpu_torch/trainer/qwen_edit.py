@@ -1,5 +1,6 @@
 """Qwen-Image-Edit model adapter: weights, cached-embedding prep, velocity
-prediction and decoding for the port's Trainer (the predict slice).
+prediction and decoding for the port's Trainer (predict and the LoRA train
+step).
 
 Counterpart of qflux_tpu/trainer/qwen_edit.py.  The batch is the JAX
 package's embedding-cache format:
@@ -12,8 +13,12 @@ package's embedding-cache format:
                                             per image plane (→ RoPE tables)
     neg_prompt_embeds(_mask)                optional, for true-CFG
     segment_ids            [B, S_txt+S_img+S_ctl] optional (0 = padding)
+    edit_mask              [B, S_img] optional (MaskEditLoss)
 
-The text encoder and the VAE encoder (the cache pass) and the train step
+Under gradient accumulation the train step (trainer/train_step.py) splits
+every key with a leading batch axis into microbatches (prompt_embeds_mask
+and segment_ids among them) and shares img_shapes_arr and the rope_* tables,
+as the JAX step does.  The text encoder and the VAE encoder (the cache pass)
 are later slices (ROADMAP.md).
 """
 
@@ -39,7 +44,6 @@ class QwenImageEditAdapter:
     remat: bool = True
     remat_policy: str = "dots"
     vae_scale: int = 8
-    trains = False  # the Qwen train step is slice C2 (ROADMAP.md)
 
     default_lora_targets = (
         r"attn/(to_q|to_k|to_v|to_out|add_q|add_k|add_v|add_out)",

@@ -1,7 +1,7 @@
-"""The port's CUDA kernels on the card: K1, K2 and K5a against their plain
-versions, LoRA gradients through K1 and K2 inside a small DiT, and a
-two-block, full-width Qwen-Image forward over an int4-requant base through
-K5a and K1.
+"""The port's CUDA kernels on the card: K1, K2, K5a and K5b against their
+plain versions, LoRA gradients through K1 and K2 inside a small DiT, and a
+two-block, full-width Qwen-Image forward (through K5a and K1) and train step
+(through K5a, K5b, K1 and K2) over an int4-requant base.
 
 This file imports neither jax nor the JAX package, so it runs on a machine
 with a card and without JAX:
@@ -195,3 +195,92 @@ def test_qwen_forward_through_k5a_and_k1_on_card():
         assert int4_matmul.RQ_KERNEL_LAUNCHES - k5 == 2 * 12 + 3
     assert y.shape == (1, 128, 64) and bool(torch.isfinite(y).all())
     assert torch.equal(y, y_plain)
+
+
+@pytest.mark.parametrize("m,k_in,n,dtype", [(300, 3072, 64, torch.bfloat16),
+                                            (77, 64, 256, torch.float32),
+                                            (129, 3584, 136, torch.bfloat16)],
+                         ids=["proj_out_n64", "img_in_k64_straddling_group", "ragged_m_n_k"])
+def test_rq_bwd_kernel_bit_exact_on_card(m, k_in, n, dtype):
+    """K5b, through rq_fused_matmul's backward, equals the plain backward
+    (quant.requant_int4_matmul_dx) to the bit: ragged M, a contraction N
+    that ends inside a 64-wide step (136), K = 64 (half a block of packed
+    rows, one group over both nibble planes) and K = 3584, in bf16 and f32."""
+    from qflux_tpu_torch.ops import int4_matmul, quant
+
+    gen = torch.Generator("cuda").manual_seed(m + 1)
+    w = (torch.rand(k_in, n, device="cuda", generator=gen) * 2 - 1) / k_in ** 0.5
+    q4, scale = quant.quantize_kernel_int4(w, 128)
+    factors = quant._requant_factors(scale)
+    x = torch.randn(m, k_in, device="cuda", generator=gen).to(dtype).requires_grad_()
+    g = torch.randn(m, n, device="cuda", generator=gen).to(dtype)
+    before = (int4_matmul.RQ_KERNEL_LAUNCHES, int4_matmul.RQ_BWD_KERNEL_LAUNCHES)
+    int4_matmul.rq_fused_matmul(x, q4, scale, factors).backward(g)
+    torch.cuda.synchronize()
+    assert (int4_matmul.RQ_KERNEL_LAUNCHES, int4_matmul.RQ_BWD_KERNEL_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    want = quant.requant_int4_matmul_dx(g, q4, factors)
+    assert x.grad.dtype == dtype and x.grad.shape == (m, k_in)
+    assert torch.equal(x.grad, want)
+
+
+def test_qwen_train_step_through_kernels_on_card():
+    """Two blocks of the 20B Qwen-Image DiT at full width over an
+    int4-requant base, bf16, a rank-16 LoRA on the eight attention
+    projections: one forward + backward under "flash_offload" launches K1
+    and K2 once a block, K5a 2·12 + 3 times in the forward and 2·12 again in
+    the recompute, and K5b 6 + 9 + 1 times (block 0's q/k/v inputs carry no
+    gradient; the last block's add_out and text MLP feed only the dropped
+    text stream); under "flash" the same counts; the LoRA gradients of the
+    two policies are identical to the bit, and every LoRA layer but the
+    last block's add_q and add_out gets a nonzero one."""
+    from qflux_tpu_torch.config import config_from_dict
+    from qflux_tpu_torch.models.qwen import transformer as tqwen
+    from qflux_tpu_torch.ops import int4_matmul
+    from qflux_tpu_torch.ops.layers import build_lora_tree, mark_trainable, merge_lora
+    from qflux_tpu_torch.ops.quant import quantize_tree
+
+    qcfg = config_from_dict({"model": {"quantize": {"enabled": True,
+                                                    "dtype": "int4_requant"}}}).model.quantize
+    cfg = dataclasses.replace(tqwen.QwenImageConfig(), num_layers=2)
+    gen = torch.Generator("cuda").manual_seed(1)
+    model = quantize_tree(tqwen.init(gen, cfg, "cuda", torch.bfloat16, quantize=qcfg), qcfg)
+    lora = build_lora_tree(gen, model, [r"attn/(to_q|to_k|to_v|to_out|add_q|add_k|add_v|add_out)"],
+                           16, 16.0)
+    with torch.no_grad():
+        for leaf in lora.values():
+            leaf["b"].normal_(0.0, 0.005, generator=gen)
+    mark_trainable(lora)
+    merge_lora(model, lora)
+    shapes = [(1, 8, 8), (1, 8, 8)]
+    x = torch.randn(1, 128, cfg.in_channels, device="cuda", generator=gen).to(torch.bfloat16)
+    txt = torch.randn(1, 40, cfg.joint_attention_dim, device="cuda",
+                      generator=gen).to(torch.bfloat16)
+    seg = torch.ones(1, 40 + 128, dtype=torch.int32, device="cuda")
+    seg[0, 33:40] = 0
+    t = torch.full((1,), 0.5, device="cuda", dtype=torch.bfloat16)
+    target = torch.randn(1, 128, 64, device="cuda", generator=gen)
+    grads = {}
+    for policy in ("flash_offload", "flash"):
+        for leaf in lora.values():
+            for v in leaf.values():
+                v.grad = None
+        counts = (tnr.KERNEL_LAUNCHES, tnr.BWD_KERNEL_LAUNCHES, int4_matmul.RQ_KERNEL_LAUNCHES,
+                  int4_matmul.RQ_BWD_KERNEL_LAUNCHES)
+        y = tqwen.forward(model, cfg, x, txt, t, shapes, segment_ids=seg, remat_policy=policy)
+        (y.float() - target).square().mean().backward()
+        torch.cuda.synchronize()
+        launched = (tnr.KERNEL_LAUNCHES - counts[0], tnr.BWD_KERNEL_LAUNCHES - counts[1],
+                    int4_matmul.RQ_KERNEL_LAUNCHES - counts[2],
+                    int4_matmul.RQ_BWD_KERNEL_LAUNCHES - counts[3])
+        assert launched == (2, 2, 2 * 12 + 3 + 2 * 12, 6 + 9 + 1), (policy, launched)
+        grads[policy] = {p: [None if leaf[k].grad is None else leaf[k].grad.clone()
+                             for k in ("a", "b")] for p, leaf in lora.items()}
+    merge_lora(model, None)
+    for path, (ga, gb) in grads["flash"].items():
+        oa, ob = grads["flash_offload"][path]
+        if path in ("blocks/1/attn/add_q", "blocks/1/attn/add_out"):
+            assert all(g is None or not g.any() for g in (ga, gb, oa, ob)), path
+            continue
+        assert torch.equal(ga, oa) and torch.equal(gb, ob), path
+        assert ga.abs().sum() > 0 and gb.abs().sum() > 0, path

@@ -176,18 +176,122 @@ def test_kernel_launcher_refuses_what_it_does_not_take():
             ti4.kernel_group_size(k_in, n, groups)
 
 
-def test_requant_matmul_raises_under_autograd():
-    """The backward (K5b) is the Qwen train slice: a requant matmul whose
-    input needs a gradient raises instead of returning a result without
-    one."""
-    x, jq, js = _rq_case(9, 40, 128, 16)
+# ---------------------------------------------------------------------------
+# the requant matmul's backward (K5b's plain version)
+
+def _port_vjp(fn, x, g, dtype, *args):
+    tx = torch.from_numpy(x).to(_TORCH_DTYPE[dtype]).requires_grad_()
+    y = fn(tx, *args)
+    y.backward(torch.from_numpy(g).to(y.dtype))
+    return y, tx.grad
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+@pytest.mark.parametrize("m", [5, 40])
+def test_requant_backward_bit_exact(m, dtype):
+    """The plain straight-through backward equals jax.vjp of JAX's
+    requant_int4_matmul bit for bit (lead dims, both dtypes), and gives q4
+    and the scales no gradient."""
+    x, jq, js = _rq_case(12 + m, m, 256, 48, lead=(2,))
+    g = np.random.default_rng(m).standard_normal((2, m, 48)).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    _, vjp = jax.vjp(lambda a: jquant.requant_int4_matmul(a, jq, js), jnp.asarray(x).astype(jdt))
+    (jdx,) = vjp(jnp.asarray(g).astype(jdt))
     tq, ts = _t(jq), _t(js)
-    tx = torch.from_numpy(x).requires_grad_()
-    for fn in (tquant.requant_int4_matmul, ti4.rq_fused_matmul):
-        with pytest.raises(NotImplementedError, match="K5b"):
-            fn(tx, tq, ts)
-    with torch.no_grad():
-        assert tquant.requant_int4_matmul(tx, tq, ts).shape == (40, 16)
+    _, tdx = _port_vjp(tquant.requant_int4_matmul, x, g, dtype, tq, ts)
+    assert tdx.dtype == _TORCH_DTYPE[dtype]
+    _eq(tdx, jdx)
+    _eq(tquant.requant_int4_matmul_dx(torch.from_numpy(g).to(_TORCH_DTYPE[dtype]), tq,
+                                      tquant._requant_factors(ts)), jdx)
+    assert not tq.requires_grad and ts.grad is None
+
+
+@pytest.mark.parametrize("m", [5, 40])
+def test_plain_backward_matches_jax_fused_pallas_vjp(m):
+    """The first test K5b has: the vjp of JAX's rq_fused_matmul (the Pallas
+    kernel _rq_bwd_kernel, run in interpret mode on the CPU) at a shape
+    rq_supports takes, against the port's plain backward, through the
+    port's rq_fused_matmul on CPU tensors."""
+    x, jq, js = _rq_case(17, m, 3072, 128)
+    assert ji4.rq_supports(3072, 128, js.shape[-2])
+    g = np.random.default_rng(18).standard_normal((m, 128)).astype(np.float32)
+    jx, jg = jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(g).astype(jnp.bfloat16)
+    _, vjp = jax.vjp(lambda a: jquant.rq_fused_matmul(a, jq, js), jx)
+    (j_fused,) = vjp(jg)
+    _, tdx = _port_vjp(ti4.rq_fused_matmul, x, g, "bfloat16", _t(jq), _t(js))
+    _eq(tdx, j_fused)
+    _, vjp_xla = jax.vjp(lambda a: jquant.requant_int4_matmul(a, jq, js), jx)
+    _eq(tdx, vjp_xla(jg)[0])
+
+
+def test_cpu_backward_is_the_plain_version_and_launches_nothing():
+    x, jq, js = _rq_case(19, 37, 192, 16, group=64)
+    g = np.random.default_rng(20).standard_normal((37, 16)).astype(np.float32)
+    tq, ts = _t(jq), _t(js)
+    before = (ti4.RQ_KERNEL_LAUNCHES, ti4.RQ_BWD_KERNEL_LAUNCHES)
+    _, a = _port_vjp(ti4.rq_fused_matmul, x, g, "bfloat16", tq, ts, tquant._requant_factors(ts))
+    assert (ti4.RQ_KERNEL_LAUNCHES, ti4.RQ_BWD_KERNEL_LAUNCHES) == before
+    _, b = _port_vjp(tquant.requant_int4_matmul, x, g, "bfloat16", tq, ts)
+    assert torch.equal(a, b)
+
+
+def _plain_rq_launchers(monkeypatch):
+    """Test doubles: K5a's and K5b's launchers replaced by plain math (the
+    same exact integer products), and rq_fused_matmul sending CPU tensors to
+    the custom op instead of the plain version, so the op and its autograd
+    formula run here.  The counts move as the real launches would."""
+    def fwd(xq, q4, f, sx, s_vec, out_dtype):
+        acc = tquant._int_product(xq, tquant._requant_q8(q4, f))
+        return ((acc.to(torch.float32) * sx.reshape(-1, 1)) * s_vec).to(out_dtype)
+
+    def bwd(gq, q4, f, sg, out_dtype):
+        acc = tquant._int_product(gq, tquant._requant_q8(q4, f).t())
+        return (acc.to(torch.float32) * sg.reshape(-1, 1)).to(out_dtype)
+
+    def dispatch(x, q4, g_scale, factors=None):
+        f, s_vec = factors if factors is not None else tquant._requant_factors(g_scale)
+        return ti4._rq_fwd_op(x, q4, f, s_vec)
+
+    monkeypatch.setattr(ti4, "rq_int4_fwd_cuda", fwd)
+    monkeypatch.setattr(ti4, "rq_int4_bwd_cuda", bwd)
+    monkeypatch.setattr(ti4, "rq_fused_matmul", dispatch)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_custom_op_autograd_counts_and_equals_plain(monkeypatch, dtype):
+    """The custom op qflux::rq_int4_fwd with its registered autograd (the
+    kernels' launchers as plain-math doubles): one forward launches K5a
+    once, its backward K5b once, and both results equal the plain version
+    to the bit."""
+    x, jq, js = _rq_case(21, 3, 192, 24, group=64, lead=(2,))
+    g = np.random.default_rng(22).standard_normal((2, 3, 24)).astype(np.float32)
+    tq, ts = _t(jq), _t(js)
+    want_y, want_dx = _port_vjp(tquant.requant_int4_matmul, x, g, dtype, tq, ts)
+    _plain_rq_launchers(monkeypatch)
+    monkeypatch.setattr(ti4, "RQ_KERNEL_LAUNCHES", 0)
+    monkeypatch.setattr(ti4, "RQ_BWD_KERNEL_LAUNCHES", 0)
+    y, dx = _port_vjp(ti4.rq_fused_matmul, x, g, dtype, tq, ts)
+    assert (ti4.RQ_KERNEL_LAUNCHES, ti4.RQ_BWD_KERNEL_LAUNCHES) == (1, 1)
+    assert torch.equal(y, want_y) and torch.equal(dx, want_dx)
+
+
+def test_bwd_kernel_launcher_refuses_what_it_does_not_take():
+    """The K5b launcher takes CUDA tensors only (no path to the plain
+    version); it shares K5a's shape rules (kernel_group_size, tested above),
+    and its operand check refuses a wrong dtype, shape or layout."""
+    gq = torch.zeros(40, 16, dtype=torch.int8)
+    q4 = torch.zeros(64, 16, dtype=torch.int8)
+    f, sg = torch.ones(1, 16), torch.ones(40, 1)
+    before = ti4.RQ_BWD_KERNEL_LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        ti4.rq_int4_bwd_cuda(gq, q4, f, sg, torch.bfloat16)
+    cpu = torch.device("cpu")
+    for t, shape, what in ((gq.float(), (40, 16), "is torch.float32"),
+                           (gq[:, :8], (40, 16), "has shape"),
+                           (gq.t(), (16, 40), "contiguous")):
+        with pytest.raises(ValueError, match=what):
+            ti4._check("gq", t, cpu, torch.int8, shape)
+    assert ti4.RQ_BWD_KERNEL_LAUNCHES == before
 
 
 # ---------------------------------------------------------------------------
@@ -268,10 +372,16 @@ def test_dense_int4_requant_with_lora_and_bias(m, dtype):
     """`dense` over a bridged int4-requant node with a LoRA and a bias:
     M ≤ 32 rows take the dequantized product (f32 result, the delta and bias
     added in f32), more rows the requant matmul (x.dtype result, the delta
-    and bias added in x.dtype), as JAX's _base_matmul routes.  The base
-    products are exact on both routes; the LoRA dots are float GEMMs summed
-    in another order: f32 to 1e-5 relative, bf16 to one bf16 ulp (2^-8) of
-    the output, as tests/test_torch_ops.py:test_dense_bf16_cast_points."""
+    and bias added in x.dtype), as JAX's _base_matmul routes.  The requant
+    route's base product is an integer product, exact on both sides: held
+    to the bit.  The dequantized route's base product is a float GEMM over
+    the dequantized weight, which XLA's and torch's CPU dots sum in other
+    orders: in f32 it is held to 1e-5 relative with 1e-6 absolute (measured
+    1.1e-5 relative on an element near zero, 2.4e-7 absolute); in bf16 the
+    result's rounding hides the order and it is held to the bit.  The LoRA
+    dots are float GEMMs summed in another order: f32 to 1e-5 relative,
+    bf16 to one bf16 ulp (2^-8) of the output, as
+    tests/test_torch_ops.py:test_dense_bf16_cast_points."""
     rng = np.random.default_rng(10)
     k_in, n = 256, 40
     jq, js = jquant.quantize_kernel_int4(jnp.asarray(_weight(rng, k_in, n)), 128)
@@ -284,10 +394,13 @@ def test_dense_int4_requant_with_lora_and_bias(m, dtype):
     x = rng.standard_normal((m, k_in)).astype(np.float32)
     jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
     jx, tx = jnp.asarray(x).astype(jdt), torch.from_numpy(x).to(_TORCH_DTYPE[dtype])
-    # without LoRA the route's base product and bias add are exact
+    # without LoRA: the base product and the bias add
     j0 = jlayers.dense({k: jnp.asarray(v) for k, v in node.items()}, jx)
     t0 = tlayers.dense(mod, tx)
-    _eq(t0, j0)
+    if m <= 32 and dtype == np.float32:
+        np.testing.assert_allclose(t0.numpy(), np.asarray(j0), rtol=1e-5, atol=1e-6)
+    else:
+        _eq(t0, j0)
     jnode = {**{k: jnp.asarray(v) for k, v in node.items()},
              "lora": {"a": jnp.asarray(a), "b": jnp.asarray(b), "scaling": 2.0}}
     mod.lora = {"a": torch.from_numpy(a), "b": torch.from_numpy(b), "scaling": 2.0}
@@ -298,6 +411,58 @@ def test_dense_int4_requant_with_lora_and_bias(m, dtype):
     np.testing.assert_allclose(t.float().numpy(), np.asarray(j.astype(jnp.float32)),
                                rtol=tol, atol=tol)
     assert not np.array_equal(np.asarray(j), np.asarray(j0))  # the adapter does something
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+@pytest.mark.parametrize("m", [3, 40], ids=["tiny_m_dequant", "requant"])
+def test_dense_int4_vjp_matches_jax(m, dtype):
+    """jax.vjp of `dense` over an int4-requant node with a LoRA and a bias,
+    in x and in the LoRA's a, b and scaling, on both routes.  Through the
+    requant route the base part of dx is K5b's plain version (exact); the
+    rest of dx and the LoRA gradients are float GEMMs summed in another
+    order, as is the dequantized route's base part: f32 to 1e-5 relative L2,
+    bf16 to 2^-8 (one bf16 ulp of the gradient's scale; the bf16 casts sit
+    at the same points on both sides).  The bf16 scaling gradient is one
+    scalar, Σ g · ((x·a)·b) reduced from bf16 terms with cancellation
+    (measured 1.0391 against 1.0 on the dequantized route, -35.75 against
+    -35.5 on the requant one): it is held to 2^-8 of Σ |terms|, the
+    rounding a bf16 sum of those terms may carry."""
+    rng = np.random.default_rng(23)
+    k_in, n = 256, 40
+    jq, js = jquant.quantize_kernel_int4(jnp.asarray(_weight(rng, k_in, n)), 128)
+    node = {"kernel_q4_rq": jq, "kernel_scale": js,
+            "bias": jnp.asarray(rng.standard_normal(n).astype(np.float32) * 0.1)}
+    lora = {"a": rng.standard_normal((k_in, 4)).astype(np.float32) / 4,
+            "b": rng.standard_normal((4, n)).astype(np.float32) * 0.1,
+            "scaling": np.float32(2.0)}
+    x = rng.standard_normal((m, k_in)).astype(np.float32)
+    g = rng.standard_normal((m, n)).astype(np.float32)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    _, vjp = jax.vjp(lambda xx, lo: jlayers.dense({**node, "lora": lo}, xx),
+                     jnp.asarray(x).astype(jdt), {k: jnp.asarray(v) for k, v in lora.items()})
+    jdx, jgl = vjp(jnp.asarray(g).astype(jdt))
+
+    mod = bridge.load_params(tlayers.Dense(k_in, n), {k: np.asarray(v) for k, v in node.items()})
+    leaves = {k: torch.tensor(v).requires_grad_() for k, v in lora.items()}
+    mod.lora = leaves
+    tx = torch.from_numpy(x).to(_TORCH_DTYPE[dtype]).requires_grad_()
+    y = tlayers.dense(mod, tx)
+    y.backward(torch.from_numpy(g).to(y.dtype))
+    tol = 1e-5 if dtype == np.float32 else 2 ** -8
+
+    def rel(t, j):
+        t, j = t.detach().float().numpy(), np.asarray(jnp.asarray(j).astype(jnp.float32))
+        return np.linalg.norm(t - j) / np.linalg.norm(j)
+
+    assert tx.grad.dtype == tx.dtype and rel(tx.grad, jdx) < tol
+    for key in ("a", "b"):
+        assert rel(leaves[key].grad, jgl[key]) < tol, key
+    if dtype == np.float32:
+        assert rel(leaves["scaling"].grad, jgl["scaling"]) < tol
+    else:
+        l1 = np.abs(g * ((x @ lora["a"]) @ lora["b"])).sum()
+        assert abs(leaves["scaling"].grad.item() - float(jgl["scaling"])) <= 2 ** -8 * l1
+    assert mod.q4.grad is None and mod.scale.grad is None
 
 
 def test_lora_tree_and_merge_over_int4_base():

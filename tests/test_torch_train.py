@@ -177,12 +177,14 @@ def tiny_pair():
     return jcfg, jp, jl, model
 
 
-def _jax_step(jcfg, jp, jl, batch, noise, sigma, criterion, accum, max_norm, opt):
+def _jax_step(jcfg, jp, jl, batch, noise, sigma, criterion, accum, max_norm, opt,
+              adapter=None):
     """The JAX step with injected noise / σ: `_loss_for_microbatch`'s body
     under jax.value_and_grad per microbatch (tests/trainer/test_train_step.py),
-    mean over microbatches, global-norm clip, optax.adamw, scaling updates
-    zeroed — make_train_step's arithmetic."""
-    adapter = jfk.FluxKontextAdapter(jcfg, remat=False)
+    mean over microbatches (the keys of SHARED_BATCH_KEY_PREFIXES shared),
+    global-norm clip, optax.adamw, scaling updates zeroed — make_train_step's
+    arithmetic.  `adapter`: the JAX adapter (default FLUX.1-Kontext, no remat)."""
+    adapter = adapter or jfk.FluxKontextAdapter(jcfg, remat=False)
 
     def loss_fn(lora, mb, nz, sg):
         lat = mb["image_latents"]
@@ -196,7 +198,7 @@ def _jax_step(jcfg, jp, jl, batch, noise, sigma, criterion, accum, max_norm, opt
     losses, grads = [], []
     for i in range(accum):
         sl = slice(i * b, (i + 1) * b)
-        mb = {k: jnp.asarray(v[sl] if k not in ("img_ids", "txt_ids") else v)
+        mb = {k: jnp.asarray(v if k.startswith(jts.SHARED_BATCH_KEY_PREFIXES) else v[sl])
               for k, v in batch.items()}
         loss, g = jax.value_and_grad(loss_fn)(jl, mb, jnp.asarray(noise[sl]),
                                               jnp.asarray(sigma[sl]))
@@ -342,14 +344,16 @@ def test_step_refuses_frozen_lora(tiny_pair):
 # ---------------------------------------------------------------------------
 # remat through the custom op (plain-math doubles for the launchers)
 
-@pytest.mark.parametrize("policy,k1_per_step", [("flash", 1), ("full", 2)])
+@pytest.mark.parametrize("policy,k1_per_step", [("flash", 1), ("full", 2),
+                                               ("flash_offload", 1)])
 def test_remat_launch_counts_and_grads(tiny_pair, monkeypatch, policy, k1_per_step):
     """The train step at tiny depth with the kernels' launchers replaced by
     plain-math doubles (a test double, not a fallback of the package): per
     block and step, K1 launches once under "flash" (its out / lse saved by
-    the selective-checkpoint policy) and twice under "full"; K2 once under
-    both.  The LoRA gradients equal those of the plain path without remat
-    (relative L2 1e-5: the same f32 math, recomputed)."""
+    the selective-checkpoint policy) and under "flash_offload" (kept in host
+    memory and replayed in the recompute), twice under "full"; K2 once under
+    all three.  The LoRA gradients equal those of the plain path without
+    remat (relative L2 1e-5: the same f32 math, recomputed)."""
     *_, model = tiny_pair
     n_blocks = model.cfg.num_layers + model.cfg.num_single_layers
     batch = {k: torch.from_numpy(v) for k, v in _batch(62, 2).items()}
@@ -404,8 +408,7 @@ def test_flash_policy_sees_the_op_in_a_fresh_process(tmp_path):
     assert res.returncode == 0, res.stderr
 
 
-@pytest.mark.parametrize("mesh_remat", ["minimal", "flash_mlp", "flash_single",
-                                        "flash_offload"])
+@pytest.mark.parametrize("mesh_remat", ["minimal", "flash_mlp", "flash_single"])
 def test_unported_remat_policies_raise(tiny_pair, mesh_remat):
     *_, model = tiny_pair
     adapter = tfk.FluxKontextAdapter(model.cfg,
