@@ -3,19 +3,22 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths at full width with synthetic weights from a
-seed.  FLUX.1-Kontext-dev (19 dual + 38 single blocks, bf16, a rank-16 LoRA
+Drives the port's paths at full width with synthetic weights from a seed.  FLUX.1-Kontext-dev (19 dual + 38 single blocks, bf16, a rank-16 LoRA
 on to_q/to_k/to_v/to_out, 512² target with one 512² control image and 512
 T5 tokens, S = 2560): predict from cached embeddings (20 Euler steps, full
 f32 VAE decode) and the LoRA train step from cached embeddings (MseLoss,
 optax.adamw defaults, remat "flash").  Qwen-Image-Edit (the 20B DiT: 60
 dual-stream blocks, dim 3072, over the int4-requant base of
-configs/example_qwen_single_chip_832x576.yaml with quantize.attention off;
-832×576 target with one control image and 256 Qwen2.5-VL tokens, S = 4000):
+configs/example_qwen_single_chip_832x576.yaml as published, quantize.attention
+on; 832×576 target with one control image and 256 Qwen2.5-VL tokens, S =
+4000, where int8 attention does not apply and attention runs bf16, as on a
+TPU — path B):
 predict from cached embeddings, and the LoRA train step from cached
 embeddings over the same base (the config's rank-16 LoRA on the eight
 attention projections, logit_normal σ, optax.adamw at lr 1e-4, MseLoss,
-clip 1.0, remat "flash_offload").  In phases:
+clip 1.0, remat "flash_offload"); then the same model at the config's 512²
+operating point (S = 2304, remat "flash"), where its int8 attention runs
+the s_int8 modes of K1 and K2 (path A).  In phases:
 
   1. device: the card's name and power limit (nvidia-smi); TF32 off;
   2. build: the hand-written kernels from qflux_tpu_torch/csrc;
@@ -53,7 +56,19 @@ clip 1.0, remat "flash_offload").  In phases:
      bs=1 and bs=2 (gradients identical to the bit, device memory after the
      forward); then Trainer.fit at bs=1 and bs=2, checked for finite
      losses, LoRA b that moved, and exactly 60 K1, 60 K2, 1,443 K5a and 712
-     K5b launches per step; then a one-step torch.profiler breakdown.
+     K5b launches per step (no s_int8 launch); then a one-step
+     torch.profiler breakdown;
+ 11. K1 and K2 in their s_int8 mode against their plain versions at three
+     shapes (the prep's int8 operands to the bit), timed beside bf16 K1 /
+     K2 and SDPA flash;
+ 12. Qwen 512² predict with int8 attention (path A): a full-width forward
+     through K1 s_int8 against the plain int8 attention, three requests
+     with exactly 60 K1 s_int8 and 723 K5a launches per denoising step,
+     and a profiled step;
+ 13. Qwen 512² train (path A): one step's LoRA gradients through the
+     kernels against the plain int8 attention, then Trainer.fit at bs=1
+     and bs=2 with exactly 60 K1 s_int8, 60 K2 s_int8, 1,443 K5a and 712
+     K5b launches per step, then a profiled step.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after.  Prints the kernel table as one JSON line before the last (each
@@ -66,6 +81,7 @@ no CUDA device or any phase fails.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import gc
 import json
@@ -122,15 +138,17 @@ STEPS = 20
 HEIGHT = WIDTH = 512
 TRAIN_STEPS = 4  # Trainer.fit steps at each batch size
 # Qwen-Image-Edit: configs/example_qwen_single_chip_832x576.yaml as the port
-# reads it, with two cuts: no checkpoint path (the weights are synthetic,
-# from a seed) and quantize.attention off (the int8 score GEMM of K1 comes
-# with the Qwen train slice).  Written out here because the card's machine
-# has no PyYAML; tests/test_torch_qwen.py holds it to the YAML file.
+# reads it, with one cut: no checkpoint path (the weights are synthetic, from
+# a seed).  quantize.attention is on, as in the file: at 832×576 (S = 4000)
+# it runs bf16 attention, as on the TPU, and at the 512² operating point its
+# comment names (S = 2304) the int8 score GEMM.  Written out here because the
+# card's machine has no PyYAML; tests/test_torch_qwen.py holds it to the
+# YAML file.
 QWEN_832X576 = {
     "trainer": "QwenImageEditTrainer",
     "mesh": {"dp": 1, "fsdp": 1, "tp": 1, "remat": "flash_offload"},
     "model": {"lora": {"r": 16, "lora_alpha": 16},
-              "quantize": {"enabled": True, "dtype": "int4_requant", "attention": False}},
+              "quantize": {"enabled": True, "dtype": "int4_requant", "attention": True}},
     "optimizer": {"class_path": "optax.adamw", "learning_rate": 1.0e-4},
     "train": {"max_train_steps": 5000, "weight_dtype": "bfloat16",
               "timestep_sampling": "logit_normal"},
@@ -744,6 +762,7 @@ def phase_qwen_predict(card: str):
 
     # the main path: three requests, counts reset just before
     flash_nr.KERNEL_LAUNCHES = int4_matmul.RQ_KERNEL_LAUNCHES = 0
+    flash_nr.INT8_KERNEL_LAUNCHES = 0
     for i, (b, seed) in enumerate([(1, 42), (1, 43), (2, 44)]):
         emb = _qwen_request(rng, cfg, gh, gw, b)
         torch.cuda.synchronize()
@@ -768,6 +787,10 @@ def phase_qwen_predict(card: str):
         if launched != (STEPS * n_blocks, STEPS * per_forward):
             raise AssertionError(f"Qwen request {i}: K1/K5a launched {launched} times, expected "
                                  f"{(STEPS * n_blocks, STEPS * per_forward)}")
+    # quantize.attention is on, and at S = 4000 it runs bf16 attention, as on the TPU
+    if flash_nr.INT8_KERNEL_LAUNCHES:
+        raise AssertionError(f"Qwen 832x576 requests launched K1 s_int8 "
+                             f"{flash_nr.INT8_KERNEL_LAUNCHES} times, expected 0 (S > 2560)")
     counts = (flash_nr.KERNEL_LAUNCHES, int4_matmul.RQ_KERNEL_LAUNCHES)
     batch = trainer._device_batch(_qwen_request(rng, cfg, gh, gw, 1))
     lat = torch.randn(1, gh * gw, cfg.in_channels, device="cuda").to(torch.bfloat16)
@@ -790,22 +813,34 @@ def _qwen_train_batch(rng, cfg, gh, gw, b):
     return emb
 
 
-def _launch_counts() -> tuple[int, int, int, int]:
-    """(K1, K2, K5a, K5b) launches so far."""
+COUNT_NAMES = "K1/K2/K5a/K5b/K1 s_int8/K2 s_int8"
+
+
+def _launch_counts() -> tuple[int, ...]:
+    """(K1, K2, K5a, K5b, K1 s_int8, K2 s_int8) launches so far."""
     from qflux_tpu_torch.ops import flash_nr, int4_matmul
 
     return (flash_nr.KERNEL_LAUNCHES, flash_nr.BWD_KERNEL_LAUNCHES,
-            int4_matmul.RQ_KERNEL_LAUNCHES, int4_matmul.RQ_BWD_KERNEL_LAUNCHES)
+            int4_matmul.RQ_KERNEL_LAUNCHES, int4_matmul.RQ_BWD_KERNEL_LAUNCHES,
+            flash_nr.INT8_KERNEL_LAUNCHES, flash_nr.INT8_BWD_KERNEL_LAUNCHES)
 
 
-def phase_qwen_train(card: str, trainer) -> tuple[int, int, int, int]:
+def _reset_counts() -> None:
+    from qflux_tpu_torch.ops import flash_nr, int4_matmul
+
+    flash_nr.KERNEL_LAUNCHES = flash_nr.BWD_KERNEL_LAUNCHES = 0
+    flash_nr.INT8_KERNEL_LAUNCHES = flash_nr.INT8_BWD_KERNEL_LAUNCHES = 0
+    int4_matmul.RQ_KERNEL_LAUNCHES = int4_matmul.RQ_BWD_KERNEL_LAUNCHES = 0
+
+
+def phase_qwen_train(card: str, trainer) -> tuple[int, ...]:
     """The Qwen LoRA train step over the int4-requant base, on the model the
     predict phase loaded: the full-width gradient check, "flash_offload"
     against "flash", Trainer.fit at bs=1 and bs=2, and a profiled step.
-    Returns the K1, K2, K5a and K5b launches of the fit runs."""
+    Returns the launches of the fit runs (_launch_counts' order): at S =
+    4000 quantize.attention runs bf16 attention, so no s_int8 launch."""
     from qflux_tpu_torch.config import config_from_dict
     from qflux_tpu_torch.losses import MseLoss
-    from qflux_tpu_torch.ops import flash_nr, int4_matmul
     from qflux_tpu_torch.ops.layers import mark_trainable, set_int4_impl
     from qflux_tpu_torch.trainer.base import Trainer
     from qflux_tpu_torch.trainer.train_step import (TrainStepConfig, _loss_for_microbatch,
@@ -818,7 +853,7 @@ def phase_qwen_train(card: str, trainer) -> tuple[int, int, int, int]:
     # output reaches the loss: 6 in block 0 (its q/k/v inputs carry none),
     # 12 in each middle block, 9 in the last (its add_out and text MLP feed
     # only the dropped text stream), 1 for proj_out
-    per_step = (n, n, 2 * 12 * n + 3, 6 + 12 * (n - 2) + 9 + 1)
+    per_step = (n, n, 2 * 12 * n + 3, 6 + 12 * (n - 2) + 9 + 1, 0, 0)
     # the two LoRA layers the loss does not reach: the last block's text
     # queries and text output projection
     zero_grad = {f"blocks/{n - 1}/attn/add_q", f"blocks/{n - 1}/attn/add_out"}
@@ -888,9 +923,9 @@ def phase_qwen_train(card: str, trainer) -> tuple[int, int, int, int]:
         for name, (loss, _, launched, after_fwd, peak, secs) in runs.items():
             print(f"[qwen_train] bs={b} {name}: loss {loss:.5f}, forward + backward "
                   f"{secs:.3f} s, device memory after the forward {after_fwd} bytes, peak "
-                  f"{peak} bytes, K1/K2/K5a/K5b launches {launched} [{card}]", flush=True)
+                  f"{peak} bytes, {COUNT_NAMES} launches {launched} [{card}]", flush=True)
             if not name.startswith("plain") and launched != per_step:
-                raise AssertionError(f"bs={b} {name}: K1/K2/K5a/K5b launched {launched} "
+                raise AssertionError(f"bs={b} {name}: {COUNT_NAMES} launched {launched} "
                                      f"times, expected {per_step}")
         g_off, g_flash = runs["flash_offload"][1], runs["flash"][1]
         identical = all(torch.equal(g_off[p], g_flash[p]) for p in g_off)
@@ -936,14 +971,13 @@ def phase_qwen_train(card: str, trainer) -> tuple[int, int, int, int]:
     del lora
 
     # the main path: Trainer.fit, counts reset just before each run
-    totals = [0, 0, 0, 0]
+    totals = [0] * len(per_step)
     for b in (1, 2):
         tt = make_trainer(TRAIN_STEPS)
         batches = [_qwen_train_batch(rng, cfg, gh, gw, b) for _ in range(TRAIN_STEPS)]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        flash_nr.KERNEL_LAUNCHES = flash_nr.BWD_KERNEL_LAUNCHES = 0
-        int4_matmul.RQ_KERNEL_LAUNCHES = int4_matmul.RQ_BWD_KERNEL_LAUNCHES = 0
+        _reset_counts()
         fitted = tt.fit(batches)
         launched = _launch_counts()
         totals = [t + c for t, c in zip(totals, launched)]
@@ -958,12 +992,12 @@ def phase_qwen_train(card: str, trainer) -> tuple[int, int, int, int]:
               + ", ".join(f"{h['loss']:.5f}" for h in hist) + ", grad_norm "
               + ", ".join(f"{h['grad_norm']:.4e}" for h in hist) + ", lr "
               + ", ".join(f"{h['lr']:g}" for h in hist)
-              + f", K1/K2/K5a/K5b launches {launched} [{card}]", flush=True)
+              + f", {COUNT_NAMES} launches {launched} [{card}]", flush=True)
         want = tuple(len(hist) * c for c in per_step)
         if len(hist) != TRAIN_STEPS or not all(np.isfinite(h["loss"]) for h in hist):
             raise AssertionError(f"Qwen fit bs={b}: {len(hist)} steps or non-finite losses")
         if launched != want:
-            raise AssertionError(f"Qwen fit bs={b}: K1/K2/K5a/K5b launched {launched} times, "
+            raise AssertionError(f"Qwen fit bs={b}: {COUNT_NAMES} launched {launched} times, "
                                  f"expected {want} ({per_step} per step)")
         for p, leaf in fitted.items():
             if bool(leaf["b"].abs().sum() > 0) != (p not in zero_grad):
@@ -983,10 +1017,349 @@ def phase_qwen_train(card: str, trainer) -> tuple[int, int, int, int]:
     return tuple(totals)
 
 
+# The s_int8 mode of K1 / K2 (quantize.attention) on the card.  Cases: B, S,
+# st, masked text tail.  The Qwen path at 512² (256 text tokens, the last 26
+# padding: S = 2304, q tiles 256 forward / 128 backward), FLUX at 512²
+# unmasked (S = 2560, 256 / 128) and S = 1024 (256 / 256); the first is the
+# one the kernel table reports.
+INT8_CASES = [("qwen_512sq", 1, 2304, 256, True), ("flux_512sq", 1, 2560, 512, False),
+              ("s1024", 1, 1024, 256, False)]
+# K1 s_int8 vs its plain version, relative L2 of out: the two quantize the
+# same normed q / k to the same int8 values and scales (checked to the bit
+# below), but a normed value that lands one bf16 ulp apart moves an int8
+# step, and the kernel rounds p to bf16 before PV at other points than the
+# plain version (as bf16 K1 does, ~1 bf16 ulp); 3e-2 is ~8 ulps and far
+# below the O(1) error of a wrong scale or tile.
+INT8_FWD_REL_TOL = 3e-2
+# K2 s_int8 vs its plain version, relative L2 per gradient: bf16 K2 measured
+# ~5e-3 against its f32 plain version; here the plain version rounds at the
+# same points but recomputes p from the int8 scores, where one moved int8
+# step shifts a whole score row, so 1e-1, far below the ~1 of a lost term.
+INT8_BWD_REL_TOL = 1e-1
+QWEN512 = 512  # path A: the published Qwen config at its 512² operating point
+
+
+def _int8_bound(b, s, h=24, d=128, bwd=False) -> dict:
+    """The least time for the s_int8 kernels' work on this card: the int8
+    QK^T (2·S²·D per head) at the int8 peak plus the bf16 products (PV in
+    the forward; dP, dV, dQ and dK in the backward) at the bf16 peak, or
+    the bytes (q, k, v, out, do, dq, dk, dv bf16; lse f32; cos / sin f32)
+    at the memory rate, whichever is larger."""
+    gemm = 2.0 * b * h * s * s * d
+    t_ops = gemm / PEAK_INT8_PER_MS + (4 if bwd else 1) * gemm / PEAK_BF16_PER_MS
+    n_bytes = (8 if bwd else 4) * b * s * h * d * 2 + b * h * s * 4 + 2 * s * d * 4
+    t_bytes = n_bytes / PEAK_BYTES_PER_MS
+    return {"bound_ms": max(t_ops, t_bytes), "bound_by": "bytes" if t_bytes > t_ops
+            else "operations"}
+
+
+def phase_kernel_int8(card: str) -> tuple[dict, dict]:
+    """K1's and K2's s_int8 modes against their plain versions at
+    INT8_CASES (H = 24): the prep's int8 q / k and scales against
+    quant_rows of its own normed q / k (to the bit), out and lse, the five
+    gradients with do ~ N(0, 1) on every row (padded ones included), and
+    median times of the kernels, the plain versions, bf16 K1 / K2 and SDPA
+    flash at the same shape (context: no PyTorch call computes int8-score
+    attention).  Returns the table entries of the first case."""
+    from qflux_tpu_torch.ops import flash_nr
+
+    gen = torch.Generator("cuda").manual_seed(11)
+    main = None
+    for name, b, s, st, masked in INT8_CASES:
+        args = _attn_inputs(gen, b, s)
+        seg = None
+        if masked:
+            seg = torch.ones(b, s, dtype=torch.int32, device="cuda")
+            seg[:, st - 26:st] = 0
+        fwd_rows, bwd_rows = flash_nr.s_int8_tiles(s, 128)
+        scale = 1.0 / 128 ** 0.5
+        q, k, v, qs2, ks2, cos, sin = args
+        exact = True
+        for rows in sorted({fwd_rows, bwd_rows}):
+            qn, kn, qq, kq, q_sc, k_sc = flash_nr._int8_operands_cuda(q, k, qs2, ks2, cos, sin,
+                                                                      st, rows)
+            wq, wqs = flash_nr.quant_rows(qn, rows)
+            wk, wks = flash_nr.quant_rows(kn, s)
+            exact = exact and torch.equal(qq, wq) and torch.equal(q_sc, wqs)
+            exact = exact and torch.equal(kq, wk) and torch.equal(k_sc, wks[:, 0])
+            del qn, kn, qq, kq, q_sc, k_sc, wq, wqs, wk, wks
+        out, lse = flash_nr._flash_nr_cuda(*args, st, seg, scale, fwd_rows)
+        do = torch.randn(out.shape, device="cuda", generator=gen).to(torch.bfloat16)
+        got = flash_nr._flash_nr_bwd_cuda(*args, st, seg, scale, out, lse, do, bwd_rows)
+        torch.cuda.synchronize()
+        ref, ref_lse = flash_nr.flash_attention_nr_int8_reference(*args, st, fwd_rows,
+                                                                  segment_ids=seg)
+        rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+        err = (out.float() - ref.float()).abs().max().item()
+        valid = ref_lse > -1e29
+        lse_err = (lse - ref_lse).abs()[valid].max().item()
+        want = flash_nr.flash_attention_nr_int8_bwd_reference(*args, st, do, out, lse, bwd_rows,
+                                                              segment_ids=seg)
+        rels = [((g.float() - r).norm() / r.norm()).item() for g, r in zip(got, want)]
+        bwd_err = max((g.float() - r).abs().max().item() for g, r in zip(got[:3], want[:3]))
+        ok = (exact and rel <= INT8_FWD_REL_TOL and max(rels) <= INT8_BWD_REL_TOL
+              and all(bool(torch.isfinite(t).all()) for t in (out, *got)))
+        if masked:
+            ok = ok and not out[:, st - 26:st].any()
+            ok = ok and all(not g[:, st - 26:st].any() for g in got[:3])
+        del got, want, ref, ref_lse
+        torch.cuda.empty_cache()
+        ms = _median_ms(lambda: flash_nr._flash_nr_cuda(*args, st, seg, scale, fwd_rows))
+        bwd_ms = _median_ms(lambda: flash_nr._flash_nr_bwd_cuda(
+            *args, st, seg, scale, out, lse, do, bwd_rows))
+        bf16_ms = _median_ms(lambda: flash_nr._flash_nr_cuda(*args, st, seg, scale))
+        out16, lse16 = flash_nr._flash_nr_cuda(*args, st, seg, scale)
+        bf16_bwd_ms = _median_ms(lambda: flash_nr._flash_nr_bwd_cuda(
+            *args, st, seg, scale, out16, lse16, do))
+        plain_ms = _median_ms(lambda: flash_nr.flash_attention_nr_int8_reference(
+            *args, st, fwd_rows, segment_ids=seg), n=5)
+        plain_bwd_ms = _median_ms(lambda: flash_nr.flash_attention_nr_int8_bwd_reference(
+            *args, st, do, out, lse, bwd_rows, segment_ids=seg), n=5)
+        qn = flash_nr.apply_qk_norm_rope(q, qs2, cos, sin, st)
+        kn = flash_nr.apply_qk_norm_rope(k, ks2, cos, sin, st)
+        sdpa_ms, sdpa_bwd_ms = _sdpa_flash_ms(qn, kn, v), _sdpa_flash_ms(qn, kn, v, do)
+        fb, bb = _int8_bound(b, s), _int8_bound(b, s, bwd=True)
+        print(f"[kernel_int8] {name}: B={b} S={s} H=24 D=128 st={st} "
+              f"masked={'text tail' if masked else 'none'} q tiles {fwd_rows}/{bwd_rows}; prep "
+              f"int8 q/k and scales = quant_rows of its normed q/k: {exact}; out rel L2 "
+              f"{rel:.3e} (tol {INT8_FWD_REL_TOL}) max|err| {err:.3e}, lse max|err| "
+              f"{lse_err:.3e}; grads rel L2 "
+              + ", ".join(f"{n_} {r:.3e}" for n_, r in zip(("dq", "dk", "dv", "dqs", "dks"), rels))
+              + f" (tol {INT8_BWD_REL_TOL}); fwd: K1 s_int8 {ms:.3f} ms, bound "
+              f"{fb['bound_ms']:.4f} ms ({fb['bound_by']}), plain {plain_ms:.3f} ms, K1 bf16 "
+              f"{bf16_ms:.3f} ms, SDPA flash {sdpa_ms:.3f} ms; bwd: K2 s_int8 {bwd_ms:.3f} ms, "
+              f"bound {bb['bound_ms']:.4f} ms ({bb['bound_by']}), plain {plain_bwd_ms:.3f} ms, "
+              f"K2 bf16 {bf16_bwd_ms:.3f} ms, SDPA flash bwd {sdpa_bwd_ms:.3f} ms [{card}]",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"K1/K2 s_int8 disagree with their plain versions in case {name}")
+        if main is None:
+            main = ({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                     "bf16_kernel_ms": bf16_ms, "sdpa_flash_ms": sdpa_ms, **fb},
+                    {"max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": plain_bwd_ms, "library_ms": None,
+                     "bf16_kernel_ms": bf16_bwd_ms, "sdpa_flash_ms": sdpa_bwd_ms, **bb})
+        del args, out, lse, do, out16, lse16, qn, kn
+        torch.cuda.empty_cache()
+    return main
+
+
+def phase_qwen512_predict(card: str, trainer) -> tuple[int, int]:
+    """Path A, predict: the Qwen model of path B (quantize.attention on) at
+    512² with one control image and 256 text tokens (S = 2304), where the
+    int8 score GEMM applies.  A full-width forward through K5a + K1 s_int8
+    against K5a + the plain int8 attention ("int8_plain"); then three
+    requests (bs 1, 1, 2) through Trainer.predict_from_embeddings, each with
+    exactly 60 K1 s_int8 and 723 K5a launches per denoising step and no bf16
+    K1.  Returns the K1 s_int8 and K5a launches of the requests."""
+    from qflux_tpu_torch.ops import flash_nr
+    from qflux_tpu_torch.ops.layers import merge_lora
+
+    dit, cfg = trainer.bundle.dit_params, trainer.bundle.dit_cfg
+    n_blocks = cfg.num_layers
+    per_forward = n_blocks * 12 + 3
+    rng = np.random.default_rng(12)
+    gen = torch.Generator("cuda").manual_seed(13)
+    gh, gw = trainer.adapter.latent_grid(QWEN512, QWEN512)
+    s = QWEN_TXT + 2 * gh * gw
+    if trainer.adapter.attn_impl != "int8" or flash_nr.s_int8_tiles(s, 128) != (256, 128):
+        raise AssertionError(f"path A: attn_impl {trainer.adapter.attn_impl}, S = {s}: the int8 "
+                             "score GEMM does not apply")
+    lora = trainer.build_lora()
+    _perturb_b(lora, gen)
+    batch = trainer._device_batch(_qwen_request(rng, cfg, gh, gw, 1))
+    lat = torch.randn(1, gh * gw, cfg.in_channels, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    sigma = torch.full((1,), 1.0, dtype=torch.bfloat16, device="cuda")
+    plain = dataclasses.replace(trainer.adapter, attn_impl="int8_plain")
+    merge_lora(dit, lora)
+    with torch.inference_mode():
+        c0 = _launch_counts()
+        v_k = trainer.adapter.predict_velocity(dit, batch, lat, sigma).float()
+        launched = tuple(b - a for a, b in zip(c0, _launch_counts()))
+        v_p = plain.predict_velocity(dit, batch, lat, sigma).float()
+    merge_lora(dit, None)
+    rel = (torch.linalg.vector_norm(v_k - v_p) / torch.linalg.vector_norm(v_p)).item()
+    print(f"[qwen512] full-width forward [1, {gh * gw}, {v_k.shape[-1]}], S = {s}: K5a + K1 "
+          f"s_int8 vs K5a + plain int8 attention: rel L2 err {rel:.3e} (tol {FORWARD_REL_TOL}), "
+          f"|v| rms {v_p.pow(2).mean().sqrt().item():.4f}; {COUNT_NAMES} launches {launched} "
+          f"[{card}]", flush=True)
+    if launched != (0, 0, per_forward, 0, n_blocks, 0):
+        raise AssertionError(f"the 512² Qwen forward launched {COUNT_NAMES} {launched} times")
+    if not (rel <= FORWARD_REL_TOL and bool(torch.isfinite(v_k).all())):
+        raise AssertionError("the 512² Qwen forward through K1 s_int8 disagrees with the plain "
+                             "int8 path")
+    del v_k, v_p, batch
+    torch.cuda.empty_cache()
+
+    # the main path: three requests, counts reset just before
+    _reset_counts()
+    secs_by_b = {1: [], 2: []}
+    for i, (b, seed) in enumerate([(1, 52), (1, 53), (2, 54)]):
+        emb = _qwen_request(rng, cfg, gh, gw, b)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        c0 = _launch_counts()
+        t0 = time.perf_counter()
+        images = trainer.predict_from_embeddings(emb, QWEN512, QWEN512, lora=lora, seed=seed)
+        secs = time.perf_counter() - t0
+        stats = trainer.last_predict
+        launched = tuple(b_ - a for a, b_ in zip(c0, _launch_counts()))
+        step_ms = 1000 * stats["denoise_s"] / stats["steps"]
+        secs_by_b[b].append(step_ms)
+        print(f"[qwen512] request {i}: bs={b} seed={seed} {secs:.3f} s, {step_ms:.1f} "
+              f"ms/denoising step ({stats['steps']} steps), VAE decode "
+              f"{1000 * stats['decode_s']:.1f} ms, peak mem {torch.cuda.max_memory_allocated()} "
+              f"bytes, {COUNT_NAMES} launches {launched}, images {images.dtype} "
+              f"{list(images.shape)} mean {images.mean():.2f} [{card}]", flush=True)
+        if images.dtype != np.uint8 or images.shape != (b, QWEN512, QWEN512, 3):
+            raise AssertionError(f"Qwen 512² request {i}: images {images.dtype} {images.shape}")
+        if not stats["latents_finite"]:
+            raise AssertionError(f"Qwen 512² request {i}: non-finite latents")
+        want = (0, 0, STEPS * per_forward, 0, STEPS * n_blocks, 0)
+        if launched != want:
+            raise AssertionError(f"Qwen 512² request {i}: {COUNT_NAMES} launched {launched} "
+                                 f"times, expected {want}")
+    for b, ms in secs_by_b.items():
+        print(f"[qwen512] predict bs={b}: ms/denoising step median {statistics.median(ms):.1f}, "
+              f"spread {min(ms):.1f}-{max(ms):.1f} over {len(ms)} requests [{card}]", flush=True)
+    counts = _launch_counts()
+    batch = trainer._device_batch(_qwen_request(rng, cfg, gh, gw, 1))
+    merge_lora(dit, lora)
+
+    def denoising_step():
+        with torch.inference_mode():
+            trainer.adapter.predict_velocity(dit, batch, lat, sigma)
+
+    _profile(card, f"one Qwen denoising step at 512², bs=1, S = {s}, int8 attention",
+             denoising_step)
+    merge_lora(dit, None)
+    return counts[4], counts[2]
+
+
+def phase_qwen512_train(card: str, trainer) -> tuple[int, ...]:
+    """Path A, train: the LoRA train step at 512² (S = 2304) on path B's
+    model under remat "flash" (the config's 512² operating point).  One
+    step's LoRA gradients through the kernels against the plain int8
+    attention (remat "full"); then Trainer.fit, 4 steps at bs=1 and at
+    bs=2, each step launching K1 and K2 s_int8 60 times, K5a 1,443 and K5b
+    712 times, and bf16 K1 / K2 never; then a profiled step.  Returns the
+    launches of the fit runs (_launch_counts' order)."""
+    from qflux_tpu_torch.config import config_from_dict
+    from qflux_tpu_torch.losses import MseLoss
+    from qflux_tpu_torch.ops.layers import mark_trainable
+    from qflux_tpu_torch.trainer.base import Trainer
+    from qflux_tpu_torch.trainer.train_step import (TrainStepConfig, _loss_for_microbatch,
+                                                    lora_leaves, make_train_step)
+
+    dit, cfg = trainer.bundle.dit_params, trainer.bundle.dit_cfg
+    n = cfg.num_layers
+    per_step = (0, 0, 2 * 12 * n + 3, 6 + 12 * (n - 2) + 9 + 1, n, n)
+    zero_grad = {f"blocks/{n - 1}/attn/add_q", f"blocks/{n - 1}/attn/add_out"}
+    rng = np.random.default_rng(14)
+    gen = torch.Generator("cuda").manual_seed(15)
+    gh, gw = trainer.adapter.latent_grid(QWEN512, QWEN512)
+    flash = dataclasses.replace(trainer.adapter, remat_policy="flash")
+
+    def make_trainer(steps):
+        raw = copy.deepcopy(QWEN_832X576)
+        raw["mesh"]["remat"] = "flash"
+        raw["train"]["max_train_steps"] = steps
+        tt = Trainer(config_from_dict(raw), device="cuda")
+        tt.adapter, tt.bundle = flash, trainer.bundle
+        return tt
+
+    # one step's LoRA gradients, kernels (flash) vs plain int8 attention (full)
+    tt = make_trainer(1)
+    lora = tt.build_lora()
+    _perturb_b(lora, gen)
+    lora = mark_trainable(lora)
+    batch = tt._device_batch(_qwen_train_batch(rng, cfg, gh, gw, 1))
+    noise = torch.randn(batch["image_latents"].shape, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    sigma = torch.full((1,), 0.6, device="cuda", dtype=torch.bfloat16)
+    grads = {}
+    plain = dataclasses.replace(flash, attn_impl="int8_plain", remat_policy="full")
+    for name, adapter in (("kernels", flash), ("plain", plain)):
+        for leaf in lora.values():
+            for t in leaf.values():
+                t.grad = None
+        torch.cuda.synchronize()
+        c0 = _launch_counts()
+        t0 = time.perf_counter()
+        loss = _loss_for_microbatch(dit, lora, batch, noise, sigma, adapter.predict_velocity,
+                                    MseLoss(), TrainStepConfig())
+        loss.backward()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = tuple(b - a for a, b in zip(c0, _launch_counts()))
+        grads[name] = torch.cat([torch.zeros_like(leaf[k]).flatten() if leaf[k].grad is None
+                                 else leaf[k].grad.flatten()
+                                 for leaf in lora.values() for k in ("a", "b")])
+        print(f"[qwen512_train] gradient check, {name}: loss {loss.item():.5f}, forward + "
+              f"backward {secs:.3f} s, {COUNT_NAMES} launches {launched} [{card}]", flush=True)
+        if name == "kernels" and launched != per_step:
+            raise AssertionError(f"the 512² kernel step launched {COUNT_NAMES} {launched} "
+                                 f"times, expected {per_step}")
+    rel = ((grads["kernels"] - grads["plain"]).norm() / grads["plain"].norm()).item()
+    print(f"[qwen512_train] full-width LoRA gradients, K5a + K5b + K1/K2 s_int8 vs K5a + K5b + "
+          f"plain int8 attention: rel L2 err {rel:.3e} (tol {QWEN_GRAD_REL_TOL}) [{card}]",
+          flush=True)
+    if not (rel <= QWEN_GRAD_REL_TOL and bool(torch.isfinite(grads["kernels"]).all())):
+        raise AssertionError("512² LoRA gradients through K1/K2 s_int8 disagree with the plain "
+                             "int8 path")
+    del grads, lora, batch, noise, loss
+    torch.cuda.empty_cache()
+
+    # the main path: Trainer.fit, counts reset just before each run
+    totals = [0] * len(per_step)
+    for b in (1, 2):
+        tt = make_trainer(TRAIN_STEPS)
+        batches = [_qwen_train_batch(rng, cfg, gh, gw, b) for _ in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        fitted = tt.fit(batches)
+        launched = _launch_counts()
+        totals = [t + c for t, c in zip(totals, launched)]
+        hist = tt.history
+        ms = [1000 * h["step_s"] for h in hist]
+        warm = ms[1:] if len(ms) > 1 else ms
+        print(f"[qwen512_train] fit bs={b}: {len(hist)} steps, ms/step "
+              + ", ".join(f"{m:.1f}" for m in ms)
+              + f" (median after the first {statistics.median(warm):.1f}, spread "
+              f"{min(warm):.1f}-{max(warm):.1f}), peak mem {torch.cuda.max_memory_allocated()} "
+              "bytes, loss " + ", ".join(f"{h['loss']:.5f}" for h in hist)
+              + f", {COUNT_NAMES} launches {launched} [{card}]", flush=True)
+        want = tuple(len(hist) * c for c in per_step)
+        if len(hist) != TRAIN_STEPS or not all(np.isfinite(h["loss"]) for h in hist):
+            raise AssertionError(f"Qwen 512² fit bs={b}: {len(hist)} steps or non-finite losses")
+        if launched != want:
+            raise AssertionError(f"Qwen 512² fit bs={b}: {COUNT_NAMES} launched {launched} "
+                                 f"times, expected {want} ({per_step} per step)")
+        for p, leaf in fitted.items():
+            if bool(leaf["b"].abs().sum() > 0) != (p not in zero_grad):
+                raise AssertionError(f"Qwen 512² fit bs={b}: LoRA b of {p} "
+                                     f"{'did not move' if p not in zero_grad else 'moved'}")
+        del fitted, batches
+        torch.cuda.empty_cache()
+
+    # one bs=1 train step under the profiler: K1 / K2 s_int8 and their prep
+    # by device time, inside the step
+    lora = mark_trainable(tt.build_lora())
+    optimizer, schedule = tt.build_optimizer(lora_leaves(lora)[0])
+    step = make_train_step(tt.adapter.predict_velocity, tt.build_criterion(), optimizer,
+                           schedule, tt._build_step_config())
+    batch = tt._device_batch(_qwen_train_batch(rng, cfg, gh, gw, 1))
+    _profile(card, f"one Qwen train step at 512², bs=1, S = {QWEN_TXT + 2 * gh * gw}, int8 "
+             "attention, remat flash", lambda: step(dit, lora, batch, gen)["loss"].item())
+    return tuple(totals)
+
+
 # kernel-name fragments → the groups of the step profiles
 PROFILE_GROUPS = [("K5a rq_int4_fwd", ("rq_int4_fwd",)), ("K5b rq_int4_bwd", ("rq_int4_bwd",)),
                   ("K1 flash_nr_fwd", ("flash_nr_fwd",)),
-                  ("K2 flash_nr_bwd", ("flash_nr_prep", "flash_nr_dkv", "flash_nr_dq")),
+                  ("K2 flash_nr_bwd", ("flash_nr_dkv", "flash_nr_dq")),
+                  ("K1/K2 prep", ("flash_nr_prep", "flash_nr_quant")),
                   ("cuBLAS GEMM/GEMV", ("gemm", "gemv", "nvjet", "cutlass", "sm90_")),
                   ("reductions", ("reduce",)), ("copies and casts", ("copy", "cast", "memcpy")),
                   ("elementwise", ("elementwise", "vectorized", "unrolled"))]
@@ -1070,7 +1443,10 @@ def main() -> int:
     k5_case = phase_rq_kernel(card)
     qwen, (k1_qwen, k5_qwen) = phase_qwen_predict(card)
     k5b_case = phase_rq_bwd_kernel(card)
-    k1_qt, k2_qt, k5_qt, k5b_qt = phase_qwen_train(card, qwen)
+    k1_qt, k2_qt, k5_qt, k5b_qt, _, _ = phase_qwen_train(card, qwen)
+    k1_int8_case, k2_int8_case = phase_kernel_int8(card)
+    k1_a, k5_a = phase_qwen512_predict(card, qwen)
+    _, _, k5_at, k5b_at, k1_at, k2_at = phase_qwen512_train(card, qwen)
 
     print(f"[smoke] wall time {time.perf_counter() - t_start:.1f} s (build included) [{card}]",
           flush=True)
@@ -1089,12 +1465,23 @@ def main() -> int:
         {"name": "rq_int4_fwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/rq_int4_fwd.cu",
          "replaces": "qflux_tpu/ops/int4_matmul.py:268",
-         "launches": k5_qwen + k5_qt,
-         "launches_by_path": {"qwen_predict": k5_qwen, "qwen_train": k5_qt}, **k5_case},
+         "launches": k5_qwen + k5_qt + k5_a + k5_at,
+         "launches_by_path": {"qwen_predict": k5_qwen, "qwen_train": k5_qt,
+                              "qwen512_predict": k5_a, "qwen512_train": k5_at}, **k5_case},
         {"name": "rq_int4_bwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/rq_int4_bwd.cu",
          "replaces": "qflux_tpu/ops/int4_matmul.py:286",
-         "launches": k5b_qt, "launches_by_path": {"qwen_train": k5b_qt}, **k5b_case},
+         "launches": k5b_qt + k5b_at,
+         "launches_by_path": {"qwen_train": k5b_qt, "qwen512_train": k5b_at}, **k5b_case},
+        {"name": "flash_nr_fwd s_int8", "route": "cuda",
+         "source": "qflux_tpu_torch/csrc/flash_nr_fwd.cu",
+         "replaces": "qflux_tpu/ops/flash_nr.py:192", "mode": "s_int8",
+         "launches": k1_a + k1_at,
+         "launches_by_path": {"qwen512_predict": k1_a, "qwen512_train": k1_at}, **k1_int8_case},
+        {"name": "flash_nr_bwd s_int8", "route": "cuda",
+         "source": "qflux_tpu_torch/csrc/flash_nr_bwd.cu",
+         "replaces": "qflux_tpu/ops/flash_nr.py:311", "mode": "s_int8",
+         "launches": k2_at, "launches_by_path": {"qwen512_train": k2_at}, **k2_int8_case},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

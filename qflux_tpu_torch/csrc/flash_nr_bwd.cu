@@ -43,16 +43,23 @@
 // per tile visit, at the price of writing qn / kn (2 x 15.7 MB at bs=1) once.  Tiles
 // are loaded synchronously: wgmma, TMA and pipelining are left for later work.
 //
+// The s_int8 mode (qflux_tpu/ops/flash_nr.py:332-335, 347-354) recomputes the scores
+// from int8 q and k, as the TPU kernel does: the prep (flash_nr_common.cuh) also
+// quantizes qn in tiles of q_rows rows (the TPU BACKWARD's tile, which at S = 2304 and
+// 2560 is 128 rows against the forward's 256, so p is not exactly the p behind lse; JAX
+// does the same) and kn per (b, h), and dkv / dq take s from mma.sync m16n8k32 s8
+// products of those; ds kn and ds^T qn stay bf16 on the normed copies (the gradient is
+// straight through the quantization).
+//
 // Layouts: q/k/v/out/do/dq/dk/dv/qn/kn are [B, S, H, D] bf16 (row stride H * D), lse
 // and delta [B, H, S] f32, scale pairs [2, D] f32, cos/sin [S, D] (batch stride 0) or
 // [B, S, D] f32, segment ids [B, S] int32 or null, the scale-gradient partials
 // [B, H, n_tiles, 2, D] f32 with n_tiles = qflux_flash_nr_bwd_tiles(S).
 
-#include "common.cuh"
+#include "flash_nr_common.cuh"
 
 namespace {
 
-constexpr int D = 128;
 constexpr int NW = 4;             // warps of a dkv / dq block
 constexpr int NT = NW * 32;
 constexpr int BR = 16 * NW;       // rows a dkv / dq block owns: 16 per warp
@@ -60,8 +67,7 @@ constexpr int BC_KV = 32;         // q rows streamed per step of the dkv loop
 constexpr int BC_Q = 64;          // keys streamed per step of the dq loop
 constexpr int LD = D + 8;         // bf16 row stride of the smem tiles: no bank conflicts
 constexpr int LDF = D + 4;        // f32 row stride of the epilogue staging
-constexpr int PREP_WARPS = 8;
-constexpr float EPS = 1e-6f;
+constexpr int LD8 = D + 16;       // byte row stride of the int8 tiles: no bank conflicts
 
 constexpr size_t DKV_SMEM = sizeof(bf16) * (2 * BR + 2 * BC_KV) * LD  // kn, v; qn, do tiles
                             + sizeof(float) * 3 * BC_KV;             // lse, delta, seg of q
@@ -71,47 +77,11 @@ constexpr size_t DQ_SMEM = sizeof(bf16) * (2 * BR + 2 * BC_Q) * LD    // qn, do;
 // two owned (dkv) tiles were
 static_assert(sizeof(float) * BR * LDF <= sizeof(bf16) * 2 * BR * LD, "dkv staging");
 static_assert(sizeof(float) * BR * LDF <= sizeof(bf16) * 2 * BC_Q * LD, "dq staging");
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// RMSNorm (scale row `s`, already offset to this lane's channels) then rotate-half
-// rope of one row; lane holds channels 4 * lane .. + 3.  The same operations in the
-// same order as K1's norm_rope_tile, so qn / kn are K1's values bit for bit.
-__device__ __forceinline__ void norm_rope_row(const bf16* __restrict__ x,
-                                              const float* __restrict__ s,
-                                              const float* __restrict__ cos,
-                                              const float* __restrict__ sin, int lane,
-                                              bf16* __restrict__ dst) {
-  const int c0 = lane * 4;
-  const uint2 raw = *reinterpret_cast<const uint2*>(x + c0);
-  const bf16* p = reinterpret_cast<const bf16*>(&raw);
-  const float4 c4 = *reinterpret_cast<const float4*>(cos + c0);
-  const float4 s4 = *reinterpret_cast<const float4*>(sin + c0);
-  const float cv[4] = {c4.x, c4.y, c4.z, c4.w}, sv[4] = {s4.x, s4.y, s4.z, s4.w};
-  float xv[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) xv[j] = __bfloat162float(p[j]);
-  float ss = 0.f;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) ss += xv[j] * xv[j];
-  ss = warp_sum(ss);
-  const float r = rsqrtf(ss / (float)D + EPS);
-  float us[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) us[j] = bf16_round(__fmul_rn(__fmul_rn(xv[j], r), s[j]));
-  __align__(8) bf16 y[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float partner = __shfl_xor_sync(0xffffffffu, us[j], 16);
-    const float rot = lane < 16 ? -partner : partner;
-    y[j] = __float2bfloat16(__fadd_rn(__fmul_rn(us[j], cv[j]), __fmul_rn(rot, sv[j])));
-  }
-  *reinterpret_cast<uint2*>(dst + c0) = *reinterpret_cast<const uint2*>(y);
-}
+// the s_int8 mode adds int8 tiles after those: dkv the block's keys and the streamed q
+// rows, dq the block's q rows and the streamed keys
+constexpr size_t DKV_SMEM_INT8 = DKV_SMEM + (BR + BC_KV) * LD8;
+constexpr size_t DQ_SMEM_INT8 = DQ_SMEM + (BR + BC_Q) * LD8;
+static_assert(DKV_SMEM % 16 == 0 && DQ_SMEM % 16 == 0, "int8 tiles are 16-byte aligned");
 
 // Rope transpose and RMSNorm backward of one row, all in f32 (the cast rounding of
 // the forward is not part of the gradient chain, as in _rope_bwd / _norm_bwd):
@@ -178,6 +148,66 @@ __device__ __forceinline__ void load_tile(bf16* __restrict__ dst, const bf16* __
   }
 }
 
+// the same for an int8 tile (row stride LD8 bytes)
+template <int ROWS>
+__device__ __forceinline__ void load_tile8(int8_t* __restrict__ dst,
+                                           const int8_t* __restrict__ src, int rs, int row0,
+                                           int S) {
+  constexpr int ITERS = ROWS * (D / 16) / NT;
+#pragma unroll
+  for (int j = 0; j < ITERS; ++j) {
+    const int i = threadIdx.x + j * NT;
+    const int r = i / (D / 16), c = (i % (D / 16)) * 16;
+    const int row = row0 + r;
+    *reinterpret_cast<uint4*>(dst + r * LD8 + c) =
+        row < S ? *reinterpret_cast<const uint4*>(src + (size_t)row * rs + c)
+                : make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// the m16n8k32 s8 A fragment of 16 rows of an int8 tile (row stride LD8), channels
+// 32 kk .. 32 kk + 31; the B fragment of 8 rows (the columns) is its first and third
+// registers at the first row
+__device__ __forceinline__ void frag8(uint32_t (&a)[4], const int8_t* tile, int row0, int kk) {
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const int8_t* r0 = tile + (row0 + g) * LD8 + kk * 32 + 4 * t;
+  a[0] = *reinterpret_cast<const uint32_t*>(r0);
+  a[1] = *reinterpret_cast<const uint32_t*>(r0 + 8 * LD8);
+  a[2] = *reinterpret_cast<const uint32_t*>(r0 + 16);
+  a[3] = *reinterpret_cast<const uint32_t*>(r0 + 8 * LD8 + 16);
+}
+
+// the s_int8 scores of 16 rows (A fragments `a`, one per 32 channels) against the
+// N rows of an int8 tile, as f32(sum) * factor (exact int32 sums: |sum| < 2^24)
+template <int N>
+__device__ __forceinline__ void scores8(float (&s)[N / 8][4], const uint32_t (&a)[D / 32][4],
+                                        const int8_t* tile, float factor) {
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  int acc[N / 8][4];
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0;
+#pragma unroll
+  for (int kk = 0; kk < D / 32; ++kk) {
+#pragma unroll
+    for (int n = 0; n < N / 8; ++n) {
+      const int8_t* r = tile + (n * 8 + g) * LD8 + kk * 32 + 4 * t;
+      mma_s8(acc[n], a[kk], *reinterpret_cast<const uint32_t*>(r),
+             *reinterpret_cast<const uint32_t*>(r + 16));
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[n][c] = __fmul_rn(__int2float_rn(acc[n][c]), factor);
+}
+
+// (q tile scale * k scale) * scale of the int8 scores, q rows in q tile `qt`
+__device__ __forceinline__ float int8_factor(const unsigned* amax, int b, int h, int H, int S,
+                                             int q_rows, int qt, float scale) {
+  const unsigned* am = amax + ((size_t)b * H + h) * (1 + (S + q_rows - 1) / q_rows);
+  return __fmul_rn(__fmul_rn(int8_scale(am[1 + qt]), int8_scale(am[0])), scale);
+}
+
 // The shared epilogue of dkv and dq: this warp's 16 rows of f32 gradient w.r.t. the
 // normed + roped rows, in the accumulators `acc`, go through smem `stage` (16 x LDF
 // floats of its own) to the row-wise rope + norm backward; dx rows land in `dx`, and
@@ -229,40 +259,18 @@ __device__ __forceinline__ void finish_rows(const float (&acc)[D / 8][4], float*
   }
 }
 
-__global__ void __launch_bounds__(PREP_WARPS * 32)
-flash_nr_prep_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ dout, const bf16* __restrict__ out,
-                     const float* __restrict__ q_scale2, const float* __restrict__ k_scale2,
-                     const float* __restrict__ cos, const float* __restrict__ sin,
-                     long long cs_bstride, bf16* __restrict__ qn, bf16* __restrict__ kn,
-                     float* __restrict__ delta, int rows, int S, int H, int st) {
-  const int row = blockIdx.x * PREP_WARPS + threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (row >= rows) return;  // warp-uniform
-  // row = (b * S + s) * H + h: [B, S, H, D] rows are contiguous D-vectors
-  const int h = row % H, s = (row / H) % S, b = row / (H * S);
-  const size_t off = (size_t)row * D;
-  const float* cb = cos + (size_t)b * cs_bstride + (size_t)s * D;
-  const float* sb = sin + (size_t)b * cs_bstride + (size_t)s * D;
-  const int side = s < st ? 0 : D;
-  norm_rope_row(q + off, q_scale2 + side + lane * 4, cb, sb, lane, qn + off);
-  norm_rope_row(k + off, k_scale2 + side + lane * 4, cb, sb, lane, kn + off);
-  const uint2 draw = *reinterpret_cast<const uint2*>(dout + off + lane * 4);
-  const uint2 oraw = *reinterpret_cast<const uint2*>(out + off + lane * 4);
-  const bf16* dp = reinterpret_cast<const bf16*>(&draw);
-  const bf16* op = reinterpret_cast<const bf16*>(&oraw);
-  float acc = 0.f;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) acc += __bfloat162float(dp[j]) * __bfloat162float(op[j]);
-  acc = warp_sum(acc);
-  if (lane == 0) delta[((size_t)b * H + h) * S + s] = acc;
-}
-
 // dk / dv: block = 64 keys of one (b, h); warp w owns keys 16w .. 16w+15.  Per step of
 // BC_KV q rows: s^T = kn qn^T and dp^T = v do^T (A = this warp's kn / v rows, B = the
 // qn / do tile), then p^T and ds^T in registers, then dv += p^T do and dkn += ds^T qn
-// (A = the accumulators, B = the tiles transposed by ldmatrix).
+// (A = the accumulators, B = the tiles transposed by ldmatrix).  INT8: s^T comes from
+// the int8 kq rows (A, held in registers for the whole loop) and the streamed int8 qq
+// tile, whose q rows lie in one quantization tile of q_rows rows; dkn += ds^T qn stays
+// on the bf16 normed qn, as in the TPU kernel.
+template <bool INT8>
 __global__ void __launch_bounds__(NT)
 flash_nr_dkv_kernel(const bf16* __restrict__ qn, const bf16* __restrict__ kn,
+                    const int8_t* __restrict__ qq, const int8_t* __restrict__ kq,
+                    const unsigned* __restrict__ amax, int q_rows,
                     const bf16* __restrict__ k, const bf16* __restrict__ v,
                     const bf16* __restrict__ dout, const float* __restrict__ lse,
                     const float* __restrict__ delta, const float* __restrict__ k_scale2,
@@ -278,6 +286,8 @@ flash_nr_dkv_kernel(const bf16* __restrict__ qn, const bf16* __restrict__ kn,
   float* lse_s = reinterpret_cast<float*>(Ds + BC_KV * LD);
   float* del_s = lse_s + BC_KV;
   int* segq_s = reinterpret_cast<int*>(del_s + BC_KV);
+  int8_t* K8 = reinterpret_cast<int8_t*>(smem + DKV_SMEM);  // INT8: [BR][LD8]
+  int8_t* Q8 = K8 + BR * LD8;                                 // INT8: [BC_KV][LD8]
 
   const int h = blockIdx.y, b = blockIdx.z;
   const int k0 = blockIdx.x * BR;
@@ -290,7 +300,11 @@ flash_nr_dkv_kernel(const bf16* __restrict__ qn, const bf16* __restrict__ kn,
   const int* segb = seg ? seg + (size_t)b * S : nullptr;
   const int wrow = warp * 16;
 
-  load_tile<BR>(Ks, kn + head_off, rs, k0, S);
+  if constexpr (INT8) {
+    load_tile8<BR>(K8, kq + head_off, rs, k0, S);
+  } else {
+    load_tile<BR>(Ks, kn + head_off, rs, k0, S);
+  }
   load_tile<BR>(Vs, v + head_off, rs, k0, S);
   // one validity rule: rows past S carry segment 0; without ids every real token is 1
   int segk[2];
@@ -305,12 +319,19 @@ flash_nr_dkv_kernel(const bf16* __restrict__ qn, const bf16* __restrict__ kn,
   for (int n = 0; n < D / 8; ++n)
 #pragma unroll
     for (int c = 0; c < 4; ++c) dva[n][c] = dka[n][c] = 0.f;
+  uint32_t ka8[INT8 ? D / 32 : 1][4];  // INT8: this warp's 16 int8 keys as A fragments
+  if constexpr (INT8) {
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < D / 32; ++kk) frag8(ka8[kk], K8, wrow, kk);
+  }
 
 #pragma unroll 1
   for (int q0 = 0; q0 < S; q0 += BC_KV) {
     __syncthreads();  // every warp is done with the previous tile
     load_tile<BC_KV>(Qs, qn + head_off, rs, q0, S);
     load_tile<BC_KV>(Ds, dout + head_off, rs, q0, S);
+    if constexpr (INT8) load_tile8<BC_KV>(Q8, qq + head_off, rs, q0, S);
     if (tid < BC_KV) {
       const int row = q0 + tid;
       const bool in = row < S;
@@ -329,21 +350,25 @@ flash_nr_dkv_kernel(const bf16* __restrict__ qn, const bf16* __restrict__ kn,
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       uint32_t ka[4], va[4];
-      ldsm_x4(ka, Ks + (wrow + (lane % 16)) * LD + kk * 16 + (lane / 16) * 8);
+      if constexpr (!INT8) ldsm_x4(ka, Ks + (wrow + (lane % 16)) * LD + kk * 16 + (lane / 16) * 8);
       ldsm_x4(va, Vs + (wrow + (lane % 16)) * LD + kk * 16 + (lane / 16) * 8);
 #pragma unroll
       for (int np = 0; np < BC_KV / 16; ++np) {
         // matrices: q rows +0/+8 (lane / 16) x channels +0/+8 ((lane / 8) % 2)
         const int off = (np * 16 + (lane / 16) * 8 + (lane % 8)) * LD + kk * 16 + ((lane / 8) % 2) * 8;
         uint32_t qb[4], db[4];
-        ldsm_x4(qb, Qs + off);
-        mma_bf16(sT[2 * np], ka, qb[0], qb[1]);
-        mma_bf16(sT[2 * np + 1], ka, qb[2], qb[3]);
+        if constexpr (!INT8) {
+          ldsm_x4(qb, Qs + off);
+          mma_bf16(sT[2 * np], ka, qb[0], qb[1]);
+          mma_bf16(sT[2 * np + 1], ka, qb[2], qb[3]);
+        }
         ldsm_x4(db, Ds + off);
         mma_bf16(dpT[2 * np], va, db[0], db[1]);
         mma_bf16(dpT[2 * np + 1], va, db[2], db[3]);
       }
     }
+    if constexpr (INT8)  // scaled here; the bf16 scores are scaled below
+      scores8<BC_KV>(sT, ka8, Q8, int8_factor(amax, b, h, H, S, q_rows, q0 / q_rows, scale));
 
     // element c of tile n: key row g + 8 * (c / 2), q column 8n + 2t + c % 2.  The mask
     // picks p = 0 before exp is used, so a padded row's lse = -1e30 never matters.
@@ -353,7 +378,8 @@ flash_nr_dkv_kernel(const bf16* __restrict__ qn, const bf16* __restrict__ kn,
       for (int c = 0; c < 4; ++c) {
         const int i = c / 2, j = 8 * n + 2 * t + (c & 1);
         const bool ok = segk[i] != 0 && segq_s[j] == segk[i];
-        const float p = ok ? __expf(sT[n][c] * scale - lse_s[j]) : 0.f;
+        const float sv = INT8 ? sT[n][c] : sT[n][c] * scale;
+        const float p = ok ? __expf(sv - lse_s[j]) : 0.f;
         sT[n][c] = p;
         dpT[n][c] = p * (dpT[n][c] - del_s[j]) * scale;
       }
@@ -407,9 +433,14 @@ flash_nr_dkv_kernel(const bf16* __restrict__ qn, const bf16* __restrict__ kn,
 
 // dq: block = 64 q rows of one (b, h); warp w owns rows 16w .. 16w+15 and holds their
 // normed q as A fragments.  Per step of BC_Q keys: s = qn kn^T and dp = do v^T, p and
-// ds in registers, then dqn += ds kn (B = the kn tile transposed by ldmatrix).
+// ds in registers, then dqn += ds kn (B = the kn tile transposed by ldmatrix).  INT8:
+// s comes from the block's int8 qq rows (A fragments; the block's 64 rows lie in one
+// quantization tile) and the streamed int8 kq tile; dqn += ds kn stays on the bf16 kn.
+template <bool INT8>
 __global__ void __launch_bounds__(NT)
 flash_nr_dq_kernel(const bf16* __restrict__ qn, const bf16* __restrict__ kn,
+                   const int8_t* __restrict__ qq, const int8_t* __restrict__ kq,
+                   const unsigned* __restrict__ amax, int q_rows,
                    const bf16* __restrict__ q, const bf16* __restrict__ v,
                    const bf16* __restrict__ dout, const float* __restrict__ lse,
                    const float* __restrict__ delta, const float* __restrict__ q_scale2,
@@ -422,6 +453,8 @@ flash_nr_dq_kernel(const bf16* __restrict__ qn, const bf16* __restrict__ kn,
   bf16* Ks = Ds + BR * LD;                   // [BC_Q][LD] normed key tile
   bf16* Vs = Ks + BC_Q * LD;                 // [BC_Q][LD]
   int* segk_s = reinterpret_cast<int*>(Vs + BC_Q * LD);
+  int8_t* Q8 = reinterpret_cast<int8_t*>(smem + DQ_SMEM);  // INT8: [BR][LD8]
+  int8_t* K8 = Q8 + BR * LD8;                                // INT8: [BC_Q][LD8]
 
   const int h = blockIdx.y, b = blockIdx.z;
   const int q0 = blockIdx.x * BR;
@@ -432,7 +465,11 @@ flash_nr_dq_kernel(const bf16* __restrict__ qn, const bf16* __restrict__ kn,
   const int* segb = seg ? seg + (size_t)b * S : nullptr;
   const int wrow = warp * 16;
 
-  load_tile<BR>(Qs, qn + head_off, rs, q0, S);
+  if constexpr (INT8) {
+    load_tile8<BR>(Q8, qq + head_off, rs, q0, S);
+  } else {
+    load_tile<BR>(Qs, qn + head_off, rs, q0, S);
+  }
   load_tile<BR>(Ds, dout + head_off, rs, q0, S);
   float lse_r[2], del_r[2];
   int segq[2];
@@ -445,10 +482,17 @@ flash_nr_dq_kernel(const bf16* __restrict__ qn, const bf16* __restrict__ kn,
     segq[i] = in ? (segb ? segb[row] : 1) : 0;
   }
   __syncthreads();
-  uint32_t qf[D / 16][4];
+  // this warp's q rows as A fragments: bf16 qn, or INT8 int8 qq
+  uint32_t qf[INT8 ? D / 32 : D / 16][4];
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    ldsm_x4(qf[kk], Qs + (wrow + (lane % 16)) * LD + kk * 16 + (lane / 16) * 8);
+  for (int kk = 0; kk < (INT8 ? D / 32 : D / 16); ++kk) {
+    if constexpr (INT8) {
+      frag8(qf[kk], Q8, wrow, kk);
+    } else {
+      ldsm_x4(qf[kk], Qs + (wrow + (lane % 16)) * LD + kk * 16 + (lane / 16) * 8);
+    }
+  }
+  const float factor = INT8 ? int8_factor(amax, b, h, H, S, q_rows, q0 / q_rows, scale) : scale;
 
   float dqa[D / 8][4];
 #pragma unroll
@@ -461,6 +505,7 @@ flash_nr_dq_kernel(const bf16* __restrict__ qn, const bf16* __restrict__ kn,
     __syncthreads();  // every warp is done with the previous tile
     load_tile<BC_Q>(Ks, kn + head_off, rs, k0, S);
     load_tile<BC_Q>(Vs, v + head_off, rs, k0, S);
+    if constexpr (INT8) load_tile8<BC_Q>(K8, kq + head_off, rs, k0, S);
     if (tid < BC_Q) {
       const int row = k0 + tid;
       segk_s[tid] = row < S ? (segb ? segb[row] : 1) : 0;
@@ -481,14 +526,17 @@ flash_nr_dq_kernel(const bf16* __restrict__ qn, const bf16* __restrict__ kn,
         // matrices: keys +0/+8 (lane / 16) x channels +0/+8 ((lane / 8) % 2)
         const int off = (np * 16 + (lane / 16) * 8 + (lane % 8)) * LD + kk * 16 + ((lane / 8) % 2) * 8;
         uint32_t kb[4], vb[4];
-        ldsm_x4(kb, Ks + off);
-        mma_bf16(s[2 * np], qf[kk], kb[0], kb[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], kb[2], kb[3]);
+        if constexpr (!INT8) {
+          ldsm_x4(kb, Ks + off);
+          mma_bf16(s[2 * np], qf[kk], kb[0], kb[1]);
+          mma_bf16(s[2 * np + 1], qf[kk], kb[2], kb[3]);
+        }
         ldsm_x4(vb, Vs + off);
         mma_bf16(dp[2 * np], da, vb[0], vb[1]);
         mma_bf16(dp[2 * np + 1], da, vb[2], vb[3]);
       }
     }
+    if constexpr (INT8) scores8<BC_Q>(s, qf, K8, factor);  // already scaled
 
     // element c of tile n: q row g + 8 * (c / 2), key column 8n + 2t + c % 2; s becomes ds
 #pragma unroll
@@ -497,7 +545,8 @@ flash_nr_dq_kernel(const bf16* __restrict__ qn, const bf16* __restrict__ kn,
       for (int c = 0; c < 4; ++c) {
         const int i = c / 2, j = 8 * n + 2 * t + (c & 1);
         const bool ok = segq[i] != 0 && segk_s[j] == segq[i];
-        const float p = ok ? __expf(s[n][c] * scale - lse_r[i]) : 0.f;
+        const float sv = INT8 ? s[n][c] : s[n][c] * factor;
+        const float p = ok ? __expf(sv - lse_r[i]) : 0.f;
         s[n][c] = p * (dp[n][c] - del_r[i]) * scale;
       }
     }
@@ -534,50 +583,84 @@ flash_nr_dq_kernel(const bf16* __restrict__ qn, const bf16* __restrict__ kn,
 
 extern "C" int qflux_flash_nr_bwd_tiles(int S) { return (S + BR - 1) / BR; }
 
+namespace {
+
+template <bool INT8>
+int launch_bwd(const bf16* qb, const bf16* kb, const bf16* vb, const float* qs, const float* ks,
+               const float* cs, const float* sn, long long cs_bstride, const int* sg,
+               const bf16* ob, const float* ls, const bf16* db, bf16* qnb, bf16* knb, float* dl,
+               int8_t* qq, int8_t* kq, unsigned* amax, int q_rows, bf16* dq, bf16* dk, bf16* dv,
+               float* dqs_part, float* dks_part, int B, int S, int H, int st, float scale,
+               cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(flash_nr_dkv_kernel<INT8>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)(INT8 ? DKV_SMEM_INT8 : DKV_SMEM));
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(flash_nr_dq_kernel<INT8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)(INT8 ? DQ_SMEM_INT8 : DQ_SMEM));
+  if (err != cudaSuccess) return (int)err;
+  if constexpr (INT8) {
+    err = launch_int8_prep(qb, kb, db, ob, qs, ks, cs, sn, cs_bstride, qnb, knb, dl, qq, kq, amax,
+                           q_rows, B, S, H, st, stream);
+  } else {
+    const int rows = B * S * H;
+    flash_nr_prep_kernel<<<(rows + PREP_WARPS - 1) / PREP_WARPS, PREP_WARPS * 32, 0, stream>>>(
+        qb, kb, db, ob, qs, ks, cs, sn, cs_bstride, qnb, knb, dl, nullptr, 1, rows, S, H, st);
+    err = cudaGetLastError();
+  }
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((S + BR - 1) / BR, H, B);
+  flash_nr_dkv_kernel<INT8><<<grid, NT, INT8 ? DKV_SMEM_INT8 : DKV_SMEM, stream>>>(
+      qnb, knb, qq, kq, amax, q_rows, kb, vb, db, ls, dl, ks, cs, sn, cs_bstride, sg, dk, dv,
+      dks_part, S, H, st, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_nr_dq_kernel<INT8><<<grid, NT, INT8 ? DQ_SMEM_INT8 : DQ_SMEM, stream>>>(
+      qnb, knb, qq, kq, amax, q_rows, qb, vb, db, ls, dl, qs, cs, sn, cs_bstride, sg, dq,
+      dqs_part, S, H, st, scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// q_rows = 0: the bf16 kernel.  q_rows > 0 (a multiple of 64): the s_int8 mode, whose
+// scores are recomputed from q quantized in tiles of q_rows rows (the TPU backward's
+// tile, which need not be the forward's) and k quantized per (b, h); qq / kq [B, S, H, D]
+// int8 and amax [B, H, 1 + ceil(S / q_rows)] u32 are scratch, unused (may be null) at 0.
 extern "C" int qflux_flash_nr_bwd(const void* q, const void* k, const void* v,
                                   const void* q_scale2, const void* k_scale2, const void* cos,
                                   const void* sin, long long cs_bstride, const void* seg,
                                   const void* out, const void* lse, const void* dout, void* qn,
-                                  void* kn, void* delta, void* dq, void* dk, void* dv,
-                                  void* dqs_part, void* dks_part, int B, int S, int H, int st,
-                                  float scale, void* stream) {
-  cudaStream_t st_ = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(flash_nr_dkv_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)DKV_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_nr_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)DQ_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const bf16* qb = static_cast<const bf16*>(q);
-  const bf16* kb = static_cast<const bf16*>(k);
-  const bf16* vb = static_cast<const bf16*>(v);
-  const bf16* db = static_cast<const bf16*>(dout);
-  const float* qs = static_cast<const float*>(q_scale2);
-  const float* ks = static_cast<const float*>(k_scale2);
-  const float* cs = static_cast<const float*>(cos);
-  const float* sn = static_cast<const float*>(sin);
-  const int* sg = static_cast<const int*>(seg);
-  const float* ls = static_cast<const float*>(lse);
-  bf16* qnb = static_cast<bf16*>(qn);
-  bf16* knb = static_cast<bf16*>(kn);
-  float* dl = static_cast<float*>(delta);
+                                  void* kn, void* delta, void* qq, void* kq, void* amax,
+                                  int q_rows, void* dq, void* dk, void* dv, void* dqs_part,
+                                  void* dks_part, int B, int S, int H, int st, float scale,
+                                  void* stream) {
+  if (q_rows < 0 || q_rows % BR) return (int)cudaErrorInvalidValue;
+  auto* fn = q_rows ? launch_bwd<true> : launch_bwd<false>;
+  return fn(static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+            static_cast<const float*>(q_scale2), static_cast<const float*>(k_scale2),
+            static_cast<const float*>(cos), static_cast<const float*>(sin), cs_bstride,
+            static_cast<const int*>(seg), static_cast<const bf16*>(out),
+            static_cast<const float*>(lse), static_cast<const bf16*>(dout),
+            static_cast<bf16*>(qn), static_cast<bf16*>(kn), static_cast<float*>(delta),
+            static_cast<int8_t*>(qq), static_cast<int8_t*>(kq), static_cast<unsigned*>(amax),
+            q_rows, static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+            static_cast<float*>(dqs_part), static_cast<float*>(dks_part), B, S, H, st, scale,
+            static_cast<cudaStream_t>(stream));
+}
 
-  const int rows = B * S * H;
-  flash_nr_prep_kernel<<<(rows + PREP_WARPS - 1) / PREP_WARPS, PREP_WARPS * 32, 0, st_>>>(
-      qb, kb, db, static_cast<const bf16*>(out), qs, ks, cs, sn, cs_bstride, qnb, knb, dl, rows,
-      S, H, st);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + BR - 1) / BR, H, B);
-  flash_nr_dkv_kernel<<<grid, NT, DKV_SMEM, st_>>>(qnb, knb, kb, vb, db, ls, dl, ks, cs, sn,
-                                                   cs_bstride, sg, static_cast<bf16*>(dk),
-                                                   static_cast<bf16*>(dv),
-                                                   static_cast<float*>(dks_part), S, H, st, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  flash_nr_dq_kernel<<<grid, NT, DQ_SMEM, st_>>>(qnb, knb, qb, vb, db, ls, dl, qs, cs, sn,
-                                                 cs_bstride, sg, static_cast<bf16*>(dq),
-                                                 static_cast<float*>(dqs_part), S, H, st, scale);
-  return (int)cudaGetLastError();
+// The s_int8 prep alone (for tests): qn / kn bf16, qq / kq int8 [B, S, H, D] and amax
+// [B, H, 1 + ceil(S / q_rows)] as the backward computes them.
+extern "C" int qflux_flash_nr_int8_prep(const void* q, const void* k, const void* q_scale2,
+                                        const void* k_scale2, const void* cos, const void* sin,
+                                        long long cs_bstride, void* qn, void* kn, void* qq,
+                                        void* kq, void* amax, int B, int S, int H, int st,
+                                        int q_rows, void* stream) {
+  return (int)launch_int8_prep(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), nullptr, nullptr,
+      static_cast<const float*>(q_scale2), static_cast<const float*>(k_scale2),
+      static_cast<const float*>(cos), static_cast<const float*>(sin), cs_bstride,
+      static_cast<bf16*>(qn), static_cast<bf16*>(kn), nullptr, static_cast<int8_t*>(qq),
+      static_cast<int8_t*>(kq), static_cast<unsigned*>(amax), q_rows, B, S, H, st,
+      static_cast<cudaStream_t>(stream));
 }

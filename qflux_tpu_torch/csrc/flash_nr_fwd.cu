@@ -37,26 +37,36 @@
 // prologue and the softmax do not overlap the MMAs at one 256-thread block
 // per SM.  wgmma, TMA and warp specialisation are left for later work.
 //
+// The s_int8 mode (qflux_tpu/ops/flash_nr.py:209-225, config quantize.attention)
+// computes QK^T as int8 x int8 with one scale per q tile of q_rows rows and one per
+// (b, h) for K, as the TPU kernel does.  A prep launch (flash_nr_common.cuh) norms and
+// ropes K, reduces the scales' amaxes and writes the int8 K; the main kernel then
+// streams int8 K tiles instead of norming K per tile, and its QK^T runs as
+// mma.sync m16n8k32 s8 on half as many instructions.  The bound at S = 2304, H = 24:
+// 32.6 G int8 operations at 1,979 TOP/s plus 32.6 GFLOP of PV at 989 TFLOP/s, 0.049 ms.
+//
 // q/k/v/out are [B, S, H, D] bf16 (the projection layout: head h of row s at
 // offset (s * H + h) * D, no transpose copies), lse is [B, H, S] f32, scale
 // pairs [2, D] f32, cos/sin [S, D] (batch stride 0) or [B, S, D] f32, and the
 // optional segment ids [B, S] int32.
 
-#include "common.cuh"
+#include "flash_nr_common.cuh"
 
 namespace {
 
-constexpr int D = 128;
 constexpr int NWARPS = 8;
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int BQ = 16 * NWARPS;  // q rows of a block: 16 per warp
 constexpr int BK = 64;           // keys of a K/V tile
 constexpr int LD = D + 8;  // bf16 row stride of the q/k/v tiles: 16-byte rows, no bank conflicts
+constexpr int LD8 = D + 16;  // byte row stride of the int8 q/k tiles: 16-byte rows, no bank conflicts
 constexpr float NEG_INF = -1e30f;
-constexpr float EPS = 1e-6f;
 
 constexpr size_t SMEM_BYTES = sizeof(bf16) * (BQ + 4 * BK) * LD  // q tile, 2 x (k, v) tiles
                               + sizeof(int) * 2 * BK;            // 2 x key segment ids
+// the s_int8 mode adds the int8 q tile; its two int8 k tiles take the place of the bf16 ones
+constexpr size_t SMEM_BYTES_INT8 = SMEM_BYTES + BQ * LD8;
+static_assert(2 * BK * LD8 <= sizeof(bf16) * 2 * BK * LD, "int8 k tiles");
 
 // Norm + rope of the ROWS rows [row0, row0 + ROWS) of one head into a bf16
 // smem tile (rows past S become 0).  Warp w takes rows [w, w + 1) * ROWS /
@@ -125,18 +135,31 @@ __device__ __forceinline__ void norm_rope_tile(const bf16* __restrict__ x, int r
 // With the mma fragment layout (common.cuh) this thread owns rows g and g+8
 // of its warp's 16, two columns of each 8-column tile, and a row's four
 // owners are lanes 4g .. 4g+3.
+//
+// INT8 (the s_int8 mode): the prep (flash_nr_common.cuh) has written the int8 k
+// `kq` ([B, S, H, D], one scale per (b, h)) and the largest |qn| of each q tile of
+// `q_rows` rows into `amax`.  A block's 128 rows lie inside one such tile (tiles are
+// 128 or 256 rows from row 0), so it quantizes its normed q with that tile's scale,
+// streams int8 k tiles instead of norming and roping k, and takes the scores as
+//   s = f32(qq kq^T) * ((q_scale * k_scale) * scale)
+// with mma.sync m16n8k32 s8 x s8 -> s32 (exact: |sum| <= 127^2 * 128 < 2^24, so the
+// f32 conversion is too).  From there on it is the bf16 path.
+template <bool INT8>
 __global__ void __launch_bounds__(NTHREADS, 1)
 flash_nr_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const float* __restrict__ q_scale2,
                     const float* __restrict__ k_scale2, const float* __restrict__ cos,
                     const float* __restrict__ sin, long long cs_bstride,
-                    const int* __restrict__ seg, bf16* __restrict__ out,
+                    const int* __restrict__ seg, const int8_t* __restrict__ kq,
+                    const unsigned* __restrict__ amax, int q_rows, bf16* __restrict__ out,
                     float* __restrict__ lse, int S, int H, int st, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Kb = Qs + BQ * LD;                               // [2][BK][LD]
   bf16* Vb = Kb + 2 * BK * LD;                           // [2][BK][LD]
   int* segk = reinterpret_cast<int*>(Vb + 2 * BK * LD);  // [2][BK]
+  int8_t* K8 = reinterpret_cast<int8_t*>(Kb);            // INT8: [2][BK][LD8] over Kb
+  int8_t* Q8 = reinterpret_cast<int8_t*>(segk + 2 * BK);  // INT8: [BQ][LD8]
 
   const int h = blockIdx.y, b = blockIdx.z;
   const int q0 = blockIdx.x * BQ;
@@ -162,7 +185,21 @@ flash_nr_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       vr[j] = row < S ? *reinterpret_cast<const uint4*>(v + head_off + (size_t)row * row_stride + c)
                       : make_uint4(0u, 0u, 0u, 0u);
     }
-    norm_rope_tile<BK>(k + head_off, row_stride, k0, S, k_scale2, cb, sb, st, Kb + buf * BK * LD);
+    if constexpr (INT8) {
+      constexpr int KITER = BK * (D / 16) / NTHREADS;  // 16-byte chunks of the int8 tile
+#pragma unroll
+      for (int j = 0; j < KITER; ++j) {
+        const int i = tid + j * NTHREADS;
+        const int r = i / (D / 16), c = (i % (D / 16)) * 16;
+        const int row = k0 + r;
+        *reinterpret_cast<uint4*>(K8 + (buf * BK + r) * LD8 + c) =
+            row < S ? *reinterpret_cast<const uint4*>(kq + head_off + (size_t)row * row_stride + c)
+                    : make_uint4(0u, 0u, 0u, 0u);
+      }
+    } else {
+      norm_rope_tile<BK>(k + head_off, row_stride, k0, S, k_scale2, cb, sb, st,
+                         Kb + buf * BK * LD);
+    }
 #pragma unroll
     for (int j = 0; j < VITER; ++j) {
       const int i = tid + j * NTHREADS;
@@ -176,13 +213,34 @@ flash_nr_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   norm_rope_tile<BQ>(q + head_off, row_stride, q0, S, q_scale2, cb, sb, st, Qs);
   fill(0, 0);
+  float factor = scale;  // INT8: (q_scale * k_scale) * scale, in that order
+  if constexpr (INT8) {
+    // norm_rope_tile gave this warp rows wrow .. wrow+15 and this lane their
+    // channels 4 lane .. 4 lane + 3: it quantizes what it wrote itself
+    const unsigned* am = amax + ((size_t)b * H + h) * (1 + (S + q_rows - 1) / q_rows);
+    const float qsc = int8_scale(am[1 + q0 / q_rows]);
+    factor = __fmul_rn(__fmul_rn(qsc, int8_scale(am[0])), scale);
+#pragma unroll 4
+    for (int r = 0; r < 16; ++r)
+      quant4(Qs + (wrow + r) * LD + lane * 4, qsc, Q8 + (wrow + r) * LD8 + lane * 4);
+  }
   __syncthreads();
 
-  // this warp's 16 normed q rows as A fragments, one per 16-channel slice
-  uint32_t qf[D / 16][4];
+  // this warp's 16 normed q rows as A fragments: bf16, one per 16-channel slice,
+  // or INT8 int8, one per 32-channel slice
+  uint32_t qf[INT8 ? D / 32 : D / 16][4];
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    ldsm_x4(qf[kk], Qs + (wrow + (lane % 16)) * LD + kk * 16 + (lane / 16) * 8);
+  for (int kk = 0; kk < (INT8 ? D / 32 : D / 16); ++kk) {
+    if constexpr (INT8) {
+      const int8_t* r0 = Q8 + (wrow + g) * LD8 + kk * 32 + 4 * t;
+      qf[kk][0] = *reinterpret_cast<const uint32_t*>(r0);
+      qf[kk][1] = *reinterpret_cast<const uint32_t*>(r0 + 8 * LD8);
+      qf[kk][2] = *reinterpret_cast<const uint32_t*>(r0 + 16);
+      qf[kk][3] = *reinterpret_cast<const uint32_t*>(r0 + 8 * LD8 + 16);
+    } else {
+      ldsm_x4(qf[kk], Qs + (wrow + (lane % 16)) * LD + kk * 16 + (lane / 16) * 8);
+    }
+  }
 
   int segq[2];
 #pragma unroll
@@ -207,18 +265,40 @@ flash_nr_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     // scores of this warp's 16 rows against the 64 keys: s[n] is keys 8n .. 8n+7
     float s[BK / 8][4];
+    if constexpr (INT8) {
+      // B fragments straight from the [key][channel] int8 tile: keys are the
+      // columns and each holds its channels contiguously, as .col wants
+      const int8_t* K8s = K8 + cur * BK * LD8;
+      int si[BK / 8][4];
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      for (int n = 0; n < BK / 8; ++n) si[n][0] = si[n][1] = si[n][2] = si[n][3] = 0;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < D / 32; ++kk) {
 #pragma unroll
-      for (int np = 0; np < BK / 16; ++np) {
-        // matrices: keys +0/+8 (lane / 16) x channels +0/+8 ((lane / 8) % 2)
-        uint32_t kb[4];
-        ldsm_x4(kb, Ks + (np * 16 + (lane / 16) * 8 + (lane % 8)) * LD + kk * 16 +
-                        ((lane / 8) % 2) * 8);
-        mma_bf16(s[2 * np], qf[kk], kb[0], kb[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], kb[2], kb[3]);
+        for (int n = 0; n < BK / 8; ++n) {
+          const int8_t* kr = K8s + (n * 8 + g) * LD8 + kk * 32 + 4 * t;
+          mma_s8(si[n], qf[kk], *reinterpret_cast<const uint32_t*>(kr),
+                 *reinterpret_cast<const uint32_t*>(kr + 16));
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[n][c] = __int2float_rn(si[n][c]);
+    } else {
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+        for (int np = 0; np < BK / 16; ++np) {
+          // matrices: keys +0/+8 (lane / 16) x channels +0/+8 ((lane / 8) % 2)
+          uint32_t kb[4];
+          ldsm_x4(kb, Ks + (np * 16 + (lane / 16) * 8 + (lane % 8)) * LD + kk * 16 +
+                          ((lane / 8) % 2) * 8);
+          mma_bf16(s[2 * np], qf[kk], kb[0], kb[1]);
+          mma_bf16(s[2 * np + 1], qf[kk], kb[2], kb[3]);
+        }
       }
     }
 
@@ -232,7 +312,7 @@ flash_nr_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           const bool ok = segq[i] != 0 && sk == segq[i];
-          const float val = ok ? s[n][2 * i + e] * scale : NEG_INF;
+          const float val = ok ? __fmul_rn(s[n][2 * i + e], factor) : NEG_INF;
           s[n][2 * i + e] = val;
           tmax[i] = fmaxf(tmax[i], val);
         }
@@ -329,22 +409,42 @@ flash_nr_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 }  // namespace
 
+// Launch K1 on `stream`.  q_rows = 0: the bf16 kernel (kn, kq, amax unused, may be
+// null).  q_rows > 0 (a multiple of 128, the TPU forward's q quantization tile): the
+// s_int8 mode, the prep (kn [B, S, H, D] bf16 and kq int8 scratch, amax
+// [B, H, 1 + ceil(S / q_rows)] u32 scratch) then the main kernel.  Returns a
+// cudaError_t (0 = launched).
 extern "C" int qflux_flash_nr_fwd(const void* q, const void* k, const void* v,
                                   const void* q_scale2, const void* k_scale2,
                                   const void* cos, const void* sin, long long cs_bstride,
-                                  const void* seg, void* out, void* lse, int B, int S,
-                                  int H, int st, float scale, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(flash_nr_fwd_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)SMEM_BYTES);
+                                  const void* seg, void* kn, void* kq, void* amax, int q_rows,
+                                  void* out, void* lse, int B, int S, int H, int st,
+                                  float scale, void* stream) {
+  if (q_rows < 0 || q_rows % BQ) return (int)cudaErrorInvalidValue;
+  cudaStream_t st_ = static_cast<cudaStream_t>(stream);
+  const bf16* qb = static_cast<const bf16*>(q);
+  const bf16* kb = static_cast<const bf16*>(k);
+  const float* qs = static_cast<const float*>(q_scale2);
+  const float* ks = static_cast<const float*>(k_scale2);
+  const float* cs = static_cast<const float*>(cos);
+  const float* sn = static_cast<const float*>(sin);
+  auto* kernel = q_rows ? flash_nr_fwd_kernel<true> : flash_nr_fwd_kernel<false>;
+  const size_t smem = q_rows ? SMEM_BYTES_INT8 : SMEM_BYTES;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
+  if (q_rows) {
+    err = launch_int8_prep(qb, kb, nullptr, nullptr, qs, ks, cs, sn, cs_bstride, nullptr,
+                           static_cast<bf16*>(kn), nullptr, nullptr, static_cast<int8_t*>(kq),
+                           static_cast<unsigned*>(amax), q_rows, B, S, H, st, st_);
+    if (err != cudaSuccess) return (int)err;
+  }
   const dim3 grid((S + BQ - 1) / BQ, H, B);
-  flash_nr_fwd_kernel<<<grid, NTHREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const float*>(q_scale2), static_cast<const float*>(k_scale2),
-      static_cast<const float*>(cos), static_cast<const float*>(sin), cs_bstride,
-      static_cast<const int*>(seg), static_cast<bf16*>(out), static_cast<float*>(lse), S, H,
-      st, scale);
+  kernel<<<grid, NTHREADS, smem, st_>>>(
+      qb, kb, static_cast<const bf16*>(v), qs, ks, cs, sn, cs_bstride,
+      static_cast<const int*>(seg), static_cast<const int8_t*>(kq),
+      static_cast<const unsigned*>(amax), q_rows, static_cast<bf16*>(out),
+      static_cast<float*>(lse), S, H, st, scale);
   return (int)cudaGetLastError();
 }
 

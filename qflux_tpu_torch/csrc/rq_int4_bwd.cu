@@ -71,16 +71,6 @@ struct Smem {
   alignas(16) uint32_t b[2][BKP][B_PITCH];      // q8 planes: [kp][n / 4], 4 n-bytes a word
 };
 
-// d += a (16x32, row) * b (32x8, col), s8 in, s32 accumulate
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // one int4 value onto the per-channel int8 grid, as quant._requant_q8
 __device__ __forceinline__ uint32_t regrid(int v, float f) {
   int r = __float2int_rn(__fmul_rn(__int2float_rn(v), f));

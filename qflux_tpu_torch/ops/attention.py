@@ -24,6 +24,13 @@ def sdpa_with_lse(q, k, v, segment_ids=None, kv_segment_ids=None, scale=None):
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    return masked_softmax_pv(logits, v, segment_ids, kv_segment_ids, out_dtype=q.dtype)
+
+
+def masked_softmax_pv(logits, v, segment_ids=None, kv_segment_ids=None, out_dtype=None):
+    """The rest of the attention from f32 scaled logits [B, H, Sq, Sk]: the
+    segment mask, softmax (probabilities cast to v.dtype before the PV
+    product) → (out [B, Sq, H, D] in out_dtype, lse [B, H, Sq] f32)."""
     mask = None
     if segment_ids is not None:
         kv_segment_ids = kv_segment_ids if kv_segment_ids is not None else segment_ids
@@ -37,7 +44,7 @@ def sdpa_with_lse(q, k, v, segment_ids=None, kv_segment_ids=None, scale=None):
         # output 0, matching the flash kernel
         probs = torch.where(mask, probs, 0.0)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(), v.float())
-    return out.to(q.dtype), lse
+    return out.to(out_dtype or v.dtype), lse
 
 
 def sdpa_reference(q, k, v, segment_ids=None, kv_segment_ids=None, scale=None):
@@ -52,23 +59,35 @@ def qk_norm_rope_attention(q_raw, k_raw, v, q_scale2, k_scale2, cos, sin,
 
     impl="auto": the fused kernel K1 (ops/flash_nr.py) — on CUDA tensors the
     Hopper kernel, which raises on a shape it does not take; on CPU tensors
-    its plain version.  impl="plain": the plain composition on any device
-    (the comparison point for the kernel on the card).
+    its plain version.  impl="int8" (config `model.quantize.attention`): the
+    same with the int8 score GEMM, where JAX on a TPU applies it (S up to
+    2560 at head dim 128, `flash_nr.s_int8_tiles`) and "auto" elsewhere, as
+    there.  impl="plain": the plain composition on any device (the
+    comparison point for the kernel on the card); impl="int8_plain": the
+    same for "int8" (the s_int8 mode's plain versions where it applies).
     q_scale2/k_scale2: [2, D] — row 0 norms positions < st (txt stream), row
     1 the rest; pass the same row twice for single-stream.
     """
     from qflux_tpu_torch.ops import flash_nr
 
-    if impl in ("int8", "ring", "stub"):
+    if impl in ("ring", "stub"):
         raise NotImplementedError(
-            f"attention impl={impl!r} is not ported yet (ROADMAP.md: K1 s_int8, "
-            "ring attention and multi-GPU come in later slices)")
-    if impl == "auto":
+            f"attention impl={impl!r} is not ported yet (ROADMAP.md: ring attention and "
+            "multi-GPU come in later slices)")
+    if impl in ("auto", "int8"):
         out, _ = flash_nr.flash_attention_nr(q_raw, k_raw, v, q_scale2, k_scale2,
-                                             cos, sin, st, segment_ids=segment_ids)
+                                             cos, sin, st, segment_ids=segment_ids,
+                                             s_int8=impl == "int8")
         return out
+    if impl == "int8_plain":
+        d, s = q_raw.shape[-1], q_raw.shape[1]
+        tiles = flash_nr.s_int8_tiles(s, d) if k_raw.shape[1] == s else None
+        if tiles is not None:
+            return flash_nr._Int8Attention.apply(q_raw, k_raw, v, q_scale2, k_scale2, cos, sin,
+                                                 segment_ids, st, 1.0 / (d ** 0.5), tiles)[0]
+        impl = "plain"
     if impl != "plain":
-        raise ValueError(f"unknown attention impl {impl!r} (auto | plain)")
+        raise ValueError(f"unknown attention impl {impl!r} (auto | int8 | plain | int8_plain)")
     qn = flash_nr.apply_qk_norm_rope(q_raw, q_scale2, cos, sin, st)
     kn = flash_nr.apply_qk_norm_rope(k_raw, k_scale2, cos, sin, st)
     return sdpa_reference(qn, kn, v, segment_ids=segment_ids)

@@ -28,8 +28,23 @@ Counterpart of qflux_tpu/ops/flash_nr.py.  The parts:
     runs K2 on the same residuals as under "flash" while the device holds
     none of them in between.
 
-The `s_int8` score GEMM of K1 is still to port (ROADMAP.md, "TPU kernels to
-port").
+The `s_int8` mode (config `model.quantize.attention`) computes QK^T as an
+int8 x int8 product with one scale per q tile and one per (b, h) for K,
+as the TPU kernels' `s_int8` branches do:
+
+  * `s_int8_tiles` — where JAX on a TPU applies it and over which q tiles
+    it quantizes (forward and backward pick their tiles independently);
+  * `quant_tile` / `quant_rows` — JAX's `_quant_tile`, whole and per tile;
+  * `flash_attention_nr_int8_reference` / `_bwd_reference` — the plain
+    versions of the two kernels' `s_int8` branches.  The backward is
+    straight-through: it recomputes the scores from q quantized in the
+    BACKWARD's tiles against the forward's lse, and takes dqn / dkn from
+    the bf16 normed q / k, as the TPU kernel does;
+  * the same custom op with `fwd_rows` / `bwd_rows` set launches the
+    kernels' int8 mode (`INT8_KERNEL_LAUNCHES`, `INT8_BWD_KERNEL_LAUNCHES`);
+    CPU tensors take `_Int8Attention`, an autograd.Function over the two
+    plain versions (autograd through `torch.round` would give q and k a
+    zero gradient).
 """
 
 from __future__ import annotations
@@ -38,16 +53,71 @@ import contextlib
 import threading
 
 import torch
+import torch.nn.functional as F
 
-from qflux_tpu_torch.ops.attention import sdpa_with_lse
+from qflux_tpu_torch.ops.attention import masked_softmax_pv, sdpa_with_lse, segment_mask
 
 EPS = 1e-6
 HEAD_DIM = 128  # the only head dim the kernels take (every FLUX/Qwen shape)
 
 # launches of the CUDA kernels in this process; the custom op and its
 # backward add one per launch
-KERNEL_LAUNCHES = 0      # K1, csrc/flash_nr_fwd.cu
-BWD_KERNEL_LAUNCHES = 0  # K2, csrc/flash_nr_bwd.cu
+KERNEL_LAUNCHES = 0           # K1, csrc/flash_nr_fwd.cu
+BWD_KERNEL_LAUNCHES = 0       # K2, csrc/flash_nr_bwd.cu
+INT8_KERNEL_LAUNCHES = 0      # K1 in its s_int8 mode
+INT8_BWD_KERNEL_LAUNCHES = 0  # K2 in its s_int8 mode
+
+# JAX's default tile pickers for the s_int8 mode (qflux_tpu/ops/flash_nr.py
+# _nr_block_q / _nr_fwd_block_q at the 13 MB budget and under the raised
+# scoped-VMEM limit every qflux entry point sets; ops/flash_attention.py
+# BLOCK_Q_TARGET), copied here: the port reads no QFLUX_NR_VMEM_MB
+_NR_VMEM_BUDGET = 13 * 1024 * 1024
+_NR_FWD_VMEM_BUDGET = 32 * 1024 * 1024
+_BLOCK_Q_TARGET = 256
+
+
+def _auto_block(s, target):
+    """ops/flash_attention.py:_auto_block: the smallest number of equal
+    ≤ target chunks covering s, rounded up to 128."""
+    n = -(-s // target)
+    per = -(-s // n)
+    return min((per + 127) // 128 * 128, (s + 127) // 128 * 128)
+
+
+def _pad_len(s, block):
+    return (block - s % block) % block
+
+
+def s_int8_tiles(s: int, d: int):
+    """(fwd_rows, bwd_rows), or None: WHERE JAX on a TPU applies the int8
+    score GEMM and over which q tiles it quantizes.
+
+    It is the arithmetic of `flash_attention_nr`'s tile choice
+    (qflux_tpu/ops/flash_nr.py:573-584) with JAX's default VMEM estimates:
+    None wherever `supports(s, s, d, s_int8=True)` fails (d % 128 != 0, or
+    the padded K past 2560 rows), and there the TPU runs bf16 attention;
+    otherwise the forward's and the backward's q tile rows (128 or 256,
+    counted from row 0).  Where the two differ (S = 2304, 2560: 256 / 128)
+    the backward recomputes its scores from other q scales than the
+    forward's, as JAX does.  It defines behaviour to mirror; it is not a
+    tuner of this card's kernels, which take any S.
+    """
+    if d % 128:
+        return None
+    pk = _auto_block(s, 1 << 30)  # the single padded K block
+    bq_m = next((bq for bq in (256, 128)
+                 if 8 * bq * pk + 16 * pk * d + 14 * pk * d + 24 * bq * d + pk * d
+                 <= _NR_VMEM_BUDGET), None)
+    if bq_m is None:
+        return None
+    target = _auto_block(s, _BLOCK_Q_TARGET)
+    block_q = min(target, bq_m)
+    bq_fwd = min(target, next((bq for bq in (256, 128)
+                               if 4 * bq * pk + 16 * pk * d + 24 * bq * d + pk * d
+                               <= _NR_FWD_VMEM_BUDGET), 128))
+    if bq_fwd < block_q or _pad_len(s, bq_fwd) != _pad_len(s, block_q):
+        bq_fwd = block_q
+    return bq_fwd, block_q
 
 
 def apply_qk_norm_rope(x, scale2, cos, sin, st, eps=EPS):
@@ -93,6 +163,137 @@ def flash_attention_nr_bwd_reference(q, k, v, q_scale2, k_scale2, cos, sin, st, 
         out, _ = flash_attention_nr_reference(*xs, cos.float(), sin.float(), st,
                                               segment_ids=segment_ids, scale=scale)
         return torch.autograd.grad(out, xs, do.float())
+
+
+def _int8_scale(amax):
+    """max(amax / 127, 1e-6) in f32 with a true division.  The divisor is a
+    tensor on amax's device: PyTorch's CUDA division by a Python scalar
+    multiplies by its reciprocal, which can land one ulp off."""
+    return torch.clamp(amax / amax.new_full((), 127.0), min=1e-6)
+
+
+def quant_tile(x):
+    """JAX's `_quant_tile`: one symmetric int8 scale for the whole tile,
+    max(amax / 127, 1e-6) in f32, then round-half-to-even of x / scale.
+    Returns (int8 tile, f32 scalar scale)."""
+    xf = x.float()
+    s = _int8_scale(xf.abs().amax())
+    return torch.round(xf / s).to(torch.int8), s
+
+
+def quant_rows(x, rows):
+    """`quant_tile` over each (b, h) and each tile of `rows` rows counted
+    from row 0 (the last one ragged) of x [B, S, H, D]: (int8 [B, S, H, D],
+    f32 scales [B, S, H], each row carrying its tile's)."""
+    b, s, h, _ = x.shape
+    xf = x.float()
+    nt = -(-s // rows)
+    amax = F.pad(xf.abs().amax(-1), (0, 0, 0, nt * rows - s))
+    sc = _int8_scale(amax.view(b, nt, rows, h).amax(2))
+    sc_rows = sc.repeat_interleave(rows, dim=1)[:, :s]
+    return torch.round(xf / sc_rows[..., None]).to(torch.int8), sc_rows
+
+
+def int8_scores(qq, q_sc, kq, k_sc, scale):
+    """[B, H, Sq, Sk] f32 scores of the s_int8 mode: the exact integer
+    product (float64 on the int8 values: exact, and torch has no int matmul
+    on CUDA), then f32(acc) * ((q_scale * k_scale) * scale) in that order.
+    q_sc / k_sc: [B, S, H] as `quant_rows` gives them (k's constant per
+    (b, h))."""
+    acc = torch.einsum("bqhd,bkhd->bhqk", qq.double(), kq.double()).float()
+    fac = (q_sc.permute(0, 2, 1) * k_sc[:, 0][:, :, None]) * scale
+    return acc * fac[..., None]
+
+
+def _int8_operands(q, k, q_scale2, k_scale2, cos, sin, st, q_rows):
+    qn = apply_qk_norm_rope(q, q_scale2, cos, sin, st)
+    kn = apply_qk_norm_rope(k, k_scale2, cos, sin, st)
+    return qn, kn, quant_rows(qn, q_rows), quant_rows(kn, k.shape[1])
+
+
+def flash_attention_nr_int8_reference(q, k, v, q_scale2, k_scale2, cos, sin, st, q_rows,
+                                      segment_ids=None, scale=None):
+    """Plain version of K1's s_int8 mode (`_fwd_nr_kernel`'s s_int8 branch):
+    q and k normed and roped, K quantized with one scale per (b, h) over all
+    S rows (masked ones included), q with one per (b, h, `q_rows`-row tile),
+    `int8_scores`, then the mask and softmax of the bf16 path.  Returns (out
+    [B, S, H, D] in q.dtype, lse [B, H, S] f32)."""
+    scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+    _, _, (qq, q_sc), (kq, k_sc) = _int8_operands(q, k, q_scale2, k_scale2, cos, sin, st,
+                                                  q_rows)
+    return masked_softmax_pv(int8_scores(qq, q_sc, kq, k_sc, scale), v, segment_ids,
+                             out_dtype=q.dtype)
+
+
+def _rope_norm_bwd(g, x, scale2, cos, sin, st):
+    """`_rope_bwd` then `_norm_bwd` of qflux_tpu/ops/flash_nr.py over
+    [B, S, H, D], in f32: (dx, [2, D] scale-pair gradient, rows < st into
+    row 0)."""
+    if cos.dim() == 2:
+        cos, sin = cos[None], sin[None]
+    h = x.shape[-1] // 2
+    gs = g * sin.float()[:, :, None, :]
+    d_us = g * cos.float()[:, :, None, :] + torch.cat([gs[..., h:], -gs[..., :h]], dim=-1)
+    xf = x.float()
+    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + EPS)
+    u = xf * r
+    sel = (torch.arange(x.shape[1], device=x.device) < st)[None, :, None, None]
+    s_sel = torch.where(sel, scale2[0].float(), scale2[1].float())
+    du = d_us * s_sel
+    dx = r * (du - u * torch.mean(du * u, dim=-1, keepdim=True))
+    dsc = d_us * u
+    return dx, torch.stack([dsc[:, :st].sum((0, 1, 2)), dsc[:, st:].sum((0, 1, 2))])
+
+
+def flash_attention_nr_int8_bwd_reference(q, k, v, q_scale2, k_scale2, cos, sin, st, do, out,
+                                          lse, q_rows, segment_ids=None, scale=None):
+    """Plain version of K2's s_int8 mode, the explicit formula of
+    `_bwd_nr_kernel`'s s_int8 branch: the scores recomputed from q
+    quantized in `q_rows`-row tiles (the BACKWARD's) against the saved lse,
+    p = exp(s - lse) (0 where masked), dv = bf16(p)^T do, ds = bf16(p (dp -
+    delta) scale), dqn = ds kn and dkn = ds^T qn on the bf16 normed q / k
+    (straight through the quantization), then the rope and norm backward.
+    Returns (dq, dk, dv, dq_scale2, dk_scale2), all f32."""
+    scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+    dt = q.dtype
+    qn, kn, (qq, q_sc), (kq, k_sc) = _int8_operands(q, k, q_scale2, k_scale2, cos, sin, st,
+                                                    q_rows)
+    p = torch.exp(int8_scores(qq, q_sc, kq, k_sc, scale) - lse[..., None])
+    if segment_ids is not None:
+        p = torch.where(segment_mask(segment_ids, segment_ids), p, 0.0)
+    dof = do.float()
+    delta = (dof * out.float()).sum(-1).permute(0, 2, 1)  # [B, H, S]
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, v.float())
+    ds = ((p * (dp - delta[..., None])) * scale).to(dt).float()
+    dqn = torch.einsum("bhqk,bkhd->bqhd", ds, kn.float())
+    dkn = torch.einsum("bhqk,bqhd->bkhd", ds, qn.float())
+    dq, dqs = _rope_norm_bwd(dqn, q, q_scale2, cos, sin, st)
+    dk, dks = _rope_norm_bwd(dkn, k, k_scale2, cos, sin, st)
+    return dq, dk, dv, dqs, dks
+
+
+class _Int8Attention(torch.autograd.Function):
+    """The s_int8 mode on CPU tensors: the plain forward, and the plain
+    straight-through backward (not autograd of the forward, which would
+    differentiate `torch.round` to zero)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_scale2, k_scale2, cos, sin, seg, st, scale, rows):
+        out, lse = flash_attention_nr_int8_reference(q, k, v, q_scale2, k_scale2, cos, sin, st,
+                                                     rows[0], segment_ids=seg, scale=scale)
+        ctx.save_for_backward(q, k, v, q_scale2, k_scale2, cos, sin, seg, out, lse)
+        ctx.st, ctx.scale, ctx.bwd_rows = st, scale, rows[1]
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, qs, ks, cos, sin, seg, out, lse = ctx.saved_tensors
+        g = flash_attention_nr_int8_bwd_reference(q, k, v, qs, ks, cos, sin, ctx.st, dout, out,
+                                                  lse, ctx.bwd_rows, segment_ids=seg,
+                                                  scale=ctx.scale)
+        return tuple(x.to(t.dtype) for x, t in zip(g, (q, k, v, qs, ks))) + (None,) * 6
 
 
 def _check(name, t, device, dtype, shape=None):
@@ -152,39 +353,64 @@ def _kernel_args(q, k, v, q_scale2, k_scale2, cos, sin, segment_ids):
     return qs, ks, cs_bstride, seg
 
 
-def _flash_nr_cuda(q, k, v, q_scale2, k_scale2, cos, sin, st, segment_ids, scale):
+def _int8_scratch(q, q_rows):
+    """The s_int8 mode's scratch on q's device: int8 [B, S, H, D] and the
+    per-(b, h) amax slots, k's and each q tile's (zeroed by the launch)."""
+    b, s, h, _ = q.shape
+    return (torch.empty(q.shape, device=q.device, dtype=torch.int8),
+            torch.empty((b, h, 1 + -(-s // q_rows)), device=q.device, dtype=torch.int32))
+
+
+def _check_rows(q_rows, multiple, what):
+    if q_rows < 0 or q_rows % multiple:
+        raise ValueError(f"flash_attention_nr{what}: int8 q tile of {q_rows} rows; the kernel "
+                         f"takes multiples of {multiple}")
+
+
+def _flash_nr_cuda(q, k, v, q_scale2, k_scale2, cos, sin, st, segment_ids, scale, q_rows=0):
     """Launch K1 (csrc/flash_nr_fwd.cu) on CUDA tensors → (out, lse); raises
     on anything the kernel does not take (`_kernel_args`) and on a CUDA
-    error.  Counting is the caller's (`_flash_nr_fwd_op`)."""
+    error.  q_rows > 0: its s_int8 mode, the prep (k normed, roped and
+    quantized per (b, h); the largest |qn| of each `q_rows`-row tile) and
+    then the main kernel.  Counting is the caller's (`_flash_nr_fwd_op`)."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_nr: the kernel runs on CUDA tensors, got {q.device}")
+    _check_rows(q_rows, 128, "")
     qs, ks, cs_bstride, seg = _kernel_args(q, k, v, q_scale2, k_scale2, cos, sin, segment_ids)
     b, s, h, _ = q.shape
 
     from qflux_tpu_torch.runtime.build import load_library
 
     kl = load_library()
+    kn, kq, amax = (None, None, None) if not q_rows else (
+        torch.empty_like(k), *_int8_scratch(k, q_rows))  # scratch: normed + roped k
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), device=q.device, dtype=torch.float32)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = kl.lib.qflux_flash_nr_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), qs.data_ptr(), ks.data_ptr(),
-        cos.data_ptr(), sin.data_ptr(), cs_bstride,
-        seg.data_ptr() if seg is not None else None,
-        out.data_ptr(), lse.data_ptr(), b, s, h, int(st), float(scale), stream)
+        cos.data_ptr(), sin.data_ptr(), cs_bstride, _ptr(seg), _ptr(kn), _ptr(kq), _ptr(amax),
+        int(q_rows), out.data_ptr(), lse.data_ptr(), b, s, h, int(st), float(scale), stream)
     kl.check(code, "flash_nr_fwd launch")
     return out, lse
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def _flash_nr_bwd_cuda(q, k, v, q_scale2, k_scale2, cos, sin, st, segment_ids, scale,
-                       out, lse, do):
+                       out, lse, do, q_rows=0):
     """Launch K2 (csrc/flash_nr_bwd.cu) on CUDA tensors → (dq, dk, dv in
     q.dtype, dq_scale2, dk_scale2 f32 [2, D]); raises as `_flash_nr_cuda`.
     The kernel writes one [2, D] scale-gradient partial per (b, h, 64-row
-    tile); they are summed here, as `_bwd_nr` sums its per-(b, h) ones."""
+    tile); they are summed here, as `_bwd_nr` sums its per-(b, h) ones.
+    q_rows > 0: its s_int8 mode, the scores recomputed from q quantized in
+    `q_rows`-row tiles (the backward's)."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_nr backward: the kernel runs on CUDA tensors, "
                          f"got {q.device}")
+    _check_rows(q_rows, 64, " backward")
     qs, ks, cs_bstride, seg = _kernel_args(q, k, v, q_scale2, k_scale2, cos, sin, segment_ids)
     b, s, h, d = q.shape
     _check("out", out, q.device, q.dtype, q.shape)
@@ -197,6 +423,8 @@ def _flash_nr_bwd_cuda(q, k, v, q_scale2, k_scale2, cos, sin, st, segment_ids, s
     kl = load_library()
     qn, kn = torch.empty_like(q), torch.empty_like(k)  # scratch: normed + roped q / k
     delta = torch.empty((b, h, s), device=q.device, dtype=torch.float32)
+    qq, kq, amax = (None, None, None) if not q_rows else (
+        torch.empty(q.shape, device=q.device, dtype=torch.int8), *_int8_scratch(k, q_rows))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     n_tiles = kl.lib.qflux_flash_nr_bwd_tiles(s)
     dqs_p = torch.empty((b, h, n_tiles, 2, d), device=q.device, dtype=torch.float32)
@@ -204,13 +432,37 @@ def _flash_nr_bwd_cuda(q, k, v, q_scale2, k_scale2, cos, sin, st, segment_ids, s
     stream = torch.cuda.current_stream(q.device).cuda_stream
     code = kl.lib.qflux_flash_nr_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), qs.data_ptr(), ks.data_ptr(),
-        cos.data_ptr(), sin.data_ptr(), cs_bstride,
-        seg.data_ptr() if seg is not None else None,
+        cos.data_ptr(), sin.data_ptr(), cs_bstride, _ptr(seg),
         out.data_ptr(), lse.data_ptr(), do.data_ptr(), qn.data_ptr(), kn.data_ptr(),
-        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dqs_p.data_ptr(),
-        dks_p.data_ptr(), b, s, h, int(st), float(scale), stream)
+        delta.data_ptr(), _ptr(qq), _ptr(kq), _ptr(amax), int(q_rows), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), dqs_p.data_ptr(), dks_p.data_ptr(), b, s, h, int(st),
+        float(scale), stream)
     kl.check(code, "flash_nr_bwd launch")
     return dq, dk, dv, dqs_p.sum(dim=(0, 1, 2)), dks_p.sum(dim=(0, 1, 2))
+
+
+def _int8_operands_cuda(q, k, q_scale2, k_scale2, cos, sin, st, q_rows):
+    """The s_int8 prep alone, as K2 runs it (for tests and the smoke): (qn,
+    kn bf16, qq, kq int8 [B, S, H, D], q scales [B, S, H], k scales [B, H])
+    with the scales computed from the kernel's amax the way the kernels do."""
+    qs, ks, cs_bstride, _ = _kernel_args(q, k, q, q_scale2, k_scale2, cos, sin, None)
+    b, s, h, _ = q.shape
+
+    from qflux_tpu_torch.runtime.build import load_library
+
+    kl = load_library()
+    qn, kn = torch.empty_like(q), torch.empty_like(k)
+    qq = torch.empty(q.shape, device=q.device, dtype=torch.int8)
+    kq, amax = _int8_scratch(k, q_rows)
+    code = kl.lib.qflux_flash_nr_int8_prep(
+        q.data_ptr(), k.data_ptr(), qs.data_ptr(), ks.data_ptr(), cos.data_ptr(),
+        sin.data_ptr(), cs_bstride, qn.data_ptr(), kn.data_ptr(), qq.data_ptr(), kq.data_ptr(),
+        amax.data_ptr(), b, s, h, int(st), int(q_rows),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    kl.check(code, "flash_nr_int8_prep launch")
+    sc = _int8_scale(amax.view(torch.float32))
+    q_sc = sc[:, :, 1:].repeat_interleave(q_rows, dim=2)[:, :, :s].permute(0, 2, 1)
+    return qn, kn, qq, kq, q_sc, sc[:, :, 0]
 
 
 class _OffloadStore:
@@ -267,14 +519,22 @@ def offload_contexts():
 @torch.library.custom_op(
     "qflux::flash_nr_fwd", mutates_args=(),
     schema="(Tensor q, Tensor k, Tensor v, Tensor q_scale2, Tensor k_scale2, Tensor cos, "
-           "Tensor sin, Tensor? segment_ids, int st, float scale) -> (Tensor, Tensor)")
-def _flash_nr_fwd_op(q, k, v, q_scale2, k_scale2, cos, sin, segment_ids, st, scale):
-    global KERNEL_LAUNCHES
+           "Tensor sin, Tensor? segment_ids, int st, float scale, int fwd_rows=0, "
+           "int bwd_rows=0) -> (Tensor, Tensor)")
+def _flash_nr_fwd_op(q, k, v, q_scale2, k_scale2, cos, sin, segment_ids, st, scale,
+                     fwd_rows=0, bwd_rows=0):
+    """fwd_rows = bwd_rows = 0: K1; else K1's s_int8 mode over q tiles of
+    fwd_rows rows, whose backward recomputes over tiles of bwd_rows."""
+    global KERNEL_LAUNCHES, INT8_KERNEL_LAUNCHES
     state = getattr(_OFFLOAD, "state", None)
     if state is not None and state[1]:
         return state[0].take(q.device)
-    out, lse = _flash_nr_cuda(q, k, v, q_scale2, k_scale2, cos, sin, st, segment_ids, scale)
-    KERNEL_LAUNCHES += 1
+    out, lse = _flash_nr_cuda(q, k, v, q_scale2, k_scale2, cos, sin, st, segment_ids, scale,
+                              fwd_rows)
+    if fwd_rows:
+        INT8_KERNEL_LAUNCHES += 1
+    else:
+        KERNEL_LAUNCHES += 1
     if state is not None:
         state[0].put(out, lse)
     return out, lse
@@ -282,21 +542,25 @@ def _flash_nr_fwd_op(q, k, v, q_scale2, k_scale2, cos, sin, segment_ids, st, sca
 
 def _fwd_setup_context(ctx, inputs, output):
     # the residuals of _flash_nr_fwd (qflux_tpu/ops/flash_nr.py:533-539)
-    q, k, v, qs, ks, cos, sin, seg, st, scale = inputs
+    q, k, v, qs, ks, cos, sin, seg, st, scale, _, bwd_rows = inputs
     out, lse = output
     ctx.save_for_backward(q, k, v, qs, ks, cos, sin, seg, out, lse)
-    ctx.st, ctx.scale = st, scale
+    ctx.st, ctx.scale, ctx.bwd_rows = st, scale, bwd_rows
 
 
 def _fwd_backward(ctx, dout, _dlse):
-    """K2 from the saved residuals; lse is a residual, not differentiated
-    (as in the JAX custom_vjp, whose primal returns out alone)."""
-    global BWD_KERNEL_LAUNCHES
+    """K2 (or its s_int8 mode) from the saved residuals; lse is a residual,
+    not differentiated (as in the JAX custom_vjp, whose primal returns out
+    alone)."""
+    global BWD_KERNEL_LAUNCHES, INT8_BWD_KERNEL_LAUNCHES
     q, k, v, qs, ks, cos, sin, seg, out, lse = ctx.saved_tensors
-    dq, dk, dv, dqs, dks = _flash_nr_bwd_cuda(q, k, v, qs, ks, cos, sin, ctx.st, seg,
-                                              ctx.scale, out, lse, dout.contiguous())
-    BWD_KERNEL_LAUNCHES += 1
-    return (dq, dk, dv, dqs.to(qs.dtype), dks.to(ks.dtype), None, None, None, None, None)
+    dq, dk, dv, dqs, dks = _flash_nr_bwd_cuda(q, k, v, qs, ks, cos, sin, ctx.st, seg, ctx.scale,
+                                              out, lse, dout.contiguous(), ctx.bwd_rows)
+    if ctx.bwd_rows:
+        INT8_BWD_KERNEL_LAUNCHES += 1
+    else:
+        BWD_KERNEL_LAUNCHES += 1
+    return (dq, dk, dv, dqs.to(qs.dtype), dks.to(ks.dtype)) + (None,) * 7
 
 
 torch.library.register_autograd("qflux::flash_nr_fwd", _fwd_backward,
@@ -304,15 +568,17 @@ torch.library.register_autograd("qflux::flash_nr_fwd", _fwd_backward,
 FWD_OP = torch.ops.qflux.flash_nr_fwd.default  # what a checkpoint policy sees
 
 
-def _flash_attention_nr_op(q, k, v, q_scale2, k_scale2, cos, sin, st, segment_ids, scale):
+def _flash_attention_nr_op(q, k, v, q_scale2, k_scale2, cos, sin, st, segment_ids, scale,
+                           tiles=(0, 0)):
     """The kernel path: the custom op on the scale pairs widened to f32 and
     the segment ids as int32 (what the kernels take; the casts are
     differentiable, so the scale gradients come back in the scales' dtype).
-    lse is returned detached."""
+    `tiles`: (0, 0) for bf16, else the s_int8 (fwd_rows, bwd_rows).  lse is
+    returned detached."""
     seg = None if segment_ids is None else segment_ids.to(torch.int32)
     out, lse = _flash_nr_fwd_op(q, k, v, q_scale2.to(torch.float32),
                                 k_scale2.to(torch.float32), cos, sin, seg, int(st),
-                                float(scale))
+                                float(scale), int(tiles[0]), int(tiles[1]))
     return out, lse.detach()
 
 
@@ -330,15 +596,20 @@ def flash_attention_nr(q, k, v, q_scale2, k_scale2, cos, sin, st,
     CUDA tensors run the Hopper kernels (any S: K is tiled, the ragged edge
     masked by index), K1 forward and K2 backward; CPU tensors run
     `flash_attention_nr_reference`, which autograd differentiates.
+
+    s_int8: the int8 score GEMM where JAX on a TPU applies it
+    (`s_int8_tiles`): K1's and K2's s_int8 modes on CUDA tensors,
+    `_Int8Attention` on CPU ones.  Where it does not apply (S past 2560, or
+    D not a multiple of 128) this is the bf16 call, as on the TPU.
     """
-    if s_int8:
-        raise NotImplementedError(
-            "flash_attention_nr(s_int8=True): the int8 score GEMM of K1 is not "
-            "ported yet (ROADMAP.md, TPU kernels to port: K1 s_int8)")
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
+    tiles = s_int8_tiles(q.shape[1], d) if s_int8 and k.shape[1] == q.shape[1] else None
     if q.device.type == "cpu":
+        if tiles is not None:
+            return _Int8Attention.apply(q, k, v, q_scale2, k_scale2, cos, sin, segment_ids,
+                                        st, scale, tiles)
         return flash_attention_nr_reference(q, k, v, q_scale2, k_scale2, cos, sin,
                                             st, segment_ids=segment_ids, scale=scale)
     return _flash_attention_nr_op(q, k, v, q_scale2, k_scale2, cos, sin, st, segment_ids,
-                                  scale)
+                                  scale, tiles or (0, 0))

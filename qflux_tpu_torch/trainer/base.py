@@ -19,9 +19,10 @@ Two model families are ported: FLUX.1-Kontext and Qwen-Image-Edit, each
 with predict and the LoRA train step.  `load_model` quantizes the DiT with
 `ops/quant.quantize_tree` where `model.quantize.enabled` (int4_requant only;
 other dtypes raise there), and `fit` trains over that base (the requant
-matmul's backward is kernel K5b on the card).  `quantize.attention` (K1's
-int8 score GEMM) raises in the attention, and the remat policies not ported
-raise in the transformer.
+matmul's backward is kernel K5b on the card).  `quantize.attention` runs
+the int8 score GEMM of K1 and K2 wherever JAX on a TPU would (S up to 2560
+at head dim 128; bf16 attention elsewhere, as there), and the remat
+policies not ported raise in the transformer.
 """
 
 from __future__ import annotations

@@ -284,3 +284,174 @@ def test_qwen_train_step_through_kernels_on_card():
             continue
         assert torch.equal(ga, oa) and torch.equal(gb, ob), path
         assert ga.abs().sum() > 0 and gb.abs().sum() > 0, path
+
+
+# ---------------------------------------------------------------------------
+# the s_int8 mode of K1 and K2 (quantize.attention)
+
+# S, st, masked text tail: the Qwen path at 512² (256 text tokens, the last
+# 26 padding; q tiles 256 forward, 128 backward), FLUX at 512² unmasked
+# (256 / 128), and S = 1024 (256 / 256)
+INT8_CASES = [(2304, 256, True), (2560, 512, False), (1024, 256, False)]
+# chip_smoke.py's bounds (relative L2), and why: K1 and the plain version
+# quantize the same normed q / k to the same int8 values (the prep test
+# below holds that to the bit), but a normed value that lands one bf16 ulp
+# apart (f32 sums in another order before the round) moves one int8 step,
+# and the kernel rounds p to bf16 before PV as K1 does
+INT8_FWD_REL, INT8_BWD_REL = 3e-2, 1e-1
+
+
+def _int8_inputs(seed, s, h=4):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((1, s, h, D)).astype(np.float32) for _ in range(3))
+    qs2, ks2 = ((1 + 0.1 * rng.standard_normal((2, D))).astype(np.float32) for _ in range(2))
+    ang = rng.uniform(0, 6.28, (s, D // 2)).astype(np.float32)
+    cos, sin = np.concatenate([np.cos(ang)] * 2, -1), np.concatenate([np.sin(ang)] * 2, -1)
+    args = [torch.from_numpy(a).cuda() for a in (q, k, v, qs2, ks2, cos, sin)]
+    return [a.to(torch.bfloat16) for a in args[:3]] + args[3:]
+
+
+def _int8_seg(s, st, masked):
+    if not masked:
+        return None
+    seg = torch.ones(1, s, dtype=torch.int32, device="cuda")
+    seg[0, st - 26:st] = 0
+    return seg
+
+
+def _rel(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+@pytest.mark.parametrize("s,st,masked", INT8_CASES)
+def test_int8_prep_bit_identical_to_quant_tile(s, st, masked):
+    """The prep's int8 q (the backward's tiles) and k and their scales equal
+    quant_rows (JAX's `_quant_tile` per tile) of the prep's own normed q / k
+    to the bit, and those normed q / k are K1's bf16 normed values (the plain
+    apply_qk_norm_rope to within one bf16 ulp)."""
+    q, k, _, qs2, ks2, cos, sin = _int8_inputs(21, s)
+    fwd_rows, bwd_rows = tnr.s_int8_tiles(s, D)
+    for rows in {fwd_rows, bwd_rows}:
+        qn, kn, qq, kq, q_sc, k_sc = tnr._int8_operands_cuda(q, k, qs2, ks2, cos, sin, st, rows)
+        torch.cuda.synchronize()
+        want_qq, want_qsc = tnr.quant_rows(qn, rows)
+        want_kq, want_ksc = tnr.quant_rows(kn, s)
+        assert torch.equal(qq, want_qq) and torch.equal(q_sc, want_qsc)
+        assert torch.equal(kq, want_kq) and torch.equal(k_sc, want_ksc[:, 0])
+        ref = tnr.apply_qk_norm_rope(q, qs2, cos, sin, st)
+        assert (qn.float() - ref.float()).abs().max().item() <= 2 ** -8 * 8
+
+
+@pytest.mark.parametrize("s,st,masked", INT8_CASES)
+def test_k1_k2_s_int8_match_plain_on_card(s, st, masked):
+    """K1's and K2's s_int8 modes against their plain versions (the
+    backward over its own q tiles, against the kernel's lse), with nonzero
+    do on the padded rows: out within INT8_FWD_REL, lse within 1e-2
+    absolute, each gradient within INT8_BWD_REL, the padded rows' out and
+    gradients exactly 0."""
+    args = _int8_inputs(22, s)
+    seg = _int8_seg(s, st, masked)
+    fwd_rows, bwd_rows = tnr.s_int8_tiles(s, D)
+    scale = 1.0 / D ** 0.5
+    do = torch.randn(args[0].shape, device="cuda").to(torch.bfloat16)
+    out, lse = tnr._flash_nr_cuda(*args, st, seg, scale, fwd_rows)
+    got = tnr._flash_nr_bwd_cuda(*args, st, seg, scale, out, lse, do, bwd_rows)
+    torch.cuda.synchronize()
+    ref, ref_lse = tnr.flash_attention_nr_int8_reference(*args, st, fwd_rows, segment_ids=seg)
+    assert _rel(out, ref) <= INT8_FWD_REL and bool(torch.isfinite(out).all())
+    valid = ref_lse > -1e29
+    assert (lse - ref_lse).abs()[valid].max().item() <= 1e-2
+    want = tnr.flash_attention_nr_int8_bwd_reference(*args, st, do, out, lse, bwd_rows,
+                                                     segment_ids=seg)
+    for g, r in zip(got, want):
+        assert _rel(g, r) <= INT8_BWD_REL and bool(torch.isfinite(g).all())
+    if masked:
+        assert not out[0, st - 26:st].any()
+        assert all(not g[0, st - 26:st].any() for g in got[:3])
+
+
+def test_s_int8_on_cuda_never_reaches_the_plain_version(monkeypatch):
+    """With the plain versions replaced by a raising double, a forward and
+    backward of flash_attention_nr(s_int8=True) on CUDA tensors still runs:
+    one K1 and one K2 s_int8 launch, no bf16 launch."""
+    def boom(*a, **k):
+        raise AssertionError("the plain version was called on CUDA tensors")
+
+    for name in ("flash_attention_nr_int8_reference", "flash_attention_nr_int8_bwd_reference",
+                 "flash_attention_nr_reference", "flash_attention_nr_bwd_reference"):
+        monkeypatch.setattr(tnr, name, boom)
+    q, k, v, qs2, ks2, cos, sin = _int8_inputs(23, 1024)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, qs2, ks2)]
+    counts = (tnr.KERNEL_LAUNCHES, tnr.BWD_KERNEL_LAUNCHES, tnr.INT8_KERNEL_LAUNCHES,
+              tnr.INT8_BWD_KERNEL_LAUNCHES)
+    out, _ = tnr.flash_attention_nr(*leaves, cos, sin, 256, s_int8=True)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert (tnr.KERNEL_LAUNCHES, tnr.BWD_KERNEL_LAUNCHES, tnr.INT8_KERNEL_LAUNCHES,
+            tnr.INT8_BWD_KERNEL_LAUNCHES) == (counts[0], counts[1], counts[2] + 1, counts[3] + 1)
+    assert all(t.grad is not None and t.grad.abs().sum() > 0 for t in leaves)
+
+
+def test_qwen_train_step_int8_attention_on_card():
+    """Two blocks of the 20B Qwen-Image DiT at full width over an
+    int4-requant base with attn_impl="int8" (S = 40 + 128 = 168: q tiles
+    256 / 256), remat "flash": one forward + backward launches K1's and
+    K2's s_int8 modes once a block and their bf16 modes never, K5a 2·12 +
+    3 + 2·12 and K5b 16 times; the LoRA gradients are close to those of the
+    plain int8 path ("int8_plain", relative L2 INT8_BWD_REL over all) and
+    every LoRA layer but the last block's add_q and add_out gets one."""
+    from qflux_tpu_torch.config import config_from_dict
+    from qflux_tpu_torch.models.qwen import transformer as tqwen
+    from qflux_tpu_torch.ops import int4_matmul
+    from qflux_tpu_torch.ops.layers import build_lora_tree, mark_trainable, merge_lora
+    from qflux_tpu_torch.ops.quant import quantize_tree
+
+    qcfg = config_from_dict({"model": {"quantize": {"enabled": True, "dtype": "int4_requant",
+                                                    "attention": True}}}).model.quantize
+    cfg = dataclasses.replace(tqwen.QwenImageConfig(), num_layers=2)
+    gen = torch.Generator("cuda").manual_seed(2)
+    model = quantize_tree(tqwen.init(gen, cfg, "cuda", torch.bfloat16, quantize=qcfg), qcfg)
+    lora = build_lora_tree(gen, model, [r"attn/(to_q|to_k|to_v|to_out|add_q|add_k|add_v|add_out)"],
+                           16, 16.0)
+    with torch.no_grad():
+        for leaf in lora.values():
+            leaf["b"].normal_(0.0, 0.005, generator=gen)
+    mark_trainable(lora)
+    merge_lora(model, lora)
+    shapes = [(1, 8, 8), (1, 8, 8)]
+    x = torch.randn(1, 128, cfg.in_channels, device="cuda", generator=gen).to(torch.bfloat16)
+    txt = torch.randn(1, 40, cfg.joint_attention_dim, device="cuda",
+                      generator=gen).to(torch.bfloat16)
+    seg = torch.ones(1, 40 + 128, dtype=torch.int32, device="cuda")
+    seg[0, 33:40] = 0
+    t = torch.full((1,), 0.5, device="cuda", dtype=torch.bfloat16)
+    target = torch.randn(1, 128, 64, device="cuda", generator=gen)
+    grads = {}
+    for impl, policy in (("int8", "flash"), ("int8_plain", "full")):
+        for leaf in lora.values():
+            for v in leaf.values():
+                v.grad = None
+        counts = (tnr.KERNEL_LAUNCHES, tnr.BWD_KERNEL_LAUNCHES, tnr.INT8_KERNEL_LAUNCHES,
+                  tnr.INT8_BWD_KERNEL_LAUNCHES, int4_matmul.RQ_KERNEL_LAUNCHES,
+                  int4_matmul.RQ_BWD_KERNEL_LAUNCHES)
+        y = tqwen.forward(model, cfg, x, txt, t, shapes, segment_ids=seg, attn_impl=impl,
+                          remat_policy=policy)
+        (y.float() - target).square().mean().backward()
+        torch.cuda.synchronize()
+        launched = tuple(b - a for a, b in zip(counts, (
+            tnr.KERNEL_LAUNCHES, tnr.BWD_KERNEL_LAUNCHES, tnr.INT8_KERNEL_LAUNCHES,
+            tnr.INT8_BWD_KERNEL_LAUNCHES, int4_matmul.RQ_KERNEL_LAUNCHES,
+            int4_matmul.RQ_BWD_KERNEL_LAUNCHES)))
+        if impl == "int8":
+            assert launched == (0, 0, 2, 2, 2 * 12 + 3 + 2 * 12, 6 + 9 + 1), launched
+        else:
+            assert launched[:4] == (0, 0, 0, 0), launched
+        grads[impl] = {p: torch.cat([torch.zeros_like(leaf[k]).flatten() if leaf[k].grad is None
+                                     else leaf[k].grad.flatten() for k in ("a", "b")])
+                       for p, leaf in lora.items()}
+    merge_lora(model, None)
+    gk, gp = (torch.cat(list(g.values())) for g in (grads["int8"], grads["int8_plain"]))
+    assert _rel(gk, gp) <= INT8_BWD_REL
+    for path, g in grads["int8"].items():
+        zero = path in ("blocks/1/attn/add_q", "blocks/1/attn/add_out")
+        assert bool(g.abs().sum() > 0) != zero, path

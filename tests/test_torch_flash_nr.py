@@ -130,25 +130,36 @@ def test_plain_k2_matches_jax_flash_nr_grads(masked):
 
 
 def _plain_launchers(monkeypatch):
-    """Test doubles: the two low-level launchers replaced by plain math, and
-    the dispatch sending CPU tensors to the custom op instead of the plain
-    version, so the op, its autograd formula and the checkpoint policy run
-    here.  Returns nothing; the counts move as the real launches would."""
-    def fwd(q, k, v, qs, ks, cos, sin, st, seg, scale):
+    """Test doubles: the two low-level launchers replaced by plain math (the
+    s_int8 mode's where q_rows is set), and the dispatch sending CPU tensors
+    to the custom op instead of the plain version, so the op, its autograd
+    formula and the checkpoint policy run here.  Returns nothing; the counts
+    move as the real launches would."""
+    def fwd(q, k, v, qs, ks, cos, sin, st, seg, scale, q_rows=0):
         with torch.no_grad():
+            if q_rows:
+                return tnr.flash_attention_nr_int8_reference(q, k, v, qs, ks, cos, sin, st,
+                                                             q_rows, seg, scale)
             return tnr.flash_attention_nr_reference(q, k, v, qs, ks, cos, sin, st, seg, scale)
 
-    def bwd(q, k, v, qs, ks, cos, sin, st, seg, scale, out, lse, do):
-        g = tnr.flash_attention_nr_bwd_reference(q, k, v, qs, ks, cos, sin, st, do, seg, scale)
+    def bwd(q, k, v, qs, ks, cos, sin, st, seg, scale, out, lse, do, q_rows=0):
+        if q_rows:
+            g = tnr.flash_attention_nr_int8_bwd_reference(q, k, v, qs, ks, cos, sin, st, do, out,
+                                                          lse, q_rows, seg, scale)
+        else:
+            g = tnr.flash_attention_nr_bwd_reference(q, k, v, qs, ks, cos, sin, st, do, seg,
+                                                     scale)
         return tuple(x.to(q.dtype) for x in g[:3]) + tuple(g[3:])
 
     monkeypatch.setattr(tnr, "_flash_nr_cuda", fwd)
     monkeypatch.setattr(tnr, "_flash_nr_bwd_cuda", bwd)
 
-    def dispatch(q, k, v, q_scale2, k_scale2, cos, sin, st, segment_ids=None, scale=None):
+    def dispatch(q, k, v, q_scale2, k_scale2, cos, sin, st, segment_ids=None, scale=None,
+                 s_int8=False):
         scale = scale if scale is not None else q.shape[-1] ** -0.5
+        tiles = tnr.s_int8_tiles(q.shape[1], q.shape[-1]) if s_int8 else None
         return tnr._flash_attention_nr_op(q, k, v, q_scale2, k_scale2, cos, sin, st,
-                                          segment_ids, scale)
+                                          segment_ids, scale, tiles or (0, 0))
 
     monkeypatch.setattr(tnr, "flash_attention_nr", dispatch)
 
@@ -244,10 +255,12 @@ def test_sdpa_reference_matches_jax():
 # what is not ported raises; nothing falls back
 
 def test_unported_modes_raise():
+    """ring and stub still raise, naming ROADMAP.md; int8 (the s_int8 mode)
+    now runs, and its output is the s_int8 entry point's."""
     t_args = [torch.from_numpy(a) for a in _inputs(8, s=16)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tnr.flash_attention_nr(*t_args, 4, s_int8=True)
-    for impl in ("int8", "ring", "stub"):
+    out, _ = tnr.flash_attention_nr(*t_args, 4, s_int8=True)
+    assert torch.equal(tattn.qk_norm_rope_attention(*t_args, 4, impl="int8"), out)
+    for impl in ("ring", "stub"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tattn.qk_norm_rope_attention(*t_args, 4, impl=impl)
     with pytest.raises(ValueError):

@@ -483,8 +483,9 @@ def test_trainer_predict_from_embeddings(quantize):
 def test_trainer_refusals(tmp_path):
     """What the port does not cover yet raises, naming ROADMAP.md: another
     quantized dtype and a checkpoint path (at load, for predict and fit
-    alike), int8 attention (quantize.attention, in predict and in fit) and
-    a remat policy not ported (in fit)."""
+    alike) and a remat policy not ported (in fit).  int8 attention
+    (quantize.attention) now runs, in predict and in fit, through the s_int8
+    mode's plain version on CPU tensors, and launches nothing."""
     base = {"trainer": "QwenImageEditTrainer", "model": {"variant": "test"}}
     q = {"enabled": True, "dtype": "int4_requant"}
     for raw in ({**base, "model": {"variant": "test", "quantize": {**q, "dtype": "int8"}}},
@@ -499,10 +500,13 @@ def test_trainer_refusals(tmp_path):
                  device="cpu")
     tr.load_model()
     assert tr.adapter.attn_impl == "int8"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.predict_from_embeddings(_request(41, 1), H, W, num_inference_steps=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.fit([batch])
+    launches = (flash_nr.INT8_KERNEL_LAUNCHES, flash_nr.INT8_BWD_KERNEL_LAUNCHES)
+    img = tr.predict_from_embeddings(_request(41, 1), H, W, num_inference_steps=1)
+    assert img.dtype == np.uint8 and img.shape == (1, H, W, 3)
+    tr.config.train.max_train_steps = 1
+    tr.fit([batch])
+    assert len(tr.history) == 1 and np.isfinite(tr.history[0]["loss"])
+    assert (flash_nr.INT8_KERNEL_LAUNCHES, flash_nr.INT8_BWD_KERNEL_LAUNCHES) == launches
     tr = Trainer(config_from_dict({**base, "mesh": {"remat": "flash_mlp"},
                                    "model": {"variant": "test", "quantize": q}}), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -586,13 +590,14 @@ def test_default_weighting_table_is_the_jax_packages_copy():
 def test_chip_smoke_runs_the_shipped_832x576_config():
     """chip_smoke.py writes configs/example_qwen_single_chip_832x576.yaml out
     in code (the card's machine has no PyYAML); it differs from the file in
-    the two stated cuts only: no checkpoint path, quantize.attention off."""
+    the checkpoint path only (the weights are synthetic), quantize.attention
+    included."""
     import chip_smoke
 
     ours = _fields(config_from_dict(chip_smoke.QWEN_832X576))
     theirs = _fields(load_config_from_yaml(REPO / "configs"
                                            / "example_qwen_single_chip_832x576.yaml"))
     diff = {k for k in ours if ours[k] != theirs[k]}
-    assert diff == {"model.pretrained_model_name_or_path", "model.quantize.attention"}
+    assert diff == {"model.pretrained_model_name_or_path"}
     assert ours["model.pretrained_model_name_or_path"] is None
-    assert ours["model.quantize.attention"] is False and theirs["model.quantize.attention"]
+    assert ours["model.quantize.attention"] is True
