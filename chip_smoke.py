@@ -18,7 +18,10 @@ embeddings over the same base (the config's rank-16 LoRA on the eight
 attention projections, logit_normal σ, optax.adamw at lr 1e-4, MseLoss,
 clip 1.0, remat "flash_offload"); then the same model at the config's 512²
 operating point (S = 2304, remat "flash"), where its int8 attention runs
-the s_int8 modes of K1 and K2 (path A).  In phases:
+the s_int8 modes of K1 and K2 (path A); then the same DiT over the W4A16
+`int4` base (the config with quantize.dtype int4 and attention off) at 512²
+with QFLUX_FUSED_INT4=1, where every GEMM that JAX's fused kernel takes
+runs K6a and its dx K6b (path C).  In phases:
 
   1. device: the card's name and power limit (nvidia-smi); TF32 off;
   2. build: the hand-written kernels from qflux_tpu_torch/csrc;
@@ -41,8 +44,8 @@ the s_int8 modes of K1 and K2 (path A).  In phases:
      with median times beside the bound and torch._int_mm;
   8. Qwen predict (the FLUX model freed first): one full-width forward
      through K5a + K1, through the plain requant route + K1 (identical to
-     the bit) and all plain (relative L2 error), then three requests
-     through Trainer.predict_from_embeddings, each checked for uint8
+     the bit) and all plain (relative L2 error), then two requests (bs=1
+     and bs=2) through Trainer.predict_from_embeddings, each checked for uint8
      images, finite latents and exactly 60 K1 and 723 K5a launches per
      forward;
   9. kernel K5b (csrc/rq_int4_bwd.cu), the requant matmul's backward,
@@ -62,13 +65,30 @@ the s_int8 modes of K1 and K2 (path A).  In phases:
      shapes (the prep's int8 operands to the bit), timed beside bf16 K1 /
      K2 and SDPA flash;
  12. Qwen 512² predict with int8 attention (path A): a full-width forward
-     through K1 s_int8 against the plain int8 attention, three requests
+     through K1 s_int8 against the plain int8 attention, two requests
      with exactly 60 K1 s_int8 and 723 K5a launches per denoising step,
      and a profiled step;
  13. Qwen 512² train (path A): one step's LoRA gradients through the
      kernels against the plain int8 attention, then Trainer.fit at bs=1
      and bs=2 with exactly 60 K1 s_int8, 60 K2 s_int8, 1,443 K5a and 712
-     K5b launches per step, then a profiled step.
+     K5b launches per step, then a profiled step;
+ 14. kernel K6a (csrc/int4_fwd.cu), the W4A16 matmul, against its plain
+     version (the int4-requant model freed first) at every GEMM shape of
+     path C that `supports` admits, M in {1, 2, 256, 2048, 4096} (relative
+     L2 4e-3, max 2 bf16 ulps), with times of the kernel alone beside the
+     bound, the plain version, cuBLAS on the dequantized weight and JAX's
+     default dequant route;
+ 15. kernel K6b (csrc/int4_bwd.cu), its backward, in the same way at the dx
+     of every K6a case;
+ 16. Qwen 512² predict over the int4 base (path C): a full-width forward
+     through K6a + K1 against the plain W4A16 route and against the
+     default dequant route (which launches no K6a), three requests with
+     exactly 60 K1 and 841 K6a launches per denoising step, a profiled
+     step;
+ 17. Qwen 512² train over the int4 base (path C): one step's LoRA
+     gradients through K6a + K6b + K1 + K2 against the plain path, then
+     Trainer.fit at bs=1 and bs=2 with exactly 60 K1, 60 K2, 1,561 K6a and
+     711 K6b launches per step, then a profiled step.
 
 Each path runs with the launch counts set to 0 just before it and read just
 after.  Prints the kernel table as one JSON line before the last (each
@@ -85,6 +105,7 @@ import copy
 import dataclasses
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -136,7 +157,10 @@ GRAD_REL_TOL = 1e-1
 QWEN_GRAD_REL_TOL = 1e-1
 STEPS = 20
 HEIGHT = WIDTH = 512
-TRAIN_STEPS = 4  # Trainer.fit steps at each batch size
+TRAIN_STEPS = 4  # Trainer.fit steps at each batch size (FLUX, path C)
+# paths B and A, cut to stay within the smoke's time budget as path C was
+# added: two fit steps at each batch size and one request at each
+EARLIER_TRAIN_STEPS = 3
 # Qwen-Image-Edit: configs/example_qwen_single_chip_832x576.yaml as the port
 # reads it, with one cut: no checkpoint path (the weights are synthetic, from
 # a seed).  quantize.attention is on, as in the file: at 832×576 (S = 4000)
@@ -686,7 +710,7 @@ def _qwen_request(rng, cfg, gh, gw, b):
 def phase_qwen_predict(card: str):
     """The 20B Qwen-Image-Edit predict path over the int4-requant base.
     Returns the trainer (its model stays loaded for the train phase) and the
-    K1 and K5a launches of the three requests."""
+    K1 and K5a launches of the two requests."""
     from qflux_tpu_torch.config import config_from_dict
     from qflux_tpu_torch.ops import flash_nr, int4_matmul
     from qflux_tpu_torch.ops.layers import iter_dense_paths, merge_lora, set_int4_impl
@@ -760,10 +784,10 @@ def phase_qwen_predict(card: str):
     del v_k, v_p, v_int4_plain, batch
     torch.cuda.empty_cache()
 
-    # the main path: three requests, counts reset just before
+    # the main path: two requests, counts reset just before
     flash_nr.KERNEL_LAUNCHES = int4_matmul.RQ_KERNEL_LAUNCHES = 0
     flash_nr.INT8_KERNEL_LAUNCHES = 0
-    for i, (b, seed) in enumerate([(1, 42), (1, 43), (2, 44)]):
+    for i, (b, seed) in enumerate([(1, 42), (2, 44)]):
         emb = _qwen_request(rng, cfg, gh, gw, b)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -813,16 +837,17 @@ def _qwen_train_batch(rng, cfg, gh, gw, b):
     return emb
 
 
-COUNT_NAMES = "K1/K2/K5a/K5b/K1 s_int8/K2 s_int8"
+COUNT_NAMES = "K1/K2/K5a/K5b/K1 s_int8/K2 s_int8/K6a/K6b"
 
 
 def _launch_counts() -> tuple[int, ...]:
-    """(K1, K2, K5a, K5b, K1 s_int8, K2 s_int8) launches so far."""
+    """(K1, K2, K5a, K5b, K1 s_int8, K2 s_int8, K6a, K6b) launches so far."""
     from qflux_tpu_torch.ops import flash_nr, int4_matmul
 
     return (flash_nr.KERNEL_LAUNCHES, flash_nr.BWD_KERNEL_LAUNCHES,
             int4_matmul.RQ_KERNEL_LAUNCHES, int4_matmul.RQ_BWD_KERNEL_LAUNCHES,
-            flash_nr.INT8_KERNEL_LAUNCHES, flash_nr.INT8_BWD_KERNEL_LAUNCHES)
+            flash_nr.INT8_KERNEL_LAUNCHES, flash_nr.INT8_BWD_KERNEL_LAUNCHES,
+            int4_matmul.INT4_KERNEL_LAUNCHES, int4_matmul.INT4_BWD_KERNEL_LAUNCHES)
 
 
 def _reset_counts() -> None:
@@ -831,6 +856,7 @@ def _reset_counts() -> None:
     flash_nr.KERNEL_LAUNCHES = flash_nr.BWD_KERNEL_LAUNCHES = 0
     flash_nr.INT8_KERNEL_LAUNCHES = flash_nr.INT8_BWD_KERNEL_LAUNCHES = 0
     int4_matmul.RQ_KERNEL_LAUNCHES = int4_matmul.RQ_BWD_KERNEL_LAUNCHES = 0
+    int4_matmul.INT4_KERNEL_LAUNCHES = int4_matmul.INT4_BWD_KERNEL_LAUNCHES = 0
 
 
 def phase_qwen_train(card: str, trainer) -> tuple[int, ...]:
@@ -853,7 +879,7 @@ def phase_qwen_train(card: str, trainer) -> tuple[int, ...]:
     # output reaches the loss: 6 in block 0 (its q/k/v inputs carry none),
     # 12 in each middle block, 9 in the last (its add_out and text MLP feed
     # only the dropped text stream), 1 for proj_out
-    per_step = (n, n, 2 * 12 * n + 3, 6 + 12 * (n - 2) + 9 + 1, 0, 0)
+    per_step = (n, n, 2 * 12 * n + 3, 6 + 12 * (n - 2) + 9 + 1, 0, 0, 0, 0)
     # the two LoRA layers the loss does not reach: the last block's text
     # queries and text output projection
     zero_grad = {f"blocks/{n - 1}/attn/add_q", f"blocks/{n - 1}/attn/add_out"}
@@ -973,8 +999,8 @@ def phase_qwen_train(card: str, trainer) -> tuple[int, ...]:
     # the main path: Trainer.fit, counts reset just before each run
     totals = [0] * len(per_step)
     for b in (1, 2):
-        tt = make_trainer(TRAIN_STEPS)
-        batches = [_qwen_train_batch(rng, cfg, gh, gw, b) for _ in range(TRAIN_STEPS)]
+        tt = make_trainer(EARLIER_TRAIN_STEPS)
+        batches = [_qwen_train_batch(rng, cfg, gh, gw, b) for _ in range(EARLIER_TRAIN_STEPS)]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()
@@ -994,7 +1020,7 @@ def phase_qwen_train(card: str, trainer) -> tuple[int, ...]:
               + ", ".join(f"{h['lr']:g}" for h in hist)
               + f", {COUNT_NAMES} launches {launched} [{card}]", flush=True)
         want = tuple(len(hist) * c for c in per_step)
-        if len(hist) != TRAIN_STEPS or not all(np.isfinite(h["loss"]) for h in hist):
+        if len(hist) != EARLIER_TRAIN_STEPS or not all(np.isfinite(h["loss"]) for h in hist):
             raise AssertionError(f"Qwen fit bs={b}: {len(hist)} steps or non-finite losses")
         if launched != want:
             raise AssertionError(f"Qwen fit bs={b}: {COUNT_NAMES} launched {launched} times, "
@@ -1147,8 +1173,8 @@ def phase_qwen512_predict(card: str, trainer) -> tuple[int, int]:
     """Path A, predict: the Qwen model of path B (quantize.attention on) at
     512² with one control image and 256 text tokens (S = 2304), where the
     int8 score GEMM applies.  A full-width forward through K5a + K1 s_int8
-    against K5a + the plain int8 attention ("int8_plain"); then three
-    requests (bs 1, 1, 2) through Trainer.predict_from_embeddings, each with
+    against K5a + the plain int8 attention ("int8_plain"); then two
+    requests (bs 1, 2) through Trainer.predict_from_embeddings, each with
     exactly 60 K1 s_int8 and 723 K5a launches per denoising step and no bf16
     K1.  Returns the K1 s_int8 and K5a launches of the requests."""
     from qflux_tpu_torch.ops import flash_nr
@@ -1183,7 +1209,7 @@ def phase_qwen512_predict(card: str, trainer) -> tuple[int, int]:
           f"s_int8 vs K5a + plain int8 attention: rel L2 err {rel:.3e} (tol {FORWARD_REL_TOL}), "
           f"|v| rms {v_p.pow(2).mean().sqrt().item():.4f}; {COUNT_NAMES} launches {launched} "
           f"[{card}]", flush=True)
-    if launched != (0, 0, per_forward, 0, n_blocks, 0):
+    if launched != (0, 0, per_forward, 0, n_blocks, 0, 0, 0):
         raise AssertionError(f"the 512² Qwen forward launched {COUNT_NAMES} {launched} times")
     if not (rel <= FORWARD_REL_TOL and bool(torch.isfinite(v_k).all())):
         raise AssertionError("the 512² Qwen forward through K1 s_int8 disagrees with the plain "
@@ -1191,10 +1217,10 @@ def phase_qwen512_predict(card: str, trainer) -> tuple[int, int]:
     del v_k, v_p, batch
     torch.cuda.empty_cache()
 
-    # the main path: three requests, counts reset just before
+    # the main path: two requests, counts reset just before
     _reset_counts()
     secs_by_b = {1: [], 2: []}
-    for i, (b, seed) in enumerate([(1, 52), (1, 53), (2, 54)]):
+    for i, (b, seed) in enumerate([(1, 52), (2, 54)]):
         emb = _qwen_request(rng, cfg, gh, gw, b)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1215,7 +1241,7 @@ def phase_qwen512_predict(card: str, trainer) -> tuple[int, int]:
             raise AssertionError(f"Qwen 512² request {i}: images {images.dtype} {images.shape}")
         if not stats["latents_finite"]:
             raise AssertionError(f"Qwen 512² request {i}: non-finite latents")
-        want = (0, 0, STEPS * per_forward, 0, STEPS * n_blocks, 0)
+        want = (0, 0, STEPS * per_forward, 0, STEPS * n_blocks, 0, 0, 0)
         if launched != want:
             raise AssertionError(f"Qwen 512² request {i}: {COUNT_NAMES} launched {launched} "
                                  f"times, expected {want}")
@@ -1240,7 +1266,7 @@ def phase_qwen512_train(card: str, trainer) -> tuple[int, ...]:
     """Path A, train: the LoRA train step at 512² (S = 2304) on path B's
     model under remat "flash" (the config's 512² operating point).  One
     step's LoRA gradients through the kernels against the plain int8
-    attention (remat "full"); then Trainer.fit, 4 steps at bs=1 and at
+    attention (remat "full"); then Trainer.fit, 3 steps at bs=1 and at
     bs=2, each step launching K1 and K2 s_int8 60 times, K5a 1,443 and K5b
     712 times, and bf16 K1 / K2 never; then a profiled step.  Returns the
     launches of the fit runs (_launch_counts' order)."""
@@ -1253,7 +1279,7 @@ def phase_qwen512_train(card: str, trainer) -> tuple[int, ...]:
 
     dit, cfg = trainer.bundle.dit_params, trainer.bundle.dit_cfg
     n = cfg.num_layers
-    per_step = (0, 0, 2 * 12 * n + 3, 6 + 12 * (n - 2) + 9 + 1, n, n)
+    per_step = (0, 0, 2 * 12 * n + 3, 6 + 12 * (n - 2) + 9 + 1, n, n, 0, 0)
     zero_grad = {f"blocks/{n - 1}/attn/add_q", f"blocks/{n - 1}/attn/add_out"}
     rng = np.random.default_rng(14)
     gen = torch.Generator("cuda").manual_seed(15)
@@ -1313,8 +1339,8 @@ def phase_qwen512_train(card: str, trainer) -> tuple[int, ...]:
     # the main path: Trainer.fit, counts reset just before each run
     totals = [0] * len(per_step)
     for b in (1, 2):
-        tt = make_trainer(TRAIN_STEPS)
-        batches = [_qwen_train_batch(rng, cfg, gh, gw, b) for _ in range(TRAIN_STEPS)]
+        tt = make_trainer(EARLIER_TRAIN_STEPS)
+        batches = [_qwen_train_batch(rng, cfg, gh, gw, b) for _ in range(EARLIER_TRAIN_STEPS)]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()
@@ -1331,7 +1357,7 @@ def phase_qwen512_train(card: str, trainer) -> tuple[int, ...]:
               "bytes, loss " + ", ".join(f"{h['loss']:.5f}" for h in hist)
               + f", {COUNT_NAMES} launches {launched} [{card}]", flush=True)
         want = tuple(len(hist) * c for c in per_step)
-        if len(hist) != TRAIN_STEPS or not all(np.isfinite(h["loss"]) for h in hist):
+        if len(hist) != EARLIER_TRAIN_STEPS or not all(np.isfinite(h["loss"]) for h in hist):
             raise AssertionError(f"Qwen 512² fit bs={b}: {len(hist)} steps or non-finite losses")
         if launched != want:
             raise AssertionError(f"Qwen 512² fit bs={b}: {COUNT_NAMES} launched {launched} "
@@ -1355,8 +1381,482 @@ def phase_qwen512_train(card: str, trainer) -> tuple[int, ...]:
     return tuple(totals)
 
 
+# Path C: the same Qwen-Image-Edit 20B DiT over the W4A16 `int4` base
+# (quantize.dtype int4, JAX's kernel_q4) at the 512² operating point, with
+# QFLUX_FUSED_INT4=1: every GEMM of a shape JAX's fused kernel takes (K %
+# 3072, N % 128, group 128) runs K6a, and its dx K6b.  The published config
+# with two changes (dtype int4_requant → int4, attention dropped: bf16
+# attention) and its 512² setting remat "flash".
+QWEN_INT4 = copy.deepcopy(QWEN_832X576)
+QWEN_INT4["model"]["quantize"] = {"enabled": True, "dtype": "int4"}
+QWEN_INT4["mesh"]["remat"] = "flash"
+FUSED_INT4 = "QFLUX_FUSED_INT4"  # JAX's opt-in (qflux_tpu/ops/layers.py:150), read at call time
+# the K6 cases: M = 1 and 2 (the AdaLN mods and time_in at bs=1 / 2, f32 in
+# and out), 256 (the text stream), 2048 and 4096 (the image stream at bs=1
+# / 2, bf16) × every (K, N) of the Qwen DiT that `supports` admits
+INT4_KN = [(3072, 3072), (3072, 12288), (12288, 3072), (3072, 18432)]
+INT4_CASES = [(m, k, n) for m in (1, 2, 256, 2048, 4096) for k, n in INT4_KN]
+INT4_MAIN = (2048, 3072, 12288)  # the MLP up-projection at bs=1: the case the table reports
+# K6a / K6b against their plain versions: the same bf16 weights and
+# activations on both sides (every product exact in f32), the f32 sums in
+# another order, one rounding of each output: relative L2 4e-3 (one bf16 ulp
+# is 2^-8 = 3.9e-3 relative) and max |diff| 2 bf16 ulps of max |ref| (2^-6 of
+# it); a wrong nibble, plane or scale row gives O(1)
+INT4_REL_TOL, INT4_MAX_TOL = 4e-3, 2 ** -6
+# the L2 cache: each timed call reads another copy of the weight, so the
+# weights timed together exceed it, as each GEMM of a forward finds its weight
+# cold
+L2_BYTES = 50e6
+
+
+def _int4_case(gen, m, k_in, n):
+    """Weights U(±1/sqrt(K)) quantized to int4 (group 128), enough copies of
+    (q4, scale) to exceed the L2 cache three times, and x (f32 for M ≤ 2, as
+    the mods' SiLU(temb), bf16 otherwise)."""
+    from qflux_tpu_torch.ops import quant
+
+    w = (torch.rand(k_in, n, device="cuda", generator=gen) * 2 - 1) / k_in ** 0.5
+    q4, scale = quant.quantize_kernel_int4(w, 128)
+    copies = max(2, int(np.ceil(3 * L2_BYTES / (q4.numel() + scale.numel() * 4))))
+    weights = [(q4.clone(), scale.clone()) for _ in range(copies)]
+    dtype = torch.float32 if m <= 2 else torch.bfloat16
+    x = torch.randn(m, k_in, device="cuda", generator=gen).to(dtype)
+    return weights, x
+
+
+def _rotating_ms(fn, copies, reps=20, n=5) -> float:
+    """Median over n windows of the mean device time of `reps` back-to-back
+    calls fn(i), each on copy i % copies of the weights (CUDA events around
+    the window)."""
+    for i in range(2):
+        fn(i)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(n):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for i in range(reps):
+            fn(i % copies)
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1) / reps)
+    return statistics.median(times)
+
+
+def _int4_check(got, want) -> tuple[float, float, bool]:
+    want = want.float()
+    diff = got.float() - want
+    rel = (diff.norm() / want.norm()).item()
+    err = diff.abs().max().item()
+    ok = (rel <= INT4_REL_TOL and err <= INT4_MAX_TOL * want.abs().max().item()
+          and bool(torch.isfinite(got).all()))
+    return rel, err, ok
+
+
+def phase_int4_kernel(card: str) -> dict:
+    """K6a against int4_matmul_reference at INT4_CASES, through the custom
+    op.  Times (CUDA events, the weights rotated past the L2 cache): K6a
+    alone (the C entry point on pre-cast bf16 x into a preallocated output:
+    no wrapper work), the plain version, cuBLAS bf16 torch.mm on the weight
+    dequantized once (the library call; a yardstick only, the port never
+    calls it), and JAX's default route as the port runs it (dequantize to
+    x.dtype, then the f32-result product of ops/layers._matmul_f32)."""
+    from qflux_tpu_torch.ops import int4_matmul, quant
+    from qflux_tpu_torch.ops.layers import _matmul_f32
+    from qflux_tpu_torch.runtime.build import load_library
+
+    lib = load_library().lib
+    gen = torch.Generator("cuda").manual_seed(16)
+    main = None
+    for m, k_in, n in INT4_CASES:
+        weights, x = _int4_case(gen, m, k_in, n)
+        q4, scale = weights[0]
+        got = int4_matmul.int4_matmul(x, q4, scale)
+        torch.cuda.synchronize()
+        want = int4_matmul.int4_matmul_reference(x, q4, scale)
+        rel, err, ok = _int4_check(got, want)
+        if not (ok and got.dtype == x.dtype):
+            raise AssertionError(f"K6a disagrees with its plain version at M={m} K={k_in} N={n}: "
+                                 f"rel L2 {rel:.3e}, max |diff| {err:.3e}")
+        xb = x.to(torch.bfloat16)
+        out = torch.empty(m, n, device="cuda", dtype=x.dtype)
+        stream = torch.cuda.current_stream().cuda_stream
+        f32 = int(x.dtype == torch.float32)
+        c = len(weights)
+        ms = _rotating_ms(lambda i: lib.qflux_int4_fwd(
+            xb.data_ptr(), weights[i][0].data_ptr(), weights[i][1].data_ptr(), out.data_ptr(),
+            m, n, k_in, k_in // 128, f32, stream), c)
+        plain_ms = _rotating_ms(lambda i: int4_matmul.int4_matmul_reference(x, *weights[i]), c,
+                                reps=3, n=3)
+        dq = [quant.dequantize_kernel_int4(*w, torch.bfloat16) for w in weights]
+        lib_ms = _rotating_ms(lambda i: torch.mm(xb, dq[i]), c)
+        del dq
+        route_ms = _rotating_ms(lambda i: _matmul_f32(
+            x, quant.dequantize_kernel_int4(*weights[i], x.dtype).t()), c)
+        ops = 2.0 * m * k_in * n
+        # x (bf16, as the kernel reads it), q4, the scales read once; out written once
+        n_bytes = 2 * m * k_in + k_in * n // 2 + 4 * (k_in // 128) * n + m * n * x.element_size()
+        bound = _bound(n_bytes, ops, PEAK_BF16_PER_MS)
+        print(f"[int4] M={m} K={k_in} N={n} x {str(x.dtype)[6:]}: rel L2 {rel:.3e} (tol "
+              f"{INT4_REL_TOL}), max |kernel - plain| {err:.3e}; K6a {ms:.4f} ms "
+              f"({ops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, cuBLAS bf16 on the "
+              f"dequantized weight {lib_ms:.4f} ms, default route (dequant + f32-result "
+              f"product) {route_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}) [{card}]", flush=True)
+        if (m, k_in, n) == INT4_MAIN:
+            main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "default_route_ms": route_ms, **bound}
+        del weights, x, got, want, xb, out
+        torch.cuda.empty_cache()
+    return main
+
+
+def phase_int4_bwd_kernel(card: str) -> dict:
+    """K6b against int4_matmul_dx_reference at the dx of every INT4_CASES
+    case (g [M, N] in x's dtype → dx [M, K]), through int4_matmul's
+    backward.  Times as phase_int4_kernel's: K6b alone on pre-cast bf16 g,
+    the plain version, cuBLAS bf16 torch.mm(g, Wᵀ) on the weight dequantized
+    once, and the default route's backward work as the port runs it
+    (dequantize, then _MatmulF32Out's dx product)."""
+    from qflux_tpu_torch.ops import int4_matmul, quant
+    from qflux_tpu_torch.runtime.build import load_library
+
+    lib = load_library().lib
+    gen = torch.Generator("cuda").manual_seed(17)
+    main = None
+    for m, k_in, n in INT4_CASES:
+        weights, x = _int4_case(gen, m, k_in, n)
+        q4, scale = weights[0]
+        g = torch.randn(m, n, device="cuda", generator=gen).to(x.dtype)
+        x.requires_grad_()
+        int4_matmul.int4_matmul(x, q4, scale).backward(g)
+        torch.cuda.synchronize()
+        got = x.grad
+        want = int4_matmul.int4_matmul_dx_reference(g, q4, scale)
+        rel, err, ok = _int4_check(got, want)
+        if not (ok and got.dtype == g.dtype):
+            raise AssertionError(f"K6b disagrees with its plain version at M={m} K={k_in} N={n}: "
+                                 f"rel L2 {rel:.3e}, max |diff| {err:.3e}")
+        gb = g.to(torch.bfloat16)
+        dx = torch.empty(m, k_in, device="cuda", dtype=g.dtype)
+        stream = torch.cuda.current_stream().cuda_stream
+        f32 = int(g.dtype == torch.float32)
+        c = len(weights)
+        ms = _rotating_ms(lambda i: lib.qflux_int4_bwd(
+            gb.data_ptr(), weights[i][0].data_ptr(), weights[i][1].data_ptr(), dx.data_ptr(),
+            m, n, k_in, k_in // 128, f32, stream), c)
+        plain_ms = _rotating_ms(lambda i: int4_matmul.int4_matmul_dx_reference(g, *weights[i]),
+                                c, reps=3, n=3)
+        dq = [quant.dequantize_kernel_int4(*w, torch.bfloat16) for w in weights]
+        lib_ms = _rotating_ms(lambda i: torch.mm(gb, dq[i].t()), c)
+        del dq
+        route_ms = _rotating_ms(lambda i: torch.mm(
+            g, quant.dequantize_kernel_int4(*weights[i], g.dtype).t()), c)
+        ops = 2.0 * m * k_in * n
+        # g (bf16, as the kernel reads it), q4, the scales read once; dx written once
+        n_bytes = 2 * m * n + k_in * n // 2 + 4 * (k_in // 128) * n + m * k_in * g.element_size()
+        bound = _bound(n_bytes, ops, PEAK_BF16_PER_MS)
+        print(f"[int4_bwd] dx of M={m} K={k_in} N={n} g {str(g.dtype)[6:]}: rel L2 {rel:.3e} "
+              f"(tol {INT4_REL_TOL}), max |kernel - plain| {err:.3e}; K6b {ms:.4f} ms "
+              f"({ops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, cuBLAS bf16 on the "
+              f"dequantized weight {lib_ms:.4f} ms, default route (dequant + dx product) "
+              f"{route_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}) "
+              f"[{card}]", flush=True)
+        if (m, k_in, n) == INT4_MAIN:
+            main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "default_route_ms": route_ms, **bound}
+        del weights, x, g, got, want, gb, dx
+        torch.cuda.empty_cache()
+    return main
+
+
+def _int4_trainer():
+    """Path C's Trainer with its model loaded: the 20B DiT drawn and
+    quantized to the W4A16 form block by block.  Returns (trainer, load s)."""
+    from qflux_tpu_torch.config import config_from_dict
+    from qflux_tpu_torch.trainer.base import Trainer
+
+    trainer = Trainer(config_from_dict(QWEN_INT4), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.load_model()
+    torch.cuda.synchronize()
+    return trainer, time.perf_counter() - t0
+
+
+def phase_int4_predict(card: str):
+    """Path C, predict: the 20B DiT over the `int4` base at 512² (S = 2304),
+    QFLUX_FUSED_INT4=1.  One full-width forward through K6a + K1 against the
+    plain W4A16 route (set_int4_impl "plain") and against JAX's default
+    dequant route (the opt-in unset, which must launch no K6a); then three
+    requests (bs 1, 1, 2) through Trainer.predict_from_embeddings, each with
+    exactly 60 K1 and 841 K6a launches per denoising step and nothing else;
+    then a profiled step.  Returns the trainer and the K1 and K6a launches
+    of the requests."""
+    from qflux_tpu_torch.ops.layers import iter_dense_paths, merge_lora, set_int4_impl
+
+    trainer, load_s = _int4_trainer()
+    dit, cfg = trainer.bundle.dit_params, trainer.bundle.dit_cfg
+    denses = [m for _, m in iter_dense_paths(dit)]
+    quantized = [m for m in denses if m.q4 is not None]
+    if {m.q4_form for m in quantized} != {"int4"}:
+        raise AssertionError("path C's base is not all W4A16")
+    b_q = sum(m.q4.numel() + m.scale.numel() * 4 for m in quantized)
+    b_full = sum(p.numel() * p.element_size() for p in dit.parameters())
+    print(f"[int4] DiT {cfg.num_layers} blocks, dim {cfg.dim}, {len(quantized)} of "
+          f"{len(denses)} dense layers W4A16 int4: {b_q} bytes of packed nibbles and group "
+          f"scales, {b_full} bytes bf16; loaded in {load_s:.1f} s, peak "
+          f"{torch.cuda.max_memory_allocated()} bytes [{card}]", flush=True)
+    n_blocks = cfg.num_layers
+    # K6a per forward: per block the eight attention projections, the four
+    # MLP GEMMs and the two AdaLN mods; time_in's second linear.  img_in (K =
+    # 64), txt_in (K = 3584), time_in's first linear (K = 256) and proj_out
+    # (N = 64) fail `supports` and take the dequant route
+    per_forward = 14 * n_blocks + 1
+    fwd_counts = (n_blocks, 0, 0, 0, 0, 0, per_forward, 0)
+    rng = np.random.default_rng(18)
+    gen = torch.Generator("cuda").manual_seed(19)
+    gh, gw = trainer.adapter.latent_grid(QWEN512, QWEN512)
+    s = QWEN_TXT + 2 * gh * gw
+    lora = trainer.build_lora()
+    _perturb_b(lora, gen)
+    batch = trainer._device_batch(_qwen_request(rng, cfg, gh, gw, 1))
+    lat = torch.randn(1, gh * gw, cfg.in_channels, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    sigma = torch.full((1,), 1.0, dtype=torch.bfloat16, device="cuda")
+    merge_lora(dit, lora)
+    try:
+        with torch.inference_mode():
+            os.environ[FUSED_INT4] = "1"
+            c0 = _launch_counts()
+            v_k = trainer.adapter.predict_velocity(dit, batch, lat, sigma).float()
+            launched = tuple(b - a for a, b in zip(c0, _launch_counts()))
+            set_int4_impl(dit, "plain")
+            v_p = trainer.adapter.predict_velocity(dit, batch, lat, sigma).float()
+            set_int4_impl(dit, "auto")
+            del os.environ[FUSED_INT4]
+            c0 = _launch_counts()
+            v_d = trainer.adapter.predict_velocity(dit, batch, lat, sigma).float()
+            launched_default = tuple(b - a for a, b in zip(c0, _launch_counts()))
+    finally:
+        set_int4_impl(dit, "auto")
+        os.environ.pop(FUSED_INT4, None)
+        merge_lora(dit, None)
+    rel_p = (torch.linalg.vector_norm(v_k - v_p) / torch.linalg.vector_norm(v_p)).item()
+    rel_d = (torch.linalg.vector_norm(v_k - v_d) / torch.linalg.vector_norm(v_d)).item()
+    print(f"[int4] full-width forward [1, {gh * gw}, {v_k.shape[-1]}], S = {s}: K6a + K1 vs the "
+          f"plain W4A16 route + K1: rel L2 err {rel_p:.3e} (tol {FORWARD_REL_TOL}); vs the "
+          f"default dequant route (no opt-in; each GEMM output rounds to bf16 once more on the "
+          f"fused route): {rel_d:.3e} (tol {FORWARD_REL_TOL}); |v| rms "
+          f"{v_d.pow(2).mean().sqrt().item():.4f}; {COUNT_NAMES} launches {launched} with the "
+          f"opt-in, {launched_default} without [{card}]", flush=True)
+    if launched != fwd_counts:
+        raise AssertionError(f"the int4 forward launched {COUNT_NAMES} {launched}, expected "
+                             f"{fwd_counts}")
+    if launched_default != (n_blocks, 0, 0, 0, 0, 0, 0, 0):
+        raise AssertionError(f"the int4 forward without {FUSED_INT4} launched {COUNT_NAMES} "
+                             f"{launched_default}: K6a must not run")
+    if not (rel_p <= FORWARD_REL_TOL and rel_d <= FORWARD_REL_TOL
+            and bool(torch.isfinite(v_k).all())):
+        raise AssertionError("the int4 forward through K6a disagrees with the plain W4A16 or "
+                             "the default route")
+    del v_k, v_p, v_d, batch
+    torch.cuda.empty_cache()
+
+    # the main path: three requests with the opt-in, counts reset just before
+    os.environ[FUSED_INT4] = "1"
+    try:
+        _reset_counts()
+        secs_by_b = {1: [], 2: []}
+        for i, (b, seed) in enumerate([(1, 62), (1, 63), (2, 64)]):
+            emb = _qwen_request(rng, cfg, gh, gw, b)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            c0 = _launch_counts()
+            t0 = time.perf_counter()
+            images = trainer.predict_from_embeddings(emb, QWEN512, QWEN512, lora=lora, seed=seed)
+            secs = time.perf_counter() - t0
+            stats = trainer.last_predict
+            launched = tuple(b_ - a for a, b_ in zip(c0, _launch_counts()))
+            step_ms = 1000 * stats["denoise_s"] / stats["steps"]
+            secs_by_b[b].append(step_ms)
+            print(f"[int4] request {i}: bs={b} seed={seed} {secs:.3f} s, {step_ms:.1f} "
+                  f"ms/denoising step ({stats['steps']} steps), VAE decode "
+                  f"{1000 * stats['decode_s']:.1f} ms, peak mem "
+                  f"{torch.cuda.max_memory_allocated()} bytes, {COUNT_NAMES} launches "
+                  f"{launched}, images {images.dtype} {list(images.shape)} mean "
+                  f"{images.mean():.2f} [{card}]", flush=True)
+            if images.dtype != np.uint8 or images.shape != (b, QWEN512, QWEN512, 3):
+                raise AssertionError(f"int4 request {i}: images {images.dtype} {images.shape}")
+            if not stats["latents_finite"]:
+                raise AssertionError(f"int4 request {i}: non-finite latents")
+            want = tuple(STEPS * c for c in fwd_counts)
+            if launched != want:
+                raise AssertionError(f"int4 request {i}: {COUNT_NAMES} launched {launched} "
+                                     f"times, expected {want}")
+        counts = _launch_counts()
+        for b, ms in secs_by_b.items():
+            print(f"[int4] predict bs={b}: ms/denoising step median {statistics.median(ms):.1f}, "
+                  f"spread {min(ms):.1f}-{max(ms):.1f} over {len(ms)} requests [{card}]",
+                  flush=True)
+        batch = trainer._device_batch(_qwen_request(rng, cfg, gh, gw, 1))
+        merge_lora(dit, lora)
+
+        def denoising_step():
+            with torch.inference_mode():
+                trainer.adapter.predict_velocity(dit, batch, lat, sigma)
+
+        _profile(card, f"one Qwen denoising step over the int4 base at 512², bs=1, S = {s}",
+                 denoising_step)
+    finally:
+        os.environ.pop(FUSED_INT4, None)
+        merge_lora(dit, None)
+    return trainer, counts[0], counts[6]
+
+
+def phase_int4_train(card: str, trainer) -> tuple[int, ...]:
+    """Path C, train: the LoRA train step over the `int4` base at 512² under
+    remat "flash", QFLUX_FUSED_INT4=1, on the predict phase's model.  One
+    step's LoRA gradients through K6a + K6b + K1 + K2 against the plain
+    W4A16 route + plain attention (remat "full"); then Trainer.fit, 4 steps
+    at bs=1 and at bs=2, each step launching K1 and K2 60 times, K6a 1,561
+    and K6b 711 times and nothing else; then a profiled step.  Returns the
+    launches of the fit runs (_launch_counts' order)."""
+    from qflux_tpu_torch.config import config_from_dict
+    from qflux_tpu_torch.losses import MseLoss
+    from qflux_tpu_torch.ops.layers import mark_trainable, set_int4_impl
+    from qflux_tpu_torch.trainer.base import Trainer
+    from qflux_tpu_torch.trainer.train_step import (TrainStepConfig, _loss_for_microbatch,
+                                                    lora_leaves, make_train_step)
+
+    dit, cfg = trainer.bundle.dit_params, trainer.bundle.dit_cfg
+    n = cfg.num_layers
+    # per step: K1 / K2 once a block; K6a 841 in the forward + 12 a block in
+    # the recompute (the mods and time_in run outside the checkpointed
+    # blocks, on σ alone); K6b wherever the GEMM's input needs a gradient and
+    # its output reaches the loss: 6 in block 0 (its q/k/v inputs carry
+    # none), 12 in each middle block, 9 in the last (its add_out and text MLP
+    # feed only the dropped text stream); proj_out takes the dequant route
+    per_step = (n, n, 0, 0, 0, 0, 14 * n + 1 + 12 * n, 6 + 12 * (n - 2) + 9)
+    zero_grad = {f"blocks/{n - 1}/attn/add_q", f"blocks/{n - 1}/attn/add_out"}
+    rng = np.random.default_rng(20)
+    gen = torch.Generator("cuda").manual_seed(21)
+    gh, gw = trainer.adapter.latent_grid(QWEN512, QWEN512)
+    s = QWEN_TXT + 2 * gh * gw
+
+    def make_trainer(steps):
+        raw = copy.deepcopy(QWEN_INT4)
+        raw["train"]["max_train_steps"] = steps
+        tt = Trainer(config_from_dict(raw), device="cuda")
+        tt.adapter, tt.bundle = trainer.adapter, trainer.bundle
+        return tt
+
+    os.environ[FUSED_INT4] = "1"
+    try:
+        # one step's LoRA gradients: kernels (flash) vs plain W4A16 + plain attention (full)
+        tt = make_trainer(1)
+        lora = mark_trainable(tt.build_lora())
+        _perturb_b(lora, gen)
+        batch = tt._device_batch(_qwen_train_batch(rng, cfg, gh, gw, 1))
+        noise = torch.randn(batch["image_latents"].shape, device="cuda", generator=gen).to(
+            torch.bfloat16)
+        sigma = torch.full((1,), 0.6, device="cuda", dtype=torch.bfloat16)
+        grads = {}
+        plain = dataclasses.replace(trainer.adapter, attn_impl="plain", remat_policy="full")
+        for name, adapter in (("kernels", trainer.adapter), ("plain", plain)):
+            set_int4_impl(dit, "auto" if name == "kernels" else "plain")
+            for leaf in lora.values():
+                for t in leaf.values():
+                    t.grad = None
+            torch.cuda.synchronize()
+            c0 = _launch_counts()
+            t0 = time.perf_counter()
+            loss = _loss_for_microbatch(dit, lora, batch, noise, sigma,
+                                        adapter.predict_velocity, MseLoss(), TrainStepConfig())
+            loss.backward()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launched = tuple(b - a for a, b in zip(c0, _launch_counts()))
+            grads[name] = {p: torch.cat([torch.zeros_like(leaf[k]).flatten()
+                                         if leaf[k].grad is None else leaf[k].grad.flatten()
+                                         for k in ("a", "b")]) for p, leaf in lora.items()}
+            print(f"[int4_train] gradient check, {name}: loss {loss.item():.5f}, forward + "
+                  f"backward {secs:.3f} s, {COUNT_NAMES} launches {launched} [{card}]",
+                  flush=True)
+            if name == "kernels" and launched != per_step:
+                raise AssertionError(f"the int4 kernel step launched {COUNT_NAMES} {launched} "
+                                     f"times, expected {per_step}")
+        set_int4_impl(dit, "auto")
+        gk = torch.cat(list(grads["kernels"].values()))
+        gp = torch.cat(list(grads["plain"].values()))
+        rel = ((gk - gp).norm() / gp.norm()).item()
+        print(f"[int4_train] full-width LoRA gradients, K6a + K6b + K1 + K2 vs the plain W4A16 "
+              f"route + plain attention: rel L2 err {rel:.3e} (tol {QWEN_GRAD_REL_TOL}) "
+              f"[{card}]", flush=True)
+        if not (rel <= QWEN_GRAD_REL_TOL and bool(torch.isfinite(gk).all())):
+            raise AssertionError("int4 LoRA gradients through K6a + K6b disagree with the plain "
+                                 "path")
+        for p, g in grads["kernels"].items():
+            if bool(g.abs().sum() > 0) != (p not in zero_grad):
+                raise AssertionError(f"LoRA layer {p}: gradient through the kernels "
+                                     f"{'zero' if p not in zero_grad else 'nonzero'}")
+        del grads, lora, batch, noise, loss, gk, gp
+        torch.cuda.empty_cache()
+
+        # the main path: Trainer.fit, counts reset just before each run
+        totals = [0] * len(per_step)
+        for b in (1, 2):
+            tt = make_trainer(TRAIN_STEPS)
+            batches = [_qwen_train_batch(rng, cfg, gh, gw, b) for _ in range(TRAIN_STEPS)]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            fitted = tt.fit(batches)
+            launched = _launch_counts()
+            totals = [t + c for t, c in zip(totals, launched)]
+            hist = tt.history
+            ms = [1000 * h["step_s"] for h in hist]
+            warm = ms[1:] if len(ms) > 1 else ms
+            print(f"[int4_train] fit bs={b}: {len(hist)} steps, ms/step "
+                  + ", ".join(f"{m:.1f}" for m in ms)
+                  + f" (median after the first {statistics.median(warm):.1f}, spread "
+                  f"{min(warm):.1f}-{max(warm):.1f}), peak mem "
+                  f"{torch.cuda.max_memory_allocated()} bytes, loss "
+                  + ", ".join(f"{h['loss']:.5f}" for h in hist) + ", grad_norm "
+                  + ", ".join(f"{h['grad_norm']:.4e}" for h in hist)
+                  + f", {COUNT_NAMES} launches {launched} [{card}]", flush=True)
+            want = tuple(len(hist) * c for c in per_step)
+            if len(hist) != TRAIN_STEPS or not all(np.isfinite(h["loss"]) for h in hist):
+                raise AssertionError(f"int4 fit bs={b}: {len(hist)} steps or non-finite losses")
+            if launched != want:
+                raise AssertionError(f"int4 fit bs={b}: {COUNT_NAMES} launched {launched} "
+                                     f"times, expected {want} ({per_step} per step)")
+            for p, leaf in fitted.items():
+                if bool(leaf["b"].abs().sum() > 0) != (p not in zero_grad):
+                    raise AssertionError(f"int4 fit bs={b}: LoRA b of {p} "
+                                         f"{'did not move' if p not in zero_grad else 'moved'}")
+            del fitted, batches
+            torch.cuda.empty_cache()
+
+        # one bs=1 train step under the profiler
+        lora = mark_trainable(tt.build_lora())
+        optimizer, schedule = tt.build_optimizer(lora_leaves(lora)[0])
+        step = make_train_step(tt.adapter.predict_velocity, tt.build_criterion(), optimizer,
+                               schedule, tt._build_step_config())
+        batch = tt._device_batch(_qwen_train_batch(rng, cfg, gh, gw, 1))
+        _profile(card, f"one Qwen train step over the int4 base at 512², bs=1, S = {s}, remat "
+                 "flash", lambda: step(dit, lora, batch, gen)["loss"].item())
+    finally:
+        os.environ.pop(FUSED_INT4, None)
+        set_int4_impl(dit, "auto")
+    return tuple(totals)
+
+
 # kernel-name fragments → the groups of the step profiles
 PROFILE_GROUPS = [("K5a rq_int4_fwd", ("rq_int4_fwd",)), ("K5b rq_int4_bwd", ("rq_int4_bwd",)),
+                  # after K5's: "rq_int4_fwd_kernel" contains "int4_fwd_kernel"
+                  ("K6a int4_fwd", ("int4_fwd_kernel",)), ("K6b int4_bwd", ("int4_bwd_kernel",)),
                   ("K1 flash_nr_fwd", ("flash_nr_fwd",)),
                   ("K2 flash_nr_bwd", ("flash_nr_dkv", "flash_nr_dq")),
                   ("K1/K2 prep", ("flash_nr_prep", "flash_nr_quant")),
@@ -1433,20 +1933,34 @@ def main() -> int:
     print(f"[build] {kl.path.name} in {time.perf_counter() - t0:.2f} s "
           f"(nvcc {kl.build_seconds:.2f} s): {' | '.join(ptxas)} [{card}]", flush=True)
 
-    k1_case = phase_kernel(card)
-    k2_case = phase_kernel_bwd(card)
-    trainer, k1_predict = phase_predict(card)
-    k1_train, k2_train = phase_train(card, trainer)
+    def timed(phase, *args):
+        t0 = time.perf_counter()
+        out = phase(card, *args)
+        print(f"[smoke] {phase.__name__}: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+        return out
+
+    k1_case = timed(phase_kernel)
+    k2_case = timed(phase_kernel_bwd)
+    trainer, k1_predict = timed(phase_predict)
+    k1_train, k2_train = timed(phase_train, trainer)
     del trainer  # free the FLUX model before the Qwen one loads
     gc.collect()
     torch.cuda.empty_cache()
-    k5_case = phase_rq_kernel(card)
-    qwen, (k1_qwen, k5_qwen) = phase_qwen_predict(card)
-    k5b_case = phase_rq_bwd_kernel(card)
-    k1_qt, k2_qt, k5_qt, k5b_qt, _, _ = phase_qwen_train(card, qwen)
-    k1_int8_case, k2_int8_case = phase_kernel_int8(card)
-    k1_a, k5_a = phase_qwen512_predict(card, qwen)
-    _, _, k5_at, k5b_at, k1_at, k2_at = phase_qwen512_train(card, qwen)
+    k5_case = timed(phase_rq_kernel)
+    qwen, (k1_qwen, k5_qwen) = timed(phase_qwen_predict)
+    k5b_case = timed(phase_rq_bwd_kernel)
+    k1_qt, k2_qt, k5_qt, k5b_qt = timed(phase_qwen_train, qwen)[:4]
+    k1_int8_case, k2_int8_case = timed(phase_kernel_int8)
+    k1_a, k5_a = timed(phase_qwen512_predict, qwen)
+    _, _, k5_at, k5b_at, k1_at, k2_at = timed(phase_qwen512_train, qwen)[:6]
+    del qwen  # free the int4-requant model before path C's loads
+    gc.collect()
+    torch.cuda.empty_cache()
+    k6_case = timed(phase_int4_kernel)
+    k6b_case = timed(phase_int4_bwd_kernel)
+    qwen_c, k1_c, k6_c = timed(phase_int4_predict)
+    c_fit = timed(phase_int4_train, qwen_c)
+    k1_ct, k2_ct, k6_ct, k6b_ct = c_fit[0], c_fit[1], c_fit[6], c_fit[7]
 
     print(f"[smoke] wall time {time.perf_counter() - t_start:.1f} s (build included) [{card}]",
           flush=True)
@@ -1454,14 +1968,16 @@ def main() -> int:
         {"name": "flash_nr_fwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/flash_nr_fwd.cu",
          "replaces": "qflux_tpu/ops/flash_nr.py:192",
-         "launches": k1_predict + k1_train + k1_qwen + k1_qt,
+         "launches": k1_predict + k1_train + k1_qwen + k1_qt + k1_c + k1_ct,
          "launches_by_path": {"predict": k1_predict, "train": k1_train,
-                              "qwen_predict": k1_qwen, "qwen_train": k1_qt}, **k1_case},
+                              "qwen_predict": k1_qwen, "qwen_train": k1_qt,
+                              "int4_predict": k1_c, "int4_train": k1_ct}, **k1_case},
         {"name": "flash_nr_bwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/flash_nr_bwd.cu",
          "replaces": "qflux_tpu/ops/flash_nr.py:311",
-         "launches": k2_train + k2_qt,
-         "launches_by_path": {"train": k2_train, "qwen_train": k2_qt}, **k2_case},
+         "launches": k2_train + k2_qt + k2_ct,
+         "launches_by_path": {"train": k2_train, "qwen_train": k2_qt, "int4_train": k2_ct},
+         **k2_case},
         {"name": "rq_int4_fwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/rq_int4_fwd.cu",
          "replaces": "qflux_tpu/ops/int4_matmul.py:268",
@@ -1482,6 +1998,15 @@ def main() -> int:
          "source": "qflux_tpu_torch/csrc/flash_nr_bwd.cu",
          "replaces": "qflux_tpu/ops/flash_nr.py:311", "mode": "s_int8",
          "launches": k2_at, "launches_by_path": {"qwen512_train": k2_at}, **k2_int8_case},
+        {"name": "int4_fwd", "route": "cuda",
+         "source": "qflux_tpu_torch/csrc/int4_fwd.cu",
+         "replaces": "qflux_tpu/ops/int4_matmul.py:59",
+         "launches": k6_c + k6_ct,
+         "launches_by_path": {"int4_predict": k6_c, "int4_train": k6_ct}, **k6_case},
+        {"name": "int4_bwd", "route": "cuda",
+         "source": "qflux_tpu_torch/csrc/int4_bwd.cu",
+         "replaces": "qflux_tpu/ops/int4_matmul.py:75",
+         "launches": k6b_ct, "launches_by_path": {"int4_train": k6b_ct}, **k6b_case},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

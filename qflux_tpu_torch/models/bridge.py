@@ -8,11 +8,12 @@ them into the port, so that both packages compute on the same weights:
   * stacked `[L, ...]` leaves ("dual", "single") are unstacked into the
     `nn.ModuleList`s;
   * a dense `kernel [in, out]` becomes `weight [out, in]`;
-  * a W4A8-requant dense `{kernel_q4_rq [in/2, out], kernel_scale [in/G,
-    out]}` (qflux_tpu/ops/quant.py:quantize_tree) keeps the JAX layout: the
-    `Dense` takes it with `set_int4_requant`, dropping its full-precision
-    weight.  Every other quantized form (`kernel_q`, `kernel_q_dyn`,
-    `kernel_q4`, `kernel_q4_dyn`) raises;
+  * an int4 dense (qflux_tpu/ops/quant.py:quantize_tree) keeps the JAX
+    layout: `{kernel_q4_rq [in/2, out], kernel_scale [in/G, out]}`
+    (W4A8-requant) goes in with `Dense.set_int4_requant`, `{kernel_q4,
+    kernel_scale}` (W4A16) with `Dense.set_int4`, each dropping the
+    full-precision weight.  Every other quantized form (`kernel_q`,
+    `kernel_q_dyn`, `kernel_q4_dyn`) raises;
   * a conv `kernel` HWIO becomes `weight` OIHW, a 3D one [kt, kh, kw, cin,
     cout] `weight` OIDHW;
   * the JAX MLP nodes "in"/"out" are the modules `lin_in`/`lin_out`.
@@ -49,18 +50,23 @@ def _child(module: nn.Module, key: str) -> nn.Module:
     return child
 
 
+_INT4_LEAVES = ("kernel_q4_rq", "kernel_q4")  # the quantized forms that load
+
+
 def _load(module: nn.Module, tree: Mapping[str, Any], loaded: set, path: str) -> None:
     for key in tree:
-        if key.startswith("kernel_q") and key != "kernel_q4_rq":
+        if key.startswith("kernel_q") and key not in _INT4_LEAVES:
             raise_quantized(key)
-    if "kernel_q4_rq" in tree:
+    for key in _INT4_LEAVES:
+        if key not in tree:
+            continue
         if not isinstance(module, Dense):
-            raise KeyError(f"{path}kernel_q4_rq: {type(module).__name__} is not a dense layer")
+            raise KeyError(f"{path}{key}: {type(module).__name__} is not a dense layer")
         dev = (module.weight if module.weight is not None else module.q4).device
-        q4 = torch.from_numpy(np.array(tree["kernel_q4_rq"], np.int8))
-        scale = torch.from_numpy(_np32(tree["kernel_scale"]))
-        module.set_int4_requant(q4.to(dev), scale.to(dev))
-        tree = {k: v for k, v in tree.items() if k not in ("kernel_q4_rq", "kernel_scale")}
+        q4 = torch.from_numpy(np.array(tree[key], np.int8)).to(dev)
+        scale = torch.from_numpy(_np32(tree["kernel_scale"])).to(dev)
+        (module.set_int4_requant if key == "kernel_q4_rq" else module.set_int4)(q4, scale)
+        tree = {k: v for k, v in tree.items() if k not in (key, "kernel_scale")}
     for key, val in tree.items():
         if isinstance(val, Mapping):
             child = _child(module, key)

@@ -239,7 +239,8 @@ def _single_block(p: SingleBlock, cfg, x, mods, cos, sin, seg, attn_impl):
     return x + gate[:, None, :].to(x.dtype) * out
 
 
-# remat policies of the JAX forward that are not ported (ROADMAP.md, queue 2)
+# remat policies of the JAX forward that are not ported (ROADMAP.md, queue 1:
+# "The rest of slice B, part 3: the remat policies that still raise")
 UNPORTED_REMAT_POLICIES = ("dots", "dots_all", "flash_qkv", "flash_mlp", "flash_single")
 
 
@@ -265,8 +266,9 @@ def _remat(fn, policy: str):
                                  context_fn=flash_nr.offload_contexts)
     if policy in UNPORTED_REMAT_POLICIES:
         raise NotImplementedError(
-            f"remat_policy {policy!r} is not ported yet (ROADMAP.md, queue 2: the remat "
-            "policies; ported: full, flash, flash_offload)")
+            f"remat_policy {policy!r} is not ported yet (ROADMAP.md, queue 1: \"The rest of "
+            "slice B, part 3: the remat policies that still raise\"; ported: full, flash, "
+            "flash_offload)")
     raise ValueError(f"unknown remat_policy {policy!r}")
 
 

@@ -9,12 +9,15 @@ LayerNorm without affine, joint attention over [txt, img] with qk-RMSNorm +
 rotate-half RoPE fused into `ops.attention.qk_norm_rope_attention` (kernel
 K1 on the card; the scale pairs are [norm_added_*, norm_*], row 0 for the
 text rows < st), GELU-tanh MLPs, temb from the sinusoidal-256 embedding
-only.  The dense layers may hold int4-requant weights (ops/layers.py), whose
-large products run kernel K5a, and their input gradients kernel K5b.
+only.  The dense layers may hold int4 weights (ops/layers.py): over the
+int4-requant base the large products run kernel K5a and their input
+gradients kernel K5b; over the W4A16 (`int4`) base with QFLUX_FUSED_INT4=1,
+every product of a shape JAX's fused kernel takes (K % 3072, N % 128) runs
+kernel K6a and its input gradient kernel K6b.
 
 The 20B model is 40.8 GB in bf16: `init` draws the blocks one at a time
 and, given a quantize config, quantizes each block as it is drawn, so the
-bf16 tree never exists whole (the int4-requant DiT is ~11.5 GB).
+bf16 tree never exists whole (the int4 DiT is ~11.5 GB).
 
 Training recomputes each block in backward under the remat policies of
 models/flux/transformer.py (`_remat`: "full", "flash", "flash_offload"; the
@@ -22,7 +25,8 @@ published 832×576 config runs "flash_offload").  The policies are checked
 only when autograd records, and predict never applies them.  The per-block
 AdaLN mods are computed outside the checkpointed region from temb, which
 depends on σ alone: nothing records for them, so no dequantized mod weight
-is ever saved for backward.
+is ever saved for backward, and over the W4A16 base their M = B rows launch
+K6a but never K6b.
 """
 
 from __future__ import annotations

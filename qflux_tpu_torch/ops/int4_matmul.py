@@ -1,47 +1,241 @@
-"""The fused W4A8-requant matmul: kernels K5a (forward) and K5b (backward) of the port.
+"""The fused int4 matmuls of the port: the W4A16 dequant matmul, kernels K6a
+(forward) and K6b (backward), and the W4A8-requant matmul, kernels K5a
+(forward) and K5b (backward).
 
-Counterpart of the K5 half of qflux_tpu/ops/int4_matmul.py (`_rq_fwd_kernel`,
-`_rq_fwd`, `_rq_bwd_kernel`, `_rq_bwd`) and of `quant.rq_fused_matmul` with
-its vjp.  The TPU kernels regrid each packed-int4 weight tile onto the
-per-channel int8 grid in VMEM and feed it to the int8 MXU, so q8 never
-reaches HBM; the Hopper kernels (`csrc/rq_int4_fwd.cu`, `csrc/rq_int4_bwd.cu`)
-do the same in registers and shared memory with `mma.sync` s8·s8 → s32.
+Counterpart of qflux_tpu/ops/int4_matmul.py.  Both halves take the packed
+half-split int4 weight `q4 [K/2, N]` int8 and its group scales `[K/G, N]`
+f32 of ops/quant.py.
 
-`rq_fused_matmul(x, q4, g_scale)`: on a CUDA tensor it calls the custom op
-`qflux::rq_int4_fwd`, which row-quantizes x with plain torch ops (as
-`_rq_fused_prep` keeps that step in XLA) and launches K5a, or raises; the
-op's registered autograd formula scales the cotangent by the channel scales,
-row-quantizes it (plain torch again, as JAX) and launches K5b, or raises.  On
-a CPU tensor it runs the plain version, `quant.requant_int4_matmul`, which
-both kernels equal bit for bit.  The TPU's tiling gates (`RQ_BLOCK_*`,
-`rq_supports`, `_pad_to`) are not needed: the kernels mask ragged M, N and K
-and take every int4-requant shape of the model (K a multiple of 64, N of 8,
-the group size of 4).  `RQ_KERNEL_LAUNCHES` counts K5a's launches,
-`RQ_BWD_KERNEL_LAUNCHES` K5b's.  The forward is a custom op (not a Python
-autograd.Function) so that a selective-checkpoint policy sees it, as it sees
-K1.
+**W4A16 (`int4_matmul`, the `kernel_q4` form).**  The TPU kernels
+`_fwd_kernel` / `_bwd_kernel` unpack each q4 tile in VMEM to bf16 weights
+(the f32 product of value and group scale, cast once) and run bf16 dots with
+f32 accumulation; the Hopper kernels (`csrc/int4_fwd.cu`, `csrc/int4_bwd.cu`)
+do the same in registers and shared memory with `mma.sync` bf16 → f32, so
+the bf16 weight never reaches device memory.  x (and, in the backward, the
+cotangent g) is cast to bf16 first; the result is cast once to x.dtype (dx
+to g.dtype), as `_int4_matmul_fwd_impl` / `_int4_vjp_bwd` do.  The plain
+versions, `int4_matmul_reference` and `int4_matmul_dx_reference`, compute
+exactly that with the weight dequantized (`quant.dequantize_kernel_int4`)
+and an f32 product; `int4_matmul_plain` is their autograd.Function.
+`int4_matmul(x, q4, scale)`: CPU tensors take the plain version; CUDA
+tensors call the custom op `qflux::int4_fwd`, which launches K6a, and whose
+registered autograd formula launches K6b, or raise.  `supports` is JAX's
+gate at its defaults: it defines where JAX applies the fused W4A16 kernel
+(under `QFLUX_FUSED_INT4=1`), whose rounding differs from the dequant
+route's, so ops/layers.py routes by it.  `INT4_KERNEL_LAUNCHES` counts K6a's
+launches, `INT4_BWD_KERNEL_LAUNCHES` K6b's.
+
+**W4A8-requant (`rq_fused_matmul`, the `kernel_q4_rq` form).**  The TPU
+kernels `_rq_fwd_kernel` / `_rq_bwd_kernel` regrid each packed-int4 weight
+tile onto the per-channel int8 grid in VMEM and feed it to the int8 MXU, so
+q8 never reaches HBM; the Hopper kernels (`csrc/rq_int4_fwd.cu`,
+`csrc/rq_int4_bwd.cu`) do the same in registers and shared memory with
+`mma.sync` s8·s8 → s32.  `rq_fused_matmul(x, q4, g_scale)`: on a CUDA tensor
+it calls the custom op `qflux::rq_int4_fwd`, which row-quantizes x with
+plain torch ops (as `_rq_fused_prep` keeps that step in XLA) and launches
+K5a, or raises; the op's registered autograd formula scales the cotangent
+by the channel scales, row-quantizes it (plain torch again, as JAX) and
+launches K5b, or raises.  On a CPU tensor it runs the plain version,
+`quant.requant_int4_matmul`, which both kernels equal bit for bit.  The
+TPU's tiling gates (`RQ_BLOCK_*`, `rq_supports`, `_pad_to`) are not needed:
+the kernels mask ragged M, N and K and take every int4-requant shape of the
+model (K a multiple of 64, N of 8, the group size of 4).
+`RQ_KERNEL_LAUNCHES` counts K5a's launches, `RQ_BWD_KERNEL_LAUNCHES` K5b's.
+
+Both forwards are custom ops (not Python autograd.Functions) so that a
+selective-checkpoint policy sees them, as it sees K1.
 """
 
 from __future__ import annotations
 
 import torch
 
-from qflux_tpu_torch.ops.quant import _requant_factors, _rowquant, requant_int4_matmul
+from qflux_tpu_torch.ops.quant import (_requant_factors, _rowquant, dequantize_kernel_int4,
+                                      requant_int4_matmul)
 
+INT4_KERNEL_LAUNCHES = 0    # K6a, csrc/int4_fwd.cu
+INT4_BWD_KERNEL_LAUNCHES = 0  # K6b, csrc/int4_bwd.cu
 RQ_KERNEL_LAUNCHES = 0      # K5a, csrc/rq_int4_fwd.cu
 RQ_BWD_KERNEL_LAUNCHES = 0  # K5b, csrc/rq_int4_bwd.cu
 
+# JAX's defaults (qflux_tpu/ops/int4_matmul.py: BLOCK_KP, GROUP), for `supports`
+BLOCK_KP = 1536  # packed rows per K tile of the TPU kernel
+GROUP = 128      # quantization group size along the original K
 
-def _check(name, t, device, dtype, shape):
+
+def _check(name, t, device, dtype, shape, what="rq_fused_matmul"):
     if t.device != device:
-        raise ValueError(f"rq_fused_matmul: {name} is on {t.device}, expected {device}")
+        raise ValueError(f"{what}: {name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
-        raise ValueError(f"rq_fused_matmul: {name} is {t.dtype}, the kernel takes {dtype}")
+        raise ValueError(f"{what}: {name} is {t.dtype}, the kernel takes {dtype}")
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"rq_fused_matmul: {name} has shape {tuple(t.shape)}, "
-                         f"expected {tuple(shape)}")
+        raise ValueError(f"{what}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError(f"rq_fused_matmul: {name} is not contiguous and 16-byte aligned")
+        raise ValueError(f"{what}: {name} is not contiguous and 16-byte aligned")
+
+
+# ---------------------------------------------------------------------------
+# W4A16: K6a / K6b
+
+def supports(k_in: int, n_out: int, n_groups: int | None = None) -> bool:
+    """Where JAX applies the fused W4A16 kernel (qflux_tpu/ops/int4_matmul.py
+    `supports` at its defaults, BLOCK_KP 1536 and GROUP 128): group size 128
+    (`n_groups` = scale.shape[-2]), K a multiple of 2·BLOCK_KP = 3072, N a
+    multiple of 128.  Elsewhere JAX runs the dequant route, whose rounding
+    differs (x is not cast to bf16 and the result is f32), so the port
+    routes by this rule too; it is behaviour, not a tile choice of the
+    Hopper kernels."""
+    if n_groups is not None and n_groups * GROUP != k_in:
+        return False
+    return (k_in % (2 * BLOCK_KP) == 0 and BLOCK_KP % GROUP == 0
+            and (k_in // 2) % GROUP == 0 and n_out % 128 == 0)
+
+
+def int4_matmul_reference(x, q4, scale):
+    """The plain W4A16 forward, step by step `_int4_matmul_fwd_impl`: x
+    [..., K] cast to bf16; the weight dequantized to bf16 (the f32 product of
+    value and group scale, cast once, as `_unpack_tile`); a bf16 × bf16
+    product accumulated in f32 (the operands widened, exact); one cast to
+    x.dtype.  q4 [K/2, N], scale [K/128, N] → [..., N]."""
+    w = dequantize_kernel_int4(q4, scale, torch.bfloat16).float()
+    xb = x.reshape(-1, x.shape[-1]).to(torch.bfloat16).float()
+    return torch.matmul(xb, w).reshape(*x.shape[:-1], w.shape[-1]).to(x.dtype)
+
+
+def int4_matmul_dx_reference(g, q4, scale):
+    """The plain W4A16 backward, as `_int4_vjp_bwd`: g [..., N] cast to
+    bf16, dx = g · Wᵀ accumulated in f32, one cast to g.dtype → [..., K]."""
+    w = dequantize_kernel_int4(q4, scale, torch.bfloat16).float()
+    gb = g.reshape(-1, g.shape[-1]).to(torch.bfloat16).float()
+    return torch.matmul(gb, w.t()).reshape(*g.shape[:-1], w.shape[0]).to(g.dtype)
+
+
+class _Int4Matmul(torch.autograd.Function):
+    """The plain forward with the plain backward; q4 and the scales are
+    frozen buffers, saved by reference, and get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, q4, scale):
+        ctx.save_for_backward(q4, scale)
+        return int4_matmul_reference(x, q4, scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q4, scale = ctx.saved_tensors
+        return int4_matmul_dx_reference(g, q4, scale), None, None
+
+
+def int4_matmul_plain(x, q4, scale):
+    """The plain version, differentiable in x, on any device: what
+    `int4_matmul` runs on CPU tensors, and the card's comparison point."""
+    return _Int4Matmul.apply(x, q4, scale)
+
+
+def _int4_checks(what, t, q4, scale, out_dtype):
+    """The rules K6a and K6b share; returns (half, N, n_groups)."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{what}: the kernel runs on CUDA tensors, got {t.device}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{what}: output dtype {out_dtype}; the kernel writes bfloat16 or "
+                         "float32")
+    half, n = q4.shape
+    n_groups = scale.shape[0]
+    if not supports(2 * half, n, n_groups):
+        raise ValueError(f"{what}: K={2 * half}, N={n}, {n_groups} groups; the kernel takes "
+                         "what `supports` admits (group 128, K % 3072 == 0, N % 128 == 0)")
+    _check("q4", q4, t.device, torch.int8, (half, n), what)
+    _check("scale", scale, t.device, torch.float32, (n_groups, n), what)
+    return half, n, n_groups
+
+
+def int4_fwd_cuda(xb, q4, scale, out_dtype):
+    """Launch K6a on CUDA tensors: xb [M, K] bf16, q4 [K/2, N] int8, scale
+    [K/128, N] f32 → [M, N] in out_dtype (bf16 or f32).  Raises on anything
+    the kernel does not take and on a CUDA error.  Counting is the caller's."""
+    half, n, n_groups = _int4_checks("int4_matmul", xb, q4, scale, out_dtype)
+    m = xb.shape[0]
+    _check("x", xb, xb.device, torch.bfloat16, (m, 2 * half), "int4_matmul")
+
+    from qflux_tpu_torch.runtime.build import load_library
+
+    kl = load_library()
+    out = torch.empty((m, n), device=xb.device, dtype=out_dtype)
+    stream = torch.cuda.current_stream(xb.device).cuda_stream
+    code = kl.lib.qflux_int4_fwd(xb.data_ptr(), q4.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                                 m, n, 2 * half, n_groups, int(out_dtype == torch.float32),
+                                 stream)
+    kl.check(code, "int4_fwd launch")
+    return out
+
+
+def int4_bwd_cuda(gb, q4, scale, out_dtype):
+    """Launch K6b on CUDA tensors: gb [M, N] bf16, q4 [K/2, N] int8, scale
+    [K/128, N] f32 → dx [M, K] in out_dtype (bf16 or f32).  Raises on
+    anything the kernel does not take and on a CUDA error.  Counting is the
+    caller's."""
+    half, n, n_groups = _int4_checks("int4_matmul backward", gb, q4, scale, out_dtype)
+    m = gb.shape[0]
+    _check("g", gb, gb.device, torch.bfloat16, (m, n), "int4_matmul backward")
+
+    from qflux_tpu_torch.runtime.build import load_library
+
+    kl = load_library()
+    dx = torch.empty((m, 2 * half), device=gb.device, dtype=out_dtype)
+    stream = torch.cuda.current_stream(gb.device).cuda_stream
+    code = kl.lib.qflux_int4_bwd(gb.data_ptr(), q4.data_ptr(), scale.data_ptr(), dx.data_ptr(),
+                                 m, n, 2 * half, n_groups, int(out_dtype == torch.float32),
+                                 stream)
+    kl.check(code, "int4_bwd launch")
+    return dx
+
+
+# The custom op runs on every device type: on a CUDA tensor it launches K6a,
+# on any other `int4_fwd_cuda` raises (the public entry point sends CPU
+# tensors to the plain version before they reach it).
+@torch.library.custom_op("qflux::int4_fwd", mutates_args=(),
+                         schema="(Tensor x, Tensor q4, Tensor scale) -> Tensor")
+def _int4_fwd_op(x, q4, scale):
+    global INT4_KERNEL_LAUNCHES
+    xb = x.reshape(-1, x.shape[-1]).to(torch.bfloat16).contiguous()
+    y = int4_fwd_cuda(xb, q4, scale, x.dtype)
+    INT4_KERNEL_LAUNCHES += 1
+    return y.reshape(*x.shape[:-1], q4.shape[-1])
+
+
+def _int4_setup_context(ctx, inputs, output):
+    # the residuals of _int4_vjp_fwd: the frozen weight, by reference
+    _, q4, scale = inputs
+    ctx.save_for_backward(q4, scale)
+
+
+def _int4_backward(ctx, g):
+    """dx through K6b, as `_int4_vjp_bwd`: g cast to bf16, dx in g's dtype.
+    q4 and the scales get no gradient."""
+    global INT4_BWD_KERNEL_LAUNCHES
+    q4, scale = ctx.saved_tensors
+    gb = g.reshape(-1, g.shape[-1]).to(torch.bfloat16).contiguous()
+    dx = int4_bwd_cuda(gb, q4, scale, g.dtype)
+    INT4_BWD_KERNEL_LAUNCHES += 1
+    return dx.reshape(*g.shape[:-1], dx.shape[-1]), None, None
+
+
+torch.library.register_autograd("qflux::int4_fwd", _int4_backward,
+                                setup_context=_int4_setup_context)
+
+
+def int4_matmul(x, q4, scale):
+    """y = x @ dequant(q4, scale) as JAX's fused W4A16 kernel computes it:
+    x [..., K] float; q4 [K/2, N] half-split packed int4; scale [K/128, N]
+    f32 → [..., N] in x.dtype, differentiable in x.  Takes what `supports`
+    admits.  CUDA tensors launch K6a (and K6b in the backward) or raise; CPU
+    tensors take the plain version."""
+    if x.device.type == "cpu":
+        return int4_matmul_plain(x, q4, scale)
+    return _int4_fwd_op(x, q4, scale)
+
+
+# ---------------------------------------------------------------------------
+# W4A8-requant: K5a / K5b
 
 
 def kernel_group_size(k_in: int, n_out: int, n_groups: int) -> int:

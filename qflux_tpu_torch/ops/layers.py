@@ -8,18 +8,28 @@ nn.Linear) and a LoRA tree is a flat dict keyed by the module's '/'-path
 `merge_lora` attaches those tensors to the matching `Dense` modules in place,
 beside the frozen base weight: there is never a second copy of the base.
 
-A dense layer may also hold its frozen weight in the W4A8-requant form
-(`Dense.set_int4_requant`, as `quantize_tree` leaves it): packed int4 `q4
-[K/2, N]` and group scales `scale [K/G, N]` in the JAX layout, as frozen
-buffers, with the requant factors (f, s_vec) cached beside them.  Its
-product routes as qflux_tpu/ops/layers.py:_base_matmul does: calls with at
-most 32 rows (the AdaLN modulation projections, `time_in`) dequantize the
-weight to x.dtype and multiply with an f32 result; the rest run the fused
-requant matmul (kernel K5a on the card, its input gradient kernel K5b),
-whose result is already in x.dtype, so the LoRA delta and the bias then add
-in x.dtype.  Both routes are differentiable in x and never in the frozen
-weight.  `set_int4_impl(model, "plain")` sends them to the plain requant
-matmul instead: an explicit switch for comparing with the kernels, as
+A dense layer may also hold its frozen weight as packed int4 `q4 [K/2, N]`
+and group scales `scale [K/G, N]` in the JAX layout, as frozen buffers
+(`quantize_tree` leaves them so), in one of two forms, which `q4_form`
+names.  Each routes as qflux_tpu/ops/layers.py:_base_matmul does:
+
+  * W4A8-requant (`Dense.set_int4_requant`, JAX's `kernel_q4_rq`), with the
+    requant factors (f, s_vec) cached beside q4: calls with at most 32 rows
+    (the AdaLN modulation projections, `time_in`) dequantize the weight to
+    x.dtype and multiply with an f32 result; the rest run the fused requant
+    matmul (kernel K5a on the card, its input gradient kernel K5b), whose
+    result is already in x.dtype;
+  * W4A16 (`Dense.set_int4`, JAX's `kernel_q4`), with no tiny-M rule: where
+    `QFLUX_FUSED_INT4=1` is set when the call runs and
+    `int4_matmul.supports` holds, the fused W4A16 matmul (kernel K6a on the
+    card, its input gradient kernel K6b; x cast to bf16, the result in
+    x.dtype); otherwise, JAX's default, the weight dequantized to x.dtype and
+    an f32 product.
+
+A base product in x.dtype makes the LoRA delta and the bias add in x.dtype.
+Every route is differentiable in x and never in the frozen weight.
+`set_int4_impl(model, "plain")` sends the fused routes to their plain
+versions instead: an explicit switch for comparing with the kernels, as
 attn_impl="plain" is.
 
 For training, `mark_trainable` makes `a`, `b` and `scaling` f32 leaf
@@ -34,6 +44,7 @@ no gradient; the port mirrors the JAX package, not PEFT (ROADMAP.md, queue 3).
 
 from __future__ import annotations
 
+import os
 import re
 from typing import Iterator, Optional
 
@@ -48,7 +59,9 @@ LoraTree = dict  # {"dual/0/attn/to_q": {"a", "b", "scaling"}, ...}
 class Dense(nn.Module):
     """y = x @ W^T + b.  `lora` is None or the {"a", "b", "scaling"} dict
     set by `merge_lora`.  The weight is `weight [out, in]`, or, after
-    `set_int4_requant`, the buffers `q4`, `scale`, `rq_f` and `rq_s_vec`."""
+    `set_int4_requant`, the buffers `q4`, `scale`, `rq_f` and `rq_s_vec`
+    (`q4_form` "int4_requant"), or, after `set_int4`, `q4` and `scale`
+    (`q4_form` "int4")."""
 
     def __init__(self, in_dim: int, out_dim: int, bias: bool = True,
                  device=None, dtype=None):
@@ -61,12 +74,10 @@ class Dense(nn.Module):
         self.lora: Optional[dict] = None
         for name in ("q4", "scale", "rq_f", "rq_s_vec"):
             self.register_buffer(name, None)
-        self.impl = "auto"  # "plain": the plain requant matmul instead of K5a
+        self.q4_form: Optional[str] = None  # "int4_requant" | "int4" once quantized
+        self.impl = "auto"  # "plain": the plain int4 matmuls instead of K5a / K6a
 
-    def set_int4_requant(self, q4, scale) -> None:
-        """Hold the frozen weight as W4A8-requant int4 (q4 [in/2, out] int8,
-        scale [in/G, out] f32, the JAX `kernel_q4_rq` / `kernel_scale`),
-        dropping the full-precision weight; caches the requant factors."""
+    def _set_q4(self, q4, scale, form: str) -> None:
         if tuple(q4.shape) != (self.in_dim // 2, self.out_dim) or q4.dtype != torch.int8:
             raise ValueError(f"q4 {q4.dtype} {tuple(q4.shape)} does not fit "
                              f"{self.in_dim}→{self.out_dim}")
@@ -75,10 +86,24 @@ class Dense(nn.Module):
             raise ValueError(f"scale {tuple(scale.shape)} does not fit "
                              f"{self.in_dim}→{self.out_dim}")
         self.weight = None
-        scale = scale.float()
-        f, s_vec = quant._requant_factors(scale)
-        for name, t in (("q4", q4), ("scale", scale), ("rq_f", f), ("rq_s_vec", s_vec)):
+        self.q4_form = form
+        for name, t in (("q4", q4), ("scale", scale.float())):
             self.register_buffer(name, t.contiguous())
+
+    def set_int4_requant(self, q4, scale) -> None:
+        """Hold the frozen weight as W4A8-requant int4 (q4 [in/2, out] int8,
+        scale [in/G, out] f32, the JAX `kernel_q4_rq` / `kernel_scale`),
+        dropping the full-precision weight; caches the requant factors."""
+        self._set_q4(q4, scale, "int4_requant")
+        f, s_vec = quant._requant_factors(self.scale)
+        for name, t in (("rq_f", f), ("rq_s_vec", s_vec)):
+            self.register_buffer(name, t.contiguous())
+
+    def set_int4(self, q4, scale) -> None:
+        """Hold the frozen weight as W4A16 int4 (q4 [in/2, out] int8, scale
+        [in/G, out] f32, the JAX `kernel_q4` / `kernel_scale`), dropping the
+        full-precision weight."""
+        self._set_q4(q4, scale, "int4")
 
     def init_(self, generator: torch.Generator) -> None:
         """Torch-nn.Linear-compatible init, as `dense_init`: U(±1/sqrt(in))."""
@@ -134,25 +159,33 @@ def _matmul_f32(x, w):
 
 
 def _base_matmul(p: Dense, x):
-    """x @ W^T for whatever form the frozen weight is held in.  An int4
-    requant weight takes the JAX package's route: at most 32 rows →
-    dequantized to x.dtype, f32 result (a GEMV-shaped call gains nothing from
-    the int8 path); otherwise the requant matmul, in x.dtype."""
+    """x @ W^T for whatever form the frozen weight is held in, by the JAX
+    package's routes.  W4A16: with `QFLUX_FUSED_INT4=1` where `supports`
+    holds, the fused W4A16 matmul, in x.dtype; otherwise dequantized to
+    x.dtype, f32 result.  W4A8-requant: at most 32 rows → dequantized to
+    x.dtype, f32 result (a GEMV-shaped call gains nothing from the int8
+    path); otherwise the requant matmul, in x.dtype."""
     if p.q4 is None:
         return _matmul_f32(x, p.weight)
-    if x.numel() // x.shape[-1] <= 32:
-        return _matmul_f32(x, quant.dequantize_kernel_int4(p.q4, p.scale, x.dtype).t())
-    factors = (p.rq_f, p.rq_s_vec)
-    if p.impl == "plain":
-        return quant.requant_int4_matmul(x, p.q4, p.scale, factors)
-    return int4_matmul.rq_fused_matmul(x, p.q4, p.scale, factors)
+    if p.q4_form == "int4":
+        if (os.environ.get("QFLUX_FUSED_INT4") == "1"
+                and int4_matmul.supports(2 * p.q4.shape[0], p.q4.shape[1], p.scale.shape[-2])):
+            if p.impl == "plain":
+                return int4_matmul.int4_matmul_plain(x, p.q4, p.scale)
+            return int4_matmul.int4_matmul(x, p.q4, p.scale)
+    elif x.numel() // x.shape[-1] > 32:
+        factors = (p.rq_f, p.rq_s_vec)
+        if p.impl == "plain":
+            return quant.requant_int4_matmul(x, p.q4, p.scale, factors)
+        return int4_matmul.rq_fused_matmul(x, p.q4, p.scale, factors)
+    return _matmul_f32(x, quant.dequantize_kernel_int4(p.q4, p.scale, x.dtype).t())
 
 
 def dense(p: Dense, x, lora_scale: float = 1.0):
     """y = x@W + b [+ lora_scale · scaling · (x@a)@b], returned in x.dtype.
 
     Cast points as in JAX: the base product accumulates and stays in f32
-    (the requant matmul's comes back in x.dtype); both LoRA dots emit
+    (the fused int4 matmuls return x.dtype); both LoRA dots emit
     x.dtype and the scaling (a float, or a tensor that autograd
     differentiates) is rounded to x.dtype; the delta and the bias are added
     in y's dtype."""
@@ -169,17 +202,17 @@ def dense(p: Dense, x, lora_scale: float = 1.0):
 
 
 def raise_quantized(kind: str):
-    """Quantized frozen bases other than W4A8-requant (`kernel_q4_rq`) are
-    later slices."""
+    """Quantized frozen bases other than int4 (`kernel_q4`) and
+    W4A8-requant (`kernel_q4_rq`) are not ported yet."""
     raise NotImplementedError(
-        f"quantized dense form {kind!r} is not ported yet (ROADMAP.md: int8 bases come "
-        "with slice B, the other int4 forms with the remaining families; ported: "
-        "kernel_q4_rq)")
+        f"quantized dense form {kind!r} is not ported yet (ROADMAP.md, queue 1: \"The rest "
+        "of slice B, part 2: the quantized bases that JAX runs in XLA, not Pallas\"; "
+        "ported: kernel_q4, kernel_q4_rq)")
 
 
 def set_int4_impl(module: nn.Module, impl: str) -> None:
-    """Route every int4-requant dense layer of `module` through K5a
-    ("auto") or the plain requant matmul ("plain")."""
+    """Route every int4 dense layer of `module` through the kernels K5a / K6a
+    ("auto") or the plain requant and W4A16 matmuls ("plain")."""
     if impl not in ("auto", "plain"):
         raise ValueError(f"unknown int4 impl {impl!r} (auto | plain)")
     for _, node in iter_dense_paths(module):

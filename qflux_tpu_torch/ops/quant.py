@@ -1,4 +1,5 @@
-"""Grouped-int4 frozen bases and the W4A8-requant matmul (plain versions).
+"""Grouped-int4 frozen bases (W4A16 and W4A8-requant) and the W4A8-requant
+matmul (plain versions).
 
 Counterpart of the int4 / W4A8-requant half of qflux_tpu/ops/quant.py, with
 its layouts at every public function: packed int4 `q4 [..., K/2, N]` int8,
@@ -29,8 +30,12 @@ The fused kernels compute the same functions without ever writing q8 to
 device memory: K5a the forward, K5b the backward (ops/int4_matmul.py,
 csrc/rq_int4_fwd.cu and csrc/rq_int4_bwd.cu).
 
-Other quantized forms (int8 / fp8 weight-only, W8A8-dynamic, W4A16, W4A8
-per-group) are later slices: `quantize_tree` raises on them.
+The W4A16 form (`dtype: int4`, JAX's `kernel_q4`) keeps the same q4 and
+scales; its product is the weight dequantized by `dequantize_kernel_int4`
+(JAX's default route, ops/layers.py) or the fused W4A16 matmul
+(ops/int4_matmul.py:int4_matmul, kernels K6a / K6b on the card).  The other
+quantized forms (int8 / fp8 weight-only, W8A8-dynamic, W4A8 per-group) are
+not ported yet: `quantize_tree` raises on them.
 """
 
 from __future__ import annotations
@@ -190,15 +195,17 @@ def quantize_tree(model, qcfg, prefix: str = ""):
     whose in-dim is odd or not a multiple of the group, stay full precision;
     biases, norms and embeddings are never touched.  A layer that is already
     quantized is left as it is.  `prefix` is `model`'s own path in a larger
-    model ("blocks/3/"), for the skip patterns.  Only `dtype: int4_requant`
-    is ported."""
+    model ("blocks/3/"), for the skip patterns.  `dtype: int4` leaves the
+    layers in the W4A16 form (`Dense.set_int4`, JAX's `kernel_q4`),
+    `int4_requant` in the W4A8-requant one (`Dense.set_int4_requant`); the
+    same q4 and scales either way.  Other dtypes raise."""
     from qflux_tpu_torch.ops.layers import iter_dense_paths
 
-    if qcfg.dtype != "int4_requant":
+    if qcfg.dtype not in ("int4", "int4_requant"):
         raise NotImplementedError(
-            f"quantize dtype {qcfg.dtype!r} is not ported yet (ROADMAP.md: int8 bases come "
-            "with slice B, int4 / int4_dynamic with the remaining families; ported: "
-            "int4_requant)")
+            f"quantize dtype {qcfg.dtype!r} is not ported yet (ROADMAP.md, queue 1: \"The "
+            "rest of slice B, part 2: the quantized bases that JAX runs in XLA, not "
+            "Pallas\"; ported: int4, int4_requant)")
     skip = [re.compile(p) for p in qcfg.skip_patterns]
     group_size = getattr(qcfg, "group_size", 128)
     for path, node in list(iter_dense_paths(model)):
@@ -209,5 +216,8 @@ def quantize_tree(model, qcfg, prefix: str = ""):
             continue
         with torch.no_grad():
             q4, scale = quantize_kernel_int4(node.weight.t(), group_size)
-        node.set_int4_requant(q4, scale)
+        if qcfg.dtype == "int4":
+            node.set_int4(q4, scale)
+        else:
+            node.set_int4_requant(q4, scale)
     return model

@@ -7,7 +7,7 @@ Counterpart of the predict and train slices of qflux_tpu/trainer/base.py
 train step over an iterable of cached-embedding batches and records loss,
 grad_norm and lr per step in `history`; checkpoint files, the LoRA
 safetensors export, logging backends, validation, resume and the cache pass
-come with later slices (ROADMAP.md, slice B item 4).
+come with later slices (ROADMAP.md, queue 1).
 
 The Trainer reads its settings by attribute, from the namespaces of the
 port's own loader (`qflux_tpu_torch/config.py`: `Trainer.from_yaml` reads a
@@ -17,9 +17,9 @@ machine without YAML).
 
 Two model families are ported: FLUX.1-Kontext and Qwen-Image-Edit, each
 with predict and the LoRA train step.  `load_model` quantizes the DiT with
-`ops/quant.quantize_tree` where `model.quantize.enabled` (int4_requant only;
-other dtypes raise there), and `fit` trains over that base (the requant
-matmul's backward is kernel K5b on the card).  `quantize.attention` runs
+`ops/quant.quantize_tree` where `model.quantize.enabled` (int4 and
+int4_requant; other dtypes raise there), and `fit` trains over that base
+(the fused int4 matmuls' backwards are kernels K5b and K6b on the card).  `quantize.attention` runs
 the int8 score GEMM of K1 and K2 wherever JAX on a TPU would (S up to 2560
 at head dim 128; bf16 attention elsewhere, as there), and the remat
 policies not ported raise in the transformer.
@@ -124,8 +124,8 @@ class Trainer:
         lcfg = self.config.model.lora
         if lcfg.pretrained_weight:
             raise NotImplementedError(
-                "loading a LoRA safetensors file is not ported yet (ROADMAP.md: "
-                "utils/lora_io.py comes with the train-step slice)")
+                "loading a LoRA safetensors file is not ported yet (ROADMAP.md, queue 1: "
+                "\"The rest of slice B, part 1: files, real weights and data\")")
         targets = lcfg.target_modules or list(self.adapter.default_lora_targets)
         targets = [t if "/" in t else rf"attn/{t}" for t in targets]
         init = "gaussian" if lcfg.init_lora_weights in (True, "gaussian") else "kaiming"
@@ -141,14 +141,14 @@ class Trainer:
         ocfg = self.config.optimizer
         if ocfg.class_path != "optax.adamw":
             raise NotImplementedError(
-                f"optimizer {ocfg.class_path!r} is not ported yet (ROADMAP.md, queue 2: "
-                "optimizers; ported: optax.adamw)")
+                f"optimizer {ocfg.class_path!r} is not ported yet (ROADMAP.md, queue 1: "
+                "\"Optimizers and CLI\"; ported: optax.adamw)")
         args = dict(ocfg.init_args or {})
         unknown = sorted(set(args) - set(ADAMW_ARGS))
         if unknown:
             raise NotImplementedError(
-                f"optax.adamw arguments {unknown} are not ported yet (ROADMAP.md, queue 2: "
-                f"optimizers; ported: {list(ADAMW_ARGS)})")
+                f"optax.adamw arguments {unknown} are not ported yet (ROADMAP.md, queue 1: "
+                f"\"Optimizers and CLI\"; ported: {list(ADAMW_ARGS)})")
         schedule = make_lr_schedule(ocfg.learning_rate, self.config.lr_scheduler.scheduler_type,
                                     self.config.lr_scheduler.warmup_steps,
                                     self.config.train.max_train_steps)
@@ -179,8 +179,9 @@ class Trainer:
         if scheme == "weighted":
             if t.weighting_table:
                 raise NotImplementedError(
-                    "a user weighting_table file is not ported yet (ROADMAP.md, slice B "
-                    "item 4); the default table is")
+                    "a user weighting_table file is not ported yet (ROADMAP.md, queue 1: "
+                    "\"The rest of slice B, part 1: files, real weights and data\"); the "
+                    "default table is")
             table, scheme = default_weighting_table(), "table"
         return TrainStepConfig(timestep_sampling=sampling, logit_mean=t.logit_mean,
                                logit_std=t.logit_std, weighting_scheme=scheme,

@@ -1,7 +1,8 @@
-"""The port's CUDA kernels on the card: K1, K2, K5a and K5b against their
-plain versions, LoRA gradients through K1 and K2 inside a small DiT, and a
-two-block, full-width Qwen-Image forward (through K5a and K1) and train step
-(through K5a, K5b, K1 and K2) over an int4-requant base.
+"""The port's CUDA kernels on the card: K1, K2, K5a, K5b, K6a and K6b
+against their plain versions, LoRA gradients through K1 and K2 inside a
+small DiT, and two-block, full-width Qwen-Image forwards and train steps
+over an int4-requant base (through K5a, K5b, K1 and K2) and over the W4A16
+`int4` base (through K6a, K6b, K1 and K2).
 
 This file imports neither jax nor the JAX package, so it runs on a machine
 with a card and without JAX:
@@ -453,5 +454,209 @@ def test_qwen_train_step_int8_attention_on_card():
     gk, gp = (torch.cat(list(g.values())) for g in (grads["int8"], grads["int8_plain"]))
     assert _rel(gk, gp) <= INT8_BWD_REL
     for path, g in grads["int8"].items():
+        zero = path in ("blocks/1/attn/add_q", "blocks/1/attn/add_out")
+        assert bool(g.abs().sum() > 0) != zero, path
+
+
+# ---------------------------------------------------------------------------
+# the W4A16 int4 base (quantize.dtype int4): K6a and K6b
+
+# chip_smoke.py's bounds, and why: the kernel and the plain version multiply
+# the same bf16 weights and activations (every product exact in f32) and sum
+# in f32 in another order, so their outputs round to bf16 at the same point
+# and land at most an ulp or two apart: relative L2 4e-3 (one bf16 ulp is
+# 2^-8 = 3.9e-3 relative) and max |diff| 2 bf16 ulps of max |ref| (2^-6 of it)
+K6_REL, K6_MAX = 4e-3, 2 ** -6
+# (M, K, N, x dtype): an AdaLN mod (one row, f32 in and out), a ragged M at
+# the block projections' width, and the MLP down-projection's K
+K6_CASES = [(1, 3072, 18432, torch.float32), (300, 3072, 384, torch.bfloat16),
+            (129, 12288, 256, torch.bfloat16)]
+K6_IDS = ["mod_m1_f32", "ragged_m", "k12288"]
+
+
+def _int4_weight(gen, k_in, n):
+    from qflux_tpu_torch.ops import quant
+
+    w = (torch.rand(k_in, n, device="cuda", generator=gen) * 2 - 1) / k_in ** 0.5
+    return quant.quantize_kernel_int4(w, 128)
+
+
+def _k6_close(got, want):
+    want = want.float()
+    diff = got.float() - want
+    return ((diff.norm() / want.norm()).item() <= K6_REL
+            and diff.abs().max().item() <= K6_MAX * want.abs().max().item())
+
+
+@pytest.mark.parametrize("m,k_in,n,dtype", K6_CASES, ids=K6_IDS)
+def test_k6a_matches_plain_on_card(m, k_in, n, dtype):
+    """K6a, through int4_matmul (the custom op), against int4_matmul_reference:
+    the output in x's dtype within K6_REL / K6_MAX, one launch."""
+    from qflux_tpu_torch.ops import int4_matmul
+
+    gen = torch.Generator("cuda").manual_seed(m)
+    q4, scale = _int4_weight(gen, k_in, n)
+    x = torch.randn(m, k_in, device="cuda", generator=gen).to(dtype)
+    before = int4_matmul.INT4_KERNEL_LAUNCHES
+    got = int4_matmul.int4_matmul(x, q4, scale)
+    torch.cuda.synchronize()
+    assert int4_matmul.INT4_KERNEL_LAUNCHES == before + 1
+    want = int4_matmul.int4_matmul_reference(x, q4, scale)
+    assert got.dtype == dtype and got.shape == (m, n) and bool(torch.isfinite(got).all())
+    assert _k6_close(got, want)
+
+
+@pytest.mark.parametrize("m,k_in,n,dtype", K6_CASES, ids=K6_IDS)
+def test_k6b_matches_plain_on_card(m, k_in, n, dtype):
+    """K6b, through int4_matmul's backward, against int4_matmul_dx_reference:
+    dx in g's dtype within K6_REL / K6_MAX, one forward and one backward
+    launch."""
+    from qflux_tpu_torch.ops import int4_matmul
+
+    gen = torch.Generator("cuda").manual_seed(m + 1)
+    q4, scale = _int4_weight(gen, k_in, n)
+    x = torch.randn(m, k_in, device="cuda", generator=gen).to(dtype).requires_grad_()
+    g = torch.randn(m, n, device="cuda", generator=gen).to(dtype)
+    before = (int4_matmul.INT4_KERNEL_LAUNCHES, int4_matmul.INT4_BWD_KERNEL_LAUNCHES)
+    int4_matmul.int4_matmul(x, q4, scale).backward(g)
+    torch.cuda.synchronize()
+    assert (int4_matmul.INT4_KERNEL_LAUNCHES, int4_matmul.INT4_BWD_KERNEL_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    want = int4_matmul.int4_matmul_dx_reference(g, q4, scale)
+    assert x.grad.dtype == dtype and x.grad.shape == (m, k_in)
+    assert bool(torch.isfinite(x.grad).all()) and _k6_close(x.grad, want)
+
+
+def test_int4_on_cuda_never_reaches_the_plain_version(monkeypatch):
+    """With the plain W4A16 versions replaced by a raising double, a forward
+    and backward of int4_matmul on CUDA tensors still runs, through one K6a
+    and one K6b launch; a shape `supports` refuses raises."""
+    from qflux_tpu_torch.ops import int4_matmul
+
+    def boom(*a, **k):
+        raise AssertionError("the plain version was called on CUDA tensors")
+
+    for name in ("int4_matmul_reference", "int4_matmul_dx_reference"):
+        monkeypatch.setattr(int4_matmul, name, boom)
+    gen = torch.Generator("cuda").manual_seed(5)
+    q4, scale = _int4_weight(gen, 3072, 128)
+    x = torch.randn(7, 3072, device="cuda", generator=gen).to(torch.bfloat16).requires_grad_()
+    before = (int4_matmul.INT4_KERNEL_LAUNCHES, int4_matmul.INT4_BWD_KERNEL_LAUNCHES)
+    int4_matmul.int4_matmul(x, q4, scale).float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert (int4_matmul.INT4_KERNEL_LAUNCHES, int4_matmul.INT4_BWD_KERNEL_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    assert x.grad.abs().sum() > 0
+    q4b, scale_b = _int4_weight(gen, 256, 128)
+    with pytest.raises(ValueError, match="supports"):
+        int4_matmul.int4_matmul(torch.zeros(4, 256, device="cuda"), q4b, scale_b)
+
+
+def _qwen_int4(seed, lora=False):
+    """Two blocks of the 20B Qwen-Image DiT at full width over the `int4`
+    base, bf16, with a rank-16 LoRA on the eight attention projections
+    (b ~ N(0, 0.005²)) if asked, and its inputs (40 text tokens, the last 7
+    padding, and two 8 x 8 image planes)."""
+    from qflux_tpu_torch.config import config_from_dict
+    from qflux_tpu_torch.models.qwen import transformer as tqwen
+    from qflux_tpu_torch.ops.layers import build_lora_tree, mark_trainable, merge_lora
+    from qflux_tpu_torch.ops.quant import quantize_tree
+
+    qcfg = config_from_dict({"model": {"quantize": {"enabled": True, "dtype": "int4"}}}
+                            ).model.quantize
+    cfg = dataclasses.replace(tqwen.QwenImageConfig(), num_layers=2)
+    gen = torch.Generator("cuda").manual_seed(seed)
+    model = quantize_tree(tqwen.init(gen, cfg, "cuda", torch.bfloat16, quantize=qcfg), qcfg)
+    tree = None
+    if lora:
+        tree = build_lora_tree(gen, model,
+                               [r"attn/(to_q|to_k|to_v|to_out|add_q|add_k|add_v|add_out)"],
+                               16, 16.0)
+        with torch.no_grad():
+            for leaf in tree.values():
+                leaf["b"].normal_(0.0, 0.005, generator=gen)
+        merge_lora(model, mark_trainable(tree))
+    x = torch.randn(1, 128, cfg.in_channels, device="cuda", generator=gen).to(torch.bfloat16)
+    txt = torch.randn(1, 40, cfg.joint_attention_dim, device="cuda",
+                      generator=gen).to(torch.bfloat16)
+    seg = torch.ones(1, 40 + 128, dtype=torch.int32, device="cuda")
+    seg[0, 33:40] = 0
+    t = torch.full((1,), 0.5, device="cuda", dtype=torch.bfloat16)
+    return tqwen, cfg, model, tree, (x, txt, t, [(1, 8, 8), (1, 8, 8)], seg)
+
+
+def _k6_counts():
+    from qflux_tpu_torch.ops import int4_matmul
+
+    return (tnr.KERNEL_LAUNCHES, tnr.BWD_KERNEL_LAUNCHES, int4_matmul.INT4_KERNEL_LAUNCHES,
+            int4_matmul.INT4_BWD_KERNEL_LAUNCHES, int4_matmul.RQ_KERNEL_LAUNCHES)
+
+
+def test_qwen_forward_through_k6a_and_k1_on_card(monkeypatch):
+    """Two full-width Qwen blocks over the `int4` base: with QFLUX_FUSED_INT4=1
+    one forward launches K1 twice and K6a 2·14 + 1 times (the eight
+    attention projections, the four MLP GEMMs and the two AdaLN mods a
+    block, and time_in's second linear; img_in, txt_in, time_in's first
+    linear and proj_out take the dequant route, as in JAX) and no K5a, within
+    3e-2 relative L2 of the plain W4A16 route (chip_smoke.py's
+    FORWARD_REL_TOL); without the opt-in it launches no K6a."""
+    from qflux_tpu_torch.ops.layers import set_int4_impl
+
+    tqwen, cfg, model, _, (x, txt, t, shapes, seg) = _qwen_int4(3)
+    monkeypatch.setenv("QFLUX_FUSED_INT4", "1")
+    with torch.inference_mode():
+        c0 = _k6_counts()
+        y = tqwen.forward(model, cfg, x, txt, t, shapes, segment_ids=seg)
+        torch.cuda.synchronize()
+        assert tuple(b - a for a, b in zip(c0, _k6_counts())) == (2, 0, 2 * 14 + 1, 0, 0)
+        set_int4_impl(model, "plain")
+        y_plain = tqwen.forward(model, cfg, x, txt, t, shapes, segment_ids=seg)
+        set_int4_impl(model, "auto")
+        monkeypatch.delenv("QFLUX_FUSED_INT4")
+        c0 = _k6_counts()
+        y_default = tqwen.forward(model, cfg, x, txt, t, shapes, segment_ids=seg)
+        assert tuple(b - a for a, b in zip(c0, _k6_counts())) == (2, 0, 0, 0, 0)
+    assert y.shape == (1, 128, 64) and bool(torch.isfinite(y).all())
+    assert _rel(y, y_plain) <= 3e-2 and _rel(y, y_default) <= 3e-2
+
+
+def test_qwen_train_step_through_k6_on_card(monkeypatch):
+    """Two full-width Qwen blocks over the `int4` base with a LoRA, remat
+    "flash", QFLUX_FUSED_INT4=1: one forward + backward launches K1 and K2
+    once a block, K6a 2·14 + 1 times in the forward and 2·12 again in the
+    recompute (the mods run outside the checkpointed block), and K6b 6 + 9
+    times (block 0's q/k/v inputs carry no gradient; the last block's
+    add_out and text MLP feed only the dropped text stream; the mods' and
+    time_in's inputs need none); the LoRA gradients are within 1e-1
+    relative L2 of the plain W4A16 route's (chip_smoke.py's
+    QWEN_GRAD_REL_TOL) and every LoRA layer but the last block's add_q and
+    add_out gets one."""
+    from qflux_tpu_torch.ops.layers import merge_lora, set_int4_impl
+
+    tqwen, cfg, model, lora, (x, txt, t, shapes, seg) = _qwen_int4(4, lora=True)
+    target = torch.randn(1, 128, 64, device="cuda")
+    monkeypatch.setenv("QFLUX_FUSED_INT4", "1")
+    grads = {}
+    for impl in ("auto", "plain"):
+        set_int4_impl(model, impl)
+        for leaf in lora.values():
+            for v in leaf.values():
+                v.grad = None
+        c0 = _k6_counts()
+        y = tqwen.forward(model, cfg, x, txt, t, shapes, segment_ids=seg, remat_policy="flash")
+        (y.float() - target).square().mean().backward()
+        torch.cuda.synchronize()
+        launched = tuple(b - a for a, b in zip(c0, _k6_counts()))
+        if impl == "auto":
+            assert launched == (2, 2, 2 * 14 + 1 + 2 * 12, 6 + 9, 0), launched
+        grads[impl] = {p: torch.cat([torch.zeros_like(leaf[k]).flatten() if leaf[k].grad is None
+                                     else leaf[k].grad.flatten() for k in ("a", "b")])
+                       for p, leaf in lora.items()}
+    set_int4_impl(model, "auto")
+    merge_lora(model, None)
+    gk = torch.cat(list(grads["auto"].values()))
+    gp = torch.cat(list(grads["plain"].values()))
+    assert bool(torch.isfinite(gk).all()) and _rel(gk, gp) <= 1e-1
+    for path, g in grads["auto"].items():
         zero = path in ("blocks/1/attn/add_q", "blocks/1/attn/add_out")
         assert bool(g.abs().sum() > 0) != zero, path
