@@ -11,8 +11,9 @@ optax.adamw defaults, remat "flash").  Qwen-Image-Edit (the 20B DiT: 60
 dual-stream blocks, dim 3072, over the int4-requant base of
 configs/example_qwen_single_chip_832x576.yaml as published, quantize.attention
 on; 832×576 target with one control image and 256 Qwen2.5-VL tokens, S =
-4000, where int8 attention does not apply and attention runs bf16, as on a
-TPU — path B):
+4000, where int8 attention does not apply and the fused K1 / K2 do not
+either, so attention runs as JAX runs it on one chip: the plain norm + rope,
+then kernels K3 / K4 in bf16 — path B):
 predict from cached embeddings, and the LoRA train step from cached
 embeddings over the same base (the config's rank-16 LoRA on the eight
 attention projections, logit_normal σ, optax.adamw at lr 1e-4, MseLoss,
@@ -31,6 +32,14 @@ runs K6a and its dx K6b (path C).  In phases:
   4. kernel K2 (csrc/flash_nr_bwd.cu) against its plain version (f32
      autograd through the plain forward) at the same five shapes, with
      nonzero cotangents on padded rows;
+ 4a. kernel K3 (csrc/flash_fwd.cu) against its plain version at path B's
+     shape (S = 4000, 26 padding tokens) at bs=1 and 2, an unmasked S =
+     4096, a masked S = 8704 and a ring hop's Sq = Sk = 2000 with other q /
+     kv ids, timed beside its bound and SDPA flash; at path B's shape also
+     the fused K1 on the raw q / k against the norm + rope and K3;
+ 4b. kernel K4 (csrc/flash_bwd.cu) against its plain version (the explicit
+     formula from the residuals) at the same shapes, nonzero cotangents on
+     padded rows, timed beside its bound and SDPA flash's backward;
   5. predict: one full-width forward through K1 and through the plain
      attention (relative L2 error), then three requests through
      Trainer.predict_from_embeddings, each checked for uint8 images, finite
@@ -43,23 +52,23 @@ runs K6a and its dx K6b (path C).  In phases:
      int4-requant GEMM shape of the Qwen forward (exact: max |diff| = 0),
      with median times beside the bound and torch._int_mm;
   8. Qwen predict (the FLUX model freed first): one full-width forward
-     through K5a + K1, through the plain requant route + K1 (identical to
+     through K5a + K3, through the plain requant route + K3 (identical to
      the bit) and all plain (relative L2 error), then two requests (bs=1
      and bs=2) through Trainer.predict_from_embeddings, each checked for uint8
-     images, finite latents and exactly 60 K1 and 723 K5a launches per
-     forward;
+     images, finite latents and exactly 60 K3 and 723 K5a launches per
+     forward (no K1, no s_int8);
   9. kernel K5b (csrc/rq_int4_bwd.cu), the requant matmul's backward,
      against its plain version at the dx of every K5a case and of the bs=2
      MLP down-projection (exact: max |diff| = 0), with median times beside
      the bound and torch._int_mm;
  10. Qwen train (the predict phase's model): one full-width step's LoRA
-     gradients through K5a + K5b + K1 + K2 under "flash_offload" against
+     gradients through K5a + K5b + K3 + K4 under "flash_offload" against
      the plain requant route + plain attention under "full" (relative L2
      error), with exact launch counts; "flash_offload" against "flash" at
      bs=1 and bs=2 (gradients identical to the bit, device memory after the
      forward); then Trainer.fit at bs=1 and bs=2, checked for finite
-     losses, LoRA b that moved, and exactly 60 K1, 60 K2, 1,443 K5a and 712
-     K5b launches per step (no s_int8 launch); then a one-step
+     losses, LoRA b that moved, and exactly 60 K3, 60 K4, 1,443 K5a and 712
+     K5b launches per step (no K1 / K2, no s_int8 launch); then a one-step
      torch.profiler breakdown;
  11. K1 and K2 in their s_int8 mode against their plain versions at three
      shapes (the prep's int8 operands to the bit), timed beside bf16 K1 /
@@ -373,6 +382,180 @@ def phase_kernel_bwd(card: str) -> dict:
                   flush=True)
             del qn, kn
         del args, out, lse, do
+        torch.cuda.empty_cache()
+    return main
+
+
+# K3 / K4 (ops/flash_attention.py), where JAX's one-chip dispatch runs them.
+# Cases: name, B, S, ids.  Path B's shape (S = 4000, the 26 padding text
+# tokens 230..255 masked) at bs=1 and 2; an unmasked S = 4096; a masked S =
+# 8704, where JAX's backward takes the split K4b / K4c; and a ring hop's
+# shape, Sq = Sk = 2000 with other q and kv ids (q: path B's first 2000
+# rows; kv: another shard whose last 400 keys belong to a second sample).
+# The first is the one the kernel table reports.
+FLASH_CASES = [("qwen_832x576", 1, 4000, "text_pad"), ("qwen_832x576_bs2", 2, 4000, "text_pad"),
+               ("s4096", 1, 4096, None), ("s8704_masked", 1, 8704, "text_pad"),
+               ("ring_hop", 1, 2000, "hop")]
+
+
+def _flash_case(gen, b, s, ids, h=24, d=128):
+    """q, k, v bf16 [B, S, H, D] on the card and the (q, kv) ids, or None."""
+    q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=gen).to(torch.bfloat16)
+               for _ in range(3))
+    if ids is None:
+        return q, k, v, None, None
+    q_seg = torch.ones(b, s, dtype=torch.int32, device="cuda")
+    q_seg[:, QWEN_TXT - QWEN_TXT_PAD:QWEN_TXT] = 0
+    kv_seg = q_seg
+    if ids == "hop":
+        kv_seg = torch.ones(b, s, dtype=torch.int32, device="cuda")
+        kv_seg[:, s - 400:] = 2
+    return q, k, v, q_seg, kv_seg
+
+
+def _attending_pairs(q, k, q_seg, kv_seg) -> int:
+    """The (q row, key) pairs the segment mask lets attend, over the batch:
+    the work this run's data needs (masked pairs need no product)."""
+    if q_seg is None:
+        return q.shape[0] * q.shape[1] * k.shape[1]
+    return sum(int(((qs == sid).sum() * (ks == sid).sum()).item())
+               for qs, ks in zip(q_seg, kv_seg) for sid in torch.unique(qs).tolist() if sid)
+
+
+def _flash_bound(q, k, q_seg, kv_seg, bwd=False) -> dict:
+    """K3: 4·D·H flops per attending pair (QK^T and PV) against q, k, v, out
+    (bf16) and lse (f32); K4: 10·D·H per pair (five products) against q, k,
+    v, out, do, dq, dk, dv and lse."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    n_ops = (10 if bwd else 4) * d * h * _attending_pairs(q, k, q_seg, kv_seg)
+    n_bytes = ((4 * sq + 4 * sk) if bwd else (2 * sq + 2 * sk)) * b * h * d * 2 + b * h * sq * 4
+    return _bound(n_bytes, n_ops, PEAK_BF16_PER_MS)
+
+
+def phase_flash_kernel(card: str) -> dict:
+    """K3 against flash_fwd_reference at FLASH_CASES (out, lse, the fully
+    masked rows at 0), with median times beside the bound (from the pairs
+    that attend) and SDPA flash (unmasked: its flash backend takes no mask).
+    At path B's shape also what following JAX's dispatch costs: the fused
+    K1 on the raw q / k against the plain norm + rope and K3."""
+    from qflux_tpu_torch.ops import flash_attention as fa
+    from qflux_tpu_torch.ops import flash_nr
+
+    gen = torch.Generator("cuda").manual_seed(12)
+    scale = 128 ** -0.5
+    main = None
+    for name, b, s, ids in FLASH_CASES:
+        q, k, v, q_seg, kv_seg = _flash_case(gen, b, s, ids)
+        out, lse = fa._flash_fwd_cuda(q, k, v, q_seg, kv_seg, scale)
+        torch.cuda.synchronize()
+        ref, ref_lse = fa.flash_fwd_reference(q, k, v, q_seg, kv_seg, scale)
+        err = (out.float() - ref.float()).abs().max().item()
+        valid = ref_lse > -1e29
+        lse_err = (lse - ref_lse).abs()[valid].max().item()
+        ok = (err <= OUT_ATOL and lse_err <= LSE_ATOL and bool(torch.isfinite(out).all())
+              and bool((lse[~valid] == -1e30).all()))
+        dead = (~valid).permute(0, 2, 1).all(-1)  # [B, S]: rows every head masks
+        ok = ok and not out[dead].any() and (ids is None or bool(dead.any()))
+        del ref, ref_lse
+        torch.cuda.empty_cache()
+        ms = _median_ms(lambda: fa._flash_fwd_cuda(q, k, v, q_seg, kv_seg, scale))
+        plain_ms = _median_ms(lambda: fa.flash_fwd_reference(q, k, v, q_seg, kv_seg, scale),
+                              n=5)
+        lib_ms = _sdpa_flash_ms(q, k, v)
+        bound = _flash_bound(q, k, q_seg, kv_seg)
+        print(f"[flash_fwd] {name}: B={b} S={s} H=24 D=128 ids={ids or 'none'} "
+              f"max_abs_err(out)={err:.3e} (tol {OUT_ATOL}) max_abs_err(lse)={lse_err:.3e} "
+              f"(tol {LSE_ATOL}), {int(dead.sum())} fully masked rows at 0; K3 {ms:.3f} ms, "
+              f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; dense "
+              f"{4.0 * b * 24 * s * s * 128 / PEAK_BF16_PER_MS:.4f}), plain {plain_ms:.3f} ms, "
+              f"SDPA flash (unmasked) {lib_ms:.3f} ms [{card}]", flush=True)
+        if not ok:
+            raise AssertionError(f"K3 disagrees with its plain version in case {name}")
+        if main is None:
+            main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                    **bound}
+            # following JAX's dispatch at path B's shape: K1 over the raw q / k
+            # against the norm + rope (two plain launches chains) and K3
+            _, _, _, qs2, ks2, cos, sin = _attn_inputs(gen, b, s)
+            st = QWEN_TXT
+
+            def route():
+                qn = flash_nr.apply_qk_norm_rope(q, qs2, cos, sin, st)
+                kn = flash_nr.apply_qk_norm_rope(k, ks2, cos, sin, st)
+                return fa.flash_attention(qn, kn, v, segment_ids=q_seg)
+
+            with torch.no_grad():
+                o1, _ = flash_nr.flash_attention_nr(q, k, v, qs2, ks2, cos, sin, st,
+                                                    segment_ids=q_seg)
+                o3 = route()
+                diff = (o1.float() - o3.float())
+                rel = (diff.norm() / o1.float().norm()).item()
+                k1_ms = _median_ms(lambda: flash_nr.flash_attention_nr(
+                    q, k, v, qs2, ks2, cos, sin, st, segment_ids=q_seg))
+                route_ms = _median_ms(route)
+                norm_ms = _median_ms(lambda: (flash_nr.apply_qk_norm_rope(q, qs2, cos, sin, st),
+                                              flash_nr.apply_qk_norm_rope(k, ks2, cos, sin, st)))
+            print(f"[flash_fwd] {name}: JAX's one-chip route (plain norm + rope, then K3) "
+                  f"{route_ms:.3f} ms (norm + rope of q and k {norm_ms:.3f} ms) against the "
+                  f"fused K1 on the raw q / k {k1_ms:.3f} ms; outputs max|diff| "
+                  f"{diff.abs().max().item():.3e}, rel L2 {rel:.3e} [{card}]", flush=True)
+            if not (rel <= FORWARD_REL_TOL and bool(torch.isfinite(o3).all())):
+                raise AssertionError("norm + rope + K3 disagrees with K1 at path B's shape")
+            main.update(k1_same_shape_ms=k1_ms, jax_route_ms=route_ms)
+            del o1, o3, diff, qs2, ks2, cos, sin
+        del q, k, v, out, lse
+        torch.cuda.empty_cache()
+    return main
+
+
+def phase_flash_bwd_kernel(card: str) -> dict:
+    """K4 against flash_bwd_reference (the explicit f32 formula) at
+    FLASH_CASES, from K3's out / lse with do ~ N(0, 1) on every row (padded
+    ones included), with median times beside the bound and SDPA flash's
+    backward (unmasked)."""
+    from qflux_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator("cuda").manual_seed(13)
+    scale = 128 ** -0.5
+    main = None
+    for name, b, s, ids in FLASH_CASES:
+        q, k, v, q_seg, kv_seg = _flash_case(gen, b, s, ids)
+        do = torch.randn(q.shape, device="cuda", generator=gen).to(torch.bfloat16)
+        out, lse = fa._flash_fwd_cuda(q, k, v, q_seg, kv_seg, scale)
+        got = fa._flash_bwd_cuda(q, k, v, q_seg, kv_seg, out, lse, do, scale)
+        torch.cuda.synchronize()
+        ref = fa.flash_bwd_reference(q, k, v, q_seg, kv_seg, out, lse, do, scale)
+        ok, errs, max_err = True, [], 0.0
+        for gname, g, r in zip(("dq", "dk", "dv"), got, ref):
+            diff = g.float() - r
+            rel = (diff.norm() / r.norm()).item()
+            mx = diff.abs().max().item()
+            ok = ok and rel <= BWD_REL_TOL and mx <= BWD_MAX_TOL * r.abs().max().item()
+            ok = ok and bool(torch.isfinite(g).all())
+            max_err = max(max_err, mx)
+            errs.append(f"{gname} rel {rel:.3e} max {mx:.3e}")
+        if ids == "text_pad":  # the padded rows: no query attends them, they attend nothing
+            pad = slice(QWEN_TXT - QWEN_TXT_PAD, QWEN_TXT)
+            ok = ok and all(not g[:, pad].any() for g in got)
+        del got, ref
+        torch.cuda.empty_cache()
+        ms = _median_ms(lambda: fa._flash_bwd_cuda(q, k, v, q_seg, kv_seg, out, lse, do, scale))
+        plain_ms = _median_ms(lambda: fa.flash_bwd_reference(q, k, v, q_seg, kv_seg, out, lse,
+                                                             do, scale), n=3)
+        lib_ms = _sdpa_flash_ms(q, k, v, do)
+        bound = _flash_bound(q, k, q_seg, kv_seg, bwd=True)
+        print(f"[flash_bwd] {name}: B={b} S={s} H=24 D=128 ids={ids or 'none'} "
+              f"{'; '.join(errs)} (tol rel {BWD_REL_TOL}, max {BWD_MAX_TOL} x max|ref|); K4 "
+              f"{ms:.3f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; dense "
+              f"{10.0 * b * 24 * s * s * 128 / PEAK_BF16_PER_MS:.4f}), plain {plain_ms:.3f} ms, "
+              f"SDPA flash backward (unmasked) {lib_ms:.3f} ms [{card}]", flush=True)
+        if not ok:
+            raise AssertionError(f"K4 disagrees with its plain version in case {name}")
+        if main is None:
+            main = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+                    "library_ms": lib_ms, **bound}
+        del q, k, v, out, lse, do
         torch.cuda.empty_cache()
     return main
 
@@ -708,11 +891,12 @@ def _qwen_request(rng, cfg, gh, gw, b):
 
 
 def phase_qwen_predict(card: str):
-    """The 20B Qwen-Image-Edit predict path over the int4-requant base.
-    Returns the trainer (its model stays loaded for the train phase) and the
-    K1 and K5a launches of the two requests."""
+    """The 20B Qwen-Image-Edit predict path over the int4-requant base at
+    832×576 (S = 4000), where JAX's one-chip dispatch runs the norm + rope
+    and K3.  Returns the trainer (its model stays loaded for the train
+    phase) and the K3 and K5a launches of the requests."""
     from qflux_tpu_torch.config import config_from_dict
-    from qflux_tpu_torch.ops import flash_nr, int4_matmul
+    from qflux_tpu_torch.ops import flash_attention, int4_matmul
     from qflux_tpu_torch.ops.layers import iter_dense_paths, merge_lora, set_int4_impl
     from qflux_tpu_torch.trainer.base import Trainer
 
@@ -758,12 +942,13 @@ def phase_qwen_predict(card: str):
     merge_lora(dit, lora)
     try:
         with torch.inference_mode():
-            k1, k5 = flash_nr.KERNEL_LAUNCHES, int4_matmul.RQ_KERNEL_LAUNCHES
+            c0 = _launch_counts()
             v_k = trainer.adapter.predict_velocity(dit, batch, lat, sigma)
-            launched = (flash_nr.KERNEL_LAUNCHES - k1, int4_matmul.RQ_KERNEL_LAUNCHES - k5)
-            if launched != (n_blocks, per_forward):
-                raise AssertionError(f"the full-width Qwen forward launched K1/K5a {launched} "
-                                     f"times, expected ({n_blocks}, {per_forward})")
+            launched = tuple(b - a for a, b in zip(c0, _launch_counts()))
+            want = (0, 0, per_forward, 0, 0, 0, 0, 0, n_blocks, 0)
+            if launched != want:
+                raise AssertionError(f"the full-width Qwen forward launched {COUNT_NAMES} "
+                                     f"{launched} times, expected {want}")
             set_int4_impl(dit, "plain")
             v_int4_plain = trainer.adapter.predict_velocity(dit, batch, lat, sigma)
             v_p = plain_attn.predict_velocity(dit, batch, lat, sigma).float()
@@ -773,49 +958,46 @@ def phase_qwen_predict(card: str):
     v_k = v_k.float()
     rel = (torch.linalg.vector_norm(v_k - v_p) / torch.linalg.vector_norm(v_p)).item()
     print(f"[qwen] full-width forward [1, {gh * gw}, {v_k.shape[-1]}], S = "
-          f"{QWEN_TXT + 2 * gh * gw}: K5a + K1 vs plain requant + K1 identical to the bit: "
+          f"{QWEN_TXT + 2 * gh * gw}: K5a + K3 vs plain requant + K3 identical to the bit: "
           f"{identical}; vs all plain: rel L2 err {rel:.3e} (tol {FORWARD_REL_TOL}), |v| rms "
-          f"{v_p.pow(2).mean().sqrt().item():.4f}; K1/K5a launches {launched} [{card}]",
+          f"{v_p.pow(2).mean().sqrt().item():.4f}; {COUNT_NAMES} launches {launched} [{card}]",
           flush=True)
     if not identical:
         raise AssertionError("the Qwen forward through K5a differs from the plain requant route")
     if not (rel <= FORWARD_REL_TOL and bool(torch.isfinite(v_k).all())):
-        raise AssertionError("the Qwen forward through K5a + K1 disagrees with the plain path")
+        raise AssertionError("the Qwen forward through K5a + K3 disagrees with the plain path")
     del v_k, v_p, v_int4_plain, batch
     torch.cuda.empty_cache()
 
-    # the main path: two requests, counts reset just before
-    flash_nr.KERNEL_LAUNCHES = int4_matmul.RQ_KERNEL_LAUNCHES = 0
-    flash_nr.INT8_KERNEL_LAUNCHES = 0
+    # the main path: two requests, counts reset just before; quantize.attention
+    # is on, and at S = 4000 it runs bf16 attention through K3, as on the TPU
+    _reset_counts()
     for i, (b, seed) in enumerate([(1, 42), (2, 44)]):
         emb = _qwen_request(rng, cfg, gh, gw, b)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        k1, k5 = flash_nr.KERNEL_LAUNCHES, int4_matmul.RQ_KERNEL_LAUNCHES
+        c0 = _launch_counts()
         t0 = time.perf_counter()
         images = trainer.predict_from_embeddings(emb, QWEN_HEIGHT, QWEN_WIDTH, lora=lora,
                                                  seed=seed)
         secs = time.perf_counter() - t0
         stats = trainer.last_predict
-        launched = (flash_nr.KERNEL_LAUNCHES - k1, int4_matmul.RQ_KERNEL_LAUNCHES - k5)
+        launched = tuple(b_ - a for a, b_ in zip(c0, _launch_counts()))
         print(f"[qwen] request {i}: bs={b} seed={seed} {secs:.3f} s, "
               f"{1000 * stats['denoise_s'] / stats['steps']:.1f} ms/denoising step "
               f"({stats['steps']} steps), VAE decode {1000 * stats['decode_s']:.1f} ms, "
-              f"peak mem {torch.cuda.max_memory_allocated()} bytes, K1/K5a launches {launched}, "
-              f"images {images.dtype} {list(images.shape)} mean {images.mean():.2f} [{card}]",
-              flush=True)
+              f"peak mem {torch.cuda.max_memory_allocated()} bytes, {COUNT_NAMES} launches "
+              f"{launched}, images {images.dtype} {list(images.shape)} mean "
+              f"{images.mean():.2f} [{card}]", flush=True)
         if images.dtype != np.uint8 or images.shape != (b, QWEN_HEIGHT, QWEN_WIDTH, 3):
             raise AssertionError(f"Qwen request {i}: images {images.dtype} {images.shape}")
         if not stats["latents_finite"]:
             raise AssertionError(f"Qwen request {i}: non-finite latents")
-        if launched != (STEPS * n_blocks, STEPS * per_forward):
-            raise AssertionError(f"Qwen request {i}: K1/K5a launched {launched} times, expected "
-                                 f"{(STEPS * n_blocks, STEPS * per_forward)}")
-    # quantize.attention is on, and at S = 4000 it runs bf16 attention, as on the TPU
-    if flash_nr.INT8_KERNEL_LAUNCHES:
-        raise AssertionError(f"Qwen 832x576 requests launched K1 s_int8 "
-                             f"{flash_nr.INT8_KERNEL_LAUNCHES} times, expected 0 (S > 2560)")
-    counts = (flash_nr.KERNEL_LAUNCHES, int4_matmul.RQ_KERNEL_LAUNCHES)
+        want = (0, 0, STEPS * per_forward, 0, 0, 0, 0, 0, STEPS * n_blocks, 0)
+        if launched != want:
+            raise AssertionError(f"Qwen request {i}: {COUNT_NAMES} launched {launched} times, "
+                                 f"expected {want}")
+    counts = (flash_attention.KERNEL_LAUNCHES, int4_matmul.RQ_KERNEL_LAUNCHES)
     batch = trainer._device_batch(_qwen_request(rng, cfg, gh, gw, 1))
     lat = torch.randn(1, gh * gw, cfg.in_channels, device="cuda").to(torch.bfloat16)
     sigma = torch.full((1,), 0.5, dtype=torch.bfloat16, device="cuda")
@@ -837,26 +1019,29 @@ def _qwen_train_batch(rng, cfg, gh, gw, b):
     return emb
 
 
-COUNT_NAMES = "K1/K2/K5a/K5b/K1 s_int8/K2 s_int8/K6a/K6b"
+COUNT_NAMES = "K1/K2/K5a/K5b/K1 s_int8/K2 s_int8/K6a/K6b/K3/K4"
 
 
 def _launch_counts() -> tuple[int, ...]:
-    """(K1, K2, K5a, K5b, K1 s_int8, K2 s_int8, K6a, K6b) launches so far."""
-    from qflux_tpu_torch.ops import flash_nr, int4_matmul
+    """(K1, K2, K5a, K5b, K1 s_int8, K2 s_int8, K6a, K6b, K3, K4) launches so
+    far."""
+    from qflux_tpu_torch.ops import flash_attention, flash_nr, int4_matmul
 
     return (flash_nr.KERNEL_LAUNCHES, flash_nr.BWD_KERNEL_LAUNCHES,
             int4_matmul.RQ_KERNEL_LAUNCHES, int4_matmul.RQ_BWD_KERNEL_LAUNCHES,
             flash_nr.INT8_KERNEL_LAUNCHES, flash_nr.INT8_BWD_KERNEL_LAUNCHES,
-            int4_matmul.INT4_KERNEL_LAUNCHES, int4_matmul.INT4_BWD_KERNEL_LAUNCHES)
+            int4_matmul.INT4_KERNEL_LAUNCHES, int4_matmul.INT4_BWD_KERNEL_LAUNCHES,
+            flash_attention.KERNEL_LAUNCHES, flash_attention.BWD_KERNEL_LAUNCHES)
 
 
 def _reset_counts() -> None:
-    from qflux_tpu_torch.ops import flash_nr, int4_matmul
+    from qflux_tpu_torch.ops import flash_attention, flash_nr, int4_matmul
 
     flash_nr.KERNEL_LAUNCHES = flash_nr.BWD_KERNEL_LAUNCHES = 0
     flash_nr.INT8_KERNEL_LAUNCHES = flash_nr.INT8_BWD_KERNEL_LAUNCHES = 0
     int4_matmul.RQ_KERNEL_LAUNCHES = int4_matmul.RQ_BWD_KERNEL_LAUNCHES = 0
     int4_matmul.INT4_KERNEL_LAUNCHES = int4_matmul.INT4_BWD_KERNEL_LAUNCHES = 0
+    flash_attention.KERNEL_LAUNCHES = flash_attention.BWD_KERNEL_LAUNCHES = 0
 
 
 def phase_qwen_train(card: str, trainer) -> tuple[int, ...]:
@@ -864,7 +1049,8 @@ def phase_qwen_train(card: str, trainer) -> tuple[int, ...]:
     predict phase loaded: the full-width gradient check, "flash_offload"
     against "flash", Trainer.fit at bs=1 and bs=2, and a profiled step.
     Returns the launches of the fit runs (_launch_counts' order): at S =
-    4000 quantize.attention runs bf16 attention, so no s_int8 launch."""
+    4000 JAX's one-chip dispatch runs the norm + rope and K3 / K4 (no K1 /
+    K2), and quantize.attention bf16 attention (no s_int8 launch)."""
     from qflux_tpu_torch.config import config_from_dict
     from qflux_tpu_torch.losses import MseLoss
     from qflux_tpu_torch.ops.layers import mark_trainable, set_int4_impl
@@ -874,12 +1060,12 @@ def phase_qwen_train(card: str, trainer) -> tuple[int, ...]:
 
     dit, cfg = trainer.bundle.dit_params, trainer.bundle.dit_cfg
     n = cfg.num_layers
-    # per step: K1 and K2 once a block; K5a 723 in the forward + 720 in the
+    # per step: K3 and K4 once a block; K5a 723 in the forward + 720 in the
     # recompute; K5b wherever the GEMM's input needs a gradient and its
     # output reaches the loss: 6 in block 0 (its q/k/v inputs carry none),
     # 12 in each middle block, 9 in the last (its add_out and text MLP feed
     # only the dropped text stream), 1 for proj_out
-    per_step = (n, n, 2 * 12 * n + 3, 6 + 12 * (n - 2) + 9 + 1, 0, 0, 0, 0)
+    per_step = (0, 0, 2 * 12 * n + 3, 6 + 12 * (n - 2) + 9 + 1, 0, 0, 0, 0, n, n)
     # the two LoRA layers the loss does not reach: the last block's text
     # queries and text output projection
     zero_grad = {f"blocks/{n - 1}/attn/add_q", f"blocks/{n - 1}/attn/add_out"}
@@ -959,7 +1145,7 @@ def phase_qwen_train(card: str, trainer) -> tuple[int, ...]:
         saved = runs["flash"][3] - runs["flash_offload"][3]
         print(f"[qwen_train] bs={b}: flash_offload vs flash gradients identical to the bit: "
               f"{identical}; device memory after the forward {saved} bytes lower under "
-              f"flash_offload (K1's out + lse over {n} blocks: {residual} bytes) [{card}]",
+              f"flash_offload (K3's out + lse over {n} blocks: {residual} bytes) [{card}]",
               flush=True)
         if not identical:
             raise AssertionError(f"bs={b}: flash_offload and flash gradients differ")
@@ -980,7 +1166,7 @@ def phase_qwen_train(card: str, trainer) -> tuple[int, ...]:
                              f"{(gk - gf).norm().item() / gf.norm().item():.3e}, plain vs f32 "
                              f"{(gp - gf).norm().item() / gf.norm().item():.3e}")
             print("[qwen_train] full-width LoRA gradients (rel L2 err per projection group), "
-                  "K5a + K5b + K1 + K2 (flash_offload) vs plain requant + plain attention "
+                  "K5a + K5b + K3 + K4 (flash_offload) vs plain requant + plain attention "
                   "(full), and each against the plain path in f32 activations: "
                   + "; ".join(lines) + f" (tol {QWEN_GRAD_REL_TOL} on kernels vs plain, all) "
                   f"[{card}]", flush=True)
@@ -1209,7 +1395,7 @@ def phase_qwen512_predict(card: str, trainer) -> tuple[int, int]:
           f"s_int8 vs K5a + plain int8 attention: rel L2 err {rel:.3e} (tol {FORWARD_REL_TOL}), "
           f"|v| rms {v_p.pow(2).mean().sqrt().item():.4f}; {COUNT_NAMES} launches {launched} "
           f"[{card}]", flush=True)
-    if launched != (0, 0, per_forward, 0, n_blocks, 0, 0, 0):
+    if launched != (0, 0, per_forward, 0, n_blocks, 0, 0, 0, 0, 0):
         raise AssertionError(f"the 512² Qwen forward launched {COUNT_NAMES} {launched} times")
     if not (rel <= FORWARD_REL_TOL and bool(torch.isfinite(v_k).all())):
         raise AssertionError("the 512² Qwen forward through K1 s_int8 disagrees with the plain "
@@ -1241,7 +1427,7 @@ def phase_qwen512_predict(card: str, trainer) -> tuple[int, int]:
             raise AssertionError(f"Qwen 512² request {i}: images {images.dtype} {images.shape}")
         if not stats["latents_finite"]:
             raise AssertionError(f"Qwen 512² request {i}: non-finite latents")
-        want = (0, 0, STEPS * per_forward, 0, STEPS * n_blocks, 0, 0, 0)
+        want = (0, 0, STEPS * per_forward, 0, STEPS * n_blocks, 0, 0, 0, 0, 0)
         if launched != want:
             raise AssertionError(f"Qwen 512² request {i}: {COUNT_NAMES} launched {launched} "
                                  f"times, expected {want}")
@@ -1279,7 +1465,7 @@ def phase_qwen512_train(card: str, trainer) -> tuple[int, ...]:
 
     dit, cfg = trainer.bundle.dit_params, trainer.bundle.dit_cfg
     n = cfg.num_layers
-    per_step = (0, 0, 2 * 12 * n + 3, 6 + 12 * (n - 2) + 9 + 1, n, n, 0, 0)
+    per_step = (0, 0, 2 * 12 * n + 3, 6 + 12 * (n - 2) + 9 + 1, n, n, 0, 0, 0, 0)
     zero_grad = {f"blocks/{n - 1}/attn/add_q", f"blocks/{n - 1}/attn/add_out"}
     rng = np.random.default_rng(14)
     gen = torch.Generator("cuda").manual_seed(15)
@@ -1614,7 +1800,7 @@ def phase_int4_predict(card: str):
     # 64), txt_in (K = 3584), time_in's first linear (K = 256) and proj_out
     # (N = 64) fail `supports` and take the dequant route
     per_forward = 14 * n_blocks + 1
-    fwd_counts = (n_blocks, 0, 0, 0, 0, 0, per_forward, 0)
+    fwd_counts = (n_blocks, 0, 0, 0, 0, 0, per_forward, 0, 0, 0)
     rng = np.random.default_rng(18)
     gen = torch.Generator("cuda").manual_seed(19)
     gh, gw = trainer.adapter.latent_grid(QWEN512, QWEN512)
@@ -1654,7 +1840,7 @@ def phase_int4_predict(card: str):
     if launched != fwd_counts:
         raise AssertionError(f"the int4 forward launched {COUNT_NAMES} {launched}, expected "
                              f"{fwd_counts}")
-    if launched_default != (n_blocks, 0, 0, 0, 0, 0, 0, 0):
+    if launched_default != (n_blocks, 0, 0, 0, 0, 0, 0, 0, 0, 0):
         raise AssertionError(f"the int4 forward without {FUSED_INT4} launched {COUNT_NAMES} "
                              f"{launched_default}: K6a must not run")
     if not (rel_p <= FORWARD_REL_TOL and rel_d <= FORWARD_REL_TOL
@@ -1738,7 +1924,7 @@ def phase_int4_train(card: str, trainer) -> tuple[int, ...]:
     # its output reaches the loss: 6 in block 0 (its q/k/v inputs carry
     # none), 12 in each middle block, 9 in the last (its add_out and text MLP
     # feed only the dropped text stream); proj_out takes the dequant route
-    per_step = (n, n, 0, 0, 0, 0, 14 * n + 1 + 12 * n, 6 + 12 * (n - 2) + 9)
+    per_step = (n, n, 0, 0, 0, 0, 14 * n + 1 + 12 * n, 6 + 12 * (n - 2) + 9, 0, 0)
     zero_grad = {f"blocks/{n - 1}/attn/add_q", f"blocks/{n - 1}/attn/add_out"}
     rng = np.random.default_rng(20)
     gen = torch.Generator("cuda").manual_seed(21)
@@ -1859,6 +2045,8 @@ PROFILE_GROUPS = [("K5a rq_int4_fwd", ("rq_int4_fwd",)), ("K5b rq_int4_bwd", ("r
                   ("K6a int4_fwd", ("int4_fwd_kernel",)), ("K6b int4_bwd", ("int4_bwd_kernel",)),
                   ("K1 flash_nr_fwd", ("flash_nr_fwd",)),
                   ("K2 flash_nr_bwd", ("flash_nr_dkv", "flash_nr_dq")),
+                  ("K3 flash_fwd", ("flash_fwd_kernel",)),
+                  ("K4 flash_bwd", ("flash_dkv_kernel", "flash_dq_kernel", "flash_delta_kernel")),
                   ("K1/K2 prep", ("flash_nr_prep", "flash_nr_quant")),
                   ("cuBLAS GEMM/GEMV", ("gemm", "gemv", "nvjet", "cutlass", "sm90_")),
                   ("reductions", ("reduce",)), ("copies and casts", ("copy", "cast", "memcpy")),
@@ -1941,15 +2129,18 @@ def main() -> int:
 
     k1_case = timed(phase_kernel)
     k2_case = timed(phase_kernel_bwd)
+    k3_case = timed(phase_flash_kernel)
+    k4_case = timed(phase_flash_bwd_kernel)
     trainer, k1_predict = timed(phase_predict)
     k1_train, k2_train = timed(phase_train, trainer)
     del trainer  # free the FLUX model before the Qwen one loads
     gc.collect()
     torch.cuda.empty_cache()
     k5_case = timed(phase_rq_kernel)
-    qwen, (k1_qwen, k5_qwen) = timed(phase_qwen_predict)
+    qwen, (k3_qwen, k5_qwen) = timed(phase_qwen_predict)
     k5b_case = timed(phase_rq_bwd_kernel)
-    k1_qt, k2_qt, k5_qt, k5b_qt = timed(phase_qwen_train, qwen)[:4]
+    b_fit = timed(phase_qwen_train, qwen)
+    k5_qt, k5b_qt, k3_qt, k4_qt = b_fit[2], b_fit[3], b_fit[8], b_fit[9]
     k1_int8_case, k2_int8_case = timed(phase_kernel_int8)
     k1_a, k5_a = timed(phase_qwen512_predict, qwen)
     _, _, k5_at, k5b_at, k1_at, k2_at = timed(phase_qwen512_train, qwen)[:6]
@@ -1968,16 +2159,23 @@ def main() -> int:
         {"name": "flash_nr_fwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/flash_nr_fwd.cu",
          "replaces": "qflux_tpu/ops/flash_nr.py:192",
-         "launches": k1_predict + k1_train + k1_qwen + k1_qt + k1_c + k1_ct,
+         "launches": k1_predict + k1_train + k1_c + k1_ct,
          "launches_by_path": {"predict": k1_predict, "train": k1_train,
-                              "qwen_predict": k1_qwen, "qwen_train": k1_qt,
                               "int4_predict": k1_c, "int4_train": k1_ct}, **k1_case},
         {"name": "flash_nr_bwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/flash_nr_bwd.cu",
          "replaces": "qflux_tpu/ops/flash_nr.py:311",
-         "launches": k2_train + k2_qt + k2_ct,
-         "launches_by_path": {"train": k2_train, "qwen_train": k2_qt, "int4_train": k2_ct},
-         **k2_case},
+         "launches": k2_train + k2_ct,
+         "launches_by_path": {"train": k2_train, "int4_train": k2_ct}, **k2_case},
+        {"name": "flash_fwd", "route": "cuda",
+         "source": "qflux_tpu_torch/csrc/flash_fwd.cu",
+         "replaces": "qflux_tpu/ops/flash_attention.py:105",
+         "launches": k3_qwen + k3_qt,
+         "launches_by_path": {"qwen_predict": k3_qwen, "qwen_train": k3_qt}, **k3_case},
+        {"name": "flash_bwd", "route": "cuda",
+         "source": "qflux_tpu_torch/csrc/flash_bwd.cu",
+         "replaces": "qflux_tpu/ops/flash_attention.py:288, :215, :251",
+         "launches": k4_qt, "launches_by_path": {"qwen_train": k4_qt}, **k4_case},
         {"name": "rq_int4_fwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/rq_int4_fwd.cu",
          "replaces": "qflux_tpu/ops/int4_matmul.py:268",

@@ -5,7 +5,11 @@ paths and function names so each counterpart is easy to find.  It imports
 torch and never jax.  Its hand-written Hopper kernels live in `csrc/` and
 are built on first use by `runtime/build.py`.
 
-Ported so far: the FLUX.1-Kontext predict path from cached embeddings
-(`trainer/base.py:Trainer.predict_from_embeddings`), with kernel K1 (fused
-qk-RMSNorm + RoPE + flash attention forward, `csrc/flash_nr_fwd.cu`).
+Ported so far: FLUX.1-Kontext and the 20B Qwen-Image-Edit, predict and the
+LoRA train step from cached embeddings (`trainer/base.py:Trainer`), over
+full-precision, int4-requant and W4A16 int4 bases, with every Pallas kernel
+of the JAX package as a CUDA kernel: K1 / K2 (fused qk-RMSNorm + RoPE +
+flash attention and its backward, `csrc/flash_nr_*.cu`), K3 / K4 (plain
+flash attention and its backward, `csrc/flash_fwd.cu`, `csrc/flash_bwd.cu`),
+K5a / K5b (`csrc/rq_int4_*.cu`) and K6a / K6b (`csrc/int4_*.cu`).
 """

@@ -1,5 +1,5 @@
-// Helpers shared by the port's kernels (flash_nr_fwd.cu, flash_nr_bwd.cu,
-// rq_int4_fwd.cu, rq_int4_bwd.cu, int4_fwd.cu, int4_bwd.cu): bf16 rounding, the ldmatrix / mma.sync m16n8k16
+// Helpers shared by the port's kernels (flash_nr_fwd.cu, flash_nr_bwd.cu, flash_fwd.cu,
+// flash_bwd.cu, rq_int4_fwd.cu, rq_int4_bwd.cu, int4_fwd.cu, int4_bwd.cu): bf16 rounding, the ldmatrix / mma.sync m16n8k16
 // (bf16) and m16n8k32 (s8) wrappers, and packing two floats into one bf16x2
 // register.  Each translation unit gets its own copy (anonymous namespace): the
 // kernels are compiled separately and linked into one library.

@@ -6,20 +6,23 @@ blocks are `DualBlock`/`SingleBlock` modules held in `nn.ModuleList`s and run
 in a Python loop.  The math, the layouts and the cast points are the JAX
 package's: rotate-half RoPE with q/k channels permuted by the JAX weight
 converter, the split single-block `proj_out`/`proj_out_mlp`, and joint
-attention through `ops.attention.qk_norm_rope_attention`, which runs the
-fused kernels on the card (K1 forward, K2 backward).
+attention through `ops.attention.qk_norm_rope_attention`, which runs on the
+card the kernels JAX runs on one TPU chip: the fused K1 forward / K2
+backward where `flash_nr.supports` holds (FLUX at 512²), else the plain
+norm + rope and K3 / K4.
 
 Training recomputes each block in backward (`remat`, the JAX package's
 `jax.checkpoint` per scanned block) with non-reentrant
 `torch.utils.checkpoint`.  Policies ported: "full" saves nothing inside a
-block; "flash" (the config default) saves K1's out and lse through a
-selective-checkpoint policy that sees the custom op `qflux::flash_nr_fwd`, so
-backward runs K2 on them without a second K1; "flash_offload" recomputes the
-block as "full" does but keeps K1's out and lse in pinned host memory
+block; "flash" (the config default) saves the attention kernel's out and
+lse through a selective-checkpoint policy that sees the custom ops
+`qflux::flash_nr_fwd` (K1) and `qflux::flash_fwd` (K3), so backward runs K2
+or K4 on them without a second forward kernel; "flash_offload" recomputes
+the block as "full" does but keeps that out and lse in pinned host memory
 between the forward and the recompute, which returns them to the device
-instead of launching K1 (`flash_nr.offload_contexts`): one K1 per block and
-step as under "flash", none of its residuals on the device in between, and
-the same gradients to the bit.  (`torch.autograd.graph.save_on_cpu` would
+instead of launching again (`flash_attention.offload_contexts`): one
+forward kernel per block and step as under "flash", none of its residuals
+on the device in between, and the same gradients to the bit.  (`torch.autograd.graph.save_on_cpu` would
 not do: the outputs a selective checkpoint keeps are not saved tensors, so
 its hooks never see them.)  The AdaLN modulation vectors
 ("mod_out" in JAX) are computed outside the checkpointed region and passed
@@ -39,7 +42,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from qflux_tpu_torch.models.common.embeddings import mlp_silu, sinusoidal_embedding
-from qflux_tpu_torch.ops import flash_nr
+from qflux_tpu_torch.ops import flash_attention, flash_nr
 from qflux_tpu_torch.ops.attention import qk_norm_rope_attention
 from qflux_tpu_torch.ops.layers import MLP, Dense, dense
 from qflux_tpu_torch.ops.norms import ada_ln_mods, layer_norm, modulate
@@ -245,10 +248,12 @@ UNPORTED_REMAT_POLICIES = ("dots", "dots_all", "flash_qkv", "flash_mlp", "flash_
 
 
 def _save_flash_outputs(ctx, op, *args, **kwargs):
-    """Selective-checkpoint policy "flash": keep K1's (out, lse), recompute
-    everything else (JAX save_only_these_names("flash_out", "flash_lse");
-    "mod_out" is saved by computing the mods outside the region)."""
-    if op is flash_nr.FWD_OP:
+    """Selective-checkpoint policy "flash": keep the attention op's (out,
+    lse), K1's or K3's, and recompute everything else, the plain norm + rope
+    before K3 included (JAX save_only_these_names("flash_out", "flash_lse"),
+    names both of its kernels tag; "mod_out" is saved by computing the mods
+    outside the region)."""
+    if op is flash_nr.FWD_OP or op is flash_attention.FWD_OP:
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
 
@@ -263,7 +268,7 @@ def _remat(fn, policy: str):
         return functools.partial(checkpoint, fn, use_reentrant=False, context_fn=ctx)
     if policy == "flash_offload":
         return functools.partial(checkpoint, fn, use_reentrant=False,
-                                 context_fn=flash_nr.offload_contexts)
+                                 context_fn=flash_attention.offload_contexts)
     if policy in UNPORTED_REMAT_POLICIES:
         raise NotImplementedError(
             f"remat_policy {policy!r} is not ported yet (ROADMAP.md, queue 1: \"The rest of "

@@ -6,9 +6,10 @@ one traced block over stacked `[60, ...]` leaves; here the blocks are
 layouts and cast points are the JAX package's: per-stream AdaLN (SiLU(temb)
 → Linear(dim → 6·dim) → two (shift, scale, gate) triples, computed in f32),
 LayerNorm without affine, joint attention over [txt, img] with qk-RMSNorm +
-rotate-half RoPE fused into `ops.attention.qk_norm_rope_attention` (kernel
-K1 on the card; the scale pairs are [norm_added_*, norm_*], row 0 for the
-text rows < st), GELU-tanh MLPs, temb from the sinusoidal-256 embedding
+rotate-half RoPE through `ops.attention.qk_norm_rope_attention` (on the
+card JAX's one-chip route: the fused kernel K1 where `flash_nr.supports`
+holds, as at 512², else the plain norm + rope and kernel K3, as at 832×576;
+the scale pairs are [norm_added_*, norm_*], row 0 for the text rows < st), GELU-tanh MLPs, temb from the sinusoidal-256 embedding
 only.  The dense layers may hold int4 weights (ops/layers.py): over the
 int4-requant base the large products run kernel K5a and their input
 gradients kernel K5b; over the W4A16 (`int4`) base with QFLUX_FUSED_INT4=1,

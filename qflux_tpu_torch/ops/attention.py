@@ -1,8 +1,13 @@
-"""Joint text-image attention: plain reference + dispatch to kernel K1.
+"""Joint text-image attention: plain reference + JAX's one-chip dispatch.
 
-Counterpart of qflux_tpu/ops/attention.py.  Segment-id convention as there:
-seg == 0 is a padding token; tokens attend iff their segment ids are equal
-and nonzero; a fully masked row outputs 0.
+Counterpart of qflux_tpu/ops/attention.py.  `qk_norm_rope_attention` routes
+as JAX on one TPU chip: the fused norm + rope kernels K1 / K2
+(ops/flash_nr.py) where `flash_nr.supports` holds (the whole K in one TPU
+block: padded S ≤ 2688 in bf16, ≤ 2560 with int8 scores), else the plain
+norm + rope and `dot_product_attention` → kernels K3 / K4
+(ops/flash_attention.py).  Segment-id convention as there: seg == 0 is a
+padding token; tokens attend iff their segment ids are equal and nonzero; a
+fully masked row outputs 0.
 """
 
 from __future__ import annotations
@@ -57,28 +62,33 @@ def qk_norm_rope_attention(q_raw, k_raw, v, q_scale2, k_scale2, cos, sin,
                            st: int, segment_ids=None, impl: str = "auto"):
     """qk-RMSNorm + rotate-half RoPE + joint attention over RAW projections.
 
-    impl="auto": the fused kernel K1 (ops/flash_nr.py) — on CUDA tensors the
-    Hopper kernel, which raises on a shape it does not take; on CPU tensors
-    its plain version.  impl="int8" (config `model.quantize.attention`): the
-    same with the int8 score GEMM, where JAX on a TPU applies it (S up to
-    2560 at head dim 128, `flash_nr.s_int8_tiles`) and "auto" elsewhere, as
+    impl="auto", as JAX on one TPU chip: where `flash_nr.supports` holds, the
+    fused kernel K1 (ops/flash_nr.py); elsewhere the plain norm + rope on q
+    and k (in x.dtype) and `dot_product_attention`, i.e. kernel K3
+    (ops/flash_attention.py).  On CUDA tensors the Hopper kernels, which
+    raise on a shape they do not take; on CPU tensors their plain versions.
+    impl="int8" (config `model.quantize.attention`): the same with the int8
+    score GEMM, where JAX on a TPU applies it (`flash_nr.supports(...,
+    s_int8=True)`: S up to 2560 at head dim 128) and bf16 K3 elsewhere, as
     there.  impl="plain": the plain composition on any device (the
-    comparison point for the kernel on the card); impl="int8_plain": the
+    comparison point for the kernels on the card); impl="int8_plain": the
     same for "int8" (the s_int8 mode's plain versions where it applies).
     q_scale2/k_scale2: [2, D] — row 0 norms positions < st (txt stream), row
     1 the rest; pass the same row twice for single-stream.
     """
     from qflux_tpu_torch.ops import flash_nr
 
-    if impl in ("ring", "stub"):
-        raise NotImplementedError(
-            f"attention impl={impl!r} is not ported yet (ROADMAP.md: ring attention and "
-            "multi-GPU come in later slices)")
+    _refuse_unported(impl)
     if impl in ("auto", "int8"):
-        out, _ = flash_nr.flash_attention_nr(q_raw, k_raw, v, q_scale2, k_scale2,
-                                             cos, sin, st, segment_ids=segment_ids,
-                                             s_int8=impl == "int8")
-        return out
+        s_int8 = impl == "int8"
+        if flash_nr.supports(q_raw.shape[1], k_raw.shape[1], q_raw.shape[-1], s_int8):
+            out, _ = flash_nr.flash_attention_nr(q_raw, k_raw, v, q_scale2, k_scale2,
+                                                 cos, sin, st, segment_ids=segment_ids,
+                                                 s_int8=s_int8)
+            return out
+        qn = flash_nr.apply_qk_norm_rope(q_raw, q_scale2, cos, sin, st)
+        kn = flash_nr.apply_qk_norm_rope(k_raw, k_scale2, cos, sin, st)
+        return dot_product_attention(qn, kn, v, segment_ids=segment_ids)
     if impl == "int8_plain":
         d, s = q_raw.shape[-1], q_raw.shape[1]
         tiles = flash_nr.s_int8_tiles(s, d) if k_raw.shape[1] == s else None
@@ -91,3 +101,25 @@ def qk_norm_rope_attention(q_raw, k_raw, v, q_scale2, k_scale2, cos, sin,
     qn = flash_nr.apply_qk_norm_rope(q_raw, q_scale2, cos, sin, st)
     kn = flash_nr.apply_qk_norm_rope(k_raw, k_scale2, cos, sin, st)
     return sdpa_reference(qn, kn, v, segment_ids=segment_ids)
+
+
+def _refuse_unported(impl):
+    if impl in ("ring", "stub"):
+        raise NotImplementedError(
+            f"attention impl={impl!r} is not ported yet (ROADMAP.md, queue 1 item 8: ring "
+            "attention over torch.distributed, with the distribution modules)")
+
+
+def dot_product_attention(q, k, v, segment_ids=None, impl: str = "auto"):
+    """q, k, v: [B, S, H, D] (q / k already normed and roped); segment_ids:
+    optional [B, S] int.  impl="auto": `flash_attention.flash_attention`
+    (kernels K3 / K4 on CUDA tensors, their plain version on CPU ones), as
+    JAX's "pallas" on one chip; impl="plain": `sdpa_reference`."""
+    _refuse_unported(impl)
+    if impl == "auto":
+        from qflux_tpu_torch.ops import flash_attention
+
+        return flash_attention.flash_attention(q, k, v, segment_ids=segment_ids)
+    if impl == "plain":
+        return sdpa_reference(q, k, v, segment_ids=segment_ids)
+    raise ValueError(f"unknown attention impl {impl!r} (auto | plain)")

@@ -1,0 +1,321 @@
+"""Flash attention over q / k that are already normed and roped: kernels K3 and K4 of the port.
+
+Counterpart of qflux_tpu/ops/flash_attention.py.  JAX runs it on one chip
+wherever the fused K1 / K2 of ops/flash_nr.py do not apply
+(`flash_nr.supports`: the whole K in one TPU block, padded S ≤ 2688 in bf16
+and ≤ 2560 with the int8 score GEMM), after an XLA norm + rope: the
+published Qwen 832×576 config (S = 4000) among them.  It is also the ring
+hop's forward and backward.  The parts:
+
+  * `flash_fwd_reference` — the plain K3: `ops/attention.py:sdpa_with_lse`'s
+    math with separate q / kv segment ids → (out, lse).  CPU tensors take it
+    (autograd differentiates it); on the card it is only the comparison
+    point;
+  * `flash_bwd_reference` — the plain K4, the explicit formula from the
+    given residuals (not autograd through the forward: a ring hop hands the
+    backward the GLOBAL out / lse, not the hop's own);
+  * `flash_attention` — the model-layout entry point.  On CUDA tensors it
+    calls the custom op `qflux::flash_fwd`, which launches K3
+    (`csrc/flash_fwd.cu`); its registered autograd formula launches K4
+    (`csrc/flash_bwd.cu`), as JAX's custom_vjp runs `_fwd` / `_bwd`.  Each
+    launches its kernel or raises; nothing falls back.  `FWD_OP` is what a
+    checkpoint policy sees;
+  * `flash_fwd_with_lse` / `flash_bwd_from_residuals` — the ring hop's two
+    entry points, without autograd, over the same kernels;
+  * `offload_contexts` — the "flash_offload" remat policy's pair of
+    checkpoint contexts, shared with K1's op: in a checkpointed region's
+    forward either op copies its out and lse to pinned host memory; in the
+    region's recompute it returns them to the device instead of launching
+    again, in call order, so backward runs on the same residuals as under
+    "flash" while the device holds none of them in between.
+
+`KERNEL_LAUNCHES` counts K3's launches, `BWD_KERNEL_LAUNCHES` K4's.  The
+kernels take every S and mask the ragged edge by index, so JAX's block
+pickers (`_auto_block`, `BLOCK_K_CAP`, `BLOCK_K_CAP_BWD`,
+`_merged_bwd_block_q`) are TPU tuners the port does not carry: K4 serves
+JAX's merged (K4a) and split (K4b + K4c) backward alike.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+
+import torch
+
+from qflux_tpu_torch.ops.attention import sdpa_with_lse, segment_mask
+
+HEAD_DIM = 128  # the only head dim the kernels take
+
+# launches of the CUDA kernels in this process
+KERNEL_LAUNCHES = 0      # K3, csrc/flash_fwd.cu
+BWD_KERNEL_LAUNCHES = 0  # K4, csrc/flash_bwd.cu
+
+
+def _segment_pair(q, q_seg, kv_seg):
+    """JAX's `flash_attention` rule: no ids at all is the unmasked case
+    (None, None); else missing q ids are all ones and missing kv ids are the
+    q ids."""
+    if q_seg is None and kv_seg is None:
+        return None, None
+    if q_seg is None:
+        q_seg = torch.ones(q.shape[:2], dtype=torch.int32, device=q.device)
+    return q_seg, (kv_seg if kv_seg is not None else q_seg)
+
+
+def flash_fwd_reference(q, k, v, q_seg, kv_seg, scale):
+    """Plain version of K3 over q [B, Sq, H, D] and k / v [B, Sk, H, D]:
+    (out [B, Sq, H, D] in q.dtype, lse [B, H, Sq] f32).  Fully masked rows
+    output 0 with lse = -1e30, as the kernel."""
+    q_seg, kv_seg = _segment_pair(q, q_seg, kv_seg)
+    return sdpa_with_lse(q, k, v, q_seg, kv_seg, scale)
+
+
+def flash_bwd_reference(q, k, v, q_seg, kv_seg, out, lse, do, scale):
+    """Plain version of K4, the explicit formula of `_dqdkv_kernel` (and of
+    `_dq_kernel` + `_dkv_kernel`) from the given residuals, in f32:
+
+        p = exp(q k^T scale - lse), 0 by select where masked
+        dv = bf16(p)^T do,  delta = rowsum(do out)
+        ds = bf16(p (do v^T - delta) scale),  dq = ds k,  dk = ds^T q
+
+    with p and ds rounded to do's / k's dtype as the TPU kernels do.  The
+    select keeps a fully masked row (lse = -1e30, so exp gives +inf) at 0,
+    whatever `do` holds there.  Returns (dq, dk, dv), all f32."""
+    q_seg, kv_seg = _segment_pair(q, q_seg, kv_seg)
+    qf, kf, dof = q.float(), k.float(), do.float()
+    p = torch.einsum("bqhd,bkhd->bhqk", qf, kf).mul_(scale).sub_(lse[..., None]).exp_()
+    if q_seg is not None:
+        p = torch.where(segment_mask(q_seg, kv_seg), p, 0.0)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), dof)
+    delta = (dof * out.float()).sum(-1).permute(0, 2, 1)  # [B, H, Sq]
+    ds = torch.einsum("bqhd,bkhd->bhqk", dof, v.float()).sub_(delta[..., None])
+    ds = ds.mul_(p).mul_(scale).to(k.dtype).float()
+    del p
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, kf), torch.einsum("bhqk,bqhd->bkhd", ds, qf),
+            dv)
+
+
+def _check(name, t, device, dtype, shape):
+    if t.device != device:
+        raise ValueError(f"flash_attention: {name} is on {t.device}, q on {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"flash_attention: {name} is {t.dtype}, the kernel takes {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"flash_attention: {name} has shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"flash_attention: {name} is not contiguous")
+    if t.data_ptr() % 16 and dtype == torch.bfloat16:  # the kernels load 16-byte vectors
+        raise ValueError(f"flash_attention: {name} is not 16-byte aligned")
+
+
+def _kernel_args(what, q, k, v, q_seg, kv_seg):
+    """Check q, k, v against what the kernels take (CUDA, bf16, D = 128,
+    [B, S, H, D] contiguous and 16-byte aligned, k / v of one shape with q's
+    B and H) and return (B, Sq, Sk, H, int32 q ids, int32 kv ids), the ids
+    both None (unmasked) or both set."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention {what}: the kernel runs on CUDA tensors, "
+                         f"got {q.device}")
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"flash_attention: q / k must be [B, S, H, D], got "
+                         f"{tuple(q.shape)} / {tuple(k.shape)}")
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if d != HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim {d}; the kernel takes {HEAD_DIM}")
+    if sk < 1:
+        raise ValueError("flash_attention: no keys")
+    _check("q", q, q.device, torch.bfloat16, (b, sq, h, d))
+    _check("k", k, q.device, torch.bfloat16, (b, sk, h, d))
+    _check("v", v, q.device, torch.bfloat16, (b, sk, h, d))
+    q_seg, kv_seg = _segment_pair(q, q_seg, kv_seg)
+    if q_seg is not None:
+        q_seg, kv_seg = (t.to(torch.int32).contiguous() for t in (q_seg, kv_seg))
+        _check("q_seg", q_seg, q.device, torch.int32, (b, sq))
+        _check("kv_seg", kv_seg, q.device, torch.int32, (b, sk))
+    return b, sq, sk, h, q_seg, kv_seg
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _flash_fwd_cuda(q, k, v, q_seg, kv_seg, scale):
+    """Launch K3 (csrc/flash_fwd.cu) on CUDA tensors → (out, lse); raises on
+    anything the kernel does not take (`_kernel_args`) and on a CUDA error.
+    Counting is the caller's."""
+    b, sq, sk, h, q_seg, kv_seg = _kernel_args("forward", q, k, v, q_seg, kv_seg)
+
+    from qflux_tpu_torch.runtime.build import load_library
+
+    kl = load_library()
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, sq), device=q.device, dtype=torch.float32)
+    code = kl.lib.qflux_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(q_seg), _ptr(kv_seg), out.data_ptr(),
+        lse.data_ptr(), b, sq, sk, h, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    kl.check(code, "flash_fwd launch")
+    return out, lse
+
+
+def _flash_bwd_cuda(q, k, v, q_seg, kv_seg, out, lse, do, scale):
+    """Launch K4 (csrc/flash_bwd.cu: delta, then dk / dv, then dq) on CUDA
+    tensors → (dq, dk, dv) in q's dtype; raises as `_flash_fwd_cuda`.
+    Counting is the caller's."""
+    b, sq, sk, h, q_seg, kv_seg = _kernel_args("backward", q, k, v, q_seg, kv_seg)
+    _check("out", out, q.device, torch.bfloat16, q.shape)
+    _check("do", do, q.device, torch.bfloat16, q.shape)
+    _check("lse", lse, q.device, torch.float32, (b, h, sq))
+
+    from qflux_tpu_torch.runtime.build import load_library
+
+    kl = load_library()
+    delta = torch.empty((b, h, sq), device=q.device, dtype=torch.float32)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    code = kl.lib.qflux_flash_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(q_seg), _ptr(kv_seg), out.data_ptr(),
+        lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), b, sq, sk, h, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+    kl.check(code, "flash_bwd launch")
+    return dq, dk, dv
+
+
+class _OffloadStore:
+    """The (out, lse) of the attention ops of one checkpointed region, in
+    host memory (pinned for CUDA tensors) from the region's forward to its
+    recompute, in call order."""
+
+    def __init__(self):
+        self.saved = []
+        self.next = 0
+
+    def put(self, out, lse):
+        pin = out.is_cuda
+        self.saved.append([torch.empty(t.shape, dtype=t.dtype, pin_memory=pin).copy_(
+            t, non_blocking=pin) for t in (out, lse)])
+
+    def take(self, device):
+        out, lse = self.saved[self.next]
+        self.next += 1
+        if device.type == "cpu":  # the op's outputs are fresh tensors
+            return out.clone(), lse.clone()
+        return out.to(device, non_blocking=True), lse.to(device, non_blocking=True)
+
+
+_OFFLOAD = threading.local()  # .state: (store, replaying) inside a "flash_offload" region
+
+
+@contextlib.contextmanager
+def _offload_mode(store: _OffloadStore, replaying: bool):
+    prev = getattr(_OFFLOAD, "state", None)
+    store.next = 0
+    _OFFLOAD.state = (store, replaying)
+    try:
+        yield
+    finally:
+        _OFFLOAD.state = prev
+
+
+def offload_contexts():
+    """The `context_fn` of torch.utils.checkpoint for the "flash_offload"
+    policy (JAX's save_and_offload_only_these_names("flash_out",
+    "flash_lse") to pinned_host): (forward context, recompute context) over
+    one fresh store.  The recompute context runs in whichever thread the
+    autograd engine recomputes in, and the state is per thread."""
+    store = _OffloadStore()
+    return _offload_mode(store, False), _offload_mode(store, True)
+
+
+def launch_or_replay(device, launch):
+    """An attention op's body: `launch()` → (out, lse), except in a
+    "flash_offload" recompute, which returns the region's stored pair
+    instead; in the region's forward the pair is also stored."""
+    state = getattr(_OFFLOAD, "state", None)
+    if state is not None and state[1]:
+        return state[0].take(device)
+    out, lse = launch()
+    if state is not None:
+        state[0].put(out, lse)
+    return out, lse
+
+
+# The custom op runs on every device type: on a CUDA tensor it launches K3, on
+# any other `_flash_fwd_cuda` raises (the public entry point sends CPU tensors
+# to the plain version before they reach it).
+@torch.library.custom_op(
+    "qflux::flash_fwd", mutates_args=(),
+    schema="(Tensor q, Tensor k, Tensor v, Tensor? q_seg, Tensor? kv_seg, float scale) "
+           "-> (Tensor, Tensor)")
+def _flash_fwd_op(q, k, v, q_seg, kv_seg, scale):
+    def launch():
+        global KERNEL_LAUNCHES
+        out, lse = _flash_fwd_cuda(q, k, v, q_seg, kv_seg, scale)
+        KERNEL_LAUNCHES += 1
+        return out, lse
+
+    return launch_or_replay(q.device, launch)
+
+
+def _fwd_setup_context(ctx, inputs, output):
+    # the residuals of _flash_fwd (qflux_tpu/ops/flash_attention.py:473-481)
+    q, k, v, q_seg, kv_seg, scale = inputs
+    out, lse = output
+    ctx.save_for_backward(q, k, v, q_seg, kv_seg, out, lse)
+    ctx.scale = scale
+
+
+def _fwd_backward(ctx, dout, _dlse):
+    """K4 from the saved residuals; lse is a residual, not differentiated (as
+    in the JAX custom_vjp, whose primal returns out alone)."""
+    global BWD_KERNEL_LAUNCHES
+    q, k, v, q_seg, kv_seg, out, lse = ctx.saved_tensors
+    dq, dk, dv = _flash_bwd_cuda(q, k, v, q_seg, kv_seg, out, lse, dout.contiguous(), ctx.scale)
+    BWD_KERNEL_LAUNCHES += 1
+    return dq, dk, dv, None, None, None
+
+
+torch.library.register_autograd("qflux::flash_fwd", _fwd_backward,
+                                setup_context=_fwd_setup_context)
+FWD_OP = torch.ops.qflux.flash_fwd.default  # what a checkpoint policy sees
+
+
+def flash_attention(q, k, v, segment_ids=None, kv_segment_ids=None, scale=None):
+    """Flash attention over [B, S, H, D] q (Sq rows) and k / v (Sk rows)
+    with segment-id masking: seg 0 is padding, tokens attend iff their ids
+    are equal and nonzero; no ids at all is the unmasked case.  Returns out
+    [B, Sq, H, D], differentiable in q, k and v.
+
+    CUDA tensors run the Hopper kernels, K3 forward and K4 backward; CPU
+    tensors run `flash_fwd_reference`, which autograd differentiates."""
+    scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
+    q_seg, kv_seg = _segment_pair(q, segment_ids, kv_segment_ids)
+    if q.device.type == "cpu":
+        return flash_fwd_reference(q, k, v, q_seg, kv_seg, scale)[0]
+    return _flash_fwd_op(q, k, v, q_seg, kv_seg, float(scale))[0]
+
+
+def flash_fwd_with_lse(q, k, v, q_seg, kv_seg, scale):
+    """The ring hop's forward: (out [B, Sq, H, D], lse [B, H, Sq] f32) of
+    one K3 call, no autograd — pair it with `flash_bwd_from_residuals`.
+    CPU tensors take `flash_fwd_reference`."""
+    global KERNEL_LAUNCHES
+    if q.device.type == "cpu":
+        return flash_fwd_reference(q, k, v, q_seg, kv_seg, scale)
+    out, lse = _flash_fwd_cuda(q, k, v, q_seg, kv_seg, scale)
+    KERNEL_LAUNCHES += 1
+    return out, lse
+
+
+def flash_bwd_from_residuals(q, k, v, q_seg, kv_seg, out, lse, do, scale):
+    """The ring hop's backward: (dq, dk, dv) in [B, S, H, D] and the inputs'
+    dtypes from caller-supplied (global) out / lse, one K4 call.  CPU
+    tensors take `flash_bwd_reference`."""
+    global BWD_KERNEL_LAUNCHES
+    if q.device.type == "cpu":
+        g = flash_bwd_reference(q, k, v, q_seg, kv_seg, out, lse, do, scale)
+        return tuple(x.to(t.dtype) for x, t in zip(g, (q, k, v)))
+    grads = _flash_bwd_cuda(q, k, v, q_seg, kv_seg, out, lse, do.contiguous(), scale)
+    BWD_KERNEL_LAUNCHES += 1
+    return grads

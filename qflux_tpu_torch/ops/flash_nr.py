@@ -21,19 +21,21 @@ Counterpart of qflux_tpu/ops/flash_nr.py.  The parts:
     autograd.Function) so that a selective-checkpoint policy can see it and
     save its out and lse (the "flash" remat policy,
     models/flux/transformer.py);
-  * `offload_contexts` — the "flash_offload" remat policy's pair of
-    checkpoint contexts: in a checkpointed region's forward the op copies
-    K1's out and lse to pinned host memory; in the region's recompute it
-    returns them to the device instead of launching K1 again, so backward
-    runs K2 on the same residuals as under "flash" while the device holds
-    none of them in between.
+  * `supports` — WHERE JAX on a TPU runs this fused path at all: the whole
+    K in one kernel block (padded S ≤ 2688 in bf16, ≤ 2560 with the int8
+    score GEMM) and self-attention; elsewhere `ops/attention.py` takes
+    JAX's other route, the plain norm + rope and then K3 / K4
+    (ops/flash_attention.py).  In a "flash_offload" region the op parks
+    and replays K1's out and lse through `flash_attention.offload_contexts`
+    and `launch_or_replay`, which K3's op shares.
 
 The `s_int8` mode (config `model.quantize.attention`) computes QK^T as an
 int8 x int8 product with one scale per q tile and one per (b, h) for K,
 as the TPU kernels' `s_int8` branches do:
 
-  * `s_int8_tiles` — where JAX on a TPU applies it and over which q tiles
-    it quantizes (forward and backward pick their tiles independently);
+  * `s_int8_tiles` — where JAX on a TPU applies it (`supports` with
+    s_int8) and over which q tiles it quantizes (forward and backward pick
+    their tiles independently);
   * `quant_tile` / `quant_rows` — JAX's `_quant_tile`, whole and per tile;
   * `flash_attention_nr_int8_reference` / `_bwd_reference` — the plain
     versions of the two kernels' `s_int8` branches.  The backward is
@@ -49,13 +51,11 @@ as the TPU kernels' `s_int8` branches do:
 
 from __future__ import annotations
 
-import contextlib
-import threading
-
 import torch
 import torch.nn.functional as F
 
 from qflux_tpu_torch.ops.attention import masked_softmax_pv, sdpa_with_lse, segment_mask
+from qflux_tpu_torch.ops.flash_attention import launch_or_replay
 
 EPS = 1e-6
 HEAD_DIM = 128  # the only head dim the kernels take (every FLUX/Qwen shape)
@@ -67,10 +67,11 @@ BWD_KERNEL_LAUNCHES = 0       # K2, csrc/flash_nr_bwd.cu
 INT8_KERNEL_LAUNCHES = 0      # K1 in its s_int8 mode
 INT8_BWD_KERNEL_LAUNCHES = 0  # K2 in its s_int8 mode
 
-# JAX's default tile pickers for the s_int8 mode (qflux_tpu/ops/flash_nr.py
+# JAX's default VMEM estimates and tile pickers (qflux_tpu/ops/flash_nr.py
 # _nr_block_q / _nr_fwd_block_q at the 13 MB budget and under the raised
 # scoped-VMEM limit every qflux entry point sets; ops/flash_attention.py
-# BLOCK_Q_TARGET), copied here: the port reads no QFLUX_NR_VMEM_MB
+# BLOCK_Q_TARGET), copied here because they decide where JAX runs this path
+# and its int8 mode: the port reads no QFLUX_NR_VMEM_MB
 _NR_VMEM_BUDGET = 13 * 1024 * 1024
 _NR_FWD_VMEM_BUDGET = 32 * 1024 * 1024
 _BLOCK_Q_TARGET = 256
@@ -88,30 +89,45 @@ def _pad_len(s, block):
     return (block - s % block) % block
 
 
+def _nr_block_q(bk, d, s_int8):
+    """JAX's `_nr_block_q` at its 13 MB default: the largest block_q in
+    {256, 128} whose merged-backward VMEM estimate at a K block of bk rows
+    fits, or None."""
+    return next((bq for bq in (256, 128)
+                 if 8 * bq * bk + 16 * bk * d + 14 * bk * d + 24 * bq * d
+                 + (bk * d if s_int8 else 0) <= _NR_VMEM_BUDGET), None)
+
+
+def supports(sq: int, sk: int, d: int, s_int8: bool = False) -> bool:
+    """JAX's `flash_nr.supports` at its defaults: WHERE JAX on a TPU runs
+    the fused norm + rope path (K1 / K2) — self-attention, d a multiple of
+    128, and the `_nr_block_q` estimate at the single padded K block under
+    13 MB: padded S ≤ 2688 in bf16, ≤ 2560 with the int8 score GEMM.  It
+    defines behaviour to mirror (`ops/attention.py` runs K3 / K4 elsewhere,
+    as JAX does); it is not a tuner of this card's kernels, which take any
+    S."""
+    if sq != sk or d % 128:
+        return False
+    return _nr_block_q(_auto_block(sk, 1 << 30), d, s_int8) is not None
+
+
 def s_int8_tiles(s: int, d: int):
     """(fwd_rows, bwd_rows), or None: WHERE JAX on a TPU applies the int8
     score GEMM and over which q tiles it quantizes.
 
-    It is the arithmetic of `flash_attention_nr`'s tile choice
-    (qflux_tpu/ops/flash_nr.py:573-584) with JAX's default VMEM estimates:
-    None wherever `supports(s, s, d, s_int8=True)` fails (d % 128 != 0, or
-    the padded K past 2560 rows), and there the TPU runs bf16 attention;
-    otherwise the forward's and the backward's q tile rows (128 or 256,
-    counted from row 0).  Where the two differ (S = 2304, 2560: 256 / 128)
-    the backward recomputes its scores from other q scales than the
-    forward's, as JAX does.  It defines behaviour to mirror; it is not a
-    tuner of this card's kernels, which take any S.
+    None wherever `supports(s, s, d, s_int8=True)` fails, and there JAX
+    runs bf16 attention through K3 / K4; otherwise the arithmetic of
+    `flash_attention_nr`'s tile choice (qflux_tpu/ops/flash_nr.py:573-584)
+    with JAX's default VMEM estimates: the forward's and the backward's q
+    tile rows (128 or 256, counted from row 0).  Where the two differ (S =
+    2304, 2560: 256 / 128) the backward recomputes its scores from other q
+    scales than the forward's, as JAX does.
     """
-    if d % 128:
+    if not supports(s, s, d, s_int8=True):
         return None
     pk = _auto_block(s, 1 << 30)  # the single padded K block
-    bq_m = next((bq for bq in (256, 128)
-                 if 8 * bq * pk + 16 * pk * d + 14 * pk * d + 24 * bq * d + pk * d
-                 <= _NR_VMEM_BUDGET), None)
-    if bq_m is None:
-        return None
     target = _auto_block(s, _BLOCK_Q_TARGET)
-    block_q = min(target, bq_m)
+    block_q = min(target, _nr_block_q(pk, d, True))
     bq_fwd = min(target, next((bq for bq in (256, 128)
                                if 4 * bq * pk + 16 * pk * d + 24 * bq * d + pk * d
                                <= _NR_FWD_VMEM_BUDGET), 128))
@@ -465,57 +481,12 @@ def _int8_operands_cuda(q, k, q_scale2, k_scale2, cos, sin, st, q_rows):
     return qn, kn, qq, kq, q_sc, sc[:, :, 0]
 
 
-class _OffloadStore:
-    """K1's (out, lse) of one checkpointed region, in host memory (pinned
-    for CUDA tensors) from the region's forward to its recompute, in call
-    order."""
-
-    def __init__(self):
-        self.saved = []
-        self.next = 0
-
-    def put(self, out, lse):
-        pin = out.is_cuda
-        self.saved.append([torch.empty(t.shape, dtype=t.dtype, pin_memory=pin).copy_(
-            t, non_blocking=pin) for t in (out, lse)])
-
-    def take(self, device):
-        out, lse = self.saved[self.next]
-        self.next += 1
-        if device.type == "cpu":  # the op's outputs are fresh tensors
-            return out.clone(), lse.clone()
-        return out.to(device, non_blocking=True), lse.to(device, non_blocking=True)
-
-
-_OFFLOAD = threading.local()  # .state: (store, replaying) inside a "flash_offload" region
-
-
-@contextlib.contextmanager
-def _offload_mode(store: _OffloadStore, replaying: bool):
-    prev = getattr(_OFFLOAD, "state", None)
-    store.next = 0
-    _OFFLOAD.state = (store, replaying)
-    try:
-        yield
-    finally:
-        _OFFLOAD.state = prev
-
-
-def offload_contexts():
-    """The `context_fn` of torch.utils.checkpoint for the "flash_offload"
-    policy (JAX's save_and_offload_only_these_names("flash_out",
-    "flash_lse") to pinned_host): (forward context, recompute context) over
-    one fresh store.  The recompute context runs in whichever thread the
-    autograd engine recomputes in, and the state is per thread."""
-    store = _OffloadStore()
-    return _offload_mode(store, False), _offload_mode(store, True)
-
-
 # The custom op runs on every device type: on a CUDA tensor it launches K1,
 # on any other `_flash_nr_cuda` raises (the public entry point sends CPU
 # tensors to the plain version before they reach it).  Inside a
 # "flash_offload" region it stores its outputs in host memory, and in the
-# region's recompute it returns them instead of launching.
+# region's recompute it returns them instead of launching
+# (`flash_attention.launch_or_replay`).
 @torch.library.custom_op(
     "qflux::flash_nr_fwd", mutates_args=(),
     schema="(Tensor q, Tensor k, Tensor v, Tensor q_scale2, Tensor k_scale2, Tensor cos, "
@@ -525,19 +496,17 @@ def _flash_nr_fwd_op(q, k, v, q_scale2, k_scale2, cos, sin, segment_ids, st, sca
                      fwd_rows=0, bwd_rows=0):
     """fwd_rows = bwd_rows = 0: K1; else K1's s_int8 mode over q tiles of
     fwd_rows rows, whose backward recomputes over tiles of bwd_rows."""
-    global KERNEL_LAUNCHES, INT8_KERNEL_LAUNCHES
-    state = getattr(_OFFLOAD, "state", None)
-    if state is not None and state[1]:
-        return state[0].take(q.device)
-    out, lse = _flash_nr_cuda(q, k, v, q_scale2, k_scale2, cos, sin, st, segment_ids, scale,
-                              fwd_rows)
-    if fwd_rows:
-        INT8_KERNEL_LAUNCHES += 1
-    else:
-        KERNEL_LAUNCHES += 1
-    if state is not None:
-        state[0].put(out, lse)
-    return out, lse
+    def launch():
+        global KERNEL_LAUNCHES, INT8_KERNEL_LAUNCHES
+        out, lse = _flash_nr_cuda(q, k, v, q_scale2, k_scale2, cos, sin, st, segment_ids,
+                                  scale, fwd_rows)
+        if fwd_rows:
+            INT8_KERNEL_LAUNCHES += 1
+        else:
+            KERNEL_LAUNCHES += 1
+        return out, lse
+
+    return launch_or_replay(q.device, launch)
 
 
 def _fwd_setup_context(ctx, inputs, output):
@@ -600,7 +569,9 @@ def flash_attention_nr(q, k, v, q_scale2, k_scale2, cos, sin, st,
     s_int8: the int8 score GEMM where JAX on a TPU applies it
     (`s_int8_tiles`): K1's and K2's s_int8 modes on CUDA tensors,
     `_Int8Attention` on CPU ones.  Where it does not apply (S past 2560, or
-    D not a multiple of 128) this is the bf16 call, as on the TPU.
+    D not a multiple of 128) this is the bf16 call.  Which route a model
+    takes at all is `ops/attention.py:qk_norm_rope_attention`'s choice
+    (`supports`).
     """
     d = q.shape[-1]
     scale = scale if scale is not None else 1.0 / (d ** 0.5)

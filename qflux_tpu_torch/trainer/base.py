@@ -21,7 +21,7 @@ with predict and the LoRA train step.  `load_model` quantizes the DiT with
 int4_requant; other dtypes raise there), and `fit` trains over that base
 (the fused int4 matmuls' backwards are kernels K5b and K6b on the card).  `quantize.attention` runs
 the int8 score GEMM of K1 and K2 wherever JAX on a TPU would (S up to 2560
-at head dim 128; bf16 attention elsewhere, as there), and the remat
+at head dim 128; bf16 attention through K3 / K4 elsewhere, as there), and the remat
 policies not ported raise in the transformer.
 """
 

@@ -52,8 +52,8 @@ def attn_impl_from_config(config) -> str:
     """`model.quantize: {enabled: true, attention: true}` → "int8", the int8
     score GEMM of K1 and K2 (their s_int8 modes), which applies where JAX on
     a TPU applies it: S up to 2560 at head dim 128 (`flash_nr.s_int8_tiles`),
-    bf16 attention elsewhere (the published Qwen 832×576 config, S = 4000);
-    else "auto"."""
+    bf16 attention elsewhere (K3 / K4 at the published Qwen 832×576 config,
+    S = 4000); else "auto"."""
     qz = config.model.quantize
     return "int8" if (qz and qz.enabled and qz.attention) else "auto"
 

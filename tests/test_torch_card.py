@@ -1,8 +1,9 @@
-"""The port's CUDA kernels on the card: K1, K2, K5a, K5b, K6a and K6b
+"""The port's CUDA kernels on the card: K1, K2, K3, K4, K5a, K5b, K6a and K6b
 against their plain versions, LoRA gradients through K1 and K2 inside a
 small DiT, and two-block, full-width Qwen-Image forwards and train steps
-over an int4-requant base (through K5a, K5b, K1 and K2) and over the W4A16
-`int4` base (through K6a, K6b, K1 and K2).
+over an int4-requant base (through K5a, K5b, K1 and K2, and at path B's S =
+4000 through K3 and K4) and over the W4A16 `int4` base (through K6a, K6b,
+K1 and K2).
 
 This file imports neither jax nor the JAX package, so it runs on a machine
 with a card and without JAX:
@@ -660,3 +661,151 @@ def test_qwen_train_step_through_k6_on_card(monkeypatch):
     for path, g in grads["auto"].items():
         zero = path in ("blocks/1/attn/add_q", "blocks/1/attn/add_out")
         assert bool(g.abs().sum() > 0) != zero, path
+
+
+# ---------------------------------------------------------------------------
+# K3 / K4: the plain flash forward over normed and roped q / k, and its
+# backward (ops/flash_attention.py), where JAX's one-chip dispatch runs them
+
+# Sq, Sk, masked: ragged in one K tile's reach; a ring hop's Sq != Sk with
+# other kv ids over several K tiles; S = 40 below one tile
+K3_CASES = [(300, 300, False), (300, 300, True), (200, 520, True), (40, 40, False)]
+
+
+def _k3_inputs(seed, sq, sk, masked):
+    """bf16 q [B, Sq, H, D], k / v [B, Sk, H, D] on the card, and the ids:
+    sample 0's q rows padded from 150 and its keys from Sk - 60, sample 1 in
+    two segments split at 96 (q) and Sk // 3 (keys)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, sq, H, D)).astype(np.float32)
+    k, v = (rng.standard_normal((B, sk, H, D)).astype(np.float32) for _ in range(2))
+    qkv = [torch.from_numpy(a).cuda().to(torch.bfloat16) for a in (q, k, v)]
+    if not masked:
+        return qkv + [None, None]
+    q_seg, kv_seg = np.ones((B, sq), np.int32), np.ones((B, sk), np.int32)
+    q_seg[0, 150:], q_seg[1, 96:] = 0, 2
+    kv_seg[0, sk - 60:], kv_seg[1, sk // 3:] = 0, 2
+    return qkv + [torch.from_numpy(a).cuda() for a in (q_seg, kv_seg)]
+
+
+def _dead_rows(q_seg, kv_seg):
+    """[B, Sq] bool: q rows whose every key is masked."""
+    return ~((q_seg[:, :, None] == kv_seg[:, None, :]) & (q_seg[:, :, None] != 0)).any(-1)
+
+
+@pytest.mark.parametrize("sq,sk,masked", K3_CASES)
+def test_k3_k4_match_plain_on_card(sq, sk, masked):
+    """K3: out within 4 bf16 ulps at magnitude 1 (1.6e-2), lse within 1e-4
+    (chip_smoke.py's K1 bounds: the same rounding points); fully masked rows
+    output 0 with lse = -1e30.  K4 with nonzero do on every row: relative L2
+    1.5e-2 per gradient against the plain f32 formula, and the fully masked
+    rows' dq exactly 0."""
+    from qflux_tpu_torch.ops import flash_attention as tfa
+
+    q, k, v, q_seg, kv_seg = _k3_inputs(21 + sq, sq, sk, masked)
+    scale = D ** -0.5
+    out, lse = tfa._flash_fwd_cuda(q, k, v, q_seg, kv_seg, scale)
+    do = torch.randn(q.shape, device="cuda").to(torch.bfloat16)
+    got = tfa._flash_bwd_cuda(q, k, v, q_seg, kv_seg, out, lse, do, scale)
+    torch.cuda.synchronize()
+    ref, ref_lse = tfa.flash_fwd_reference(q, k, v, q_seg, kv_seg, scale)
+    assert (out.float() - ref.float()).abs().max().item() <= 1.6e-2
+    valid = ref_lse > -1e29
+    assert (lse - ref_lse).abs()[valid].max().item() <= 1e-4
+    assert bool((lse[~valid] == -1e30).all())
+    want = tfa.flash_bwd_reference(q, k, v, q_seg, kv_seg, out, lse, do, scale)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert ((g.float() - w).norm() / w.norm()).item() <= 1.5e-2
+    if masked:
+        dead = _dead_rows(q_seg, kv_seg)
+        assert bool(dead.any()) and not out[dead].any() and not got[0][dead].any()
+
+
+def test_k3_k4_on_cuda_never_reach_the_plain_version(monkeypatch):
+    """On CUDA tensors `flash_attention` (forward and autograd), the ring
+    hop's `flash_fwd_with_lse` and `flash_bwd_from_residuals` launch K3 / K4
+    once each and never call the plain versions (replaced here by functions
+    that raise)."""
+    from qflux_tpu_torch.ops import flash_attention as tfa
+
+    def refuse(*a, **kw):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    q, k, v, q_seg, kv_seg = _k3_inputs(5, 200, 200, True)
+    monkeypatch.setattr(tfa, "flash_fwd_reference", refuse)
+    monkeypatch.setattr(tfa, "flash_bwd_reference", refuse)
+    before = (tfa.KERNEL_LAUNCHES, tfa.BWD_KERNEL_LAUNCHES)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = tfa.flash_attention(*leaves, segment_ids=q_seg, kv_segment_ids=kv_seg)
+    out.float().square().sum().backward()
+    assert (tfa.KERNEL_LAUNCHES, tfa.BWD_KERNEL_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    o, lse = tfa.flash_fwd_with_lse(q, k, v, q_seg, kv_seg, D ** -0.5)
+    g = tfa.flash_bwd_from_residuals(q, k, v, q_seg, kv_seg, o, lse, o, D ** -0.5)
+    torch.cuda.synchronize()
+    assert (tfa.KERNEL_LAUNCHES, tfa.BWD_KERNEL_LAUNCHES) == (before[0] + 2, before[1] + 2)
+    assert torch.equal(o, out.detach()) and all(x.dtype == torch.bfloat16 for x in g)
+
+
+def test_qwen_two_blocks_at_832x576_run_k3_k4_on_card():
+    """Two blocks of the 20B Qwen-Image DiT at full width over an
+    int4-requant base at path B's S = 256 + 2 · 1872 = 4000 (26 padding
+    text tokens), where JAX on one chip runs K3 / K4: a forward launches K3
+    twice and no K1, within 3e-2 (relative L2, chip_smoke.py's
+    FORWARD_REL_TOL) of the plain attention; a LoRA train step under
+    "flash_offload" and under "flash" launches K3 and K4 once a block and
+    neither K1 nor K2, with gradients identical to the bit."""
+    from qflux_tpu_torch.config import config_from_dict
+    from qflux_tpu_torch.models.qwen import transformer as tqwen
+    from qflux_tpu_torch.ops import flash_attention as tfa
+    from qflux_tpu_torch.ops.layers import build_lora_tree, mark_trainable, merge_lora
+    from qflux_tpu_torch.ops.quant import quantize_tree
+
+    def counts():
+        return (tfa.KERNEL_LAUNCHES, tfa.BWD_KERNEL_LAUNCHES, tnr.KERNEL_LAUNCHES,
+                tnr.BWD_KERNEL_LAUNCHES)
+
+    qcfg = config_from_dict({"model": {"quantize": {"enabled": True,
+                                                    "dtype": "int4_requant"}}}).model.quantize
+    cfg = dataclasses.replace(tqwen.QwenImageConfig(), num_layers=2)
+    gen = torch.Generator("cuda").manual_seed(3)
+    model = quantize_tree(tqwen.init(gen, cfg, "cuda", torch.bfloat16, quantize=qcfg), qcfg)
+    shapes = [(1, 52, 36), (1, 52, 36)]
+    n_img = 2 * 52 * 36
+    bf = torch.bfloat16
+    x = torch.randn(1, n_img, cfg.in_channels, device="cuda", generator=gen).to(bf)
+    txt = torch.randn(1, 256, cfg.joint_attention_dim, device="cuda", generator=gen).to(bf)
+    seg = torch.ones(1, 256 + n_img, dtype=torch.int32, device="cuda")
+    seg[0, 230:256] = 0
+    t = torch.full((1,), 0.5, device="cuda", dtype=bf)
+    with torch.inference_mode():
+        c0 = counts()
+        y = tqwen.forward(model, cfg, x, txt, t, shapes, segment_ids=seg)
+        torch.cuda.synchronize()
+        assert tuple(b - a for a, b in zip(c0, counts())) == (2, 0, 0, 0)
+        y_plain = tqwen.forward(model, cfg, x, txt, t, shapes, segment_ids=seg,
+                                attn_impl="plain")
+    rel = ((y.float() - y_plain.float()).norm() / y_plain.float().norm()).item()
+    assert bool(torch.isfinite(y).all()) and rel <= 3e-2
+    lora = mark_trainable(build_lora_tree(gen, model, [r"attn/(to_q|to_k|to_v|to_out)"], 16,
+                                          16.0))
+    with torch.no_grad():
+        for leaf in lora.values():
+            leaf["b"].normal_(0.0, 0.005, generator=gen)
+    merge_lora(model, lora)
+    target = torch.randn(1, n_img, 64, device="cuda", generator=gen)
+    grads = {}
+    for policy in ("flash_offload", "flash"):
+        for leaf in lora.values():
+            for p in leaf.values():
+                p.grad = None
+        c0 = counts()
+        y = tqwen.forward(model, cfg, x, txt, t, shapes, segment_ids=seg, remat_policy=policy)
+        (y.float() - target).square().mean().backward()
+        torch.cuda.synchronize()
+        assert tuple(b - a for a, b in zip(c0, counts())) == (2, 2, 0, 0), policy
+        grads[policy] = torch.cat([leaf[k].grad.flatten() for leaf in lora.values()
+                                   for k in ("a", "b")])
+    merge_lora(model, None)
+    assert torch.equal(grads["flash"], grads["flash_offload"])
+    assert bool(grads["flash"].abs().sum() > 0)

@@ -131,10 +131,12 @@ def test_plain_k2_matches_jax_flash_nr_grads(masked):
 
 def _plain_launchers(monkeypatch):
     """Test doubles: the two low-level launchers replaced by plain math (the
-    s_int8 mode's where q_rows is set), and the dispatch sending CPU tensors
-    to the custom op instead of the plain version, so the op, its autograd
-    formula and the checkpoint policy run here.  Returns nothing; the counts
-    move as the real launches would."""
+    s_int8 mode's where q_rows is set), the dispatch sending CPU tensors to
+    the custom op instead of the plain version, so the op, its autograd
+    formula and the checkpoint policy run here, and `supports` widened to
+    every self-attention shape, so that the tiny models (head dim 32) take
+    K1's route as JAX on a TPU takes it at FLUX's 512² shape.  Returns
+    nothing; the counts move as the real launches would."""
     def fwd(q, k, v, qs, ks, cos, sin, st, seg, scale, q_rows=0):
         with torch.no_grad():
             if q_rows:
@@ -162,6 +164,7 @@ def _plain_launchers(monkeypatch):
                                           segment_ids, scale, tiles or (0, 0))
 
     monkeypatch.setattr(tnr, "flash_attention_nr", dispatch)
+    monkeypatch.setattr(tnr, "supports", lambda sq, sk, d, s_int8=False: sq == sk)
 
 
 @pytest.mark.parametrize("remat", ["none", "full", "flash"])
@@ -347,11 +350,12 @@ def test_build_raises_without_nvcc(tmp_path, monkeypatch):
 
 
 def test_port_never_imports_jax(tmp_path):
-    """Importing every module of qflux_tpu_torch and running the tiny slices
-    end to end (a FLUX predict request, two Trainer.fit steps, and a Qwen
-    predict request over an int4-requant base loaded through
-    Trainer.from_yaml) leaves jax (and the JAX package, its config included)
-    out of sys.modules."""
+    """Importing every module of qflux_tpu_torch (ops/flash_attention.py, K3
+    / K4's, among them) and running the tiny slices end to end (a FLUX
+    predict request, two Trainer.fit steps, and a Qwen predict request over
+    an int4-requant base loaded through Trainer.from_yaml; at head dim 32
+    their attention takes the K3 route's plain version) leaves jax (and the
+    JAX package, its config included) out of sys.modules."""
     script = tmp_path / "no_jax.py"
     script.write_text(
         "import importlib, pkgutil, sys\n"
@@ -392,6 +396,9 @@ def test_port_never_imports_jax(tmp_path):
         "        'img_shapes_arr': np.array([[1, 4, 4], [1, 4, 4]], np.int32)}\n"
         "img = qt.predict_from_embeddings(qemb, 16, 16, lora=qt.build_lora())\n"
         "assert img.shape == (1, 16, 16, 3) and int4_matmul.RQ_KERNEL_LAUNCHES == 0\n"
+        "assert 'qflux_tpu_torch.ops.flash_attention' in sys.modules\n"
+        "from qflux_tpu_torch.ops import flash_attention\n"
+        "assert flash_attention.KERNEL_LAUNCHES == 0\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'qflux_tpu'))\n"
         "assert not bad, bad\n"
         "print('NO_JAX_OK')\n")

@@ -26,6 +26,7 @@ from qflux_tpu_torch import losses as tlosses
 from qflux_tpu_torch.config import config_from_dict
 from qflux_tpu_torch.models import bridge
 from qflux_tpu_torch.models.qwen import transformer as tqwen
+from qflux_tpu_torch.ops import flash_attention as tfa
 from qflux_tpu_torch.ops import flash_nr as tnr
 from qflux_tpu_torch.ops import int4_matmul as ti4
 from qflux_tpu_torch.ops import layers as tlayers
@@ -273,8 +274,8 @@ def test_kernel_launch_counts_per_step(tiny_int4, monkeypatch, policy, k1_per_st
     for name in ("RQ_KERNEL_LAUNCHES", "RQ_BWD_KERNEL_LAUNCHES"):
         monkeypatch.setattr(ti4, name, 0)
     offloads = []
-    orig_put = tnr._OffloadStore.put
-    monkeypatch.setattr(tnr._OffloadStore, "put",
+    orig_put = tfa._OffloadStore.put
+    monkeypatch.setattr(tfa._OffloadStore, "put",
                         lambda self, out, lse: offloads.append(out.shape) or orig_put(self, out, lse))
     got = _grads(model, _np_tree(jl), batch, noise, sigma, policy)
     assert (tnr.KERNEL_LAUNCHES, tnr.BWD_KERNEL_LAUNCHES) == (k1_per_step * n, n)

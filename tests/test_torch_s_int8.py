@@ -40,6 +40,7 @@ from qflux_tpu_torch import losses as tlosses
 from qflux_tpu_torch.models import bridge
 from qflux_tpu_torch.models.qwen import transformer as tqwen
 from qflux_tpu_torch.ops import attention as tattn
+from qflux_tpu_torch.ops import flash_attention as tfa
 from qflux_tpu_torch.ops import flash_nr as tnr
 from qflux_tpu_torch.ops import layers as tlayers
 from qflux_tpu_torch.trainer import qwen_edit as tqe
@@ -225,16 +226,22 @@ def test_int8_fwd_bwd_match_jax_kernels(s):
 def test_dispatch_int8_where_jax_applies_it(s, d):
     """qk_norm_rope_attention(impl="int8"): the s_int8 result where
     s_int8_tiles applies (S ≤ 2560 at head dim 128; here with its own q
-    tiles, 256 forward), and "auto" to the bit elsewhere (S = 2688, d = 32),
-    as JAX's TPU dispatch degrades to bf16 there.  Its q / k gradients are
-    the straight-through ones: nonzero, and the plain backward's."""
+    tiles, 256 forward); elsewhere (S = 2688, d = 32) the bf16 route JAX's
+    TPU dispatch takes there, the plain norm + rope and then K3
+    (`flash_attention`, whose plain version runs on CPU tensors), to the
+    bit, and on the CPU equal to "auto" (K1's plain version at S = 2688:
+    the same math).  Its q / k gradients are the straight-through ones:
+    nonzero, and the plain backward's."""
     args = [torch.from_numpy(a) for a in _inputs(4, s, d)]
     leaves = [t.clone().requires_grad_() for t in args[:5]]
     got = tattn.qk_norm_rope_attention(*leaves, args[5], args[6], 64, impl="int8")
     auto = tattn.qk_norm_rope_attention(*args, 64, impl="auto")
     tiles = tnr.s_int8_tiles(s, d)
     if s > 2560 or d != D:
-        assert tiles is None and torch.equal(got, auto)
+        k3 = tfa.flash_attention(tnr.apply_qk_norm_rope(args[0], args[3], args[5], args[6], 64),
+                                 tnr.apply_qk_norm_rope(args[1], args[4], args[5], args[6], 64),
+                                 args[2])
+        assert tiles is None and torch.equal(got, k3) and torch.equal(got, auto)
         return
     assert tiles == (256, 128)
     want, lse = tnr.flash_attention_nr_int8_reference(*args, 64, 256)
@@ -393,7 +400,7 @@ def test_custom_op_int8_mode_autograd_and_policies(monkeypatch, remat):
         ctx = functools.partial(create_selective_checkpoint_contexts, _save_flash_outputs)
         loss = checkpoint(fn, *leaves, use_reentrant=False, context_fn=ctx)
     else:
-        loss = checkpoint(fn, *leaves, use_reentrant=False, context_fn=tnr.offload_contexts)
+        loss = checkpoint(fn, *leaves, use_reentrant=False, context_fn=tfa.offload_contexts)
     assert _counts() == (0, 0, 1, 0)
     grads = torch.autograd.grad(loss, leaves)
     assert _counts() == (0, 0, 2 if remat == "full" else 1, 1)
