@@ -84,11 +84,13 @@ runs K6a and its dx K6b (path C).  In phases:
  14. kernel K6a (csrc/int4_fwd.cu), the W4A16 matmul, against its plain
      version (the int4-requant model freed first) at every GEMM shape of
      path C that `supports` admits, M in {1, 2, 256, 2048, 4096} (relative
-     L2 4e-3, max 2 bf16 ulps), with times of the kernel alone beside the
-     bound, the plain version, cuBLAS on the dequantized weight and JAX's
-     default dequant route;
+     L2 4e-3, max 2 bf16 ulps) and two calls identical to the bit, with
+     times of the kernel alone (its share of the bound, its factor against
+     cuBLAS on the dequantized weight) beside the wrapper's device and host
+     time, the plain version, cuBLAS and JAX's default dequant route;
  15. kernel K6b (csrc/int4_bwd.cu), its backward, in the same way at the dx
-     of every K6a case;
+     of every K6a case; then the two wrappers' host time per call at the
+     main shape and at M = 1;
  16. Qwen 512² predict over the int4 base (path C): a full-width forward
      through K6a + K1 against the plain W4A16 route and against the
      default dequant route (which launches no K6a), three requests with
@@ -1640,121 +1642,169 @@ def _int4_check(got, want) -> tuple[float, float, bool]:
     return rel, err, ok
 
 
-def phase_int4_kernel(card: str) -> dict:
-    """K6a against int4_matmul_reference at INT4_CASES, through the custom
-    op.  Times (CUDA events, the weights rotated past the L2 cache): K6a
-    alone (the C entry point on pre-cast bf16 x into a preallocated output:
-    no wrapper work), the plain version, cuBLAS bf16 torch.mm on the weight
-    dequantized once (the library call; a yardstick only, the port never
-    calls it), and JAX's default route as the port runs it (dequantize to
-    x.dtype, then the f32-result product of ops/layers._matmul_f32)."""
-    from qflux_tpu_torch.ops import int4_matmul, quant
+def _host_us(fn, n=200) -> float:
+    """Host time per call of `fn` (µs): the enqueue alone, without a
+    synchronize inside the window (fn is timed after a warm-up, and the card
+    works through the queue behind it)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / n
+
+
+def _int4_phase(card: str, backward: bool) -> dict:
+    """K6a (or, with `backward`, K6b) against its plain version at every
+    INT4_CASES shape, through int4_matmul (the custom op) and its backward;
+    two calls on the same inputs must agree to the bit.  Times (CUDA events,
+    the weights rotated past the L2 cache): the kernel alone (the C entry
+    point on pre-cast bf16 input into a preallocated output and workspace,
+    with _int4_plan's tiling: the main kernel and, where the contraction is
+    split, the reduction pass), the wrapper int4_fwd_cuda / int4_bwd_cuda
+    (device time, and its host time per call), the plain version, cuBLAS bf16
+    on the weight dequantized once (the library call; a yardstick only, the
+    port never calls it), and JAX's default route as the port runs it.
+    Prints each shape's share of the bound and factor against cuBLAS, and
+    returns the main shape's numbers with every shape's rows."""
+    from qflux_tpu_torch.ops import int4_matmul as ti4, quant
     from qflux_tpu_torch.ops.layers import _matmul_f32
     from qflux_tpu_torch.runtime.build import load_library
 
     lib = load_library().lib
-    gen = torch.Generator("cuda").manual_seed(16)
-    main = None
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tag, name = ("int4_bwd", "K6b") if backward else ("int4", "K6a")
+    entry = lib.qflux_int4_bwd if backward else lib.qflux_int4_fwd
+    wrapper = ti4.int4_bwd_cuda if backward else ti4.int4_fwd_cuda
+    plain = ti4.int4_matmul_dx_reference if backward else ti4.int4_matmul_reference
+    gen = torch.Generator("cuda").manual_seed(17 if backward else 16)
+    main, rows = None, []
     for m, k_in, n in INT4_CASES:
         weights, x = _int4_case(gen, m, k_in, n)
         q4, scale = weights[0]
-        got = int4_matmul.int4_matmul(x, q4, scale)
+        if backward:
+            t = torch.randn(m, n, device="cuda", generator=gen).to(x.dtype)  # the cotangent g
+            x.requires_grad_()
+            ti4.int4_matmul(x, q4, scale).backward(t)
+            got = x.grad
+            x.grad = None
+            ti4.int4_matmul(x, q4, scale).backward(t)
+            again = x.grad
+        else:
+            t = x
+            got = ti4.int4_matmul(x, q4, scale)
+            again = ti4.int4_matmul(x, q4, scale)
         torch.cuda.synchronize()
-        want = int4_matmul.int4_matmul_reference(x, q4, scale)
+        want = plain(t, q4, scale)
         rel, err, ok = _int4_check(got, want)
-        if not (ok and got.dtype == x.dtype):
-            raise AssertionError(f"K6a disagrees with its plain version at M={m} K={k_in} N={n}: "
-                                 f"rel L2 {rel:.3e}, max |diff| {err:.3e}")
-        xb = x.to(torch.bfloat16)
-        out = torch.empty(m, n, device="cuda", dtype=x.dtype)
+        same = torch.equal(got, again)
+        if not (ok and got.dtype == t.dtype):
+            raise AssertionError(f"{name} disagrees with its plain version at M={m} K={k_in} "
+                                 f"N={n}: rel L2 {rel:.3e}, max |diff| {err:.3e}")
+        if not same:
+            raise AssertionError(f"{name} is not deterministic at M={m} K={k_in} N={n}: two "
+                                 "calls on the same inputs differ")
+        tb = t.detach().to(torch.bfloat16)
+        out_cols = k_in if backward else n
+        out = torch.empty(m, out_cols, device="cuda", dtype=t.dtype)
+        plan = ti4._int4_plan(m, n, k_in, sms, backward)
+        ws = torch.empty(max(plan.workspace, 1), device="cuda")
         stream = torch.cuda.current_stream().cuda_stream
-        f32 = int(x.dtype == torch.float32)
+        f32 = int(t.dtype == torch.float32)
         c = len(weights)
-        ms = _rotating_ms(lambda i: lib.qflux_int4_fwd(
-            xb.data_ptr(), weights[i][0].data_ptr(), weights[i][1].data_ptr(), out.data_ptr(),
-            m, n, k_in, k_in // 128, f32, stream), c)
-        plain_ms = _rotating_ms(lambda i: int4_matmul.int4_matmul_reference(x, *weights[i]), c,
-                                reps=3, n=3)
+        ms = _rotating_ms(lambda i: entry(
+            tb.data_ptr(), weights[i][0].data_ptr(), weights[i][1].data_ptr(), out.data_ptr(),
+            m, n, k_in, k_in // 128, f32, plan.mt, plan.splits, ws.data_ptr(), stream), c)
+        wrap_ms = _rotating_ms(lambda i: wrapper(tb, *weights[i], t.dtype), c)
+        wrap_us = _host_us(lambda: wrapper(tb, q4, scale, t.dtype))
+        entry_us = _host_us(lambda: entry(
+            tb.data_ptr(), q4.data_ptr(), scale.data_ptr(), out.data_ptr(), m, n, k_in,
+            k_in // 128, f32, plan.mt, plan.splits, ws.data_ptr(), stream))
+        plain_ms = _rotating_ms(lambda i: plain(t, *weights[i]), c, reps=3, n=3)
         dq = [quant.dequantize_kernel_int4(*w, torch.bfloat16) for w in weights]
-        lib_ms = _rotating_ms(lambda i: torch.mm(xb, dq[i]), c)
+        if backward:
+            lib_ms = _rotating_ms(lambda i: torch.mm(tb, dq[i].t()), c)
+        else:
+            lib_ms = _rotating_ms(lambda i: torch.mm(tb, dq[i]), c)
         del dq
-        route_ms = _rotating_ms(lambda i: _matmul_f32(
-            x, quant.dequantize_kernel_int4(*weights[i], x.dtype).t()), c)
+        if backward:
+            route_ms = _rotating_ms(lambda i: torch.mm(
+                t, quant.dequantize_kernel_int4(*weights[i], t.dtype).t()), c)
+        else:
+            route_ms = _rotating_ms(lambda i: _matmul_f32(
+                t, quant.dequantize_kernel_int4(*weights[i], t.dtype).t()), c)
         ops = 2.0 * m * k_in * n
-        # x (bf16, as the kernel reads it), q4, the scales read once; out written once
-        n_bytes = 2 * m * k_in + k_in * n // 2 + 4 * (k_in // 128) * n + m * n * x.element_size()
+        # the input (bf16, as the kernel reads it), q4, the scales read once; the output
+        # written once
+        n_bytes = (2 * m * (n if backward else k_in) + k_in * n // 2 + 4 * (k_in // 128) * n
+                   + m * out_cols * t.element_size())
         bound = _bound(n_bytes, ops, PEAK_BF16_PER_MS)
-        print(f"[int4] M={m} K={k_in} N={n} x {str(x.dtype)[6:]}: rel L2 {rel:.3e} (tol "
-              f"{INT4_REL_TOL}), max |kernel - plain| {err:.3e}; K6a {ms:.4f} ms "
-              f"({ops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, cuBLAS bf16 on the "
-              f"dequantized weight {lib_ms:.4f} ms, default route (dequant + f32-result "
-              f"product) {route_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+        row = {"m": m, "k": k_in, "n": n, "ms": ms, "tflops": ops / ms / 1e9,
+               "bound_share": bound["bound_ms"] / ms, "library_ms": lib_ms,
+               "cublas_factor": ms / lib_ms, "wrapper_ms": wrap_ms, "wrapper_host_us": wrap_us,
+               "entry_host_us": entry_us, "mt": plan.mt, "splits": plan.splits}
+        rows.append(row)
+        print(f"[{tag}] {'dx of ' if backward else ''}M={m} K={k_in} N={n} "
+              f"{'g' if backward else 'x'} {str(t.dtype)[6:]}: rel L2 {rel:.3e} (tol "
+              f"{INT4_REL_TOL}), max |kernel - plain| {err:.3e}, two calls identical {same}; "
+              f"{name} {ms:.4f} ms ({row['tflops']:.1f} TFLOP/s, {100 * row['bound_share']:.1f}% "
+              f"of the bound, {row['cublas_factor']:.2f}x cuBLAS; mt {plan.mt}, splits "
+              f"{plan.splits}, {plan.blocks} blocks), wrapper {wrap_ms:.4f} ms on the card and "
+              f"{wrap_us:.1f} us host per call (C entry {entry_us:.1f} us), plain "
+              f"{plain_ms:.3f} ms, cuBLAS bf16 on the dequantized weight {lib_ms:.4f} ms, "
+              f"default route {route_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
               f"({bound['bound_by']}) [{card}]", flush=True)
         if (m, k_in, n) == INT4_MAIN:
             main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                    "default_route_ms": route_ms, **bound}
-        del weights, x, got, want, xb, out
+                    "default_route_ms": route_ms, "wrapper_ms": wrap_ms,
+                    "wrapper_host_us": wrap_us, **bound}
+        del weights, x, t, got, again, want, tb, out, ws
         torch.cuda.empty_cache()
-    return main
+    return {**main, "shapes": rows}
+
+
+def phase_int4_wrapper_host(card: str) -> dict:
+    """The host time per call (µs) of the K6 wrappers, int4_fwd_cuda and
+    int4_bwd_cuda, at the main shape and at M = 1 (K = 3072, N = 3072: a
+    split contraction), median of 7 windows of 200 calls each, the two
+    shapes in turns.  Uses only the wrappers' signature, so the same
+    function times an earlier checkout's package put first on sys.path."""
+    from qflux_tpu_torch.ops import int4_matmul as ti4, quant
+
+    gen = torch.Generator("cuda").manual_seed(22)
+    cases = {}
+    for m, k_in, n in (INT4_MAIN, (1, 3072, 3072)):
+        w = (torch.rand(k_in, n, device="cuda", generator=gen) * 2 - 1) / k_in ** 0.5
+        q4, scale = quant.quantize_kernel_int4(w, 128)
+        dtype = torch.float32 if m <= 2 else torch.bfloat16
+        xb = torch.randn(m, k_in, device="cuda", generator=gen).to(torch.bfloat16)
+        gb = torch.randn(m, n, device="cuda", generator=gen).to(torch.bfloat16)
+        cases[(m, k_in, n)] = (
+            lambda xb=xb, q4=q4, scale=scale, dtype=dtype: ti4.int4_fwd_cuda(xb, q4, scale, dtype),
+            lambda gb=gb, q4=q4, scale=scale, dtype=dtype: ti4.int4_bwd_cuda(gb, q4, scale, dtype))
+    times = {(c, kind): [] for c in cases for kind in ("fwd", "bwd")}
+    for _ in range(7):
+        for c, (fwd, bwd) in cases.items():
+            times[(c, "fwd")].append(_host_us(fwd))
+            times[(c, "bwd")].append(_host_us(bwd))
+    out = {f"{kind} M={c[0]} K={c[1]} N={c[2]}": statistics.median(v)
+           for (c, kind), v in times.items()}
+    print("[int4_host] wrapper host time per call, median of 7 windows of 200 calls: "
+          + "; ".join(f"{k} {v:.1f} us" for k, v in out.items()) + f" [{card}]", flush=True)
+    return out
+
+
+def phase_int4_kernel(card: str) -> dict:
+    """K6a at INT4_CASES (see _int4_phase)."""
+    return _int4_phase(card, backward=False)
 
 
 def phase_int4_bwd_kernel(card: str) -> dict:
-    """K6b against int4_matmul_dx_reference at the dx of every INT4_CASES
-    case (g [M, N] in x's dtype → dx [M, K]), through int4_matmul's
-    backward.  Times as phase_int4_kernel's: K6b alone on pre-cast bf16 g,
-    the plain version, cuBLAS bf16 torch.mm(g, Wᵀ) on the weight dequantized
-    once, and the default route's backward work as the port runs it
-    (dequantize, then _MatmulF32Out's dx product)."""
-    from qflux_tpu_torch.ops import int4_matmul, quant
-    from qflux_tpu_torch.runtime.build import load_library
-
-    lib = load_library().lib
-    gen = torch.Generator("cuda").manual_seed(17)
-    main = None
-    for m, k_in, n in INT4_CASES:
-        weights, x = _int4_case(gen, m, k_in, n)
-        q4, scale = weights[0]
-        g = torch.randn(m, n, device="cuda", generator=gen).to(x.dtype)
-        x.requires_grad_()
-        int4_matmul.int4_matmul(x, q4, scale).backward(g)
-        torch.cuda.synchronize()
-        got = x.grad
-        want = int4_matmul.int4_matmul_dx_reference(g, q4, scale)
-        rel, err, ok = _int4_check(got, want)
-        if not (ok and got.dtype == g.dtype):
-            raise AssertionError(f"K6b disagrees with its plain version at M={m} K={k_in} N={n}: "
-                                 f"rel L2 {rel:.3e}, max |diff| {err:.3e}")
-        gb = g.to(torch.bfloat16)
-        dx = torch.empty(m, k_in, device="cuda", dtype=g.dtype)
-        stream = torch.cuda.current_stream().cuda_stream
-        f32 = int(g.dtype == torch.float32)
-        c = len(weights)
-        ms = _rotating_ms(lambda i: lib.qflux_int4_bwd(
-            gb.data_ptr(), weights[i][0].data_ptr(), weights[i][1].data_ptr(), dx.data_ptr(),
-            m, n, k_in, k_in // 128, f32, stream), c)
-        plain_ms = _rotating_ms(lambda i: int4_matmul.int4_matmul_dx_reference(g, *weights[i]),
-                                c, reps=3, n=3)
-        dq = [quant.dequantize_kernel_int4(*w, torch.bfloat16) for w in weights]
-        lib_ms = _rotating_ms(lambda i: torch.mm(gb, dq[i].t()), c)
-        del dq
-        route_ms = _rotating_ms(lambda i: torch.mm(
-            g, quant.dequantize_kernel_int4(*weights[i], g.dtype).t()), c)
-        ops = 2.0 * m * k_in * n
-        # g (bf16, as the kernel reads it), q4, the scales read once; dx written once
-        n_bytes = 2 * m * n + k_in * n // 2 + 4 * (k_in // 128) * n + m * k_in * g.element_size()
-        bound = _bound(n_bytes, ops, PEAK_BF16_PER_MS)
-        print(f"[int4_bwd] dx of M={m} K={k_in} N={n} g {str(g.dtype)[6:]}: rel L2 {rel:.3e} "
-              f"(tol {INT4_REL_TOL}), max |kernel - plain| {err:.3e}; K6b {ms:.4f} ms "
-              f"({ops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, cuBLAS bf16 on the "
-              f"dequantized weight {lib_ms:.4f} ms, default route (dequant + dx product) "
-              f"{route_ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}) "
-              f"[{card}]", flush=True)
-        if (m, k_in, n) == INT4_MAIN:
-            main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                    "default_route_ms": route_ms, **bound}
-        del weights, x, g, got, want, gb, dx
-        torch.cuda.empty_cache()
-    return main
+    """K6b at the dx of every INT4_CASES case (g [M, N] in x's dtype → dx
+    [M, K]), through int4_matmul's backward (see _int4_phase)."""
+    return _int4_phase(card, backward=True)
 
 
 def _int4_trainer():
@@ -2149,6 +2199,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     k6_case = timed(phase_int4_kernel)
     k6b_case = timed(phase_int4_bwd_kernel)
+    timed(phase_int4_wrapper_host)
+    k6_case.pop("shapes"), k6b_case.pop("shapes")  # printed per shape above
     qwen_c, k1_c, k6_c = timed(phase_int4_predict)
     c_fit = timed(phase_int4_train, qwen_c)
     k1_ct, k2_ct, k6_ct, k6b_ct = c_fit[0], c_fit[1], c_fit[6], c_fit[7]

@@ -14,7 +14,7 @@
 // and out() the one cast of the f32 sum to dx's type (bf16 or f32, g's dtype).
 // The TPU kernel writes the two f32 halves dx_lo / dx_hi and leaves the
 // concatenation and the cast to XLA; here the epilogue writes both halves of
-// dx in place, straight from the accumulator: one rounding, as JAX's f32 then
+// dx in place, straight from the accumulators: one rounding, as JAX's f32 then
 // astype.  The weights are exactly the plain version's
 // (ops/int4_matmul.py:int4_matmul_dx_reference) and every product is exact in
 // f32; only the order of the f32 sums differs.  No gradient for q4 or the
@@ -25,205 +25,230 @@
 // train step) that is 2*M*N*K = 155 GFLOP, 0.156 ms at 989 TFLOP/s; its bytes
 // (g, the K*N/2 q4 read, the scales, dx) are ~76 MB, 0.023 ms at 3.35 TB/s.
 //
-// Design (right and simple first, the shape of K5b, csrc/rq_int4_bwd.cu;
-// wgmma, TMA and a pipelined ring are later work):
-//   * one 256-thread block per 128 rows x 64 packed rows of q4, which are 128
-//     dx columns: [kp0, kp0 + 64) from the low nibbles and [K/2 + kp0, ...)
-//     from the high ones, as the TPU kernel's two accumulators acc_e / acc_o;
-//     8 warps of 64 rows x 16 packed rows (32 dx columns, both planes);
-//   * the contraction runs over N, 64 per step (four mma.sync.m16n8k16 bf16 x
-//     bf16 -> f32 slices).  No transpose is needed: mma's B operand wants 2
-//     contraction values of one output column per 32-bit register, and 2
-//     consecutive n of one packed row, q4[kp, n..n+1], are neighbours in q4.
-//     Each thread loads one word (4 n) of 4 packed rows, dequantizes both
-//     nibble planes and packs pairs of n into words, stored as [kp][n / 2]
-//     with a row pitch of 32 + 4 words, so the fragment loads are free of
-//     bank conflicts;
-//   * the scales scale[kp / 128, n] vary along the contraction: each byte is
-//     dequantized with its own column's scale before the product, never
-//     applied to the accumulator.  A thread dequantizes 4 packed rows that
-//     share a group, so it loads 2 float4 of scales per step;
-//   * g is read in 16-byte pieces (8 threads cover one 128-byte row segment)
-//     into a row-major tile of pitch 144 bytes: the A fragment loads are free
-//     of bank conflicts too;
-//   * the next step's g, q4 and scale loads are issued before the current
-//     step's MMAs (register prefetch), as in K6a;
-//   * ragged M is masked by index.  The entry point refuses what the route
-//     never sends (ops/int4_matmul.py:supports): K % 3072, N % 128 or a group
-//     size other than 128, so N and K need no masking.
+// Design (the pipeline of int4_common.cuh, K6a's transposed; it replaces a first
+// mma.sync body):
+//   * a block computes BM rows (BM = 128 MT, MT = 1 or 2 by shape, as K6a) x
+//     64 packed rows of q4, which are 128 dx columns: [kp0, kp0 + 64) from the
+//     low nibbles and [K/2 + kp0, ...) from the high ones, the TPU kernel's two
+//     accumulators acc_e / acc_o;
+//   * the contraction runs over N, 64 per step: the g tile [BM, 64] (TMA,
+//     128-byte swizzle), the raw q4 tile [64 kp, 64 n] (TMA) and its two scale
+//     row segments (cp.async.bulk; kp0 % 64 == 0, so one group a plane), four
+//     stages in flight;
+//   * B is the dequantized tile stored K-major, the ordinary layout: 128 rows
+//     (64 low-plane kp, then 64 high-plane kp) of 64 n, 128-byte swizzle.  The
+//     scales vary along the contraction, so each byte is dequantized with its
+//     own column's scale before the product (dequant8), never applied to the
+//     accumulator.  Because the two planes are consecutive rows of one B
+//     tile, one wgmma.m64n128k16 per 64 rows and k16 computes both: the
+//     accumulator's columns 0..63 are dx's low half, 64..127 its high half;
+//   * split over N on 128-column chunks where the output tiles fill less than
+//     the card (dx of the MLP up-projection at M = 256, M = 1-2), into an f32
+//     workspace reduced in split order by int4_bwd_kernel_reduce:
+//     deterministic;
+//   * ragged M is zero-filled by TMA and masked by index in the epilogue.  The
+//     entry point refuses what the route never sends
+//     (ops/int4_matmul.py:supports): K % 3072, N % 128 or a group size other
+//     than 128, so N and K need no masking.
 //
 // Built without --use_fast_math: the f32 products and the bf16 rounding must
 // be IEEE.
 
 #include "common.cuh"
+#include "int4_common.cuh"
 
 namespace {
 
-constexpr int BM = 128;             // dx rows per block
-constexpr int BKP = 64;             // packed q4 rows per block (2 * 64 dx columns)
-constexpr int BN = 64;              // contraction (n) per step
-constexpr int GROUP = 128;          // rows per scale group
-constexpr int NTHREADS = 256;
-constexpr int A_PITCH = BN + 8;     // bf16 per g-tile row: 64 data + 8 pad
-constexpr int B_PITCH = BN / 2 + 4; // words per w-tile row (one packed row): 32 data + 4 pad
+constexpr int BKP = 64;          // packed q4 rows per block (2 * 64 dx columns)
+constexpr int BN = 64;           // contraction (n) per step
+constexpr int NCHUNK = 128;      // contraction a split is cut on
+constexpr int GROUP = 128;       // rows per scale group
+constexpr int STAGES = 4;
+constexpr int NTHREADS = 384;
+constexpr int B_TILE = 2 * BKP * BN * 2;  // both planes, 128 rows of 128 bytes (16 KB)
+constexpr int Q_BYTES = BKP * BN;         // raw q4 tile
+constexpr int S_BYTES = 2 * BN * 4;       // the two scale row segments
 
-struct Smem {
-  alignas(16) bf16 a[BM][A_PITCH];           // g: [m][n]
-  alignas(16) uint32_t b[2][BKP][B_PITCH];   // w planes: [kp][n / 2], 2 n-values (bf16) a word
+template <int MT>
+struct Layout {
+  static constexpr int BM = 128 * MT;
+  static constexpr int G_TILE = BM * BN * 2;      // 128-byte rows
+  static constexpr int B_OFF = 0;                 // 3 B tiles
+  static constexpr int G_OFF = B_OFF + 3 * B_TILE;
+  static constexpr int Q_OFF = G_OFF + STAGES * G_TILE;
+  static constexpr int S_OFF = Q_OFF + STAGES * Q_BYTES;
+  static constexpr int BAR_OFF = S_OFF + STAGES * S_BYTES;
+  static constexpr int BYTES = BAR_OFF + 2 * STAGES * 8;
+  static constexpr int SMEM = BYTES + 1024;
 };
 
-// one int4 value times its group scale, as dequantize_kernel_int4 (f32)
-__device__ __forceinline__ float dequant(int v, float s) {
-  return __fmul_rn(__int2float_rn(v), s);
+template <int MT>
+__global__ void __launch_bounds__(NTHREADS, 1)
+int4_bwd_kernel(const __grid_constant__ CUtensorMap g_map,
+                const __grid_constant__ CUtensorMap q_map, const float* __restrict__ scale,
+                void* __restrict__ dx, float* __restrict__ ws, int M, int N, int K, int splits,
+                int out_f32) {
+  using L = Layout<MT>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* empty = full + STAGES;
+
+  const int half = K >> 1;
+  const int kp0 = blockIdx.x * BKP, m0 = blockIdx.y * L::BM;
+  const int chunks = N / NCHUNK, z = blockIdx.z;
+  const int c_begin = z * chunks / splits, c_end = (z + 1) * chunks / splits;
+  const int n_begin = c_begin * NCHUNK;
+  const int steps = (c_end - c_begin) * (NCHUNK / BN);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      const float* slo = scale + (size_t)(kp0 / GROUP) * N;
+      const float* shi = scale + (size_t)((half + kp0) / GROUP) * N;
+      for (int s = 0; s < steps; ++s) {
+        const int st = s % STAGES;
+        if (s >= STAGES) mbar_wait(&empty[st], ((s / STAGES) - 1) & 1);
+        const int n0 = n_begin + s * BN;
+        float* ss = reinterpret_cast<float*>(smem + L::S_OFF + st * S_BYTES);
+        mbar_expect_tx(&full[st], L::G_TILE + Q_BYTES + S_BYTES);
+        tma_load_2d(smem + L::G_OFF + st * L::G_TILE, &g_map, &full[st], n0, m0);
+        tma_load_2d(smem + L::Q_OFF + st * Q_BYTES, &q_map, &full[st], n0, kp0);
+        bulk_load(ss, slo + n0, BN * 4, &full[st]);
+        bulk_load(ss + BN, shi + n0, BN * 4, &full[st]);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers
+  setmaxnreg_inc<232>();
+  const int c = wg - 1;
+  const int ct = threadIdx.x - 128;
+  const int lane = threadIdx.x & 31;
+  // dequantization roles: n 8 o .. 8 o + 7 of packed rows ct / 8 + 32 i
+  const int o = ct & 7, kr = ct >> 3;
+
+  float acc[MT][64];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[mt][i] = 0.f;
+
+  const uint32_t base = smem_u32(smem);
+  for (int s = 0; s < steps; ++s) {
+    const int st = s % STAGES, buf = s % 3;
+    mbar_wait(&full[st], (s / STAGES) & 1);
+    {
+      const uint8_t* q = smem + L::Q_OFF + st * Q_BYTES;
+      const float* ss = reinterpret_cast<const float*>(smem + L::S_OFF + st * S_BYTES);
+      float sl[8], sh[8];
+      *reinterpret_cast<float4*>(sl) = *reinterpret_cast<const float4*>(ss + 8 * o);
+      *reinterpret_cast<float4*>(sl + 4) = *reinterpret_cast<const float4*>(ss + 8 * o + 4);
+      *reinterpret_cast<float4*>(sh) = *reinterpret_cast<const float4*>(ss + BN + 8 * o);
+      *reinterpret_cast<float4*>(sh + 4) = *reinterpret_cast<const float4*>(ss + BN + 8 * o + 4);
+      uint8_t* b = smem + L::B_OFF + buf * B_TILE;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int kp = kr + 32 * i;
+        const uint2 w = *reinterpret_cast<const uint2*>(q + kp * BN + 8 * o);
+        uint4 lo, hi;
+        dequant8(w.x, w.y, sl, sh, lo, hi);
+        // rows kp (low plane) and 64 + kp (high plane): 64 + kp has kp's swizzle
+        const int off = kp * 128 + ((o ^ (kp & 7)) << 4);
+        *reinterpret_cast<uint4*>(b + off) = lo;
+        *reinterpret_cast<uint4*>(b + BKP * 128 + off) = hi;
+      }
+    }
+    fence_proxy_async();
+    consumers_sync();
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      const uint64_t db = wgmma_desc(base + L::B_OFF + buf * B_TILE + kk * 32, 16, 1024, 1);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const uint32_t a_addr =
+            base + L::G_OFF + st * L::G_TILE + (MT * c + mt) * 64 * 128 + kk * 32;
+        wgmma_m64n128k16<0>(acc[mt], wgmma_desc(a_addr, 16, 1024, 1), db);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (s > 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[(s - 1) % STAGES]);
+    }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) fence_regs(acc[mt]);
+
+  // accumulator columns 0..63 are dx's low half, 64..127 its high half
+  store_tile<MT>(acc, m0 + 64 * MT * c, M, K,
+                 [&](int j) { return (j < 8 ? kp0 : half + kp0 - BKP) + 8 * j; }, splits, z, ws,
+                 dx, out_f32);
 }
 
-// what one thread loads from device memory for one step
-struct Fetch {
-  int4 a[4];      // 16 bytes (8 bf16) of g in each of 4 rows
-  uint32_t q[4];  // one word (4 n) of q4 in 4 consecutive packed rows
-  float4 s[2];    // the word's 4 scales for the low / high plane's group
-};
+__global__ void int4_bwd_kernel_reduce(const float* __restrict__ ws, void* __restrict__ out,
+                                       long long n4, int splits, int out_f32) {
+  splitk_reduce_body(ws, out, n4, splits, out_f32);
+}
 
-__global__ void __launch_bounds__(NTHREADS, 2)
-int4_bwd_kernel(const bf16* __restrict__ gm, const int8_t* __restrict__ q4,
-                const float* __restrict__ scale, void* __restrict__ dx, int M, int N, int K,
-                int out_f32) {
-  __shared__ Smem sm;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int m0 = blockIdx.y * BM, kp0 = blockIdx.x * BKP;
-  const int half = K >> 1;
-  const int steps = N / BN;
-
-  // g load roles: 16-byte piece ac of rows ar + 32 i, i = 0..3
-  const int ac = tid & 7, ar = tid >> 3;
-  // q4 load roles: word qw (n = 4 qw) of packed rows 4 qr .. 4 qr + 3
-  const int qw = tid & 15, qr = tid >> 4;
-  const int kp = kp0 + 4 * qr;  // half % 64 == 0: every packed row of the block is in
-  const int8_t* qrow = q4 + (size_t)kp * N + 4 * qw;
-  // GROUP % 4 == 0 and kp % 4 == 0: the four rows share one group in each plane
-  const float* slo = scale + (size_t)(kp / GROUP) * N + 4 * qw;
-  const float* shi = scale + (size_t)((half + kp) / GROUP) * N + 4 * qw;
-
-  auto fetch = [&](int step, Fetch& ft) {
-    const int n0 = step * BN;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = m0 + ar + 32 * i;
-      ft.a[i] = row < M ? *reinterpret_cast<const int4*>(gm + (size_t)row * N + n0 + 8 * ac)
-                        : make_int4(0, 0, 0, 0);
-    }
-#pragma unroll
-    for (int p = 0; p < 4; ++p)
-      ft.q[p] = *reinterpret_cast<const uint32_t*>(qrow + (size_t)p * N + n0);
-    ft.s[0] = *reinterpret_cast<const float4*>(slo + n0);
-    ft.s[1] = *reinterpret_cast<const float4*>(shi + n0);
-  };
-
-  auto stash = [&](const Fetch& ft) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      *reinterpret_cast<int4*>(&sm.a[ar + 32 * i][8 * ac]) = ft.a[i];
-    const float sl[4] = {ft.s[0].x, ft.s[0].y, ft.s[0].z, ft.s[0].w};
-    const float sh[4] = {ft.s[1].x, ft.s[1].y, ft.s[1].z, ft.s[1].w};
-#pragma unroll
-    for (int p = 0; p < 4; ++p) {  // packed row 4 qr + p
-      float wl[4], wh[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {  // n = 4 qw + j: byte j of the word
-        const uint32_t b = ft.q[p] >> (8 * j);
-        // sign-extended nibbles: low (b << 28) >> 28, high (b << 24) >> 28
-        wl[j] = dequant(static_cast<int>(b << 28) >> 28, sl[j]);
-        wh[j] = dequant(static_cast<int>(b << 24) >> 28, sh[j]);
-      }
-      *reinterpret_cast<uint2*>(&sm.b[0][4 * qr + p][2 * qw]) =
-          make_uint2(pack_bf16(wl[0], wl[1]), pack_bf16(wl[2], wl[3]));
-      *reinterpret_cast<uint2*>(&sm.b[1][4 * qr + p][2 * qw]) =
-          make_uint2(pack_bf16(wh[0], wh[1]), pack_bf16(wh[2], wh[3]));
-    }
-  };
-
-  const int wm = (warp >> 2) * 64, wk = (warp & 3) * 16;
-  float acc[4][2][2][4];  // [m tile][packed-row tile][plane][fragment]
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int p = 0; p < 2; ++p)
-#pragma unroll
-        for (int r = 0; r < 4; ++r) acc[i][j][p][r] = 0.f;
-
-  Fetch ft;
-  fetch(0, ft);
-  for (int step = 0; step < steps; ++step) {
-    stash(ft);
-    __syncthreads();
-    if (step + 1 < steps) fetch(step + 1, ft);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {  // 16 n of the step's 64
-      uint32_t af[4][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const uint32_t* r0 = reinterpret_cast<const uint32_t*>(sm.a[wm + mt * 16 + g]);
-        const uint32_t* r8 = reinterpret_cast<const uint32_t*>(sm.a[wm + mt * 16 + g + 8]);
-        af[mt][0] = r0[kk * 8 + t];
-        af[mt][1] = r8[kk * 8 + t];
-        af[mt][2] = r0[kk * 8 + 4 + t];
-        af[mt][3] = r8[kk * 8 + 4 + t];
-      }
-#pragma unroll
-      for (int p = 0; p < 2; ++p)
-#pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          const uint32_t* col = sm.b[p][wk + nt * 8 + g];
-          const uint32_t b0 = col[kk * 8 + t], b1 = col[kk * 8 + 4 + t];
-#pragma unroll
-          for (int mt = 0; mt < 4; ++mt) mma_bf16(acc[mt][nt][p], af[mt], b0, b1);
-        }
-    }
-    __syncthreads();
+template <int MT>
+cudaError_t launch(const CUtensorMap& gm, const CUtensorMap& qm, const float* scale, void* dx,
+                   float* ws, int M, int N, int K, int splits, int out_f32, cudaStream_t stream) {
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        int4_bwd_kernel<MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<MT>::SMEM);
+    if (e != cudaSuccess) return e;
+    attr = true;
   }
-
-  // epilogue: one cast of the f32 sum; plane p writes columns p * K/2 + kp
-#pragma unroll
-  for (int nt = 0; nt < 2; ++nt) {
-    const int kl = kp0 + wk + nt * 8 + 2 * t;
-#pragma unroll
-    for (int p = 0; p < 2; ++p) {
-      const int col = p * half + kl;
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = m0 + wm + mt * 16 + g + 8 * h;
-          if (row >= M) continue;
-          const float y0 = acc[mt][nt][p][2 * h], y1 = acc[mt][nt][p][2 * h + 1];
-          const size_t o = (size_t)row * K + col;
-          if (out_f32) {
-            *reinterpret_cast<float2*>(static_cast<float*>(dx) + o) = make_float2(y0, y1);
-          } else {
-            *reinterpret_cast<uint32_t*>(static_cast<bf16*>(dx) + o) = pack_bf16(y0, y1);
-          }
-        }
-      }
-    }
-  }
+  const dim3 grid(K / 2 / BKP, (M + Layout<MT>::BM - 1) / Layout<MT>::BM, splits);
+  int4_bwd_kernel<MT><<<grid, NTHREADS, Layout<MT>::SMEM, stream>>>(gm, qm, scale, dx, ws, M, N,
+                                                                   K, splits, out_f32);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // Launch K6b on `stream`.  g [M, N] bf16, q4 [K/2, N] int8, scale [n_groups, N]
 // f32, dx [M, K] bf16 (out_f32 = 0) or f32 (1), all contiguous and 16-byte
-// aligned.  Takes K % 3072 == 0, N % 128 == 0 and n_groups * 128 == K (JAX's
+// aligned.  mt (1 or 2) picks 128 or 256 rows a block; splits (1 .. N/128)
+// splits the contraction over N on 128-column chunks, with ws the workspace of
+// splits * M * K f32 (unused, may be null, at splits = 1).
+// Takes K % 3072 == 0, N % 128 == 0 and n_groups * 128 == K (JAX's
 // `supports`).  Returns a cudaError_t (0 = launched).
 extern "C" int qflux_int4_bwd(const void* g, const void* q4, const void* scale, void* dx, int M,
-                              int N, int K, int n_groups, int out_f32, void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K % 3072 || N % 128 || n_groups * GROUP != K)
+                              int N, int K, int n_groups, int out_f32, int mt, int splits,
+                              void* ws, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || K % 3072 || N % NCHUNK || n_groups * GROUP != K ||
+      (mt != 1 && mt != 2) || splits < 1 || splits > N / NCHUNK || (splits > 1 && !ws))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(K / 2 / BKP, (M + BM - 1) / BM);
-  int4_bwd_kernel<<<grid, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(g), static_cast<const int8_t*>(q4),
-      static_cast<const float*>(scale), dx, M, N, K, out_f32);
-  return (int)cudaGetLastError();
+  CUtensorMap gm, qm;
+  if (!encode_2d_cached(&gm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, g, M, N, 128 * mt, BN,
+                        CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode_2d_cached(&qm, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, q4, K / 2, N, BKP, BN,
+                        CU_TENSOR_MAP_SWIZZLE_NONE))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scale);
+  float* w = static_cast<float*>(ws);
+  const cudaError_t e = mt == 2 ? launch<2>(gm, qm, sc, dx, w, M, N, K, splits, out_f32, st)
+                                : launch<1>(gm, qm, sc, dx, w, M, N, K, splits, out_f32, st);
+  if (e != cudaSuccess || splits == 1) return (int)e;
+  return (int)splitk_reduce(int4_bwd_kernel_reduce, w, dx, (long long)M * K, splits, out_f32,
+                            st);
 }

@@ -10,8 +10,11 @@ f32 of ops/quant.py.
 `_fwd_kernel` / `_bwd_kernel` unpack each q4 tile in VMEM to bf16 weights
 (the f32 product of value and group scale, cast once) and run bf16 dots with
 f32 accumulation; the Hopper kernels (`csrc/int4_fwd.cu`, `csrc/int4_bwd.cu`)
-do the same in registers and shared memory with `mma.sync` bf16 → f32, so
-the bf16 weight never reaches device memory.  x (and, in the backward, the
+do the same with `wgmma` bf16 → f32 over a ring of TMA-filled shared-memory
+stages, dequantizing each q4 tile in shared memory, so the bf16 weight never
+reaches device memory; `_int4_plan` picks their tiling and, for the narrow
+grids, a split of the contraction whose partial sums a second pass adds in
+a fixed order.  x (and, in the backward, the
 cotangent g) is cast to bf16 first; the result is cast once to x.dtype (dx
 to g.dtype), as `_int4_matmul_fwd_impl` / `_int4_vjp_bwd` do.  The plain
 versions, `int4_matmul_reference` and `int4_matmul_dx_reference`, compute
@@ -47,6 +50,9 @@ selective-checkpoint policy sees them, as it sees K1.
 """
 
 from __future__ import annotations
+
+import dataclasses
+import functools
 
 import torch
 
@@ -148,44 +154,117 @@ def _int4_checks(what, t, q4, scale, out_dtype):
     return half, n, n_groups
 
 
-def int4_fwd_cuda(xb, q4, scale, out_dtype):
-    """Launch K6a on CUDA tensors: xb [M, K] bf16, q4 [K/2, N] int8, scale
-    [K/128, N] f32 → [M, N] in out_dtype (bf16 or f32).  Raises on anything
-    the kernel does not take and on a CUDA error.  Counting is the caller's."""
-    half, n, n_groups = _int4_checks("int4_matmul", xb, q4, scale, out_dtype)
-    m = xb.shape[0]
-    _check("x", xb, xb.device, torch.bfloat16, (m, 2 * half), "int4_matmul")
+@dataclasses.dataclass(frozen=True)
+class Int4Plan:
+    """How K6a or K6b covers one call: `mt` m64 tiles per consumer
+    warpgroup (a block computes 128·mt rows), `splits` blocks along the
+    contraction, `blocks` in the grid, and the f32 workspace of the partial
+    sums (`workspace` elements, 0 when the contraction is not split)."""
 
+    mt: int
+    splits: int
+    blocks: int
+    workspace: int
+
+
+@functools.lru_cache(maxsize=4096)
+def _int4_plan(m: int, n: int, k_in: int, sms: int = 132, backward: bool = False) -> Int4Plan:
+    """The tiling of K6a (x [m, k_in] · W → [m, n]) or, with `backward`, of
+    K6b (g [m, n] · Wᵀ → dx [m, k_in]) on a card with `sms` SMs.
+
+    A block computes 128·mt rows × 128 output columns (K6a: 128 of N; K6b:
+    64 packed rows, both planes) and walks the contraction in 128-row chunks
+    (K6a: packed rows, so a chunk is one scale group of each plane; K6b:
+    columns of N).  Where the output tiles fill less than one wave, the
+    contraction is split into `splits` ranges of whole chunks, as many as
+    keep the grid within one wave (a block past it would start a second
+    round and double the call); the partial sums go to an f32 workspace
+    [splits, m, out columns] and a second pass adds them in split order, so
+    a call is deterministic.  mt is 1 or 2, whichever gives
+    the shorter estimate: waves × chunks a block walks × the block's time
+    per chunk, which at mt = 1 is `_MT1_COST` of mt = 2's (half the rows,
+    but the same weight tile to load and dequantize)."""
+    cols = k_in // 128 if backward else n // 128
+    chunks = n // 128 if backward else k_in // 2 // 128
+    best = None
+    for mt in (2, 1):
+        tiles = -(-m // (128 * mt)) * cols
+        splits = 1 if tiles >= sms else max(1, min(chunks, sms // tiles))
+        cost = (-(-tiles * splits // sms) * -(-chunks // splits)
+                * (_MT1_COST if mt == 1 else 1.0))
+        if best is None or cost < best[0]:
+            best = (cost, mt, splits, tiles)
+    _, mt, splits, tiles = best
+    ws = splits * m * (k_in if backward else n) if splits > 1 else 0
+    return Int4Plan(mt=mt, splits=splits, blocks=tiles * splits, workspace=ws)
+
+
+# a 128-row block's time per chunk relative to a 256-row block's (measured on
+# an H100 at the Qwen shapes: 0.56-0.75)
+_MT1_COST = 0.65
+
+
+@functools.lru_cache(maxsize=4096)
+def _device_plan(index: int, m: int, n: int, k_in: int, backward: bool) -> Int4Plan:
+    """`_int4_plan` for the card `index` (its SM count)."""
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return _int4_plan(m, n, k_in, sms, backward)
+
+
+# the split contractions' workspace, one per (device, stream), grown to the
+# largest call's need (15.7 MB at the Qwen DiT's shapes) and reused: the
+# kernels on one stream run in order, so a call never overwrites partial
+# sums another is still reading, and the wrapper allocates nothing per call
+_WORKSPACE: dict = {}
+
+
+def _workspace(device, stream: int, numel: int):
+    key = (device.index, stream)
+    ws = _WORKSPACE.get(key)
+    if ws is None or ws.numel() < numel:
+        ws = _WORKSPACE[key] = torch.empty(numel, device=device, dtype=torch.float32)
+    return ws
+
+
+def _int4_launch(fn, what, t, q4, scale, out, m, n, half, n_groups, backward):
+    """Plan, take the workspace and launch one K6 entry point."""
     from qflux_tpu_torch.runtime.build import load_library
 
     kl = load_library()
+    plan = _device_plan(t.device.index or 0, m, n, 2 * half, backward)
+    stream = torch.cuda.current_stream(t.device).cuda_stream
+    ws = _workspace(t.device, stream, plan.workspace).data_ptr() if plan.workspace else None
+    code = getattr(kl.lib, fn)(t.data_ptr(), q4.data_ptr(), scale.data_ptr(), out.data_ptr(),
+                               m, n, 2 * half, n_groups, int(out.dtype == torch.float32),
+                               plan.mt, plan.splits, ws, stream)
+    kl.check(code, what)
+
+
+def int4_fwd_cuda(xb, q4, scale, out_dtype):
+    """Launch K6a on CUDA tensors: xb [M, K] bf16, q4 [K/2, N] int8, scale
+    [K/128, N] f32 → [M, N] in out_dtype (bf16 or f32), tiled by
+    `_int4_plan`.  Raises on anything the kernel does not take and on a CUDA
+    error.  Counting is the caller's."""
+    half, n, n_groups = _int4_checks("int4_matmul", xb, q4, scale, out_dtype)
+    m = xb.shape[0]
+    _check("x", xb, xb.device, torch.bfloat16, (m, 2 * half), "int4_matmul")
     out = torch.empty((m, n), device=xb.device, dtype=out_dtype)
-    stream = torch.cuda.current_stream(xb.device).cuda_stream
-    code = kl.lib.qflux_int4_fwd(xb.data_ptr(), q4.data_ptr(), scale.data_ptr(), out.data_ptr(),
-                                 m, n, 2 * half, n_groups, int(out_dtype == torch.float32),
-                                 stream)
-    kl.check(code, "int4_fwd launch")
+    _int4_launch("qflux_int4_fwd", "int4_fwd launch", xb, q4, scale, out, m, n, half, n_groups,
+                 False)
     return out
 
 
 def int4_bwd_cuda(gb, q4, scale, out_dtype):
     """Launch K6b on CUDA tensors: gb [M, N] bf16, q4 [K/2, N] int8, scale
-    [K/128, N] f32 → dx [M, K] in out_dtype (bf16 or f32).  Raises on
-    anything the kernel does not take and on a CUDA error.  Counting is the
-    caller's."""
+    [K/128, N] f32 → dx [M, K] in out_dtype (bf16 or f32), tiled by
+    `_int4_plan(backward=True)`.  Raises on anything the kernel does not take
+    and on a CUDA error.  Counting is the caller's."""
     half, n, n_groups = _int4_checks("int4_matmul backward", gb, q4, scale, out_dtype)
     m = gb.shape[0]
     _check("g", gb, gb.device, torch.bfloat16, (m, n), "int4_matmul backward")
-
-    from qflux_tpu_torch.runtime.build import load_library
-
-    kl = load_library()
     dx = torch.empty((m, 2 * half), device=gb.device, dtype=out_dtype)
-    stream = torch.cuda.current_stream(gb.device).cuda_stream
-    code = kl.lib.qflux_int4_bwd(gb.data_ptr(), q4.data_ptr(), scale.data_ptr(), dx.data_ptr(),
-                                 m, n, 2 * half, n_groups, int(out_dtype == torch.float32),
-                                 stream)
-    kl.check(code, "int4_bwd launch")
+    _int4_launch("qflux_int4_bwd", "int4_bwd launch", gb, q4, scale, dx, m, n, half, n_groups,
+                 True)
     return dx
 
 

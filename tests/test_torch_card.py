@@ -469,10 +469,16 @@ def test_qwen_train_step_int8_attention_on_card():
 # 2^-8 = 3.9e-3 relative) and max |diff| 2 bf16 ulps of max |ref| (2^-6 of it)
 K6_REL, K6_MAX = 4e-3, 2 ** -6
 # (M, K, N, x dtype): an AdaLN mod (one row, f32 in and out), a ragged M at
-# the block projections' width, and the MLP down-projection's K
+# the block projections' width, and the MLP down-projection's K; then path
+# C's main shape (the MLP up-projection at bs=1, 256-row blocks), the text
+# stream's MLP down-projection (M = 256, K = 12288: the contraction split
+# across blocks and reduced in a second pass), the block projections at bs=2
+# and the mods at bs=2 (M = 2, f32)
 K6_CASES = [(1, 3072, 18432, torch.float32), (300, 3072, 384, torch.bfloat16),
-            (129, 12288, 256, torch.bfloat16)]
-K6_IDS = ["mod_m1_f32", "ragged_m", "k12288"]
+            (129, 12288, 256, torch.bfloat16), (2048, 3072, 12288, torch.bfloat16),
+            (256, 12288, 3072, torch.bfloat16), (4096, 3072, 3072, torch.bfloat16),
+            (2, 3072, 18432, torch.float32)]
+K6_IDS = ["mod_m1_f32", "ragged_m", "k12288", "main", "split_k", "bs2", "mod_m2_f32"]
 
 
 def _int4_weight(gen, k_in, n):
@@ -526,6 +532,53 @@ def test_k6b_matches_plain_on_card(m, k_in, n, dtype):
     want = int4_matmul.int4_matmul_dx_reference(g, q4, scale)
     assert x.grad.dtype == dtype and x.grad.shape == (m, k_in)
     assert bool(torch.isfinite(x.grad).all()) and _k6_close(x.grad, want)
+
+
+# (M, K, N): split contractions (the text stream's down-projection, a mod)
+# and an unsplit grid
+K6_DET = [(256, 12288, 3072), (1, 3072, 3072), (2048, 3072, 3072)]
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["k6a", "k6b"])
+@pytest.mark.parametrize("m,k_in,n", K6_DET, ids=["split_k", "mod_split", "unsplit"])
+def test_k6_is_deterministic_on_card(m, k_in, n, backward):
+    """K6a (or K6b) twice on the same inputs gives the same bits: each
+    output is one fixed sequence of f32 sums, and a split contraction's
+    partial sums are added in split order by the reduction pass (no
+    atomics)."""
+    from qflux_tpu_torch.ops import int4_matmul
+
+    gen = torch.Generator("cuda").manual_seed(m + n)
+    q4, scale = _int4_weight(gen, k_in, n)
+    dtype = torch.float32 if m <= 2 else torch.bfloat16
+    t = torch.randn(m, n if backward else k_in, device="cuda", generator=gen).to(torch.bfloat16)
+    fn = int4_matmul.int4_bwd_cuda if backward else int4_matmul.int4_fwd_cuda
+    a = fn(t, q4, scale, dtype)
+    b = fn(t, q4, scale, dtype)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and bool(torch.isfinite(a).all())
+
+
+def test_k6_split_calls_in_sequence_on_card():
+    """Split contractions of growing tile counts and workspace sizes (9, then
+    24, then 48 tiles), K6a and K6b in turns, one after another through the
+    wrappers' shared workspace: each result within K6_REL / K6_MAX of the
+    plain version."""
+    from qflux_tpu_torch.ops import int4_matmul
+
+    gen = torch.Generator("cuda").manual_seed(11)
+    for m, k_in, n in [(300, 3072, 384), (1, 3072, 3072), (2, 12288, 6144), (1, 3072, 3072)]:
+        q4, scale = _int4_weight(gen, k_in, n)
+        for backward in (False, True):
+            plan = int4_matmul._int4_plan(m, n, k_in, 132, backward)
+            t = torch.randn(m, n if backward else k_in, device="cuda", generator=gen).to(
+                torch.bfloat16)
+            fn = int4_matmul.int4_bwd_cuda if backward else int4_matmul.int4_fwd_cuda
+            ref = (int4_matmul.int4_matmul_dx_reference if backward
+                   else int4_matmul.int4_matmul_reference)
+            got = fn(t, q4, scale, torch.float32)
+            torch.cuda.synchronize()
+            assert _k6_close(got, ref(t.float(), q4, scale)), (m, k_in, n, backward, plan)
 
 
 def test_int4_on_cuda_never_reaches_the_plain_version(monkeypatch):

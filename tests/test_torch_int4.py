@@ -127,6 +127,76 @@ def test_supports_matches_jax(kn, fused):
     assert not ti4.supports(k_in, n, k_in // 64)
 
 
+PLAN_M = [1, 2, 256, 512, 2048, 4096]
+PLAN_KN = [kn for kn, fused in QWEN_SHAPES if fused]
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["k6a", "k6b"])
+@pytest.mark.parametrize("kn", PLAN_KN, ids=[f"{k}x{n}" for k, n in PLAN_KN])
+@pytest.mark.parametrize("m", PLAN_M)
+def test_int4_plan_splits_on_whole_groups(m, kn, backward):
+    """(h) `_int4_plan`, the tiling K6a / K6b launch with, at every row count
+    of path C (M = 1-2: the AdaLN mods; 256: the text stream; 2048 / 4096:
+    the image stream at bs=1 / 2; 512 between) and every (K, N) of the Qwen
+    DiT that `supports` admits, on a 132-SM card.  The kernels cut split z's
+    chunks as [z·chunks / splits, (z + 1)·chunks / splits): those ranges
+    cover the contraction exactly, none is empty, and each is whole 128-row
+    chunks: for K6a packed rows, so each split holds whole scale groups of
+    both nibble planes (rows kp and K/2 + kp); for K6b columns of N.  Grids
+    that fill a wave are not split; narrower ones are split into as many
+    ranges as keep the grid within one wave (one more would start a second
+    round of blocks: on the card 144 blocks of 8 chunks took longer than 72
+    of 16), and into at least two wherever two fit.  The workspace is
+    splits × M × (output columns) f32, none without a split."""
+    k_in, n = kn
+    sms = 132
+    plan = ti4._int4_plan(m, n, k_in, sms, backward)
+    cols = k_in // 128 if backward else n // 128
+    chunks = n // 128 if backward else k_in // 2 // 128
+    tiles = -(-m // (128 * plan.mt)) * cols
+    assert plan.mt in (1, 2) and 1 <= plan.splits <= chunks
+    assert plan.blocks == tiles * plan.splits
+    ranges = [(z * chunks // plan.splits, (z + 1) * chunks // plan.splits)
+              for z in range(plan.splits)]
+    assert ranges[0][0] == 0 and ranges[-1][1] == chunks
+    assert all(a < b for a, b in ranges)
+    assert all(ranges[i][1] == ranges[i + 1][0] for i in range(len(ranges) - 1))
+    if not backward:
+        half, group = k_in // 2, 128
+        for a, b in ranges:  # packed rows [128 a, 128 b): whole groups in both planes
+            assert (128 * a) % group == 0 and (128 * (b - a)) % group == 0
+            assert (half + 128 * a) % group == 0
+    if tiles >= sms:
+        assert plan.splits == 1
+    else:
+        assert plan.blocks <= sms
+        assert plan.splits == chunks or plan.blocks + tiles > sms
+        assert plan.splits >= 2 or 2 * tiles > sms
+    out_cols = k_in if backward else n
+    assert plan.workspace == (plan.splits * m * out_cols if plan.splits > 1 else 0)
+
+
+def test_int4_plan_at_the_narrow_shapes():
+    """(h) The shapes the split is for, stated: the text stream's M = 256
+    against the MLP down-projection (K = 12288, N = 3072) runs 256-row
+    blocks, 24 column tiles split five ways (120 blocks, 15.7 MB of f32
+    partial sums), and its dx (K6b, the MLP up-projection's dx at M = 256)
+    likewise; an AdaLN mod's dx (M = 1, N = 18432) is split over N five
+    ways; the mods' forward (M = 1, K = 3072, N = 18432) fills 144 blocks
+    unsplit; the image stream's MLP up-projection at bs=1 (the main shape)
+    is unsplit, 256-row blocks."""
+    p = ti4._int4_plan(256, 3072, 12288, 132)
+    assert (p.mt, p.splits, p.blocks, p.workspace) == (2, 5, 120, 5 * 256 * 3072)
+    p = ti4._int4_plan(256, 12288, 3072, 132, backward=True)
+    assert (p.mt, p.splits, p.blocks) == (2, 5, 120)
+    p = ti4._int4_plan(1, 18432, 3072, 132, backward=True)
+    assert (p.mt, p.splits, p.blocks, p.workspace) == (1, 5, 120, 5 * 3072)
+    p = ti4._int4_plan(1, 18432, 3072, 132)
+    assert (p.mt, p.splits, p.blocks, p.workspace) == (1, 1, 144, 0)
+    p = ti4._int4_plan(2048, 12288, 3072, 132)
+    assert (p.mt, p.splits, p.blocks, p.workspace) == (2, 1, 768, 0)
+
+
 def _q4_node(rng, k_in, n):
     jq, js = jquant.quantize_kernel_int4(
         jnp.asarray((rng.uniform(-1, 1, (k_in, n)) / np.sqrt(k_in)).astype(np.float32)), 128)
