@@ -26,9 +26,11 @@ runs K6a and its dx K6b (path C).  In phases:
 
   1. device: the card's name and power limit (nvidia-smi); TF32 off;
   2. build: the hand-written kernels from qflux_tpu_torch/csrc;
-  3. kernel K1 (csrc/flash_nr_fwd.cu) against its plain PyTorch version on
-     the card, at the main path's shapes and at longer/masked ones, with
-     median times over 10 runs;
+  3. kernel K1 (csrc/flash_nr_fwd.cu, bf16 mode) against its plain PyTorch
+     version on the card, at the main paths' shapes (FLUX's S = 2560, path
+     C's S = 2304 with Qwen's text padding) and at longer/masked ones, two
+     calls identical to the bit, with the times of the public op, of the
+     kernel alone (its kn prep apart) and of the wrapper's host work;
   4. kernel K2 (csrc/flash_nr_bwd.cu) against its plain version (f32
      autograd through the plain forward) at the same five shapes, with
      nonzero cotangents on padded rows;
@@ -39,11 +41,14 @@ runs K6a and its dx K6b (path C).  In phases:
      the fused K1 on the raw q / k against the norm + rope and K3;
  4b. kernel K4 (csrc/flash_bwd.cu) against its plain version (the explicit
      formula from the residuals) at the same shapes, nonzero cotangents on
-     padded rows, timed beside its bound and SDPA flash's backward;
+     padded rows, two calls identical to the bit, timed alone and through
+     its wrapper (device and host time) beside its bound and SDPA flash's
+     backward;
   5. predict: one full-width forward through K1 and through the plain
      attention (relative L2 error), then three requests through
      Trainer.predict_from_embeddings, each checked for uint8 images, finite
-     latents and exactly 57 × 20 K1 launches;
+     latents and exactly 57 × 20 K1 launches, then a profiled denoising
+     step;
   6. train: one full-width step's LoRA gradients through K1 + K2 and
      through the plain attention (relative L2 error), then Trainer.fit at
      bs=1 and bs=2, checked for finite losses, a LoRA b that moved, and
@@ -102,7 +107,14 @@ runs K6a and its dx K6b (path C).  In phases:
      711 K6b launches per step, then a profiled step.
 
 Each path runs with the launch counts set to 0 just before it and read just
-after.  Prints the kernel table as one JSON line before the last (each
+after.
+
+    python3 chip_smoke.py --ab PARENT
+
+is a measurement, not the smoke: K1 and K4 alone before and after on one card
+(PARENT an unpacked checkout of an earlier commit, e.g. from git archive), and
+K6a / K6b and K1 s_int8 outputs compared to the bit across the two
+(`ab_main`).  Prints the kernel table as one JSON line before the last (each
 kernel's time, the bound for the same work on this card's published peaks,
 the plain version's time and one PyTorch call's time as a yardstick), the
 wall time, and as the last line {"ok": true, "device": {"platform": "gpu",
@@ -270,6 +282,8 @@ CASES = [  # name, B, S, st, segment ids
     ("masked_bs2", 2, 2560, 512, "masked"),
     ("832x576", 1, 4256, 512, None),
     ("s8192", 1, 8192, 512, None),
+    # path C's bf16 shape: Qwen 512^2 over the int4 base, 26 padding text tokens
+    ("qwen_512sq_int4", 1, 2304, 256, "text_pad"),
 ]
 
 
@@ -277,12 +291,91 @@ def _segments(seg_kind, b, s):
     if not seg_kind:
         return None
     seg = torch.ones(b, s, dtype=torch.int32, device="cuda")
+    if seg_kind == "text_pad":  # the Qwen text stream's padding tokens
+        seg[:, QWEN_TXT - QWEN_TXT_PAD:QWEN_TXT] = 0
+        return seg
     seg[0, 2100:] = 0          # sample 0 padded from token 2100
     seg[1, 1300:] = 2          # sample 1: two segments
     return seg
 
 
+def _pad_rows(seg_kind):
+    """The rows of sample 0 that `_segments(seg_kind, ...)` pads."""
+    if seg_kind == "text_pad":
+        return slice(QWEN_TXT - QWEN_TXT_PAD, QWEN_TXT)
+    return slice(2100, None)
+
+
+def _window_ms(fn, reps=20, n=5) -> float:
+    """Device time per call of `fn`: the median over n windows of `reps`
+    back-to-back calls between CUDA events (no host gap inside a window
+    once the queue fills)."""
+    return _rotating_ms(lambda i: fn(), 1, reps=reps, n=n)
+
+
+def _k1_alone(args, st, seg, scale, reps=20) -> dict:
+    """K1's bf16 mode alone: `ms`, the device time of the C entry point (the
+    kn prep and the main kernel) on checked arguments into preallocated
+    outputs and scratch, back to back; `prep_ms`, the prep alone, where the
+    library has it (else None); and `wrapper_host_us`, the host time per call
+    of `_flash_nr_cuda`.  Uses only `_kernel_args`, the C signature and
+    `_flash_nr_cuda`, so the same function times an earlier checkout's
+    package put first on sys.path (the --ab mode)."""
+    from qflux_tpu_torch.ops import flash_nr
+    from qflux_tpu_torch.runtime.build import load_library
+
+    q, k, v, qs2, ks2, cos, sin = args
+    qs, ks, cs_bstride, seg32 = flash_nr._kernel_args(q, k, v, qs2, ks2, cos, sin, seg)
+    b, s, h, _ = q.shape
+    lib = load_library().lib
+    kn, out = torch.empty_like(k), torch.empty_like(q)
+    lse = torch.empty((b, h, s), device="cuda", dtype=torch.float32)
+    stream = torch.cuda.current_stream().cuda_stream
+    segp = None if seg32 is None else seg32.data_ptr()
+    ms = _window_ms(lambda: lib.qflux_flash_nr_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), qs.data_ptr(), ks.data_ptr(), cos.data_ptr(),
+        sin.data_ptr(), cs_bstride, segp, kn.data_ptr(), None, None, 0, out.data_ptr(),
+        lse.data_ptr(), b, s, h, st, scale, stream), reps)
+    prep_ms = None
+    if hasattr(lib, "qflux_flash_nr_kn_prep"):
+        prep_ms = _window_ms(lambda: lib.qflux_flash_nr_kn_prep(
+            k.data_ptr(), ks.data_ptr(), cos.data_ptr(), sin.data_ptr(), cs_bstride,
+            kn.data_ptr(), b, s, h, st, stream), reps)
+    host_us = _host_us(lambda: flash_nr._flash_nr_cuda(*args, st, seg, scale))
+    return {"ms": ms, "prep_ms": prep_ms, "wrapper_host_us": host_us}
+
+
+def _k4_alone(q, k, v, q_seg, kv_seg, out, lse, do, scale, reps=5) -> dict:
+    """K4 alone: `ms`, the device time of the C entry point (delta, dk / dv,
+    dq) into preallocated outputs and scratch, back to back, and
+    `wrapper_host_us`, the host time per call of `_flash_bwd_cuda`; like
+    `_k1_alone`, usable on an earlier checkout's package."""
+    from qflux_tpu_torch.ops import flash_attention as fa
+    from qflux_tpu_torch.runtime.build import load_library
+
+    b, sq, h, _ = q.shape
+    lib = load_library().lib
+    delta = torch.empty((b, h, sq), device="cuda", dtype=torch.float32)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    qp, kp = ((None, None) if q_seg is None else
+              (q_seg.to(torch.int32).contiguous(), kv_seg.to(torch.int32).contiguous()))
+    stream = torch.cuda.current_stream().cuda_stream
+    ms = _window_ms(lambda: lib.qflux_flash_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), None if qp is None else qp.data_ptr(),
+        None if kp is None else kp.data_ptr(), out.data_ptr(), lse.data_ptr(), do.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, k.shape[1], h,
+        scale, stream), reps)
+    host_us = _host_us(lambda: fa._flash_bwd_cuda(q, k, v, q_seg, kv_seg, out, lse, do, scale),
+                       n=50)
+    return {"ms": ms, "wrapper_host_us": host_us}
+
+
 def phase_kernel(card: str) -> dict:
+    """K1 (bf16) against flash_attention_nr_reference at CASES: out and lse
+    within OUT_ATOL / LSE_ATOL, the fully masked rows at 0, two calls
+    identical to the bit; times of the public op, of the kernel alone (prep
+    + main kernel, the prep apart: `_k1_alone`), the wrapper's host time and
+    the plain version.  Returns the first case's table entry."""
     from qflux_tpu_torch.ops import flash_nr
 
     gen = torch.Generator("cuda").manual_seed(0)
@@ -291,24 +384,34 @@ def phase_kernel(card: str) -> dict:
         args = _attn_inputs(gen, b, s)
         seg = _segments(seg_kind, b, s)
         out, lse = flash_nr.flash_attention_nr(*args, st, segment_ids=seg)
+        out2, lse2 = flash_nr.flash_attention_nr(*args, st, segment_ids=seg)
         torch.cuda.synchronize()
+        same = torch.equal(out, out2) and torch.equal(lse, lse2)
+        del out2, lse2
         ref, ref_lse = flash_nr.flash_attention_nr_reference(*args, st, segment_ids=seg)
         err = (out.float() - ref.float()).abs().max().item()
         valid = ref_lse > -1e29
         lse_err = (lse - ref_lse).abs()[valid].max().item()
-        ok = err <= OUT_ATOL and lse_err <= LSE_ATOL and bool(torch.isfinite(out).all())
-        if seg_kind:
-            ok = ok and bool((out[0, 2100:] == 0).all())
-        ms = _median_ms(lambda: flash_nr.flash_attention_nr(*args, st, segment_ids=seg))
+        ok = (same and err <= OUT_ATOL and lse_err <= LSE_ATOL
+              and bool(torch.isfinite(out).all()))
+        dead = (~valid).permute(0, 2, 1).all(-1)  # [B, S]: rows every head masks
+        ok = ok and not out[dead].any() and (seg_kind is None or bool(dead.any()))
+        op_ms = _median_ms(lambda: flash_nr.flash_attention_nr(*args, st, segment_ids=seg))
+        alone = _k1_alone(args, st, seg, 128 ** -0.5)
         plain_ms = _median_ms(
             lambda: flash_nr.flash_attention_nr_reference(*args, st, segment_ids=seg))
         gflop = 4.0 * b * 24 * s * s * 128 / 1e9
+        ms, prep_ms = alone["ms"], alone["prep_ms"]
         print(f"[kernel] {name}: B={b} S={s} H=24 D=128 st={st} seg={seg_kind or 'none'} "
               f"max_abs_err(out)={err:.3e} (tol {OUT_ATOL}) max_abs_err(lse)={lse_err:.3e} "
-              f"(tol {LSE_ATOL}) kernel {ms:.3f} ms ({gflop / ms:.1f} TFLOP/s) "
+              f"(tol {LSE_ATOL}), {int(dead.sum())} fully masked rows at 0, two calls identical "
+              f"{same}; kernel alone {ms:.4f} ms ({gflop / ms:.1f} TFLOP/s; prep {prep_ms:.4f} "
+              f"ms, main kernel {ms - prep_ms:.4f} ms, {gflop / (ms - prep_ms):.1f} TFLOP/s), "
+              f"op {op_ms:.3f} ms, wrapper host {alone['wrapper_host_us']:.1f} us per call, "
               f"plain {plain_ms:.3f} ms [{card}]", flush=True)
         if not ok:
-            raise AssertionError(f"K1 disagrees with its plain version in case {name}")
+            raise AssertionError(f"K1 disagrees with its plain version (or with itself) in "
+                                 f"case {name}")
         if main is None:  # the dual-block shape of the predict path
             q, k, v, qs2, ks2, cos, sin = args
             qn = flash_nr.apply_qk_norm_rope(q, qs2, cos, sin, st)
@@ -317,6 +420,8 @@ def phase_kernel(card: str) -> dict:
             # q, k, v, out in bf16, lse f32, cos/sin f32; QK^T and PV
             n_bytes = 4 * b * s * 24 * 128 * 2 + b * 24 * s * 4 + 2 * s * 128 * 4
             main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                    "prep_ms": prep_ms, "op_ms": op_ms,
+                    "wrapper_host_us": alone["wrapper_host_us"],
                     **_bound(n_bytes, gflop * 1e9, PEAK_BF16_PER_MS)}
             print(f"[kernel] {name}: bound {main['bound_ms']:.4f} ms ({main['bound_by']}), "
                   f"SDPA flash on the normed/roped q,k {lib_ms:.3f} ms [{card}]", flush=True)
@@ -354,7 +459,7 @@ def phase_kernel_bwd(card: str) -> dict:
                 max_err = max(max_err, mx)
             errs.append(f"{gname} rel {rel:.3e} max {mx:.3e}")
         if seg_kind:
-            ok = ok and all(bool((g[0, 2100:] == 0).all()) for g in got[:3])
+            ok = ok and all(bool((g[0, _pad_rows(seg_kind)] == 0).all()) for g in got[:3])
         del got, ref
         torch.cuda.empty_cache()
         ms = _median_ms(lambda: flash_nr._flash_nr_bwd_cuda(*args, st, seg, scale, out, lse, do))
@@ -526,9 +631,12 @@ def phase_flash_bwd_kernel(card: str) -> dict:
         do = torch.randn(q.shape, device="cuda", generator=gen).to(torch.bfloat16)
         out, lse = fa._flash_fwd_cuda(q, k, v, q_seg, kv_seg, scale)
         got = fa._flash_bwd_cuda(q, k, v, q_seg, kv_seg, out, lse, do, scale)
+        again = fa._flash_bwd_cuda(q, k, v, q_seg, kv_seg, out, lse, do, scale)
         torch.cuda.synchronize()
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        del again
         ref = fa.flash_bwd_reference(q, k, v, q_seg, kv_seg, out, lse, do, scale)
-        ok, errs, max_err = True, [], 0.0
+        ok, errs, max_err = same, [], 0.0
         for gname, g, r in zip(("dq", "dk", "dv"), got, ref):
             diff = g.float() - r
             rel = (diff.norm() / r.norm()).item()
@@ -542,21 +650,29 @@ def phase_flash_bwd_kernel(card: str) -> dict:
             ok = ok and all(not g[:, pad].any() for g in got)
         del got, ref
         torch.cuda.empty_cache()
-        ms = _median_ms(lambda: fa._flash_bwd_cuda(q, k, v, q_seg, kv_seg, out, lse, do, scale))
+        op_ms = _median_ms(lambda: fa._flash_bwd_cuda(q, k, v, q_seg, kv_seg, out, lse, do,
+                                                      scale))
+        alone = _k4_alone(q, k, v, q_seg, kv_seg, out, lse, do, scale)
+        ms = alone["ms"]
         plain_ms = _median_ms(lambda: fa.flash_bwd_reference(q, k, v, q_seg, kv_seg, out, lse,
                                                              do, scale), n=3)
         lib_ms = _sdpa_flash_ms(q, k, v, do)
         bound = _flash_bound(q, k, q_seg, kv_seg, bwd=True)
         print(f"[flash_bwd] {name}: B={b} S={s} H=24 D=128 ids={ids or 'none'} "
-              f"{'; '.join(errs)} (tol rel {BWD_REL_TOL}, max {BWD_MAX_TOL} x max|ref|); K4 "
-              f"{ms:.3f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; dense "
+              f"{'; '.join(errs)} (tol rel {BWD_REL_TOL}, max {BWD_MAX_TOL} x max|ref|), two "
+              f"calls identical {same}; K4 alone {ms:.4f} ms "
+              f"({14.0 * b * 24 * s * s * 128 / ms / 1e9:.1f} TFLOP/s of its seven products), "
+              f"wrapper {op_ms:.3f} ms and {alone['wrapper_host_us']:.1f} us host per call, "
+              f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; dense "
               f"{10.0 * b * 24 * s * s * 128 / PEAK_BF16_PER_MS:.4f}), plain {plain_ms:.3f} ms, "
               f"SDPA flash backward (unmasked) {lib_ms:.3f} ms [{card}]", flush=True)
         if not ok:
-            raise AssertionError(f"K4 disagrees with its plain version in case {name}")
+            raise AssertionError(f"K4 disagrees with its plain version (or with itself) in "
+                                 f"case {name}")
         if main is None:
             main = {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-                    "library_ms": lib_ms, **bound}
+                    "library_ms": lib_ms, "op_ms": op_ms,
+                    "wrapper_host_us": alone["wrapper_host_us"], **bound}
         del q, k, v, out, lse, do
         torch.cuda.empty_cache()
     return main
@@ -651,7 +767,20 @@ def phase_predict(card: str):
             raise AssertionError(f"request {i}: non-finite latents")
         if launched != per_request:
             raise AssertionError(f"request {i}: {launched} K1 launches, expected {per_request}")
-    return trainer, flash_nr.KERNEL_LAUNCHES
+    launches = flash_nr.KERNEL_LAUNCHES
+
+    # one profiled denoising step at bs=1, outside the counted run
+    emb = trainer.adapter.prepare_cached_embeddings(_request(rng, cfg, gh, gw, 1))
+    batch = {k: torch.as_tensor(v).to("cuda", torch.bfloat16) for k, v in emb.items()}
+    batch["guidance"] = torch.full((1,), 2.5, dtype=torch.bfloat16, device="cuda")
+    merge_lora(dit, lora)
+
+    def denoising_step():
+        with torch.inference_mode():
+            trainer.adapter.predict_velocity(dit, batch, lat, sigma)
+
+    _profile(card, f"one FLUX denoising step, bs=1, S = {512 + 2 * lat.shape[1]}", denoising_step)
+    return trainer, launches
 
 
 def _perturb_b(lora, gen):
@@ -2097,7 +2226,7 @@ PROFILE_GROUPS = [("K5a rq_int4_fwd", ("rq_int4_fwd",)), ("K5b rq_int4_bwd", ("r
                   ("K2 flash_nr_bwd", ("flash_nr_dkv", "flash_nr_dq")),
                   ("K3 flash_fwd", ("flash_fwd_kernel",)),
                   ("K4 flash_bwd", ("flash_dkv_kernel", "flash_dq_kernel", "flash_delta_kernel")),
-                  ("K1/K2 prep", ("flash_nr_prep", "flash_nr_quant")),
+                  ("K1/K2 prep", ("flash_nr_prep", "flash_nr_quant", "flash_nr_kn")),
                   ("cuBLAS GEMM/GEMV", ("gemm", "gemv", "nvjet", "cutlass", "sm90_")),
                   ("reductions", ("reduce",)), ("copies and casts", ("copy", "cast", "memcpy")),
                   ("elementwise", ("elementwise", "vectorized", "unrolled"))]
@@ -2145,6 +2274,113 @@ def _profile(card: str, label: str, fn) -> None:
     print("[profile] aten ops by device time (inclusive): " + "; ".join(
         f"{e.key} {e.device_time_total / 1000:.2f} ms x{e.count}" for e in ops)
         + f" [{card}]", flush=True)
+
+
+def _digest(t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+
+
+def _ab_child() -> None:
+    """One side of `--ab`, in a process of its own whose sys.path puts one
+    checkout's package first: K1 (bf16) alone at every CASES entry and K4
+    alone at every FLASH_CASES entry (`_k1_alone` / `_k4_alone`), and the
+    digests of K6a's and K6b's outputs at every INT4_CASES shape and of K1's
+    s_int8 output at path A's shape, on inputs drawn from fixed seeds.
+    Prints one line, AB_RESULT and a JSON object."""
+    from qflux_tpu_torch.ops import flash_attention as fa
+    from qflux_tpu_torch.ops import flash_nr
+    from qflux_tpu_torch.ops import int4_matmul as ti4, quant
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {"card": _nvidia_smi(), "k1": {}, "k4": {}, "k6": {}}
+    scale = 128 ** -0.5
+    gen = torch.Generator("cuda").manual_seed(0)
+    for name, b, s, st, seg_kind in CASES:
+        args = _attn_inputs(gen, b, s)
+        res["k1"][name] = _k1_alone(args, st, _segments(seg_kind, b, s), scale)
+        del args
+    gen = torch.Generator("cuda").manual_seed(13)
+    for name, b, s, ids in FLASH_CASES:
+        q, k, v, q_seg, kv_seg = _flash_case(gen, b, s, ids)
+        do = torch.randn(q.shape, device="cuda", generator=gen).to(torch.bfloat16)
+        out, lse = fa._flash_fwd_cuda(q, k, v, q_seg, kv_seg, scale)
+        res["k4"][name] = _k4_alone(q, k, v, q_seg, kv_seg, out, lse, do, scale)
+        del q, k, v, do, out, lse
+    gen = torch.Generator("cuda").manual_seed(16)
+    for m, k_in, n in INT4_CASES:
+        w = (torch.rand(k_in, n, device="cuda", generator=gen) * 2 - 1) / k_in ** 0.5
+        q4, sc = quant.quantize_kernel_int4(w, 128)
+        dtype = torch.float32 if m <= 2 else torch.bfloat16
+        x = torch.randn(m, k_in, device="cuda", generator=gen).to(torch.bfloat16)
+        g = torch.randn(m, n, device="cuda", generator=gen).to(torch.bfloat16)
+        res["k6"][f"{m}x{k_in}x{n}"] = [_digest(ti4.int4_fwd_cuda(x, q4, sc, dtype)),
+                                        _digest(ti4.int4_bwd_cuda(g, q4, sc, dtype))]
+        del w, q4, sc, x, g
+    args = _attn_inputs(torch.Generator("cuda").manual_seed(11), 1, 2304)
+    seg = _segments("text_pad", 1, 2304)
+    out, lse = flash_nr._flash_nr_cuda(*args, QWEN_TXT, seg, scale,
+                                       flash_nr.s_int8_tiles(2304, 128)[0])
+    res["k1_s_int8"] = [_digest(out), _digest(lse)]
+    print("AB_RESULT " + json.dumps(res), flush=True)
+
+
+def ab_main(parent: str) -> int:
+    """`python3 chip_smoke.py --ab PARENT`: K1 and K4 alone, before and
+    after, on one card.  PARENT is an unpacked checkout of an earlier commit
+    (git archive); each side runs `_ab_child` from this file in its own
+    process with its own package first on sys.path, in turns parent,
+    change, change, parent.  Prints each case's times (mean of the two runs
+    of each side), the K6a / K6b and K1 s_int8 digests compared across all
+    four runs, and writes the runs to chiprun_out/ab.json."""
+    here = Path(__file__).resolve()
+    trees = {"parent": Path(parent).resolve(), "change": here.parent}
+    runs = {"parent": [], "change": []}
+    for tag in ("parent", "change", "change", "parent"):
+        tree = trees[tag]
+        code = ("import importlib.util, sys; sys.path.insert(0, %r); "
+                "spec = importlib.util.spec_from_file_location('smoke_ab', %r); "
+                "m = importlib.util.module_from_spec(spec); spec.loader.exec_module(m); "
+                "m._ab_child()" % (str(tree), str(here)))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                              cwd=tree, timeout=1500)
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("AB_RESULT ")]
+        if proc.returncode or not lines:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            return 1
+        runs[tag].append(json.loads(lines[-1][len("AB_RESULT "):]))
+        print(f"[ab] {tag} ({tree}) in {time.perf_counter() - t0:.1f} s [{runs[tag][-1]['card']}]",
+              flush=True)
+    card = runs["change"][0]["card"]
+    mean = statistics.mean
+    for kern, cases in (("k1", CASES), ("k4", FLASH_CASES)):
+        for case in cases:
+            name = case[0]
+            p = [r[kern][name] for r in runs["parent"]]
+            c = [r[kern][name] for r in runs["change"]]
+            pm, cm = mean(x["ms"] for x in p), mean(x["ms"] for x in c)
+            prep = c[0].get("prep_ms")
+            print(f"[ab] {'K1' if kern == 'k1' else 'K4'} {name}: parent {pm:.4f} ms "
+                  f"({', '.join(f'{x['ms']:.4f}' for x in p)}), change {cm:.4f} ms "
+                  f"({', '.join(f'{x['ms']:.4f}' for x in c)}), {pm / cm:.2f}x"
+                  + (f"; change's prep {mean(x['prep_ms'] for x in c):.4f} ms, main kernel "
+                     f"{cm - mean(x['prep_ms'] for x in c):.4f} ms" if prep is not None else "")
+                  + f"; wrapper host {mean(x['wrapper_host_us'] for x in p):.1f} -> "
+                  f"{mean(x['wrapper_host_us'] for x in c):.1f} us per call [{card}]",
+                  flush=True)
+    every = runs["parent"] + runs["change"]
+    k6_same = {shape: all(r["k6"][shape] == every[0]["k6"][shape] for r in every)
+               for shape in every[0]["k6"]}
+    int8_same = all(r["k1_s_int8"] == every[0]["k1_s_int8"] for r in every)
+    print(f"[ab] K6a / K6b outputs identical to the bit across the four runs at "
+          f"{sum(k6_same.values())} of {len(k6_same)} shapes; K1 s_int8 output and lse "
+          f"identical: {int8_same} [{card}]", flush=True)
+    out_dir = here.parent / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "ab.json").write_text(json.dumps(runs, indent=1))
+    return 0 if all(k6_same.values()) and int8_same else 1
 
 
 def main() -> int:
@@ -2264,4 +2500,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--ab":
+        sys.exit(ab_main(sys.argv[2]) if torch.cuda.is_available() else 1)
     sys.exit(main())

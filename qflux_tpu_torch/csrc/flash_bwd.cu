@@ -19,10 +19,10 @@
 // atomics (the result is deterministic):
 //
 //   1. delta: one warp per (b, s, h) row;
-//   2. dkv:   one block per 64-key tile of a head; four warps of 16 keys loop over all
-//             q tiles and accumulate dv and dk in registers;
-//   3. dq:    one block per 64-row q tile; four warps of 16 rows loop over all K tiles
-//             and accumulate dq in registers.
+//   2. dkv:   one block per 128-key tile of a head, 64 keys per consumer warpgroup;
+//             the q tiles stream past and dv, dk accumulate in registers;
+//   3. dq:    one block per 128-row q tile, 64 rows per consumer warpgroup; the K
+//             tiles stream past and dq accumulates in registers.
 //
 // Fully masked rows (segment 0: lse = -1e30, so exp(s - lse) would be +inf) never
 // evaluate exp: the mask selects p = 0 before any product, and with it ds, dv and dq of
@@ -33,71 +33,46 @@
 // H * D bf16 of device traffic: at the Qwen 832x576 shape 492 GFLOP, 0.497 ms at the
 // 989 TFLOP/s bf16 peak, compute-bound on the tensor cores.  This design recomputes the
 // scores and dp in both the dkv and the dq kernel, seven GEMMs instead of five, to keep
-// the row-complete dq without atomics; the products run as mma.sync m16n8k16 with
-// ldmatrix operands (K2's fragments, csrc/flash_nr_bwd.cu, without its norm + rope
-// epilogues), scores, probabilities and the three accumulators in registers.  Tiles are
-// loaded synchronously: wgmma, TMA and pipelining are left for later work.
+// the row-complete dq without atomics (an f32 atomicAdd dq would add in a different
+// order on every call).
+//
+// What the design does about that: both kernels are warp specialised on the Hopper
+// machinery of hopper.cuh (384 threads, one block per SM).  Warpgroup 0's first warp
+// is the producer: it loads the block's own tiles once by TMA (k and v, or q and do)
+// and then keeps a ring of streamed tiles in flight (q, do and their rows' lse,
+// delta and segment ids; or k, v and the keys' ids), each stage on a `full`
+// mbarrier and freed by an `empty` one.  Warpgroups 1 and 2 are the consumers and
+// run every product as wgmma with f32 accumulators in registers (setmaxnreg hands
+// them the registers the producer does not need at run time):
+//   dkv, per 64-row q tile: s^T = k q^T and dp^T = v do^T (m64n64k16, both operands
+//       in shared memory, K-major), p^T and ds^T in registers with the formula and
+//       select above (exp in log2 units: lse times log2 e, one fused multiply-add
+//       and ex2.approx a score), then dv += p^T do and dk += ds^T q (m64n128k16, p^T / ds^T as
+//       the register A operand, do / q an MN-major B);
+//   dq, per 64-key tile: s = q k^T and dp = do v^T (m64n64k16; p is formed while dp
+//       is in the tensor cores), ds in registers, then dq += ds k (register A, k an
+//       MN-major B).
+// Keys and rows past the tensor are zero-filled by TMA and carry segment 0.  The
+// epilogues stage each warp's rows in its own rows of a block tile for 16-byte
+// stores.  The tile sizes are the register budget's: a dkv consumer holds two
+// 64 x 128 f32 accumulators (128 registers a thread) beside the 64 x 64 s^T and
+// dp^T (64) and their A fragments, which fits the 232 that setmaxnreg grants (the
+// producer keeps 40: it spilled at 24).  hopper.cuh's mbar_timeout says why the
+// trap is out of line: inlined, it held the consumers to 168 registers, and
+// 32-row q tiles were the most that fitted.  The trap out of line, the 64-row
+// tiles and then the softmax in log2 units were each a measured gain on an H100.
 //
 // Layouts: q/out/do/dq [B, Sq, H, D] and k/v/dk/dv [B, Sk, H, D] bf16 (row stride
 // H * D), lse and delta [B, H, Sq] f32, q_seg [B, Sq] and kv_seg [B, Sk] int32, or both
 // null (the unmasked case: every real token is segment 1).
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 constexpr int D = 128;            // the only head dim the kernels take
-constexpr int NW = 4;             // warps of a dkv / dq block
-constexpr int NT = NW * 32;
-constexpr int BR = 16 * NW;       // rows a dkv / dq block owns: 16 per warp
-constexpr int BC_KV = 32;         // q rows streamed per step of the dkv loop
-constexpr int BC_Q = 64;          // keys streamed per step of the dq loop
-constexpr int LD = D + 8;         // bf16 row stride of the smem tiles: no bank conflicts
 constexpr int DELTA_WARPS = 8;
-
-constexpr size_t DKV_SMEM = sizeof(bf16) * (2 * BR + 2 * BC_KV) * LD  // k, v; q, do tiles
-                            + sizeof(float) * 3 * BC_KV;             // lse, delta, seg of q
-constexpr size_t DQ_SMEM = sizeof(bf16) * (2 * BR + 2 * BC_Q) * LD    // q, do; k, v tiles
-                           + sizeof(int) * BC_Q;                     // seg of the keys
-
-__device__ __forceinline__ int seg_of(const int* __restrict__ seg, int row, int n) {
-  // one validity rule: rows past n carry segment 0; without ids every real token is 1
-  return row < n ? (seg ? seg[row] : 1) : 0;
-}
-
-// ROWS rows [row0, row0 + ROWS) of one head (row stride `rs`) into a bf16 smem tile,
-// 16 bytes per thread per load; rows past n become 0
-template <int ROWS>
-__device__ __forceinline__ void load_tile(bf16* __restrict__ dst, const bf16* __restrict__ src,
-                                          int rs, int row0, int n) {
-  constexpr int ITERS = ROWS * (D / 8) / NT;
-#pragma unroll
-  for (int j = 0; j < ITERS; ++j) {
-    const int i = threadIdx.x + j * NT;
-    const int r = i / (D / 8), c = (i % (D / 8)) * 8;
-    const int row = row0 + r;
-    *reinterpret_cast<uint4*>(dst + r * LD + c) =
-        row < n ? *reinterpret_cast<const uint4*>(src + (size_t)row * rs + c)
-                : make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
-// this warp's 16 rows of f32 accumulators [16][D] → bf16 rows [row0 + wrow, ...) of one
-// head (rows past n skipped)
-__device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], bf16* __restrict__ dst,
-                                           int rs, int row0, int n) {
-  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int nn = 0; nn < D / 8; ++nn) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = row0 + g + 8 * i;
-      if (row < n)
-        *reinterpret_cast<uint32_t*>(dst + (size_t)row * rs + 8 * nn + 2 * t) =
-            pack_bf16(acc[nn][2 * i], acc[nn][2 * i + 1]);
-    }
-  }
-}
 
 // delta[b, h, s] = sum over d of do * out, in f32; one warp per (b, s, h) row
 __global__ void __launch_bounds__(DELTA_WARPS * 32)
@@ -120,283 +95,392 @@ flash_delta_kernel(const bf16* __restrict__ dout, const bf16* __restrict__ out,
   if (lane == 0) delta[((size_t)b * H + h) * Sq + s] = acc;
 }
 
-// dk / dv: block = 64 keys of one (b, h); warp w owns keys 16w .. 16w+15.  Per step of
-// BC_KV q rows: s^T = k q^T and dp^T = v do^T (A = this warp's k / v rows, B = the q /
-// do tile), then p^T and ds^T in registers, then dv += p^T do and dk += ds^T q (A = the
-// accumulators, B = the tiles transposed by ldmatrix).
-__global__ void __launch_bounds__(NT)
-flash_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ delta,
-                 const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
-                 bf16* __restrict__ dk, bf16* __restrict__ dv, int Sq, int Sk, int H,
-                 float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);  // [BR][LD] this block's keys
-  bf16* Vs = Ks + BR * LD;                   // [BR][LD]
-  bf16* Qs = Vs + BR * LD;                   // [BC_KV][LD] q tile
-  bf16* Ds = Qs + BC_KV * LD;                // [BC_KV][LD] do tile
-  float* lse_s = reinterpret_cast<float*>(Ds + BC_KV * LD);
-  float* del_s = lse_s + BC_KV;
-  int* segq_s = reinterpret_cast<int*>(del_s + BC_KV);
+constexpr int NTHREADS = 384;  // producer warpgroup + two consumer warpgroups
+constexpr int BLK = 128;       // rows a dkv / dq block owns: 64 per consumer warpgroup
+constexpr int KV_STEP = 64;    // q rows streamed per step of dkv
+constexpr int STEP = 64;       // keys streamed per step of dq
+constexpr int STAGES = 4;      // streamed steps in flight
+constexpr int OWN = BLK * D * 2;    // bytes of one [128, 128] bf16 tile of the block's own
+constexpr int STEP_T = STEP * D * 2;  // bytes of one streamed [64, 128] bf16 tile
+constexpr int KV_STEP_T = KV_STEP * D * 2;
 
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int k0 = blockIdx.x * BR;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int rs = H * D;
-  const size_t qh = ((size_t)b * Sq * H + h) * D, kh = ((size_t)b * Sk * H + h) * D;
-  const float* lse_bh = lse + ((size_t)b * H + h) * Sq;
-  const float* del_bh = delta + ((size_t)b * H + h) * Sq;
-  const int* qsegb = q_seg ? q_seg + (size_t)b * Sq : nullptr;
-  const int* ksegb = kv_seg ? kv_seg + (size_t)b * Sk : nullptr;
-  const int wrow = warp * 16;
+// dkv: the block's k and v; per stage the q and do tiles and the q rows' lse,
+// delta and segment ids
+constexpr int KV_K_OFF = 0;
+constexpr int KV_V_OFF = KV_K_OFF + OWN;
+constexpr int KV_Q_OFF = KV_V_OFF + OWN;
+constexpr int KV_DO_OFF = KV_Q_OFF + STAGES * KV_STEP_T;
+constexpr int KV_ROW_OFF = KV_DO_OFF + STAGES * KV_STEP_T;  // [STAGES][lse, delta, seg][KV_STEP]
+constexpr int KV_BAR_OFF = KV_ROW_OFF + STAGES * 3 * KV_STEP * 4;
+constexpr int KV_SMEM = KV_BAR_OFF + (1 + 2 * STAGES) * 8 + 1024;  // + slack to align to 1024
+// dq: the block's q and do; per stage the k and v tiles and the keys' segment ids
+constexpr int Q_Q_OFF = 0;
+constexpr int Q_DO_OFF = Q_Q_OFF + OWN;
+constexpr int Q_K_OFF = Q_DO_OFF + OWN;
+constexpr int Q_V_OFF = Q_K_OFF + STAGES * STEP_T;
+constexpr int Q_SEG_OFF = Q_V_OFF + STAGES * STEP_T;    // [STAGES][STEP]
+constexpr int Q_BAR_OFF = Q_SEG_OFF + STAGES * STEP * 4;
+constexpr int Q_SMEM = Q_BAR_OFF + (1 + 2 * STAGES) * 8 + 1024;
+static_assert(KV_SMEM <= 232448 && Q_SMEM <= 232448, "shared memory of one block");
 
-  load_tile<BR>(Ks, k + kh, rs, k0, Sk);
-  load_tile<BR>(Vs, v + kh, rs, k0, Sk);
-  int segk[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) segk[i] = seg_of(ksegb, k0 + wrow + g + 8 * i, Sk);
-
-  float dva[D / 8][4], dka[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) dva[n][c] = dka[n][c] = 0.f;
-
-#pragma unroll 1
-  for (int q0 = 0; q0 < Sq; q0 += BC_KV) {
-    __syncthreads();  // every warp is done with the previous tile
-    load_tile<BC_KV>(Qs, q + qh, rs, q0, Sq);
-    load_tile<BC_KV>(Ds, dout + qh, rs, q0, Sq);
-    if (tid < BC_KV) {
-      const int row = q0 + tid;
-      const bool in = row < Sq;
-      lse_s[tid] = in ? lse_bh[row] : 0.f;
-      del_s[tid] = in ? del_bh[row] : 0.f;
-      segq_s[tid] = seg_of(qsegb, row, Sq);
-    }
-    __syncthreads();
-
-    // s^T and dp^T of this warp's 16 keys against the BC_KV q rows
-    float sT[BC_KV / 8][4], dpT[BC_KV / 8][4];
-#pragma unroll
-    for (int n = 0; n < BC_KV / 8; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) sT[n][c] = dpT[n][c] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ka[4], va[4];
-      ldsm_x4(ka, Ks + (wrow + (lane % 16)) * LD + kk * 16 + (lane / 16) * 8);
-      ldsm_x4(va, Vs + (wrow + (lane % 16)) * LD + kk * 16 + (lane / 16) * 8);
-#pragma unroll
-      for (int np = 0; np < BC_KV / 16; ++np) {
-        // matrices: q rows +0/+8 (lane / 16) x channels +0/+8 ((lane / 8) % 2)
-        const int off = (np * 16 + (lane / 16) * 8 + (lane % 8)) * LD + kk * 16 + ((lane / 8) % 2) * 8;
-        uint32_t qb[4], db[4];
-        ldsm_x4(qb, Qs + off);
-        mma_bf16(sT[2 * np], ka, qb[0], qb[1]);
-        mma_bf16(sT[2 * np + 1], ka, qb[2], qb[3]);
-        ldsm_x4(db, Ds + off);
-        mma_bf16(dpT[2 * np], va, db[0], db[1]);
-        mma_bf16(dpT[2 * np + 1], va, db[2], db[3]);
-      }
-    }
-
-    // element c of tile n: key row g + 8 * (c / 2), q column 8n + 2t + c % 2
-#pragma unroll
-    for (int n = 0; n < BC_KV / 8; ++n) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int i = c / 2, j = 8 * n + 2 * t + (c & 1);
-        const bool ok = segk[i] != 0 && segq_s[j] == segk[i];
-        const float p = ok ? __expf(__fmul_rn(sT[n][c], scale) - lse_s[j]) : 0.f;
-        sT[n][c] = p;
-        dpT[n][c] = p * (dpT[n][c] - del_s[j]) * scale;
-      }
-    }
-
-    // dv += p^T do, dk += ds^T q: the accumulators are A fragments (k = q rows)
-#pragma unroll
-    for (int kk = 0; kk < BC_KV / 16; ++kk) {
-      uint32_t pa[4], sa[4];
-      pa[0] = pack_bf16(sT[2 * kk][0], sT[2 * kk][1]);
-      pa[1] = pack_bf16(sT[2 * kk][2], sT[2 * kk][3]);
-      pa[2] = pack_bf16(sT[2 * kk + 1][0], sT[2 * kk + 1][1]);
-      pa[3] = pack_bf16(sT[2 * kk + 1][2], sT[2 * kk + 1][3]);
-      sa[0] = pack_bf16(dpT[2 * kk][0], dpT[2 * kk][1]);
-      sa[1] = pack_bf16(dpT[2 * kk][2], dpT[2 * kk][3]);
-      sa[2] = pack_bf16(dpT[2 * kk + 1][0], dpT[2 * kk + 1][1]);
-      sa[3] = pack_bf16(dpT[2 * kk + 1][2], dpT[2 * kk + 1][3]);
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        // transposed matrices: q rows +0/+8 ((lane / 8) % 2) x channels +0/+8 (lane / 16)
-        const int off = (kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LD + dp * 16 + (lane / 16) * 8;
-        uint32_t b4[4];
-        ldsm_x4_t(b4, Ds + off);
-        mma_bf16(dva[2 * dp], pa, b4[0], b4[1]);
-        mma_bf16(dva[2 * dp + 1], pa, b4[2], b4[3]);
-        ldsm_x4_t(b4, Qs + off);
-        mma_bf16(dka[2 * dp], sa, b4[0], b4[1]);
-        mma_bf16(dka[2 * dp + 1], sa, b4[2], b4[3]);
-      }
-    }
-  }
-  store_rows(dva, dv + kh, rs, k0 + wrow, Sk);
-  store_rows(dka, dk + kh, rs, k0 + wrow, Sk);
+__device__ __forceinline__ int seg_of(const int* __restrict__ seg, int row, int n) {
+  // one validity rule: rows past n carry segment 0; without ids every real token is 1
+  return row < n ? (seg ? seg[row] : 1) : 0;
 }
 
-// dq: block = 64 q rows of one (b, h); warp w owns rows 16w .. 16w+15 and holds their q
-// as A fragments.  Per step of BC_Q keys: s = q k^T and dp = do v^T, p and ds in
-// registers, then dq += ds k (B = the k tile transposed by ldmatrix).
-__global__ void __launch_bounds__(NT)
-flash_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ delta,
-                const int* __restrict__ q_seg, const int* __restrict__ kv_seg,
-                bf16* __restrict__ dq, int Sq, int Sk, int H, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);  // [BR][LD] this block's q rows
-  bf16* Ds = Qs + BR * LD;                   // [BR][LD] their do rows
-  bf16* Ks = Ds + BR * LD;                   // [BC_Q][LD] key tile
-  bf16* Vs = Ks + BC_Q * LD;                 // [BC_Q][LD]
-  int* segk_s = reinterpret_cast<int*>(Vs + BC_Q * LD);
+// dk / dv: block = 128 keys of one (b, h); consumer warpgroup c owns keys 64 c ..
+// 64 c + 63.  Per q tile of KV_STEP rows: s^T = k q^T and dp^T = v do^T, then p^T and
+// ds^T in registers, then dv += p^T do and dk += ds^T q.
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_dkv_kernel(const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map,
+                 const __grid_constant__ CUtensorMap q_map,
+                 const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
+                 const float* __restrict__ delta, const int* __restrict__ q_seg,
+                 const int* __restrict__ kv_seg, bf16* __restrict__ dk, bf16* __restrict__ dv,
+                 int Sq, int Sk, int H, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint64_t* own = reinterpret_cast<uint64_t*>(smem + KV_BAR_OFF);
+  uint64_t* full = own + 1;
+  uint64_t* empty = full + STAGES;
+  const int h = blockIdx.y, b = blockIdx.z, k0 = blockIdx.x * BLK;
+  const int nq = (Sq + KV_STEP - 1) / KV_STEP;
 
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int q0 = blockIdx.x * BR;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int rs = H * D;
-  const size_t qh = ((size_t)b * Sq * H + h) * D, kh = ((size_t)b * Sk * H + h) * D;
-  const int* qsegb = q_seg ? q_seg + (size_t)b * Sq : nullptr;
+  if (threadIdx.x == 0) {
+    mbar_init(own, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1 + 32);  // the expect_tx, and each producer lane's rows
+      mbar_init(&empty[s], 8);      // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer
+    setmaxnreg_dec<40>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_expect_tx(own, 2 * OWN);
+        tma_load_4d(smem + KV_K_OFF, &k_map, own, 0, h, k0, b);
+        tma_load_4d(smem + KV_K_OFF + OWN / 2, &k_map, own, 64, h, k0, b);
+        tma_load_4d(smem + KV_V_OFF, &v_map, own, 0, h, k0, b);
+        tma_load_4d(smem + KV_V_OFF + OWN / 2, &v_map, own, 64, h, k0, b);
+      }
+      const float* lse_bh = lse + ((size_t)b * H + h) * Sq;
+      const float* del_bh = delta + ((size_t)b * H + h) * Sq;
+      const int* qsegb = q_seg ? q_seg + (size_t)b * Sq : nullptr;
+      for (int i = 0; i < nq; ++i) {
+        const int s = i % STAGES, q0 = i * KV_STEP;
+        if (i >= STAGES) mbar_wait(&empty[s], ((i / STAGES) - 1) & 1);
+        if (lane == 0) {
+          uint8_t* qt = smem + KV_Q_OFF + s * KV_STEP_T;
+          uint8_t* dt = smem + KV_DO_OFF + s * KV_STEP_T;
+          mbar_expect_tx(&full[s], 2 * KV_STEP_T);
+          tma_load_4d(qt, &q_map, &full[s], 0, h, q0, b);
+          tma_load_4d(qt + KV_STEP_T / 2, &q_map, &full[s], 64, h, q0, b);
+          tma_load_4d(dt, &do_map, &full[s], 0, h, q0, b);
+          tma_load_4d(dt + KV_STEP_T / 2, &do_map, &full[s], 64, h, q0, b);
+        }
+        float* rows = reinterpret_cast<float*>(smem + KV_ROW_OFF) + s * 3 * KV_STEP;
+        for (int j = lane; j < KV_STEP; j += 32) {
+          const int row = q0 + j;
+          const bool in = row < Sq;
+          rows[j] = in ? lse_bh[row] * LOG2E : 0.f;  // in log2 units
+          rows[KV_STEP + j] = in ? del_bh[row] : 0.f;
+          reinterpret_cast<int*>(rows)[2 * KV_STEP + j] = seg_of(qsegb, row, Sq);
+        }
+        mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers
+  setmaxnreg_inc<232>();
+  const int c = wg - 1, wt = threadIdx.x - 128 * wg;
+  const float sl2 = scale * LOG2E;
+  const int warp = wt >> 5, lane = wt & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 64 * c + 16 * warp;  // this warp's first key row of the block
   const int* ksegb = kv_seg ? kv_seg + (size_t)b * Sk : nullptr;
-  const int wrow = warp * 16;
+  int segk[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) segk[i] = seg_of(ksegb, k0 + r0 + g + 8 * i, Sk);
 
-  load_tile<BR>(Qs, q + qh, rs, q0, Sq);
-  load_tile<BR>(Ds, dout + qh, rs, q0, Sq);
+  float dva[64], dka[64];
+#pragma unroll
+  for (int x = 0; x < 64; ++x) dva[x] = dka[x] = 0.f;
+  const uint32_t kt = smem_u32(smem + KV_K_OFF), vt = smem_u32(smem + KV_V_OFF);
+  mbar_wait(own, 0);
+
+#pragma unroll 1
+  for (int i = 0; i < nq; ++i) {
+    const int s = i % STAGES;
+    const uint32_t qt = smem_u32(smem + KV_Q_OFF + s * KV_STEP_T);
+    const uint32_t dt = smem_u32(smem + KV_DO_OFF + s * KV_STEP_T);
+    const float* lse_s = reinterpret_cast<const float*>(smem + KV_ROW_OFF) + s * 3 * KV_STEP;
+    const float* del_s = lse_s + KV_STEP;
+    const int* segq_s = reinterpret_cast<const int*>(lse_s + 2 * KV_STEP);
+
+    // sT[4 j + 2 i + e], dpT likewise: key row r0 + g + 8 i, q column 8 j + 2 t + e
+    float sT[KV_STEP / 2], dpT[KV_STEP / 2];
+    mbar_wait(&full[s], (i / STAGES) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_m64n64k16_ss(sT, desc_kmajor(kt, BLK, 64 * c, kk), desc_kmajor(qt, KV_STEP, 0, kk),
+                         kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_m64n64k16_ss(dpT, desc_kmajor(vt, BLK, 64 * c, kk), desc_kmajor(dt, KV_STEP, 0, kk),
+                         kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sT);
+    fence_regs(dpT);
+#pragma unroll
+    for (int j = 0; j < KV_STEP / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * t + e;
+        const float ls = lse_s[col], dl = del_s[col];
+        const int sq = segq_s[col];
+#pragma unroll
+        for (int i2 = 0; i2 < 2; ++i2) {
+          const int x = 4 * j + 2 * i2 + e;
+          const bool ok = segk[i2] != 0 && sq == segk[i2];
+          const float p = ok ? ex2_approx(fmaf(sT[x], sl2, -ls)) : 0.f;
+          sT[x] = p;
+          dpT[x] = p * (dpT[x] - dl) * scale;
+        }
+      }
+    }
+    uint32_t pa[KV_STEP / 16][4], sa[KV_STEP / 16][4];
+    to_a_frags(sT, pa);
+    to_a_frags(dpT, sa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KV_STEP / 16; ++kk)
+      wgmma_m64n128k16_rs(dva, pa[kk], desc_mnmajor(dt, KV_STEP, kk));
+#pragma unroll
+    for (int kk = 0; kk < KV_STEP / 16; ++kk)
+      wgmma_m64n128k16_rs(dka, sa[kk], desc_mnmajor(qt, KV_STEP, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dva);
+    fence_regs(dka);
+#pragma unroll
+    for (int kk = 0; kk < KV_STEP / 16; ++kk) {
+      fence_regs(pa[kk]);
+      fence_regs(sa[kk]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  // the warp's rows of dv and dk, staged in its own rows of the v and k tiles
+  const float one[2] = {1.f, 1.f};
+  const size_t kh = ((size_t)b * Sk * H + h) * D;
+  store_rows_wg(dva, one, smem + KV_V_OFF, BLK, r0, dv + kh, H * D, k0 + r0, Sk);
+  store_rows_wg(dka, one, smem + KV_K_OFF, BLK, r0, dk + kh, H * D, k0 + r0, Sk);
+}
+
+// dq: block = 128 q rows of one (b, h); consumer warpgroup c owns rows 64 c .. 64 c +
+// 63.  Per K tile of 64 keys: s = q k^T and dp = do v^T, p and ds in registers, then
+// dq += ds k.
+__global__ void __launch_bounds__(NTHREADS, 1)
+flash_dq_kernel(const __grid_constant__ CUtensorMap q_map,
+                const __grid_constant__ CUtensorMap do_map,
+                const __grid_constant__ CUtensorMap k_map,
+                const __grid_constant__ CUtensorMap v_map, const float* __restrict__ lse,
+                const float* __restrict__ delta, const int* __restrict__ q_seg,
+                const int* __restrict__ kv_seg, bf16* __restrict__ dq, int Sq, int Sk, int H,
+                float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint64_t* own = reinterpret_cast<uint64_t*>(smem + Q_BAR_OFF);
+  uint64_t* full = own + 1;
+  uint64_t* empty = full + STAGES;
+  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * BLK;
+  const int nk = (Sk + STEP - 1) / STEP;
+
+  if (threadIdx.x == 0) {
+    mbar_init(own, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1 + 32);
+      mbar_init(&empty[s], 8);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer
+    setmaxnreg_dec<40>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_expect_tx(own, 2 * OWN);
+        tma_load_4d(smem + Q_Q_OFF, &q_map, own, 0, h, q0, b);
+        tma_load_4d(smem + Q_Q_OFF + OWN / 2, &q_map, own, 64, h, q0, b);
+        tma_load_4d(smem + Q_DO_OFF, &do_map, own, 0, h, q0, b);
+        tma_load_4d(smem + Q_DO_OFF + OWN / 2, &do_map, own, 64, h, q0, b);
+      }
+      const int* ksegb = kv_seg ? kv_seg + (size_t)b * Sk : nullptr;
+      for (int i = 0; i < nk; ++i) {
+        const int s = i % STAGES, k0 = i * STEP;
+        if (i >= STAGES) mbar_wait(&empty[s], ((i / STAGES) - 1) & 1);
+        if (lane == 0) {
+          uint8_t* kt = smem + Q_K_OFF + s * STEP_T;
+          uint8_t* vt = smem + Q_V_OFF + s * STEP_T;
+          mbar_expect_tx(&full[s], 2 * STEP_T);
+          tma_load_4d(kt, &k_map, &full[s], 0, h, k0, b);
+          tma_load_4d(kt + STEP_T / 2, &k_map, &full[s], 64, h, k0, b);
+          tma_load_4d(vt, &v_map, &full[s], 0, h, k0, b);
+          tma_load_4d(vt + STEP_T / 2, &v_map, &full[s], 64, h, k0, b);
+        }
+        int* segs = reinterpret_cast<int*>(smem + Q_SEG_OFF) + s * STEP;
+        for (int j = lane; j < STEP; j += 32) segs[j] = seg_of(ksegb, k0 + j, Sk);
+        mbar_arrive(&full[s]);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers
+  setmaxnreg_inc<232>();
+  const int c = wg - 1, wt = threadIdx.x - 128 * wg;
+  const float sl2 = scale * LOG2E;
+  const int warp = wt >> 5, lane = wt & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = 64 * c + 16 * warp;  // this warp's first q row of the block
+  const int* qsegb = q_seg ? q_seg + (size_t)b * Sq : nullptr;
   float lse_r[2], del_r[2];
   int segq[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int row = q0 + wrow + g + 8 * i;
+    const int row = q0 + r0 + g + 8 * i;
     const bool in = row < Sq;
-    lse_r[i] = in ? lse[((size_t)b * H + h) * Sq + row] : 0.f;
+    lse_r[i] = in ? lse[((size_t)b * H + h) * Sq + row] * LOG2E : 0.f;  // in log2 units
     del_r[i] = in ? delta[((size_t)b * H + h) * Sq + row] : 0.f;
     segq[i] = seg_of(qsegb, row, Sq);
   }
-  __syncthreads();
-  uint32_t qf[D / 16][4];  // this warp's q rows as A fragments
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    ldsm_x4(qf[kk], Qs + (wrow + (lane % 16)) * LD + kk * 16 + (lane / 16) * 8);
 
-  float dqa[D / 8][4];
+  float dqa[64];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) dqa[n][c] = 0.f;
+  for (int x = 0; x < 64; ++x) dqa[x] = 0.f;
+  const uint32_t qt = smem_u32(smem + Q_Q_OFF), dt = smem_u32(smem + Q_DO_OFF);
+  mbar_wait(own, 0);
 
 #pragma unroll 1
-  for (int k0 = 0; k0 < Sk; k0 += BC_Q) {
-    __syncthreads();  // every warp is done with the previous tile
-    load_tile<BC_Q>(Ks, k + kh, rs, k0, Sk);
-    load_tile<BC_Q>(Vs, v + kh, rs, k0, Sk);
-    if (tid < BC_Q) segk_s[tid] = seg_of(ksegb, k0 + tid, Sk);
-    __syncthreads();
+  for (int i = 0; i < nk; ++i) {
+    const int s = i % STAGES;
+    const uint32_t kt = smem_u32(smem + Q_K_OFF + s * STEP_T);
+    const uint32_t vt = smem_u32(smem + Q_V_OFF + s * STEP_T);
+    const int* segk_s = reinterpret_cast<const int*>(smem + Q_SEG_OFF) + s * STEP;
 
-    float s[BC_Q / 8][4], dp[BC_Q / 8][4];
+    // sc[4 j + 2 i + e], dp likewise: q row r0 + g + 8 i, key column 8 j + 2 t + e
+    float sc[32], dp[32];
+    mbar_wait(&full[s], (i / STAGES) & 1);
+    // s, then dp as a second wgmma group: p is formed while dp runs
+    wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < BC_Q / 8; ++n)
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_m64n64k16_ss(sc, desc_kmajor(qt, BLK, 64 * c, kk), desc_kmajor(kt, STEP, 0, kk),
+                         kk > 0);
+    wgmma_commit();
 #pragma unroll
-      for (int c = 0; c < 4; ++c) s[n][c] = dp[n][c] = 0.f;
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_m64n64k16_ss(dp, desc_kmajor(dt, BLK, 64 * c, kk), desc_kmajor(vt, STEP, 0, kk),
+                         kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(sc);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t da[4];
-      ldsm_x4(da, Ds + (wrow + (lane % 16)) * LD + kk * 16 + (lane / 16) * 8);
+    for (int j = 0; j < 8; ++j) {
 #pragma unroll
-      for (int np = 0; np < BC_Q / 16; ++np) {
-        // matrices: keys +0/+8 (lane / 16) x channels +0/+8 ((lane / 8) % 2)
-        const int off = (np * 16 + (lane / 16) * 8 + (lane % 8)) * LD + kk * 16 + ((lane / 8) % 2) * 8;
-        uint32_t kb[4], vb[4];
-        ldsm_x4(kb, Ks + off);
-        mma_bf16(s[2 * np], qf[kk], kb[0], kb[1]);
-        mma_bf16(s[2 * np + 1], qf[kk], kb[2], kb[3]);
-        ldsm_x4(vb, Vs + off);
-        mma_bf16(dp[2 * np], da, vb[0], vb[1]);
-        mma_bf16(dp[2 * np + 1], da, vb[2], vb[3]);
+      for (int e = 0; e < 2; ++e) {
+        const int sk = segk_s[8 * j + 2 * t + e];
+#pragma unroll
+        for (int i2 = 0; i2 < 2; ++i2) {
+          const int x = 4 * j + 2 * i2 + e;
+          const bool ok = segq[i2] != 0 && sk == segq[i2];
+          sc[x] = ok ? ex2_approx(fmaf(sc[x], sl2, -lse_r[i2])) : 0.f;
+        }
       }
     }
+    wgmma_wait<0>();
+    fence_regs(dp);
+    // sc becomes ds
+#pragma unroll
+    for (int x = 0; x < 32; ++x) sc[x] = sc[x] * (dp[x] - del_r[(x >> 1) & 1]) * scale;
 
-    // element c of tile n: q row g + 8 * (c / 2), key column 8n + 2t + c % 2; s becomes ds
+    uint32_t sa[STEP / 16][4];
+    to_a_frags(sc, sa);
+    wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < BC_Q / 8; ++n) {
+    for (int kk = 0; kk < STEP / 16; ++kk)
+      wgmma_m64n128k16_rs(dqa, sa[kk], desc_mnmajor(kt, STEP, kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dqa);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int i = c / 2, j = 8 * n + 2 * t + (c & 1);
-        const bool ok = segq[i] != 0 && segk_s[j] == segq[i];
-        const float p = ok ? __expf(__fmul_rn(s[n][c], scale) - lse_r[i]) : 0.f;
-        s[n][c] = p * (dp[n][c] - del_r[i]) * scale;
-      }
-    }
-
-#pragma unroll
-    for (int kk = 0; kk < BC_Q / 16; ++kk) {
-      uint32_t sa[4];
-      sa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      sa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      sa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      sa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dd = 0; dd < D / 16; ++dd) {
-        // transposed matrices: keys +0/+8 ((lane / 8) % 2) x channels +0/+8 (lane / 16)
-        uint32_t kb[4];
-        ldsm_x4_t(kb, Ks + (kk * 16 + (lane % 8) + ((lane / 8) % 2) * 8) * LD + dd * 16 +
-                          (lane / 16) * 8);
-        mma_bf16(dqa[2 * dd], sa, kb[0], kb[1]);
-        mma_bf16(dqa[2 * dd + 1], sa, kb[2], kb[3]);
-      }
-    }
+    for (int kk = 0; kk < STEP / 16; ++kk) fence_regs(sa[kk]);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
   }
-  store_rows(dqa, dq + qh, rs, q0 + wrow, Sq);
+
+  const float one[2] = {1.f, 1.f};
+  store_rows_wg(dqa, one, smem + Q_Q_OFF, BLK, r0, dq + ((size_t)b * Sq * H + h) * D, H * D,
+                q0 + r0, Sq);
 }
 
 }  // namespace
 
 // Launch K4 on `stream`: delta (f32 [B, H, Sq] scratch), then dk / dv, then dq.
-// q_seg [B, Sq] / kv_seg [B, Sk] int32, or both null (the unmasked case).  Returns a
-// cudaError_t (0 = launched).
+// q_seg [B, Sq] / kv_seg [B, Sk] int32, or both null (the unmasked case); q / k / v /
+// do 16-byte aligned.  Returns a cudaError_t (0 = launched).
 extern "C" int qflux_flash_bwd(const void* q, const void* k, const void* v, const void* q_seg,
                                const void* kv_seg, const void* out, const void* lse,
                                const void* dout, void* delta, void* dq, void* dk, void* dv,
                                int B, int Sq, int Sk, int H, float scale, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bf16* qb = static_cast<const bf16*>(q);
-  const bf16* kb = static_cast<const bf16*>(k);
-  const bf16* vb = static_cast<const bf16*>(v);
-  const bf16* db = static_cast<const bf16*>(dout);
+  CUtensorMap q_own, do_own, k_own, v_own, q_step, do_step, k_step, v_step;
+  if (!encode_heads(&q_own, q, B, Sq, H, BLK) || !encode_heads(&do_own, dout, B, Sq, H, BLK) ||
+      !encode_heads(&k_own, k, B, Sk, H, BLK) || !encode_heads(&v_own, v, B, Sk, H, BLK) ||
+      !encode_heads(&q_step, q, B, Sq, H, KV_STEP) ||
+      !encode_heads(&do_step, dout, B, Sq, H, KV_STEP) ||
+      !encode_heads(&k_step, k, B, Sk, H, STEP) || !encode_heads(&v_step, v, B, Sk, H, STEP))
+    return (int)cudaErrorInvalidValue;
+  static bool attr = false;
+  if (!attr) {
+    cudaError_t e = cudaFuncSetAttribute(flash_dkv_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, KV_SMEM);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(flash_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Q_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    attr = true;
+  }
   const int* qs = static_cast<const int*>(q_seg);
   const int* ks = static_cast<const int*>(kv_seg);
   const float* ls = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
-  cudaError_t err = cudaFuncSetAttribute(flash_dkv_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)DKV_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)DQ_SMEM);
-  if (err != cudaSuccess) return (int)err;
   const int rows = B * Sq * H;
   flash_delta_kernel<<<(rows + DELTA_WARPS - 1) / DELTA_WARPS, DELTA_WARPS * 32, 0, st>>>(
-      db, static_cast<const bf16*>(out), dl, rows, Sq, H);
+      static_cast<const bf16*>(dout), static_cast<const bf16*>(out), dl, rows, Sq, H);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_dkv_kernel<<<dim3((Sk + BLK - 1) / BLK, H, B), NTHREADS, KV_SMEM, st>>>(
+      k_own, v_own, q_step, do_step, ls, dl, qs, ks, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), Sq, Sk, H, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_dkv_kernel<<<dim3((Sk + BR - 1) / BR, H, B), NT, DKV_SMEM, st>>>(
-      qb, kb, vb, db, ls, dl, qs, ks, static_cast<bf16*>(dk), static_cast<bf16*>(dv), Sq, Sk, H,
-      scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  flash_dq_kernel<<<dim3((Sq + BR - 1) / BR, H, B), NT, DQ_SMEM, st>>>(
-      qb, kb, vb, db, ls, dl, qs, ks, static_cast<bf16*>(dq), Sq, Sk, H, scale);
+  flash_dq_kernel<<<dim3((Sq + BLK - 1) / BLK, H, B), NTHREADS, Q_SMEM, st>>>(
+      q_own, do_own, k_step, v_step, ls, dl, qs, ks, static_cast<bf16*>(dq), Sq, Sk, H, scale);
   return (int)cudaGetLastError();
 }

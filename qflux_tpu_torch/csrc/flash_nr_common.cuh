@@ -40,14 +40,13 @@ __device__ __forceinline__ float warp_max(float x) {
 }
 
 // RMSNorm (scale row `s`, already offset to this lane's channels) then rotate-half
-// rope of one row; lane holds channels 4 * lane .. + 3.  Writes the row to `dst`
-// unless it is null and returns the largest |value| of the whole row.  __fmul_rn and
-// __fadd_rn keep nvcc from contracting the products into FMAs.
-__device__ __forceinline__ float norm_rope_row(const bf16* __restrict__ x,
-                                               const float* __restrict__ s,
-                                               const float* __restrict__ cos,
-                                               const float* __restrict__ sin, int lane,
-                                               bf16* __restrict__ dst) {
+// rope of one row; lane holds channels 4 * lane .. + 3.  Returns the lane's four
+// channels as bf16 and their largest |value| in `m`.  __fmul_rn and __fadd_rn keep
+// nvcc from contracting the products into FMAs.
+__device__ __forceinline__ uint2 norm_rope4(const bf16* __restrict__ x,
+                                            const float* __restrict__ s,
+                                            const float* __restrict__ cos,
+                                            const float* __restrict__ sin, int lane, float& m) {
   const int c0 = lane * 4;
   const uint2 raw = *reinterpret_cast<const uint2*>(x + c0);
   const bf16* p = reinterpret_cast<const bf16*>(&raw);
@@ -66,7 +65,7 @@ __device__ __forceinline__ float norm_rope_row(const bf16* __restrict__ x,
 #pragma unroll
   for (int j = 0; j < 4; ++j) us[j] = bf16_round(__fmul_rn(__fmul_rn(xv[j], r), s[j]));
   __align__(8) bf16 y[4];
-  float m = 0.f;
+  m = 0.f;
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const float partner = __shfl_xor_sync(0xffffffffu, us[j], 16);
@@ -74,7 +73,19 @@ __device__ __forceinline__ float norm_rope_row(const bf16* __restrict__ x,
     y[j] = __float2bfloat16(__fadd_rn(__fmul_rn(us[j], cv[j]), __fmul_rn(rot, sv[j])));
     m = fmaxf(m, fabsf(__bfloat162float(y[j])));
   }
-  if (dst) *reinterpret_cast<uint2*>(dst + c0) = *reinterpret_cast<const uint2*>(y);
+  return *reinterpret_cast<const uint2*>(y);
+}
+
+// norm_rope4 of one row, written to `dst` unless it is null; returns the largest
+// |value| of the whole row
+__device__ __forceinline__ float norm_rope_row(const bf16* __restrict__ x,
+                                               const float* __restrict__ s,
+                                               const float* __restrict__ cos,
+                                               const float* __restrict__ sin, int lane,
+                                               bf16* __restrict__ dst) {
+  float m;
+  const uint2 y = norm_rope4(x, s, cos, sin, lane, m);
+  if (dst) *reinterpret_cast<uint2*>(dst + lane * 4) = y;
   return warp_max(m);
 }
 

@@ -17,28 +17,40 @@
 // about 47 MB of q/k/v, some 1700 FLOP per byte, far above the card's ~295
 // bf16 FLOP/byte ridge: the kernel is compute-bound on the tensor cores.
 //
-// What the design does about that.  The products run on the tensor cores as
-// mma.sync m16n8k16 (bf16 in, f32 accumulate) with ldmatrix operand loads, and
-// everything of the softmax stays in registers (the FlashAttention-2 layout):
-// each of the eight warps owns 16 of the block's 128 q rows and holds their
-// normed q as A fragments, their scores, probabilities and output
-// accumulator, so shared memory carries only the K and V tiles, double
-// buffered so that one barrier per tile suffices.  The TPU kernel normed and
-// roped all of K once per (b, h) into VMEM and reused it over a sequential q
-// loop; GPU blocks run in parallel and in no order, so here each block
-// recomputes the norm and rope of each 64-row K tile it visits.  That
-// prologue is O(BK * D) per tile against O(BQ * BK * D) of tensor-core work,
-// and it keeps the normed q and k out of device memory entirely, which is the
-// point of the fusion; the 128-row q tile halves it per FLOP against a 64-row
-// one, and each warp keeps four rows' loads in flight.  K is tiled with an
-// online softmax, so unlike the TPU kernel there is no one-K-block limit, and
-// the ragged edge is masked by index instead of padded.  On an H100 the MMA
-// loop alone runs at ~180 TFLOP/s and the whole kernel at ~105: the K
-// prologue and the softmax do not overlap the MMAs at one 256-thread block
-// per SM.  wgmma, TMA and warp specialisation are left for later work.
+// What the design does about that (the bf16 mode, flash_nr_fwd_bf16_kernel).
+// The TPU kernel normed and roped all of K once per (b, h) in VMEM and
+// reused it over a sequential q loop. GPU blocks run in parallel and in no
+// order, so a prep launch (flash_nr_kn_kernel, one warp per row) norms and
+// ropes k once per (b, h, row) into the bf16 scratch kn with K1's cast
+// chain, and the main kernel streams kn, never k: an earlier design normed
+// each 64-row K tile in every q-tile block that visited it, 20 times per row
+// at S = 2560, through ~1.9 GB of k and f32 cos / sin reads a call. The main
+// kernel is warp specialised (384 threads, one block per SM; the Hopper
+// machinery of hopper.cuh): a producer warp keeps a ring of two (kn, v)
+// tiles of 128 keys in flight by TMA, two consumer warpgroups each own 64 q
+// rows, normed and roped once in their prologue straight into the swizzled
+// layout wgmma reads (q is read once per block, so a q scratch would only
+// add its write and read), and run S = q kn^T as wgmma m64n128k16 from shared
+// memory, the online softmax on the accumulator registers, and O += P V
+// (m64n128k16) with P as the register A operand. Within a warpgroup, tile
+// i's softmax runs while tile i - 1's P V is in the tensor cores; the two
+// warpgroups interleave on the SM (an explicit ping-pong schedule of the two
+// on named barriers, as FlashAttention-3 runs, was no faster in an A/B build
+// on an H100 and is not kept). The tile is 128 keys because setmaxnreg gives
+// the consumers 240 registers a thread (the 64 of the score accumulator, the
+// 64 of O and P's 32 fit); held to 168 (see hopper.cuh's mbar_timeout) the
+// kernel had to take 64-key tiles, which ran slower on an H100. The
+// softmax is the kernel's other limit beside the products: it runs in log2
+// units (one fused multiply-add and ex2.approx a score, hopper.cuh; the
+// running max is kept in raw-score units, and lse converted at the end), and
+// without segment ids (SEG = false) only a tile past S is masked, each a
+// measured gain on an H100. K is tiled with an online softmax, so unlike the
+// TPU kernel there is no one-K-block limit, and the ragged edge is masked by
+// index (TMA zero-fills keys past S) instead of padded.
 //
-// The s_int8 mode (qflux_tpu/ops/flash_nr.py:209-225, config quantize.attention)
-// computes QK^T as int8 x int8 with one scale per q tile of q_rows rows and one per
+// The s_int8 mode (qflux_tpu/ops/flash_nr.py:209-225, config quantize.attention,
+// flash_nr_fwd_int8_kernel: mma.sync, ldmatrix, double-buffered tiles, eight
+// warps of 16 q rows) computes QK^T as int8 x int8 with one scale per q tile of q_rows rows and one per
 // (b, h) for K, as the TPU kernel does.  A prep launch (flash_nr_common.cuh) norms and
 // ropes K, reduces the scales' amaxes and writes the int8 K; the main kernel then
 // streams int8 K tiles instead of norming K per tile, and its QK^T runs as
@@ -51,6 +63,7 @@
 // optional segment ids [B, S] int32.
 
 #include "flash_nr_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -144,22 +157,20 @@ __device__ __forceinline__ void norm_rope_tile(const bf16* __restrict__ x, int r
 //   s = f32(qq kq^T) * ((q_scale * k_scale) * scale)
 // with mma.sync m16n8k32 s8 x s8 -> s32 (exact: |sum| <= 127^2 * 128 < 2^24, so the
 // f32 conversion is too).  From there on it is the bf16 path.
-template <bool INT8>
 __global__ void __launch_bounds__(NTHREADS, 1)
-flash_nr_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const float* __restrict__ q_scale2,
-                    const float* __restrict__ k_scale2, const float* __restrict__ cos,
-                    const float* __restrict__ sin, long long cs_bstride,
-                    const int* __restrict__ seg, const int8_t* __restrict__ kq,
-                    const unsigned* __restrict__ amax, int q_rows, bf16* __restrict__ out,
-                    float* __restrict__ lse, int S, int H, int st, float scale) {
+flash_nr_fwd_int8_kernel(const bf16* __restrict__ q, const bf16* __restrict__ v,
+                         const float* __restrict__ q_scale2, const float* __restrict__ cos,
+                         const float* __restrict__ sin, long long cs_bstride,
+                         const int* __restrict__ seg, const int8_t* __restrict__ kq,
+                         const unsigned* __restrict__ amax, int q_rows, bf16* __restrict__ out,
+                         float* __restrict__ lse, int S, int H, int st, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
   bf16* Kb = Qs + BQ * LD;                               // [2][BK][LD]
   bf16* Vb = Kb + 2 * BK * LD;                           // [2][BK][LD]
   int* segk = reinterpret_cast<int*>(Vb + 2 * BK * LD);  // [2][BK]
-  int8_t* K8 = reinterpret_cast<int8_t*>(Kb);            // INT8: [2][BK][LD8] over Kb
-  int8_t* Q8 = reinterpret_cast<int8_t*>(segk + 2 * BK);  // INT8: [BQ][LD8]
+  int8_t* K8 = reinterpret_cast<int8_t*>(Kb);            // [2][BK][LD8] over Kb
+  int8_t* Q8 = reinterpret_cast<int8_t*>(segk + 2 * BK);  // [BQ][LD8]
 
   const int h = blockIdx.y, b = blockIdx.z;
   const int q0 = blockIdx.x * BQ;
@@ -172,33 +183,28 @@ flash_nr_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int* segb = seg ? seg + (size_t)b * S : nullptr;
   const int wrow = warp * 16;
 
-  // K/V tile k0, normed and roped (k) or as it is (v), into buffer `buf`, and
-  // its key segment ids; one validity rule for every case: keys past S carry
-  // segment 0, and without segment ids every real token is segment 1
+  // the int8 K tile k0 and the V tile into buffer `buf`, and the keys' segment
+  // ids; one validity rule for every case: keys past S carry segment 0, and
+  // without segment ids every real token is segment 1
   auto fill = [&](int buf, int k0) {
     constexpr int VITER = BK * (D / 8) / NTHREADS;
     uint4 vr[VITER];
 #pragma unroll
-    for (int j = 0; j < VITER; ++j) {  // v loads first: in flight during the k prologue
+    for (int j = 0; j < VITER; ++j) {  // v loads first: in flight during the k copy
       const int i = tid + j * NTHREADS;
       const int row = k0 + i / (D / 8), c = (i % (D / 8)) * 8;
       vr[j] = row < S ? *reinterpret_cast<const uint4*>(v + head_off + (size_t)row * row_stride + c)
                       : make_uint4(0u, 0u, 0u, 0u);
     }
-    if constexpr (INT8) {
-      constexpr int KITER = BK * (D / 16) / NTHREADS;  // 16-byte chunks of the int8 tile
+    constexpr int KITER = BK * (D / 16) / NTHREADS;  // 16-byte chunks of the int8 tile
 #pragma unroll
-      for (int j = 0; j < KITER; ++j) {
-        const int i = tid + j * NTHREADS;
-        const int r = i / (D / 16), c = (i % (D / 16)) * 16;
-        const int row = k0 + r;
-        *reinterpret_cast<uint4*>(K8 + (buf * BK + r) * LD8 + c) =
-            row < S ? *reinterpret_cast<const uint4*>(kq + head_off + (size_t)row * row_stride + c)
-                    : make_uint4(0u, 0u, 0u, 0u);
-      }
-    } else {
-      norm_rope_tile<BK>(k + head_off, row_stride, k0, S, k_scale2, cb, sb, st,
-                         Kb + buf * BK * LD);
+    for (int j = 0; j < KITER; ++j) {
+      const int i = tid + j * NTHREADS;
+      const int r = i / (D / 16), c = (i % (D / 16)) * 16;
+      const int row = k0 + r;
+      *reinterpret_cast<uint4*>(K8 + (buf * BK + r) * LD8 + c) =
+          row < S ? *reinterpret_cast<const uint4*>(kq + head_off + (size_t)row * row_stride + c)
+                  : make_uint4(0u, 0u, 0u, 0u);
     }
 #pragma unroll
     for (int j = 0; j < VITER; ++j) {
@@ -213,33 +219,26 @@ flash_nr_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   norm_rope_tile<BQ>(q + head_off, row_stride, q0, S, q_scale2, cb, sb, st, Qs);
   fill(0, 0);
-  float factor = scale;  // INT8: (q_scale * k_scale) * scale, in that order
-  if constexpr (INT8) {
-    // norm_rope_tile gave this warp rows wrow .. wrow+15 and this lane their
-    // channels 4 lane .. 4 lane + 3: it quantizes what it wrote itself
-    const unsigned* am = amax + ((size_t)b * H + h) * (1 + (S + q_rows - 1) / q_rows);
-    const float qsc = int8_scale(am[1 + q0 / q_rows]);
-    factor = __fmul_rn(__fmul_rn(qsc, int8_scale(am[0])), scale);
+  // (q_scale * k_scale) * scale, in that order.  norm_rope_tile gave this warp
+  // rows wrow .. wrow+15 and this lane their channels 4 lane .. 4 lane + 3: it
+  // quantizes what it wrote itself
+  const unsigned* am = amax + ((size_t)b * H + h) * (1 + (S + q_rows - 1) / q_rows);
+  const float qsc = int8_scale(am[1 + q0 / q_rows]);
+  const float factor = __fmul_rn(__fmul_rn(qsc, int8_scale(am[0])), scale);
 #pragma unroll 4
-    for (int r = 0; r < 16; ++r)
-      quant4(Qs + (wrow + r) * LD + lane * 4, qsc, Q8 + (wrow + r) * LD8 + lane * 4);
-  }
+  for (int r = 0; r < 16; ++r)
+    quant4(Qs + (wrow + r) * LD + lane * 4, qsc, Q8 + (wrow + r) * LD8 + lane * 4);
   __syncthreads();
 
-  // this warp's 16 normed q rows as A fragments: bf16, one per 16-channel slice,
-  // or INT8 int8, one per 32-channel slice
-  uint32_t qf[INT8 ? D / 32 : D / 16][4];
+  // this warp's 16 normed q rows as int8 A fragments, one per 32-channel slice
+  uint32_t qf[D / 32][4];
 #pragma unroll
-  for (int kk = 0; kk < (INT8 ? D / 32 : D / 16); ++kk) {
-    if constexpr (INT8) {
-      const int8_t* r0 = Q8 + (wrow + g) * LD8 + kk * 32 + 4 * t;
-      qf[kk][0] = *reinterpret_cast<const uint32_t*>(r0);
-      qf[kk][1] = *reinterpret_cast<const uint32_t*>(r0 + 8 * LD8);
-      qf[kk][2] = *reinterpret_cast<const uint32_t*>(r0 + 16);
-      qf[kk][3] = *reinterpret_cast<const uint32_t*>(r0 + 8 * LD8 + 16);
-    } else {
-      ldsm_x4(qf[kk], Qs + (wrow + (lane % 16)) * LD + kk * 16 + (lane / 16) * 8);
-    }
+  for (int kk = 0; kk < D / 32; ++kk) {
+    const int8_t* r0 = Q8 + (wrow + g) * LD8 + kk * 32 + 4 * t;
+    qf[kk][0] = *reinterpret_cast<const uint32_t*>(r0);
+    qf[kk][1] = *reinterpret_cast<const uint32_t*>(r0 + 8 * LD8);
+    qf[kk][2] = *reinterpret_cast<const uint32_t*>(r0 + 16);
+    qf[kk][3] = *reinterpret_cast<const uint32_t*>(r0 + 8 * LD8 + 16);
   }
 
   int segq[2];
@@ -259,48 +258,30 @@ flash_nr_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll 1
   for (int k0 = 0; k0 < S; k0 += BK, ++it) {
     const int cur = it & 1;
-    const bf16* Ks = Kb + cur * BK * LD;
     const bf16* Vs = Vb + cur * BK * LD;
     const int* sk_tile = segk + cur * BK;
 
     // scores of this warp's 16 rows against the 64 keys: s[n] is keys 8n .. 8n+7
     float s[BK / 8][4];
-    if constexpr (INT8) {
-      // B fragments straight from the [key][channel] int8 tile: keys are the
-      // columns and each holds its channels contiguously, as .col wants
-      const int8_t* K8s = K8 + cur * BK * LD8;
-      int si[BK / 8][4];
+    // B fragments straight from the [key][channel] int8 tile: keys are the
+    // columns and each holds its channels contiguously, as .col wants
+    const int8_t* K8s = K8 + cur * BK * LD8;
+    int si[BK / 8][4];
 #pragma unroll
-      for (int n = 0; n < BK / 8; ++n) si[n][0] = si[n][1] = si[n][2] = si[n][3] = 0;
+    for (int n = 0; n < BK / 8; ++n) si[n][0] = si[n][1] = si[n][2] = si[n][3] = 0;
 #pragma unroll
-      for (int kk = 0; kk < D / 32; ++kk) {
+    for (int kk = 0; kk < D / 32; ++kk) {
 #pragma unroll
-        for (int n = 0; n < BK / 8; ++n) {
-          const int8_t* kr = K8s + (n * 8 + g) * LD8 + kk * 32 + 4 * t;
-          mma_s8(si[n], qf[kk], *reinterpret_cast<const uint32_t*>(kr),
-                 *reinterpret_cast<const uint32_t*>(kr + 16));
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) s[n][c] = __int2float_rn(si[n][c]);
-    } else {
-#pragma unroll
-      for (int n = 0; n < BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-        for (int np = 0; np < BK / 16; ++np) {
-          // matrices: keys +0/+8 (lane / 16) x channels +0/+8 ((lane / 8) % 2)
-          uint32_t kb[4];
-          ldsm_x4(kb, Ks + (np * 16 + (lane / 16) * 8 + (lane % 8)) * LD + kk * 16 +
-                          ((lane / 8) % 2) * 8);
-          mma_bf16(s[2 * np], qf[kk], kb[0], kb[1]);
-          mma_bf16(s[2 * np + 1], qf[kk], kb[2], kb[3]);
-        }
+      for (int n = 0; n < BK / 8; ++n) {
+        const int8_t* kr = K8s + (n * 8 + g) * LD8 + kk * 32 + 4 * t;
+        mma_s8(si[n], qf[kk], *reinterpret_cast<const uint32_t*>(kr),
+               *reinterpret_cast<const uint32_t*>(kr + 16));
       }
     }
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s[n][c] = __int2float_rn(si[n][c]);
 
     // online softmax; a masked score is exactly NEG_INF and gets p = 0
     float tmax[2] = {NEG_INF, NEG_INF};
@@ -407,20 +388,330 @@ flash_nr_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The bf16 mode: a prep launch norms and ropes k once per (b, h, row) into the
+// scratch kn, then the main kernel runs a warp-specialised wgmma loop over a TMA
+// ring of (kn, v) tiles.
+
+constexpr int W_BQ = 128;     // q rows of a block: 64 per consumer warpgroup
+constexpr int W_BK = 128;     // keys of a K/V tile
+constexpr int W_STAGES = 2;   // K/V tiles in flight
+constexpr int W_THREADS = 384;  // producer warpgroup + two consumer warpgroups
+constexpr int TILE = W_BK * D * 2;  // bytes of one [W_BK, 128] bf16 tile
+constexpr int W_Q_OFF = 0;                              // the block's normed q
+constexpr int W_K_OFF = W_Q_OFF + W_BQ * D * 2;         // W_STAGES kn tiles
+constexpr int W_V_OFF = W_K_OFF + W_STAGES * TILE;      // W_STAGES v tiles
+constexpr int W_SEG_OFF = W_V_OFF + W_STAGES * TILE;    // W_STAGES x W_BK key ids
+constexpr int W_BAR_OFF = W_SEG_OFF + W_STAGES * W_BK * 4;
+constexpr int W_SMEM = W_BAR_OFF + 4 * W_STAGES * 8 + 1024;  // + slack to align to 1024
+static_assert(W_SMEM <= 232448, "shared memory of one block");
+
+// kn = the normed and roped k, one warp per (b, s, h) row, with K1's cast chain
+// (norm_rope_row, as the s_int8 prep)
+__global__ void __launch_bounds__(PREP_WARPS * 32)
+flash_nr_kn_kernel(const bf16* __restrict__ k, const float* __restrict__ k_scale2,
+                   const float* __restrict__ cos, const float* __restrict__ sin,
+                   long long cs_bstride, bf16* __restrict__ kn, int rows, int S, int H,
+                   int st) {
+  const int row = blockIdx.x * PREP_WARPS + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (row >= rows) return;  // warp-uniform
+  const int s = (row / H) % S, b = row / (H * S);
+  const size_t off = (size_t)row * D;
+  const size_t cs = (size_t)b * cs_bstride + (size_t)s * D;
+  norm_rope_row(k + off, k_scale2 + (s < st ? 0 : D) + lane * 4, cos + cs, sin + cs, lane,
+                kn + off);
+}
+
+// Block (q tile of 128 rows, h, b), 384 threads.  Warpgroup 0 is the producer:
+// its first warp keeps W_STAGES (kn, v) tile pairs in flight by TMA (rows past S
+// zero-filled), each operand on a `full` mbarrier, and writes the keys' segment
+// ids beside them (keys past S: 0; no ids: 1); each operand is freed by its own
+// `empty` mbarrier (one arrival per consumer warp): kn once its scores and ids
+// are read, v once its P V is done.  Warpgroups 1 and 2 each own 64 q rows:
+// they norm and rope them once into the swizzled q tile, then per K/V tile:
+// S = q kn^T (wgmma m64n128k16, both operands in shared memory, kn K-major), the
+// online softmax on the accumulator registers with K1's rule (a masked score is
+// exactly -1e30 and gets p = 0; p rounded to bf16), and O += P V (m64n128k16, P
+// as the register A operand, V an MN-major B).  SEG: segment ids given (else every
+// key below S attends, and only a tile past S is masked).
+template <bool SEG>
+__global__ void __launch_bounds__(W_THREADS, 1)
+flash_nr_fwd_bf16_kernel(const __grid_constant__ CUtensorMap kn_map,
+                         const __grid_constant__ CUtensorMap v_map, const bf16* __restrict__ q,
+                         const float* __restrict__ q_scale2, const float* __restrict__ cos,
+                         const float* __restrict__ sin, long long cs_bstride,
+                         const int* __restrict__ seg, bf16* __restrict__ out,
+                         float* __restrict__ lse, int S, int H, int st, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(smem + W_BAR_OFF);
+  uint64_t* full_v = full_k + W_STAGES;
+  uint64_t* empty_k = full_v + W_STAGES;
+  uint64_t* empty_v = empty_k + W_STAGES;
+  int* segk = reinterpret_cast<int*>(smem + W_SEG_OFF);
+
+  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * W_BQ;
+  const int ntiles = (S + W_BK - 1) / W_BK;
+  const int* segb = seg ? seg + (size_t)b * S : nullptr;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < W_STAGES; ++s) {
+      mbar_init(&full_k[s], 1 + 32);  // the expect_tx, and each producer lane's ids
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_k[s], 8);      // one arrival per consumer warp
+      mbar_init(&empty_v[s], 8);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer
+    setmaxnreg_dec<24>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      for (int i = 0; i < ntiles; ++i) {
+        const int s = i % W_STAGES, k0 = i * W_BK;
+        const uint32_t ph = ((i / W_STAGES) - 1) & 1;
+        // kn tile i once the scores of tile i - W_STAGES are in, v once its p v is
+        if (i >= W_STAGES) mbar_wait(&empty_k[s], ph);
+        if (lane == 0) {
+          uint8_t* kt = smem + W_K_OFF + s * TILE;
+          mbar_expect_tx(&full_k[s], TILE);
+          tma_load_4d(kt, &kn_map, &full_k[s], 0, h, k0, b);
+          tma_load_4d(kt + TILE / 2, &kn_map, &full_k[s], 64, h, k0, b);
+        }
+        for (int j = lane; j < W_BK; j += 32) {
+          const int key = k0 + j;
+          segk[s * W_BK + j] = key < S ? (segb ? segb[key] : 1) : 0;
+        }
+        mbar_arrive(&full_k[s]);
+        if (i >= W_STAGES) mbar_wait(&empty_v[s], ph);
+        if (lane == 0) {
+          uint8_t* vt = smem + W_V_OFF + s * TILE;
+          mbar_expect_tx(&full_v[s], TILE);
+          tma_load_4d(vt, &v_map, &full_v[s], 0, h, k0, b);
+          tma_load_4d(vt + TILE / 2, &v_map, &full_v[s], 64, h, k0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers
+  setmaxnreg_inc<240>();
+  const int c = wg - 1, wt = threadIdx.x - 128 * wg;
+  const int warp = wt >> 5, lane = wt & 31, g = lane >> 2, t = lane & 3;
+  const int rs = H * D;
+  const size_t head_off = ((size_t)b * S * H + h) * D;
+  const float* cb = cos + (size_t)b * cs_bstride;
+  const float* sb = sin + (size_t)b * cs_bstride;
+  uint8_t* qs = smem + W_Q_OFF;
+  const int r0 = 64 * c + 16 * warp;  // this warp's first row of the q tile
+
+  // the warp's 16 q rows, normed and roped once, in the layout wgmma reads
+#pragma unroll 4
+  for (int i = 0; i < 16; ++i) {
+    const int row = q0 + r0 + i;
+    uint2 y = make_uint2(0u, 0u);
+    if (row < S) {  // warp-uniform
+      float unused;
+      y = norm_rope4(q + head_off + (size_t)row * rs, q_scale2 + (row < st ? 0 : D) + lane * 4,
+                     cb + (size_t)row * D, sb + (size_t)row * D, lane, unused);
+    }
+    *reinterpret_cast<uint2*>(qs + swz_offset(W_BQ, r0 + i, lane * 4)) = y;
+  }
+  fence_proxy_async();
+  warpgroup_sync(c);
+
+  int segq[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r0 + g + 8 * i;
+    segq[i] = row < S ? (segb ? segb[row] : 1) : 0;
+  }
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float o[64];
+#pragma unroll
+  for (int x = 0; x < 64; ++x) o[x] = 0.f;
+  const uint32_t qa = smem_u32(qs);
+
+  // Tile `it`'s scores into sc, issued as one wgmma group: sc[4 j + 2 i + e] is
+  // row r0 + g + 8 i, key 8 j + 2 t + e
+  float sc[W_BK / 2];
+  auto issue_scores = [&](int it) {
+    const int s = it % W_STAGES;
+    const uint32_t kt = smem_u32(smem + W_K_OFF + s * TILE);
+    mbar_wait(&full_k[s], (it / W_STAGES) & 1);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_m64n128k16<0>(sc, desc_kmajor(qa, W_BQ, 64 * c, kk), desc_kmajor(kt, W_BK, 0, kk),
+                          kk > 0);
+    wgmma_commit();
+  };
+  // o += p v of tile `it` (p, rounded to bf16, as the A fragments of keys 16 kk ..
+  // 16 kk + 15), issued as one wgmma group
+  uint32_t pf[W_BK / 16][4];
+  auto issue_pv = [&](int it) {
+    const int s = it % W_STAGES;
+    const uint32_t vt = smem_u32(smem + W_V_OFF + s * TILE);
+    mbar_wait(&full_v[s], (it / W_STAGES) & 1);
+#pragma unroll
+    for (int kk = 0; kk < W_BK / 16; ++kk)
+      wgmma_m64n128k16_rs(o, pf[kk], desc_mnmajor(vt, W_BK, kk));
+    wgmma_commit();
+  };
+  // once tile `it`'s scores are in sc: turn them into p with K1's online-softmax
+  // rule, freeing the kn tile and its ids once read (a masked score is exactly NEG_INF and gets
+  // p = 0), returning the row sums of p and the factors alpha for o and l
+  const float sl2 = scale * LOG2E;  // raw scores to log2 units
+  float alpha[2], psum[2];
+  auto softmax = [&](int it) {
+    fence_regs(sc);
+    const int* sk = segk + (it % W_STAGES) * W_BK;
+    float tmax[2] = {NEG_INF, NEG_INF};
+    // masking by id is needed with segment ids, else only in a tile past S
+    const bool masked = SEG || (it + 1) * W_BK > S;
+    if (masked) {
+#pragma unroll
+      for (int j = 0; j < W_BK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int skv = sk[8 * j + 2 * t + e];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const bool ok = segq[i] != 0 && skv == segq[i];
+            const float val = ok ? sc[4 * j + 2 * i + e] : NEG_INF;
+            sc[4 * j + 2 * i + e] = val;
+            tmax[i] = fmaxf(tmax[i], val);
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int x = 0; x < W_BK / 2; ++x) tmax[(x >> 1) & 1] = fmaxf(tmax[(x >> 1) & 1], sc[x]);
+    }
+    __syncwarp();  // the tile's ids are read
+    if (lane == 0) mbar_arrive(&empty_k[it % W_STAGES]);
+    float msc[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 1));
+      tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 2));
+      const float m_new = fmaxf(m[i], tmax[i]);
+      alpha[i] = ex2_approx((m[i] - m_new) * sl2);
+      m[i] = m_new;
+      msc[i] = m_new * sl2;
+      psum[i] = 0.f;
+    }
+    if (masked) {
+#pragma unroll
+      for (int x = 0; x < W_BK / 2; ++x) {
+        const int i = (x >> 1) & 1;
+        const float p = sc[x] == NEG_INF ? 0.f : ex2_approx(fmaf(sc[x], sl2, -msc[i]));
+        psum[i] += p;
+        sc[x] = p;
+      }
+    } else {
+#pragma unroll
+      for (int x = 0; x < W_BK / 2; ++x) {
+        const int i = (x >> 1) & 1;
+        const float p = ex2_approx(fmaf(sc[x], sl2, -msc[i]));
+        psum[i] += p;
+        sc[x] = p;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 1);
+      psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 2);
+    }
+  };
+  // after tile it - 1's p v: free its v tile, rescale o and l, pack tile it's p
+  auto rescale_and_pack = [&](int it_done) {
+    fence_regs(o);
+#pragma unroll
+    for (int kk = 0; kk < W_BK / 16; ++kk) fence_regs(pf[kk]);
+    if (it_done >= 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty_v[it_done % W_STAGES]);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + psum[i];
+#pragma unroll
+    for (int x = 0; x < 64; ++x) o[x] *= alpha[(x >> 1) & 1];
+    to_a_frags(sc, pf);
+  };
+
+  // Software pipeline within the warpgroup: tile it's scores are issued with tile
+  // it - 1's p v behind them, so the softmax of tile it runs while p v is in the
+  // tensor cores.  The arithmetic is the plain loop's, in its order: o and l are
+  // rescaled by tile it's alpha after tile it - 1's p v has been added.
+  wgmma_fence();
+  issue_scores(0);
+  wgmma_wait<0>();
+  softmax(0);
+  rescale_and_pack(-1);
+#pragma unroll 1
+  for (int it = 1; it < ntiles; ++it) {
+    wgmma_fence();
+    issue_scores(it);
+    issue_pv(it - 1);
+    wgmma_wait<1>();
+    softmax(it);
+    wgmma_wait<0>();
+    rescale_and_pack(it - 1);
+  }
+  wgmma_fence();
+  issue_pv(ntiles - 1);
+  wgmma_wait<0>();
+  fence_regs(o);
+#pragma unroll
+  for (int kk = 0; kk < W_BK / 16; ++kk) fence_regs(pf[kk]);
+
+  // epilogue: normalise, round to bf16, stage in the warp's own q rows
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) inv[i] = 1.f / (l[i] == 0.f ? 1.f : l[i]);
+  store_rows_wg(o, inv, qs, W_BQ, r0, out + head_off, rs, q0 + r0, S);
+  if (t == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = q0 + r0 + g + 8 * i;
+      if (row < S)
+        lse[((size_t)b * H + h) * S + row] =
+            m[i] == NEG_INF ? NEG_INF : m[i] * scale + logf(l[i] == 0.f ? 1.f : l[i]);
+    }
+  }
+}
+
+cudaError_t launch_kn_prep(const bf16* k, const float* ks, const float* cs, const float* sn,
+                           long long cs_bstride, bf16* kn, int B, int S, int H, int st,
+                           cudaStream_t stream) {
+  const int rows = B * S * H;
+  flash_nr_kn_kernel<<<(rows + PREP_WARPS - 1) / PREP_WARPS, PREP_WARPS * 32, 0, stream>>>(
+      k, ks, cs, sn, cs_bstride, kn, rows, S, H, st);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// Launch K1 on `stream`.  q_rows = 0: the bf16 kernel (kn, kq, amax unused, may be
-// null).  q_rows > 0 (a multiple of 128, the TPU forward's q quantization tile): the
-// s_int8 mode, the prep (kn [B, S, H, D] bf16 and kq int8 scratch, amax
-// [B, H, 1 + ceil(S / q_rows)] u32 scratch) then the main kernel.  Returns a
-// cudaError_t (0 = launched).
+// Launch K1 on `stream`.  kn: [B, S, H, D] bf16 scratch for the normed and roped
+// k (both modes).  q_rows = 0: the bf16 mode, the kn prep then the wgmma kernel
+// (kq, amax unused, may be null).  q_rows > 0 (a multiple of 128, the TPU
+// forward's q quantization tile): the s_int8 mode, its prep (kn and the kq int8
+// scratch, amax [B, H, 1 + ceil(S / q_rows)] u32 scratch) then its kernel.  All
+// of q / k / v / kn / cos / sin 16-byte aligned.  Returns a cudaError_t (0 =
+// launched).
 extern "C" int qflux_flash_nr_fwd(const void* q, const void* k, const void* v,
                                   const void* q_scale2, const void* k_scale2,
                                   const void* cos, const void* sin, long long cs_bstride,
                                   const void* seg, void* kn, void* kq, void* amax, int q_rows,
                                   void* out, void* lse, int B, int S, int H, int st,
                                   float scale, void* stream) {
-  if (q_rows < 0 || q_rows % BQ) return (int)cudaErrorInvalidValue;
+  if (q_rows < 0 || q_rows % BQ || !kn || B <= 0 || S <= 0 || H <= 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st_ = static_cast<cudaStream_t>(stream);
   const bf16* qb = static_cast<const bf16*>(q);
   const bf16* kb = static_cast<const bf16*>(k);
@@ -428,24 +719,53 @@ extern "C" int qflux_flash_nr_fwd(const void* q, const void* k, const void* v,
   const float* ks = static_cast<const float*>(k_scale2);
   const float* cs = static_cast<const float*>(cos);
   const float* sn = static_cast<const float*>(sin);
-  auto* kernel = q_rows ? flash_nr_fwd_kernel<true> : flash_nr_fwd_kernel<false>;
-  const size_t smem = q_rows ? SMEM_BYTES_INT8 : SMEM_BYTES;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  if (q_rows) {
-    err = launch_int8_prep(qb, kb, nullptr, nullptr, qs, ks, cs, sn, cs_bstride, nullptr,
-                           static_cast<bf16*>(kn), nullptr, nullptr, static_cast<int8_t*>(kq),
-                           static_cast<unsigned*>(amax), q_rows, B, S, H, st, st_);
+  bf16* knb = static_cast<bf16*>(kn);
+  cudaError_t err;
+  if (!q_rows) {
+    CUtensorMap kn_map, v_map;
+    if (!encode_heads(&kn_map, kn, B, S, H, W_BK) || !encode_heads(&v_map, v, B, S, H, W_BK))
+      return (int)cudaErrorInvalidValue;
+    static bool attr = false;
+    if (!attr) {
+      err = cudaFuncSetAttribute(flash_nr_fwd_bf16_kernel<true>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM);
+      if (err == cudaSuccess)
+        err = cudaFuncSetAttribute(flash_nr_fwd_bf16_kernel<false>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM);
+      if (err != cudaSuccess) return (int)err;
+      attr = true;
+    }
+    err = launch_kn_prep(kb, ks, cs, sn, cs_bstride, knb, B, S, H, st, st_);
     if (err != cudaSuccess) return (int)err;
+    (seg ? flash_nr_fwd_bf16_kernel<true> : flash_nr_fwd_bf16_kernel<false>)<<<
+        dim3((S + W_BQ - 1) / W_BQ, H, B), W_THREADS, W_SMEM, st_>>>(
+        kn_map, v_map, qb, qs, cs, sn, cs_bstride, static_cast<const int*>(seg),
+        static_cast<bf16*>(out), static_cast<float*>(lse), S, H, st, scale);
+    return (int)cudaGetLastError();
   }
-  const dim3 grid((S + BQ - 1) / BQ, H, B);
-  kernel<<<grid, NTHREADS, smem, st_>>>(
-      qb, kb, static_cast<const bf16*>(v), qs, ks, cs, sn, cs_bstride,
-      static_cast<const int*>(seg), static_cast<const int8_t*>(kq),
-      static_cast<const unsigned*>(amax), q_rows, static_cast<bf16*>(out),
-      static_cast<float*>(lse), S, H, st, scale);
+  err = cudaFuncSetAttribute(flash_nr_fwd_int8_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES_INT8);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_int8_prep(qb, kb, nullptr, nullptr, qs, ks, cs, sn, cs_bstride, nullptr, knb,
+                         nullptr, nullptr, static_cast<int8_t*>(kq), static_cast<unsigned*>(amax),
+                         q_rows, B, S, H, st, st_);
+  if (err != cudaSuccess) return (int)err;
+  flash_nr_fwd_int8_kernel<<<dim3((S + BQ - 1) / BQ, H, B), NTHREADS, SMEM_BYTES_INT8, st_>>>(
+      qb, static_cast<const bf16*>(v), qs, cs, sn, cs_bstride, static_cast<const int*>(seg),
+      static_cast<const int8_t*>(kq), static_cast<const unsigned*>(amax), q_rows,
+      static_cast<bf16*>(out), static_cast<float*>(lse), S, H, st, scale);
   return (int)cudaGetLastError();
+}
+
+// The bf16 mode's prep alone (kn from k), as qflux_flash_nr_fwd launches it: for
+// timing the prep apart from the main kernel.  Returns a cudaError_t.
+extern "C" int qflux_flash_nr_kn_prep(const void* k, const void* k_scale2, const void* cos,
+                                      const void* sin, long long cs_bstride, void* kn, int B,
+                                      int S, int H, int st, void* stream) {
+  return (int)launch_kn_prep(static_cast<const bf16*>(k), static_cast<const float*>(k_scale2),
+                             static_cast<const float*>(cos), static_cast<const float*>(sin),
+                             cs_bstride, static_cast<bf16*>(kn), B, S, H, st,
+                             static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* qflux_cuda_error_string(int code) {

@@ -1,0 +1,480 @@
+// The Hopper machinery the port's sm_90a kernels share (K6a int4_fwd.cu, K6b
+// int4_bwd.cu, K1 flash_nr_fwd.cu in bf16, K4 flash_bwd.cu): mbarriers,
+// fences, named barriers and setmaxnreg; TMA tile loads and bulk copies into
+// shared memory; wgmma descriptors and the bf16 wgmma shapes the kernels use
+// (A from shared memory or from registers); and the tensor-map encoder
+// (libcuda's cuTensorMapEncodeTiled, taken through cudaGetDriverEntryPoint, so
+// the library needs no -lcuda) with a cache of encoded maps.  Each translation
+// unit gets its own copy (anonymous namespace), as with common.cuh.
+//
+// Shared-memory tile layout of every TMA load here: 128-byte rows (64 bf16),
+// 8-row swizzle atoms of 1024 bytes, 16-byte chunk c of row r stored at chunk
+// c ^ (r & 7) (CU_TENSOR_MAP_SWIZZLE_128B; tile bases 1024-aligned).  A
+// [R, 128] bf16 tile is two such [R, 64] halves, R * 128 bytes apart.  wgmma
+// reads it
+//   * K-major (the contraction along the 128 columns: q·kᵀ's q and k):
+//     descriptor at half (kk / 4) + (kk % 4) * 32 bytes for k16 step kk,
+//     SBO = 1024 (the 8-row groups), layout 1 (128-byte swizzle);
+//   * MN-major (the contraction along the rows: p·v's v): descriptor at
+//     kk * 2048 bytes (16 rows) for k16 step kk, LBO = R * 128 (the second
+//     64-column half), SBO = 1024, layout 1, transposed B.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <mutex>
+
+#include "common.cuh"
+
+namespace {
+
+// ---------------------------------------------------------------------------
+// shared-memory addresses, mbarriers, fences
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// Out of line on purpose: a trap inlined into the code after setmaxnreg.inc
+// makes ptxas compile that code within the launch bound's share (168 registers
+// a thread at 384 threads) instead of the granted budget, and it spills and
+// serializes the wgmmas (ptxas C7512).
+__device__ __noinline__ void mbar_timeout() { __trap(); }
+
+// spins until the phase of parity `parity` has completed; traps (a launch
+// error instead of a hung card) if it never does
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done, polls = 0;
+  do {
+    if (++polls == (1u << 30)) mbar_timeout();
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void fence_barrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// generic-proxy stores to shared memory become visible to the async proxy (wgmma)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// the two consumer warpgroups (256 threads) meet; id 0 is __syncthreads'
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// the 128 threads of consumer warpgroup c (0 or 1) meet, on named barrier 2 + c
+__device__ __forceinline__ void warpgroup_sync(int c) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + c) : "memory");
+}
+
+// Moves registers between warpgroups at run time; ptxas compiles the code after
+// each call within its budget (ptxas -v still reports the launch bound's share,
+// 65536 / 384 = 168 for a 384-thread block), provided no trap is inlined there
+// (mbar_timeout).
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// the first 1024-byte boundary at or after p (the 128-byte swizzle's atoms
+// start there)
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// ---------------------------------------------------------------------------
+// asynchronous copies, completed on an mbarrier by transaction bytes
+
+// a 2-D tile of the tensor map at (c0 innermost, c1), rows past the tensor zero-filled
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                           int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// a 4-D tile at (c0 innermost, c1, c2, c3); elements past any dimension zero-filled
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                           int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned)
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// wgmma
+
+// A shared-memory matrix descriptor.  layout: 1 = 128-byte swizzle, 2 = 64-byte.
+// The tile's swizzle atoms (8 rows of 128 or 64 bytes) must start on a multiple
+// of their size (base offset 0); moving along K inside a swizzled row adds the
+// byte offset to the start address, as CUTLASS's descriptor iterator does.
+//   K-major (rows of the contraction): sbo = the stride between 8-row groups,
+//   lbo unused (16).  MN-major, 128-byte swizzle (rows of 64 MN elements, one
+//   row per k): lbo = the stride between 64-element MN chunks, sbo = the stride
+//   between groups of 8 k.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                               uint32_t layout) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)layout << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accesses of the accumulators across a wait
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int R>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// d[64 x 128] (+)= A[64 x 16] * B[16 x 128], bf16 in, f32 accumulators; A K-major,
+// B K-major (TRANS_B = 0) or MN-major (1); acc = 0 overwrites d (d = A * B),
+// acc = 1 accumulates.  Accumulator layout for thread 32 w + 4 g + t of the
+// warpgroup: d[4 j + 0..1] = (row 16 w + g, cols 8 j + 2 t, + 1), d[4 j + 2..3] =
+// (row 16 w + g + 8, the same cols).
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db,
+                                                 int acc = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %67, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, %66;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "n"(TRANS_B), "r"(acc)
+      : "memory");
+}
+
+// d[64 x 64] (+)= A[64 x 16] * B[16 x 64], A and B K-major from shared memory,
+// acc as above.  The accumulator layout of the 128-column shape over 8 column
+// tiles
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                                   int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc)
+      : "memory");
+}
+
+// d[64 x 128] += A[64 x 16] * B[16 x 128] with A from registers (a[0..3]: the
+// m16n8k16 A fragment of rows 16 w .. 16 w + 15 for warp w of the warpgroup:
+// (row g, k 2t..), (row g + 8, k 2t..), (row g, k 2t + 8..), (row g + 8,
+// k 2t + 8..), bf16 pairs) and B MN-major from shared memory (transposed)
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                    uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
+
+// The softmax works in log2 units: exp(x * scale - m) is 2^(x * scale * LOG2E -
+// m * LOG2E), one fused multiply-add and ex2.approx (what __expf runs after its
+// own multiply) per score.
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ float ex2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the wgmma A fragments (bf16 pairs, rounded to nearest even) of a 64 x 2R f32
+// accumulator, one per 16 columns: the accumulator's columns become the
+// contraction of the next product
+template <int R>
+__device__ __forceinline__ void to_a_frags(const float (&x)[R], uint32_t (&a)[R / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < R / 8; ++kk) {
+    a[kk][0] = pack_bf16(x[8 * kk], x[8 * kk + 1]);
+    a[kk][1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
+    a[kk][2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
+    a[kk][3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
+  }
+}
+
+// descriptors of the tile layout above (base 1024-aligned, R rows)
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int rows, int row0, int kk) {
+  return wgmma_desc(tile + (kk >> 2) * rows * 128 + row0 * 128 + (kk & 3) * 32, 16, 1024, 1);
+}
+
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int rows, int kk) {
+  return wgmma_desc(tile + kk * 2048, rows * 128, 1024, 1);
+}
+
+// byte offset of element (row, col) of a [rows, 128] bf16 tile in that layout
+__device__ __forceinline__ uint32_t swz_offset(int rows, int row, int col) {
+  return (col >> 6) * rows * 128 + row * 128 + ((((col >> 3) & 7) ^ (row & 7)) << 4) +
+         (col & 7) * 2;
+}
+
+// this warp's 16 rows of a 64 x 128 f32 accumulator (wgmma layout), each times
+// mul[row half], as bf16 to rows grow0 .. grow0 + 15 of one head (row stride
+// rs; rows >= n skipped), staged in the warp's own rows trow0 .. trow0 + 15 of
+// the swizzled [rows, 128] smem tile `tile` for 16-byte coalesced stores
+__device__ __forceinline__ void store_rows_wg(const float (&acc)[64], const float (&mul)[2],
+                                              uint8_t* tile, int rows, int trow0,
+                                              bf16* __restrict__ dst, int rs, int grow0, int n) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<uint32_t*>(tile + swz_offset(rows, trow0 + g + 8 * i, 8 * j + 2 * t)) =
+          pack_bf16(acc[4 * j + 2 * i] * mul[i], acc[4 * j + 2 * i + 1] * mul[i]);
+  __syncwarp();
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    const int idx = jj * 32 + lane, r = idx >> 4, cc = idx & 15;
+    if (grow0 + r < n)
+      *reinterpret_cast<uint4*>(dst + (size_t)(grow0 + r) * rs + cc * 8) =
+          *reinterpret_cast<const uint4*>(tile + swz_offset(rows, trow0 + r, cc * 8));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// tensor maps (host)
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled_fn() {
+  static EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
+                                         &res) != cudaSuccess ||
+        res != cudaDriverEntryPointSuccess)
+      p = nullptr;
+#else
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res) !=
+            cudaSuccess ||
+        res != cudaDriverEntryPointSuccess)
+      p = nullptr;
+#endif
+    return reinterpret_cast<EncodeTiledFn>(p);
+  }();
+  return fn;
+}
+
+// A tensor of `rank` (<= 4) dimensions, dims[0] innermost and contiguous,
+// strides[i] the byte stride of dims[i + 1], read in boxes of box[0..rank);
+// false if the encoder refuses it.  Encoded through a small direct-mapped cache
+// keyed by everything the map encodes, so a call costs no more host time than
+// a plain launch: a frozen weight's map is encoded once, an activation's
+// whenever its buffer moves.  A map is a pure function of its key, so a hit is
+// always right.
+inline bool encode_cached(CUtensorMap* map, CUtensorMapDataType type, const void* ptr, int rank,
+                          const uint64_t* dims, const uint64_t* strides, const uint32_t* box,
+                          CUtensorMapSwizzle swizzle) {
+  struct Entry {
+    const void* ptr;
+    uint64_t dims[4], strides[3];
+    uint32_t box[4];
+    int rank, type, swizzle;
+    bool valid;
+    CUtensorMap map;
+  };
+  constexpr int SLOTS = 1024;
+  static Entry cache[SLOTS];
+  static std::mutex mu;
+  Entry key{};
+  key.ptr = ptr;
+  key.rank = rank;
+  key.type = (int)type;
+  key.swizzle = (int)swizzle;
+  uint64_t h = (reinterpret_cast<uint64_t>(ptr) >> 8) ^ (uint64_t)type ^ ((uint64_t)rank << 56);
+  for (int i = 0; i < rank; ++i) {
+    key.dims[i] = dims[i];
+    key.box[i] = box[i];
+    h = h * 0x9E3779B97F4A7C15ull ^ dims[i] ^ ((uint64_t)box[i] << 40);
+    if (i + 1 < rank) key.strides[i] = strides[i];
+  }
+  auto same = [&](const Entry& e) {
+    if (!e.valid || e.ptr != ptr || e.rank != rank || e.type != key.type ||
+        e.swizzle != key.swizzle)
+      return false;
+    for (int i = 0; i < rank; ++i)
+      if (e.dims[i] != key.dims[i] || e.box[i] != key.box[i] ||
+          (i + 1 < rank && e.strides[i] != key.strides[i]))
+        return false;
+    return true;
+  };
+  std::lock_guard<std::mutex> lock(mu);
+  Entry& e = cache[(h ^ (h >> 29)) % SLOTS];
+  if (same(e)) {
+    *map = e.map;
+    return true;
+  }
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (!fn) return false;
+  cuuint64_t gd[4], gs[3];
+  cuuint32_t bx[4], es[4];
+  for (int i = 0; i < rank; ++i) {
+    gd[i] = dims[i];
+    bx[i] = box[i];
+    es[i] = 1;
+    if (i + 1 < rank) gs[i] = strides[i];
+  }
+  if (fn(map, type, rank, const_cast<void*>(ptr), gd, gs, bx, es, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  key.valid = true;
+  key.map = *map;
+  e = key;
+  return true;
+}
+
+// a row-major [rows, cols] tensor of `elem` bytes at `ptr`, read in boxes of
+// box_rows x box_cols
+inline bool encode_2d_cached(CUtensorMap* map, CUtensorMapDataType type, int elem,
+                             const void* ptr, uint64_t rows, uint64_t cols, uint32_t box_rows,
+                             uint32_t box_cols, CUtensorMapSwizzle swizzle) {
+  const uint64_t dims[2] = {cols, rows};
+  const uint64_t strides[1] = {cols * (uint64_t)elem};
+  const uint32_t box[2] = {box_cols, box_rows};
+  return encode_cached(map, type, ptr, 2, dims, strides, box, swizzle);
+}
+
+// one head's rows of a [B, S, H, 128] bf16 tensor, read in [box_rows, 64] boxes
+// with the 128-byte swizzle (coordinates: column 0 or 64, h, s, b); rows past S
+// of each sample are zero-filled
+inline bool encode_heads(CUtensorMap* map, const void* ptr, int B, int S, int H,
+                         uint32_t box_rows) {
+  const uint64_t dims[4] = {128, (uint64_t)H, (uint64_t)S, (uint64_t)B};
+  const uint64_t strides[3] = {256, 256ull * H, 256ull * H * S};
+  const uint32_t box[4] = {64, 1, box_rows, 1};
+  return encode_cached(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, 4, dims, strides, box,
+                       CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+}  // namespace

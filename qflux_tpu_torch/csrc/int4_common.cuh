@@ -1,10 +1,7 @@
-// The Hopper machinery K6a (int4_fwd.cu) and K6b (int4_bwd.cu) share: mbarriers,
-// TMA tile loads and bulk copies into shared memory, wgmma descriptors and the
-// m64n128k16 bf16 wgmma, the nibble dequantization, the epilogue with its
-// split-K reduction, and the tensor-map encoder (libcuda's
-// cuTensorMapEncodeTiled, taken through cudaGetDriverEntryPoint, so the library
-// needs no -lcuda).  Each translation unit gets its own copy (anonymous
-// namespace), as with common.cuh.
+// What K6a (int4_fwd.cu) and K6b (int4_bwd.cu) share beyond the Hopper
+// machinery of hopper.cuh (mbarriers, TMA, wgmma, setmaxnreg, tensor maps): the
+// nibble dequantization and the epilogue with its split-K reduction.  Each
+// translation unit gets its own copy (anonymous namespace), as with common.cuh.
 //
 // The pipeline both kernels run (384 threads, one block per SM):
 //   * warpgroup 0 is the producer: one thread keeps STAGES stages of raw tiles
@@ -26,172 +23,9 @@
 
 #pragma once
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <mutex>
+#include "hopper.cuh"
 
 namespace {
-
-// ---------------------------------------------------------------------------
-// shared-memory addresses, mbarriers, fences
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-
-// spins until the phase of parity `parity` has completed; traps (a launch
-// error instead of a hung card) if it never does
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done, polls = 0;
-  do {
-    if (++polls == (1u << 30)) __trap();
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void fence_barrier_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// generic-proxy stores to shared memory become visible to the async proxy (wgmma)
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// the two consumer warpgroups (256 threads) meet; id 0 is __syncthreads'
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, 256;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-
-template <int N>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-
-// ---------------------------------------------------------------------------
-// asynchronous copies, completed on an mbarrier by transaction bytes
-
-// a 2-D tile of the tensor map at (c0 innermost, c1), rows past the tensor zero-filled
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                           int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// `bytes` contiguous bytes (a multiple of 16, both ends 16-byte aligned)
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
-// ---------------------------------------------------------------------------
-// wgmma
-
-// A shared-memory matrix descriptor.  layout: 1 = 128-byte swizzle, 2 = 64-byte.
-// The tile's swizzle atoms (8 rows of 128 or 64 bytes) must start on a multiple
-// of their size (base offset 0); moving along K inside a swizzled row adds the
-// byte offset to the start address, as CUTLASS's descriptor iterator does.
-//   K-major (rows of the contraction): sbo = the stride between 8-row groups,
-//   lbo unused (16).  MN-major, 128-byte swizzle (rows of 64 MN elements, one
-//   row per k): lbo = the stride between 64-element MN chunks, sbo = the stride
-//   between groups of 8 k.
-__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
-                                               uint32_t layout) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)layout << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from moving accesses of the accumulators across a wait
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d[64 x 128] += A[64 x 16] * B[16 x 128], bf16 in, f32 accumulators; A K-major,
-// B K-major (TRANS_B = 0) or MN-major (1).  Accumulator layout for thread
-// 32 w + 4 g + t of the warpgroup: d[4 j + 0..1] = (row 16 w + g, cols 8 j + 2 t,
-// + 1), d[4 j + 2..3] = (row 16 w + g + 8, the same cols).
-template <int TRANS_B>
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %67, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, %66;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "n"(TRANS_B), "r"(1)
-      : "memory");
-}
 
 // ---------------------------------------------------------------------------
 // the nibble dequantization
@@ -299,82 +133,6 @@ cudaError_t splitk_reduce(Kernel kernel, const float* ws, void* out, long long n
   kernel<<<(unsigned)((n4 + threads - 1) / threads), threads, 0, stream>>>(ws, out, n4, splits,
                                                                           out_f32);
   return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// tensor maps (host)
-
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-inline EncodeTiledFn encode_tiled_fn() {
-  static EncodeTiledFn fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &res) != cudaSuccess ||
-        res != cudaDriverEntryPointSuccess)
-      p = nullptr;
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res) !=
-            cudaSuccess ||
-        res != cudaDriverEntryPointSuccess)
-      p = nullptr;
-#endif
-    return reinterpret_cast<EncodeTiledFn>(p);
-  }();
-  return fn;
-}
-
-// a row-major [rows, cols] tensor of `elem` bytes at `ptr`, read in boxes of
-// box_rows x box_cols; false if the encoder refuses it
-inline bool encode_2d(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* ptr,
-                      uint64_t rows, uint64_t cols, uint32_t box_rows, uint32_t box_cols,
-                      CUtensorMapSwizzle swizzle) {
-  EncodeTiledFn fn = encode_tiled_fn();
-  if (!fn) return false;
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * (uint64_t)elem};
-  const cuuint32_t box[2] = {box_cols, box_rows};
-  const cuuint32_t estr[2] = {1, 1};
-  return fn(map, type, 2, const_cast<void*>(ptr), dims, strides, box, estr,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// encode_2d through a small direct-mapped cache keyed by everything the map
-// encodes, so a call costs no more host time than the launch it replaced: a
-// frozen weight's map is encoded once, an activation's whenever its buffer
-// moves.  A map is a pure function of its key, so a hit is always right.
-inline bool encode_2d_cached(CUtensorMap* map, CUtensorMapDataType type, int elem,
-                             const void* ptr, uint64_t rows, uint64_t cols, uint32_t box_rows,
-                             uint32_t box_cols, CUtensorMapSwizzle swizzle) {
-  struct Entry {
-    const void* ptr;
-    uint64_t rows, cols;
-    uint32_t box_rows, box_cols;
-    int type, swizzle;
-    bool valid;
-    CUtensorMap map;
-  };
-  constexpr int SLOTS = 1024;
-  static Entry cache[SLOTS];
-  static std::mutex mu;
-  const uint64_t h = (reinterpret_cast<uint64_t>(ptr) >> 8) ^ (rows * 0x9E3779B97F4A7C15ull) ^
-                     (cols << 20) ^ ((uint64_t)box_rows << 40) ^ (uint64_t)type;
-  std::lock_guard<std::mutex> lock(mu);
-  Entry& e = cache[(h ^ (h >> 29)) % SLOTS];
-  if (e.valid && e.ptr == ptr && e.rows == rows && e.cols == cols && e.box_rows == box_rows &&
-      e.box_cols == box_cols && e.type == (int)type && e.swizzle == (int)swizzle) {
-    *map = e.map;
-    return true;
-  }
-  if (!encode_2d(map, type, elem, ptr, rows, cols, box_rows, box_cols, swizzle)) return false;
-  e = Entry{ptr, rows, cols, box_rows, box_cols, (int)type, (int)swizzle, true, *map};
-  return true;
 }
 
 }  // namespace

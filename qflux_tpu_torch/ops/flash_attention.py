@@ -171,13 +171,21 @@ def _flash_bwd_cuda(q, k, v, q_seg, kv_seg, out, lse, do, scale):
 
     from qflux_tpu_torch.runtime.build import load_library
 
-    kl = load_library()
+    return _launch_bwd(load_library(), torch.cuda.current_stream(q.device).cuda_stream, q, k,
+                       v, q_seg, kv_seg, out, lse, do, scale)
+
+
+def _launch_bwd(kl, stream, q, k, v, q_seg, kv_seg, out, lse, do, scale):
+    """The C call of `_flash_bwd_cuda` on checked arguments: allocates the
+    f32 delta scratch [B, H, Sq] and dq / dk / dv, launches through `kl` (a
+    runtime.build KernelLibrary) on `stream` and raises on a CUDA error."""
+    b, sq, h, _ = q.shape
     delta = torch.empty((b, h, sq), device=q.device, dtype=torch.float32)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     code = kl.lib.qflux_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(q_seg), _ptr(kv_seg), out.data_ptr(),
         lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), b, sq, sk, h, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+        dv.data_ptr(), b, sq, k.shape[1], h, float(scale), stream)
     kl.check(code, "flash_bwd launch")
     return dq, dk, dv
 

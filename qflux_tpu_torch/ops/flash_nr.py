@@ -383,32 +383,70 @@ def _check_rows(q_rows, multiple, what):
                          f"takes multiples of {multiple}")
 
 
+def _fwd_scratch(k, q_rows):
+    """K1's scratch on k's device: kn, the normed and roped k ([B, S, H, D]
+    in k's dtype), which both modes' prep writes; and the s_int8 mode's kq and
+    amax (`_int8_scratch`), else None."""
+    if not q_rows:
+        return torch.empty_like(k), None, None
+    return (torch.empty_like(k), *_int8_scratch(k, q_rows))
+
+
 def _flash_nr_cuda(q, k, v, q_scale2, k_scale2, cos, sin, st, segment_ids, scale, q_rows=0):
     """Launch K1 (csrc/flash_nr_fwd.cu) on CUDA tensors → (out, lse); raises
     on anything the kernel does not take (`_kernel_args`) and on a CUDA
-    error.  q_rows > 0: its s_int8 mode, the prep (k normed, roped and
-    quantized per (b, h); the largest |qn| of each `q_rows`-row tile) and
-    then the main kernel.  Counting is the caller's (`_flash_nr_fwd_op`)."""
+    error.  Both modes first run a prep that norms and ropes k once per (b,
+    h, row) into the scratch kn.  q_rows = 0: the bf16 mode, then the wgmma
+    kernel.  q_rows > 0: the s_int8 mode, whose prep also quantizes k per
+    (b, h) and reduces the largest |qn| of each `q_rows`-row tile, then its
+    kernel.  Counting is the caller's (`_flash_nr_fwd_op`)."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_nr: the kernel runs on CUDA tensors, got {q.device}")
     _check_rows(q_rows, 128, "")
     qs, ks, cs_bstride, seg = _kernel_args(q, k, v, q_scale2, k_scale2, cos, sin, segment_ids)
+
+    from qflux_tpu_torch.runtime.build import load_library
+
+    return _launch_fwd(load_library(), torch.cuda.current_stream(q.device).cuda_stream, q, k,
+                       v, qs, ks, cos, sin, cs_bstride, seg, st, scale, q_rows)
+
+
+def _launch_fwd(kl, stream, q, k, v, qs, ks, cos, sin, cs_bstride, seg, st, scale, q_rows):
+    """The C call of `_flash_nr_cuda` on checked arguments (`_kernel_args`'
+    f32 scale pairs, cos / sin batch stride and int32 ids): allocates out,
+    lse and the scratch, launches through `kl` (a runtime.build
+    KernelLibrary) on `stream` and raises on a CUDA error."""
     b, s, h, _ = q.shape
+    kn, kq, amax = _fwd_scratch(k, q_rows)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, s), device=q.device, dtype=torch.float32)
+    code = kl.lib.qflux_flash_nr_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), qs.data_ptr(), ks.data_ptr(),
+        cos.data_ptr(), sin.data_ptr(), cs_bstride, _ptr(seg), kn.data_ptr(), _ptr(kq),
+        _ptr(amax), int(q_rows), out.data_ptr(), lse.data_ptr(), b, s, h, int(st),
+        float(scale), stream)
+    kl.check(code, "flash_nr_fwd launch")
+    return out, lse
+
+
+def _kn_prep_cuda(k, k_scale2, cos, sin, st):
+    """The bf16 mode's prep alone, as K1 launches it (for timing it apart
+    from the main kernel in tests and the smoke): kn, the normed and roped
+    k."""
+    if k.device.type != "cuda":
+        raise ValueError(f"flash_attention_nr: the kernel runs on CUDA tensors, got {k.device}")
+    _, ks, cs_bstride, _ = _kernel_args(k, k, k, k_scale2, k_scale2, cos, sin, None)
+    b, s, h, _ = k.shape
 
     from qflux_tpu_torch.runtime.build import load_library
 
     kl = load_library()
-    kn, kq, amax = (None, None, None) if not q_rows else (
-        torch.empty_like(k), *_int8_scratch(k, q_rows))  # scratch: normed + roped k
-    out = torch.empty_like(q)
-    lse = torch.empty((b, h, s), device=q.device, dtype=torch.float32)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    code = kl.lib.qflux_flash_nr_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), qs.data_ptr(), ks.data_ptr(),
-        cos.data_ptr(), sin.data_ptr(), cs_bstride, _ptr(seg), _ptr(kn), _ptr(kq), _ptr(amax),
-        int(q_rows), out.data_ptr(), lse.data_ptr(), b, s, h, int(st), float(scale), stream)
-    kl.check(code, "flash_nr_fwd launch")
-    return out, lse
+    kn = torch.empty_like(k)
+    code = kl.lib.qflux_flash_nr_kn_prep(k.data_ptr(), ks.data_ptr(), cos.data_ptr(),
+                                         sin.data_ptr(), cs_bstride, kn.data_ptr(), b, s, h,
+                                         int(st), torch.cuda.current_stream(k.device).cuda_stream)
+    kl.check(code, "flash_nr_kn_prep launch")
+    return kn
 
 
 def _ptr(t):

@@ -862,3 +862,100 @@ def test_qwen_two_blocks_at_832x576_run_k3_k4_on_card():
     merge_lora(model, None)
     assert torch.equal(grads["flash"], grads["flash_offload"])
     assert bool(grads["flash"].abs().sum() > 0)
+
+
+# The redesigned bf16 K1 (kn prep + wgmma over a TMA ring) and K4 (wgmma dk/dv
+# and dq kernels over TMA rings): ragged S, fully masked rows, Sq != Sk with
+# text padding, and two calls identical to the bit
+
+def _k1_segments(b, s, st):
+    """Sample 0: padding from 4 s / 5 (fully masked rows); sample 1: a second
+    segment from max(st, 1)."""
+    seg = np.ones((b, s), np.int32)
+    seg[0, 4 * s // 5:] = 0
+    seg[1, max(st, 1):] = 2
+    return torch.from_numpy(seg).cuda()
+
+
+@pytest.mark.parametrize("s", [77, 2304, 4000])
+@pytest.mark.parametrize("st_at", ["zero", "inside"])
+def test_k1_bf16_ragged_and_masked_on_card(s, st_at):
+    """K1's bf16 mode at B = 2 and S not a multiple of its 128-row q or
+    64-key tiles, with st at 0 and inside S: out within 4 bf16 ulps at
+    magnitude 1 (1.6e-2), lse within 1e-4, the fully masked rows at 0 with
+    lse = -1e30, and a second call identical to the bit."""
+    st = 0 if st_at == "zero" else s // 3
+    args = _inputs(31 + s, s)
+    seg = _k1_segments(B, s, st)
+    out, lse = tnr._flash_nr_cuda(*args, st, seg, D ** -0.5)
+    out2, lse2 = tnr._flash_nr_cuda(*args, st, seg, D ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    ref, ref_lse = tnr.flash_attention_nr_reference(*args, st, segment_ids=seg)
+    assert (out.float() - ref.float()).abs().max().item() <= 1.6e-2
+    valid = ref_lse > -1e29
+    assert (lse - ref_lse).abs()[valid].max().item() <= 1e-4
+    assert bool((lse[~valid] == -1e30).all())
+    assert not out[0, 4 * s // 5:].any() and bool(out[0, :4 * s // 5].any())
+
+
+def test_k1_kn_prep_is_the_s_int8_preps_kn_on_card():
+    """The bf16 mode's prep writes kn with the s_int8 prep's cast chain: the
+    two normed and roped k are identical to the bit (both modes'
+    `norm_rope_row`)."""
+    q, k, _, qs2, ks2, cos, sin = _inputs(41, 300)
+    kn = tnr._kn_prep_cuda(k, ks2, cos, sin, ST)
+    _, kn8, *_ = tnr._int8_operands_cuda(q, k, qs2, ks2, cos, sin, ST, 128)
+    torch.cuda.synchronize()
+    assert torch.equal(kn, kn8)
+
+
+def test_k1_s_int8_deterministic_and_apart_from_bf16_on_card():
+    """K1's s_int8 mode (its own kernel, not redesigned) gives the same bits
+    on two calls, and the bf16 mode on the same inputs stays within the
+    int8 scores' error of it."""
+    args = _int8_inputs(42, 1024)
+    fwd_rows, _ = tnr.s_int8_tiles(1024, D)
+    out, lse = tnr._flash_nr_cuda(*args, 256, None, D ** -0.5, fwd_rows)
+    out2, lse2 = tnr._flash_nr_cuda(*args, 256, None, D ** -0.5, fwd_rows)
+    bf, _ = tnr._flash_nr_cuda(*args, 256, None, D ** -0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    assert _rel(out, bf) <= INT8_FWD_REL
+
+
+K4_TEXT_CASES = [(300, 520), (520, 300), (2304, 2304)]
+
+
+@pytest.mark.parametrize("sq,sk", K4_TEXT_CASES)
+def test_k4_text_padding_sq_ne_sk_on_card(sq, sk):
+    """K4 with Qwen's text padding (tokens 230..255 of q and of k segment 0)
+    at Sq != Sk and at path C's S, nonzero do on every row: relative L2
+    1.5e-2 and max 2e-2 x max|ref| per gradient against the plain formula,
+    the padded rows' dq / dk / dv exactly 0, a second call identical to the
+    bit."""
+    from qflux_tpu_torch.ops import flash_attention as tfa
+
+    rng = np.random.default_rng(sq + 7 * sk)
+    q = torch.from_numpy(rng.standard_normal((B, sq, H, D)).astype(np.float32)).cuda()
+    k, v = (torch.from_numpy(rng.standard_normal((B, sk, H, D)).astype(np.float32)).cuda()
+            for _ in range(2))
+    q, k, v = (t.to(torch.bfloat16) for t in (q, k, v))
+    q_seg = torch.ones(B, sq, dtype=torch.int32, device="cuda")
+    kv_seg = torch.ones(B, sk, dtype=torch.int32, device="cuda")
+    q_seg[:, 230:256] = 0
+    kv_seg[:, 230:256] = 0
+    scale = D ** -0.5
+    out, lse = tfa._flash_fwd_cuda(q, k, v, q_seg, kv_seg, scale)
+    do = torch.randn(q.shape, device="cuda").to(torch.bfloat16)
+    got = tfa._flash_bwd_cuda(q, k, v, q_seg, kv_seg, out, lse, do, scale)
+    again = tfa._flash_bwd_cuda(q, k, v, q_seg, kv_seg, out, lse, do, scale)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = tfa.flash_bwd_reference(q, k, v, q_seg, kv_seg, out, lse, do, scale)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape
+        assert _rel(g, w) <= 1.5e-2
+        assert (g.float() - w).abs().max().item() <= 2e-2 * w.abs().max().item()
+    assert not got[0][:, 230:256].any()
+    assert not got[1][:, 230:256].any() and not got[2][:, 230:256].any()
