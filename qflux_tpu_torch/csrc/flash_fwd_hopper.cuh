@@ -1,0 +1,337 @@
+// The Hopper flash-attention forward main loop that K1's bf16 mode
+// (flash_nr_fwd.cu, flash_nr_fwd_bf16_kernel) and K3 (flash_fwd.cu,
+// flash_fwd_kernel) share.  Each kernel is a thin __global__ wrapper around
+// attn_fwd_body<SEG, NORM_Q>; the body is inlined into it, so the two keep
+// their names (and their profile groups) and compile to the same loop.
+//
+// Block (q tile of 128 rows, h, b), 384 threads.  Warpgroup 0 is the producer:
+// its first warp keeps STAGES (k, v) tile pairs of 128 keys in flight by TMA
+// (keys past Sk zero-filled), each operand on a `full` mbarrier, and writes
+// the keys' segment ids beside them (keys past Sk: 0; no ids: 1); each operand
+// is freed by its own `empty` mbarrier (one arrival per consumer warp): k once
+// its scores and ids are read, v once its P V is done.  Warpgroups 1 and 2
+// each own 64 q rows, which arrive in the swizzled layout wgmma reads:
+//   * NORM_Q (K1): the consumers norm and rope their raw q rows once, with K1's
+//     cast chain (norm_rope4), straight into the tile;
+//   * else (K3): the producer loads the already normed and roped q tile by TMA
+//     before the first k tile, on its own mbarrier.
+// Then per K/V tile: S = q k^T (wgmma m64n128k16, both operands in shared
+// memory, k K-major), the online softmax on the accumulator registers (a
+// masked score is exactly -1e30 and gets p = 0; p rounded to bf16,
+// unnormalised; exp in log2 units: one fused multiply-add and ex2.approx a
+// score, the running max kept in raw-score units), and O += P V (m64n128k16,
+// P as the register A operand, V an MN-major B); the sum is divided by l at
+// the end, and a row with no key of its own segment writes 0 and lse = -1e30.
+// Within a warpgroup, tile i's softmax runs while tile i - 1's P V is in the
+// tensor cores.  SEG: segment ids given (q_seg [B, Sq], kv_seg [B, Sk], which
+// K1 passes as one [B, S] array twice), else every key below Sk attends and
+// only a tile past Sk is masked.
+//
+// Registers: setmaxnreg gives the consumers 240 a thread (the 64 of the score
+// accumulator, the 64 of O and P's 32 fit) and the producer 24; the mbarrier
+// wait's trap is out of line (hopper.cuh's mbar_timeout says why).
+
+#pragma once
+
+#include "flash_nr_common.cuh"
+#include "hopper.cuh"
+
+namespace {
+namespace fwd_wg {
+
+constexpr int BQ = 128;       // q rows of a block: 64 per consumer warpgroup
+constexpr int BK = 128;       // keys of a K/V tile
+constexpr int STAGES = 2;     // K/V tiles in flight
+constexpr int THREADS = 384;  // producer warpgroup + two consumer warpgroups
+constexpr int TILE = BK * D * 2;  // bytes of one [BK, 128] bf16 tile
+constexpr int Q_OFF = 0;                            // the block's q tile
+constexpr int K_OFF = Q_OFF + BQ * D * 2;           // STAGES k tiles
+constexpr int V_OFF = K_OFF + STAGES * TILE;        // STAGES v tiles
+constexpr int SEG_OFF = V_OFF + STAGES * TILE;      // STAGES x BK key ids
+constexpr int BAR_OFF = SEG_OFF + STAGES * BK * 4;  // 4 x STAGES ring barriers, then q's
+constexpr int SMEM = BAR_OFF + (4 * STAGES + 1) * 8 + 1024;  // + slack to align to 1024
+static_assert(SMEM <= 232448, "shared memory of one block");
+constexpr float NEG_INF = -1e30f;
+
+// K1's raw q and what norms and ropes it (unused by K3)
+struct RawQ {
+  const bf16* q;
+  const float* q_scale2;  // [2, D]: row 0 below st, row 1 from st
+  const float* cos;
+  const float* sin;
+  long long cs_bstride;
+  int st;
+};
+
+// q_map: K3's normed q over [B, Sq, H, 128] in [BQ, 64] boxes (unused by K1);
+// k_map / v_map over [B, Sk, H, 128] in [BK, 64] boxes.  out [B, Sq, H, D]
+// bf16, lse [B, H, Sq] f32.
+template <bool SEG, bool NORM_Q>
+__device__ __forceinline__ void attn_fwd_body(const CUtensorMap& q_map, const CUtensorMap& k_map,
+                                              const CUtensorMap& v_map, const RawQ& rq,
+                                              const int* __restrict__ q_seg,
+                                              const int* __restrict__ kv_seg,
+                                              bf16* __restrict__ out, float* __restrict__ lse,
+                                              int Sq, int Sk, int H, float scale) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align1024(smem_raw);
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(smem + BAR_OFF);
+  uint64_t* full_v = full_k + STAGES;
+  uint64_t* empty_k = full_v + STAGES;
+  uint64_t* empty_v = empty_k + STAGES;
+  uint64_t* full_q = empty_v + STAGES;
+  int* segk = reinterpret_cast<int*>(smem + SEG_OFF);
+
+  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * BQ;
+  const int ntiles = (Sk + BK - 1) / BK;
+  const int* qsegb = q_seg ? q_seg + (size_t)b * Sq : nullptr;
+  const int* ksegb = kv_seg ? kv_seg + (size_t)b * Sk : nullptr;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full_k[s], 1 + 32);  // the expect_tx, and each producer lane's ids
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_k[s], 8);      // one arrival per consumer warp
+      mbar_init(&empty_v[s], 8);
+    }
+    if constexpr (!NORM_Q) mbar_init(full_q, 1);
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ---- producer
+    setmaxnreg_dec<24>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if constexpr (!NORM_Q) {
+        if (lane == 0) {
+          mbar_expect_tx(full_q, BQ * D * 2);
+          tma_load_4d(smem + Q_OFF, &q_map, full_q, 0, h, q0, b);
+          tma_load_4d(smem + Q_OFF + BQ * 128, &q_map, full_q, 64, h, q0, b);
+        }
+      }
+      for (int i = 0; i < ntiles; ++i) {
+        const int s = i % STAGES, k0 = i * BK;
+        const uint32_t ph = ((i / STAGES) - 1) & 1;
+        // k tile i once the scores of tile i - STAGES are in, v once its p v is
+        if (i >= STAGES) mbar_wait(&empty_k[s], ph);
+        if (lane == 0) {
+          uint8_t* kt = smem + K_OFF + s * TILE;
+          mbar_expect_tx(&full_k[s], TILE);
+          tma_load_4d(kt, &k_map, &full_k[s], 0, h, k0, b);
+          tma_load_4d(kt + TILE / 2, &k_map, &full_k[s], 64, h, k0, b);
+        }
+        for (int j = lane; j < BK; j += 32) {
+          const int key = k0 + j;
+          segk[s * BK + j] = key < Sk ? (ksegb ? ksegb[key] : 1) : 0;
+        }
+        mbar_arrive(&full_k[s]);
+        if (i >= STAGES) mbar_wait(&empty_v[s], ph);
+        if (lane == 0) {
+          uint8_t* vt = smem + V_OFF + s * TILE;
+          mbar_expect_tx(&full_v[s], TILE);
+          tma_load_4d(vt, &v_map, &full_v[s], 0, h, k0, b);
+          tma_load_4d(vt + TILE / 2, &v_map, &full_v[s], 64, h, k0, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // ---- consumers
+  setmaxnreg_inc<240>();
+  const int c = wg - 1, wt = threadIdx.x - 128 * wg;
+  const int warp = wt >> 5, lane = wt & 31, g = lane >> 2, t = lane & 3;
+  const int rs = H * D;
+  const size_t head_off = ((size_t)b * Sq * H + h) * D;  // q / out rows of (b, h)
+  uint8_t* qs = smem + Q_OFF;
+  const int r0 = 64 * c + 16 * warp;  // this warp's first row of the q tile
+
+  if constexpr (NORM_Q) {
+    // the warp's 16 q rows, normed and roped once, in the layout wgmma reads
+    const float* cb = rq.cos + (size_t)b * rq.cs_bstride;
+    const float* sb = rq.sin + (size_t)b * rq.cs_bstride;
+#pragma unroll 4
+    for (int i = 0; i < 16; ++i) {
+      const int row = q0 + r0 + i;
+      uint2 y = make_uint2(0u, 0u);
+      if (row < Sq) {  // warp-uniform
+        float unused;
+        y = norm_rope4(rq.q + head_off + (size_t)row * rs,
+                       rq.q_scale2 + (row < rq.st ? 0 : D) + lane * 4, cb + (size_t)row * D,
+                       sb + (size_t)row * D, lane, unused);
+      }
+      *reinterpret_cast<uint2*>(qs + swz_offset(BQ, r0 + i, lane * 4)) = y;
+    }
+    fence_proxy_async();
+    warpgroup_sync(c);
+  } else {
+    mbar_wait(full_q, 0);
+  }
+
+  int segq[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = q0 + r0 + g + 8 * i;
+    segq[i] = row < Sq ? (qsegb ? qsegb[row] : 1) : 0;
+  }
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float o[64];
+#pragma unroll
+  for (int x = 0; x < 64; ++x) o[x] = 0.f;
+  const uint32_t qa = smem_u32(qs);
+
+  // Tile `it`'s scores into sc, issued as one wgmma group: sc[4 j + 2 i + e] is
+  // row r0 + g + 8 i, key 8 j + 2 t + e
+  float sc[BK / 2];
+  auto issue_scores = [&](int it) {
+    const int s = it % STAGES;
+    const uint32_t kt = smem_u32(smem + K_OFF + s * TILE);
+    mbar_wait(&full_k[s], (it / STAGES) & 1);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_m64n128k16<0>(sc, desc_kmajor(qa, BQ, 64 * c, kk), desc_kmajor(kt, BK, 0, kk),
+                          kk > 0);
+    wgmma_commit();
+  };
+  // o += p v of tile `it` (p, rounded to bf16, as the A fragments of keys 16 kk ..
+  // 16 kk + 15), issued as one wgmma group
+  uint32_t pf[BK / 16][4];
+  auto issue_pv = [&](int it) {
+    const int s = it % STAGES;
+    const uint32_t vt = smem_u32(smem + V_OFF + s * TILE);
+    mbar_wait(&full_v[s], (it / STAGES) & 1);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_m64n128k16_rs(o, pf[kk], desc_mnmajor(vt, BK, kk));
+    wgmma_commit();
+  };
+  // once tile `it`'s scores are in sc: turn them into p with the online-softmax
+  // rule, freeing the k tile and its ids once read (a masked score is exactly
+  // NEG_INF and gets p = 0), returning the row sums of p and the factors alpha
+  // for o and l
+  const float sl2 = scale * LOG2E;  // raw scores to log2 units
+  float alpha[2], psum[2];
+  auto softmax = [&](int it) {
+    fence_regs(sc);
+    const int* sk = segk + (it % STAGES) * BK;
+    float tmax[2] = {NEG_INF, NEG_INF};
+    // masking by id is needed with segment ids, else only in a tile past Sk
+    const bool masked = SEG || (it + 1) * BK > Sk;
+    if (masked) {
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int skv = sk[8 * j + 2 * t + e];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const bool ok = segq[i] != 0 && skv == segq[i];
+            const float val = ok ? sc[4 * j + 2 * i + e] : NEG_INF;
+            sc[4 * j + 2 * i + e] = val;
+            tmax[i] = fmaxf(tmax[i], val);
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int x = 0; x < BK / 2; ++x) tmax[(x >> 1) & 1] = fmaxf(tmax[(x >> 1) & 1], sc[x]);
+    }
+    __syncwarp();  // the tile's ids are read
+    if (lane == 0) mbar_arrive(&empty_k[it % STAGES]);
+    float msc[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 1));
+      tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 2));
+      const float m_new = fmaxf(m[i], tmax[i]);
+      alpha[i] = ex2_approx((m[i] - m_new) * sl2);
+      m[i] = m_new;
+      msc[i] = m_new * sl2;
+      psum[i] = 0.f;
+    }
+    if (masked) {
+#pragma unroll
+      for (int x = 0; x < BK / 2; ++x) {
+        const int i = (x >> 1) & 1;
+        const float p = sc[x] == NEG_INF ? 0.f : ex2_approx(fmaf(sc[x], sl2, -msc[i]));
+        psum[i] += p;
+        sc[x] = p;
+      }
+    } else {
+#pragma unroll
+      for (int x = 0; x < BK / 2; ++x) {
+        const int i = (x >> 1) & 1;
+        const float p = ex2_approx(fmaf(sc[x], sl2, -msc[i]));
+        psum[i] += p;
+        sc[x] = p;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 1);
+      psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 2);
+    }
+  };
+  // after tile it - 1's p v: free its v tile, rescale o and l, pack tile it's p
+  auto rescale_and_pack = [&](int it_done) {
+    fence_regs(o);
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) fence_regs(pf[kk]);
+    if (it_done >= 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty_v[it_done % STAGES]);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + psum[i];
+#pragma unroll
+    for (int x = 0; x < 64; ++x) o[x] *= alpha[(x >> 1) & 1];
+    to_a_frags(sc, pf);
+  };
+
+  // Software pipeline within the warpgroup: tile it's scores are issued with tile
+  // it - 1's p v behind them, so the softmax of tile it runs while p v is in the
+  // tensor cores.  The arithmetic is the plain loop's, in its order: o and l are
+  // rescaled by tile it's alpha after tile it - 1's p v has been added.
+  wgmma_fence();
+  issue_scores(0);
+  wgmma_wait<0>();
+  softmax(0);
+  rescale_and_pack(-1);
+#pragma unroll 1
+  for (int it = 1; it < ntiles; ++it) {
+    wgmma_fence();
+    issue_scores(it);
+    issue_pv(it - 1);
+    wgmma_wait<1>();
+    softmax(it);
+    wgmma_wait<0>();
+    rescale_and_pack(it - 1);
+  }
+  wgmma_fence();
+  issue_pv(ntiles - 1);
+  wgmma_wait<0>();
+  fence_regs(o);
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk) fence_regs(pf[kk]);
+
+  // epilogue: normalise, round to bf16, stage in the warp's own q rows
+  float inv[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) inv[i] = 1.f / (l[i] == 0.f ? 1.f : l[i]);
+  store_rows_wg(o, inv, qs, BQ, r0, out + head_off, rs, q0 + r0, Sq);
+  if (t == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = q0 + r0 + g + 8 * i;
+      if (row < Sq)
+        lse[((size_t)b * H + h) * Sq + row] =
+            m[i] == NEG_INF ? NEG_INF : m[i] * scale + logf(l[i] == 0.f ? 1.f : l[i]);
+    }
+  }
+}
+
+}  // namespace fwd_wg
+}  // namespace

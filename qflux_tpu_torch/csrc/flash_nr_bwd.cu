@@ -23,43 +23,53 @@
 //
 //   1. prep: one warp per (b, s, h) row norms and ropes q and k into scratch qn / kn
 //      (bf16, the values K1 kept in registers) and writes delta;
-//   2. dkv:  one block per 64-key tile of a head; four warps of 16 keys loop over all
-//      q tiles, accumulate dv and dkn in registers, and finish the k side (rope and
-//      norm backward, the block's scale-gradient partial) in their epilogue;
-//   3. dq:   one block per 64-row q tile; four warps of 16 rows loop over all K tiles,
-//      accumulate dqn in registers, and finish the q side in their epilogue.
+//   2. dkv:  one block per 128-key tile of a head, 64 keys per consumer warpgroup; the
+//      qn / do tiles stream past, dv and dkn accumulate in registers, and the
+//      epilogue writes dv and finishes the k side (rope and norm backward, the
+//      warpgroup's scale-gradient partial);
+//   3. dq:   one block per 128-row q tile, 64 rows per consumer warpgroup; the kn / v
+//      tiles stream past, dqn accumulates in registers, and the epilogue finishes
+//      the q side.
 //
-// Each block writes its own [2, D] scale-gradient partial and the wrapper sums them:
-// no atomics, so the result is deterministic.  Fully masked rows (segment 0, lse =
-// -1e30) never evaluate exp: the mask selects p = 0 before any product, and with it ds,
-// dv and dq of those rows are 0 whatever do holds.
+// Each consumer warpgroup writes its own [2, D] scale-gradient partial (64 rows) and
+// the wrapper sums them: no atomics, so the result is deterministic.  Fully masked
+// rows (segment 0, lse = -1e30) never evaluate exp: the mask selects p = 0 before any
+// product, and with it ds, dv and dq of those rows are 0 whatever do holds.
 //
 // What bounds it on an H100: at the FLUX 512^2 shape (S = 2560, H = 24, D = 128) a
 // call is seven S x S x D GEMMs per head (scores and dp in both kernels, dv, dk, dq),
 // 7 * 2 * S^2 * D * H = 282 GFLOP, against ~110 MB of device traffic: compute-bound on
-// the tensor cores.  The products run as mma.sync m16n8k16 with ldmatrix operands
-// (the fragments of K1), with scores, probabilities and the dq / dk / dv accumulators
-// in registers.  The norm + rope prologue runs once per row in `prep` instead of once
-// per tile visit, at the price of writing qn / kn (2 x 15.7 MB at bs=1) once.  Tiles
-// are loaded synchronously: wgmma, TMA and pipelining are left for later work.
+// the tensor cores.  What the design does about that: dkv and dq run K4's Hopper main
+// loops (flash_bwd_hopper.cuh: a producer warp keeping a 4-stage TMA ring, two
+// consumer warpgroups on wgmma, the softmax in log2 units, setmaxnreg budgets) over
+// qn / kn in place of q / k, and differ from K4 only in their epilogue
+// (NormRopeGrads below), which stages each warp's f32 rows in shared memory the
+// loop no longer reads and runs the row-wise rope + norm backward there.  The norm
+// + rope prologue runs once per row in `prep` instead of once per tile visit, at the
+// price of writing qn / kn (2 x 15.7 MB at bs=1) once.
 //
 // The s_int8 mode (qflux_tpu/ops/flash_nr.py:332-335, 347-354) recomputes the scores
 // from int8 q and k, as the TPU kernel does: the prep (flash_nr_common.cuh) also
 // quantizes qn in tiles of q_rows rows (the TPU BACKWARD's tile, which at S = 2304 and
 // 2560 is 128 rows against the forward's 256, so p is not exactly the p behind lse; JAX
-// does the same) and kn per (b, h), and dkv / dq take s from mma.sync m16n8k32 s8
-// products of those; ds kn and ds^T qn stay bf16 on the normed copies (the gradient is
-// straight through the quantization).
+// does the same) and kn per (b, h), and its own dkv / dq kernels (the first design:
+// four warps of mma.sync m16n8k16 with ldmatrix operands, tiles loaded synchronously,
+// 64-row blocks) take s from mma.sync m16n8k32 s8 products of those; ds kn and ds^T qn
+// stay bf16 on the normed copies (the gradient is straight through the
+// quantization).
 //
 // Layouts: q/k/v/out/do/dq/dk/dv/qn/kn are [B, S, H, D] bf16 (row stride H * D), lse
 // and delta [B, H, S] f32, scale pairs [2, D] f32, cos/sin [S, D] (batch stride 0) or
 // [B, S, D] f32, segment ids [B, S] int32 or null, the scale-gradient partials
 // [B, H, n_tiles, 2, D] f32 with n_tiles = qflux_flash_nr_bwd_tiles(S).
 
+#include "flash_bwd_hopper.cuh"
 #include "flash_nr_common.cuh"
 
 namespace {
 
+// the s_int8 mode's dkv / dq blocks (BR is also the row tile of the scale-gradient
+// partials in both modes)
 constexpr int NW = 4;             // warps of a dkv / dq block
 constexpr int NT = NW * 32;
 constexpr int BR = 16 * NW;       // rows a dkv / dq block owns: 16 per warp
@@ -87,21 +97,16 @@ static_assert(DKV_SMEM % 16 == 0 && DQ_SMEM % 16 == 0, "int8 tiles are 16-byte a
 // the forward is not part of the gradient chain, as in _rope_bwd / _norm_bwd):
 //   d_us = g * cos + [ (g*sin)[D/2:], -(g*sin)[:D/2] ]
 //   u = x * r,  du = d_us * s,  dx = r * (du - u * mean(du * u)),  dscale_row = d_us * u
-// g: the row's f32 gradient w.r.t. the normed + roped output; x: the raw row.  Writes
-// dx (bf16) and returns this lane's four dscale_row values in `dsr`.
-__device__ __forceinline__ void rope_norm_bwd_row(const float* __restrict__ g,
-                                                  const bf16* __restrict__ x,
-                                                  const float* __restrict__ s,
-                                                  const float* __restrict__ cos,
-                                                  const float* __restrict__ sin, int lane,
-                                                  bf16* __restrict__ dst, float (&dsr)[4]) {
+// g: the row's f32 gradient w.r.t. the normed + roped output; x: the raw row; s: its
+// norm scale.  Each argument is this lane's four channels (4 lane .. 4 lane + 3).
+// Writes dx (bf16) to the row `dst` and returns this lane's four dscale_row values in
+// `dsr`.
+__device__ __forceinline__ void rope_norm_bwd4(const float4 g4, const uint2 raw, const float4 w4,
+                                               const float4 c4, const float4 s4, int lane,
+                                               bf16* __restrict__ dst, float (&dsr)[4]) {
   const int c0 = lane * 4;
-  const float4 g4 = *reinterpret_cast<const float4*>(g + c0);
-  const float4 c4 = *reinterpret_cast<const float4*>(cos + c0);
-  const float4 s4 = *reinterpret_cast<const float4*>(sin + c0);
-  const uint2 raw = *reinterpret_cast<const uint2*>(x + c0);
   const bf16* p = reinterpret_cast<const bf16*>(&raw);
-  const float gv[4] = {g4.x, g4.y, g4.z, g4.w};
+  const float gv[4] = {g4.x, g4.y, g4.z, g4.w}, wv[4] = {w4.x, w4.y, w4.z, w4.w};
   const float cv[4] = {c4.x, c4.y, c4.z, c4.w}, sv[4] = {s4.x, s4.y, s4.z, s4.w};
   float xv[4], dus[4];
 #pragma unroll
@@ -120,7 +125,7 @@ __device__ __forceinline__ void rope_norm_bwd_row(const float* __restrict__ g,
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     u[j] = xv[j] * r;
-    du[j] = dus[j] * s[c0 + j];
+    du[j] = dus[j] * wv[j];
     dot += du[j] * u[j];
     dsr[j] = dus[j] * u[j];
   }
@@ -208,7 +213,7 @@ __device__ __forceinline__ float int8_factor(const unsigned* amax, int b, int h,
   return __fmul_rn(__fmul_rn(int8_scale(am[1 + qt]), int8_scale(am[0])), scale);
 }
 
-// The shared epilogue of dkv and dq: this warp's 16 rows of f32 gradient w.r.t. the
+// The s_int8 kernels' epilogue: this warp's 16 rows of f32 gradient w.r.t. the
 // normed + roped rows, in the accumulators `acc`, go through smem `stage` (16 x LDF
 // floats of its own) to the row-wise rope + norm backward; dx rows land in `dx`, and
 // the block's scale-gradient partial (rows < st into row 0, the rest into row 1) in
@@ -233,9 +238,13 @@ __device__ __forceinline__ void finish_rows(const float (&acc)[D / 8][4], float*
     const int row = row0 + warp * 16 + r;
     if (row >= S) break;  // warp-uniform
     float dsr[4];
-    rope_norm_bwd_row(stage + r * LDF, x + (size_t)row * rs, scale2 + (row < st ? 0 : D),
-                      cos + (size_t)row * D, sin + (size_t)row * D, lane,
-                      dx + (size_t)row * rs, dsr);
+    const int c0 = lane * 4;
+    rope_norm_bwd4(*reinterpret_cast<const float4*>(stage + r * LDF + c0),
+                   *reinterpret_cast<const uint2*>(x + (size_t)row * rs + c0),
+                   *reinterpret_cast<const float4*>(scale2 + (row < st ? 0 : D) + c0),
+                   *reinterpret_cast<const float4*>(cos + (size_t)row * D + c0),
+                   *reinterpret_cast<const float4*>(sin + (size_t)row * D + c0), lane,
+                   dx + (size_t)row * rs, dsr);
     if (row < st) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) d0[j] += dsr[j];
@@ -259,35 +268,32 @@ __device__ __forceinline__ void finish_rows(const float (&acc)[D / 8][4], float*
   }
 }
 
-// dk / dv: block = 64 keys of one (b, h); warp w owns keys 16w .. 16w+15.  Per step of
-// BC_KV q rows: s^T = kn qn^T and dp^T = v do^T (A = this warp's kn / v rows, B = the
-// qn / do tile), then p^T and ds^T in registers, then dv += p^T do and dkn += ds^T qn
-// (A = the accumulators, B = the tiles transposed by ldmatrix).  INT8: s^T comes from
-// the int8 kq rows (A, held in registers for the whole loop) and the streamed int8 qq
-// tile, whose q rows lie in one quantization tile of q_rows rows; dkn += ds^T qn stays
-// on the bf16 normed qn, as in the TPU kernel.
-template <bool INT8>
+// The s_int8 mode's dk / dv: block = 64 keys of one (b, h); warp w owns keys 16w ..
+// 16w+15.  Per step of BC_KV q rows: s^T from the int8 kq rows (A, held in registers
+// for the whole loop) and the streamed int8 qq tile, whose q rows lie in one
+// quantization tile of q_rows rows, and dp^T = v do^T (A = this warp's v rows, B =
+// the do tile); then p^T and ds^T in registers, then dv += p^T do and dkn += ds^T qn
+// (A = the accumulators, B = the tiles transposed by ldmatrix), on the bf16 normed
+// qn, as in the TPU kernel.
 __global__ void __launch_bounds__(NT)
-flash_nr_dkv_kernel(const bf16* __restrict__ qn, const bf16* __restrict__ kn,
-                    const int8_t* __restrict__ qq, const int8_t* __restrict__ kq,
-                    const unsigned* __restrict__ amax, int q_rows,
-                    const bf16* __restrict__ k, const bf16* __restrict__ v,
-                    const bf16* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, const float* __restrict__ k_scale2,
-                    const float* __restrict__ cos, const float* __restrict__ sin,
-                    long long cs_bstride, const int* __restrict__ seg, bf16* __restrict__ dk,
-                    bf16* __restrict__ dv, float* __restrict__ dks_part, int S, int H, int st,
-                    float scale) {
+flash_nr_dkv_int8_kernel(const bf16* __restrict__ qn, const int8_t* __restrict__ qq,
+                         const int8_t* __restrict__ kq, const unsigned* __restrict__ amax,
+                         int q_rows, const bf16* __restrict__ k, const bf16* __restrict__ v,
+                         const bf16* __restrict__ dout, const float* __restrict__ lse,
+                         const float* __restrict__ delta, const float* __restrict__ k_scale2,
+                         const float* __restrict__ cos, const float* __restrict__ sin,
+                         long long cs_bstride, const int* __restrict__ seg,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv,
+                         float* __restrict__ dks_part, int S, int H, int st, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);  // [BR][LD] this block's normed keys
-  bf16* Vs = Ks + BR * LD;                   // [BR][LD]
+  bf16* Vs = reinterpret_cast<bf16*>(smem) + BR * LD;  // [BR][LD] after the staging rows
   bf16* Qs = Vs + BR * LD;                   // [BC_KV][LD] normed q tile
   bf16* Ds = Qs + BC_KV * LD;                // [BC_KV][LD] do tile
   float* lse_s = reinterpret_cast<float*>(Ds + BC_KV * LD);
   float* del_s = lse_s + BC_KV;
   int* segq_s = reinterpret_cast<int*>(del_s + BC_KV);
-  int8_t* K8 = reinterpret_cast<int8_t*>(smem + DKV_SMEM);  // INT8: [BR][LD8]
-  int8_t* Q8 = K8 + BR * LD8;                                 // INT8: [BC_KV][LD8]
+  int8_t* K8 = reinterpret_cast<int8_t*>(smem + DKV_SMEM);  // [BR][LD8]
+  int8_t* Q8 = K8 + BR * LD8;                                 // [BC_KV][LD8]
 
   const int h = blockIdx.y, b = blockIdx.z;
   const int k0 = blockIdx.x * BR;
@@ -300,11 +306,7 @@ flash_nr_dkv_kernel(const bf16* __restrict__ qn, const bf16* __restrict__ kn,
   const int* segb = seg ? seg + (size_t)b * S : nullptr;
   const int wrow = warp * 16;
 
-  if constexpr (INT8) {
-    load_tile8<BR>(K8, kq + head_off, rs, k0, S);
-  } else {
-    load_tile<BR>(Ks, kn + head_off, rs, k0, S);
-  }
+  load_tile8<BR>(K8, kq + head_off, rs, k0, S);
   load_tile<BR>(Vs, v + head_off, rs, k0, S);
   // one validity rule: rows past S carry segment 0; without ids every real token is 1
   int segk[2];
@@ -319,19 +321,17 @@ flash_nr_dkv_kernel(const bf16* __restrict__ qn, const bf16* __restrict__ kn,
   for (int n = 0; n < D / 8; ++n)
 #pragma unroll
     for (int c = 0; c < 4; ++c) dva[n][c] = dka[n][c] = 0.f;
-  uint32_t ka8[INT8 ? D / 32 : 1][4];  // INT8: this warp's 16 int8 keys as A fragments
-  if constexpr (INT8) {
-    __syncthreads();
+  uint32_t ka8[D / 32][4];  // this warp's 16 int8 keys as A fragments
+  __syncthreads();
 #pragma unroll
-    for (int kk = 0; kk < D / 32; ++kk) frag8(ka8[kk], K8, wrow, kk);
-  }
+  for (int kk = 0; kk < D / 32; ++kk) frag8(ka8[kk], K8, wrow, kk);
 
 #pragma unroll 1
   for (int q0 = 0; q0 < S; q0 += BC_KV) {
     __syncthreads();  // every warp is done with the previous tile
     load_tile<BC_KV>(Qs, qn + head_off, rs, q0, S);
     load_tile<BC_KV>(Ds, dout + head_off, rs, q0, S);
-    if constexpr (INT8) load_tile8<BC_KV>(Q8, qq + head_off, rs, q0, S);
+    load_tile8<BC_KV>(Q8, qq + head_off, rs, q0, S);
     if (tid < BC_KV) {
       const int row = q0 + tid;
       const bool in = row < S;
@@ -349,26 +349,19 @@ flash_nr_dkv_kernel(const bf16* __restrict__ qn, const bf16* __restrict__ kn,
       for (int c = 0; c < 4; ++c) sT[n][c] = dpT[n][c] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t ka[4], va[4];
-      if constexpr (!INT8) ldsm_x4(ka, Ks + (wrow + (lane % 16)) * LD + kk * 16 + (lane / 16) * 8);
+      uint32_t va[4];
       ldsm_x4(va, Vs + (wrow + (lane % 16)) * LD + kk * 16 + (lane / 16) * 8);
 #pragma unroll
       for (int np = 0; np < BC_KV / 16; ++np) {
         // matrices: q rows +0/+8 (lane / 16) x channels +0/+8 ((lane / 8) % 2)
         const int off = (np * 16 + (lane / 16) * 8 + (lane % 8)) * LD + kk * 16 + ((lane / 8) % 2) * 8;
-        uint32_t qb[4], db[4];
-        if constexpr (!INT8) {
-          ldsm_x4(qb, Qs + off);
-          mma_bf16(sT[2 * np], ka, qb[0], qb[1]);
-          mma_bf16(sT[2 * np + 1], ka, qb[2], qb[3]);
-        }
+        uint32_t db[4];
         ldsm_x4(db, Ds + off);
         mma_bf16(dpT[2 * np], va, db[0], db[1]);
         mma_bf16(dpT[2 * np + 1], va, db[2], db[3]);
       }
     }
-    if constexpr (INT8)  // scaled here; the bf16 scores are scaled below
-      scores8<BC_KV>(sT, ka8, Q8, int8_factor(amax, b, h, H, S, q_rows, q0 / q_rows, scale));
+    scores8<BC_KV>(sT, ka8, Q8, int8_factor(amax, b, h, H, S, q_rows, q0 / q_rows, scale));
 
     // element c of tile n: key row g + 8 * (c / 2), q column 8n + 2t + c % 2.  The mask
     // picks p = 0 before exp is used, so a padded row's lse = -1e30 never matters.
@@ -378,8 +371,7 @@ flash_nr_dkv_kernel(const bf16* __restrict__ qn, const bf16* __restrict__ kn,
       for (int c = 0; c < 4; ++c) {
         const int i = c / 2, j = 8 * n + 2 * t + (c & 1);
         const bool ok = segk[i] != 0 && segq_s[j] == segk[i];
-        const float sv = INT8 ? sT[n][c] : sT[n][c] * scale;
-        const float p = ok ? __expf(sv - lse_s[j]) : 0.f;
+        const float p = ok ? __expf(sT[n][c] - lse_s[j]) : 0.f;
         sT[n][c] = p;
         dpT[n][c] = p * (dpT[n][c] - del_s[j]) * scale;
       }
@@ -411,7 +403,7 @@ flash_nr_dkv_kernel(const bf16* __restrict__ qn, const bf16* __restrict__ kn,
       }
     }
   }
-  __syncthreads();  // every warp is done with Ks / Vs / Qs / Ds
+  __syncthreads();  // every warp is done with Vs / Qs / Ds
 
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
@@ -423,7 +415,7 @@ flash_nr_dkv_kernel(const bf16* __restrict__ qn, const bf16* __restrict__ kn,
             pack_bf16(dva[n][2 * i], dva[n][2 * i + 1]);
     }
   }
-  float* stage = reinterpret_cast<float*>(smem) + warp * 16 * LDF;  // over Ks / Vs
+  float* stage = reinterpret_cast<float*>(smem) + warp * 16 * LDF;  // over the first two tiles
   float* red = reinterpret_cast<float*>(Qs);                         // over Qs / Ds
   const float* cb = cos + (size_t)b * cs_bstride;
   const float* sb = sin + (size_t)b * cs_bstride;
@@ -431,30 +423,26 @@ flash_nr_dkv_kernel(const bf16* __restrict__ qn, const bf16* __restrict__ kn,
               dks_part + (((size_t)b * H + h) * gridDim.x + blockIdx.x) * 2 * D);
 }
 
-// dq: block = 64 q rows of one (b, h); warp w owns rows 16w .. 16w+15 and holds their
-// normed q as A fragments.  Per step of BC_Q keys: s = qn kn^T and dp = do v^T, p and
-// ds in registers, then dqn += ds kn (B = the kn tile transposed by ldmatrix).  INT8:
-// s comes from the block's int8 qq rows (A fragments; the block's 64 rows lie in one
-// quantization tile) and the streamed int8 kq tile; dqn += ds kn stays on the bf16 kn.
-template <bool INT8>
+// The s_int8 mode's dq: block = 64 q rows of one (b, h); warp w owns rows 16w ..
+// 16w+15.  s comes from the block's int8 qq rows (A fragments; the block's 64 rows
+// lie in one quantization tile) and the streamed int8 kq tile, dp = do v^T; p and
+// ds in registers, then dqn += ds kn (B = the bf16 kn tile transposed by ldmatrix).
 __global__ void __launch_bounds__(NT)
-flash_nr_dq_kernel(const bf16* __restrict__ qn, const bf16* __restrict__ kn,
-                   const int8_t* __restrict__ qq, const int8_t* __restrict__ kq,
-                   const unsigned* __restrict__ amax, int q_rows,
-                   const bf16* __restrict__ q, const bf16* __restrict__ v,
-                   const bf16* __restrict__ dout, const float* __restrict__ lse,
-                   const float* __restrict__ delta, const float* __restrict__ q_scale2,
-                   const float* __restrict__ cos, const float* __restrict__ sin,
-                   long long cs_bstride, const int* __restrict__ seg, bf16* __restrict__ dq,
-                   float* __restrict__ dqs_part, int S, int H, int st, float scale) {
+flash_nr_dq_int8_kernel(const bf16* __restrict__ kn, const int8_t* __restrict__ qq,
+                        const int8_t* __restrict__ kq, const unsigned* __restrict__ amax,
+                        int q_rows, const bf16* __restrict__ q, const bf16* __restrict__ v,
+                        const bf16* __restrict__ dout, const float* __restrict__ lse,
+                        const float* __restrict__ delta, const float* __restrict__ q_scale2,
+                        const float* __restrict__ cos, const float* __restrict__ sin,
+                        long long cs_bstride, const int* __restrict__ seg, bf16* __restrict__ dq,
+                        float* __restrict__ dqs_part, int S, int H, int st, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);  // [BR][LD] this block's normed q rows
-  bf16* Ds = Qs + BR * LD;                   // [BR][LD] their do rows
+  bf16* Ds = reinterpret_cast<bf16*>(smem) + BR * LD;  // [BR][LD] the block's do rows
   bf16* Ks = Ds + BR * LD;                   // [BC_Q][LD] normed key tile
   bf16* Vs = Ks + BC_Q * LD;                 // [BC_Q][LD]
   int* segk_s = reinterpret_cast<int*>(Vs + BC_Q * LD);
-  int8_t* Q8 = reinterpret_cast<int8_t*>(smem + DQ_SMEM);  // INT8: [BR][LD8]
-  int8_t* K8 = Q8 + BR * LD8;                                // INT8: [BC_Q][LD8]
+  int8_t* Q8 = reinterpret_cast<int8_t*>(smem + DQ_SMEM);  // [BR][LD8]
+  int8_t* K8 = Q8 + BR * LD8;                                // [BC_Q][LD8]
 
   const int h = blockIdx.y, b = blockIdx.z;
   const int q0 = blockIdx.x * BR;
@@ -465,11 +453,7 @@ flash_nr_dq_kernel(const bf16* __restrict__ qn, const bf16* __restrict__ kn,
   const int* segb = seg ? seg + (size_t)b * S : nullptr;
   const int wrow = warp * 16;
 
-  if constexpr (INT8) {
-    load_tile8<BR>(Q8, qq + head_off, rs, q0, S);
-  } else {
-    load_tile<BR>(Qs, qn + head_off, rs, q0, S);
-  }
+  load_tile8<BR>(Q8, qq + head_off, rs, q0, S);
   load_tile<BR>(Ds, dout + head_off, rs, q0, S);
   float lse_r[2], del_r[2];
   int segq[2];
@@ -482,17 +466,11 @@ flash_nr_dq_kernel(const bf16* __restrict__ qn, const bf16* __restrict__ kn,
     segq[i] = in ? (segb ? segb[row] : 1) : 0;
   }
   __syncthreads();
-  // this warp's q rows as A fragments: bf16 qn, or INT8 int8 qq
-  uint32_t qf[INT8 ? D / 32 : D / 16][4];
+  // this warp's q rows as int8 A fragments
+  uint32_t qf[D / 32][4];
 #pragma unroll
-  for (int kk = 0; kk < (INT8 ? D / 32 : D / 16); ++kk) {
-    if constexpr (INT8) {
-      frag8(qf[kk], Q8, wrow, kk);
-    } else {
-      ldsm_x4(qf[kk], Qs + (wrow + (lane % 16)) * LD + kk * 16 + (lane / 16) * 8);
-    }
-  }
-  const float factor = INT8 ? int8_factor(amax, b, h, H, S, q_rows, q0 / q_rows, scale) : scale;
+  for (int kk = 0; kk < D / 32; ++kk) frag8(qf[kk], Q8, wrow, kk);
+  const float factor = int8_factor(amax, b, h, H, S, q_rows, q0 / q_rows, scale);
 
   float dqa[D / 8][4];
 #pragma unroll
@@ -505,7 +483,7 @@ flash_nr_dq_kernel(const bf16* __restrict__ qn, const bf16* __restrict__ kn,
     __syncthreads();  // every warp is done with the previous tile
     load_tile<BC_Q>(Ks, kn + head_off, rs, k0, S);
     load_tile<BC_Q>(Vs, v + head_off, rs, k0, S);
-    if constexpr (INT8) load_tile8<BC_Q>(K8, kq + head_off, rs, k0, S);
+    load_tile8<BC_Q>(K8, kq + head_off, rs, k0, S);
     if (tid < BC_Q) {
       const int row = k0 + tid;
       segk_s[tid] = row < S ? (segb ? segb[row] : 1) : 0;
@@ -525,18 +503,13 @@ flash_nr_dq_kernel(const bf16* __restrict__ qn, const bf16* __restrict__ kn,
       for (int np = 0; np < BC_Q / 16; ++np) {
         // matrices: keys +0/+8 (lane / 16) x channels +0/+8 ((lane / 8) % 2)
         const int off = (np * 16 + (lane / 16) * 8 + (lane % 8)) * LD + kk * 16 + ((lane / 8) % 2) * 8;
-        uint32_t kb[4], vb[4];
-        if constexpr (!INT8) {
-          ldsm_x4(kb, Ks + off);
-          mma_bf16(s[2 * np], qf[kk], kb[0], kb[1]);
-          mma_bf16(s[2 * np + 1], qf[kk], kb[2], kb[3]);
-        }
+        uint32_t vb[4];
         ldsm_x4(vb, Vs + off);
         mma_bf16(dp[2 * np], da, vb[0], vb[1]);
         mma_bf16(dp[2 * np + 1], da, vb[2], vb[3]);
       }
     }
-    if constexpr (INT8) scores8<BC_Q>(s, qf, K8, factor);  // already scaled
+    scores8<BC_Q>(s, qf, K8, factor);  // already scaled
 
     // element c of tile n: q row g + 8 * (c / 2), key column 8n + 2t + c % 2; s becomes ds
 #pragma unroll
@@ -545,8 +518,7 @@ flash_nr_dq_kernel(const bf16* __restrict__ qn, const bf16* __restrict__ kn,
       for (int c = 0; c < 4; ++c) {
         const int i = c / 2, j = 8 * n + 2 * t + (c & 1);
         const bool ok = segq[i] != 0 && segk_s[j] == segq[i];
-        const float sv = INT8 ? s[n][c] : s[n][c] * factor;
-        const float p = ok ? __expf(sv - lse_r[i]) : 0.f;
+        const float p = ok ? __expf(s[n][c] - lse_r[i]) : 0.f;
         s[n][c] = p * (dp[n][c] - del_r[i]) * scale;
       }
     }
@@ -572,11 +544,179 @@ flash_nr_dq_kernel(const bf16* __restrict__ qn, const bf16* __restrict__ kn,
   __syncthreads();  // every warp is done with Ks / Vs
 
   float* stage = reinterpret_cast<float*>(Ks) + warp * 16 * LDF;  // over Ks / Vs
-  float* red = reinterpret_cast<float*>(smem);                     // over Qs (free now)
+  float* red = reinterpret_cast<float*>(smem);                     // over the first tile (free)
   const float* cb = cos + (size_t)b * cs_bstride;
   const float* sb = sin + (size_t)b * cs_bstride;
   finish_rows(dqa, stage, red, q0, S, st, q + head_off, dq + head_off, rs, q_scale2, cb, sb,
               dqs_part + (((size_t)b * H + h) * gridDim.x + blockIdx.x) * 2 * D);
+}
+
+// ---------------------------------------------------------------------------
+// The bf16 mode: K4's Hopper main loops (flash_bwd_hopper.cuh) over the prep's qn /
+// kn and delta, with this epilogue.
+
+// The rope transpose and RMSNorm backward of each complete dqn / dkn row and the
+// norm-scale gradient's partial sums, after the main loop.  Each consumer warp
+// stages its 16 f32 accumulator rows (one 64 x 128 tile per warpgroup) in its own
+// rows of the block's two own tiles, which nothing reads any more: rows 0..3 of
+// the warp in the first tile's first 64-column half, 4..7 in its second, 8..11 and
+// 12..15 in the second tile's halves, 512 bytes a row, each 16-byte chunk j of row
+// i at chunk j ^ (i & 7) (no bank conflicts on either side).  Then the rows go
+// through rope_norm_bwd4 (a lane's four channels) in order, the loads of four rows
+// in flight together, rows < st summed into the scale-gradient row 0, the others
+// into row 1; then the warpgroup's four warps' sums are added in warp order into
+// its [2, D] partial: warpgroup c of block x owns the 64 rows of tile 2 x + c, the
+// partial layout of the s_int8 kernels (qflux_flash_nr_bwd_tiles).  No atomics:
+// deterministic.  Rows past S are neither read nor written, and a tile wholly past
+// S writes no partial.  A fully masked row has a zero gradient, so its dx and its
+// part of the sums are 0.
+struct NormRopeGrads {
+  const bf16* q;
+  const bf16* k;
+  const float* q_scale2;
+  const float* k_scale2;
+  const float* cos;
+  const float* sin;
+  long long cs_bstride;
+  bf16* dq;
+  bf16* dk;
+  bf16* dv;
+  float* dqs_part;
+  float* dks_part;
+  int st;
+  int n_tiles;
+
+  __device__ __forceinline__ void epilogue_dkv(const float (&dva)[64],
+                                               const float (&dka)[64], uint8_t* k_tile,
+                                               uint8_t* v_tile, int b, int h, int k0, int c,
+                                               int r0, int S, int H) const {
+    const float one[2] = {1.f, 1.f};
+    const size_t hoff = ((size_t)b * S * H + h) * D;
+    // dv first: then only dkn's tile is live while it is staged
+    store_rows_wg(dva, one, v_tile, bwd_wg::BLK, r0, dv + hoff, H * D, k0 + r0, S);
+    __syncwarp();
+    finish(dka, k_tile, v_tile, k, k_scale2, dk, dks_part, hoff, b, h, k0, c, r0, S, H);
+  }
+
+  __device__ __forceinline__ void epilogue_dq(const float (&dqa)[64], uint8_t* q_tile,
+                                              uint8_t* do_tile, int b, int h, int q0, int c,
+                                              int r0, int S, int H) const {
+    const size_t hoff = ((size_t)b * S * H + h) * D;
+    finish(dqa, q_tile, do_tile, q, q_scale2, dq, dqs_part, hoff, b, h, q0, c, r0, S, H);
+  }
+
+  // f32 row i (0..15) of this warp's staging
+  static __device__ __forceinline__ float* staged(uint8_t* ta, uint8_t* tb, int r0, int i) {
+    return reinterpret_cast<float*>((i < 8 ? ta : tb) + ((i >> 2) & 1) * bwd_wg::BLK * 128 +
+                                    r0 * 128 + (i & 3) * 512);
+  }
+
+  __device__ __forceinline__ void finish(const float (&acc)[64], uint8_t* ta, uint8_t* tb,
+                                         const bf16* x, const float* scale2, bf16* dx,
+                                         float* part, size_t hoff, int b, int h, int row0, int c,
+                                         int r0, int S, int H) const {
+    const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+    const int rs = H * D;
+    // accumulator element 4 j + 2 i2 + e: row g + 8 i2, column 8 j + 2 t + e, so
+    // 16-byte chunk 2 j + t / 2 of the row
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int i2 = 0; i2 < 2; ++i2)
+        *reinterpret_cast<float2*>(staged(ta, tb, r0, g + 8 * i2) +
+                                   (((2 * j + (t >> 1)) ^ g) << 2) + (t & 1) * 2) =
+            make_float2(acc[4 * j + 2 * i2], acc[4 * j + 2 * i2 + 1]);
+    __syncwarp();
+    const float* cb = cos + (size_t)b * cs_bstride + lane * 4;
+    const float* sb = sin + (size_t)b * cs_bstride + lane * 4;
+    float d0[4] = {0.f, 0.f, 0.f, 0.f}, d1[4] = {0.f, 0.f, 0.f, 0.f};
+    // four rows at a time: their loads are in flight together
+#pragma unroll 1
+    for (int i0 = 0; i0 < 16 && row0 + r0 + i0 < S; i0 += 4) {  // warp-uniform
+      float4 g4[4], w4[4], c4[4], s4[4];
+      uint2 raw[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int i = i0 + u, row = row0 + r0 + i;
+        g4[u] = reinterpret_cast<const float4*>(staged(ta, tb, r0, i))[lane ^ (i & 7)];
+        raw[u] = make_uint2(0u, 0u);
+        w4[u] = c4[u] = s4[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (row < S) {
+          raw[u] = *reinterpret_cast<const uint2*>(x + hoff + (size_t)row * rs + lane * 4);
+          w4[u] = *reinterpret_cast<const float4*>(scale2 + (row < st ? 0 : D) + lane * 4);
+          c4[u] = *reinterpret_cast<const float4*>(cb + (size_t)row * D);
+          s4[u] = *reinterpret_cast<const float4*>(sb + (size_t)row * D);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int row = row0 + r0 + i0 + u;
+        if (row >= S) break;  // warp-uniform
+        float dsr[4];
+        rope_norm_bwd4(g4[u], raw[u], w4[u], c4[u], s4[u], lane, dx + hoff + (size_t)row * rs,
+                       dsr);
+        if (row < st) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) d0[j] += dsr[j];
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) d1[j] += dsr[j];
+        }
+      }
+    }
+    // the warp's sums over its first staged rows, then the warpgroup's in warp order
+    __syncwarp();
+    float* red = staged(ta, tb, r0, 0);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      red[lane * 4 + j] = d0[j];
+      red[D + lane * 4 + j] = d1[j];
+    }
+    warpgroup_sync(c);
+    if (row0 + 64 * c < S) {  // warpgroup-uniform
+      float* p = part + (((size_t)b * H + h) * n_tiles + 2 * blockIdx.x + c) * 2 * D;
+      for (int idx = threadIdx.x & 127; idx < 2 * D; idx += 128) {
+        float sum = 0.f;
+#pragma unroll
+        for (int w = 0; w < 4; ++w) sum += staged(ta, tb, 64 * c + 16 * w, 0)[idx];
+        p[idx] = sum;
+      }
+    }
+  }
+};
+
+// dk / dv: block = 128 keys of one (b, h), 64 per consumer warpgroup
+__global__ void __launch_bounds__(bwd_wg::NTHREADS, 1)
+flash_nr_dkv_kernel(const __grid_constant__ CUtensorMap kn_map,
+                    const __grid_constant__ CUtensorMap v_map,
+                    const __grid_constant__ CUtensorMap qn_map,
+                    const __grid_constant__ CUtensorMap do_map, const float* __restrict__ lse,
+                    const float* __restrict__ delta, const int* __restrict__ seg,
+                    const __grid_constant__ NormRopeGrads epi, int S, int H, float scale) {
+  bwd_wg::attn_dkv_body(kn_map, v_map, qn_map, do_map, lse, delta, seg, seg, S, S, H, scale,
+                        epi);
+}
+
+// dq: block = 128 q rows of one (b, h), 64 per consumer warpgroup
+__global__ void __launch_bounds__(bwd_wg::NTHREADS, 1)
+flash_nr_dq_kernel(const __grid_constant__ CUtensorMap qn_map,
+                   const __grid_constant__ CUtensorMap do_map,
+                   const __grid_constant__ CUtensorMap kn_map,
+                   const __grid_constant__ CUtensorMap v_map, const float* __restrict__ lse,
+                   const float* __restrict__ delta, const int* __restrict__ seg,
+                   const __grid_constant__ NormRopeGrads epi, int S, int H, float scale) {
+  bwd_wg::attn_dq_body(qn_map, do_map, kn_map, v_map, lse, delta, seg, seg, S, S, H, scale, epi);
+}
+
+// The bf16 prep on `stream`: qn, kn and delta, one warp per (b, s, h) row.
+cudaError_t launch_bf16_prep(const bf16* q, const bf16* k, const bf16* dout, const bf16* out,
+                             const float* qs, const float* ks, const float* cos,
+                             const float* sin, long long cs_bstride, bf16* qn, bf16* kn,
+                             float* delta, int B, int S, int H, int st, cudaStream_t stream) {
+  const int rows = B * S * H;
+  flash_nr_prep_kernel<<<(rows + PREP_WARPS - 1) / PREP_WARPS, PREP_WARPS * 32, 0, stream>>>(
+      q, k, dout, out, qs, ks, cos, sin, cs_bstride, qn, kn, delta, nullptr, 1, rows, S, H, st);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -585,39 +725,74 @@ extern "C" int qflux_flash_nr_bwd_tiles(int S) { return (S + BR - 1) / BR; }
 
 namespace {
 
-template <bool INT8>
-int launch_bwd(const bf16* qb, const bf16* kb, const bf16* vb, const float* qs, const float* ks,
-               const float* cs, const float* sn, long long cs_bstride, const int* sg,
-               const bf16* ob, const float* ls, const bf16* db, bf16* qnb, bf16* knb, float* dl,
-               int8_t* qq, int8_t* kq, unsigned* amax, int q_rows, bf16* dq, bf16* dk, bf16* dv,
-               float* dqs_part, float* dks_part, int B, int S, int H, int st, float scale,
-               cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(flash_nr_dkv_kernel<INT8>,
+// the bf16 mode: the prep, then dk / dv, then dq
+int launch_bf16(const bf16* qb, const bf16* kb, const bf16* vb, const float* qs, const float* ks,
+                const float* cs, const float* sn, long long cs_bstride, const int* sg,
+                const bf16* ob, const float* ls, const bf16* db, bf16* qnb, bf16* knb, float* dl,
+                bf16* dq, bf16* dk, bf16* dv, float* dqs_part, float* dks_part, int B, int S,
+                int H, int st, float scale, cudaStream_t stream) {
+  using bwd_wg::BLK;
+  CUtensorMap qn_own, do_own, kn_own, v_own, qn_step, do_step, kn_step, v_step;
+  if (!encode_heads(&qn_own, qnb, B, S, H, BLK) || !encode_heads(&do_own, db, B, S, H, BLK) ||
+      !encode_heads(&kn_own, knb, B, S, H, BLK) || !encode_heads(&v_own, vb, B, S, H, BLK) ||
+      !encode_heads(&qn_step, qnb, B, S, H, bwd_wg::KV_STEP) ||
+      !encode_heads(&do_step, db, B, S, H, bwd_wg::KV_STEP) ||
+      !encode_heads(&kn_step, knb, B, S, H, bwd_wg::STEP) ||
+      !encode_heads(&v_step, vb, B, S, H, bwd_wg::STEP))
+    return (int)cudaErrorInvalidValue;
+  static bool attr = false;
+  if (!attr) {
+    cudaError_t e = cudaFuncSetAttribute(flash_nr_dkv_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)(INT8 ? DKV_SMEM_INT8 : DKV_SMEM));
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_nr_dq_kernel<INT8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)(INT8 ? DQ_SMEM_INT8 : DQ_SMEM));
-  if (err != cudaSuccess) return (int)err;
-  if constexpr (INT8) {
-    err = launch_int8_prep(qb, kb, db, ob, qs, ks, cs, sn, cs_bstride, qnb, knb, dl, qq, kq, amax,
-                           q_rows, B, S, H, st, stream);
-  } else {
-    const int rows = B * S * H;
-    flash_nr_prep_kernel<<<(rows + PREP_WARPS - 1) / PREP_WARPS, PREP_WARPS * 32, 0, stream>>>(
-        qb, kb, db, ob, qs, ks, cs, sn, cs_bstride, qnb, knb, dl, nullptr, 1, rows, S, H, st);
-    err = cudaGetLastError();
+                                         bwd_wg::KV_SMEM);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(flash_nr_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               bwd_wg::Q_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    attr = true;
   }
+  cudaError_t err = launch_bf16_prep(qb, kb, db, ob, qs, ks, cs, sn, cs_bstride, qnb, knb, dl, B,
+                                     S, H, st, stream);
+  if (err != cudaSuccess) return (int)err;
+  const NormRopeGrads epi{qb, kb, qs, ks, cs, sn, cs_bstride, dq, dk, dv, dqs_part, dks_part,
+                          st, (S + BR - 1) / BR};
+  const dim3 grid((S + BLK - 1) / BLK, H, B);
+  flash_nr_dkv_kernel<<<grid, bwd_wg::NTHREADS, bwd_wg::KV_SMEM, stream>>>(
+      kn_own, v_own, qn_step, do_step, ls, dl, sg, epi, S, H, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_nr_dq_kernel<<<grid, bwd_wg::NTHREADS, bwd_wg::Q_SMEM, stream>>>(
+      qn_own, do_own, kn_step, v_step, ls, dl, sg, epi, S, H, scale);
+  return (int)cudaGetLastError();
+}
+
+// the s_int8 mode: its prep (qn / kn, the int8 operands, amax, delta), then its
+// dk / dv and dq kernels
+int launch_int8(const bf16* qb, const bf16* kb, const bf16* vb, const float* qs, const float* ks,
+                const float* cs, const float* sn, long long cs_bstride, const int* sg,
+                const bf16* ob, const float* ls, const bf16* db, bf16* qnb, bf16* knb, float* dl,
+                int8_t* qq, int8_t* kq, unsigned* amax, int q_rows, bf16* dq, bf16* dk,
+                bf16* dv, float* dqs_part, float* dks_part, int B, int S, int H, int st,
+                float scale, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(flash_nr_dkv_int8_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)DKV_SMEM_INT8);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(flash_nr_dq_int8_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)DQ_SMEM_INT8);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_int8_prep(qb, kb, db, ob, qs, ks, cs, sn, cs_bstride, qnb, knb, dl, qq, kq, amax,
+                         q_rows, B, S, H, st, stream);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((S + BR - 1) / BR, H, B);
-  flash_nr_dkv_kernel<INT8><<<grid, NT, INT8 ? DKV_SMEM_INT8 : DKV_SMEM, stream>>>(
-      qnb, knb, qq, kq, amax, q_rows, kb, vb, db, ls, dl, ks, cs, sn, cs_bstride, sg, dk, dv,
+  flash_nr_dkv_int8_kernel<<<grid, NT, DKV_SMEM_INT8, stream>>>(
+      qnb, qq, kq, amax, q_rows, kb, vb, db, ls, dl, ks, cs, sn, cs_bstride, sg, dk, dv,
       dks_part, S, H, st, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_nr_dq_kernel<INT8><<<grid, NT, INT8 ? DQ_SMEM_INT8 : DQ_SMEM, stream>>>(
-      qnb, knb, qq, kq, amax, q_rows, qb, vb, db, ls, dl, qs, cs, sn, cs_bstride, sg, dq,
-      dqs_part, S, H, st, scale);
+  flash_nr_dq_int8_kernel<<<grid, NT, DQ_SMEM_INT8, stream>>>(
+      knb, qq, kq, amax, q_rows, qb, vb, db, ls, dl, qs, cs, sn, cs_bstride, sg, dq, dqs_part, S,
+      H, st, scale);
   return (int)cudaGetLastError();
 }
 
@@ -635,18 +810,42 @@ extern "C" int qflux_flash_nr_bwd(const void* q, const void* k, const void* v,
                                   int q_rows, void* dq, void* dk, void* dv, void* dqs_part,
                                   void* dks_part, int B, int S, int H, int st, float scale,
                                   void* stream) {
-  if (q_rows < 0 || q_rows % BR) return (int)cudaErrorInvalidValue;
-  auto* fn = q_rows ? launch_bwd<true> : launch_bwd<false>;
-  return fn(static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-            static_cast<const float*>(q_scale2), static_cast<const float*>(k_scale2),
-            static_cast<const float*>(cos), static_cast<const float*>(sin), cs_bstride,
-            static_cast<const int*>(seg), static_cast<const bf16*>(out),
-            static_cast<const float*>(lse), static_cast<const bf16*>(dout),
-            static_cast<bf16*>(qn), static_cast<bf16*>(kn), static_cast<float*>(delta),
-            static_cast<int8_t*>(qq), static_cast<int8_t*>(kq), static_cast<unsigned*>(amax),
-            q_rows, static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-            static_cast<float*>(dqs_part), static_cast<float*>(dks_part), B, S, H, st, scale,
-            static_cast<cudaStream_t>(stream));
+  if (q_rows < 0 || q_rows % BR || B <= 0 || S <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
+             *vb = static_cast<const bf16*>(v), *ob = static_cast<const bf16*>(out),
+             *db = static_cast<const bf16*>(dout);
+  const float *qs = static_cast<const float*>(q_scale2), *ks = static_cast<const float*>(k_scale2),
+              *cs = static_cast<const float*>(cos), *sn = static_cast<const float*>(sin),
+              *ls = static_cast<const float*>(lse);
+  const int* sg = static_cast<const int*>(seg);
+  cudaStream_t st_ = static_cast<cudaStream_t>(stream);
+  if (!q_rows)
+    return launch_bf16(qb, kb, vb, qs, ks, cs, sn, cs_bstride, sg, ob, ls, db,
+                       static_cast<bf16*>(qn), static_cast<bf16*>(kn), static_cast<float*>(delta),
+                       static_cast<bf16*>(dq), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                       static_cast<float*>(dqs_part), static_cast<float*>(dks_part), B, S, H, st,
+                       scale, st_);
+  return launch_int8(qb, kb, vb, qs, ks, cs, sn, cs_bstride, sg, ob, ls, db,
+                     static_cast<bf16*>(qn), static_cast<bf16*>(kn), static_cast<float*>(delta),
+                     static_cast<int8_t*>(qq), static_cast<int8_t*>(kq),
+                     static_cast<unsigned*>(amax), q_rows, static_cast<bf16*>(dq),
+                     static_cast<bf16*>(dk), static_cast<bf16*>(dv), static_cast<float*>(dqs_part),
+                     static_cast<float*>(dks_part), B, S, H, st, scale, st_);
+}
+
+// The bf16 mode's prep alone (qn, kn and delta), as qflux_flash_nr_bwd launches it:
+// for timing the prep apart from the main kernels.  Returns a cudaError_t.
+extern "C" int qflux_flash_nr_bwd_prep(const void* q, const void* k, const void* q_scale2,
+                                       const void* k_scale2, const void* cos, const void* sin,
+                                       long long cs_bstride, const void* out, const void* dout,
+                                       void* qn, void* kn, void* delta, int B, int S, int H,
+                                       int st, void* stream) {
+  return (int)launch_bf16_prep(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(dout),
+      static_cast<const bf16*>(out), static_cast<const float*>(q_scale2),
+      static_cast<const float*>(k_scale2), static_cast<const float*>(cos),
+      static_cast<const float*>(sin), cs_bstride, static_cast<bf16*>(qn), static_cast<bf16*>(kn),
+      static_cast<float*>(delta), B, S, H, st, static_cast<cudaStream_t>(stream));
 }
 
 // The s_int8 prep alone (for tests): qn / kn bf16, qq / kq int8 [B, S, H, D] and amax

@@ -25,7 +25,9 @@
 // chain, and the main kernel streams kn, never k: an earlier design normed
 // each 64-row K tile in every q-tile block that visited it, 20 times per row
 // at S = 2560, through ~1.9 GB of k and f32 cos / sin reads a call. The main
-// kernel is warp specialised (384 threads, one block per SM; the Hopper
+// kernel's loop is the one K3 runs too (flash_fwd_hopper.cuh's attn_fwd_body,
+// inlined into each kernel: here with q normed by the consumers, in K3 with
+// q by TMA). It is warp specialised (384 threads, one block per SM; the Hopper
 // machinery of hopper.cuh): a producer warp keeps a ring of two (kn, v)
 // tiles of 128 keys in flight by TMA, two consumer warpgroups each own 64 q
 // rows, normed and roped once in their prologue straight into the swizzled
@@ -62,8 +64,7 @@
 // pairs [2, D] f32, cos/sin [S, D] (batch stride 0) or [B, S, D] f32, and the
 // optional segment ids [B, S] int32.
 
-#include "flash_nr_common.cuh"
-#include "hopper.cuh"
+#include "flash_fwd_hopper.cuh"
 
 namespace {
 
@@ -390,21 +391,9 @@ flash_nr_fwd_int8_kernel(const bf16* __restrict__ q, const bf16* __restrict__ v,
 
 // ---------------------------------------------------------------------------
 // The bf16 mode: a prep launch norms and ropes k once per (b, h, row) into the
-// scratch kn, then the main kernel runs a warp-specialised wgmma loop over a TMA
-// ring of (kn, v) tiles.
-
-constexpr int W_BQ = 128;     // q rows of a block: 64 per consumer warpgroup
-constexpr int W_BK = 128;     // keys of a K/V tile
-constexpr int W_STAGES = 2;   // K/V tiles in flight
-constexpr int W_THREADS = 384;  // producer warpgroup + two consumer warpgroups
-constexpr int TILE = W_BK * D * 2;  // bytes of one [W_BK, 128] bf16 tile
-constexpr int W_Q_OFF = 0;                              // the block's normed q
-constexpr int W_K_OFF = W_Q_OFF + W_BQ * D * 2;         // W_STAGES kn tiles
-constexpr int W_V_OFF = W_K_OFF + W_STAGES * TILE;      // W_STAGES v tiles
-constexpr int W_SEG_OFF = W_V_OFF + W_STAGES * TILE;    // W_STAGES x W_BK key ids
-constexpr int W_BAR_OFF = W_SEG_OFF + W_STAGES * W_BK * 4;
-constexpr int W_SMEM = W_BAR_OFF + 4 * W_STAGES * 8 + 1024;  // + slack to align to 1024
-static_assert(W_SMEM <= 232448, "shared memory of one block");
+// scratch kn, then the main kernel runs the warp-specialised wgmma loop that K1
+// shares with K3 (flash_fwd_hopper.cuh) over a TMA ring of (kn, v) tiles, its q
+// rows normed and roped by the consumers.
 
 // kn = the normed and roped k, one warp per (b, s, h) row, with K1's cast chain
 // (norm_rope_row, as the s_int8 prep)
@@ -422,268 +411,19 @@ flash_nr_kn_kernel(const bf16* __restrict__ k, const float* __restrict__ k_scale
                 kn + off);
 }
 
-// Block (q tile of 128 rows, h, b), 384 threads.  Warpgroup 0 is the producer:
-// its first warp keeps W_STAGES (kn, v) tile pairs in flight by TMA (rows past S
-// zero-filled), each operand on a `full` mbarrier, and writes the keys' segment
-// ids beside them (keys past S: 0; no ids: 1); each operand is freed by its own
-// `empty` mbarrier (one arrival per consumer warp): kn once its scores and ids
-// are read, v once its P V is done.  Warpgroups 1 and 2 each own 64 q rows:
-// they norm and rope them once into the swizzled q tile, then per K/V tile:
-// S = q kn^T (wgmma m64n128k16, both operands in shared memory, kn K-major), the
-// online softmax on the accumulator registers with K1's rule (a masked score is
-// exactly -1e30 and gets p = 0; p rounded to bf16), and O += P V (m64n128k16, P
-// as the register A operand, V an MN-major B).  SEG: segment ids given (else every
-// key below S attends, and only a tile past S is masked).
+// Block (q tile of 128 rows, h, b), 384 threads: fwd_wg::attn_fwd_body with the
+// q rows normed and roped by the consumers and one [B, S] id array for q and
+// keys (SEG: ids given).
 template <bool SEG>
-__global__ void __launch_bounds__(W_THREADS, 1)
+__global__ void __launch_bounds__(fwd_wg::THREADS, 1)
 flash_nr_fwd_bf16_kernel(const __grid_constant__ CUtensorMap kn_map,
-                         const __grid_constant__ CUtensorMap v_map, const bf16* __restrict__ q,
-                         const float* __restrict__ q_scale2, const float* __restrict__ cos,
-                         const float* __restrict__ sin, long long cs_bstride,
+                         const __grid_constant__ CUtensorMap v_map,
+                         const __grid_constant__ fwd_wg::RawQ rq,
                          const int* __restrict__ seg, bf16* __restrict__ out,
-                         float* __restrict__ lse, int S, int H, int st, float scale) {
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = align1024(smem_raw);
-  uint64_t* full_k = reinterpret_cast<uint64_t*>(smem + W_BAR_OFF);
-  uint64_t* full_v = full_k + W_STAGES;
-  uint64_t* empty_k = full_v + W_STAGES;
-  uint64_t* empty_v = empty_k + W_STAGES;
-  int* segk = reinterpret_cast<int*>(smem + W_SEG_OFF);
-
-  const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * W_BQ;
-  const int ntiles = (S + W_BK - 1) / W_BK;
-  const int* segb = seg ? seg + (size_t)b * S : nullptr;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < W_STAGES; ++s) {
-      mbar_init(&full_k[s], 1 + 32);  // the expect_tx, and each producer lane's ids
-      mbar_init(&full_v[s], 1);
-      mbar_init(&empty_k[s], 8);      // one arrival per consumer warp
-      mbar_init(&empty_v[s], 8);
-    }
-    fence_barrier_init();
-  }
-  __syncthreads();
-
-  const int wg = threadIdx.x / 128;
-  if (wg == 0) {
-    // ---- producer
-    setmaxnreg_dec<24>();
-    if (threadIdx.x < 32) {
-      const int lane = threadIdx.x;
-      for (int i = 0; i < ntiles; ++i) {
-        const int s = i % W_STAGES, k0 = i * W_BK;
-        const uint32_t ph = ((i / W_STAGES) - 1) & 1;
-        // kn tile i once the scores of tile i - W_STAGES are in, v once its p v is
-        if (i >= W_STAGES) mbar_wait(&empty_k[s], ph);
-        if (lane == 0) {
-          uint8_t* kt = smem + W_K_OFF + s * TILE;
-          mbar_expect_tx(&full_k[s], TILE);
-          tma_load_4d(kt, &kn_map, &full_k[s], 0, h, k0, b);
-          tma_load_4d(kt + TILE / 2, &kn_map, &full_k[s], 64, h, k0, b);
-        }
-        for (int j = lane; j < W_BK; j += 32) {
-          const int key = k0 + j;
-          segk[s * W_BK + j] = key < S ? (segb ? segb[key] : 1) : 0;
-        }
-        mbar_arrive(&full_k[s]);
-        if (i >= W_STAGES) mbar_wait(&empty_v[s], ph);
-        if (lane == 0) {
-          uint8_t* vt = smem + W_V_OFF + s * TILE;
-          mbar_expect_tx(&full_v[s], TILE);
-          tma_load_4d(vt, &v_map, &full_v[s], 0, h, k0, b);
-          tma_load_4d(vt + TILE / 2, &v_map, &full_v[s], 64, h, k0, b);
-        }
-      }
-    }
-    return;
-  }
-
-  // ---- consumers
-  setmaxnreg_inc<240>();
-  const int c = wg - 1, wt = threadIdx.x - 128 * wg;
-  const int warp = wt >> 5, lane = wt & 31, g = lane >> 2, t = lane & 3;
-  const int rs = H * D;
-  const size_t head_off = ((size_t)b * S * H + h) * D;
-  const float* cb = cos + (size_t)b * cs_bstride;
-  const float* sb = sin + (size_t)b * cs_bstride;
-  uint8_t* qs = smem + W_Q_OFF;
-  const int r0 = 64 * c + 16 * warp;  // this warp's first row of the q tile
-
-  // the warp's 16 q rows, normed and roped once, in the layout wgmma reads
-#pragma unroll 4
-  for (int i = 0; i < 16; ++i) {
-    const int row = q0 + r0 + i;
-    uint2 y = make_uint2(0u, 0u);
-    if (row < S) {  // warp-uniform
-      float unused;
-      y = norm_rope4(q + head_off + (size_t)row * rs, q_scale2 + (row < st ? 0 : D) + lane * 4,
-                     cb + (size_t)row * D, sb + (size_t)row * D, lane, unused);
-    }
-    *reinterpret_cast<uint2*>(qs + swz_offset(W_BQ, r0 + i, lane * 4)) = y;
-  }
-  fence_proxy_async();
-  warpgroup_sync(c);
-
-  int segq[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = q0 + r0 + g + 8 * i;
-    segq[i] = row < S ? (segb ? segb[row] : 1) : 0;
-  }
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  float o[64];
-#pragma unroll
-  for (int x = 0; x < 64; ++x) o[x] = 0.f;
-  const uint32_t qa = smem_u32(qs);
-
-  // Tile `it`'s scores into sc, issued as one wgmma group: sc[4 j + 2 i + e] is
-  // row r0 + g + 8 i, key 8 j + 2 t + e
-  float sc[W_BK / 2];
-  auto issue_scores = [&](int it) {
-    const int s = it % W_STAGES;
-    const uint32_t kt = smem_u32(smem + W_K_OFF + s * TILE);
-    mbar_wait(&full_k[s], (it / W_STAGES) & 1);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_m64n128k16<0>(sc, desc_kmajor(qa, W_BQ, 64 * c, kk), desc_kmajor(kt, W_BK, 0, kk),
-                          kk > 0);
-    wgmma_commit();
-  };
-  // o += p v of tile `it` (p, rounded to bf16, as the A fragments of keys 16 kk ..
-  // 16 kk + 15), issued as one wgmma group
-  uint32_t pf[W_BK / 16][4];
-  auto issue_pv = [&](int it) {
-    const int s = it % W_STAGES;
-    const uint32_t vt = smem_u32(smem + W_V_OFF + s * TILE);
-    mbar_wait(&full_v[s], (it / W_STAGES) & 1);
-#pragma unroll
-    for (int kk = 0; kk < W_BK / 16; ++kk)
-      wgmma_m64n128k16_rs(o, pf[kk], desc_mnmajor(vt, W_BK, kk));
-    wgmma_commit();
-  };
-  // once tile `it`'s scores are in sc: turn them into p with K1's online-softmax
-  // rule, freeing the kn tile and its ids once read (a masked score is exactly NEG_INF and gets
-  // p = 0), returning the row sums of p and the factors alpha for o and l
-  const float sl2 = scale * LOG2E;  // raw scores to log2 units
-  float alpha[2], psum[2];
-  auto softmax = [&](int it) {
-    fence_regs(sc);
-    const int* sk = segk + (it % W_STAGES) * W_BK;
-    float tmax[2] = {NEG_INF, NEG_INF};
-    // masking by id is needed with segment ids, else only in a tile past S
-    const bool masked = SEG || (it + 1) * W_BK > S;
-    if (masked) {
-#pragma unroll
-      for (int j = 0; j < W_BK / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int skv = sk[8 * j + 2 * t + e];
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            const bool ok = segq[i] != 0 && skv == segq[i];
-            const float val = ok ? sc[4 * j + 2 * i + e] : NEG_INF;
-            sc[4 * j + 2 * i + e] = val;
-            tmax[i] = fmaxf(tmax[i], val);
-          }
-        }
-      }
-    } else {
-#pragma unroll
-      for (int x = 0; x < W_BK / 2; ++x) tmax[(x >> 1) & 1] = fmaxf(tmax[(x >> 1) & 1], sc[x]);
-    }
-    __syncwarp();  // the tile's ids are read
-    if (lane == 0) mbar_arrive(&empty_k[it % W_STAGES]);
-    float msc[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 1));
-      tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 2));
-      const float m_new = fmaxf(m[i], tmax[i]);
-      alpha[i] = ex2_approx((m[i] - m_new) * sl2);
-      m[i] = m_new;
-      msc[i] = m_new * sl2;
-      psum[i] = 0.f;
-    }
-    if (masked) {
-#pragma unroll
-      for (int x = 0; x < W_BK / 2; ++x) {
-        const int i = (x >> 1) & 1;
-        const float p = sc[x] == NEG_INF ? 0.f : ex2_approx(fmaf(sc[x], sl2, -msc[i]));
-        psum[i] += p;
-        sc[x] = p;
-      }
-    } else {
-#pragma unroll
-      for (int x = 0; x < W_BK / 2; ++x) {
-        const int i = (x >> 1) & 1;
-        const float p = ex2_approx(fmaf(sc[x], sl2, -msc[i]));
-        psum[i] += p;
-        sc[x] = p;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 1);
-      psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 2);
-    }
-  };
-  // after tile it - 1's p v: free its v tile, rescale o and l, pack tile it's p
-  auto rescale_and_pack = [&](int it_done) {
-    fence_regs(o);
-#pragma unroll
-    for (int kk = 0; kk < W_BK / 16; ++kk) fence_regs(pf[kk]);
-    if (it_done >= 0) {
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty_v[it_done % W_STAGES]);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + psum[i];
-#pragma unroll
-    for (int x = 0; x < 64; ++x) o[x] *= alpha[(x >> 1) & 1];
-    to_a_frags(sc, pf);
-  };
-
-  // Software pipeline within the warpgroup: tile it's scores are issued with tile
-  // it - 1's p v behind them, so the softmax of tile it runs while p v is in the
-  // tensor cores.  The arithmetic is the plain loop's, in its order: o and l are
-  // rescaled by tile it's alpha after tile it - 1's p v has been added.
-  wgmma_fence();
-  issue_scores(0);
-  wgmma_wait<0>();
-  softmax(0);
-  rescale_and_pack(-1);
-#pragma unroll 1
-  for (int it = 1; it < ntiles; ++it) {
-    wgmma_fence();
-    issue_scores(it);
-    issue_pv(it - 1);
-    wgmma_wait<1>();
-    softmax(it);
-    wgmma_wait<0>();
-    rescale_and_pack(it - 1);
-  }
-  wgmma_fence();
-  issue_pv(ntiles - 1);
-  wgmma_wait<0>();
-  fence_regs(o);
-#pragma unroll
-  for (int kk = 0; kk < W_BK / 16; ++kk) fence_regs(pf[kk]);
-
-  // epilogue: normalise, round to bf16, stage in the warp's own q rows
-  float inv[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) inv[i] = 1.f / (l[i] == 0.f ? 1.f : l[i]);
-  store_rows_wg(o, inv, qs, W_BQ, r0, out + head_off, rs, q0 + r0, S);
-  if (t == 0) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = q0 + r0 + g + 8 * i;
-      if (row < S)
-        lse[((size_t)b * H + h) * S + row] =
-            m[i] == NEG_INF ? NEG_INF : m[i] * scale + logf(l[i] == 0.f ? 1.f : l[i]);
-    }
-  }
+                         float* __restrict__ lse, int S, int H, float scale) {
+  // kn_map stands in for the q map the body reads only when q arrives by TMA
+  fwd_wg::attn_fwd_body<SEG, true>(kn_map, kn_map, v_map, rq, seg, seg, out, lse, S, S, H,
+                                   scale);
 }
 
 cudaError_t launch_kn_prep(const bf16* k, const float* ks, const float* cs, const float* sn,
@@ -723,24 +463,26 @@ extern "C" int qflux_flash_nr_fwd(const void* q, const void* k, const void* v,
   cudaError_t err;
   if (!q_rows) {
     CUtensorMap kn_map, v_map;
-    if (!encode_heads(&kn_map, kn, B, S, H, W_BK) || !encode_heads(&v_map, v, B, S, H, W_BK))
+    if (!encode_heads(&kn_map, kn, B, S, H, fwd_wg::BK) ||
+        !encode_heads(&v_map, v, B, S, H, fwd_wg::BK))
       return (int)cudaErrorInvalidValue;
     static bool attr = false;
     if (!attr) {
       err = cudaFuncSetAttribute(flash_nr_fwd_bf16_kernel<true>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM);
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, fwd_wg::SMEM);
       if (err == cudaSuccess)
         err = cudaFuncSetAttribute(flash_nr_fwd_bf16_kernel<false>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM);
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize, fwd_wg::SMEM);
       if (err != cudaSuccess) return (int)err;
       attr = true;
     }
     err = launch_kn_prep(kb, ks, cs, sn, cs_bstride, knb, B, S, H, st, st_);
     if (err != cudaSuccess) return (int)err;
+    const fwd_wg::RawQ rq{qb, qs, cs, sn, cs_bstride, st};
     (seg ? flash_nr_fwd_bf16_kernel<true> : flash_nr_fwd_bf16_kernel<false>)<<<
-        dim3((S + W_BQ - 1) / W_BQ, H, B), W_THREADS, W_SMEM, st_>>>(
-        kn_map, v_map, qb, qs, cs, sn, cs_bstride, static_cast<const int*>(seg),
-        static_cast<bf16*>(out), static_cast<float*>(lse), S, H, st, scale);
+        dim3((S + fwd_wg::BQ - 1) / fwd_wg::BQ, H, B), fwd_wg::THREADS, fwd_wg::SMEM, st_>>>(
+        kn_map, v_map, rq, static_cast<const int*>(seg), static_cast<bf16*>(out),
+        static_cast<float*>(lse), S, H, scale);
     return (int)cudaGetLastError();
   }
   err = cudaFuncSetAttribute(flash_nr_fwd_int8_kernel,

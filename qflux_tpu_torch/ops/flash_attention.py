@@ -110,14 +110,12 @@ def _check(name, t, device, dtype, shape):
         raise ValueError(f"flash_attention: {name} is not 16-byte aligned")
 
 
-def _kernel_args(what, q, k, v, q_seg, kv_seg):
-    """Check q, k, v against what the kernels take (CUDA, bf16, D = 128,
-    [B, S, H, D] contiguous and 16-byte aligned, k / v of one shape with q's
-    B and H) and return (B, Sq, Sk, H, int32 q ids, int32 kv ids), the ids
-    both None (unmasked) or both set."""
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention {what}: the kernel runs on CUDA tensors, "
-                         f"got {q.device}")
+def _kernel_args(q, k, v, q_seg, kv_seg):
+    """Check q, k, v against what the kernels take (bf16, D = 128, [B, S, H,
+    D] contiguous and 16-byte aligned, as their TMA tensor maps need; k / v
+    of one shape with q's B and H; all on q's device) and return (B, Sq, Sk,
+    H, int32 q ids, int32 kv ids), the ids both None (unmasked) or both
+    set."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"flash_attention: q / k must be [B, S, H, D], got "
                          f"{tuple(q.shape)} / {tuple(k.shape)}")
@@ -138,6 +136,12 @@ def _kernel_args(what, q, k, v, q_seg, kv_seg):
     return b, sq, sk, h, q_seg, kv_seg
 
 
+def _on_cuda(what, q):
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention {what}: the kernel runs on CUDA tensors, "
+                         f"got {q.device}")
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -146,16 +150,26 @@ def _flash_fwd_cuda(q, k, v, q_seg, kv_seg, scale):
     """Launch K3 (csrc/flash_fwd.cu) on CUDA tensors → (out, lse); raises on
     anything the kernel does not take (`_kernel_args`) and on a CUDA error.
     Counting is the caller's."""
-    b, sq, sk, h, q_seg, kv_seg = _kernel_args("forward", q, k, v, q_seg, kv_seg)
+    _on_cuda("forward", q)
+    _, _, _, _, q_seg, kv_seg = _kernel_args(q, k, v, q_seg, kv_seg)
 
     from qflux_tpu_torch.runtime.build import load_library
 
-    kl = load_library()
+    return _launch_fwd(load_library(), torch.cuda.current_stream(q.device).cuda_stream, q, k,
+                       v, q_seg, kv_seg, scale)
+
+
+def _launch_fwd(kl, stream, q, k, v, q_seg, kv_seg, scale):
+    """The C call of `_flash_fwd_cuda` on checked arguments (int32 ids or
+    both None): allocates out [B, Sq, H, D] and lse [B, H, Sq] f32,
+    launches through `kl` (a runtime.build KernelLibrary) on `stream` and
+    raises on a CUDA error."""
+    b, sq, h, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), device=q.device, dtype=torch.float32)
     code = kl.lib.qflux_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(q_seg), _ptr(kv_seg), out.data_ptr(),
-        lse.data_ptr(), b, sq, sk, h, float(scale), torch.cuda.current_stream(q.device).cuda_stream)
+        lse.data_ptr(), b, sq, k.shape[1], h, float(scale), stream)
     kl.check(code, "flash_fwd launch")
     return out, lse
 
@@ -164,7 +178,8 @@ def _flash_bwd_cuda(q, k, v, q_seg, kv_seg, out, lse, do, scale):
     """Launch K4 (csrc/flash_bwd.cu: delta, then dk / dv, then dq) on CUDA
     tensors → (dq, dk, dv) in q's dtype; raises as `_flash_fwd_cuda`.
     Counting is the caller's."""
-    b, sq, sk, h, q_seg, kv_seg = _kernel_args("backward", q, k, v, q_seg, kv_seg)
+    _on_cuda("backward", q)
+    b, sq, sk, h, q_seg, kv_seg = _kernel_args(q, k, v, q_seg, kv_seg)
     _check("out", out, q.device, torch.bfloat16, q.shape)
     _check("do", do, q.device, torch.bfloat16, q.shape)
     _check("lse", lse, q.device, torch.float32, (b, h, sq))

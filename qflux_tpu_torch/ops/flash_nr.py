@@ -457,16 +457,16 @@ def _flash_nr_bwd_cuda(q, k, v, q_scale2, k_scale2, cos, sin, st, segment_ids, s
                        out, lse, do, q_rows=0):
     """Launch K2 (csrc/flash_nr_bwd.cu) on CUDA tensors → (dq, dk, dv in
     q.dtype, dq_scale2, dk_scale2 f32 [2, D]); raises as `_flash_nr_cuda`.
-    The kernel writes one [2, D] scale-gradient partial per (b, h, 64-row
-    tile); they are summed here, as `_bwd_nr` sums its per-(b, h) ones.
-    q_rows > 0: its s_int8 mode, the scores recomputed from q quantized in
-    `q_rows`-row tiles (the backward's)."""
+    q_rows = 0: the bf16 mode, a prep (qn, kn, delta) then K4's Hopper
+    loops with the rope + norm backward as their epilogue.  q_rows > 0: its
+    s_int8 mode, the scores recomputed from q quantized in `q_rows`-row
+    tiles (the backward's)."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_nr backward: the kernel runs on CUDA tensors, "
                          f"got {q.device}")
     _check_rows(q_rows, 64, " backward")
     qs, ks, cs_bstride, seg = _kernel_args(q, k, v, q_scale2, k_scale2, cos, sin, segment_ids)
-    b, s, h, d = q.shape
+    b, s, h, _ = q.shape
     _check("out", out, q.device, q.dtype, q.shape)
     _check("do", do, q.device, q.dtype, q.shape)
     _check("lse", lse, q.device, torch.float32, (b, h, s))
@@ -474,16 +474,39 @@ def _flash_nr_bwd_cuda(q, k, v, q_scale2, k_scale2, cos, sin, st, segment_ids, s
 
     from qflux_tpu_torch.runtime.build import load_library
 
-    kl = load_library()
-    qn, kn = torch.empty_like(q), torch.empty_like(k)  # scratch: normed + roped q / k
+    return _launch_bwd(load_library(), torch.cuda.current_stream(q.device).cuda_stream, q, k,
+                       v, qs, ks, cos, sin, cs_bstride, seg, st, scale, out, lse, do, q_rows)
+
+
+def _bwd_scratch(q, q_rows):
+    """K2's scratch on q's device: qn, kn (the normed and roped q / k in q's
+    dtype) and the f32 delta [B, H, S], which both modes' prep writes; and
+    the s_int8 mode's qq, kq (int8 [B, S, H, D]) and amax (`_int8_scratch`),
+    else None."""
+    b, s, h, _ = q.shape
+    qn, kn = torch.empty_like(q), torch.empty_like(q)
     delta = torch.empty((b, h, s), device=q.device, dtype=torch.float32)
-    qq, kq, amax = (None, None, None) if not q_rows else (
-        torch.empty(q.shape, device=q.device, dtype=torch.int8), *_int8_scratch(k, q_rows))
+    if not q_rows:
+        return qn, kn, delta, None, None, None
+    qq = torch.empty(q.shape, device=q.device, dtype=torch.int8)
+    return (qn, kn, delta, qq, *_int8_scratch(q, q_rows))
+
+
+def _launch_bwd(kl, stream, q, k, v, qs, ks, cos, sin, cs_bstride, seg, st, scale, out, lse,
+                do, q_rows):
+    """The C call of `_flash_nr_bwd_cuda` on checked arguments (`_kernel_args`'
+    f32 scale pairs, cos / sin batch stride and int32 ids): allocates the
+    scratch (`_bwd_scratch`), dq / dk / dv and the [2, D] scale-gradient
+    partials, one per (b, h, 64-row tile) (`qflux_flash_nr_bwd_tiles`, the
+    same in both modes), launches through `kl` (a runtime.build
+    KernelLibrary) on `stream`, raises on a CUDA error and sums the partials,
+    as `_bwd_nr` sums its per-(b, h) ones."""
+    b, s, h, d = q.shape
+    qn, kn, delta, qq, kq, amax = _bwd_scratch(q, q_rows)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     n_tiles = kl.lib.qflux_flash_nr_bwd_tiles(s)
     dqs_p = torch.empty((b, h, n_tiles, 2, d), device=q.device, dtype=torch.float32)
     dks_p = torch.empty_like(dqs_p)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     code = kl.lib.qflux_flash_nr_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), qs.data_ptr(), ks.data_ptr(),
         cos.data_ptr(), sin.data_ptr(), cs_bstride, _ptr(seg),

@@ -1,11 +1,14 @@
-"""The host side of kernels K1 (bf16 and s_int8) and K4 (qflux_tpu_torch/ops/
-flash_nr.py, ops/flash_attention.py): the scratch each mode allocates and the
-arguments each wrapper passes to the C entry points, checked on CPU tensors
-against a stand-in library that records its calls.  The kernels themselves
-run only on the card (tests/test_torch_card.py).
+"""The host side of kernels K1, K2 (bf16 and s_int8), K3 and K4
+(qflux_tpu_torch/ops/flash_nr.py, ops/flash_attention.py): the scratch each
+mode allocates and the arguments each wrapper passes to the C entry points,
+checked on CPU tensors against a stand-in library that records its calls.
+The kernels themselves run only on the card (tests/test_torch_card.py).
 
 K1's prep norms and ropes k into the scratch kn in both modes, so kn is
-always passed; kq and amax only in the s_int8 mode.  K4 takes an f32 delta
+always passed; kq and amax only in the s_int8 mode.  K2's prep writes qn, kn
+and delta in both modes; qq, kq and amax only in the s_int8 mode; its
+scale-gradient partials are one [2, D] per (b, h, 64-row tile) in both.  K3
+reads q, k and v by TMA (16-byte aligned, contiguous).  K4 takes an f32 delta
 scratch [B, H, Sq].
 """
 
@@ -24,18 +27,25 @@ D = 128
 
 class _RecordingLib:
     """Stands in for the ctypes library: every entry point records its
-    arguments and returns `code`."""
+    arguments, runs the hook `on[name]` on them where there is one, and
+    returns `code`; `qflux_flash_nr_bwd_tiles` answers as the C one does."""
 
     def __init__(self, code=0):
         self.calls = []
         self.code = code
+        self.on = {}
 
     def qflux_cuda_error_string(self, code):
         return f"stand-in error {code}".encode()
 
+    def qflux_flash_nr_bwd_tiles(self, s):
+        return -(-s // 64)
+
     def __getattr__(self, name):
         def entry(*args):
             self.calls.append((name, args))
+            if name in self.on:
+                self.on[name](*args)
             return self.code
         return entry
 
@@ -166,3 +176,189 @@ def test_cpu_tensors_never_reach_the_kn_prep():
     q, k, v, qs2, ks2, cos, sin, _ = _k1_args(1, 40, 2, False, False)
     with pytest.raises(ValueError):
         tnr._kn_prep_cuda(k, ks2, cos, sin, 0)
+
+
+# ---------------------------------------------------------------------------
+# K2: the backward of K1, bf16 and s_int8
+
+@pytest.mark.parametrize("q_rows", [0, 64, 128])
+@pytest.mark.parametrize("s", [77, 300])
+def test_bwd_nr_scratch_per_mode(q_rows, s):
+    """qn, kn have q's shape and dtype and delta is f32 [B, H, S] in both
+    modes; the s_int8 mode adds the int8 q and k and one amax slot per (b,
+    h) for k and one per q tile."""
+    q = torch.zeros(2, s, 3, D, dtype=torch.bfloat16)
+    qn, kn, delta, qq, kq, amax = tnr._bwd_scratch(q, q_rows)
+    assert qn.shape == kn.shape == q.shape and qn.dtype == kn.dtype == torch.bfloat16
+    assert delta.shape == (2, 3, s) and delta.dtype == torch.float32
+    if not q_rows:
+        assert qq is None and kq is None and amax is None
+        return
+    assert qq.shape == kq.shape == q.shape and qq.dtype == kq.dtype == torch.int8
+    assert amax.shape == (2, 3, 1 + -(-s // q_rows)) and amax.dtype == torch.int32
+
+
+def _fill_partials(b, s, h):
+    """A stand-in for the kernel's partial writes: every [2, D] partial of
+    dq_scale2 gets 1 and of dk_scale2 gets 2, over [B, H, ceil(S / 64), 2,
+    D] f32 at the pointers the C entry is given."""
+    n = b * h * -(-s // 64) * 2 * D
+
+    def fill(*args):
+        for ptr, val in ((args[22], 1.0), (args[23], 2.0)):
+            src = np.full(n, val, np.float32)
+            ctypes.memmove(ptr, src.ctypes.data, 4 * n)
+    return fill
+
+
+@pytest.mark.parametrize("q_rows", [0, 64])
+@pytest.mark.parametrize("s,seg,per_sample_rope", [(77, False, False), (300, True, True)])
+def test_bwd_nr_launch_arguments(monkeypatch, q_rows, s, seg, per_sample_rope):
+    """`_launch_bwd` hands qflux_flash_nr_bwd the inputs, the cos / sin batch
+    stride, the int32 ids (or None), out / lse / do, the qn / kn / delta
+    scratch it allocated (both modes), qq / kq / amax only in the s_int8
+    mode, the mode's q_rows, dq / dk / dv, the two partial buffers, the shape,
+    st and scale; it returns dq / dk / dv in the inputs' shapes and the
+    partials summed over [B, H, ceil(S / 64)]."""
+    b, h, st, scale = 2, 3, 20, 0.125
+    q, k, v, qs2, ks2, cos, sin, ids = _k1_args(b, s, h, seg, per_sample_rope, seed=s)
+    qs, ks, cs_bstride, seg32 = tnr._kernel_args(q, k, v, qs2, ks2, cos, sin, ids)
+    out, do = torch.zeros_like(q), torch.ones_like(q)
+    lse = torch.zeros(b, h, s)
+    made = []
+    real = tnr._bwd_scratch
+    monkeypatch.setattr(tnr, "_bwd_scratch", lambda qq_, rows: made.append(real(qq_, rows))
+                        or made[-1])
+    kl = _library()
+    kl.lib.on["qflux_flash_nr_bwd"] = _fill_partials(b, s, h)
+    dq, dk, dv, dqs, dks = tnr._launch_bwd(kl, 4321, q, k, v, qs, ks, cos, sin, cs_bstride,
+                                           seg32, st, scale, out, lse, do, q_rows)
+    assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
+    assert all(t.dtype == torch.bfloat16 for t in (dq, dk, dv))
+    n_tiles = -(-s // 64)
+    assert dqs.shape == dks.shape == (2, D)
+    assert bool((dqs == b * h * n_tiles).all()) and bool((dks == 2 * b * h * n_tiles).all())
+    name, args = kl.lib.calls[-1]
+    assert name == "qflux_flash_nr_bwd" and len(args) == len(build._SIGNATURES[name][1])
+    qn, kn, delta, qq, kq, amax = made[0]
+    assert args[:7] == tuple(t.data_ptr() for t in (q, k, v, qs, ks, cos, sin))
+    assert args[7] == (s * D if per_sample_rope else 0)
+    assert args[8] == (None if seg32 is None else seg32.data_ptr())
+    assert args[9:12] == (out.data_ptr(), lse.data_ptr(), do.data_ptr())
+    assert args[12:15] == (qn.data_ptr(), kn.data_ptr(), delta.data_ptr())
+    assert args[15:19] == ((None, None, None, 0) if not q_rows
+                           else (qq.data_ptr(), kq.data_ptr(), amax.data_ptr(), q_rows))
+    assert args[19:22] == (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    assert args[22] != args[23] and all(isinstance(a, int) for a in args[22:24])
+    assert args[24:29] == (b, s, h, st, scale) and args[29] == 4321
+
+
+def test_bwd_nr_launch_raises_on_a_cuda_error():
+    """A nonzero code from K2's C entry point raises with its message."""
+    q, k, v, qs2, ks2, cos, sin, _ = _k1_args(1, 40, 2, False, False)
+    qs, ks, cs_bstride, seg32 = tnr._kernel_args(q, k, v, qs2, ks2, cos, sin, None)
+    with pytest.raises(RuntimeError, match="flash_nr_bwd launch: CUDA error 700"):
+        tnr._launch_bwd(_library(700), 0, q, k, v, qs, ks, cos, sin, cs_bstride, seg32, 0,
+                        0.1, q, torch.zeros(1, 2, 40), q, 0)
+
+
+def test_bwd_nr_prep_entry_point_is_declared():
+    """The bf16 backward's prep (timed apart by the smoke) takes the cos /
+    sin batch stride as a 64-bit integer, as the main entry does."""
+    restype, argtypes = build._SIGNATURES["qflux_flash_nr_bwd_prep"]
+    assert restype is ctypes.c_int and len(argtypes) == 17
+    assert argtypes[6] is ctypes.c_longlong
+    assert build._SIGNATURES["qflux_flash_nr_bwd"][1][7] is ctypes.c_longlong
+
+
+# ---------------------------------------------------------------------------
+# K3: the plain flash forward
+
+def _k3_args(sq, sk, ids, b=2, h=3):
+    rng = np.random.default_rng(sq + 3 * sk)
+    q = torch.from_numpy(rng.standard_normal((b, sq, h, D)).astype(np.float32)).bfloat16()
+    k, v = (torch.from_numpy(rng.standard_normal((b, sk, h, D)).astype(np.float32)).bfloat16()
+            for _ in range(2))
+    q_seg = kv_seg = None
+    if ids:
+        q_seg = torch.ones(b, sq, dtype=torch.int64)
+        kv_seg = torch.ones(b, sk, dtype=torch.int64)
+        q_seg[:, sq // 2:] = 2
+        kv_seg[:, sk // 3:] = 0
+    return q, k, v, q_seg, kv_seg
+
+
+@pytest.mark.parametrize("sq,sk,ids", [(300, 520, True), (520, 300, True), (77, 77, False),
+                                       (4000, 2000, False)])
+def test_fwd_launch_arguments_k3(sq, sk, ids):
+    """`_launch_fwd` hands qflux_flash_fwd q, k, v, the int32 ids (or None),
+    out and lse, then B, Sq, Sk, H, the scale and the stream; it returns out
+    [B, Sq, H, D] bf16 and lse [B, H, Sq] f32."""
+    b, h, scale = 2, 3, 0.0625
+    q, k, v, q_seg, kv_seg = _k3_args(sq, sk, ids, b, h)
+    _, _, _, _, qs32, ks32 = tfa._kernel_args(q, k, v, q_seg, kv_seg)
+    assert (qs32 is None) == (not ids) and (qs32 is None or qs32.dtype == torch.int32)
+    kl = _library()
+    out, lse = tfa._launch_fwd(kl, 55, q, k, v, qs32, ks32, scale)
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
+    (name, args), = kl.lib.calls
+    assert name == "qflux_flash_fwd" and len(args) == len(build._SIGNATURES[name][1])
+    assert args[:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    assert args[3:5] == ((None, None) if not ids else (qs32.data_ptr(), ks32.data_ptr()))
+    assert args[5:7] == (out.data_ptr(), lse.data_ptr())
+    assert args[7:12] == (b, sq, sk, h, scale) and args[12] == 55
+
+
+def test_fwd_launch_raises_on_a_cuda_error_k3():
+    """A nonzero code from K3's C entry point (also what a tensor map that
+    cannot be encoded returns) raises with its message."""
+    q, k, v, _, _ = _k3_args(64, 64, False)
+    with pytest.raises(RuntimeError, match="flash_fwd launch: CUDA error 1"):
+        tfa._launch_fwd(_library(1), 0, q, k, v, None, None, 0.1)
+
+
+def test_k3_refuses_misaligned_or_non_contiguous_inputs():
+    """K3 reads q, k and v by TMA: a q / k / v that is not 16-byte aligned
+    or not contiguous is refused before a launch."""
+    q, k, v, _, _ = _k3_args(64, 64, False, b=1, h=2)
+    n = q.numel()
+    shifted = torch.zeros(n + 1, dtype=torch.bfloat16)[1:].view(q.shape)  # 2-byte offset
+    assert shifted.data_ptr() % 16
+    strided = torch.zeros(1, 2, 64, D, dtype=torch.bfloat16).transpose(1, 2)  # [B, S, H, D]
+    assert strided.shape == q.shape and not strided.is_contiguous()
+    for args, what in [((shifted, k, v), "q is not 16-byte aligned"),
+                       ((strided, k, v), "q is not contiguous"),
+                       ((q, shifted, v), "k is not 16-byte aligned"),
+                       ((q, k, strided), "v is not contiguous")]:
+        with pytest.raises(ValueError, match=what):
+            tfa._kernel_args(*args, None, None)
+
+
+def test_cpu_tensors_never_reach_the_k2_or_k3_entries(monkeypatch):
+    """CPU tensors never load the library: K2's and K3's launchers refuse
+    them, and the public entry points send them to the plain versions (a
+    forward and a backward through each), counting no launch."""
+    def refuse():
+        raise AssertionError("a CPU tensor reached the kernel library")
+
+    monkeypatch.setattr(build, "load_library", refuse)
+    q, k, v, qs2, ks2, cos, sin, ids = _k1_args(1, 40, 2, True, False)
+    before = (tnr.KERNEL_LAUNCHES, tnr.BWD_KERNEL_LAUNCHES, tfa.KERNEL_LAUNCHES,
+              tfa.BWD_KERNEL_LAUNCHES)
+    lse = torch.zeros(1, 2, 40)
+    with pytest.raises(ValueError, match="CUDA"):
+        tnr._flash_nr_bwd_cuda(q, k, v, qs2, ks2, cos, sin, 8, ids, 0.1, q, lse, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa._flash_fwd_cuda(q, k, v, ids, ids, 0.1)
+    leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    out, _ = tnr.flash_attention_nr(*leaves, qs2, ks2, cos, sin, 8, segment_ids=ids)
+    out.square().sum().backward()
+    o3 = tfa.flash_attention(*leaves, segment_ids=ids)
+    o3.square().sum().backward()
+    o, lse3 = tfa.flash_fwd_with_lse(q, k, v, ids, ids, 0.1)
+    g = tfa.flash_bwd_from_residuals(q, k, v, ids, ids, o, lse3, o, 0.1)
+    assert all(bool(torch.isfinite(x.grad).all()) for x in leaves)
+    assert all(t.dtype == torch.bfloat16 for t in g)
+    assert (tnr.KERNEL_LAUNCHES, tnr.BWD_KERNEL_LAUNCHES, tfa.KERNEL_LAUNCHES,
+            tfa.BWD_KERNEL_LAUNCHES) == before

@@ -959,3 +959,101 @@ def test_k4_text_padding_sq_ne_sk_on_card(sq, sk):
         assert (g.float() - w).abs().max().item() <= 2e-2 * w.abs().max().item()
     assert not got[0][:, 230:256].any()
     assert not got[1][:, 230:256].any() and not got[2][:, 230:256].any()
+
+
+# The redesigned bf16 K2 (the prep, then K4's Hopper loops with the rope + norm
+# backward as their epilogue) and K3 (K1's Hopper loop with q by TMA): ragged S,
+# st inside a 64-row tile, text padding, a fully masked sample, rows with no key
+# of their segment, and two calls identical to the bit
+
+def _k2_segments(s):
+    """Sample 0: Qwen's text padding (rows 230..255, or the last third of a
+    shorter S) at segment 0; sample 1: every row at segment 0 (a fully
+    masked sample)."""
+    seg = np.ones((B, s), np.int32)
+    lo, hi = (230, 256) if s >= 256 else (2 * s // 3, s)
+    seg[0, lo:hi] = 0
+    seg[1] = 0
+    return torch.from_numpy(seg).cuda(), (lo, hi)
+
+
+@pytest.mark.parametrize("s", [77, 2304, 2560])
+@pytest.mark.parametrize("st", [0, 64, 100])
+def test_k2_bf16_ragged_st_and_masked_on_card(s, st):
+    """K2's bf16 mode at B = 2, S not a multiple of its 128-row blocks (77,
+    path C's 2304) and FLUX's 2560, st at 0, at a 64-row tile edge and inside
+    a tile, nonzero do on every row: each of dq / dk / dv / dq_scale2 /
+    dk_scale2 within chip_smoke.py's BWD_REL_TOL (1.5e-2 relative L2) and
+    BWD_MAX_TOL (2e-2 x max|ref|) of the plain version; the padded rows' and
+    the fully masked sample's dq / dk / dv exactly 0; a second call
+    identical to the bit."""
+    args = _inputs(51 + s + st, s)
+    seg, (lo, hi) = _k2_segments(s)
+    do = torch.randn(B, s, H, D, device="cuda").to(torch.bfloat16)
+    out, lse = tnr._flash_nr_cuda(*args, st, seg, D ** -0.5)
+    got = tnr._flash_nr_bwd_cuda(*args, st, seg, D ** -0.5, out, lse, do)
+    again = tnr._flash_nr_bwd_cuda(*args, st, seg, D ** -0.5, out, lse, do)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref = tnr.flash_attention_nr_bwd_reference(*args, st, do, segment_ids=seg)
+    for g, r in zip(got, ref):
+        assert bool(torch.isfinite(g).all())
+        assert _rel(g, r) <= 1.5e-2
+        assert (g.float() - r).abs().max().item() <= 2e-2 * r.abs().max().item()
+    for g in got[:3]:
+        assert not g[0, lo:hi].any() and not g[1].any() and bool(g[0, :lo].any())
+
+
+def _k3_hop_inputs(seed):
+    """A ring hop at Sq = 300 != Sk = 520: sample 0's q rows 0..149 at
+    segment 1, 150..199 at segment 3 (no key of this shard has it), the rest
+    padding; its keys at 1 then 2; sample 1 at segment 1 with its last 100
+    keys padding."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, 300, H, D)).astype(np.float32)
+    k, v = (rng.standard_normal((B, 520, H, D)).astype(np.float32) for _ in range(2))
+    q_seg, kv_seg = np.ones((B, 300), np.int32), np.ones((B, 520), np.int32)
+    q_seg[0, 150:200], q_seg[0, 200:] = 3, 0
+    kv_seg[0, 260:], kv_seg[1, 420:] = 2, 0
+    return ([torch.from_numpy(a).cuda().to(torch.bfloat16) for a in (q, k, v)]
+            + [torch.from_numpy(a).cuda() for a in (q_seg, kv_seg)])
+
+
+@pytest.mark.parametrize("case", ["s77_unmasked", "s4000_text_pad", "hop_300x520"])
+def test_k3_redesign_on_card(case):
+    """K3 at B = 2: S = 77 unmasked (one partial q tile and key tile), path
+    B's S = 4000 with Qwen's text padding, and a ring hop with Sq != Sk whose
+    rows 150..199 of sample 0 have no key of their segment: out within 4 bf16
+    ulps at magnitude 1 (1.6e-2) and lse within 1e-4 of the plain version,
+    every row that attends nothing at out = 0 and lse = -1e30, and a second
+    call identical to the bit."""
+    from qflux_tpu_torch.ops import flash_attention as tfa
+
+    if case == "hop_300x520":
+        q, k, v, q_seg, kv_seg = _k3_hop_inputs(61)
+    else:
+        s = 77 if case == "s77_unmasked" else 4000
+        rng = np.random.default_rng(s)
+        q, k, v = (torch.from_numpy(rng.standard_normal((B, s, H, D)).astype(np.float32))
+                   .cuda().to(torch.bfloat16) for _ in range(3))
+        q_seg = kv_seg = None
+        if s == 4000:
+            q_seg = torch.ones(B, s, dtype=torch.int32, device="cuda")
+            q_seg[:, 230:256] = 0
+            kv_seg = q_seg
+    scale = D ** -0.5
+    out, lse = tfa._flash_fwd_cuda(q, k, v, q_seg, kv_seg, scale)
+    out2, lse2 = tfa._flash_fwd_cuda(q, k, v, q_seg, kv_seg, scale)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    ref, ref_lse = tfa.flash_fwd_reference(q, k, v, q_seg, kv_seg, scale)
+    assert (out.float() - ref.float()).abs().max().item() <= 1.6e-2
+    valid = ref_lse > -1e29
+    assert (lse - ref_lse).abs()[valid].max().item() <= 1e-4
+    assert bool((lse[~valid] == -1e30).all())
+    if q_seg is not None:
+        dead = _dead_rows(q_seg, kv_seg)
+        assert bool(dead.any()) and not out[dead].any()
+        assert bool((lse.permute(0, 2, 1)[dead] == -1e30).all())
+    if case == "hop_300x520":
+        assert not out[0, 150:200].any() and bool(out[0, :150].any())
