@@ -57,9 +57,12 @@ runs K6a and its dx K6b (path C).  In phases:
      through the plain attention (relative L2 error), then Trainer.fit at
      bs=1 and bs=2, checked for finite losses, a LoRA b that moved, and
      exactly 57 K1 and 57 K2 launches per step, then a profiled train step;
-  7. kernel K5a (csrc/rq_int4_fwd.cu) against its plain version at every
-     int4-requant GEMM shape of the Qwen forward (exact: max |diff| = 0),
-     with median times beside the bound and torch._int_mm;
+  7. kernel K5a (csrc/rq_int4_fwd.cu: a regrid pass, then an int8 `wgmma`
+     GEMM) against its plain version at every int4-requant GEMM shape of the
+     Qwen forward (exact: max |diff| = 0; two calls identical), timed alone
+     with the weights rotated past L2 beside the bound and torch._int_mm,
+     and the row quantization before it (csrc/rowquant.cu) against
+     quant._rowquant to the bit, timed alone beside it;
   8. Qwen predict (the FLUX model freed first): one full-width forward
      through K5a + K3, through the plain requant route + K3 (identical to
      the bit) and all plain (relative L2 error), then two requests (bs=1
@@ -68,8 +71,8 @@ runs K6a and its dx K6b (path C).  In phases:
      forward (no K1, no s_int8);
   9. kernel K5b (csrc/rq_int4_bwd.cu), the requant matmul's backward,
      against its plain version at the dx of every K5a case and of the bs=2
-     MLP down-projection (exact: max |diff| = 0), with median times beside
-     the bound and torch._int_mm;
+     MLP down-projection (exact: max |diff| = 0; two calls identical), timed
+     as K5a, with the row quantization of g · s_vec;
  10. Qwen train (the predict phase's model): one full-width step's LoRA
      gradients through K5a + K5b + K3 + K4 under "flash_offload" against
      the plain requant route + plain attention under "full" (relative L2
@@ -115,10 +118,11 @@ after.
 
     python3 chip_smoke.py --ab PARENT
 
-is a measurement, not the smoke: K1, K2 (bf16), K3 and K4 alone before and
-after on one card (PARENT an unpacked checkout of an earlier commit, e.g. from
-git archive), and the K1 bf16, K4, K6a / K6b and K1 / K2 s_int8 outputs
-compared to the bit across the two (`ab_main`).  Prints the kernel table as one JSON line before the last (each
+is a measurement, not the smoke: K1, K2 (bf16), K3, K4, K5a and K5b alone
+before and after on one card (PARENT an unpacked checkout of an earlier
+commit, e.g. from git archive), and the K1 / K2 bf16, K3, K4, K5a / K5b,
+K6a / K6b and K1 / K2 s_int8 outputs compared to the bit across the two
+(`ab_main`).  Prints the kernel table as one JSON line before the last (each
 kernel's time, the bound for the same work on this card's published peaks,
 the plain version's time and one PyTorch call's time as a yardstick), the
 wall time, and as the last line {"ok": true, "device": {"platform": "gpu",
@@ -215,6 +219,9 @@ RQ_MAIN = (3744, 3072, 12288)  # the case the kernel table reports
 # the K5b cases: the dx (g [M, N] → dx [M, K]) of every K5a case and of the
 # bs=2 MLP down-projection; the table reports the dx of RQ_MAIN
 RQ_BWD_CASES = RQ_CASES + [(7488, 12288, 3072)]
+# `--ab`'s K5a / K5b cases: the main one (and its dx), the block projections'
+# image-stream GEMM (8 of a block's 12) and the text stream's MLP down (split)
+AB_RQ_CASES = [RQ_MAIN, (3744, 3072, 3072), (256, 12288, 3072)]
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense), for bounds
 PEAK_BYTES_PER_MS = 3.35e9
 PEAK_BF16_PER_MS = 989e9
@@ -1009,114 +1016,207 @@ def phase_train(card: str, trainer) -> tuple[int, int]:
     return k1_total, k2_total
 
 
-def phase_rq_kernel(card: str) -> dict:
-    """K5a against requant_int4_matmul at RQ_CASES: bf16 activations, weights
-    U(±1/sqrt(K)) quantized to int4 with groups of min(128, K).  The kernel
-    must equal the plain version to the bit.  Times: K5a alone on the
-    row-quantized activation (what the bound counts), the wrapper with its
-    plain-torch row quantization, the plain version, and torch._int_mm on
-    the same int8 operands with q8 materialized (the int GEMM JAX's default
-    XLA path runs; a yardstick only)."""
-    from qflux_tpu_torch.ops import int4_matmul, quant
+def _rq_operands(gen, m, k_in, n):
+    """One K5 case: weights U(±1/sqrt(K)) quantized to int4 (groups of
+    min(128, K)) with their requant factors, enough copies of (q4, f, s_vec)
+    to exceed the L2 cache three times, and bf16 x [m, K] and g [m, N]."""
+    from qflux_tpu_torch.ops import quant
 
-    gen = torch.Generator("cuda").manual_seed(3)
-    main = None
-    for m, k_in, n in RQ_CASES:
-        w = (torch.rand(k_in, n, device="cuda", generator=gen) * 2 - 1) / k_in ** 0.5
-        q4, scale = quant.quantize_kernel_int4(w, 128)
-        f, sv = quant._requant_factors(scale)
-        x = torch.randn(m, k_in, device="cuda", generator=gen).to(torch.bfloat16)
-        got = int4_matmul.rq_fused_matmul(x, q4, scale, (f, sv))
+    w = (torch.rand(k_in, n, device="cuda", generator=gen) * 2 - 1) / k_in ** 0.5
+    q4, scale = quant.quantize_kernel_int4(w, 128)
+    f, sv = quant._requant_factors(scale)
+    copies = max(2, int(np.ceil(3 * L2_BYTES / (q4.numel() + f.numel() * 4))))
+    weights = [(q4.clone(), f.clone(), sv.clone()) for _ in range(copies)]
+    x = torch.randn(m, k_in, device="cuda", generator=gen).to(torch.bfloat16)
+    g = torch.randn(m, n, device="cuda", generator=gen).to(torch.bfloat16)
+    return q4, scale, weights, x, g
+
+
+def _k5_alone(ti4, backward, a, sr, weights, out_dtype, reps=20) -> dict:
+    """K5a (or, with `backward`, K5b) alone: its C entry launched back to
+    back (CUDA events around the window) on the row-quantized input `a` (xq
+    [M, K] or gq [M, N]) and its row scales `sr` [M] into a preallocated
+    output, each call on the next copy of the weights, past the L2 cache as
+    each GEMM of a forward finds its weight.  Takes this tree's entry (the
+    regrid pass, the int8 GEMM and, split, the reduction, with `_rq_plan`'s
+    split and a preallocated scratch) and the earlier `mma.sync` one (one
+    kernel, no plan), so `--ab` times both sides with the same function.  Returns
+    the median ms and the output of a first call."""
+    from qflux_tpu_torch.runtime.build import load_library
+
+    kl = load_library()
+    m = a.shape[0]
+    half, n = weights[0][0].shape
+    k_in = 2 * half
+    gsz = k_in // weights[0][1].shape[0]
+    out = torch.empty(m, k_in if backward else n, device="cuda", dtype=out_dtype)
+    f32 = int(out_dtype == torch.float32)
+    stream = torch.cuda.current_stream().cuda_stream
+    extra, bufs = (), ()
+    if hasattr(ti4, "_rq_plan"):
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        plan = ti4._rq_plan(m, n, k_in, gsz, sms, backward)
+        bufs = (torch.empty(plan.scratch, device="cuda", dtype=torch.uint8),
+                torch.empty(max(plan.workspace, 1), device="cuda", dtype=torch.int32))
+        extra = (plan.splits, bufs[0].data_ptr(), bufs[1].data_ptr())
+    if backward:
+        def call(i):
+            q4, f, _ = weights[i]
+            return kl.lib.qflux_rq_int4_bwd(a.data_ptr(), q4.data_ptr(), f.data_ptr(),
+                                            sr.data_ptr(), out.data_ptr(), m, n, k_in, gsz, f32,
+                                            *extra, stream)
+    else:
+        def call(i):
+            q4, f, sv = weights[i]
+            return kl.lib.qflux_rq_int4_fwd(a.data_ptr(), q4.data_ptr(), f.data_ptr(),
+                                            sr.data_ptr(), sv.data_ptr(), out.data_ptr(), m, n,
+                                            k_in, gsz, f32, *extra, stream)
+    kl.check(call(0), "K5b alone" if backward else "K5a alone")
+    first = out.clone()
+    ms = _rotating_ms(call, len(weights), reps=reps)
+    return {"ms": ms, "out": first, "splits": extra[0] if extra else 1}
+
+
+def _rowquant_alone(x, s_vec=None, reps=20) -> float:
+    """The row-quantization kernel alone: its C entry back to back into
+    preallocated outputs (ms)."""
+    from qflux_tpu_torch.runtime.build import load_library
+
+    kl = load_library()
+    m, k = x.shape
+    xq = torch.empty(m, k, device="cuda", dtype=torch.int8)
+    s = torch.empty(m, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    sv = None if s_vec is None else s_vec.data_ptr()
+    f32 = int(x.dtype == torch.float32)
+
+    def call(_):
+        return kl.lib.qflux_rowquant(x.data_ptr(), sv, xq.data_ptr(), s.data_ptr(), m, k, f32,
+                                     stream)
+
+    kl.check(call(0), "rowquant alone")
+    return _rotating_ms(call, 1, reps=reps)
+
+
+def _rq_phase(card: str, backward: bool) -> dict:
+    """K5a (or, with `backward`, K5b) against its plain version at RQ_CASES
+    (RQ_BWD_CASES), through rq_fused_matmul (its backward), bf16 x and g:
+    the kernel must equal the plain version to the bit, and two calls must
+    give the same bits.  Times (CUDA events, weights rotated past the L2
+    cache): the kernel alone (`_k5_alone`, on the row-quantized input: what
+    the bound counts), the row-quantization kernel alone beside the plain
+    `quant._rowquant` on the same input, the whole wrapper (row quantization
+    and kernel), the plain version, and torch._int_mm on the same int8
+    operands with q8 materialized (q8ᵀ contiguous for the dx; the int GEMM
+    JAX's default XLA path runs; a yardstick only).  Prints each case's share
+    of the bound and factor against torch._int_mm; returns the main case's
+    numbers (RQ_MAIN, or its dx) and the row quantization's there."""
+    from qflux_tpu_torch.ops import int4_matmul as ti4, quant
+
+    tag, name = ("rq_bwd", "K5b") if backward else ("rq", "K5a")
+    gen = torch.Generator("cuda").manual_seed(4 if backward else 3)
+    main = rowq = None
+    for m, k_in, n in (RQ_BWD_CASES if backward else RQ_CASES):
+        q4, scale, weights, x, g = _rq_operands(gen, m, k_in, n)
+        f, sv = weights[0][1], weights[0][2]
+        if backward:
+            x.requires_grad_()
+            ti4.rq_fused_matmul(x, q4, scale, (f, sv)).backward(g)
+            got = x.grad
+            x.grad = None
+            ti4.rq_fused_matmul(x, q4, scale, (f, sv)).backward(g)
+            again = x.grad
+            want = quant.requant_int4_matmul_dx(g, q4, (f, sv))
+            a_in, sv_in = g, sv          # the row quantization's input: g · s_vec
+            a, sr = quant._rowquant(g.float() * sv)
+        else:
+            got = ti4.rq_fused_matmul(x, q4, scale, (f, sv))
+            again = ti4.rq_fused_matmul(x, q4, scale, (f, sv))
+            want = quant.requant_int4_matmul(x, q4, scale, (f, sv))
+            a_in, sv_in = x, None
+            a, sr = quant._rowquant(x)
         torch.cuda.synchronize()
-        want = quant.requant_int4_matmul(x, q4, scale, (f, sv))
         err = (got.float() - want.float()).abs().max().item()
         if not (torch.equal(got, want) and bool(torch.isfinite(got).all())):
-            raise AssertionError(f"K5a differs from its plain version at M={m} K={k_in} N={n}: "
-                                 f"max |diff| {err}")
-        xq, sx = quant._rowquant(x)
-        ms = _median_ms(lambda: int4_matmul.rq_int4_fwd_cuda(xq, q4, f, sx, sv, x.dtype))
-        wrapper_ms = _median_ms(lambda: int4_matmul.rq_fused_matmul(x, q4, scale, (f, sv)))
-        plain_ms = _median_ms(lambda: quant.requant_int4_matmul(x, q4, scale, (f, sv)), n=5)
-        q8 = quant._requant_q8(q4, f)
+            raise AssertionError(f"{name} differs from its plain version at M={m} K={k_in} "
+                                 f"N={n}: max |diff| {err}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name} is not deterministic at M={m} K={k_in} N={n}")
+        alone = _k5_alone(ti4, backward, a, sr.reshape(m), weights, g.dtype)
+        if not torch.equal(alone["out"], want):
+            raise AssertionError(f"{name} alone differs from its plain version at M={m} "
+                                 f"K={k_in} N={n}")
+        ms = alone["ms"]
+        # the row quantization: the kernel against the plain version, alone
+        rq_got = ti4.rowquant_cuda(a_in, sv_in)
+        rq_err = max((rq_got[0].int() - a.int()).abs().max().item(),
+                     (rq_got[1] - sr).abs().max().item())
+        if not (torch.equal(rq_got[0], a) and torch.equal(rq_got[1], sr)):
+            raise AssertionError(f"the row quantization differs from quant._rowquant at "
+                                 f"[{m}, {a_in.shape[1]}]: max |diff| {rq_err}")
+        rq_ms = _rowquant_alone(a_in, sv_in)
+        rq_plain_ms = _rotating_ms(
+            lambda i: quant._rowquant(a_in if sv_in is None else a_in.float() * sv_in), 1)
+        c = len(weights)
+        if backward:
+            def wrapper(i):
+                gq_, sg_ = ti4.rowquant_cuda(g, weights[i][2])
+                return ti4.rq_int4_bwd_cuda(gq_, weights[i][0], weights[i][1], sg_, g.dtype)
+            plain = lambda i: quant.requant_int4_matmul_dx(g, weights[i][0], weights[i][1:])
+        else:
+            def wrapper(i):
+                xq_, sx_ = ti4.rowquant_cuda(x)
+                q4_, f_, sv_ = weights[i]
+                return ti4.rq_int4_fwd_cuda(xq_, q4_, f_, sx_, sv_, x.dtype)
+            plain = lambda i: quant.requant_int4_matmul(x, weights[i][0], None, weights[i][1:])
+        wrapper_ms = _rotating_ms(wrapper, c)
+        plain_ms = _rotating_ms(plain, c, reps=3, n=3)
+        q8s = [quant._requant_q8(w[0], w[1]) for w in weights[:4]]
+        if backward:
+            q8s = [q.t().contiguous() for q in q8s]
         try:
-            lib_ms = _median_ms(lambda: torch._int_mm(xq, q8))
+            lib_ms = _rotating_ms(lambda i: torch._int_mm(a, q8s[i]), len(q8s))
         except RuntimeError as e:  # a shape torch._int_mm refuses: no yardstick
             lib_ms = None
-            print(f"[rq] torch._int_mm refuses M={m} K={k_in} N={n}: {e}", flush=True)
+            print(f"[{tag}] torch._int_mm refuses M={m} K={k_in} N={n}: {e}", flush=True)
+        del q8s
         ops = 2.0 * m * k_in * n
-        # xq, q4, f, sx, sv read once; out (bf16) written once
-        n_bytes = m * k_in + k_in * n // 2 + f.numel() * 4 + m * 4 + n * 4 + m * n * 2
+        out_cols = k_in if backward else n
+        # the int8 input, q4, f, the row (and, forward, channel) scales read once; the
+        # output (bf16) written once
+        n_bytes = (m * (n if backward else k_in) + k_in * n // 2 + f.numel() * 4 + m * 4
+                   + (0 if backward else n * 4) + m * out_cols * 2)
         bound = _bound(n_bytes, ops, PEAK_INT8_PER_MS)
-        lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
-        print(f"[rq] M={m} K={k_in} N={n}: max |kernel - plain| {err} (tol 0); K5a "
-              f"{ms:.4f} ms ({ops / ms / 1e9:.1f} TOPS), with row-quant {wrapper_ms:.4f} ms, "
-              f"plain {plain_ms:.3f} ms, torch._int_mm {lib}, bound {bound['bound_ms']:.4f} ms "
-              f"({bound['bound_by']}) [{card}]", flush=True)
+        rq_bound = _bound(a_in.numel() * a_in.element_size() + a.numel() + m * 4
+                          + (0 if sv_in is None else sv_in.numel() * 4), 0, PEAK_INT8_PER_MS)
+        lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms ({ms / lib_ms:.2f}x)"
+        print(f"[{tag}] {'dx of ' if backward else ''}M={m} K={k_in} N={n}: max |kernel - "
+              f"plain| {err} (tol 0), two calls identical; {name} alone {ms:.4f} ms "
+              f"({ops / ms / 1e9:.1f} TOPS, {100 * bound['bound_ms'] / ms:.1f}% of the bound, "
+              f"splits {alone['splits']}), wrapper with the row quantization {wrapper_ms:.4f} "
+              f"ms, plain {plain_ms:.3f} ms, torch._int_mm {lib}, bound "
+              f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}); row quantization "
+              f"[{m}, {a_in.shape[1]}]{' x s_vec' if backward else ''} alone {rq_ms:.4f} ms "
+              f"({100 * rq_bound['bound_ms'] / rq_ms:.1f}% of its {rq_bound['bound_ms']:.4f} ms "
+              f"bound), plain {rq_plain_ms:.4f} ms [{card}]", flush=True)
         if (m, k_in, n) == RQ_MAIN:
             main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                    **bound}
-        del w, q4, scale, f, sv, x, got, want, xq, sx, q8
+                    "wrapper_ms": wrapper_ms, **bound}
+            rowq = {"max_abs_err": rq_err, "ms": rq_ms, "plain_ms": rq_plain_ms,
+                    "library_ms": None, "shape": [m, a_in.shape[1]], **rq_bound}
+        del q4, scale, weights, x, g, got, again, want, a, sr, alone, rq_got
         torch.cuda.empty_cache()
-    return main
+    return {**main, "rowquant": rowq}
+
+
+def phase_rq_kernel(card: str) -> dict:
+    """K5a at RQ_CASES (`_rq_phase`)."""
+    return _rq_phase(card, False)
 
 
 def phase_rq_bwd_kernel(card: str) -> dict:
-    """K5b against requant_int4_matmul_dx at RQ_BWD_CASES, through
-    rq_fused_matmul's backward (bf16 x and g, weights as in phase_rq_kernel).
-    The kernel must equal the plain version to the bit.  Times: K5b alone on
-    the row-quantized g · s_vec (what the bound counts), the backward's whole
-    work (the plain-torch row quantization, then K5b), the plain version,
-    and torch._int_mm(gq, q8ᵀ) on q8ᵀ materialized contiguous (a yardstick
-    only)."""
-    from qflux_tpu_torch.ops import int4_matmul, quant
-
-    gen = torch.Generator("cuda").manual_seed(4)
-    main = None
-    for m, k_in, n in RQ_BWD_CASES:
-        w = (torch.rand(k_in, n, device="cuda", generator=gen) * 2 - 1) / k_in ** 0.5
-        q4, scale = quant.quantize_kernel_int4(w, 128)
-        f, sv = quant._requant_factors(scale)
-        x = torch.randn(m, k_in, device="cuda", generator=gen).to(torch.bfloat16)
-        g = torch.randn(m, n, device="cuda", generator=gen).to(torch.bfloat16)
-        x.requires_grad_()
-        int4_matmul.rq_fused_matmul(x, q4, scale, (f, sv)).backward(g)
-        torch.cuda.synchronize()
-        got = x.grad
-        want = quant.requant_int4_matmul_dx(g, q4, (f, sv))
-        err = (got.float() - want.float()).abs().max().item()
-        if not (torch.equal(got, want) and bool(torch.isfinite(got).all())):
-            raise AssertionError(f"K5b differs from its plain version at M={m} K={k_in} N={n}: "
-                                 f"max |diff| {err}")
-
-        def backward():  # the registered backward's work, uncounted
-            gq_, sg_ = quant._rowquant(g.float() * sv)
-            return int4_matmul.rq_int4_bwd_cuda(gq_, q4, f, sg_, g.dtype)
-
-        gq, sg = quant._rowquant(g.float() * sv)
-        ms = _median_ms(lambda: int4_matmul.rq_int4_bwd_cuda(gq, q4, f, sg, g.dtype))
-        wrapper_ms = _median_ms(backward)
-        plain_ms = _median_ms(lambda: quant.requant_int4_matmul_dx(g, q4, (f, sv)), n=5)
-        q8t = quant._requant_q8(q4, f).t().contiguous()
-        try:
-            lib_ms = _median_ms(lambda: torch._int_mm(gq, q8t))
-        except RuntimeError as e:  # a shape torch._int_mm refuses: no yardstick
-            lib_ms = None
-            print(f"[rq_bwd] torch._int_mm refuses M={m} N={n} K={k_in}: {e}", flush=True)
-        ops = 2.0 * m * k_in * n
-        # gq, q4, f, sg read once; dx (bf16) written once
-        n_bytes = m * n + k_in * n // 2 + f.numel() * 4 + m * 4 + m * k_in * 2
-        bound = _bound(n_bytes, ops, PEAK_INT8_PER_MS)
-        lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
-        print(f"[rq_bwd] dx of M={m} K={k_in} N={n}: max |kernel - plain| {err} (tol 0); K5b "
-              f"{ms:.4f} ms ({ops / ms / 1e9:.1f} TOPS), with row-quant {wrapper_ms:.4f} ms, "
-              f"plain {plain_ms:.3f} ms, torch._int_mm {lib}, bound {bound['bound_ms']:.4f} ms "
-              f"({bound['bound_by']}) [{card}]", flush=True)
-        if (m, k_in, n) == RQ_MAIN:
-            main = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                    **bound}
-        del w, q4, scale, f, sv, x, g, got, want, gq, sg, q8t
-        torch.cuda.empty_cache()
-    return main
+    """K5b at the dx of RQ_BWD_CASES (`_rq_phase`)."""
+    return _rq_phase(card, True)
 
 
 def _qwen_request(rng, cfg, gh, gw, b):
@@ -1137,7 +1237,7 @@ def phase_qwen_predict(card: str):
     """The 20B Qwen-Image-Edit predict path over the int4-requant base at
     832×576 (S = 4000), where JAX's one-chip dispatch runs the norm + rope
     and K3.  Returns the trainer (its model stays loaded for the train
-    phase) and the K3 and K5a launches of the requests."""
+    phase) and the K3, K5a and row-quantization launches of the requests."""
     from qflux_tpu_torch.config import config_from_dict
     from qflux_tpu_torch.ops import flash_attention, int4_matmul
     from qflux_tpu_torch.ops.layers import iter_dense_paths, merge_lora, set_int4_impl
@@ -1188,7 +1288,7 @@ def phase_qwen_predict(card: str):
             c0 = _launch_counts()
             v_k = trainer.adapter.predict_velocity(dit, batch, lat, sigma)
             launched = tuple(b - a for a, b in zip(c0, _launch_counts()))
-            want = (0, 0, per_forward, 0, 0, 0, 0, 0, n_blocks, 0)
+            want = _rq((0, 0, per_forward, 0, 0, 0, 0, 0, n_blocks, 0))
             if launched != want:
                 raise AssertionError(f"the full-width Qwen forward launched {COUNT_NAMES} "
                                      f"{launched} times, expected {want}")
@@ -1236,11 +1336,12 @@ def phase_qwen_predict(card: str):
             raise AssertionError(f"Qwen request {i}: images {images.dtype} {images.shape}")
         if not stats["latents_finite"]:
             raise AssertionError(f"Qwen request {i}: non-finite latents")
-        want = (0, 0, STEPS * per_forward, 0, 0, 0, 0, 0, STEPS * n_blocks, 0)
+        want = _rq((0, 0, STEPS * per_forward, 0, 0, 0, 0, 0, STEPS * n_blocks, 0))
         if launched != want:
             raise AssertionError(f"Qwen request {i}: {COUNT_NAMES} launched {launched} times, "
                                  f"expected {want}")
-    counts = (flash_attention.KERNEL_LAUNCHES, int4_matmul.RQ_KERNEL_LAUNCHES)
+    counts = (flash_attention.KERNEL_LAUNCHES, int4_matmul.RQ_KERNEL_LAUNCHES,
+              int4_matmul.ROWQUANT_LAUNCHES)
     batch = trainer._device_batch(_qwen_request(rng, cfg, gh, gw, 1))
     lat = torch.randn(1, gh * gw, cfg.in_channels, device="cuda").to(torch.bfloat16)
     sigma = torch.full((1,), 0.5, dtype=torch.bfloat16, device="cuda")
@@ -1262,19 +1363,26 @@ def _qwen_train_batch(rng, cfg, gh, gw, b):
     return emb
 
 
-COUNT_NAMES = "K1/K2/K5a/K5b/K1 s_int8/K2 s_int8/K6a/K6b/K3/K4"
+COUNT_NAMES = "K1/K2/K5a/K5b/K1 s_int8/K2 s_int8/K6a/K6b/K3/K4/row quant"
 
 
 def _launch_counts() -> tuple[int, ...]:
-    """(K1, K2, K5a, K5b, K1 s_int8, K2 s_int8, K6a, K6b, K3, K4) launches so
-    far."""
+    """(K1, K2, K5a, K5b, K1 s_int8, K2 s_int8, K6a, K6b, K3, K4, row quant)
+    launches so far."""
     from qflux_tpu_torch.ops import flash_attention, flash_nr, int4_matmul
 
     return (flash_nr.KERNEL_LAUNCHES, flash_nr.BWD_KERNEL_LAUNCHES,
             int4_matmul.RQ_KERNEL_LAUNCHES, int4_matmul.RQ_BWD_KERNEL_LAUNCHES,
             flash_nr.INT8_KERNEL_LAUNCHES, flash_nr.INT8_BWD_KERNEL_LAUNCHES,
             int4_matmul.INT4_KERNEL_LAUNCHES, int4_matmul.INT4_BWD_KERNEL_LAUNCHES,
-            flash_attention.KERNEL_LAUNCHES, flash_attention.BWD_KERNEL_LAUNCHES)
+            flash_attention.KERNEL_LAUNCHES, flash_attention.BWD_KERNEL_LAUNCHES,
+            int4_matmul.ROWQUANT_LAUNCHES)
+
+
+def _rq(counts: tuple[int, ...]) -> tuple[int, ...]:
+    """The first ten of _launch_counts' order, with the row quantization's
+    count appended: one launch before every K5a and every K5b."""
+    return (*counts, counts[2] + counts[3])
 
 
 def _reset_counts() -> None:
@@ -1283,6 +1391,7 @@ def _reset_counts() -> None:
     flash_nr.KERNEL_LAUNCHES = flash_nr.BWD_KERNEL_LAUNCHES = 0
     flash_nr.INT8_KERNEL_LAUNCHES = flash_nr.INT8_BWD_KERNEL_LAUNCHES = 0
     int4_matmul.RQ_KERNEL_LAUNCHES = int4_matmul.RQ_BWD_KERNEL_LAUNCHES = 0
+    int4_matmul.ROWQUANT_LAUNCHES = 0
     int4_matmul.INT4_KERNEL_LAUNCHES = int4_matmul.INT4_BWD_KERNEL_LAUNCHES = 0
     flash_attention.KERNEL_LAUNCHES = flash_attention.BWD_KERNEL_LAUNCHES = 0
 
@@ -1308,7 +1417,7 @@ def phase_qwen_train(card: str, trainer) -> tuple[int, ...]:
     # output reaches the loss: 6 in block 0 (its q/k/v inputs carry none),
     # 12 in each middle block, 9 in the last (its add_out and text MLP feed
     # only the dropped text stream), 1 for proj_out
-    per_step = (0, 0, 2 * 12 * n + 3, 6 + 12 * (n - 2) + 9 + 1, 0, 0, 0, 0, n, n)
+    per_step = _rq((0, 0, 2 * 12 * n + 3, 6 + 12 * (n - 2) + 9 + 1, 0, 0, 0, 0, n, n))
     # the two LoRA layers the loss does not reach: the last block's text
     # queries and text output projection
     zero_grad = {f"blocks/{n - 1}/attn/add_q", f"blocks/{n - 1}/attn/add_out"}
@@ -1598,14 +1707,15 @@ def phase_kernel_int8(card: str) -> tuple[dict, dict]:
     return main
 
 
-def phase_qwen512_predict(card: str, trainer) -> tuple[int, int]:
+def phase_qwen512_predict(card: str, trainer) -> tuple[int, int, int]:
     """Path A, predict: the Qwen model of path B (quantize.attention on) at
     512² with one control image and 256 text tokens (S = 2304), where the
     int8 score GEMM applies.  A full-width forward through K5a + K1 s_int8
     against K5a + the plain int8 attention ("int8_plain"); then two
     requests (bs 1, 2) through Trainer.predict_from_embeddings, each with
-    exactly 60 K1 s_int8 and 723 K5a launches per denoising step and no bf16
-    K1.  Returns the K1 s_int8 and K5a launches of the requests."""
+    exactly 60 K1 s_int8 and 723 K5a (and row-quantization) launches per
+    denoising step and no bf16 K1.  Returns the K1 s_int8, K5a and
+    row-quantization launches of the requests."""
     from qflux_tpu_torch.ops import flash_nr
     from qflux_tpu_torch.ops.layers import merge_lora
 
@@ -1638,7 +1748,7 @@ def phase_qwen512_predict(card: str, trainer) -> tuple[int, int]:
           f"s_int8 vs K5a + plain int8 attention: rel L2 err {rel:.3e} (tol {FORWARD_REL_TOL}), "
           f"|v| rms {v_p.pow(2).mean().sqrt().item():.4f}; {COUNT_NAMES} launches {launched} "
           f"[{card}]", flush=True)
-    if launched != (0, 0, per_forward, 0, n_blocks, 0, 0, 0, 0, 0):
+    if launched != _rq((0, 0, per_forward, 0, n_blocks, 0, 0, 0, 0, 0)):
         raise AssertionError(f"the 512² Qwen forward launched {COUNT_NAMES} {launched} times")
     if not (rel <= FORWARD_REL_TOL and bool(torch.isfinite(v_k).all())):
         raise AssertionError("the 512² Qwen forward through K1 s_int8 disagrees with the plain "
@@ -1670,7 +1780,7 @@ def phase_qwen512_predict(card: str, trainer) -> tuple[int, int]:
             raise AssertionError(f"Qwen 512² request {i}: images {images.dtype} {images.shape}")
         if not stats["latents_finite"]:
             raise AssertionError(f"Qwen 512² request {i}: non-finite latents")
-        want = (0, 0, STEPS * per_forward, 0, STEPS * n_blocks, 0, 0, 0, 0, 0)
+        want = _rq((0, 0, STEPS * per_forward, 0, STEPS * n_blocks, 0, 0, 0, 0, 0))
         if launched != want:
             raise AssertionError(f"Qwen 512² request {i}: {COUNT_NAMES} launched {launched} "
                                  f"times, expected {want}")
@@ -1688,7 +1798,7 @@ def phase_qwen512_predict(card: str, trainer) -> tuple[int, int]:
     _profile(card, f"one Qwen denoising step at 512², bs=1, S = {s}, int8 attention",
              denoising_step)
     merge_lora(dit, None)
-    return counts[4], counts[2]
+    return counts[4], counts[2], counts[10]
 
 
 def phase_qwen512_train(card: str, trainer) -> tuple[int, ...]:
@@ -1708,7 +1818,7 @@ def phase_qwen512_train(card: str, trainer) -> tuple[int, ...]:
 
     dit, cfg = trainer.bundle.dit_params, trainer.bundle.dit_cfg
     n = cfg.num_layers
-    per_step = (0, 0, 2 * 12 * n + 3, 6 + 12 * (n - 2) + 9 + 1, n, n, 0, 0, 0, 0)
+    per_step = _rq((0, 0, 2 * 12 * n + 3, 6 + 12 * (n - 2) + 9 + 1, n, n, 0, 0, 0, 0))
     zero_grad = {f"blocks/{n - 1}/attn/add_q", f"blocks/{n - 1}/attn/add_out"}
     rng = np.random.default_rng(14)
     gen = torch.Generator("cuda").manual_seed(15)
@@ -2091,7 +2201,7 @@ def phase_int4_predict(card: str):
     # 64), txt_in (K = 3584), time_in's first linear (K = 256) and proj_out
     # (N = 64) fail `supports` and take the dequant route
     per_forward = 14 * n_blocks + 1
-    fwd_counts = (n_blocks, 0, 0, 0, 0, 0, per_forward, 0, 0, 0)
+    fwd_counts = _rq((n_blocks, 0, 0, 0, 0, 0, per_forward, 0, 0, 0))
     rng = np.random.default_rng(18)
     gen = torch.Generator("cuda").manual_seed(19)
     gh, gw = trainer.adapter.latent_grid(QWEN512, QWEN512)
@@ -2131,7 +2241,7 @@ def phase_int4_predict(card: str):
     if launched != fwd_counts:
         raise AssertionError(f"the int4 forward launched {COUNT_NAMES} {launched}, expected "
                              f"{fwd_counts}")
-    if launched_default != (n_blocks, 0, 0, 0, 0, 0, 0, 0, 0, 0):
+    if launched_default != _rq((n_blocks, 0, 0, 0, 0, 0, 0, 0, 0, 0)):
         raise AssertionError(f"the int4 forward without {FUSED_INT4} launched {COUNT_NAMES} "
                              f"{launched_default}: K6a must not run")
     if not (rel_p <= FORWARD_REL_TOL and rel_d <= FORWARD_REL_TOL
@@ -2215,7 +2325,7 @@ def phase_int4_train(card: str, trainer) -> tuple[int, ...]:
     # its output reaches the loss: 6 in block 0 (its q/k/v inputs carry
     # none), 12 in each middle block, 9 in the last (its add_out and text MLP
     # feed only the dropped text stream); proj_out takes the dequant route
-    per_step = (n, n, 0, 0, 0, 0, 14 * n + 1 + 12 * n, 6 + 12 * (n - 2) + 9, 0, 0)
+    per_step = _rq((n, n, 0, 0, 0, 0, 14 * n + 1 + 12 * n, 6 + 12 * (n - 2) + 9, 0, 0))
     zero_grad = {f"blocks/{n - 1}/attn/add_q", f"blocks/{n - 1}/attn/add_out"}
     rng = np.random.default_rng(20)
     gen = torch.Generator("cuda").manual_seed(21)
@@ -2332,6 +2442,7 @@ def phase_int4_train(card: str, trainer) -> tuple[int, ...]:
 
 # kernel-name fragments → the groups of the step profiles
 PROFILE_GROUPS = [("K5a rq_int4_fwd", ("rq_int4_fwd",)), ("K5b rq_int4_bwd", ("rq_int4_bwd",)),
+                  ("row quant", ("rowquant",)),
                   # after K5's: "rq_int4_fwd_kernel" contains "int4_fwd_kernel"
                   ("K6a int4_fwd", ("int4_fwd_kernel",)), ("K6b int4_bwd", ("int4_bwd_kernel",)),
                   ("K1 flash_nr_fwd", ("flash_nr_fwd",)),
@@ -2414,7 +2525,10 @@ def _ab_child() -> None:
         sides' K4 see the same residuals);
       * the digests of K6a's and K6b's outputs at every INT4_CASES shape, of
         K1's s_int8 out / lse and of K2's s_int8 dq / dk / dv / dq_scale2 /
-        dk_scale2 at path A's shape.
+        dk_scale2 at path A's shape, and of K2's (bf16) dq / dk / dv / scale
+        gradients and K3's out / lse at every case above;
+      * at every AB_RQ_CASES entry, K5a and K5b alone (`_k5_alone`, weights
+        rotated past the L2 cache) and the digests of their outputs.
     Prints one line, AB_RESULT and a JSON object."""
     from qflux_tpu_torch.ops import flash_attention as fa
     from qflux_tpu_torch.ops import flash_nr
@@ -2422,7 +2536,8 @@ def _ab_child() -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     res = {"card": _nvidia_smi(), "k1": {}, "k2": {}, "k3": {}, "k4": {}, "k6": {},
-           "k1_digest": {}, "k4_digest": {}, "k2_same": {}, "k3_same": {}}
+           "k1_digest": {}, "k4_digest": {}, "k2_same": {}, "k3_same": {}, "k2_digest": {},
+           "k3_digest": {}, "k5a": {}, "k5b": {}, "k5_digest": {}}
     scale = 128 ** -0.5
     gen = torch.Generator("cuda").manual_seed(0)
     for name, b, s, st, seg_kind in CASES:
@@ -2437,6 +2552,7 @@ def _ab_child() -> None:
         g1 = flash_nr._flash_nr_bwd_cuda(*args, st, seg, scale, out, lse, do)
         g2 = flash_nr._flash_nr_bwd_cuda(*args, st, seg, scale, out, lse, do)
         res["k2_same"][name] = all(torch.equal(x, y) for x, y in zip(g1, g2))
+        res["k2_digest"][name] = [_digest(x) for x in g1]
         del args, out, lse, do, g1, g2
         torch.cuda.empty_cache()
     gen = torch.Generator("cuda").manual_seed(13)
@@ -2447,6 +2563,7 @@ def _ab_child() -> None:
         o1, l1 = fa._flash_fwd_cuda(q, k, v, q_seg, kv_seg, scale)
         o2, l2 = fa._flash_fwd_cuda(q, k, v, q_seg, kv_seg, scale)
         res["k3_same"][name] = torch.equal(o1, o2) and torch.equal(l1, l2)
+        res["k3_digest"][name] = [_digest(o1), _digest(l1)]
         del o1, o2, l1, l2
         out, lse = (t.contiguous() for t in fa.flash_fwd_reference(q, k, v, q_seg, kv_seg,
                                                                     scale))
@@ -2476,18 +2593,33 @@ def _ab_child() -> None:
     do = torch.randn(out.shape, device="cuda", generator=gen).to(torch.bfloat16)
     res["k2_s_int8"] = [_digest(g) for g in flash_nr._flash_nr_bwd_cuda(
         *args, QWEN_TXT, seg, scale, out, lse, do, bwd_rows)]
+    gen = torch.Generator("cuda").manual_seed(21)
+    for m, k_in, n in AB_RQ_CASES:
+        _, _, weights, x, g = _rq_operands(gen, m, k_in, n)
+        xq, sx = quant._rowquant(x)
+        gq, sg = quant._rowquant(g.float() * weights[0][2])
+        key = f"{m}x{k_in}x{n}"
+        fw = _median_run(lambda: _k5_alone(ti4, False, xq, sx.reshape(m), weights,
+                                           torch.bfloat16))
+        bw = _median_run(lambda: _k5_alone(ti4, True, gq, sg.reshape(m), weights,
+                                           torch.bfloat16))
+        res["k5a"][key], res["k5b"][key] = {"ms": fw["ms"]}, {"ms": bw["ms"]}
+        res["k5_digest"][key] = [_digest(fw["out"]), _digest(bw["out"])]
+        del weights, x, g, xq, gq, fw, bw
+        torch.cuda.empty_cache()
     print("AB_RESULT " + json.dumps(res), flush=True)
 
 
 def ab_main(parent: str) -> int:
-    """`python3 chip_smoke.py --ab PARENT`: K1, K2 (bf16), K3 and K4 alone,
-    before and after, on one card.  PARENT is an unpacked checkout of an
+    """`python3 chip_smoke.py --ab PARENT`: K1, K2 (bf16), K3, K4, K5a and K5b
+    alone, before and after, on one card.  PARENT is an unpacked checkout of an
     earlier commit (git archive); each side runs `_ab_child` from this file
     in its own process with its own package first on sys.path, in turns
     parent, change, change, parent.  Prints each case's times (mean of the
     two runs of each side), whether the change's K2 and K3 gave the same bits
-    on two calls, and the digests (K1 bf16, K4, K6a / K6b, K1 and K2 s_int8)
-    compared across all four runs; writes the runs to chiprun_out/ab.json.
+    on two calls, and the digests (K1 and K2 bf16, K3, K4, K5a / K5b, K6a /
+    K6b, K1 and K2 s_int8) compared across all four runs; writes the runs to
+    ab.json in the output directory beside this file.
     Exits non-zero if a digest differs or a change's K2 / K3 call did not
     repeat its bits."""
     here = Path(__file__).resolve()
@@ -2527,6 +2659,16 @@ def ab_main(parent: str) -> int:
                   + f"; wrapper host {mean(x['wrapper_host_us'] for x in p):.1f} -> "
                   f"{mean(x['wrapper_host_us'] for x in c):.1f} us per call [{card}]",
                   flush=True)
+    for kern, label, backward in (("k5a", "K5a", False), ("k5b", "K5b", True)):
+        for m, k_in, n in AB_RQ_CASES:
+            key = f"{m}x{k_in}x{n}"
+            p = [r[kern][key]["ms"] for r in runs["parent"]]
+            c = [r[kern][key]["ms"] for r in runs["change"]]
+            pm, cm = mean(p), mean(c)
+            print(f"[ab] {label} {'dx of ' if backward else ''}M={m} K={k_in} N={n}: parent "
+                  f"{pm:.4f} ms ({', '.join(f'{x:.4f}' for x in p)}), change {cm:.4f} ms "
+                  f"({', '.join(f'{x:.4f}' for x in c)}), {pm / cm:.2f}x; change "
+                  f"{2.0 * m * k_in * n / cm / 1e9:.1f} TOPS [{card}]", flush=True)
     every = runs["parent"] + runs["change"]
 
     def same_across(key):
@@ -2535,22 +2677,27 @@ def ab_main(parent: str) -> int:
 
     k6_same, k1_same, k4_same = same_across("k6"), same_across("k1_digest"), \
         same_across("k4_digest")
+    k2_same, k3_same, k5_same = same_across("k2_digest"), same_across("k3_digest"), \
+        same_across("k5_digest")
     int8_same = {key: all(r[key] == every[0][key] for r in every)
                  for key in ("k1_s_int8", "k2_s_int8")}
     repeat = {key: all(all(r[key].values()) for r in runs["change"])
               for key in ("k2_same", "k3_same")}
     print(f"[ab] identical to the bit across the four runs: K6a / K6b outputs at "
           f"{sum(k6_same.values())} of {len(k6_same)} shapes; K1 bf16 out / lse at "
-          f"{sum(k1_same.values())} of {len(k1_same)} cases; K4 dq / dk / dv at "
-          f"{sum(k4_same.values())} of {len(k4_same)} cases; K1 s_int8 out / lse "
+          f"{sum(k1_same.values())} of {len(k1_same)} cases; K2 bf16 grads at "
+          f"{sum(k2_same.values())} of {len(k2_same)} cases; K3 out / lse at "
+          f"{sum(k3_same.values())} of {len(k3_same)} cases; K4 dq / dk / dv at "
+          f"{sum(k4_same.values())} of {len(k4_same)} cases; K5a / K5b outputs at "
+          f"{sum(k5_same.values())} of {len(k5_same)} cases; K1 s_int8 out / lse "
           f"{int8_same['k1_s_int8']}; K2 s_int8 dq / dk / dv / dqs / dks "
           f"{int8_same['k2_s_int8']}. The change's two calls identical: K2 bf16 "
           f"{repeat['k2_same']}, K3 {repeat['k3_same']} [{card}]", flush=True)
     out_dir = here.parent / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "ab.json").write_text(json.dumps(runs, indent=1))
-    checks = [*k6_same.values(), *k1_same.values(), *k4_same.values(), *int8_same.values(),
-              *repeat.values()]
+    checks = [*k6_same.values(), *k1_same.values(), *k2_same.values(), *k3_same.values(),
+              *k4_same.values(), *k5_same.values(), *int8_same.values(), *repeat.values()]
     return 0 if all(checks) else 1
 
 
@@ -2594,13 +2741,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     k5_case = timed(phase_rq_kernel)
-    qwen, (k3_qwen, k5_qwen) = timed(phase_qwen_predict)
+    rowquant_case = k5_case.pop("rowquant")
+    qwen, (k3_qwen, k5_qwen, rq_qwen) = timed(phase_qwen_predict)
     k5b_case = timed(phase_rq_bwd_kernel)
+    rowquant_g_case = k5b_case.pop("rowquant")
     b_fit = timed(phase_qwen_train, qwen)
-    k5_qt, k5b_qt, k3_qt, k4_qt = b_fit[2], b_fit[3], b_fit[8], b_fit[9]
+    k5_qt, k5b_qt, k3_qt, k4_qt, rq_qt = b_fit[2], b_fit[3], b_fit[8], b_fit[9], b_fit[10]
     k1_int8_case, k2_int8_case = timed(phase_kernel_int8)
-    k1_a, k5_a = timed(phase_qwen512_predict, qwen)
-    _, _, k5_at, k5b_at, k1_at, k2_at = timed(phase_qwen512_train, qwen)[:6]
+    k1_a, k5_a, rq_a = timed(phase_qwen512_predict, qwen)
+    a_fit = timed(phase_qwen512_train, qwen)
+    k5_at, k5b_at, k1_at, k2_at, rq_at = a_fit[2], a_fit[3], a_fit[4], a_fit[5], a_fit[10]
     del qwen  # free the int4-requant model before path C's loads
     gc.collect()
     torch.cuda.empty_cache()
@@ -2646,6 +2796,13 @@ def main() -> int:
          "replaces": "qflux_tpu/ops/int4_matmul.py:286",
          "launches": k5b_qt + k5b_at,
          "launches_by_path": {"qwen_train": k5b_qt, "qwen512_train": k5b_at}, **k5b_case},
+        {"name": "rowquant", "route": "cuda",
+         "source": "qflux_tpu_torch/csrc/rowquant.cu",
+         "replaces": "not a TPU kernel: qflux_tpu/ops/quant.py:144 _rowquant, left to XLA",
+         "launches": rq_qwen + rq_qt + rq_a + rq_at,
+         "launches_by_path": {"qwen_predict": rq_qwen, "qwen_train": rq_qt,
+                              "qwen512_predict": rq_a, "qwen512_train": rq_at},
+         "g_times_s_vec": rowquant_g_case, **rowquant_case},
         {"name": "flash_nr_fwd s_int8", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/flash_nr_fwd.cu",
          "replaces": "qflux_tpu/ops/flash_nr.py:192", "mode": "s_int8",

@@ -1,7 +1,7 @@
 // Helpers shared by the port's kernels (flash_nr_fwd.cu, flash_nr_bwd.cu, flash_fwd.cu,
-// flash_bwd.cu, rq_int4_fwd.cu, rq_int4_bwd.cu, int4_fwd.cu, int4_bwd.cu): bf16 rounding, the ldmatrix / mma.sync m16n8k16
-// (bf16) and m16n8k32 (s8) wrappers, and packing two floats into one bf16x2
-// register.  Each translation unit gets its own copy (anonymous namespace): the
+// flash_bwd.cu, rq_int4_fwd.cu, rq_int4_bwd.cu, rowquant.cu, int4_fwd.cu, int4_bwd.cu): bf16 rounding, the ldmatrix / mma.sync m16n8k16
+// (bf16) and m16n8k32 (s8) wrappers, packing two floats into one bf16x2
+// register, and an int4 nibble as an exact f32.  Each translation unit gets its own copy (anonymous namespace): the
 // kernels are compiled separately and linked into one library.
 //
 // Fragment layout of mma m16n8k16 for lane = 4 * g + t: an accumulator c[0..1]
@@ -65,6 +65,15 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// nibble j of `nib` as an exact f32: byte j of `nib` holds n ^ 8 for the nibble
+// n (so its two's-complement value is v = (n ^ 8) - 8); byte_perm puts it in
+// the low mantissa bits of 2^23 (0x4B000000), and 2^23 + 8 is subtracted.  A
+// byte permute and an add per weight, on the integer and float pipes, where
+// I2F would take the narrow conversion unit (the int4 kernels' nibbles).
+__device__ __forceinline__ float nibble_f32(uint32_t nib, int j) {
+  return __fsub_rn(__uint_as_float(__byte_perm(nib, 0x4B000000u, 0x7440 | j)), 8388616.0f);
 }
 
 // two floats → one register of two bf16, `lo` in the low half (the lower column)

@@ -28,16 +28,7 @@
 namespace {
 
 // ---------------------------------------------------------------------------
-// the nibble dequantization
-
-// nibble j of `nib` as an exact f32: byte j of `nib` holds n ^ 8 for the nibble
-// n (so its two's-complement value is v = (n ^ 8) - 8); byte_perm puts it in
-// the low mantissa bits of 2^23 (0x4B000000), and 2^23 + 8 is subtracted.  A
-// byte permute and an add per weight, on the integer and float pipes, where
-// I2F would take the narrow conversion unit.
-__device__ __forceinline__ float nibble_f32(uint32_t nib, int j) {
-  return __fsub_rn(__uint_as_float(__byte_perm(nib, 0x4B000000u, 0x7440 | j)), 8388616.0f);
-}
+// the nibble dequantization (nibble_f32: common.cuh)
 
 // 8 bytes of q4 (w0: bytes 0..3, w1: 4..7) -> the 8 low-nibble weights and the 8
 // high-nibble weights as bf16 (16 bytes each), each bf16(f32(v) * scale) with

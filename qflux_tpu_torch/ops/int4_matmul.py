@@ -31,19 +31,24 @@ launches, `INT4_BWD_KERNEL_LAUNCHES` K6b's.
 **W4A8-requant (`rq_fused_matmul`, the `kernel_q4_rq` form).**  The TPU
 kernels `_rq_fwd_kernel` / `_rq_bwd_kernel` regrid each packed-int4 weight
 tile onto the per-channel int8 grid in VMEM and feed it to the int8 MXU, so
-q8 never reaches HBM; the Hopper kernels (`csrc/rq_int4_fwd.cu`,
-`csrc/rq_int4_bwd.cu`) do the same in registers and shared memory with
-`mma.sync` s8·s8 → s32.  `rq_fused_matmul(x, q4, g_scale)`: on a CUDA tensor
-it calls the custom op `qflux::rq_int4_fwd`, which row-quantizes x with
-plain torch ops (as `_rq_fused_prep` keeps that step in XLA) and launches
-K5a, or raises; the op's registered autograd formula scales the cotangent
-by the channel scales, row-quantizes it (plain torch again, as JAX) and
-launches K5b, or raises.  On a CPU tensor it runs the plain version,
+q8 never reaches HBM.  The Hopper kernels (`csrc/rq_int4_fwd.cu`,
+`csrc/rq_int4_bwd.cu`, shared pieces in `csrc/rq_int4_common.cuh`) regrid
+the weight once per call into a transient scratch in the layout `wgmma`'s
+int8 B operand wants (K5a: q8ᵀ [N, K]; K5b: q8 [K, N]), then run an int8
+GEMM over a TMA ring with `wgmma` s8·s8 → s32; `_rq_plan` picks the split
+of the contraction for the narrow grids.  The row quantization in front of
+both is one pass too (`rowquant`, `csrc/rowquant.cu`; JAX leaves it to
+XLA), equal to `quant._rowquant` to the bit.  `rq_fused_matmul(x, q4,
+g_scale)`: on a CUDA tensor it calls the custom op `qflux::rq_int4_fwd`,
+which row-quantizes x and launches K5a, or raises; the op's registered
+autograd formula row-quantizes the cotangent scaled by the channel scales
+and launches K5b, or raises.  On a CPU tensor it runs the plain version,
 `quant.requant_int4_matmul`, which both kernels equal bit for bit.  The
 TPU's tiling gates (`RQ_BLOCK_*`, `rq_supports`, `_pad_to`) are not needed:
 the kernels mask ragged M, N and K and take every int4-requant shape of the
-model (K a multiple of 64, N of 8, the group size of 4).
-`RQ_KERNEL_LAUNCHES` counts K5a's launches, `RQ_BWD_KERNEL_LAUNCHES` K5b's.
+model (K a multiple of 64, N of 16, the group size of 4).
+`RQ_KERNEL_LAUNCHES` counts K5a's launches, `RQ_BWD_KERNEL_LAUNCHES` K5b's,
+`ROWQUANT_LAUNCHES` the row quantization's.
 
 Both forwards are custom ops (not Python autograd.Functions) so that a
 selective-checkpoint policy sees them, as it sees K1.
@@ -63,6 +68,8 @@ INT4_KERNEL_LAUNCHES = 0    # K6a, csrc/int4_fwd.cu
 INT4_BWD_KERNEL_LAUNCHES = 0  # K6b, csrc/int4_bwd.cu
 RQ_KERNEL_LAUNCHES = 0      # K5a, csrc/rq_int4_fwd.cu
 RQ_BWD_KERNEL_LAUNCHES = 0  # K5b, csrc/rq_int4_bwd.cu
+ROWQUANT_LAUNCHES = 0       # the row quantization before K5a / K5b, csrc/rowquant.cu
+ROWQUANT_MAX_K = 12288      # the longest row csrc/rowquant.cu takes
 
 # JAX's defaults (qflux_tpu/ops/int4_matmul.py: BLOCK_KP, GROUP), for `supports`
 BLOCK_KP = 1536  # packed rows per K tile of the TPU kernel
@@ -314,17 +321,137 @@ def int4_matmul(x, q4, scale):
 
 
 # ---------------------------------------------------------------------------
-# W4A8-requant: K5a / K5b
+# W4A8-requant: the row quantization, K5a / K5b
+
+
+def rowquant_cuda(x, s_vec=None):
+    """The row quantization on the card (csrc/rowquant.cu): x [M, K] bf16 or
+    f32 (times s_vec [K] f32 first, when given) → (xq [M, K] int8, s [M, 1]
+    f32), equal to `quant._rowquant(x.float() * s_vec)` to the bit.  Raises on
+    anything the kernel does not take and on a CUDA error.  Counting is the
+    caller's."""
+    if x.device.type != "cuda":
+        raise ValueError(f"rowquant: the kernel runs on CUDA tensors, got {x.device}")
+    _rowquant_checks(x, s_vec)
+    m, k = x.shape
+    xq = torch.empty((m, k), device=x.device, dtype=torch.int8)
+    s = torch.empty((m, 1), device=x.device, dtype=torch.float32)
+    from qflux_tpu_torch.runtime.build import load_library
+
+    kl = load_library()
+    _rowquant_launch(kl, torch.cuda.current_stream(x.device).cuda_stream, x, s_vec, xq, s)
+    return xq, s
+
+
+def _rowquant_checks(x, s_vec):
+    """The row-quantization kernel's rules on x [M, K] and s_vec [K]."""
+    what = "rowquant"
+    if x.dim() != 2 or x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"{what}: x is {x.dtype} of shape {tuple(x.shape)}; the kernel takes "
+                         "[M, K] bfloat16 or float32")
+    m, k = x.shape
+    if m == 0 or k % 8 or k > ROWQUANT_MAX_K:
+        raise ValueError(f"{what}: M={m}, K={k}; the kernel takes M > 0, K % 8 == 0 and "
+                         f"K <= {ROWQUANT_MAX_K}")
+    _check("x", x, x.device, x.dtype, (m, k), what)
+    if s_vec is not None:
+        _check("s_vec", s_vec, x.device, torch.float32, (k,), what)
+
+
+def _rowquant_launch(kl, stream, x, s_vec, xq, s):
+    code = kl.lib.qflux_rowquant(x.data_ptr(), None if s_vec is None else s_vec.data_ptr(),
+                                 xq.data_ptr(), s.data_ptr(), x.shape[0], x.shape[1],
+                                 int(x.dtype == torch.float32), stream)
+    kl.check(code, "rowquant launch")
+
+
+def rowquant(x, s_vec=None):
+    """Row-quantize x [M, K] (times s_vec [K] first, when given: K5b's
+    g · s_vec) → (xq int8, s [M, 1] f32).  A CUDA tensor launches the kernel
+    (counted in ROWQUANT_LAUNCHES) or raises; a CPU tensor takes the plain
+    version, `quant._rowquant`."""
+    global ROWQUANT_LAUNCHES
+    if x.device.type == "cpu":
+        return _rowquant(x if s_vec is None else x.float() * s_vec)
+    out = rowquant_cuda(x.contiguous(), s_vec)
+    ROWQUANT_LAUNCHES += 1
+    return out
 
 
 def kernel_group_size(k_in: int, n_out: int, n_groups: int) -> int:
     """The group size K5a and K5b use for a [K/2, N] weight with `n_groups`
     groups; raises on a shape the kernels do not take."""
-    if k_in % 64 or n_out % 8 or n_groups <= 0 or k_in % n_groups or (k_in // n_groups) % 4:
+    if k_in % 64 or n_out % 16 or n_groups <= 0 or k_in % n_groups or (k_in // n_groups) % 4:
         raise ValueError(f"rq_fused_matmul: K={k_in}, N={n_out}, {n_groups} groups; the "
-                         "kernel takes K % 64 == 0, N % 8 == 0 and a group size that is a "
+                         "kernel takes K % 64 == 0, N % 16 == 0 and a group size that is a "
                          "multiple of 4")
     return k_in // n_groups
+
+
+@dataclasses.dataclass(frozen=True)
+class RqPlan:
+    """How K5a or K5b covers one call: `splits` ranges of the contraction
+    (the GEMM's grid is output tiles × splits), the int32 workspace of the
+    split partial sums (`workspace` elements, 0 when the contraction is not
+    split) and the bytes of the regridded weight q8 (`scratch`)."""
+
+    splits: int
+    workspace: int
+    scratch: int
+
+
+# the GEMM's tile (csrc/rq_int4_common.cuh): BM rows x BN output columns, the
+# contraction in stages of BK bytes
+RQ_BM, RQ_BN, RQ_BK = 256, 128, 128
+
+
+@functools.lru_cache(maxsize=4096)
+def _rq_plan(m: int, n: int, k_in: int, gsz: int, sms: int = 132,
+             backward: bool = False) -> RqPlan:
+    """The tiling of K5a (xq [m, k_in] · q8 → [m, n]) or, with `backward`, of
+    K5b (gq [m, n] · q8ᵀ → dx [m, k_in]) on a card with `sms` SMs; raises on
+    a shape the kernels do not take (`kernel_group_size`).
+
+    A block computes RQ_BM rows × RQ_BN output columns (K5a: of N; K5b: of K)
+    and walks the contraction (K5a: K; K5b: N) in stages of RQ_BK.  Where the
+    output tiles fill less than one wave, the contraction is split into
+    `splits` ranges of whole stages, as many as keep the grid within one wave;
+    the int32 partial sums go to a workspace [splits, m, out columns] and a
+    second pass adds them (exact, so the result is the unsplit one to the
+    bit).  The weight is regridded once per call into a K·N-byte scratch."""
+    kernel_group_size(k_in, n, k_in // gsz if gsz and k_in % gsz == 0 else 0)
+    out_cols, contraction = (k_in, n) if backward else (n, k_in)
+    tiles = -(-m // RQ_BM) * -(-out_cols // RQ_BN)
+    chunks = -(-contraction // RQ_BK)
+    splits = 1 if tiles >= sms else max(1, min(chunks, sms // tiles))
+    ws = splits * m * out_cols if splits > 1 else 0
+    return RqPlan(splits=splits, workspace=ws, scratch=k_in * n)
+
+
+@functools.lru_cache(maxsize=4096)
+def _rq_device_plan(index: int, m: int, n: int, k_in: int, gsz: int, backward: bool) -> RqPlan:
+    """`_rq_plan` for the card `index` (its SM count)."""
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return _rq_plan(m, n, k_in, gsz, sms, backward)
+
+
+# K5a's and K5b's scratch, one byte buffer per (device, stream): the
+# regridded weight q8 at its start, the split partial sums after it; grown to
+# the largest call's need (~53 MB at the Qwen DiT's shapes) and reused, as
+# the K6 workspace is (the kernels on one stream run in order)
+_RQ_SCRATCH: dict = {}
+
+
+def _rq_buffers(device, stream: int, plan: RqPlan):
+    """(q8 scratch pointer, workspace pointer or None) for `plan`."""
+    q8_bytes = -(-plan.scratch // 256) * 256
+    need = q8_bytes + 4 * plan.workspace
+    key = (device.index, stream)
+    buf = _RQ_SCRATCH.get(key)
+    if buf is None or buf.numel() < need:
+        buf = _RQ_SCRATCH[key] = torch.empty(need, device=device, dtype=torch.uint8)
+    ptr = buf.data_ptr()
+    return ptr, (ptr + q8_bytes if plan.workspace else None)
 
 
 def _check_common(what, t, q4, f, out_dtype):
@@ -341,11 +468,27 @@ def _check_common(what, t, q4, f, out_dtype):
     return half, n, gsz
 
 
+def _rq_fwd_launch(kl, stream, xq, q4, f, sx, s_vec, out, gsz, plan, q8, ws):
+    m, k_in = xq.shape
+    code = kl.lib.qflux_rq_int4_fwd(xq.data_ptr(), q4.data_ptr(), f.data_ptr(), sx.data_ptr(),
+                                    s_vec.data_ptr(), out.data_ptr(), m, q4.shape[1], k_in, gsz,
+                                    int(out.dtype == torch.float32), plan.splits, q8, ws, stream)
+    kl.check(code, "rq_int4_fwd launch")
+
+
+def _rq_bwd_launch(kl, stream, gq, q4, f, sg, dx, gsz, plan, q8, ws):
+    m, n = gq.shape
+    code = kl.lib.qflux_rq_int4_bwd(gq.data_ptr(), q4.data_ptr(), f.data_ptr(), sg.data_ptr(),
+                                    dx.data_ptr(), m, n, dx.shape[1], gsz,
+                                    int(dx.dtype == torch.float32), plan.splits, q8, ws, stream)
+    kl.check(code, "rq_int4_bwd launch")
+
+
 def rq_int4_fwd_cuda(xq, q4, f, sx, s_vec, out_dtype):
     """Launch K5a on CUDA tensors: xq [M, K] int8, q4 [K/2, N] int8, f [K/G,
     N] f32, sx [M] (or [M, 1]) f32, s_vec [N] f32 → [M, N] in out_dtype
-    (bf16 or f32).  Raises on anything the kernel does not take and on a
-    CUDA error.  Counting is the caller's."""
+    (bf16 or f32), tiled by `_rq_plan`.  Raises on anything the kernel does
+    not take and on a CUDA error.  Counting is the caller's."""
     half, n, gsz = _check_common("rq_fused_matmul", xq, q4, f, out_dtype)
     m, k_in = xq.shape
     if 2 * half != k_in:
@@ -359,20 +502,20 @@ def rq_int4_fwd_cuda(xq, q4, f, sx, s_vec, out_dtype):
     from qflux_tpu_torch.runtime.build import load_library
 
     kl = load_library()
-    out = torch.empty((m, n), device=dev, dtype=out_dtype)
+    plan = _rq_device_plan(dev.index or 0, m, n, k_in, gsz, False)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    code = kl.lib.qflux_rq_int4_fwd(xq.data_ptr(), q4.data_ptr(), f.data_ptr(), sx.data_ptr(),
-                                    s_vec.data_ptr(), out.data_ptr(), m, n, k_in, gsz,
-                                    int(out_dtype == torch.float32), stream)
-    kl.check(code, "rq_int4_fwd launch")
+    out = torch.empty((m, n), device=dev, dtype=out_dtype)
+    _rq_fwd_launch(kl, stream, xq, q4, f, sx, s_vec, out, gsz, plan,
+                   *_rq_buffers(dev, stream, plan))
     return out
 
 
 def rq_int4_bwd_cuda(gq, q4, f, sg, out_dtype):
     """Launch K5b on CUDA tensors: gq [M, N] int8 (the row-quantized g ·
     s_vec), q4 [K/2, N] int8, f [K/G, N] f32, sg [M] (or [M, 1]) f32 → dx
-    [M, K] in out_dtype (bf16 or f32).  Raises on anything the kernel does
-    not take and on a CUDA error.  Counting is the caller's."""
+    [M, K] in out_dtype (bf16 or f32), tiled by `_rq_plan(backward=True)`.
+    Raises on anything the kernel does not take and on a CUDA error.
+    Counting is the caller's."""
     half, n, gsz = _check_common("rq_fused_matmul backward", gq, q4, f, out_dtype)
     m = gq.shape[0]
     dev = gq.device
@@ -383,23 +526,22 @@ def rq_int4_bwd_cuda(gq, q4, f, sg, out_dtype):
     from qflux_tpu_torch.runtime.build import load_library
 
     kl = load_library()
-    dx = torch.empty((m, 2 * half), device=dev, dtype=out_dtype)
+    plan = _rq_device_plan(dev.index or 0, m, n, 2 * half, gsz, True)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    code = kl.lib.qflux_rq_int4_bwd(gq.data_ptr(), q4.data_ptr(), f.data_ptr(), sg.data_ptr(),
-                                    dx.data_ptr(), m, n, 2 * half, gsz,
-                                    int(out_dtype == torch.float32), stream)
-    kl.check(code, "rq_int4_bwd launch")
+    dx = torch.empty((m, 2 * half), device=dev, dtype=out_dtype)
+    _rq_bwd_launch(kl, stream, gq, q4, f, sg, dx, gsz, plan, *_rq_buffers(dev, stream, plan))
     return dx
 
 
-# The custom op runs on every device type: on a CUDA tensor it launches K5a,
-# on any other `rq_int4_fwd_cuda` raises (the public entry point sends CPU
-# tensors to the plain version before they reach it).
+# The custom op runs on every device type: on a CUDA tensor it launches the
+# row quantization and K5a, on any other `rq_int4_fwd_cuda` raises (the
+# public entry point sends CPU tensors to the plain version before they
+# reach it).
 @torch.library.custom_op("qflux::rq_int4_fwd", mutates_args=(),
                          schema="(Tensor x, Tensor q4, Tensor f, Tensor s_vec) -> Tensor")
 def _rq_fwd_op(x, q4, f, s_vec):
     global RQ_KERNEL_LAUNCHES
-    xq, sx = _rowquant(x.reshape(-1, x.shape[-1]))
+    xq, sx = rowquant(x.reshape(-1, x.shape[-1]))
     y = rq_int4_fwd_cuda(xq, q4, f, sx, s_vec, x.dtype)
     RQ_KERNEL_LAUNCHES += 1
     return y.reshape(*x.shape[:-1], q4.shape[-1])
@@ -413,11 +555,11 @@ def _rq_setup_context(ctx, inputs, output):
 
 def _rq_backward(ctx, g):
     """dx through K5b, as `_rqf_vjp_bwd`: gs = f32(g) · s_vec row-quantized
-    (plain torch), K5b's exact integer product scaled by the row scales, in
-    g's dtype.  q4 and the factors get no gradient."""
+    (one pass, csrc/rowquant.cu), K5b's exact integer product scaled by the
+    row scales, in g's dtype.  q4 and the factors get no gradient."""
     global RQ_BWD_KERNEL_LAUNCHES
     q4, f, s_vec = ctx.saved_tensors
-    gq, sg = _rowquant(g.reshape(-1, g.shape[-1]).float() * s_vec)
+    gq, sg = rowquant(g.reshape(-1, g.shape[-1]), s_vec)
     dx = rq_int4_bwd_cuda(gq, q4, f, sg, g.dtype)
     RQ_BWD_KERNEL_LAUNCHES += 1
     return dx.reshape(*g.shape[:-1], dx.shape[-1]), None, None, None
@@ -431,8 +573,9 @@ def rq_fused_matmul(x, q4, g_scale, factors=None):
     """y = x @ dequant(q4, g_scale) on the W4A8-requant grid: x [..., K]
     float; q4 [K/2, N] half-split packed int4; g_scale [K/G, N] f32 →
     [..., N] in x.dtype, differentiable in x.  `factors` = (f, s_vec) from
-    `_requant_factors`, if cached.  CUDA tensors launch K5a (and K5b in the
-    backward) or raise; CPU tensors take the plain version."""
+    `_requant_factors`, if cached.  CUDA tensors launch the row quantization
+    and K5a (and the row quantization and K5b in the backward) or raise; CPU
+    tensors take the plain version."""
     if x.device.type == "cpu":
         return requant_int4_matmul(x, q4, g_scale, factors)
     f, s_vec = factors if factors is not None else _requant_factors(g_scale)

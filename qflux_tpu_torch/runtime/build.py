@@ -51,8 +51,9 @@ _SIGNATURES = {
     "qflux_flash_fwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P]),
     "qflux_flash_bwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              ctypes.c_float, _P]),
-    "qflux_rq_int4_fwd": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "qflux_rq_int4_bwd": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "qflux_rq_int4_fwd": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
+    "qflux_rq_int4_bwd": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
+    "qflux_rowquant": (_I, [_P, _P, _P, _P, _I, _I, _I, _P]),
     "qflux_int4_fwd": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]),
     "qflux_int4_bwd": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]),
     "qflux_cuda_error_string": (ctypes.c_char_p, [_I]),

@@ -140,7 +140,7 @@ def test_lora_grads_reach_qkv_through_kernels_on_card():
 
 @pytest.mark.parametrize("m,k_in,n,dtype", [(300, 3072, 64, torch.bfloat16),
                                             (77, 64, 256, torch.float32),
-                                            (129, 3584, 136, torch.bfloat16)],
+                                            (129, 3584, 144, torch.bfloat16)],
                          ids=["proj_out_n64", "img_in_k64_straddling_group", "ragged_m_n"])
 def test_rq_kernel_bit_exact_on_card(m, k_in, n, dtype):
     """K5a equals the plain requant matmul to the bit: ragged M and N, N=64,
@@ -201,13 +201,14 @@ def test_qwen_forward_through_k5a_and_k1_on_card():
 
 @pytest.mark.parametrize("m,k_in,n,dtype", [(300, 3072, 64, torch.bfloat16),
                                             (77, 64, 256, torch.float32),
-                                            (129, 3584, 136, torch.bfloat16)],
+                                            (129, 3584, 144, torch.bfloat16)],
                          ids=["proj_out_n64", "img_in_k64_straddling_group", "ragged_m_n_k"])
 def test_rq_bwd_kernel_bit_exact_on_card(m, k_in, n, dtype):
     """K5b, through rq_fused_matmul's backward, equals the plain backward
     (quant.requant_int4_matmul_dx) to the bit: ragged M, a contraction N
-    that ends inside a 64-wide step (136), K = 64 (half a block of packed
-    rows, one group over both nibble planes) and K = 3584, in bf16 and f32."""
+    that ends inside a 128-wide stage (144; the kernels take N % 16 == 0),
+    K = 64 (one group over both nibble planes) and K = 3584, in bf16 and
+    f32."""
     from qflux_tpu_torch.ops import int4_matmul, quant
 
     gen = torch.Generator("cuda").manual_seed(m + 1)
@@ -224,6 +225,154 @@ def test_rq_bwd_kernel_bit_exact_on_card(m, k_in, n, dtype):
     want = quant.requant_int4_matmul_dx(g, q4, factors)
     assert x.grad.dtype == dtype and x.grad.shape == (m, k_in)
     assert torch.equal(x.grad, want)
+
+
+# the int4-requant GEMM shapes of the Qwen DiT (chip_smoke.py:RQ_KN): block
+# projections, MLP up / down, txt_in, img_in, proj_out
+RQ_KN = [(3072, 3072), (3072, 12288), (12288, 3072), (3584, 3072), (64, 3072), (3072, 64)]
+RQ_BIT_CASES = ([(m, k, n, torch.bfloat16) for m in (33, 256, 3744) for k, n in RQ_KN]
+                + [(3744, 3072, 12288, torch.float32), (256, 3072, 3072, torch.float32),
+                   (7488, 3072, 12288, torch.bfloat16)])
+
+
+def _rq_weights(gen, k_in, n):
+    from qflux_tpu_torch.ops import quant
+
+    w = (torch.rand(k_in, n, device="cuda", generator=gen) * 2 - 1) / k_in ** 0.5
+    q4, scale = quant.quantize_kernel_int4(w, 128)
+    return q4, scale, quant._requant_factors(scale)
+
+
+@pytest.mark.parametrize("m,k_in,n,dtype", RQ_BIT_CASES,
+                         ids=[f"{m}x{k}x{n}_{str(d)[6:]}" for m, k, n, d in RQ_BIT_CASES])
+def test_rq_fwd_every_model_shape_bit_exact(m, k_in, n, dtype):
+    """K5a (the regrid pass, the int8 GEMM and, split, its reduction) equals
+    the plain requant matmul to the bit at every int4-requant GEMM shape of
+    the Qwen DiT, at ragged M (33, 3744, 7488), split (the text stream's 256
+    rows, proj_out) and unsplit, bf16 and f32 outputs; two calls give the
+    same bits."""
+    from qflux_tpu_torch.ops import int4_matmul, quant
+
+    gen = torch.Generator("cuda").manual_seed(m + k_in + n)
+    q4, scale, factors = _rq_weights(gen, k_in, n)
+    x = torch.randn(m, k_in, device="cuda", generator=gen).to(dtype)
+    got = int4_matmul.rq_fused_matmul(x, q4, scale, factors)
+    again = int4_matmul.rq_fused_matmul(x, q4, scale, factors)
+    torch.cuda.synchronize()
+    want = quant.requant_int4_matmul(x, q4, scale, factors)
+    assert got.dtype == dtype and torch.equal(got, want) and torch.equal(got, again)
+
+
+@pytest.mark.parametrize("m,k_in,n,dtype", RQ_BIT_CASES,
+                         ids=[f"{m}x{k}x{n}_{str(d)[6:]}" for m, k, n, d in RQ_BIT_CASES])
+def test_rq_bwd_every_model_shape_bit_exact(m, k_in, n, dtype):
+    """K5b, through rq_fused_matmul's backward (the row quantization of
+    g · s_vec, the regrid pass, the int8 GEMM and, split, its reduction),
+    equals the plain backward to the bit at the dx of every case above; two
+    backward calls give the same bits."""
+    from qflux_tpu_torch.ops import int4_matmul, quant
+
+    gen = torch.Generator("cuda").manual_seed(m + k_in + n + 1)
+    q4, scale, factors = _rq_weights(gen, k_in, n)
+    x = torch.randn(m, k_in, device="cuda", generator=gen).to(dtype).requires_grad_()
+    g = torch.randn(m, n, device="cuda", generator=gen).to(dtype)
+    int4_matmul.rq_fused_matmul(x, q4, scale, factors).backward(g)
+    got = x.grad
+    x.grad = None
+    int4_matmul.rq_fused_matmul(x, q4, scale, factors).backward(g)
+    torch.cuda.synchronize()
+    want = quant.requant_int4_matmul_dx(g, q4, factors)
+    assert got.dtype == dtype and torch.equal(got, want) and torch.equal(got, x.grad)
+
+
+def test_rq_split_and_unsplit_agree_on_card():
+    """The same K5a / K5b call at every split count the plan allows up to
+    8 (the int32 partial sums added by the reduction pass) gives the
+    unsplit bits: the split changes no result."""
+    from qflux_tpu_torch.ops import int4_matmul
+    from qflux_tpu_torch.runtime.build import load_library
+
+    gen = torch.Generator("cuda").manual_seed(5)
+    m, k_in, n = 256, 3072, 3072
+    q4, _, (f, sv) = _rq_weights(gen, k_in, n)
+    x = torch.randn(m, k_in, device="cuda", generator=gen).to(torch.bfloat16)
+    xq, sx = int4_matmul.rowquant_cuda(x)
+    kl, stream = load_library(), torch.cuda.current_stream().cuda_stream
+    outs = []
+    for backward in (False, True):
+        for splits in (1, 2, 5, 8):
+            plan = int4_matmul.RqPlan(splits=splits,
+                                      workspace=splits * m * (k_in if backward else n),
+                                      scratch=k_in * n)
+            q8 = torch.empty(plan.scratch, device="cuda", dtype=torch.uint8)
+            ws = torch.empty(max(plan.workspace, 1), device="cuda", dtype=torch.int32)
+            if backward:
+                out = torch.empty(m, k_in, device="cuda", dtype=torch.bfloat16)
+                int4_matmul._rq_bwd_launch(kl, stream, xq[:, :n].contiguous(), q4, f, sx, out,
+                                           128, plan, q8.data_ptr(), ws.data_ptr())
+            else:
+                out = torch.empty(m, n, device="cuda", dtype=torch.bfloat16)
+                int4_matmul._rq_fwd_launch(kl, stream, xq, q4, f, sx, sv, out, 128, plan,
+                                           q8.data_ptr(), ws.data_ptr())
+            outs.append(out)
+    torch.cuda.synchronize()
+    for out in outs[1:4]:
+        assert torch.equal(out, outs[0])
+    for out in outs[5:]:
+        assert torch.equal(out, outs[4])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("k", [64, 3072, 12288, 136])
+def test_rowquant_kernel_bit_exact_on_card(k, dtype):
+    """The row-quantization kernel equals quant._rowquant to the bit, for
+    bf16 and f32 rows of 64 to 12,288 values (and a length that is not a
+    multiple of the block's 2,048-value sweep): an all-zero row (scale
+    clamped to 1e-12, values 0), a row whose amax is 127 (scale exactly 1)
+    with exact half-way quotients (±0.5, ±2.5, 126.5: half to even), and
+    random rows; and in K5b's form, g · s_vec, against
+    quant._rowquant(g.float() * s_vec).  The launch counter moves once a
+    call through `rowquant`."""
+    from qflux_tpu_torch.ops import int4_matmul, quant
+
+    gen = torch.Generator("cuda").manual_seed(k)
+    x = torch.randn(300, k, device="cuda", generator=gen) * 3
+    x[7] = 0.0
+    x[8] = 0.0
+    x[8, :6] = torch.tensor([127.0, 0.5, -0.5, 2.5, -2.5, 126.5])
+    x = x.to(dtype)
+    sv = torch.rand(k, device="cuda", generator=gen) + 0.5
+    before = int4_matmul.ROWQUANT_LAUNCHES
+    xq, s = int4_matmul.rowquant(x)
+    gq, sg = int4_matmul.rowquant(x, sv)
+    torch.cuda.synchronize()
+    assert int4_matmul.ROWQUANT_LAUNCHES == before + 2
+    want_q, want_s = quant._rowquant(x)
+    assert xq.dtype == torch.int8 and s.shape == (300, 1)
+    assert torch.equal(xq, want_q) and torch.equal(s, want_s)
+    assert s[7].item() == np.float32(1e-12) and not xq[7].any() and s[8].item() == 1.0
+    assert xq[8, :6].tolist() == [127, 0, 0, 2, -2, 126]
+    want_gq, want_sg = quant._rowquant(x.float() * sv)
+    assert torch.equal(gq, want_gq) and torch.equal(sg, want_sg)
+
+
+def test_rowquant_scale_is_the_jitted_product_on_card():
+    """`quant._rowquant`'s scale on the card is amax · fl32(1/127), the
+    product JAX computes under `jit`, not a true division by 127: on rows
+    whose amax is chosen where the two round apart, it equals numpy's
+    a * np.float32(1/127) and differs from a / np.float32(127)."""
+    from qflux_tpu_torch.ops import quant
+
+    rng = np.random.default_rng(0)
+    a = rng.uniform(0.5, 8.0, 200_000).astype(np.float32)
+    prod = a * np.float32(1 / 127)
+    apart = a[prod != a / np.float32(127)][:64]
+    assert len(apart) == 64
+    x = torch.zeros(64, 96, device="cuda")
+    x[:, 5] = torch.from_numpy(apart).cuda()
+    _, s = quant._rowquant(x)
+    np.testing.assert_array_equal(s[:, 0].cpu().numpy(), apart * np.float32(1 / 127))
+    assert (s[:, 0].cpu().numpy() != apart / np.float32(127)).all()
 
 
 def test_qwen_train_step_through_kernels_on_card():
