@@ -83,8 +83,9 @@ runs K6a and its dx K6b (path C).  In phases:
      K5b launches per step (no K1 / K2, no s_int8 launch); then a one-step
      torch.profiler breakdown;
  11. K1 and K2 in their s_int8 mode against their plain versions at three
-     shapes (the prep's int8 operands to the bit), timed beside bf16 K1 /
-     K2 and SDPA flash;
+     shapes (the prep's int8 operands to the bit, two calls identical),
+     each timed alone (its prep apart) beside its bound, bf16 K1 / K2
+     alone, the wrapper and SDPA flash;
  12. Qwen 512² predict with int8 attention (path A): a full-width forward
      through K1 s_int8 against the plain int8 attention, two requests
      with exactly 60 K1 s_int8 and 723 K5a launches per denoising step,
@@ -118,12 +119,13 @@ after.
 
     python3 chip_smoke.py --ab PARENT
 
-is a measurement, not the smoke: K1, K2 (bf16), K3, K4, K5a and K5b alone
-before and after on one card (PARENT an unpacked checkout of an earlier
-commit, e.g. from git archive), and the K1 / K2 bf16, K3, K4, K5a / K5b,
-K6a / K6b and K1 / K2 s_int8 outputs compared to the bit across the two
-(`ab_main`).  Prints the kernel table as one JSON line before the last (each
-kernel's time, the bound for the same work on this card's published peaks,
+is a measurement, not the smoke: K1 and K2 (bf16 and s_int8), K3, K4, K5a
+and K5b alone before and after on one card (PARENT an unpacked checkout of
+an earlier commit, e.g. from git archive), the K1 / K2 bf16, K3, K4, K5a /
+K5b and K6a / K6b outputs and the s_int8 prep's operands compared to the
+bit across the two, and the change's K1 / K2 s_int8 checked against their
+plain versions and for repeatable bits (`ab_main`).  Prints the kernel
+table as one JSON line before the last (each kernel's time, the bound for the same work on this card's published peaks,
 the plain version's time and one PyTorch call's time as a yardstick), the
 wall time, and as the last line {"ok": true, "device": {"platform": "gpu",
 "kind": ..., "count": ...}}.  Exits non-zero, without that line, if there is
@@ -416,6 +418,94 @@ def _k2_alone(args, st, seg, scale, out, lse, do, reps=5) -> dict:
     host_us = _host_us(lambda: flash_nr._flash_nr_bwd_cuda(*args, st, seg, scale, out, lse, do),
                        n=50)
     return {"ms": ms, "prep_ms": prep_ms, "wrapper_host_us": host_us}
+
+
+def _int8_prep_alone(lib, args, st, rows, reps, out=None, do=None):
+    """The s_int8 prep alone through `qflux_flash_nr_int8_prep`, as K1 (out =
+    do = None: kn, kq and amax) or K2 (also qn, qq and delta) runs it; None
+    where the library's entry predates that form (an earlier checkout in
+    --ab)."""
+    from qflux_tpu_torch.ops import flash_nr
+
+    if len(lib.qflux_flash_nr_int8_prep.argtypes) != 21:
+        return None
+    q, k, v, qs2, ks2, cos, sin = args
+    qs, ks, cs_bstride, _ = flash_nr._kernel_args(q, k, v, qs2, ks2, cos, sin, None)
+    b, s, h, _ = q.shape
+    k2 = do is not None
+    qn, kn, dl = (torch.empty_like(q), torch.empty_like(k),
+                  torch.empty((b, h, s), device="cuda", dtype=torch.float32))
+    qq, kq = (torch.empty(q.shape, device="cuda", dtype=torch.int8) for _ in range(2))
+    amax = torch.empty((b, h, 1 + -(-s // rows)), device="cuda", dtype=torch.int32)
+    stream = torch.cuda.current_stream().cuda_stream
+    return _window_ms(lambda: lib.qflux_flash_nr_int8_prep(
+        q.data_ptr(), k.data_ptr(), qs.data_ptr(), ks.data_ptr(), cos.data_ptr(),
+        sin.data_ptr(), cs_bstride, out.data_ptr() if k2 else None,
+        do.data_ptr() if k2 else None, qn.data_ptr() if k2 else None, kn.data_ptr(),
+        dl.data_ptr() if k2 else None, qq.data_ptr() if k2 else None, kq.data_ptr(),
+        amax.data_ptr(), b, s, h, st, rows, stream), reps)
+
+
+def _k1_int8_alone(args, st, seg, scale, rows, reps=20) -> dict:
+    """K1's s_int8 mode alone, as `_k1_alone` times the bf16 mode: `ms`, the
+    device time of the C entry point (the s_int8 prep and the main kernel)
+    on checked arguments into preallocated outputs and scratch, back to
+    back; `prep_ms`, the prep alone (`_int8_prep_alone`); `wrapper_host_us`,
+    the host time per call of `_flash_nr_cuda`.  Usable on an earlier
+    checkout's package (--ab)."""
+    from qflux_tpu_torch.ops import flash_nr
+    from qflux_tpu_torch.runtime.build import load_library
+
+    q, k, v, qs2, ks2, cos, sin = args
+    qs, ks, cs_bstride, seg32 = flash_nr._kernel_args(q, k, v, qs2, ks2, cos, sin, seg)
+    b, s, h, _ = q.shape
+    lib = load_library().lib
+    kn, out = torch.empty_like(k), torch.empty_like(q)
+    kq = torch.empty(k.shape, device="cuda", dtype=torch.int8)
+    amax = torch.empty((b, h, 1 + -(-s // rows)), device="cuda", dtype=torch.int32)
+    lse = torch.empty((b, h, s), device="cuda", dtype=torch.float32)
+    stream = torch.cuda.current_stream().cuda_stream
+    segp = None if seg32 is None else seg32.data_ptr()
+    ms = _window_ms(lambda: lib.qflux_flash_nr_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), qs.data_ptr(), ks.data_ptr(), cos.data_ptr(),
+        sin.data_ptr(), cs_bstride, segp, kn.data_ptr(), kq.data_ptr(), amax.data_ptr(), rows,
+        out.data_ptr(), lse.data_ptr(), b, s, h, st, scale, stream), reps)
+    host_us = _host_us(lambda: flash_nr._flash_nr_cuda(*args, st, seg, scale, rows), n=50)
+    return {"ms": ms, "prep_ms": _int8_prep_alone(lib, args, st, rows, reps),
+            "wrapper_host_us": host_us}
+
+
+def _k2_int8_alone(args, st, seg, scale, out, lse, do, rows, reps=5) -> dict:
+    """K2's s_int8 mode alone, as `_k2_alone` times the bf16 mode: `ms` of the
+    C entry point (the s_int8 prep, dk / dv and dq) into preallocated
+    outputs, scratch and partials; `prep_ms`, the prep alone with delta
+    (`_int8_prep_alone`); `wrapper_host_us` of `_flash_nr_bwd_cuda`.  Usable
+    on an earlier checkout's package (--ab)."""
+    from qflux_tpu_torch.ops import flash_nr
+    from qflux_tpu_torch.runtime.build import load_library
+
+    q, k, v, qs2, ks2, cos, sin = args
+    qs, ks, cs_bstride, seg32 = flash_nr._kernel_args(q, k, v, qs2, ks2, cos, sin, seg)
+    b, s, h, d = q.shape
+    lib = load_library().lib
+    qn, kn, dq, dk, dv = (torch.empty_like(q) for _ in range(5))
+    qq, kq = (torch.empty(q.shape, device="cuda", dtype=torch.int8) for _ in range(2))
+    amax = torch.empty((b, h, 1 + -(-s // rows)), device="cuda", dtype=torch.int32)
+    delta = torch.empty((b, h, s), device="cuda", dtype=torch.float32)
+    parts = torch.empty((2, b, h, lib.qflux_flash_nr_bwd_tiles(s), 2, d), device="cuda",
+                        dtype=torch.float32)
+    stream = torch.cuda.current_stream().cuda_stream
+    segp = None if seg32 is None else seg32.data_ptr()
+    ms = _window_ms(lambda: lib.qflux_flash_nr_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), qs.data_ptr(), ks.data_ptr(), cos.data_ptr(),
+        sin.data_ptr(), cs_bstride, segp, out.data_ptr(), lse.data_ptr(), do.data_ptr(),
+        qn.data_ptr(), kn.data_ptr(), delta.data_ptr(), qq.data_ptr(), kq.data_ptr(),
+        amax.data_ptr(), rows, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), parts[0].data_ptr(),
+        parts[1].data_ptr(), b, s, h, st, scale, stream), reps)
+    host_us = _host_us(lambda: flash_nr._flash_nr_bwd_cuda(*args, st, seg, scale, out, lse, do,
+                                                           rows), n=50)
+    return {"ms": ms, "prep_ms": _int8_prep_alone(lib, args, st, rows, reps, out, do),
+            "wrapper_host_us": host_us}
 
 
 def _k3_alone(q, k, v, q_seg, kv_seg, scale, reps=10) -> dict:
@@ -1603,6 +1693,15 @@ INT8_BWD_REL_TOL = 1e-1
 QWEN512 = 512  # path A: the published Qwen config at its 512² operating point
 
 
+def _int8_seg(b, s, st, masked):
+    """INT8_CASES' ids: the 26 text tokens before st padding, or None."""
+    if not masked:
+        return None
+    seg = torch.ones(b, s, dtype=torch.int32, device="cuda")
+    seg[:, st - 26:st] = 0
+    return seg
+
+
 def _int8_bound(b, s, h=24, d=128, bwd=False) -> dict:
     """The least time for the s_int8 kernels' work on this card: the int8
     QK^T (2·S²·D per head) at the int8 peak plus the bf16 products (PV in
@@ -1621,20 +1720,19 @@ def phase_kernel_int8(card: str) -> tuple[dict, dict]:
     """K1's and K2's s_int8 modes against their plain versions at
     INT8_CASES (H = 24): the prep's int8 q / k and scales against
     quant_rows of its own normed q / k (to the bit), out and lse, the five
-    gradients with do ~ N(0, 1) on every row (padded ones included), and
-    median times of the kernels, the plain versions, bf16 K1 / K2 and SDPA
-    flash at the same shape (context: no PyTorch call computes int8-score
-    attention).  Returns the table entries of the first case."""
+    gradients with do ~ N(0, 1) on every row (padded ones included), two
+    calls of each kernel identical to the bit; times of each kernel alone
+    (the prep apart: `_k1_int8_alone`, `_k2_int8_alone`) beside its bound
+    and bf16 K1 / K2 alone, of the wrapper ("op"), of the plain versions and
+    of SDPA flash at the same shape (context: no PyTorch call computes
+    int8-score attention).  Returns the table entries of the first case."""
     from qflux_tpu_torch.ops import flash_nr
 
     gen = torch.Generator("cuda").manual_seed(11)
     main = None
     for name, b, s, st, masked in INT8_CASES:
         args = _attn_inputs(gen, b, s)
-        seg = None
-        if masked:
-            seg = torch.ones(b, s, dtype=torch.int32, device="cuda")
-            seg[:, st - 26:st] = 0
+        seg = _int8_seg(b, s, st, masked)
         fwd_rows, bwd_rows = flash_nr.s_int8_tiles(s, 128)
         scale = 1.0 / 128 ** 0.5
         q, k, v, qs2, ks2, cos, sin = args
@@ -1648,9 +1746,14 @@ def phase_kernel_int8(card: str) -> tuple[dict, dict]:
             exact = exact and torch.equal(kq, wk) and torch.equal(k_sc, wks[:, 0])
             del qn, kn, qq, kq, q_sc, k_sc, wq, wqs, wk, wks
         out, lse = flash_nr._flash_nr_cuda(*args, st, seg, scale, fwd_rows)
+        out2, lse2 = flash_nr._flash_nr_cuda(*args, st, seg, scale, fwd_rows)
         do = torch.randn(out.shape, device="cuda", generator=gen).to(torch.bfloat16)
         got = flash_nr._flash_nr_bwd_cuda(*args, st, seg, scale, out, lse, do, bwd_rows)
+        again = flash_nr._flash_nr_bwd_cuda(*args, st, seg, scale, out, lse, do, bwd_rows)
         torch.cuda.synchronize()
+        same = (torch.equal(out, out2) and torch.equal(lse, lse2)
+                and all(torch.equal(x, y) for x, y in zip(got, again)))
+        del out2, lse2, again
         ref, ref_lse = flash_nr.flash_attention_nr_int8_reference(*args, st, fwd_rows,
                                                                   segment_ids=seg)
         rel = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
@@ -1661,20 +1764,22 @@ def phase_kernel_int8(card: str) -> tuple[dict, dict]:
                                                               segment_ids=seg)
         rels = [((g.float() - r).norm() / r.norm()).item() for g, r in zip(got, want)]
         bwd_err = max((g.float() - r).abs().max().item() for g, r in zip(got[:3], want[:3]))
-        ok = (exact and rel <= INT8_FWD_REL_TOL and max(rels) <= INT8_BWD_REL_TOL
+        ok = (exact and same and rel <= INT8_FWD_REL_TOL and max(rels) <= INT8_BWD_REL_TOL
               and all(bool(torch.isfinite(t).all()) for t in (out, *got)))
         if masked:
             ok = ok and not out[:, st - 26:st].any()
             ok = ok and all(not g[:, st - 26:st].any() for g in got[:3])
         del got, want, ref, ref_lse
         torch.cuda.empty_cache()
-        ms = _median_ms(lambda: flash_nr._flash_nr_cuda(*args, st, seg, scale, fwd_rows))
-        bwd_ms = _median_ms(lambda: flash_nr._flash_nr_bwd_cuda(
+        op_ms = _median_ms(lambda: flash_nr._flash_nr_cuda(*args, st, seg, scale, fwd_rows))
+        op_bwd_ms = _median_ms(lambda: flash_nr._flash_nr_bwd_cuda(
             *args, st, seg, scale, out, lse, do, bwd_rows))
-        bf16_ms = _median_ms(lambda: flash_nr._flash_nr_cuda(*args, st, seg, scale))
+        fwd_alone = _k1_int8_alone(args, st, seg, scale, fwd_rows)
+        bwd_alone = _k2_int8_alone(args, st, seg, scale, out, lse, do, bwd_rows)
+        ms, bwd_ms = fwd_alone["ms"], bwd_alone["ms"]
+        bf16_ms = _k1_alone(args, st, seg, scale)["ms"]
         out16, lse16 = flash_nr._flash_nr_cuda(*args, st, seg, scale)
-        bf16_bwd_ms = _median_ms(lambda: flash_nr._flash_nr_bwd_cuda(
-            *args, st, seg, scale, out16, lse16, do))
+        bf16_bwd_ms = _k2_alone(args, st, seg, scale, out16, lse16, do)["ms"]
         plain_ms = _median_ms(lambda: flash_nr.flash_attention_nr_int8_reference(
             *args, st, fwd_rows, segment_ids=seg), n=5)
         plain_bwd_ms = _median_ms(lambda: flash_nr.flash_attention_nr_int8_bwd_reference(
@@ -1689,18 +1794,28 @@ def phase_kernel_int8(card: str) -> tuple[dict, dict]:
               f"{rel:.3e} (tol {INT8_FWD_REL_TOL}) max|err| {err:.3e}, lse max|err| "
               f"{lse_err:.3e}; grads rel L2 "
               + ", ".join(f"{n_} {r:.3e}" for n_, r in zip(("dq", "dk", "dv", "dqs", "dks"), rels))
-              + f" (tol {INT8_BWD_REL_TOL}); fwd: K1 s_int8 {ms:.3f} ms, bound "
-              f"{fb['bound_ms']:.4f} ms ({fb['bound_by']}), plain {plain_ms:.3f} ms, K1 bf16 "
-              f"{bf16_ms:.3f} ms, SDPA flash {sdpa_ms:.3f} ms; bwd: K2 s_int8 {bwd_ms:.3f} ms, "
-              f"bound {bb['bound_ms']:.4f} ms ({bb['bound_by']}), plain {plain_bwd_ms:.3f} ms, "
-              f"K2 bf16 {bf16_bwd_ms:.3f} ms, SDPA flash bwd {sdpa_bwd_ms:.3f} ms [{card}]",
-              flush=True)
+              + f" (tol {INT8_BWD_REL_TOL}); two calls identical {same}; fwd: K1 s_int8 alone "
+              f"{ms:.4f} ms (prep {fwd_alone['prep_ms']:.4f} ms, main kernel "
+              f"{ms - fwd_alone['prep_ms']:.4f} ms; {100 * fb['bound_ms'] / ms:.1f}% of the bound "
+              f"{fb['bound_ms']:.4f} ms, {fb['bound_by']}), op {op_ms:.3f} ms, wrapper host "
+              f"{fwd_alone['wrapper_host_us']:.1f} us per call, K1 bf16 alone {bf16_ms:.4f} ms, "
+              f"plain {plain_ms:.3f} ms, SDPA flash {sdpa_ms:.3f} ms; bwd: K2 s_int8 alone "
+              f"{bwd_ms:.4f} ms (prep {bwd_alone['prep_ms']:.4f} ms, main kernels "
+              f"{bwd_ms - bwd_alone['prep_ms']:.4f} ms; {100 * bb['bound_ms'] / bwd_ms:.1f}% of "
+              f"the bound {bb['bound_ms']:.4f} ms, {bb['bound_by']}), op {op_bwd_ms:.3f} ms, "
+              f"wrapper host {bwd_alone['wrapper_host_us']:.1f} us per call, K2 bf16 alone "
+              f"{bf16_bwd_ms:.4f} ms, plain {plain_bwd_ms:.3f} ms, SDPA flash bwd "
+              f"{sdpa_bwd_ms:.3f} ms [{card}]", flush=True)
         if not ok:
             raise AssertionError(f"K1/K2 s_int8 disagree with their plain versions in case {name}")
         if main is None:
             main = ({"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+                     "prep_ms": fwd_alone["prep_ms"], "op_ms": op_ms,
+                     "wrapper_host_us": fwd_alone["wrapper_host_us"],
                      "bf16_kernel_ms": bf16_ms, "sdpa_flash_ms": sdpa_ms, **fb},
-                    {"max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": plain_bwd_ms, "library_ms": None,
+                    {"max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": plain_bwd_ms,
+                     "library_ms": None, "prep_ms": bwd_alone["prep_ms"], "op_ms": op_bwd_ms,
+                     "wrapper_host_us": bwd_alone["wrapper_host_us"],
                      "bf16_kernel_ms": bf16_bwd_ms, "sdpa_flash_ms": sdpa_bwd_ms, **bb})
         del args, out, lse, do, out16, lse16, qn, kn
         torch.cuda.empty_cache()
@@ -2523,10 +2638,15 @@ def _ab_child() -> None:
         calls give the same bits; K4 alone (`_k4_alone`) and the digests of
         its dq / dk / dv, from the plain forward's out / lse (so that both
         sides' K4 see the same residuals);
-      * the digests of K6a's and K6b's outputs at every INT4_CASES shape, of
-        K1's s_int8 out / lse and of K2's s_int8 dq / dk / dv / dq_scale2 /
-        dk_scale2 at path A's shape, and of K2's (bf16) dq / dk / dv / scale
-        gradients and K3's out / lse at every case above;
+      * the digests of K6a's and K6b's outputs at every INT4_CASES shape, and
+        of K2's (bf16) dq / dk / dv / scale gradients and K3's out / lse at
+        every case above;
+      * at every INT8_CASES entry, K1 and K2 s_int8 alone (`_k1_int8_alone`,
+        `_k2_int8_alone`), the digests of the s_int8 prep's operands
+        (`_int8_operands_cuda` at the forward's and the backward's q tiles),
+        whether two calls of each kernel give the same bits, and the
+        relative L2 errors of out and the five gradients against the plain
+        versions;
       * at every AB_RQ_CASES entry, K5a and K5b alone (`_k5_alone`, weights
         rotated past the L2 cache) and the digests of their outputs.
     Prints one line, AB_RESULT and a JSON object."""
@@ -2537,7 +2657,8 @@ def _ab_child() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     res = {"card": _nvidia_smi(), "k1": {}, "k2": {}, "k3": {}, "k4": {}, "k6": {},
            "k1_digest": {}, "k4_digest": {}, "k2_same": {}, "k3_same": {}, "k2_digest": {},
-           "k3_digest": {}, "k5a": {}, "k5b": {}, "k5_digest": {}}
+           "k3_digest": {}, "k5a": {}, "k5b": {}, "k5_digest": {}, "k1_int8": {},
+           "k2_int8": {}, "int8_prep_digest": {}, "int8_same": {}, "int8_rel": {}}
     scale = 128 ** -0.5
     gen = torch.Generator("cuda").manual_seed(0)
     for name, b, s, st, seg_kind in CASES:
@@ -2585,14 +2706,33 @@ def _ab_child() -> None:
                                         _digest(ti4.int4_bwd_cuda(g, q4, sc, dtype))]
         del w, q4, sc, x, g
     gen = torch.Generator("cuda").manual_seed(11)
-    args = _attn_inputs(gen, 1, 2304)
-    seg = _segments("text_pad", 1, 2304)
-    fwd_rows, bwd_rows = flash_nr.s_int8_tiles(2304, 128)
-    out, lse = flash_nr._flash_nr_cuda(*args, QWEN_TXT, seg, scale, fwd_rows)
-    res["k1_s_int8"] = [_digest(out), _digest(lse)]
-    do = torch.randn(out.shape, device="cuda", generator=gen).to(torch.bfloat16)
-    res["k2_s_int8"] = [_digest(g) for g in flash_nr._flash_nr_bwd_cuda(
-        *args, QWEN_TXT, seg, scale, out, lse, do, bwd_rows)]
+    for name, b, s, st, masked in INT8_CASES:
+        args = _attn_inputs(gen, b, s)
+        q, k, v, qs2, ks2, cos, sin = args
+        seg = _int8_seg(b, s, st, masked)
+        fwd_rows, bwd_rows = flash_nr.s_int8_tiles(s, 128)
+        res["int8_prep_digest"][name] = [
+            _digest(x) for rows in sorted({fwd_rows, bwd_rows})
+            for x in flash_nr._int8_operands_cuda(q, k, qs2, ks2, cos, sin, st, rows)]
+        res["k1_int8"][name] = _median_run(
+            lambda: _k1_int8_alone(args, st, seg, scale, fwd_rows))
+        out, lse = flash_nr._flash_nr_cuda(*args, st, seg, scale, fwd_rows)
+        out2, lse2 = flash_nr._flash_nr_cuda(*args, st, seg, scale, fwd_rows)
+        do = torch.randn(out.shape, device="cuda", generator=gen).to(torch.bfloat16)
+        res["k2_int8"][name] = _median_run(
+            lambda: _k2_int8_alone(args, st, seg, scale, out, lse, do, bwd_rows))
+        g1 = flash_nr._flash_nr_bwd_cuda(*args, st, seg, scale, out, lse, do, bwd_rows)
+        g2 = flash_nr._flash_nr_bwd_cuda(*args, st, seg, scale, out, lse, do, bwd_rows)
+        res["int8_same"][name] = (torch.equal(out, out2) and torch.equal(lse, lse2)
+                                  and all(torch.equal(x, y) for x, y in zip(g1, g2)))
+        ref, _ = flash_nr.flash_attention_nr_int8_reference(*args, st, fwd_rows,
+                                                            segment_ids=seg)
+        want = flash_nr.flash_attention_nr_int8_bwd_reference(*args, st, do, out, lse,
+                                                              bwd_rows, segment_ids=seg)
+        res["int8_rel"][name] = [((x.float() - r.float()).norm() / r.float().norm()).item()
+                                 for x, r in zip((out, *g1), (ref, *want))]
+        del args, q, k, v, out, lse, out2, lse2, do, g1, g2, ref, want
+        torch.cuda.empty_cache()
     gen = torch.Generator("cuda").manual_seed(21)
     for m, k_in, n in AB_RQ_CASES:
         _, _, weights, x, g = _rq_operands(gen, m, k_in, n)
@@ -2611,17 +2751,21 @@ def _ab_child() -> None:
 
 
 def ab_main(parent: str) -> int:
-    """`python3 chip_smoke.py --ab PARENT`: K1, K2 (bf16), K3, K4, K5a and K5b
-    alone, before and after, on one card.  PARENT is an unpacked checkout of an
-    earlier commit (git archive); each side runs `_ab_child` from this file
+    """`python3 chip_smoke.py --ab PARENT`: K1, K2 (bf16 and s_int8), K3, K4,
+    K5a and K5b alone, before and after, on one card.  PARENT is an unpacked
+    checkout of an earlier commit (git archive); each side runs `_ab_child` from this file
     in its own process with its own package first on sys.path, in turns
     parent, change, change, parent.  Prints each case's times (mean of the
-    two runs of each side), whether the change's K2 and K3 gave the same bits
-    on two calls, and the digests (K1 and K2 bf16, K3, K4, K5a / K5b, K6a /
-    K6b, K1 and K2 s_int8) compared across all four runs; writes the runs to
+    two runs of each side), whether the change's K2, K3 and K1 / K2 s_int8
+    gave the same bits on two calls, the digests (K1 and K2 bf16, K3, K4,
+    K5a / K5b, K6a / K6b, the s_int8 prep's operands) compared across all
+    four runs, and the change's K1 / K2 s_int8 against their plain versions
+    (INT8_FWD_REL_TOL / INT8_BWD_REL_TOL: their outputs are not compared
+    across the trees, because the redesign moved their online softmax into
+    log2 units and the scale inside the exponent); writes the runs to
     ab.json in the output directory beside this file.
-    Exits non-zero if a digest differs or a change's K2 / K3 call did not
-    repeat its bits."""
+    Exits non-zero if a digest differs, a change's call did not repeat its
+    bits or a change's s_int8 output is outside its tolerance."""
     here = Path(__file__).resolve()
     trees = {"parent": Path(parent).resolve(), "change": here.parent}
     runs = {"parent": [], "change": []}
@@ -2644,7 +2788,8 @@ def ab_main(parent: str) -> int:
     card = runs["change"][0]["card"]
     mean = statistics.mean
     for kern, label, cases in (("k1", "K1", CASES), ("k2", "K2", CASES), ("k3", "K3", FLASH_CASES),
-                               ("k4", "K4", FLASH_CASES)):
+                               ("k4", "K4", FLASH_CASES), ("k1_int8", "K1 s_int8", INT8_CASES),
+                               ("k2_int8", "K2 s_int8", INT8_CASES)):
         for case in cases:
             name = case[0]
             p = [r[kern][name] for r in runs["parent"]]
@@ -2679,25 +2824,35 @@ def ab_main(parent: str) -> int:
         same_across("k4_digest")
     k2_same, k3_same, k5_same = same_across("k2_digest"), same_across("k3_digest"), \
         same_across("k5_digest")
-    int8_same = {key: all(r[key] == every[0][key] for r in every)
-                 for key in ("k1_s_int8", "k2_s_int8")}
+    prep_same = same_across("int8_prep_digest")
     repeat = {key: all(all(r[key].values()) for r in runs["change"])
-              for key in ("k2_same", "k3_same")}
+              for key in ("k2_same", "k3_same", "int8_same")}
+    int8_rel = {name: max(r["int8_rel"][name][0] for r in runs["change"])
+                for name in runs["change"][0]["int8_rel"]}
+    int8_bwd_rel = {name: max(max(r["int8_rel"][name][1:]) for r in runs["change"])
+                    for name in runs["change"][0]["int8_rel"]}
+    int8_close = {name: int8_rel[name] <= INT8_FWD_REL_TOL
+                  and int8_bwd_rel[name] <= INT8_BWD_REL_TOL for name in int8_rel}
     print(f"[ab] identical to the bit across the four runs: K6a / K6b outputs at "
           f"{sum(k6_same.values())} of {len(k6_same)} shapes; K1 bf16 out / lse at "
           f"{sum(k1_same.values())} of {len(k1_same)} cases; K2 bf16 grads at "
           f"{sum(k2_same.values())} of {len(k2_same)} cases; K3 out / lse at "
           f"{sum(k3_same.values())} of {len(k3_same)} cases; K4 dq / dk / dv at "
           f"{sum(k4_same.values())} of {len(k4_same)} cases; K5a / K5b outputs at "
-          f"{sum(k5_same.values())} of {len(k5_same)} cases; K1 s_int8 out / lse "
-          f"{int8_same['k1_s_int8']}; K2 s_int8 dq / dk / dv / dqs / dks "
-          f"{int8_same['k2_s_int8']}. The change's two calls identical: K2 bf16 "
-          f"{repeat['k2_same']}, K3 {repeat['k3_same']} [{card}]", flush=True)
+          f"{sum(k5_same.values())} of {len(k5_same)} cases; the s_int8 prep's qn / kn / qq / "
+          f"kq / scales at {sum(prep_same.values())} of {len(prep_same)} cases. The change's "
+          f"two calls identical: K2 bf16 {repeat['k2_same']}, K3 {repeat['k3_same']}, K1 / K2 "
+          f"s_int8 {repeat['int8_same']}. The change's K1 / K2 s_int8 against their plain "
+          f"versions: " + "; ".join(
+              f"{name} out rel L2 {int8_rel[name]:.3e} (tol {INT8_FWD_REL_TOL}), grads max "
+              f"{int8_bwd_rel[name]:.3e} (tol {INT8_BWD_REL_TOL})" for name in int8_rel)
+          + f" [{card}]", flush=True)
     out_dir = here.parent / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "ab.json").write_text(json.dumps(runs, indent=1))
     checks = [*k6_same.values(), *k1_same.values(), *k2_same.values(), *k3_same.values(),
-              *k4_same.values(), *k5_same.values(), *int8_same.values(), *repeat.values()]
+              *k4_same.values(), *k5_same.values(), *prep_same.values(), *repeat.values(),
+              *int8_close.values()]
     return 0 if all(checks) else 1
 
 

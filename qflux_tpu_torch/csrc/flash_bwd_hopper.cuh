@@ -1,9 +1,10 @@
 // The Hopper main loops of the flash-attention backward that K4 (flash_bwd.cu,
-// flash_dkv_kernel / flash_dq_kernel) and K2's bf16 mode (flash_nr_bwd.cu,
-// flash_nr_dkv_kernel / flash_nr_dq_kernel) share.  Each kernel is a thin
-// __global__ wrapper around attn_dkv_body / attn_dq_body, inlined into it, so the
-// kernels keep their names (and profile groups) and run the same loop; they
-// differ in the epilogue, a parameter `Epi` of the body:
+// flash_dkv_kernel / flash_dq_kernel) and K2 (flash_nr_bwd.cu: flash_nr_dkv_kernel
+// / flash_nr_dq_kernel, and flash_nr_dkv_int8_kernel / flash_nr_dq_int8_kernel for
+// its s_int8 mode) share.  Each kernel is a thin __global__ wrapper around
+// attn_dkv_body / attn_dq_body, inlined into it, so the kernels keep their names
+// (and profile groups) and run the same loop; they differ in the epilogue, a
+// parameter `Epi` of the body:
 //   * StoreGrads (K4, below): the f32 accumulators as bf16 dk / dv and dq;
 //   * K2's (flash_nr_bwd.cu): dv as bf16, then the rope transpose and RMSNorm
 //     backward of each complete dkn / dqn row, and the norm-scale gradient's
@@ -35,6 +36,27 @@
 //       is in the tensor cores), ds in registers, then dq += ds k (register A, k an
 //       MN-major B).
 // Keys and rows past the tensor are zero-filled by TMA and carry segment 0.
+//
+// The score product's int8 path (a parameter `I8` of the body, K2's s_int8 mode;
+// NoInt8 elsewhere): the scores are recomputed from int8 q and k, s = f32(qq
+// kq^T) * factor with factor = (q tile scale * k scale) * scale.  The block's
+// own k (dkv) or q (dq) tile holds the int8 operand (16 KB of its 32 KB region:
+// the epilogues stage in the full region), each stage streams the other int8
+// operand ([64, 128], 8 KB) beside the bf16 tiles, and s^T = kq qq^T or s = qq
+// kq^T is four wgmma m64n64k32 s8 steps into s32 accumulators (both operands
+// K-major, as 8-bit wgmma requires and as the [rows, 128] tiles lie), converted
+// to f32 exactly; the factor joins the log2-unit exponent.  Every other
+// product stays bf16 on the normed copies (the gradient is straight through
+// the quantization).  dkv keeps four stages in this mode by putting two stages'
+// int8 q tiles in the second half of its own k region, which the int8 k leaves
+// free until the epilogue stages there (the consumers meet before it); after
+// the do tiles, all four would need 233,544 bytes of shared memory, 1,096 over a
+// block's 232,448.
+//   struct I8 {
+//     static constexpr bool ON = true;
+//     CUtensorMap step_map;  // dkv: qq, dq: kq, [B, S, H, 128] int8 in [64, 128] boxes
+//     float factor(int b, int h, int H, int S, int q0) const;  // q rows from q0
+//   };
 // Inputs: lse (natural units, as the forward wrote it) and delta [B, H, Sq] f32,
 // q_seg [B, Sq] / kv_seg [B, Sk] int32 or both null (every real token segment 1).
 
@@ -51,29 +73,56 @@ constexpr int NTHREADS = 384;  // producer warpgroup + two consumer warpgroups
 constexpr int BLK = 128;       // rows a dkv / dq block owns: 64 per consumer warpgroup
 constexpr int KV_STEP = 64;    // q rows streamed per step of dkv
 constexpr int STEP = 64;       // keys streamed per step of dq
-constexpr int STAGES = 4;      // streamed steps in flight
 constexpr int OWN = BLK * D * 2;    // bytes of one [128, 128] bf16 tile of the block's own
+constexpr int OWN8 = BLK * D;       // the int8 own tile's bytes (the first half of its region)
 constexpr int STEP_T = STEP * D * 2;  // bytes of one streamed [64, 128] bf16 tile
 constexpr int KV_STEP_T = KV_STEP * D * 2;
+constexpr int STEP8 = STEP * D;     // bytes of one streamed [64, 128] int8 tile
 
-// dkv: the block's k and v; per stage the q and do tiles and the q rows' lse,
-// delta and segment ids
-constexpr int KV_K_OFF = 0;
-constexpr int KV_V_OFF = KV_K_OFF + OWN;
-constexpr int KV_Q_OFF = KV_V_OFF + OWN;
-constexpr int KV_DO_OFF = KV_Q_OFF + STAGES * KV_STEP_T;
-constexpr int KV_ROW_OFF = KV_DO_OFF + STAGES * KV_STEP_T;  // [STAGES][lse, delta, seg][KV_STEP]
-constexpr int KV_BAR_OFF = KV_ROW_OFF + STAGES * 3 * KV_STEP * 4;
-constexpr int KV_SMEM = KV_BAR_OFF + (1 + 2 * STAGES) * 8 + 1024;  // + slack to align to 1024
-// dq: the block's q and do; per stage the k and v tiles and the keys' segment ids
-constexpr int Q_Q_OFF = 0;
-constexpr int Q_DO_OFF = Q_Q_OFF + OWN;
-constexpr int Q_K_OFF = Q_DO_OFF + OWN;
-constexpr int Q_V_OFF = Q_K_OFF + STAGES * STEP_T;
-constexpr int Q_SEG_OFF = Q_V_OFF + STAGES * STEP_T;    // [STAGES][STEP]
-constexpr int Q_BAR_OFF = Q_SEG_OFF + STAGES * STEP * 4;
-constexpr int Q_SMEM = Q_BAR_OFF + (1 + 2 * STAGES) * 8 + 1024;
-static_assert(KV_SMEM <= 232448 && Q_SMEM <= 232448, "shared memory of one block");
+// dkv: the block's k and v; per stage the q and do tiles (INT8: and the int8 q
+// tile, stages 0 and 1 in the own k region's second half, 2 and 3 after the do
+// tiles) and the q rows' lse, delta and segment ids (INT8: and the tile's factor)
+template <bool INT8>
+struct KvLayout {
+  static constexpr int STAGES = 4;  // streamed steps in flight
+  static constexpr int K_OFF = 0;
+  static constexpr int V_OFF = K_OFF + OWN;
+  static constexpr int Q_OFF = V_OFF + OWN;
+  static constexpr int DO_OFF = Q_OFF + STAGES * KV_STEP_T;
+  static constexpr int Q8_OFF = DO_OFF + STAGES * KV_STEP_T;
+  static constexpr int ROW_OFF = Q8_OFF + (INT8 ? (STAGES - 2) * STEP8 : 0);
+  // the int8 q tile of stage s
+  static __device__ __forceinline__ int q8_off(int s) {
+    return s < 2 ? K_OFF + OWN8 + s * STEP8 : Q8_OFF + (s - 2) * STEP8;
+  }
+  static constexpr int ROWS = INT8 ? 4 : 3;  // [STAGES][lse, delta, seg(, factor)][KV_STEP]
+  static constexpr int BAR_OFF = ROW_OFF + STAGES * ROWS * KV_STEP * 4;
+  static constexpr int SMEM = BAR_OFF + (1 + 2 * STAGES) * 8 + 1024;  // + slack to align to 1024
+};
+// dq: the block's q and do; per stage the k and v tiles (INT8: and the int8 k
+// tile) and the keys' segment ids
+template <bool INT8>
+struct QLayout {
+  static constexpr int STAGES = 4;
+  static constexpr int Q_OFF = 0;
+  static constexpr int DO_OFF = Q_OFF + OWN;
+  static constexpr int K_OFF = DO_OFF + OWN;
+  static constexpr int V_OFF = K_OFF + STAGES * STEP_T;
+  static constexpr int K8_OFF = V_OFF + STAGES * STEP_T;
+  static constexpr int SEG_OFF = K8_OFF + (INT8 ? STAGES * STEP8 : 0);  // [STAGES][STEP]
+  static constexpr int BAR_OFF = SEG_OFF + STAGES * STEP * 4;
+  static constexpr int SMEM = BAR_OFF + (1 + 2 * STAGES) * 8 + 1024;
+};
+constexpr int KV_SMEM = KvLayout<false>::SMEM, Q_SMEM = QLayout<false>::SMEM;
+constexpr int KV_SMEM8 = KvLayout<true>::SMEM, Q_SMEM8 = QLayout<true>::SMEM;
+static_assert(KV_SMEM <= 232448 && Q_SMEM <= 232448 && KV_SMEM8 <= 232448 &&
+                  Q_SMEM8 <= 232448,
+              "shared memory of one block");
+
+// the score product without the int8 path (K4, K2's bf16 mode)
+struct NoInt8 {
+  static constexpr bool ON = false;
+};
 
 __device__ __forceinline__ int seg_of(const int* __restrict__ seg, int row, int n) {
   // one validity rule: rows past n carry segment 0; without ids every real token is 1
@@ -82,18 +131,24 @@ __device__ __forceinline__ int seg_of(const int* __restrict__ seg, int row, int 
 
 // dk / dv: block = 128 keys of one (b, h); consumer warpgroup c owns keys 64 c ..
 // 64 c + 63.  Per q tile of KV_STEP rows: s^T = k q^T and dp^T = v do^T, then p^T and
-// ds^T in registers, then dv += p^T do and dk += ds^T q.
-template <class Epi>
+// ds^T in registers, then dv += p^T do and dk += ds^T q.  I8::ON: k_map is the int8
+// k in [BLK, 128] boxes, q_map the bf16 qn, i8.step_map the int8 q.
+template <class Epi, class I8 = NoInt8>
 __device__ __forceinline__ void attn_dkv_body(const CUtensorMap& k_map, const CUtensorMap& v_map,
                                               const CUtensorMap& q_map, const CUtensorMap& do_map,
                                               const float* __restrict__ lse,
                                               const float* __restrict__ delta,
                                               const int* __restrict__ q_seg,
                                               const int* __restrict__ kv_seg, int Sq, int Sk,
-                                              int H, float scale, const Epi& epi) {
+                                              int H, float scale, const Epi& epi,
+                                              const I8& i8 = I8()) {
+  using L = KvLayout<I8::ON>;
+  constexpr int STAGES = L::STAGES;
+  constexpr int KV_K_OFF = L::K_OFF, KV_V_OFF = L::V_OFF, KV_Q_OFF = L::Q_OFF;
+  constexpr int KV_DO_OFF = L::DO_OFF, KV_ROW_OFF = L::ROW_OFF, ROWS = L::ROWS;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
-  uint64_t* own = reinterpret_cast<uint64_t*>(smem + KV_BAR_OFF);
+  uint64_t* own = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
   uint64_t* full = own + 1;
   uint64_t* empty = full + STAGES;
   const int h = blockIdx.y, b = blockIdx.z, k0 = blockIdx.x * BLK;
@@ -116,9 +171,9 @@ __device__ __forceinline__ void attn_dkv_body(const CUtensorMap& k_map, const CU
     if (threadIdx.x < 32) {
       const int lane = threadIdx.x;
       if (lane == 0) {
-        mbar_expect_tx(own, 2 * OWN);
+        mbar_expect_tx(own, (I8::ON ? OWN8 : OWN) + OWN);
         tma_load_4d(smem + KV_K_OFF, &k_map, own, 0, h, k0, b);
-        tma_load_4d(smem + KV_K_OFF + OWN / 2, &k_map, own, 64, h, k0, b);
+        if constexpr (!I8::ON) tma_load_4d(smem + KV_K_OFF + OWN / 2, &k_map, own, 64, h, k0, b);
         tma_load_4d(smem + KV_V_OFF, &v_map, own, 0, h, k0, b);
         tma_load_4d(smem + KV_V_OFF + OWN / 2, &v_map, own, 64, h, k0, b);
       }
@@ -131,13 +186,19 @@ __device__ __forceinline__ void attn_dkv_body(const CUtensorMap& k_map, const CU
         if (lane == 0) {
           uint8_t* qt = smem + KV_Q_OFF + s * KV_STEP_T;
           uint8_t* dt = smem + KV_DO_OFF + s * KV_STEP_T;
-          mbar_expect_tx(&full[s], 2 * KV_STEP_T);
+          mbar_expect_tx(&full[s], 2 * KV_STEP_T + (I8::ON ? STEP8 : 0));
           tma_load_4d(qt, &q_map, &full[s], 0, h, q0, b);
           tma_load_4d(qt + KV_STEP_T / 2, &q_map, &full[s], 64, h, q0, b);
           tma_load_4d(dt, &do_map, &full[s], 0, h, q0, b);
           tma_load_4d(dt + KV_STEP_T / 2, &do_map, &full[s], 64, h, q0, b);
+          if constexpr (I8::ON) {
+            tma_load_4d(smem + L::q8_off(s), &i8.step_map, &full[s], 0, h, q0, b);
+          }
         }
-        float* rows = reinterpret_cast<float*>(smem + KV_ROW_OFF) + s * 3 * KV_STEP;
+        float* rows = reinterpret_cast<float*>(smem + KV_ROW_OFF) + s * ROWS * KV_STEP;
+        if constexpr (I8::ON) {
+          if (lane == 0) rows[3 * KV_STEP] = i8.factor(b, h, H, Sq, q0);
+        }
         for (int j = lane; j < KV_STEP; j += 32) {
           const int row = q0 + j;
           const bool in = row < Sq;
@@ -173,25 +234,41 @@ __device__ __forceinline__ void attn_dkv_body(const CUtensorMap& k_map, const CU
     const int s = i % STAGES;
     const uint32_t qt = smem_u32(smem + KV_Q_OFF + s * KV_STEP_T);
     const uint32_t dt = smem_u32(smem + KV_DO_OFF + s * KV_STEP_T);
-    const float* lse_s = reinterpret_cast<const float*>(smem + KV_ROW_OFF) + s * 3 * KV_STEP;
+    const float* lse_s = reinterpret_cast<const float*>(smem + KV_ROW_OFF) + s * ROWS * KV_STEP;
     const float* del_s = lse_s + KV_STEP;
     const int* segq_s = reinterpret_cast<const int*>(lse_s + 2 * KV_STEP);
 
     // sT[4 j + 2 i + e], dpT likewise: key row r0 + g + 8 i, q column 8 j + 2 t + e
     float sT[KV_STEP / 2], dpT[KV_STEP / 2];
+    uint32_t si[I8::ON ? KV_STEP / 2 : 1];  // s^T as s32 (the int8 path)
     mbar_wait(&full[s], (i / STAGES) & 1);
     wgmma_fence();
+    if constexpr (I8::ON) {
+      const uint32_t q8t = smem_u32(smem + L::q8_off(s));
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_m64n64k16_ss(sT, desc_kmajor(kt, BLK, 64 * c, kk), desc_kmajor(qt, KV_STEP, 0, kk),
-                         kk > 0);
+      for (int kk = 0; kk < D / 32; ++kk)
+        wgmma_m64n64k32_s8(si, desc_kmajor8(kt, 64 * c, kk), desc_kmajor8(q8t, 0, kk), kk > 0);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_m64n64k16_ss(sT, desc_kmajor(kt, BLK, 64 * c, kk),
+                           desc_kmajor(qt, KV_STEP, 0, kk), kk > 0);
+    }
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
       wgmma_m64n64k16_ss(dpT, desc_kmajor(vt, BLK, 64 * c, kk), desc_kmajor(dt, KV_STEP, 0, kk),
                          kk > 0);
     wgmma_commit();
     wgmma_wait<0>();
-    fence_regs(sT);
+    float sl2s = sl2;  // the scores' scale in log2 units: the int8 path's factor
+    if constexpr (I8::ON) {
+      fence_regs(si);
+#pragma unroll
+      for (int x = 0; x < KV_STEP / 2; ++x) sT[x] = s32_to_f32(si[x]);
+      sl2s = lse_s[3 * KV_STEP] * LOG2E;
+    } else {
+      fence_regs(sT);
+    }
     fence_regs(dpT);
 #pragma unroll
     for (int j = 0; j < KV_STEP / 8; ++j) {
@@ -204,7 +281,7 @@ __device__ __forceinline__ void attn_dkv_body(const CUtensorMap& k_map, const CU
         for (int i2 = 0; i2 < 2; ++i2) {
           const int x = 4 * j + 2 * i2 + e;
           const bool ok = segk[i2] != 0 && sq == segk[i2];
-          const float p = ok ? ex2_approx(fmaf(sT[x], sl2, -ls)) : 0.f;
+          const float p = ok ? ex2_approx(fmaf(sT[x], sl2s, -ls)) : 0.f;
           sT[x] = p;
           dpT[x] = p * (dpT[x] - dl) * scale;
         }
@@ -233,23 +310,32 @@ __device__ __forceinline__ void attn_dkv_body(const CUtensorMap& k_map, const CU
     if (lane == 0) mbar_arrive(&empty[s]);
   }
 
+  // the int8 path's q tiles of stages 0 and 1 lie where the epilogue stages: the
+  // other warpgroup may still read them
+  if constexpr (I8::ON) consumers_sync();
   epi.epilogue_dkv(dva, dka, smem + KV_K_OFF, smem + KV_V_OFF, b, h, k0, c, r0, Sk, H);
 }
 
 // dq: block = 128 q rows of one (b, h); consumer warpgroup c owns rows 64 c .. 64 c +
 // 63.  Per K tile of 64 keys: s = q k^T and dp = do v^T, p and ds in registers, then
-// dq += ds k.
-template <class Epi>
+// dq += ds k.  I8::ON: q_map is the int8 q in [BLK, 128] boxes, k_map the bf16 kn,
+// i8.step_map the int8 k; the block's 128 rows lie in one q tile, so one factor.
+template <class Epi, class I8 = NoInt8>
 __device__ __forceinline__ void attn_dq_body(const CUtensorMap& q_map, const CUtensorMap& do_map,
                                              const CUtensorMap& k_map, const CUtensorMap& v_map,
                                              const float* __restrict__ lse,
                                              const float* __restrict__ delta,
                                              const int* __restrict__ q_seg,
                                              const int* __restrict__ kv_seg, int Sq, int Sk,
-                                             int H, float scale, const Epi& epi) {
+                                             int H, float scale, const Epi& epi,
+                                             const I8& i8 = I8()) {
+  using L = QLayout<I8::ON>;
+  constexpr int STAGES = L::STAGES;
+  constexpr int Q_Q_OFF = L::Q_OFF, Q_DO_OFF = L::DO_OFF, Q_K_OFF = L::K_OFF;
+  constexpr int Q_V_OFF = L::V_OFF, Q_SEG_OFF = L::SEG_OFF;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
-  uint64_t* own = reinterpret_cast<uint64_t*>(smem + Q_BAR_OFF);
+  uint64_t* own = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
   uint64_t* full = own + 1;
   uint64_t* empty = full + STAGES;
   const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * BLK;
@@ -272,9 +358,9 @@ __device__ __forceinline__ void attn_dq_body(const CUtensorMap& q_map, const CUt
     if (threadIdx.x < 32) {
       const int lane = threadIdx.x;
       if (lane == 0) {
-        mbar_expect_tx(own, 2 * OWN);
+        mbar_expect_tx(own, (I8::ON ? OWN8 : OWN) + OWN);
         tma_load_4d(smem + Q_Q_OFF, &q_map, own, 0, h, q0, b);
-        tma_load_4d(smem + Q_Q_OFF + OWN / 2, &q_map, own, 64, h, q0, b);
+        if constexpr (!I8::ON) tma_load_4d(smem + Q_Q_OFF + OWN / 2, &q_map, own, 64, h, q0, b);
         tma_load_4d(smem + Q_DO_OFF, &do_map, own, 0, h, q0, b);
         tma_load_4d(smem + Q_DO_OFF + OWN / 2, &do_map, own, 64, h, q0, b);
       }
@@ -285,11 +371,14 @@ __device__ __forceinline__ void attn_dq_body(const CUtensorMap& q_map, const CUt
         if (lane == 0) {
           uint8_t* kt = smem + Q_K_OFF + s * STEP_T;
           uint8_t* vt = smem + Q_V_OFF + s * STEP_T;
-          mbar_expect_tx(&full[s], 2 * STEP_T);
+          mbar_expect_tx(&full[s], 2 * STEP_T + (I8::ON ? STEP8 : 0));
           tma_load_4d(kt, &k_map, &full[s], 0, h, k0, b);
           tma_load_4d(kt + STEP_T / 2, &k_map, &full[s], 64, h, k0, b);
           tma_load_4d(vt, &v_map, &full[s], 0, h, k0, b);
           tma_load_4d(vt + STEP_T / 2, &v_map, &full[s], 64, h, k0, b);
+          if constexpr (I8::ON) {
+            tma_load_4d(smem + L::K8_OFF + s * STEP8, &i8.step_map, &full[s], 0, h, k0, b);
+          }
         }
         int* segs = reinterpret_cast<int*>(smem + Q_SEG_OFF) + s * STEP;
         for (int j = lane; j < STEP; j += 32) segs[j] = seg_of(ksegb, k0 + j, Sk);
@@ -306,6 +395,8 @@ __device__ __forceinline__ void attn_dq_body(const CUtensorMap& q_map, const CUt
   const int warp = wt >> 5, lane = wt & 31, g = lane >> 2, t = lane & 3;
   const int r0 = 64 * c + 16 * warp;  // this warp's first q row of the block
   const int* qsegb = q_seg ? q_seg + (size_t)b * Sq : nullptr;
+  float sl2s = sl2;  // the scores' scale in log2 units: the int8 path's factor
+  if constexpr (I8::ON) sl2s = i8.factor(b, h, H, Sq, q0) * LOG2E;
   float lse_r[2], del_r[2];
   int segq[2];
 #pragma unroll
@@ -332,13 +423,21 @@ __device__ __forceinline__ void attn_dq_body(const CUtensorMap& q_map, const CUt
 
     // sc[4 j + 2 i + e], dp likewise: q row r0 + g + 8 i, key column 8 j + 2 t + e
     float sc[32], dp[32];
+    uint32_t si[I8::ON ? 32 : 1];  // s as s32 (the int8 path)
     mbar_wait(&full[s], (i / STAGES) & 1);
     // s, then dp as a second wgmma group: p is formed while dp runs
     wgmma_fence();
+    if constexpr (I8::ON) {
+      const uint32_t k8t = smem_u32(smem + L::K8_OFF + s * STEP8);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_m64n64k16_ss(sc, desc_kmajor(qt, BLK, 64 * c, kk), desc_kmajor(kt, STEP, 0, kk),
-                         kk > 0);
+      for (int kk = 0; kk < D / 32; ++kk)
+        wgmma_m64n64k32_s8(si, desc_kmajor8(qt, 64 * c, kk), desc_kmajor8(k8t, 0, kk), kk > 0);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_m64n64k16_ss(sc, desc_kmajor(qt, BLK, 64 * c, kk), desc_kmajor(kt, STEP, 0, kk),
+                           kk > 0);
+    }
     wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
@@ -346,7 +445,13 @@ __device__ __forceinline__ void attn_dq_body(const CUtensorMap& q_map, const CUt
                          kk > 0);
     wgmma_commit();
     wgmma_wait<1>();
-    fence_regs(sc);
+    if constexpr (I8::ON) {
+      fence_regs(si);
+#pragma unroll
+      for (int x = 0; x < 32; ++x) sc[x] = s32_to_f32(si[x]);
+    } else {
+      fence_regs(sc);
+    }
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
@@ -356,7 +461,7 @@ __device__ __forceinline__ void attn_dq_body(const CUtensorMap& q_map, const CUt
         for (int i2 = 0; i2 < 2; ++i2) {
           const int x = 4 * j + 2 * i2 + e;
           const bool ok = segq[i2] != 0 && sk == segq[i2];
-          sc[x] = ok ? ex2_approx(fmaf(sc[x], sl2, -lse_r[i2])) : 0.f;
+          sc[x] = ok ? ex2_approx(fmaf(sc[x], sl2s, -lse_r[i2])) : 0.f;
         }
       }
     }

@@ -1,8 +1,9 @@
-// The Hopper flash-attention forward main loop that K1's bf16 mode
-// (flash_nr_fwd.cu, flash_nr_fwd_bf16_kernel) and K3 (flash_fwd.cu,
-// flash_fwd_kernel) share.  Each kernel is a thin __global__ wrapper around
-// attn_fwd_body<SEG, NORM_Q>; the body is inlined into it, so the two keep
-// their names (and their profile groups) and compile to the same loop.
+// The Hopper flash-attention forward main loop that K1 (flash_nr_fwd.cu:
+// flash_nr_fwd_bf16_kernel, and flash_nr_fwd_int8_kernel for its s_int8 mode)
+// and K3 (flash_fwd.cu, flash_fwd_kernel) share.  Each kernel is a thin
+// __global__ wrapper around attn_fwd_body<SEG, NORM_Q, INT8>; the body is
+// inlined into it, so the three keep their names (and their profile groups)
+// and compile to the same loop.
 //
 // Block (q tile of 128 rows, h, b), 384 threads.  Warpgroup 0 is the producer:
 // its first warp keeps STAGES (k, v) tile pairs of 128 keys in flight by TMA
@@ -15,6 +16,15 @@
 //     cast chain (norm_rope4), straight into the tile;
 //   * else (K3): the producer loads the already normed and roped q tile by TMA
 //     before the first k tile, on its own mbarrier.
+// INT8 (K1's s_int8 mode, with NORM_Q): the consumers also quantize their
+// normed q rows with the scale of the block's q tile (the prep reduced its
+// amax; a 128-row block lies inside one 128- or 256-row tile) into an int8
+// tile in the same swizzled layout, the producer streams the prep's int8 k
+// (128 keys, 16 KB a stage) in place of bf16 kn, and S is four wgmma
+// m64n128k32 s8 steps into s32 accumulators (the same registers and layout),
+// converted to f32 exactly (|sum| <= 127^2 * 128 < 2^24).  The softmax then
+// takes the integer score in place of the raw one, with the int8 factor
+// (q_scale * k_scale) * scale (IEEE products in that order) as its scale.
 // Then per K/V tile: S = q k^T (wgmma m64n128k16, both operands in shared
 // memory, k K-major), the online softmax on the accumulator registers (a
 // masked score is exactly -1e30 and gets p = 0; p rounded to bf16,
@@ -43,7 +53,7 @@ constexpr int BQ = 128;       // q rows of a block: 64 per consumer warpgroup
 constexpr int BK = 128;       // keys of a K/V tile
 constexpr int STAGES = 2;     // K/V tiles in flight
 constexpr int THREADS = 384;  // producer warpgroup + two consumer warpgroups
-constexpr int TILE = BK * D * 2;  // bytes of one [BK, 128] bf16 tile
+constexpr int TILE = BK * D * 2;  // bytes of one [BK, 128] bf16 tile (the int8 k fills half)
 constexpr int Q_OFF = 0;                            // the block's q tile
 constexpr int K_OFF = Q_OFF + BQ * D * 2;           // STAGES k tiles
 constexpr int V_OFF = K_OFF + STAGES * TILE;        // STAGES v tiles
@@ -53,7 +63,9 @@ constexpr int SMEM = BAR_OFF + (4 * STAGES + 1) * 8 + 1024;  // + slack to align
 static_assert(SMEM <= 232448, "shared memory of one block");
 constexpr float NEG_INF = -1e30f;
 
-// K1's raw q and what norms and ropes it (unused by K3)
+// K1's raw q and what norms and ropes it (unused by K3); in the s_int8 mode
+// also the prep's amax [B, H, 1 + ceil(S / q_rows)] (k's slot, then one per q
+// tile of q_rows rows) that the scales come from
 struct RawQ {
   const bf16* q;
   const float* q_scale2;  // [2, D]: row 0 below st, row 1 from st
@@ -61,12 +73,14 @@ struct RawQ {
   const float* sin;
   long long cs_bstride;
   int st;
+  const unsigned* amax;
+  int q_rows;
 };
 
 // q_map: K3's normed q over [B, Sq, H, 128] in [BQ, 64] boxes (unused by K1);
-// k_map / v_map over [B, Sk, H, 128] in [BK, 64] boxes.  out [B, Sq, H, D]
-// bf16, lse [B, H, Sq] f32.
-template <bool SEG, bool NORM_Q>
+// k_map / v_map over [B, Sk, H, 128] in [BK, 64] boxes (INT8: k_map over the
+// int8 k in [BK, 128] boxes).  out [B, Sq, H, D] bf16, lse [B, H, Sq] f32.
+template <bool SEG, bool NORM_Q, bool INT8 = false>
 __device__ __forceinline__ void attn_fwd_body(const CUtensorMap& q_map, const CUtensorMap& k_map,
                                               const CUtensorMap& v_map, const RawQ& rq,
                                               const int* __restrict__ q_seg,
@@ -82,6 +96,8 @@ __device__ __forceinline__ void attn_fwd_body(const CUtensorMap& q_map, const CU
   uint64_t* full_q = empty_v + STAGES;
   int* segk = reinterpret_cast<int*>(smem + SEG_OFF);
 
+  static_assert(NORM_Q || !INT8, "the s_int8 mode quantizes the q rows its consumers norm");
+  constexpr int KBYTES = INT8 ? BK * D : TILE;  // bytes of one k tile
   const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * BQ;
   const int ntiles = (Sk + BK - 1) / BK;
   const int* qsegb = q_seg ? q_seg + (size_t)b * Sq : nullptr;
@@ -119,9 +135,9 @@ __device__ __forceinline__ void attn_fwd_body(const CUtensorMap& q_map, const CU
         if (i >= STAGES) mbar_wait(&empty_k[s], ph);
         if (lane == 0) {
           uint8_t* kt = smem + K_OFF + s * TILE;
-          mbar_expect_tx(&full_k[s], TILE);
+          mbar_expect_tx(&full_k[s], KBYTES);
           tma_load_4d(kt, &k_map, &full_k[s], 0, h, k0, b);
-          tma_load_4d(kt + TILE / 2, &k_map, &full_k[s], 64, h, k0, b);
+          if constexpr (!INT8) tma_load_4d(kt + TILE / 2, &k_map, &full_k[s], 64, h, k0, b);
         }
         for (int j = lane; j < BK; j += 32) {
           const int key = k0 + j;
@@ -149,8 +165,17 @@ __device__ __forceinline__ void attn_fwd_body(const CUtensorMap& q_map, const CU
   uint8_t* qs = smem + Q_OFF;
   const int r0 = 64 * c + 16 * warp;  // this warp's first row of the q tile
 
+  // the softmax's scale of a raw score: INT8, the int8 factor of the block's q
+  // tile and k (their quantization scales times scale, in that order)
+  float sscale = scale, qsc = 0.f;
+  if constexpr (INT8) {
+    const unsigned* am = rq.amax + ((size_t)b * H + h) * (1 + (Sq + rq.q_rows - 1) / rq.q_rows);
+    qsc = int8_scale(am[1 + q0 / rq.q_rows]);
+    sscale = __fmul_rn(__fmul_rn(qsc, int8_scale(am[0])), scale);
+  }
   if constexpr (NORM_Q) {
-    // the warp's 16 q rows, normed and roped once, in the layout wgmma reads
+    // the warp's 16 q rows, normed and roped once (INT8: and quantized), in the
+    // layout wgmma reads
     const float* cb = rq.cos + (size_t)b * rq.cs_bstride;
     const float* sb = rq.sin + (size_t)b * rq.cs_bstride;
 #pragma unroll 4
@@ -163,7 +188,10 @@ __device__ __forceinline__ void attn_fwd_body(const CUtensorMap& q_map, const CU
                        rq.q_scale2 + (row < rq.st ? 0 : D) + lane * 4, cb + (size_t)row * D,
                        sb + (size_t)row * D, lane, unused);
       }
-      *reinterpret_cast<uint2*>(qs + swz_offset(BQ, r0 + i, lane * 4)) = y;
+      if constexpr (INT8)
+        *reinterpret_cast<uint32_t*>(qs + swz8_offset(r0 + i, lane * 4)) = quant4w(y, qsc);
+      else
+        *reinterpret_cast<uint2*>(qs + swz_offset(BQ, r0 + i, lane * 4)) = y;
     }
     fence_proxy_async();
     warpgroup_sync(c);
@@ -183,17 +211,26 @@ __device__ __forceinline__ void attn_fwd_body(const CUtensorMap& q_map, const CU
   for (int x = 0; x < 64; ++x) o[x] = 0.f;
   const uint32_t qa = smem_u32(qs);
 
-  // Tile `it`'s scores into sc, issued as one wgmma group: sc[4 j + 2 i + e] is
-  // row r0 + g + 8 i, key 8 j + 2 t + e
+  // Tile `it`'s scores into sc (INT8: into the s32 si, which `softmax`
+  // converts; si is declared afresh for each tile, so its registers are free
+  // between the conversion and the next tile's products), issued as one wgmma
+  // group: sc[4 j + 2 i + e] is row r0 + g + 8 i, key 8 j + 2 t + e
   float sc[BK / 2];
-  auto issue_scores = [&](int it) {
+  constexpr int NSI = INT8 ? BK / 2 : 1;
+  auto issue_scores = [&](int it, uint32_t (&si)[NSI]) {
     const int s = it % STAGES;
     const uint32_t kt = smem_u32(smem + K_OFF + s * TILE);
     mbar_wait(&full_k[s], (it / STAGES) & 1);
+    if constexpr (INT8) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_m64n128k16<0>(sc, desc_kmajor(qa, BQ, 64 * c, kk), desc_kmajor(kt, BK, 0, kk),
-                          kk > 0);
+      for (int kk = 0; kk < D / 32; ++kk)
+        wgmma_m64n128k32_s8(si, desc_kmajor8(qa, 64 * c, kk), desc_kmajor8(kt, 0, kk), kk > 0);
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_m64n128k16<0>(sc, desc_kmajor(qa, BQ, 64 * c, kk), desc_kmajor(kt, BK, 0, kk),
+                            kk > 0);
+    }
     wgmma_commit();
   };
   // o += p v of tile `it` (p, rounded to bf16, as the A fragments of keys 16 kk ..
@@ -212,10 +249,16 @@ __device__ __forceinline__ void attn_fwd_body(const CUtensorMap& q_map, const CU
   // rule, freeing the k tile and its ids once read (a masked score is exactly
   // NEG_INF and gets p = 0), returning the row sums of p and the factors alpha
   // for o and l
-  const float sl2 = scale * LOG2E;  // raw scores to log2 units
+  const float sl2 = sscale * LOG2E;  // raw scores to log2 units
   float alpha[2], psum[2];
-  auto softmax = [&](int it) {
-    fence_regs(sc);
+  auto softmax = [&](int it, uint32_t (&si)[NSI]) {
+    if constexpr (INT8) {
+      fence_regs(si);
+#pragma unroll
+      for (int x = 0; x < BK / 2; ++x) sc[x] = s32_to_f32(si[x]);
+    } else {
+      fence_regs(sc);
+    }
     const int* sk = segk + (it % STAGES) * BK;
     float tmax[2] = {NEG_INF, NEG_INF};
     // masking by id is needed with segment ids, else only in a tile past Sk
@@ -295,18 +338,22 @@ __device__ __forceinline__ void attn_fwd_body(const CUtensorMap& q_map, const CU
   // it - 1's p v behind them, so the softmax of tile it runs while p v is in the
   // tensor cores.  The arithmetic is the plain loop's, in its order: o and l are
   // rescaled by tile it's alpha after tile it - 1's p v has been added.
-  wgmma_fence();
-  issue_scores(0);
-  wgmma_wait<0>();
-  softmax(0);
-  rescale_and_pack(-1);
+  {
+    uint32_t si[NSI];
+    wgmma_fence();
+    issue_scores(0, si);
+    wgmma_wait<0>();
+    softmax(0, si);
+    rescale_and_pack(-1);
+  }
 #pragma unroll 1
   for (int it = 1; it < ntiles; ++it) {
+    uint32_t si[NSI];
     wgmma_fence();
-    issue_scores(it);
+    issue_scores(it, si);
     issue_pv(it - 1);
     wgmma_wait<1>();
-    softmax(it);
+    softmax(it, si);
     wgmma_wait<0>();
     rescale_and_pack(it - 1);
   }
@@ -328,7 +375,7 @@ __device__ __forceinline__ void attn_fwd_body(const CUtensorMap& q_map, const CU
       const int row = q0 + r0 + g + 8 * i;
       if (row < Sq)
         lse[((size_t)b * H + h) * Sq + row] =
-            m[i] == NEG_INF ? NEG_INF : m[i] * scale + logf(l[i] == 0.f ? 1.f : l[i]);
+            m[i] == NEG_INF ? NEG_INF : m[i] * sscale + logf(l[i] == 0.f ? 1.f : l[i]);
     }
   }
 }

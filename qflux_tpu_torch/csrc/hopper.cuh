@@ -1,11 +1,13 @@
 // The Hopper machinery the port's sm_90a kernels share (K6a int4_fwd.cu, K6b
-// int4_bwd.cu, K1 flash_nr_fwd.cu in bf16, K4 flash_bwd.cu): mbarriers,
-// fences, named barriers and setmaxnreg; TMA tile loads and bulk copies into
-// shared memory; wgmma descriptors and the bf16 wgmma shapes the kernels use
-// (A from shared memory or from registers); and the tensor-map encoder
-// (libcuda's cuTensorMapEncodeTiled, taken through cudaGetDriverEntryPoint, so
-// the library needs no -lcuda) with a cache of encoded maps.  Each translation
-// unit gets its own copy (anonymous namespace), as with common.cuh.
+// int4_bwd.cu, K1 / K2 flash_nr_*.cu, K3 / K4 flash_*.cu, K5a / K5b
+// rq_int4_*.cu): mbarriers, fences, named barriers and setmaxnreg; TMA tile
+// loads and bulk copies into shared memory; wgmma descriptors, the bf16 wgmma
+// shapes the kernels use (A from shared memory or from registers) and the s8
+// ones (both operands from shared memory, K-major: the only form wgmma takes
+// 8-bit operands in); and the tensor-map encoder (libcuda's
+// cuTensorMapEncodeTiled, taken through cudaGetDriverEntryPoint, so the library
+// needs no -lcuda) with a cache of encoded maps.  Each translation unit gets its
+// own copy (anonymous namespace), as with common.cuh.
 //
 // Shared-memory tile layout of every TMA load here: 128-byte rows (64 bf16),
 // 8-row swizzle atoms of 1024 bytes, 16-byte chunk c of row r stored at chunk
@@ -18,6 +20,9 @@
 //   * MN-major (the contraction along the rows: p·v's v): descriptor at
 //     kk * 2048 bytes (16 rows) for k16 step kk, LBO = R * 128 (the second
 //     64-column half), SBO = 1024, layout 1, transposed B.
+// An [R, 128] int8 tile is one such [R, 128-byte] block (a row is a single
+// swizzle span); wgmma reads it K-major only: descriptor at kk * 32 bytes for
+// k32 step kk, SBO = 1024, layout 1 (desc_kmajor8).
 
 #pragma once
 
@@ -293,6 +298,78 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
       : "memory");
 }
 
+// d[64 x 128] (+)= A[64 x 32] * B[32 x 128], s8 in, s32 accumulators; A and B
+// K-major in shared memory; acc = 0 overwrites d.  Accumulator layout as the
+// f32 shapes': d[4 j + 0..1] = (row 16 w + g, cols 8 j + 2 t, + 1), d[4 j +
+// 2..3] = (row 16 w + g + 8, the same cols).
+__device__ __forceinline__ void wgmma_m64n128k32_s8(uint32_t (&d)[64], uint64_t da, uint64_t db,
+                                                    int acc = 1) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(acc)
+      : "memory");
+}
+
+// d[64 x 64] (+)= A[64 x 32] * B[32 x 64], s8 in, s32 accumulators, A and B
+// K-major in shared memory, acc as above; the accumulator layout of the
+// 128-column shape over 8 column tiles
+__device__ __forceinline__ void wgmma_m64n64k32_s8(uint32_t (&d)[32], uint64_t da, uint64_t db,
+                                                   int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(acc)
+      : "memory");
+}
+
+// An s32 accumulator element as f32, exactly for |x| < 2^22 (every int8 score
+// of a 128-wide head: |sum| <= 127^2 * 128 < 2^21): the integer added to the
+// bits of 1.5 * 2^23 is that float plus x, and one subtraction takes the bias
+// away.  An integer add and a float add, where I2F would take the narrow
+// conversion unit.
+__device__ __forceinline__ float s32_to_f32(uint32_t x) {
+  return __fsub_rn(__uint_as_float(x + 0x4B400000u), 12582912.0f);
+}
+
 // The softmax works in log2 units: exp(x * scale - m) is 2^(x * scale * LOG2E -
 // m * LOG2E), one fused multiply-add and ex2.approx (what __expf runs after its
 // own multiply) per score.
@@ -327,6 +404,16 @@ __device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int rows, int kk
   return wgmma_desc(tile + kk * 2048, rows * 128, 1024, 1);
 }
 
+// the int8 tile's K-major descriptor at rows row0.. for k32 step kk
+__device__ __forceinline__ uint64_t desc_kmajor8(uint32_t tile, int row0, int kk) {
+  return wgmma_desc(tile + row0 * 128 + kk * 32, 16, 1024, 1);
+}
+
+// byte offset of byte `col` of row `row` of an [R, 128] int8 tile in that layout
+__device__ __forceinline__ uint32_t swz8_offset(int row, int col) {
+  return row * 128 + ((((col >> 4) ^ (row & 7)) << 4) | (col & 15));
+}
+
 // byte offset of element (row, col) of a [rows, 128] bf16 tile in that layout
 __device__ __forceinline__ uint32_t swz_offset(int rows, int row, int col) {
   return (col >> 6) * rows * 128 + row * 128 + ((((col >> 3) & 7) ^ (row & 7)) << 4) +
@@ -358,7 +445,20 @@ __device__ __forceinline__ void store_rows_wg(const float (&acc)[64], const floa
 }
 
 // ---------------------------------------------------------------------------
-// tensor maps (host)
+// host
+
+// the dynamic shared memory a kernel may take, set on its first launch (`done`:
+// the caller's flag for that kernel)
+template <typename K>
+cudaError_t set_smem(bool& done, K kernel, int bytes) {
+  if (done) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  done = err == cudaSuccess;
+  return err;
+}
+
+// tensor maps
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
@@ -474,6 +574,17 @@ inline bool encode_heads(CUtensorMap* map, const void* ptr, int B, int S, int H,
   const uint64_t strides[3] = {256, 256ull * H, 256ull * H * S};
   const uint32_t box[4] = {64, 1, box_rows, 1};
   return encode_cached(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, 4, dims, strides, box,
+                       CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// the same for a [B, S, H, 128] int8 tensor: a row is one 128-byte swizzle span,
+// read in [box_rows, 128] boxes (coordinates: 0, h, s, b)
+inline bool encode_heads8(CUtensorMap* map, const void* ptr, int B, int S, int H,
+                          uint32_t box_rows) {
+  const uint64_t dims[4] = {128, (uint64_t)H, (uint64_t)S, (uint64_t)B};
+  const uint64_t strides[3] = {128, 128ull * H, 128ull * H * S};
+  const uint32_t box[4] = {128, 1, box_rows, 1};
+  return encode_cached(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, ptr, 4, dims, strides, box,
                        CU_TENSOR_MAP_SWIZZLE_128B);
 }
 

@@ -399,10 +399,11 @@ def _flash_nr_cuda(q, k, v, q_scale2, k_scale2, cos, sin, st, segment_ids, scale
     h, row) into the scratch kn.  q_rows = 0: the bf16 mode, then the wgmma
     kernel.  q_rows > 0: the s_int8 mode, whose prep also quantizes k per
     (b, h) and reduces the largest |qn| of each `q_rows`-row tile, then its
-    kernel.  Counting is the caller's (`_flash_nr_fwd_op`)."""
+    kernel, the same wgmma loop with int8 score products.  Counting is the
+    caller's (`_flash_nr_fwd_op`)."""
+    _check_rows(q_rows, 128, "")
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_nr: the kernel runs on CUDA tensors, got {q.device}")
-    _check_rows(q_rows, 128, "")
     qs, ks, cs_bstride, seg = _kernel_args(q, k, v, q_scale2, k_scale2, cos, sin, segment_ids)
 
     from qflux_tpu_torch.runtime.build import load_library
@@ -458,13 +459,14 @@ def _flash_nr_bwd_cuda(q, k, v, q_scale2, k_scale2, cos, sin, st, segment_ids, s
     """Launch K2 (csrc/flash_nr_bwd.cu) on CUDA tensors → (dq, dk, dv in
     q.dtype, dq_scale2, dk_scale2 f32 [2, D]); raises as `_flash_nr_cuda`.
     q_rows = 0: the bf16 mode, a prep (qn, kn, delta) then K4's Hopper
-    loops with the rope + norm backward as their epilogue.  q_rows > 0: its
-    s_int8 mode, the scores recomputed from q quantized in `q_rows`-row
-    tiles (the backward's)."""
+    loops with the rope + norm backward as their epilogue.  q_rows > 0 (a
+    multiple of 128): its s_int8 mode, the same loops with int8 score
+    products recomputed from q quantized in `q_rows`-row tiles (the
+    backward's)."""
+    _check_rows(q_rows, 128, " backward")  # a dq block's 128 rows lie in one q tile
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_nr backward: the kernel runs on CUDA tensors, "
                          f"got {q.device}")
-    _check_rows(q_rows, 64, " backward")
     qs, ks, cs_bstride, seg = _kernel_args(q, k, v, q_scale2, k_scale2, cos, sin, segment_ids)
     b, s, h, _ = q.shape
     _check("out", out, q.device, q.dtype, q.shape)
@@ -521,25 +523,40 @@ def _launch_bwd(kl, stream, q, k, v, qs, ks, cos, sin, cs_bstride, seg, st, scal
 def _int8_operands_cuda(q, k, q_scale2, k_scale2, cos, sin, st, q_rows):
     """The s_int8 prep alone, as K2 runs it (for tests and the smoke): (qn,
     kn bf16, qq, kq int8 [B, S, H, D], q scales [B, S, H], k scales [B, H])
-    with the scales computed from the kernel's amax the way the kernels do."""
+    with the scales computed from the kernel's amax the way the kernels do.
+    Raises on CPU tensors."""
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_nr: the kernel runs on CUDA tensors, got {q.device}")
     qs, ks, cs_bstride, _ = _kernel_args(q, k, q, q_scale2, k_scale2, cos, sin, None)
-    b, s, h, _ = q.shape
+    s = q.shape[1]
 
     from qflux_tpu_torch.runtime.build import load_library
 
-    kl = load_library()
+    qn, kn, qq, kq, amax = _launch_int8_prep(
+        load_library(), torch.cuda.current_stream(q.device).cuda_stream, q, k, qs, ks, cos, sin,
+        cs_bstride, st, q_rows)
+    sc = _int8_scale(amax.view(torch.float32))
+    q_sc = sc[:, :, 1:].repeat_interleave(q_rows, dim=2)[:, :, :s].permute(0, 2, 1)
+    return qn, kn, qq, kq, q_sc, sc[:, :, 0]
+
+
+def _launch_int8_prep(kl, stream, q, k, qs, ks, cos, sin, cs_bstride, st, q_rows):
+    """The C call of the s_int8 prep alone on checked arguments
+    (`_kernel_args`' f32 scale pairs and cos / sin batch stride), as K2 runs
+    it but without delta (null out / do): allocates qn, kn (q's dtype), qq,
+    kq (int8) and amax ([B, H, 1 + ceil(S / q_rows)], `_int8_scratch`),
+    launches through `kl` on `stream`, raises on a CUDA error and returns
+    (qn, kn, qq, kq, amax)."""
+    b, s, h, _ = q.shape
     qn, kn = torch.empty_like(q), torch.empty_like(k)
     qq = torch.empty(q.shape, device=q.device, dtype=torch.int8)
     kq, amax = _int8_scratch(k, q_rows)
     code = kl.lib.qflux_flash_nr_int8_prep(
         q.data_ptr(), k.data_ptr(), qs.data_ptr(), ks.data_ptr(), cos.data_ptr(),
-        sin.data_ptr(), cs_bstride, qn.data_ptr(), kn.data_ptr(), qq.data_ptr(), kq.data_ptr(),
-        amax.data_ptr(), b, s, h, int(st), int(q_rows),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        sin.data_ptr(), cs_bstride, None, None, qn.data_ptr(), kn.data_ptr(), None,
+        qq.data_ptr(), kq.data_ptr(), amax.data_ptr(), b, s, h, int(st), int(q_rows), stream)
     kl.check(code, "flash_nr_int8_prep launch")
-    sc = _int8_scale(amax.view(torch.float32))
-    q_sc = sc[:, :, 1:].repeat_interleave(q_rows, dim=2)[:, :, :s].permute(0, 2, 1)
-    return qn, kn, qq, kq, q_sc, sc[:, :, 0]
+    return qn, kn, qq, kq, amax
 
 
 # The custom op runs on every device type: on a CUDA tensor it launches K1,

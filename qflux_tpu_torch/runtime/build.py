@@ -42,8 +42,8 @@ _SIGNATURES = {
     "qflux_flash_nr_bwd": (_I, [_P, _P, _P, _P, _P, _P, _P, ctypes.c_longlong,
                                 _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                                 _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P]),
-    "qflux_flash_nr_int8_prep": (_I, [_P, _P, _P, _P, _P, _P, ctypes.c_longlong,
-                                      _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "qflux_flash_nr_int8_prep": (_I, [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P, _P,
+                                      _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "qflux_flash_nr_kn_prep": (_I, [_P, _P, _P, _P, ctypes.c_longlong, _P, _I, _I, _I, _I, _P]),
     "qflux_flash_nr_bwd_prep": (_I, [_P, _P, _P, _P, _P, _P, ctypes.c_longlong, _P, _P, _P, _P,
                                      _P, _I, _I, _I, _I, _P]),

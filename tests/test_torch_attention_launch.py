@@ -7,9 +7,11 @@ The kernels themselves run only on the card (tests/test_torch_card.py).
 K1's prep norms and ropes k into the scratch kn in both modes, so kn is
 always passed; kq and amax only in the s_int8 mode.  K2's prep writes qn, kn
 and delta in both modes; qq, kq and amax only in the s_int8 mode; its
-scale-gradient partials are one [2, D] per (b, h, 64-row tile) in both.  K3
-reads q, k and v by TMA (16-byte aligned, contiguous).  K4 takes an f32 delta
-scratch [B, H, Sq].
+scale-gradient partials are one [2, D] per (b, h, 64-row tile) in both.  The
+s_int8 modes take q tiles of a multiple of 128 rows (a K1 or dq block's
+rows lie in one tile); the s_int8 prep alone (`_launch_int8_prep`) is the
+entry that times it apart.  K3 reads q, k and v by TMA (16-byte aligned,
+contiguous).  K4 takes an f32 delta scratch [B, H, Sq].
 """
 
 import ctypes
@@ -269,6 +271,134 @@ def test_bwd_nr_prep_entry_point_is_declared():
     assert restype is ctypes.c_int and len(argtypes) == 17
     assert argtypes[6] is ctypes.c_longlong
     assert build._SIGNATURES["qflux_flash_nr_bwd"][1][7] is ctypes.c_longlong
+
+
+# ---------------------------------------------------------------------------
+# K1 and K2 in their s_int8 mode: the wgmma loops' int8 score path
+
+@pytest.mark.parametrize("bwd", [False, True], ids=["k1", "k2"])
+@pytest.mark.parametrize("q_rows", [64, 192, 320, -128])
+def test_s_int8_q_tiles_off_128_rows_are_refused(bwd, q_rows):
+    """Both s_int8 wrappers refuse q tiles that are not a multiple of 128
+    rows (a K1 block's and a dq block's 128 rows must lie in one tile, so a
+    64-row tile, which the backward took before, is refused too), before
+    they look at the device; a multiple of 128 reaches the device check."""
+    q, k, v, qs2, ks2, cos, sin, _ = _k1_args(1, 300, 2, False, False)
+    lse = torch.zeros(1, 2, 300)
+
+    def call(rows):
+        if bwd:
+            return tnr._flash_nr_bwd_cuda(q, k, v, qs2, ks2, cos, sin, 8, None, 0.1, q, lse, q,
+                                          rows)
+        return tnr._flash_nr_cuda(q, k, v, qs2, ks2, cos, sin, 8, None, 0.1, rows)
+
+    with pytest.raises(ValueError, match="multiples of 128"):
+        call(q_rows)
+    for rows in (128, 256):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            call(rows)
+
+
+@pytest.mark.parametrize("s", [300, 2304, 2560])
+def test_s_int8_tiles_reach_the_kernels(s):
+    """Where JAX applies the int8 score GEMM, both of its q tiles are
+    multiples of 128 rows, which the kernels take."""
+    fwd_rows, bwd_rows = tnr.s_int8_tiles(s, D)
+    assert fwd_rows % 128 == 0 and bwd_rows % 128 == 0
+    tnr._check_rows(fwd_rows, 128, "")
+    tnr._check_rows(bwd_rows, 128, " backward")
+
+
+@pytest.mark.parametrize("q_rows", [128, 256])
+@pytest.mark.parametrize("s", [300, 2304])
+def test_fwd_s_int8_launch_at_the_forward_tiles(q_rows, s):
+    """K1's s_int8 mode hands its C entry the kn scratch, the int8 k scratch
+    [B, S, H, D] and amax [B, H, 1 + ceil(S / q_rows)] (k's slot and one per
+    q tile) with the tile's rows."""
+    b, h, st, scale = 2, 3, 20, 0.125
+    q, k, v, qs2, ks2, cos, sin, ids = _k1_args(b, s, h, True, False, seed=s)
+    qs, ks, cs_bstride, seg32 = tnr._kernel_args(q, k, v, qs2, ks2, cos, sin, ids)
+    kl = _library()
+    out, lse = tnr._launch_fwd(kl, 9, q, k, v, qs, ks, cos, sin, cs_bstride, seg32, st, scale,
+                               q_rows)
+    (name, args), = kl.lib.calls
+    assert name == "qflux_flash_nr_fwd" and len(args) == len(build._SIGNATURES[name][1])
+    assert all(isinstance(a, int) for a in args[9:12]) and len(set(args[9:12])) == 3
+    assert args[12] == q_rows and args[13:15] == (out.data_ptr(), lse.data_ptr())
+    kn, kq, amax = tnr._fwd_scratch(k, q_rows)
+    assert kq.shape == k.shape and kq.dtype == torch.int8
+    assert amax.shape == (b, h, 1 + -(-s // q_rows)) and amax.dtype == torch.int32
+
+
+@pytest.mark.parametrize("q_rows", [128, 256])
+@pytest.mark.parametrize("s", [300, 2304])
+def test_bwd_nr_s_int8_launch_at_the_backward_tiles(monkeypatch, q_rows, s):
+    """K2's s_int8 mode at the backward's q tiles hands its C entry the qn /
+    kn / delta scratch, qq / kq (int8 [B, S, H, D]), amax [B, H, 1 +
+    ceil(S / q_rows)] and q_rows, and sums the same 64-row partials as the
+    bf16 mode."""
+    b, h, st, scale = 1, 2, 64, 0.125
+    q, k, v, qs2, ks2, cos, sin, ids = _k1_args(b, s, h, True, False, seed=3 * s)
+    qs, ks, cs_bstride, seg32 = tnr._kernel_args(q, k, v, qs2, ks2, cos, sin, ids)
+    out, do, lse = torch.zeros_like(q), torch.ones_like(q), torch.zeros(b, h, s)
+    made = []
+    real = tnr._bwd_scratch
+    monkeypatch.setattr(tnr, "_bwd_scratch", lambda qq_, rows: made.append(real(qq_, rows))
+                        or made[-1])
+    kl = _library()
+    kl.lib.on["qflux_flash_nr_bwd"] = _fill_partials(b, s, h)
+    dq, dk, dv, dqs, dks = tnr._launch_bwd(kl, 5, q, k, v, qs, ks, cos, sin, cs_bstride, seg32,
+                                           st, scale, out, lse, do, q_rows)
+    n_tiles = -(-s // 64)
+    assert bool((dqs == b * h * n_tiles).all()) and bool((dks == 2 * b * h * n_tiles).all())
+    (name, args), = kl.lib.calls
+    qn, kn, delta, qq, kq, amax = made[0]
+    assert args[12:15] == (qn.data_ptr(), kn.data_ptr(), delta.data_ptr())
+    assert args[15:19] == (qq.data_ptr(), kq.data_ptr(), amax.data_ptr(), q_rows)
+    assert qq.shape == kq.shape == q.shape and qq.dtype == kq.dtype == torch.int8
+    assert amax.shape == (b, h, 1 + -(-s // q_rows)) and amax.dtype == torch.int32
+
+
+def test_int8_prep_launch_arguments():
+    """The s_int8 prep alone (`_launch_int8_prep`, K2's form without delta)
+    passes null out, do and delta, then qn, kn, qq, kq and amax [B, H, 1 +
+    ceil(S / q_rows)] it allocated, the shape, st and q_rows."""
+    b, s, h, st, q_rows = 2, 300, 3, 40, 128
+    q, k, v, qs2, ks2, cos, sin, _ = _k1_args(b, s, h, False, True, seed=7)
+    qs, ks, cs_bstride, _ = tnr._kernel_args(q, k, v, qs2, ks2, cos, sin, None)
+    kl = _library()
+    qn, kn, qq, kq, amax = tnr._launch_int8_prep(kl, 17, q, k, qs, ks, cos, sin, cs_bstride, st,
+                                                 q_rows)
+    (name, args), = kl.lib.calls
+    assert name == "qflux_flash_nr_int8_prep" and len(args) == len(build._SIGNATURES[name][1])
+    assert args[:6] == tuple(t.data_ptr() for t in (q, k, qs, ks, cos, sin))
+    assert args[6] == s * D and args[7:9] == (None, None) and args[11] is None
+    assert args[9:11] == (qn.data_ptr(), kn.data_ptr())
+    assert args[12:15] == (qq.data_ptr(), kq.data_ptr(), amax.data_ptr())
+    assert args[15:21] == (b, s, h, st, q_rows, 17)
+    assert amax.shape == (b, h, 1 + -(-s // q_rows)) and amax.dtype == torch.int32
+    assert qq.dtype == kq.dtype == torch.int8 and qn.dtype == kn.dtype == torch.bfloat16
+
+
+def test_int8_prep_entry_point_is_declared():
+    """The s_int8 prep alone takes the cos / sin batch stride as a 64-bit
+    integer and out / do / delta beside the scratch: 21 arguments."""
+    restype, argtypes = build._SIGNATURES["qflux_flash_nr_int8_prep"]
+    assert restype is ctypes.c_int and len(argtypes) == 21
+    assert argtypes[6] is ctypes.c_longlong
+    assert argtypes[15:20] == [ctypes.c_int] * 5
+
+
+def test_cpu_tensors_never_reach_the_int8_prep(monkeypatch):
+    """The s_int8 prep alone is a card entry point: CPU tensors are refused
+    before the library is loaded."""
+    def refuse():
+        raise AssertionError("a CPU tensor reached the kernel library")
+
+    monkeypatch.setattr(build, "load_library", refuse)
+    q, k, v, qs2, ks2, cos, sin, _ = _k1_args(1, 40, 2, False, False)
+    with pytest.raises(ValueError, match="CUDA"):
+        tnr._int8_operands_cuda(q, k, qs2, ks2, cos, sin, 0, 128)
 
 
 # ---------------------------------------------------------------------------

@@ -1060,9 +1060,9 @@ def test_k1_kn_prep_is_the_s_int8_preps_kn_on_card():
 
 
 def test_k1_s_int8_deterministic_and_apart_from_bf16_on_card():
-    """K1's s_int8 mode (its own kernel, not redesigned) gives the same bits
-    on two calls, and the bf16 mode on the same inputs stays within the
-    int8 scores' error of it."""
+    """K1's s_int8 mode (the shared wgmma loop with int8 score products)
+    gives the same bits on two calls, and the bf16 mode on the same inputs
+    stays within the int8 scores' error of it."""
     args = _int8_inputs(42, 1024)
     fwd_rows, _ = tnr.s_int8_tiles(1024, D)
     out, lse = tnr._flash_nr_cuda(*args, 256, None, D ** -0.5, fwd_rows)
@@ -1206,3 +1206,75 @@ def test_k3_redesign_on_card(case):
         assert bool((lse.permute(0, 2, 1)[dead] == -1e30).all())
     if case == "hop_300x520":
         assert not out[0, 150:200].any() and bool(out[0, :150].any())
+
+
+# The redesigned s_int8 modes of K1 and K2 (int8 wgmma score products inside the
+# shared loops): ragged S, st at 0, at a 64-row edge and at the end of a 256-row
+# tile, Qwen's text padding and a fully masked sample, two calls identical
+
+# S and the (forward, backward) q tile rows: a ragged S with 128-row tiles (which
+# the kernels take at any S), and S = 1024, 2304 and 2560 at s_int8_tiles' rows
+INT8_RAGGED_CASES = [(300, (128, 128)), (1024, None), (2304, None), (2560, None)]
+
+
+@pytest.mark.parametrize("s,rows", INT8_RAGGED_CASES, ids=[str(c[0]) for c in INT8_RAGGED_CASES])
+@pytest.mark.parametrize("st", [0, 64, 256])
+def test_k1_k2_s_int8_ragged_st_and_masked_on_card(s, rows, st):
+    """K1's and K2's s_int8 modes at B = 2 (sample 0 with Qwen's text
+    padding, sample 1 fully masked), nonzero do on every row: out within
+    INT8_FWD_REL and lse within 1e-2 of the plain version (the masked rows'
+    lse exactly -1e30), each gradient within INT8_BWD_REL, the padded rows'
+    and the masked sample's out / dq / dk / dv exactly 0, and a second call
+    of each kernel identical to the bit."""
+    fwd_rows, bwd_rows = rows or tnr.s_int8_tiles(s, D)
+    args = _inputs(61 + s + st, s)
+    seg, (lo, hi) = _k2_segments(s)
+    scale = D ** -0.5
+    do = torch.randn(B, s, H, D, device="cuda").to(torch.bfloat16)
+    out, lse = tnr._flash_nr_cuda(*args, st, seg, scale, fwd_rows)
+    out2, lse2 = tnr._flash_nr_cuda(*args, st, seg, scale, fwd_rows)
+    got = tnr._flash_nr_bwd_cuda(*args, st, seg, scale, out, lse, do, bwd_rows)
+    again = tnr._flash_nr_bwd_cuda(*args, st, seg, scale, out, lse, do, bwd_rows)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    ref, ref_lse = tnr.flash_attention_nr_int8_reference(*args, st, fwd_rows, segment_ids=seg)
+    assert bool(torch.isfinite(out).all()) and _rel(out, ref) <= INT8_FWD_REL
+    valid = ref_lse > -1e29
+    assert (lse - ref_lse).abs()[valid].max().item() <= 1e-2
+    assert bool((lse[~valid] == -1e30).all())
+    want = tnr.flash_attention_nr_int8_bwd_reference(*args, st, do, out, lse, bwd_rows,
+                                                     segment_ids=seg)
+    for g, r in zip(got, want):
+        assert bool(torch.isfinite(g).all()) and _rel(g, r) <= INT8_BWD_REL
+    for t in (out, *got[:3]):
+        assert not t[0, lo:hi].any() and not t[1].any() and bool(t[0, :lo].any())
+
+
+@pytest.mark.parametrize("h", [1, 5])
+def test_s_int8_at_head_counts_off_the_prep_groups_on_card(h):
+    """The s_int8 prep takes the heads of a position in groups of four (at H
+    = 5 the last group holds one head, at H = 1 the only one) and S = 300 in
+    blocks of 16 positions (the last one ragged): its int8 q / k and scales
+    equal quant_rows of its own normed q / k to the bit at 128- and 256-row
+    tiles, and K1 / K2 s_int8 stay within INT8_FWD_REL / INT8_BWD_REL of
+    their plain versions."""
+    s, st, scale = 300, 64, D ** -0.5
+    args = _int8_inputs(71 + h, s, h=h)
+    q, k, _, qs2, ks2, cos, sin = args
+    for rows in (128, 256):
+        qn, kn, qq, kq, q_sc, k_sc = tnr._int8_operands_cuda(q, k, qs2, ks2, cos, sin, st, rows)
+        torch.cuda.synchronize()
+        want_qq, want_qsc = tnr.quant_rows(qn, rows)
+        want_kq, want_ksc = tnr.quant_rows(kn, s)
+        assert torch.equal(qq, want_qq) and torch.equal(q_sc, want_qsc)
+        assert torch.equal(kq, want_kq) and torch.equal(k_sc, want_ksc[:, 0])
+    do = torch.randn(q.shape, device="cuda").to(torch.bfloat16)
+    out, lse = tnr._flash_nr_cuda(*args, st, None, scale, 128)
+    got = tnr._flash_nr_bwd_cuda(*args, st, None, scale, out, lse, do, 128)
+    torch.cuda.synchronize()
+    ref, ref_lse = tnr.flash_attention_nr_int8_reference(*args, st, 128)
+    assert _rel(out, ref) <= INT8_FWD_REL and (lse - ref_lse).abs().max().item() <= 1e-2
+    want = tnr.flash_attention_nr_int8_bwd_reference(*args, st, do, out, lse, 128)
+    for g, r in zip(got, want):
+        assert bool(torch.isfinite(g).all()) and _rel(g, r) <= INT8_BWD_REL
