@@ -114,8 +114,36 @@ runs K6a and its dx K6b (path C).  In phases:
      Trainer.fit at bs=1 and bs=2 with exactly 60 K1, 60 K2, 1,561 K6a and
      711 K6b launches per step, then a profiled step.
 
-Each path runs with the launch counts set to 0 just before it and read just
-after.
+The file layer (checkpoints, resume, weights and LoRA files) runs as three
+more phases, A and B after 6 (on its FLUX model), C after 13 (on its Qwen
+model), each with the card's name and power limit on every line:
+
+  A. FLUX save / resume at full width and depth: Trainer.fit over four
+     identical bs=1 batches with a checkpoint at step 2, a second Trainer
+     resumed from checkpoint-2 (steps 3-4, exactly 2 × 57 K1 and K2
+     launches) ending with the first run's LoRA and AdamW moments to the
+     bit, the checkpoint files and state.json as the JAX trainer writes
+     them, the save and the resume's load timed, and a 20-step predict
+     with the LoRA read from checkpoint-last-4's file equal to the bit to
+     the one with the in-memory LoRA;
+  B. FLUX.1-Kontext-dev weights from files: a state dict drawn from a seed
+     in the diffusers names and published shapes, cut to 2 dual + 2 single
+     blocks, written as two bf16 shards with the index and an f32 VAE,
+     loaded through Trainer.load_model block by block (write and load
+     times, GB/s and the host's peak RSS during the load), every parameter
+     equal to the bridge's load of the whole dict's conversion, the forward
+     within FORWARD_REL_TOL of the plain attention, and a 4-step 512²
+     predict with 4 × 4 K1 launches;
+  C. Qwen-Image-Edit weights from files over the int4-requant base (4 of 60
+     blocks): every quantized leaf equal to quantize_tree of the in-memory
+     conversion, a 2-step 832×576 predict with exact K3 / K5a counts; then
+     the full-depth model's trained LoRA written to a file and read back
+     into a fresh LoRA, whose 2-step predict equals the in-memory one's to
+     the bit (the Qwen name maps and the q/k permutation on the card).
+
+Every temporary file (the fits' run dirs included) is removed before the
+smoke exits.  Each path runs with the launch counts set to 0 just before
+it and read just after.
 
     python3 chip_smoke.py --ab PARENT
 
@@ -139,9 +167,12 @@ import dataclasses
 import gc
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -207,8 +238,9 @@ QWEN_832X576 = {
     "model": {"lora": {"r": 16, "lora_alpha": 16},
               "quantize": {"enabled": True, "dtype": "int4_requant", "attention": True}},
     "optimizer": {"class_path": "optax.adamw", "learning_rate": 1.0e-4},
-    "train": {"max_train_steps": 5000, "weight_dtype": "bfloat16",
+    "train": {"max_train_steps": 5000, "checkpointing_steps": 500, "weight_dtype": "bfloat16",
               "timestep_sampling": "logit_normal"},
+    "logging": {"output_dir": "/tmp/qwen_832", "project": "qwen_832x576"},
 }
 QWEN_HEIGHT, QWEN_WIDTH = 832, 576
 QWEN_TXT, QWEN_TXT_PAD = 256, 26  # Qwen2.5-VL tokens, the last 26 padding
@@ -1066,7 +1098,7 @@ def phase_train(card: str, trainer) -> tuple[int, int]:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         flash_nr.KERNEL_LAUNCHES = flash_nr.BWD_KERNEL_LAUNCHES = 0
-        lora = tt.fit(batches)
+        lora = _fit_in_tmp(tt, batches)
         k1, k2 = flash_nr.KERNEL_LAUNCHES, flash_nr.BWD_KERNEL_LAUNCHES
         k1_total, k2_total = k1_total + k1, k2_total + k2
         peak = torch.cuda.max_memory_allocated()
@@ -1486,13 +1518,14 @@ def _reset_counts() -> None:
     flash_attention.KERNEL_LAUNCHES = flash_attention.BWD_KERNEL_LAUNCHES = 0
 
 
-def phase_qwen_train(card: str, trainer) -> tuple[int, ...]:
+def phase_qwen_train(card: str, trainer) -> tuple[tuple[int, ...], dict]:
     """The Qwen LoRA train step over the int4-requant base, on the model the
     predict phase loaded: the full-width gradient check, "flash_offload"
     against "flash", Trainer.fit at bs=1 and bs=2, and a profiled step.
     Returns the launches of the fit runs (_launch_counts' order): at S =
     4000 JAX's one-chip dispatch runs the norm + rope and K3 / K4 (no K1 /
-    K2), and quantize.attention bf16 attention (no s_int8 launch)."""
+    K2), and quantize.attention bf16 attention (no s_int8 launch); and the
+    LoRA the bs=2 fit trained."""
     from qflux_tpu_torch.config import config_from_dict
     from qflux_tpu_torch.losses import MseLoss
     from qflux_tpu_torch.ops.layers import mark_trainable, set_int4_impl
@@ -1632,7 +1665,7 @@ def phase_qwen_train(card: str, trainer) -> tuple[int, ...]:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()
-        fitted = tt.fit(batches)
+        fitted = _fit_in_tmp(tt, batches)
         launched = _launch_counts()
         totals = [t + c for t, c in zip(totals, launched)]
         peak = torch.cuda.max_memory_allocated()
@@ -1668,7 +1701,7 @@ def phase_qwen_train(card: str, trainer) -> tuple[int, ...]:
     batch = tt._device_batch(_qwen_train_batch(rng, cfg, gh, gw, 1))
     _profile(card, f"one Qwen train step, bs=1, S = {s}, remat flash_offload",
              lambda: step(dit, lora, batch, gen)["loss"].item())
-    return tuple(totals)
+    return tuple(totals), tt.lora
 
 
 # The s_int8 mode of K1 / K2 (quantize.attention) on the card.  Cases: B, S,
@@ -1998,7 +2031,7 @@ def phase_qwen512_train(card: str, trainer) -> tuple[int, ...]:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()
-        fitted = tt.fit(batches)
+        fitted = _fit_in_tmp(tt, batches)
         launched = _launch_counts()
         totals = [t + c for t, c in zip(totals, launched)]
         hist = tt.history
@@ -2514,7 +2547,7 @@ def phase_int4_train(card: str, trainer) -> tuple[int, ...]:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             _reset_counts()
-            fitted = tt.fit(batches)
+            fitted = _fit_in_tmp(tt, batches)
             launched = _launch_counts()
             totals = [t + c for t, c in zip(totals, launched)]
             hist = tt.history
@@ -2556,6 +2589,600 @@ def phase_int4_train(card: str, trainer) -> tuple[int, ...]:
 
 
 # kernel-name fragments → the groups of the step profiles
+# ---------------------------------------------------------------------------
+# the file layer: checkpoints, resume, weights and LoRA files (phases A-C)
+
+def _fit_in_tmp(tt, batches):
+    """Trainer.fit with its run dir (checkpoints, config) in a temporary
+    directory, removed after the run."""
+    tmp = tempfile.mkdtemp(prefix="qflux_smoke_fit_")
+    tt.config.logging.output_dir = tmp
+    try:
+        return tt.fit(batches)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _rss_bytes() -> int:
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+class _PeakRSS:
+    """The process's resident set sampled every 2 ms in a thread: its peak
+    inside the `with` block, and its size on entry."""
+
+    def __enter__(self):
+        self.start = self.peak = _rss_bytes()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+        return self
+
+    def _run(self):
+        while not self._stop.wait(0.002):
+            self.peak = max(self.peak, _rss_bytes())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self.peak = max(self.peak, _rss_bytes())
+        return False
+
+
+class _Draw:
+    """Tensors for a synthetic state dict, drawn on `device` (the card) from
+    a seeded generator and handed out on the CPU in the file's dtype: dense
+    and conv weights and biases U(±1/sqrt(fan_in)), norm scales
+    U(0.9, 1.1)."""
+
+    def __init__(self, seed: int, dtype, device="cuda"):
+        self.gen = torch.Generator(device).manual_seed(seed)
+        self.device = device
+        self.dtype = dtype
+        self.sd: dict = {}
+
+    def _u(self, shape, lo, hi):
+        t = torch.empty(shape, device=self.device).uniform_(lo, hi, generator=self.gen)
+        return t.to(self.dtype).cpu()
+
+    def weight(self, name, shape, bias=True):
+        b = float(np.prod(shape[1:])) ** -0.5
+        self.sd[f"{name}.weight"] = self._u(shape, -b, b)
+        if bias:
+            self.sd[f"{name}.bias"] = self._u((shape[0],), -b, b)
+
+    def scale(self, name, shape, key="weight"):
+        self.sd[f"{name}.{key}"] = self._u(shape, 0.9, 1.1)
+
+    def group_norm(self, name, c):
+        self.scale(name, (c,))
+        self.sd[f"{name}.bias"] = self._u((c,), -0.05, 0.05)
+
+
+def flux_state_dict(cfg, seed: int, dtype=torch.bfloat16, device="cuda") -> dict:
+    """A FLUX DiT state dict in the diffusers FluxTransformer2DModel names
+    and shapes for `cfg` (FluxConfig() is FLUX.1-Kontext-dev's), drawn from
+    `seed`."""
+    d, dh, hidden = cfg.dim, cfg.attention_head_dim, int(cfg.dim * cfg.mlp_ratio)
+    w = _Draw(seed, dtype, device)
+    w.weight("x_embedder", (d, cfg.in_channels))
+    w.weight("context_embedder", (d, cfg.joint_attention_dim))
+    for emb, d_in in (("timestep_embedder", 256), ("text_embedder", cfg.pooled_projection_dim),
+                      ("guidance_embedder", 256 if cfg.guidance_embeds else 0)):
+        if d_in:
+            w.weight(f"time_text_embed.{emb}.linear_1", (d, d_in))
+            w.weight(f"time_text_embed.{emb}.linear_2", (d, d))
+    for i in range(cfg.num_layers):
+        b = f"transformer_blocks.{i}"
+        w.weight(f"{b}.norm1.linear", (6 * d, d))
+        w.weight(f"{b}.norm1_context.linear", (6 * d, d))
+        for name in ("to_q", "to_k", "to_v", "to_out.0", "add_q_proj", "add_k_proj",
+                     "add_v_proj", "to_add_out"):
+            w.weight(f"{b}.attn.{name}", (d, d))
+        for name in ("norm_q", "norm_k", "norm_added_q", "norm_added_k"):
+            w.scale(f"{b}.attn.{name}", (dh,))
+        for ff in ("ff", "ff_context"):
+            w.weight(f"{b}.{ff}.net.0.proj", (hidden, d))
+            w.weight(f"{b}.{ff}.net.2", (d, hidden))
+    for i in range(cfg.num_single_layers):
+        b = f"single_transformer_blocks.{i}"
+        w.weight(f"{b}.norm.linear", (3 * d, d))
+        for name in ("to_q", "to_k", "to_v"):
+            w.weight(f"{b}.attn.{name}", (d, d))
+        for name in ("norm_q", "norm_k"):
+            w.scale(f"{b}.attn.{name}", (dh,))
+        w.weight(f"{b}.proj_mlp", (hidden, d))
+        w.weight(f"{b}.proj_out", (d, d + hidden))
+    w.weight("norm_out.linear", (2 * d, d))
+    w.weight("proj_out", (cfg.patch_size ** 2 * cfg.out_channels, d))
+    return w.sd
+
+
+def qwen_state_dict(cfg, seed: int, dtype=torch.bfloat16, device="cuda") -> dict:
+    """A Qwen-Image DiT state dict in the diffusers
+    QwenImageTransformer2DModel names and shapes for `cfg`."""
+    d, dh, hidden = cfg.dim, cfg.attention_head_dim, int(cfg.dim * cfg.mlp_ratio)
+    w = _Draw(seed, dtype, device)
+    w.weight("img_in", (d, cfg.in_channels))
+    w.scale("txt_norm", (cfg.joint_attention_dim,))
+    w.weight("txt_in", (d, cfg.joint_attention_dim))
+    w.weight("time_text_embed.timestep_embedder.linear_1", (d, 256))
+    w.weight("time_text_embed.timestep_embedder.linear_2", (d, d))
+    for i in range(cfg.num_layers):
+        b = f"transformer_blocks.{i}"
+        w.weight(f"{b}.img_mod.1", (6 * d, d))
+        w.weight(f"{b}.txt_mod.1", (6 * d, d))
+        for name in ("to_q", "to_k", "to_v", "to_out.0", "add_q_proj", "add_k_proj",
+                     "add_v_proj", "to_add_out"):
+            w.weight(f"{b}.attn.{name}", (d, d))
+        for name in ("norm_q", "norm_k", "norm_added_q", "norm_added_k"):
+            w.scale(f"{b}.attn.{name}", (dh,))
+        for mlp in ("img_mlp", "txt_mlp"):
+            w.weight(f"{b}.{mlp}.net.0.proj", (hidden, d))
+            w.weight(f"{b}.{mlp}.net.2", (d, hidden))
+    w.weight("norm_out.linear", (2 * d, d))
+    w.weight("proj_out", (cfg.patch_size ** 2 * cfg.out_channels, d))
+    return w.sd
+
+
+def flux_vae_state_dict(cfg, seed: int, device="cuda") -> dict:
+    """A FLUX VAE (diffusers AutoencoderKL) state dict for `cfg`, f32."""
+    w = _Draw(seed, torch.float32, device)
+
+    def resnet(name, ci, co):
+        w.group_norm(f"{name}.norm1", ci)
+        w.weight(f"{name}.conv1", (co, ci, 3, 3))
+        w.group_norm(f"{name}.norm2", co)
+        w.weight(f"{name}.conv2", (co, co, 3, 3))
+        if ci != co:
+            w.weight(f"{name}.conv_shortcut", (co, ci, 1, 1))
+
+    def mid(name, c):
+        resnet(f"{name}.resnets.0", c, c)
+        w.group_norm(f"{name}.attentions.0.group_norm", c)
+        for m in ("to_q", "to_k", "to_v", "to_out.0"):
+            w.weight(f"{name}.attentions.0.{m}", (c, c))
+        resnet(f"{name}.resnets.1", c, c)
+
+    ch = cfg.block_out_channels
+    w.weight("encoder.conv_in", (ch[0], cfg.in_channels, 3, 3))
+    cin = ch[0]
+    for i, co in enumerate(ch):
+        for j in range(cfg.layers_per_block):
+            resnet(f"encoder.down_blocks.{i}.resnets.{j}", cin if j == 0 else co, co)
+        if i < len(ch) - 1:
+            w.weight(f"encoder.down_blocks.{i}.downsamplers.0.conv", (co, co, 3, 3))
+        cin = co
+    mid("encoder.mid_block", ch[-1])
+    w.group_norm("encoder.conv_norm_out", ch[-1])
+    w.weight("encoder.conv_out", (2 * cfg.latent_channels, ch[-1], 3, 3))
+    w.weight("decoder.conv_in", (ch[-1], cfg.latent_channels, 3, 3))
+    mid("decoder.mid_block", ch[-1])
+    cin = ch[-1]
+    for i, co in enumerate(reversed(ch)):
+        for j in range(cfg.layers_per_block + 1):
+            resnet(f"decoder.up_blocks.{i}.resnets.{j}", cin if j == 0 else co, co)
+        if i < len(ch) - 1:
+            w.weight(f"decoder.up_blocks.{i}.upsamplers.0.conv", (co, co, 3, 3))
+        cin = co
+    w.group_norm("decoder.conv_norm_out", ch[0])
+    w.weight("decoder.conv_out", (cfg.out_channels, ch[0], 3, 3))
+    return w.sd
+
+
+def qwen_vae_state_dict(cfg, seed: int, device="cuda") -> dict:
+    """A Qwen VAE state dict in the WanVAE layout the converters read
+    (flat down / up block lists, quant convs), f32."""
+    w = _Draw(seed, torch.float32, device)
+
+    def res(name, ci, co):
+        w.scale(f"{name}.norm1", (ci, 1, 1), key="gamma")
+        w.weight(f"{name}.conv1", (co, ci, 3, 3, 3))
+        w.scale(f"{name}.norm2", (co, 1, 1), key="gamma")
+        w.weight(f"{name}.conv2", (co, co, 3, 3, 3))
+        if ci != co:
+            w.weight(f"{name}.conv_shortcut", (co, ci, 1, 1, 1))
+
+    def mid(name, c):
+        res(f"{name}.resnets.0", c, c)
+        w.scale(f"{name}.attentions.0.norm", (c, 1, 1), key="gamma")
+        w.weight(f"{name}.attentions.0.to_qkv", (3 * c, c, 1, 1))
+        w.weight(f"{name}.attentions.0.proj", (c, c, 1, 1))
+        res(f"{name}.resnets.1", c, c)
+
+    dims = [cfg.base_dim * m for m in cfg.dim_mult]
+    w.weight("encoder.conv_in", (dims[0], 3, 3, 3, 3))
+    k, cin = 0, dims[0]
+    for i, co in enumerate(dims):
+        for j in range(cfg.num_res_blocks):
+            res(f"encoder.down_blocks.{k}", cin if j == 0 else co, co)
+            k += 1
+        if i < len(dims) - 1:
+            w.weight(f"encoder.down_blocks.{k}.resample.1", (co, co, 3, 3))
+            k += 1
+        cin = co
+    mid("encoder.mid_block", dims[-1])
+    w.scale("encoder.norm_out", (dims[-1], 1, 1), key="gamma")
+    w.weight("encoder.conv_out", (2 * cfg.z_dim, dims[-1], 3, 3, 3))
+    w.weight("quant_conv", (2 * cfg.z_dim, 2 * cfg.z_dim, 1, 1, 1))
+    w.weight("post_quant_conv", (cfg.z_dim, cfg.z_dim, 1, 1, 1))
+    rev = dims[::-1]
+    w.weight("decoder.conv_in", (rev[0], cfg.z_dim, 3, 3, 3))
+    mid("decoder.mid_block", rev[0])
+    k, cin = 0, rev[0]
+    for i, co in enumerate(rev):
+        for j in range(cfg.num_res_blocks + 1):
+            res(f"decoder.up_blocks.{k}", cin if j == 0 else co, co)
+            k += 1
+        cin = co
+        if i < len(rev) - 1:
+            w.weight(f"decoder.up_blocks.{k}.resample.1", (rev[i + 1], co, 3, 3))
+            k += 1
+            cin = rev[i + 1]
+    w.scale("decoder.norm_out", (rev[-1], 1, 1), key="gamma")
+    w.weight("decoder.conv_out", (3, rev[-1], 3, 3, 3))
+    return w.sd
+
+
+def write_checkpoint(root: Path, dit_sd: dict, vae_sd: dict, shards: int = 2) -> int:
+    """A diffusers checkpoint directory: transformer/ as `shards` safetensors
+    files with the index JSON, vae/ as one file.  Returns the bytes written."""
+    from qflux_tpu_torch.utils.safetensors import save_file
+
+    names = sorted(dit_sd)
+    per = -(-len(names) // shards)
+    (root / "transformer").mkdir(parents=True)
+    (root / "vae").mkdir()
+    weight_map = {}
+    for i in range(shards):
+        fname = f"diffusion_pytorch_model-{i + 1:05d}-of-{shards:05d}.safetensors"
+        part = names[i * per:(i + 1) * per]
+        save_file({k: dit_sd[k] for k in part}, root / "transformer" / fname)
+        weight_map.update({k: fname for k in part})
+    total = sum(t.numel() * t.element_size() for t in dit_sd.values())
+    (root / "transformer" / "diffusion_pytorch_model.safetensors.index.json").write_text(
+        json.dumps({"metadata": {"total_size": total}, "weight_map": weight_map}))
+    save_file(vae_sd, root / "vae" / "diffusion_pytorch_model.safetensors")
+    return sum(f.stat().st_size for f in root.rglob("*") if f.is_file())
+
+
+def _params_equal(got, want) -> int:
+    """Raises unless two modules hold the same parameters and buffers, to the
+    bit; returns how many tensors were compared."""
+    a, b = got.state_dict(), want.state_dict()
+    if sorted(a) != sorted(b):
+        raise AssertionError(f"parameter names differ: {sorted(set(a) ^ set(b))[:5]}")
+    for k in a:
+        if a[k].dtype != b[k].dtype or not torch.equal(a[k], b[k]):
+            raise AssertionError(f"{k} differs from the in-memory conversion")
+    return len(a)
+
+
+def phase_files_flux_resume(card: str, trainer) -> tuple[int, int]:
+    """Phase A: FLUX save / resume at full width and depth on the predict
+    phase's model (rank-16 LoRA, remat "flash"): fit 4 identical bs=1
+    steps with a checkpoint at 2; a second Trainer resumed from
+    checkpoint-2 runs steps 3-4 and must end with run 1's LoRA and AdamW
+    moments to the bit, with exactly 2 × 57 K1 and K2 launches; the file
+    names and state.json as the JAX trainer writes them; then a third
+    Trainer reads checkpoint-last-4's LoRA file, and a 20-step bs=1 predict
+    with it equals the one with the in-memory LoRA, to the bit.  Returns
+    the K1 and K2 launches of the whole phase (counts reset before run 1)."""
+    from qflux_tpu_torch.ops import flash_nr
+    from qflux_tpu_torch.ops.layers import mark_trainable
+    from qflux_tpu_torch.trainer.base import Trainer, predict_config, train_config
+    from qflux_tpu_torch.trainer.train_step import lora_leaves
+    from qflux_tpu_torch.utils import checkpoint
+    from qflux_tpu_torch.utils.lora_io import LORA_FILE_BASE_NAME
+    from qflux_tpu_torch.utils.safetensors import SafeTensors
+
+    cfg = trainer.bundle.dit_cfg
+    n_blocks = cfg.num_layers + cfg.num_single_layers
+    gh, gw = trainer.adapter.latent_grid(HEIGHT, WIDTH)
+    rng = np.random.default_rng(12)
+    batches = [_train_batch(rng, cfg, gh, gw, 1)] * 4
+    tmp = Path(tempfile.mkdtemp(prefix="qflux_smoke_a_"))
+
+    def make(resume=None, steps=4):
+        tcfg = train_config(variant="full", max_train_steps=steps)
+        tcfg.train.checkpointing_steps = 2
+        tcfg.logging.output_dir = str(tmp)
+        tcfg.resume = resume
+        tt = Trainer(tcfg, device="cuda")
+        tt.adapter, tt.bundle = trainer.adapter, trainer.bundle
+        return tt
+
+    try:
+        flash_nr.KERNEL_LAUNCHES = flash_nr.BWD_KERNEL_LAUNCHES = 0
+        t1 = make()
+        t0 = time.perf_counter()
+        lora1 = t1.fit(batches)
+        fit1_s = time.perf_counter() - t0
+        run = t1.output_dir
+        k1, k2 = flash_nr.KERNEL_LAUNCHES, flash_nr.BWD_KERNEL_LAUNCHES
+        if (k1, k2) != (4 * n_blocks, 4 * n_blocks):
+            raise AssertionError(f"run 1 launched K1/K2 {k1}/{k2} times, expected {4 * n_blocks}")
+        names = sorted(p.name for p in run.iterdir())
+        files = sorted(p.name for p in (run / "checkpoint-2").iterdir())
+        state = json.loads((run / "checkpoint-2" / checkpoint.STATE_FILE).read_text())
+        if (names != ["checkpoint-2", "checkpoint-4", "checkpoint-last-4", "train_config.yaml"]
+                or files != [checkpoint.GENERATOR_FILE, checkpoint.OPTIMIZER_FILE,
+                             LORA_FILE_BASE_NAME, checkpoint.STATE_FILE]
+                or sorted(state) != ["epoch", "git", "global_step", "is_last"]
+                or (state["global_step"], state["epoch"], state["is_last"]) != (2, 0, False)):
+            raise AssertionError(f"run 1's files are not the JAX trainer's: {names}, {files}, "
+                                 f"{state}")
+
+        t2 = make(resume=str(run / "checkpoint-2"))
+        t0 = time.perf_counter()
+        lora2 = t2.fit(batches)
+        fit2_s = time.perf_counter() - t0
+        r1, r2 = flash_nr.KERNEL_LAUNCHES - k1, flash_nr.BWD_KERNEL_LAUNCHES - k2
+        if (r1, r2) != (2 * n_blocks, 2 * n_blocks):
+            raise AssertionError(f"run 2 launched K1/K2 {r1}/{r2} times, expected "
+                                 f"{2 * n_blocks} each")
+        if [h["step"] for h in t2.history] != [3, 4]:
+            raise AssertionError(f"run 2 ran steps {[h['step'] for h in t2.history]}")
+        same_lora = all(torch.equal(lora1[p][k], lora2[p][k]) for p in lora1 for k in "ab")
+        same_moments = all(
+            torch.equal(t1.optimizer.state[lora1[p][k]][m], t2.optimizer.state[lora2[p][k]][m])
+            for p in lora1 for k in "ab" for m in ("exp_avg", "exp_avg_sq"))
+        same_loss = [h["loss"] for h in t2.history] == [h["loss"] for h in t1.history[2:]]
+        print(f"[files_a] FLUX fit 4 steps bs=1 (checkpoint at 2) {fit1_s:.2f} s, resumed from "
+              f"checkpoint-2: steps 3-4 in {fit2_s:.2f} s, losses "
+              + ", ".join(f"{h['loss']:.6f}" for h in t1.history) + " / "
+              + ", ".join(f"{h['loss']:.6f}" for h in t2.history)
+              + f"; final LoRA equal to the bit {same_lora}, AdamW moments {same_moments}, "
+              f"losses {same_loss}; K1/K2 launches {k1}/{k2} then {r1}/{r2} [{card}]",
+              flush=True)
+        if not (same_lora and same_moments and same_loss):
+            raise AssertionError("the resumed run differs from the uninterrupted one")
+
+        # the save and the resume's load, timed alone
+        t1.output_dir = tmp / "timed"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        saved = t1.save_checkpoint(last=True)
+        save_s = time.perf_counter() - t0
+        sizes = {p.name: p.stat().st_size for p in sorted(saved.iterdir())}
+        t4 = make(resume=str(saved))
+        t4.config.model.lora.pretrained_weight = str(saved)
+        t0 = time.perf_counter()
+        t4.lora = mark_trainable(t4.build_lora())
+        t4.optimizer, _ = t4.build_optimizer(lora_leaves(t4.lora)[0])
+        t4.generator = torch.Generator("cuda")
+        t4._load_train_state(saved)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        n_keys = len(SafeTensors(saved / LORA_FILE_BASE_NAME))
+        print(f"[files_a] checkpoint files {sizes} bytes; save {save_s:.3f} s, load (LoRA file, "
+              f"AdamW state, generator) {load_s:.3f} s; LoRA file {n_keys} keys for "
+              f"{len(lora1)} layers [{card}]", flush=True)
+
+        # predict with the LoRA read from checkpoint-last-4's file
+        t3 = Trainer(predict_config(variant="full", num_inference_steps=STEPS), device="cuda")
+        t3.adapter, t3.bundle = trainer.adapter, trainer.bundle
+        t3.config.model.lora.pretrained_weight = str(run / "checkpoint-last-4"
+                                                     / LORA_FILE_BASE_NAME)
+        lora3 = t3.build_lora()
+        emb = _request(rng, cfg, gh, gw, 1)
+        before = flash_nr.KERNEL_LAUNCHES
+        img_file = t3.predict_from_embeddings(emb, HEIGHT, WIDTH, lora=lora3, seed=45)
+        img_mem = t3.predict_from_embeddings(emb, HEIGHT, WIDTH, lora=lora1, seed=45)
+        launched = flash_nr.KERNEL_LAUNCHES - before
+        same = np.array_equal(img_file, img_mem)
+        print(f"[files_a] 20-step bs=1 predict with the LoRA from the file vs in memory: "
+              f"images {img_file.dtype} {list(img_file.shape)} equal to the bit {same}, "
+              f"K1 launches {launched} [{card}]", flush=True)
+        if not same or img_file.dtype != np.uint8 or launched != 2 * STEPS * n_blocks:
+            raise AssertionError("the LoRA read from the file predicts other images")
+        return flash_nr.KERNEL_LAUNCHES, flash_nr.BWD_KERNEL_LAUNCHES
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_files_flux_weights(card: str) -> int:
+    """Phase B: FLUX.1-Kontext-dev weights from files at full width: a state
+    dict drawn from a seed in the diffusers names and published shapes, cut
+    to 2 dual + 2 single blocks (every tensor shape of the real file),
+    written in bf16 as two shards with the index, and the VAE in f32; loaded
+    through Trainer.load_model (pretrained_model_name_or_path), block by
+    block.  Every parameter must equal the bridge's load of the whole
+    dict's conversion to the bit, the DiT forward must be within
+    FORWARD_REL_TOL of the plain attention, and a 4-step 512² predict must
+    run K1 4 × 4 times and give finite uint8 images.  Returns the K1
+    launches of the predict."""
+    from qflux_tpu_torch.models import bridge, porting
+    from qflux_tpu_torch.models.flux import transformer as flux
+    from qflux_tpu_torch.models.flux import vae as flux_vae
+    from qflux_tpu_torch.ops import flash_nr
+    from qflux_tpu_torch.trainer.base import Trainer, predict_config
+
+    cfg = dataclasses.replace(flux.FluxConfig(), num_layers=2, num_single_layers=2)
+    vcfg = flux_vae.VAEConfig()
+    n_blocks = cfg.num_layers + cfg.num_single_layers
+    tmp = Path(tempfile.mkdtemp(prefix="qflux_smoke_b_"))
+    try:
+        sd, vsd = flux_state_dict(cfg, seed=21), flux_vae_state_dict(vcfg, seed=22)
+        t0 = time.perf_counter()
+        n_bytes = write_checkpoint(tmp, sd, vsd)
+        write_s = time.perf_counter() - t0
+        tr = Trainer(predict_config(variant="full", num_inference_steps=4), device="cuda")
+        tr.config.model.pretrained_model_name_or_path = str(tmp)
+        with _PeakRSS() as rss:
+            t0 = time.perf_counter()
+            tr.load_model()
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+        dit = tr.bundle.dit_params
+        dit_bytes = sum(t.numel() * t.element_size() for t in sd.values())
+        block_f32 = 4 * sum(t.numel() for k, t in sd.items()
+                            if k.startswith("transformer_blocks.0."))
+        print(f"[files_b] FLUX {cfg.num_layers} dual + {cfg.num_single_layers} single at dim "
+              f"{cfg.dim}: wrote {n_bytes} bytes (DiT {dit_bytes} bf16 in 2 shards, VAE f32) in "
+              f"{write_s:.2f} s ({n_bytes / write_s / 1e9:.2f} GB/s); Trainer.load_model "
+              f"{load_s:.2f} s ({n_bytes / load_s / 1e9:.2f} GB/s); host RSS {rss.start} bytes "
+              f"before, peak {rss.peak} during the load (+{rss.peak - rss.start}; one dual "
+              f"block in f32 is {block_f32} bytes, the whole DiT in f32 {2 * dit_bytes}) "
+              f"[{card}]", flush=True)
+        if tr.bundle.dit_cfg != cfg:
+            raise AssertionError(f"loaded config {tr.bundle.dit_cfg}")
+        want = bridge.load_params(flux.FluxTransformer(cfg, device="cuda", dtype=torch.bfloat16),
+                                  porting.convert_flux_transformer(sd, cfg.num_layers,
+                                                                   cfg.num_single_layers))
+        n_dit = _params_equal(dit, want)
+        del want
+        want_vae = bridge.load_vae_params(flux_vae.VAE(vcfg, device="cuda"),
+                                          porting.convert_flux_vae(vsd))
+        n_vae = _params_equal(tr.bundle.vae_params, want_vae)
+        del want_vae, sd, vsd
+        print(f"[files_b] {n_dit} DiT and {n_vae} VAE tensors equal the in-memory conversion "
+              f"to the bit [{card}]", flush=True)
+
+        rng = np.random.default_rng(13)
+        gh, gw = tr.adapter.latent_grid(HEIGHT, WIDTH)
+        emb = tr.adapter.prepare_cached_embeddings(_request(rng, cfg, gh, gw, 1))
+        batch = {k: torch.as_tensor(v).to("cuda", torch.bfloat16) for k, v in emb.items()}
+        batch["guidance"] = torch.full((1,), 2.5, dtype=torch.bfloat16, device="cuda")
+        gen = torch.Generator("cuda").manual_seed(14)
+        lat = torch.randn(1, gh * gw, cfg.in_channels, device="cuda",
+                          generator=gen).to(torch.bfloat16)
+        sigma = torch.full((1,), 1.0, dtype=torch.bfloat16, device="cuda")
+        plain = dataclasses.replace(tr.adapter, attn_impl="plain")
+        with torch.inference_mode():
+            v_k = tr.adapter.predict_velocity(dit, batch, lat, sigma).float()
+            v_p = plain.predict_velocity(dit, batch, lat, sigma).float()
+        rel = (torch.linalg.vector_norm(v_k - v_p) / torch.linalg.vector_norm(v_p)).item()
+        flash_nr.KERNEL_LAUNCHES = 0
+        t0 = time.perf_counter()
+        images = tr.predict_from_embeddings(_request(rng, cfg, gh, gw, 1), HEIGHT, WIDTH, seed=46)
+        secs = time.perf_counter() - t0
+        launched = flash_nr.KERNEL_LAUNCHES
+        print(f"[files_b] forward K1 vs plain attention rel L2 err {rel:.3e} (tol "
+              f"{FORWARD_REL_TOL}); 4-step predict {secs:.2f} s, images {images.dtype} "
+              f"{list(images.shape)} mean {images.mean():.2f}, latents finite "
+              f"{tr.last_predict['latents_finite']}, K1 launches {launched} [{card}]", flush=True)
+        if not rel <= FORWARD_REL_TOL:
+            raise AssertionError("the DiT loaded from files disagrees with the plain path")
+        if (images.dtype != np.uint8 or images.shape != (1, HEIGHT, WIDTH, 3)
+                or not tr.last_predict["latents_finite"] or launched != 4 * n_blocks):
+            raise AssertionError(f"files predict: {images.dtype} {images.shape}, K1 {launched}")
+        return launched
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_files_qwen(card: str, qwen, lora) -> tuple[int, ...]:
+    """Phase C: Qwen-Image-Edit weights from files over the int4-requant
+    base at full width (4 of 60 blocks, the published config's quantize
+    section), every quantized leaf equal to `quantize_tree` of the whole
+    in-memory conversion to the bit, and a 2-step 832×576 predict through K3
+    and K5a with exact counts; then the full-depth model's trained LoRA
+    (`lora`, from the Qwen train phase) exported to a file and read back
+    into a fresh LoRA, whose bs=1 2-step predict must equal the one with
+    the in-memory LoRA, to the bit.  Returns the launches of both predicts
+    (_launch_counts' order, with the row quantization)."""
+    from qflux_tpu_torch.config import config_from_dict
+    from qflux_tpu_torch.models import bridge
+    from qflux_tpu_torch.models.qwen import transformer as qwen_dit
+    from qflux_tpu_torch.models.qwen import vae as qwen_vae
+    from qflux_tpu_torch.models.qwen.porting import convert_qwen_image_transformer, convert_qwen_vae
+    from qflux_tpu_torch.ops.quant import quantize_tree
+    from qflux_tpu_torch.trainer.base import Trainer
+    from qflux_tpu_torch.utils.lora_io import save_lora_safetensors
+
+    cfg = dataclasses.replace(qwen_dit.QwenImageConfig(), num_layers=4)
+    vcfg = qwen_vae.QwenVAEConfig()
+    tmp = Path(tempfile.mkdtemp(prefix="qflux_smoke_c_"))
+    try:
+        sd, vsd = qwen_state_dict(cfg, seed=31), qwen_vae_state_dict(vcfg, seed=32)
+        t0 = time.perf_counter()
+        n_bytes = write_checkpoint(tmp, sd, vsd)
+        write_s = time.perf_counter() - t0
+        raw = copy.deepcopy(QWEN_832X576)
+        raw["model"]["pretrained_model_name_or_path"] = str(tmp)
+        tr = Trainer(config_from_dict(raw), device="cuda")
+        with _PeakRSS() as rss:
+            t0 = time.perf_counter()
+            tr.load_model()
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+        dit = tr.bundle.dit_params
+        print(f"[files_c] Qwen {cfg.num_layers} of 60 blocks at dim {cfg.dim}: wrote {n_bytes} "
+              f"bytes in {write_s:.2f} s ({n_bytes / write_s / 1e9:.2f} GB/s); load_model with "
+              f"int4_requant {load_s:.2f} s ({n_bytes / load_s / 1e9:.2f} GB/s); host RSS "
+              f"{rss.start} bytes before, peak {rss.peak} during the load "
+              f"(+{rss.peak - rss.start}); device {torch.cuda.memory_allocated()} bytes "
+              f"allocated [{card}]", flush=True)
+        want = bridge.load_params(
+            qwen_dit.QwenImageTransformer(cfg, device="cuda", dtype=torch.bfloat16),
+            convert_qwen_image_transformer(sd, cfg.num_layers))
+        quantize_tree(want, tr.config.model.quantize)
+        n_q = sum(1 for m in want.modules() if getattr(m, "q4", None) is not None)
+        n_all = _params_equal(dit, want)
+        del want
+        vae_want = bridge.load_vae_params(
+            qwen_vae.QwenVAE(vcfg, device="cuda", post_quant_conv=True),
+            convert_qwen_vae(vsd, num_res_blocks=vcfg.num_res_blocks, levels=len(vcfg.dim_mult)))
+        n_vae = _params_equal(tr.bundle.vae_params, vae_want)
+        del vae_want, sd, vsd
+        print(f"[files_c] {n_all} DiT tensors ({n_q} int4-requant layers: kernel_q4_rq, "
+              f"kernel_scale and their factors) and {n_vae} VAE tensors equal quantize_tree of "
+              f"the in-memory conversion to the bit [{card}]", flush=True)
+
+        rng = np.random.default_rng(15)
+        gh, gw = tr.adapter.latent_grid(QWEN_HEIGHT, QWEN_WIDTH)
+        per_forward = cfg.num_layers * 12 + 3
+        _reset_counts()
+        t0 = time.perf_counter()
+        images = tr.predict_from_embeddings(_qwen_request(rng, cfg, gh, gw, 1), QWEN_HEIGHT,
+                                            QWEN_WIDTH, num_inference_steps=2, seed=47)
+        secs = time.perf_counter() - t0
+        cut = _launch_counts()
+        want_counts = _rq((0, 0, 2 * per_forward, 0, 0, 0, 0, 0, 2 * cfg.num_layers, 0))
+        print(f"[files_c] 2-step 832×576 predict {secs:.2f} s, images {images.dtype} "
+              f"{list(images.shape)}, latents finite {tr.last_predict['latents_finite']}, "
+              f"{COUNT_NAMES} launches {cut} [{card}]", flush=True)
+        if (images.dtype != np.uint8 or not tr.last_predict["latents_finite"]
+                or cut != want_counts):
+            raise AssertionError(f"files predict launched {cut}, expected {want_counts}")
+        del tr, dit
+        torch.cuda.empty_cache()
+
+        # the full-depth model's trained LoRA through a file
+        t0 = time.perf_counter()
+        path = save_lora_safetensors(lora, tmp / "qwen_lora.safetensors",
+                                     qwen.adapter.lora_module_name_fn,
+                                     head_dim=qwen.bundle.dit_cfg.attention_head_dim)
+        save_s = time.perf_counter() - t0
+        fresh = Trainer(config_from_dict(QWEN_832X576), device="cuda")
+        fresh.adapter, fresh.bundle = qwen.adapter, qwen.bundle
+        fresh.config.model.lora.pretrained_weight = str(path)
+        t0 = time.perf_counter()
+        lora_file = fresh.build_lora()
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        emb = _qwen_request(rng, qwen.bundle.dit_cfg, gh, gw, 1)
+        before = _launch_counts()
+        img_file = qwen.predict_from_embeddings(emb, QWEN_HEIGHT, QWEN_WIDTH,
+                                                num_inference_steps=2, lora=lora_file, seed=48)
+        img_mem = qwen.predict_from_embeddings(emb, QWEN_HEIGHT, QWEN_WIDTH,
+                                               num_inference_steps=2, lora=lora, seed=48)
+        full = tuple(a - b for a, b in zip(_launch_counts(), before))
+        same = np.array_equal(img_file, img_mem)
+        moved = sum(bool(leaf["b"].abs().sum() > 0) for leaf in lora_file.values())
+        print(f"[files_c] full-depth Qwen LoRA ({len(lora)} layers, {moved} with b moved) saved "
+              f"in {save_s:.3f} s ({path.stat().st_size} bytes), read in {load_s:.3f} s; "
+              f"2-step bs=1 predict with it vs in memory: equal to the bit {same}; "
+              f"{COUNT_NAMES} launches {full} [{card}]", flush=True)
+        if not same or sorted(lora_file) != sorted(lora) or moved == 0:
+            raise AssertionError("the Qwen LoRA read from its file predicts other images")
+        return tuple(a + b for a, b in zip(cut, full))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 PROFILE_GROUPS = [("K5a rq_int4_fwd", ("rq_int4_fwd",)), ("K5b rq_int4_bwd", ("rq_int4_bwd",)),
                   ("row quant", ("rowquant",)),
                   # after K5's: "rq_int4_fwd_kernel" contains "int4_fwd_kernel"
@@ -2892,6 +3519,8 @@ def main() -> int:
     k4_case = timed(phase_flash_bwd_kernel)
     trainer, k1_predict = timed(phase_predict)
     k1_train, k2_train = timed(phase_train, trainer)
+    k1_fa, k2_fa = timed(phase_files_flux_resume, trainer)
+    k1_fb = timed(phase_files_flux_weights)
     del trainer  # free the FLUX model before the Qwen one loads
     gc.collect()
     torch.cuda.empty_cache()
@@ -2900,13 +3529,15 @@ def main() -> int:
     qwen, (k3_qwen, k5_qwen, rq_qwen) = timed(phase_qwen_predict)
     k5b_case = timed(phase_rq_bwd_kernel)
     rowquant_g_case = k5b_case.pop("rowquant")
-    b_fit = timed(phase_qwen_train, qwen)
+    b_fit, qwen_lora = timed(phase_qwen_train, qwen)
     k5_qt, k5b_qt, k3_qt, k4_qt, rq_qt = b_fit[2], b_fit[3], b_fit[8], b_fit[9], b_fit[10]
     k1_int8_case, k2_int8_case = timed(phase_kernel_int8)
     k1_a, k5_a, rq_a = timed(phase_qwen512_predict, qwen)
     a_fit = timed(phase_qwen512_train, qwen)
     k5_at, k5b_at, k1_at, k2_at, rq_at = a_fit[2], a_fit[3], a_fit[4], a_fit[5], a_fit[10]
-    del qwen  # free the int4-requant model before path C's loads
+    fc = timed(phase_files_qwen, qwen, qwen_lora)
+    k5_fc, k3_fc, rq_fc = fc[2], fc[8], fc[10]
+    del qwen, qwen_lora  # free the int4-requant model before path C's loads
     gc.collect()
     torch.cuda.empty_cache()
     k6_case = timed(phase_int4_kernel)
@@ -2923,19 +3554,22 @@ def main() -> int:
         {"name": "flash_nr_fwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/flash_nr_fwd.cu",
          "replaces": "qflux_tpu/ops/flash_nr.py:192",
-         "launches": k1_predict + k1_train + k1_c + k1_ct,
+         "launches": k1_predict + k1_train + k1_fa + k1_fb + k1_c + k1_ct,
          "launches_by_path": {"predict": k1_predict, "train": k1_train,
+                              "files_flux_resume": k1_fa, "files_flux_weights": k1_fb,
                               "int4_predict": k1_c, "int4_train": k1_ct}, **k1_case},
         {"name": "flash_nr_bwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/flash_nr_bwd.cu",
          "replaces": "qflux_tpu/ops/flash_nr.py:311",
-         "launches": k2_train + k2_ct,
-         "launches_by_path": {"train": k2_train, "int4_train": k2_ct}, **k2_case},
+         "launches": k2_train + k2_fa + k2_ct,
+         "launches_by_path": {"train": k2_train, "files_flux_resume": k2_fa,
+                              "int4_train": k2_ct}, **k2_case},
         {"name": "flash_fwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "qflux_tpu/ops/flash_attention.py:105",
-         "launches": k3_qwen + k3_qt,
-         "launches_by_path": {"qwen_predict": k3_qwen, "qwen_train": k3_qt}, **k3_case},
+         "launches": k3_qwen + k3_qt + k3_fc,
+         "launches_by_path": {"qwen_predict": k3_qwen, "qwen_train": k3_qt,
+                              "files_qwen": k3_fc}, **k3_case},
         {"name": "flash_bwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "qflux_tpu/ops/flash_attention.py:288, :215, :251",
@@ -2943,9 +3577,10 @@ def main() -> int:
         {"name": "rq_int4_fwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/rq_int4_fwd.cu",
          "replaces": "qflux_tpu/ops/int4_matmul.py:268",
-         "launches": k5_qwen + k5_qt + k5_a + k5_at,
+         "launches": k5_qwen + k5_qt + k5_a + k5_at + k5_fc,
          "launches_by_path": {"qwen_predict": k5_qwen, "qwen_train": k5_qt,
-                              "qwen512_predict": k5_a, "qwen512_train": k5_at}, **k5_case},
+                              "qwen512_predict": k5_a, "qwen512_train": k5_at,
+                              "files_qwen": k5_fc}, **k5_case},
         {"name": "rq_int4_bwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/rq_int4_bwd.cu",
          "replaces": "qflux_tpu/ops/int4_matmul.py:286",
@@ -2954,9 +3589,10 @@ def main() -> int:
         {"name": "rowquant", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/rowquant.cu",
          "replaces": "not a TPU kernel: qflux_tpu/ops/quant.py:144 _rowquant, left to XLA",
-         "launches": rq_qwen + rq_qt + rq_a + rq_at,
+         "launches": rq_qwen + rq_qt + rq_a + rq_at + rq_fc,
          "launches_by_path": {"qwen_predict": rq_qwen, "qwen_train": rq_qt,
-                              "qwen512_predict": rq_a, "qwen512_train": rq_at},
+                              "qwen512_predict": rq_a, "qwen512_train": rq_at,
+                              "files_qwen": rq_fc},
          "g_times_s_vec": rowquant_g_case, **rowquant_case},
         {"name": "flash_nr_fwd s_int8", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/flash_nr_fwd.cu",

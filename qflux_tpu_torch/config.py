@@ -27,10 +27,12 @@ from typing import Any, Mapping
 # qflux_tpu/config.py's defaults for the fields the port reads
 DEFAULTS: dict = {
     "trainer": "FluxKontextLoraTrainer",
+    "resume": None,
     "mesh": {"remat": "flash"},
     "model": {
         "pretrained_model_name_or_path": None,
         "dit_path": None,
+        "vae_path": None,
         "variant": "full",
         "lora": {"r": 16, "lora_alpha": 16, "init_lora_weights": "gaussian",
                  "target_modules": ["to_q", "to_k", "to_v", "to_out",
@@ -38,15 +40,16 @@ DEFAULTS: dict = {
                  "pretrained_weight": None},
         "quantize": False,
     },
-    "train": {"gradient_accumulation_steps": 1, "max_train_steps": 1000,
-              "max_grad_norm": 1.0, "timestep_sampling": "uniform", "logit_mean": 0.0,
+    "train": {"gradient_accumulation_steps": 1, "max_train_steps": 1000, "num_epochs": 10000,
+              "checkpointing_steps": 500, "async_checkpointing": False, "max_grad_norm": 1.0, "timestep_sampling": "uniform", "logit_mean": 0.0,
               "logit_std": 1.0, "weighting_scheme": "none", "weighting_table": None,
               "seed": 1234, "weight_dtype": "bfloat16", "low_memory": False},
     "optimizer": {"class_path": "optax.adamw",
                   "init_args": {"b1": 0.9, "b2": 0.999, "weight_decay": 1e-2},
                   "learning_rate": 1e-4},
     "lr_scheduler": {"scheduler_type": "constant", "warmup_steps": 0},
-    "logging": {"sampling_seed": 42},
+    "logging": {"output_dir": "output", "project": "qflux_tpu", "sampling_seed": 42,
+                "push_to_hub": None},
     "predict": {"num_inference_steps": 20, "guidance": 2.5, "true_cfg_scale": 1.0,
                 "max_sequence_length": 512},
     "loss": {"class_path": "qflux_tpu.losses.MseLoss", "init_args": {}},
@@ -94,6 +97,23 @@ def config_from_dict(raw: Mapping) -> SimpleNamespace:
     cfg = _namespace(tree)
     cfg.trainer = SimpleNamespace(value=trainer)
     return cfg
+
+
+def config_to_dict(cfg: SimpleNamespace) -> dict:
+    """The inverse of `config_from_dict`: namespaces → plain dicts (what
+    `Trainer.fit` writes as train_config.yaml, in JSON, which YAML reads)."""
+    def rec(node):
+        if isinstance(node, SimpleNamespace):
+            return {k: rec(v) for k, v in vars(node).items()}
+        if isinstance(node, Mapping):
+            return {k: rec(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [rec(v) for v in node]
+        return node
+
+    out = rec(cfg)
+    out["trainer"] = cfg.trainer.value
+    return out
 
 
 def load_config_from_yaml(path) -> SimpleNamespace:

@@ -1,9 +1,11 @@
 """Weight bridge: the JAX package's parameter trees → the port's modules.
 
-Takes the nested-dict trees of qflux_tpu (leaves as numpy arrays, or anything
-`np.asarray` accepts) — the FLUX DiT tree from `flux.init` or
-`porting.convert_flux_transformer`, the VAE tree, the LoRA tree — and loads
-them into the port, so that both packages compute on the same weights:
+Takes the nested-dict trees of qflux_tpu (leaves as numpy arrays, anything
+`np.asarray` accepts, or CPU torch tensors) — the FLUX DiT tree from
+`flux.init`, from the JAX package's converters or from the port's own
+(`models/porting.py`, `models/qwen/porting.py`), the VAE tree, the LoRA
+tree — and loads them into the port, so that both packages compute on the
+same weights:
 
   * stacked `[L, ...]` leaves ("dual", "single") are unstacked into the
     `nn.ModuleList`s;
@@ -32,6 +34,12 @@ from torch import nn
 from qflux_tpu_torch.ops.layers import Dense, LoraTree, raise_quantized
 
 _RENAME = {"in": "lin_in", "out": "lin_out"}
+
+
+def _tensor(x) -> torch.Tensor:
+    """A leaf as a CPU torch tensor: torch tensors as they are (the port's
+    converters write them), anything else through numpy as float32."""
+    return x.detach() if torch.is_tensor(x) else torch.from_numpy(_np32(x))
 
 
 def _np32(x) -> np.ndarray:
@@ -64,7 +72,7 @@ def _load(module: nn.Module, tree: Mapping[str, Any], loaded: set, path: str) ->
             raise KeyError(f"{path}{key}: {type(module).__name__} is not a dense layer")
         dev = (module.weight if module.weight is not None else module.q4).device
         q4 = torch.from_numpy(np.array(tree[key], np.int8)).to(dev)
-        scale = torch.from_numpy(_np32(tree["kernel_scale"])).to(dev)
+        scale = _tensor(tree["kernel_scale"]).to(dev, torch.float32)
         (module.set_int4_requant if key == "kernel_q4_rq" else module.set_int4)(q4, scale)
         tree = {k: v for k, v in tree.items() if k not in (key, "kernel_scale")}
     for key, val in tree.items():
@@ -76,24 +84,28 @@ def _load(module: nn.Module, tree: Mapping[str, Any], loaded: set, path: str) ->
             else:
                 _load(child, val, loaded, f"{path}{key}/")
             continue
-        arr = _np32(val)
+        arr = _tensor(val)
         if key == "kernel":
             param = module.weight
             # [in, out] → [out, in]; HWIO → OIHW; [kt, kh, kw, cin, cout] → OIDHW
-            arr = arr.transpose({2: (1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}[arr.ndim])
+            arr = arr.permute({2: (1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}[arr.dim()])
         else:
             param = getattr(module, key, None)
             if not isinstance(param, nn.Parameter):
                 raise KeyError(f"{path}{key}: {type(module).__name__} has no parameter {key!r}")
-        if tuple(param.shape) != arr.shape:
-            raise ValueError(f"{path}{key}: tree {arr.shape} vs module {tuple(param.shape)}")
+        if param.shape != arr.shape:
+            raise ValueError(f"{path}{key}: tree {tuple(arr.shape)} vs module "
+                             f"{tuple(param.shape)}")
         with torch.no_grad():
-            param.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
+            # to the device in the leaf's own memory order, then the copy
+            # there lays it out and casts it
+            param.copy_(arr.to(param.device))
         loaded.add(id(param))
 
 
 def _index(tree: Mapping[str, Any], i: int) -> dict:
-    return {k: (_index(v, i) if isinstance(v, Mapping) else np.asarray(v)[i])
+    return {k: (_index(v, i) if isinstance(v, Mapping)
+                else v[i] if torch.is_tensor(v) else np.asarray(v)[i])
             for k, v in tree.items()}
 
 

@@ -145,7 +145,9 @@ class SingleBlock(nn.Module):
 
 
 class FluxTransformer(nn.Module):
-    def __init__(self, cfg: FluxConfig, device=None, dtype=None):
+    """`blocks=False` leaves the block lists empty, for a loader to fill."""
+
+    def __init__(self, cfg: FluxConfig, device=None, dtype=None, blocks: bool = True):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
         dim = cfg.dim
@@ -157,8 +159,10 @@ class FluxTransformer(nn.Module):
             self.pooled_in = MLP(cfg.pooled_projection_dim, dim, out_dim=dim, **kw)
         if cfg.guidance_embeds:
             self.guidance_in = MLP(256, dim, out_dim=dim, **kw)
-        self.dual = nn.ModuleList(DualBlock(cfg, **kw) for _ in range(cfg.num_layers))
-        self.single = nn.ModuleList(SingleBlock(cfg, **kw) for _ in range(cfg.num_single_layers))
+        self.dual = nn.ModuleList(DualBlock(cfg, **kw)
+                                  for _ in range(cfg.num_layers if blocks else 0))
+        self.single = nn.ModuleList(SingleBlock(cfg, **kw)
+                                    for _ in range(cfg.num_single_layers if blocks else 0))
         self.norm_out = AdaProj(dim, 2, **kw)
         self.proj_out = Dense(dim, cfg.patch_size ** 2 * cfg.out_channels, **kw)
 
@@ -172,6 +176,39 @@ def init(generator: torch.Generator, cfg: FluxConfig, device=None,
         for mod in model.modules():
             if isinstance(mod, Dense):
                 mod.init_(generator)
+    return model
+
+
+def load_from_state_dict(sd, cfg: FluxConfig, device=None, dtype=torch.bfloat16,
+                         quantize=None) -> FluxTransformer:
+    """The DiT from a diffusers state dict (`utils/safetensors.SafeTensors`
+    reads it lazily), one block at a time: each block's tensors are read,
+    converted (`models/porting.py`, in f32, as the JAX loader converts),
+    loaded through the bridge in `dtype` on `device` and, with `quantize`
+    (a quantize config, as ops/quant.quantize_tree takes), quantized right
+    after, so no more than one block's full-precision weights exist at a
+    time, on the host or the device.  The parameters equal those of
+    `bridge.load_params` over `porting.convert_flux_transformer` of the
+    whole dict.  Tensors that no converter reads are reported in a
+    warning."""
+    from qflux_tpu_torch.models import porting
+    from qflux_tpu_torch.models.bridge import load_params
+    from qflux_tpu_torch.ops.quant import quantize_tree
+
+    tsd = porting.TrackingStateDict(sd)
+    dh = cfg.attention_head_dim
+    model = FluxTransformer(cfg, device=device, dtype=dtype, blocks=False)
+    load_params(model, porting.flux_transformer_top(tsd))
+    for name, make, convert, n in (("dual", DualBlock, porting.flux_dual_block, cfg.num_layers),
+                                   ("single", SingleBlock, porting.flux_single_block,
+                                    cfg.num_single_layers)):
+        for i in range(n):
+            block = load_params(make(cfg, device=device, dtype=dtype),
+                                convert(tsd, i, head_dim=dh))
+            if quantize is not None:
+                quantize_tree(block, quantize, prefix=f"{name}/{i}/")
+            getattr(model, name).append(block)
+    porting.report_unconsumed(tsd.unconsumed(), len(sd), "the FLUX DiT loader")
     return model
 
 

@@ -135,6 +135,33 @@ def init(generator: torch.Generator, cfg: QwenImageConfig, device=None,
     return model
 
 
+def load_from_state_dict(sd, cfg: QwenImageConfig, device=None, dtype=torch.bfloat16,
+                         quantize=None) -> QwenImageTransformer:
+    """The DiT from a diffusers state dict (`utils/safetensors.SafeTensors`
+    reads it lazily), one block at a time, as `init` draws it: each block's
+    tensors are read, converted (`models/qwen/porting.py`, in f32), loaded
+    through the bridge in `dtype` on `device` and, with `quantize`,
+    quantized right after, so no more than one block's full-precision
+    weights exist at a time, on the host or the device.  Tensors that no
+    converter reads are reported in a warning."""
+    from qflux_tpu_torch.models import porting
+    from qflux_tpu_torch.models.bridge import load_params
+    from qflux_tpu_torch.models.qwen.porting import qwen_block, qwen_transformer_top
+    from qflux_tpu_torch.ops.quant import quantize_tree
+
+    tsd = porting.TrackingStateDict(sd)
+    model = QwenImageTransformer(cfg, device=device, dtype=dtype, blocks=False)
+    load_params(model, qwen_transformer_top(tsd))
+    for i in range(cfg.num_layers):
+        block = load_params(QwenBlock(cfg, device=device, dtype=dtype),
+                            qwen_block(tsd, i, head_dim=cfg.attention_head_dim))
+        if quantize is not None:
+            quantize_tree(block, quantize, prefix=f"blocks/{i}/")
+        model.blocks.append(block)
+    porting.report_unconsumed(tsd.unconsumed(), len(sd), "the Qwen DiT loader")
+    return model
+
+
 # ---------------------------------------------------------------------------
 # forward
 

@@ -124,9 +124,15 @@ class UpBlock(nn.Module):
 
 
 class Decoder(nn.Module):
-    def __init__(self, cfg: QwenVAEConfig, device=None, dtype=None):
+    """`post_quant_conv`: the WanVAE's 1×1 conv on the latents, which
+    checkpoints carry (a channel linear, as the JAX tree keeps it)."""
+
+    def __init__(self, cfg: QwenVAEConfig, device=None, dtype=None,
+                 post_quant_conv: bool = False):
         super().__init__()
         kw = {"device": device, "dtype": dtype}
+        if post_quant_conv:
+            self.post_quant_conv = Dense(cfg.z_dim, cfg.z_dim, **kw)
         rev = [cfg.base_dim * m for m in reversed(cfg.dim_mult)]
         self.conv_in = Conv3(3, 3, 3, cfg.z_dim, rev[0], **kw)
         self.mid = Mid(rev[0], **kw)
@@ -142,10 +148,11 @@ class Decoder(nn.Module):
 class QwenVAE(nn.Module):
     """{"decoder": ...} of the JAX VAE tree."""
 
-    def __init__(self, cfg: QwenVAEConfig, device=None, dtype=None):
+    def __init__(self, cfg: QwenVAEConfig, device=None, dtype=None,
+                 post_quant_conv: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.decoder = Decoder(cfg, device=device, dtype=dtype)
+        self.decoder = Decoder(cfg, device=device, dtype=dtype, post_quant_conv=post_quant_conv)
 
 
 def init(generator: torch.Generator, cfg: QwenVAEConfig, device=None,
@@ -218,6 +225,8 @@ def decode(params: QwenVAE, cfg: QwenVAEConfig, latents):
     mean = torch.tensor(cfg.latents_mean, dtype=latents.dtype, device=latents.device)
     z = latents * std + mean
     dec = params.decoder
+    if hasattr(dec, "post_quant_conv"):
+        z = flux_vae._lin(dec.post_quant_conv, z)
     x = _conv3d_t1(dec.conv_in, z.permute(0, 3, 1, 2))
     x = _mid(dec.mid, x)
     for i in range(len(cfg.dim_mult)):

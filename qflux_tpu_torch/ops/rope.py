@@ -2,10 +2,11 @@
 coordinates), rotate-half layout.
 
 Counterpart of qflux_tpu/ops/rope.py (`rope_from_coords`, `flux_image_ids`,
-`flux_text_ids`, `qwen_video_coords`, `qwen_rope`).  The inverse
+`flux_text_ids`, `qwen_video_coords`, `qwen_rope`,
+`interleaved_to_half_perm`, `half_to_interleaved_perm`).  The inverse
 frequencies are computed in float64 on the host and cast to float32, as in
 the JAX code; the q/k projection channels are already permuted to the
-rotate-half layout by the JAX weight converter.
+rotate-half layout by the weight converters (`models/porting.py`).
 """
 
 from __future__ import annotations
@@ -38,6 +39,16 @@ def flux_image_ids(height: int, width: int, set_id: int = 0,
     ids[..., 1] = np.arange(height)[:, None] + h_offset
     ids[..., 2] = np.arange(width)[None, :] + w_offset
     return ids.reshape(height * width, 3)
+
+
+def interleaved_to_half_perm(d: int) -> np.ndarray:
+    """Channel permutation taking torch interleaved-pair rope layout to the
+    rotate-half layout: even indices first, then odd. ours[j] = torch[perm[j]]."""
+    return np.concatenate([np.arange(0, d, 2), np.arange(1, d, 2)])
+
+
+def half_to_interleaved_perm(d: int) -> np.ndarray:
+    return np.argsort(interleaved_to_half_perm(d))
 
 
 def flux_text_ids(seq_len: int) -> np.ndarray:

@@ -2,7 +2,8 @@
 
 Counterpart of qflux_tpu/scheduler/weighting.py: the bell-shaped
 mean-normalized weights in closed form, the half-bell variant, and the
-reference's 1000-entry empirical table, looked up by σ.  The table is the
+reference's 1000-entry empirical table or a user's (`load_weighting_table`),
+looked up by σ.  The table is the
 port's own byte-for-byte copy of the JAX package's
 `qflux_tpu/scheduler/default_weighting_table.npy`, beside this module.
 """
@@ -10,6 +11,7 @@ port's own byte-for-byte copy of the JAX package's
 from __future__ import annotations
 
 import functools
+import json
 from pathlib import Path
 
 import numpy as np
@@ -23,6 +25,13 @@ DEFAULT_TABLE = Path(__file__).resolve().parent / "default_weighting_table.npy"
 def default_weighting_table() -> np.ndarray:
     """Index 0 ↔ timestep 1000 (σ=1), index 999 ↔ timestep 1."""
     return np.load(DEFAULT_TABLE).astype(np.float32)
+
+
+def load_weighting_table(path) -> np.ndarray:
+    """A user-supplied table: .npy, or .json/.txt with one float per entry."""
+    if str(path).endswith(".npy"):
+        return np.load(path).astype(np.float32)
+    return np.asarray(json.loads(Path(path).read_text()), dtype=np.float32)
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,13 +1,27 @@
 """The port's Trainer: load the model, build a LoRA, train it on cached
-embeddings, and predict from cached embeddings.
+embeddings with checkpoints and resume, and predict from cached embeddings.
 
-Counterpart of the predict and train slices of qflux_tpu/trainer/base.py
-(`load_model`, `build_lora`, `build_optimizer`, `build_criterion`,
-`_build_step_config`, `fit`, `predict_from_embeddings`).  `fit` runs the
-train step over an iterable of cached-embedding batches and records loss,
-grad_norm and lr per step in `history`; checkpoint files, the LoRA
-safetensors export, logging backends, validation, resume and the cache pass
-come with later slices (ROADMAP.md, queue 1).
+Counterpart of qflux_tpu/trainer/base.py (`load_model`, `build_lora`,
+`build_optimizer`, `build_criterion`, `_build_step_config`,
+`setup_versioned_dir`, `fit`, `save_checkpoint`, `_load_train_state`,
+`predict_from_embeddings`).  `fit` runs JAX's outer loop over a
+re-iterable of cached-embedding batches: epochs, `global_step`, a
+checkpoint every train.checkpointing_steps and the last one at the end, a
+stop after the step on SIGINT / SIGTERM, and `resume`.  Its files are the
+JAX trainer's, so either package resumes the other's run:
+
+    <logging.output_dir>/<logging.project>/vN/
+        train_config.yaml                     the config (JSON, which YAML reads)
+        checkpoint-{step}/, checkpoint-last-{step}/
+            pytorch_lora_weights.safetensors  the LoRA, diffusers names
+            optimizer_state.npz               AdamW's moments, optax's keys
+            state.json                        global_step, epoch, is_last, git
+            generator_state.npy               the port's noise generator
+
+Logging backends, validation, orbax's async checkpoints, the hub push and
+the data layer (`fit(dataloader)` over images) come with later slices
+(ROADMAP.md, queue 1 item 2); `history` records loss, grad_norm and lr per
+step.
 
 The Trainer reads its settings by attribute, from the namespaces of the
 port's own loader (`qflux_tpu_torch/config.py`: `Trainer.from_yaml` reads a
@@ -16,7 +30,9 @@ YAML file of the JAX package's format; `predict_config()` and
 machine without YAML).
 
 Two model families are ported: FLUX.1-Kontext and Qwen-Image-Edit, each
-with predict and the LoRA train step.  `load_model` quantizes the DiT with
+with predict and the LoRA train step, from synthetic weights or from a
+diffusers checkpoint directory (`model.pretrained_model_name_or_path`,
+read block by block).  `load_model` quantizes the DiT with
 `ops/quant.quantize_tree` where `model.quantize.enabled` (int4 and
 int4_requant; other dtypes raise there), and `fit` trains over that base
 (the fused int4 matmuls' backwards are kernels K5b and K6b on the card).  `quantize.attention` runs
@@ -27,23 +43,33 @@ policies not ported raise in the transformer.
 
 from __future__ import annotations
 
+import json
+import logging
+import re
+import shutil
+import signal
+import subprocess
 import time
+from pathlib import Path
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
 from qflux_tpu_torch import losses
-from qflux_tpu_torch.config import config_from_dict, load_config_from_yaml
-from qflux_tpu_torch.ops.layers import build_lora_tree, mark_trainable, merge_lora
+from qflux_tpu_torch.config import config_from_dict, config_to_dict, load_config_from_yaml
+from qflux_tpu_torch.ops.layers import (build_lora_tree, iter_dense_paths, mark_trainable,
+                                        merge_lora)
 from qflux_tpu_torch.ops.quant import quantize_tree
 from qflux_tpu_torch.scheduler.flow_match import FlowMatchScheduler
-from qflux_tpu_torch.scheduler.weighting import default_weighting_table
+from qflux_tpu_torch.scheduler.weighting import default_weighting_table, load_weighting_table
 from qflux_tpu_torch.trainer.flux_kontext import FluxKontextAdapter
 from qflux_tpu_torch.trainer.qwen_edit import QwenImageEditAdapter
 from qflux_tpu_torch.trainer.sampling import SamplingConfig, make_sampler
 from qflux_tpu_torch.trainer.train_step import (TrainStepConfig, lora_leaves,
                                                 make_lr_schedule, make_train_step)
+from qflux_tpu_torch.utils import checkpoint
+from qflux_tpu_torch.utils.lora_io import load_lora_safetensors, save_lora_safetensors
 
 ADAPTERS = {"FluxKontextLoraTrainer": FluxKontextAdapter,
             "QwenImageEditTrainer": QwenImageEditAdapter}
@@ -52,6 +78,20 @@ CRITERIA = {f"{pkg}.{name}": getattr(losses, name)
             for pkg in ("qflux_tpu.losses", "qflux_tpu.losses.losses")
             for name in ("MseLoss", "MaskEditLoss", "AttentionMaskMseLoss")}
 ADAMW_ARGS = ("b1", "b2", "eps", "weight_decay")  # the optax.adamw arguments ported
+ITEM_2 = "ROADMAP.md, queue 1 item 2: \"The rest of slice B, part 1: files, real weights and data\""
+
+
+def get_git_info() -> dict:
+    """Commit/branch provenance saved into state.json."""
+    info = {}
+    for key, cmd in [("commit", ["git", "rev-parse", "HEAD"]),
+                     ("branch", ["git", "rev-parse", "--abbrev-ref", "HEAD"])]:
+        try:
+            info[key] = subprocess.run(cmd, capture_output=True, text=True,
+                                       timeout=5).stdout.strip()
+        except (OSError, subprocess.SubprocessError):
+            info[key] = None
+    return info
 
 
 def predict_config(variant: str = "test", num_inference_steps: int = 20):
@@ -92,6 +132,13 @@ class Trainer:
         self.adapter = None
         self.bundle = None
         self.lora = None
+        self.global_step = 0
+        self.epoch = 0
+        self.output_dir: Optional[Path] = None
+        # fit's AdamW and noise generator, which checkpoints save
+        self.optimizer: Optional[torch.optim.Optimizer] = None
+        self.generator: Optional[torch.Generator] = None
+        self._interrupted = False
         # what the last predict_from_embeddings call measured: denoise_s,
         # steps, decode_s (host clock around synchronised work) and whether
         # the final latents were all finite
@@ -118,14 +165,71 @@ class Trainer:
         if qz and qz.enabled:
             self.bundle.dit_params = quantize_tree(self.bundle.dit_params, qz)
 
+    def setup_versioned_dir(self) -> Path:
+        """<logging.output_dir>/<logging.project>/vN, one past the highest
+        kept version, as the JAX Trainer numbers them: an old vN whose
+        state.json says global_step < 5 and that holds no *.safetensors is
+        an invalid run and is deleted first."""
+        root = Path(self.config.logging.output_dir) / self.config.logging.project
+        root.mkdir(parents=True, exist_ok=True)
+        versions = []
+        for d in root.iterdir():
+            m = re.fullmatch(r"v(\d+)", d.name)
+            if not (m and d.is_dir()):
+                continue
+            state_file = d / checkpoint.STATE_FILE
+            step = 0
+            if state_file.exists():
+                try:
+                    step = json.loads(state_file.read_text()).get("global_step", 0)
+                except (OSError, ValueError, AttributeError):
+                    step = 0
+            if step < 5 and not any(d.rglob("*.safetensors")):
+                shutil.rmtree(d, ignore_errors=True)  # an invalid run
+            else:
+                versions.append(int(m.group(1)))
+        out = root / f"v{max(versions, default=-1) + 1}"
+        out.mkdir(parents=True, exist_ok=True)
+        return out
+
+    def _install_signal_handlers(self) -> dict:
+        """SIGINT / SIGTERM set a flag that `fit` reads after each step (it
+        then saves the last checkpoint and returns).  Returns the handlers
+        replaced, which `fit` puts back when it returns."""
+        def handler(signum, frame):
+            logging.warning("signal %s received; saving last checkpoint after this step",
+                            signum)
+            self._interrupted = True
+
+        old = {}
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            try:
+                old[sig] = signal.signal(sig, handler)
+            except ValueError:
+                pass  # not on the main thread
+        return old
+
     def build_lora(self):
-        """A fresh LoRA over the configured targets (a gaussian, b zeros),
-        from a generator seeded train.seed + 1, as the JAX Trainer."""
+        """model.lora.pretrained_weight: the LoRA of that file (or of a
+        checkpoint directory's pytorch_lora_weights.safetensors), f32 on the
+        device.  Otherwise a fresh LoRA over the configured targets (a
+        gaussian, b zeros), from a generator seeded train.seed + 1, as the
+        JAX Trainer."""
         lcfg = self.config.model.lora
         if lcfg.pretrained_weight:
-            raise NotImplementedError(
-                "loading a LoRA safetensors file is not ported yet (ROADMAP.md, queue 1: "
-                "\"The rest of slice B, part 1: files, real weights and data\")")
+            tree = load_lora_safetensors(lcfg.pretrained_weight, self.adapter.lora_tree_path_fn,
+                                         head_dim=self.bundle.dit_cfg.attention_head_dim)
+            # in the model's layer order, as a fresh tree (the order of the
+            # global gradient norm's sum, so a resumed run repeats its bits)
+            order = [p for p, _ in iter_dense_paths(self.bundle.dit_params) if p in tree]
+            unknown = sorted(set(tree) - set(order))
+            if unknown:
+                raise KeyError(f"LoRA paths with no dense layer in the model: {unknown[:5]}")
+            return {path: {"a": torch.from_numpy(tree[path]["a"]).to(self.device),
+                           "b": torch.from_numpy(tree[path]["b"]).to(self.device),
+                           "scaling": torch.tensor(float(tree[path]["scaling"]),
+                                                   dtype=torch.float32, device=self.device)}
+                    for path in order}
         targets = lcfg.target_modules or list(self.adapter.default_lora_targets)
         targets = [t if "/" in t else rf"attn/{t}" for t in targets]
         init = "gaussian" if lcfg.init_lora_weights in (True, "gaussian") else "kaiming"
@@ -177,12 +281,9 @@ class Trainer:
             if scheme == "none":
                 scheme = "weighted"
         if scheme == "weighted":
-            if t.weighting_table:
-                raise NotImplementedError(
-                    "a user weighting_table file is not ported yet (ROADMAP.md, queue 1: "
-                    "\"The rest of slice B, part 1: files, real weights and data\"); the "
-                    "default table is")
-            table, scheme = default_weighting_table(), "table"
+            table = (load_weighting_table(t.weighting_table) if t.weighting_table
+                     else default_weighting_table())
+            scheme = "table"
         return TrainStepConfig(timestep_sampling=sampling, logit_mean=t.logit_mean,
                                logit_std=t.logit_std, weighting_scheme=scheme,
                                weighting_table=table, max_grad_norm=t.max_grad_norm,
@@ -201,32 +302,113 @@ class Trainer:
             out[k] = t.to(self.device)
         return out
 
+    def _schedule_has_count(self) -> bool:
+        """Whether optax's adamw state carries a schedule count ("2/count"):
+        the JAX lr is a schedule unless it is constant without warmup."""
+        lr = self.config.lr_scheduler
+        return not (lr.scheduler_type == "constant" and lr.warmup_steps == 0)
+
     def fit(self, batches):
-        """Train a fresh LoRA on `batches` (an iterable of cached-embedding
-        dicts with `image_latents`) for at most train.max_train_steps steps.
-        Noise and σ come from a generator seeded train.seed.  Returns the
-        LoRA tree, trained in place; `history` holds one entry per step."""
+        """Train the LoRA on `batches`, a re-iterable of cached-embedding
+        dicts with `image_latents`, as the JAX Trainer's outer loop: up to
+        train.num_epochs passes over `batches` and train.max_train_steps
+        steps, a checkpoint every train.checkpointing_steps, the last one
+        (checkpoint-last-{step}) always, and a stop after the step on SIGINT
+        / SIGTERM.  The run dir is a new vN under logging.output_dir /
+        logging.project, with the config as train_config.yaml.  Noise and σ
+        come from a generator seeded train.seed.  With `resume` (a
+        checkpoint directory), the LoRA comes from its file, then AdamW's
+        moments, global_step, epoch and the generator are restored, so the
+        run goes on as if it had not stopped.  Returns the LoRA tree, trained
+        in place; `history` holds one entry per step."""
         cfg = self.config
+        if cfg.train.async_checkpointing:
+            raise NotImplementedError(
+                f"train.async_checkpointing (orbax) is not ported yet ({ITEM_2}); the "
+                "synchronous checkpoint files are")
+        if cfg.logging.push_to_hub:
+            raise NotImplementedError(f"logging.push_to_hub is not ported yet ({ITEM_2})")
         if self.adapter is None:
             self.load_model()
+        self.global_step = self.epoch = 0
+        self._interrupted = False
+        self.output_dir = self.setup_versioned_dir()
+        (self.output_dir / "train_config.yaml").write_text(
+            json.dumps(config_to_dict(cfg), indent=2) + "\n")
+        if cfg.resume:
+            cfg.model.lora.pretrained_weight = str(cfg.resume)
         self.lora = lora = mark_trainable(self.build_lora())
-        optimizer, schedule = self.build_optimizer(lora_leaves(lora)[0])
-        step = make_train_step(self.adapter.predict_velocity, self.build_criterion(), optimizer,
-                               schedule, self._build_step_config())
-        gen = torch.Generator(self.device).manual_seed(cfg.train.seed)
+        self.optimizer, schedule = self.build_optimizer(lora_leaves(lora)[0])
+        self.generator = torch.Generator(self.device).manual_seed(cfg.train.seed)
+        if cfg.resume:
+            self._load_train_state(Path(cfg.resume))
+        step = make_train_step(self.adapter.predict_velocity, self.build_criterion(),
+                               self.optimizer, schedule, self._build_step_config(),
+                               first_update=self.global_step)
         self.history = []
-        for batch in batches:
-            if len(self.history) >= cfg.train.max_train_steps:
-                break
-            emb = self._device_batch(batch)
-            t0 = time.perf_counter()
-            metrics = step(self.bundle.dit_params, lora, emb, gen)
-            loss = float(metrics["loss"])  # waits for the device
-            self.history.append({"step": len(self.history) + 1, "loss": loss,
-                                 "grad_norm": float(metrics["grad_norm"]),
-                                 "lr": float(metrics["lr"]),
-                                 "step_s": time.perf_counter() - t0})
+        old_handlers = self._install_signal_handlers()
+        try:
+            done = False
+            for epoch in range(self.epoch, cfg.train.num_epochs):
+                self.epoch = epoch
+                batch_iter = iter(batches)
+                batch = next(batch_iter, None)
+                while batch is not None:
+                    emb = self._device_batch(batch)
+                    t0 = time.perf_counter()
+                    metrics = step(self.bundle.dit_params, lora, emb, self.generator)
+                    loss = float(metrics["loss"])  # waits for the device
+                    step_s = time.perf_counter() - t0
+                    self.global_step += 1
+                    batch = next(batch_iter, None)  # fetched before the checks, as JAX's loop
+                    self.history.append({"step": self.global_step, "loss": loss,
+                                         "grad_norm": float(metrics["grad_norm"]),
+                                         "lr": float(metrics["lr"]), "step_s": step_s})
+                    if self.global_step % cfg.train.checkpointing_steps == 0:
+                        self.save_checkpoint()
+                    if self._interrupted or self.global_step >= cfg.train.max_train_steps:
+                        done = True
+                        break
+                if done:
+                    break
+            self.save_checkpoint(last=True)
+        finally:
+            for sig, handler in old_handlers.items():
+                signal.signal(sig, handler)
         return lora
+
+    def save_checkpoint(self, last: bool = False) -> Path:
+        """checkpoint-{step} (checkpoint-last-{step} with `last`) in the run
+        dir: the LoRA file, AdamW's state as the JAX trainer writes it, the
+        generator's state and state.json.  Returns the directory."""
+        name = f"checkpoint-last-{self.global_step}" if last else f"checkpoint-{self.global_step}"
+        ckpt_dir = self.output_dir / name
+        ckpt_dir.mkdir(parents=True, exist_ok=True)
+        save_lora_safetensors(self.lora, ckpt_dir, self.adapter.lora_module_name_fn,
+                              head_dim=self.bundle.dit_cfg.attention_head_dim)
+        checkpoint.save_train_state(ckpt_dir, self.lora, self.optimizer, self.global_step,
+                                    self._schedule_has_count(), self.generator)
+        (ckpt_dir / checkpoint.STATE_FILE).write_text(json.dumps({
+            "global_step": self.global_step, "epoch": self.epoch, "is_last": last,
+            "git": get_git_info()}))
+        logging.info("saved checkpoint %s", ckpt_dir)
+        return ckpt_dir
+
+    def _load_train_state(self, ckpt: Path) -> None:
+        """global_step and epoch from state.json, AdamW's moments from
+        optimizer_state.npz (the JAX trainer's npz route; its orbax route is
+        not ported) and the generator's state, each where the checkpoint
+        has it."""
+        state_file = ckpt / checkpoint.STATE_FILE
+        if state_file.exists():
+            st = json.loads(state_file.read_text())
+            self.global_step = st.get("global_step", 0)
+            self.epoch = st.get("epoch", 0)
+        opt_file = ckpt / checkpoint.OPTIMIZER_FILE
+        if opt_file.exists():
+            with np.load(opt_file) as arrays:
+                checkpoint.restore_adamw_state(dict(arrays), self.lora, self.optimizer)
+        checkpoint.load_generator_state(ckpt, self.generator)
 
     def predict_from_embeddings(self, emb: dict, height: int, width: int,
                                 num_inference_steps: Optional[int] = None,

@@ -20,14 +20,19 @@ Text encoders and the VAE encoder (the cache pass) are a later slice.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from pathlib import Path
+from typing import Any, Optional
 
 import numpy as np
 import torch
 
+from qflux_tpu_torch.models import porting
+from qflux_tpu_torch.models.bridge import load_vae_params
 from qflux_tpu_torch.models.flux import transformer as flux
 from qflux_tpu_torch.models.flux import vae as flux_vae
 from qflux_tpu_torch.ops.packing import unpack_latents
+from qflux_tpu_torch.utils.lora_io import flux_module_name, flux_tree_path
+from qflux_tpu_torch.utils.safetensors import SafeTensors
 
 
 @dataclasses.dataclass
@@ -38,6 +43,31 @@ class ModelBundle:
     dit_params: Any
     vae_cfg: Any = None
     vae_params: Any = None
+
+
+def require_vae(bundle: ModelBundle) -> None:
+    if bundle.vae_params is None:
+        raise FileNotFoundError("no VAE was loaded: the checkpoint has no vae directory "
+                                "(set model.vae_path)")
+
+
+def checkpoint_dirs(model) -> Optional[tuple[Path, Optional[Path]]]:
+    """(DiT path, VAE dir or None) of a config's model section, as the JAX
+    adapters find them: model.dit_path, else <pretrained_model_name_or_path>
+    /transformer; model.vae_path, else <root>/vae if that exists.  None when
+    the section names no checkpoint (the weights are then synthetic)."""
+    if not (model.pretrained_model_name_or_path or model.dit_path):
+        return None
+    root = Path(model.pretrained_model_name_or_path or ".")
+    dit = Path(model.dit_path or root / "transformer")
+    vae = Path(model.vae_path or root / "vae")
+    return dit, (vae if vae.exists() else None)
+
+
+def quantize_config(config):
+    """model.quantize where enabled, else None."""
+    qz = config.model.quantize
+    return qz if qz and qz.enabled else None
 
 
 def remat_policy_from_config(remat_cfg: str) -> str:
@@ -66,30 +96,57 @@ class FluxKontextAdapter:
     remat_policy: str = "flash"
     vae_scale: int = 8
 
+    lora_module_name_fn = staticmethod(flux_module_name)
+    lora_tree_path_fn = staticmethod(flux_tree_path)
     default_lora_targets = (
         r"attn/(to_q|to_k|to_v|to_out|add_q|add_k|add_v|add_out)",
     )
 
     @classmethod
     def load(cls, config, device, dtype=torch.bfloat16) -> tuple["FluxKontextAdapter", ModelBundle]:
-        """variant "test" → the tiny DiT and VAE; otherwise the published
-        FLUX.1-Kontext-dev topology (`FluxConfig()`, `VAEConfig()`) at full
-        width.  No checkpoint is read yet: the weights are synthetic, drawn
-        on `device` from generators seeded 0 (DiT) and 1 (VAE) with the
-        `dense_init`/`_conv_init` bounds.  The DiT is in `dtype`, the VAE in
-        float32."""
+        """The DiT in `dtype` and the VAE in float32 on `device`, at the
+        widths of the variant's config: `FluxConfig()` / `VAEConfig()`
+        (FLUX.1-Kontext-dev), or the tiny ones for variant "test".
+
+        With model.pretrained_model_name_or_path or model.dit_path, the
+        weights are read from a diffusers checkpoint, as the JAX adapter
+        reads them (`checkpoint_dirs`): the DiT from a safetensors file or a
+        directory of shards, block by block (`flux.load_from_state_dict`,
+        each block quantized as it loads under model.quantize), with the
+        depth the file has (a file with fewer blocks builds a cut model); a
+        missing DiT raises FileNotFoundError.  The VAE's decoder is loaded
+        from its directory when there is one (the encoder belongs to the
+        cache pass, a later slice); without one `vae_params` is None and
+        decoding raises.  The text encoders and tokenizers of the directory
+        are not read: the port predicts from cached embeddings, and the
+        encoders are ROADMAP.md queue 1 item 5.
+
+        Without a checkpoint the weights are synthetic, drawn on `device`
+        from generators seeded 0 (DiT) and 1 (VAE) with the
+        `dense_init`/`_conv_init` bounds."""
         model = config.model
-        if getattr(model, "pretrained_model_name_or_path", None) or getattr(model, "dit_path", None):
-            raise NotImplementedError(
-                "loading FLUX.1-Kontext safetensors is not ported yet (ROADMAP.md: "
-                "real weights wait for checkpoint files in the repository)")
         if model.variant == "test":
             dit_cfg, vae_cfg = flux.FluxConfig.tiny(), flux_vae.VAEConfig.tiny()
         else:
             dit_cfg, vae_cfg = flux.FluxConfig(), flux_vae.VAEConfig()
         device = torch.device(device)
-        dit = flux.init(torch.Generator(device).manual_seed(0), dit_cfg, device, dtype)
-        vae = flux_vae.init(torch.Generator(device).manual_seed(1), vae_cfg, device)
+        files = checkpoint_dirs(model)
+        if files is None:
+            dit = flux.init(torch.Generator(device).manual_seed(0), dit_cfg, device, dtype)
+            vae = flux_vae.init(torch.Generator(device).manual_seed(1), vae_cfg, device)
+        else:
+            sd = SafeTensors(files[0])
+            dit_cfg = dataclasses.replace(
+                dit_cfg, num_layers=porting.count_blocks(sd, "transformer_blocks"),
+                num_single_layers=porting.count_blocks(sd, "single_transformer_blocks"))
+            dit = flux.load_from_state_dict(sd, dit_cfg, device, dtype,
+                                            quantize=quantize_config(config))
+            vae = None
+            if files[1] is not None:
+                tree = porting.convert_flux_vae(
+                    SafeTensors(files[1]), num_blocks=len(vae_cfg.block_out_channels),
+                    layers_per_block=vae_cfg.layers_per_block)
+                vae = load_vae_params(flux_vae.VAE(vae_cfg, device=device), tree)
         remat_cfg = config.mesh.remat
         adapter = cls(dit_cfg, attn_impl=attn_impl_from_config(config),
                       remat=remat_cfg != "none",
@@ -144,6 +201,7 @@ class FluxKontextAdapter:
     @torch.inference_mode()
     def decode_latents(self, bundle: ModelBundle, packed, height: int, width: int) -> np.ndarray:
         """Packed latents → uint8 RGB images [B, H, W, 3]."""
+        require_vae(bundle)
         gh, gw = self.latent_grid(height, width)
         lat = unpack_latents(packed, gh * 2, gw * 2)
         img = flux_vae.decode(bundle.vae_params, bundle.vae_cfg, lat.float())

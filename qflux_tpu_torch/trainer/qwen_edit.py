@@ -29,12 +29,45 @@ import dataclasses
 import numpy as np
 import torch
 
+from qflux_tpu_torch.models.bridge import load_vae_params
+from qflux_tpu_torch.models.porting import count_blocks
 from qflux_tpu_torch.models.qwen import transformer as qwen_dit
 from qflux_tpu_torch.models.qwen import vae as qwen_vae
+from qflux_tpu_torch.models.qwen.porting import convert_qwen_vae
 from qflux_tpu_torch.ops.packing import unpack_latents
 from qflux_tpu_torch.ops.rope import qwen_rope
 from qflux_tpu_torch.trainer.flux_kontext import (ModelBundle, attn_impl_from_config,
-                                                  remat_policy_from_config)
+                                                  checkpoint_dirs, quantize_config,
+                                                  remat_policy_from_config, require_vae)
+from qflux_tpu_torch.utils.safetensors import SafeTensors
+
+_QWEN_BLOCK_MODULES = {
+    ("attn", "to_q"): "attn.to_q", ("attn", "to_k"): "attn.to_k",
+    ("attn", "to_v"): "attn.to_v", ("attn", "to_out"): "attn.to_out.0",
+    ("attn", "add_q"): "attn.add_q_proj", ("attn", "add_k"): "attn.add_k_proj",
+    ("attn", "add_v"): "attn.add_v_proj", ("attn", "add_out"): "attn.to_add_out",
+    ("img_mlp", "in"): "img_mlp.net.0.proj", ("img_mlp", "out"): "img_mlp.net.2",
+    ("txt_mlp", "in"): "txt_mlp.net.0.proj", ("txt_mlp", "out"): "txt_mlp.net.2",
+    ("img_mod", "proj"): "img_mod.1", ("txt_mod", "proj"): "txt_mod.1",
+}
+_QWEN_BLOCK_PATHS = {v: k for k, v in _QWEN_BLOCK_MODULES.items()}
+
+
+def _qwen_module_name(path: tuple[str, ...], layer):
+    """The JAX tree's LoRA path → the diffusers QwenImageTransformer2DModel
+    module name (qflux_tpu/trainer/qwen_edit.py:_qwen_module_name)."""
+    if path[0] == "blocks":
+        sub = _QWEN_BLOCK_MODULES.get(tuple(path[1:]))
+        return None if sub is None else f"transformer_blocks.{layer}.{sub}"
+    return ".".join(path)
+
+
+def _qwen_tree_path(module: str):
+    parts = module.split(".")
+    if parts[0] == "transformer_blocks":
+        sub = _QWEN_BLOCK_PATHS.get(".".join(parts[2:]))
+        return None if sub is None else (("blocks",) + sub, int(parts[1]))
+    return tuple(parts), None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +78,8 @@ class QwenImageEditAdapter:
     remat_policy: str = "dots"
     vae_scale: int = 8
 
+    lora_module_name_fn = staticmethod(_qwen_module_name)
+    lora_tree_path_fn = staticmethod(_qwen_tree_path)
     default_lora_targets = (
         r"attn/(to_q|to_k|to_v|to_out|add_q|add_k|add_v|add_out)",
     )
@@ -52,20 +87,28 @@ class QwenImageEditAdapter:
     @classmethod
     def load(cls, config, device, dtype=torch.bfloat16) -> tuple["QwenImageEditAdapter",
                                                                  ModelBundle]:
-        """variant "test" → the tiny DiT (joint_attention_dim 48, the tiny
-        VL text encoder's width; in_channels 16 = 4 · the tiny VAE's z_dim 4;
-        out_channels 4) and the tiny VAE; otherwise the published
-        Qwen-Image-Edit topology (`QwenImageConfig()`: 60 blocks, 24 heads ×
-        128; `QwenVAEConfig()`) at full width.  No checkpoint is read: the
+        """The DiT in `dtype` and the VAE in float32 on `device`, at the
+        widths of the variant's config: the published Qwen-Image-Edit
+        topology (`QwenImageConfig()`: 60 blocks, 24 heads × 128;
+        `QwenVAEConfig()`), or for variant "test" the tiny DiT
+        (joint_attention_dim 48, the tiny VL text encoder's width;
+        in_channels 16 = 4 · the tiny VAE's z_dim 4; out_channels 4) and the
+        tiny VAE.  With model.quantize enabled each DiT block is quantized
+        as soon as it exists, so only one block's full-precision weights
+        exist at a time.
+
+        With model.pretrained_model_name_or_path or model.dit_path, the
+        weights are read from a diffusers checkpoint as the JAX adapter
+        reads them (`flux_kontext.checkpoint_dirs`): the DiT block by block
+        (`transformer.load_from_state_dict`) with the depth the file has (a
+        missing DiT raises FileNotFoundError), and the VAE's decoder from
+        its directory when there is one (without it `vae_params` is None
+        and decoding raises).  The Qwen2.5-VL text encoder and the tokenizer
+        are not read: the port predicts from cached embeddings, and the
+        encoders are ROADMAP.md queue 1 item 5.  Without a checkpoint the
         weights are synthetic, drawn on `device` from generators seeded 0
-        (DiT) and 1 (VAE).  With model.quantize enabled the DiT's blocks are
-        quantized one by one as they are drawn (`transformer.init`).  The
-        DiT is in `dtype`, the VAE in float32."""
+        (DiT) and 1 (VAE)."""
         model = config.model
-        if getattr(model, "pretrained_model_name_or_path", None) or getattr(model, "dit_path", None):
-            raise NotImplementedError(
-                "loading Qwen-Image-Edit safetensors is not ported yet (ROADMAP.md: "
-                "real weights wait for checkpoint files in the repository)")
         if model.variant == "test":
             dit_cfg = dataclasses.replace(qwen_dit.QwenImageConfig.tiny(), joint_attention_dim=48,
                                           in_channels=16, out_channels=4)
@@ -73,10 +116,25 @@ class QwenImageEditAdapter:
         else:
             dit_cfg, vae_cfg = qwen_dit.QwenImageConfig(), qwen_vae.QwenVAEConfig()
         device = torch.device(device)
-        qz = model.quantize
-        dit = qwen_dit.init(torch.Generator(device).manual_seed(0), dit_cfg, device, dtype,
-                            quantize=qz if qz and qz.enabled else None)
-        vae = qwen_vae.init(torch.Generator(device).manual_seed(1), vae_cfg, device)
+        files = checkpoint_dirs(model)
+        if files is None:
+            dit = qwen_dit.init(torch.Generator(device).manual_seed(0), dit_cfg, device, dtype,
+                                quantize=quantize_config(config))
+            vae = qwen_vae.init(torch.Generator(device).manual_seed(1), vae_cfg, device)
+        else:
+            sd = SafeTensors(files[0])
+            dit_cfg = dataclasses.replace(dit_cfg,
+                                          num_layers=count_blocks(sd, "transformer_blocks"))
+            dit = qwen_dit.load_from_state_dict(sd, dit_cfg, device, dtype,
+                                                quantize=quantize_config(config))
+            vae = None
+            if files[1] is not None:
+                vsd = SafeTensors(files[1])
+                vae = load_vae_params(
+                    qwen_vae.QwenVAE(vae_cfg, device=device,
+                                     post_quant_conv="post_quant_conv.weight" in vsd),
+                    convert_qwen_vae(vsd, num_res_blocks=vae_cfg.num_res_blocks,
+                                     levels=len(vae_cfg.dim_mult)))
         remat_cfg = config.mesh.remat
         adapter = cls(dit_cfg, attn_impl=attn_impl_from_config(config),
                       remat=remat_cfg != "none", remat_policy=remat_policy_from_config(remat_cfg),
@@ -154,6 +212,7 @@ class QwenImageEditAdapter:
     @torch.inference_mode()
     def decode_latents(self, bundle: ModelBundle, packed, height: int, width: int) -> np.ndarray:
         """Packed latents → uint8 RGB images [B, H, W, 3]."""
+        require_vae(bundle)
         gh, gw = self.latent_grid(height, width)
         lat = unpack_latents(packed, gh * 2, gw * 2)
         img = qwen_vae.decode(bundle.vae_params, bundle.vae_cfg, lat.float())

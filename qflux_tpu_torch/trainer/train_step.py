@@ -107,7 +107,7 @@ def _microbatches(batch: dict, n: int):
 
 def make_train_step(predict_velocity: PredictFn, criterion, optimizer: torch.optim.Optimizer,
                     lr_schedule: Callable[[int], float],
-                    cfg: TrainStepConfig = TrainStepConfig()):
+                    cfg: TrainStepConfig = TrainStepConfig(), first_update: int = 0):
     """Returns `step(base_params, lora, batch, generator, noise=None,
     sigma=None) -> {"loss", "grad_norm", "lr"}`.
 
@@ -117,9 +117,10 @@ def make_train_step(predict_velocity: PredictFn, criterion, optimizer: torch.opt
     losses and gradients.  noise / σ are drawn per microbatch from
     `generator` unless given for the whole batch (a test's injection).  The
     learning rate of update k (from 0) is lr_schedule(k), as optax evaluates
-    its schedule at the update count.
+    its schedule at the update count; `first_update` is the count of the
+    step's first call (a resumed run's global_step).
     """
-    count = 0
+    count = first_update
 
     def step(base_params, lora, batch, generator, noise=None, sigma=None):
         nonlocal count

@@ -1278,3 +1278,50 @@ def test_s_int8_at_head_counts_off_the_prep_groups_on_card(h):
     want = tnr.flash_attention_nr_int8_bwd_reference(*args, st, do, out, lse, 128)
     for g, r in zip(got, want):
         assert bool(torch.isfinite(g).all()) and _rel(g, r) <= INT8_BWD_REL
+
+
+@pytest.mark.parametrize("family", ["flux", "qwen"])
+def test_block_by_block_load_on_card(tmp_path, family):
+    """A full-width diffusers checkpoint (chip_smoke.py's synthetic one: FLUX
+    1 dual + 1 single block, Qwen 2 blocks over the int4-requant base),
+    written in bf16 and loaded through Trainer.load_model onto the card one
+    block at a time, equals the bridge's load of the whole dict's
+    conversion on the card (then `quantize_tree` for Qwen), to the bit."""
+    import chip_smoke
+    from qflux_tpu_torch.config import config_from_dict
+    from qflux_tpu_torch.models import bridge, porting
+    from qflux_tpu_torch.models.flux import transformer as tflux
+    from qflux_tpu_torch.models.flux import vae as tflux_vae
+    from qflux_tpu_torch.models.qwen import porting as qporting
+    from qflux_tpu_torch.models.qwen import transformer as tqwen
+    from qflux_tpu_torch.models.qwen import vae as tqvae
+    from qflux_tpu_torch.ops.quant import quantize_tree
+    from qflux_tpu_torch.trainer.base import Trainer
+
+    if family == "flux":
+        cfg = dataclasses.replace(tflux.FluxConfig(), num_layers=1, num_single_layers=1)
+        sd = chip_smoke.flux_state_dict(cfg, seed=3)
+        vsd = chip_smoke.flux_vae_state_dict(tflux_vae.VAEConfig(), seed=4)
+        raw = {"model": {"variant": "full"}}
+        want = bridge.load_params(tflux.FluxTransformer(cfg, device="cuda", dtype=torch.bfloat16),
+                                  porting.convert_flux_transformer(sd, 1, 1))
+    else:
+        cfg = dataclasses.replace(tqwen.QwenImageConfig(), num_layers=2)
+        sd = chip_smoke.qwen_state_dict(cfg, seed=3)
+        vsd = chip_smoke.qwen_vae_state_dict(tqvae.QwenVAEConfig(), seed=4)
+        raw = {"trainer": "QwenImageEditTrainer",
+               "model": {"variant": "full",
+                         "quantize": {"enabled": True, "dtype": "int4_requant"}}}
+        want = bridge.load_params(
+            tqwen.QwenImageTransformer(cfg, device="cuda", dtype=torch.bfloat16),
+            qporting.convert_qwen_image_transformer(sd, 2))
+    chip_smoke.write_checkpoint(tmp_path, sd, vsd)
+    raw["model"]["pretrained_model_name_or_path"] = str(tmp_path)
+    tr = Trainer(config_from_dict(raw), device="cuda")
+    tr.load_model()
+    if family == "qwen":
+        quantize_tree(want, tr.config.model.quantize)
+        assert tr.bundle.dit_params.blocks[1].img_mlp.lin_in.q4 is not None
+    assert tr.bundle.dit_cfg == cfg
+    assert next(tr.bundle.dit_params.parameters()).is_cuda
+    assert chip_smoke._params_equal(tr.bundle.dit_params, want) > 0

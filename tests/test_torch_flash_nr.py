@@ -352,10 +352,13 @@ def test_build_raises_without_nvcc(tmp_path, monkeypatch):
 def test_port_never_imports_jax(tmp_path):
     """Importing every module of qflux_tpu_torch (ops/flash_attention.py, K3
     / K4's, among them) and running the tiny slices end to end (a FLUX
-    predict request, two Trainer.fit steps, and a Qwen predict request over
-    an int4-requant base loaded through Trainer.from_yaml; at head dim 32
-    their attention takes the K3 route's plain version) leaves jax (and the
-    JAX package, its config included) out of sys.modules."""
+    predict request, two Trainer.fit steps with their checkpoint, a Qwen
+    predict request over an int4-requant base loaded through
+    Trainer.from_yaml, and the file layer: the tiny FLUX DiT loaded block by
+    block from a safetensors file, the fit's LoRA file read back, and a run
+    resumed from its checkpoint; at head dim 32 their attention takes the
+    K3 route's plain version) leaves jax (and the JAX package, its config
+    included) out of sys.modules."""
     script = tmp_path / "no_jax.py"
     script.write_text(
         "import importlib, pkgutil, sys\n"
@@ -399,6 +402,20 @@ def test_port_never_imports_jax(tmp_path):
         "assert 'qflux_tpu_torch.ops.flash_attention' in sys.modules\n"
         "from qflux_tpu_torch.ops import flash_attention\n"
         "assert flash_attention.KERNEL_LAUNCHES == 0\n"
+        "from qflux_tpu_torch.utils.safetensors import save_file\n"
+        f"z = np.load({str(REPO / 'tests' / 'fixtures' / 'dit_goldens' / 'flux_tiny.npz')!r})\n"
+        "save_file({k[3:]: z[k] for k in z.files if k.startswith('sd.')}, 'dit.safetensors')\n"
+        "ft = Trainer(predict_config(variant='test'), device='cpu')\n"
+        "ft.config.model.dit_path = 'dit.safetensors'\n"
+        "ft.config.model.lora.pretrained_weight = str(tt.output_dir / 'checkpoint-last-2')\n"
+        "ft.load_model()\n"
+        "back = ft.build_lora()\n"
+        "assert all(np.array_equal(back[p]['b'].numpy(), tt.lora[p]['b'].detach().numpy())\n"
+        "           for p in tt.lora)\n"
+        "rt = Trainer(train_config(variant='test', max_train_steps=3), device='cpu')\n"
+        "rt.config.resume = str(tt.output_dir / 'checkpoint-last-2')\n"
+        "rt.fit([emb])\n"
+        "assert [h['step'] for h in rt.history] == [3]\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'qflux_tpu'))\n"
         "assert not bad, bad\n"
         "print('NO_JAX_OK')\n")

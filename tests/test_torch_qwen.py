@@ -482,17 +482,22 @@ def test_trainer_predict_from_embeddings(quantize):
 
 def test_trainer_refusals(tmp_path):
     """What the port does not cover yet raises, naming ROADMAP.md: another
-    quantized dtype and a checkpoint path (at load, for predict and fit
-    alike) and a remat policy not ported (in fit).  int8 attention
+    quantized dtype (at load, for predict and fit alike) and a remat policy
+    not ported (in fit); a checkpoint path with no DiT raises
+    FileNotFoundError at load, as the JAX adapter does.  int8 attention
     (quantize.attention) now runs, in predict and in fit, through the s_int8
     mode's plain version on CPU tensors, and launches nothing."""
-    base = {"trainer": "QwenImageEditTrainer", "model": {"variant": "test"}}
+    base = {"trainer": "QwenImageEditTrainer", "model": {"variant": "test"},
+            "logging": {"output_dir": str(tmp_path)}}
     q = {"enabled": True, "dtype": "int4_requant"}
-    for raw in ({**base, "model": {"variant": "test", "quantize": {**q, "dtype": "int8"}}},
-                {**base, "model": {"variant": "full", "dit_path": "/nowhere"}}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for raw, error, match in (
+            ({**base, "model": {"variant": "test", "quantize": {**q, "dtype": "int8"}}},
+             NotImplementedError, "ROADMAP"),
+            ({**base, "model": {"variant": "full", "dit_path": "/nowhere"}},
+             FileNotFoundError, "nowhere")):
+        with pytest.raises(error, match=match):
             Trainer(config_from_dict(raw), device="cpu").load_model()
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(error, match=match):
             Trainer(config_from_dict(raw), device="cpu").fit([])
     batch = dict(_request(41, 1), image_latents=np.zeros((1, GH * GW, 16), np.float32))
     tr = Trainer(config_from_dict({**base, "model": {"variant": "test",
@@ -535,8 +540,9 @@ def _fields(cfg):
     trainer = cfg.trainer.value
     return {
         "trainer": trainer, "mesh.remat": cfg.mesh.remat,
+        "resume": cfg.resume,
         **{f"model.{k}": getattr(m, k) for k in ("pretrained_model_name_or_path", "dit_path",
-                                                 "variant")},
+                                                 "vae_path", "variant")},
         **{f"model.lora.{k}": getattr(m.lora, k) for k in (
             "r", "lora_alpha", "init_lora_weights", "target_modules", "pretrained_weight")},
         **{f"model.quantize.{k}": getattr(q, k) for k in (
@@ -544,12 +550,14 @@ def _fields(cfg):
         **{f"train.{k}": getattr(t, k) for k in (
             "gradient_accumulation_steps", "max_train_steps", "max_grad_norm",
             "timestep_sampling", "logit_mean", "logit_std", "weighting_scheme",
-            "weighting_table", "seed", "weight_dtype", "low_memory")},
+            "weighting_table", "seed", "weight_dtype", "low_memory", "num_epochs",
+            "checkpointing_steps", "async_checkpointing")},
         **{f"optimizer.{k}": getattr(cfg.optimizer, k) for k in (
             "class_path", "init_args", "learning_rate")},
         **{f"lr_scheduler.{k}": getattr(cfg.lr_scheduler, k) for k in (
             "scheduler_type", "warmup_steps")},
-        "logging.sampling_seed": cfg.logging.sampling_seed,
+        **{f"logging.{k}": getattr(cfg.logging, k) for k in (
+            "output_dir", "project", "sampling_seed", "push_to_hub")},
         **{f"predict.{k}": getattr(cfg.predict, k) for k in (
             "num_inference_steps", "guidance", "true_cfg_scale", "max_sequence_length")},
         **{f"loss.{k}": getattr(cfg.loss, k) for k in ("class_path", "init_args")},

@@ -302,7 +302,7 @@ def test_microbatches_split_and_share_the_qwen_keys():
     assert tuple(batch["img_shapes_arr"].shape) == (2, 3)  # not a batch axis
 
 
-def test_trainer_fit_on_the_tiny_int4_model_and_loss_falls():
+def test_trainer_fit_on_the_tiny_int4_model_and_loss_falls(tmp_path):
     """Trainer.fit on the tiny Qwen model over the int4-requant base, remat
     "flash_offload": 12 steps on the CPU (f32, lr 1e-2), finite loss /
     grad_norm / lr in history, and the loss averaged over four fixed
@@ -314,7 +314,8 @@ def test_trainer_fit_on_the_tiny_int4_model_and_loss_falls():
         "trainer": "QwenImageEditTrainer", "mesh": {"remat": "flash_offload"},
         "model": {"variant": "test", "quantize": {"enabled": True, "dtype": "int4_requant"}},
         "optimizer": {"class_path": "optax.adamw", "learning_rate": 1e-2},
-        "train": {"max_train_steps": 12, "weight_dtype": "float32"}})
+        "train": {"max_train_steps": 12, "weight_dtype": "float32"},
+        "logging": {"output_dir": str(tmp_path)}})
     tr = Trainer(cfg, "cpu")
     batch = _batch(88, 2)
     before = (ti4.RQ_KERNEL_LAUNCHES, ti4.RQ_BWD_KERNEL_LAUNCHES, tnr.KERNEL_LAUNCHES)

@@ -455,13 +455,14 @@ def test_trainer_config_surface():
         tr.build_criterion()
 
 
-def test_trainer_fit_runs_and_loss_falls():
+def test_trainer_fit_runs_and_loss_falls(tmp_path):
     """Trainer.fit on the tiny trainer: 12 steps on the CPU (f32, lr 1e-2),
     finite loss / grad_norm / lr per step in history, and the loss at a
     fixed noise and σ falls from the initial LoRA to the trained one."""
     cfg = train_config(variant="test", max_train_steps=12)
     cfg.train.weight_dtype = "float32"
     cfg.optimizer.learning_rate = 1e-2
+    cfg.logging.output_dir = str(tmp_path)
     tr = Trainer(cfg, "cpu")
     batch = _batch(70, 2)
     lora = tr.fit([batch] * 20)
