@@ -141,6 +141,24 @@ model), each with the card's name and power limit on every line:
      into a fresh LoRA, whose 2-step predict equals the in-memory one's to
      the bit (the Qwen name maps and the q/k permutation on the card).
 
+The data layer and the CLI run as phase D, in two parts, with the card's
+name and power limit on every line and the phase's wall time printed:
+
+  D. (a) after B, the FLUX model freed: a 6-sample FLUX embedding cache in
+     configs/example_multiresolution.yaml's buckets (512², 768×512,
+     512×768) written with the port's EmbeddingCacheManager beside a folder
+     of PNGs, then `qflux_tpu_torch.main.main` in process on that config
+     (JSON, full width and depth, bs=2, 3 steps), bucketed and then padded
+     (segment ids, AttentionMaskMseLoss): per step the exact K1 / K2 (S =
+     2560) or K3 / K4 (S = 3584) launches, finite losses, the events file's
+     loss scalars read back, checkpoint-last-3; then the padded run's
+     full-width mixed-batch forward against the plain attention and against
+     each sample alone, and its LoRA gradients through K3 + K4 (per-sample
+     segment ids) against the plain attention's; the cache's write time and
+     the loader's host time a batch; (b) after C, on path B's model: Trainer.fit(DataLoader(...))
+     over an 832×576 and a 512² sample padded to S = 4000, two bs=2 steps
+     with exact K3 / K4, K5a, K5b and row-quantization launches.
+
 Every temporary file (the fits' run dirs included) is removed before the
 smoke exits.  Each path runs with the launch counts set to 0 just before
 it and read just after.
@@ -152,7 +170,14 @@ and K5b alone before and after on one card (PARENT an unpacked checkout of
 an earlier commit, e.g. from git archive), the K1 / K2 bf16, K3, K4, K5a /
 K5b and K6a / K6b outputs and the s_int8 prep's operands compared to the
 bit across the two, and the change's K1 / K2 s_int8 checked against their
-plain versions and for repeatable bits (`ab_main`).  Prints the kernel
+plain versions and for repeatable bits (`ab_main`).
+
+    python3 chip_smoke.py --data-ab
+
+is a measurement too: a full-width FLUX fit over the DataLoader against
+the same batches handed in as a list, in turns (`data_ab_main`).
+
+The smoke prints the kernel
 table as one JSON line before the last (each kernel's time, the bound for the same work on this card's published peaks,
 the plain version's time and one PyTorch call's time as a yardstick), the
 wall time, and as the last line {"ok": true, "device": {"platform": "gpu",
@@ -1024,6 +1049,58 @@ def _train_batch(rng, cfg, gh, gw, b):
     return emb
 
 
+def _lora_grad_check(card, label, names, dit, lora, batch, noise, sigma, adapter, criterion,
+                     kernels, n_blocks, groups) -> dict:
+    """One step's LoRA gradients through `adapter`'s kernels (its remat
+    policy) against the plain attention (remat "full": there is no kernel
+    output to save), on the same batch, noise and σ.  The kernel run must
+    launch the kernels at `kernels` (two indices of _launch_counts) once a
+    block each; the relative L2 error over all layers must be within
+    GRAD_REL_TOL, and every layer must get a finite, non-zero gradient.
+    Prints the error per projection group in `groups`; returns them."""
+    from qflux_tpu_torch.trainer.train_step import TrainStepConfig, _loss_for_microbatch
+
+    plain = dataclasses.replace(adapter, attn_impl="plain", remat_policy="full")
+    grads = {}
+    for name, ad in (("kernels", adapter), ("plain", plain)):
+        for leaf in lora.values():
+            leaf["a"].grad = leaf["b"].grad = leaf["scaling"].grad = None
+        before = _launch_counts()
+        t0 = time.perf_counter()
+        loss = _loss_for_microbatch(dit, lora, batch, noise, sigma, ad.predict_velocity,
+                                    criterion, TrainStepConfig())
+        loss.backward()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        grads[name] = {p: torch.cat([leaf["a"].grad.flatten(), leaf["b"].grad.flatten()])
+                       for p, leaf in lora.items()}
+        after = _launch_counts()
+        launched = tuple(after[i] - before[i] for i in kernels)
+        print(f"{label} gradient check, {name}: loss {loss.item():.5f}, forward + backward "
+              f"{secs:.3f} s, {names} launches {launched} [{card}]", flush=True)
+        if name == "kernels" and launched != (n_blocks, n_blocks):
+            raise AssertionError(f"{label}: the kernel step launched {names} {launched} "
+                                 f"times, expected {n_blocks} each")
+    rels = {}
+    for group in (*groups, ""):
+        keys = [p for p in grads["plain"] if p.endswith(group)]
+        gk = torch.cat([grads["kernels"][p] for p in keys])
+        gp = torch.cat([grads["plain"][p] for p in keys])
+        rels[group or "all"] = (gk - gp).norm().item() / gp.norm().item()
+    print(f"{label} LoRA gradients, {names} vs plain attention: rel L2 err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+          + f" (tol {GRAD_REL_TOL} on all) [{card}]", flush=True)
+    if not rels["all"] <= GRAD_REL_TOL or not all(
+            bool(torch.isfinite(g).all()) for g in grads["kernels"].values()):
+        raise AssertionError(f"{label}: LoRA gradients through {names} disagree with the "
+                             "plain path")
+    if not all(g.abs().sum() > 0 for g in grads["kernels"].values()):
+        raise AssertionError(f"{label}: a LoRA layer got no gradient through the kernels")
+    for leaf in lora.values():
+        leaf["a"].grad = leaf["b"].grad = leaf["scaling"].grad = None
+    return rels
+
+
 def phase_train(card: str, trainer) -> tuple[int, int]:
     """The full-width gradient check, then Trainer.fit at bs=1 and bs=2 on
     the model the predict phase loaded, then a profiled bs=1 train step.
@@ -1032,8 +1109,7 @@ def phase_train(card: str, trainer) -> tuple[int, int]:
     from qflux_tpu_torch.ops import flash_nr
     from qflux_tpu_torch.ops.layers import mark_trainable
     from qflux_tpu_torch.trainer.base import Trainer, train_config
-    from qflux_tpu_torch.trainer.train_step import (TrainStepConfig, _loss_for_microbatch,
-                                                    lora_leaves, make_train_step)
+    from qflux_tpu_torch.trainer.train_step import lora_leaves, make_train_step
 
     dit, cfg = trainer.bundle.dit_params, trainer.bundle.dit_cfg
     n_blocks = cfg.num_layers + cfg.num_single_layers
@@ -1051,42 +1127,10 @@ def phase_train(card: str, trainer) -> tuple[int, int]:
     sigma = torch.full((1,), 0.6, device="cuda", dtype=torch.bfloat16)
     lora = mark_trainable(tt.build_lora())
     _perturb_b(lora, gen)
-    plain = dataclasses.replace(trainer.adapter, attn_impl="plain", remat_policy="full")
-    grads = {}
-    for name, adapter in (("kernels", trainer.adapter), ("plain", plain)):
-        for leaf in lora.values():
-            leaf["a"].grad = leaf["b"].grad = leaf["scaling"].grad = None
-        k1, k2 = flash_nr.KERNEL_LAUNCHES, flash_nr.BWD_KERNEL_LAUNCHES
-        t0 = time.perf_counter()
-        loss = _loss_for_microbatch(dit, lora, batch, noise, sigma, adapter.predict_velocity,
-                                    MseLoss(), TrainStepConfig())
-        loss.backward()
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        grads[name] = {p: torch.cat([leaf["a"].grad.flatten(), leaf["b"].grad.flatten()])
-                       for p, leaf in lora.items()}
-        launched = (flash_nr.KERNEL_LAUNCHES - k1, flash_nr.BWD_KERNEL_LAUNCHES - k2)
-        print(f"[train] gradient check, {name}: loss {loss.item():.5f}, forward + backward "
-              f"{secs:.3f} s, K1/K2 launches {launched} [{card}]", flush=True)
-        if name == "kernels" and launched != (n_blocks, n_blocks):
-            raise AssertionError(f"the kernel step launched K1/K2 {launched} times, "
-                                 f"expected {n_blocks} each")
-    rels = {}
-    for group in ("to_q", "to_k", "to_v", "to_out", ""):
-        keys = [p for p in grads["plain"] if p.endswith(group)]
-        gk = torch.cat([grads["kernels"][p] for p in keys])
-        gp = torch.cat([grads["plain"][p] for p in keys])
-        rels[group or "all"] = (gk - gp).norm().item() / gp.norm().item()
-    print(f"[train] full-width LoRA gradients, K1+K2 vs plain attention: rel L2 err "
-          + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
-          + f" (tol {GRAD_REL_TOL} on all) [{card}]", flush=True)
-    if not rels["all"] <= GRAD_REL_TOL or not all(
-            bool(torch.isfinite(g).all()) for g in grads["kernels"].values()):
-        raise AssertionError("full-width LoRA gradients through K1 + K2 disagree with the "
-                             "plain path")
-    if not all(g.abs().sum() > 0 for p, g in grads["kernels"].items()):
-        raise AssertionError("a LoRA layer got no gradient through the kernels")
-    del grads, lora, batch, noise, loss
+    _lora_grad_check(card, "[train] full-width", "K1+K2", dit, lora, batch, noise, sigma,
+                     trainer.adapter, MseLoss(), (0, 1), n_blocks,
+                     ("to_q", "to_k", "to_v", "to_out"))
+    del lora, batch, noise
     torch.cuda.empty_cache()
 
     # the main path: Trainer.fit, counts reset just before each run
@@ -1108,8 +1152,10 @@ def phase_train(card: str, trainer) -> tuple[int, int]:
         steps = ", ".join(f"{m:.1f}" for m in ms)
         losses = ", ".join(f"{h['loss']:.5f}" for h in hist)
         norms = ", ".join(f"{h['grad_norm']:.4e}" for h in hist)
+        stage = statistics.median(1000 * h["stage_s"] for h in hist)
         print(f"[train] fit bs={b}: {len(hist)} steps, ms/step {steps} (median after the "
-              f"first {warm:.1f}), peak mem {peak} bytes, loss {losses}, grad_norm {norms}, "
+              f"first {warm:.1f}; staging the next batch inside each, median {stage:.1f}), "
+              f"peak mem {peak} bytes, loss {losses}, grad_norm {norms}, "
               f"lr {hist[-1]['lr']:g}, K1 launches {k1}, K2 launches {k2} [{card}]", flush=True)
         want = n_blocks * len(hist)
         if len(hist) != TRAIN_STEPS or not all(np.isfinite(h["loss"]) for h in hist):
@@ -2906,7 +2952,8 @@ def phase_files_flux_resume(card: str, trainer) -> tuple[int, int]:
         names = sorted(p.name for p in run.iterdir())
         files = sorted(p.name for p in (run / "checkpoint-2").iterdir())
         state = json.loads((run / "checkpoint-2" / checkpoint.STATE_FILE).read_text())
-        if (names != ["checkpoint-2", "checkpoint-4", "checkpoint-last-4", "train_config.yaml"]
+        if (names != ["checkpoint-2", "checkpoint-4", "checkpoint-last-4", "logs",
+                      "train_config.yaml"]
                 or files != [checkpoint.GENERATOR_FILE, checkpoint.OPTIMIZER_FILE,
                              LORA_FILE_BASE_NAME, checkpoint.STATE_FILE]
                 or sorted(state) != ["epoch", "git", "global_step", "is_last"]
@@ -3183,6 +3230,404 @@ def phase_files_qwen(card: str, qwen, lora) -> tuple[int, ...]:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# the data layer and the CLI (phase D)
+
+# each embedding of a cached sample → the `file_hashes` entry that names its
+# file, as the JAX package's cache pass keys them (`cache_embeddings` of
+# qflux_tpu/trainer/flux_kontext.py and qwen_edit.py, for samples with a
+# control image)
+FLUX_HASH_KEYS = {"image_latents": "image_hash", "control_latents": "controls_sum_hash",
+                  "prompt_embeds": "prompt_hash", "pooled_prompt_embeds": "prompt_hash",
+                  "empty_prompt_embeds": "empty_prompt_hash",
+                  "empty_pooled_prompt_embeds": "empty_prompt_hash",
+                  "tgt_ids": "image_hash", "ctl_ids": "controls_sum_hash",
+                  "txt_ids": "prompt_hash"}
+QWEN_HASH_KEYS = {"image_latents": "image_hash", "control_latents": "controls_sum_hash",
+                  "prompt_embeds": "control_prompt_hash",
+                  "prompt_embeds_mask": "control_prompt_hash",
+                  "empty_prompt_embeds": "control_empty_prompt_hash",
+                  "empty_prompt_embeds_mask": "control_empty_prompt_hash",
+                  "img_shapes_arr": "main_hash"}
+# phase D's FLUX samples (H, W) in file order, in the buckets of
+# configs/example_multiresolution.yaml.  With shuffle off and batch size 2
+# the padded run pairs 512² with 768×512 and with 512×768 (S = 3584 with
+# segment ids), then 768×512 with 512×768 (one latent shape, per-sample ids)
+DATA_FLUX_SIZES = [(512, 512), (768, 512), (512, 512), (512, 768), (768, 512), (512, 768)]
+DATA_FLUX_STEPS = 3
+# phase D's Qwen samples: 832×576 and 512², one padded batch of S = 4000
+DATA_QWEN_GRIDS = [(52, 36), (32, 32)]
+DATA_QWEN_STEPS = 2
+
+
+def flux_cache_item(rng, cfg, gh, gw, s_txt=512) -> dict:
+    """One FLUX.1-Kontext sample as the cache pass stores it: target and
+    control latents of gh×gw packed tokens, T5 and CLIP embeddings of the
+    prompt and of the empty prompt, the target / control / text ids."""
+    from qflux_tpu_torch.ops.rope import flux_image_ids, flux_text_ids
+
+    def normal(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    return {"image_latents": normal(gh * gw, cfg.in_channels),
+            "control_latents": normal(gh * gw, cfg.in_channels),
+            "prompt_embeds": normal(s_txt, cfg.joint_attention_dim),
+            "pooled_prompt_embeds": normal(cfg.pooled_projection_dim),
+            "empty_prompt_embeds": normal(s_txt, cfg.joint_attention_dim),
+            "empty_pooled_prompt_embeds": normal(cfg.pooled_projection_dim),
+            "tgt_ids": flux_image_ids(gh, gw, 0), "ctl_ids": flux_image_ids(gh, gw, 1),
+            "txt_ids": flux_text_ids(s_txt)}
+
+
+def qwen_cache_item(rng, cfg, gh, gw, s_txt=QWEN_TXT, pad=QWEN_TXT_PAD) -> dict:
+    """One Qwen-Image-Edit sample as the cache pass stores it: latents of
+    gh×gw packed tokens, Qwen2.5-VL embeddings of the prompt and of the
+    empty prompt with their masks (the last `pad` tokens padding), and the
+    image shapes."""
+    mask = np.ones(s_txt, np.int64)
+    mask[s_txt - pad:] = 0
+
+    def normal(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    return {"image_latents": normal(gh * gw, cfg.in_channels),
+            "control_latents": normal(gh * gw, cfg.in_channels),
+            "prompt_embeds": normal(s_txt, cfg.joint_attention_dim),
+            "prompt_embeds_mask": mask,
+            "empty_prompt_embeds": normal(s_txt, cfg.joint_attention_dim),
+            "empty_prompt_embeds_mask": mask.copy(),
+            "img_shapes_arr": np.asarray([(1, gh, gw), (1, gh, gw)], np.int32)}
+
+
+def write_cached_dataset(root: Path, items: list, hash_keys: dict, seed: int = 0):
+    """A local-folder dataset under root/data (training_images/ and
+    control_images/: one 16×16 PNG each and the prompt file per sample,
+    stems sample_000, …) whose i-th sample's embeddings are `items[i]`,
+    saved with the port's EmbeddingCacheManager under root/cache by the
+    content hashes the JAX cache pass uses (`hash_keys`).  Returns (data
+    dir, cache dir)."""
+    from qflux_tpu_torch.data.cache import EmbeddingCacheManager
+    from qflux_tpu_torch.data.dataset import ImageDataset
+    from qflux_tpu_torch.utils.png import encode_png
+
+    rng = np.random.default_rng(seed)
+    data, cache = root / "data", root / "cache"
+    for d in ("training_images", "control_images"):
+        (data / d).mkdir(parents=True)
+    for i in range(len(items)):
+        stem = f"sample_{i:03d}"
+        for d in ("training_images", "control_images"):
+            (data / d / f"{stem}.png").write_bytes(
+                encode_png(rng.integers(0, 256, (16, 16, 3), dtype=np.uint8)))
+        (data / "training_images" / f"{stem}.txt").write_text(f"edit number {i}")
+    ds = ImageDataset(str(data))
+    manager = EmbeddingCacheManager(cache)
+    for sample, arrays in zip(ds.samples, items):
+        h = ds.file_hashes(sample)
+        manager.save(h["main_hash"], arrays, {k: h[v] for k, v in hash_keys.items()})
+    return data, cache
+
+
+def multires_config(data_dir, out_dir, bucket_by_shape: bool, variant: str = "full",
+                    steps: int = DATA_FLUX_STEPS) -> dict:
+    """configs/example_multiresolution.yaml as a JSON document (the card's
+    machine has no PyYAML), with the dataset, the output dir, bf16 weights
+    and `steps` steps of the smoke; the cache at ${logging.output_dir}/cache
+    as there.  The padded run (bucket_by_shape false) does not shuffle, so
+    its batches are DATA_FLUX_SIZES' pairs."""
+    return {
+        "trainer": "FluxKontextLoraTrainer",
+        "mesh": {"dp": 1, "fsdp": -1, "tp": 1},
+        "model": {"variant": variant, "lora": {"r": 16, "lora_alpha": 16}},
+        "data": {"init_args": {"dataset_path": str(data_dir)},
+                 "processor": {"multi_resolutions": {
+                     "target": [[512, 512], [768, 512], [512, 768]],
+                     "controls": [[[512, 512], [768, 512], [512, 768]]]},
+                     "max_aspect_ratio": 4.0},
+                 "batch_size": 2, "bucket_by_shape": bucket_by_shape,
+                 "shuffle": bucket_by_shape},
+        "cache": {"use_cache": True, "cache_dir": "${logging.output_dir}/cache"},
+        "loss": {"class_path": "qflux_tpu.losses.AttentionMaskMseLoss"},
+        "train": {"max_train_steps": steps, "weight_dtype": "bfloat16"},
+        "logging": {"output_dir": str(out_dir), "project": "flux_multires",
+                    "report_to": "tensorboard"},
+    }
+
+
+class _StepCounts:
+    """Wraps trainer.base.make_train_step inside the `with` block: each step
+    of a fit records its batch's latent shapes, whether it carries segment
+    ids, the kernel launches it made (_launch_counts' order) and the host
+    seconds the step took to return (launch_s).  The step returns after its
+    forward and backward are enqueued, so the counts need no
+    synchronisation."""
+
+    def __enter__(self):
+        from qflux_tpu_torch.trainer import base
+
+        self.base, self.orig, self.steps = base, base.make_train_step, []
+
+        def make(*args, **kwargs):
+            inner = self.orig(*args, **kwargs)
+
+            def step(params, lora, batch, generator, **kw):
+                before = _launch_counts()
+                t0 = time.perf_counter()
+                out = inner(params, lora, batch, generator, **kw)
+                launch_s = time.perf_counter() - t0
+                self.steps.append({
+                    "launch_s": launch_s,
+                    "img": tuple(batch["image_latents"].shape),
+                    "ctl": tuple(batch["control_latents"].shape),
+                    "segments": "segment_ids" in batch,
+                    "device": str(batch["image_latents"].device),
+                    "counts": tuple(b - a for a, b in zip(before, _launch_counts()))})
+                return out
+
+            return step
+
+        base.make_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        self.base.make_train_step = self.orig
+        return False
+
+
+def _events(run_dir: Path) -> Path:
+    files = sorted((run_dir / "logs").glob("events.out.tfevents.*"))
+    if len(files) != 1:
+        raise AssertionError(f"{run_dir / 'logs'}: {len(files)} events files")
+    return files[0]
+
+
+def _check_fit_run(card: str, label: str, trainer, steps, want_steps: int, per_step) -> None:
+    """Finite losses, `want_steps` steps on the card, each with the launch
+    counts `per_step(record)` gives, the events file's loss scalars equal
+    to the history's, and checkpoint-last-N in the run dir."""
+    hist = trainer.history
+    if len(hist) != want_steps or len(steps) != want_steps:
+        raise AssertionError(f"{label}: {len(hist)} steps ({len(steps)} recorded), "
+                             f"expected {want_steps}")
+    if not all(np.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"{label}: non-finite losses {[h['loss'] for h in hist]}")
+    for i, rec in enumerate(steps):
+        want = per_step(rec)
+        if rec["device"] != "cuda:0" or rec["counts"] != want:
+            raise AssertionError(f"{label} step {i + 1}: batch {rec}, {COUNT_NAMES} launches "
+                                 f"{rec['counts']}, expected {want} on cuda:0")
+    from qflux_tpu_torch.utils.logger import read_event_scalars
+
+    events = _events(trainer.output_dir)
+    scalars = read_event_scalars(events)
+    logged = [v for _, v in scalars.get("loss", [])]
+    if logged != [float(np.float32(h["loss"])) for h in hist]:
+        raise AssertionError(f"{label}: events file losses {logged} against {hist}")
+    if [s for s, _ in scalars.get("compile_s", [])] != [1]:
+        raise AssertionError(f"{label}: compile_s {scalars.get('compile_s')}")
+    if not (trainer.output_dir / f"checkpoint-last-{want_steps}").is_dir():
+        raise AssertionError(f"{label}: no checkpoint-last-{want_steps}")
+    print(f"[data] {label}: events file {events.stat().st_size} bytes, tags "
+          f"{sorted(scalars)}, loss read back "
+          + ", ".join(f"{v:.5f}" for v in logged) + f" [{card}]", flush=True)
+
+
+def _step_line(label, hist, steps) -> str:
+    return "; ".join(
+        f"step {h['step']}: image {rec['img'][1]} + control {rec['ctl'][1]} tokens "
+        f"(bs={rec['img'][0]}{', segment ids' if rec['segments'] else ''}) "
+        f"{1000 * h['step_s']:.1f} ms (staging the next batch {1000 * h['stage_s']:.1f} ms "
+        f"of it), waited {1000 * h['data_wait_s']:.2f} ms for the batch"
+        for h, rec in zip(hist, steps))
+
+
+def phase_data_flux_cli(card: str) -> tuple[int, ...]:
+    """Phase D (a): FLUX.1-Kontext-dev at full width through
+    `python -m qflux_tpu_torch.main` (in process), from a 6-sample embedding
+    cache in example_multiresolution.yaml's buckets: bucketed, then padded
+    with segment ids, each checked per step for its route's exact K1 / K2
+    or K3 / K4 launches, then the padded run's mixed-batch forward against
+    the plain attention and against each sample alone, and its LoRA
+    gradients through K3 + K4 against the plain attention's.  Returns the
+    launches of the two runs (_launch_counts' order)."""
+    from qflux_tpu_torch import main as cli
+    from qflux_tpu_torch.data.collate import collate
+    from qflux_tpu_torch.data.dataset import ImageDataset
+    from qflux_tpu_torch.data.loader import DataLoader
+    from qflux_tpu_torch.models.flux.transformer import FluxConfig
+    from qflux_tpu_torch.ops import flash_nr
+    from qflux_tpu_torch.ops.layers import mark_trainable, merge_lora
+
+    cfg = FluxConfig()
+    n_blocks = cfg.num_layers + cfg.num_single_layers
+    tmp = Path(tempfile.mkdtemp(prefix="qflux_smoke_data_"))
+    try:
+        rng = np.random.default_rng(20)
+        t0 = time.perf_counter()
+        items = [flux_cache_item(rng, cfg, h // 16, w // 16) for h, w in DATA_FLUX_SIZES]
+        data_dir, cache_dir = write_cached_dataset(tmp, items, FLUX_HASH_KEYS)
+        write_s = time.perf_counter() - t0
+        nbytes = sum(p.stat().st_size for p in cache_dir.rglob("*") if p.is_file())
+        ds = ImageDataset(str(data_dir), cache_dir=str(cache_dir), use_cache=True)
+        t0 = time.perf_counter()
+        n = sum(1 for _ in DataLoader(ds, batch_size=2, shuffle=False, bucket_by_shape=False))
+        per_batch = (time.perf_counter() - t0) / n
+        print(f"[data] FLUX cache of {len(items)} samples {DATA_FLUX_SIZES} written in "
+              f"{write_s:.2f} s ({nbytes} bytes); the loader alone: {1000 * per_batch:.1f} ms of "
+              f"host time a bs=2 batch (cache read, fp16 → f32, collate) [{card}]", flush=True)
+
+        def per_step(rec):
+            # JAX's one-chip route: K1 / K2 where flash_nr.supports (S = 2560
+            # at 512²), else K3 / K4 (S = 3584)
+            s = 512 + rec["img"][1] + rec["ctl"][1]
+            return _rq((n_blocks, n_blocks, 0, 0, 0, 0, 0, 0, 0, 0)
+                       if flash_nr.supports(s, s, cfg.attention_head_dim)
+                       else (0, 0, 0, 0, 0, 0, 0, 0, n_blocks, n_blocks))
+
+        totals = [0] * 11
+        for bucket in (True, False):
+            label = f"CLI fit, bucket_by_shape {str(bucket).lower()}"
+            path = tmp / f"multires_{'bucketed' if bucket else 'padded'}.json"
+            path.write_text(json.dumps(multires_config(data_dir, tmp, bucket)))
+            torch.cuda.synchronize()
+            _reset_counts()
+            with _StepCounts() as sc:
+                t0 = time.perf_counter()
+                trainer = cli.main(["--config", str(path)])
+                wall = time.perf_counter() - t0
+            launched = _launch_counts()
+            totals = [t + c for t, c in zip(totals, launched)]
+            hist = trainer.history
+            print(f"[data] {label}: {wall:.1f} s in main() (model built, {len(hist)} steps, "
+                  f"checkpoint); {_step_line(label, hist, sc.steps)}; loss "
+                  + ", ".join(f"{h['loss']:.5f}" for h in hist)
+                  + f"; {COUNT_NAMES} launches {launched} [{card}]", flush=True)
+            _check_fit_run(card, label, trainer, sc.steps, DATA_FLUX_STEPS, per_step)
+            if launched != tuple(map(sum, zip(*(r["counts"] for r in sc.steps)))):
+                raise AssertionError(f"{label}: launches outside the steps {launched}")
+            segs = [r["segments"] for r in sc.steps]
+            if segs != ([False] * 3 if bucket else [True, True, False]):
+                raise AssertionError(f"{label}: segment ids per step {segs}")
+            if bucket:
+                del trainer
+                gc.collect()
+                torch.cuda.empty_cache()
+
+        # the padded run's model: a mixed batch (512² + 768×512, S = 3584)
+        # through K3 with segment ids, against the plain attention and
+        # against each sample alone (512² alone takes K1's route)
+        adapter, dit = trainer.adapter, trainer.bundle.dit_params
+        params = merge_lora(dit, trainer.lora)
+        ds = ImageDataset(str(data_dir), cache_dir=str(cache_dir), use_cache=True)
+        singles = [ds[0], ds[1]]
+        emb = trainer._device_batch(trainer._embeddings_for_batch(collate(singles)))
+        gen = torch.Generator("cuda").manual_seed(21)
+        lat = torch.randn(emb["image_latents"].shape, device="cuda", generator=gen).to(
+            torch.bfloat16)
+        sigma = torch.full((2,), 0.7, dtype=torch.bfloat16, device="cuda")
+        plain = dataclasses.replace(adapter, attn_impl="plain")
+        valid = emb["attention_mask"] > 0
+        with torch.inference_mode():
+            before = _launch_counts()
+            v_k = adapter.predict_velocity(params, emb, lat, sigma).float()
+            k3 = _launch_counts()[8] - before[8]
+            v_p = plain.predict_velocity(params, emb, lat, sigma).float()
+            alone = []
+            for i, item in enumerate(singles):
+                e = trainer._device_batch(trainer._embeddings_for_batch(collate([item])))
+                s = e["image_latents"].shape[1]
+                alone.append((s, adapter.predict_velocity(params, e, lat[i:i + 1, :s],
+                                                          sigma[:1]).float()))
+
+        def rel(a, b):
+            return (torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()
+
+        rel_plain = rel(v_k[valid], v_p[valid])
+        rel_alone = [rel(v_k[i, :s], v) for i, (s, v) in enumerate(alone)]
+        print(f"[data] full-width mixed batch [2, {v_k.shape[1]}, {v_k.shape[2]}] (512² padded "
+              f"to 768×512, S = {512 + 2 * v_k.shape[1]}, {k3} K3 launches with segment ids): "
+              f"rel L2 err against the plain attention {rel_plain:.3e}, against each sample "
+              f"alone {rel_alone[0]:.3e} (512², K1 route) / {rel_alone[1]:.3e} (768×512) "
+              f"(tol {FORWARD_REL_TOL}) [{card}]", flush=True)
+        if k3 != n_blocks or not bool(torch.isfinite(v_k).all()):
+            raise AssertionError(f"the mixed-batch forward made {k3} K3 launches")
+        if max([rel_plain] + rel_alone) > FORWARD_REL_TOL:
+            raise AssertionError("the padded mixed-batch forward disagrees")
+        del params, v_k, v_p, alone
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # the same mixed batch's LoRA gradients: K3 + K4 with per-sample
+        # segment ids (remat flash) against the plain attention (remat full)
+        lora = mark_trainable(trainer.build_lora())
+        _perturb_b(lora, gen)
+        noise = torch.randn(emb["image_latents"].shape, device="cuda", generator=gen).to(
+            torch.bfloat16)
+        _lora_grad_check(card, "[data] full-width mixed batch (segment ids)", "K3+K4", dit,
+                         lora, emb, noise, sigma, adapter, trainer._criterion, (8, 9), n_blocks,
+                         tuple(trainer.config.model.lora.target_modules))
+        del trainer, lora, emb, noise
+        gc.collect()
+        torch.cuda.empty_cache()
+        return tuple(totals)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_data_qwen_fit(card: str, qwen) -> tuple[int, ...]:
+    """Phase D (b): the 20B Qwen-Image-Edit over the int4-requant base (path
+    B's model) through Trainer.fit(DataLoader(...)) from a 2-sample
+    embedding cache: one 832×576 sample and one 512² sample padded to S =
+    4000, two steps at bs=2, each checked for its exact K3 / K4, K5a, K5b
+    and row-quantization launches.  Returns the launches (_launch_counts'
+    order)."""
+    from qflux_tpu_torch.config import config_from_dict
+    from qflux_tpu_torch.data.dataset import ImageDataset
+    from qflux_tpu_torch.data.loader import DataLoader
+    from qflux_tpu_torch.trainer.base import Trainer
+
+    cfg = qwen.bundle.dit_cfg
+    n = cfg.num_layers
+    # as path B's fit at bs=2 (phase_qwen_train)
+    per_step = _rq((0, 0, 2 * 12 * n + 3, 6 + 12 * (n - 2) + 9 + 1, 0, 0, 0, 0, n, n))
+    tmp = Path(tempfile.mkdtemp(prefix="qflux_smoke_data_"))
+    try:
+        rng = np.random.default_rng(22)
+        t0 = time.perf_counter()
+        items = [qwen_cache_item(rng, cfg, gh, gw) for gh, gw in DATA_QWEN_GRIDS]
+        data_dir, cache_dir = write_cached_dataset(tmp, items, QWEN_HASH_KEYS)
+        write_s = time.perf_counter() - t0
+        raw = copy.deepcopy(QWEN_832X576)
+        raw["loss"] = {"class_path": "qflux_tpu.losses.AttentionMaskMseLoss"}
+        raw["train"]["max_train_steps"] = DATA_QWEN_STEPS
+        raw["logging"]["output_dir"] = str(tmp / "out")
+        tt = Trainer(config_from_dict(raw), device="cuda")
+        tt.adapter, tt.bundle = qwen.adapter, qwen.bundle
+        dl = DataLoader(ImageDataset(str(data_dir), cache_dir=str(cache_dir), use_cache=True),
+                        batch_size=2, shuffle=False, bucket_by_shape=False)
+        torch.cuda.synchronize()
+        _reset_counts()
+        with _StepCounts() as sc:
+            tt.fit(dl)
+        launched = _launch_counts()
+        label = "Qwen fit(DataLoader), 832×576 + 512² padded"
+        print(f"[data] Qwen cache of 2 samples written in {write_s:.2f} s; {label}: "
+              f"{_step_line(label, tt.history, sc.steps)}; loss "
+              + ", ".join(f"{h['loss']:.5f}" for h in tt.history)
+              + f"; {COUNT_NAMES} launches {launched} [{card}]", flush=True)
+        _check_fit_run(card, label, tt, sc.steps, DATA_QWEN_STEPS, lambda rec: per_step)
+        s = QWEN_TXT + sc.steps[0]["img"][1] + sc.steps[0]["ctl"][1]
+        if s != 4000 or not all(r["segments"] for r in sc.steps):
+            raise AssertionError(f"{label}: S = {s}, segment ids {sc.steps}")
+        if launched != tuple(DATA_QWEN_STEPS * c for c in per_step):
+            raise AssertionError(f"{label}: launches outside the steps {launched}")
+        del tt, dl
+        torch.cuda.empty_cache()
+        return launched
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 PROFILE_GROUPS = [("K5a rq_int4_fwd", ("rq_int4_fwd",)), ("K5b rq_int4_bwd", ("rq_int4_bwd",)),
                   ("row quant", ("rowquant",)),
                   # after K5's: "rq_int4_fwd_kernel" contains "int4_fwd_kernel"
@@ -3377,6 +3822,171 @@ def _ab_child() -> None:
     print("AB_RESULT " + json.dumps(res), flush=True)
 
 
+# `--data-ab`: the FLUX fit through the data layer against the same batches
+# handed to fit as a list; one epoch of 2 * DATA_AB_STEPS cached 512²
+# samples at bs=2 a fit, each variant run DATA_AB_ROUNDS times, in turns
+DATA_AB_STEPS = 10
+DATA_AB_ROUNDS = 3
+DATA_AB_TARGETS = {"8": None, "4": ["to_q", "to_k", "to_v", "to_out"]}
+
+
+def _trace_busy(path: Path) -> tuple[float, float]:
+    """(device kernel ms, window ms) of a torch.profiler chrome trace: the
+    kernels' summed durations and the span of all its events."""
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    busy = sum(e["dur"] for e in events if e.get("cat") == "kernel")
+    span = max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events)
+    return busy / 1000, span / 1000
+
+
+def data_ab_main() -> int:
+    """`python3 chip_smoke.py --data-ab`: whether a FLUX fit fed by the data
+    layer loses time against one fed a list.  One full-width FLUX model
+    (configs/example_multiresolution.yaml's settings, bucketed, no shuffle)
+    and 2 * DATA_AB_STEPS cached 512² samples (one epoch a fit); then, in
+    turns, DATA_AB_ROUNDS times each: Trainer.fit over the DataLoader
+    ("loader"); over it with the cache's npz members read by np.load, as
+    before `data.cache.read_npz_data` ("loader, np.load reads"); over a
+    DataLoader of the items read beforehand, so that its thread only
+    collates ("loader, in memory"); over the same collated batches held in
+    a list ("list"); and over the list with the LoRA on the four
+    image-stream projections of the smoke's other fits ("list, 4 targets";
+    the config's default is eight, the text stream's add_q / add_k / add_v
+    / add_out as well).  Per
+    variant, over steps 2-DATA_AB_STEPS of every run: the median, and the
+    mean with its standard error, of step_s (launch to loss read), launch_s
+    (the step's host time to enqueue its forward and backward), stage_s and
+    data_wait_s; then one more fit of "loader" and "list" each with
+    logging.profile_dir, whose chrome trace of steps 2-4 gives the device's
+    busy share.  Writes data_ab.json to the output directory beside this
+    file.  A measurement: it checks only that every step's loss is
+    finite."""
+    from qflux_tpu_torch.config import config_from_dict
+    from qflux_tpu_torch.data import cache as cache_mod
+    from qflux_tpu_torch.data.dataset import ImageDataset
+    from qflux_tpu_torch.data.loader import DataLoader
+    from qflux_tpu_torch.models.flux.transformer import FluxConfig
+    from qflux_tpu_torch.runtime.build import load_library
+    from qflux_tpu_torch.trainer.base import Trainer
+
+    smi = _nvidia_smi()
+    print(smi, flush=True)
+    card = ", ".join(x.strip() for x in smi.split(",", 1))
+    load_library()
+    cfg = FluxConfig()
+    tmp = Path(tempfile.mkdtemp(prefix="qflux_data_ab_"))
+    try:
+        rng = np.random.default_rng(30)
+        items = [flux_cache_item(rng, cfg, 32, 32) for _ in range(2 * DATA_AB_STEPS)]
+        data_dir, cache_dir = write_cached_dataset(tmp, items, FLUX_HASH_KEYS)
+        del items
+        raw = multires_config(data_dir, tmp / "out", True, steps=DATA_AB_STEPS)
+        raw["data"]["shuffle"] = False
+        raw["train"]["checkpointing_steps"] = 10 ** 6
+
+        def loader():
+            return DataLoader(ImageDataset(str(data_dir), cache_dir=str(cache_dir),
+                                           use_cache=True), batch_size=2, shuffle=False)
+
+        class InMemory:
+            """The dataset's items, read once: the loader's thread then only
+            collates."""
+
+            def __init__(self, ds):
+                self.items = [ds[i] for i in range(len(ds))]
+                self.samples = [{} for _ in self.items]
+
+            def __len__(self):
+                return len(self.items)
+
+            def __getitem__(self, i):
+                return dict(self.items[i])
+
+        def np_load_data(path):  # how the cache was read before read_npz_data
+            with np.load(path) as z:
+                return z["data"]
+
+        batches = list(loader())
+        in_memory = InMemory(ImageDataset(str(data_dir), cache_dir=str(cache_dir),
+                                          use_cache=True))
+        base = Trainer(config_from_dict(copy.deepcopy(raw)), device="cuda")
+        base.load_model()
+
+        def fit(variant, profile_dir=None):
+            r = copy.deepcopy(raw)
+            targets = DATA_AB_TARGETS["4" if variant.endswith("4 targets") else "8"]
+            if targets:
+                r["model"]["lora"]["target_modules"] = targets
+            if profile_dir:
+                r["logging"]["profile_dir"] = str(profile_dir)
+            tt = Trainer(config_from_dict(r), device="cuda")
+            tt.adapter, tt.bundle = base.adapter, base.bundle
+            source = {"loader": loader, "loader, np.load reads": loader,
+                      "loader, in memory": lambda: DataLoader(in_memory, batch_size=2,
+                                                              shuffle=False,
+                                                              bucket_by_shape=False)
+                      }.get(variant, lambda: batches)()
+            reader = cache_mod.read_npz_data
+            if variant == "loader, np.load reads":
+                cache_mod.read_npz_data = np_load_data
+            torch.cuda.synchronize()
+            try:
+                with _StepCounts() as sc:
+                    tt.fit(source)
+            finally:
+                cache_mod.read_npz_data = reader
+            torch.cuda.synchronize()
+            hist = tt.history
+            if len(hist) != DATA_AB_STEPS or not all(np.isfinite(h["loss"]) for h in hist):
+                raise AssertionError(f"{variant}: {hist}")
+            shutil.rmtree(tt.output_dir, ignore_errors=True)
+            return [{**h, "launch_s": rec["launch_s"]} for h, rec in zip(hist, sc.steps)]
+
+        variants = ("loader", "loader, np.load reads", "loader, in memory", "list",
+                    "list, 4 targets")
+        runs = {v: [] for v in variants}
+        for _ in range(DATA_AB_ROUNDS):
+            for v in variants:
+                steps = fit(v)
+                runs[v].append(steps)
+                print(f"[data-ab] {v}: ms/step " + ", ".join(
+                    f"{1000 * h['step_s']:.1f} (launch {1000 * h['launch_s']:.1f}, staging "
+                    f"{1000 * h['stage_s']:.1f}, wait {1000 * h['data_wait_s']:.2f})"
+                    for h in steps) + f" [{card}]", flush=True)
+        summary = {}
+        for v in variants:
+            warm = [h for run in runs[v] for h in run[1:]]
+            summary[v] = {}
+            for k in ("step_s", "launch_s", "stage_s", "data_wait_s"):
+                ms = [1000 * h[k] for h in warm]
+                summary[v][k] = {"median": statistics.median(ms), "mean": statistics.mean(ms),
+                                 "sem": statistics.stdev(ms) / len(ms) ** 0.5, "n": len(ms)}
+            print(f"[data-ab] {v}: over steps 2-{DATA_AB_STEPS} of {DATA_AB_ROUNDS} fits, "
+                  "median / mean ± standard error: " + ", ".join(
+                      f"{k} {m['median']:.1f} / {m['mean']:.1f} ± {m['sem']:.1f} ms"
+                      for k, m in summary[v].items()) + f" [{card}]", flush=True)
+        profiles = {}
+        for v in ("loader", "list"):
+            prof = tmp / f"prof_{v}"
+            steps = fit(v, prof)
+            (trace,) = prof.glob("*.trace.json")
+            busy, span = _trace_busy(trace)
+            profiles[v] = {"busy_ms": busy, "window_ms": span,
+                           "step_ms": [1000 * h["step_s"] for h in steps]}
+            print(f"[data-ab] {v}, steps 2-4 under the profiler: device busy {busy:.1f} ms of "
+                  f"{span:.1f} ms ({100 * busy / span:.1f}%), ms/step "
+                  + ", ".join(f"{1000 * h['step_s']:.1f}" for h in steps) + f" [{card}]",
+                  flush=True)
+        out_dir = Path(__file__).resolve().parent / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "data_ab.json").write_text(json.dumps(
+            {"card": card, "runs": runs, "summary": summary, "profiles": profiles}, indent=1))
+        return 0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def ab_main(parent: str) -> int:
     """`python3 chip_smoke.py --ab PARENT`: K1, K2 (bf16 and s_int8), K3, K4,
     K5a and K5b alone, before and after, on one card.  PARENT is an unpacked
@@ -3521,9 +4131,12 @@ def main() -> int:
     k1_train, k2_train = timed(phase_train, trainer)
     k1_fa, k2_fa = timed(phase_files_flux_resume, trainer)
     k1_fb = timed(phase_files_flux_weights)
-    del trainer  # free the FLUX model before the Qwen one loads
+    del trainer  # free the FLUX model: the CLI loads its own, then the Qwen one loads
     gc.collect()
     torch.cuda.empty_cache()
+    t_d = time.perf_counter()
+    d_flux = timed(phase_data_flux_cli)
+    t_d = time.perf_counter() - t_d
     k5_case = timed(phase_rq_kernel)
     rowquant_case = k5_case.pop("rowquant")
     qwen, (k3_qwen, k5_qwen, rq_qwen) = timed(phase_qwen_predict)
@@ -3537,6 +4150,10 @@ def main() -> int:
     k5_at, k5b_at, k1_at, k2_at, rq_at = a_fit[2], a_fit[3], a_fit[4], a_fit[5], a_fit[10]
     fc = timed(phase_files_qwen, qwen, qwen_lora)
     k5_fc, k3_fc, rq_fc = fc[2], fc[8], fc[10]
+    t0 = time.perf_counter()
+    d_qwen = timed(phase_data_qwen_fit, qwen)
+    t_d += time.perf_counter() - t0
+    print(f"[smoke] phase D (data layer and CLI, a + b): {t_d:.1f} s [{card}]", flush=True)
     del qwen, qwen_lora  # free the int4-requant model before path C's loads
     gc.collect()
     torch.cuda.empty_cache()
@@ -3554,45 +4171,50 @@ def main() -> int:
         {"name": "flash_nr_fwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/flash_nr_fwd.cu",
          "replaces": "qflux_tpu/ops/flash_nr.py:192",
-         "launches": k1_predict + k1_train + k1_fa + k1_fb + k1_c + k1_ct,
+         "launches": k1_predict + k1_train + k1_fa + k1_fb + d_flux[0] + k1_c + k1_ct,
          "launches_by_path": {"predict": k1_predict, "train": k1_train,
                               "files_flux_resume": k1_fa, "files_flux_weights": k1_fb,
+                              "data_flux_cli": d_flux[0],
                               "int4_predict": k1_c, "int4_train": k1_ct}, **k1_case},
         {"name": "flash_nr_bwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/flash_nr_bwd.cu",
          "replaces": "qflux_tpu/ops/flash_nr.py:311",
-         "launches": k2_train + k2_fa + k2_ct,
+         "launches": k2_train + k2_fa + d_flux[1] + k2_ct,
          "launches_by_path": {"train": k2_train, "files_flux_resume": k2_fa,
-                              "int4_train": k2_ct}, **k2_case},
+                              "data_flux_cli": d_flux[1], "int4_train": k2_ct}, **k2_case},
         {"name": "flash_fwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "qflux_tpu/ops/flash_attention.py:105",
-         "launches": k3_qwen + k3_qt + k3_fc,
+         "launches": k3_qwen + k3_qt + k3_fc + d_flux[8] + d_qwen[8],
          "launches_by_path": {"qwen_predict": k3_qwen, "qwen_train": k3_qt,
-                              "files_qwen": k3_fc}, **k3_case},
+                              "files_qwen": k3_fc, "data_flux_cli": d_flux[8],
+                              "data_qwen_fit": d_qwen[8]}, **k3_case},
         {"name": "flash_bwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "qflux_tpu/ops/flash_attention.py:288, :215, :251",
-         "launches": k4_qt, "launches_by_path": {"qwen_train": k4_qt}, **k4_case},
+         "launches": k4_qt + d_flux[9] + d_qwen[9],
+         "launches_by_path": {"qwen_train": k4_qt, "data_flux_cli": d_flux[9],
+                              "data_qwen_fit": d_qwen[9]}, **k4_case},
         {"name": "rq_int4_fwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/rq_int4_fwd.cu",
          "replaces": "qflux_tpu/ops/int4_matmul.py:268",
-         "launches": k5_qwen + k5_qt + k5_a + k5_at + k5_fc,
+         "launches": k5_qwen + k5_qt + k5_a + k5_at + k5_fc + d_qwen[2],
          "launches_by_path": {"qwen_predict": k5_qwen, "qwen_train": k5_qt,
                               "qwen512_predict": k5_a, "qwen512_train": k5_at,
-                              "files_qwen": k5_fc}, **k5_case},
+                              "files_qwen": k5_fc, "data_qwen_fit": d_qwen[2]}, **k5_case},
         {"name": "rq_int4_bwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/rq_int4_bwd.cu",
          "replaces": "qflux_tpu/ops/int4_matmul.py:286",
-         "launches": k5b_qt + k5b_at,
-         "launches_by_path": {"qwen_train": k5b_qt, "qwen512_train": k5b_at}, **k5b_case},
+         "launches": k5b_qt + k5b_at + d_qwen[3],
+         "launches_by_path": {"qwen_train": k5b_qt, "qwen512_train": k5b_at,
+                              "data_qwen_fit": d_qwen[3]}, **k5b_case},
         {"name": "rowquant", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/rowquant.cu",
          "replaces": "not a TPU kernel: qflux_tpu/ops/quant.py:144 _rowquant, left to XLA",
-         "launches": rq_qwen + rq_qt + rq_a + rq_at + rq_fc,
+         "launches": rq_qwen + rq_qt + rq_a + rq_at + rq_fc + d_qwen[10],
          "launches_by_path": {"qwen_predict": rq_qwen, "qwen_train": rq_qt,
                               "qwen512_predict": rq_a, "qwen512_train": rq_at,
-                              "files_qwen": rq_fc},
+                              "files_qwen": rq_fc, "data_qwen_fit": d_qwen[10]},
          "g_times_s_vec": rowquant_g_case, **rowquant_case},
         {"name": "flash_nr_fwd s_int8", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/flash_nr_fwd.cu",
@@ -3621,4 +4243,6 @@ def main() -> int:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--ab":
         sys.exit(ab_main(sys.argv[2]) if torch.cuda.is_available() else 1)
+    if len(sys.argv) == 2 and sys.argv[1] == "--data-ab":
+        sys.exit(data_ab_main() if torch.cuda.is_available() else 1)
     sys.exit(main())

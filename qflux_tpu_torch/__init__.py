@@ -11,5 +11,8 @@ full-precision, int4-requant and W4A16 int4 bases, with every Pallas kernel
 of the JAX package as a CUDA kernel: K1 / K2 (fused qk-RMSNorm + RoPE +
 flash attention and its backward, `csrc/flash_nr_*.cu`), K3 / K4 (plain
 flash attention and its backward, `csrc/flash_fwd.cu`, `csrc/flash_bwd.cu`),
-K5a / K5b (`csrc/rq_int4_*.cu`) and K6a / K6b (`csrc/int4_*.cu`).
+K5a / K5b (`csrc/rq_int4_*.cu`) and K6a / K6b (`csrc/int4_*.cu`).  The
+data layer (`data/`: the JAX package's embedding cache, the dataset, shape
+buckets and padded mixed-resolution batches), TensorBoard logging and
+`python -m qflux_tpu_torch.main` (fit from the cache) drive the trainer.
 """

@@ -1,32 +1,45 @@
-"""The port's configuration: a YAML file (or a dict) → plain namespaces.
+"""The port's configuration: a YAML or JSON file (or a dict) → plain namespaces.
 
-Counterpart of qflux_tpu/config.py for the fields the port reads.  The JAX
-package validates its YAML with pydantic; the port only needs the values, so
-it merges the file over the JAX `Config`'s defaults and returns nested
-`SimpleNamespace`s, read by attribute exactly as the JAX `Config` is
-(`config.model.lora.r`, `config.trainer.value`).  Sections and keys the port
-does not read are carried over as they are; the defaults below are those of
-qflux_tpu/config.py for every field the port reads, and two of its
-validators are mirrored: a bare bool `model.quantize` becomes
-`{enabled: <bool>}` (`ModelSection._coerce_quant`), and
-`train.timestep_sampling: weighted` with `weighting_scheme: none` turns the
-scheme to "weighted" (`TrainSection._weighted_sampling_implies_weighting`),
-as does `train.low_memory` the "flash*" remat policies to "full"
-(`Config._low_memory_remat`).
+Counterpart of qflux_tpu/config.py.  The JAX package validates its YAML
+with pydantic; the port only needs the values, so it merges the file over
+the JAX `Config`'s defaults and returns nested `SimpleNamespace`s, read by
+attribute exactly as the JAX `Config` is (`config.model.lora.r`,
+`config.trainer.value`, `config.data.processor.target_size`).  Sections
+and keys the port does not read are carried over as they are; the
+defaults below are those of qflux_tpu/config.py for every field the port
+reads.  Its validators are mirrored:
 
-`yaml` is imported inside `load_config_from_yaml` only: a machine without
-PyYAML builds the same namespaces with `config_from_dict`.
+  * `${a.b}` references resolve against the file's own document before
+    anything else (`resolve_interpolations`; a whole-string reference
+    keeps the referenced value's type);
+  * a bare bool `model.quantize` becomes `{enabled: <bool>}`
+    (`ModelSection._coerce_quant`);
+  * `train.timestep_sampling: weighted` with `weighting_scheme: none`
+    turns the scheme to "weighted", and `train.low_memory` the "flash*"
+    remat policies to "full";
+  * pixel budgets such as "512*512" become ints (`parse_pixels`, in
+    data.processor.target_pixels / controls_pixels);
+  * `cache.use_cache` with a `cache_dir` puts both into data.init_args
+    where those keys are absent (`Config._wire_cache_into_data`).
+
+`yaml` is imported inside `load_config_from_yaml` only, and a file in JSON
+syntax (a subset of YAML) loads with the stdlib `json` where PyYAML is
+absent: that is how configs are read on a machine without it.
 """
 
 from __future__ import annotations
 
+import ast
 import copy
+import json
+import re
 from types import SimpleNamespace
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional, Union
 
 # qflux_tpu/config.py's defaults for the fields the port reads
 DEFAULTS: dict = {
     "trainer": "FluxKontextLoraTrainer",
+    "mode": "fit",
     "resume": None,
     "mesh": {"remat": "flash"},
     "model": {
@@ -48,7 +61,19 @@ DEFAULTS: dict = {
                   "init_args": {"b1": 0.9, "b2": 0.999, "weight_decay": 1e-2},
                   "learning_rate": 1e-4},
     "lr_scheduler": {"scheduler_type": "constant", "warmup_steps": 0},
-    "logging": {"output_dir": "output", "project": "qflux_tpu", "sampling_seed": 42,
+    "data": {"class_path": "qflux_tpu.data.dataset.ImageDataset", "init_args": {},
+             "processor": {"process_type": "resize", "resize_mode": "bilinear",
+                           "target_size": None, "controls_size": None, "target_pixels": None,
+                           "controls_pixels": None, "multi_resolutions": None,
+                           "max_aspect_ratio": 4.0, "divisible_by": 16},
+             "batch_size": 1, "shuffle": True, "drop_last": True, "num_workers": 0,
+             "caption_dropout_rate": 0.0, "use_edit_mask": False, "bucket_by_shape": True},
+    "cache": {"use_cache": False, "cache_dir": None},
+    "validation": {"enabled": False, "steps": 500, "num_inference_steps": 20,
+                   "true_cfg_scale": 1.0, "guidance": 2.5, "samples": [], "dataset": None,
+                   "max_samples": 4, "fail_on_error": True},
+    "logging": {"output_dir": "output", "project": "qflux_tpu", "report_to": "tensorboard",
+                "tracker_project_name": None, "sampling_seed": 42, "profile_dir": None,
                 "push_to_hub": None},
     "predict": {"num_inference_steps": 20, "guidance": 2.5, "true_cfg_scale": 1.0,
                 "max_sequence_length": 512},
@@ -60,7 +85,68 @@ QUANTIZE_DEFAULTS: dict = {"enabled": False, "dtype": "int8", "group_size": 128,
                            "attention": False, "skip_patterns": [r".*norm.*", r".*embed.*"]}
 
 # dict-valued fields: their value is kept as a dict, not turned into a namespace
-_DICT_FIELDS = {("optimizer", "init_args"), ("loss", "init_args")}
+_DICT_FIELDS = {("optimizer", "init_args"), ("loss", "init_args"), ("data", "init_args"),
+                ("data", "processor", "multi_resolutions"), ("validation", "dataset")}
+
+_INTERP = re.compile(r"\$\{([a-zA-Z0-9_.]+)\}")
+
+
+def _lookup(tree: Any, dotted: str) -> Any:
+    node = tree
+    for part in dotted.split("."):
+        if isinstance(node, dict):
+            node = node[part]
+        elif isinstance(node, list):
+            node = node[int(part)]
+        else:
+            raise KeyError(dotted)
+    return node
+
+
+def resolve_interpolations(tree: Any) -> Any:
+    """Resolve ${a.b.c} references against the document root, as
+    qflux_tpu/config.py:resolve_interpolations (omegaconf-style): a
+    whole-string reference keeps the referenced value's type, one inside a
+    longer string is substituted as text; a cycle raises ValueError."""
+
+    def resolve(node: Any, seen: tuple[str, ...] = ()) -> Any:
+        if isinstance(node, dict):
+            return {k: resolve(v, seen) for k, v in node.items()}
+        if isinstance(node, list):
+            return [resolve(v, seen) for v in node]
+        if isinstance(node, str):
+            def ref(key):
+                if key in seen:
+                    raise ValueError(f"circular interpolation: {' -> '.join(seen + (key,))}")
+                return resolve(_lookup(tree, key), seen + (key,))
+
+            m = _INTERP.fullmatch(node)
+            if m:
+                return ref(m.group(1))
+            return _INTERP.sub(lambda mm: str(ref(mm.group(1))), node)
+        return node
+
+    return resolve(tree)
+
+
+_PIXEL_OPS = {ast.Mult: lambda a, b: a * b, ast.Add: lambda a, b: a + b,
+              ast.Sub: lambda a, b: a - b, ast.FloorDiv: lambda a, b: a // b,
+              ast.Div: lambda a, b: a / b, ast.Pow: lambda a, b: a ** b}
+
+
+def parse_pixels(value: Union[int, str, None]) -> Optional[int]:
+    """Pixel budgets: 262144 or "512*512" (arithmetic on numbers only)."""
+    if value is None or isinstance(value, int):
+        return value
+
+    def ev(n):
+        if isinstance(n, ast.Constant) and isinstance(n.value, (int, float)):
+            return n.value
+        if isinstance(n, ast.BinOp) and type(n.op) in _PIXEL_OPS:
+            return _PIXEL_OPS[type(n.op)](ev(n.left), ev(n.right))
+        raise ValueError(f"unsupported pixel expression: {value!r}")
+
+    return int(ev(ast.parse(str(value), mode="eval").body))
 
 
 def _merge(base: dict, over: Mapping, path: tuple = ()) -> dict:
@@ -93,6 +179,13 @@ def config_from_dict(raw: Mapping) -> SimpleNamespace:
         train["weighting_scheme"] = "weighted"
     if train["low_memory"] and tree["mesh"]["remat"] in ("flash", "flash_mlp", "flash_single"):
         tree["mesh"]["remat"] = "full"
+    proc = tree["data"]["processor"]
+    proc["target_pixels"] = parse_pixels(proc["target_pixels"])
+    if proc["controls_pixels"] is not None:
+        proc["controls_pixels"] = [parse_pixels(x) for x in proc["controls_pixels"]]
+    if tree["cache"]["use_cache"] and tree["cache"]["cache_dir"]:
+        tree["data"]["init_args"].setdefault("cache_dir", tree["cache"]["cache_dir"])
+        tree["data"]["init_args"].setdefault("use_cache", True)
     trainer = tree.pop("trainer")
     cfg = _namespace(tree)
     cfg.trainer = SimpleNamespace(value=trainer)
@@ -117,9 +210,15 @@ def config_to_dict(cfg: SimpleNamespace) -> dict:
 
 
 def load_config_from_yaml(path) -> SimpleNamespace:
-    """Read a YAML config file of the JAX package's format (imports `yaml`
-    here, not at module import)."""
-    import yaml
-
+    """Read a config file of the JAX package's format: YAML through `yaml`
+    (imported here, not at module import), or, where PyYAML is absent, a
+    file in JSON syntax through `json`.  Interpolations resolve first."""
     with open(path) as f:
-        return config_from_dict(yaml.safe_load(f))
+        text = f.read()
+    try:
+        import yaml
+    except ImportError:
+        raw = json.loads(text)
+    else:
+        raw = yaml.safe_load(text)
+    return config_from_dict(resolve_interpolations(raw or {}))

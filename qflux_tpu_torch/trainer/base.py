@@ -1,33 +1,39 @@
 """The port's Trainer: load the model, build a LoRA, train it on cached
-embeddings with checkpoints and resume, and predict from cached embeddings.
+embeddings with logging, checkpoints and resume, and predict from cached
+embeddings.
 
 Counterpart of qflux_tpu/trainer/base.py (`load_model`, `build_lora`,
 `build_optimizer`, `build_criterion`, `_build_step_config`,
-`setup_versioned_dir`, `fit`, `save_checkpoint`, `_load_train_state`,
-`predict_from_embeddings`).  `fit` runs JAX's outer loop over a
-re-iterable of cached-embedding batches: epochs, `global_step`, a
-checkpoint every train.checkpointing_steps and the last one at the end, a
-stop after the step on SIGINT / SIGTERM, and `resume`.  Its files are the
-JAX trainer's, so either package resumes the other's run:
+`setup_versioned_dir`, `fit`, `_embeddings_for_batch`,
+`_build_multires_masks`, `save_checkpoint`, `_load_train_state`,
+`predict_from_embeddings`).  `fit` runs JAX's loop over a
+`data.loader.DataLoader` of the embedding cache (shape buckets, or padded
+mixed-resolution batches with segment ids) or any re-iterable of cached
+batches: epochs, `global_step`, the next batch staged while the step runs,
+TensorBoard (or wandb / SwanLab) logging, a profiler window, a checkpoint
+every train.checkpointing_steps and the last one at the end, a stop after
+the step on SIGINT / SIGTERM, and `resume`.  Its files are the JAX
+trainer's, so either package resumes the other's run:
 
     <logging.output_dir>/<logging.project>/vN/
         train_config.yaml                     the config (JSON, which YAML reads)
+        logs/events.out.tfevents.*            TensorBoard events
         checkpoint-{step}/, checkpoint-last-{step}/
             pytorch_lora_weights.safetensors  the LoRA, diffusers names
             optimizer_state.npz               AdamW's moments, optax's keys
             state.json                        global_step, epoch, is_last, git
             generator_state.npy               the port's noise generator
 
-Logging backends, validation, orbax's async checkpoints, the hub push and
-the data layer (`fit(dataloader)` over images) come with later slices
-(ROADMAP.md, queue 1 item 2); `history` records loss, grad_norm and lr per
-step.
+Batches of pixels, validation sampling and the cache pass need the VAE and
+text encoders (ROADMAP.md, queue 1 item 5); orbax's async checkpoints and
+the hub push are not ported (item 2).  `history` records loss, grad_norm,
+lr and the step's host times per step.
 
 The Trainer reads its settings by attribute, from the namespaces of the
 port's own loader (`qflux_tpu_torch/config.py`: `Trainer.from_yaml` reads a
-YAML file of the JAX package's format; `predict_config()` and
-`train_config()` build the same namespaces in code, which is what runs on a
-machine without YAML).
+YAML file of the JAX package's format, or one in JSON syntax where PyYAML
+is absent; `predict_config()` and `train_config()` build the same
+namespaces in code).  `python -m qflux_tpu_torch.main` is the CLI.
 
 Two model families are ported: FLUX.1-Kontext and Qwen-Image-Edit, each
 with predict and the LoRA train step, from synthetic weights or from a
@@ -58,6 +64,7 @@ import torch
 
 from qflux_tpu_torch import losses
 from qflux_tpu_torch.config import config_from_dict, config_to_dict, load_config_from_yaml
+from qflux_tpu_torch.data.preprocess import ITEM_5
 from qflux_tpu_torch.ops.layers import (build_lora_tree, iter_dense_paths, mark_trainable,
                                         merge_lora)
 from qflux_tpu_torch.ops.quant import quantize_tree
@@ -69,7 +76,10 @@ from qflux_tpu_torch.trainer.sampling import SamplingConfig, make_sampler
 from qflux_tpu_torch.trainer.train_step import (TrainStepConfig, lora_leaves,
                                                 make_lr_schedule, make_train_step)
 from qflux_tpu_torch.utils import checkpoint
+from qflux_tpu_torch.utils.fps import FpsLogger
+from qflux_tpu_torch.utils.logger import LoggerManager, NullLogger
 from qflux_tpu_torch.utils.lora_io import load_lora_safetensors, save_lora_safetensors
+from qflux_tpu_torch.utils.model_summary import model_summary_rows
 
 ADAPTERS = {"FluxKontextLoraTrainer": FluxKontextAdapter,
             "QwenImageEditTrainer": QwenImageEditAdapter}
@@ -129,6 +139,10 @@ class Trainer:
                 f"ported: {sorted(ADAPTERS)})")
         self.adapter_cls = ADAPTERS[kind]
         self.scheduler = FlowMatchScheduler()
+        self.fps = FpsLogger()
+        self.logger = NullLogger()
+        self._lr_schedule = None
+        self._criterion = None
         self.adapter = None
         self.bundle = None
         self.lora = None
@@ -292,15 +306,91 @@ class Trainer:
     def _device_batch(self, emb: dict) -> dict:
         """Cached embeddings (numpy or tensors) → tensors on the device:
         floats in the weight dtype (edit_mask stays f32), as the JAX
-        Trainer's `_device_batch`; ids rebuilt by the adapter."""
+        Trainer's `_device_batch`; ids rebuilt by the adapter.  On a CUDA
+        device a host tensor is pinned and copied without blocking, so the
+        copy queues behind a step still running instead of waiting for it."""
         emb = self.adapter.prepare_cached_embeddings(emb)
+        cuda = self.device.type == "cuda"
         out = {}
         for k, v in emb.items():
             t = torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
             if t.dtype in (torch.float32, torch.float16, torch.float64, torch.bfloat16):
                 t = t.to(torch.float32 if k == "edit_mask" else self.dtype)
-            out[k] = t.to(self.device)
+            if cuda and t.device.type == "cpu":
+                t = t.pin_memory()
+            out[k] = t.to(self.device, non_blocking=cuda)
         return out
+
+    def _embeddings_for_batch(self, batch: dict) -> dict:
+        """A collated cached batch (or a plain dict of arrays) → the step's
+        embeddings, as the JAX Trainer's cached branch: only the arrays are
+        kept (`cached`, the prompts, file hashes and `valid_masks` go); a
+        batch whose latents were padded to one shape gets segment ids and a
+        token loss mask (`_build_multires_masks`); otherwise ids collated
+        per sample collapse to the shared ones; then the adapter rebuilds
+        img_ids / the RoPE tables.  A batch without `image_latents` needs
+        the encoders: NotImplementedError (ROADMAP.md queue 1 item 5)."""
+        if "image_latents" not in batch:
+            raise NotImplementedError(
+                f"a batch of pixels needs the VAE and text encoders, which are not ported "
+                f"yet ({ITEM_5}); train from an embedding cache")
+        emb = {k: v for k, v in batch.items()
+               if isinstance(v, np.ndarray) or hasattr(v, "device")}
+        emb.pop("cached", None)
+        valid = batch.get("valid_masks") or {}
+        if any(k in valid for k in ("image_latents", "control_latents")):
+            emb = self._build_multires_masks(emb, valid)
+        else:
+            for k in ("img_ids", "txt_ids"):
+                if k in emb and emb[k].ndim == 3:
+                    emb[k] = emb[k][0]  # shared ids, collated per sample
+        return self.adapter.prepare_cached_embeddings(emb)
+
+    def _build_multires_masks(self, emb: dict, valid: dict) -> dict:
+        """A mixed-resolution batch, right-padded by `collate`: segment ids
+        over the joint sequence laid out [txt, target, control] (padding →
+        segment 0; the text part is prompt_embeds_mask where there is one)
+        and `attention_mask`, the target tokens' loss mask (f32), as the
+        JAX Trainer derives them."""
+        b = emb["image_latents"].shape[0]
+        img_valid = np.asarray(valid.get("image_latents",
+                                         np.ones(emb["image_latents"].shape[:2], bool)))
+        if "prompt_embeds_mask" in emb:
+            parts = [np.asarray(emb["prompt_embeds_mask"]).astype(np.int32)]
+        else:
+            parts = [np.ones((b, emb["prompt_embeds"].shape[1]), np.int32)]
+        parts.append(img_valid.astype(np.int32))
+        if "control_latents" in emb and emb["control_latents"].shape[1]:
+            parts.append(np.asarray(valid.get(
+                "control_latents", np.ones(emb["control_latents"].shape[:2], bool))
+            ).astype(np.int32))
+        emb["segment_ids"] = np.concatenate(parts, axis=1)
+        emb["attention_mask"] = img_valid.astype(np.float32)
+        crit = getattr(self, "_criterion", None) or self.build_criterion()
+        if not isinstance(crit, losses.AttentionMaskMseLoss):
+            logging.warning(
+                "multi-resolution batch with a non-token-masked loss (%s); padded tokens "
+                "will pollute the loss — set loss.class_path="
+                "qflux_tpu.losses.AttentionMaskMseLoss", self.config.loss.class_path)
+        return emb
+
+    def _batch_items(self, batch) -> int:
+        """The batch size: the leading dim of the first array."""
+        for v in batch.values():
+            if hasattr(v, "shape") and len(v.shape) >= 1:
+                return int(v.shape[0])
+        return 1
+
+    def _lr_value(self, step: int) -> float:
+        """The learning rate the schedule gives at update count `step`, for
+        logging (as the JAX Trainer logs it: at global_step after the
+        update)."""
+        if self._lr_schedule is None:
+            lr = self.config.lr_scheduler
+            self._lr_schedule = make_lr_schedule(self.config.optimizer.learning_rate,
+                                                 lr.scheduler_type, lr.warmup_steps,
+                                                 self.config.train.max_train_steps)
+        return float(self._lr_schedule(step))
 
     def _schedule_has_count(self) -> bool:
         """Whether optax's adamw state carries a schedule count ("2/count"):
@@ -308,19 +398,7 @@ class Trainer:
         lr = self.config.lr_scheduler
         return not (lr.scheduler_type == "constant" and lr.warmup_steps == 0)
 
-    def fit(self, batches):
-        """Train the LoRA on `batches`, a re-iterable of cached-embedding
-        dicts with `image_latents`, as the JAX Trainer's outer loop: up to
-        train.num_epochs passes over `batches` and train.max_train_steps
-        steps, a checkpoint every train.checkpointing_steps, the last one
-        (checkpoint-last-{step}) always, and a stop after the step on SIGINT
-        / SIGTERM.  The run dir is a new vN under logging.output_dir /
-        logging.project, with the config as train_config.yaml.  Noise and σ
-        come from a generator seeded train.seed.  With `resume` (a
-        checkpoint directory), the LoRA comes from its file, then AdamW's
-        moments, global_step, epoch and the generator are restored, so the
-        run goes on as if it had not stopped.  Returns the LoRA tree, trained
-        in place; `history` holds one entry per step."""
+    def _refuse_unported(self) -> None:
         cfg = self.config
         if cfg.train.async_checkpointing:
             raise NotImplementedError(
@@ -328,13 +406,53 @@ class Trainer:
                 "synchronous checkpoint files are")
         if cfg.logging.push_to_hub:
             raise NotImplementedError(f"logging.push_to_hub is not ported yet ({ITEM_2})")
+        v = cfg.validation
+        if v.enabled and (v.samples or v.dataset):
+            raise NotImplementedError(
+                f"validation sampling (validation.samples / validation.dataset) needs the "
+                f"encoders, which are not ported yet ({ITEM_5})")
+
+    def fit(self, dataloader):
+        """Train the LoRA on `dataloader`: a `data.loader.DataLoader`, or any
+        re-iterable of cached-embedding batches (collated dicts, or plain
+        dicts of arrays with `image_latents`), as the JAX Trainer's loop.
+
+        Up to train.num_epochs passes over `dataloader` and
+        train.max_train_steps steps; the next batch is fetched and copied
+        to the device while the step runs, before its loss is read; a
+        checkpoint every train.checkpointing_steps (the throughput clock
+        paused) and the last one (checkpoint-last-{step}) always; a stop
+        after the step on SIGINT / SIGTERM.  The run dir is a new vN under
+        logging.output_dir / logging.project, with the config as
+        train_config.yaml and, under logging.report_to "tensorboard", an
+        events file in logs/: the hparams and the model summary at step 0,
+        `compile_s` (the first step's wall time) at step 1, then loss,
+        smooth_loss (EMA 0.95), epoch, lr and fps at every step.  With
+        logging.profile_dir, torch.profiler traces steps 2–4 into a chrome
+        trace there.  Noise and σ come from a generator seeded train.seed.
+        With `resume` (a checkpoint directory), the LoRA comes from its
+        file, then AdamW's moments, global_step, epoch and the generator
+        are restored, so the run goes on as if it had not stopped.
+        Returns the LoRA tree, trained in place; `history` holds one entry
+        per step: step, loss, grad_norm, lr (of this update), step_s (host
+        clock from the step's launch to its loss read, the next batch's
+        staging inside it), stage_s (that staging: fetch, `_embeddings_for_batch`
+        and the copies queued) and data_wait_s (time this step's batch kept
+        the loop blocked in `next`)."""
+        cfg = self.config
+        self._refuse_unported()
         if self.adapter is None:
             self.load_model()
         self.global_step = self.epoch = 0
         self._interrupted = False
         self.output_dir = self.setup_versioned_dir()
-        (self.output_dir / "train_config.yaml").write_text(
-            json.dumps(config_to_dict(cfg), indent=2) + "\n")
+        config_dict = config_to_dict(cfg)
+        (self.output_dir / "train_config.yaml").write_text(json.dumps(config_dict, indent=2)
+                                                           + "\n")
+        self.logger = LoggerManager(report_to=cfg.logging.report_to,
+                                    log_dir=self.output_dir / "logs",
+                                    project=cfg.logging.tracker_project_name
+                                    or cfg.logging.project, config=config_dict)
         if cfg.resume:
             cfg.model.lora.pretrained_weight = str(cfg.resume)
         self.lora = lora = mark_trainable(self.build_lora())
@@ -342,40 +460,101 @@ class Trainer:
         self.generator = torch.Generator(self.device).manual_seed(cfg.train.seed)
         if cfg.resume:
             self._load_train_state(Path(cfg.resume))
-        step = make_train_step(self.adapter.predict_velocity, self.build_criterion(),
-                               self.optimizer, schedule, self._build_step_config(),
+        criterion = self._criterion = self.build_criterion()
+        step = make_train_step(self.adapter.predict_velocity, criterion, self.optimizer,
+                               schedule, self._build_step_config(),
                                first_update=self.global_step)
+        self.logger.log_table("model_summary",
+                              model_summary_rows(self.bundle.dit_params, lora), 0)
         self.history = []
         old_handlers = self._install_signal_handlers()
+        profiler = None
+        ema_loss = None
         try:
             done = False
+            self.fps.start()
             for epoch in range(self.epoch, cfg.train.num_epochs):
                 self.epoch = epoch
-                batch_iter = iter(batches)
+                batch_iter = iter(dataloader)
+                t0 = time.perf_counter()
                 batch = next(batch_iter, None)
+                wait = time.perf_counter() - t0
+                emb = (self._device_batch(self._embeddings_for_batch(batch))
+                       if batch is not None else None)
                 while batch is not None:
-                    emb = self._device_batch(batch)
+                    if cfg.logging.profile_dir:  # trace steps 2-4: past the first
+                        if self.global_step == 1 and profiler is None:
+                            profiler = self._profile(None)
+                        elif self.global_step == 4 and profiler is not None:
+                            profiler = self._profile(profiler)
                     t0 = time.perf_counter()
                     metrics = step(self.bundle.dit_params, lora, emb, self.generator)
-                    loss = float(metrics["loss"])  # waits for the device
-                    step_s = time.perf_counter() - t0
                     self.global_step += 1
-                    batch = next(batch_iter, None)  # fetched before the checks, as JAX's loop
+                    if self.global_step == 1:  # the first step alone, before staging
+                        loss = float(metrics["loss"])
+                        self.logger.log_metrics({"compile_s": time.perf_counter() - t0}, 1)
+                    # stage the next batch while the device runs the step,
+                    # then read the loss (which waits for the device)
+                    t_stage = time.perf_counter()
+                    next_batch = next(batch_iter, None)
+                    next_wait = time.perf_counter() - t_stage
+                    emb = (self._device_batch(self._embeddings_for_batch(next_batch))
+                           if next_batch is not None else None)
+                    stage_s = time.perf_counter() - t_stage
+                    loss = float(metrics["loss"])
+                    step_s = time.perf_counter() - t0
+                    ema_loss = loss if ema_loss is None else 0.95 * ema_loss + 0.05 * loss
+                    fps = self.fps.step(n_items=self._batch_items(batch))
+                    self.logger.log_metrics(
+                        {"loss": loss, "smooth_loss": ema_loss, "epoch": epoch,
+                         "lr": self._lr_value(self.global_step),
+                         **({"fps": fps} if fps else {})}, self.global_step)
                     self.history.append({"step": self.global_step, "loss": loss,
                                          "grad_norm": float(metrics["grad_norm"]),
-                                         "lr": float(metrics["lr"]), "step_s": step_s})
+                                         "lr": float(metrics["lr"]), "step_s": step_s,
+                                         "stage_s": stage_s, "data_wait_s": wait})
+                    wait = next_wait
                     if self.global_step % cfg.train.checkpointing_steps == 0:
+                        self.fps.pause()
                         self.save_checkpoint()
+                        self.fps.resume()
                     if self._interrupted or self.global_step >= cfg.train.max_train_steps:
                         done = True
                         break
+                    batch = next_batch
                 if done:
                     break
+            if profiler is not None:
+                profiler = self._profile(profiler)
             self.save_checkpoint(last=True)
         finally:
             for sig, handler in old_handlers.items():
                 signal.signal(sig, handler)
+            if profiler is not None:
+                profiler.__exit__(None, None, None)
+            self.logger.close()
         return lora
+
+    def _profile(self, profiler):
+        """Start torch.profiler (profiler None), or stop it and write its
+        chrome trace into logging.profile_dir; returns the running profiler
+        or None."""
+        if profiler is None:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            profiler = torch.profiler.profile(activities=activities)
+            profiler.__enter__()
+            return profiler
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.__exit__(None, None, None)
+        out = Path(self.config.logging.profile_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        path = out / f"fit_steps_2-{self.global_step}.trace.json"
+        profiler.export_chrome_trace(str(path))
+        logging.info("profiler trace written to %s", path)
+        return None
 
     def save_checkpoint(self, last: bool = False) -> Path:
         """checkpoint-{step} (checkpoint-last-{step} with `last`) in the run

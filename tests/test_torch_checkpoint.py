@@ -100,7 +100,7 @@ def test_resume_equals_the_uninterrupted_run(tmp_path, family):
     run = t1.output_dir
     assert run == tmp_path / "out" / "p" / "v0"
     assert sorted(p.name for p in run.iterdir()) == [
-        "checkpoint-2", "checkpoint-4", "checkpoint-last-4", "train_config.yaml"]
+        "checkpoint-2", "checkpoint-4", "checkpoint-last-4", "logs", "train_config.yaml"]
     cfg2 = _config(tmp_path, family)
     cfg2.resume = str(run / "checkpoint-2")
     t2 = Trainer(cfg2, device="cpu")
@@ -305,7 +305,7 @@ def test_sigint_after_step_one_saves_checkpoint_last_1(tmp_path):
     t = Trainer(_config(tmp_path, checkpointing_steps=100), device="cpu")
     t.fit(batches())
     assert t.global_step == 1 and len(t.history) == 1
-    assert sorted(p.name for p in t.output_dir.iterdir()) == ["checkpoint-last-1",
+    assert sorted(p.name for p in t.output_dir.iterdir()) == ["checkpoint-last-1", "logs",
                                                               "train_config.yaml"]
     assert signal.getsignal(signal.SIGINT) is before
     # the config file is JSON, which YAML reads, and holds the run's config

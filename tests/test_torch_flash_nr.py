@@ -357,8 +357,11 @@ def test_port_never_imports_jax(tmp_path):
     Trainer.from_yaml, and the file layer: the tiny FLUX DiT loaded block by
     block from a safetensors file, the fit's LoRA file read back, and a run
     resumed from its checkpoint; at head dim 32 their attention takes the
-    K3 route's plain version) leaves jax (and the JAX package, its config
-    included) out of sys.modules."""
+    K3 route's plain version; and `python -m qflux_tpu_torch.main` in
+    process on a cached folder dataset, one padded mixed-resolution step)
+    leaves jax (and the JAX package, its config included) out of
+    sys.modules, and the data layer, the CLI and its logging import none
+    of cv2, PIL, pandas, tensorboardX, tensorboard or datasets."""
     script = tmp_path / "no_jax.py"
     script.write_text(
         "import importlib, pkgutil, sys\n"
@@ -416,6 +419,21 @@ def test_port_never_imports_jax(tmp_path):
         "rt.config.resume = str(tt.output_dir / 'checkpoint-last-2')\n"
         "rt.fit([emb])\n"
         "assert [h['step'] for h in rt.history] == [3]\n"
+        "import json\n"
+        "from pathlib import Path\n"
+        "import chip_smoke\n"
+        "from qflux_tpu_torch import main as cli\n"
+        "from qflux_tpu_torch.models.flux.transformer import FluxConfig\n"
+        "items = [chip_smoke.flux_cache_item(rng, FluxConfig.tiny(), gh, gw, s_txt=8)\n"
+        "         for gh, gw in [(4, 4), (6, 4)]]\n"
+        "data, _ = chip_smoke.write_cached_dataset(Path('cli'), items, chip_smoke.FLUX_HASH_KEYS)\n"
+        "raw = chip_smoke.multires_config(data, Path('cli'), False, variant='test', steps=1)\n"
+        "Path('cli.json').write_text(json.dumps(raw))\n"
+        "ct = cli.main(['--config', 'cli.json', '--device', 'cpu'])\n"
+        "assert ct.global_step == 1 and np.isfinite(ct.history[0]['loss'])\n"
+        "heavy = sorted(m for m in sys.modules if m.split('.')[0] in (\n"
+        "    'cv2', 'PIL', 'pandas', 'tensorboardX', 'tensorboard', 'tensorflow', 'datasets'))\n"
+        "assert not heavy, heavy\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'qflux_tpu'))\n"
         "assert not bad, bad\n"
         "print('NO_JAX_OK')\n")
