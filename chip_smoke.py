@@ -135,7 +135,8 @@ model), each with the card's name and power limit on every line:
      within FORWARD_REL_TOL of the plain attention, and a 4-step 512²
      predict with 4 × 4 K1 launches;
   C. Qwen-Image-Edit weights from files over the int4-requant base (4 of 60
-     blocks): every quantized leaf equal to quantize_tree of the in-memory
+     blocks): block 0 quantized on the card equal to its quantization on
+     the CPU, every quantized leaf equal to quantize_tree of the in-memory
      conversion, a 2-step 832×576 predict with exact K3 / K5a counts; then
      the full-depth model's trained LoRA written to a file and read back
      into a fresh LoRA, whose 2-step predict equals the in-memory one's to
@@ -158,6 +159,33 @@ name and power limit on every line and the phase's wall time printed:
      the loader's host time a batch; (b) after C, on path B's model: Trainer.fit(DataLoader(...))
      over an 832×576 and a 512² sample padded to S = 4000, two bs=2 steps
      with exact K3 / K4, K5a, K5b and row-quantization launches.
+
+The quantized bases that JAX runs in XLA run as phase E, after 17 (the int4
+model freed first), with the card's name and power limit on every line and
+the phase's wall time printed:
+
+  E. (a) the repair's probe (the int4 group scales of one weight with the
+     old Python-scalar divisor on the card and on the CPU, and the repaired
+     `quantize_kernel_int4`), then every quantized form's leaves quantized
+     on the card and on the CPU at a full-width FLUX dual block, equal to
+     the bit; the W8A8 matmul (csrc/int8_gemm.cu's GEMM, forward and dx,
+     and its transpose) against its plain version at FLUX's 512² shapes
+     and two ragged row counts (forward and dx equal to the bit, two calls
+     identical), each timed alone beside torch._int_mm, cuBLAS bf16 on the
+     dequantized weight and the weight-only route; int4_dynamic's group
+     products;
+     (b) FLUX.1-Kontext-dev at full width and depth over int8_dynamic: a
+     forward through K1 and the W8A8 kernels against the plain W8A8 route,
+     a 20-step bs=1 request, a profiled denoising step, one step's LoRA
+     gradients against the plain path, and Trainer.fit for 4 bs=1 steps,
+     each with exact K1 / K2 / W8A8 / row-quantization counts derived from
+     the model (`_flux_w8_counts`), beside the bf16 base's numbers;
+     (c) FLUX at full width, 2 dual + 2 single blocks, over int8, fp8_e4m3,
+     fp8_e5m2 and int4_dynamic: card against CPU quantization, a forward
+     and one step's LoRA gradients against the dequantized base, a fit
+     step;
+     (d) the 20B Qwen-Image-Edit DiT at full depth over int8 weight-only: a
+     4-step 512² request through K1, its peak memory and s/request.
 
 Every temporary file (the fits' run dirs included) is removed before the
 smoke exits.  Each path runs with the launch counts set to 0 just before
@@ -1012,6 +1040,9 @@ def phase_predict(card: str):
               f"peak mem {torch.cuda.max_memory_allocated()} bytes, K1 launches {launched}, "
               f"images {images.dtype} {list(images.shape)} mean {images.mean():.2f} [{card}]",
               flush=True)
+        if i == 0:
+            BF16_FLUX["predict"] = {"s": secs, "peak": torch.cuda.max_memory_allocated(),
+                                    "ms_step": 1000 * stats["denoise_s"] / stats["steps"]}
         if images.dtype != np.uint8 or images.shape != (b, HEIGHT, WIDTH, 3):
             raise AssertionError(f"request {i}: images {images.dtype} {images.shape}")
         if not stats["latents_finite"]:
@@ -1157,6 +1188,8 @@ def phase_train(card: str, trainer) -> tuple[int, int]:
               f"first {warm:.1f}; staging the next batch inside each, median {stage:.1f}), "
               f"peak mem {peak} bytes, loss {losses}, grad_norm {norms}, "
               f"lr {hist[-1]['lr']:g}, K1 launches {k1}, K2 launches {k2} [{card}]", flush=True)
+        if b == 1:
+            BF16_FLUX["fit"] = {"median": warm, "peak": peak}
         want = n_blocks * len(hist)
         if len(hist) != TRAIN_STEPS or not all(np.isfinite(h["loss"]) for h in hist):
             raise AssertionError(f"fit bs={b}: {len(hist)} steps or non-finite losses")
@@ -2381,7 +2414,7 @@ def phase_int4_predict(card: str):
     dit, cfg = trainer.bundle.dit_params, trainer.bundle.dit_cfg
     denses = [m for _, m in iter_dense_paths(dit)]
     quantized = [m for m in denses if m.q4 is not None]
-    if {m.q4_form for m in quantized} != {"int4"}:
+    if {m.q_form for m in quantized} != {"int4"}:
         raise AssertionError("path C's base is not all W4A16")
     b_q = sum(m.q4.numel() + m.scale.numel() * 4 for m in quantized)
     b_full = sum(p.numel() * p.element_size() for p in dit.parameters())
@@ -2637,6 +2670,739 @@ def phase_int4_train(card: str, trainer) -> tuple[int, ...]:
 # kernel-name fragments → the groups of the step profiles
 # ---------------------------------------------------------------------------
 # the file layer: checkpoints, resume, weights and LoRA files (phases A-C)
+
+# ---------------------------------------------------------------------------
+# the quantized bases that JAX runs in XLA (phase E)
+
+# E(a)'s W8A8 GEMM cases: FLUX.1-Kontext-dev's projections, MLP up and MLP
+# down at 512² (2048 image rows of target + control, 512 text rows, 2560
+# joint rows of a single block), and two ragged row counts
+W8_KN = [(3072, 3072), (3072, 12288), (12288, 3072)]
+W8_CASES = ([(m, k, n) for m in (2048, 512, 2560) for k, n in W8_KN]
+            + [(33, 3072, 12288), (1000, 12288, 3072)])
+W8_MAIN = (2048, 3072, 12288)  # the case the kernel table reports (and its dx)
+QUANT_FORMS = ("int8", "fp8_e4m3", "fp8_e5m2", "int8_dynamic", "int4", "int4_requant",
+               "int4_dynamic")
+E_FORMS = ("int8", "fp8_e4m3", "fp8_e5m2", "int4_dynamic")  # E(c): FLUX cut to 2 + 2 blocks
+E_DEPTH = (2, 2)
+E_QWEN_STEPS = 4
+# the bf16 FLUX phases' numbers, printed beside phase E(b)'s
+BF16_FLUX: dict = {}
+
+
+def _qcfg(form: str):
+    """A quantize section in `form` with the default group and skip patterns."""
+    from qflux_tpu_torch.config import config_from_dict
+
+    return config_from_dict({"model": {"quantize": {"enabled": True, "dtype": form}}}
+                            ).model.quantize
+
+
+def _bits(t) -> torch.Tensor:
+    """A tensor's bytes on the host (fp8, int8 and f32 alike)."""
+    return t.detach().contiguous().cpu().view(torch.uint8)
+
+
+def _quant_cpu_check(card: str, label: str, block, qcfg, prefix: str) -> int:
+    """Quantize `block` (full precision, on the card) in place on the card,
+    and a copy of it on the CPU, each with quantize_tree: every quantized
+    leaf (q or q4, scale, the requant factors) must be equal to the bit, and
+    so must the set of layers quantized.  Returns the leaves compared."""
+    from qflux_tpu_torch.ops.layers import iter_dense_paths
+    from qflux_tpu_torch.ops.quant import quantize_tree
+
+    cpu = copy.deepcopy(block).to("cpu")
+    t0 = time.perf_counter()
+    quantize_tree(block, qcfg, prefix=prefix)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    quantize_tree(cpu, qcfg, prefix=prefix)
+    t_cpu = time.perf_counter() - t0
+    n, bad = 0, []
+    for (path, a), (_, b) in zip(iter_dense_paths(block), iter_dense_paths(cpu)):
+        if a.q_form != b.q_form:
+            raise AssertionError(f"{label}: {prefix}{path} is {a.q_form} on the card, "
+                                 f"{b.q_form} on the CPU")
+        for name in ("q4", "q", "scale", "rq_f", "rq_s_vec"):
+            ta, tb = getattr(a, name), getattr(b, name)
+            if ta is None and tb is None:
+                continue
+            n += 1
+            if ta is None or tb is None or not torch.equal(_bits(ta), _bits(tb)):
+                bad.append(f"{path}.{name}")
+    print(f"{label} {qcfg.dtype}: {n} quantized leaves of {prefix} quantized on the card "
+          f"({t_card:.2f} s) and on the CPU ({t_cpu:.2f} s): {n - len(bad)} equal to the bit "
+          f"[{card}]", flush=True)
+    if bad or n == 0:
+        raise AssertionError(f"{label}: card and CPU quantization differ at {bad[:4]}")
+    return n
+
+
+def _w8_operands(gen, m, k_in, n):
+    """A W8A8 case: a weight U(±1/sqrt(K)) quantized per channel to int8 (q
+    [N, K], the port's layout, and s_w [N]), enough copies of (q, s_w) to
+    exceed the L2 cache three times, and bf16 x [m, K] and g [m, N]."""
+    from qflux_tpu_torch.ops import quant
+
+    w = (torch.rand(k_in, n, device="cuda", generator=gen) * 2 - 1) / k_in ** 0.5
+    q, scale = quant.quantize_kernel(w, "int8")
+    q, sw = q.t().contiguous(), scale[0].contiguous()
+    copies = max(2, int(np.ceil(3 * L2_BYTES / (q.numel() + 4 * n))))
+    weights = [(q.clone(), sw.clone()) for _ in range(copies)]
+    x = torch.randn(m, k_in, device="cuda", generator=gen).to(torch.bfloat16)
+    g = torch.randn(m, n, device="cuda", generator=gen).to(torch.bfloat16)
+    return weights, x, g
+
+
+def _w8_gemm_alone(a, sr, bs, scols, out_dtype, reps=20) -> dict:
+    """The W8A8 GEMM's C entry alone, back to back (CUDA events around the
+    window) on `a` [M, Kc] int8 and its row scales `sr`, each call on the
+    next of the B operands `bs` ([Nout, Kc] int8: q for the forward, qᵀ for
+    the dx) past the L2 cache, with `_rq_plan`'s split and a preallocated
+    workspace; `scols` the forward's column scales (None for the dx).
+    Returns the median ms and the output of a first call."""
+    from qflux_tpu_torch.ops import int4_matmul as ti4
+    from qflux_tpu_torch.runtime.build import load_library
+
+    kl = load_library()
+    m, kc = a.shape
+    nout = bs[0].shape[0]
+    backward = scols is None
+    k_in, n = (nout, kc) if backward else (kc, nout)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = ti4._rq_plan(m, n, k_in, k_in, sms, backward)
+    ws = torch.empty(max(plan.workspace, 1), device="cuda", dtype=torch.int32)
+    out = torch.empty(m, nout, device="cuda", dtype=out_dtype)
+    stream = torch.cuda.current_stream().cuda_stream
+    f32 = int(out_dtype == torch.float32)
+
+    def call(i):
+        return kl.lib.qflux_int8_gemm(a.data_ptr(), bs[i].data_ptr(), sr.data_ptr(),
+                                      None if backward else scols[i].data_ptr(), out.data_ptr(),
+                                      m, nout, kc, f32, plan.splits, ws.data_ptr(), stream)
+
+    kl.check(call(0), "W8A8 GEMM alone")
+    first = out.clone()
+    return {"ms": _rotating_ms(call, len(bs), reps=reps), "out": first, "splits": plan.splits}
+
+
+def _transpose_alone(weights, reps=20) -> tuple[float, torch.Tensor]:
+    """The transpose's C entry alone, back to back over the weight copies
+    into a preallocated [K, N] output: (median ms, the first qᵀ)."""
+    from qflux_tpu_torch.runtime.build import load_library
+
+    kl = load_library()
+    n, k_in = weights[0][0].shape
+    out = torch.empty(k_in, n, device="cuda", dtype=torch.int8)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(i):
+        return kl.lib.qflux_int8_transpose(weights[i][0].data_ptr(), out.data_ptr(), n, k_in,
+                                           stream)
+
+    kl.check(call(0), "transpose alone")
+    first = out.clone()
+    return _rotating_ms(call, len(weights), reps=reps), first
+
+
+def phase_w8a8_kernel(card: str) -> tuple[dict, dict, dict]:
+    """Phase E(a).  First the repair's probe: JAX's eager int4 scale
+    amax / 7 on the card and on the CPU, as the port computed it before
+    (a Python-scalar divisor, which CUDA turns into a product with the
+    reciprocal), then as it does now (`quant._div`); then every quantized
+    form's quantization on the card against the CPU's, to the bit, at one
+    full-width FLUX dual block.  Then the W8A8 matmul (ops/int8_matmul.py:
+    the row quantization, the GEMM of csrc/int8_gemm.cu, and in the
+    backward the transpose and the dx GEMM) against its plain version
+    (quant.dyn_int8_fwd / dyn_int8_dx) at W8_CASES, bf16: forward and dx
+    equal to the bit, two calls identical.  Times (CUDA events, weights
+    rotated past the L2 cache): the GEMM alone, forward and dx, the
+    transpose alone, the wrapper (row quantization + GEMM), the plain
+    version, torch._int_mm on the same int8 operands (q as the [K, N] view
+    qᵀ and contiguous), and cuBLAS bf16 on the dequantized weight.  Returns
+    the main case's numbers: (forward GEMM, dx GEMM, transpose)."""
+    from qflux_tpu_torch.models.flux import transformer as flux
+    from qflux_tpu_torch.ops import int4_matmul as ti4
+    from qflux_tpu_torch.ops import int8_matmul as ti8
+    from qflux_tpu_torch.ops import quant
+
+    # the repair's probe
+    gen = torch.Generator("cpu").manual_seed(60)
+    w = (torch.rand(3072, 3072, generator=gen) * 2 - 1) / 3072 ** 0.5
+    amax = w.reshape(24, 128, 3072).abs().amax(dim=1)
+    old = (torch.clamp_min(amax.cuda() / 7.0, 1e-12).cpu() != torch.clamp_min(amax / 7.0, 1e-12))
+    q_cpu, s_cpu = quant.quantize_kernel_int4(w, 128)
+    q_card, s_card = quant.quantize_kernel_int4(w.cuda(), 128)
+    same = torch.equal(s_card.cpu(), s_cpu) and torch.equal(q_card.cpu(), q_cpu)
+    print(f"[w8a8] repair probe, a 3072 x 3072 weight's {amax.numel()} int4 group scales: "
+          f"amax / 7.0 by a Python scalar differs between the card and the CPU in "
+          f"{int(old.sum())}; quantize_kernel_int4 (a tensor divisor) on the card equals the "
+          f"CPU's q4 and scales to the bit: {same} [{card}]", flush=True)
+    if not same:
+        raise AssertionError("quantize_kernel_int4 differs between the card and the CPU")
+    cfg = flux.FluxConfig()
+    g_block = torch.Generator("cuda").manual_seed(61)
+    for form in QUANT_FORMS:
+        block = flux.DualBlock(cfg, device="cuda", dtype=torch.bfloat16)
+        with torch.no_grad():
+            for _, d in block.named_modules():
+                if hasattr(d, "init_") and d.weight is not None:
+                    d.init_(g_block)
+        _quant_cpu_check(card, "[w8a8] quantization", block, _qcfg(form), "dual/0/")
+        del block
+    torch.cuda.empty_cache()
+
+    gen = torch.Generator("cuda").manual_seed(62)
+    main = {}
+    for m, k_in, n in W8_CASES:
+        weights, x, g = _w8_operands(gen, m, k_in, n)
+        q, sw = weights[0]
+        got = ti8.dyn_int8_matmul(x, q, sw)
+        again = ti8.dyn_int8_matmul(x, q, sw)
+        want = quant.dyn_int8_fwd(x, q, sw)
+        xr = x.clone().requires_grad_()
+        ti8.dyn_int8_matmul(xr, q, sw).backward(g)
+        dx = xr.grad
+        xr.grad = None
+        ti8.dyn_int8_matmul(xr, q, sw).backward(g)
+        dx_again = xr.grad
+        dx_want = quant.dyn_int8_dx(g, q, sw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        dx_err = (dx.float() - dx_want.float()).abs().max().item()
+        if not (torch.equal(got, want) and torch.equal(dx, dx_want)
+                and bool(torch.isfinite(got).all()) and bool(torch.isfinite(dx).all())):
+            raise AssertionError(f"W8A8 differs from its plain version at M={m} K={k_in} N={n}: "
+                                 f"max |diff| forward {err}, dx {dx_err}")
+        if not (torch.equal(got, again) and torch.equal(dx, dx_again)):
+            raise AssertionError(f"W8A8 is not deterministic at M={m} K={k_in} N={n}")
+        xq, sx = quant._rowquant(x)
+        gq, sg = quant._rowquant(g.float() * sw)
+        c = len(weights)
+        fwd = _w8_gemm_alone(xq, sx.reshape(m), [w_[0] for w_ in weights],
+                             [w_[1] for w_ in weights], torch.bfloat16)
+        t_ms, qt = _transpose_alone(weights)
+        if not (torch.equal(fwd["out"], want) and torch.equal(qt, q.t())):
+            raise AssertionError(f"the W8A8 GEMM or transpose alone differs at M={m} K={k_in} "
+                                 f"N={n}")
+        qts = [w_[0].t().contiguous() for w_ in weights]
+        bwd = _w8_gemm_alone(gq, sg.reshape(m), qts, None, torch.bfloat16)
+        if not torch.equal(bwd["out"], dx_want):
+            raise AssertionError(f"the W8A8 dx GEMM alone differs at M={m} K={k_in} N={n}")
+        wrapper_ms = _rotating_ms(lambda i: ti8.dyn_int8_matmul(x, *weights[i]), c)
+
+        def dx_wrapper(i):
+            gq_, sg_ = ti4.rowquant_cuda(g, weights[i][1])
+            return ti8.int8_gemm_dx_cuda(gq_, ti8.int8_transpose_cuda(weights[i][0]), sg_,
+                                         torch.bfloat16)
+
+        dx_wrapper_ms = _rotating_ms(dx_wrapper, c)
+        plain_ms = _rotating_ms(lambda i: quant.dyn_int8_fwd(x, *weights[i]), c, reps=3, n=3)
+        dx_plain_ms = _rotating_ms(lambda i: quant.dyn_int8_dx(g, *weights[i]), c, reps=3, n=3)
+        t_plain_ms = _rotating_ms(lambda i: weights[i][0].t().contiguous(), c)
+        try:
+            lib_ms = _rotating_ms(lambda i: torch._int_mm(xq, weights[i][0].t()), c)
+            lib_kn = [w_[0].t().contiguous() for w_ in weights[:4]]
+            lib_c_ms = _rotating_ms(lambda i: torch._int_mm(xq, lib_kn[i]), len(lib_kn))
+            dx_lib_ms = _rotating_ms(lambda i: torch._int_mm(gq, weights[i][0]), c)
+            del lib_kn
+        except RuntimeError as e:  # a shape torch._int_mm refuses: no yardstick
+            lib_ms = lib_c_ms = dx_lib_ms = None
+            print(f"[w8a8] torch._int_mm refuses M={m} K={k_in} N={n}: {e}", flush=True)
+        deq = [quant.dequantize_kernel(w_[0], w_[1][:, None], torch.bfloat16) for w_ in
+               weights[:4]]
+        bf16_ms = _rotating_ms(lambda i: torch.mm(x, deq[i].t()), len(deq))
+        # the weight-only route (int8 / fp8, and W8A8's tiny-M calls): the
+        # dequantize pass, and the whole product
+        deq_ms = _rotating_ms(lambda i: quant.dequantize_kernel(
+            weights[i][0], weights[i][1][:, None], torch.bfloat16), c)
+        wo_ms = _rotating_ms(lambda i: quant.wo_matmul(x, *weights[i]), c)
+        dx_bf16_ms = _rotating_ms(lambda i: torch.mm(g, deq[i]), len(deq))
+        del deq, qts
+        ops = 2.0 * m * k_in * n
+        # the int8 input, the weight, the row and channel scales read once; the
+        # bf16 output written once
+        bound = _bound(m * k_in + k_in * n + 4 * m + 4 * n + 2 * m * n, ops, PEAK_INT8_PER_MS)
+        dx_bound = _bound(m * n + k_in * n + 4 * m + 2 * m * k_in, ops, PEAK_INT8_PER_MS)
+        t_bound = _bound(2 * k_in * n, 0, PEAK_INT8_PER_MS)
+
+        def f(v):
+            return "n/a" if v is None else f"{v:.4f} ms"
+
+        print(f"[w8a8] M={m} K={k_in} N={n}: forward and dx equal to the plain version (max "
+              f"|diff| {err} / {dx_err}, tol 0), two calls identical; GEMM alone "
+              f"{fwd['ms']:.4f} ms ({ops / fwd['ms'] / 1e9:.1f} TOPS, "
+              f"{100 * bound['bound_ms'] / fwd['ms']:.1f}% of the {bound['bound_ms']:.4f} ms "
+              f"bound, splits {fwd['splits']}), wrapper {wrapper_ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, torch._int_mm {f(lib_ms)} (qT view) / {f(lib_c_ms)} "
+              f"([K, N] contiguous), cuBLAS bf16 on the dequantized weight {bf16_ms:.4f} ms; "
+              f"weight-only route {wo_ms:.4f} ms (its dequantize pass {deq_ms:.4f} ms); "
+              f"dx GEMM alone {bwd['ms']:.4f} ms ({100 * dx_bound['bound_ms'] / bwd['ms']:.1f}% "
+              f"of its bound, splits {bwd['splits']}), transpose alone {t_ms:.4f} ms "
+              f"({100 * t_bound['bound_ms'] / t_ms:.1f}% of its {t_bound['bound_ms']:.4f} ms "
+              f"bound; q.t().contiguous() {t_plain_ms:.4f} ms), dx wrapper (row quantization, "
+              f"transpose, GEMM) {dx_wrapper_ms:.4f} ms, plain {dx_plain_ms:.3f} ms, "
+              f"torch._int_mm {f(dx_lib_ms)}, cuBLAS bf16 {dx_bf16_ms:.4f} ms [{card}]",
+              flush=True)
+        if (m, k_in, n) == W8_MAIN:
+            shape = {"shape": [m, k_in, n]}
+            main = {
+                "fwd": {"max_abs_err": err, "ms": fwd["ms"], "plain_ms": plain_ms,
+                        "library_ms": lib_ms, "library_contiguous_ms": lib_c_ms,
+                        "cublas_bf16_ms": bf16_ms, "wrapper_ms": wrapper_ms,
+                        "weight_only_ms": wo_ms, "dequantize_ms": deq_ms, **bound, **shape},
+                "dx": {"max_abs_err": dx_err, "ms": bwd["ms"], "plain_ms": dx_plain_ms,
+                       "library_ms": dx_lib_ms, "cublas_bf16_ms": dx_bf16_ms,
+                       "wrapper_ms": dx_wrapper_ms, **dx_bound, **shape},
+                "transpose": {"max_abs_err": 0, "ms": t_ms, "plain_ms": t_plain_ms,
+                              "library_ms": t_plain_ms, **t_bound, "shape": [n, k_in]}}
+        del weights, x, g, got, again, want, xr, dx, dx_again, dx_want, fwd, bwd, qt
+        torch.cuda.empty_cache()
+
+    # int4_dynamic's product at the main shape: per-group bf16 products with
+    # an f32 result (exact integers), the group sum, against the float64
+    # products of the CPU's plain version
+    m, k_in, n = W8_MAIN
+    w = (torch.rand(k_in, n, device="cuda", generator=gen) * 2 - 1) / k_in ** 0.5
+    q4, gs = quant.quantize_kernel_int4(w, 128)
+    x = torch.randn(m, k_in, device="cuda", generator=gen).to(torch.bfloat16)
+    q, n_g, gsz = quant._groups(q4, gs)
+    xq, _ = quant._rowquant(x)
+    xg = xq.reshape(m, n_g, gsz).transpose(0, 1)
+    exact = torch.equal(quant._int_bmm(xg, q), torch.bmm(xg.double(), q.double()).float())
+    bmm_ms = _median_ms(lambda: quant._int_bmm(xg, q))
+    d4_ms = _median_ms(lambda: quant.dyn_int4_matmul(x, q4, gs))
+    print(f"[w8a8] int4_dynamic at M={m} K={k_in} N={n}: the {n_g} group products (bf16 "
+          f"operands, f32 result) {bmm_ms:.4f} ms, equal to float64 products: {exact}; the "
+          f"whole forward {d4_ms:.4f} ms [{card}]", flush=True)
+    if not exact:
+        raise AssertionError("int4_dynamic's group products are not exact on the card")
+    main["fwd"]["int4_dynamic_ms"] = d4_ms
+    return main["fwd"], main["dx"], main["transpose"]
+
+
+def _w8_counts() -> tuple[int, int, int, int]:
+    """(W8A8 forward GEMM, dx GEMM, transpose, row quantization) launches."""
+    from qflux_tpu_torch.ops import int4_matmul, int8_matmul
+
+    return (int8_matmul.INT8_GEMM_LAUNCHES, int8_matmul.INT8_GEMM_DX_LAUNCHES,
+            int8_matmul.INT8_TRANSPOSE_LAUNCHES, int4_matmul.ROWQUANT_LAUNCHES)
+
+
+def _reset_w8_counts() -> None:
+    from qflux_tpu_torch.ops import int4_matmul, int8_matmul
+
+    _reset_counts()
+    int8_matmul.INT8_GEMM_LAUNCHES = int8_matmul.INT8_GEMM_DX_LAUNCHES = 0
+    int8_matmul.INT8_TRANSPOSE_LAUNCHES = int4_matmul.ROWQUANT_LAUNCHES = 0
+
+
+def _flux_rows(path: str, b: int, s_img: int, s_txt: int) -> int:
+    """The rows a FLUX dense layer multiplies in one forward of b samples of
+    s_img image and s_txt text tokens: the image stream's (the dual blocks'
+    to_* and img_mlp, proj_out), the text stream's (add_* and txt_mlp), the
+    joint stream's (every single-block layer but its mod), or the
+    conditioning's b (the AdaLN mods, norm_out and the time / guidance /
+    pooled embedders)."""
+    if path.endswith("mod/proj") or not path.startswith(("dual/", "single/", "proj_out")):
+        return b
+    if path.startswith("single/"):
+        return b * (s_img + s_txt)
+    if "/add_" in path or "/txt_mlp/" in path:
+        return b * s_txt
+    return b * s_img
+
+
+def _flux_w8_counts(dit, b: int, s_img: int, s_txt: int) -> tuple[int, int, int]:
+    """From the model and the batch's shape: the W8A8 products of one FLUX
+    forward (every int8_dynamic layer called with more than 32 rows; the
+    rest take the weight-only route, as JAX's tiny-M rule), those inside
+    the checkpointed blocks (recomputed in a train step's backward), and
+    those whose input carries no gradient (block 0's q / k / v and add_q /
+    add_k / add_v read the embedders' frozen outputs: no dx)."""
+    from qflux_tpu_torch.ops.layers import iter_dense_paths
+
+    w8 = [p for p, m in iter_dense_paths(dit) if m.q_form == "int8_dynamic"
+          and _flux_rows(p, b, s_img, s_txt) > 32]
+    in_blocks = [p for p in w8 if p.startswith(("dual/", "single/"))]
+    no_grad = [p for p in w8 if p.startswith("dual/0/attn/")
+               and p.rsplit("/", 1)[1] in ("to_q", "to_k", "to_v", "add_q", "add_k", "add_v")]
+    return len(w8), len(in_blocks), len(no_grad)
+
+
+def _q_bytes(dit) -> tuple[int, int]:
+    """(bytes of every quantized leaf and scale, bytes of the rest) of a DiT."""
+    qb = sum(t.numel() * t.element_size() for n, t in dit.named_buffers()
+             if n.rsplit(".", 1)[-1] in ("q", "q4", "scale"))
+    return qb, sum(p.numel() * p.element_size() for p in dit.parameters())
+
+
+def phase_w8a8_flux(card: str) -> tuple[int, int, int, int]:
+    """Phase E(b): FLUX.1-Kontext-dev at full width and depth over the W8A8
+    (`int8_dynamic`) base, loaded by Trainer.load_model (drawn in bf16 from
+    its seeds, then quantized on the card).  A forward through K1 and the
+    W8A8 kernels against the plain W8A8 route (set_int4_impl "plain"),
+    within FORWARD_REL_TOL; one 20-step bs=1 request through
+    Trainer.predict_from_embeddings with exact K1, W8A8 and row-quantization
+    counts (from `_flux_w8_counts`); one step's LoRA gradients through
+    K1 + K2 and the W8A8 kernels (remat "flash") against the plain
+    attention and the plain W8A8 route (remat "full"), within GRAD_REL_TOL;
+    then Trainer.fit, TRAIN_STEPS steps at bs=1, with exact counts a step.
+    Prints s/request, ms/step and peak memory beside the bf16 FLUX phases'.
+    Returns the K1 and K2 launches and the W8A8 forward GEMM, dx GEMM,
+    transpose and row-quantization launches of the request and the fit."""
+    from qflux_tpu_torch.losses import MseLoss
+    from qflux_tpu_torch.ops import flash_nr
+    from qflux_tpu_torch.ops.layers import iter_dense_paths, mark_trainable, merge_lora, \
+        set_int4_impl
+    from qflux_tpu_torch.trainer.base import Trainer, predict_config, train_config
+    from qflux_tpu_torch.trainer.train_step import TrainStepConfig, _loss_for_microbatch
+
+    config = predict_config(variant="full", num_inference_steps=STEPS)
+    config.model.quantize = _qcfg("int8_dynamic")
+    trainer = Trainer(config, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.load_model()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    dit, cfg = trainer.bundle.dit_params, trainer.bundle.dit_cfg
+    n_blocks = cfg.num_layers + cfg.num_single_layers
+    forms: dict = {}
+    for _, m in iter_dense_paths(dit):
+        forms[m.q_form] = forms.get(m.q_form, 0) + 1
+    qb, rest = _q_bytes(dit)
+    gh, gw = trainer.adapter.latent_grid(HEIGHT, WIDTH)
+    per_fwd, in_blocks, no_grad = _flux_w8_counts(dit, 1, 2 * gh * gw, 512)
+    print(f"[w8a8_flux] FLUX.1-Kontext-dev {cfg.num_layers} dual + {cfg.num_single_layers} "
+          f"single blocks, dim {cfg.dim}, int8_dynamic: dense layers by form {forms}; "
+          f"{qb} bytes of int8 weights and scales, {rest} bytes of full-precision parameters; "
+          f"loaded and quantized in {load_s:.1f} s, peak {torch.cuda.max_memory_allocated()} "
+          f"bytes; W8A8 products a forward {per_fwd} ({in_blocks} in the blocks, {no_grad} "
+          f"with no dx) [{card}]", flush=True)
+    lora = trainer.build_lora()
+    gen = torch.Generator("cuda").manual_seed(63)
+    _perturb_b(lora, gen)
+    rng = np.random.default_rng(64)
+
+    # a forward: the kernels against the plain W8A8 route
+    emb = trainer.adapter.prepare_cached_embeddings(_request(rng, cfg, gh, gw, 1))
+    batch = {k: torch.as_tensor(v).to("cuda", torch.bfloat16) for k, v in emb.items()}
+    batch["guidance"] = torch.full((1,), 2.5, dtype=torch.bfloat16, device="cuda")
+    lat = torch.randn(1, gh * gw, cfg.in_channels, device="cuda", generator=gen).to(torch.bfloat16)
+    sigma = torch.full((1,), 1.0, dtype=torch.bfloat16, device="cuda")
+    merge_lora(dit, lora)
+    with torch.inference_mode():
+        _reset_w8_counts()
+        v_k = trainer.adapter.predict_velocity(dit, batch, lat, sigma).float()
+        k1, w8 = flash_nr.KERNEL_LAUNCHES, _w8_counts()
+        set_int4_impl(dit, "plain")
+        v_p = trainer.adapter.predict_velocity(dit, batch, lat, sigma).float()
+        set_int4_impl(dit, "auto")
+    rel = (torch.linalg.vector_norm(v_k - v_p) / torch.linalg.vector_norm(v_p)).item()
+    print(f"[w8a8_flux] full-width forward through K1 and the W8A8 kernels vs the plain W8A8 "
+          f"route: rel L2 err {rel:.3e} (tol {FORWARD_REL_TOL}), |v| rms "
+          f"{v_p.pow(2).mean().sqrt().item():.4f}; K1 {k1}, W8A8 forward/dx/transpose/row "
+          f"quant {w8} [{card}]", flush=True)
+    if (k1, w8) != (n_blocks, (per_fwd, 0, 0, per_fwd)):
+        raise AssertionError(f"the W8A8 FLUX forward launched K1 {k1}, W8A8 {w8}; expected "
+                             f"{n_blocks}, {(per_fwd, 0, 0, per_fwd)}")
+    if not (rel <= FORWARD_REL_TOL and bool(torch.isfinite(v_k).all())):
+        raise AssertionError("the W8A8 FLUX forward disagrees with the plain route")
+    del v_k, v_p, batch
+    torch.cuda.empty_cache()
+
+    # the main path, predict: one bs=1 request, counts reset just before
+    emb = _request(rng, cfg, gh, gw, 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_w8_counts()
+    t0 = time.perf_counter()
+    images = trainer.predict_from_embeddings(emb, HEIGHT, WIDTH, lora=lora, seed=65)
+    secs = time.perf_counter() - t0
+    stats = trainer.last_predict
+    k1, w8_predict = flash_nr.KERNEL_LAUNCHES, _w8_counts()
+    k1_predict = k1
+    step_ms = 1000 * stats["denoise_s"] / stats["steps"]
+    peak = torch.cuda.max_memory_allocated()
+    bf = BF16_FLUX.get("predict", {})
+    print(f"[w8a8_flux] request bs=1: {secs:.3f} s, {step_ms:.1f} ms/denoising step "
+          f"({stats['steps']} steps), VAE decode {1000 * stats['decode_s']:.1f} ms, peak mem "
+          f"{peak} bytes; the bf16 base's bs=1 request (phase 5): {bf.get('s', 0):.3f} s, "
+          f"{bf.get('ms_step', 0):.1f} ms/step, peak {bf.get('peak', 0)} bytes; K1 {k1}, W8A8 "
+          f"forward/dx/transpose/row quant {w8_predict}, images {images.dtype} "
+          f"{list(images.shape)} mean {images.mean():.2f} [{card}]", flush=True)
+    want = (STEPS * per_fwd, 0, 0, STEPS * per_fwd)
+    if images.dtype != np.uint8 or not stats["latents_finite"]:
+        raise AssertionError("the W8A8 FLUX request gave no finite uint8 images")
+    if (k1, w8_predict) != (STEPS * n_blocks, want):
+        raise AssertionError(f"the W8A8 FLUX request launched K1 {k1}, W8A8 {w8_predict}; "
+                             f"expected {STEPS * n_blocks}, {want}")
+    emb = trainer.adapter.prepare_cached_embeddings(_request(rng, cfg, gh, gw, 1))
+    batch = {k: torch.as_tensor(v).to("cuda", torch.bfloat16) for k, v in emb.items()}
+    batch["guidance"] = torch.full((1,), 2.5, dtype=torch.bfloat16, device="cuda")
+    merge_lora(dit, lora)
+
+    def denoising_step():
+        with torch.inference_mode():
+            trainer.adapter.predict_velocity(dit, batch, lat, sigma)
+
+    _profile(card, f"one FLUX denoising step over int8_dynamic, bs=1, S = {512 + 2 * gh * gw}",
+             denoising_step)
+    merge_lora(dit, None)
+    del batch
+
+    # one step's LoRA gradients: kernels (flash) vs plain attention + plain W8A8 (full)
+    tt = Trainer(train_config(variant="full"), device="cuda")
+    tt.adapter, tt.bundle = trainer.adapter, trainer.bundle
+    tb = tt._device_batch(_train_batch(rng, cfg, gh, gw, 1))
+    noise = torch.randn(tb["image_latents"].shape, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    sig = torch.full((1,), 0.6, device="cuda", dtype=torch.bfloat16)
+    tl = mark_trainable(tt.build_lora())
+    _perturb_b(tl, gen)
+    plain = dataclasses.replace(trainer.adapter, attn_impl="plain", remat_policy="full")
+    grads, counts = {}, {}
+    for name, adapter in (("kernels", trainer.adapter), ("plain", plain)):
+        set_int4_impl(dit, "auto" if name == "kernels" else "plain")
+        for leaf in tl.values():
+            for t in leaf.values():
+                t.grad = None
+        _reset_w8_counts()
+        t0 = time.perf_counter()
+        loss = _loss_for_microbatch(dit, tl, tb, noise, sig, adapter.predict_velocity, MseLoss(),
+                                    TrainStepConfig())
+        loss.backward()
+        torch.cuda.synchronize()
+        counts[name] = (flash_nr.KERNEL_LAUNCHES, flash_nr.BWD_KERNEL_LAUNCHES, *_w8_counts())
+        print(f"[w8a8_flux] gradient check, {name}: loss {loss.item():.5f}, forward + backward "
+              f"{time.perf_counter() - t0:.3f} s, K1/K2/W8A8 forward/dx/transpose/row quant "
+              f"{counts[name]} [{card}]", flush=True)
+        grads[name] = torch.cat([torch.cat([leaf["a"].grad.flatten(), leaf["b"].grad.flatten()])
+                                 for leaf in tl.values()]).float()
+    set_int4_impl(dit, "auto")
+    grel = ((grads["kernels"] - grads["plain"]).norm() / grads["plain"].norm()).item()
+    fwd_step = per_fwd + in_blocks
+    dx_step = per_fwd - no_grad
+    step_counts = (n_blocks, n_blocks, fwd_step, dx_step, dx_step, fwd_step + dx_step)
+    print(f"[w8a8_flux] LoRA gradients through K1 + K2 and the W8A8 kernels vs the plain path: "
+          f"rel L2 err {grel:.3e} (tol {GRAD_REL_TOL}) [{card}]", flush=True)
+    if counts["kernels"] != step_counts or counts["plain"][2:] != (0, 0, 0, 0):
+        raise AssertionError(f"the W8A8 gradient check launched {counts}; expected "
+                             f"{step_counts} through the kernels and no W8A8 launch plain")
+    if not (grel <= GRAD_REL_TOL and bool(torch.isfinite(grads["kernels"]).all())):
+        raise AssertionError("the W8A8 FLUX LoRA gradients disagree with the plain path")
+    del tl, tb, noise, grads
+    torch.cuda.empty_cache()
+
+    # the main path, fit: TRAIN_STEPS steps at bs=1, counts reset just before
+    tt = Trainer(train_config(variant="full", max_train_steps=TRAIN_STEPS), device="cuda")
+    tt.adapter, tt.bundle = trainer.adapter, trainer.bundle
+    batches = [_train_batch(rng, cfg, gh, gw, 1) for _ in range(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_w8_counts()
+    fl = _fit_in_tmp(tt, batches)
+    fit = (flash_nr.KERNEL_LAUNCHES, flash_nr.BWD_KERNEL_LAUNCHES, *_w8_counts())
+    peak = torch.cuda.max_memory_allocated()
+    hist = tt.history
+    ms = [1000 * h["step_s"] for h in hist]
+    warm = ms[1:] if len(ms) > 1 else ms
+    bf = BF16_FLUX.get("fit", {})
+    print(f"[w8a8_flux] fit bs=1: {len(hist)} steps, ms/step "
+          f"{', '.join(f'{v:.1f}' for v in ms)} (after the first: median "
+          f"{statistics.median(warm):.1f}, spread {min(warm):.1f}-{max(warm):.1f}), peak mem "
+          f"{peak} bytes, loss {', '.join(f'{h['loss']:.5f}' for h in hist)}; the bf16 base's "
+          f"bs=1 fit (phase 6): median {bf.get('median', 0):.1f} ms, peak {bf.get('peak', 0)} "
+          f"bytes; K1/K2/W8A8 forward/dx/transpose/row quant {fit} [{card}]", flush=True)
+    want = tuple(len(hist) * c for c in step_counts)
+    if len(hist) != TRAIN_STEPS or not all(np.isfinite(h["loss"]) for h in hist):
+        raise AssertionError("the W8A8 FLUX fit: too few steps or non-finite losses")
+    if len({round(h["loss"], 6) for h in hist}) < 2:
+        raise AssertionError("the W8A8 FLUX fit's losses do not move")
+    if fit != want:
+        raise AssertionError(f"the W8A8 FLUX fit launched {fit}; expected {want}")
+    if not all(leaf["b"].abs().sum() > 0 for leaf in fl.values()):
+        raise AssertionError("the W8A8 FLUX fit: a LoRA b did not move from zero")
+    del trainer, tt, fl, lora, dit
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (k1_predict + fit[0], fit[1], *(a + b for a, b in zip(w8_predict, fit[2:])))
+
+
+def _dequantized(model):
+    """A copy of `model` whose quantized layers hold their dequantized
+    weights as f32 full-precision weights (the base the quantized form
+    stands for): the full-precision route casts a weight to x.dtype, so it
+    multiplies the same weights as the weight-only route, which dequantizes
+    to x.dtype (f32 for the AdaLN mods' f32 conditioning, bf16 elsewhere)."""
+    from qflux_tpu_torch.ops import quant
+    from qflux_tpu_torch.ops.layers import iter_dense_paths
+
+    ref = copy.deepcopy(model)
+    for _, m in iter_dense_paths(ref):
+        if m.q_form is None:
+            continue
+        if m.q4 is not None:
+            w = quant.dequantize_kernel_int4(m.q4, m.scale, torch.float32).t()
+        else:
+            w = quant.dequantize_kernel(m.q, m.scale.reshape(-1, 1), torch.float32)
+        for name in ("q4", "q", "scale", "rq_f", "rq_s_vec"):
+            m.register_buffer(name, None)
+        m.weight = torch.nn.Parameter(w.contiguous(), requires_grad=False)
+        m.q_form = None
+    return ref
+
+
+def phase_quant_forms(card: str) -> None:
+    """Phase E(c): FLUX.1-Kontext-dev at full width, cut to E_DEPTH (dual,
+    single) blocks, over each of E_FORMS.  The DiT is drawn in bf16 on the
+    card; its first dual block is quantized on the card and on the CPU
+    (equal to the bit), then the whole DiT on the card.  These forms have no
+    kernel of their own (JAX leaves them to XLA), so the reference is the
+    base they stand for: the same model with every quantized layer's
+    dequantized weight as a full-precision weight (`_dequantized`).  A forward against it (weight-only
+    forms: equal to the bit, the route being that dequantized product;
+    int4_dynamic within FORWARD_REL_TOL, its activations quantized to int8)
+    and one step's LoRA gradients (GRAD_REL_TOL), then Trainer.fit for one
+    bs=1 step.  Prints ms for the forward and the fit step."""
+    from qflux_tpu_torch.losses import MseLoss
+    from qflux_tpu_torch.models.flux import transformer as flux
+    from qflux_tpu_torch.ops.layers import mark_trainable, merge_lora
+    from qflux_tpu_torch.ops.quant import quantize_tree
+    from qflux_tpu_torch.trainer.base import Trainer, train_config
+    from qflux_tpu_torch.trainer.flux_kontext import FluxKontextAdapter, ModelBundle
+    from qflux_tpu_torch.trainer.train_step import TrainStepConfig, _loss_for_microbatch
+
+    cfg = dataclasses.replace(flux.FluxConfig(), num_layers=E_DEPTH[0],
+                              num_single_layers=E_DEPTH[1])
+    adapter = FluxKontextAdapter(cfg)
+    rng = np.random.default_rng(70)
+    gh, gw = adapter.latent_grid(HEIGHT, WIDTH)
+    for form in E_FORMS:
+        gen = torch.Generator("cuda").manual_seed(71)
+        dit = flux.init(gen, cfg, device="cuda", dtype=torch.bfloat16)
+        qcfg = _qcfg(form)
+        _quant_cpu_check(card, "[quant_forms] quantization", dit.dual[0], qcfg, "dual/0/")
+        quantize_tree(dit, qcfg)
+        ref = _dequantized(dit)
+        tt = Trainer(train_config(variant="full", max_train_steps=1), device="cuda")
+        tt.adapter = adapter
+        tt.bundle = ModelBundle(dit_cfg=cfg, dit_params=dit, vae_cfg=None, vae_params=None)
+        lora = mark_trainable(tt.build_lora())
+        _perturb_b(lora, gen)
+        emb = adapter.prepare_cached_embeddings(_request(rng, cfg, gh, gw, 1))
+        batch = {k: torch.as_tensor(v).to("cuda", torch.bfloat16) for k, v in emb.items()}
+        batch["guidance"] = torch.full((1,), 2.5, dtype=torch.bfloat16, device="cuda")
+        lat = torch.randn(1, gh * gw, cfg.in_channels, device="cuda", generator=gen).to(
+            torch.bfloat16)
+        sigma = torch.full((1,), 1.0, dtype=torch.bfloat16, device="cuda")
+        with torch.inference_mode():
+            v = {}
+            for name, model in (("quantized", dit), ("dequantized", ref)):
+                merge_lora(model, lora)
+                adapter.predict_velocity(model, batch, lat, sigma)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                v[name] = adapter.predict_velocity(model, batch, lat, sigma).float()
+                torch.cuda.synchronize()
+                v[name + "_ms"] = 1000 * (time.perf_counter() - t0)
+        rel = (torch.linalg.vector_norm(v["quantized"] - v["dequantized"])
+               / torch.linalg.vector_norm(v["dequantized"])).item()
+        tb = tt._device_batch(_train_batch(rng, cfg, gh, gw, 1))
+        noise = torch.randn(tb["image_latents"].shape, device="cuda", generator=gen).to(
+            torch.bfloat16)
+        sig = torch.full((1,), 0.6, device="cuda", dtype=torch.bfloat16)
+        grads = {}
+        for name, model in (("quantized", dit), ("dequantized", ref)):
+            for leaf in lora.values():
+                for t in leaf.values():
+                    t.grad = None
+            _loss_for_microbatch(model, lora, tb, noise, sig, adapter.predict_velocity,
+                                 MseLoss(), TrainStepConfig()).backward()
+            grads[name] = torch.cat([torch.cat([leaf["a"].grad.flatten(),
+                                                leaf["b"].grad.flatten()])
+                                     for leaf in lora.values()]).float()
+        grel = ((grads["quantized"] - grads["dequantized"]).norm()
+                / grads["dequantized"].norm()).item()
+        merge_lora(dit, None)
+        del ref
+        torch.cuda.empty_cache()
+        fl = _fit_in_tmp(tt, [_train_batch(rng, cfg, gh, gw, 1)])
+        hist = tt.history
+        exact = form != "int4_dynamic"
+        print(f"[quant_forms] {form}, FLUX full width, {E_DEPTH[0]} + {E_DEPTH[1]} blocks: "
+              f"forward {v['quantized_ms']:.1f} ms (dequantized base "
+              f"{v['dequantized_ms']:.1f} ms), rel L2 err against it {rel:.3e} (tol "
+              f"{0 if exact else FORWARD_REL_TOL}); LoRA gradients rel L2 err {grel:.3e} (tol "
+              f"{GRAD_REL_TOL}); fit bs=1 step {1000 * hist[0]['step_s']:.1f} ms, loss "
+              f"{hist[0]['loss']:.5f} [{card}]", flush=True)
+        if (rel > (0 if exact else FORWARD_REL_TOL) or grel > GRAD_REL_TOL
+                or not bool(torch.isfinite(v["quantized"]).all())):
+            raise AssertionError(f"{form}: the quantized FLUX disagrees with its dequantized "
+                                 "base")
+        if len(hist) != 1 or not np.isfinite(hist[0]["loss"]) or not all(
+                leaf["b"].abs().sum() > 0 for leaf in fl.values()):
+            raise AssertionError(f"{form}: the fit step did not train")
+        del dit, tt, fl, lora, grads, v
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_qwen_int8(card: str) -> int:
+    """Phase E(d): the 20B Qwen-Image-Edit DiT at full width and depth (60
+    blocks) over the int8 weight-only base (the dtype of
+    configs/example_qwen_image_edit_plus_multicontrol.yaml; the published
+    single-chip config with quantize {int8, attention off}), drawn and
+    quantized block by block; one 512² request of E_QWEN_STEPS denoising
+    steps at bs=1 through K1 (60 a step), printing its peak memory and
+    s/request.  Returns the K1 launches."""
+    from qflux_tpu_torch.config import config_from_dict
+    from qflux_tpu_torch.ops import flash_nr
+    from qflux_tpu_torch.trainer.base import Trainer
+
+    raw = copy.deepcopy(QWEN_832X576)
+    raw["model"]["quantize"] = {"enabled": True, "dtype": "int8"}
+    trainer = Trainer(config_from_dict(raw), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.load_model()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    dit, cfg = trainer.bundle.dit_params, trainer.bundle.dit_cfg
+    qb, rest = _q_bytes(dit)
+    print(f"[qwen_int8] Qwen-Image-Edit {cfg.num_layers} blocks, dim {cfg.dim}, int8 "
+          f"weight-only: {qb} bytes of int8 weights and scales, {rest} bytes of "
+          f"full-precision parameters; loaded in {load_s:.1f} s, peak "
+          f"{torch.cuda.max_memory_allocated()} bytes [{card}]", flush=True)
+    rng = np.random.default_rng(72)
+    gh, gw = trainer.adapter.latent_grid(QWEN512, QWEN512)
+    emb = _qwen_request(rng, cfg, gh, gw, 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_w8_counts()
+    t0 = time.perf_counter()
+    images = trainer.predict_from_embeddings(emb, QWEN512, QWEN512,
+                                             num_inference_steps=E_QWEN_STEPS, seed=73)
+    secs = time.perf_counter() - t0
+    stats = trainer.last_predict
+    k1 = flash_nr.KERNEL_LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[qwen_int8] request bs=1 at 512²: {secs:.3f} s, "
+          f"{1000 * stats['denoise_s'] / stats['steps']:.1f} ms/denoising step "
+          f"({stats['steps']} steps), VAE decode {1000 * stats['decode_s']:.1f} ms, peak mem "
+          f"{peak} bytes, K1 launches {k1}, W8A8 {_w8_counts()}, images {images.dtype} "
+          f"{list(images.shape)} [{card}]", flush=True)
+    if images.dtype != np.uint8 or not stats["latents_finite"]:
+        raise AssertionError("the int8 Qwen request gave no finite uint8 images")
+    if k1 != E_QWEN_STEPS * cfg.num_layers or _w8_counts() != (0, 0, 0, 0):
+        raise AssertionError(f"the int8 Qwen request launched K1 {k1}, W8A8 {_w8_counts()}")
+    del trainer, dit
+    gc.collect()
+    torch.cuda.empty_cache()
+    return k1
+
 
 def _fit_in_tmp(tt, batches):
     """Trainer.fit with its run dir (checkpoints, config) in a temporary
@@ -3123,8 +3889,10 @@ def phase_files_flux_weights(card: str) -> int:
 def phase_files_qwen(card: str, qwen, lora) -> tuple[int, ...]:
     """Phase C: Qwen-Image-Edit weights from files over the int4-requant
     base at full width (4 of 60 blocks, the published config's quantize
-    section), every quantized leaf equal to `quantize_tree` of the whole
-    in-memory conversion to the bit, and a 2-step 832×576 predict through K3
+    section), block 0 of the in-memory conversion quantized on the card
+    equal to its quantization on the CPU (`_quant_cpu_check`), every
+    quantized leaf equal to `quantize_tree` of the whole in-memory
+    conversion to the bit, and a 2-step 832×576 predict through K3
     and K5a with exact counts; then the full-depth model's trained LoRA
     (`lora`, from the Qwen train phase) exported to a file and read back
     into a fresh LoRA, whose bs=1 2-step predict must equal the one with
@@ -3165,6 +3933,9 @@ def phase_files_qwen(card: str, qwen, lora) -> tuple[int, ...]:
         want = bridge.load_params(
             qwen_dit.QwenImageTransformer(cfg, device="cuda", dtype=torch.bfloat16),
             convert_qwen_image_transformer(sd, cfg.num_layers))
+        # block 0 quantized on the card and on the CPU: equal to the bit
+        _quant_cpu_check(card, "[files_c] quantization", want.blocks[0],
+                         tr.config.model.quantize, "blocks/0/")
         quantize_tree(want, tr.config.model.quantize)
         n_q = sum(1 for m in want.modules() if getattr(m, "q4", None) is not None)
         n_all = _params_equal(dit, want)
@@ -3630,6 +4401,7 @@ def phase_data_qwen_fit(card: str, qwen) -> tuple[int, ...]:
 
 PROFILE_GROUPS = [("K5a rq_int4_fwd", ("rq_int4_fwd",)), ("K5b rq_int4_bwd", ("rq_int4_bwd",)),
                   ("row quant", ("rowquant",)),
+                  ("W8A8 int8_gemm", ("int8_gemm",)), ("W8A8 transpose", ("int8_transpose",)),
                   # after K5's: "rq_int4_fwd_kernel" contains "int4_fwd_kernel"
                   ("K6a int4_fwd", ("int4_fwd_kernel",)), ("K6b int4_bwd", ("int4_bwd_kernel",)),
                   ("K1 flash_nr_fwd", ("flash_nr_fwd",)),
@@ -4164,6 +4936,16 @@ def main() -> int:
     qwen_c, k1_c, k6_c = timed(phase_int4_predict)
     c_fit = timed(phase_int4_train, qwen_c)
     k1_ct, k2_ct, k6_ct, k6b_ct = c_fit[0], c_fit[1], c_fit[6], c_fit[7]
+    del qwen_c  # free the int4 model before phase E's loads
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_e = time.perf_counter()
+    w8_case, w8_dx_case, w8_t_case = timed(phase_w8a8_kernel)
+    k1_e, k2_e, w8_e, w8_dx_e, w8_t_e, rq_e = timed(phase_w8a8_flux)
+    timed(phase_quant_forms)
+    k1_eq = timed(phase_qwen_int8)
+    print(f"[smoke] phase E (the quantized bases JAX runs in XLA): "
+          f"{time.perf_counter() - t_e:.1f} s [{card}]", flush=True)
 
     print(f"[smoke] wall time {time.perf_counter() - t_start:.1f} s (build included) [{card}]",
           flush=True)
@@ -4171,17 +4953,20 @@ def main() -> int:
         {"name": "flash_nr_fwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/flash_nr_fwd.cu",
          "replaces": "qflux_tpu/ops/flash_nr.py:192",
-         "launches": k1_predict + k1_train + k1_fa + k1_fb + d_flux[0] + k1_c + k1_ct,
+         "launches": (k1_predict + k1_train + k1_fa + k1_fb + d_flux[0] + k1_c + k1_ct + k1_e
+                      + k1_eq),
          "launches_by_path": {"predict": k1_predict, "train": k1_train,
                               "files_flux_resume": k1_fa, "files_flux_weights": k1_fb,
                               "data_flux_cli": d_flux[0],
-                              "int4_predict": k1_c, "int4_train": k1_ct}, **k1_case},
+                              "int4_predict": k1_c, "int4_train": k1_ct, "w8a8_flux": k1_e,
+                              "qwen_int8": k1_eq}, **k1_case},
         {"name": "flash_nr_bwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/flash_nr_bwd.cu",
          "replaces": "qflux_tpu/ops/flash_nr.py:311",
-         "launches": k2_train + k2_fa + d_flux[1] + k2_ct,
+         "launches": k2_train + k2_fa + d_flux[1] + k2_ct + k2_e,
          "launches_by_path": {"train": k2_train, "files_flux_resume": k2_fa,
-                              "data_flux_cli": d_flux[1], "int4_train": k2_ct}, **k2_case},
+                              "data_flux_cli": d_flux[1], "int4_train": k2_ct,
+                              "w8a8_flux": k2_e}, **k2_case},
         {"name": "flash_fwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "qflux_tpu/ops/flash_attention.py:105",
@@ -4211,10 +4996,11 @@ def main() -> int:
         {"name": "rowquant", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/rowquant.cu",
          "replaces": "not a TPU kernel: qflux_tpu/ops/quant.py:144 _rowquant, left to XLA",
-         "launches": rq_qwen + rq_qt + rq_a + rq_at + rq_fc + d_qwen[10],
+         "launches": rq_qwen + rq_qt + rq_a + rq_at + rq_fc + d_qwen[10] + rq_e,
          "launches_by_path": {"qwen_predict": rq_qwen, "qwen_train": rq_qt,
                               "qwen512_predict": rq_a, "qwen512_train": rq_at,
-                              "files_qwen": rq_fc, "data_qwen_fit": d_qwen[10]},
+                              "files_qwen": rq_fc, "data_qwen_fit": d_qwen[10],
+                              "w8a8_flux": rq_e},
          "g_times_s_vec": rowquant_g_case, **rowquant_case},
         {"name": "flash_nr_fwd s_int8", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/flash_nr_fwd.cu",
@@ -4234,6 +5020,19 @@ def main() -> int:
          "source": "qflux_tpu_torch/csrc/int4_bwd.cu",
          "replaces": "qflux_tpu/ops/int4_matmul.py:75",
          "launches": k6b_ct, "launches_by_path": {"int4_train": k6b_ct}, **k6b_case},
+        {"name": "int8_gemm", "route": "cuda",
+         "source": "qflux_tpu_torch/csrc/int8_gemm.cu",
+         "replaces": "not a TPU kernel: qflux_tpu/ops/quant.py:157 dyn_int8_matmul, left to XLA",
+         "launches": w8_e, "launches_by_path": {"w8a8_flux": w8_e}, **w8_case},
+        {"name": "int8_gemm dx", "route": "cuda",
+         "source": "qflux_tpu_torch/csrc/int8_gemm.cu",
+         "replaces": "not a TPU kernel: qflux_tpu/ops/quant.py:182 _dyn_vjp_bwd, left to XLA",
+         "launches": w8_dx_e, "launches_by_path": {"w8a8_flux": w8_dx_e}, **w8_dx_case},
+        {"name": "int8_transpose", "route": "cuda",
+         "source": "qflux_tpu_torch/csrc/int8_gemm.cu",
+         "replaces": "not a TPU kernel: the weight transpose before the W8A8 dx (XLA lays out "
+                     "qflux_tpu/ops/quant.py:186's operand itself)",
+         "launches": w8_t_e, "launches_by_path": {"w8a8_flux": w8_t_e}, **w8_t_case},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -7,7 +7,9 @@ are built on first use by `runtime/build.py`.
 
 Ported so far: FLUX.1-Kontext and the 20B Qwen-Image-Edit, predict and the
 LoRA train step from cached embeddings (`trainer/base.py:Trainer`), over
-full-precision, int4-requant and W4A16 int4 bases, with every Pallas kernel
+a full-precision base or any quantized base of JAX's `quantize.dtype`
+(int8 / fp8 weight-only, W8A8 on the int8 GEMM of `csrc/int8_gemm.cu`,
+W4A8 per group, W4A8-requant, W4A16), with every Pallas kernel
 of the JAX package as a CUDA kernel: K1 / K2 (fused qk-RMSNorm + RoPE +
 flash attention and its backward, `csrc/flash_nr_*.cu`), K3 / K4 (plain
 flash attention and its backward, `csrc/flash_fwd.cu`, `csrc/flash_bwd.cu`),

@@ -1,6 +1,6 @@
 // Helpers shared by the port's kernels (flash_nr_fwd.cu, flash_nr_bwd.cu,
 // flash_fwd.cu, flash_bwd.cu, rq_int4_fwd.cu, rq_int4_bwd.cu, rowquant.cu,
-// int4_fwd.cu, int4_bwd.cu): bf16 rounding, packing two floats into one bf16x2
+// int8_gemm.cu, int4_fwd.cu, int4_bwd.cu): bf16 rounding, packing two floats into one bf16x2
 // register, and an int4 nibble as an exact f32.  Each translation unit gets its
 // own copy (anonymous namespace): the kernels are compiled separately and linked
 // into one library.

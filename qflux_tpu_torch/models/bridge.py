@@ -10,12 +10,15 @@ same weights:
   * stacked `[L, ...]` leaves ("dual", "single") are unstacked into the
     `nn.ModuleList`s;
   * a dense `kernel [in, out]` becomes `weight [out, in]`;
-  * an int4 dense (qflux_tpu/ops/quant.py:quantize_tree) keeps the JAX
-    layout: `{kernel_q4_rq [in/2, out], kernel_scale [in/G, out]}`
-    (W4A8-requant) goes in with `Dense.set_int4_requant`, `{kernel_q4,
-    kernel_scale}` (W4A16) with `Dense.set_int4`, each dropping the
-    full-precision weight.  Every other quantized form (`kernel_q`,
-    `kernel_q_dyn`, `kernel_q4_dyn`) raises;
+  * a quantized dense (qflux_tpu/ops/quant.py:quantize_tree) goes in with
+    `Dense.set_quantized`, dropping the full-precision weight: the int4
+    forms keep the JAX layout, `{kernel_q4_rq | kernel_q4 | kernel_q4_dyn
+    [in/2, out], kernel_scale [in/G, out]}` (W4A8-requant, W4A16, W4A8 per
+    group); the per-channel forms `{kernel_q | kernel_q_dyn [in, out],
+    kernel_scale [1, out]}` (weight-only int8 / fp8, W8A8) are transposed
+    once to q [out, in], as a kernel is.  A `kernel_q` leaf's element type
+    names its form (int8, or ml_dtypes' float8_e4m3fn / float8_e5m2, which
+    cross numpy as bytes); a leaf that does not fit the layer raises;
   * a conv `kernel` HWIO becomes `weight` OIHW, a 3D one [kt, kh, kw, cin,
     cout] `weight` OIDHW;
   * the JAX MLP nodes "in"/"out" are the modules `lin_in`/`lin_out`.
@@ -31,7 +34,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from qflux_tpu_torch.ops.layers import Dense, LoraTree, raise_quantized
+from qflux_tpu_torch.ops.layers import Dense, LoraTree
+from qflux_tpu_torch.ops.quant import QDTYPE
 
 _RENAME = {"in": "lin_in", "out": "lin_out"}
 
@@ -58,22 +62,42 @@ def _child(module: nn.Module, key: str) -> nn.Module:
     return child
 
 
-_INT4_LEAVES = ("kernel_q4_rq", "kernel_q4")  # the quantized forms that load
+# the quantized leaves that load, and the form each names (kernel_q's from
+# its element type)
+_Q_LEAVES = {"kernel_q4_rq": "int4_requant", "kernel_q4": "int4",
+             "kernel_q4_dyn": "int4_dynamic", "kernel_q_dyn": "int8_dynamic", "kernel_q": None}
+_Q_DTYPES = {dt: name for name, dt in QDTYPE.items()}
+_FP8 = {"float8_e4m3fn": torch.float8_e4m3fn, "float8_e5m2": torch.float8_e5m2}
+
+
+def _qtensor(x) -> torch.Tensor:
+    """A quantized leaf as a CPU torch tensor of its own element type: int8,
+    or fp8 through a byte view (numpy knows fp8 only as ml_dtypes' types)."""
+    if torch.is_tensor(x):
+        return x.detach()
+    a = np.asarray(x)
+    if a.dtype.name in _FP8:
+        return torch.from_numpy(a.view(np.uint8).copy()).view(_FP8[a.dtype.name])
+    if a.dtype != np.int8:
+        raise ValueError(f"a quantized leaf of {a.dtype}: int8 or fp8 loads")
+    return torch.from_numpy(np.array(a))
 
 
 def _load(module: nn.Module, tree: Mapping[str, Any], loaded: set, path: str) -> None:
-    for key in tree:
-        if key.startswith("kernel_q") and key not in _INT4_LEAVES:
-            raise_quantized(key)
-    for key in _INT4_LEAVES:
+    for key, form in _Q_LEAVES.items():
         if key not in tree:
             continue
         if not isinstance(module, Dense):
             raise KeyError(f"{path}{key}: {type(module).__name__} is not a dense layer")
-        dev = (module.weight if module.weight is not None else module.q4).device
-        q4 = torch.from_numpy(np.array(tree[key], np.int8)).to(dev)
+        dev = module.device
+        q = _qtensor(tree[key])
         scale = _tensor(tree["kernel_scale"]).to(dev, torch.float32)
-        (module.set_int4_requant if key == "kernel_q4_rq" else module.set_int4)(q4, scale)
+        if key in ("kernel_q", "kernel_q_dyn"):
+            form = form or _Q_DTYPES.get(q.dtype)
+            if form is None:
+                raise ValueError(f"{path}{key}: {q.dtype} is no quantized form")
+            q = q.t() if q.dim() == 2 else q
+        module.set_quantized(q.to(dev), scale, form)
         tree = {k: v for k, v in tree.items() if k not in (key, "kernel_scale")}
     for key, val in tree.items():
         if isinstance(val, Mapping):

@@ -10,15 +10,18 @@ rotate-half RoPE through `ops.attention.qk_norm_rope_attention` (on the
 card JAX's one-chip route: the fused kernel K1 where `flash_nr.supports`
 holds, as at 512², else the plain norm + rope and kernel K3, as at 832×576;
 the scale pairs are [norm_added_*, norm_*], row 0 for the text rows < st), GELU-tanh MLPs, temb from the sinusoidal-256 embedding
-only.  The dense layers may hold int4 weights (ops/layers.py): over the
-int4-requant base the large products run kernel K5a and their input
-gradients kernel K5b; over the W4A16 (`int4`) base with QFLUX_FUSED_INT4=1,
-every product of a shape JAX's fused kernel takes (K % 3072, N % 128) runs
-kernel K6a and its input gradient kernel K6b.
+only.  The dense layers may hold quantized weights in any form of
+ops/layers.py: over the int4-requant base the large products run kernel
+K5a and their input gradients kernel K5b; over the W4A16 (`int4`) base
+with QFLUX_FUSED_INT4=1, every product of a shape JAX's fused kernel takes
+(K % 3072, N % 128) runs kernel K6a and its input gradient kernel K6b;
+over the W8A8 (`int8_dynamic`) base the large products run the int8 GEMM
+of csrc/int8_gemm.cu.
 
 The 20B model is 40.8 GB in bf16: `init` draws the blocks one at a time
 and, given a quantize config, quantizes each block as it is drawn, so the
-bf16 tree never exists whole (the int4 DiT is ~11.5 GB).
+bf16 tree never exists whole (the int4 DiT is ~11.5 GB, the int8 one
+~20 GB).
 
 Training recomputes each block in backward under the remat policies of
 models/flux/transformer.py (`_remat`: "full", "flash", "flash_offload"; the

@@ -8,29 +8,41 @@ nn.Linear) and a LoRA tree is a flat dict keyed by the module's '/'-path
 `merge_lora` attaches those tensors to the matching `Dense` modules in place,
 beside the frozen base weight: there is never a second copy of the base.
 
-A dense layer may also hold its frozen weight as packed int4 `q4 [K/2, N]`
-and group scales `scale [K/G, N]` in the JAX layout, as frozen buffers
-(`quantize_tree` leaves them so), in one of two forms, which `q4_form`
-names.  Each routes as qflux_tpu/ops/layers.py:_base_matmul does:
+A dense layer may also hold its frozen weight quantized, as frozen
+buffers, in any form of JAX's `quantize_tree` (`Dense.set_quantized`;
+`q_form` names the form).  The int4 forms keep packed int4 `q4 [K/2, N]`
+and group scales `scale [K/G, N]` in the JAX layout; the per-channel forms
+keep `q [N, K]` (int8 or fp8, laid out as the weight) and `scale [1, N]`.
+Each routes as qflux_tpu/ops/layers.py:_base_matmul does:
 
-  * W4A8-requant (`Dense.set_int4_requant`, JAX's `kernel_q4_rq`), with the
-    requant factors (f, s_vec) cached beside q4: calls with at most 32 rows
-    (the AdaLN modulation projections, `time_in`) dequantize the weight to
+  * W4A8-requant ("int4_requant", JAX's `kernel_q4_rq`), with the requant
+    factors (f, s_vec) cached beside q4: calls with at most 32 rows (the
+    AdaLN modulation projections, `time_in`) dequantize the weight to
     x.dtype and multiply with an f32 result; the rest run the fused requant
     matmul (kernel K5a on the card, its input gradient kernel K5b), whose
     result is already in x.dtype;
-  * W4A16 (`Dense.set_int4`, JAX's `kernel_q4`), with no tiny-M rule: where
+  * W4A8 per group ("int4_dynamic", `kernel_q4_dyn`): the same tiny-M rule,
+    else `quant.dyn_int4_matmul`, in x.dtype;
+  * W4A16 ("int4", `kernel_q4`), with no tiny-M rule: where
     `QFLUX_FUSED_INT4=1` is set when the call runs and
     `int4_matmul.supports` holds, the fused W4A16 matmul (kernel K6a on the
     card, its input gradient kernel K6b; x cast to bf16, the result in
     x.dtype); otherwise, JAX's default, the weight dequantized to x.dtype and
-    an f32 product.
+    an f32 product;
+  * W8A8 ("int8_dynamic", `kernel_q_dyn`): at most 32 rows take the
+    weight-only product (f32 result); the rest the W8A8 matmul
+    (ops/int8_matmul.py: the row quantization and the int8 `wgmma` GEMM
+    on the card), in x.dtype;
+  * weight-only ("int8", "fp8_e4m3", "fp8_e5m2", `kernel_q`):
+    `quant.wo_matmul`, the weight dequantized to x.dtype, an f32 result.
 
 A base product in x.dtype makes the LoRA delta and the bias add in x.dtype.
 Every route is differentiable in x and never in the frozen weight.
-`set_int4_impl(model, "plain")` sends the fused routes to their plain
-versions instead: an explicit switch for comparing with the kernels, as
-attn_impl="plain" is.
+`set_int4_impl(model, "plain")` sends the kernel routes (K5a, K6a, W8A8)
+to their plain versions instead: an explicit switch for comparing with the
+kernels, as attn_impl="plain" is.  `fuse_lora` folds a LoRA into the base
+weights in place, through a dequantize → requantize cycle on quantized
+layers.
 
 For training, `mark_trainable` makes `a`, `b` and `scaling` f32 leaf
 tensors with `requires_grad`; the base weights and biases stay frozen
@@ -51,7 +63,8 @@ from typing import Iterator, Optional
 import torch
 from torch import nn
 
-from qflux_tpu_torch.ops import int4_matmul, quant
+from qflux_tpu_torch.ops import int4_matmul, int8_matmul, quant
+from qflux_tpu_torch.ops.quant import _matmul_f32
 
 LoraTree = dict  # {"dual/0/attn/to_q": {"a", "b", "scaling"}, ...}
 
@@ -59,9 +72,9 @@ LoraTree = dict  # {"dual/0/attn/to_q": {"a", "b", "scaling"}, ...}
 class Dense(nn.Module):
     """y = x @ W^T + b.  `lora` is None or the {"a", "b", "scaling"} dict
     set by `merge_lora`.  The weight is `weight [out, in]`, or, after
-    `set_int4_requant`, the buffers `q4`, `scale`, `rq_f` and `rq_s_vec`
-    (`q4_form` "int4_requant"), or, after `set_int4`, `q4` and `scale`
-    (`q4_form` "int4")."""
+    `set_quantized`, the buffers of the form `q_form` names: `q4` and
+    `scale` (+ `rq_f`, `rq_s_vec` for "int4_requant") for the int4 forms,
+    `q` and `scale` for the per-channel ones."""
 
     def __init__(self, in_dim: int, out_dim: int, bias: bool = True,
                  device=None, dtype=None):
@@ -72,38 +85,49 @@ class Dense(nn.Module):
         self.bias = (nn.Parameter(torch.empty(out_dim, **kw), requires_grad=False)
                      if bias else None)
         self.lora: Optional[dict] = None
-        for name in ("q4", "scale", "rq_f", "rq_s_vec"):
+        for name in ("q4", "q", "scale", "rq_f", "rq_s_vec"):
             self.register_buffer(name, None)
-        self.q4_form: Optional[str] = None  # "int4_requant" | "int4" once quantized
-        self.impl = "auto"  # "plain": the plain int4 matmuls instead of K5a / K6a
+        self.q_form: Optional[str] = None  # quant.INT4_FORMS / CHANNEL_FORMS once quantized
+        self.impl = "auto"  # "plain": the plain matmuls instead of K5a / K6a / W8A8
 
-    def _set_q4(self, q4, scale, form: str) -> None:
-        if tuple(q4.shape) != (self.in_dim // 2, self.out_dim) or q4.dtype != torch.int8:
-            raise ValueError(f"q4 {q4.dtype} {tuple(q4.shape)} does not fit "
+    @property
+    def device(self) -> torch.device:
+        return next(t for t in (self.weight, self.q4, self.q) if t is not None).device
+
+    def set_quantized(self, q, scale, form: str) -> None:
+        """Hold the frozen weight in `form`, dropping the full-precision
+        weight.  The int4 forms take q4 [in/2, out] int8 and scale [in/G,
+        out] (JAX's `kernel_q4*` / `kernel_scale`); "int4_requant" caches
+        its requant factors.  The per-channel forms take q [out, in] (JAX's
+        `kernel_q` / `kernel_q_dyn` transposed: int8 for "int8" and
+        "int8_dynamic", fp8 for "fp8_*") and scale [1, out].  Raises on a
+        leaf that does not fit the layer."""
+        if form in quant.INT4_FORMS:
+            want, name = ((self.in_dim // 2, self.out_dim), torch.int8), "q4"
+            fits = (scale.dim() == 2 and scale.shape[1] == self.out_dim
+                    and self.in_dim % scale.shape[0] == 0)
+        elif form in quant.CHANNEL_FORMS:
+            dt = quant.QDTYPE["int8" if form == "int8_dynamic" else form]
+            want, name = ((self.out_dim, self.in_dim), dt), "q"
+            fits = tuple(scale.shape) == (1, self.out_dim)
+        else:
+            raise ValueError(f"unknown quantized form {form!r}")
+        if (tuple(q.shape), q.dtype) != want:
+            raise ValueError(f"{form} q {q.dtype} {tuple(q.shape)} does not fit "
                              f"{self.in_dim}→{self.out_dim}")
-        if (scale.dim() != 2 or scale.shape[1] != self.out_dim
-                or self.in_dim % scale.shape[0]):
-            raise ValueError(f"scale {tuple(scale.shape)} does not fit "
+        if not fits:
+            raise ValueError(f"{form} scale {tuple(scale.shape)} does not fit "
                              f"{self.in_dim}→{self.out_dim}")
         self.weight = None
-        self.q4_form = form
-        for name, t in (("q4", q4), ("scale", scale.float())):
-            self.register_buffer(name, t.contiguous())
-
-    def set_int4_requant(self, q4, scale) -> None:
-        """Hold the frozen weight as W4A8-requant int4 (q4 [in/2, out] int8,
-        scale [in/G, out] f32, the JAX `kernel_q4_rq` / `kernel_scale`),
-        dropping the full-precision weight; caches the requant factors."""
-        self._set_q4(q4, scale, "int4_requant")
-        f, s_vec = quant._requant_factors(self.scale)
-        for name, t in (("rq_f", f), ("rq_s_vec", s_vec)):
-            self.register_buffer(name, t.contiguous())
-
-    def set_int4(self, q4, scale) -> None:
-        """Hold the frozen weight as W4A16 int4 (q4 [in/2, out] int8, scale
-        [in/G, out] f32, the JAX `kernel_q4` / `kernel_scale`), dropping the
-        full-precision weight."""
-        self._set_q4(q4, scale, "int4")
+        self.q_form = form
+        for n in ("q4", "q", "rq_f", "rq_s_vec"):
+            self.register_buffer(n, None)
+        for n, t in ((name, q), ("scale", scale.float())):
+            self.register_buffer(n, t.contiguous())
+        if form == "int4_requant":
+            f, s_vec = quant._requant_factors(self.scale)
+            for n, t in (("rq_f", f), ("rq_s_vec", s_vec)):
+                self.register_buffer(n, t.contiguous())
 
     def init_(self, generator: torch.Generator) -> None:
         """Torch-nn.Linear-compatible init, as `dense_init`: U(±1/sqrt(in))."""
@@ -124,60 +148,36 @@ class MLP(nn.Module):
         self.lin_out = Dense(hidden, out_dim or dim, device=device, dtype=dtype)
 
 
-class _MatmulF32Out(torch.autograd.Function):
-    """x2 [N, in] @ W^T with an f32 result through cuBLAS `out_dtype`.  The
-    `aten::mm.dtype` overload has no derivative formula, so this gives it
-    one: dx = g @ W in x's dtype (bf16 operands, f32 accumulation).  W is a
-    frozen base weight: no dW is computed."""
-
-    @staticmethod
-    def forward(ctx, x2, w):
-        ctx.save_for_backward(w)
-        return torch.mm(x2, w.t(), out_dtype=torch.float32)
-
-    @staticmethod
-    def backward(ctx, g):
-        (w,) = ctx.saved_tensors
-        return torch.mm(g.to(w.dtype), w), None
-
-
-def _matmul_f32(x, w):
-    """x @ w^T (w [out, in]) with an f32 result, as `jnp.dot(...,
-    preferred_element_type=f32)`: f32 inputs multiply in f32 (the weight
-    cast to x.dtype, as JAX); bf16 inputs accumulate in f32 and keep the f32
-    result (cuBLAS `out_dtype` on the card; widened operands on the CPU,
-    same math)."""
-    if x.dtype == torch.float32:
-        return torch.matmul(x, w.to(x.dtype).t())
-    w = w.to(x.dtype)
-    x2 = x.reshape(-1, x.shape[-1])
-    if x.is_cuda:
-        y = _MatmulF32Out.apply(x2, w)
-    else:
-        y = torch.mm(x2.float(), w.float().t())
-    return y.reshape(*x.shape[:-1], w.shape[0])
-
-
 def _base_matmul(p: Dense, x):
     """x @ W^T for whatever form the frozen weight is held in, by the JAX
-    package's routes.  W4A16: with `QFLUX_FUSED_INT4=1` where `supports`
-    holds, the fused W4A16 matmul, in x.dtype; otherwise dequantized to
-    x.dtype, f32 result.  W4A8-requant: at most 32 rows → dequantized to
-    x.dtype, f32 result (a GEMV-shaped call gains nothing from the int8
-    path); otherwise the requant matmul, in x.dtype."""
-    if p.q4 is None:
+    package's routes (the module docstring): the tiny-M rule (at most 32
+    rows) for int4_requant, int4_dynamic and int8_dynamic; f32 results from
+    the full-precision, dequantized and weight-only products, x.dtype from
+    the int8 ones."""
+    form = p.q_form
+    if form is None:
         return _matmul_f32(x, p.weight)
-    if p.q4_form == "int4":
+    plain = p.impl == "plain"
+    tiny_m = x.numel() // x.shape[-1] <= 32
+    if form == "int4":
         if (os.environ.get("QFLUX_FUSED_INT4") == "1"
                 and int4_matmul.supports(2 * p.q4.shape[0], p.q4.shape[1], p.scale.shape[-2])):
-            if p.impl == "plain":
+            if plain:
                 return int4_matmul.int4_matmul_plain(x, p.q4, p.scale)
             return int4_matmul.int4_matmul(x, p.q4, p.scale)
-    elif x.numel() // x.shape[-1] > 32:
+    elif form == "int4_dynamic" and not tiny_m:
+        return quant.dyn_int4_matmul(x, p.q4, p.scale)
+    elif form == "int4_requant" and not tiny_m:
         factors = (p.rq_f, p.rq_s_vec)
-        if p.impl == "plain":
+        if plain:
             return quant.requant_int4_matmul(x, p.q4, p.scale, factors)
         return int4_matmul.rq_fused_matmul(x, p.q4, p.scale, factors)
+    elif form == "int8_dynamic" and not tiny_m:
+        if plain:
+            return quant.dyn_int8_matmul(x, p.q, p.scale[0])
+        return int8_matmul.dyn_int8_matmul(x, p.q, p.scale[0])
+    elif form in quant.CHANNEL_FORMS:
+        return quant.wo_matmul(x, p.q, p.scale[0])
     return _matmul_f32(x, quant.dequantize_kernel_int4(p.q4, p.scale, x.dtype).t())
 
 
@@ -201,18 +201,9 @@ def dense(p: Dense, x, lora_scale: float = 1.0):
     return y.to(x.dtype)
 
 
-def raise_quantized(kind: str):
-    """Quantized frozen bases other than int4 (`kernel_q4`) and
-    W4A8-requant (`kernel_q4_rq`) are not ported yet."""
-    raise NotImplementedError(
-        f"quantized dense form {kind!r} is not ported yet (ROADMAP.md, queue 1: \"The rest "
-        "of slice B, part 2: the quantized bases that JAX runs in XLA, not Pallas\"; "
-        "ported: kernel_q4, kernel_q4_rq)")
-
-
 def set_int4_impl(module: nn.Module, impl: str) -> None:
-    """Route every int4 dense layer of `module` through the kernels K5a / K6a
-    ("auto") or the plain requant and W4A16 matmuls ("plain")."""
+    """Route every quantized dense layer of `module` through the kernels
+    (K5a, K6a, the W8A8 GEMM: "auto") or their plain versions ("plain")."""
     if impl not in ("auto", "plain"):
         raise ValueError(f"unknown int4 impl {impl!r} (auto | plain)")
     for _, node in iter_dense_paths(module):
@@ -286,3 +277,45 @@ def mark_trainable(lora: LoraTree) -> LoraTree:
         for key in ("a", "b", "scaling"):
             leaf[key] = leaf[key].detach().requires_grad_()
     return lora
+
+
+def _fuse_into_node(node: Dense, delta) -> None:
+    """W += delta ([in, out] f32), in place, for whatever form the frozen
+    weight is held in, as JAX's `_fuse_into_node`: a full-precision weight
+    adds in f32 and casts back; a quantized one is dequantized to f32, the
+    delta added, and quantized again onto the same family (per-channel int8
+    / fp8, or grouped int4 with the group size from the scale's shape; the
+    requant factors recomputed)."""
+    with torch.no_grad():
+        if node.q_form is None:
+            w = node.weight
+            w.copy_((w.float() + delta.t()).to(w.dtype))
+            return
+        if node.q_form in quant.INT4_FORMS:
+            w = quant.dequantize_kernel_int4(node.q4, node.scale, torch.float32)
+            q, scale = quant.quantize_kernel_int4(w + delta, w.shape[-2] // node.scale.shape[-2])
+        else:
+            w = node.q.float().t() * node.scale  # [in, out], JAX's f32(q) · scale
+            qdt = "int8" if node.q_form == "int8_dynamic" else node.q_form
+            q, scale = quant.quantize_kernel(w + delta, qdt)
+            q = q.t()
+        node.set_quantized(q, scale, node.q_form)
+
+
+def fuse_lora(model: nn.Module, lora: LoraTree, scale: float = 1.0) -> nn.Module:
+    """Fold `lora` into the base weights for good, in place (W +=
+    scale · scaling · a@b, the product in f32), over full-precision and
+    quantized layers alike (`_fuse_into_node`), as JAX's `fuse_lora`: used
+    for DreamOmni2's fused edit-LoRA load.  Returns the model."""
+    nodes = dict(iter_dense_paths(model))
+    missing = sorted(set(lora) - set(nodes))
+    if missing:
+        raise KeyError(f"LoRA paths with no dense layer in the model: {missing[:5]}")
+    for path, leaf in lora.items():
+        node = nodes[path]
+        scaling = torch.as_tensor(leaf.get("scaling", 1.0), dtype=torch.float32,
+                                  device=node.device)
+        delta = torch.matmul(leaf["a"].detach().to(node.device, torch.float32),
+                             leaf["b"].detach().to(node.device, torch.float32))
+        _fuse_into_node(node, delta * (scale * scaling.detach()))
+    return model

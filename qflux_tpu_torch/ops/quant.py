@@ -35,9 +35,31 @@ int8 `wgmma` GEMM), and csrc/rowquant.cu the row quantization.
 The W4A16 form (`dtype: int4`, JAX's `kernel_q4`) keeps the same q4 and
 scales; its product is the weight dequantized by `dequantize_kernel_int4`
 (JAX's default route, ops/layers.py) or the fused W4A16 matmul
-(ops/int4_matmul.py:int4_matmul, kernels K6a / K6b on the card).  The other
-quantized forms (int8 / fp8 weight-only, W8A8-dynamic, W4A8 per-group) are
-not ported yet: `quantize_tree` raises on them.
+(ops/int4_matmul.py:int4_matmul, kernels K6a / K6b on the card).
+
+The other forms, which JAX leaves to XLA, are here too, each equal to its
+JAX function (the W8A8 and integer products to the bit):
+
+  * `quantize_kernel` (int8, fp8_e4m3, fp8_e5m2) → q and scales [..., 1,
+    N] (JAX's `kernel_q` / `kernel_q_dyn` with `kernel_scale`);
+  * `wo_matmul`: weight-only, the weight dequantized to x.dtype and an f32
+    product, with JAX's backward (the scale folded into the cotangent,
+    then a product with q in x.dtype), not the autograd of the forward;
+  * `dyn_int8_matmul`: W8A8, the row-quantized activation against the int8
+    weight, exact int32 accumulation, (f32(acc) · sx) · s_w in x.dtype;
+    its straight-through dx row-quantizes g · s_w and multiplies by qᵀ
+    (ops/int8_matmul.py runs it on the card's int8 GEMM);
+  * `dyn_int4_matmul`: W4A8 per group, one exact int8 product per scale
+    group, scaled by the group scales and summed over the groups in f32,
+    then by the row scale; its dx quantizes g · s_g per (row, group).
+
+Every quantization scale computed here (`quantize_kernel`,
+`quantize_kernel_int4`) is a true division, as JAX computes it eagerly
+(`Trainer.load_model` quantizes outside `jit`), on either device: the
+divisor is a tensor on the input's device (`_div`), since CUDA divides a
+tensor by a Python scalar, or by a 0-dim CPU tensor, as a product with the
+reciprocal.  The row scales (`_rowquant`, the per-group dx scales) are the
+product with fl32(1/127), as JAX computes them under `jit`.
 """
 
 from __future__ import annotations
@@ -45,6 +67,40 @@ from __future__ import annotations
 import re
 
 import torch
+
+
+# the largest magnitude of each per-channel form, and its element type
+QMAX = {"int8": 127.0, "fp8_e4m3": 448.0, "fp8_e5m2": 57344.0}
+QDTYPE = {"int8": torch.int8, "fp8_e4m3": torch.float8_e4m3fn, "fp8_e5m2": torch.float8_e5m2}
+
+
+def _div(a, d: float):
+    """a / d as a true division on a's device: the divisor a tensor there
+    (CUDA multiplies by the reciprocal of a Python scalar or a 0-dim CPU
+    tensor)."""
+    return a / torch.full_like(a, d)
+
+
+def quantize_kernel(kernel, dtype: str = "int8"):
+    """[…, in, out] float → (q […, in, out] int8 / fp8, scale […, 1, out]
+    f32), symmetric per output channel: scale = amax / QMAX[dtype] (not
+    clamped: an all-zero column keeps 0), q = round(k / max(scale, 1e-12))
+    (int8, half to even) or the quotient cast to fp8 (round to nearest
+    even).  JAX's `quantize_kernel`, to the bit."""
+    if dtype not in QMAX:
+        raise ValueError(f"unknown quant dtype {dtype!r}")
+    k = kernel.float()
+    amax = k.abs().amax(dim=-2, keepdim=True)  # per output channel
+    scale = _div(amax, QMAX[dtype])
+    v = k / torch.clamp_min(scale, 1e-12)
+    q = torch.round(v).to(torch.int8) if dtype == "int8" else v.to(QDTYPE[dtype])
+    return q, scale
+
+
+def dequantize_kernel(q, scale, dtype=torch.bfloat16):
+    """(f32(q) · scale) cast once to `dtype`; q and scale broadcast as
+    stored (JAX's [K, N] and [1, N], or the port's [N, K] and [N, 1])."""
+    return (q.float() * scale).to(dtype)
 
 
 def quantize_kernel_int4(kernel, group_size: int = 128):
@@ -57,7 +113,7 @@ def quantize_kernel_int4(kernel, group_size: int = 128):
         raise ValueError(f"in_dim {d_in} must divide group_size {g} and be even")
     grouped = k.reshape(*lead, d_in // g, g, d_out)
     amax = grouped.abs().amax(dim=-2, keepdim=True)            # [..., in/G, 1, out]
-    scale = torch.clamp_min(amax / 7.0, 1e-12)
+    scale = torch.clamp_min(_div(amax, 7.0), 1e-12)
     q = torch.clamp(torch.round(grouped / scale), -8, 7).to(torch.int8)
     q = q.reshape(*lead, d_in, d_out)
     lo, hi = q[..., : d_in // 2, :], q[..., d_in // 2:, :]
@@ -189,6 +245,194 @@ def requant_int4_matmul(x, q4, g_scale, factors=None):
     return _RequantInt4Matmul.apply(x, q4, f, s_vec)
 
 
+# ---------------------------------------------------------------------------
+# the per-output-channel forms: weight-only (int8 / fp8) and W8A8-dynamic.
+# Their q is held as the port's Dense holds a weight, [N, K] (JAX's [K, N]
+# transposed), with the channel scales s_vec [N].
+
+
+class _MatmulF32Out(torch.autograd.Function):
+    """x2 [N, in] @ W^T with an f32 result through cuBLAS `out_dtype`.  The
+    `aten::mm.dtype` overload has no derivative formula, so this gives it
+    one: dx = g @ W in x's dtype (bf16 operands, f32 accumulation).  W is a
+    frozen base weight: no dW is computed."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(w)
+        return torch.mm(x2, w.t(), out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        (w,) = ctx.saved_tensors
+        return torch.mm(g.to(w.dtype), w), None
+
+
+def _matmul_f32(x, w):
+    """x @ w^T (w [out, in]) with an f32 result, as `jnp.dot(...,
+    preferred_element_type=f32)`: f32 inputs multiply in f32 (the weight
+    cast to x.dtype, as JAX); bf16 inputs accumulate in f32 and keep the f32
+    result (cuBLAS `out_dtype` on the card; widened operands on the CPU,
+    same math)."""
+    if x.dtype == torch.float32:
+        return torch.matmul(x, w.to(x.dtype).t())
+    w = w.to(x.dtype)
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.is_cuda:
+        y = _MatmulF32Out.apply(x2, w)
+    else:
+        y = torch.mm(x2.float(), w.float().t())
+    return y.reshape(*x.shape[:-1], w.shape[0])
+
+
+class _WoMatmul(torch.autograd.Function):
+    """JAX's `wo_matmul`: y = x @ (f32(q) · s)ᵀ cast to x.dtype, in f32; its
+    backward is JAX's own, not the autograd of the forward: the cotangent
+    scaled by the channel scales in f32 and cast to x.dtype, times q in
+    x.dtype with an f32 result, cast to x.dtype.  q and s get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, q, s_vec):
+        ctx.save_for_backward(q, s_vec)
+        ctx.x_dtype = x.dtype
+        return _matmul_f32(x, dequantize_kernel(q, s_vec[:, None], x.dtype))
+
+    @staticmethod
+    def backward(ctx, g):
+        q, s_vec = ctx.saved_tensors
+        gs = (g.float() * s_vec).to(ctx.x_dtype)
+        return _matmul_f32(gs, q.to(ctx.x_dtype).t()).to(ctx.x_dtype), None, None
+
+
+def wo_matmul(x, q, s_vec):
+    """Weight-only product: x [..., K] float; q [N, K] int8 or fp8; s_vec [N]
+    f32 → [..., N] f32 (JAX's `wo_matmul`, the int8 / fp8 weight-only
+    forms and the tiny-M calls of W8A8), differentiable in x.  On either
+    device the weight is dequantized to x.dtype and multiplied: XLA does
+    the same in JAX."""
+    return _WoMatmul.apply(x, q, s_vec)
+
+
+def dyn_int8_fwd(x, q, s_vec):
+    """The W8A8 forward, plain: x row-quantized (`_rowquant`), the exact
+    integer product with q [N, K] (float64), then (f32(acc) · sx) · s_vec,
+    one cast to x.dtype.  JAX's `_dyn_fwd_raw` under `jit`, to the bit."""
+    xq, sx = _rowquant(x)
+    acc = _int_product(xq.reshape(-1, xq.shape[-1]), q.t())
+    acc = acc.reshape(*x.shape[:-1], q.shape[0])
+    return ((acc.to(torch.float32) * sx) * s_vec).to(x.dtype)
+
+
+def dyn_int8_dx(g, q, s_vec):
+    """The W8A8 straight-through backward, plain: g [..., N] → dx [..., K]
+    in g.dtype, as JAX's `_dyn_vjp_bwd` under `jit`: gs = f32(g) · s_vec
+    row-quantized to (gq, sg), the exact product gq · q, then f32(dxa) · sg."""
+    gq, sg = _rowquant(g.float() * s_vec)
+    dxa = _int_product(gq.reshape(-1, gq.shape[-1]), q)
+    return (dxa.reshape(*g.shape[:-1], q.shape[1]).to(torch.float32) * sg).to(g.dtype)
+
+
+class _DynInt8Matmul(torch.autograd.Function):
+    """The plain W8A8 forward with the plain straight-through backward."""
+
+    @staticmethod
+    def forward(ctx, x, q, s_vec):
+        ctx.save_for_backward(q, s_vec)
+        return dyn_int8_fwd(x, q, s_vec)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, s_vec = ctx.saved_tensors
+        return dyn_int8_dx(g, q, s_vec), None, None
+
+
+def dyn_int8_matmul(x, q, s_vec):
+    """W8A8-dynamic, plain: x [..., K] float; q [N, K] int8; s_vec [N] f32 →
+    [..., N] in x.dtype, differentiable in x (straight through).  The card
+    route is ops/int8_matmul.py, which equals it to the bit."""
+    return _DynInt8Matmul.apply(x, q, s_vec)
+
+
+# ---------------------------------------------------------------------------
+# W4A8 per group (`int4_dynamic`, JAX's `kernel_q4_dyn`): q4 and the group
+# scales in the JAX layout, as the other int4 forms.
+
+# |a| <= 127 (row-quantized) times |b| <= 8 (int4 values) over L terms is an
+# exact f32 integer for L below this (127 * 8 * L < 2^24)
+_BMM_EXACT_LEN = (1 << 24) // (127 * 8)
+
+
+def _int_bmm(a, b):
+    """Exact batched int8 [B, M, L] × [B, L, N] → f32 [B, M, N], a row-quantized
+    (|a| ≤ 127) and b int4 values (|b| ≤ 8): every partial sum is an integer
+    below 2²⁴ for L < _BMM_EXACT_LEN, exact in f32.  On the card bf16
+    operands (int8 values are exact in bf16) with an f32 result; on the CPU
+    float64."""
+    if a.shape[-1] >= _BMM_EXACT_LEN:
+        raise ValueError(f"dyn_int4_matmul: a contraction of {a.shape[-1]} is not exact in "
+                         f"f32 (at most {_BMM_EXACT_LEN - 1})")
+    if a.is_cuda:
+        return torch.bmm(a.to(torch.bfloat16), b.to(torch.bfloat16), out_dtype=torch.float32)
+    return torch.bmm(a.to(torch.float64), b.to(torch.float64)).to(torch.float32)
+
+
+def _groups(q4, g_scale):
+    """(unpacked int8 values [n_g, G, N], n_g, G) of a [K/2, N] q4."""
+    n_g = g_scale.shape[-2]
+    d_in = 2 * q4.shape[-2]
+    return unpack_int4(q4).reshape(n_g, d_in // n_g, q4.shape[-1]), n_g, d_in // n_g
+
+
+def dyn_int4_fwd(x, q4, g_scale):
+    """The W4A8 per-group forward, as JAX's `_dyn4_fwd_raw`: x row-quantized,
+    one exact integer product per group (contraction G), each scaled by its
+    group scales and summed over the groups in f32, then times the row
+    scale, one cast to x.dtype.  The group sum's order is torch's, not
+    XLA's (a few f32 ulps apart)."""
+    q, n_g, gsz = _groups(q4, g_scale)
+    xq, sx = _rowquant(x)
+    xg = xq.reshape(-1, n_g, gsz).transpose(0, 1)          # [n_g, M, G]
+    acc = _int_bmm(xg, q)                                    # [n_g, M, N]
+    y = (acc * g_scale[:, None, :]).sum(dim=0)
+    return (y.reshape(*x.shape[:-1], q4.shape[-1]) * sx).to(x.dtype)
+
+
+def dyn_int4_dx(g, q4, g_scale):
+    """Its straight-through backward, as JAX's `_dyn4_vjp_bwd` under `jit`:
+    g · s_g quantized per (row, group) with the row scale amax · fl32(1/127),
+    one exact product per group with the group's values (contraction N),
+    scaled back, one cast to g.dtype."""
+    q, n_g, gsz = _groups(q4, g_scale)
+    n = q4.shape[-1]
+    gsw = g.float().reshape(-1, 1, n) * g_scale               # [M, n_g, N]
+    amax = gsw.abs().amax(dim=-1, keepdim=True)
+    s_r = torch.clamp_min(amax * (1.0 / 127.0), 1e-12)        # [M, n_g, 1]
+    gq = torch.round(gsw / s_r).to(torch.int8)
+    dxa = _int_bmm(gq.transpose(0, 1), q.transpose(1, 2))     # [n_g, M, G]
+    dx = dxa.transpose(0, 1) * s_r
+    return dx.reshape(*g.shape[:-1], 2 * q4.shape[-2]).to(g.dtype)
+
+
+class _DynInt4Matmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, q4, g_scale):
+        ctx.save_for_backward(q4, g_scale)
+        return dyn_int4_fwd(x, q4, g_scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        q4, g_scale = ctx.saved_tensors
+        return dyn_int4_dx(g, q4, g_scale), None, None
+
+
+def dyn_int4_matmul(x, q4, g_scale):
+    """W4A8 per group: x [..., K] float; q4 [K/2, N] half-split packed int4;
+    g_scale [K/G, N] f32 → [..., N] in x.dtype, differentiable in x
+    (straight through).  The same torch composition on either device: JAX
+    leaves it to XLA, and it has no kernel of its own."""
+    return _DynInt4Matmul.apply(x, q4, g_scale)
+
+
 def _jax_path(path: str) -> str:
     """A port module path ("blocks/3/img_mlp/lin_in") → the JAX tree path
     the skip patterns were written for ("blocks/img_mlp/in"): stacked-layer
@@ -197,35 +441,41 @@ def _jax_path(path: str) -> str:
     return "/".join(names.get(p, p) for p in path.split("/") if not p.isdigit())
 
 
+INT4_FORMS = ("int4", "int4_requant", "int4_dynamic")
+CHANNEL_FORMS = ("int8", "fp8_e4m3", "fp8_e5m2", "int8_dynamic")
+
+
 def quantize_tree(model, qcfg, prefix: str = ""):
     """Quantize every dense layer of `model` in place (and return it), as
-    the JAX `quantize_tree`: layers whose path matches a skip pattern, or
-    whose in-dim is odd or not a multiple of the group, stay full precision;
-    biases, norms and embeddings are never touched.  A layer that is already
-    quantized is left as it is.  `prefix` is `model`'s own path in a larger
-    model ("blocks/3/"), for the skip patterns.  `dtype: int4` leaves the
-    layers in the W4A16 form (`Dense.set_int4`, JAX's `kernel_q4`),
-    `int4_requant` in the W4A8-requant one (`Dense.set_int4_requant`); the
-    same q4 and scales either way.  Other dtypes raise."""
+    the JAX `quantize_tree`, into the form `qcfg.dtype` names
+    (`Dense.set_quantized`): layers whose path matches a skip pattern stay
+    full precision, and so, for the int4 forms, do layers whose in-dim is
+    odd or not a multiple of the group; biases, norms and embeddings are
+    never touched.  A layer that is already quantized is left as it is.
+    `prefix` is `model`'s own path in a larger model ("blocks/3/"), for the
+    skip patterns.  int4, int4_requant and int4_dynamic hold the same q4
+    and group scales (`quantize_kernel_int4`); int8, fp8_e4m3, fp8_e5m2
+    and int8_dynamic per-channel q and scales (`quantize_kernel`, int8 for
+    int8_dynamic)."""
     from qflux_tpu_torch.ops.layers import iter_dense_paths
 
-    if qcfg.dtype not in ("int4", "int4_requant"):
-        raise NotImplementedError(
-            f"quantize dtype {qcfg.dtype!r} is not ported yet (ROADMAP.md, queue 1: \"The "
-            "rest of slice B, part 2: the quantized bases that JAX runs in XLA, not "
-            "Pallas\"; ported: int4, int4_requant)")
+    form = qcfg.dtype
+    if form not in INT4_FORMS + CHANNEL_FORMS:
+        raise ValueError(f"unknown quantize dtype {form!r}")
     skip = [re.compile(p) for p in qcfg.skip_patterns]
     group_size = getattr(qcfg, "group_size", 128)
     for path, node in list(iter_dense_paths(model)):
-        if node.q4 is not None or any(p.search(_jax_path(prefix + path)) for p in skip):
+        if node.q_form is not None or any(p.search(_jax_path(prefix + path)) for p in skip):
             continue
         d_in = node.in_dim
-        if d_in % 2 or d_in % min(group_size, d_in):
-            continue
         with torch.no_grad():
-            q4, scale = quantize_kernel_int4(node.weight.t(), group_size)
-        if qcfg.dtype == "int4":
-            node.set_int4(q4, scale)
-        else:
-            node.set_int4_requant(q4, scale)
+            if form in INT4_FORMS:
+                if d_in % 2 or d_in % min(group_size, d_in):
+                    continue
+                q, scale = quantize_kernel_int4(node.weight.t(), group_size)
+            else:
+                q, scale = quantize_kernel(node.weight.t(), "int8" if form == "int8_dynamic"
+                                           else form)
+                q = q.t()
+        node.set_quantized(q, scale, form)
     return model

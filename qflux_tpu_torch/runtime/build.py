@@ -54,6 +54,8 @@ _SIGNATURES = {
     "qflux_rq_int4_fwd": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
     "qflux_rq_int4_bwd": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
     "qflux_rowquant": (_I, [_P, _P, _P, _P, _I, _I, _I, _P]),
+    "qflux_int8_gemm": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P]),
+    "qflux_int8_transpose": (_I, [_P, _P, _I, _I, _P]),
     "qflux_int4_fwd": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]),
     "qflux_int4_bwd": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]),
     "qflux_cuda_error_string": (ctypes.c_char_p, [_I]),

@@ -39,9 +39,11 @@ Two model families are ported: FLUX.1-Kontext and Qwen-Image-Edit, each
 with predict and the LoRA train step, from synthetic weights or from a
 diffusers checkpoint directory (`model.pretrained_model_name_or_path`,
 read block by block).  `load_model` quantizes the DiT with
-`ops/quant.quantize_tree` where `model.quantize.enabled` (int4 and
-int4_requant; other dtypes raise there), and `fit` trains over that base
-(the fused int4 matmuls' backwards are kernels K5b and K6b on the card).  `quantize.attention` runs
+`ops/quant.quantize_tree` where `model.quantize.enabled`, in every dtype
+JAX's config allows (int8 by default; int8 / fp8 weight-only, W8A8
+`int8_dynamic`, the int4 forms), and `fit` trains over that base (on the
+card the input gradients of the fused int4 matmuls are kernels K5b and
+K6b, and W8A8's runs the int8 GEMM of csrc/int8_gemm.cu).  `quantize.attention` runs
 the int8 score GEMM of K1 and K2 wherever JAX on a TPU would (S up to 2560
 at head dim 128; bf16 attention through K3 / K4 elsewhere, as there), and the remat
 policies not ported raise in the transformer.

@@ -6,9 +6,11 @@ over the port's modules: a row per top-level child of the DiT (the JAX
 tree's top-level keys, which the port's children share), a total with the
 count of attention projections, the LoRA and the trainable share.  A
 quantized layer's packed int4 `q4` counts two parameters a byte, as JAX
-counts `kernel_q4*`; the requant factors the port caches beside it
-(`rq_f`, `rq_s_vec`, derived from `scale`) are not parameters of the JAX
-tree and are not counted.
+counts `kernel_q4*`; a per-channel `q` counts one a byte by its type (int8,
+float8_e4m3fn, float8_e5m2), as JAX counts `kernel_q` / `kernel_q_dyn`, and
+every `scale` as f32; the requant factors the port caches beside an
+int4-requant q4 (`rq_f`, `rq_s_vec`, derived from `scale`) are not
+parameters of the JAX tree and are not counted.
 """
 
 from __future__ import annotations

@@ -3,7 +3,9 @@ against their plain versions, LoRA gradients through K1 and K2 inside a
 small DiT, and two-block, full-width Qwen-Image forwards and train steps
 over an int4-requant base (through K5a, K5b, K1 and K2, and at path B's S =
 4000 through K3 and K4) and over the W4A16 `int4` base (through K6a, K6b,
-K1 and K2).
+K1 and K2), the W8A8 matmul's kernels (csrc/int8_gemm.cu) against its
+plain version, and every quantized form's quantization on the card
+against the CPU's.
 
 This file imports neither jax nor the JAX package, so it runs on a machine
 with a card and without JAX:
@@ -1381,3 +1383,77 @@ def test_fit_through_dataloader_equals_in_memory_batches_on_card(tmp_path, bucke
     b.fit(Epochs())
     assert len(a.history) == 4 and all(np.isfinite(h["loss"]) for h in a.history)
     assert [h["loss"] for h in b.history] == [h["loss"] for h in a.history]
+
+
+# ---------------------------------------------------------------------------
+# the quantized bases that JAX runs in XLA
+
+W8_CARD_CASES = [(33, 3072, 12288, torch.bfloat16), (1000, 12288, 3072, torch.bfloat16),
+                 (2048, 3072, 3072, torch.bfloat16), (300, 3072, 64, torch.float32),
+                 (512, 256, 3072, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("m,k_in,n,dtype", W8_CARD_CASES,
+                         ids=[f"{c[0]}x{c[1]}x{c[2]}" for c in W8_CARD_CASES])
+def test_w8a8_fwd_and_dx_bit_exact_on_card(m, k_in, n, dtype):
+    """The W8A8 matmul on the card (row quantization, the GEMM of
+    csrc/int8_gemm.cu, and in the backward the transpose and the dx GEMM)
+    equals its plain version (quant.dyn_int8_fwd / dyn_int8_dx, exact
+    float64 products) to the bit at ragged M, split and unsplit grids, bf16
+    and f32; two calls give the same bits; each launch is counted once."""
+    from qflux_tpu_torch.ops import int8_matmul as ti8
+    from qflux_tpu_torch.ops import quant
+
+    gen = torch.Generator("cuda").manual_seed(k_in + n)
+    w = (torch.rand(k_in, n, device="cuda", generator=gen) * 2 - 1) / k_in ** 0.5
+    q, scale = quant.quantize_kernel(w, "int8")
+    q, sw = q.t().contiguous(), scale[0].contiguous()
+    x = torch.randn(m, k_in, device="cuda", generator=gen).to(dtype).requires_grad_()
+    g = torch.randn(m, n, device="cuda", generator=gen).to(dtype)
+    before = (ti8.INT8_GEMM_LAUNCHES, ti8.INT8_GEMM_DX_LAUNCHES, ti8.INT8_TRANSPOSE_LAUNCHES)
+    y = ti8.dyn_int8_matmul(x, q, sw)
+    y.backward(g)
+    dx = x.grad
+    x.grad = None
+    y2 = ti8.dyn_int8_matmul(x, q, sw)
+    y2.backward(g)
+    torch.cuda.synchronize()
+    assert (ti8.INT8_GEMM_LAUNCHES - before[0], ti8.INT8_GEMM_DX_LAUNCHES - before[1],
+            ti8.INT8_TRANSPOSE_LAUNCHES - before[2]) == (2, 2, 2)
+    assert y.dtype == dx.dtype == dtype
+    assert torch.equal(y, quant.dyn_int8_fwd(x.detach(), q, sw))
+    assert torch.equal(dx, quant.dyn_int8_dx(g, q, sw))
+    assert torch.equal(y, y2) and torch.equal(dx, x.grad)
+    assert torch.equal(ti8.int8_transpose_cuda(q), q.t())
+
+
+@pytest.mark.parametrize("form", ["int8", "fp8_e4m3", "fp8_e5m2", "int8_dynamic", "int4",
+                                  "int4_requant", "int4_dynamic"])
+def test_card_quantization_equals_cpu(form):
+    """Every quantized form's leaves quantized on the card (q or q4, scale,
+    the requant factors) equal those quantized on the CPU from the same
+    weight, to the bit: every scale is a true division on both devices.  The
+    weights are FLUX's AdaLN mod and MLP shapes, with a zero column."""
+    import types
+
+    from qflux_tpu_torch.ops import layers as tlayers
+    from qflux_tpu_torch.ops import quant
+
+    gen = torch.Generator("cpu").manual_seed(5)
+    qcfg = types.SimpleNamespace(dtype=form, skip_patterns=[], group_size=128)
+    for k_in, n in ((3072, 18432), (12288, 3072)):
+        w = ((torch.rand(n, k_in, generator=gen) * 2 - 1) / k_in ** 0.5).to(torch.bfloat16)
+        w[7] = 0
+        mods = []
+        for dev in ("cpu", "cuda"):
+            mod = tlayers.Dense(k_in, n, bias=False, device=dev, dtype=torch.bfloat16)
+            with torch.no_grad():
+                mod.weight.copy_(w)
+            mods.append(quant.quantize_tree(mod, qcfg))
+        cpu, card = mods
+        assert cpu.q_form == card.q_form == form
+        for name in ("q4", "q", "scale", "rq_f", "rq_s_vec"):
+            a, b = getattr(cpu, name), getattr(card, name)
+            assert (a is None) == (b is None), name
+            if a is not None:
+                assert torch.equal(a.view(torch.uint8), b.cpu().view(torch.uint8)), name

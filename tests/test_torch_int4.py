@@ -226,7 +226,7 @@ def test_dense_kernel_q4_matches_jax(monkeypatch, m, dtype, fused):
     a = rng.standard_normal((K, 4)).astype(np.float32) / 4
     b = rng.standard_normal((4, 256)).astype(np.float32) * 0.1
     mod = bridge.load_params(tlayers.Dense(K, 256), node)
-    assert mod.weight is None and mod.q4_form == "int4" and mod.rq_f is None
+    assert mod.weight is None and mod.q_form == "int4" and mod.rq_f is None
     jdt, tdt = _DT[dtype]
     x = rng.standard_normal((m, K)).astype(np.float32)
     jx, tx = jnp.asarray(x).astype(jdt), torch.from_numpy(x).to(tdt)
@@ -325,7 +325,7 @@ def test_quantize_tree_int4_matches_jax(jax_int4):
                      else jnode[{"lin_in": "in", "lin_out": "out"}.get(p, p)])
         if "kernel_q4" in jnode:
             n_quant += 1
-            assert node.q4_form == other.q4_form == "int4" and node.weight is None
+            assert node.q_form == other.q_form == "int4" and node.weight is None
             np.testing.assert_array_equal(node.q4.numpy(), jnode["kernel_q4"])
             np.testing.assert_array_equal(node.scale.numpy(), jnode["kernel_scale"])
             assert torch.equal(node.q4, other.q4) and torch.equal(node.scale, other.scale)
@@ -492,7 +492,7 @@ def test_cpu_tensors_never_reach_the_launchers(monkeypatch, qw):
     x = torch.randn(4, K, requires_grad=True)
     ti4.int4_matmul(x, tq, ts).sum().backward()
     mod = tlayers.Dense(K, N, bias=False)
-    mod.set_int4(tq, ts)
+    mod.set_quantized(tq, ts, "int4")
     tlayers.dense(mod, x.detach().bfloat16().requires_grad_()).float().sum().backward()
     assert (ti4.INT4_KERNEL_LAUNCHES, ti4.INT4_BWD_KERNEL_LAUNCHES) == before
     monkeypatch.undo()

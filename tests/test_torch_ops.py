@@ -282,6 +282,14 @@ def test_build_lora_tree_targets_and_init():
 
 
 def test_quantized_forms_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_params(tlayers.Dense(4, 4), {"kernel_q": np.zeros((4, 4), np.int8),
+    """A `kernel_q` leaf loads into the int8 weight-only form (transposed to
+    the weight's [out, in]); one that does not fit the layer raises."""
+    q = np.arange(32, dtype=np.int8).reshape(8, 4)
+    mod = load_params(tlayers.Dense(8, 4), {"kernel_q": q,
+                                            "kernel_scale": np.ones((1, 4), np.float32),
+                                            "bias": np.zeros(4, np.float32)})
+    assert mod.q_form == "int8" and mod.weight is None
+    np.testing.assert_array_equal(mod.q.numpy(), q.T)
+    with pytest.raises(ValueError, match="does not fit"):
+        load_params(tlayers.Dense(4, 4), {"kernel_q": np.zeros((8, 4), np.int8),
                                           "kernel_scale": np.ones((1, 4), np.float32)})

@@ -201,7 +201,8 @@ def test_trainer_predict_from_embeddings(tiny_trainer):
 
 def test_trainer_from_yaml_and_refusals(tmp_path):
     """The YAML entry point goes through the port's own loader
-    (qflux_tpu_torch/config.py); what the slice does not cover raises."""
+    (qflux_tpu_torch/config.py), over a full-precision and an int8
+    weight-only base; a trainer the port does not cover raises."""
     cfg = tmp_path / "cfg.yaml"
     cfg.write_text("trainer: FluxKontextLoraTrainer\nmodel:\n  variant: test\n"
                    "predict:\n  num_inference_steps: 2\n")
@@ -212,8 +213,12 @@ def test_trainer_from_yaml_and_refusals(tmp_path):
 
     cfg.write_text("trainer: FluxKontextLoraTrainer\nmodel:\n  variant: test\n"
                    "  quantize: {enabled: true, dtype: int8}\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer.from_yaml(str(cfg), device="cpu").load_model()
+    tr = Trainer.from_yaml(str(cfg), device="cpu")
+    tr.load_model()  # JAX's default quantized dtype loads: int8 weight-only
+    assert tr.bundle.dit_params.dual[0].attn.to_q.q_form == "int8"
+    assert tr.bundle.dit_params.x_embedder.q_form is None  # the skip patterns
+    img = tr.predict_from_embeddings(_request(1, 1), H, W)
+    assert img.shape == (1, H, W, 3)
     cfg.write_text("trainer: QwenImageEditPlusTrainer\n")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Trainer.from_yaml(str(cfg), device="cpu")

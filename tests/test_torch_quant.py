@@ -377,21 +377,20 @@ def test_quantize_tree_matches_jax():
     assert torch.equal(model.blocks[0].attn.to_q.q4, q4_before)
 
 
-@pytest.mark.parametrize("dtype", ["int8", "int8_dynamic", "int4_dynamic", "fp8_e4m3"])
-def test_quantize_tree_other_dtypes_raise(dtype):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tquant.quantize_tree(tlayers.Dense(128, 8), _qcfg(dtype=dtype))
-
-
 def test_bridge_refuses_other_quantized_forms():
-    """kernel_q4_rq and kernel_q4 load; every other quantized leaf raises,
-    and a q4 that does not fit the layer is refused in either int4 form."""
-    for key in ("kernel_q", "kernel_q_dyn", "kernel_q4_dyn"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            bridge.load_params(tlayers.Dense(8, 4), {key: np.zeros((4, 4), np.int8),
-                                                     "kernel_scale": np.ones((1, 4), np.float32),
-                                                     "bias": np.zeros(4, np.float32)})
-    for key in ("kernel_q4_rq", "kernel_q4"):
+    """Every quantized leaf of JAX's `quantize_tree` loads (each into its
+    form), and a q that does not fit the layer is refused in every form."""
+    rng = np.random.default_rng(12)
+    w = jnp.asarray(_weight(rng, 8, 4))
+    forms = {"kernel_q4_rq": "int4_requant", "kernel_q4": "int4", "kernel_q4_dyn": "int4_dynamic",
+             "kernel_q_dyn": "int8_dynamic", "kernel_q": "int8"}
+    for key, form in forms.items():
+        q, scale = (jquant.quantize_kernel_int4(w, 8) if key.startswith("kernel_q4")
+                    else jquant.quantize_kernel(w, "int8"))
+        mod = bridge.load_params(tlayers.Dense(8, 4), {key: np.asarray(q),
+                                                       "kernel_scale": np.asarray(scale),
+                                                       "bias": np.zeros(4, np.float32)})
+        assert mod.q_form == form and mod.weight is None
         with pytest.raises(ValueError, match="does not fit"):
             bridge.load_params(tlayers.Dense(8, 4), {key: np.zeros((3, 4), np.int8),
                                                      "kernel_scale": np.ones((1, 4), np.float32),
@@ -400,7 +399,7 @@ def test_bridge_refuses_other_quantized_forms():
 
 def test_bridge_loads_kernel_q4():
     """A JAX `kernel_q4` leaf (the W4A16 form of quantize.dtype int4) loads
-    through `Dense.set_int4`: the weight dropped, q4 and the scales in the
+    through `Dense.set_quantized` (form "int4"): the weight dropped, q4 and the scales in the
     JAX layout to the bit, no requant factors; the layer's dequantized
     weight is JAX's."""
     rng = np.random.default_rng(9)
@@ -408,7 +407,7 @@ def test_bridge_loads_kernel_q4():
     mod = bridge.load_params(tlayers.Dense(256, 24), {"kernel_q4": np.asarray(jq),
                                                       "kernel_scale": np.asarray(js),
                                                       "bias": np.zeros(24, np.float32)})
-    assert mod.weight is None and mod.q4_form == "int4"
+    assert mod.weight is None and mod.q_form == "int4"
     assert mod.rq_f is None and mod.rq_s_vec is None
     _eq(mod.q4, jq)
     _eq(mod.scale, js)

@@ -481,24 +481,27 @@ def test_trainer_predict_from_embeddings(quantize):
 
 
 def test_trainer_refusals(tmp_path):
-    """What the port does not cover yet raises, naming ROADMAP.md: another
-    quantized dtype (at load, for predict and fit alike) and a remat policy
-    not ported (in fit); a checkpoint path with no DiT raises
-    FileNotFoundError at load, as the JAX adapter does.  int8 attention
-    (quantize.attention) now runs, in predict and in fit, through the s_int8
-    mode's plain version on CPU tensors, and launches nothing."""
+    """A checkpoint path with no DiT raises FileNotFoundError at load (for
+    predict and fit alike), as the JAX adapter does.  The int8 weight-only
+    base (the Plus example config's dtype) now loads, predicts and fits.
+    int8 attention (quantize.attention) now runs, in predict and in fit,
+    through the s_int8 mode's plain version on CPU tensors, and launches
+    nothing."""
     base = {"trainer": "QwenImageEditTrainer", "model": {"variant": "test"},
             "logging": {"output_dir": str(tmp_path)}}
     q = {"enabled": True, "dtype": "int4_requant"}
-    for raw, error, match in (
-            ({**base, "model": {"variant": "test", "quantize": {**q, "dtype": "int8"}}},
-             NotImplementedError, "ROADMAP"),
-            ({**base, "model": {"variant": "full", "dit_path": "/nowhere"}},
-             FileNotFoundError, "nowhere")):
-        with pytest.raises(error, match=match):
-            Trainer(config_from_dict(raw), device="cpu").load_model()
-        with pytest.raises(error, match=match):
-            Trainer(config_from_dict(raw), device="cpu").fit([])
+    raw = {**base, "model": {"variant": "full", "dit_path": "/nowhere"}}
+    with pytest.raises(FileNotFoundError, match="nowhere"):
+        Trainer(config_from_dict(raw), device="cpu").load_model()
+    with pytest.raises(FileNotFoundError, match="nowhere"):
+        Trainer(config_from_dict(raw), device="cpu").fit([])
+    tr = Trainer(config_from_dict({**base, "model": {"variant": "test",
+                                                     "quantize": {**q, "dtype": "int8"}}}),
+                 device="cpu")
+    tr.load_model()
+    assert tr.bundle.dit_params.blocks[0].attn.to_q.q_form == "int8"
+    img = tr.predict_from_embeddings(_request(41, 1), H, W, num_inference_steps=1)
+    assert img.dtype == np.uint8 and img.shape == (1, H, W, 3)
     batch = dict(_request(41, 1), image_latents=np.zeros((1, GH * GW, 16), np.float32))
     tr = Trainer(config_from_dict({**base, "model": {"variant": "test",
                                                      "quantize": {**q, "attention": True}}}),
