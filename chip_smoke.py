@@ -187,6 +187,32 @@ the phase's wall time printed:
      (d) the 20B Qwen-Image-Edit DiT at full depth over int8 weight-only: a
      4-step 512² request through K1, its peak memory and s/request.
 
+The FLUX.1-Kontext cache pass and the raw-image entry points run as phase
+F, last, with the card's name and power limit on every line and the
+phase's wall time printed:
+
+  F. (a) the repair probe: the W8A8 matmul (forward, and the dx whose row
+     quantization of g · s_w runs over N = 18,432) and int4_dynamic (whose
+     dx contracts over N past 16,513 terms) at the AdaLN mods' shape with
+     33 rows, 3072 → 18432, each equal to its plain version (float64
+     products on the card) to the bit, forward and dx, and timed;
+     int4_dynamic's dx equal to the CPU's to the bit and its forward within
+     one bf16 ulp of it; (b) FLUX.1-Kontext-dev at full width (19 +
+     38 blocks, the full VAE, CLIP-L, T5-XXL at 512 tokens, synthetic
+     weights) through `qflux_tpu_torch.main` in process: `--cache` over
+     four 512² target / control PNG pairs listed in a CSV (the nine cached
+     keys at JAX's shapes, s per sample, peak memory), then the first
+     sample's prompt embeds, pooled output and target / control latents
+     computed whole on the CPU (CLIP-L, all 24 T5-XXL blocks at 512
+     tokens, the VAE encoder at 512²), against which the card's f32
+     outputs and the fp16 arrays `--cache` wrote are held, and each
+     encoder timed on the card; (c) + (e) a fit
+     of three steps from that cache (57 K1 and 57 K2 launches a step) whose
+     validation section samples once at the last step (57 K1 a denoising
+     step) and logs the image; (d) `--predict` on a raw control PNG, 20
+     steps at 512² (57 K1 a step), the output PNG [512, 512, 3] uint8 with
+     finite latents, and a second request on the loaded model timed.
+
 Every temporary file (the fits' run dirs included) is removed before the
 smoke exits.  Each path runs with the launch counts set to 0 just before
 it and read just after.
@@ -4399,6 +4425,361 @@ def phase_data_qwen_fit(card: str, qwen) -> tuple[int, ...]:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase F: the FLUX.1-Kontext cache pass and the raw-image entry points
+
+REPAIR_SHAPE = (33, 3072, 18432)  # the AdaLN mods at bs = 33: rows, K, N
+# int4_dynamic's bf16 forward on the card against the CPU's: the f32 sum over
+# the 24 groups is ordered by each device's torch.sum, a few f32 ulps apart,
+# which moves a bf16 output by at most one ulp (2^-8 of its magnitude), as
+# tests/test_torch_quant8.py holds the port to JAX
+INT4_DYN_CPU_TOL = 2 ** -8
+F_PAIRS = 4                       # target / control PNG pairs the cache pass encodes
+F_FIT_STEPS = 3                   # fit steps from that cache, validation at the last
+F_VALIDATION_STEPS = 4            # the validation sample's denoising steps
+F_PROMPTS = ["turn the sky orange at sunset", "add a red hat to the person",
+             "make it a watercolor painting", "remove the car from the street"]
+# the card's f32 encoders (TF32 off) against the same modules on the CPU:
+# the same f32 math, summed in other orders and by other conv algorithms
+ENCODER_REL_TOL = 1e-4
+# T5-XXL's prompt embeds, per block of its depth: each block's f32 sums over
+# 4,096 and 10,240 terms, ordered differently on the two devices, move its
+# output by a few 1e-6 relative (6.09e-6 measured over 2 blocks), and the
+# blocks add their differences up (1.250e-4 measured over 24, above
+# ENCODER_REL_TOL); a wrong operation moves it by 1e-2 or more
+T5_BLOCK_REL_TOL = 1e-5
+# the cached arrays against the CPU's f32: the cache holds fp16 (JAX's
+# format), which alone puts each value within 2^-11 of its own magnitude,
+# beside the card's own tolerance for that output
+FP16_REL = 2 ** -11
+F_CACHE_SHAPES = {"image_latents": (1024, 64), "control_latents": (1024, 64),
+                  "prompt_embeds": (512, 4096), "pooled_prompt_embeds": (768,),
+                  "empty_prompt_embeds": (512, 4096), "empty_pooled_prompt_embeds": (768,),
+                  "tgt_ids": (1024, 3), "ctl_ids": (1024, 3), "txt_ids": (512, 3)}
+
+
+def phase_repair_probe(card: str) -> None:
+    """Phase F(a): the W8A8 matmul (row quantization, the GEMM, and in the
+    backward the row quantization of g · s_w over N = 18,432, past the
+    12,288 values it took before, the transpose and the dx GEMM) and int4_dynamic (whose dx contracts over N, past the
+    16,513 terms one exact f32 product holds) at the AdaLN mods' shape
+    with 33 rows: each equal to its plain version on the card (float64
+    products) to the bit, forward and dx, two calls identical, each timed
+    beside its plain version; int4_dynamic's dx also equals the CPU's to
+    the bit, and its forward (whose group sum each device orders its own
+    way) is within INT4_DYN_CPU_TOL of the CPU's."""
+    from qflux_tpu_torch.ops import int8_matmul as ti8
+    from qflux_tpu_torch.ops import quant
+
+    m, k_in, n = REPAIR_SHAPE
+    gen = torch.Generator("cuda").manual_seed(33)
+    w = (torch.rand(k_in, n, device="cuda", generator=gen) * 2 - 1) / k_in ** 0.5
+    w[:64] = 0.37  # int4 group 0 at its amax everywhere: dx sums past 2^24
+    q, scale = quant.quantize_kernel(w, "int8")
+    q, sw = q.t().contiguous(), scale[0].contiguous()
+    q4, gs = quant.quantize_kernel_int4(w, 128)
+    x = torch.randn(m, k_in, device="cuda", generator=gen).to(torch.bfloat16)
+    g = torch.randn(m, n, device="cuda", generator=gen).to(torch.bfloat16)
+    g[:16] = 1.0
+    lines = []
+
+    def vjp(fn, xx, *args):
+        xx = xx.detach().requires_grad_()
+        y = fn(xx, *args)
+        y.backward(g.to(xx.device))
+        return y.detach(), xx.grad
+
+    for label, fn, args, plain in (
+            ("W8A8 (int8_dynamic)", ti8.dyn_int8_matmul, (q, sw),
+             lambda: (quant.dyn_int8_fwd(x, q, sw), quant.dyn_int8_dx(g, q, sw))),
+            ("int4_dynamic", quant.dyn_int4_matmul, (q4, gs),
+             lambda: (quant.dyn_int4_fwd(x, q4, gs, f64=True),
+                      quant.dyn_int4_dx(g, q4, gs, f64=True)))):
+        before = _w8_counts()
+        y, dx = vjp(fn, x, *args)
+        y2, dx2 = vjp(fn, x, *args)
+        torch.cuda.synchronize()
+        launched = tuple(b - a for a, b in zip(before, _w8_counts()))
+        want_y, want_dx = plain()
+        exact = (torch.equal(y.cpu(), want_y.cpu()) and torch.equal(dx.cpu(), want_dx.cpu())
+                 and torch.equal(y, y2) and torch.equal(dx, dx2))
+        xg = x.detach().requires_grad_()
+
+        def fwd_bwd():
+            fn(xg, *args).backward(g)
+
+        fwd_ms = _median_ms(lambda: fn(x, *args), n=5)
+        both_ms = _median_ms(fwd_bwd, n=5)
+        lines.append(f"[repair] {label} {m}x{k_in}->{n}: forward {fwd_ms:.3f} ms, forward + dx "
+                     f"{both_ms:.3f} ms, max |dx| {float(dx.float().abs().max()):.4g}; equal to "
+                     f"its plain version (float64 products on the card) to the bit: {exact}; "
+                     f"W8A8 launches (fwd GEMM, dx GEMM, transpose, row quant) for two calls "
+                     f"{launched} [{card}]")
+        if not exact:
+            raise AssertionError(f"{label} at {REPAIR_SHAPE} differs from its plain version")
+        if "int4" in label:
+            cpu_y, cpu_dx = vjp(fn, x.cpu(), q4.cpu(), gs.cpu())
+            cpu_y = cpu_y.float()
+            err = float((y.cpu().float() - cpu_y).abs().max() / cpu_y.abs().max())
+            lines.append(f"[repair] {label} against the CPU: dx equal to the bit "
+                         f"{torch.equal(dx.cpu(), cpu_dx)}; forward max |diff| / max |y| "
+                         f"{err:.3e} (tol {INT4_DYN_CPU_TOL})")
+            if not torch.equal(dx.cpu(), cpu_dx) or err > INT4_DYN_CPU_TOL:
+                raise AssertionError(f"{label} at {REPAIR_SHAPE} differs from the CPU's")
+        if "W8" in label and launched != (2, 2, 2, 4):
+            raise AssertionError(f"{label}: launches {launched}, expected (2, 2, 2, 4)")
+    plain_ms = _median_ms(lambda: quant.dyn_int8_fwd(x, q, sw), n=3)
+    lines.append(f"[repair] W8A8 plain forward (float64 products on the card) {plain_ms:.3f} ms "
+                 f"[{card}]")
+    print("\n".join(lines), flush=True)
+
+
+def _f_config(csv_path: Path, out_dir: Path, **over) -> dict:
+    """FLUX.1-Kontext-dev at full width (19 + 38 blocks, synthetic weights:
+    no checkpoint) over a CSV of 512² target / control pairs, its cache in
+    out_dir/cache, bf16 DiT, T5 at 512 tokens."""
+    raw = {"trainer": "FluxKontextLoraTrainer", "mesh": {"dp": 1, "fsdp": 1, "tp": 1},
+           "model": {"variant": "full", "lora": {"r": 16, "lora_alpha": 16}},
+           "data": {"init_args": {"csv_path": str(csv_path)},
+                    "processor": {"process_type": "resize", "target_size": [HEIGHT, WIDTH]},
+                    "batch_size": 1, "shuffle": False},
+           "cache": {"use_cache": True, "cache_dir": str(out_dir / "cache")},
+           "predict": {"max_sequence_length": 512},
+           "train": {"max_train_steps": F_FIT_STEPS, "weight_dtype": "bfloat16",
+                     "checkpointing_steps": 1000},
+           "logging": {"output_dir": str(out_dir), "project": "flux_pixels"}}
+    for section, values in over.items():
+        raw.setdefault(section, {}).update(values)
+    return raw
+
+
+def _rel(a, b) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+
+def _encoders_against_cpu(card: str, trainer, csv_path: Path) -> None:
+    """The first sample of the cache pass, whole, on the CPU: its prompt
+    through CLIP-L and all 24 T5-XXL blocks at 512 tokens, its 512² target
+    and control through the VAE encoder, by the adapter's own
+    `encode_prompt` / `encode_vae_image` on CPU copies of the modules.
+    Against that: the card's f32 outputs of the same calls within
+    ENCODER_REL_TOL (T5-XXL's within T5_BLOCK_REL_TOL a block), and the
+    arrays `--cache` wrote for the sample (read back under the sample's
+    hashes) within FP16_REL more.  Prints the CPU's
+    seconds, and each encoder timed on the card."""
+    from qflux_tpu_torch.data.cache import read_npz_data
+    from qflux_tpu_torch.data.dataset import ImageDataset
+    from qflux_tpu_torch.data.loader import DataLoader
+    from qflux_tpu_torch.data.preprocess import ImageProcessor
+    from qflux_tpu_torch.models.flux import text_encoders as te
+    from qflux_tpu_torch.models.flux import vae as flux_vae
+    from qflux_tpu_torch.trainer.flux_kontext import ModelBundle, text_encoders
+
+    bundle, adapter, cfg = trainer.bundle, trainer.adapter, trainer.config
+    enc = text_encoders(bundle)
+    ds = ImageDataset(csv_path=str(csv_path), processor=ImageProcessor(cfg.data.processor))
+    batch = next(iter(DataLoader(ds, batch_size=1, shuffle=False, drop_last=False,
+                                 bucket_by_shape=False)))
+    prompt = batch["prompt"][0]
+    hashes = batch["file_hashes"]
+    hashes = hashes[0] if isinstance(hashes, list) else hashes
+    t5_cpu = te.T5Encoder(bundle.text_cfgs["t5"])
+    t5_cpu.load_state_dict(enc["t5"].state_dict())
+    cpu = ModelBundle(dit_cfg=bundle.dit_cfg, dit_params=None, vae_cfg=bundle.vae_cfg,
+                      vae_params=copy.deepcopy(bundle.vae_params).cpu(),
+                      text_cfgs=bundle.text_cfgs,
+                      text_params={"clip": copy.deepcopy(enc["clip"]).cpu(), "t5": t5_cpu},
+                      tokenizers=bundle.tokenizers)
+    msl = cfg.predict.max_sequence_length
+
+    def outputs(b):
+        pe, pooled, _ = adapter.encode_prompt(b, [prompt], msl)
+        return {"prompt_embeds": pe[0], "pooled_prompt_embeds": pooled[0],
+                "image_latents": adapter.encode_vae_image(b, batch["image"])[0],
+                "control_latents": adapter.encode_vae_image(b, batch["control"])[0]}
+
+    t0 = time.perf_counter()
+    want = outputs(cpu)
+    cpu_s = time.perf_counter() - t0
+    got = outputs(bundle)
+    names = {"image_latents": hashes["image_hash"],
+             "control_latents": hashes["controls_sum_hash"],
+             "prompt_embeds": hashes["prompt_hash"],
+             "pooled_prompt_embeds": hashes["prompt_hash"]}
+    cache_root = Path(cfg.cache.cache_dir)
+    tol = {k: ENCODER_REL_TOL for k in want}
+    tol["prompt_embeds"] = T5_BLOCK_REL_TOL * bundle.text_cfgs["t5"].num_layers
+    card_err = {k: _rel(got[k], want[k]) for k in want}
+    cache_err = {k: _rel(torch.from_numpy(np.array(read_npz_data(cache_root / k / f"{h}.npz"))),
+                         want[k])
+                 for k, h in names.items()}
+    clip_ids = bundle.tokenizers["clip"]([prompt])
+    t5_ids = bundle.tokenizers["t5"]([prompt], max_length=msl)
+    ccfg, tcfg = bundle.text_cfgs["clip"], bundle.text_cfgs["t5"]
+    full = torch.from_numpy(np.asarray(batch["image"])).cuda().float() / 127.5 - 1
+    with torch.no_grad():
+        ms = {"CLIP-L": _median_ms(lambda: te.clip_encode(enc["clip"], ccfg, clip_ids), n=3),
+              "T5-XXL (24 blocks, 512 tokens)": _median_ms(
+                  lambda: te.t5_encode(enc["t5"], tcfg, t5_ids), n=3),
+              "VAE encoder (512²)": _median_ms(
+                  lambda: flux_vae.encode(bundle.vae_params, bundle.vae_cfg, full), n=3)}
+    print(f"[cache] sample 0 on the CPU, whole (CLIP-L, T5-XXL "
+          f"{bundle.text_cfgs['t5'].num_layers} blocks at {msl} tokens, the "
+          f"VAE encoder on the 512² target and control) in {cpu_s:.1f} s; rel L2 err of the "
+          f"card's f32 outputs: "
+          + ", ".join(f"{k} {v:.3e} (tol {tol[k]:.2e})" for k, v in card_err.items())
+          + "; of the fp16 arrays --cache wrote: "
+          + ", ".join(f"{k} {v:.3e} (tol {tol[k] + FP16_REL:.2e})"
+                      for k, v in cache_err.items())
+          + "; on the card, f32, TF32 off: "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in ms.items()) + f" [{card}]", flush=True)
+    if (any(card_err[k] > tol[k] for k in card_err)
+            or any(cache_err[k] > tol[k] + FP16_REL for k in cache_err)):
+        raise AssertionError(f"the card's encoders or the cache disagree with the CPU's: "
+                             f"{card_err}, {cache_err}")
+    del cpu, t5_cpu, want, got
+
+
+def phase_cache_pass(card: str) -> dict:
+    """Phase F(b)-(e), FLUX.1-Kontext-dev at full width (19 + 38 blocks, the
+    full VAE, CLIP-L 12 × 768, T5-XXL 24 × 4096 at 512 tokens, synthetic
+    weights drawn on the card from seeds) through `qflux_tpu_torch.main`
+    in process: (b) `--cache` over F_PAIRS 512² target / control PNG pairs
+    (seeded numpy through encode_png) listed in a CSV with their prompts:
+    the nine keys of cache_embeddings at JAX's shapes, s per sample, peak
+    memory, the encoders against the CPU; (c) + (e) a fit of F_FIT_STEPS
+    steps from that cache with exactly 57 K1 and 57 K2 launches a step,
+    its validation section sampling once (one control image,
+    F_VALIDATION_STEPS steps, 57 K1 a step) and logging the image; (d)
+    `--predict` on a raw control PNG: 20 steps at 512², 57 K1 a step, the
+    PNG decoding to [512, 512, 3] uint8, finite latents.  Returns the K1 /
+    K2 launches of each path."""
+    from qflux_tpu_torch import main as cli
+    from qflux_tpu_torch.models.flux.transformer import FluxConfig
+    from qflux_tpu_torch.ops import flash_nr
+    from qflux_tpu_torch.utils.png import encode_png, read_png
+
+    n_blocks = FluxConfig().num_layers + FluxConfig().num_single_layers
+    tmp = Path(tempfile.mkdtemp(prefix="qflux_smoke_pixels_"))
+    try:
+        rng = np.random.default_rng(80)
+        rows = ["path_target,path_control,prompt"]
+        for i in range(F_PAIRS):
+            for kind in ("target", "control"):
+                img = rng.integers(0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8)
+                (tmp / f"{kind}_{i}.png").write_bytes(encode_png(img))
+            rows.append(f"target_{i}.png,control_{i}.png,{F_PROMPTS[i]}")
+        csv_path = tmp / "pairs.csv"
+        csv_path.write_text("\n".join(rows) + "\n")
+        val = {"enabled": True, "steps": F_FIT_STEPS, "num_inference_steps": F_VALIDATION_STEPS,
+               "samples": [{"prompt": F_PROMPTS[0], "images": [str(tmp / "control_0.png")]}]}
+        path = tmp / "pixels.json"
+        path.write_text(json.dumps(_f_config(csv_path, tmp, validation=val)))
+
+        # (b) the cache pass
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        trainer = cli.main(["--config", str(path), "--cache"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stats = trainer.last_cache
+        peak = torch.cuda.max_memory_allocated()
+        from qflux_tpu_torch.data.cache import EmbeddingCacheManager, read_npz_data
+
+        metas = sorted((tmp / "cache" / "metadata").glob("*.json"))
+        cm = EmbeddingCacheManager(tmp / "cache")
+        shapes = {}
+        for meta in metas:
+            keys = json.loads(meta.read_text())["keys"]
+            for k, h in keys.items():
+                arr = read_npz_data(tmp / "cache" / k / f"{h}.npz")
+                shapes[k] = tuple(arr.shape)
+                if arr.dtype.kind == "f" and not np.isfinite(arr).all():
+                    raise AssertionError(f"cache {k}: non-finite values")
+        enc, wr = stats["encode_s"], stats["write_s"]
+        print(f"[cache] --cache over {F_PAIRS} 512² pairs: {wall:.1f} s in main() (DiT, VAE "
+              f"built; CLIP-L and T5-XXL drawn on first use), the pass {stats['seconds']:.2f} s "
+              f"(the loader's PNG reads inside); per sample encode "
+              + ", ".join(f"{s:.3f}" for s in enc) + " s (the first draws T5-XXL), write "
+              + ", ".join(f"{s:.3f}" for s in wr) + f" s; after the first "
+              f"{statistics.median(a + b for a, b in zip(enc[1:], wr[1:])):.3f} s/sample "
+              f"(median); peak mem {peak} bytes, {len(metas)} samples, keys {shapes}; K1/K2 "
+              f"launches {_launch_counts()[:2]} [{card}]", flush=True)
+        if (stats["samples"] != F_PAIRS or len(metas) != F_PAIRS or shapes != F_CACHE_SHAPES
+                or _launch_counts()[:2] != (0, 0) or not cm.exists(metas[0].stem)):
+            raise AssertionError(f"the cache pass wrote {stats}, {len(metas)} metadata, "
+                                 f"shapes {shapes}")
+        _encoders_against_cpu(card, trainer, csv_path)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) + (e): fit from that cache, validation sampling at the last step
+        torch.cuda.synchronize()
+        _reset_counts()
+        with _StepCounts() as sc:
+            t0 = time.perf_counter()
+            trainer = cli.main(["--config", str(path)])
+            wall = time.perf_counter() - t0
+        fit_total = _launch_counts()
+        label = "fit from the port's cache"
+        hist = trainer.history
+        print(f"[cache] {label}: {wall:.1f} s in main(), {len(hist)} steps: "
+              + "; ".join(f"step {h['step']} {1000 * h['step_s']:.1f} ms, loss {h['loss']:.5f}"
+                          for h in hist)
+              + f"; launches {fit_total[:2]} (K1, K2) [{card}]", flush=True)
+        _check_fit_run(card, label, trainer, sc.steps, F_FIT_STEPS,
+                       lambda rec: _rq((n_blocks, n_blocks, 0, 0, 0, 0, 0, 0, 0, 0)))
+        in_steps = tuple(map(sum, zip(*(r["counts"] for r in sc.steps))))
+        val_k1 = fit_total[0] - in_steps[0]
+        tag = b"validation/sample_0" in _events(trainer.output_dir).read_bytes()
+        print(f"[cache] validation inside fit: one sample at step {F_FIT_STEPS}, "
+              f"{F_VALIDATION_STEPS} steps, {val_k1} K1 launches, image logged: {tag} [{card}]",
+              flush=True)
+        if (val_k1 != F_VALIDATION_STEPS * n_blocks or fit_total[1] != in_steps[1]
+                or not tag):
+            raise AssertionError(f"validation launched K1 {val_k1}, logged {tag}")
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) predict on a raw control image
+        out = tmp / "edit.png"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        trainer = cli.main(["--config", str(path), "--predict", "--control",
+                            str(tmp / "control_1.png"), "--prompt", F_PROMPTS[1],
+                            "--output", str(out)])
+        wall = time.perf_counter() - t0
+        pred = trainer.last_predict
+        k1 = flash_nr.KERNEL_LAUNCHES
+        img = read_png(out)
+        t0 = time.perf_counter()
+        trainer.predict([read_png(tmp / "control_2.png")], F_PROMPTS[2])
+        torch.cuda.synchronize()
+        again = time.perf_counter() - t0
+        print(f"[cache] --predict from a 512² PNG: {wall:.1f} s in main() (DiT, VAE built, "
+              f"T5-XXL drawn), {pred['steps']} steps {1000 * pred['denoise_s'] / pred['steps']:.1f} "
+              f"ms/step, decode {1000 * pred['decode_s']:.1f} ms; a second request on the loaded "
+              f"model {again:.2f} s (encode, 20 steps, decode); peak mem "
+              f"{torch.cuda.max_memory_allocated()} bytes; output {img.dtype} {list(img.shape)}, "
+              f"latents finite {pred['latents_finite']}, K1 launches {k1} [{card}]", flush=True)
+        if (img.dtype != np.uint8 or img.shape != (HEIGHT, WIDTH, 3)
+                or not pred["latents_finite"] or k1 != pred["steps"] * n_blocks):
+            raise AssertionError(f"--predict gave {img.dtype} {img.shape}, K1 {k1}")
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"fit": in_steps[:2], "validation": val_k1, "predict": k1}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 PROFILE_GROUPS = [("K5a rq_int4_fwd", ("rq_int4_fwd",)), ("K5b rq_int4_bwd", ("rq_int4_bwd",)),
                   ("row quant", ("rowquant",)),
                   ("W8A8 int8_gemm", ("int8_gemm",)), ("W8A8 transpose", ("int8_transpose",)),
@@ -4946,6 +5327,13 @@ def main() -> int:
     k1_eq = timed(phase_qwen_int8)
     print(f"[smoke] phase E (the quantized bases JAX runs in XLA): "
           f"{time.perf_counter() - t_e:.1f} s [{card}]", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_f = time.perf_counter()
+    timed(phase_repair_probe)
+    f = timed(phase_cache_pass)
+    print(f"[smoke] phase F (the FLUX.1-Kontext cache pass and raw-image entry points): "
+          f"{time.perf_counter() - t_f:.1f} s [{card}]", flush=True)
 
     print(f"[smoke] wall time {time.perf_counter() - t_start:.1f} s (build included) [{card}]",
           flush=True)
@@ -4954,19 +5342,21 @@ def main() -> int:
          "source": "qflux_tpu_torch/csrc/flash_nr_fwd.cu",
          "replaces": "qflux_tpu/ops/flash_nr.py:192",
          "launches": (k1_predict + k1_train + k1_fa + k1_fb + d_flux[0] + k1_c + k1_ct + k1_e
-                      + k1_eq),
+                      + k1_eq + f["fit"][0] + f["validation"] + f["predict"]),
          "launches_by_path": {"predict": k1_predict, "train": k1_train,
                               "files_flux_resume": k1_fa, "files_flux_weights": k1_fb,
                               "data_flux_cli": d_flux[0],
                               "int4_predict": k1_c, "int4_train": k1_ct, "w8a8_flux": k1_e,
-                              "qwen_int8": k1_eq}, **k1_case},
+                              "qwen_int8": k1_eq, "cache_pass_fit": f["fit"][0],
+                              "cache_pass_validation": f["validation"],
+                              "cache_pass_predict": f["predict"]}, **k1_case},
         {"name": "flash_nr_bwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/flash_nr_bwd.cu",
          "replaces": "qflux_tpu/ops/flash_nr.py:311",
-         "launches": k2_train + k2_fa + d_flux[1] + k2_ct + k2_e,
+         "launches": k2_train + k2_fa + d_flux[1] + k2_ct + k2_e + f["fit"][1],
          "launches_by_path": {"train": k2_train, "files_flux_resume": k2_fa,
                               "data_flux_cli": d_flux[1], "int4_train": k2_ct,
-                              "w8a8_flux": k2_e}, **k2_case},
+                              "w8a8_flux": k2_e, "cache_pass_fit": f["fit"][1]}, **k2_case},
         {"name": "flash_fwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "qflux_tpu/ops/flash_attention.py:105",

@@ -46,6 +46,9 @@ DEFAULTS: dict = {
         "pretrained_model_name_or_path": None,
         "dit_path": None,
         "vae_path": None,
+        "text_encoder_path": None,
+        "text_encoder_2_path": None,
+        "tokenizer_path": None,
         "variant": "full",
         "lora": {"r": 16, "lora_alpha": 16, "init_lora_weights": "gaussian",
                  "target_modules": ["to_q", "to_k", "to_v", "to_out",

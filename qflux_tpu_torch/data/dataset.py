@@ -13,12 +13,16 @@ Counterpart of qflux_tpu/data/dataset.py:
     for byte);
   * the cached item with conditioning dropout, its draws keyed by (seed,
     sample index, visit) as in JAX, so they repeat JAX's on every visit
-    whatever order the loader's threads fetch in.
+    whatever order the loader's threads fetch in;
+  * a sample the cache does not hold (or every sample, with the cache off):
+    its images read (`_read_image`: PNG by the port's own decoder,
+    utils/png.py; any other format through cv2, imported when needed, as
+    the JAX package reads every format), resampled by the processor, and
+    returned as pixels with `drop_context` for the Trainer to encode.
 
-A sample the cache does not hold needs the pixel path (decode, resize, the
-VAE and the text encoders), and an HF Hub dataset needs the network and
-the `datasets` package: both raise NotImplementedError naming ROADMAP.md
-queue 1 item 5.  Batching is data/loader.py's.
+An HF Hub dataset needs the network and the `datasets` package: it raises
+NotImplementedError naming ROADMAP.md queue 1 item 5b.  Batching is
+data/loader.py's.
 """
 
 from __future__ import annotations
@@ -35,8 +39,9 @@ from typing import Any, Optional, Sequence
 import numpy as np
 
 from qflux_tpu_torch.data.cache import EmbeddingCacheManager
-from qflux_tpu_torch.data.preprocess import ITEM_5, ImageProcessor
+from qflux_tpu_torch.data.preprocess import ITEM_5B, ImageProcessor
 from qflux_tpu_torch.utils.hashing import md5_string
+from qflux_tpu_torch.utils.png import SIGNATURE, read_png
 
 IMG_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
 IMAGE_DIR_ALIASES = ["training_images", "images", "target_images", "target", "targets"]
@@ -51,6 +56,69 @@ _BOOLS = {"True": True, "TRUE": True, "true": True, "False": False, "FALSE": Fal
 _INT = re.compile(r"[+-]?\d+")
 _FLOAT = re.compile(r"[+-]?(\d+\.?\d*([eE][+-]?\d+)?|\.\d+([eE][+-]?\d+)?|inf|infinity)",
                     re.IGNORECASE)
+
+
+# libpng's RGB → gray weights as cv2's PNG reader sets them (0.299, 0.587 in
+# 15 bits, the rest blue)
+_GRAY_WEIGHTS = (9797, 19235, 3736)
+
+
+def _is_png(path) -> bool:
+    with open(path, "rb") as f:
+        return f.read(8) == SIGNATURE
+
+
+def _cv2(path, what: str):
+    try:
+        import cv2
+    except ImportError:
+        raise NotImplementedError(
+            f"{path}: reading {what} other than PNG needs cv2, which is not installed "
+            f"(decoding JPEG / BMP / WebP without it is {ITEM_5B}); convert the images "
+            "to PNG") from None
+    return cv2
+
+
+def _read_image(path) -> np.ndarray:
+    """An image file → uint8 [H, W] (gray) or [H, W, 3] RGB, as the JAX
+    package's cv2.imread(IMREAD_UNCHANGED) read gives it: alpha dropped,
+    gray + alpha as three equal channels.  PNG decodes here; other formats
+    through cv2."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(path)
+    if _is_png(path):
+        img = read_png(path)
+        if img.ndim == 3:
+            img = np.repeat(img[:, :, :1], 3, axis=2) if img.shape[2] == 2 else img[:, :, :3]
+        return np.ascontiguousarray(img)
+    cv2 = _cv2(path, "images")
+    img = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
+    if img is None:
+        raise FileNotFoundError(path)
+    if img.ndim == 3:
+        img = img[:, :, :3][:, :, ::-1]  # BGRA/BGR → RGB
+    return np.ascontiguousarray(img)
+
+
+def _read_mask(path) -> np.ndarray:
+    """A mask file → uint8 [H, W], as cv2.imread(IMREAD_GRAYSCALE): a gray
+    PNG (with or without alpha) as it is, a color one through libpng's
+    truncating 15-bit weights (cv2's libpng converts in linear light: within
+    one step), other formats through cv2."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(path)
+    if not _is_png(path):
+        cv2 = _cv2(path, "masks")
+        return cv2.imread(str(path), cv2.IMREAD_GRAYSCALE)
+    img = read_png(path)
+    if img.ndim == 2:
+        return img
+    if img.shape[2] == 2:
+        return np.ascontiguousarray(img[:, :, 0])
+    rgb = img[:, :, :3].astype(np.int64)
+    gray = sum(rgb[:, :, i] * w for i, w in enumerate(_GRAY_WEIGHTS)) >> 15
+    same = (rgb[:, :, 0] == rgb[:, :, 1]) & (rgb[:, :, 0] == rgb[:, :, 2])
+    return np.where(same, rgb[:, :, 0], gray).astype(np.uint8)
 
 
 def _first_existing(d: str, stem: str) -> Optional[str]:
@@ -150,7 +218,7 @@ class ImageDataset:
             if is_huggingface_repo(p):
                 raise NotImplementedError(
                     f"HF Hub dataset {p!r}: reading a dataset from the hub is not ported "
-                    f"({ITEM_5}); point dataset_path at a local folder or a CSV")
+                    f"({ITEM_5B}); point dataset_path at a local folder or a CSV")
             self._scan_local(p)
         if csv_path:
             self._load_csv(csv_path)
@@ -283,16 +351,37 @@ class ImageDataset:
         cached = None
         if self.use_cache and self.cache_manager.exists(hashes["main_hash"]):
             cached = self.cache_manager.load(hashes["main_hash"], use_empty_prompt=drop_caption)
-        if cached is None:
-            raise NotImplementedError(
-                f"sample {idx} ({sample['image']}) is not in the embedding cache"
-                f"{'' if self.use_cache else ' (the cache is off)'}: encoding images is not "
-                f"ported yet ({ITEM_5}); write the cache with the JAX package's "
-                "`python -m qflux_tpu.main --config <cfg> --cache`")
-        out.update(cached)
-        if drop_all:
-            for k, v in out.items():
-                if k.startswith("control") and hasattr(v, "dtype"):
-                    out[k] = np.zeros_like(v)
-        out["cached"] = True
+        if cached is not None:
+            out.update(cached)
+            if drop_all:
+                for k, v in out.items():
+                    if k.startswith("control") and hasattr(v, "dtype"):
+                        out[k] = np.zeros_like(v)
+            out["cached"] = True
+            return out
+        # not cached: read and resample the pixels for the Trainer to encode
+        raw: dict[str, Any] = {"image": _read_image(sample["image"])}
+        controls = sample.get("controls") or []
+        if controls:
+            raw["control"] = _read_image(controls[0])
+            if len(controls) > 1:
+                raw["controls"] = [_read_image(c) for c in controls[1:]]
+        if self.use_edit_mask and sample.get("mask_file"):
+            raw["mask"] = _read_mask(sample["mask_file"])
+        proc = self.processor.preprocess(raw)
+        if drop_caption:
+            out["prompt"] = ""
+        # prompt-image dropout on the pixel path: the Trainer zeroes the
+        # control latents after encoding, as the cached path zeroes them
+        out["drop_context"] = bool(drop_all)
+        out["image"] = proc["image"]
+        out["img_shapes"] = [tuple(proc["image"].shape[:2])]
+        if "control" in proc:
+            out["control"] = proc["control"]
+            out["img_shapes"].append(tuple(proc["control"].shape[:2]))
+        for i, c in enumerate(proc.get("controls", []), start=1):
+            out[f"control_{i}"] = c
+            out["img_shapes"].append(tuple(c.shape[:2]))
+        if "mask" in proc:
+            out["mask"] = proc["mask"]
         return out

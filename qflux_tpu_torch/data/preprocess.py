@@ -1,17 +1,35 @@
-"""The resolution policy: which (H, W) each image of a sample becomes.
+"""The resolution policy and the pixel path: which (H, W) each image of a
+sample becomes, and the resampling that makes it so.
 
-Counterpart of qflux_tpu/data/preprocess.py for the geometry the loader's
-buckets need: the fixed-pixel-budget factorization (`count_hw_pairs`,
-`best_area_near`, `best_hw_given_area`), `calculate_best_resolution`, and
-`ImageProcessor`'s multi-resolution candidates (a list, or a per-type dict
-{target, controls}) with the max-aspect-ratio guard, its per-kind sizes and
-budgets, `output_shape` (the processed (H, W) from the source dimensions
-alone) and `bucket_key`.  Every resolution it can emit is a bucket: one
-static shape a train step runs at.
+Counterpart of qflux_tpu/data/preprocess.py: the fixed-pixel-budget
+factorization (`count_hw_pairs`, `best_area_near`, `best_hw_given_area`),
+`calculate_best_resolution`, and `ImageProcessor`'s multi-resolution
+candidates (a list, or a per-type dict {target, controls}) with the
+max-aspect-ratio guard, its per-kind sizes and budgets, `output_shape` (the
+processed (H, W) from the source dimensions alone), `bucket_key`, and the
+pixels: `process_image` in every process_type (resize, center_crop,
+center_padding / right_padding, fixed_pixels, multi-resolution candidates)
+and `preprocess` (target, mask, controls).  Every resolution it can emit is
+a bucket: one static shape a train step runs at.
 
-Resampling pixels (`process_image`, `preprocess`: cv2 in the JAX package)
-belongs to the pixel path, which needs the encoders: ROADMAP.md, queue 1
-item 5.  The port's training reads the embedding cache.
+The JAX package resamples with cv2.resize; the card's machine has no cv2,
+so `_resize` is cv2's uint8 resampling written in numpy:
+
+  * "bilinear" (INTER_LINEAR, the default resize_mode): cv2's fixed-point
+    path, 11-bit weights (INTER_RESIZE_COEF_BITS) from the f32 source
+    coordinate, the horizontal pass in int32, the vertical one as
+    ((b0·(h0 >> 4)) >> 16) + ((b1·(h1 >> 4)) >> 16) + 2) >> 2; the source
+    column clamps at the borders with its weight reset, the row does not.
+    Equal to cv2 to the bit;
+  * "nearest" (INTER_NEAREST): src = min(floor(dst · (1 / (dst_n / src_n))),
+    src_n - 1) in double.  Equal to cv2 to the bit;
+  * "bicubic" (INTER_CUBIC): cv2's A = -0.75 taps, the weights rounded to
+    11 bits, borders replicated, the sum rounded once (cv2's vector path
+    rounds an f32 sum): within 1 step of cv2;
+  * "area" (INTER_AREA): a block average where the scale is an integer in
+    both directions, cv2's area-overlap weights where it shrinks otherwise,
+    and cv2's bilinear emulation (its own weights, the fixed-point path)
+    where it grows: within 1 step of cv2.
 """
 
 from __future__ import annotations
@@ -24,7 +42,155 @@ import numpy as np
 
 from qflux_tpu_torch.config import DEFAULTS, parse_pixels
 
-ITEM_5 = "ROADMAP.md, queue 1 item 5: \"Cache pass and encoders\""
+ITEM_5B = ("ROADMAP.md, queue 1 item 5b: \"Qwen cache pass and encoders, the rest of the "
+           "pixel path\"")
+
+
+# ---------------------------------------------------------------------------
+# resampling: cv2.resize on uint8, in numpy
+
+INTERPOLATIONS = ("bilinear", "bicubic", "nearest", "area")
+_COEF_BITS = 11                 # cv2's INTER_RESIZE_COEF_BITS
+_COEF_SCALE = 1 << _COEF_BITS
+
+
+def _inv(dst: int, src: int) -> float:
+    """cv2's source step: 1 / (dst / src), in double."""
+    return 1.0 / (dst / src)
+
+
+def _fixed(c) -> np.ndarray:
+    """f32 weights → cv2's 11-bit integers (saturate_cast<short>: rint)."""
+    return np.rint(np.asarray(c, np.float32) * np.float32(_COEF_SCALE)).astype(np.int64)
+
+
+def _linear_axis(dst: int, src: int, area: bool, column: bool):
+    """(i0, i1, w0, w1) of one axis of cv2's two-tap resampling: the source
+    index and f32 fraction of each destination index (INTER_LINEAR's
+    centre mapping, or INTER_AREA's when it grows), the weights 1 - f and
+    f in 11 bits.  A column past either border clamps with its fraction
+    reset to 0; a row's indices clamp and keep their fraction."""
+    scale = _inv(dst, src)
+    d = np.arange(dst, dtype=np.float64)
+    if area:
+        i = np.floor(d * scale).astype(np.int64)
+        f = ((d + 1) - (i + 1) * (dst / src)).astype(np.float32)
+        f = np.where(f <= 0, np.float32(0), f - np.floor(f)).astype(np.float32)
+    else:
+        f = ((d + 0.5) * scale - 0.5).astype(np.float32)
+        i = np.floor(f).astype(np.int64)
+        f = (f - i.astype(np.float32)).astype(np.float32)
+    if column:
+        low, high = i < 0, i >= src - 1
+        f = np.where(low | high, np.float32(0), f).astype(np.float32)
+        i = np.where(low, 0, np.where(high, src - 1, i))
+    i0, i1 = np.clip(i, 0, src - 1), np.clip(i + 1, 0, src - 1)
+    return i0, i1, _fixed(np.float32(1) - f), _fixed(f)
+
+
+def _resize_linear(img: np.ndarray, w: int, h: int, area: bool) -> np.ndarray:
+    c0, c1, a0, a1 = _linear_axis(w, img.shape[1], area, column=True)
+    r0, r1, b0, b1 = _linear_axis(h, img.shape[0], area, column=False)
+    src = img.astype(np.int64)
+    rows = np.unique(np.concatenate([r0, r1]))
+    hor = np.zeros((img.shape[0], w) + img.shape[2:], np.int64)
+    hor[rows] = (src[rows][:, c0] * a0.reshape(-1, *[1] * (img.ndim - 2))
+                 + src[rows][:, c1] * a1.reshape(-1, *[1] * (img.ndim - 2)))
+    shape = (-1, 1) + (1,) * (img.ndim - 2)
+    out = (((b0.reshape(shape) * (hor[r0] >> 4)) >> 16)
+           + ((b1.reshape(shape) * (hor[r1] >> 4)) >> 16) + 2) >> 2
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def _nearest_index(dst: int, src: int) -> np.ndarray:
+    return np.minimum(np.floor(np.arange(dst) * _inv(dst, src)).astype(np.int64), src - 1)
+
+
+def _cubic_weights(f: np.ndarray) -> np.ndarray:
+    """cv2's interpolateCubic (A = -0.75) in f32 → [n, 4] 11-bit weights."""
+    a = np.float32(-0.75)
+    one = np.float32(1)
+    x = f.astype(np.float32)
+    c0 = ((a * (x + one) - 5 * a) * (x + one) + 8 * a) * (x + one) - 4 * a
+    c1 = ((a + 2) * x - (a + 3)) * x * x + one
+    c2 = ((a + 2) * (one - x) - (a + 3)) * (one - x) * (one - x) + one
+    c3 = one - c0 - c1 - c2
+    return _fixed(np.stack([c0, c1, c2, c3], axis=1).astype(np.float32))
+
+
+def _cubic_axis(dst: int, src: int):
+    f = ((np.arange(dst, dtype=np.float64) + 0.5) * _inv(dst, src) - 0.5).astype(np.float32)
+    i = np.floor(f).astype(np.int64)
+    f = (f - i.astype(np.float32)).astype(np.float32)
+    idx = np.clip(i[:, None] + np.arange(-1, 3)[None, :], 0, src - 1)
+    return idx, _cubic_weights(f)
+
+
+def _resize_cubic(img: np.ndarray, w: int, h: int) -> np.ndarray:
+    cx, wx = _cubic_axis(w, img.shape[1])
+    ry, wy = _cubic_axis(h, img.shape[0])
+    tail = (1,) * (img.ndim - 2)
+    src = img.astype(np.int64)
+    hor = sum(src[:, cx[:, k]] * wx[:, k].reshape(-1, *tail) for k in range(4))
+    ver = sum(hor[ry[:, k]] * wy[:, k].reshape(-1, 1, *tail) for k in range(4))
+    out = np.rint(ver.astype(np.float64) / float(_COEF_SCALE * _COEF_SCALE))
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def _area_matrix(dst: int, src: int) -> np.ndarray:
+    """[dst, src] area-overlap weights (cv2's computeResizeAreaTab)."""
+    scale = _inv(dst, src)
+    m = np.zeros((dst, src), np.float64)
+    for d in range(dst):
+        fs1 = d * scale
+        fs2 = fs1 + scale
+        cell = min(scale, src - fs1)
+        s1, s2 = math.ceil(fs1), math.floor(fs2)
+        s2 = min(s2, src - 1)
+        s1 = min(s1, s2)
+        if s1 - fs1 > 1e-3:
+            m[d, s1 - 1] = np.float32((s1 - fs1) / cell)
+        m[d, s1:s2] = np.float32(1.0 / cell)
+        if fs2 - s2 > 1e-3:
+            m[d, s2] = np.float32(min(min(fs2 - s2, 1.0), cell) / cell)
+    return m
+
+
+def _resize_area(img: np.ndarray, w: int, h: int) -> np.ndarray:
+    sh, sw = img.shape[:2]
+    sx, sy = _inv(w, sw), _inv(h, sh)
+    if sx < 1 or sy < 1:  # growing in a direction: cv2's bilinear emulation
+        return _resize_linear(img, w, h, area=True)
+    ix, iy = int(round(sx)), int(round(sy))
+    if abs(sx - ix) < np.finfo(float).eps and abs(sy - iy) < np.finfo(float).eps:
+        blocks = img[: h * iy, : w * ix].astype(np.int64).reshape(
+            h, iy, w, ix, *img.shape[2:]).sum(axis=(1, 3))
+        if ix == iy == 2:
+            return ((blocks + 2) >> 2).astype(np.uint8)
+        out = np.rint(blocks.astype(np.float32) * np.float32(1.0 / (ix * iy)))
+        return np.clip(out, 0, 255).astype(np.uint8)
+    out = np.einsum("ys,sx...->yx...", _area_matrix(h, sh),
+                    np.einsum("xs,ys...->yx...", _area_matrix(w, sw), img.astype(np.float64)))
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
+def _resize(img: np.ndarray, w: int, h: int, interp: str = "bilinear") -> np.ndarray:
+    """uint8 [H, W] or [H, W, C] → [h, w(, C)], as cv2.resize(img, (w, h),
+    interpolation=...) (the module docstring says how close)."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8:
+        raise ValueError(f"_resize takes uint8 images, got {img.dtype}")
+    if interp not in INTERPOLATIONS:
+        raise KeyError(interp)
+    if img.shape[:2] == (h, w):
+        return img.copy()
+    if interp == "nearest":
+        return img[_nearest_index(h, img.shape[0])][:, _nearest_index(w, img.shape[1])]
+    if interp == "bicubic":
+        return _resize_cubic(img, w, h)
+    if interp == "area":
+        return _resize_area(img, w, h)
+    return _resize_linear(img, w, h, area=False)
 
 
 # ---------------------------------------------------------------------------
@@ -222,15 +388,82 @@ class ImageProcessor:
         # configured size whatever the input's
         return self.make_divisible(self._size_for(kind))
 
-    # -- pixels: the cache pass's -----------------------------------------------
+    # -- pixels ------------------------------------------------------------------
 
-    def process_image(self, image, kind: str = "target", size=None, pixels=None):
-        raise NotImplementedError(f"resampling pixels is not ported yet ({ITEM_5}); "
-                                  "train from an embedding cache")
+    def process_image(self, image: np.ndarray, kind: str = "target",
+                      size: Optional[Sequence[int]] = None,
+                      pixels: Optional[int] = None) -> np.ndarray:
+        """One uint8 image resampled by its kind's policy, branch for branch
+        as the JAX package's."""
+        cfg = self.config
+        cands = self.candidates_for(kind)
+        if cands:
+            h, w = image.shape[:2]
+            best = self.select_pixels(w, h, cands)
+            nw, nh = calculate_best_resolution(w, h, best)
+            return _resize(image, nw, nh, cfg.resize_mode)
+        if size is None:
+            size = self._size_for(kind)
+        if pixels is None:
+            pixels = self._pixels_for(kind)
+        if cfg.process_type == "resize":
+            th, tw = self.make_divisible(size)
+            return _resize(image, tw, th, cfg.resize_mode)
+        if cfg.process_type == "center_crop":
+            return self._center_crop(image, self.make_divisible(size))
+        if cfg.process_type.endswith("_padding"):
+            return self._padding(image, self.make_divisible(size))
+        if cfg.process_type == "fixed_pixels":
+            return self._fixed_pixels(image, pixels)
+        return self._center_crop(image, self.make_divisible(size))
+
+    def _center_crop(self, image, size):
+        h, w = image.shape[:2]
+        th, tw = size
+        scale = min(w / tw, h / th)
+        nw, nh = int(tw * scale), int(th * scale)
+        x0, y0 = (w - nw) // 2, (h - nh) // 2
+        return _resize(image[y0:y0 + nh, x0:x0 + nw], tw, th, self.config.resize_mode)
+
+    def _padding(self, image, size):
+        h, w = image.shape[:2]
+        th, tw = size
+        scale = min(tw / w, th / h)
+        nw, nh = int(w * scale), int(h * scale)
+        resized = _resize(image, nw, nh, self.config.resize_mode)
+        shape = (th, tw) if image.ndim == 2 else (th, tw, image.shape[2])
+        out = np.zeros(shape, dtype=image.dtype)
+        if self.config.process_type == "right_padding":
+            x0, y0 = 0, (th - nh) // 2
+        else:
+            x0, y0 = (tw - nw) // 2, (th - nh) // 2
+        out[y0:y0 + nh, x0:x0 + nw] = resized
+        return out
+
+    def _fixed_pixels(self, image, pixels):
+        h, w = image.shape[:2]
+        pixels = int(pixels / (32 * 32)) * (32 * 32)
+        hw = best_hw_given_area(pixels, w, h)
+        if hw is None:
+            raise ValueError(f"no 16-divisible factorization of {pixels}")
+        nw, nh = hw
+        return _resize(image, nw, nh, self.config.resize_mode)
 
     def preprocess(self, sample: dict) -> dict:
-        raise NotImplementedError(f"resampling pixels is not ported yet ({ITEM_5}); "
-                                  "train from an embedding cache")
+        """{image, mask?, control?, controls?}: each by its own policy; the
+        mask follows the target and becomes f32 in [0, 1]."""
+        out = dict(sample)
+        if "image" in out:
+            out["image"] = self.process_image(np.asarray(out["image"]), "target")
+        if "mask" in out:
+            m = self.process_image(np.asarray(out["mask"]), "target")
+            out["mask"] = m.astype(np.float32) / 255.0
+        if "control" in out:
+            out["control"] = self.process_image(np.asarray(out["control"]), "control_0")
+        if "controls" in out:
+            out["controls"] = [self.process_image(np.asarray(c), f"control_{i + 1}")
+                               for i, c in enumerate(out["controls"])]
+        return out
 
     # -- bucket registry -----------------------------------------------------------
 

@@ -1,57 +1,72 @@
-"""CLI: python -m qflux_tpu_torch.main --config cfg.yaml [--resume DIR]
+"""CLI: python -m qflux_tpu_torch.main --config cfg.yaml
+[--cache | --fit-no-cache | --predict --control IMG [--control IMG2 …]
+--prompt TEXT [--output out.png] [--steps N]] [--resume DIR]
 [--profile DIR] [--device cuda|cpu]
 
-Counterpart of qflux_tpu/main.py in fit mode: read the config (YAML, or
-JSON where PyYAML is absent), build the resolution policy, the dataset
-from data.class_path / data.init_args (data.caption_dropout_rate and
-data.use_edit_mask as defaults) and the DataLoader from the data section
-(batch_size, shuffle, drop_last, bucket_by_shape, num_workers, seeded
-train.seed), then `Trainer.fit`.  The port trains from the embedding cache
-(cache.use_cache and cache.cache_dir, e.g. written by the JAX package's
-`--cache` pass).  The device defaults to cuda; `--device cpu` runs the
-kernels' plain versions (tests, tiny models).
+Counterpart of qflux_tpu/main.py: read the config (YAML, or JSON where
+PyYAML is absent), build the resolution policy, the dataset from
+data.class_path / data.init_args (data.caption_dropout_rate and
+data.use_edit_mask as defaults) and the DataLoader, then
 
-Not ported, each raising NotImplementedError with its ROADMAP.md queue-1
-item: `--cache`, `--fit-no-cache` and `--predict` (the encoders, item 5),
-`--distributed` (item 8), and `--plan` (XLA's memory analysis: not
-ported at all).
+  * fit (the default): `Trainer.fit` over the data section's loader
+    (batch_size, shuffle, drop_last, bucket_by_shape, num_workers, seeded
+    train.seed), from the embedding cache where cache.use_cache and a
+    cache_dir are set, samples not in it encoded as they come;
+  * --fit-no-cache: the same with the cache off (every batch encoded);
+  * --cache: `Trainer.cache` over bs=1 batches in order, conditioning
+    dropout off, into cache.cache_dir;
+  * --predict: `Trainer.predict` on the control image(s) (`--control`, or
+    JAX's name for it, `--image`) and `--prompt`, each output written as a
+    PNG by the port's own encoder (`--output`, then -1, -2, … for more).
+
+--cache, --fit-no-cache and --predict run FLUX.1-Kontext's encoders; for
+Qwen-Image-Edit they raise NotImplementedError naming ROADMAP.md queue 1
+item 5b.  The device defaults to cuda; `--device cpu` runs the kernels'
+plain versions (tests, tiny models).  Not ported: `--distributed` (item
+8) and `--plan` (XLA's memory analysis: not ported at all).
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import sys
 
-from qflux_tpu_torch.data.preprocess import ITEM_5
-
 ITEM_8 = "ROADMAP.md, queue 1 item 8: \"Distribution\""
+PREDICT_ONLY = ("control", "prompt", "output", "steps")
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser("qflux_tpu_torch")
     p.add_argument("--config", required=True, help="YAML (or JSON) config path")
     p.add_argument("--resume", default=None, help="checkpoint dir to resume from")
-    p.add_argument("--cache", action="store_true",
-                   help="run the embedding-cache pass (not ported)")
+    p.add_argument("--cache", action="store_true", help="run the embedding-cache pass")
     p.add_argument("--fit-no-cache", action="store_true",
-                   help="train without the embedding cache (not ported)")
-    p.add_argument("--predict", action="store_true", help="run inference (not ported)")
+                   help="train without the embedding cache")
+    p.add_argument("--predict", action="store_true",
+                   help="edit --control image(s) by --prompt and write --output")
+    p.add_argument("--control", "--image", dest="control", action="append", default=None,
+                   help="control image path for --predict (repeatable)")
+    p.add_argument("--prompt", default=None, help="edit instruction for --predict")
+    p.add_argument("--output", default=None, help="output PNG path for --predict "
+                   "(default prediction.png)")
+    p.add_argument("--steps", type=int, default=None, help="inference steps for --predict")
     p.add_argument("--distributed", action="store_true",
                    help="multi-process training (not ported)")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a torch.profiler trace of steps 2-4 into DIR")
     p.add_argument("--plan", action="store_true", help="memory preflight (not ported)")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if not args.predict:
+        given = [f"--{k}" for k in PREDICT_ONLY if getattr(args, k) is not None]
+        if given:
+            p.error(f"{', '.join(given)} act only with --predict")
+    return args
 
 
 def _refuse_unported(args) -> None:
-    for flag, on in (("--cache", args.cache), ("--fit-no-cache", args.fit_no_cache),
-                     ("--predict", args.predict)):
-        if on:
-            raise NotImplementedError(f"{flag} needs the VAE and text encoders, which are "
-                                      f"not ported yet ({ITEM_5})")
     if args.distributed:
         raise NotImplementedError(f"--distributed is not ported yet ({ITEM_8})")
     if args.plan:
@@ -60,8 +75,31 @@ def _refuse_unported(args) -> None:
             "list; measure torch.cuda.max_memory_allocated on the card instead")
 
 
+def _predict(trainer, args) -> list:
+    """--predict: read the controls, edit, write every output image."""
+    from qflux_tpu_torch.data.dataset import _read_image
+    from qflux_tpu_torch.utils.png import encode_png
+
+    if not args.control or args.prompt is None:
+        raise SystemExit("--predict requires --control (repeatable) and --prompt")
+    trainer._require_encoders("--predict")
+    controls = [_read_image(p) for p in args.control]
+    controls = [c if c.ndim == 3 else c[:, :, None].repeat(3, axis=2) for c in controls]
+    imgs = trainer.predict(controls, args.prompt, num_inference_steps=args.steps)
+    output = args.output or "prediction.png"
+    stem, ext = os.path.splitext(output)
+    paths = []
+    for i, im in enumerate(imgs):
+        path = output if i == 0 else f"{stem}-{i}{ext}"
+        with open(path, "wb") as f:
+            f.write(encode_png(im))
+        logging.info("wrote %s", path)
+        paths.append(path)
+    return paths
+
+
 def main(argv=None):
-    """Fit from the config's embedding cache; returns the Trainer."""
+    """Run the config's mode; returns the Trainer."""
     logging.basicConfig(
         level=logging.INFO,
         format="%(asctime)s %(process)d %(filename)s:%(lineno)d %(levelname)s %(message)s")
@@ -75,13 +113,28 @@ def main(argv=None):
     from qflux_tpu_torch.utils.instantiate import instantiate_class
 
     config = load_config_from_yaml(args.config)
-    if config.mode != "fit":
-        raise NotImplementedError(f"mode {config.mode!r} needs the VAE and text encoders, "
-                                  f"which are not ported yet ({ITEM_5})")
     if args.resume:
         config.resume = args.resume
+    if args.cache:
+        config.mode = "cache"
+        config.cache.use_cache = True
+    if args.fit_no_cache:
+        config.mode = "fit"
+        config.cache.use_cache = False
+        config.data.init_args.pop("use_cache", None)
+    if args.predict:
+        config.mode = "predict"
     if args.profile:
         config.logging.profile_dir = args.profile
+
+    trainer = Trainer(config, device=args.device)
+    if config.mode == "predict":
+        trainer.last_outputs = _predict(trainer, args)
+        return trainer
+    if config.mode not in ("fit", "cache"):
+        raise ValueError(f"unknown mode {config.mode!r}")
+    if config.mode == "cache" or args.fit_no_cache:
+        trainer._require_encoders("--cache" if config.mode == "cache" else "--fit-no-cache")
 
     data = config.data
     init_args = dict(data.init_args)
@@ -90,7 +143,14 @@ def main(argv=None):
     init_args.setdefault("use_edit_mask", data.use_edit_mask)
     dataset = instantiate_class(data.class_path, **init_args)
 
-    trainer = Trainer(config, device=args.device)
+    if config.mode == "cache":
+        # bs=1, in order, every sample kept; conditioning dropout must not
+        # bake into the cache (it is drawn again at each cached load)
+        dataset.caption_dropout_rate = 0.0
+        dataset.prompt_image_dropout_rate = 0.0
+        trainer.cache(DataLoader(dataset, batch_size=1, shuffle=False, drop_last=False,
+                                 bucket_by_shape=False))
+        return trainer
     dl = DataLoader(dataset, batch_size=data.batch_size, shuffle=data.shuffle,
                     drop_last=data.drop_last, seed=config.train.seed,
                     bucket_by_shape=data.bucket_by_shape, num_workers=data.num_workers)

@@ -146,9 +146,34 @@ def load_params(module: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
 
 
 def load_vae_params(vae: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
-    """The JAX VAE tree {"encoder", "decoder"} into the port's VAE; the
-    encoder is not ported yet, so its subtree is not read."""
-    return load_params(vae, {"decoder": tree["decoder"]})
+    """The JAX VAE tree {"encoder", "decoder"} into the port's VAE: each
+    half the module has (the FLUX VAE both; the Qwen VAE its decoder, its
+    encoder being ROADMAP.md queue 1 item 5b)."""
+    return load_params(vae, {k: v for k, v in tree.items() if hasattr(vae, k)})
+
+
+def load_text_params(module: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
+    """A JAX CLIP or T5 parameter tree (`clip_init` / `t5_init`, or either
+    package's converters), its "layers" a list of per-layer dicts, into
+    the port's `text_encoders.CLIPText` / `T5Encoder`."""
+    tree = dict(tree)
+    if isinstance(tree.get("layers"), (list, tuple)):
+        tree["layers"] = _stack_list(tree["layers"])
+    return load_params(module, tree)
+
+
+def _stack_list(trees: list) -> dict:
+    """Per-layer dicts → one dict of stacked [L, ...] leaves."""
+    out = {}
+    for k, v in trees[0].items():
+        vals = [t[k] for t in trees]
+        if isinstance(v, Mapping):
+            out[k] = _stack_list(vals)
+        elif torch.is_tensor(v):
+            out[k] = torch.stack(vals)
+        else:
+            out[k] = np.stack([np.asarray(x) for x in vals])
+    return out
 
 
 def lora_from_tree(model: nn.Module, tree: Mapping[str, Any], device=None,

@@ -1,16 +1,16 @@
-"""AutoencoderKL (FLUX VAE) decoder in PyTorch.
+"""AutoencoderKL (FLUX VAE) in PyTorch: the encoder and the decoder.
 
-Counterpart of the decode half of qflux_tpu/models/flux/vae.py.  The public
-boundary keeps the JAX layout (NHWC latents in, NHWC images out); inside,
-the convolutions run NCHW through `F.conv2d`.  The mid-block attention is
-plain matmul + softmax, as the JAX `_sdpa` is plain XLA.
+Counterpart of qflux_tpu/models/flux/vae.py.  The public boundary keeps the
+JAX layout (NHWC images / latents in and out); inside, the convolutions run
+NCHW through `F.conv2d`.  The mid-block attention is plain matmul +
+softmax, as the JAX `_sdpa` is plain XLA.
 
-The decoder runs in float32.  On the card, float32 convolutions and matmuls
-must not silently run in TF32: `decode` requires both
-`torch.backends.cudnn.allow_tf32` and `torch.backends.cuda.matmul.allow_tf32`
-to be False (callers set them; chip_smoke.py does).
-
-The encoder is not ported yet: it comes with the cache-pass slice.
+Both halves run in float32, as JAX runs them.  On the card, float32
+convolutions and matmuls must not silently run in TF32 (cuDNN takes TF32
+for f32 convolutions by default, ~1e-3 off): `encode_moments` and `decode`
+raise unless `torch.backends.cudnn.allow_tf32` and
+`torch.backends.cuda.matmul.allow_tf32` are False (`ops.layers.require_f32`;
+the Trainer turns both off on the card).
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from qflux_tpu_torch.ops.layers import Dense
+from qflux_tpu_torch.ops.layers import Dense, require_f32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,6 +102,16 @@ class MidBlock(nn.Module):
         self.resnets_1 = Resnet(c, c, **kw)
 
 
+class DownBlock(nn.Module):
+    def __init__(self, cin, cout, n_resnets, downsample, device=None, dtype=None):
+        super().__init__()
+        kw = {"device": device, "dtype": dtype}
+        for j in range(n_resnets):
+            self.add_module(f"resnets_{j}", Resnet(cin if j == 0 else cout, cout, **kw))
+        self.n_resnets = n_resnets
+        self.downsample = Conv(3, 3, cout, cout, **kw) if downsample else None
+
+
 class UpBlock(nn.Module):
     def __init__(self, cin, cout, n_resnets, upsample, device=None, dtype=None):
         super().__init__()
@@ -110,6 +120,22 @@ class UpBlock(nn.Module):
             self.add_module(f"resnets_{j}", Resnet(cin if j == 0 else cout, cout, **kw))
         self.n_resnets = n_resnets
         self.upsample = Conv(3, 3, cout, cout, **kw) if upsample else None
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: VAEConfig, device=None, dtype=None):
+        super().__init__()
+        kw = {"device": device, "dtype": dtype}
+        ch = cfg.block_out_channels
+        self.conv_in = Conv(3, 3, cfg.in_channels, ch[0], **kw)
+        cin = ch[0]
+        for i, cout in enumerate(ch):
+            self.add_module(f"down_{i}", DownBlock(cin, cout, cfg.layers_per_block,
+                                                    i < len(ch) - 1, **kw))
+            cin = cout
+        self.mid = MidBlock(ch[-1], **kw)
+        self.norm_out = GroupNormParams(ch[-1], **kw)
+        self.conv_out = Conv(3, 3, ch[-1], 2 * cfg.latent_channels, **kw)
 
 
 class Decoder(nn.Module):
@@ -130,23 +156,27 @@ class Decoder(nn.Module):
 
 
 class VAE(nn.Module):
-    """{"decoder": ...} of the JAX VAE tree."""
+    """{"encoder": ..., "decoder": ...} of the JAX VAE tree."""
 
     def __init__(self, cfg: VAEConfig, device=None, dtype=None):
         super().__init__()
         self.cfg = cfg
+        self.encoder = Encoder(cfg, device=device, dtype=dtype)
         self.decoder = Decoder(cfg, device=device, dtype=dtype)
 
 
 def init(generator: torch.Generator, cfg: VAEConfig, device=None,
          dtype=torch.float32) -> VAE:
-    """Random decoder weights with `_conv_init`/`_dense_init` bounds, unit
-    group-norm scales and zero group-norm biases."""
+    """Random decoder and encoder weights (drawn in that order) with
+    `_conv_init`/`_dense_init` bounds, unit group-norm scales and zero
+    group-norm biases."""
     model = VAE(cfg, device=device, dtype=dtype)
     with torch.no_grad():
-        for mod in model.modules():
-            if isinstance(mod, (Conv, Dense)):
-                mod.init_(generator)
+        # the decoder first: its draws stay those of a decoder-only VAE
+        for half in (model.decoder, model.encoder):
+            for mod in half.modules():
+                if isinstance(mod, (Conv, Dense)):
+                    mod.init_(generator)
     return model
 
 
@@ -209,12 +239,36 @@ def _mid_block(p: MidBlock, x, groups):
     return _resnet(p.resnets_1, x, groups)
 
 
+def encode_moments(params: VAE, cfg: VAEConfig, images):
+    """images [B, H, W, 3] in [-1, 1] → moments [B, H/8, W/8, 2*latent_ch]
+    (f32; TF32 must be off on the card)."""
+    require_f32(images, "the VAE encoder")
+    g = cfg.norm_num_groups
+    enc = params.encoder
+    x = _conv(enc.conv_in, images.permute(0, 3, 1, 2))
+    for i in range(len(cfg.block_out_channels)):
+        blk = getattr(enc, f"down_{i}")
+        for j in range(blk.n_resnets):
+            x = _resnet(getattr(blk, f"resnets_{j}"), x, g)
+        if blk.downsample is not None:
+            # diffusers pads (0,1,0,1) then strides 2 with no padding
+            x = _conv(blk.downsample, F.pad(x, (0, 1, 0, 1)), stride=2, padding=0)
+    x = _mid_block(enc.mid, x, g)
+    x = F.silu(_group_norm(enc.norm_out, x, g))
+    return _conv(enc.conv_out, x).permute(0, 2, 3, 1)
+
+
+def encode(params: VAE, cfg: VAEConfig, images):
+    """Deterministic latents: the mode of the diagonal Gaussian (the mean
+    half of the moments), shift / scale normalized."""
+    moments = encode_moments(params, cfg, images)
+    mean = moments[..., : cfg.latent_channels]
+    return (mean - cfg.shift_factor) * cfg.scaling_factor
+
+
 def decode(params: VAE, cfg: VAEConfig, latents):
     """Normalized latents [B, h, w, C] → images [B, H, W, 3] in [-1, 1]."""
-    if latents.is_cuda and (torch.backends.cudnn.allow_tf32
-                            or torch.backends.cuda.matmul.allow_tf32):
-        raise RuntimeError("VAE decode runs in float32: set torch.backends.cudnn.allow_tf32 "
-                           "and torch.backends.cuda.matmul.allow_tf32 to False first")
+    require_f32(latents, "VAE decode")
     g = cfg.norm_num_groups
     z = latents / cfg.scaling_factor + cfg.shift_factor
     dec = params.decoder

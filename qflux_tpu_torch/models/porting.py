@@ -1,7 +1,8 @@
-"""Diffusers state dicts → the port's parameter trees (FLUX DiT and VAE).
+"""Diffusers / transformers state dicts → the port's parameter trees (FLUX
+DiT and VAE, CLIP-L and T5 text encoders).
 
-The port's copy of qflux_tpu/models/porting.py (FLUX MMDiT, FLUX VAE and
-the coverage audit; the CLIP / T5 converters wait for the text encoders).
+The port's copy of qflux_tpu/models/porting.py (FLUX MMDiT, FLUX VAE, CLIP
+text, T5 encoder and the coverage audit).
 A state dict is any mapping name → tensor: a dict of torch tensors or numpy
 arrays, or the lazy safetensors reader (`utils/safetensors.py:SafeTensors`),
 which reads a tensor only when a converter asks for it.  The converters
@@ -72,6 +73,10 @@ def _lin(sd: Mapping, name: str, dtype=torch.float32) -> dict:
     if f"{name}.bias" in sd:
         p["bias"] = _t(sd[f"{name}.bias"]).to(dtype)
     return p
+
+
+def _lin_nobias(sd: Mapping, name: str, dtype=torch.float32) -> dict:
+    return {"kernel": _t(sd[f"{name}.weight"]).to(dtype).t()}
 
 
 def _split_single_proj_out(lin: dict) -> dict:
@@ -245,6 +250,65 @@ def convert_flux_vae(sd: Mapping, num_blocks=4, layers_per_block=2,
             blk["upsample"] = _conv(sd, f"decoder.up_blocks.{i}.upsamplers.0.conv", dtype)
         dec[f"up_{i}"] = blk
     return {"encoder": enc, "decoder": dec}
+
+
+# ===========================================================================
+# CLIP text (transformers CLIPTextModel names)
+
+def convert_clip_text(sd: Mapping, num_layers=12, dtype=torch.float32) -> dict:
+    """The JAX CLIP tree: "layers" a list of per-layer dicts.  Keys with or
+    without the "text_model." prefix."""
+    pre = "text_model."
+    if not any(k.startswith(pre) for k in sd):
+        pre = ""
+    p = {
+        "token_embedding": _t(sd[f"{pre}embeddings.token_embedding.weight"]).to(dtype),
+        "position_embedding": _t(sd[f"{pre}embeddings.position_embedding.weight"]).to(dtype),
+        "final_layer_norm": _gn(sd, f"{pre}final_layer_norm", dtype),
+        "layers": [],
+    }
+    for i in range(num_layers):
+        b = f"{pre}encoder.layers.{i}"
+        p["layers"].append({
+            "layer_norm1": _gn(sd, f"{b}.layer_norm1", dtype),
+            "layer_norm2": _gn(sd, f"{b}.layer_norm2", dtype),
+            "attn": {"q": _lin(sd, f"{b}.self_attn.q_proj", dtype),
+                     "k": _lin(sd, f"{b}.self_attn.k_proj", dtype),
+                     "v": _lin(sd, f"{b}.self_attn.v_proj", dtype),
+                     "out": _lin(sd, f"{b}.self_attn.out_proj", dtype)},
+            "mlp": {"fc1": _lin(sd, f"{b}.mlp.fc1", dtype),
+                    "fc2": _lin(sd, f"{b}.mlp.fc2", dtype)},
+        })
+    return p
+
+
+# ===========================================================================
+# T5 encoder (transformers T5EncoderModel names)
+
+def convert_t5_encoder(sd: Mapping, num_layers=24, dtype=torch.float32) -> dict:
+    """The JAX T5 tree: the relative-attention table of block 0 (the only
+    block that has one), "layers" a list of per-layer dicts, no biases."""
+    p = {
+        "shared": _t(sd["shared.weight"]).to(dtype),
+        "relative_attention_bias": _t(sd[
+            "encoder.block.0.layer.0.SelfAttention.relative_attention_bias.weight"]).to(dtype),
+        "final_layer_norm": _scale(sd, "encoder.final_layer_norm", dtype),
+        "layers": [],
+    }
+    for i in range(num_layers):
+        b = f"encoder.block.{i}"
+        p["layers"].append({
+            "ln0": _scale(sd, f"{b}.layer.0.layer_norm", dtype),
+            "attn": {"q": _lin_nobias(sd, f"{b}.layer.0.SelfAttention.q", dtype),
+                     "k": _lin_nobias(sd, f"{b}.layer.0.SelfAttention.k", dtype),
+                     "v": _lin_nobias(sd, f"{b}.layer.0.SelfAttention.v", dtype),
+                     "o": _lin_nobias(sd, f"{b}.layer.0.SelfAttention.o", dtype)},
+            "ln1": _scale(sd, f"{b}.layer.1.layer_norm", dtype),
+            "ff": {"wi_0": _lin_nobias(sd, f"{b}.layer.1.DenseReluDense.wi_0", dtype),
+                   "wi_1": _lin_nobias(sd, f"{b}.layer.1.DenseReluDense.wi_1", dtype),
+                   "wo": _lin_nobias(sd, f"{b}.layer.1.DenseReluDense.wo", dtype)},
+        })
+    return p
 
 
 # ---------------------------------------------------------------------------

@@ -25,7 +25,7 @@ from torch import nn
 
 from qflux_tpu_torch.models.flux import vae as flux_vae
 from qflux_tpu_torch.models.flux.vae import Conv
-from qflux_tpu_torch.ops.layers import Dense
+from qflux_tpu_torch.ops.layers import Dense, require_f32
 
 # per-channel latent statistics of the released Qwen-Image VAE config
 LATENTS_MEAN = (
@@ -217,10 +217,7 @@ def _mid(p: Mid, x):
 
 def decode(params: QwenVAE, cfg: QwenVAEConfig, latents):
     """Normalized latents [B, h, w, z] → images [B, H, W, 3] in [-1, 1]."""
-    if latents.is_cuda and (torch.backends.cudnn.allow_tf32
-                            or torch.backends.cuda.matmul.allow_tf32):
-        raise RuntimeError("VAE decode runs in float32: set torch.backends.cudnn.allow_tf32 "
-                           "and torch.backends.cuda.matmul.allow_tf32 to False first")
+    require_f32(latents, "VAE decode")
     std = torch.tensor(cfg.latents_std, dtype=latents.dtype, device=latents.device)
     mean = torch.tensor(cfg.latents_mean, dtype=latents.dtype, device=latents.device)
     z = latents * std + mean

@@ -69,7 +69,6 @@ INT4_BWD_KERNEL_LAUNCHES = 0  # K6b, csrc/int4_bwd.cu
 RQ_KERNEL_LAUNCHES = 0      # K5a, csrc/rq_int4_fwd.cu
 RQ_BWD_KERNEL_LAUNCHES = 0  # K5b, csrc/rq_int4_bwd.cu
 ROWQUANT_LAUNCHES = 0       # the row quantization before K5a / K5b, csrc/rowquant.cu
-ROWQUANT_MAX_K = 12288      # the longest row csrc/rowquant.cu takes
 
 # JAX's defaults (qflux_tpu/ops/int4_matmul.py: BLOCK_KP, GROUP), for `supports`
 BLOCK_KP = 1536  # packed rows per K tile of the TPU kernel
@@ -350,9 +349,8 @@ def _rowquant_checks(x, s_vec):
         raise ValueError(f"{what}: x is {x.dtype} of shape {tuple(x.shape)}; the kernel takes "
                          "[M, K] bfloat16 or float32")
     m, k = x.shape
-    if m == 0 or k % 8 or k > ROWQUANT_MAX_K:
-        raise ValueError(f"{what}: M={m}, K={k}; the kernel takes M > 0, K % 8 == 0 and "
-                         f"K <= {ROWQUANT_MAX_K}")
+    if m == 0 or k % 8:
+        raise ValueError(f"{what}: M={m}, K={k}; the kernel takes M > 0 and K % 8 == 0")
     _check("x", x, x.device, x.dtype, (m, k), what)
     if s_vec is not None:
         _check("s_vec", s_vec, x.device, torch.float32, (k,), what)

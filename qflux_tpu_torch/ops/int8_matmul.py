@@ -22,8 +22,8 @@ transposed weight at its start, the split partial sums after it).
 `dyn_int8_matmul(x, q, s_vec)`: a CPU tensor takes the plain version; a
 CUDA tensor calls the custom op `qflux::int8_dyn_fwd` (so that a
 selective-checkpoint policy sees it, as it sees K5a) or raises, on a shape
-the GEMM does not take too (K % 64, N % 16; K and N at most
-`int4_matmul.ROWQUANT_MAX_K`, the row quantization's limit).
+the GEMM does not take too (K % 64, N % 16; any length, the AdaLN mods'
+N = 18,432 included: the dx row-quantizes g over N).
 `INT8_GEMM_LAUNCHES` counts the forward GEMM's launches,
 `INT8_GEMM_DX_LAUNCHES` the dx GEMM's, `INT8_TRANSPOSE_LAUNCHES` the
 transpose's; the row quantizations count in `int4_matmul.ROWQUANT_LAUNCHES`.
@@ -45,12 +45,10 @@ INT8_TRANSPOSE_LAUNCHES = 0  # the weight transpose before the dx GEMM
 
 def check_shape(k_in: int, n_out: int) -> None:
     """Raise unless the W8A8 GEMM takes a [N, K] weight: K % 64 == 0 and
-    N % 16 == 0 (the TMA tiles' rows, both directions), each at most the
-    row quantization's longest row."""
-    if k_in % 64 or n_out % 16 or not 0 < k_in <= i4.ROWQUANT_MAX_K \
-            or not 0 < n_out <= i4.ROWQUANT_MAX_K:
-        raise ValueError(f"dyn_int8_matmul: K={k_in}, N={n_out}; the kernel takes K % 64 == 0, "
-                         f"N % 16 == 0, both at most {i4.ROWQUANT_MAX_K}")
+    N % 16 == 0 (the TMA tiles' rows, both directions), both positive."""
+    if k_in % 64 or n_out % 16 or k_in <= 0 or n_out <= 0:
+        raise ValueError(f"dyn_int8_matmul: K={k_in}, N={n_out}; the kernel takes K % 64 == 0 "
+                         "and N % 16 == 0")
 
 
 def _checks(what, t, q, out_dtype):

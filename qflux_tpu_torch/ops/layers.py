@@ -69,6 +69,16 @@ from qflux_tpu_torch.ops.quant import _matmul_f32
 LoraTree = dict  # {"dual/0/attn/to_q": {"a", "b", "scaling"}, ...}
 
 
+def require_f32(t: torch.Tensor, what: str) -> None:
+    """Raise where `t` is on the card and torch would run f32 matmuls or
+    convolutions in TF32 (cuDNN's default for convolutions, ~1e-3 off):
+    `what` runs in float32, as JAX runs it.  The caller turns both switches
+    off (the Trainer does on the card, for the whole process)."""
+    if t.is_cuda and (torch.backends.cudnn.allow_tf32 or torch.backends.cuda.matmul.allow_tf32):
+        raise RuntimeError(f"{what} runs in float32: set torch.backends.cudnn.allow_tf32 "
+                           "and torch.backends.cuda.matmul.allow_tf32 to False first")
+
+
 class Dense(nn.Module):
     """y = x @ W^T + b.  `lora` is None or the {"a", "b", "scaling"} dict
     set by `merge_lora`.  The weight is `weight [out, in]`, or, after

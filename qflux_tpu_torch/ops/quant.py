@@ -360,20 +360,36 @@ def dyn_int8_matmul(x, q, s_vec):
 # |a| <= 127 (row-quantized) times |b| <= 8 (int4 values) over L terms is an
 # exact f32 integer for L below this (127 * 8 * L < 2^24)
 _BMM_EXACT_LEN = (1 << 24) // (127 * 8)
+# a longer contraction goes in pieces of this many terms, each exact
+_BMM_CHUNK = 8192
 
 
-def _int_bmm(a, b):
-    """Exact batched int8 [B, M, L] × [B, L, N] → f32 [B, M, N], a row-quantized
-    (|a| ≤ 127) and b int4 values (|b| ≤ 8): every partial sum is an integer
-    below 2²⁴ for L < _BMM_EXACT_LEN, exact in f32.  On the card bf16
-    operands (int8 values are exact in bf16) with an f32 result; on the CPU
-    float64."""
-    if a.shape[-1] >= _BMM_EXACT_LEN:
-        raise ValueError(f"dyn_int4_matmul: a contraction of {a.shape[-1]} is not exact in "
-                         f"f32 (at most {_BMM_EXACT_LEN - 1})")
-    if a.is_cuda:
+def _exact_bmm(a, b, f64=False):
+    """One exact piece: on the card bf16 operands (int8 values are exact in
+    bf16) with an f32 result; on the CPU, or with f64, float64."""
+    if a.is_cuda and not f64:
         return torch.bmm(a.to(torch.bfloat16), b.to(torch.bfloat16), out_dtype=torch.float32)
     return torch.bmm(a.to(torch.float64), b.to(torch.float64)).to(torch.float32)
+
+
+def _int_bmm(a, b, f64=False):
+    """Exact batched int8 [B, M, L] × [B, L, N] → f32 [B, M, N], a row-quantized
+    (|a| ≤ 127) and b int4 values (|b| ≤ 8), as JAX's int32 `dot_general`
+    then its cast to f32.  Below _BMM_EXACT_LEN every partial sum is an
+    integer below 2²⁴, exact in f32; a longer contraction (the AdaLN mods'
+    dx contracts over N = 18,432) is split into _BMM_CHUNK-term pieces, each
+    exact, converted to int32 and added in int32, and the sum cast to f32
+    once (the one rounding JAX's cast makes).  `f64`: float64 products on
+    the card too (`dyn_int4_fwd`)."""
+    length = a.shape[-1]
+    if length < _BMM_EXACT_LEN:
+        return _exact_bmm(a, b, f64)
+    acc = None
+    for lo in range(0, length, _BMM_CHUNK):
+        part = _exact_bmm(a[..., lo:lo + _BMM_CHUNK], b[..., lo:lo + _BMM_CHUNK, :], f64)
+        part = part.to(torch.int32)
+        acc = part if acc is None else acc + part
+    return acc.to(torch.float32)
 
 
 def _groups(q4, g_scale):
@@ -383,32 +399,35 @@ def _groups(q4, g_scale):
     return unpack_int4(q4).reshape(n_g, d_in // n_g, q4.shape[-1]), n_g, d_in // n_g
 
 
-def dyn_int4_fwd(x, q4, g_scale):
+def dyn_int4_fwd(x, q4, g_scale, f64=False):
     """The W4A8 per-group forward, as JAX's `_dyn4_fwd_raw`: x row-quantized,
     one exact integer product per group (contraction G), each scaled by its
     group scales and summed over the groups in f32, then times the row
-    scale, one cast to x.dtype.  The group sum's order is torch's, not
-    XLA's (a few f32 ulps apart)."""
+    scale, one cast to x.dtype.  The group sum's order is torch's on each
+    device, not XLA's (a few f32 ulps apart).  `f64` takes the products in
+    float64 on the card as well: the plain version that the card's bf16
+    products equal to the bit, since both are exact."""
     q, n_g, gsz = _groups(q4, g_scale)
     xq, sx = _rowquant(x)
     xg = xq.reshape(-1, n_g, gsz).transpose(0, 1)          # [n_g, M, G]
-    acc = _int_bmm(xg, q)                                    # [n_g, M, N]
+    acc = _int_bmm(xg, q, f64)                               # [n_g, M, N]
     y = (acc * g_scale[:, None, :]).sum(dim=0)
     return (y.reshape(*x.shape[:-1], q4.shape[-1]) * sx).to(x.dtype)
 
 
-def dyn_int4_dx(g, q4, g_scale):
+def dyn_int4_dx(g, q4, g_scale, f64=False):
     """Its straight-through backward, as JAX's `_dyn4_vjp_bwd` under `jit`:
     g · s_g quantized per (row, group) with the row scale amax · fl32(1/127),
     one exact product per group with the group's values (contraction N),
-    scaled back, one cast to g.dtype."""
+    scaled back, one cast to g.dtype (no sum across groups: the same bits
+    on either device).  `f64` as in `dyn_int4_fwd`."""
     q, n_g, gsz = _groups(q4, g_scale)
     n = q4.shape[-1]
     gsw = g.float().reshape(-1, 1, n) * g_scale               # [M, n_g, N]
     amax = gsw.abs().amax(dim=-1, keepdim=True)
     s_r = torch.clamp_min(amax * (1.0 / 127.0), 1e-12)        # [M, n_g, 1]
     gq = torch.round(gsw / s_r).to(torch.int8)
-    dxa = _int_bmm(gq.transpose(0, 1), q.transpose(1, 2))     # [n_g, M, G]
+    dxa = _int_bmm(gq.transpose(0, 1), q.transpose(1, 2), f64)  # [n_g, M, G]
     dx = dxa.transpose(0, 1) * s_r
     return dx.reshape(*g.shape[:-1], 2 * q4.shape[-2]).to(g.dtype)
 

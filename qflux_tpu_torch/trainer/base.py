@@ -1,15 +1,18 @@
 """The port's Trainer: load the model, build a LoRA, train it on cached
-embeddings with logging, checkpoints and resume, and predict from cached
-embeddings.
+embeddings or on pixels with logging, validation sampling, checkpoints and
+resume, write the embedding cache, and predict from cached embeddings or
+raw images.
 
 Counterpart of qflux_tpu/trainer/base.py (`load_model`, `build_lora`,
 `build_optimizer`, `build_criterion`, `_build_step_config`,
 `setup_versioned_dir`, `fit`, `_embeddings_for_batch`,
-`_build_multires_masks`, `save_checkpoint`, `_load_train_state`,
-`predict_from_embeddings`).  `fit` runs JAX's loop over a
+`_build_multires_masks`, `save_checkpoint`, `_load_train_state`, `cache`,
+`predict_from_embeddings`, `predict`, `_load_validation_samples`,
+`setup_validation`, `run_validation`).  `fit` runs JAX's loop over a
 `data.loader.DataLoader` of the embedding cache (shape buckets, or padded
-mixed-resolution batches with segment ids) or any re-iterable of cached
-batches: epochs, `global_step`, the next batch staged while the step runs,
+mixed-resolution batches with segment ids), of pixels (encoded as they
+come, `_embeddings_for_batch`), or any re-iterable of such batches:
+epochs, `global_step`, the next batch staged while the step runs,
 TensorBoard (or wandb / SwanLab) logging, a profiler window, a checkpoint
 every train.checkpointing_steps and the last one at the end, a stop after
 the step on SIGINT / SIGTERM, and `resume`.  Its files are the JAX
@@ -24,10 +27,13 @@ trainer's, so either package resumes the other's run:
             state.json                        global_step, epoch, is_last, git
             generator_state.npy               the port's noise generator
 
-Batches of pixels, validation sampling and the cache pass need the VAE and
-text encoders (ROADMAP.md, queue 1 item 5); orbax's async checkpoints and
-the hub push are not ported (item 2).  `history` records loss, grad_norm,
-lr and the step's host times per step.
+Batches of pixels, validation sampling, the cache pass and predict on raw
+images run FLUX.1-Kontext's encoders (VAE encoder, CLIP-L, T5-XXL);
+Qwen-Image-Edit's (its 3D VAE encoder and Qwen2.5-VL) are not ported, and
+those paths raise for it naming ROADMAP.md queue 1 item 5b, as does
+`predict_multires`.  Orbax's async checkpoints and the hub push are not
+ported (item 2).  `history` records loss, grad_norm, lr and the step's
+host times per step.
 
 The Trainer reads its settings by attribute, from the namespaces of the
 port's own loader (`qflux_tpu_torch/config.py`: `Trainer.from_yaml` reads a
@@ -66,7 +72,8 @@ import torch
 
 from qflux_tpu_torch import losses
 from qflux_tpu_torch.config import config_from_dict, config_to_dict, load_config_from_yaml
-from qflux_tpu_torch.data.preprocess import ITEM_5
+from qflux_tpu_torch.data.cache import EmbeddingCacheManager
+from qflux_tpu_torch.data.preprocess import ITEM_5B, ImageProcessor
 from qflux_tpu_torch.ops.layers import (build_lora_tree, iter_dense_paths, mark_trainable,
                                         merge_lora)
 from qflux_tpu_torch.ops.quant import quantize_tree
@@ -82,6 +89,7 @@ from qflux_tpu_torch.utils.fps import FpsLogger
 from qflux_tpu_torch.utils.logger import LoggerManager, NullLogger
 from qflux_tpu_torch.utils.lora_io import load_lora_safetensors, save_lora_safetensors
 from qflux_tpu_torch.utils.model_summary import model_summary_rows
+from qflux_tpu_torch.utils.tensors import numeric_suffix_key
 
 ADAPTERS = {"FluxKontextLoraTrainer": FluxKontextAdapter,
             "QwenImageEditTrainer": QwenImageEditAdapter}
@@ -131,7 +139,8 @@ class Trainer:
         self.config = config
         self.device = torch.device(device)
         if self.device.type == "cuda":
-            # the f32 VAE (and any f32 matmul) must not run in TF32
+            # the f32 VAE and text encoders (and any f32 matmul) must not run
+            # in TF32 (they raise otherwise: ops.layers.require_f32)
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
         kind = config.trainer.value
@@ -323,19 +332,36 @@ class Trainer:
             out[k] = t.to(self.device, non_blocking=cuda)
         return out
 
-    def _embeddings_for_batch(self, batch: dict) -> dict:
-        """A collated cached batch (or a plain dict of arrays) → the step's
-        embeddings, as the JAX Trainer's cached branch: only the arrays are
-        kept (`cached`, the prompts, file hashes and `valid_masks` go); a
-        batch whose latents were padded to one shape gets segment ids and a
-        token loss mask (`_build_multires_masks`); otherwise ids collated
-        per sample collapse to the shared ones; then the adapter rebuilds
-        img_ids / the RoPE tables.  A batch without `image_latents` needs
-        the encoders: NotImplementedError (ROADMAP.md queue 1 item 5)."""
-        if "image_latents" not in batch:
+    def _require_encoders(self, what: str) -> None:
+        """NotImplementedError naming item 5b where the model family's
+        encoders are not ported (Qwen-Image-Edit)."""
+        if not hasattr(self.adapter_cls, "prepare_embeddings"):
             raise NotImplementedError(
-                f"a batch of pixels needs the VAE and text encoders, which are not ported "
-                f"yet ({ITEM_5}); train from an embedding cache")
+                f"{what} needs {self.config.trainer.value}'s VAE and text encoders, which are "
+                f"not ported yet ({ITEM_5B}); train from an embedding cache")
+
+    def _embeddings_for_batch(self, batch: dict) -> dict:
+        """A collated batch (or a plain dict of arrays) → the step's
+        embeddings, as the JAX Trainer's.  A cached batch: only the arrays
+        are kept (`cached`, the prompts, file hashes and `valid_masks` go);
+        a batch whose latents were padded to one shape gets segment ids and
+        a token loss mask (`_build_multires_masks`); otherwise ids collated
+        per sample collapse to the shared ones; then the adapter rebuilds
+        img_ids / the RoPE tables.  A batch of pixels (no `image_latents`)
+        is encoded by the adapter, and the control latents of the samples
+        flagged `drop_context` (prompt-image dropout) are zeroed, as the
+        cached path zeroes them at load."""
+        if "image_latents" not in batch:
+            self._require_encoders("a batch of pixels")
+            emb = self.adapter.prepare_embeddings(self.bundle, batch,
+                                                  self.config.predict.max_sequence_length)
+            flags = batch.get("drop_context")
+            if flags is not None and np.any(flags):
+                keep = torch.as_tensor(1.0 - np.asarray(flags, np.float32)).reshape(-1, 1, 1)
+                for k in list(emb):
+                    if k.startswith("control") and torch.is_tensor(emb[k]) and emb[k].dim() == 3:
+                        emb[k] = emb[k] * keep.to(emb[k].device)
+            return emb
         emb = {k: v for k, v in batch.items()
                if isinstance(v, np.ndarray) or hasattr(v, "device")}
         emb.pop("cached", None)
@@ -410,9 +436,8 @@ class Trainer:
             raise NotImplementedError(f"logging.push_to_hub is not ported yet ({ITEM_2})")
         v = cfg.validation
         if v.enabled and (v.samples or v.dataset):
-            raise NotImplementedError(
-                f"validation sampling (validation.samples / validation.dataset) needs the "
-                f"encoders, which are not ported yet ({ITEM_5})")
+            self._require_encoders("validation sampling (validation.samples / "
+                                   "validation.dataset)")
 
     def fit(self, dataloader):
         """Train the LoRA on `dataloader`: a `data.loader.DataLoader`, or any
@@ -440,7 +465,9 @@ class Trainer:
         clock from the step's launch to its loss read, the next batch's
         staging inside it), stage_s (that staging: fetch, `_embeddings_for_batch`
         and the copies queued) and data_wait_s (time this step's batch kept
-        the loop blocked in `next`)."""
+        the loop blocked in `next`).  With validation.enabled and samples or
+        a dataset, `run_validation` samples every validation.steps steps
+        (the throughput clock paused), as in JAX."""
         cfg = self.config
         self._refuse_unported()
         if self.adapter is None:
@@ -469,6 +496,7 @@ class Trainer:
         self.logger.log_table("model_summary",
                               model_summary_rows(self.bundle.dit_params, lora), 0)
         self.history = []
+        self._validation_setup_done = False
         old_handlers = self._install_signal_handlers()
         profiler = None
         ema_loss = None
@@ -519,6 +547,11 @@ class Trainer:
                     if self.global_step % cfg.train.checkpointing_steps == 0:
                         self.fps.pause()
                         self.save_checkpoint()
+                        self.fps.resume()
+                    if (cfg.validation.enabled and cfg.validation.steps > 0
+                            and self.global_step % cfg.validation.steps == 0):
+                        self.fps.pause()
+                        self.run_validation()
                         self.fps.resume()
                     if self._interrupted or self.global_step >= cfg.train.max_train_steps:
                         done = True
@@ -633,3 +666,175 @@ class Trainer:
         self.last_predict = {"steps": plan.num_steps, "denoise_s": t1 - t0,
                              "decode_s": time.perf_counter() - t1, "latents_finite": finite}
         return images
+
+    # ------------------------------------------------------------------
+    # the cache pass
+
+    def cache(self, dataloader) -> int:
+        """Encode every sample of `dataloader` (bs=1 batches of pixels) not
+        yet in cache.cache_dir into it, in the JAX package's format (fp16
+        arrays under their content hashes, `data/cache.py`), so either
+        package trains from the result.  Returns the number of samples
+        written; `last_cache` holds that, the pass's seconds (the model's
+        load apart) and per sample written its `encode_s` (the encoders,
+        ending with the arrays on the host) and `write_s` (the npz files)."""
+        self._require_encoders("the cache pass")
+        if self.adapter is None:
+            self.load_model()
+        cache_dir = self.config.cache.cache_dir
+        if not cache_dir:
+            raise ValueError("cache mode requires cache.cache_dir")
+        cm = EmbeddingCacheManager(cache_dir)
+        t0 = time.perf_counter()
+        encode_s, write_s = [], []
+        for batch in dataloader:
+            hashes = batch["file_hashes"]
+            hashes = hashes[0] if isinstance(hashes, list) else hashes
+            if cm.exists(hashes["main_hash"]):
+                continue
+            t1 = time.perf_counter()
+            arrays, hash_keys = self.adapter.cache_embeddings(
+                self.bundle, batch, self.config.predict.max_sequence_length)
+            t2 = time.perf_counter()
+            cm.save(hashes["main_hash"], arrays,
+                    {k: hashes[v] if v in hashes else v for k, v in hash_keys.items()})
+            encode_s.append(t2 - t1)
+            write_s.append(time.perf_counter() - t2)
+        n = len(encode_s)
+        self.last_cache = {"samples": n, "seconds": time.perf_counter() - t0,
+                           "encode_s": encode_s, "write_s": write_s}
+        logging.info("cached %d new samples into %s", n, cache_dir)
+        return n
+
+    # ------------------------------------------------------------------
+    # predict on raw images
+
+    def _pixel_embeddings(self, images: list, prompt: str, height=None, width=None,
+                          negative_prompt: Optional[str] = None):
+        """Control images (uint8 arrays, none for text to image) + prompt →
+        (embeddings without the target's latents, height, width): each image
+        resampled as control_i by data.processor, the size that of the first
+        control unless given; with `negative_prompt` also its embeddings."""
+        processor = ImageProcessor(self.config.data.processor)
+        controls = [processor.process_image(np.asarray(im), f"control_{i}")
+                    for i, im in enumerate(images)]
+        height = height or controls[0].shape[0]
+        width = width or controls[0].shape[1]
+        batch = {"image": np.zeros((1, height, width, 3), np.uint8), "prompt": [prompt]}
+        for i, c in enumerate(controls):
+            batch["control" if i == 0 else f"control_{i}"] = c[None]
+        msl = self.config.predict.max_sequence_length
+        emb = self.adapter.prepare_embeddings(self.bundle, batch, msl)
+        emb.pop("image_latents", None)
+        if negative_prompt is not None:
+            emb.update(self.adapter.negative_embeddings(self.bundle, negative_prompt, batch, msl))
+        return emb, height, width
+
+    def predict(self, images, prompt: str, height: Optional[int] = None,
+                width: Optional[int] = None, **kw) -> np.ndarray:
+        """Edit raw images: uint8 [H, W, 3] control image(s) and a prompt →
+        uint8 images [1, H, W, 3], as the JAX Trainer's `predict` (the
+        LoRA of model.lora.pretrained_weight when the trainer has none;
+        `negative_prompt` (default " ") where predict.true_cfg_scale > 1;
+        other keywords go to `predict_from_embeddings`)."""
+        self._require_encoders("predict on raw images")
+        if self.adapter is None:
+            self.load_model()
+        if self.lora is None and self.config.model.lora.pretrained_weight:
+            self.lora = self.build_lora()
+        imgs = images if isinstance(images, list) else [images]
+        negative = kw.pop("negative_prompt", " ")
+        use_neg = self.config.predict.true_cfg_scale > 1.0
+        emb, height, width = self._pixel_embeddings(imgs, prompt, height, width,
+                                                    negative if use_neg else None)
+        return self.predict_from_embeddings(emb, height, width, **kw)
+
+    def predict_multires(self, items: list, num_inference_steps=None, seed=None) -> list:
+        raise NotImplementedError(f"predict_multires is not ported yet ({ITEM_5B})")
+
+    # ------------------------------------------------------------------
+    # validation
+
+    def _load_validation_samples(self) -> list[dict]:
+        """validation.samples ({prompt, images: [paths], height, width}) or
+        the first validation.max_samples items of validation.dataset (its
+        cache off, data.processor its default processor): [{prompt, images
+        (uint8 arrays), height, width}]."""
+        from qflux_tpu_torch.data.dataset import _read_image
+        from qflux_tpu_torch.utils.instantiate import instantiate_class
+
+        vcfg = self.config.validation
+        if vcfg.samples:
+            return [{"prompt": s.get("prompt", ""),
+                     "images": [_read_image(p) for p in s.get("images", [])],
+                     "height": s.get("height"), "width": s.get("width")}
+                    for s in vcfg.samples]
+        out = []
+        if vcfg.dataset:
+            init_args = dict(vcfg.dataset.get("init_args", {}))
+            init_args.pop("use_cache", None)
+            init_args.pop("cache_dir", None)
+            # data.processor, as the CLI gives the training dataset (JAX's
+            # validation dataset takes the default one, which has no size)
+            init_args.setdefault("processor", ImageProcessor(self.config.data.processor))
+            ds = instantiate_class(vcfg.dataset["class_path"], **init_args)
+            for i in range(min(vcfg.max_samples, len(ds))):
+                item = ds[i]
+                keys = [k for k in ("control",) if k in item] + sorted(
+                    (k for k in item if k.startswith("control_")), key=numeric_suffix_key)
+                out.append({"prompt": item.get("prompt", ""),
+                            "images": [np.asarray(item[k]) for k in keys],
+                            "height": np.shape(item["image"])[0],
+                            "width": np.shape(item["image"])[1]})
+        return out
+
+    def setup_validation(self) -> None:
+        """Encode the validation samples once (the JAX Trainer's
+        `setup_validation`, one process): each sample's controls resampled
+        by data.processor, its size that of the sample, else of its first
+        control, else processor.target_size, else 512²."""
+        self._require_encoders("validation sampling")
+        samples = self._load_validation_samples()
+        self._validation_prompts = [s["prompt"] for s in samples]
+        self._validation_embeddings = []
+        self._validation_setup_done = True
+        tgt = self.config.data.processor.target_size or (512, 512)
+        for i, s in enumerate(samples):
+            h, w = s.get("height"), s.get("width")
+            if not s["images"]:
+                h, w = h or tgt[0], w or tgt[1]
+            emb, h, w = self._pixel_embeddings(s["images"], s["prompt"], h, w)
+            self._validation_embeddings.append({"index": i, "prompt": s["prompt"], "emb": emb,
+                                                "height": h, "width": w})
+
+    def run_validation(self) -> list:
+        """Sample every validation embedding with validation's own steps,
+        guidance and true_cfg_scale, and log each as
+        `validation/sample_{i}` (images) and `validation/prompt_{i}` (text)
+        at the current step.  A failure raises unless
+        validation.fail_on_error is false (then it is logged).  Returns
+        [(index, images)]."""
+        vcfg = self.config.validation
+        if not getattr(self, "_validation_setup_done", False):
+            if vcfg.samples or vcfg.dataset:
+                self.setup_validation()
+            if not getattr(self, "_validation_embeddings", None):
+                return []
+        results = []
+        for rec in self._validation_embeddings:
+            try:
+                img = self.predict_from_embeddings(
+                    dict(rec["emb"]), rec["height"], rec["width"],
+                    num_inference_steps=vcfg.num_inference_steps, guidance=vcfg.guidance,
+                    true_cfg_scale=vcfg.true_cfg_scale)
+                results.append((rec["index"], np.asarray(img)))
+            except Exception as e:
+                if vcfg.fail_on_error:
+                    raise
+                logging.warning("validation sample %d failed: %s", rec["index"], e)
+        prompts = getattr(self, "_validation_prompts", None) or []
+        for idx, img in results:
+            self.logger.log_images(f"validation/sample_{idx}", list(img), self.global_step)
+            if idx < len(prompts):
+                self.logger.log_text(f"validation/prompt_{idx}", prompts[idx], self.global_step)
+        return results

@@ -1,8 +1,9 @@
-"""FLUX.1-Kontext model adapter: weights, cached-embedding prep, velocity
-prediction and decoding for the port's Trainer.
+"""FLUX.1-Kontext model adapter: weights, encoding (the cache pass and
+training from pixels), cached-embedding prep, velocity prediction and
+decoding for the port's Trainer.
 
-Counterpart of qflux_tpu/trainer/flux_kontext.py for the predict and train
-slices.  The batch is the embedding-cache format of the JAX package:
+Counterpart of qflux_tpu/trainer/flux_kontext.py.  The batch is the
+embedding-cache format of the JAX package:
 
     image_latents          [B, S_img, 64]   packed target latents (training)
     control_latents        [B, S_ctl, 64]   packed control latents
@@ -14,41 +15,125 @@ slices.  The batch is the embedding-cache format of the JAX package:
     segment_ids            [B, S_txt+S_img+S_ctl] optional (0 = padding)
     edit_mask              [B, S_img] optional (MaskEditLoss token weights)
 
-Text encoders and the VAE encoder (the cache pass) are a later slice.
+`prepare_embeddings` makes that format from a batch of pixels: CLIP-L's
+pooled output and T5-XXL's sequence for the prompts, the VAE encoder's
+packed latents for the target and every control image (control set ids
+1, 2, … in the ids), all in f32 as JAX computes them.  Tokenizers are
+transformers' AutoTokenizer from the checkpoint's tokenizer dirs where that
+package and those files exist, else `SimpleTokenizer` (a hash of each
+word: the same ids as the JAX package's fallback, not a real vocabulary;
+real CLIP BPE / T5 Unigram tokenizers written in the port are ROADMAP.md
+queue 1 item 5c).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
+import zlib
 from pathlib import Path
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
 from qflux_tpu_torch.models import porting
-from qflux_tpu_torch.models.bridge import load_vae_params
+from qflux_tpu_torch.models.bridge import load_text_params, load_vae_params
+from qflux_tpu_torch.models.flux import text_encoders as te
 from qflux_tpu_torch.models.flux import transformer as flux
 from qflux_tpu_torch.models.flux import vae as flux_vae
-from qflux_tpu_torch.ops.packing import unpack_latents
+from qflux_tpu_torch.ops.packing import pack_latents, unpack_latents
+from qflux_tpu_torch.ops.rope import flux_image_ids, flux_text_ids
 from qflux_tpu_torch.utils.lora_io import flux_module_name, flux_tree_path
 from qflux_tpu_torch.utils.safetensors import SafeTensors
 
 
+ITEM_5C = "ROADMAP.md, queue 1 item 5c: \"First-party CLIP BPE and T5 Unigram tokenizers\""
+
+
 @dataclasses.dataclass
 class ModelBundle:
-    """The model components of one family."""
+    """The model components of one family.  `text_params` holds the text
+    encoders by name ("clip", "t5"), which `text_factory` builds on first
+    use (`text_encoders`), from files or synthetic, so a fit from the
+    embedding cache or a predict from embeddings never holds T5-XXL's
+    19 GB."""
 
     dit_cfg: Any
     dit_params: Any
     vae_cfg: Any = None
     vae_params: Any = None
+    text_cfgs: dict = dataclasses.field(default_factory=dict)
+    text_params: dict = dataclasses.field(default_factory=dict)
+    tokenizers: dict = dataclasses.field(default_factory=dict)
+    text_factory: Optional[Callable[[], dict]] = None
 
 
 def require_vae(bundle: ModelBundle) -> None:
     if bundle.vae_params is None:
         raise FileNotFoundError("no VAE was loaded: the checkpoint has no vae directory "
                                 "(set model.vae_path)")
+
+
+def text_encoders(bundle: ModelBundle) -> dict:
+    """{"clip", "t5"} of the bundle, built by its factory on first use;
+    raises where the checkpoint had no text_encoder / text_encoder_2 dir."""
+    if not bundle.text_params and bundle.text_factory is not None:
+        bundle.text_params = bundle.text_factory()
+    missing = [k for k in ("clip", "t5") if k not in bundle.text_params]
+    if missing:
+        raise FileNotFoundError(
+            f"no {' / '.join(missing)} text encoder was loaded: the checkpoint has no "
+            "text_encoder / text_encoder_2 directory (set model.text_encoder_path / "
+            "model.text_encoder_2_path)")
+    return bundle.text_params
+
+
+class SimpleTokenizer:
+    """The JAX package's hash fallback tokenizer: each whitespace-separated
+    word → crc32(word) % (vocab_size - 2) + 1, cut to max_length - 1, then
+    the EOS id where there is one, zeros after.  Not a real vocabulary."""
+
+    def __init__(self, vocab_size: int, max_length: int, eos_token_id: Optional[int] = None):
+        self.vocab_size = vocab_size
+        self.max_length = max_length
+        self.eos = eos_token_id
+
+    def __call__(self, texts: list[str], max_length: Optional[int] = None) -> np.ndarray:
+        n = max_length or self.max_length
+        out = np.zeros((len(texts), n), np.int32)
+        for i, t in enumerate(texts):
+            toks = [zlib.crc32(w.encode()) % (self.vocab_size - 2) + 1
+                    for w in t.split()][: n - 1]
+            out[i, : len(toks)] = toks
+            if self.eos is not None:
+                out[i, len(toks)] = self.eos
+        return out
+
+
+def load_tokenizers(root: Optional[Path], tokenizer_path=None) -> dict:
+    """{"clip", "t5"}: transformers' AutoTokenizer from <root>/tokenizer
+    (or model.tokenizer_path) and <root>/tokenizer_2, imported here; where
+    that import or those files fail, the JAX package's hash fallback with
+    its warning."""
+    try:
+        if root is None:
+            raise FileNotFoundError("no checkpoint directory")
+        from transformers import AutoTokenizer
+
+        return {"clip": AutoTokenizer.from_pretrained(Path(tokenizer_path or root / "tokenizer")),
+                "t5": AutoTokenizer.from_pretrained(root / "tokenizer_2")}
+    except Exception as e:
+        logging.warning("tokenizers unavailable (%s); using hash fallback (%s)", e, ITEM_5C)
+        return {"clip": SimpleTokenizer(49408, 77, 49407), "t5": SimpleTokenizer(32128, 512)}
+
+
+def _load_dir(path: Path, converter, what: str, **kw) -> dict:
+    """A safetensors file or directory of shards through a converter,
+    auditing the keys it did not read (`convert_with_coverage`)."""
+    tree, _ = porting.convert_with_coverage(converter, SafeTensors(path), **kw)
+    logging.info("loaded %s from %s", what, path)
+    return tree
 
 
 def checkpoint_dirs(model) -> Optional[tuple[Path, Optional[Path]]]:
@@ -62,6 +147,21 @@ def checkpoint_dirs(model) -> Optional[tuple[Path, Optional[Path]]]:
     dit = Path(model.dit_path or root / "transformer")
     vae = Path(model.vae_path or root / "vae")
     return dit, (vae if vae.exists() else None)
+
+
+def text_dirs(model, text_cfgs: dict):
+    """(name, dir or None, converter, module class) of CLIP-L and T5: the
+    configured path, else <root>/text_encoder(_2), where it exists."""
+    root = Path(model.pretrained_model_name_or_path or ".")
+    out = []
+    for name, key, sub, conv, module in (
+            ("clip", "text_encoder_path", "text_encoder", porting.convert_clip_text,
+             te.CLIPText),
+            ("t5", "text_encoder_2_path", "text_encoder_2", porting.convert_t5_encoder,
+             te.T5Encoder)):
+        path = Path(getattr(model, key, None) or root / sub)
+        out.append((name, path if path.exists() else None, conv, module))
+    return out
 
 
 def quantize_config(config):
@@ -104,9 +204,11 @@ class FluxKontextAdapter:
 
     @classmethod
     def load(cls, config, device, dtype=torch.bfloat16) -> tuple["FluxKontextAdapter", ModelBundle]:
-        """The DiT in `dtype` and the VAE in float32 on `device`, at the
-        widths of the variant's config: `FluxConfig()` / `VAEConfig()`
-        (FLUX.1-Kontext-dev), or the tiny ones for variant "test".
+        """The DiT in `dtype`, the VAE and the text encoders in float32 on
+        `device`, at the widths of the variant's config: `FluxConfig()` /
+        `VAEConfig()` / `CLIPTextConfig()` / `T5Config()` (FLUX.1-Kontext-dev),
+        or the tiny ones for variant "test" (whose tokenizers are the hash
+        fallback at the tiny vocabularies, as in JAX).
 
         With model.pretrained_model_name_or_path or model.dit_path, the
         weights are read from a diffusers checkpoint, as the JAX adapter
@@ -114,46 +216,190 @@ class FluxKontextAdapter:
         directory of shards, block by block (`flux.load_from_state_dict`,
         each block quantized as it loads under model.quantize), with the
         depth the file has (a file with fewer blocks builds a cut model); a
-        missing DiT raises FileNotFoundError.  The VAE's decoder is loaded
-        from its directory when there is one (the encoder belongs to the
-        cache pass, a later slice); without one `vae_params` is None and
-        decoding raises.  The text encoders and tokenizers of the directory
-        are not read: the port predicts from cached embeddings, and the
-        encoders are ROADMAP.md queue 1 item 5.
+        missing DiT raises FileNotFoundError.  The VAE (encoder and decoder)
+        from model.vae_path or <root>/vae, CLIP-L from
+        model.text_encoder_path or <root>/text_encoder and T5 from
+        model.text_encoder_2_path or <root>/text_encoder_2, each where it
+        exists (without one, what needs it raises), read on first use
+        (`text_encoders`); tokenizers from
+        <root>/tokenizer(_2) (`load_tokenizers`).
 
         Without a checkpoint the weights are synthetic, drawn on `device`
-        from generators seeded 0 (DiT) and 1 (VAE) with the
-        `dense_init`/`_conv_init` bounds."""
+        from generators seeded 0 (DiT), 1 (VAE), 2 (CLIP) and 3 (T5) with
+        the JAX inits' distributions; the text encoders are drawn on first
+        use (`text_encoders`)."""
         model = config.model
-        if model.variant == "test":
+        test = model.variant == "test"
+        if test:
             dit_cfg, vae_cfg = flux.FluxConfig.tiny(), flux_vae.VAEConfig.tiny()
+            text_cfgs = {"clip": te.CLIPTextConfig.tiny(), "t5": te.T5Config.tiny()}
         else:
             dit_cfg, vae_cfg = flux.FluxConfig(), flux_vae.VAEConfig()
+            text_cfgs = {"clip": te.CLIPTextConfig(), "t5": te.T5Config()}
         device = torch.device(device)
         files = checkpoint_dirs(model)
+        bundle = ModelBundle(dit_cfg=dit_cfg, dit_params=None, vae_cfg=vae_cfg,
+                             text_cfgs=text_cfgs)
         if files is None:
-            dit = flux.init(torch.Generator(device).manual_seed(0), dit_cfg, device, dtype)
-            vae = flux_vae.init(torch.Generator(device).manual_seed(1), vae_cfg, device)
+            bundle.dit_params = flux.init(torch.Generator(device).manual_seed(0), dit_cfg,
+                                          device, dtype)
+            bundle.vae_params = flux_vae.init(torch.Generator(device).manual_seed(1), vae_cfg,
+                                              device)
+
+            def text_factory():
+                return {"clip": te.clip_init(torch.Generator(device).manual_seed(2),
+                                             text_cfgs["clip"], device),
+                        "t5": te.t5_init(torch.Generator(device).manual_seed(3),
+                                         text_cfgs["t5"], device)}
         else:
             sd = SafeTensors(files[0])
-            dit_cfg = dataclasses.replace(
+            dit_cfg = bundle.dit_cfg = dataclasses.replace(
                 dit_cfg, num_layers=porting.count_blocks(sd, "transformer_blocks"),
                 num_single_layers=porting.count_blocks(sd, "single_transformer_blocks"))
-            dit = flux.load_from_state_dict(sd, dit_cfg, device, dtype,
-                                            quantize=quantize_config(config))
-            vae = None
+            bundle.dit_params = flux.load_from_state_dict(sd, dit_cfg, device, dtype,
+                                                          quantize=quantize_config(config))
             if files[1] is not None:
-                tree = porting.convert_flux_vae(
-                    SafeTensors(files[1]), num_blocks=len(vae_cfg.block_out_channels),
-                    layers_per_block=vae_cfg.layers_per_block)
-                vae = load_vae_params(flux_vae.VAE(vae_cfg, device=device), tree)
+                tree = _load_dir(files[1], porting.convert_flux_vae, "the VAE",
+                                 num_blocks=len(vae_cfg.block_out_channels),
+                                 layers_per_block=vae_cfg.layers_per_block)
+                bundle.vae_params = load_vae_params(flux_vae.VAE(vae_cfg, device=device), tree)
+
+            def text_factory():
+                return {name: load_text_params(module(text_cfgs[name], device=device),
+                                               _load_dir(path, conv, name,
+                                                         num_layers=text_cfgs[name].num_layers))
+                        for name, path, conv, module in text_dirs(model, text_cfgs)
+                        if path is not None}
+        bundle.text_factory = text_factory
+        if test:
+            clip_cfg = text_cfgs["clip"]
+            bundle.tokenizers = {
+                "clip": SimpleTokenizer(clip_cfg.vocab_size, clip_cfg.max_position_embeddings,
+                                        clip_cfg.eos_token_id),
+                "t5": SimpleTokenizer(text_cfgs["t5"].vocab_size, 64)}
+        else:
+            root = (Path(model.pretrained_model_name_or_path or ".") if files is not None
+                    else None)
+            bundle.tokenizers = load_tokenizers(root, model.tokenizer_path)
         remat_cfg = config.mesh.remat
         adapter = cls(dit_cfg, attn_impl=attn_impl_from_config(config),
                       remat=remat_cfg != "none",
                       remat_policy=remat_policy_from_config(remat_cfg),
                       vae_scale=vae_cfg.downscale)
-        return adapter, ModelBundle(dit_cfg=dit_cfg, dit_params=dit, vae_cfg=vae_cfg,
-                                    vae_params=vae)
+        return adapter, bundle
+
+    # ======================================================================
+    # encoding (the cache pass, training from pixels, predict on raw images)
+
+    @torch.no_grad()
+    def encode_prompt(self, bundle: ModelBundle, prompts: list[str],
+                      max_sequence_length: int = 512):
+        """(prompt_embeds [B, S, 4096] from T5, pooled [B, 768] from CLIP-L,
+        txt_ids [S, 3] numpy): the dual-encoder scheme, CLIP at its 77
+        positions, T5 at max_sequence_length, f32 on the encoders' device."""
+        enc = text_encoders(bundle)
+        tok_c, tok_t = bundle.tokenizers["clip"], bundle.tokenizers["t5"]
+        if isinstance(tok_c, SimpleTokenizer):
+            clip_ids = tok_c(prompts)
+            t5_ids = tok_t(prompts, max_length=max_sequence_length)
+        else:  # transformers tokenizers
+            clip_ids = np.asarray(tok_c(prompts, padding="max_length", truncation=True,
+                                        max_length=77, return_tensors="np")["input_ids"])
+            t5_ids = np.asarray(tok_t(prompts, padding="max_length", truncation=True,
+                                      max_length=max_sequence_length,
+                                      return_tensors="np")["input_ids"])
+        _, pooled = te.clip_encode(enc["clip"], bundle.text_cfgs["clip"], clip_ids)
+        prompt_embeds = te.t5_encode(enc["t5"], bundle.text_cfgs["t5"], t5_ids)
+        return prompt_embeds, pooled, flux_text_ids(prompt_embeds.shape[1])
+
+    @torch.no_grad()
+    def encode_vae_image(self, bundle: ModelBundle, images) -> torch.Tensor:
+        """uint8 NHWC [B, H, W, 3] → packed latents [B, S, C·4], f32."""
+        require_vae(bundle)
+        dev = next(bundle.vae_params.parameters()).device
+        x = torch.as_tensor(np.asarray(images)).to(dev, torch.float32) / 127.5 - 1.0
+        return pack_latents(flux_vae.encode(bundle.vae_params, bundle.vae_cfg, x))
+
+    def prepare_embeddings(self, bundle: ModelBundle, batch: dict,
+                           max_sequence_length: int = 512) -> dict:
+        """A batch of pixels (uint8 "image", "control", "control_1", …, and
+        "prompt") → the embedding set, as JAX's: target latents, the control
+        images' latents concatenated in the order control, control_1, … (by
+        name) with set ids 1, 2, …, img_ids [S_img + S_ctl, 3]; no control
+        makes an empty control_latents and the target's ids alone."""
+        images = np.asarray(batch["image"])
+        b, height, width = images.shape[:3]
+        gh, gw = self.latent_grid(height, width)
+        prompt_embeds, pooled, txt_ids = self.encode_prompt(
+            bundle, list(batch["prompt"]), max_sequence_length)
+        image_latents = self.encode_vae_image(bundle, images)
+        controls, ids = [], [flux_image_ids(gh, gw, 0)]
+        ctl_keys = [k for k in ("control",) if k in batch]
+        ctl_keys += sorted(k for k in batch if k.startswith("control_"))
+        for i, key in enumerate(ctl_keys):
+            ctl = np.asarray(batch[key])
+            cg_h, cg_w = self.latent_grid(ctl.shape[1], ctl.shape[2])
+            controls.append(self.encode_vae_image(bundle, ctl))
+            ids.append(flux_image_ids(cg_h, cg_w, i + 1))
+        out = {"image_latents": image_latents, "prompt_embeds": prompt_embeds,
+               "pooled_prompt_embeds": pooled, "txt_ids": txt_ids,
+               "img_ids": np.concatenate(ids)}
+        if controls:
+            out["control_latents"] = torch.cat(controls, dim=1)
+        else:  # control-free training degenerates to pure t2i
+            out["control_latents"] = image_latents.new_zeros((b, 0, image_latents.shape[-1]))
+            out["img_ids"] = ids[0]
+        if "edit_mask" in batch:
+            out["edit_mask"] = np.asarray(batch["edit_mask"])
+        return out
+
+    def cache_embeddings(self, bundle: ModelBundle, item_batch: dict,
+                         max_sequence_length: int = 512) -> tuple[dict, dict]:
+        """One sample (a bs=1 batch) → ({embedding key: numpy array},
+        {embedding key: the file_hashes name its file is keyed by}) for
+        `EmbeddingCacheManager.save`: JAX's nine keys, the target and
+        control ids cached apart."""
+        emb = self.prepare_embeddings(bundle, item_batch, max_sequence_length)
+        empty_pe, empty_pooled, _ = self.encode_prompt(bundle, [""], max_sequence_length)
+        h = item_batch["file_hashes"]
+        h = h[0] if isinstance(h, list) else h
+        ids = np.asarray(emb["img_ids"])
+        s_img = int(emb["image_latents"].shape[1])
+
+        def host(t):
+            return t[0].float().cpu().numpy()
+
+        arrays = {
+            "image_latents": host(emb["image_latents"]),
+            "control_latents": host(emb["control_latents"]),
+            "prompt_embeds": host(emb["prompt_embeds"]),
+            "pooled_prompt_embeds": host(emb["pooled_prompt_embeds"]),
+            "empty_prompt_embeds": host(empty_pe),
+            "empty_pooled_prompt_embeds": host(empty_pooled),
+            "tgt_ids": ids[:s_img],
+            "ctl_ids": ids[s_img:],
+            "txt_ids": np.asarray(emb["txt_ids"]),
+        }
+        hash_keys = {
+            "image_latents": h["image_hash"],
+            "control_latents": h.get("controls_sum_hash", h["image_hash"]),
+            "prompt_embeds": h["prompt_hash"],
+            "pooled_prompt_embeds": h["prompt_hash"],
+            "empty_prompt_embeds": h["empty_prompt_hash"],
+            "empty_pooled_prompt_embeds": h["empty_prompt_hash"],
+            "tgt_ids": h["image_hash"],
+            "ctl_ids": h.get("controls_sum_hash", h["main_hash"]),
+            "txt_ids": h["prompt_hash"],
+        }
+        return arrays, hash_keys
+
+    def negative_embeddings(self, bundle: ModelBundle, negative_prompt: str,
+                            batch: dict, max_sequence_length: int = 512) -> dict:
+        """neg_*-prefixed embeddings for true-CFG sampling."""
+        b = (len(batch["prompt"]) if "prompt" in batch
+             else int(np.shape(batch["prompt_embeds"])[0]))
+        pe, pooled, _ = self.encode_prompt(bundle, [negative_prompt] * b, max_sequence_length)
+        return {"neg_prompt_embeds": pe, "neg_pooled_prompt_embeds": pooled}
 
     def latent_grid(self, height: int, width: int) -> tuple[int, int]:
         return (height // (self.vae_scale * 2), width // (self.vae_scale * 2))

@@ -19,7 +19,7 @@ Under gradient accumulation the train step (trainer/train_step.py) splits
 every key with a leading batch axis into microbatches (prompt_embeds_mask
 and segment_ids among them) and shares img_shapes_arr and the rope_* tables,
 as the JAX step does.  The text encoder and the VAE encoder (the cache pass)
-are later slices (ROADMAP.md).
+are ROADMAP.md queue 1 item 5b.
 """
 
 from __future__ import annotations
@@ -105,7 +105,7 @@ class QwenImageEditAdapter:
         its directory when there is one (without it `vae_params` is None
         and decoding raises).  The Qwen2.5-VL text encoder and the tokenizer
         are not read: the port predicts from cached embeddings, and the
-        encoders are ROADMAP.md queue 1 item 5.  Without a checkpoint the
+        encoders are ROADMAP.md queue 1 item 5b.  Without a checkpoint the
         weights are synthetic, drawn on `device` from generators seeded 0
         (DiT) and 1 (VAE)."""
         model = config.model

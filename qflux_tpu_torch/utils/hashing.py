@@ -6,8 +6,8 @@ qflux_tpu/runtime/native.py, which the cache keys files of 64 MiB and more
 by.  The JAX package computes XXH64 in a g++ library when one builds and
 in Python otherwise; both give the same digest, and so does `xxh64_file`
 here (pure Python, streamed in 8 MiB chunks).  The perceptual hash
-(`phash_image`) needs an image resampler and comes with the cache pass
-(ROADMAP.md, queue 1 item 5).
+(`phash_image`, PIL's LANCZOS) is not ported: nothing on the cache pass
+calls it (ROADMAP.md, queue 1 item 5b).
 """
 
 from __future__ import annotations

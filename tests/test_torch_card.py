@@ -325,11 +325,12 @@ def test_rq_split_and_unsplit_agree_on_card():
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("k", [64, 3072, 12288, 136])
+@pytest.mark.parametrize("k", [64, 3072, 12288, 136, 12296, 18432])
 def test_rowquant_kernel_bit_exact_on_card(k, dtype):
     """The row-quantization kernel equals quant._rowquant to the bit, for
-    bf16 and f32 rows of 64 to 12,288 values (and a length that is not a
-    multiple of the block's 2,048-value sweep): an all-zero row (scale
+    bf16 and f32 rows of 64 to 18,432 values (lengths that are not a
+    multiple of the block's 2,048-value sweep; past 12,288 the two-sweep
+    kernel for rows longer than the registers hold): an all-zero row (scale
     clamped to 1e-12, values 0), a row whose amax is 127 (scale exactly 1)
     with exact half-way quotients (±0.5, ±2.5, 126.5: half to even), and
     random rows; and in K5b's form, g · s_vec, against
@@ -1390,7 +1391,8 @@ def test_fit_through_dataloader_equals_in_memory_batches_on_card(tmp_path, bucke
 
 W8_CARD_CASES = [(33, 3072, 12288, torch.bfloat16), (1000, 12288, 3072, torch.bfloat16),
                  (2048, 3072, 3072, torch.bfloat16), (300, 3072, 64, torch.float32),
-                 (512, 256, 3072, torch.bfloat16)]
+                 (512, 256, 3072, torch.bfloat16), (33, 3072, 18432, torch.bfloat16),
+                 (40, 18432, 3072, torch.float32)]
 
 
 @pytest.mark.parametrize("m,k_in,n,dtype", W8_CARD_CASES,
@@ -1425,6 +1427,42 @@ def test_w8a8_fwd_and_dx_bit_exact_on_card(m, k_in, n, dtype):
     assert torch.equal(dx, quant.dyn_int8_dx(g, q, sw))
     assert torch.equal(y, y2) and torch.equal(dx, x.grad)
     assert torch.equal(ti8.int8_transpose_cuda(q), q.t())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_int4_dynamic_past_the_exact_length_on_card(dtype):
+    """int4_dynamic at the AdaLN mods' shape, 33 rows × 3072 → 18432: the
+    forward and the dx (a contraction over N = 18,432, past the 16,513
+    terms one exact f32 product holds, so added in int32 pieces) on the
+    card equal the plain version (float64 products on the card) to the
+    bit, including rows whose dx sums pass 2^24; the dx equals the CPU's
+    to the bit, and the forward, whose f32 sum over the groups each device
+    orders its own way, is within rel 1e-6 of its largest element in f32,
+    one bf16 ulp (2^-8) in bf16, as tests/test_torch_quant8.py holds it to
+    JAX."""
+    from qflux_tpu_torch.ops import quant
+
+    gen = torch.Generator("cpu").manual_seed(18432)
+    w = (torch.rand(3072, 18432, generator=gen) * 2 - 1) / 3072 ** 0.5
+    w[:64] = 0.37
+    q4, gs = quant.quantize_kernel_int4(w, 128)
+    x = torch.randn(33, 3072, generator=gen).to(dtype)
+    g = torch.randn(33, 18432, generator=gen).to(dtype)
+    g[:16] = 1.0
+    ys, dxs = [], []
+    for dev in ("cpu", "cuda"):
+        xd = x.to(dev).detach().requires_grad_()
+        y = quant.dyn_int4_matmul(xd, q4.to(dev), gs.to(dev))
+        y.backward(g.to(dev))
+        ys.append(y.detach())
+        dxs.append(xd.grad)
+    args = (q4.cuda(), gs.cuda())
+    assert torch.equal(ys[1], quant.dyn_int4_fwd(x.cuda(), *args, f64=True))
+    assert torch.equal(dxs[1], quant.dyn_int4_dx(g.cuda(), *args, f64=True))
+    assert torch.equal(dxs[0], dxs[1].cpu())
+    tol = 1e-6 if dtype == torch.float32 else 2 ** -8
+    want = ys[0].float()
+    assert float((ys[1].cpu().float() - want).abs().max()) <= tol * float(want.abs().max())
 
 
 @pytest.mark.parametrize("form", ["int8", "fp8_e4m3", "fp8_e5m2", "int8_dynamic", "int4",

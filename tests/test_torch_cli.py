@@ -61,7 +61,7 @@ from tests.test_torch_qwen import JCFG, QCFG, TCFG, _jax_dit, _lora, _np_tree, _
 from tests.test_torch_train import tiny_pair  # noqa: F401  (a fixture)
 
 REPO = Path(__file__).resolve().parents[1]
-ITEM_5 = "queue 1 item 5"
+ITEM_5 = "queue 1 item 5b"
 LOSS_REL = 1e-5
 
 
@@ -459,46 +459,102 @@ def test_cli_fits_a_cached_folder(tmp_path, monkeypatch):
     assert [h["loss"] for h in res.history] == [h["loss"] for h in tr.history[2:]]
 
 
+def _qwen_cli_config(tmp_path, **over):
+    """A tiny Qwen-Image-Edit config over `_cli_config`'s folder (the
+    encoders of this family are not ported)."""
+    raw = json.loads(_cli_config(tmp_path, **over).read_text())
+    raw["trainer"] = "QwenImageEditTrainer"
+    path = tmp_path / "qwen.json"
+    path.write_text(json.dumps(raw))
+    return path
+
+
 @pytest.mark.parametrize("flag,match", [("--cache", ITEM_5), ("--fit-no-cache", ITEM_5),
                                         ("--predict", ITEM_5), ("--distributed", "item 8"),
                                         ("--plan", "Do not port")])
 def test_cli_refuses_unported_modes(tmp_path, flag, match):
+    """--distributed and --plan are not ported.  --cache, --fit-no-cache and
+    --predict run for FLUX.1-Kontext (tests/test_torch_cache_pass.py) and
+    still refuse for Qwen-Image-Edit, naming item 5b, before any dataset or
+    model is read."""
+    if flag in ("--distributed", "--plan"):
+        with pytest.raises(NotImplementedError, match=match):
+            cli.main(["--config", str(tmp_path / "never-read.json"), flag])
+        return
+    path = _qwen_cli_config(tmp_path)
+    extra = ["--control", str(tmp_path / "never-read.png"), "--prompt", "p"]
     with pytest.raises(NotImplementedError, match=match):
-        cli.main(["--config", str(tmp_path / "never-read.json"), flag])
+        cli.main(["--config", str(path), "--device", "cpu", flag,
+                  *(extra if flag == "--predict" else [])])
+    assert not (tmp_path / "flux_multires").exists()
 
 
 @pytest.mark.parametrize("flags", [["--steps", "30"], ["--image", "x.png"],
                                    ["--prompt", "edit"], ["--output", "y.png"],
                                    ["--plan-devices", "4"]])
 def test_cli_rejects_flags_it_does_not_act_on(tmp_path, flags, capsys):
-    """The JAX CLI's predict / plan options are not parsed, so a fit given
-    one stops with argparse's usage error instead of ignoring it."""
+    """A fit given a predict option (--steps, --image / --control, --prompt,
+    --output act only with --predict) or the JAX CLI's --plan-devices (not
+    parsed) stops with argparse's usage error instead of ignoring it."""
     with pytest.raises(SystemExit) as e:
         cli.main(["--config", str(tmp_path / "never-read.json"), *flags])
-    assert e.value.code == 2 and "unrecognized arguments" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    if flags[0] == "--plan-devices":
+        assert e.value.code == 2 and "unrecognized arguments" in err
+    else:
+        name = "--control" if flags[0] == "--image" else flags[0]
+        assert e.value.code == 2 and f"{name} act only with --predict" in err
 
 
 @pytest.mark.parametrize("case", ["validation_samples", "validation_dataset", "hf_dataset",
                                   "pixel_batch"])
-def test_fit_refuses_what_needs_the_encoders(tmp_path, case):
-    """Validation sampling, an HF Hub dataset and a batch of pixels raise
-    NotImplementedError naming item 5, before any step."""
+def test_fit_refuses_what_needs_the_encoders(tmp_path, case, monkeypatch):
+    """With FLUX.1-Kontext's encoders ported: validation sampling (from
+    validation.samples and from validation.dataset) runs inside fit and
+    logs its images, and a batch of pixels trains; with Qwen-Image-Edit's
+    not ported, each raises NotImplementedError naming item 5b, before any
+    run dir.  An HF Hub dataset still raises (item 5b) for either."""
+    data = tmp_path / "data"
     over = {}
     if case == "validation_samples":
-        over["validation"] = {"enabled": True, "samples": [{"prompt": "x", "images": []}]}
+        over["validation"] = {"enabled": True, "steps": 1, "num_inference_steps": 2,
+                              "samples": [{"prompt": "x", "images": [], "height": 16,
+                                           "width": 16}]}
     elif case == "validation_dataset":
-        over["validation"] = {"enabled": True, "dataset": {"class_path": "x"}}
+        over["validation"] = {"enabled": True, "steps": 1, "num_inference_steps": 2,
+                              "max_samples": 1, "dataset": {
+                                  "class_path": "qflux_tpu.data.dataset.ImageDataset",
+                                  "init_args": {"dataset_path": str(data)}}}
+        over["data"] = {"processor": {"target_size": [16, 16]}}
     elif case == "hf_dataset":
         over["data"] = {"init_args": {"dataset_path": "someone/edit-pairs"}}
-    path = _cli_config(tmp_path, **over)
+    path = _cli_config(tmp_path, steps=1, **over)
+    qwen = _qwen_cli_config(tmp_path / "q", **over)
+    if case == "hf_dataset":
+        for p in (path, qwen):
+            with pytest.raises(NotImplementedError, match=ITEM_5):
+                cli.main(["--config", str(p), "--device", "cpu"])
+        return
     if case == "pixel_batch":
         tr = Trainer(load_config_from_yaml(path), device="cpu")
+        rng = np.random.default_rng(0)
+        batch = {"image": rng.integers(0, 256, (1, 16, 16, 3), dtype=np.uint8),
+                 "control": rng.integers(0, 256, (1, 16, 16, 3), dtype=np.uint8),
+                 "prompt": ["edit"]}
+        tr.fit([batch])
+        assert tr.global_step == 1 and np.isfinite(tr.history[0]["loss"])
         with pytest.raises(NotImplementedError, match=ITEM_5):
-            tr.fit([{"image": np.zeros((1, 16, 16, 3), np.uint8)}])
+            Trainer(load_config_from_yaml(qwen), device="cpu").fit([batch])
         return
+    EventAccumulator = _event_accumulator(monkeypatch)
+    tr = cli.main(["--config", str(path), "--device", "cpu"])
+    assert tr.global_step == 1
+    ea = EventAccumulator(str(tr.output_dir / "logs"), size_guidance={"images": 0})
+    ea.Reload()
+    assert [e.step for e in ea.Images("validation/sample_0")] == [1]
     with pytest.raises(NotImplementedError, match=ITEM_5):
-        cli.main(["--config", str(path), "--device", "cpu"])
-    assert not (tmp_path / "flux_multires").exists()
+        cli.main(["--config", str(qwen), "--device", "cpu"])
+    assert not (tmp_path / "q" / "flux_multires").exists()
     # enabled without samples or a dataset does nothing, as in JAX
     ok = _cli_config(tmp_path / "ok", steps=1, validation={"enabled": True, "steps": 1})
     assert cli.main(["--config", str(ok), "--device", "cpu"]).global_step == 1

@@ -8,7 +8,7 @@ CSV files, its cached items with conditioning dropout over three visits,
 the resolution policy, `collate`, and the DataLoader's batches over two
 epochs (shape buckets on and off, 0 and 3 worker threads, drop_last on and
 off).  Then what the port refuses: a sample missing from the cache and an
-HF Hub dataset name ROADMAP.md queue 1 item 5.
+HF Hub dataset name ROADMAP.md queue 1 item 5b.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ from qflux_tpu_torch.data import preprocess as tpre
 from qflux_tpu_torch.models.flux.transformer import FluxConfig
 from qflux_tpu_torch.utils import hashing as thashing
 
-ITEM_5 = "queue 1 item 5"
+ITEM_5 = "queue 1 item 5b"
 TINY = FluxConfig.tiny()
 # seven samples in two latent shapes: 16 tokens (4×4) and 24 (6×4 and 4×6)
 GRIDS = [(4, 4), (6, 4), (4, 4), (4, 6), (6, 4), (4, 4), (4, 6)]
@@ -270,14 +270,22 @@ def test_cached_items_and_dropout_match_jax(tmp_image_dir, tmp_path):
 
 
 def test_uncached_sample_and_hf_dataset_raise(tmp_image_dir, tmp_path):
-    """A sample the cache does not hold, and a cache that is off, need the
-    encoders; an HF Hub name needs the network: each raises naming item 5."""
-    ds = tdataset.ImageDataset(dataset_path=str(tmp_image_dir),
-                               cache_dir=str(tmp_path / "empty"), use_cache=True)
-    with pytest.raises(NotImplementedError, match=ITEM_5):
-        ds[0]
-    with pytest.raises(NotImplementedError, match=ITEM_5):
-        tdataset.ImageDataset(dataset_path=str(tmp_image_dir))[1]
+    """A sample the cache does not hold, and every sample with the cache
+    off, come back as the JAX dataset's pixel items (read, resampled,
+    drop_context and img_shapes, the mask as f32) over three visits with
+    conditioning dropout; an HF Hub name needs the network and still
+    raises, naming item 5b."""
+    kw = {"processor": tpre.ImageProcessor(target_size=[32, 48]), "use_edit_mask": True,
+          "caption_dropout_rate": 0.5, "prompt_image_dropout_rate": 0.3, "seed": 3}
+    jkw = dict(kw, processor=jpre.ImageProcessor(jpre.ProcessorSection(target_size=[32, 48])))
+    for extra in ({"cache_dir": str(tmp_path / "empty"), "use_cache": True}, {}):
+        ds = tdataset.ImageDataset(dataset_path=str(tmp_image_dir), **kw, **extra)
+        jds = jdataset.ImageDataset(dataset_path=str(tmp_image_dir), **jkw, **extra)
+        for _ in range(3):
+            for i in range(len(ds)):
+                got, want = ds[i], jds[i]
+                assert got["cached"] is False and "image_latents" not in got
+                assert_same(got, want, f"sample {i}")
     with pytest.raises(NotImplementedError, match=ITEM_5):
         tdataset.ImageDataset(dataset_path="someone/edit-pairs")
     assert jdataset.is_huggingface_repo("someone/edit-pairs")
@@ -336,8 +344,13 @@ def test_factorization_helpers_match_jax():
                     == jpre.best_hw_given_area(area, w, h, min_side=256, max_side=1024))
             assert (tpre.calculate_best_resolution(w, h, area)
                     == jpre.calculate_best_resolution(w, h, area))
-    with pytest.raises(NotImplementedError, match=ITEM_5):
-        tpre.ImageProcessor().process_image(np.zeros((8, 8, 3), np.uint8))
+    # the pixels follow the geometry (tests/test_torch_pixels.py holds them
+    # to JAX's in every process_type)
+    img = np.random.default_rng(0).integers(0, 256, (90, 70, 3), dtype=np.uint8)
+    for kw in ({"process_type": "fixed_pixels", "target_pixels": 4096}, {"target_size": [48, 32]}):
+        t, j = tpre.ImageProcessor(**kw), jpre.ImageProcessor(jpre.ProcessorSection(**kw))
+        np.testing.assert_array_equal(t.process_image(img), j.process_image(img))
+        assert t.process_image(img).shape[:2] == t.output_shape(90, 70)
 
 
 # ---------------------------------------------------------------------------

@@ -515,9 +515,10 @@ def test_cpu_tensor_launches_nothing():
 
 def test_kernel_launchers_refuse_what_they_do_not_take():
     """The GEMM, dx and transpose launchers take CUDA tensors only (no path
-    to the plain version), and the shape rule (K % 64, N % 16, each at most
-    the row quantization's 12,288) is checked before a launch; every W8A8
-    GEMM of FLUX.1-Kontext-dev is taken."""
+    to the plain version), and the shape rule (K % 64, N % 16, any length
+    since the row quantization takes any row) is checked before a launch;
+    every W8A8 GEMM of FLUX.1-Kontext-dev is taken, the AdaLN mods'
+    3072 → 18432 included."""
     xq = torch.zeros(40, 128, dtype=torch.int8)
     q = torch.zeros(32, 128, dtype=torch.int8)
     before = (ti8.INT8_GEMM_LAUNCHES, ti8.INT8_GEMM_DX_LAUNCHES, ti8.INT8_TRANSPOSE_LAUNCHES)
@@ -530,11 +531,47 @@ def test_kernel_launchers_refuse_what_they_do_not_take():
                               torch.ones(40), torch.bfloat16)
     assert (ti8.INT8_GEMM_LAUNCHES, ti8.INT8_GEMM_DX_LAUNCHES,
             ti8.INT8_TRANSPOSE_LAUNCHES) == before
-    for k_in, n in ((3072, 3072), (3072, 12288), (12288, 3072), (3072, 64), (256, 3072)):
+    for k_in, n in ((3072, 3072), (3072, 12288), (12288, 3072), (3072, 64), (256, 3072),
+                    (3072, 18432), (18432, 3072), (12352, 64), (3072, 12304)):
         ti8.check_shape(k_in, n)
-    for k_in, n in ((96, 32), (128, 24), (12352, 64), (3072, 12304)):
+    for k_in, n in ((96, 32), (128, 24), (12384, 64), (3072, 12296), (0, 16)):
         with pytest.raises(ValueError, match="kernel takes"):
             ti8.check_shape(k_in, n)
+    with pytest.raises(ValueError, match="K % 8"):
+        ti4._rowquant_checks(torch.zeros(2, 18436, dtype=torch.bfloat16), None)
+    ti4._rowquant_checks(torch.zeros(2, 18432, dtype=torch.bfloat16), None)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_dyn_int4_dx_past_the_exact_length(dtype):
+    """int4_dynamic's dx at a contraction past _BMM_EXACT_LEN (16,513): 33
+    rows × K = 256 → N = 20,480, where the port adds exact 8,192-term pieces
+    in int32.  Rows 0-15 are built to reach the largest sums (g constant, so
+    g · s_g quantizes to 127 everywhere in group 0, whose weights quantize to
+    7: 127 · 7 · 20,480 ≈ 1.8e7 > 2^24, so one f32 product would round); dx
+    equal to jitted JAX's int32 `dot_general` path to the bit, and the
+    integer products alone against numpy's int64 sums."""
+    m, k_in, n = 33, 256, 20480
+    assert n >= tquant._BMM_EXACT_LEN
+    w, x, g, jx = _case(9, m, k_in, n, dtype, "int4_dynamic")
+    w[:64] = 0.37  # group 0 (rows 0-127): these rows hold the group's amax
+    g[:16] = 1.0
+    jq4, js = jquant.quantize_kernel_int4(jnp.asarray(w), 128)
+    jg = jnp.asarray(g).astype(jx.dtype)
+    _, jdx = _jit_vjp(jquant.dyn_int4_matmul, jx, jg, jq4, js)
+    tq4, ts = torch.from_numpy(np.array(jq4)), torch.from_numpy(np.array(js))
+    _, tdx = _port_vjp(tquant.dyn_int4_matmul, x, np.array(jg.astype(jnp.float32)), dtype,
+                       tq4, ts)
+    _eq(tdx, jdx)
+    q, n_g, gsz = tquant._groups(tq4, ts)
+    gq = torch.full((n_g, m, n), 127, dtype=torch.int8)
+    gq[:, 16:] = torch.from_numpy(np.random.default_rng(2).integers(-127, 128, (m - 16, n),
+                                                                    dtype=np.int8))
+    got = tquant._int_bmm(gq, q.transpose(1, 2))
+    want = np.einsum("gmo,gko->gmk", gq.numpy().astype(np.int64),
+                     q.numpy().astype(np.int64)).astype(np.float32)
+    assert float(np.abs(want).max()) > 2 ** 24
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 class _Recorder:

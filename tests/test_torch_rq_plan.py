@@ -275,7 +275,14 @@ def test_cpu_tensors_never_reach_a_launcher(monkeypatch):
                          ids=["k_not_8", "k_past_12288", "no_rows", "float16"])
 def test_rowquant_refuses_what_it_does_not_take(shape, dtype):
     """The row-quantization launcher's shape and type rules (checked before
-    the library is loaded): K % 8 == 0, K <= 12,288, M > 0, bf16 or f32."""
-    with pytest.raises(ValueError, match="kernel takes"):
-        ti4._rowquant_checks(torch.zeros(shape, dtype=dtype), None)
+    the library is loaded): K % 8 == 0, M > 0, bf16 or f32.  A row past
+    12,288 values is taken (the two-sweep kernel for rows longer than the
+    registers hold), as the AdaLN mods' dx needs at N = 18,432."""
+    x = torch.zeros(shape, dtype=dtype)
+    if shape[1] > 12288:
+        ti4._rowquant_checks(x, None)
+        ti4._rowquant_checks(torch.zeros(33, 18432, dtype=torch.float32), torch.ones(18432))
+    else:
+        with pytest.raises(ValueError, match="kernel takes"):
+            ti4._rowquant_checks(x, None)
     ti4._rowquant_checks(torch.zeros(40, 12288, dtype=torch.float32), torch.ones(12288))
