@@ -86,13 +86,14 @@ runs K6a and its dx K6b (path C).  In phases:
      shapes (the prep's int8 operands to the bit, two calls identical),
      each timed alone (its prep apart) beside its bound, bf16 K1 / K2
      alone, the wrapper and SDPA flash;
- 12. Qwen 512² predict with int8 attention (path A): a full-width forward
-     through K1 s_int8 against the plain int8 attention, two requests
-     with exactly 60 K1 s_int8 and 723 K5a launches per denoising step,
-     and a profiled step;
+ 12. Qwen 512² predict with int8 attention (path A: path B's
+     configuration at full width cut to 20 of its 60 blocks, CUT_BLOCKS,
+     for the smoke's time budget): a forward through K1 s_int8 against
+     the plain int8 attention, two requests with exactly 20 K1 s_int8 and
+     243 K5a launches per denoising step, and a profiled step;
  13. Qwen 512² train (path A): one step's LoRA gradients through the
      kernels against the plain int8 attention, then Trainer.fit at bs=1
-     and bs=2 with exactly 60 K1 s_int8, 60 K2 s_int8, 1,443 K5a and 712
+     and bs=2 with exactly 20 K1 s_int8, 20 K2 s_int8, 483 K5a and 232
      K5b launches per step, then a profiled step;
  14. kernel K6a (csrc/int4_fwd.cu), the W4A16 matmul, against its plain
      version (the int4-requant model freed first) at every GEMM shape of
@@ -104,15 +105,15 @@ runs K6a and its dx K6b (path C).  In phases:
  15. kernel K6b (csrc/int4_bwd.cu), its backward, in the same way at the dx
      of every K6a case; then the two wrappers' host time per call at the
      main shape and at M = 1;
- 16. Qwen 512² predict over the int4 base (path C): a full-width forward
-     through K6a + K1 against the plain W4A16 route and against the
-     default dequant route (which launches no K6a), three requests with
-     exactly 60 K1 and 841 K6a launches per denoising step, a profiled
-     step;
+ 16. Qwen 512² predict over the int4 base (path C, cut to 20 of the 60
+     blocks as path A): a forward through K6a + K1 against the
+     plain W4A16 route and against the default dequant route (which
+     launches no K6a), three requests with exactly 20 K1 and 281 K6a
+     launches per denoising step, a profiled step;
  17. Qwen 512² train over the int4 base (path C): one step's LoRA
      gradients through K6a + K6b + K1 + K2 against the plain path, then
-     Trainer.fit at bs=1 and bs=2 with exactly 60 K1, 60 K2, 1,561 K6a and
-     711 K6b launches per step, then a profiled step.
+     Trainer.fit at bs=1 and bs=2 with exactly 20 K1, 20 K2, 521 K6a and
+     231 K6b launches per step, then a profiled step.
 
 The file layer (checkpoints, resume, weights and LoRA files) runs as three
 more phases, A and B after 6 (on its FLUX model), C after 13 (on its Qwen
@@ -212,6 +213,33 @@ phase's wall time printed:
      step) and logs the image; (d) `--predict` on a raw control PNG, 20
      steps at 512² (57 K1 a step), the output PNG [512, 512, 3] uint8 with
      finite latents, and a second request on the loaded model timed.
+
+The Qwen-Image-Edit cache pass and `predict_multires` run as phase G,
+after F, with the card's name and power limit on every line and the
+phase's wall time printed:
+
+  G. configs/example_qwen_single_chip_832x576.yaml as published (the 60-block
+     DiT over int4_requant with attention: true, flash_offload, the full
+     Qwen VAE, Qwen2.5-VL with 32 vision blocks × 1,280 and 28 LM layers ×
+     3,584; synthetic weights drawn on the card from seeds, the hash
+     tokenizer) through `qflux_tpu_torch.main` in process: (a) `--cache`
+     over two 832×576 target / control PNG pairs in a CSV (JAX's seven
+     keys at JAX's shapes, s per sample, peak memory, no kernel launched),
+     then the first sample computed whole on the CPU (the vision tower, all
+     28 LM layers streamed one layer at a time, the VAE encoder at
+     832×576), against which the card's f32 outputs and the fp16 arrays
+     `--cache` wrote are held, each module timed on the card; (b) a fit of
+     two bs=1 steps from that cache (60 K3, 60 K4, 1,443 K5a, 712 K5b a
+     step) whose validation samples after each step (two steps, 60 K3
+     and 723 K5a each), Qwen2.5-VL built once, for the validation set-up
+     after step 1, and freed before step 2 (whose peak memory stays below
+     the VL's bytes); (c) `--predict` on a raw 832×576 PNG, four steps,
+     the PNG [832, 576, 3] uint8; (d) `predict_multires` over an 832×576
+     and a 512² item on that model, and FLUX.1-Kontext's over a 512² and a
+     768×512 item, two steps each, one padded batch, outputs at each
+     item's size; (e) every kernel (a)-(d) launched held to its plain
+     version at each shape they launched it at (recorded by wrapping the
+     launchers), K3 / K4 with the path's own segment ids.
 
 Every temporary file (the fits' run dirs included) is removed before the
 smoke exits.  Each path runs with the launch counts set to 0 just before
@@ -831,6 +859,51 @@ def _flash_bound(q, k, q_seg, kv_seg, bwd=False) -> dict:
     return _bound(n_bytes, n_ops, PEAK_BF16_PER_MS)
 
 
+def _k3_agrees(q, k, v, q_seg, kv_seg, scale):
+    """K3 on these inputs against flash_fwd_reference → (ok, max |out
+    error|, max |lse error| over the rows that attend anything, the [B, S]
+    rows every head masks, out, lse).  ok: out within OUT_ATOL and lse
+    within LSE_ATOL, out finite, the masked rows' lse at -1e30 and their
+    out 0."""
+    from qflux_tpu_torch.ops import flash_attention as fa
+
+    out, lse = fa._flash_fwd_cuda(q, k, v, q_seg, kv_seg, scale)
+    torch.cuda.synchronize()
+    ref, ref_lse = fa.flash_fwd_reference(q, k, v, q_seg, kv_seg, scale)
+    err = (out.float() - ref.float()).abs().max().item()
+    valid = ref_lse > -1e29
+    lse_err = (lse - ref_lse).abs()[valid].max().item()
+    ok = (err <= OUT_ATOL and lse_err <= LSE_ATOL and bool(torch.isfinite(out).all())
+          and bool((lse[~valid] == -1e30).all()))
+    dead = (~valid).permute(0, 2, 1).all(-1)
+    return ok and not out[dead].any(), err, lse_err, dead, out, lse
+
+
+def _k4_agrees(q, k, v, q_seg, kv_seg, out, lse, do, scale):
+    """K4 on these inputs, twice, against flash_bwd_reference → (ok, the
+    errors as text, max |error|, (dq, dk, dv)).  ok: the two calls
+    identical, and each gradient finite, within BWD_REL_TOL in relative L2
+    and within BWD_MAX_TOL × max |reference|."""
+    from qflux_tpu_torch.ops import flash_attention as fa
+
+    got = fa._flash_bwd_cuda(q, k, v, q_seg, kv_seg, out, lse, do, scale)
+    again = fa._flash_bwd_cuda(q, k, v, q_seg, kv_seg, out, lse, do, scale)
+    torch.cuda.synchronize()
+    ok = all(torch.equal(x, y) for x, y in zip(got, again))
+    del again
+    ref = fa.flash_bwd_reference(q, k, v, q_seg, kv_seg, out, lse, do, scale)
+    errs, max_err = [], 0.0
+    for gname, g, r in zip(("dq", "dk", "dv"), got, ref):
+        diff = g.float() - r
+        rel = (diff.norm() / r.norm()).item()
+        mx = diff.abs().max().item()
+        ok = ok and rel <= BWD_REL_TOL and mx <= BWD_MAX_TOL * r.abs().max().item()
+        ok = ok and bool(torch.isfinite(g).all())
+        max_err = max(max_err, mx)
+        errs.append(f"{gname} rel {rel:.3e} max {mx:.3e}")
+    return ok, "; ".join(errs), max_err, got
+
+
 def phase_flash_kernel(card: str) -> dict:
     """K3 against flash_fwd_reference at FLASH_CASES (out, lse, the fully
     masked rows at 0, two calls identical to the bit), with the times of the
@@ -847,17 +920,8 @@ def phase_flash_kernel(card: str) -> dict:
     main = None
     for name, b, s, ids in FLASH_CASES:
         q, k, v, q_seg, kv_seg = _flash_case(gen, b, s, ids)
-        out, lse = fa._flash_fwd_cuda(q, k, v, q_seg, kv_seg, scale)
-        torch.cuda.synchronize()
-        ref, ref_lse = fa.flash_fwd_reference(q, k, v, q_seg, kv_seg, scale)
-        err = (out.float() - ref.float()).abs().max().item()
-        valid = ref_lse > -1e29
-        lse_err = (lse - ref_lse).abs()[valid].max().item()
-        ok = (err <= OUT_ATOL and lse_err <= LSE_ATOL and bool(torch.isfinite(out).all())
-              and bool((lse[~valid] == -1e30).all()))
-        dead = (~valid).permute(0, 2, 1).all(-1)  # [B, S]: rows every head masks
-        ok = ok and not out[dead].any() and (ids is None or bool(dead.any()))
-        del ref, ref_lse
+        ok, err, lse_err, dead, out, lse = _k3_agrees(q, k, v, q_seg, kv_seg, scale)
+        ok = ok and (ids is None or bool(dead.any()))
         torch.cuda.empty_cache()
         out2, lse2 = fa._flash_fwd_cuda(q, k, v, q_seg, kv_seg, scale)
         torch.cuda.synchronize()
@@ -935,25 +999,11 @@ def phase_flash_bwd_kernel(card: str) -> dict:
         q, k, v, q_seg, kv_seg = _flash_case(gen, b, s, ids)
         do = torch.randn(q.shape, device="cuda", generator=gen).to(torch.bfloat16)
         out, lse = fa._flash_fwd_cuda(q, k, v, q_seg, kv_seg, scale)
-        got = fa._flash_bwd_cuda(q, k, v, q_seg, kv_seg, out, lse, do, scale)
-        again = fa._flash_bwd_cuda(q, k, v, q_seg, kv_seg, out, lse, do, scale)
-        torch.cuda.synchronize()
-        same = all(torch.equal(x, y) for x, y in zip(got, again))
-        del again
-        ref = fa.flash_bwd_reference(q, k, v, q_seg, kv_seg, out, lse, do, scale)
-        ok, errs, max_err = same, [], 0.0
-        for gname, g, r in zip(("dq", "dk", "dv"), got, ref):
-            diff = g.float() - r
-            rel = (diff.norm() / r.norm()).item()
-            mx = diff.abs().max().item()
-            ok = ok and rel <= BWD_REL_TOL and mx <= BWD_MAX_TOL * r.abs().max().item()
-            ok = ok and bool(torch.isfinite(g).all())
-            max_err = max(max_err, mx)
-            errs.append(f"{gname} rel {rel:.3e} max {mx:.3e}")
+        ok, errs, max_err, got = _k4_agrees(q, k, v, q_seg, kv_seg, out, lse, do, scale)
         if ids == "text_pad":  # the padded rows: no query attends them, they attend nothing
             pad = slice(QWEN_TXT - QWEN_TXT_PAD, QWEN_TXT)
             ok = ok and all(not g[:, pad].any() for g in got)
-        del got, ref
+        del got
         torch.cuda.empty_cache()
         op_ms = _median_ms(lambda: fa._flash_bwd_cuda(q, k, v, q_seg, kv_seg, out, lse, do,
                                                       scale))
@@ -964,8 +1014,8 @@ def phase_flash_bwd_kernel(card: str) -> dict:
         lib_ms = _sdpa_flash_ms(q, k, v, do)
         bound = _flash_bound(q, k, q_seg, kv_seg, bwd=True)
         print(f"[flash_bwd] {name}: B={b} S={s} H=24 D=128 ids={ids or 'none'} "
-              f"{'; '.join(errs)} (tol rel {BWD_REL_TOL}, max {BWD_MAX_TOL} x max|ref|), two "
-              f"calls identical {same}; K4 alone {ms:.4f} ms "
+              f"{errs} (tol rel {BWD_REL_TOL}, max {BWD_MAX_TOL} x max|ref|), within "
+              f"them and two calls identical {ok}; K4 alone {ms:.4f} ms "
               f"({14.0 * b * 24 * s * s * 128 / ms / 1e9:.1f} TFLOP/s of its seven products), "
               f"wrapper {op_ms:.3f} ms and {alone['wrapper_host_us']:.1f} us host per call, "
               f"bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; dense "
@@ -1961,13 +2011,14 @@ def phase_kernel_int8(card: str) -> tuple[dict, dict]:
 
 
 def phase_qwen512_predict(card: str, trainer) -> tuple[int, int, int]:
-    """Path A, predict: the Qwen model of path B (quantize.attention on) at
+    """Path A, predict: path B's configuration (quantize.attention on; its
+    own model, cut to CUT_BLOCKS blocks by `_qwen_cut`) at
     512² with one control image and 256 text tokens (S = 2304), where the
     int8 score GEMM applies.  A full-width forward through K5a + K1 s_int8
     against K5a + the plain int8 attention ("int8_plain"); then two
     requests (bs 1, 2) through Trainer.predict_from_embeddings, each with
-    exactly 60 K1 s_int8 and 723 K5a (and row-quantization) launches per
-    denoising step and no bf16 K1.  Returns the K1 s_int8, K5a and
+    exactly one K1 s_int8 a block and 12 K5a a block + 3 (and a
+    row quantization each) per denoising step and no bf16 K1.  Returns the K1 s_int8, K5a and
     row-quantization launches of the requests."""
     from qflux_tpu_torch.ops import flash_nr
     from qflux_tpu_torch.ops.layers import merge_lora
@@ -2055,12 +2106,13 @@ def phase_qwen512_predict(card: str, trainer) -> tuple[int, int, int]:
 
 
 def phase_qwen512_train(card: str, trainer) -> tuple[int, ...]:
-    """Path A, train: the LoRA train step at 512² (S = 2304) on path B's
+    """Path A, train: the LoRA train step at 512² (S = 2304) on path A's
     model under remat "flash" (the config's 512² operating point).  One
     step's LoRA gradients through the kernels against the plain int8
     attention (remat "full"); then Trainer.fit, 3 steps at bs=1 and at
-    bs=2, each step launching K1 and K2 s_int8 60 times, K5a 1,443 and K5b
-    712 times, and bf16 K1 / K2 never; then a profiled step.  Returns the
+    bs=2, each step launching K1 and K2 s_int8 once a block (n blocks), K5a
+    24n + 3 and K5b 12n − 8 times, and bf16 K1 / K2 never; then a profiled
+    step.  Returns the
     launches of the fit runs (_launch_counts' order)."""
     from qflux_tpu_torch.config import config_from_dict
     from qflux_tpu_torch.losses import MseLoss
@@ -2411,16 +2463,38 @@ def phase_int4_bwd_kernel(card: str) -> dict:
     return _int4_phase(card, backward=True)
 
 
-def _int4_trainer():
-    """Path C's Trainer with its model loaded: the 20B DiT drawn and
-    quantized to the W4A16 form block by block.  Returns (trainer, load s)."""
+# paths A and C run the published DiT at full width cut in depth to this many
+# of its 60 blocks (the smoke's time budget, which phase G shares)
+CUT_BLOCKS = 20
+
+
+def _qwen_cut(raw: dict, num_layers: int = CUT_BLOCKS):
+    """A Trainer of `raw` with its model loaded, the DiT drawn (and
+    quantized) block by block at its first `num_layers` blocks only: the
+    adapter's load runs with the Qwen DiT's config defaulting to that
+    depth, so the Trainer, its bundle and its adapter hold one consistent
+    cut config and the blocks are those of the full draw (the same seed,
+    the blocks drawn in order after the rest).  Returns (trainer, load s)."""
     from qflux_tpu_torch.config import config_from_dict
+    from qflux_tpu_torch.models.qwen import transformer as qwen_dit
     from qflux_tpu_torch.trainer.base import Trainer
 
-    trainer = Trainer(config_from_dict(QWEN_INT4), device="cuda")
+    full, depth = qwen_dit.QwenImageConfig, num_layers
+
+    @dataclasses.dataclass(frozen=True)
+    class Cut(full):
+        num_layers: int = depth
+
+    trainer = Trainer(config_from_dict(raw), device="cuda")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    trainer.load_model()
+    qwen_dit.QwenImageConfig = Cut
+    try:
+        trainer.load_model()
+    finally:
+        qwen_dit.QwenImageConfig = full
+    if len(trainer.bundle.dit_params.blocks) != num_layers:
+        raise AssertionError(f"the cut DiT has {len(trainer.bundle.dit_params.blocks)} blocks")
     torch.cuda.synchronize()
     return trainer, time.perf_counter() - t0
 
@@ -2436,7 +2510,7 @@ def phase_int4_predict(card: str):
     of the requests."""
     from qflux_tpu_torch.ops.layers import iter_dense_paths, merge_lora, set_int4_impl
 
-    trainer, load_s = _int4_trainer()
+    trainer, load_s = _qwen_cut(QWEN_INT4)
     dit, cfg = trainer.bundle.dit_params, trainer.bundle.dit_cfg
     denses = [m for _, m in iter_dense_paths(dit)]
     quantized = [m for m in denses if m.q4 is not None]
@@ -4154,10 +4228,15 @@ def multires_config(data_dir, out_dir, bucket_by_shape: bool, variant: str = "fu
 class _StepCounts:
     """Wraps trainer.base.make_train_step inside the `with` block: each step
     of a fit records its batch's latent shapes, whether it carries segment
-    ids, the kernel launches it made (_launch_counts' order) and the host
-    seconds the step took to return (launch_s).  The step returns after its
-    forward and backward are enqueued, so the counts need no
-    synchronisation."""
+    ids, the kernel launches it made (_launch_counts' order), the host
+    seconds the step took to return (launch_s) and the peak of allocated
+    device memory by then (with `step_peak`, the peak of that step alone:
+    the stats are reset before it and read after it completes).  The step
+    returns after its forward and backward are enqueued, so the counts
+    need no synchronisation."""
+
+    def __init__(self, step_peak: bool = False):
+        self.step_peak = step_peak
 
     def __enter__(self):
         from qflux_tpu_torch.trainer import base
@@ -4168,17 +4247,23 @@ class _StepCounts:
             inner = self.orig(*args, **kwargs)
 
             def step(params, lora, batch, generator, **kw):
+                if self.step_peak:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
                 before = _launch_counts()
                 t0 = time.perf_counter()
                 out = inner(params, lora, batch, generator, **kw)
                 launch_s = time.perf_counter() - t0
+                if self.step_peak:
+                    torch.cuda.synchronize()
                 self.steps.append({
                     "launch_s": launch_s,
                     "img": tuple(batch["image_latents"].shape),
                     "ctl": tuple(batch["control_latents"].shape),
                     "segments": "segment_ids" in batch,
                     "device": str(batch["image_latents"].device),
-                    "counts": tuple(b - a for a, b in zip(before, _launch_counts()))})
+                    "counts": tuple(b - a for a, b in zip(before, _launch_counts())),
+                    "peak": torch.cuda.max_memory_allocated()})
                 return out
 
             return step
@@ -4780,6 +4865,609 @@ def phase_cache_pass(card: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase G: the Qwen-Image-Edit cache pass and the raw-image entry points
+
+G_PAIRS = 2                       # 832×576 target / control PNG pairs the cache pass encodes
+G_FIT_STEPS = 2                   # fit steps from that cache (bs=1), validation after each
+G_VALIDATION_STEPS = 2            # the validation sample's denoising steps
+G_PREDICT_STEPS = 4               # --predict's denoising steps on a raw PNG
+G_MULTIRES_STEPS = 2              # predict_multires' denoising steps, each family
+G_PROMPTS = F_PROMPTS[:G_PAIRS]
+# the card's f32 Qwen2.5-VL against the same modules on the CPU, per block or
+# layer of its depth: each sums over 1,280 / 3,584 / 18,944 terms in other
+# orders on the two devices and the blocks add their differences up; the
+# LM's output carries the vision tower's difference in its image tokens too.
+# Set from the VL's own readings on an H100 (the same in every call, the
+# weights and images seeded): the vision tower's features 1.314e-6 against
+# 32 · 2e-7 = 6.4e-6, the prompt embeds 5.414e-6 against 6.4e-6 + 28 · 5e-7
+# = 2.04e-5, each about 4-5x its reading
+VL_BLOCK_REL_TOL = 2e-7
+LM_LAYER_REL_TOL = 5e-7
+QWEN_MSL = 512                    # predict.max_sequence_length, the config's default
+
+
+def _g_config(csv_path: Path, out_dir: Path, **over) -> dict:
+    """configs/example_qwen_single_chip_832x576.yaml as published (the
+    20B DiT over int4_requant, attention: true, remat flash_offload, its
+    832×576 center_crop processor; synthetic weights: no checkpoint) over a
+    CSV of target / control pairs, bs=1, its cache in out_dir/cache."""
+    raw = copy.deepcopy(QWEN_832X576)
+    raw["data"] = {"init_args": {"csv_path": str(csv_path)},
+                   "processor": {"process_type": "center_crop",
+                                 "target_size": [QWEN_HEIGHT, QWEN_WIDTH]},
+                   "batch_size": 1, "shuffle": False}
+    raw["cache"] = {"use_cache": True, "cache_dir": str(out_dir / "cache")}
+    raw["train"].update(max_train_steps=G_FIT_STEPS, checkpointing_steps=1000)
+    raw["logging"] = {"output_dir": str(out_dir), "project": "qwen_pixels"}
+    for section, values in over.items():
+        raw.setdefault(section, {}).update(values)
+    return raw
+
+
+class _StreamedLM:
+    """The card's Qwen2.5-VL LM seen from the CPU one decoder layer at a
+    time: embed_tokens and the final norm copied once, each layer copied
+    when `text_forward` reaches it and dropped after, so the host holds one
+    layer's f32 copy (1.09 GB) and not the LM's 30.5 GB."""
+
+    def __init__(self, lm):
+        from qflux_tpu_torch.models.qwen import vl_encoder as tvl
+
+        self.tvl, self.lm = tvl, lm
+        self.embed_tokens = lm.embed_tokens.detach().cpu()
+        self.norm = copy.deepcopy(lm.norm).cpu()
+
+    @property
+    def layers(self):
+        for lp in self.lm.layers:
+            layer = self.tvl.DecoderLayer(self.lm.cfg)
+            layer.load_state_dict(lp.state_dict())
+            yield layer
+
+
+def _qwen_encoders_against_cpu(card: str, trainer, csv_path: Path) -> None:
+    """The first sample of the Qwen cache pass, whole, on the CPU: its
+    prompt in the edit template with the control image's 630 tokens through
+    the vision tower (32 blocks) and all 28 LM layers (streamed one layer at
+    a time, `_StreamedLM`), its 832×576 target and control through the VAE
+    encoder, by the adapter's own `encode_prompt` / `encode_vae_image` on
+    CPU copies of the modules.  Against that: the card's f32 outputs of the
+    same calls (the vision tower's features within VL_BLOCK_REL_TOL a
+    block, the prompt embeds within that plus LM_LAYER_REL_TOL a layer, the
+    latents within ENCODER_REL_TOL) and the fp16 arrays `--cache` wrote
+    (within those plus FP16_REL).  Prints the CPU's seconds and peak host
+    memory, and on the card the host preprocessing, the vision tower, the
+    LM at the sample's length and the VAE encoder, each timed."""
+    from qflux_tpu_torch.data.cache import read_npz_data
+    from qflux_tpu_torch.data.dataset import ImageDataset
+    from qflux_tpu_torch.data.loader import DataLoader
+    from qflux_tpu_torch.data.preprocess import ImageProcessor
+    from qflux_tpu_torch.models.qwen import vae as qwen_vae
+    from qflux_tpu_torch.models.qwen import vl_encoder as tvl
+    from qflux_tpu_torch.trainer.flux_kontext import ModelBundle
+    from qflux_tpu_torch.trainer.qwen_edit import vl_encoder
+
+    bundle, adapter, cfg = trainer.bundle, trainer.adapter, trainer.config
+    enc = vl_encoder(bundle)
+    vcfg, tcfg = bundle.text_cfgs["vision"], bundle.text_cfgs["text"]
+    ds = ImageDataset(csv_path=str(csv_path), processor=ImageProcessor(cfg.data.processor))
+    batch = next(iter(DataLoader(ds, batch_size=1, shuffle=False, drop_last=False,
+                                 bucket_by_shape=False)))
+    prompt, control = batch["prompt"][0], np.asarray(batch["control"][0])
+    hashes = batch["file_hashes"]
+    hashes = hashes[0] if isinstance(hashes, list) else hashes
+    msl = cfg.predict.max_sequence_length
+    vision_cpu = tvl.VisionTower(vcfg)
+    vision_cpu.load_state_dict(enc["vision"].state_dict())
+    cpu = ModelBundle(dit_cfg=bundle.dit_cfg, dit_params=None, vae_cfg=bundle.vae_cfg,
+                      vae_params=copy.deepcopy(bundle.vae_params).cpu(),
+                      text_cfgs=bundle.text_cfgs,
+                      text_params={"vision": vision_cpu, "text": _StreamedLM(enc["text"])},
+                      tokenizers=bundle.tokenizers)
+    recorded = []
+    real_vision = tvl.vision_forward
+
+    def record(*args, **kw):
+        recorded.append(real_vision(*args, **kw))
+        return recorded[-1]
+
+    def outputs(b, secs):
+        recorded.clear()
+        t0 = time.perf_counter()
+        pe, _ = adapter.encode_prompt(b, [prompt], [[control]], msl)
+        t1 = time.perf_counter()
+        out = {"vision": recorded[0], "prompt_embeds": pe[0],
+               "image_latents": adapter.encode_vae_image(b, batch["image"])[0],
+               "control_latents": adapter.encode_vae_image(b, batch["control"])[0]}
+        secs.update(prompt=t1 - t0, vae=time.perf_counter() - t1)
+        return out
+
+    tvl.vision_forward = record
+    cpu_secs = {}
+    try:
+        with _PeakRSS() as rss:
+            want = outputs(cpu, cpu_secs)
+        got = outputs(bundle, {})
+    finally:
+        tvl.vision_forward = real_vision
+    vis_tol = VL_BLOCK_REL_TOL * vcfg.depth
+    tol = {"vision": vis_tol, "prompt_embeds": vis_tol + LM_LAYER_REL_TOL * tcfg.num_layers,
+           "image_latents": ENCODER_REL_TOL, "control_latents": ENCODER_REL_TOL}
+    card_err = {k: _rel(got[k], want[k]) for k in want}
+    names = {"image_latents": hashes["image_hash"],
+             "control_latents": hashes["controls_sum_hash"],
+             "prompt_embeds": hashes.get("control_prompt_hash", hashes["prompt_hash"])}
+    cache_root = Path(cfg.cache.cache_dir)
+    cache_err = {k: _rel(torch.from_numpy(np.array(read_npz_data(cache_root / k / f"{h}.npz"))),
+                         want[k]) for k, h in names.items()}
+    # the LM alone at the sample's length (its ids drawn; the cost is the same)
+    n_tok = len(adapter._tokenize_with_images(bundle, adapter.format_prompt(prompt, 1),
+                                              [int(recorded[0].shape[0])]))
+    ids = np.random.default_rng(90).integers(0, tcfg.vocab_size, (1, n_tok))
+    pos = tvl.get_rope_index(ids, [], vcfg.spatial_merge_size, bundle.text_cfgs["tokens"])
+    embeds = enc["text"].embed_tokens[torch.from_numpy(ids).cuda()]
+    patches, grid = tvl.preprocess_image(control, vcfg)
+    full = torch.from_numpy(np.asarray(batch["image"])).cuda().float() / 127.5 - 1
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        for _ in range(3):
+            tvl.preprocess_image(control, vcfg)
+        host_ms = 1000 * (time.perf_counter() - t0) / 3
+        ms = {"vision tower (32 blocks, 2520 patches)": _median_ms(
+                  lambda: tvl.vision_forward(enc["vision"], vcfg, patches, [grid]), n=3),
+              f"LM (28 layers, {n_tok} tokens)": _median_ms(
+                  lambda: tvl.text_forward(enc["text"], tcfg, embeds, pos), n=3),
+              "VAE encoder (832×576)": _median_ms(
+                  lambda: qwen_vae.encode(bundle.vae_params, bundle.vae_cfg, full), n=3)}
+    lm_params = sum(p.numel() for p in enc["text"].layers.parameters())
+    lm_ms = ms[f"LM (28 layers, {n_tok} tokens)"]
+    print(f"[qwen_cache] sample 0 on the CPU, whole (the vision tower at grid {grid}, all "
+          f"{tcfg.num_layers} LM layers at {n_tok} tokens streamed one at a time, the VAE "
+          f"encoder on the 832×576 target and control) in "
+          f"{cpu_secs['prompt'] + cpu_secs['vae']:.1f} s (the prompt {cpu_secs['prompt']:.1f} s, "
+          f"the two VAE encodes {cpu_secs['vae']:.1f} s), host RSS peak "
+          f"{rss.peak} bytes (from {rss.start}); rel L2 err of the card's f32 outputs: "
+          + ", ".join(f"{k} {v:.3e} (tol {tol[k]:.2e})" for k, v in card_err.items())
+          + "; of the fp16 arrays --cache wrote: "
+          + ", ".join(f"{k} {v:.3e} (tol {tol[k] + FP16_REL:.2e})"
+                      for k, v in cache_err.items())
+          + f"; on the card, f32, TF32 off: host preprocessing (PIL's bicubic in numpy, "
+          f"patches) {host_ms:.1f} ms, "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in ms.items())
+          + f" (LM {2 * lm_params * n_tok / lm_ms / 1e9:.1f} TFLOP/s) [{card}]", flush=True)
+    if (any(card_err[k] > tol[k] for k in card_err)
+            or any(cache_err[k] > tol[k] + FP16_REL for k in cache_err)):
+        raise AssertionError(f"the card's Qwen encoders or the cache disagree with the CPU's: "
+                             f"{card_err}, {cache_err}")
+    del cpu, vision_cpu, want, got, embeds
+
+
+class _VLBuilds:
+    """Records the step counts of a fit (`_StepCounts`) at which the bundle
+    built Qwen2.5-VL (`qwen_edit.vl_encoder` finding it unbuilt), and the
+    bytes of its parameters."""
+
+    def __init__(self, sc):
+        self.sc, self.built_at, self.bytes = sc, [], 0
+
+    def __enter__(self):
+        from qflux_tpu_torch.trainer import qwen_edit
+
+        self.mod, self.orig = qwen_edit, qwen_edit.vl_encoder
+
+        def wrapped(bundle):
+            built = not bundle.text_params
+            enc = self.orig(bundle)
+            if built:
+                self.built_at.append(len(self.sc.steps))
+                self.bytes = sum(p.numel() * p.element_size() for m in enc.values()
+                                 for p in m.parameters())
+            return enc
+
+        qwen_edit.vl_encoder = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.vl_encoder = self.orig
+        return False
+
+
+def phase_qwen_cache_pass(card: str) -> dict:
+    """Phase G, Qwen-Image-Edit at full width from raw images: the published
+    832×576 config (`_g_config`: the 60-block DiT over int4_requant with
+    attention: true, the full Qwen VAE, Qwen2.5-VL with 32 vision blocks ×
+    1,280 and 28 LM layers × 3,584, synthetic weights drawn on the card from
+    seeds, the hash tokenizer) through `qflux_tpu_torch.main` in process:
+    (a) `--cache` over G_PAIRS 832×576 target / control PNG pairs (seeded
+    numpy through encode_png) in a CSV: JAX's seven keys at JAX's shapes, s
+    per sample (encode / write), peak memory, no kernel launched; then the
+    first sample against the CPU (`_qwen_encoders_against_cpu`); (b) a fit
+    of G_FIT_STEPS bs=1 steps from that cache (60 K3, 60 K4, 1,443 K5a and
+    712 K5b a step at S = 512 + 2 · 1,872) whose validation section samples
+    after every step (G_VALIDATION_STEPS steps, 60 K3 and 723 K5a a step)
+    and logs the image: Qwen2.5-VL built once, for the validation set-up
+    after step 1, and freed before step 2, whose own peak memory must stay
+    below the VL's bytes; (c) `--predict` on a
+    raw 832×576 PNG (G_PREDICT_STEPS steps), the PNG [832, 576, 3] uint8,
+    finite latents, and a second request on the loaded model timed; (d)
+    `predict_multires` on that model over an 832×576 and a 512² item in
+    one padded batch (G_MULTIRES_STEPS steps).  Returns the launches of each
+    path (`_launch_counts`' order)."""
+    from qflux_tpu_torch import main as cli
+    from qflux_tpu_torch.data.cache import EmbeddingCacheManager, read_npz_data
+    from qflux_tpu_torch.models.qwen.transformer import QwenImageConfig
+    from qflux_tpu_torch.utils.png import encode_png, read_png
+
+    n = QwenImageConfig().num_layers
+    fwd_k5a = 12 * n + 3  # a bs=1 forward: the block GEMMs, img_in, txt_in, proj_out
+    per_step = _rq((0, 0, 2 * 12 * n + 3, 6 + 12 * (n - 2) + 9 + 1, 0, 0, 0, 0, n, n))
+    gh, gw = QWEN_HEIGHT // 16, QWEN_WIDTH // 16
+    shapes_want = {"image_latents": (gh * gw, 64), "control_latents": (gh * gw, 64),
+                   "prompt_embeds": (QWEN_MSL, 3584), "prompt_embeds_mask": (QWEN_MSL,),
+                   "empty_prompt_embeds": (QWEN_MSL, 3584),
+                   "empty_prompt_embeds_mask": (QWEN_MSL,), "img_shapes_arr": (2, 3)}
+    out = {}
+    tmp = Path(tempfile.mkdtemp(prefix="qflux_smoke_qwen_pixels_"))
+    try:
+        rng = np.random.default_rng(91)
+        rows = ["path_target,path_control,prompt"]
+        for i in range(G_PAIRS + 1):  # the last pair is --predict's and the multires'
+            for kind in ("target", "control"):
+                img = rng.integers(0, 256, (QWEN_HEIGHT, QWEN_WIDTH, 3), dtype=np.uint8)
+                (tmp / f"{kind}_{i}.png").write_bytes(encode_png(img))
+            if i < G_PAIRS:
+                rows.append(f"target_{i}.png,control_{i}.png,{G_PROMPTS[i]}")
+        csv_path = tmp / "pairs.csv"
+        csv_path.write_text("\n".join(rows) + "\n")
+        val = {"enabled": True, "steps": 1, "num_inference_steps": G_VALIDATION_STEPS,
+               "samples": [{"prompt": G_PROMPTS[0], "images": [str(tmp / "control_0.png")]}]}
+        path = tmp / "qwen_pixels.json"
+        path.write_text(json.dumps(_g_config(csv_path, tmp, validation=val)))
+
+        # (a) the cache pass
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        trainer = cli.main(["--config", str(path), "--cache"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stats, peak = trainer.last_cache, torch.cuda.max_memory_allocated()
+        metas = sorted((tmp / "cache" / "metadata").glob("*.json"))
+        shapes = {}
+        for meta in metas:
+            for k, h in json.loads(meta.read_text())["keys"].items():
+                arr = read_npz_data(tmp / "cache" / k / f"{h}.npz")
+                shapes[k] = tuple(arr.shape)
+                if arr.dtype.kind == "f" and not np.isfinite(arr).all():
+                    raise AssertionError(f"cache {k}: non-finite values")
+        enc, wr = stats["encode_s"], stats["write_s"]
+        print(f"[qwen_cache] --cache over {G_PAIRS} 832×576 pairs: {wall:.1f} s in main() (the "
+              f"DiT and VAE built; Qwen2.5-VL drawn on first use), the pass "
+              f"{stats['seconds']:.2f} s (the loader's PNG reads inside); per sample encode "
+              + ", ".join(f"{s:.3f}" for s in enc) + " s (the first draws Qwen2.5-VL; the VL "
+              "runs twice a sample, the prompt and the empty prompt, each with the control), "
+              "write " + ", ".join(f"{s:.3f}" for s in wr) + f" s; peak mem {peak} bytes, "
+              f"{len(metas)} samples, keys {shapes}; {COUNT_NAMES} launches "
+              f"{_launch_counts()} [{card}]", flush=True)
+        if (stats["samples"] != G_PAIRS or len(metas) != G_PAIRS or shapes != shapes_want
+                or any(_launch_counts()) or not EmbeddingCacheManager(tmp / "cache").exists(
+                    metas[0].stem)):
+            raise AssertionError(f"the Qwen cache pass wrote {stats}, {len(metas)} metadata, "
+                                 f"shapes {shapes} (want {shapes_want}), launches "
+                                 f"{_launch_counts()}")
+        _qwen_encoders_against_cpu(card, trainer, csv_path)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (b) fit from that cache, validation sampling after each step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        with _StepCounts(step_peak=True) as sc, _VLBuilds(sc) as vb:
+            t0 = time.perf_counter()
+            trainer = cli.main(["--config", str(path)])
+            wall = time.perf_counter() - t0
+        fit_total = _launch_counts()
+        in_steps = tuple(map(sum, zip(*(r["counts"] for r in sc.steps))))
+        val = tuple(a - b for a, b in zip(fit_total, in_steps))
+        peaks = [r["peak"] for r in sc.steps]
+        label = "Qwen fit from the port's cache"
+        hist = trainer.history
+        tag = b"validation/sample_0" in _events(trainer.output_dir).read_bytes()
+        print(f"[qwen_cache] {label}: {wall:.1f} s in main(), {len(hist)} steps (S = "
+              f"{QWEN_MSL} + 2 · {gh * gw}): "
+              + "; ".join(f"step {h['step']} {1000 * h['step_s']:.1f} ms, loss {h['loss']:.5f}"
+                          for h in hist)
+              + f"; peak mem of each step {peaks} bytes (Qwen2.5-VL, {vb.bytes} bytes, built "
+              f"after steps {vb.built_at} for the validation set-up and freed after it), from "
+              f"step 2's start through its validation {torch.cuda.max_memory_allocated()} "
+              f"bytes; validation after each step: {G_VALIDATION_STEPS} steps, image logged "
+              f"{tag}, launches {val}; {COUNT_NAMES} launches in the steps {in_steps} [{card}]",
+              flush=True)
+        _check_fit_run(card, label, trainer, sc.steps, G_FIT_STEPS, lambda rec: per_step)
+        n_val = G_FIT_STEPS * G_VALIDATION_STEPS
+        val_want = _rq((0, 0, n_val * fwd_k5a, 0, 0, 0, 0, 0, n_val * n, 0))
+        if vb.built_at != [1] or val != val_want or not tag:
+            raise AssertionError(f"validation launched {val} (want {val_want}), logged {tag}, "
+                                 f"the VL built after steps {vb.built_at} (want [1])")
+        if not max(peaks[1:]) < vb.bytes:
+            raise AssertionError(f"the steps after the validation set-up peaked at {peaks[1:]} "
+                                 f"bytes, past the VL's {vb.bytes}: it was not freed")
+        out["fit"], out["validation"] = in_steps, val
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (c) predict on a raw control image
+        png_out = tmp / "edit.png"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        trainer = cli.main(["--config", str(path), "--predict", "--control",
+                            str(tmp / f"control_{G_PAIRS}.png"), "--prompt", F_PROMPTS[2],
+                            "--output", str(png_out), "--steps", str(G_PREDICT_STEPS)])
+        wall = time.perf_counter() - t0
+        pred, launched = trainer.last_predict, _launch_counts()
+        img = read_png(png_out)
+        t0 = time.perf_counter()
+        trainer.predict([read_png(tmp / "control_0.png")], F_PROMPTS[3],
+                        num_inference_steps=G_PREDICT_STEPS)
+        torch.cuda.synchronize()
+        again = time.perf_counter() - t0
+        want = _rq((0, 0, G_PREDICT_STEPS * fwd_k5a, 0, 0, 0, 0, 0, G_PREDICT_STEPS * n, 0))
+        print(f"[qwen_cache] --predict from an 832×576 PNG: {wall:.1f} s in main() (DiT, VAE "
+              f"built, Qwen2.5-VL drawn), {pred['steps']} steps "
+              f"{1000 * pred['denoise_s'] / pred['steps']:.1f} ms/step, decode "
+              f"{1000 * pred['decode_s']:.1f} ms; a second request on the loaded model "
+              f"{again:.2f} s (encode, {G_PREDICT_STEPS} steps, decode); peak mem "
+              f"{torch.cuda.max_memory_allocated()} bytes; output {img.dtype} {list(img.shape)}, "
+              f"latents finite {pred['latents_finite']}; {COUNT_NAMES} launches {launched} "
+              f"[{card}]", flush=True)
+        if (img.dtype != np.uint8 or img.shape != (QWEN_HEIGHT, QWEN_WIDTH, 3)
+                or not pred["latents_finite"] or launched != want):
+            raise AssertionError(f"--predict gave {img.dtype} {img.shape}, launches {launched} "
+                                 f"(want {want})")
+        out["predict"] = launched
+
+        # (d) mixed sizes in one padded batch, on the loaded model
+        items = [{"prompt": F_PROMPTS[0], "images": [read_png(tmp / "control_0.png")]},
+                 {"prompt": F_PROMPTS[1], "images": [read_png(tmp / "control_1.png")],
+                  "height": QWEN512, "width": QWEN512}]
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        outs = trainer.predict_multires(items, num_inference_steps=G_MULTIRES_STEPS)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = _launch_counts()
+        want = _rq((0, 0, G_MULTIRES_STEPS * fwd_k5a, 0, 0, 0, 0, 0, G_MULTIRES_STEPS * n, 0))
+        print(f"[qwen_cache] Qwen predict_multires, an 832×576 and a 512² item in one padded "
+              f"batch, {G_MULTIRES_STEPS} steps: {secs:.2f} s (encode, steps, two decodes), "
+              f"outputs " + ", ".join(f"{o.dtype} {list(o.shape)}" for o in outs)
+              + f"; {COUNT_NAMES} launches {launched} [{card}]", flush=True)
+        if ([o.shape for o in outs] != [(QWEN_HEIGHT, QWEN_WIDTH, 3), (QWEN512, QWEN512, 3)]
+                or launched != want):
+            raise AssertionError(f"Qwen predict_multires gave {[o.shape for o in outs]}, "
+                                 f"launches {launched} (want {want})")
+        out["multires"] = launched
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_flux_multires(card: str) -> tuple[int, ...]:
+    """Phase G(d), FLUX.1-Kontext-dev at full width (the phase F config,
+    synthetic weights): `Trainer.predict_multires` over a 512² and a
+    768×512 item in one padded batch, G_MULTIRES_STEPS steps, one attention
+    launch a block a step (K1 or K3, as S decides), outputs at each item's
+    size.  Returns the launches (`_launch_counts`' order)."""
+    from qflux_tpu_torch.config import config_from_dict
+    from qflux_tpu_torch.models.flux.transformer import FluxConfig
+    from qflux_tpu_torch.trainer.base import Trainer
+
+    n_blocks = FluxConfig().num_layers + FluxConfig().num_single_layers
+    tmp = Path(tempfile.mkdtemp(prefix="qflux_smoke_flux_multires_"))
+    try:
+        trainer = Trainer(config_from_dict(_f_config(tmp / "unread.csv", tmp)), device="cuda")
+        rng = np.random.default_rng(92)
+        items = [{"prompt": F_PROMPTS[0],
+                  "images": [rng.integers(0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8)]},
+                 {"prompt": F_PROMPTS[1],
+                  "images": [rng.integers(0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8)],
+                  "height": 768, "width": 512}]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.load_model()
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        _reset_counts()
+        t0 = time.perf_counter()
+        outs = trainer.predict_multires(items, num_inference_steps=G_MULTIRES_STEPS)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = _launch_counts()
+        print(f"[qwen_cache] FLUX predict_multires, a 512² and a 768×512 item in one padded "
+              f"batch, {G_MULTIRES_STEPS} steps: model built in {load_s:.1f} s, {secs:.2f} s "
+              f"(T5-XXL drawn, encode, steps, two decodes), outputs "
+              + ", ".join(f"{o.dtype} {list(o.shape)}" for o in outs)
+              + f"; {COUNT_NAMES} launches {launched} [{card}]", flush=True)
+        if ([o.shape for o in outs] != [(HEIGHT, WIDTH, 3), (768, 512, 3)]
+                or launched[0] + launched[8] != G_MULTIRES_STEPS * n_blocks
+                or sum(launched) != launched[0] + launched[8]):
+            raise AssertionError(f"FLUX predict_multires gave {[o.shape for o in outs]}, "
+                                 f"launches {launched}")
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        return launched
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+class _PathShapes:
+    """Inside the `with` block, records each distinct shape at which the
+    launchers of K3, K4, K5a, K5b and the row quantization are called: K3
+    and K4 by q's and k's shapes and whether ids are given, their segment
+    ids copied at the first launch; K5a and K5b by M, K, N, the weight's
+    group count and the output dtype; the row quantization by its input's
+    shape and dtype and whether s_vec multiplies it first.  Only shapes
+    and ids are kept, so what the path measures is unchanged.
+    `phase_path_shapes` holds each kernel to its plain version there."""
+
+    def __enter__(self):
+        from qflux_tpu_torch.ops import flash_attention as fa
+        from qflux_tpu_torch.ops import int4_matmul as ti4
+
+        self.k3, self.k4, self.k5a, self.k5b, self.rq = {}, {}, {}, {}, {}
+        self.saved = [(fa, "_flash_fwd_cuda"), (fa, "_flash_bwd_cuda"),
+                      (ti4, "rq_int4_fwd_cuda"), (ti4, "rq_int4_bwd_cuda"),
+                      (ti4, "rowquant_cuda")]
+        f3, f4, f5a, f5b, frq = self.orig = [getattr(m, n) for m, n in self.saved]
+
+        def ids(table, q, k, q_seg, kv_seg):
+            key = (tuple(q.shape), tuple(k.shape), q_seg is not None)
+            if key not in table:
+                table[key] = tuple(None if t is None else t.clone() for t in (q_seg, kv_seg))
+
+        def k3(q, k, v, q_seg, kv_seg, scale):
+            ids(self.k3, q, k, q_seg, kv_seg)
+            return f3(q, k, v, q_seg, kv_seg, scale)
+
+        def k4(q, k, v, q_seg, kv_seg, out, lse, do, scale):
+            ids(self.k4, q, k, q_seg, kv_seg)
+            return f4(q, k, v, q_seg, kv_seg, out, lse, do, scale)
+
+        def k5a(xq, q4, f, sx, s_vec, out_dtype):
+            self.k5a[(xq.shape[0], xq.shape[1], q4.shape[1], f.shape[0], out_dtype)] = True
+            return f5a(xq, q4, f, sx, s_vec, out_dtype)
+
+        def k5b(gq, q4, f, sg, out_dtype):
+            self.k5b[(gq.shape[0], 2 * q4.shape[0], gq.shape[1], f.shape[0], out_dtype)] = True
+            return f5b(gq, q4, f, sg, out_dtype)
+
+        def rq(x, s_vec=None):
+            self.rq[(x.shape[0], x.shape[1], x.dtype, s_vec is not None)] = True
+            return frq(x, s_vec)
+
+        for (mod, name), fn in zip(self.saved, (k3, k4, k5a, k5b, rq)):
+            setattr(mod, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in zip(self.saved, self.orig):
+            setattr(mod, name, fn)
+        return False
+
+
+def _rq_agrees(gen, m, k_in, n, n_groups, dtype, backward) -> tuple[bool, float]:
+    """rq_fused_matmul (the row quantization and K5a; with `backward` its
+    dx, the row quantization of g · s_vec and K5b) on seeded x [M, K] (g
+    [M, N]) and weights U(±1/sqrt(K)) quantized to int4 in `n_groups`
+    groups, against the plain requant_int4_matmul (its dx): equal to the
+    bit and finite.  Returns (ok, max |difference|)."""
+    from qflux_tpu_torch.ops import int4_matmul as ti4, quant
+
+    w = (torch.rand(k_in, n, device="cuda", generator=gen) * 2 - 1) / k_in ** 0.5
+    q4, scale = quant.quantize_kernel_int4(w, k_in // n_groups)
+    f, sv = quant._requant_factors(scale)
+    x = torch.randn(m, k_in, device="cuda", generator=gen).to(dtype)
+    if backward:
+        g = torch.randn(m, n, device="cuda", generator=gen).to(dtype)
+        x.requires_grad_()
+        ti4.rq_fused_matmul(x, q4, scale, (f, sv)).backward(g)
+        got, want = x.grad, quant.requant_int4_matmul_dx(g, q4, (f, sv))
+    else:
+        got = ti4.rq_fused_matmul(x, q4, scale, (f, sv))
+        want = quant.requant_int4_matmul(x, q4, scale, (f, sv))
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    return torch.equal(got, want) and bool(torch.isfinite(got).all()), err
+
+
+def _ids_text(q_seg) -> str:
+    if q_seg is None:
+        return "no ids"
+    return f"the path's segment ids ({int((q_seg == 0).sum())} padding rows)"
+
+
+def phase_path_shapes(card: str, rec: _PathShapes) -> dict:
+    """Every kernel phase G launched, held to its plain version at each
+    shape phase G gave it (`_PathShapes`), on seeded inputs: K3 with the
+    path's own segment ids (`_k3_agrees`: out within OUT_ATOL, lse within
+    LSE_ATOL, the rows every head masks at 0), K4 from that K3's out / lse
+    with do ~ N(0, 1) (`_k4_agrees`), K5a and K5b through rq_fused_matmul
+    and its dx (`_rq_agrees`: to the bit), the row quantization against
+    quant._rowquant (to the bit).  Returns the number of shapes checked per
+    kernel."""
+    from qflux_tpu_torch.ops import flash_attention as fa
+    from qflux_tpu_torch.ops import int4_matmul as ti4, quant
+
+    gen = torch.Generator("cuda").manual_seed(93)
+
+    def qkv(q_shape, k_shape):
+        return [torch.randn(sh, device="cuda", generator=gen).to(torch.bfloat16)
+                for sh in (q_shape, k_shape, k_shape)]
+
+    bad = []
+    for (q_shape, k_shape, _), (q_seg, kv_seg) in rec.k3.items():
+        q, k, v = qkv(q_shape, k_shape)
+        ok, err, lse_err, dead, _, _ = _k3_agrees(q, k, v, q_seg, kv_seg,
+                                                  q_shape[-1] ** -0.5)
+        print(f"[path_shapes] K3 at q {list(q_shape)}, k {list(k_shape)}, {_ids_text(q_seg)}: "
+              f"max_abs_err(out) {err:.3e} (tol {OUT_ATOL}), max_abs_err(lse) {lse_err:.3e} "
+              f"(tol {LSE_ATOL}), {int(dead.sum())} fully masked rows at 0: {ok} [{card}]",
+              flush=True)
+        bad += [] if ok else [f"K3 {q_shape}"]
+        del q, k, v
+        torch.cuda.empty_cache()
+    for (q_shape, k_shape, _), (q_seg, kv_seg) in rec.k4.items():
+        q, k, v = qkv(q_shape, k_shape)
+        scale = q_shape[-1] ** -0.5
+        out, lse = fa._flash_fwd_cuda(q, k, v, q_seg, kv_seg, scale)
+        do = torch.randn(q.shape, device="cuda", generator=gen).to(torch.bfloat16)
+        ok, errs, _, _ = _k4_agrees(q, k, v, q_seg, kv_seg, out, lse, do, scale)
+        print(f"[path_shapes] K4 at q {list(q_shape)}, k {list(k_shape)}, {_ids_text(q_seg)}: "
+              f"{errs} (tol rel {BWD_REL_TOL}, max {BWD_MAX_TOL} x max|ref|), two calls "
+              f"identical: {ok} [{card}]", flush=True)
+        bad += [] if ok else [f"K4 {q_shape}"]
+        del q, k, v, out, lse, do
+        torch.cuda.empty_cache()
+    for name, table, backward in (("K5a", rec.k5a, False), ("K5b", rec.k5b, True)):
+        res = {key: _rq_agrees(gen, *key[:4], key[4], backward) for key in sorted(
+            table, key=str)}
+        print(f"[path_shapes] {name} (through rq_fused_matmul{' dx' if backward else ''}) at "
+              f"(M, K, N, groups): " + ", ".join(f"{key[:4]} {'ok' if ok else f'err {e:.3e}'}"
+                                                 for key, (ok, e) in res.items())
+              + f"; max |kernel - plain| {max((e for _, e in res.values()), default=0.0)} "
+              f"(tol 0) [{card}]", flush=True)
+        bad += [f"{name} {key[:4]}" for key, (ok, _) in res.items() if not ok]
+        torch.cuda.empty_cache()
+    rq_res = {}
+    for m, k_in, dtype, with_s in sorted(rec.rq, key=str):
+        x = torch.randn(m, k_in, device="cuda", generator=gen).to(dtype)
+        s_vec = (torch.rand(k_in, device="cuda", generator=gen) + 0.5) if with_s else None
+        got = ti4.rowquant_cuda(x, s_vec)
+        want = quant._rowquant(x if s_vec is None else x.float() * s_vec)
+        rq_res[(m, k_in, str(dtype).split(".")[-1], with_s)] = (
+            torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]))
+    print(f"[path_shapes] row quantization against quant._rowquant to the bit at (M, K, dtype, "
+          f"x s_vec): " + ", ".join(f"{key} {ok}" for key, ok in rq_res.items())
+          + f" [{card}]", flush=True)
+    bad += [f"row quantization {key}" for key, ok in rq_res.items() if not ok]
+    if bad:
+        raise AssertionError(f"at the shapes phase G gave them, these disagree with their "
+                             f"plain versions: {bad}")
+    return {"K3": len(rec.k3), "K4": len(rec.k4), "K5a": len(rec.k5a), "K5b": len(rec.k5b),
+            "row quant": len(rq_res)}
+
+
 PROFILE_GROUPS = [("K5a rq_int4_fwd", ("rq_int4_fwd",)), ("K5b rq_int4_bwd", ("rq_int4_bwd",)),
                   ("row quant", ("rowquant",)),
                   ("W8A8 int8_gemm", ("int8_gemm",)), ("W8A8 transpose", ("int8_transpose",)),
@@ -5298,8 +5986,12 @@ def main() -> int:
     b_fit, qwen_lora = timed(phase_qwen_train, qwen)
     k5_qt, k5b_qt, k3_qt, k4_qt, rq_qt = b_fit[2], b_fit[3], b_fit[8], b_fit[9], b_fit[10]
     k1_int8_case, k2_int8_case = timed(phase_kernel_int8)
-    k1_a, k5_a, rq_a = timed(phase_qwen512_predict, qwen)
-    a_fit = timed(phase_qwen512_train, qwen)
+    qwen_a, _ = _qwen_cut(QWEN_832X576)  # path A's model: path B's config, cut in depth
+    k1_a, k5_a, rq_a = timed(phase_qwen512_predict, qwen_a)
+    a_fit = timed(phase_qwen512_train, qwen_a)
+    del qwen_a
+    gc.collect()
+    torch.cuda.empty_cache()
     k5_at, k5b_at, k1_at, k2_at, rq_at = a_fit[2], a_fit[3], a_fit[4], a_fit[5], a_fit[10]
     fc = timed(phase_files_qwen, qwen, qwen_lora)
     k5_fc, k3_fc, rq_fc = fc[2], fc[8], fc[10]
@@ -5334,6 +6026,21 @@ def main() -> int:
     f = timed(phase_cache_pass)
     print(f"[smoke] phase F (the FLUX.1-Kontext cache pass and raw-image entry points): "
           f"{time.perf_counter() - t_f:.1f} s [{card}]", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_g = time.perf_counter()
+    with _PathShapes() as g_shapes:
+        g = timed(phase_qwen_cache_pass)
+        g["flux_multires"] = timed(phase_flux_multires)
+    g_checked = timed(phase_path_shapes, g_shapes)
+    g_all = tuple(map(sum, zip(*g.values())))  # _launch_counts' order, over phase G's paths
+    print(f"[smoke] phase G (the Qwen-Image-Edit cache pass and raw-image entry points, "
+          f"predict_multires for both families; each kernel then held to its plain version "
+          f"at the shapes they gave it: {g_checked}): {time.perf_counter() - t_g:.1f} s "
+          f"[{card}]", flush=True)
+
+    def by_path(i):
+        return {f"qwen_pixels_{k}": v[i] for k, v in g.items() if v[i]}
 
     print(f"[smoke] wall time {time.perf_counter() - t_start:.1f} s (build included) [{card}]",
           flush=True)
@@ -5342,14 +6049,14 @@ def main() -> int:
          "source": "qflux_tpu_torch/csrc/flash_nr_fwd.cu",
          "replaces": "qflux_tpu/ops/flash_nr.py:192",
          "launches": (k1_predict + k1_train + k1_fa + k1_fb + d_flux[0] + k1_c + k1_ct + k1_e
-                      + k1_eq + f["fit"][0] + f["validation"] + f["predict"]),
+                      + k1_eq + f["fit"][0] + f["validation"] + f["predict"] + g_all[0]),
          "launches_by_path": {"predict": k1_predict, "train": k1_train,
                               "files_flux_resume": k1_fa, "files_flux_weights": k1_fb,
                               "data_flux_cli": d_flux[0],
                               "int4_predict": k1_c, "int4_train": k1_ct, "w8a8_flux": k1_e,
                               "qwen_int8": k1_eq, "cache_pass_fit": f["fit"][0],
                               "cache_pass_validation": f["validation"],
-                              "cache_pass_predict": f["predict"]}, **k1_case},
+                              "cache_pass_predict": f["predict"], **by_path(0)}, **k1_case},
         {"name": "flash_nr_bwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/flash_nr_bwd.cu",
          "replaces": "qflux_tpu/ops/flash_nr.py:311",
@@ -5360,37 +6067,38 @@ def main() -> int:
         {"name": "flash_fwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "qflux_tpu/ops/flash_attention.py:105",
-         "launches": k3_qwen + k3_qt + k3_fc + d_flux[8] + d_qwen[8],
+         "launches": k3_qwen + k3_qt + k3_fc + d_flux[8] + d_qwen[8] + g_all[8],
          "launches_by_path": {"qwen_predict": k3_qwen, "qwen_train": k3_qt,
                               "files_qwen": k3_fc, "data_flux_cli": d_flux[8],
-                              "data_qwen_fit": d_qwen[8]}, **k3_case},
+                              "data_qwen_fit": d_qwen[8], **by_path(8)}, **k3_case},
         {"name": "flash_bwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "qflux_tpu/ops/flash_attention.py:288, :215, :251",
-         "launches": k4_qt + d_flux[9] + d_qwen[9],
+         "launches": k4_qt + d_flux[9] + d_qwen[9] + g_all[9],
          "launches_by_path": {"qwen_train": k4_qt, "data_flux_cli": d_flux[9],
-                              "data_qwen_fit": d_qwen[9]}, **k4_case},
+                              "data_qwen_fit": d_qwen[9], **by_path(9)}, **k4_case},
         {"name": "rq_int4_fwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/rq_int4_fwd.cu",
          "replaces": "qflux_tpu/ops/int4_matmul.py:268",
-         "launches": k5_qwen + k5_qt + k5_a + k5_at + k5_fc + d_qwen[2],
+         "launches": k5_qwen + k5_qt + k5_a + k5_at + k5_fc + d_qwen[2] + g_all[2],
          "launches_by_path": {"qwen_predict": k5_qwen, "qwen_train": k5_qt,
                               "qwen512_predict": k5_a, "qwen512_train": k5_at,
-                              "files_qwen": k5_fc, "data_qwen_fit": d_qwen[2]}, **k5_case},
+                              "files_qwen": k5_fc, "data_qwen_fit": d_qwen[2],
+                              **by_path(2)}, **k5_case},
         {"name": "rq_int4_bwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/rq_int4_bwd.cu",
          "replaces": "qflux_tpu/ops/int4_matmul.py:286",
-         "launches": k5b_qt + k5b_at + d_qwen[3],
+         "launches": k5b_qt + k5b_at + d_qwen[3] + g_all[3],
          "launches_by_path": {"qwen_train": k5b_qt, "qwen512_train": k5b_at,
-                              "data_qwen_fit": d_qwen[3]}, **k5b_case},
+                              "data_qwen_fit": d_qwen[3], **by_path(3)}, **k5b_case},
         {"name": "rowquant", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/rowquant.cu",
          "replaces": "not a TPU kernel: qflux_tpu/ops/quant.py:144 _rowquant, left to XLA",
-         "launches": rq_qwen + rq_qt + rq_a + rq_at + rq_fc + d_qwen[10] + rq_e,
+         "launches": rq_qwen + rq_qt + rq_a + rq_at + rq_fc + d_qwen[10] + rq_e + g_all[10],
          "launches_by_path": {"qwen_predict": rq_qwen, "qwen_train": rq_qt,
                               "qwen512_predict": rq_a, "qwen512_train": rq_at,
                               "files_qwen": rq_fc, "data_qwen_fit": d_qwen[10],
-                              "w8a8_flux": rq_e},
+                              "w8a8_flux": rq_e, **by_path(10)},
          "g_times_s_vec": rowquant_g_case, **rowquant_case},
         {"name": "flash_nr_fwd s_int8", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/flash_nr_fwd.cu",

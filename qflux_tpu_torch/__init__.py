@@ -17,4 +17,9 @@ K5a / K5b (`csrc/rq_int4_*.cu`) and K6a / K6b (`csrc/int4_*.cu`).  The
 data layer (`data/`: the JAX package's embedding cache, the dataset, shape
 buckets and padded mixed-resolution batches), TensorBoard logging and
 `python -m qflux_tpu_torch.main` (fit from the cache) drive the trainer.
+Both families also run from raw images: their encoders (FLUX's CLIP-L,
+T5-XXL and VAE encoder; Qwen's Qwen2.5-VL and 3D VAE encoder) write the
+embedding cache (`--cache`), train from pixels (`--fit-no-cache`), edit a
+raw image (`--predict`), sample for validation and serve mixed-size
+batches (`Trainer.predict_multires`).
 """

@@ -19,10 +19,10 @@ data.use_edit_mask as defaults) and the DataLoader, then
     JAX's name for it, `--image`) and `--prompt`, each output written as a
     PNG by the port's own encoder (`--output`, then -1, -2, … for more).
 
---cache, --fit-no-cache and --predict run FLUX.1-Kontext's encoders; for
-Qwen-Image-Edit they raise NotImplementedError naming ROADMAP.md queue 1
-item 5b.  The device defaults to cuda; `--device cpu` runs the kernels'
-plain versions (tests, tiny models).  Not ported: `--distributed` (item
+--cache, --fit-no-cache and --predict run the family's encoders
+(FLUX.1-Kontext's CLIP-L, T5-XXL and VAE encoder; Qwen-Image-Edit's
+Qwen2.5-VL and 3D VAE encoder).  The device defaults to cuda; `--device
+cpu` runs the kernels' plain versions (tests, tiny models).  Not ported: `--distributed` (item
 8) and `--plan` (XLA's memory analysis: not ported at all).
 """
 

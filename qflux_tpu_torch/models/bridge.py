@@ -7,7 +7,8 @@ Takes the nested-dict trees of qflux_tpu (leaves as numpy arrays, anything
 tree — and loads them into the port, so that both packages compute on the
 same weights:
 
-  * stacked `[L, ...]` leaves ("dual", "single") are unstacked into the
+  * stacked `[L, ...]` leaves ("dual", "single", the VL encoder's "blocks"
+    and "layers") are unstacked into the
     `nn.ModuleList`s;
   * a dense `kernel [in, out]` becomes `weight [out, in]`;
   * a quantized dense (qflux_tpu/ops/quant.py:quantize_tree) goes in with
@@ -146,9 +147,8 @@ def load_params(module: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
 
 
 def load_vae_params(vae: nn.Module, tree: Mapping[str, Any]) -> nn.Module:
-    """The JAX VAE tree {"encoder", "decoder"} into the port's VAE: each
-    half the module has (the FLUX VAE both; the Qwen VAE its decoder, its
-    encoder being ROADMAP.md queue 1 item 5b)."""
+    """The JAX VAE tree {"encoder", "decoder"} into the port's VAE (FLUX's
+    or Qwen's): each half the module has."""
     return load_params(vae, {k: v for k, v in tree.items() if hasattr(vae, k)})
 
 

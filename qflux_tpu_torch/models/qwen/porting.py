@@ -1,13 +1,16 @@
-"""Qwen-Image checkpoint converters: the DiT and the 3D VAE.
+"""Qwen-family checkpoint converters: the Qwen2.5-VL encoder, the DiT and
+the 3D VAE.
 
-The port's copy of qflux_tpu/models/qwen/porting.py
-(`convert_qwen_image_transformer`, `convert_qwen_vae`; the Qwen2.5-VL
-converters wait for the text encoder), on the helpers of
-`models/porting.py`: any mapping name → tensor in, the JAX package's trees
-(torch tensors on the CPU as leaves) out.  The DiT has a per-block form,
-`qwen_transformer_top` / `qwen_block`, which
-`models/qwen/transformer.py:load_from_state_dict` uses to build the model
-one block at a time.
+The port's copy of qflux_tpu/models/qwen/porting.py (`_detect_prefix`,
+`convert_vl_vision`, `convert_vl_text`, `convert_qwen_image_transformer`,
+`convert_qwen_vae`; the LM head, which only greedy decoding reads, is left
+for DreamOmni2's prompt enhancer), on the helpers of `models/porting.py`:
+any mapping name → tensor in, the JAX package's trees (torch tensors on the
+CPU as leaves) out.  The DiT and the VL encoder have per-block forms
+(`qwen_transformer_top` / `qwen_block`; `vl_vision_top` / `vl_vision_block`,
+`vl_text_top` / `vl_text_layer`), which `models/qwen/transformer.py` and
+`models/qwen/vl_encoder.py:load_from_state_dict` use to build the models one
+block at a time.
 """
 
 from __future__ import annotations
@@ -16,8 +19,86 @@ from typing import Mapping
 
 import torch
 
-from qflux_tpu_torch.models.porting import (_lin, _permute_qk, _permute_qk_scale, _scale,
-                                            _stack, _t)
+from qflux_tpu_torch.models.porting import (_lin, _lin_nobias, _permute_qk, _permute_qk_scale,
+                                            _scale, _stack, _t)
+
+
+def _detect_prefix(sd: Mapping, candidates: list[str]) -> str:
+    """The first candidate some key starts with, else ""."""
+    for c in candidates:
+        if any(k.startswith(c) for k in sd):
+            return c
+    return ""
+
+
+# ---------------------------------------------------------------------------
+# Qwen2.5-VL (transformers Qwen2_5_VLForConditionalGeneration names, in the
+# layout of either transformers version)
+
+def vision_prefix(sd: Mapping) -> str:
+    return _detect_prefix(sd, ["model.visual.", "visual."])
+
+
+def text_prefix(sd: Mapping) -> str:
+    return _detect_prefix(sd, ["model.language_model.", "language_model.model.", "model."])
+
+
+def vl_vision_top(sd: Mapping, dtype=torch.float32) -> dict:
+    """The vision tree's leaves but "blocks": the patch embedding (Conv3d
+    weight [D, C, tps, ps, ps] → the matmul kernel [C·tps·ps², D], flattened
+    in the processor's patch order) and the merger."""
+    pre = vision_prefix(sd)
+    w = _t(sd[f"{pre}patch_embed.proj.weight"]).to(dtype)
+    return {"patch_embed": {"kernel": w.reshape(w.shape[0], -1).t()},
+            "merger": {"ln_q": _scale(sd, f"{pre}merger.ln_q", dtype),
+                       "mlp_0": _lin(sd, f"{pre}merger.mlp.0", dtype),
+                       "mlp_2": _lin(sd, f"{pre}merger.mlp.2", dtype)}}
+
+
+def vl_vision_block(sd: Mapping, pre: str, i: int, dtype=torch.float32) -> dict:
+    b = f"{pre}blocks.{i}"
+    return {"norm1": _scale(sd, f"{b}.norm1", dtype),
+            "norm2": _scale(sd, f"{b}.norm2", dtype),
+            "attn": {"qkv": _lin(sd, f"{b}.attn.qkv", dtype),
+                     "proj": _lin(sd, f"{b}.attn.proj", dtype)},
+            "mlp": {"gate": _lin(sd, f"{b}.mlp.gate_proj", dtype),
+                    "up": _lin(sd, f"{b}.mlp.up_proj", dtype),
+                    "down": _lin(sd, f"{b}.mlp.down_proj", dtype)}}
+
+
+def convert_vl_vision(sd: Mapping, depth: int, dtype=torch.float32) -> dict:
+    """The vision tower's tree, "blocks" stacked [depth, ...]."""
+    p = vl_vision_top(sd, dtype)
+    pre = vision_prefix(sd)
+    p["blocks"] = _stack([vl_vision_block(sd, pre, i, dtype) for i in range(depth)])
+    return p
+
+
+def vl_text_top(sd: Mapping, dtype=torch.float32) -> dict:
+    pre = text_prefix(sd)
+    return {"embed_tokens": _t(sd[f"{pre}embed_tokens.weight"]).to(dtype),
+            "norm": _scale(sd, f"{pre}norm", dtype)}
+
+
+def vl_text_layer(sd: Mapping, pre: str, i: int, dtype=torch.float32) -> dict:
+    b = f"{pre}layers.{i}"
+    return {"input_layernorm": _scale(sd, f"{b}.input_layernorm", dtype),
+            "post_attention_layernorm": _scale(sd, f"{b}.post_attention_layernorm", dtype),
+            "attn": {"q": _lin(sd, f"{b}.self_attn.q_proj", dtype),
+                     "k": _lin(sd, f"{b}.self_attn.k_proj", dtype),
+                     "v": _lin(sd, f"{b}.self_attn.v_proj", dtype),
+                     "o": _lin_nobias(sd, f"{b}.self_attn.o_proj", dtype)},
+            "mlp": {"gate": _lin_nobias(sd, f"{b}.mlp.gate_proj", dtype),
+                    "up": _lin_nobias(sd, f"{b}.mlp.up_proj", dtype),
+                    "down": _lin_nobias(sd, f"{b}.mlp.down_proj", dtype)}}
+
+
+def convert_vl_text(sd: Mapping, num_layers: int, dtype=torch.float32) -> dict:
+    """The LM's tree, "layers" stacked [num_layers, ...]."""
+    p = vl_text_top(sd, dtype)
+    pre = text_prefix(sd)
+    p["layers"] = _stack([vl_text_layer(sd, pre, i, dtype) for i in range(num_layers)])
+    return p
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
-"""Qwen-Image VAE (Wan 2.1 family causal 3D-conv VAE) decoder in PyTorch.
+"""Qwen-Image VAE (Wan 2.1 family causal 3D-conv VAE) in PyTorch: the
+encoder and the decoder.
 
-Counterpart of the decode half of qflux_tpu/models/qwen/vae.py.  For image
+Counterpart of qflux_tpu/models/qwen/vae.py.  For image
 editing every input is a single-frame video (T = 1), so each causal 3D conv
 reduces to its LAST time tap (the current frame; the causal front padding
 zeroes the others), as the JAX `_conv3d_t1`; the parameters keep the 3D
@@ -9,10 +10,13 @@ ported checkpoint loads unchanged.  The public boundary keeps the JAX
 layout (NHWC latents in, NHWC images out); inside, the convolutions run
 NCHW.  Channel RMS norms, single-head spatial attention in the mid block
 (query-chunked past `flux.vae.ATTN_CHUNK` tokens, as the JAX decoder), and
-nearest 2× upsampling followed by a 3×3 conv.
+nearest 2× upsampling followed by a 3×3 conv in the decoder, a zero pad
+(0, 1, 0, 1) and a stride-2 3×3 conv in the encoder.  `encode` keeps the
+mean half of the moments and normalizes it per channel by
+`latents_mean` / `latents_std`.
 
-The decoder runs in float32 with TF32 off on the card (`decode` raises
-otherwise, as the FLUX decoder).  The encoder comes with the cache pass.
+Both halves run in float32 with TF32 off on the card (`encode_moments` and
+`decode` raise otherwise, as the FLUX VAE's).
 """
 
 from __future__ import annotations
@@ -113,6 +117,37 @@ class Mid(nn.Module):
         self.res_1 = ResBlock(c, c, **kw)
 
 
+class DownBlock(nn.Module):
+    def __init__(self, cin, cout, n_res, downsample, device=None, dtype=None):
+        super().__init__()
+        kw = {"device": device, "dtype": dtype}
+        for j in range(n_res):
+            self.add_module(f"res_{j}", ResBlock(cin if j == 0 else cout, cout, **kw))
+        self.n_res = n_res
+        self.down = Conv(3, 3, cout, cout, **kw) if downsample else None
+
+
+class Encoder(nn.Module):
+    """`quant_conv`: the WanVAE's 1×1 conv on the moments, which checkpoints
+    carry (a channel linear, as the JAX tree keeps it)."""
+
+    def __init__(self, cfg: QwenVAEConfig, device=None, dtype=None, quant_conv: bool = False):
+        super().__init__()
+        kw = {"device": device, "dtype": dtype}
+        dims = [cfg.base_dim * m for m in cfg.dim_mult]
+        self.conv_in = Conv3(3, 3, 3, 3, dims[0], **kw)
+        cin = dims[0]
+        for i, cout in enumerate(dims):
+            self.add_module(f"down_{i}", DownBlock(cin, cout, cfg.num_res_blocks,
+                                                   i < len(dims) - 1, **kw))
+            cin = cout
+        self.mid = Mid(dims[-1], **kw)
+        self.norm_out = RMSGamma(dims[-1], **kw)
+        self.conv_out = Conv3(3, 3, 3, dims[-1], 2 * cfg.z_dim, **kw)
+        if quant_conv:
+            self.quant_conv = Dense(2 * cfg.z_dim, 2 * cfg.z_dim, **kw)
+
+
 class UpBlock(nn.Module):
     def __init__(self, cin, cout, n_res, up_out, device=None, dtype=None):
         super().__init__()
@@ -146,24 +181,30 @@ class Decoder(nn.Module):
 
 
 class QwenVAE(nn.Module):
-    """{"decoder": ...} of the JAX VAE tree."""
+    """{"encoder": ..., "decoder": ...} of the JAX VAE tree.
+    `post_quant_conv`: the checkpoint's two 1×1 convs, the encoder's
+    quant_conv and the decoder's post_quant_conv (a WanVAE checkpoint
+    carries both)."""
 
     def __init__(self, cfg: QwenVAEConfig, device=None, dtype=None,
                  post_quant_conv: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.encoder = Encoder(cfg, device=device, dtype=dtype, quant_conv=post_quant_conv)
         self.decoder = Decoder(cfg, device=device, dtype=dtype, post_quant_conv=post_quant_conv)
 
 
 def init(generator: torch.Generator, cfg: QwenVAEConfig, device=None,
          dtype=torch.float32) -> QwenVAE:
-    """Random decoder weights with the `_c3` / `_c2` / `_lin` bounds and unit
-    RMS gammas."""
+    """Random decoder and encoder weights (drawn in that order) with the
+    `_c3` / `_c2` / `_lin` bounds and unit RMS gammas."""
     model = QwenVAE(cfg, device=device, dtype=dtype)
     with torch.no_grad():
-        for mod in model.modules():
-            if isinstance(mod, (Conv3, Conv, Dense)):
-                mod.init_(generator)
+        # the decoder first: its draws stay those of a decoder-only VAE
+        for half in (model.decoder, model.encoder):
+            for mod in half.modules():
+                if isinstance(mod, (Conv3, Conv, Dense)):
+                    mod.init_(generator)
     return model
 
 
@@ -213,6 +254,38 @@ def _mid(p: Mid, x):
     x = _resblock(p.res_0, x)
     x = _attn_block(p.attn, x)
     return _resblock(p.res_1, x)
+
+
+def encode_moments(params: QwenVAE, cfg: QwenVAEConfig, images):
+    """images [B, H, W, 3] in [-1, 1] → moments [B, H/8, W/8, 2·z_dim] (f32;
+    TF32 must be off on the card)."""
+    require_f32(images, "the VAE encoder")
+    enc = params.encoder
+    x = _conv3d_t1(enc.conv_in, images.permute(0, 3, 1, 2))
+    for i in range(len(cfg.dim_mult)):
+        blk = getattr(enc, f"down_{i}")
+        for j in range(blk.n_res):
+            x = _resblock(getattr(blk, f"res_{j}"), x)
+        if blk.down is not None:
+            # Wan's downsample2d: zero pad (0, 1, 0, 1), then stride 2, no padding
+            x = flux_vae._conv(blk.down, F.pad(x, (0, 1, 0, 1)), stride=2, padding=0)
+    x = _mid(enc.mid, x)
+    x = F.silu(_rms_norm_ch(enc.norm_out, x))
+    x = _conv3d_t1(enc.conv_out, x).permute(0, 2, 3, 1)
+    if hasattr(enc, "quant_conv"):
+        x = flux_vae._lin(enc.quant_conv, x)
+    return x
+
+
+def encode(params: QwenVAE, cfg: QwenVAEConfig, images):
+    """images [B, H, W, 3] in [-1, 1] → normalized latents [B, H/8, W/8, z]:
+    the mode of the diagonal Gaussian (the mean half of the moments),
+    normalized per channel by latents_mean / latents_std."""
+    moments = encode_moments(params, cfg, images)
+    mean = moments[..., : cfg.z_dim]
+    mu = torch.tensor(cfg.latents_mean, dtype=mean.dtype, device=mean.device)
+    std = torch.tensor(cfg.latents_std, dtype=mean.dtype, device=mean.device)
+    return (mean - mu) / std
 
 
 def decode(params: QwenVAE, cfg: QwenVAEConfig, latents):

@@ -27,12 +27,11 @@ trainer's, so either package resumes the other's run:
             state.json                        global_step, epoch, is_last, git
             generator_state.npy               the port's noise generator
 
-Batches of pixels, validation sampling, the cache pass and predict on raw
-images run FLUX.1-Kontext's encoders (VAE encoder, CLIP-L, T5-XXL);
-Qwen-Image-Edit's (its 3D VAE encoder and Qwen2.5-VL) are not ported, and
-those paths raise for it naming ROADMAP.md queue 1 item 5b, as does
-`predict_multires`.  Orbax's async checkpoints and the hub push are not
-ported (item 2).  `history` records loss, grad_norm, lr and the step's
+Batches of pixels, validation sampling, the cache pass, predict on raw
+images and `predict_multires` (one padded sampler call over items of
+different sizes) run each family's encoders: FLUX.1-Kontext's VAE encoder,
+CLIP-L and T5-XXL; Qwen-Image-Edit's 3D VAE encoder and Qwen2.5-VL.
+Orbax's async checkpoints and the hub push are not ported (item 2).  `history` records loss, grad_norm, lr and the step's
 host times per step.
 
 The Trainer reads its settings by attribute, from the namespaces of the
@@ -57,6 +56,7 @@ policies not ported raise in the transformer.
 
 from __future__ import annotations
 
+import gc
 import json
 import logging
 import re
@@ -73,7 +73,7 @@ import torch
 from qflux_tpu_torch import losses
 from qflux_tpu_torch.config import config_from_dict, config_to_dict, load_config_from_yaml
 from qflux_tpu_torch.data.cache import EmbeddingCacheManager
-from qflux_tpu_torch.data.preprocess import ITEM_5B, ImageProcessor
+from qflux_tpu_torch.data.preprocess import ImageProcessor
 from qflux_tpu_torch.ops.layers import (build_lora_tree, iter_dense_paths, mark_trainable,
                                         merge_lora)
 from qflux_tpu_torch.ops.quant import quantize_tree
@@ -99,6 +99,7 @@ CRITERIA = {f"{pkg}.{name}": getattr(losses, name)
             for name in ("MseLoss", "MaskEditLoss", "AttentionMaskMseLoss")}
 ADAMW_ARGS = ("b1", "b2", "eps", "weight_decay")  # the optax.adamw arguments ported
 ITEM_2 = "ROADMAP.md, queue 1 item 2: \"The rest of slice B, part 1: files, real weights and data\""
+ITEM_6 = "ROADMAP.md, queue 1 item 6: \"Remaining families\""
 
 
 def get_git_info() -> dict:
@@ -333,12 +334,12 @@ class Trainer:
         return out
 
     def _require_encoders(self, what: str) -> None:
-        """NotImplementedError naming item 5b where the model family's
-        encoders are not ported (Qwen-Image-Edit)."""
+        """NotImplementedError where the adapter has no encoders
+        (`prepare_embeddings`): both ported families have them."""
         if not hasattr(self.adapter_cls, "prepare_embeddings"):
             raise NotImplementedError(
                 f"{what} needs {self.config.trainer.value}'s VAE and text encoders, which are "
-                f"not ported yet ({ITEM_5B}); train from an embedding cache")
+                f"not ported yet ({ITEM_6}); train from an embedding cache")
 
     def _embeddings_for_batch(self, batch: dict) -> dict:
         """A collated batch (or a plain dict of arrays) → the step's
@@ -652,10 +653,7 @@ class Trainer:
             num_inference_steps=steps, true_cfg_scale=true_cfg_scale))
         b = batch["prompt_embeds"].shape[0]
         dtype = self.dtype
-        gen = torch.Generator(self.device).manual_seed(
-            self.config.logging.sampling_seed if seed is None else seed)
-        lat0 = torch.randn((b, s_img, self.bundle.dit_cfg.in_channels), generator=gen,
-                           device=self.device, dtype=dtype)
+        lat0 = self._initial_latents((b, s_img, self.bundle.dit_cfg.in_channels), seed)
         if "guidance" not in batch:
             batch["guidance"] = torch.full((b,), guidance, dtype=dtype, device=self.device)
         t0 = time.perf_counter()
@@ -666,6 +664,14 @@ class Trainer:
         self.last_predict = {"steps": plan.num_steps, "denoise_s": t1 - t0,
                              "decode_s": time.perf_counter() - t1, "latents_finite": finite}
         return images
+
+    def _initial_latents(self, shape: tuple, seed: Optional[int]) -> torch.Tensor:
+        """Gaussian noise of `shape` in the weight dtype on the device, from a
+        generator seeded `seed` (default logging.sampling_seed): the port's
+        own stream, where JAX draws `jax.random.normal`."""
+        gen = torch.Generator(self.device).manual_seed(
+            self.config.logging.sampling_seed if seed is None else seed)
+        return torch.randn(shape, generator=gen, device=self.device, dtype=self.dtype)
 
     # ------------------------------------------------------------------
     # the cache pass
@@ -709,26 +715,34 @@ class Trainer:
     # ------------------------------------------------------------------
     # predict on raw images
 
-    def _pixel_embeddings(self, images: list, prompt: str, height=None, width=None,
-                          negative_prompt: Optional[str] = None):
+    def _pixel_item(self, images: list, prompt: str, height=None, width=None) -> dict:
         """Control images (uint8 arrays, none for text to image) + prompt →
-        (embeddings without the target's latents, height, width): each image
-        resampled as control_i by data.processor, the size that of the first
-        control unless given; with `negative_prompt` also its embeddings."""
+        one unbatched pixel item: each image resampled as control_i by
+        data.processor ("control", "control_1", …), a zero target of
+        (height, width), the first control's size unless given."""
         processor = ImageProcessor(self.config.data.processor)
         controls = [processor.process_image(np.asarray(im), f"control_{i}")
                     for i, im in enumerate(images)]
         height = height or controls[0].shape[0]
         width = width or controls[0].shape[1]
-        batch = {"image": np.zeros((1, height, width, 3), np.uint8), "prompt": [prompt]}
+        item = {"image": np.zeros((height, width, 3), np.uint8), "prompt": prompt}
         for i, c in enumerate(controls):
-            batch["control" if i == 0 else f"control_{i}"] = c[None]
+            item["control" if i == 0 else f"control_{i}"] = c
+        return item
+
+    def _pixel_embeddings(self, images: list, prompt: str, height=None, width=None,
+                          negative_prompt: Optional[str] = None):
+        """`_pixel_item` as a bs=1 batch → (embeddings without the target's
+        latents, height, width); with `negative_prompt` also its
+        embeddings."""
+        item = self._pixel_item(images, prompt, height, width)
+        batch = {k: (v[None] if isinstance(v, np.ndarray) else [v]) for k, v in item.items()}
         msl = self.config.predict.max_sequence_length
         emb = self.adapter.prepare_embeddings(self.bundle, batch, msl)
         emb.pop("image_latents", None)
         if negative_prompt is not None:
             emb.update(self.adapter.negative_embeddings(self.bundle, negative_prompt, batch, msl))
-        return emb, height, width
+        return emb, item["image"].shape[0], item["image"].shape[1]
 
     def predict(self, images, prompt: str, height: Optional[int] = None,
                 width: Optional[int] = None, **kw) -> np.ndarray:
@@ -750,7 +764,43 @@ class Trainer:
         return self.predict_from_embeddings(emb, height, width, **kw)
 
     def predict_multires(self, items: list, num_inference_steps=None, seed=None) -> list:
-        raise NotImplementedError(f"predict_multires is not ported yet ({ITEM_5B})")
+        """Edit items of different sizes in one padded sampler call, as the
+        JAX Trainer's: each item {"prompt", "images": [uint8 controls],
+        "height", "width"} resampled by data.processor (its size that of
+        its first control unless given), the adapter's
+        `prepare_multires_embeddings` (segment ids mask the padding), one
+        Euler loop over the longest target (the sigma plan at its length,
+        predict's steps and true_cfg_scale, the trainer's LoRA merged), then
+        each sample's latents cut to its own grid and decoded alone.
+        Returns [uint8 [H_i, W_i, 3]]."""
+        if self.adapter is None:
+            self.load_model()
+        if not hasattr(self.adapter, "prepare_multires_embeddings"):
+            raise NotImplementedError(
+                f"{type(self.adapter).__name__} has no multi-res predict path")
+        prepped = [self._pixel_item(it.get("images", []), it["prompt"], it.get("height"),
+                                    it.get("width")) for it in items]
+        pcfg = self.config.predict
+        emb = self.adapter.prepare_multires_embeddings(self.bundle, prepped,
+                                                       pcfg.max_sequence_length)
+        grids = emb.pop("sample_grids")
+        emb.pop("attention_mask", None)
+        lat_template = emb.pop("image_latents")
+        steps = num_inference_steps or pcfg.num_inference_steps
+        plan = self.scheduler.sampling_plan(steps, image_seq_len=lat_template.shape[1])
+        params = merge_lora(self.bundle.dit_params, self.lora)
+        sampler = make_sampler(self.adapter.predict_velocity, SamplingConfig(
+            num_inference_steps=steps, true_cfg_scale=pcfg.true_cfg_scale))
+        batch = self._device_batch(emb)
+        if "guidance" not in batch:
+            batch["guidance"] = torch.full((len(items),), pcfg.guidance, dtype=self.dtype,
+                                           device=self.device)
+        latents = sampler(params, batch, self._initial_latents(tuple(lat_template.shape), seed),
+                          plan.sigmas)
+        vs2 = self.adapter.vae_scale * 2
+        return [self.adapter.decode_latents(self.bundle, latents[i:i + 1, :gh * gw],
+                                            gh * vs2, gw * vs2)[0]
+                for i, (gh, gw) in enumerate(grids)]
 
     # ------------------------------------------------------------------
     # validation
@@ -792,8 +842,13 @@ class Trainer:
         """Encode the validation samples once (the JAX Trainer's
         `setup_validation`, one process): each sample's controls resampled
         by data.processor, its size that of the sample, else of its first
-        control, else processor.target_size, else 512²."""
+        control, else processor.target_size, else 512².  Text encoders
+        that were not built before (a fit from the embedding cache) are
+        built for these samples alone and freed after them, so the steps
+        that follow never hold them; the bundle's factory rebuilds them
+        where a later call needs them."""
         self._require_encoders("validation sampling")
+        built_here = not self.bundle.text_params and self.bundle.text_factory is not None
         samples = self._load_validation_samples()
         self._validation_prompts = [s["prompt"] for s in samples]
         self._validation_embeddings = []
@@ -806,6 +861,11 @@ class Trainer:
             emb, h, w = self._pixel_embeddings(s["images"], s["prompt"], h, w)
             self._validation_embeddings.append({"index": i, "prompt": s["prompt"], "emb": emb,
                                                 "height": h, "width": w})
+        if built_here:
+            self.bundle.text_params = {}
+            gc.collect()
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
 
     def run_validation(self) -> list:
         """Sample every validation embedding with validation's own steps,

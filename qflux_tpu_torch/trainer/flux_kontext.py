@@ -1,6 +1,6 @@
-"""FLUX.1-Kontext model adapter: weights, encoding (the cache pass and
-training from pixels), cached-embedding prep, velocity prediction and
-decoding for the port's Trainer.
+"""FLUX.1-Kontext model adapter: weights, encoding (the cache pass,
+training from pixels, mixed-size predict), cached-embedding prep, velocity
+prediction and decoding for the port's Trainer.
 
 Counterpart of qflux_tpu/trainer/flux_kontext.py.  The batch is the
 embedding-cache format of the JAX package:
@@ -48,7 +48,8 @@ from qflux_tpu_torch.utils.lora_io import flux_module_name, flux_tree_path
 from qflux_tpu_torch.utils.safetensors import SafeTensors
 
 
-ITEM_5C = "ROADMAP.md, queue 1 item 5c: \"First-party CLIP BPE and T5 Unigram tokenizers\""
+ITEM_5C = ("ROADMAP.md, queue 1 item 5c: \"First-party CLIP BPE, T5 Unigram and Qwen2 BPE "
+           "tokenizers\"")
 
 
 @dataclasses.dataclass
@@ -392,6 +393,54 @@ class FluxKontextAdapter:
             "txt_ids": h["prompt_hash"],
         }
         return arrays, hash_keys
+
+    def prepare_multires_embeddings(self, bundle: ModelBundle, items: list[dict],
+                                    max_sequence_length: int = 512) -> dict:
+        """Items of different sizes ({"image": target-size reference,
+        "control"/"control_*", "prompt"}) → one padded embeddings dict for
+        one sampler call, as JAX's: each item prepared alone, its target and
+        control latents and ids right-padded to the longest (per-sample
+        img_ids [B, S, 3]), segment ids [txt | target | control] (padding 0),
+        the target tokens' `attention_mask`, and `sample_grids` [(gh, gw)]
+        for decoding."""
+        singles = []
+        for item in items:
+            batch = {k: (np.asarray(v)[None] if isinstance(v, np.ndarray) else [v])
+                     for k, v in item.items()}
+            e = self.prepare_embeddings(bundle, batch, max_sequence_length)
+            singles.append({k: (v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v))
+                            for k, v in e.items()})
+        s_txt = max(e["prompt_embeds"].shape[1] for e in singles)
+        s_tgt = max(e["image_latents"].shape[1] for e in singles)
+        s_ctl = max(e["control_latents"].shape[1] for e in singles)
+
+        def pad2(x, n):
+            return np.pad(x, ((0, n - x.shape[0]),) + ((0, 0),) * (x.ndim - 1))
+
+        out = {"image_latents": np.stack([pad2(e["image_latents"][0], s_tgt) for e in singles]),
+               "control_latents": np.stack([pad2(e["control_latents"][0], s_ctl)
+                                            for e in singles]),
+               "prompt_embeds": np.stack([pad2(e["prompt_embeds"][0], s_txt) for e in singles]),
+               "pooled_prompt_embeds": np.stack([e["pooled_prompt_embeds"][0]
+                                                 for e in singles]),
+               "txt_ids": singles[0]["txt_ids"]}
+        ids, segs, n_tgts = [], [], []
+        for e in singles:
+            n_tgt, n_ctl = e["image_latents"].shape[1], e["control_latents"].shape[1]
+            ids.append(np.concatenate([pad2(e["img_ids"][:n_tgt], s_tgt),
+                                       pad2(e["img_ids"][n_tgt:], s_ctl)]))
+            segs.append(np.concatenate([np.ones(s_txt, np.int32),
+                                        (np.arange(s_tgt) < n_tgt).astype(np.int32),
+                                        (np.arange(s_ctl) < n_ctl).astype(np.int32)]))
+            n_tgts.append(n_tgt)
+        out["img_ids"] = np.stack(ids)
+        out["segment_ids"] = np.stack(segs)
+        out["attention_mask"] = (np.arange(s_tgt)[None] < np.asarray(n_tgts)[:, None]
+                                 ).astype(np.float32)
+        out["sample_grids"] = [(int(e["img_ids"][:n, 1].max()) + 1,
+                                int(e["img_ids"][:n, 2].max()) + 1)
+                               for e, n in zip(singles, n_tgts)]
+        return out
 
     def negative_embeddings(self, bundle: ModelBundle, negative_prompt: str,
                             batch: dict, max_sequence_length: int = 512) -> dict:

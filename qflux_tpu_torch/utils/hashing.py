@@ -5,15 +5,19 @@ Counterpart of qflux_tpu/utils/hashing.py (`md5_file`, `md5_string`,
 qflux_tpu/runtime/native.py, which the cache keys files of 64 MiB and more
 by.  The JAX package computes XXH64 in a g++ library when one builds and
 in Python otherwise; both give the same digest, and so does `xxh64_file`
-here (pure Python, streamed in 8 MiB chunks).  The perceptual hash
-(`phash_image`, PIL's LANCZOS) is not ported: nothing on the cache pass
-calls it (ROADMAP.md, queue 1 item 5b).
+here (pure Python, streamed in 8 MiB chunks).  `phash_image` is JAX's
+perceptual hash on the port's copy of PIL's resampler
+(`utils/resample.py`): luma, Lanczos to 32², the float64 DCT.
 """
 
 from __future__ import annotations
 
 import hashlib
 from pathlib import Path
+
+import numpy as np
+
+from qflux_tpu_torch.utils.resample import resize, to_luma
 
 _M = (1 << 64) - 1
 _P1, _P2, _P3, _P4, _P5 = (11400714785074694791, 14029467366897019727,
@@ -38,6 +42,28 @@ def sha256_file(path: str | Path, chunk_size: int = 1 << 20) -> str:
         while chunk := f.read(chunk_size):
             h.update(chunk)
     return h.hexdigest()
+
+
+def phash_image(image, hash_size: int = 8, highfreq_factor: int = 4) -> str:
+    """Perceptual hash of a uint8 HxW(xC) image, as JAX's: PIL's "L"
+    (ITU-R 601-2 luma), PIL's Lanczos to (hash_size · highfreq_factor)²,
+    a float64 DCT-II over both axes, the top-left hash_size² block
+    thresholded at its median, as hex."""
+    size = hash_size * highfreq_factor
+    img = resize(to_luma(np.asarray(image).astype(np.uint8)), (size, size),
+                 "lanczos").astype(np.float64)
+
+    def dct_1d(x):
+        n = x.shape[-1]
+        k = np.arange(n)
+        basis = np.cos(np.pi * (2 * k[None, :] + 1) * k[:, None] / (2 * n))
+        return x @ basis.T
+
+    d = dct_1d(dct_1d(img).T).T
+    low = d[:hash_size, :hash_size]
+    bits = (low > np.median(low)).flatten()
+    return "".join("%x" % int("".join("1" if b else "0" for b in bits[i:i + 4]), 2)
+                   for i in range(0, len(bits), 4))
 
 
 def combine_hashes(*hashes: str) -> str:

@@ -10,8 +10,9 @@ Bounds: the embeddings of one pixel batch within relative L2 2e-5 of JAX's
 caches hold the same files under the same content-hash names with the same
 metadata, their fp16 arrays within relative L2 1e-3 (one fp16 rounding of
 values 2e-5 apart can land one fp16 ulp, 2^-11 relative, apart) and their
-ids equal.  A Qwen-Image-Edit config still refuses these paths, naming
-ROADMAP.md queue 1 item 5b.
+ids equal.  The same paths for Qwen-Image-Edit, held to JAX's
+(`test_qwen_still_refuses_naming_5b`, which kept its name from when they
+refused; the Qwen tests proper are tests/test_torch_qwen_cache_pass.py).
 """
 
 from __future__ import annotations
@@ -48,7 +49,6 @@ from tests.test_torch_ops import rel_err as _rel_err
 
 REL_TOL = 2e-5
 CACHE_TOL = 1e-3
-ITEM_5B = "queue 1 item 5b"
 MSL = 24  # predict.max_sequence_length: the tiny T5's sequence
 
 
@@ -360,26 +360,53 @@ def test_tokenizer_fallback_matches_jax(caplog):
 
 @pytest.mark.parametrize("case", ["--cache", "--fit-no-cache", "--predict", "validation",
                                   "pixel_batch", "predict_multires"])
-def test_qwen_still_refuses_naming_5b(tmp_path, case):
-    """Qwen-Image-Edit's encoders are not ported: each path that needs them
-    raises NotImplementedError naming item 5b (the CLI's and validation's
-    before any run dir is made)."""
-    data = _write_folder(tmp_path)
-    over = {}
+def test_qwen_still_refuses_naming_5b(tmp_path, case, monkeypatch):
+    """The name dates from when these Qwen-Image-Edit paths refused (naming
+    item 5b); they now run.  Qwen-Image-Edit's encoders are ported: each
+    path that refused for it now runs and is held to JAX's on the same weights
+    (tests/test_torch_qwen_cache_pass.py's helpers): the CLI's --cache
+    (the cache file for file), --fit-no-cache (the pixel batch's
+    embeddings) and --predict (the image from the same noise); validation
+    inside fit (its embeddings and images); a batch of pixels handed to
+    fit (finite steps, its embeddings); predict_multires (each image
+    from the same noise)."""
+    from tests import test_torch_qwen_cache_pass as q
+
+    w = q.make_qwen_weights()
+    if case.startswith("--"):
+        q.run_qwen_cli_mode(tmp_path, monkeypatch, case, w)
+        return
+    data = q.write_qwen_folder(tmp_path, 1)
+    ctl = data / "control_images" / "sample_000.png"
     if case == "validation":
-        over["validation"] = {"enabled": True, "samples": [{"prompt": "x", "images": []}]}
-    path = _config(tmp_path, data, trainer="QwenImageEditTrainer", **over)
-    with pytest.raises(NotImplementedError, match=ITEM_5B):
-        if case.startswith("--"):
-            extra = ["--control", "x.png", "--prompt", "p"] if case == "--predict" else []
-            cli.main(["--config", str(path), "--device", "cpu", case, *extra])
-        elif case == "validation":
-            cli.main(["--config", str(path), "--device", "cpu"])
-        else:
-            tr = Trainer(load_config_from_yaml(path), device="cpu")
-            if case == "pixel_batch":
-                tr.fit([{"image": np.zeros((1, 16, 16, 3), np.uint8), "prompt": ["p"]}])
-            else:
-                tr.predict_multires([{"prompt": "p", "images": []}])
-    if case != "pixel_batch":
-        assert not (tmp_path / "out").exists()
+        over = {"validation": {"enabled": True, "steps": 2, "num_inference_steps": 2,
+                               "samples": [{"prompt": "add a hat", "images": [str(ctl)]}]}}
+        path = q.qwen_config(tmp_path, data, **over)
+        q.patch_qwen_load(monkeypatch, w[2])
+        tr = cli.main(["--config", str(path), "--device", "cpu"])
+        assert tr.global_step == 2
+        assert b"validation/sample_0" in next((tr.output_dir / "logs").iterdir()).read_bytes()
+        q.hold_validation_to_jax(tr, path, w, monkeypatch)
+        return
+    path = q.qwen_config(tmp_path, data)
+    tr = q.qwen_port_trainer(path, w[2])
+    jtr = q.qwen_jax_trainer(path, w)
+    rng = np.random.default_rng(18)
+    if case == "pixel_batch":
+        batch = {"image": rng.integers(0, 256, (1, 32, 32, 3), dtype=np.uint8),
+                 "control": rng.integers(0, 256, (1, 32, 32, 3), dtype=np.uint8),
+                 "prompt": ["edit it"]}
+        tr.fit([batch])  # one batch an epoch, max_train_steps 2
+        assert tr.global_step == 2 and np.isfinite([h["loss"] for h in tr.history]).all()
+        q.assert_embeddings_match(tr._embeddings_for_batch(batch),
+                                  jtr._embeddings_for_batch(batch))
+        return
+    q.same_noise(monkeypatch)
+    items = [{"prompt": "p", "images": [png.read_png(ctl)]},
+             {"prompt": "a longer prompt here", "images": [png.read_png(ctl)[:20]],
+              "height": 16, "width": 32}]
+    got = tr.predict_multires(items, num_inference_steps=2)
+    want = jtr.predict_multires(items, num_inference_steps=2)
+    assert [g.shape for g in got] == [(32, 32, 3), (16, 32, 3)]
+    for g, wnt in zip(got, want):
+        q.assert_images_close(g, wnt)

@@ -1495,3 +1495,44 @@ def test_card_quantization_equals_cpu(form):
             assert (a is None) == (b is None), name
             if a is not None:
                 assert torch.equal(a.view(torch.uint8), b.cpu().view(torch.uint8)), name
+
+
+def test_qwen_encoders_on_card_match_cpu(monkeypatch):
+    """Qwen-Image-Edit's encoders at tiny width (the VL vision tower over
+    two images, the LM over a padded batch of two, the 3D VAE encoder at
+    40×56) on the card with TF32 off, against the same modules on the
+    CPU: within chip_smoke.py's ENCODER_REL_TOL (the same f32 arithmetic
+    summed in other orders)."""
+    import copy
+
+    import chip_smoke
+    from qflux_tpu_torch.models.qwen import vae as tqvae
+    from qflux_tpu_torch.models.qwen import vl_encoder as tvl
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    vcfg, tcfg = tvl.VLVisionConfig.tiny(), tvl.VLTextConfig.tiny()
+    cpu = {"vision": tvl.vision_init(torch.Generator().manual_seed(2), vcfg),
+           "text": tvl.text_init(torch.Generator().manual_seed(3), tcfg),
+           "vae": tqvae.init(torch.Generator().manual_seed(1), tqvae.QwenVAEConfig.tiny())}
+    card = {k: copy.deepcopy(m).cuda() for k, m in cpu.items()}
+    rng = np.random.default_rng(0)
+    pre = [tvl.preprocess_image(rng.integers(0, 256, hw + (3,), dtype=np.uint8), vcfg)
+           for hw in ((61, 93), (56, 140))]
+    patches, grids = np.concatenate([p for p, _ in pre]), [g for _, g in pre]
+    ids = rng.integers(1, 480, (2, 24))
+    mask = np.ones((2, 24), np.int64)
+    mask[1, 17:] = 0
+    pos = tvl.get_rope_index(ids, [], 2, tvl.VLSpecialTokens(500, 502, 503), mask)
+    x = torch.from_numpy(rng.uniform(-1, 1, (2, 40, 56, 3)).astype(np.float32))
+    with torch.no_grad():
+        outs = {dev: (tvl.vision_forward(m["vision"], vcfg, patches, grids),
+                      tvl.text_forward(m["text"], tcfg, m["text"].embed_tokens[
+                          torch.from_numpy(ids).to(dev)], pos, attention_mask=mask),
+                      tqvae.encode(m["vae"], tqvae.QwenVAEConfig.tiny(), x.to(dev)))
+                for dev, m in (("cpu", cpu), ("cuda", card))}
+    for name, got, want in zip(("vision", "lm", "vae"), outs["cuda"], outs["cpu"]):
+        assert got.is_cuda, name
+        got, want = got.cpu().double(), want.double()
+        err = float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+        assert err < chip_smoke.ENCODER_REL_TOL, (name, err)

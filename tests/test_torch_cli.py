@@ -460,8 +460,8 @@ def test_cli_fits_a_cached_folder(tmp_path, monkeypatch):
 
 
 def _qwen_cli_config(tmp_path, **over):
-    """A tiny Qwen-Image-Edit config over `_cli_config`'s folder (the
-    encoders of this family are not ported)."""
+    """A tiny Qwen-Image-Edit config over `_cli_config`'s folder (cached FLUX
+    embeddings: what reads them first refuses)."""
     raw = json.loads(_cli_config(tmp_path, **over).read_text())
     raw["trainer"] = "QwenImageEditTrainer"
     path = tmp_path / "qwen.json"
@@ -472,21 +472,21 @@ def _qwen_cli_config(tmp_path, **over):
 @pytest.mark.parametrize("flag,match", [("--cache", ITEM_5), ("--fit-no-cache", ITEM_5),
                                         ("--predict", ITEM_5), ("--distributed", "item 8"),
                                         ("--plan", "Do not port")])
-def test_cli_refuses_unported_modes(tmp_path, flag, match):
-    """--distributed and --plan are not ported.  --cache, --fit-no-cache and
-    --predict run for FLUX.1-Kontext (tests/test_torch_cache_pass.py) and
-    still refuse for Qwen-Image-Edit, naming item 5b, before any dataset or
-    model is read."""
+def test_cli_refuses_unported_modes(tmp_path, flag, match, monkeypatch):
+    """The name dates from when --cache, --fit-no-cache and --predict
+    refused a Qwen config; they now run.  --distributed and --plan are not
+    ported.  --cache, --fit-no-cache and
+    --predict run for FLUX.1-Kontext (tests/test_torch_cache_pass.py) and,
+    since item 5b's Qwen half, for Qwen-Image-Edit: each held to JAX's on
+    the same weights (`run_qwen_cli_mode`: the cache file for file, the
+    pixel batch's embeddings, the edited image from the same noise)."""
     if flag in ("--distributed", "--plan"):
         with pytest.raises(NotImplementedError, match=match):
             cli.main(["--config", str(tmp_path / "never-read.json"), flag])
         return
-    path = _qwen_cli_config(tmp_path)
-    extra = ["--control", str(tmp_path / "never-read.png"), "--prompt", "p"]
-    with pytest.raises(NotImplementedError, match=match):
-        cli.main(["--config", str(path), "--device", "cpu", flag,
-                  *(extra if flag == "--predict" else [])])
-    assert not (tmp_path / "flux_multires").exists()
+    from tests import test_torch_qwen_cache_pass as q
+
+    q.run_qwen_cli_mode(tmp_path, monkeypatch, flag, q.make_qwen_weights())
 
 
 @pytest.mark.parametrize("flags", [["--steps", "30"], ["--image", "x.png"],
@@ -509,32 +509,43 @@ def test_cli_rejects_flags_it_does_not_act_on(tmp_path, flags, capsys):
 @pytest.mark.parametrize("case", ["validation_samples", "validation_dataset", "hf_dataset",
                                   "pixel_batch"])
 def test_fit_refuses_what_needs_the_encoders(tmp_path, case, monkeypatch):
-    """With FLUX.1-Kontext's encoders ported: validation sampling (from
+    """The name dates from when these paths refused for Qwen-Image-Edit;
+    they now run.  With both families' encoders ported: validation sampling (from
     validation.samples and from validation.dataset) runs inside fit and
-    logs its images, and a batch of pixels trains; with Qwen-Image-Edit's
-    not ported, each raises NotImplementedError naming item 5b, before any
-    run dir.  An HF Hub dataset still raises (item 5b) for either."""
+    logs its images, and a batch of pixels trains, for FLUX.1-Kontext and
+    for Qwen-Image-Edit (its validation embeddings and images, and the
+    pixel batch's embeddings, held to JAX's on the same weights).  An HF
+    Hub dataset still raises (item 5b) for either."""
+    from tests import test_torch_qwen_cache_pass as q
+
     data = tmp_path / "data"
-    over = {}
+    qdata = q.write_qwen_folder(tmp_path / "qp", 1)
+    ctl = str(qdata / "control_images" / "sample_000.png")
+    over, qover = {}, {}
     if case == "validation_samples":
         over["validation"] = {"enabled": True, "steps": 1, "num_inference_steps": 2,
                               "samples": [{"prompt": "x", "images": [], "height": 16,
                                            "width": 16}]}
+        qover["validation"] = dict(over["validation"], samples=[
+            {"prompt": "x", "images": [ctl]}])
     elif case == "validation_dataset":
+        dataset = {"class_path": "qflux_tpu.data.dataset.ImageDataset",
+                   "init_args": {"dataset_path": str(data)}}
         over["validation"] = {"enabled": True, "steps": 1, "num_inference_steps": 2,
-                              "max_samples": 1, "dataset": {
-                                  "class_path": "qflux_tpu.data.dataset.ImageDataset",
-                                  "init_args": {"dataset_path": str(data)}}}
+                              "max_samples": 1, "dataset": dataset}
         over["data"] = {"processor": {"target_size": [16, 16]}}
+        qover["validation"] = dict(over["validation"], dataset={
+            **dataset, "init_args": {"dataset_path": str(qdata)}})
     elif case == "hf_dataset":
         over["data"] = {"init_args": {"dataset_path": "someone/edit-pairs"}}
     path = _cli_config(tmp_path, steps=1, **over)
-    qwen = _qwen_cli_config(tmp_path / "q", **over)
+    w = q.make_qwen_weights()
     if case == "hf_dataset":
-        for p in (path, qwen):
+        for p in (path, _qwen_cli_config(tmp_path / "q", **over)):
             with pytest.raises(NotImplementedError, match=ITEM_5):
                 cli.main(["--config", str(p), "--device", "cpu"])
         return
+    qpath = q.qwen_config(tmp_path / "qp", qdata, train={"max_train_steps": 1}, **qover)
     if case == "pixel_batch":
         tr = Trainer(load_config_from_yaml(path), device="cpu")
         rng = np.random.default_rng(0)
@@ -543,8 +554,11 @@ def test_fit_refuses_what_needs_the_encoders(tmp_path, case, monkeypatch):
                  "prompt": ["edit"]}
         tr.fit([batch])
         assert tr.global_step == 1 and np.isfinite(tr.history[0]["loss"])
-        with pytest.raises(NotImplementedError, match=ITEM_5):
-            Trainer(load_config_from_yaml(qwen), device="cpu").fit([batch])
+        qtr = q.qwen_port_trainer(qpath, w[2])
+        qtr.fit([batch])
+        assert qtr.global_step == 1 and np.isfinite(qtr.history[0]["loss"])
+        q.assert_embeddings_match(qtr._embeddings_for_batch(batch),
+                                  q.qwen_jax_trainer(qpath, w)._embeddings_for_batch(batch))
         return
     EventAccumulator = _event_accumulator(monkeypatch)
     tr = cli.main(["--config", str(path), "--device", "cpu"])
@@ -552,12 +566,16 @@ def test_fit_refuses_what_needs_the_encoders(tmp_path, case, monkeypatch):
     ea = EventAccumulator(str(tr.output_dir / "logs"), size_guidance={"images": 0})
     ea.Reload()
     assert [e.step for e in ea.Images("validation/sample_0")] == [1]
-    with pytest.raises(NotImplementedError, match=ITEM_5):
-        cli.main(["--config", str(qwen), "--device", "cpu"])
-    assert not (tmp_path / "q" / "flux_multires").exists()
     # enabled without samples or a dataset does nothing, as in JAX
     ok = _cli_config(tmp_path / "ok", steps=1, validation={"enabled": True, "steps": 1})
     assert cli.main(["--config", str(ok), "--device", "cpu"]).global_step == 1
+    q.patch_qwen_load(monkeypatch, w[2])
+    qtr = cli.main(["--config", str(qpath), "--device", "cpu"])
+    assert qtr.global_step == 1
+    ea = EventAccumulator(str(qtr.output_dir / "logs"), size_guidance={"images": 0})
+    ea.Reload()
+    assert [e.step for e in ea.Images("validation/sample_0")] == [1]
+    q.hold_validation_to_jax(qtr, qpath, w, monkeypatch)
 
 
 def test_dataloader_feeds_fit_as_the_cli_does(tmp_path):
