@@ -327,6 +327,9 @@ GRAD_REL_TOL = 1e-1
 # The same 1e-1 bound, for the same reason: a lost gradient term gives ~1.
 QWEN_GRAD_REL_TOL = 1e-1
 STEPS = 20
+# path B's two requests: 8 denoising steps each (a step's launches and time do
+# not depend on the count; fewer steps leave the smoke's time to phase H)
+B_STEPS = 8
 HEIGHT = WIDTH = 512
 TRAIN_STEPS = 4  # Trainer.fit steps at each batch size (FLUX, path C)
 # paths B and A, cut to stay within the smoke's time budget as path C was
@@ -1599,7 +1602,7 @@ def phase_qwen_predict(card: str):
         c0 = _launch_counts()
         t0 = time.perf_counter()
         images = trainer.predict_from_embeddings(emb, QWEN_HEIGHT, QWEN_WIDTH, lora=lora,
-                                                 seed=seed)
+                                                 seed=seed, num_inference_steps=B_STEPS)
         secs = time.perf_counter() - t0
         stats = trainer.last_predict
         launched = tuple(b_ - a for a, b_ in zip(c0, _launch_counts()))
@@ -1613,7 +1616,7 @@ def phase_qwen_predict(card: str):
             raise AssertionError(f"Qwen request {i}: images {images.dtype} {images.shape}")
         if not stats["latents_finite"]:
             raise AssertionError(f"Qwen request {i}: non-finite latents")
-        want = _rq((0, 0, STEPS * per_forward, 0, 0, 0, 0, 0, STEPS * n_blocks, 0))
+        want = _rq((0, 0, B_STEPS * per_forward, 0, 0, 0, 0, 0, B_STEPS * n_blocks, 0))
         if launched != want:
             raise AssertionError(f"Qwen request {i}: {COUNT_NAMES} launched {launched} times, "
                                  f"expected {want}")
@@ -2463,6 +2466,27 @@ def phase_int4_bwd_kernel(card: str) -> dict:
     return _int4_phase(card, backward=True)
 
 
+class _CutDepth:
+    """Inside the `with` block the config class `name` of `module` defaults
+    to other block counts, so a Trainer (or the CLI) draws a DiT of the
+    published width cut in depth: the blocks are those of the full draw
+    (the same seed, the blocks drawn in order after the rest)."""
+
+    def __init__(self, module, name: str, **depth):
+        self.module, self.name, self.depth = module, name, depth
+
+    def __enter__(self):
+        full = self.orig = getattr(self.module, self.name)
+        fields = [(k, int, dataclasses.field(default=v)) for k, v in self.depth.items()]
+        setattr(self.module, self.name, dataclasses.make_dataclass(
+            f"Cut{self.name}", fields, bases=(full,), frozen=True))
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+        return False
+
+
 # paths A and C run the published DiT at full width cut in depth to this many
 # of its 60 blocks (the smoke's time budget, which phase G shares)
 CUT_BLOCKS = 20
@@ -2479,20 +2503,11 @@ def _qwen_cut(raw: dict, num_layers: int = CUT_BLOCKS):
     from qflux_tpu_torch.models.qwen import transformer as qwen_dit
     from qflux_tpu_torch.trainer.base import Trainer
 
-    full, depth = qwen_dit.QwenImageConfig, num_layers
-
-    @dataclasses.dataclass(frozen=True)
-    class Cut(full):
-        num_layers: int = depth
-
     trainer = Trainer(config_from_dict(raw), device="cuda")
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    qwen_dit.QwenImageConfig = Cut
-    try:
+    with _CutDepth(qwen_dit, "QwenImageConfig", num_layers=num_layers):
         trainer.load_model()
-    finally:
-        qwen_dit.QwenImageConfig = full
     if len(trainer.bundle.dit_params.blocks) != num_layers:
         raise AssertionError(f"the cut DiT has {len(trainer.bundle.dit_params.blocks)} blocks")
     torch.cuda.synchronize()
@@ -4881,7 +4896,10 @@ G_PROMPTS = F_PROMPTS[:G_PAIRS]
 # Set from the VL's own readings on an H100 (the same in every call, the
 # weights and images seeded): the vision tower's features 1.314e-6 against
 # 32 · 2e-7 = 6.4e-6, the prompt embeds 5.414e-6 against 6.4e-6 + 28 · 5e-7
-# = 2.04e-5, each about 4-5x its reading
+# = 2.04e-5, each about 4-5x its reading.  The check now runs a cut depth
+# (VL_CHECK_BLOCKS, LM_CHECK_LAYERS) and scales the same per-block and
+# per-layer bounds by it: 8 · 2e-7 = 1.6e-6 against a reading of 1.123e-6,
+# 1.6e-6 + 4 · 5e-7 = 3.6e-6 against 3.289e-6
 VL_BLOCK_REL_TOL = 2e-7
 LM_LAYER_REL_TOL = 5e-7
 QWEN_MSL = 512                    # predict.max_sequence_length, the config's default
@@ -4906,39 +4924,52 @@ def _g_config(csv_path: Path, out_dir: Path, **over) -> dict:
 
 
 class _StreamedLM:
-    """The card's Qwen2.5-VL LM seen from the CPU one decoder layer at a
-    time: embed_tokens and the final norm copied once, each layer copied
-    when `text_forward` reaches it and dropped after, so the host holds one
-    layer's f32 copy (1.09 GB) and not the LM's 30.5 GB."""
+    """A language model on the card (Qwen2.5-VL's or Qwen3) seen from the
+    CPU one layer at a time, its first `depth` layers: embed_tokens and the
+    final norm copied once, each layer rebuilt as `layer_cls(lm.cfg)` when
+    the forward reaches it and dropped after, so the host holds one layer's
+    f32 copy (1.09 GB for the VL's) and not the LM's (30.5 GB)."""
 
-    def __init__(self, lm):
-        from qflux_tpu_torch.models.qwen import vl_encoder as tvl
-
-        self.tvl, self.lm = tvl, lm
+    def __init__(self, lm, layer_cls, depth: int):
+        self.lm, self.layer_cls, self.depth = lm, layer_cls, depth
         self.embed_tokens = lm.embed_tokens.detach().cpu()
         self.norm = copy.deepcopy(lm.norm).cpu()
 
     @property
     def layers(self):
-        for lp in self.lm.layers:
-            layer = self.tvl.DecoderLayer(self.lm.cfg)
+        for lp in list(self.lm.layers)[:self.depth]:
+            layer = self.layer_cls(self.lm.cfg)
             layer.load_state_dict(lp.state_dict())
             yield layer
 
 
+# the depth at which the CPU checks the card's Qwen2.5-VL: the first 8 of the
+# vision tower's 32 blocks (block 7 is the first full-attention one) and 4 of
+# the LM's 28 layers (the whole depth took the CPU 68.5-77.8 s a call, time
+# the smoke now gives phase H)
+VL_CHECK_BLOCKS, LM_CHECK_LAYERS = 8, 4
+
+
 def _qwen_encoders_against_cpu(card: str, trainer, csv_path: Path) -> None:
-    """The first sample of the Qwen cache pass, whole, on the CPU: its
-    prompt in the edit template with the control image's 630 tokens through
-    the vision tower (32 blocks) and all 28 LM layers (streamed one layer at
-    a time, `_StreamedLM`), its 832×576 target and control through the VAE
+    """The first sample of the Qwen cache pass on the CPU: its prompt in the
+    edit template with the control image's 630 tokens through the first
+    VL_CHECK_BLOCKS vision blocks (and the merger) and the first
+    LM_CHECK_LAYERS LM layers (streamed one layer at a time, `_StreamedLM`)
+    and the final norm, its 832×576 target and control through the VAE
     encoder, by the adapter's own `encode_prompt` / `encode_vae_image` on
-    CPU copies of the modules.  Against that: the card's f32 outputs of the
-    same calls (the vision tower's features within VL_BLOCK_REL_TOL a
-    block, the prompt embeds within that plus LM_LAYER_REL_TOL a layer, the
-    latents within ENCODER_REL_TOL) and the fp16 arrays `--cache` wrote
-    (within those plus FP16_REL).  Prints the CPU's seconds and peak host
+    CPU copies of the modules.  Against that: the card's f32 outputs of
+    the same calls through the same cut modules, within the per-block and
+    per-layer bounds times the depth checked (the vision features within
+    VL_BLOCK_REL_TOL a block, the prompt embeds within that plus
+    LM_LAYER_REL_TOL a layer, the latents within ENCODER_REL_TOL); the
+    fp16 latents `--cache` wrote against the CPU's (within ENCODER_REL_TOL
+    plus FP16_REL), and its full-depth prompt embeds of the sample for
+    their shape and finiteness only (nothing at that depth ran on the
+    CPU).  Prints the CPU's seconds and peak host
     memory, and on the card the host preprocessing, the vision tower, the
     LM at the sample's length and the VAE encoder, each timed."""
+    from types import SimpleNamespace
+
     from qflux_tpu_torch.data.cache import read_npz_data
     from qflux_tpu_torch.data.dataset import ImageDataset
     from qflux_tpu_torch.data.loader import DataLoader
@@ -4958,13 +4989,25 @@ def _qwen_encoders_against_cpu(card: str, trainer, csv_path: Path) -> None:
     hashes = batch["file_hashes"]
     hashes = hashes[0] if isinstance(hashes, list) else hashes
     msl = cfg.predict.max_sequence_length
-    vision_cpu = tvl.VisionTower(vcfg)
-    vision_cpu.load_state_dict(enc["vision"].state_dict())
-    cpu = ModelBundle(dit_cfg=bundle.dit_cfg, dit_params=None, vae_cfg=bundle.vae_cfg,
-                      vae_params=copy.deepcopy(bundle.vae_params).cpu(),
-                      text_cfgs=bundle.text_cfgs,
-                      text_params={"vision": vision_cpu, "text": _StreamedLM(enc["text"])},
-                      tokenizers=bundle.tokenizers)
+    vis, lm = enc["vision"], enc["text"]
+
+    def cut(device_copy):
+        return {"vision": SimpleNamespace(
+                    patch_embed=device_copy(vis.patch_embed), merger=device_copy(vis.merger),
+                    blocks=[device_copy(b) for b in list(vis.blocks)[:VL_CHECK_BLOCKS]]),
+                "text": SimpleNamespace(embed_tokens=lm.embed_tokens, norm=lm.norm,
+                                        layers=list(lm.layers)[:LM_CHECK_LAYERS])}
+
+    card_cut = cut(lambda m: m)
+    cpu_cut = cut(lambda m: copy.deepcopy(m).cpu())
+    cpu_cut["text"] = _StreamedLM(lm, tvl.DecoderLayer, LM_CHECK_LAYERS)
+    vae_cpu = copy.deepcopy(bundle.vae_params).cpu()
+
+    def on(text_params, vae):
+        return ModelBundle(dit_cfg=bundle.dit_cfg, dit_params=None, vae_cfg=bundle.vae_cfg,
+                           vae_params=vae, text_cfgs=bundle.text_cfgs,
+                           text_params=text_params, tokenizers=bundle.tokenizers)
+
     recorded = []
     real_vision = tvl.vision_forward
 
@@ -4987,60 +5030,70 @@ def _qwen_encoders_against_cpu(card: str, trainer, csv_path: Path) -> None:
     cpu_secs = {}
     try:
         with _PeakRSS() as rss:
-            want = outputs(cpu, cpu_secs)
-        got = outputs(bundle, {})
+            want = outputs(on(cpu_cut, vae_cpu), cpu_secs)
+        got = outputs(on(card_cut, bundle.vae_params), {})
     finally:
         tvl.vision_forward = real_vision
-    vis_tol = VL_BLOCK_REL_TOL * vcfg.depth
-    tol = {"vision": vis_tol, "prompt_embeds": vis_tol + LM_LAYER_REL_TOL * tcfg.num_layers,
+    # the per-block / per-layer bounds times the depth checked, as the
+    # whole depth was held to them times 32 / 28
+    vis_tol = VL_BLOCK_REL_TOL * VL_CHECK_BLOCKS
+    tol = {"vision": vis_tol, "prompt_embeds": vis_tol + LM_LAYER_REL_TOL * LM_CHECK_LAYERS,
            "image_latents": ENCODER_REL_TOL, "control_latents": ENCODER_REL_TOL}
     card_err = {k: _rel(got[k], want[k]) for k in want}
-    names = {"image_latents": hashes["image_hash"],
-             "control_latents": hashes["controls_sum_hash"],
-             "prompt_embeds": hashes.get("control_prompt_hash", hashes["prompt_hash"])}
     cache_root = Path(cfg.cache.cache_dir)
-    cache_err = {k: _rel(torch.from_numpy(np.array(read_npz_data(cache_root / k / f"{h}.npz"))),
-                         want[k]) for k, h in names.items()}
+
+    def cached(key, h):
+        return torch.from_numpy(np.array(read_npz_data(cache_root / key / f"{h}.npz")))
+
+    cache_tol = ENCODER_REL_TOL + FP16_REL
+    cache_err = {"image_latents": _rel(cached("image_latents", hashes["image_hash"]),
+                                       want["image_latents"]),
+                 "control_latents": _rel(cached("control_latents", hashes["controls_sum_hash"]),
+                                         want["control_latents"])}
+    pe = cached("prompt_embeds", hashes.get("control_prompt_hash", hashes["prompt_hash"]))
+    pe_ok = pe.shape == got["prompt_embeds"].shape and bool(torch.isfinite(pe).all())
     # the LM alone at the sample's length (its ids drawn; the cost is the same)
     n_tok = len(adapter._tokenize_with_images(bundle, adapter.format_prompt(prompt, 1),
                                               [int(recorded[0].shape[0])]))
     ids = np.random.default_rng(90).integers(0, tcfg.vocab_size, (1, n_tok))
     pos = tvl.get_rope_index(ids, [], vcfg.spatial_merge_size, bundle.text_cfgs["tokens"])
-    embeds = enc["text"].embed_tokens[torch.from_numpy(ids).cuda()]
+    embeds = lm.embed_tokens[torch.from_numpy(ids).cuda()]
     patches, grid = tvl.preprocess_image(control, vcfg)
-    full = torch.from_numpy(np.asarray(batch["image"])).cuda().float() / 127.5 - 1
+    image = torch.from_numpy(np.asarray(batch["image"])).cuda().float() / 127.5 - 1
     with torch.no_grad():
         t0 = time.perf_counter()
         for _ in range(3):
             tvl.preprocess_image(control, vcfg)
         host_ms = 1000 * (time.perf_counter() - t0) / 3
         ms = {"vision tower (32 blocks, 2520 patches)": _median_ms(
-                  lambda: tvl.vision_forward(enc["vision"], vcfg, patches, [grid]), n=3),
+                  lambda: tvl.vision_forward(vis, vcfg, patches, [grid]), n=3),
               f"LM (28 layers, {n_tok} tokens)": _median_ms(
-                  lambda: tvl.text_forward(enc["text"], tcfg, embeds, pos), n=3),
+                  lambda: tvl.text_forward(lm, tcfg, embeds, pos), n=3),
               "VAE encoder (832×576)": _median_ms(
-                  lambda: qwen_vae.encode(bundle.vae_params, bundle.vae_cfg, full), n=3)}
-    lm_params = sum(p.numel() for p in enc["text"].layers.parameters())
+                  lambda: qwen_vae.encode(bundle.vae_params, bundle.vae_cfg, image), n=3)}
+    lm_params = sum(p.numel() for p in lm.layers.parameters())
     lm_ms = ms[f"LM (28 layers, {n_tok} tokens)"]
-    print(f"[qwen_cache] sample 0 on the CPU, whole (the vision tower at grid {grid}, all "
-          f"{tcfg.num_layers} LM layers at {n_tok} tokens streamed one at a time, the VAE "
-          f"encoder on the 832×576 target and control) in "
-          f"{cpu_secs['prompt'] + cpu_secs['vae']:.1f} s (the prompt {cpu_secs['prompt']:.1f} s, "
-          f"the two VAE encodes {cpu_secs['vae']:.1f} s), host RSS peak "
-          f"{rss.peak} bytes (from {rss.start}); rel L2 err of the card's f32 outputs: "
+    print(f"[qwen_cache] sample 0 on the CPU (the vision tower's first {VL_CHECK_BLOCKS} of "
+          f"{vcfg.depth} blocks at grid {grid}, the LM's first {LM_CHECK_LAYERS} of "
+          f"{tcfg.num_layers} layers at {n_tok} tokens streamed one at a time, the VAE encoder "
+          f"on the 832×576 target and control) in {cpu_secs['prompt'] + cpu_secs['vae']:.1f} s "
+          f"(the prompt {cpu_secs['prompt']:.1f} s, the two VAE encodes {cpu_secs['vae']:.1f} "
+          f"s), host RSS peak {rss.peak} bytes (from {rss.start}); rel L2 err of the card's "
+          f"f32 outputs at that depth: "
           + ", ".join(f"{k} {v:.3e} (tol {tol[k]:.2e})" for k, v in card_err.items())
-          + "; of the fp16 arrays --cache wrote: "
-          + ", ".join(f"{k} {v:.3e} (tol {tol[k] + FP16_REL:.2e})"
-                      for k, v in cache_err.items())
+          + "; of the fp16 latents --cache wrote against the CPU's: "
+          + ", ".join(f"{k} {v:.3e} (tol {cache_tol:.2e})" for k, v in cache_err.items())
+          + f"; its full-depth prompt embeds {list(pe.shape)}, finite: {pe_ok}"
           + f"; on the card, f32, TF32 off: host preprocessing (PIL's bicubic in numpy, "
           f"patches) {host_ms:.1f} ms, "
           + ", ".join(f"{k} {v:.2f} ms" for k, v in ms.items())
           + f" (LM {2 * lm_params * n_tok / lm_ms / 1e9:.1f} TFLOP/s) [{card}]", flush=True)
     if (any(card_err[k] > tol[k] for k in card_err)
-            or any(cache_err[k] > tol[k] + FP16_REL for k in cache_err)):
-        raise AssertionError(f"the card's Qwen encoders or the cache disagree with the CPU's: "
-                             f"{card_err}, {cache_err}")
-    del cpu, vision_cpu, want, got, embeds
+            or any(v > cache_tol for v in cache_err.values()) or not pe_ok):
+        raise AssertionError(f"the card's Qwen encoders or the cache disagree with the CPU: "
+                             f"{card_err}, {cache_err}, prompt embeds {list(pe.shape)} "
+                             f"finite/shape ok {pe_ok}")
+    del cpu_cut, card_cut, vae_cpu, want, got, pe, embeds
 
 
 class _VLBuilds:
@@ -5313,23 +5366,41 @@ def phase_flux_multires(card: str) -> tuple[int, ...]:
 
 class _PathShapes:
     """Inside the `with` block, records each distinct shape at which the
-    launchers of K3, K4, K5a, K5b and the row quantization are called: K3
-    and K4 by q's and k's shapes and whether ids are given, their segment
-    ids copied at the first launch; K5a and K5b by M, K, N, the weight's
-    group count and the output dtype; the row quantization by its input's
-    shape and dtype and whether s_vec multiplies it first.  Only shapes
-    and ids are kept, so what the path measures is unchanged.
-    `phase_path_shapes` holds each kernel to its plain version there."""
+    launchers of K1, K2, K3, K4, K5a, K5b and the row quantization are
+    called: K1 and K2 by q's shape, st, cos / sin's shape and whether
+    segment ids are given (their bf16 mode; the s_int8 mode's q_rows
+    too), their ids copied at the first launch; K3 and K4 by q's and k's
+    shapes and whether ids are given, their segment ids copied at the first
+    launch; K5a and K5b by M, K, N, the weight's group count and the output
+    dtype; the row quantization by its input's shape and dtype and whether
+    s_vec multiplies it first.  Only shapes and ids are kept, so what the
+    path measures is unchanged.  `phase_path_shapes` holds each kernel to
+    its plain version there."""
 
     def __enter__(self):
         from qflux_tpu_torch.ops import flash_attention as fa
+        from qflux_tpu_torch.ops import flash_nr as fnr
         from qflux_tpu_torch.ops import int4_matmul as ti4
 
-        self.k3, self.k4, self.k5a, self.k5b, self.rq = {}, {}, {}, {}, {}
-        self.saved = [(fa, "_flash_fwd_cuda"), (fa, "_flash_bwd_cuda"),
+        self.k1, self.k2, self.k3, self.k4, self.k5a, self.k5b, self.rq = ({} for _ in range(7))
+        self.saved = [(fnr, "_flash_nr_cuda"), (fnr, "_flash_nr_bwd_cuda"),
+                      (fa, "_flash_fwd_cuda"), (fa, "_flash_bwd_cuda"),
                       (ti4, "rq_int4_fwd_cuda"), (ti4, "rq_int4_bwd_cuda"),
                       (ti4, "rowquant_cuda")]
-        f3, f4, f5a, f5b, frq = self.orig = [getattr(m, n) for m, n in self.saved]
+        f1, f2, f3, f4, f5a, f5b, frq = self.orig = [getattr(m, n) for m, n in self.saved]
+
+        def nr_ids(table, q, cos, st, seg, q_rows):
+            key = (tuple(q.shape), int(st), tuple(cos.shape), seg is not None, int(q_rows))
+            if key not in table:
+                table[key] = None if seg is None else seg.clone()
+
+        def k1(q, k, v, qs, ks, cos, sin, st, seg, scale, q_rows=0):
+            nr_ids(self.k1, q, cos, st, seg, q_rows)
+            return f1(q, k, v, qs, ks, cos, sin, st, seg, scale, q_rows)
+
+        def k2(q, k, v, qs, ks, cos, sin, st, seg, scale, out, lse, do, q_rows=0):
+            nr_ids(self.k2, q, cos, st, seg, q_rows)
+            return f2(q, k, v, qs, ks, cos, sin, st, seg, scale, out, lse, do, q_rows)
 
         def ids(table, q, k, q_seg, kv_seg):
             key = (tuple(q.shape), tuple(k.shape), q_seg is not None)
@@ -5356,7 +5427,7 @@ class _PathShapes:
             self.rq[(x.shape[0], x.shape[1], x.dtype, s_vec is not None)] = True
             return frq(x, s_vec)
 
-        for (mod, name), fn in zip(self.saved, (k3, k4, k5a, k5b, rq)):
+        for (mod, name), fn in zip(self.saved, (k1, k2, k3, k4, k5a, k5b, rq)):
             setattr(mod, name, fn)
         return self
 
@@ -5364,6 +5435,55 @@ class _PathShapes:
         for (mod, name), fn in zip(self.saved, self.orig):
             setattr(mod, name, fn)
         return False
+
+
+def _nr_inputs(gen, q_shape, cos_shape):
+    """K1 / K2 inputs at a path's shapes: q, k, v ~ N(0, 1) bf16, norm
+    scales 1 + 0.1 · N, cos / sin of random angles [S, D] (or [B, S, D]:
+    per-sample ids), as `_attn_inputs`."""
+    q, k, v, qs2, ks2, _, _ = _attn_inputs(gen, q_shape[0], q_shape[1], q_shape[2],
+                                           q_shape[3])
+    ang = torch.rand(*cos_shape[:-1], cos_shape[-1] // 2, device="cuda", generator=gen) * 6.28
+    return (q, k, v, qs2, ks2, torch.cat([ang.cos()] * 2, -1).contiguous(),
+            torch.cat([ang.sin()] * 2, -1).contiguous())
+
+
+def _k1_k2_agree(gen, q_shape, st, cos_shape, seg) -> tuple[bool, str]:
+    """K1 (bf16 mode) at a path's shape, st and segment ids against
+    flash_attention_nr_reference (out within OUT_ATOL, lse within
+    LSE_ATOL, finite), then K2 from K1's out / lse with do ~ N(0, 1)
+    against flash_attention_nr_bwd_reference (each gradient within
+    BWD_REL_TOL relative L2 and BWD_MAX_TOL × max |reference|, finite).
+    Returns (ok, the errors as text)."""
+    from qflux_tpu_torch.ops import flash_nr
+
+    args = _nr_inputs(gen, q_shape, cos_shape)
+    scale = q_shape[-1] ** -0.5
+    out, lse = flash_nr._flash_nr_cuda(*args, st, seg, scale)
+    torch.cuda.synchronize()
+    ref, ref_lse = flash_nr.flash_attention_nr_reference(*args, st, segment_ids=seg)
+    err = (out.float() - ref.float()).abs().max().item()
+    valid = ref_lse > -1e29
+    lse_err = (lse - ref_lse).abs()[valid].max().item()
+    ok = err <= OUT_ATOL and lse_err <= LSE_ATOL and bool(torch.isfinite(out).all())
+    errs = [f"K1 max_abs_err(out) {err:.3e} (tol {OUT_ATOL}), max_abs_err(lse) {lse_err:.3e} "
+            f"(tol {LSE_ATOL})"]
+    del ref, ref_lse
+    do = torch.randn(q_shape, device="cuda", generator=gen).to(torch.bfloat16)
+    got = flash_nr._flash_nr_bwd_cuda(*args, st, seg, scale, out, lse, do)
+    torch.cuda.synchronize()
+    ref = flash_nr.flash_attention_nr_bwd_reference(*args, st, do, segment_ids=seg,
+                                                    scale=scale)
+    for gname, g, r in zip(("dq", "dk", "dv", "dqs", "dks"), got, ref):
+        diff = g.float() - r
+        rel = (diff.norm() / r.norm()).item()
+        mx = diff.abs().max().item()
+        ok = ok and rel <= BWD_REL_TOL and mx <= BWD_MAX_TOL * r.abs().max().item()
+        ok = ok and bool(torch.isfinite(g).all())
+        errs.append(f"K2 {gname} rel {rel:.3e} max {mx:.3e}")
+    del args, out, lse, do, got, ref
+    torch.cuda.empty_cache()
+    return ok, "; ".join(errs) + f" (tol rel {BWD_REL_TOL}, max {BWD_MAX_TOL} x max|ref|)"
 
 
 def _rq_agrees(gen, m, k_in, n, n_groups, dtype, backward) -> tuple[bool, float]:
@@ -5397,9 +5517,10 @@ def _ids_text(q_seg) -> str:
     return f"the path's segment ids ({int((q_seg == 0).sum())} padding rows)"
 
 
-def phase_path_shapes(card: str, rec: _PathShapes) -> dict:
-    """Every kernel phase G launched, held to its plain version at each
-    shape phase G gave it (`_PathShapes`), on seeded inputs: K3 with the
+def phase_path_shapes(card: str, rec: _PathShapes, label: str = "phase G") -> dict:
+    """Every kernel a phase launched, held to its plain version at each
+    shape the phase gave it (`_PathShapes`), on seeded inputs: K1 and K2
+    (bf16) with the path's st and segment ids (`_k1_k2_agree`), K3 with the
     path's own segment ids (`_k3_agrees`: out within OUT_ATOL, lse within
     LSE_ATOL, the rows every head masks at 0), K4 from that K3's out / lse
     with do ~ N(0, 1) (`_k4_agrees`), K5a and K5b through rq_fused_matmul
@@ -5416,6 +5537,16 @@ def phase_path_shapes(card: str, rec: _PathShapes) -> dict:
                 for sh in (q_shape, k_shape, k_shape)]
 
     bad = []
+    for key in sorted(set(rec.k1) | set(rec.k2), key=str):
+        q_shape, st, cos_shape, _, q_rows = key
+        if q_rows:  # no phase that records shapes runs quantize.attention
+            raise AssertionError(f"an s_int8 launch at {key} has no shape check here")
+        seg = rec.k1.get(key, rec.k2.get(key))
+        ok, errs = _k1_k2_agree(gen, q_shape, st, cos_shape, seg)
+        print(f"[path_shapes] K1 / K2 at q {list(q_shape)}, st {st}, cos {list(cos_shape)}, "
+              f"{_ids_text(seg)} (launched: K1 {key in rec.k1}, K2 {key in rec.k2}): {errs}: "
+              f"{ok} [{card}]", flush=True)
+        bad += [] if ok else [f"K1 / K2 {q_shape}"]
     for (q_shape, k_shape, _), (q_seg, kv_seg) in rec.k3.items():
         q, k, v = qkv(q_shape, k_shape)
         ok, err, lse_err, dead, _, _ = _k3_agrees(q, k, v, q_seg, kv_seg,
@@ -5462,10 +5593,523 @@ def phase_path_shapes(card: str, rec: _PathShapes) -> dict:
           + f" [{card}]", flush=True)
     bad += [f"row quantization {key}" for key, ok in rq_res.items() if not ok]
     if bad:
-        raise AssertionError(f"at the shapes phase G gave them, these disagree with their "
+        raise AssertionError(f"at the shapes {label} gave them, these disagree with their "
                              f"plain versions: {bad}")
-    return {"K3": len(rec.k3), "K4": len(rec.k4), "K5a": len(rec.k5a), "K5b": len(rec.k5b),
-            "row quant": len(rq_res)}
+    return {"K1": len(rec.k1), "K2": len(rec.k2), "K3": len(rec.k3), "K4": len(rec.k4),
+            "K5a": len(rec.k5a), "K5b": len(rec.k5b), "row quant": len(rq_res)}
+
+
+# ---------------------------------------------------------------------------
+# phase H: the remaining families (FLUX.2-Klein, Qwen-Image-Edit-Plus,
+# DreamOmni2) from raw images, through qflux_tpu_torch.main
+
+H_PROMPTS = F_PROMPTS[:2]
+H_KLEIN_FIT_STEPS = 3             # Klein fit steps at bs 2 from its cache
+H_KLEIN_PREDICT_STEPS = 8         # Klein --predict's denoising steps
+H_PLUS_FIT_STEPS = 2              # Qwen-Image-Edit-Plus fit steps at bs 1
+H_PLUS_PREDICT_STEPS = 4
+H_D2_FIT_STEPS = 2                # DreamOmni2 fit steps at bs 1
+H_D2_PREDICT_STEPS = 4
+H_D2_DEPTH = (4, 8)               # FLUX.1-Kontext cut to 4 dual + 8 single blocks
+H_NEW_TOKENS = 128                # the prompt enhancer's greedy tokens (JAX's default)
+H_Q3_LAYER = 9                    # the Qwen3 layer the CPU check reaches (Klein picks 9, 18, 27)
+# Qwen3-4B on the card against the same layers on the CPU, per layer of the
+# depth checked: each layer sums over 2,560 / 4,096 / 9,728 terms in other
+# orders on the two devices (T5-XXL's blocks moved by ~3e-6 each), and
+# the layers add their differences up; a wrong operation moves it by 1e-2
+Q3_LAYER_REL_TOL = 2e-6
+# the cached decode's hidden states against one uncached text_forward over
+# the whole generated sequence, both f32 on the card with TF32 off: the same
+# layers, whose attention multiplies matrices of other shapes (one query row
+# against the cache, or every row at once), so cuBLAS sums in other orders;
+# relative L2 over every compared row (the prefill's and each step's), far
+# below the O(1) error of a stale or misplaced cache slot
+KV_REL_TOL = 1e-4
+
+
+def _pairs_csv(tmp: Path, rows: list, size: int, seed: int) -> Path:
+    """PNGs of `size`² from a seeded stream and a CSV of them: each row
+    (prompt, number of controls) gets target_i.png and control_i_j.png."""
+    from qflux_tpu_torch.utils.png import encode_png
+
+    rng = np.random.default_rng(seed)
+    n_ctl = max(n for _, n in rows)
+    head = ["path_target"] + [f"path_control{'' if j == 0 else f'_{j}'}" for j in range(n_ctl)]
+    lines = [",".join(head + ["prompt"])]
+    for i, (prompt, n) in enumerate(rows):
+        names = [f"target_{i}.png"] + [f"control_{i}_{j}.png" for j in range(n)]
+        for name in names:
+            (tmp / name).write_bytes(encode_png(rng.integers(0, 256, (size, size, 3),
+                                                             dtype=np.uint8)))
+        lines.append(",".join(names + [""] * (n_ctl - n) + [prompt]))
+    path = tmp / "pairs.csv"
+    path.write_text("\n".join(lines) + "\n")
+    return path
+
+
+def _h_config(trainer: str, csv_path: Path, out_dir: Path, processor: dict, **over) -> dict:
+    """A family's config at full width (synthetic weights: no checkpoint)
+    over `csv_path`, bs 1, its cache in out_dir/cache, bf16 DiT."""
+    raw = {"trainer": trainer, "mesh": {"dp": 1, "fsdp": 1, "tp": 1},
+           "model": {"variant": "full", "lora": {"r": 16, "lora_alpha": 16}},
+           "data": {"init_args": {"csv_path": str(csv_path)}, "processor": processor,
+                    "batch_size": 1, "shuffle": False},
+           "cache": {"use_cache": True, "cache_dir": str(out_dir / "cache")},
+           "predict": {"max_sequence_length": 512},
+           "train": {"weight_dtype": "bfloat16", "checkpointing_steps": 1000},
+           "logging": {"output_dir": str(out_dir), "project": trainer}}
+    for section, values in over.items():
+        raw.setdefault(section, {}).update(values)
+    return raw
+
+
+def _shapes_match(shapes: dict, want: dict) -> bool:
+    """The cache's keys are `want`'s, each at its shape (-1: any size)."""
+    return sorted(shapes) == sorted(want) and all(
+        len(shapes[k]) == len(w) and all(b in (-1, a) for a, b in zip(shapes[k], w))
+        for k, w in want.items())
+
+
+def _h_cache(card: str, label: str, argv: list, want_shapes: dict, n: int):
+    """`--cache` through main(): n samples, every array finite, the keys at
+    `want_shapes` (`_shapes_match`), no kernel launched.  Returns (trainer,
+    seconds, peak)."""
+    from qflux_tpu_torch import main as cli
+    from qflux_tpu_torch.data.cache import read_npz_data
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    trainer = cli.main(argv + ["--cache"])
+    torch.cuda.synchronize()
+    wall, peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    cache = Path(trainer.config.cache.cache_dir)
+    metas = sorted((cache / "metadata").glob("*.json"))
+    shapes = {}
+    for meta in metas:
+        for k, h in json.loads(meta.read_text())["keys"].items():
+            arr = read_npz_data(cache / k / f"{h}.npz")
+            shapes.setdefault(k, tuple(arr.shape))
+            if arr.dtype.kind == "f" and not np.isfinite(arr).all():
+                raise AssertionError(f"{label} cache {k}: non-finite values")
+    st = trainer.last_cache
+    print(f"[{label}] --cache over {n} samples: {wall:.1f} s in main() (the models drawn), "
+          f"per sample encode " + ", ".join(f"{x:.3f}" for x in st["encode_s"]) + " s, write "
+          + ", ".join(f"{x:.3f}" for x in st["write_s"]) + f" s; peak mem {peak} bytes; keys "
+          f"{shapes}; {COUNT_NAMES} launches {_launch_counts()} [{card}]", flush=True)
+    if (st["samples"] != n or len(metas) != n or not _shapes_match(shapes, want_shapes)
+            or any(_launch_counts())):
+        raise AssertionError(f"{label} cache pass: {st}, {len(metas)} metadata, shapes {shapes} "
+                             f"(want {want_shapes}), launches {_launch_counts()}")
+    return trainer, wall, peak
+
+
+def _h_fit(card: str, label: str, argv: list, steps: int, per_step: tuple) -> tuple:
+    """A fit from the cache through main(): `steps` finite steps on the
+    card with exactly `per_step` launches each.  Returns (launches in the
+    steps, median ms a step, peak)."""
+    from qflux_tpu_torch import main as cli
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    with _StepCounts() as sc:
+        t0 = time.perf_counter()
+        trainer = cli.main(argv)
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    hist = trainer.history
+    ms = statistics.median(1000 * h["step_s"] for h in hist)
+    print(f"[{label}] fit from the cache: {wall:.1f} s in main(), {len(hist)} steps: "
+          + "; ".join(f"step {h['step']} (bs {r['img'][0]}, image {r['img'][1]} + control "
+                      f"{r['ctl'][1]} tokens) {1000 * h['step_s']:.1f} ms, loss {h['loss']:.5f}"
+                      for h, r in zip(hist, sc.steps))
+          + f"; median {ms:.1f} ms/step; peak mem {peak} bytes; {COUNT_NAMES} launches a step "
+          f"{[r['counts'] for r in sc.steps]} [{card}]", flush=True)
+    _check_fit_run(card, f"{label} fit", trainer, sc.steps, steps, lambda rec: per_step)
+    in_steps = tuple(map(sum, zip(*(r["counts"] for r in sc.steps))))
+    if _launch_counts() != in_steps:
+        raise AssertionError(f"{label} fit launched {_launch_counts()} outside its steps "
+                             f"{in_steps}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return in_steps, ms, peak
+
+
+def _h_predict(card: str, label: str, argv: list, controls: list, steps: int, per_step: tuple,
+               size: int) -> tuple:
+    """--predict through main() on raw control PNGs: a [size, size, 3]
+    uint8 PNG, finite latents, exactly `per_step` launches a denoising
+    step.  Returns (launches, s a request, peak)."""
+    from qflux_tpu_torch import main as cli
+    from qflux_tpu_torch.utils.png import read_png
+
+    out = Path(argv[1]).parent / "edit.png"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    t0 = time.perf_counter()
+    flags = [x for c in controls for x in ("--control", str(c))]
+    trainer = cli.main(argv + ["--predict", *flags, "--prompt", F_PROMPTS[2], "--output",
+                               str(out), "--steps", str(steps)])
+    torch.cuda.synchronize()
+    wall, peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    pred, launched, img = trainer.last_predict, _launch_counts(), read_png(out)
+    want = tuple(steps * c for c in per_step)
+    print(f"[{label}] --predict on {len(controls)} control PNG(s): {wall:.1f} s in main() (the "
+          f"models drawn, the request), {pred['steps']} steps "
+          f"{1000 * pred['denoise_s'] / pred['steps']:.1f} ms/step, decode "
+          f"{1000 * pred['decode_s']:.1f} ms; peak mem {peak} bytes; output {img.dtype} "
+          f"{list(img.shape)}, latents finite {pred['latents_finite']}; {COUNT_NAMES} launches "
+          f"{launched} [{card}]", flush=True)
+    if (img.dtype != np.uint8 or img.shape != (size, size, 3) or not pred["latents_finite"]
+            or launched != want):
+        raise AssertionError(f"{label} --predict gave {img.dtype} {img.shape}, launches "
+                             f"{launched} (want {want})")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launched, wall, peak
+
+
+def _qwen3_against_cpu(card: str, trainer, csv_path: Path) -> None:
+    """The first sample's prompt through Qwen3-4B's first H_Q3_LAYER layers
+    on the CPU (streamed, `_StreamedLM`), against the card's f32 run of
+    the same layers (within Q3_LAYER_REL_TOL a layer) and against the first
+    2,560 channels (layer 9's state) of the fp16 prompt_embeds --cache
+    wrote for that prompt (its prompt_hash; within that plus FP16_REL); the CPU's seconds and the card's
+    time for all 27 layers Klein runs."""
+    from qflux_tpu_torch.data.cache import read_npz_data
+    from qflux_tpu_torch.data.dataset import read_csv
+    from qflux_tpu_torch.models.flux2 import text_encoder as tq3
+    from qflux_tpu_torch.trainer.flux2_klein import qwen3_encoder
+    from qflux_tpu_torch.utils.hashing import md5_string
+
+    bundle = trainer.bundle
+    enc, tcfg = qwen3_encoder(bundle), bundle.text_cfgs["qwen3"]
+    prompt = str(read_csv(str(csv_path))[1][0]["prompt"])
+    tok = bundle.tokenizers["qwen3"]  # the hash tokenizer, as the adapter calls it
+    ids = tok([prompt], max_length=min(trainer.config.predict.max_sequence_length,
+                                       tok.max_length))
+    mask = (ids != 0).astype(np.int64)
+    t0 = time.perf_counter()
+    want = tq3.encode(_StreamedLM(enc, tq3.Qwen3Layer, H_Q3_LAYER), tcfg, ids,
+                      attention_mask=mask, hidden_states_layers=(H_Q3_LAYER,))
+    cpu_s = time.perf_counter() - t0
+    got = tq3.encode(enc, tcfg, ids, attention_mask=mask, hidden_states_layers=(H_Q3_LAYER,))
+    cached = read_npz_data(Path(trainer.config.cache.cache_dir) / "prompt_embeds"
+                           / f"{md5_string(prompt)}.npz")  # the sample's prompt_hash
+    tol = Q3_LAYER_REL_TOL * H_Q3_LAYER
+    card_err = _rel(got[0], want[0])
+    layers = bundle.text_cfgs["hidden_states_layers"]
+    d, at = tcfg.hidden_size, layers.index(H_Q3_LAYER)
+    cache_err = _rel(torch.from_numpy(np.array(cached[:, at * d:(at + 1) * d])).float(),
+                     want[0])
+    ms = _median_ms(lambda: tq3.encode(enc, tcfg, ids, attention_mask=mask,
+                                       hidden_states_layers=layers), n=3)
+    print(f"[klein] sample 0's prompt through Qwen3-4B layers 1-{H_Q3_LAYER} at {ids.shape[1]} "
+          f"tokens on the CPU (streamed) in {cpu_s:.1f} s: rel L2 err of the card's f32 state "
+          f"{card_err:.3e} (tol {tol:.2e}), of the cache's fp16 layer-{H_Q3_LAYER} channels "
+          f"{cache_err:.3e} (tol {tol + FP16_REL:.2e}); on the card, f32, TF32 off: the "
+          f"{max(layers)} layers Klein runs at {ids.shape[1]} tokens {ms:.2f} ms [{card}]",
+          flush=True)
+    if card_err > tol or cache_err > tol + FP16_REL:
+        raise AssertionError(f"Qwen3 on the card or the cache disagrees with the CPU: "
+                             f"{card_err}, {cache_err}")
+
+
+def phase_klein(card: str) -> dict:
+    """Phase H(a), FLUX.2-Klein at full width and depth (`flux2_config()`:
+    8 dual + 24 single blocks, 24 heads × 128; the FLUX VAE; Qwen3-4B in
+    f32 picked at layers 9, 18, 27; synthetic weights drawn on the card)
+    through main(): `--cache` over H_PROMPTS' two 512² target / control
+    pairs (JAX's eight keys; the first prompt's Qwen3 states against the
+    CPU, `_qwen3_against_cpu`), a fit of H_KLEIN_FIT_STEPS steps at bs 2
+    from that cache (S = 512 + 1,024 + 1,024 = 2,560, where JAX runs the
+    fused K1 / K2: 32 K1 and 32 K2 a step), `--predict` on a raw control
+    PNG (H_KLEIN_PREDICT_STEPS steps, 32 K1 a step).  Returns the launches
+    of each path (_launch_counts' order)."""
+    from qflux_tpu_torch.trainer.flux2_klein import flux2_config
+
+    n = flux2_config().num_layers + flux2_config().num_single_layers
+    tmp = Path(tempfile.mkdtemp(prefix="qflux_smoke_klein_"))
+    try:
+        csv_path = _pairs_csv(tmp, [(p, 1) for p in H_PROMPTS], HEIGHT, 94)
+        raw = _h_config("Flux2KleinLoraTrainer", csv_path, tmp,
+                        {"process_type": "resize", "target_size": [HEIGHT, WIDTH]},
+                        train={"max_train_steps": H_KLEIN_FIT_STEPS}, data={"batch_size": 2})
+        path = tmp / "klein.json"
+        path.write_text(json.dumps(raw))
+        argv = ["--config", str(path)]
+        want = {"image_latents": (1024, 64), "control_latents": (1024, 64),
+                "prompt_embeds": (512, 7680), "pooled_prompt_embeds": (7680,),
+                "empty_prompt_embeds": (512, 7680), "empty_pooled_prompt_embeds": (7680,),
+                "img_ids": (2048, 4), "txt_ids": (512, 4)}
+        trainer, cache_s, cache_peak = _h_cache(card, "klein", argv, want, len(H_PROMPTS))
+        _qwen3_against_cpu(card, trainer, csv_path)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        fit, fit_ms, fit_peak = _h_fit(card, "klein", argv, H_KLEIN_FIT_STEPS,
+                                       _rq((n, n, 0, 0, 0, 0, 0, 0, 0, 0)))
+        pred, pred_s, pred_peak = _h_predict(card, "klein", argv, [tmp / "control_0_0.png"],
+                                             H_KLEIN_PREDICT_STEPS,
+                                             _rq((n, 0, 0, 0, 0, 0, 0, 0, 0, 0)), HEIGHT)
+        print(f"[klein] summary: cache {cache_s / len(H_PROMPTS):.2f} s a sample (main() "
+              f"included), fit {fit_ms:.1f} ms a step (bs 2), predict {pred_s:.2f} s "
+              f"({H_KLEIN_PREDICT_STEPS} steps, main() included), peaks {cache_peak} / "
+              f"{fit_peak} / {pred_peak} bytes [{card}]", flush=True)
+        return {"klein_fit": fit, "klein_predict": pred}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_qwen_plus(card: str) -> dict:
+    """Phase H(b), Qwen-Image-Edit-Plus at full width: the 20B DiT cut to
+    CUT_BLOCKS of its 60 blocks over the example config's `int8`
+    weight-only base (quantized block by block as drawn), the Qwen VAE and
+    Qwen2.5-VL (32 vision blocks, 28 LM layers, f32), through main():
+    `--cache` on one sample with a target and two controls at fixed_pixels
+    512·512 (the VL sees ≤ 384² condition copies; three image planes),
+    a fit of H_PLUS_FIT_STEPS steps at bs 1 (S = text + 3 · 1,024, past
+    where JAX runs K1: K3 / K4, one each a block a step), `--predict` with
+    two --control images (H_PLUS_PREDICT_STEPS steps, one K3 a block a
+    step).  Returns the launches of each path."""
+    from qflux_tpu_torch.models.qwen import transformer as qwen_dit
+
+    n = CUT_BLOCKS
+    tmp = Path(tempfile.mkdtemp(prefix="qflux_smoke_qwen_plus_"))
+    try:
+        csv_path = _pairs_csv(tmp, [(H_PROMPTS[0], 2)], HEIGHT, 95)
+        raw = _h_config("QwenImageEditPlusTrainer", csv_path, tmp,
+                        {"process_type": "fixed_pixels", "target_pixels": HEIGHT * WIDTH},
+                        model={"variant": "full", "lora": {"r": 16, "lora_alpha": 16},
+                               "quantize": {"enabled": True, "dtype": "int8"}},
+                        train={"max_train_steps": H_PLUS_FIT_STEPS})
+        path = tmp / "plus.json"
+        path.write_text(json.dumps(raw))
+        argv = ["--config", str(path)]
+        # the prompt's length is the VL's: the template, the instruction and
+        # two 384² condition copies of 196 tokens each, the template's first
+        # tokens dropped
+        want = {"image_latents": (1024, 64), "control_latents": (2048, 64),
+                "prompt_embeds": (-1, 3584), "prompt_embeds_mask": (-1,),
+                "empty_prompt_embeds": (-1, 3584), "empty_prompt_embeds_mask": (-1,),
+                "img_shapes_arr": (3, 3)}
+        with _CutDepth(qwen_dit, "QwenImageConfig", num_layers=n):
+            trainer, cache_s, cache_peak = _h_cache(card, "qwen_plus", argv, want, 1)
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+            per_step = _rq((0, 0, 0, 0, 0, 0, 0, 0, n, n))
+            fit, fit_ms, fit_peak = _h_fit(card, "qwen_plus", argv, H_PLUS_FIT_STEPS, per_step)
+            pred, pred_s, pred_peak = _h_predict(
+                card, "qwen_plus", argv, [tmp / "control_0_0.png", tmp / "control_0_1.png"],
+                H_PLUS_PREDICT_STEPS, _rq((0, 0, 0, 0, 0, 0, 0, 0, n, 0)), HEIGHT)
+        print(f"[qwen_plus] summary: cache {cache_s:.2f} s a sample (main() included), fit "
+              f"{fit_ms:.1f} ms a step (bs 1), predict {pred_s:.2f} s ({H_PLUS_PREDICT_STEPS} "
+              f"steps, main() included), peaks {cache_peak} / {fit_peak} / {pred_peak} bytes "
+              f"[{card}]", flush=True)
+        return {"qwen_plus_fit": fit, "qwen_plus_predict": pred}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+class _KVRecord:
+    """Inside the `with` block: the first prompt enhancement's prefill and
+    decode steps (vl_encoder.text_prefill / text_decode_step, as
+    DreamOmni2's enhance_prompt calls them), their inputs and hidden
+    states, kept on the card, and the host clock at the prefill's launch
+    and at each step's launch.  The loop reads the argmax of the head
+    product after the prefill and after each step, so the device has
+    finished all earlier work when a step launches: the prefill takes
+    (first step's launch - prefill's launch), a token (last step's launch -
+    first step's launch) / (steps - 1)."""
+
+    def __enter__(self):
+        from qflux_tpu_torch.models.qwen import vl_encoder as tvl
+
+        self.tvl, self.orig = tvl, (tvl.text_prefill, tvl.text_decode_step)
+        self.prefill, self.steps, self.step_t, self.calls = None, [], [], 0
+        real_prefill, real_step = self.orig
+
+        def prefill(params, cfg, embeds, pos, cache):
+            t0 = time.perf_counter()
+            h, cache = real_prefill(params, cfg, embeds, pos, cache)
+            self.calls += 1
+            if self.calls == 1:
+                self.t0 = t0
+                self.prefill = (embeds.clone(), np.asarray(pos), h.clone())
+            return h, cache
+
+        def step(params, cfg, embed, pos, cache, cache_len):
+            t = time.perf_counter()
+            h, cache = real_step(params, cfg, embed, pos, cache, cache_len)
+            if self.calls == 1:
+                self.step_t.append(t)
+                self.steps.append((embed.clone(), np.asarray(pos), h.clone()))
+            return h, cache
+
+        tvl.text_prefill, tvl.text_decode_step = prefill, step
+        return self
+
+    def __exit__(self, *exc):
+        self.tvl.text_prefill, self.tvl.text_decode_step = self.orig
+        return False
+
+
+def _kv_against_full_forward(card: str, trainer, rec: _KVRecord) -> None:
+    """The recorded greedy decode held to one uncached text_forward over the
+    prompt and every generated token (their embeddings and M-RoPE positions
+    as the decode loop fed them): the prefill's hidden states and each
+    step's within KV_REL_TOL in relative L2 over all of them."""
+    lm, tcfg = trainer.bundle.text_params["text"], trainer.bundle.text_cfgs["text"]
+    embeds, pos, h_pre = rec.prefill
+    full_embeds = torch.cat([embeds] + [e for e, _, _ in rec.steps], dim=1)
+    full_pos = np.concatenate([pos] + [p for _, p, _ in rec.steps], axis=-1)
+    from qflux_tpu_torch.models.qwen import vl_encoder as tvl
+
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        full = tvl.text_forward(lm, tcfg, full_embeds, full_pos)
+        torch.cuda.synchronize()
+        full_ms = 1000 * (time.perf_counter() - t0)
+    n = embeds.shape[1]
+    got = torch.cat([h_pre[0]] + [h for _, _, h in rec.steps], dim=0)
+    err = _rel(got, full[0, :n + len(rec.steps)])
+    prefill_ms = 1000 * (rec.step_t[0] - rec.t0) if rec.step_t else float("nan")
+    token_ms = (1000 * (rec.step_t[-1] - rec.step_t[0]) / (len(rec.step_t) - 1)
+                if len(rec.step_t) > 1 else float("nan"))
+    print(f"[dreamomni2] KV-cached greedy decode: prefill {n} tokens (two 512² references "
+          f"in the chat template) {prefill_ms:.2f} ms, then {len(rec.steps)} cached steps "
+          f"(of {H_NEW_TOKENS}) at {token_ms:.2f} ms a token (steps 1 to {len(rec.steps) - 1}, "
+          f"each with its LM head product and argmax; the prefill's time apart); their "
+          f"hidden states against one text_forward over all {n + len(rec.steps)} tokens "
+          f"({full_ms:.1f} ms): rel L2 err {err:.3e} (tol {KV_REL_TOL}) [{card}]", flush=True)
+    if not len(rec.steps) or err > KV_REL_TOL:
+        raise AssertionError(f"the cached decode disagrees with the full forward: {err} "
+                             f"({len(rec.steps)} steps)")
+
+
+def _edit_lora_file(path: Path, cfg, device="cuda") -> tuple[Path, set]:
+    """A rank-16 LoRA over every attention projection of `cfg`'s blocks
+    (a ~ N(0, 1/in), b ~ N(0, 0.01²), alpha 16), drawn on `device` from a
+    seed and written by save_lora_safetensors.  Returns (file, paths)."""
+    from qflux_tpu_torch.utils.lora_io import save_lora_safetensors
+
+    gen = torch.Generator(device).manual_seed(96)
+    d, r = cfg.dim, 16
+    names = [(f"dual/{i}/attn/{m}", d, d) for i in range(cfg.num_layers)
+             for m in ("to_q", "to_k", "to_v", "to_out", "add_q", "add_k", "add_v", "add_out")]
+    names += [(f"single/{i}/attn/{m}", d, d) for i in range(cfg.num_single_layers)
+              for m in ("to_q", "to_k", "to_v")]
+    lora = {p: {"a": torch.randn(i, r, device=device, generator=gen) * i ** -0.5,
+                "b": torch.randn(r, o, device=device, generator=gen) * 0.01,
+                "scaling": torch.tensor(1.0, device=device)} for p, i, o in names}
+    return (save_lora_safetensors(lora, path, head_dim=cfg.attention_head_dim),
+            {p for p, _, _ in names})
+
+
+def _drawn_vlm(config, device):
+    """`dreamomni2.vlm_factory`'s stand-in for phase H(c): Qwen2.5-VL (32
+    vision blocks × 1,280, 28 LM layers × 3,584) and its LM head at full
+    width, drawn on `device` from seeds 11 / 12 / 13 when first used, the
+    special tokens of the published checkpoint, the hash tokenizer at the
+    LM's vocabulary."""
+    from qflux_tpu_torch.models.qwen import vl_encoder as tvl
+    from qflux_tpu_torch.trainer import dreamomni2 as td2
+    from qflux_tpu_torch.trainer.flux_kontext import SimpleTokenizer
+
+    vcfg, tcfg = tvl.VLVisionConfig(), tvl.VLTextConfig()
+
+    def factory():
+        return {"vision": tvl.vision_init(torch.Generator(device).manual_seed(11), vcfg, device),
+                "text": tvl.text_init(torch.Generator(device).manual_seed(12), tcfg, device),
+                "lm_head": td2.lm_head_init(torch.Generator(device).manual_seed(13), tcfg,
+                                            device)}
+
+    return ({"vision": vcfg, "text": tcfg, "tokens": tvl.VLSpecialTokens()},
+            SimpleTokenizer(tcfg.vocab_size, 1024), factory)
+
+
+def phase_dreamomni2(card: str) -> dict:
+    """Phase H(c), DreamOmni2 at full width: FLUX.1-Kontext cut to 4 dual +
+    8 single of its blocks (so that the DiT, T5-XXL's 19 GB and the VL's
+    35 GB of f32 fit together), its edit-LoRA fused at load from a file
+    written here (`_edit_lora_file`; every LoRA'd weight moved, every other
+    equal to a fresh draw), and the VLM prompt enhancer on: Qwen2.5-VL and
+    its LM head at full width drawn on the card and attached in process
+    (`dreamomni2.vlm_factory` replaced: no config names a VL checkpoint),
+    128 greedy tokens.  Through main(): `--cache` on one sample with two
+    512² references (the prompt rewritten; the KV-cached decode held to
+    one full forward, `_kv_against_full_forward`), a fit of H_D2_FIT_STEPS
+    steps at bs 1 (S = 512 + 3 · 1,024 = 3,584: K3 / K4, one each a block
+    a step), `--predict` with the two references (H_D2_PREDICT_STEPS
+    steps, one K3 a block a step).  Returns the launches of each path."""
+    from qflux_tpu_torch.models.flux import transformer as tflux
+    from qflux_tpu_torch.trainer import dreamomni2 as td2
+
+    n = sum(H_D2_DEPTH)
+    tmp = Path(tempfile.mkdtemp(prefix="qflux_smoke_dreamomni2_"))
+    real_factory = td2.vlm_factory
+    try:
+        with _CutDepth(tflux, "FluxConfig", num_layers=H_D2_DEPTH[0],
+                       num_single_layers=H_D2_DEPTH[1]):
+            cfg = tflux.FluxConfig()
+            lora_file, lora_paths = _edit_lora_file(tmp / "edit_lora.safetensors", cfg)
+            csv_path = _pairs_csv(tmp, [(H_PROMPTS[1], 2)], HEIGHT, 97)
+            raw = _h_config("DreamOmni2Trainer", csv_path, tmp,
+                            {"process_type": "resize", "target_size": [HEIGHT, WIDTH]},
+                            model={"variant": "full", "lora": {"r": 16, "lora_alpha": 16},
+                                   "pretrained_embeddings": str(lora_file),
+                                   "use_vlm_prompt_enhancer": True},
+                            train={"max_train_steps": H_D2_FIT_STEPS})
+            path = tmp / "dreamomni2.json"
+            path.write_text(json.dumps(raw))
+            argv = ["--config", str(path)]
+            want = {"image_latents": (1024, 64), "control_latents": (2048, 64),
+                    "prompt_embeds": (512, 4096), "pooled_prompt_embeds": (768,),
+                    "empty_prompt_embeds": (512, 4096), "empty_pooled_prompt_embeds": (768,),
+                    "tgt_ids": (1024, 3), "ctl_ids": (2048, 3), "txt_ids": (512, 3)}
+            td2.vlm_factory = _drawn_vlm
+            with _KVRecord() as kv:
+                trainer, cache_s, cache_peak = _h_cache(card, "dreamomni2", argv, want, 1)
+            if not trainer.adapter.use_vlm_prompt_enhancer or kv.calls != 1:
+                raise AssertionError(f"the enhancer ran {kv.calls} times in the cache pass")
+            _kv_against_full_forward(card, trainer, kv)
+            dev = trainer.device
+            fresh = tflux.init(torch.Generator(dev).manual_seed(0), trainer.bundle.dit_cfg, dev,
+                               trainer.dtype)
+            from qflux_tpu_torch.ops.layers import iter_dense_paths
+
+            base = dict(iter_dense_paths(fresh))
+            moved = {p for p, node in iter_dense_paths(trainer.bundle.dit_params)
+                     if not torch.equal(node.weight, base[p].weight)}
+            print(f"[dreamomni2] the edit-LoRA fused at load: {len(moved)} weights moved, "
+                  f"{len(base) - len(moved)} equal to a fresh draw; the DiT "
+                  f"{H_D2_DEPTH[0]} + {H_D2_DEPTH[1]} blocks [{card}]", flush=True)
+            if moved != lora_paths:
+                raise AssertionError(f"the fused weights are not the LoRA's: "
+                                     f"{sorted(moved ^ lora_paths)[:6]}")
+            del trainer, fresh, base
+            gc.collect()
+            torch.cuda.empty_cache()
+            fit, fit_ms, fit_peak = _h_fit(card, "dreamomni2", argv, H_D2_FIT_STEPS,
+                                           _rq((0, 0, 0, 0, 0, 0, 0, 0, n, n)))
+            pred, pred_s, pred_peak = _h_predict(
+                card, "dreamomni2", argv, [tmp / "control_0_0.png", tmp / "control_0_1.png"],
+                H_D2_PREDICT_STEPS, _rq((0, 0, 0, 0, 0, 0, 0, 0, n, 0)), HEIGHT)
+        print(f"[dreamomni2] summary: cache {cache_s:.2f} s a sample (main() and the prompt's "
+              f"{H_NEW_TOKENS}-token rewrite included), fit {fit_ms:.1f} ms a step (bs 1), "
+              f"predict {pred_s:.2f} s ({H_D2_PREDICT_STEPS} steps, main() and a rewrite "
+              f"included), peaks {cache_peak} / {fit_peak} / {pred_peak} bytes [{card}]",
+              flush=True)
+        return {"dreamomni2_fit": fit, "dreamomni2_predict": pred}
+    finally:
+        td2.vlm_factory = real_factory
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 PROFILE_GROUPS = [("K5a rq_int4_fwd", ("rq_int4_fwd",)), ("K5b rq_int4_bwd", ("rq_int4_bwd",)),
@@ -6039,8 +6683,22 @@ def main() -> int:
           f"at the shapes they gave it: {g_checked}): {time.perf_counter() - t_g:.1f} s "
           f"[{card}]", flush=True)
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_h = time.perf_counter()
+    with _PathShapes() as h_shapes:
+        h = timed(phase_klein)
+        h.update(timed(phase_qwen_plus))
+        h.update(timed(phase_dreamomni2))
+    h_checked = timed(phase_path_shapes, h_shapes, "phase H")
+    h_all = tuple(map(sum, zip(*h.values())))
+    print(f"[smoke] phase H (FLUX.2-Klein, Qwen-Image-Edit-Plus and DreamOmni2 from raw "
+          f"images; each kernel then held to its plain version at the shapes they gave it: "
+          f"{h_checked}): {time.perf_counter() - t_h:.1f} s [{card}]", flush=True)
+
     def by_path(i):
-        return {f"qwen_pixels_{k}": v[i] for k, v in g.items() if v[i]}
+        return {**{f"qwen_pixels_{k}": v[i] for k, v in g.items() if v[i]},
+                **{k: v[i] for k, v in h.items() if v[i]}}
 
     print(f"[smoke] wall time {time.perf_counter() - t_start:.1f} s (build included) [{card}]",
           flush=True)
@@ -6049,7 +6707,8 @@ def main() -> int:
          "source": "qflux_tpu_torch/csrc/flash_nr_fwd.cu",
          "replaces": "qflux_tpu/ops/flash_nr.py:192",
          "launches": (k1_predict + k1_train + k1_fa + k1_fb + d_flux[0] + k1_c + k1_ct + k1_e
-                      + k1_eq + f["fit"][0] + f["validation"] + f["predict"] + g_all[0]),
+                      + k1_eq + f["fit"][0] + f["validation"] + f["predict"] + g_all[0]
+                      + h_all[0]),
          "launches_by_path": {"predict": k1_predict, "train": k1_train,
                               "files_flux_resume": k1_fa, "files_flux_weights": k1_fb,
                               "data_flux_cli": d_flux[0],
@@ -6060,21 +6719,22 @@ def main() -> int:
         {"name": "flash_nr_bwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/flash_nr_bwd.cu",
          "replaces": "qflux_tpu/ops/flash_nr.py:311",
-         "launches": k2_train + k2_fa + d_flux[1] + k2_ct + k2_e + f["fit"][1],
+         "launches": k2_train + k2_fa + d_flux[1] + k2_ct + k2_e + f["fit"][1] + h_all[1],
          "launches_by_path": {"train": k2_train, "files_flux_resume": k2_fa,
                               "data_flux_cli": d_flux[1], "int4_train": k2_ct,
-                              "w8a8_flux": k2_e, "cache_pass_fit": f["fit"][1]}, **k2_case},
+                              "w8a8_flux": k2_e, "cache_pass_fit": f["fit"][1],
+                              **by_path(1)}, **k2_case},
         {"name": "flash_fwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "qflux_tpu/ops/flash_attention.py:105",
-         "launches": k3_qwen + k3_qt + k3_fc + d_flux[8] + d_qwen[8] + g_all[8],
+         "launches": k3_qwen + k3_qt + k3_fc + d_flux[8] + d_qwen[8] + g_all[8] + h_all[8],
          "launches_by_path": {"qwen_predict": k3_qwen, "qwen_train": k3_qt,
                               "files_qwen": k3_fc, "data_flux_cli": d_flux[8],
                               "data_qwen_fit": d_qwen[8], **by_path(8)}, **k3_case},
         {"name": "flash_bwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "qflux_tpu/ops/flash_attention.py:288, :215, :251",
-         "launches": k4_qt + d_flux[9] + d_qwen[9] + g_all[9],
+         "launches": k4_qt + d_flux[9] + d_qwen[9] + g_all[9] + h_all[9],
          "launches_by_path": {"qwen_train": k4_qt, "data_flux_cli": d_flux[9],
                               "data_qwen_fit": d_qwen[9], **by_path(9)}, **k4_case},
         {"name": "rq_int4_fwd", "route": "cuda",

@@ -55,6 +55,9 @@ DEFAULTS: dict = {
                                     "add_q", "add_k", "add_v", "add_out"],
                  "pretrained_weight": None},
         "quantize": False,
+        "pretrained_embeddings": None,
+        "use_vlm_prompt_enhancer": False,
+        "vlm_path": None,
     },
     "train": {"gradient_accumulation_steps": 1, "max_train_steps": 1000, "num_epochs": 10000,
               "checkpointing_steps": 500, "async_checkpointing": False, "max_grad_norm": 1.0, "timestep_sampling": "uniform", "logit_mean": 0.0,

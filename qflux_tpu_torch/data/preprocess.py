@@ -27,9 +27,11 @@ so `_resize` is cv2's uint8 resampling written in numpy:
     11 bits, borders replicated, the sum rounded once (cv2's vector path
     rounds an f32 sum): within 1 step of cv2;
   * "area" (INTER_AREA): a block average where the scale is an integer in
-    both directions, cv2's area-overlap weights where it shrinks otherwise,
-    and cv2's bilinear emulation (its own weights, the fixed-point path)
-    where it grows: within 1 step of cv2.
+    both directions; where it shrinks by another factor (Qwen-Image-Edit-
+    Plus's condition images, 512² → 384²), cv2's area-overlap weights in
+    f32 summed in cv2's order, a source row's cells first, then the rows
+    of each destination row; where it grows, cv2's bilinear emulation (its
+    own weights, the fixed-point path).  Equal to cv2 to the bit.
 """
 
 from __future__ import annotations
@@ -137,10 +139,13 @@ def _resize_cubic(img: np.ndarray, w: int, h: int) -> np.ndarray:
     return np.clip(out, 0, 255).astype(np.uint8)
 
 
-def _area_matrix(dst: int, src: int) -> np.ndarray:
-    """[dst, src] area-overlap weights (cv2's computeResizeAreaTab)."""
+def _area_table(dst: int, src: int) -> tuple[np.ndarray, np.ndarray]:
+    """cv2's computeResizeAreaTab: per destination index its source indices
+    [dst, n] and f32 area-overlap weights [dst, n], in cv2's order (the
+    partial first cell, the whole cells, the partial last cell), padded
+    with weight 0."""
     scale = _inv(dst, src)
-    m = np.zeros((dst, src), np.float64)
+    rows = []
     for d in range(dst):
         fs1 = d * scale
         fs2 = fs1 + scale
@@ -148,12 +153,18 @@ def _area_matrix(dst: int, src: int) -> np.ndarray:
         s1, s2 = math.ceil(fs1), math.floor(fs2)
         s2 = min(s2, src - 1)
         s1 = min(s1, s2)
-        if s1 - fs1 > 1e-3:
-            m[d, s1 - 1] = np.float32((s1 - fs1) / cell)
-        m[d, s1:s2] = np.float32(1.0 / cell)
+        row = [(s1 - 1, (s1 - fs1) / cell)] if s1 - fs1 > 1e-3 else []
+        row += [(s, 1.0 / cell) for s in range(s1, s2)]
         if fs2 - s2 > 1e-3:
-            m[d, s2] = np.float32(min(min(fs2 - s2, 1.0), cell) / cell)
-    return m
+            row.append((s2, min(min(fs2 - s2, 1.0), cell) / cell))
+        rows.append(row)
+    n = max(len(r) for r in rows)
+    idx = np.zeros((dst, n), np.int64)
+    alpha = np.zeros((dst, n), np.float32)
+    for d, row in enumerate(rows):
+        idx[d, :len(row)] = [i for i, _ in row]
+        alpha[d, :len(row)] = [a for _, a in row]  # each weight rounded to f32, as cv2
+    return idx, alpha
 
 
 def _resize_area(img: np.ndarray, w: int, h: int) -> np.ndarray:
@@ -169,8 +180,19 @@ def _resize_area(img: np.ndarray, w: int, h: int) -> np.ndarray:
             return ((blocks + 2) >> 2).astype(np.uint8)
         out = np.rint(blocks.astype(np.float32) * np.float32(1.0 / (ix * iy)))
         return np.clip(out, 0, 255).astype(np.uint8)
-    out = np.einsum("ys,sx...->yx...", _area_matrix(h, sh),
-                    np.einsum("xs,ys...->yx...", _area_matrix(w, sw), img.astype(np.float64)))
+    # cv2's resizeArea_<uchar, float>: each source row's f32 sum of
+    # products over its table in order, then each destination row's f32
+    # sum of weighted source rows in order, rounded half to even
+    cx, wx = _area_table(w, sw)
+    cy, wy = _area_table(h, sh)
+    tail = (1,) * (img.ndim - 2)
+    src = img.astype(np.float32)
+    rows = np.zeros((sh, w) + img.shape[2:], np.float32)
+    for j in range(cx.shape[1]):
+        rows = rows + src[:, cx[:, j]] * wx[:, j].reshape(1, -1, *tail)
+    out = np.zeros((h, w) + img.shape[2:], np.float32)
+    for j in range(cy.shape[1]):
+        out = out + wy[:, j].reshape(-1, 1, *tail) * rows[cy[:, j]]
     return np.clip(np.rint(out), 0, 255).astype(np.uint8)
 
 

@@ -19,9 +19,11 @@ data.use_edit_mask as defaults) and the DataLoader, then
     JAX's name for it, `--image`) and `--prompt`, each output written as a
     PNG by the port's own encoder (`--output`, then -1, -2, … for more).
 
---cache, --fit-no-cache and --predict run the family's encoders
-(FLUX.1-Kontext's CLIP-L, T5-XXL and VAE encoder; Qwen-Image-Edit's
-Qwen2.5-VL and 3D VAE encoder).  The device defaults to cuda; `--device
+--cache, --fit-no-cache and --predict run the family's encoders, for every
+trainer of JAX's (FLUX.1-Kontext and DreamOmni2: CLIP-L, T5-XXL and the VAE
+encoder, with DreamOmni2's Qwen2.5-VL prompt enhancer where it is on;
+Qwen-Image-Edit and -Plus: Qwen2.5-VL and the 3D VAE encoder; FLUX.2-Klein:
+Qwen3 and the VAE encoder).  The device defaults to cuda; `--device
 cpu` runs the kernels' plain versions (tests, tiny models).  Not ported: `--distributed` (item
 8) and `--plan` (XLA's memory analysis: not ported at all).
 """
@@ -82,7 +84,6 @@ def _predict(trainer, args) -> list:
 
     if not args.control or args.prompt is None:
         raise SystemExit("--predict requires --control (repeatable) and --prompt")
-    trainer._require_encoders("--predict")
     controls = [_read_image(p) for p in args.control]
     controls = [c if c.ndim == 3 else c[:, :, None].repeat(3, axis=2) for c in controls]
     imgs = trainer.predict(controls, args.prompt, num_inference_steps=args.steps)
@@ -133,8 +134,6 @@ def main(argv=None):
         return trainer
     if config.mode not in ("fit", "cache"):
         raise ValueError(f"unknown mode {config.mode!r}")
-    if config.mode == "cache" or args.fit_no_cache:
-        trainer._require_encoders("--cache" if config.mode == "cache" else "--fit-no-cache")
 
     data = config.data
     init_args = dict(data.init_args)

@@ -2,9 +2,9 @@
 the 3D VAE.
 
 The port's copy of qflux_tpu/models/qwen/porting.py (`_detect_prefix`,
-`convert_vl_vision`, `convert_vl_text`, `convert_qwen_image_transformer`,
-`convert_qwen_vae`; the LM head, which only greedy decoding reads, is left
-for DreamOmni2's prompt enhancer), on the helpers of `models/porting.py`:
+`convert_vl_vision`, `convert_vl_text`, `convert_vl_lm_head` (the LM head
+DreamOmni2's prompt enhancer decodes with), `convert_qwen_image_transformer`,
+`convert_qwen_vae`), on the helpers of `models/porting.py`:
 any mapping name → tensor in, the JAX package's trees (torch tensors on the
 CPU as leaves) out.  The DiT and the VL encoder have per-block forms
 (`qwen_transformer_top` / `qwen_block`; `vl_vision_top` / `vl_vision_block`,
@@ -99,6 +99,16 @@ def convert_vl_text(sd: Mapping, num_layers: int, dtype=torch.float32) -> dict:
     pre = text_prefix(sd)
     p["layers"] = _stack([vl_text_layer(sd, pre, i, dtype) for i in range(num_layers)])
     return p
+
+
+def convert_vl_lm_head(sd: Mapping, dtype=torch.float32) -> dict:
+    """The LM head {"kernel": [hidden, vocab]} for greedy decoding:
+    `lm_head.weight` [vocab, hidden] transposed, or, in a checkpoint that
+    ties it to the token embedding (the smaller variants), embed_tokens'."""
+    for key in ("lm_head.weight", "model.lm_head.weight"):
+        if key in sd:
+            return {"kernel": _t(sd[key]).to(dtype).t()}
+    return {"kernel": _t(sd[f"{text_prefix(sd)}embed_tokens.weight"]).to(dtype).t()}
 
 
 # ---------------------------------------------------------------------------

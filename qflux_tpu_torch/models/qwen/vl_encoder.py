@@ -1,8 +1,8 @@
 """Qwen2.5-VL multimodal encoder (vision tower + M-RoPE LM) in PyTorch: the
 Qwen-Image-Edit text encoder.
 
-Counterpart of qflux_tpu/models/qwen/vl_encoder.py (everything but the KV
-cache and greedy decoding, which only DreamOmni2's prompt enhancer uses).
+Counterpart of qflux_tpu/models/qwen/vl_encoder.py, the KV cache and the
+steps of greedy decoding (DreamOmni2's prompt enhancer) included.
 Module attribute names are the JAX tree's keys, so
 `models/bridge.py:load_params` loads JAX's stacked trees and either
 package's converter output into them ([L, …] leaves into the ModuleLists,
@@ -20,7 +20,11 @@ the card unless TF32 is off, `ops.layers.require_f32`):
   * LM: Qwen2 decoder layers (GQA with qkv bias, SwiGLU, RMSNorm) with
     multimodal 3D RoPE (the mrope_section channel split over t / h / w
     positions), a causal mask ANDed with the padding mask; the output is
-    the final RMSNorm of the last layer (transformers' hidden_states[-1]).
+    the final RMSNorm of the last layer (transformers' hidden_states[-1]);
+  * greedy decoding: `make_kv_cache` (a fixed-size [L, B, max_len, n_kv,
+    head_dim] cache), `text_prefill` (`text_forward` that fills it) and
+    `text_decode_step` (one token attending over the cache up to its own
+    slot), as JAX's jitted pair computes them.
 
 The host helpers re-implement the HF processor exactly: `smart_resize`,
 `preprocess_image` (PIL's bicubic through `utils/resample.py`, then JAX's
@@ -419,24 +423,54 @@ def mrope_cos_sin(position_ids, cfg: VLTextConfig, device=None):
     return cos, sin
 
 
-def _decoder_layer(cfg: VLTextConfig, x, lp: DecoderLayer, cos, sin, mask):
-    """One Qwen2 decoder layer (GQA + qkv bias, SwiGLU)."""
-    b, s, d = x.shape
-    n_h, n_kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+def _attend(cfg: VLTextConfig, q, k, v, mask=None):
+    """GQA by repeat, f32 logits with the −1e30 mask (None: every key), f32
+    softmax cast to v's dtype: [B, Sq, n_h, hd] over [B, Sk, n_kv, hd] →
+    [B, Sq, n_h · hd]."""
+    b, s = q.shape[:2]
+    rep = cfg.num_heads // cfg.num_kv_heads
+    kr, vr = torch.repeat_interleave(k, rep, dim=2), torch.repeat_interleave(v, rep, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float()) * (cfg.head_dim ** -0.5)
+    if mask is not None:
+        logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1).to(vr.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, vr).reshape(b, s, -1)
+
+
+def _qkv(cfg: VLTextConfig, lp: DecoderLayer, x, cos, sin):
+    """The layer's input norm and q / k / v, q and k roped: k and v as a KV
+    cache keeps them (before the GQA repeat)."""
+    b, s, _ = x.shape
+    hd = cfg.head_dim
     h = _rms(lp.input_layernorm, x, cfg.rms_norm_eps)
     a = lp.attn
-    q = _rope(dense(a.q, h).reshape(b, s, n_h, hd), cos[:, :, None], sin[:, :, None])
-    k = _rope(dense(a.k, h).reshape(b, s, n_kv, hd), cos[:, :, None], sin[:, :, None])
-    v = dense(a.v, h).reshape(b, s, n_kv, hd)
-    kr = torch.repeat_interleave(k, n_h // n_kv, dim=2)
-    vr = torch.repeat_interleave(v, n_h // n_kv, dim=2)
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float()) * (hd ** -0.5)
-    logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
-    probs = torch.softmax(logits, dim=-1).to(vr.dtype)
-    o = torch.einsum("bhqk,bkhd->bqhd", probs, vr).reshape(b, s, d)
-    x = x + dense(a.o, o)
+    q = _rope(dense(a.q, h).reshape(b, s, cfg.num_heads, hd), cos[:, :, None], sin[:, :, None])
+    k = _rope(dense(a.k, h).reshape(b, s, cfg.num_kv_heads, hd), cos[:, :, None],
+              sin[:, :, None])
+    return q, k, dense(a.v, h).reshape(b, s, cfg.num_kv_heads, hd)
+
+
+def _finish_layer(cfg: VLTextConfig, lp: DecoderLayer, x, o):
+    """The attention output's projection and residual, then the SwiGLU MLP."""
+    x = x + dense(lp.attn.o, o)
     h = _rms(lp.post_attention_layernorm, x, cfg.rms_norm_eps)
     return x + dense(lp.mlp.down, F.silu(dense(lp.mlp.gate, h)) * dense(lp.mlp.up, h))
+
+
+def _decoder_layer(cfg: VLTextConfig, x, lp: DecoderLayer, cos, sin, mask):
+    """One Qwen2 decoder layer (GQA + qkv bias, SwiGLU) → (x, (k, v)), k and
+    v as a KV cache stores them."""
+    q, k, v = _qkv(cfg, lp, x, cos, sin)
+    return _finish_layer(cfg, lp, x, _attend(cfg, q, k, v, mask)), (k, v)
+
+
+def _causal_mask(s: int, attention_mask, device) -> torch.Tensor:
+    mask = torch.tril(torch.ones(s, s, dtype=torch.bool, device=device))[None, None]
+    if attention_mask is not None:
+        keep = torch.as_tensor(np.asarray(attention_mask) if not torch.is_tensor(
+            attention_mask) else attention_mask).to(device).bool()
+        mask = mask & keep[:, None, None, :]
+    return mask
 
 
 def text_forward(params: TextModel, cfg: VLTextConfig, inputs_embeds, position_ids,
@@ -447,29 +481,76 @@ def text_forward(params: TextModel, cfg: VLTextConfig, inputs_embeds, position_i
     that streams the layers."""
     x = inputs_embeds
     require_f32(x, "the VL language model")
-    b, s, _ = x.shape
     cos, sin = mrope_cos_sin(position_ids, cfg, x.device)
-    mask = torch.tril(torch.ones(s, s, dtype=torch.bool, device=x.device))[None, None]
-    if attention_mask is not None:
-        keep = torch.as_tensor(np.asarray(attention_mask) if not torch.is_tensor(
-            attention_mask) else attention_mask).to(x.device).bool()
-        mask = mask & keep[:, None, None, :]
+    mask = _causal_mask(x.shape[1], attention_mask, x.device)
     for lp in params.layers:
-        x = _decoder_layer(cfg, x, lp, cos, sin, mask)
+        x, _ = _decoder_layer(cfg, x, lp, cos, sin, mask)
     return _rms(params.norm, x, cfg.rms_norm_eps)
+
+
+# ===========================================================================
+# KV-cached greedy decoding (DreamOmni2's prompt enhancer)
+
+def make_kv_cache(cfg: VLTextConfig, batch: int, max_len: int, dtype=torch.float32,
+                  device=None) -> dict:
+    """{"k", "v"}: zeros [num_layers, B, max_len, n_kv, head_dim], as JAX's."""
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+@torch.no_grad()
+def text_prefill(params: TextModel, cfg: VLTextConfig, inputs_embeds, position_ids,
+                 cache: dict) -> tuple[torch.Tensor, dict]:
+    """`text_forward` (causal, no padding mask) that also writes every
+    layer's k / v into cache[:, :, :S].  Returns (hidden [B, S, D], cache)."""
+    x = inputs_embeds
+    require_f32(x, "the VL language model")
+    s = x.shape[1]
+    cos, sin = mrope_cos_sin(position_ids, cfg, x.device)
+    mask = _causal_mask(s, None, x.device)
+    for li, lp in enumerate(params.layers):
+        x, (k, v) = _decoder_layer(cfg, x, lp, cos, sin, mask)
+        cache["k"][li, :, :s] = k.to(cache["k"].dtype)
+        cache["v"][li, :, :s] = v.to(cache["v"].dtype)
+    return _rms(params.norm, x, cfg.rms_norm_eps), cache
+
+
+@torch.no_grad()
+def text_decode_step(params: TextModel, cfg: VLTextConfig, embed, position_ids, cache: dict,
+                     cache_len: int) -> tuple[torch.Tensor, dict]:
+    """One decoding step: embed [B, 1, D] at M-RoPE positions [3, B, 1],
+    its k / v written at slot `cache_len`, attending over the cache's slots
+    0 … cache_len (JAX masks the rest of the fixed-size cache with −1e30
+    and attends over all max_len slots; a masked slot's weight is an exact
+    0, so the port attends over the live slots alone).  Returns (hidden
+    [B, D] through the final norm, cache)."""
+    x = embed
+    require_f32(x, "the VL language model")
+    cos, sin = mrope_cos_sin(position_ids, cfg, x.device)
+    n = cache_len + 1
+    for li, lp in enumerate(params.layers):
+        q, k, v = _qkv(cfg, lp, x, cos, sin)
+        cache["k"][li, :, cache_len] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][li, :, cache_len] = v[:, 0].to(cache["v"].dtype)
+        o = _attend(cfg, q, cache["k"][li, :, :n].to(x.dtype), cache["v"][li, :, :n].to(x.dtype))
+        x = _finish_layer(cfg, lp, x, o)
+    return _rms(params.norm, x, cfg.rms_norm_eps)[:, 0], cache
 
 
 # ===========================================================================
 # checkpoints (transformers Qwen2_5_VLForConditionalGeneration names)
 
 def load_from_state_dict(sd: Mapping, vcfg: VLVisionConfig, tcfg: VLTextConfig,
-                         device=None) -> tuple[VisionTower, TextModel]:
-    """The vision tower and the LM on `device`, read from a checkpoint one
-    vision block and one decoder layer at a time through the port's
-    converters (`models/qwen/porting.py`, either prefix form), so the host
-    holds one layer's f32 copy at a time.  Every tensor read is recorded:
-    the keys no converter read (`lm_head.weight` among them) are reported
-    as the coverage audit does."""
+                         device=None, lm_head: bool = False):
+    """The vision tower and the LM on `device` (and with `lm_head` the LM
+    head, a `Dense` [hidden → vocab] from `lm_head.weight` or the tied
+    embedding, `convert_vl_lm_head`), read from a checkpoint one vision
+    block and one decoder layer at a time through the port's converters
+    (`models/qwen/porting.py`, either prefix form), so the host holds one
+    layer's f32 copy at a time.  Every tensor read is recorded: the keys no
+    converter read (`lm_head.weight` among them when the head is not
+    asked for) are reported as the coverage audit does."""
     from qflux_tpu_torch.models import bridge, porting
     from qflux_tpu_torch.models.qwen import porting as qporting
 
@@ -489,5 +570,10 @@ def load_from_state_dict(sd: Mapping, vcfg: VLVisionConfig, tcfg: VLTextConfig,
     tpre = qporting.text_prefix(tsd)
     for i, lp in enumerate(text.layers):
         bridge.load_params(lp, qporting.vl_text_layer(tsd, tpre, i))
+    head = None
+    if lm_head:
+        head = Dense(tcfg.hidden_size, tcfg.vocab_size, bias=False, device=device,
+                     dtype=torch.float32)
+        bridge.load_params(head, qporting.convert_vl_lm_head(tsd))
     porting.report_unconsumed(tsd.unconsumed(), len(sd), "the Qwen2.5-VL converters")
-    return vision, text
+    return (vision, text, head) if lm_head else (vision, text)

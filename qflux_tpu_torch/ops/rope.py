@@ -2,7 +2,7 @@
 coordinates), rotate-half layout.
 
 Counterpart of qflux_tpu/ops/rope.py (`rope_from_coords`, `flux_image_ids`,
-`flux_text_ids`, `qwen_video_coords`, `qwen_rope`,
+`flux_text_ids`, `dreamomni2_control_ids`, `qwen_video_coords`, `qwen_rope`,
 `interleaved_to_half_perm`, `half_to_interleaved_perm`).  The inverse
 frequencies are computed in float64 on the host and cast to float32, as in
 the JAX code; the q/k projection channels are already permuted to the
@@ -53,6 +53,19 @@ def half_to_interleaved_perm(d: int) -> np.ndarray:
 
 def flux_text_ids(seq_len: int) -> np.ndarray:
     return np.zeros((seq_len, 3), dtype=np.float32)
+
+
+def dreamomni2_control_ids(shapes: list[tuple[int, int]]) -> np.ndarray:
+    """Ids of DreamOmni2's N reference images: image i gets set id i + 1 and
+    row and column offsets summed over the images before it, as JAX's.  The
+    row offset is JAX's own: the reference pipeline offsets the columns
+    only, and the port keeps JAX's ids."""
+    out, h_off, w_off = [], 0, 0
+    for i, (h, w) in enumerate(shapes):
+        out.append(flux_image_ids(h, w, set_id=i + 1, h_offset=h_off, w_offset=w_off))
+        h_off += h
+        w_off += w
+    return np.concatenate(out, axis=0)
 
 
 def qwen_video_coords(frame: int, height: int, width: int, idx: int = 0,

@@ -29,10 +29,13 @@ trainer's, so either package resumes the other's run:
 
 Batches of pixels, validation sampling, the cache pass, predict on raw
 images and `predict_multires` (one padded sampler call over items of
-different sizes) run each family's encoders: FLUX.1-Kontext's VAE encoder,
-CLIP-L and T5-XXL; Qwen-Image-Edit's 3D VAE encoder and Qwen2.5-VL.
-Orbax's async checkpoints and the hub push are not ported (item 2).  `history` records loss, grad_norm, lr and the step's
-host times per step.
+different sizes; the families whose JAX adapter has it) run each family's
+encoders: FLUX.1-Kontext's and DreamOmni2's VAE encoder, CLIP-L and T5-XXL
+(DreamOmni2's prompts first rewritten by Qwen2.5-VL where its enhancer is
+on); Qwen-Image-Edit's and Qwen-Image-Edit-Plus's 3D VAE encoder and
+Qwen2.5-VL; FLUX.2-Klein's VAE encoder and Qwen3.  Orbax's async
+checkpoints and the hub push are not ported (item 2).  `history` records
+loss, grad_norm, lr and the step's host times per step.
 
 The Trainer reads its settings by attribute, from the namespaces of the
 port's own loader (`qflux_tpu_torch/config.py`: `Trainer.from_yaml` reads a
@@ -40,18 +43,20 @@ YAML file of the JAX package's format, or one in JSON syntax where PyYAML
 is absent; `predict_config()` and `train_config()` build the same
 namespaces in code).  `python -m qflux_tpu_torch.main` is the CLI.
 
-Two model families are ported: FLUX.1-Kontext and Qwen-Image-Edit, each
-with predict and the LoRA train step, from synthetic weights or from a
-diffusers checkpoint directory (`model.pretrained_model_name_or_path`,
-read block by block).  `load_model` quantizes the DiT with
-`ops/quant.quantize_tree` where `model.quantize.enabled`, in every dtype
-JAX's config allows (int8 by default; int8 / fp8 weight-only, W8A8
-`int8_dynamic`, the int4 forms), and `fit` trains over that base (on the
-card the input gradients of the fused int4 matmuls are kernels K5b and
-K6b, and W8A8's runs the int8 GEMM of csrc/int8_gemm.cu).  `quantize.attention` runs
-the int8 score GEMM of K1 and K2 wherever JAX on a TPU would (S up to 2560
-at head dim 128; bf16 attention through K3 / K4 elsewhere, as there), and the remat
-policies not ported raise in the transformer.
+The five trainers of JAX's TrainerKind are ported (`ADAPTERS`):
+FLUX.1-Kontext, Qwen-Image-Edit, Qwen-Image-Edit-Plus, DreamOmni2 and
+FLUX.2-Klein, each with predict and the LoRA train step, from synthetic
+weights or from a diffusers checkpoint directory
+(`model.pretrained_model_name_or_path`, read block by block).
+`load_model` quantizes the DiT with `ops/quant.quantize_tree` where
+`model.quantize.enabled`, in every dtype JAX's config allows (int8 by
+default; int8 / fp8 weight-only, W8A8 `int8_dynamic`, the int4 forms), and
+`fit` trains over that base (on the card the input gradients of the fused
+int4 matmuls are kernels K5b and K6b, and W8A8's runs the int8 GEMM of
+csrc/int8_gemm.cu).  `quantize.attention` runs the int8 score GEMM of K1
+and K2 wherever JAX on a TPU would (S up to 2560 at head dim 128; bf16
+attention through K3 / K4 elsewhere, as there), and the remat policies not
+ported raise in the transformer.
 """
 
 from __future__ import annotations
@@ -79,8 +84,11 @@ from qflux_tpu_torch.ops.layers import (build_lora_tree, iter_dense_paths, mark_
 from qflux_tpu_torch.ops.quant import quantize_tree
 from qflux_tpu_torch.scheduler.flow_match import FlowMatchScheduler
 from qflux_tpu_torch.scheduler.weighting import default_weighting_table, load_weighting_table
+from qflux_tpu_torch.trainer.dreamomni2 import DreamOmni2Adapter
+from qflux_tpu_torch.trainer.flux2_klein import Flux2KleinAdapter
 from qflux_tpu_torch.trainer.flux_kontext import FluxKontextAdapter
 from qflux_tpu_torch.trainer.qwen_edit import QwenImageEditAdapter
+from qflux_tpu_torch.trainer.qwen_edit_plus import QwenImageEditPlusAdapter
 from qflux_tpu_torch.trainer.sampling import SamplingConfig, make_sampler
 from qflux_tpu_torch.trainer.train_step import (TrainStepConfig, lora_leaves,
                                                 make_lr_schedule, make_train_step)
@@ -91,15 +99,18 @@ from qflux_tpu_torch.utils.lora_io import load_lora_safetensors, save_lora_safet
 from qflux_tpu_torch.utils.model_summary import model_summary_rows
 from qflux_tpu_torch.utils.tensors import numeric_suffix_key
 
+# every trainer of JAX's TrainerKind (qflux_tpu/config.py)
 ADAPTERS = {"FluxKontextLoraTrainer": FluxKontextAdapter,
-            "QwenImageEditTrainer": QwenImageEditAdapter}
+            "QwenImageEditTrainer": QwenImageEditAdapter,
+            "QwenImageEditPlusTrainer": QwenImageEditPlusAdapter,
+            "DreamOmni2Trainer": DreamOmni2Adapter,
+            "Flux2KleinLoraTrainer": Flux2KleinAdapter}
 # loss.class_path → the port's loss (the JAX names, as configs carry them)
 CRITERIA = {f"{pkg}.{name}": getattr(losses, name)
             for pkg in ("qflux_tpu.losses", "qflux_tpu.losses.losses")
             for name in ("MseLoss", "MaskEditLoss", "AttentionMaskMseLoss")}
 ADAMW_ARGS = ("b1", "b2", "eps", "weight_decay")  # the optax.adamw arguments ported
 ITEM_2 = "ROADMAP.md, queue 1 item 2: \"The rest of slice B, part 1: files, real weights and data\""
-ITEM_6 = "ROADMAP.md, queue 1 item 6: \"Remaining families\""
 
 
 def get_git_info() -> dict:
@@ -146,9 +157,7 @@ class Trainer:
             torch.backends.cuda.matmul.allow_tf32 = False
         kind = config.trainer.value
         if kind not in ADAPTERS:
-            raise NotImplementedError(
-                f"trainer {kind!r} is not ported yet (ROADMAP.md: the port's slices; "
-                f"ported: {sorted(ADAPTERS)})")
+            raise ValueError(f"unknown trainer {kind!r} (the trainers: {sorted(ADAPTERS)})")
         self.adapter_cls = ADAPTERS[kind]
         self.scheduler = FlowMatchScheduler()
         self.fps = FpsLogger()
@@ -321,7 +330,7 @@ class Trainer:
         Trainer's `_device_batch`; ids rebuilt by the adapter.  On a CUDA
         device a host tensor is pinned and copied without blocking, so the
         copy queues behind a step still running instead of waiting for it."""
-        emb = self.adapter.prepare_cached_embeddings(emb)
+        emb = self._prepare_cached(emb)
         cuda = self.device.type == "cuda"
         out = {}
         for k, v in emb.items():
@@ -332,14 +341,6 @@ class Trainer:
                 t = t.pin_memory()
             out[k] = t.to(self.device, non_blocking=cuda)
         return out
-
-    def _require_encoders(self, what: str) -> None:
-        """NotImplementedError where the adapter has no encoders
-        (`prepare_embeddings`): both ported families have them."""
-        if not hasattr(self.adapter_cls, "prepare_embeddings"):
-            raise NotImplementedError(
-                f"{what} needs {self.config.trainer.value}'s VAE and text encoders, which are "
-                f"not ported yet ({ITEM_6}); train from an embedding cache")
 
     def _embeddings_for_batch(self, batch: dict) -> dict:
         """A collated batch (or a plain dict of arrays) → the step's
@@ -353,7 +354,6 @@ class Trainer:
         flagged `drop_context` (prompt-image dropout) are zeroed, as the
         cached path zeroes them at load."""
         if "image_latents" not in batch:
-            self._require_encoders("a batch of pixels")
             emb = self.adapter.prepare_embeddings(self.bundle, batch,
                                                   self.config.predict.max_sequence_length)
             flags = batch.get("drop_context")
@@ -373,7 +373,15 @@ class Trainer:
             for k in ("img_ids", "txt_ids"):
                 if k in emb and emb[k].ndim == 3:
                     emb[k] = emb[k][0]  # shared ids, collated per sample
-        return self.adapter.prepare_cached_embeddings(emb)
+        return self._prepare_cached(emb)
+
+    def _prepare_cached(self, emb: dict) -> dict:
+        """The adapter's `prepare_cached_embeddings` where it has one (FLUX's
+        ids, Qwen's RoPE tables), else the embeddings as they are (Klein),
+        as the JAX Trainer."""
+        if hasattr(self.adapter, "prepare_cached_embeddings"):
+            return self.adapter.prepare_cached_embeddings(emb)
+        return emb
 
     def _build_multires_masks(self, emb: dict, valid: dict) -> dict:
         """A mixed-resolution batch, right-padded by `collate`: segment ids
@@ -435,10 +443,6 @@ class Trainer:
                 "synchronous checkpoint files are")
         if cfg.logging.push_to_hub:
             raise NotImplementedError(f"logging.push_to_hub is not ported yet ({ITEM_2})")
-        v = cfg.validation
-        if v.enabled and (v.samples or v.dataset):
-            self._require_encoders("validation sampling (validation.samples / "
-                                   "validation.dataset)")
 
     def fit(self, dataloader):
         """Train the LoRA on `dataloader`: a `data.loader.DataLoader`, or any
@@ -684,7 +688,6 @@ class Trainer:
         written; `last_cache` holds that, the pass's seconds (the model's
         load apart) and per sample written its `encode_s` (the encoders,
         ending with the arrays on the host) and `write_s` (the npz files)."""
-        self._require_encoders("the cache pass")
         if self.adapter is None:
             self.load_model()
         cache_dir = self.config.cache.cache_dir
@@ -751,7 +754,6 @@ class Trainer:
         LoRA of model.lora.pretrained_weight when the trainer has none;
         `negative_prompt` (default " ") where predict.true_cfg_scale > 1;
         other keywords go to `predict_from_embeddings`)."""
-        self._require_encoders("predict on raw images")
         if self.adapter is None:
             self.load_model()
         if self.lora is None and self.config.model.lora.pretrained_weight:
@@ -847,7 +849,6 @@ class Trainer:
         built for these samples alone and freed after them, so the steps
         that follow never hold them; the bundle's factory rebuilds them
         where a later call needs them."""
-        self._require_encoders("validation sampling")
         built_here = not self.bundle.text_params and self.bundle.text_factory is not None
         samples = self._load_validation_samples()
         self._validation_prompts = [s["prompt"] for s in samples]

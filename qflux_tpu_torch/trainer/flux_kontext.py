@@ -93,7 +93,9 @@ def text_encoders(bundle: ModelBundle) -> dict:
 class SimpleTokenizer:
     """The JAX package's hash fallback tokenizer: each whitespace-separated
     word → crc32(word) % (vocab_size - 2) + 1, cut to max_length - 1, then
-    the EOS id where there is one, zeros after.  Not a real vocabulary."""
+    the EOS id where there is one, zeros after.  Not a real vocabulary, so
+    `decode` writes placeholder words ("tok<id>"), as JAX's does, for the
+    greedy decoding of DreamOmni2's prompt enhancer."""
 
     def __init__(self, vocab_size: int, max_length: int, eos_token_id: Optional[int] = None):
         self.vocab_size = vocab_size
@@ -110,6 +112,9 @@ class SimpleTokenizer:
             if self.eos is not None:
                 out[i, len(toks)] = self.eos
         return out
+
+    def decode(self, ids, skip_special_tokens: bool = True) -> str:
+        return " ".join(f"tok{int(i)}" for i in ids if int(i) != 0)
 
 
 def load_tokenizers(root: Optional[Path], tokenizer_path=None) -> dict:
@@ -204,6 +209,12 @@ class FluxKontextAdapter:
     )
 
     @classmethod
+    def _load_quantize(cls, config):
+        """The quantization applied to each DiT block as a checkpoint loads
+        (`quantize_config`; the Trainer quantizes the rest after `load`)."""
+        return quantize_config(config)
+
+    @classmethod
     def load(cls, config, device, dtype=torch.bfloat16) -> tuple["FluxKontextAdapter", ModelBundle]:
         """The DiT in `dtype`, the VAE and the text encoders in float32 on
         `device`, at the widths of the variant's config: `FluxConfig()` /
@@ -258,7 +269,7 @@ class FluxKontextAdapter:
                 dit_cfg, num_layers=porting.count_blocks(sd, "transformer_blocks"),
                 num_single_layers=porting.count_blocks(sd, "single_transformer_blocks"))
             bundle.dit_params = flux.load_from_state_dict(sd, dit_cfg, device, dtype,
-                                                          quantize=quantize_config(config))
+                                                          quantize=cls._load_quantize(config))
             if files[1] is not None:
                 tree = _load_dir(files[1], porting.convert_flux_vae, "the VAE",
                                  num_blocks=len(vae_cfg.block_out_channels),

@@ -90,6 +90,48 @@ def _config(root: Path, data: Path, trainer="FluxKontextLoraTrainer", **over) ->
     return path
 
 
+def run_example_config(tmp_path: Path, name: str, mode: str, model=None, processor=None,
+                       controls: int = 1):
+    """configs/<name> at variant test through the port's CLI on the CPU:
+    its checkpoint path dropped, `model` / `processor` merged into its
+    sections, its data a tiny folder of two samples (`_write_folder`; the
+    second has a second control), f32, bs 1, two steps, the text at MSL
+    positions.  `--cache` first, then the `mode`'s run: a fit from that
+    cache ("fit") or `--predict` on `controls` copies of a control PNG
+    ("--predict"; "--cache": nothing more).  Returns (the cache pass's trainer, the mode's trainer, the PNG written
+    or None)."""
+    import yaml
+
+    from qflux_tpu_torch import main as cli
+
+    data = _write_folder(tmp_path, 2)
+    raw = yaml.safe_load((Path(__file__).resolve().parents[1] / "configs" / name).read_text())
+    raw["model"].update(variant="test", pretrained_model_name_or_path=None, **(model or {}))
+    raw["data"]["init_args"]["dataset_path"] = str(data)
+    raw["data"]["processor"].update(processor or {"target_size": [32, 32]})
+    raw["data"]["batch_size"] = 1
+    raw["train"].update(max_train_steps=2, weight_dtype="float32")
+    raw["logging"]["output_dir"] = str(tmp_path / "out")
+    raw["predict"] = {"max_sequence_length": MSL}
+    path = tmp_path / name
+    path.write_text(yaml.safe_dump(raw))
+    assert Trainer.from_yaml(str(path), device="cpu").adapter_cls.__name__.endswith("Adapter")
+    base = ["--config", str(path), "--device", "cpu"]
+    cached = cli.main(base + ["--cache"])
+    assert cached.last_cache["samples"] == 2
+    tr, out = cached, None
+    if mode == "fit":
+        tr = cli.main(base)
+        assert tr.global_step == 2 and np.isfinite([h["loss"] for h in tr.history]).all()
+    elif mode == "--predict":
+        out = tmp_path / "edit.png"
+        ctl = str(data / "control_images" / "sample_000.png")
+        tr = cli.main(base + ["--predict", *(["--control", ctl] * controls), "--prompt",
+                              "make it blue", "--output", str(out), "--steps", "2"])
+        assert png.read_png(out).ndim == 3 and tr.last_predict["latents_finite"]
+    return cached, tr, out
+
+
 @pytest.fixture(scope="module")
 def weights():
     """JAX's tiny FLUX model set (DiT, VAE, CLIP, T5) filled from numpy,

@@ -1536,3 +1536,55 @@ def test_qwen_encoders_on_card_match_cpu(monkeypatch):
         got, want = got.cpu().double(), want.double()
         err = float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
         assert err < chip_smoke.ENCODER_REL_TOL, (name, err)
+
+
+def test_klein_dit_through_k1_k2_on_card_matches_cpu():
+    """FLUX.2-Klein's DiT (flux2_config: 4-axis RoPE, no pooled projection,
+    guidance embeds) cut to 1 + 1 blocks of 2 heads × 128, bf16, through
+    the Klein adapter's predict_velocity: on the card every block's
+    attention is K1 and its backward K2 (one launch each a block), and the
+    output and the LoRA gradients are within relative L2 5e-2 of the same
+    model on the CPU (bf16 rounding at other points on the two paths)."""
+    import copy
+
+    from qflux_tpu_torch.ops.layers import build_lora_tree, mark_trainable, merge_lora
+    from qflux_tpu_torch.trainer import flux2_klein as tklein
+
+    cfg = tklein.flux2_config(num_layers=1, num_single_layers=1, attention_head_dim=128,
+                              num_attention_heads=2, joint_attention_dim=3 * 48,
+                              in_channels=16, out_channels=16)
+    cpu = tklein.flux.init(torch.Generator().manual_seed(0), cfg, "cpu", torch.bfloat16)
+    card = copy.deepcopy(cpu).cuda()
+    adapter = tklein.Flux2KleinAdapter(cfg, remat=True, remat_policy="flash")
+    rng = np.random.default_rng(0)
+    gh = gw = 8
+    batch = {"control_latents": rng.standard_normal((1, gh * gw, 16)),
+             "prompt_embeds": rng.standard_normal((1, 32, 3 * 48)),
+             "img_ids": np.concatenate([tklein.latent_ids_4d(gh, gw, 0),
+                                        tklein.latent_ids_4d(gh, gw, 1)]),
+             "txt_ids": tklein.text_ids_4d(32)}
+    lat = rng.standard_normal((1, gh * gw, 16))
+    lora0 = build_lora_tree(torch.Generator().manual_seed(1), cpu, [r"attn/(to_q|to_k|to_v)"],
+                            4, 4.0)
+    for i, leaf in enumerate(lora0.values()):
+        leaf["b"] = torch.full_like(leaf["b"], 0.01 * (i + 1))
+    out = {}
+    for dev, model in (("cpu", cpu), ("cuda", card)):
+        b = {k: torch.from_numpy(np.asarray(v, np.float32)).to(dev) for k, v in batch.items()}
+        for k in ("control_latents", "prompt_embeds"):
+            b[k] = b[k].to(torch.bfloat16)
+        lora = mark_trainable({p: {k: v.clone().to(dev) for k, v in leaf.items()}
+                               for p, leaf in lora0.items()})
+        merge_lora(model, lora)
+        k1, k2 = tnr.KERNEL_LAUNCHES, tnr.BWD_KERNEL_LAUNCHES
+        y = adapter.predict_velocity(model, b, torch.from_numpy(lat.astype(np.float32)).to(
+            dev, torch.bfloat16), torch.full((1,), 0.5, device=dev))
+        y.float().pow(2).mean().backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert tnr.KERNEL_LAUNCHES - k1 == 2 and tnr.BWD_KERNEL_LAUNCHES - k2 == 2
+        out[dev] = (y.detach().float().cpu(),
+                    torch.cat([leaf[k].grad.flatten().cpu()
+                               for leaf in lora.values() for k in ("a", "b")]))
+    for got, want in zip(out["cuda"], out["cpu"]):
+        assert ((got - want).norm() / want.norm()).item() <= 5e-2

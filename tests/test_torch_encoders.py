@@ -3,7 +3,9 @@ encoder, models/flux/text_encoders.py, the CLIP / T5 converters of
 models/porting.py, models/bridge.py's loaders) against the JAX package on
 the CPU, on the same numpy inputs and weights, at tiny widths; and against
 transformers' CLIPTextModel / T5EncoderModel on the state dicts of those
-models, through both packages' converters.
+models, through both packages' converters; FLUX.2-Klein's Qwen3
+(qflux_tpu_torch/models/flux2/text_encoder.py) against transformers'
+Qwen3ForCausalLM too (its JAX parity is tests/test_torch_flux2_klein.py).
 
 Bounds: relative L2 error < 2e-5 against JAX (the same f32 math, summed in
 other orders), < 1e-5 against transformers (the bound
@@ -24,6 +26,7 @@ from qflux_tpu_torch.models import bridge
 from qflux_tpu_torch.models import porting as tporting
 from qflux_tpu_torch.models.flux import text_encoders as tte
 from qflux_tpu_torch.models.flux import vae as tvae
+from qflux_tpu_torch.models.flux2 import text_encoder as tq3
 from qflux_tpu_torch.utils.safetensors import SafeTensors, save_file
 from tests.test_torch_ops import random_tree as _random_tree
 from tests.test_torch_ops import rel_err as _rel_err
@@ -363,3 +366,31 @@ def test_checkpoint_text_encoders_are_read_on_first_use(tmp_path):
     tr.load_model()
     with pytest.raises(FileNotFoundError, match="t5"):
         text_encoders(tr.bundle)
+
+
+def test_qwen3_matches_transformers():
+    """transformers' Qwen3ForCausalLM (tiny, random, the config of
+    tests/models/test_qwen3_parity.py) through the port's `convert_qwen3`:
+    hidden_states (1, 2, 3) at the valid positions within HF_TOL
+    (transformers lets padded positions attend to padded inputs)."""
+    from transformers import Qwen3Config as HFConfig, Qwen3ForCausalLM
+
+    torch.manual_seed(0)
+    hf = Qwen3ForCausalLM(HFConfig(
+        hidden_size=48, num_hidden_layers=4, num_attention_heads=4, num_key_value_heads=2,
+        head_dim=12, intermediate_size=96, vocab_size=512, rope_theta=1_000_000.0,
+        rms_norm_eps=1e-6, max_position_embeddings=2048, tie_word_embeddings=False)).eval()
+    tcfg = tq3.Qwen3Config.tiny()
+    enc = bridge.load_text_params(tq3.Qwen3Encoder(tcfg),
+                                  tq3.convert_qwen3(hf.state_dict(), tcfg.num_layers))
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, 512, size=(2, 10))
+    mask = np.ones((2, 10), np.int64)
+    mask[1, 7:] = 0
+    with torch.no_grad():
+        out = hf(input_ids=torch.from_numpy(ids), attention_mask=torch.from_numpy(mask),
+                 output_hidden_states=True, use_cache=False)
+    ref = torch.cat([out.hidden_states[k] for k in (1, 2, 3)], dim=-1).numpy()
+    got = tq3.encode(enc, tcfg, ids, attention_mask=mask, hidden_states_layers=(1, 2, 3)).numpy()
+    valid = mask.astype(bool)
+    assert _rel_err(got[valid], ref[valid]) < HF_TOL

@@ -357,8 +357,11 @@ def test_port_never_imports_jax(tmp_path):
     Trainer.from_yaml, and the file layer: the tiny FLUX DiT loaded block by
     block from a safetensors file, the fit's LoRA file read back, and a run
     resumed from its checkpoint; at head dim 32 their attention takes the
-    K3 route's plain version; and `python -m qflux_tpu_torch.main` in
-    process on a cached folder dataset, one padded mixed-resolution step)
+    K3 route's plain version; `python -m qflux_tpu_torch.main` in
+    process on a cached folder dataset, one padded mixed-resolution step;
+    and Qwen-Image-Edit-Plus, FLUX.2-Klein and DreamOmni2 with its prompt
+    enhancer, each a predict request on two raw control images and a fit
+    step on a batch of pixels)
     leaves jax (and the JAX package, its config included) out of
     sys.modules, and the data layer, the CLI and its logging import none
     of cv2, PIL, pandas, tensorboardX, tensorboard or datasets."""
@@ -431,6 +434,20 @@ def test_port_never_imports_jax(tmp_path):
         "Path('cli.json').write_text(json.dumps(raw))\n"
         "ct = cli.main(['--config', 'cli.json', '--device', 'cpu'])\n"
         "assert ct.global_step == 1 and np.isfinite(ct.history[0]['loss'])\n"
+        "from qflux_tpu_torch.config import config_from_dict\n"
+        "img = rng.integers(0, 256, (32, 32, 3), dtype=np.uint8)\n"
+        "for kind in ('QwenImageEditPlusTrainer', 'Flux2KleinLoraTrainer', 'DreamOmni2Trainer'):\n"
+        "    ft = Trainer(config_from_dict({'trainer': kind, 'model': {\n"
+        "        'variant': 'test', 'use_vlm_prompt_enhancer': kind == 'DreamOmni2Trainer'},\n"
+        "        'train': {'weight_dtype': 'float32', 'max_train_steps': 1,\n"
+        "                  'checkpointing_steps': 100},\n"
+        "        'logging': {'output_dir': 'fam', 'project': kind},\n"
+        "        'data': {'processor': {'target_size': [32, 32]}},\n"
+        "        'predict': {'num_inference_steps': 1, 'max_sequence_length': 16}}), device='cpu')\n"
+        "    out = ft.predict([img, img], 'add a hat')\n"
+        "    assert out.shape == (1, 32, 32, 3) and ft.last_predict['latents_finite']\n"
+        "    ft.fit([{'image': img[None], 'control': img[None], 'prompt': ['add a hat']}])\n"
+        "    assert ft.global_step == 1 and np.isfinite(ft.history[0]['loss'])\n"
         "heavy = sorted(m for m in sys.modules if m.split('.')[0] in (\n"
         "    'cv2', 'PIL', 'pandas', 'tensorboardX', 'tensorboard', 'tensorflow', 'datasets'))\n"
         "assert not heavy, heavy\n"

@@ -202,7 +202,9 @@ def test_trainer_predict_from_embeddings(tiny_trainer):
 def test_trainer_from_yaml_and_refusals(tmp_path):
     """The YAML entry point goes through the port's own loader
     (qflux_tpu_torch/config.py), over a full-precision and an int8
-    weight-only base; a trainer the port does not cover raises."""
+    weight-only base; a trainer of JAX's TrainerKind that the first slices
+    lacked (QwenImageEditPlusTrainer) builds, and a name outside
+    TrainerKind raises."""
     cfg = tmp_path / "cfg.yaml"
     cfg.write_text("trainer: FluxKontextLoraTrainer\nmodel:\n  variant: test\n"
                    "predict:\n  num_inference_steps: 2\n")
@@ -219,6 +221,10 @@ def test_trainer_from_yaml_and_refusals(tmp_path):
     assert tr.bundle.dit_params.x_embedder.q_form is None  # the skip patterns
     img = tr.predict_from_embeddings(_request(1, 1), H, W)
     assert img.shape == (1, H, W, 3)
-    cfg.write_text("trainer: QwenImageEditPlusTrainer\n")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    cfg.write_text("trainer: QwenImageEditPlusTrainer\nmodel:\n  variant: test\n")
+    tr = Trainer.from_yaml(str(cfg), device="cpu")  # every trainer of JAX's TrainerKind builds
+    tr.load_model()
+    assert type(tr.adapter).__name__ == "QwenImageEditPlusAdapter"
+    cfg.write_text("trainer: QwenImageEditPlus2Trainer\n")  # not a TrainerKind
+    with pytest.raises(ValueError, match="unknown trainer"):
         Trainer.from_yaml(str(cfg), device="cpu")

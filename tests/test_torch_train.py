@@ -215,6 +215,48 @@ def _jax_step(jcfg, jp, jl, batch, noise, sigma, criterion, accum, max_norm, opt
     return sum(losses) / accum, grads, gnorm, optax.apply_updates(jl, updates)
 
 
+def assert_step_matches_jax(jadapter, jparams, jl, jbatch, tadapter, model, tbatch, noise,
+                            sigma, rel_tol=2e-5) -> dict:
+    """One MseLoss LoRA step of another family's adapter at injected noise
+    and σ, without a clip: JAX's loss and gradients (`_jax_step`'s loss,
+    under jax.jit) against the port's `make_train_step` on the same LoRA
+    (`jl`, bridged into `model`): the loss and grad_norm within `rel_tol`,
+    every a / b gradient JAX gives a nonzero value within 1e-4 relative L2
+    (the bound and its reason: `test_train_step_matches_jax`).  Returns
+    JAX's gradients as the port's numpy LoRA tree."""
+    def loss_fn(lora):
+        lat, nz, sg = jbatch["image_latents"], jnp.asarray(noise), jnp.asarray(sigma)
+        pred = jadapter.predict_velocity(jlayers.merge_lora(jparams, lora), jbatch,
+                                         jfm.FlowMatchScheduler.add_noise(lat, nz, sg), sg)
+        return jlosses.MseLoss()(pred, jfm.FlowMatchScheduler.training_target(lat, nz))
+
+    j_loss, j_grads = jax.jit(jax.value_and_grad(loss_fn))(jl)
+    j_loss, j_gnorm = float(j_loss), float(optax.global_norm(j_grads))
+    lora = tlayers.mark_trainable(bridge.lora_from_tree(model, jax.tree.map(np.asarray, jl)))
+    opt = torch.optim.AdamW(tts.lora_leaves(lora)[0], lr=1e-3)
+    step = tts.make_train_step(tadapter.predict_velocity, tlosses.MseLoss(), opt,
+                               lambda i: 1e-3, tts.TrainStepConfig(max_grad_norm=1e9))
+    seen = {}
+    orig = opt.step
+
+    def spy():
+        seen.update(bridge.lora_to_numpy(lora, grads=True))
+        orig()
+
+    opt.step = spy
+    m = step(model, lora, tbatch, None, noise=torch.from_numpy(noise),
+             sigma=torch.from_numpy(sigma))
+    assert abs(float(m["loss"]) - j_loss) <= rel_tol * abs(j_loss)
+    assert abs(float(m["grad_norm"]) - j_gnorm) <= rel_tol * j_gnorm
+    want = bridge.lora_to_numpy(bridge.lora_from_tree(model, jax.tree.map(np.asarray, j_grads)))
+    assert sorted(seen) == sorted(want)
+    for p, w in want.items():
+        for k in ("a", "b"):
+            if np.abs(w[k]).max() > 0:
+                assert _rel_err(seen[p][k], w[k]) < 1e-4, (p, k)
+    return want
+
+
 @pytest.mark.parametrize("loss_name", ["MseLoss", "MaskEditLoss"])
 @pytest.mark.parametrize("accum", [1, 2])
 def test_train_step_matches_jax(tiny_pair, loss_name, accum):
