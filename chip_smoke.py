@@ -87,13 +87,13 @@ runs K6a and its dx K6b (path C).  In phases:
      each timed alone (its prep apart) beside its bound, bf16 K1 / K2
      alone, the wrapper and SDPA flash;
  12. Qwen 512² predict with int8 attention (path A: path B's
-     configuration at full width cut to 20 of its 60 blocks, CUT_BLOCKS,
+     configuration at full width cut to 10 of its 60 blocks, AC_BLOCKS,
      for the smoke's time budget): a forward through K1 s_int8 against
-     the plain int8 attention, two requests with exactly 20 K1 s_int8 and
-     243 K5a launches per denoising step, and a profiled step;
+     the plain int8 attention, two requests with exactly 10 K1 s_int8 and
+     123 K5a launches per denoising step, and a profiled step;
  13. Qwen 512² train (path A): one step's LoRA gradients through the
      kernels against the plain int8 attention, then Trainer.fit at bs=1
-     and bs=2 with exactly 20 K1 s_int8, 20 K2 s_int8, 483 K5a and 232
+     and bs=2 with exactly 10 K1 s_int8, 10 K2 s_int8, 243 K5a and 112
      K5b launches per step, then a profiled step;
  14. kernel K6a (csrc/int4_fwd.cu), the W4A16 matmul, against its plain
      version (the int4-requant model freed first) at every GEMM shape of
@@ -105,15 +105,15 @@ runs K6a and its dx K6b (path C).  In phases:
  15. kernel K6b (csrc/int4_bwd.cu), its backward, in the same way at the dx
      of every K6a case; then the two wrappers' host time per call at the
      main shape and at M = 1;
- 16. Qwen 512² predict over the int4 base (path C, cut to 20 of the 60
+ 16. Qwen 512² predict over the int4 base (path C, cut to 10 of the 60
      blocks as path A): a forward through K6a + K1 against the
      plain W4A16 route and against the default dequant route (which
-     launches no K6a), three requests with exactly 20 K1 and 281 K6a
+     launches no K6a), three requests with exactly 10 K1 and 141 K6a
      launches per denoising step, a profiled step;
  17. Qwen 512² train over the int4 base (path C): one step's LoRA
      gradients through K6a + K6b + K1 + K2 against the plain path, then
-     Trainer.fit at bs=1 and bs=2 with exactly 20 K1, 20 K2, 521 K6a and
-     231 K6b launches per step, then a profiled step.
+     Trainer.fit at bs=1 and bs=2 with exactly 10 K1, 10 K2, 261 K6a and
+     111 K6b launches per step, then a profiled step.
 
 The file layer (checkpoints, resume, weights and LoRA files) runs as three
 more phases, A and B after 6 (on its FLUX model), C after 13 (on its Qwen
@@ -240,6 +240,32 @@ phase's wall time printed:
      item's size; (e) every kernel (a)-(d) launched held to its plain
      version at each shape they launched it at (recorded by wrapping the
      launchers), K3 / K4 with the path's own segment ids.
+
+The remat policies, the out-of-memory fallback and adamw8bit run as phase
+I, after H, each line with the card's name and power limit and the phase's
+wall time printed (`python3 chip_smoke.py --remat` runs phase I alone):
+
+  I. (a) FLUX.1-Kontext-dev at full width (19 + 38 blocks, bf16, 512² with
+     one control, S = 2,560): one bs=1 step's LoRA gradients at a fixed
+     noise and σ under every policy (full, flash, flash_offload, dots,
+     dots_all, flash_qkv, flash_mlp, flash_single), each equal to "full"'s
+     to the bit; then each of full, dots, dots_all, flash_qkv, flash_mlp
+     and flash_single at bs=1 and bs=2, one warm step and two timed ones:
+     ms per step, peak memory, and K1 / K2 a step (114 / 57 under full,
+     dots, dots_all; 57 / 57 under flash_qkv, flash_mlp; 76 / 57 under
+     flash_single); (b) the 20B Qwen DiT over int4_requant cut to 20 blocks
+     at 832×576 (S = 4,000, K3 / K4), bs=1, one step each under full, dots
+     and flash_mlp: gradients equal to "full"'s to the bit, K5a 483 / 243 /
+     443 a step, K3 40 / 40 / 20, K4 20, K5b 232, then every kernel held to
+     its plain version at the shapes the steps launched it at; (c) the
+     process capped (`torch.cuda.set_per_process_memory_fraction`, lifted
+     after) half-way between (a)'s bs=2 peaks of full and dots:
+     `Trainer.fit` under mesh.remat: minimal at bs=2 runs out of memory,
+     warns, degrades to "full" once and finishes its steps; (d)
+     `Trainer.fit` with optimizer.class_path
+     qflux_tpu.ops.adam8bit.adamw8bit, four bs=1 steps: finite, moving
+     losses, the fp8 state's bytes beside AdamW's, and one more update on
+     the card against the same update on the CPU, to the bit.
 
 Every temporary file (the fits' run dirs included) is removed before the
 smoke exits.  Each path runs with the launch counts set to 0 just before
@@ -2015,7 +2041,7 @@ def phase_kernel_int8(card: str) -> tuple[dict, dict]:
 
 def phase_qwen512_predict(card: str, trainer) -> tuple[int, int, int]:
     """Path A, predict: path B's configuration (quantize.attention on; its
-    own model, cut to CUT_BLOCKS blocks by `_qwen_cut`) at
+    own model, cut to AC_BLOCKS blocks by `_qwen_cut`) at
     512² with one control image and 256 text tokens (S = 2304), where the
     int8 score GEMM applies.  A full-width forward through K5a + K1 s_int8
     against K5a + the plain int8 attention ("int8_plain"); then two
@@ -2487,9 +2513,12 @@ class _CutDepth:
         return False
 
 
-# paths A and C run the published DiT at full width cut in depth to this many
-# of its 60 blocks (the smoke's time budget, which phase G shares)
+# the published DiT at full width cut in depth to this many of its 60
+# blocks: Qwen-Image-Edit-Plus (phase H) and the remat policies (phase I)
 CUT_BLOCKS = 20
+# and paths A and C to this many (the smoke's time budget, which phase I
+# shares)
+AC_BLOCKS = 10
 
 
 def _qwen_cut(raw: dict, num_layers: int = CUT_BLOCKS):
@@ -2525,7 +2554,7 @@ def phase_int4_predict(card: str):
     of the requests."""
     from qflux_tpu_torch.ops.layers import iter_dense_paths, merge_lora, set_int4_impl
 
-    trainer, load_s = _qwen_cut(QWEN_INT4)
+    trainer, load_s = _qwen_cut(QWEN_INT4, AC_BLOCKS)
     dit, cfg = trainer.bundle.dit_params, trainer.bundle.dit_cfg
     denses = [m for _, m in iter_dense_paths(dit)]
     quantized = [m for m in denses if m.q4 is not None]
@@ -6112,6 +6141,369 @@ def phase_dreamomni2(card: str) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase I: the remat policies, the out-of-memory fallback and adamw8bit
+
+# the policies timed at bs=1 and bs=2 ("flash", the config default, runs in
+# phases A-H); every policy's bs=1
+# gradients are checked against "full"'s
+I_POLICIES = ("full", "dots", "dots_all", "flash_qkv", "flash_mlp", "flash_single")
+I_GRAD_POLICIES = I_POLICIES + ("flash", "flash_offload")
+I_STEPS = 3                        # one warm step, then the timed ones
+I_QWEN_POLICIES = ("full", "dots", "flash_mlp")
+I_OOM_STEPS = 2
+I_ADAM_STEPS = 4
+ADAM8BIT = "qflux_tpu.ops.adam8bit.adamw8bit"
+
+
+def _flux_k1_per_step(policy: str, n_dual: int, n_single: int) -> int:
+    """K1 launches a FLUX step: once a block in the forward, again in the
+    recompute unless the block keeps K1's out / lse (`remat.names`)."""
+    from qflux_tpu_torch.ops import remat
+
+    kept = sum(n for n, kind in ((n_dual, "flux_dual"), (n_single, "flux_single"))
+               if remat.FLASH in remat.names(policy, kind))
+    return 2 * (n_dual + n_single) - kept
+
+
+def _qwen_rq_per_step(policy: str, n: int) -> int:
+    """K5a launches a Qwen step at S = 4000 (K3's route): the 12 block GEMMs
+    and img_in / txt_in / proj_out in the forward, and again in the
+    recompute each block GEMM the policy does not keep ("dots" keeps them
+    all, "flash_mlp" the two MLP up-projections)."""
+    return 12 * n + 3 + {"dots": 0, "dots_all": 0, "flash_mlp": 10 * n}.get(policy, 12 * n)
+
+
+def _grads_at(dit, lora, batch, noise, sigma, adapter):
+    """One microbatch's loss and LoRA gradients (a, b; zeros where the loss
+    does not reach) at the given noise and σ."""
+    from qflux_tpu_torch.losses import MseLoss
+    from qflux_tpu_torch.trainer.train_step import TrainStepConfig, _loss_for_microbatch
+
+    for leaf in lora.values():
+        for t in leaf.values():
+            t.grad = None
+    loss = _loss_for_microbatch(dit, lora, batch, noise, sigma, adapter.predict_velocity,
+                                MseLoss(), TrainStepConfig())
+    loss.backward()
+    grads = {p: torch.cat([torch.zeros_like(leaf[k]).flatten() if leaf[k].grad is None
+                           else leaf[k].grad.flatten() for k in ("a", "b")])
+             for p, leaf in lora.items()}
+    for leaf in lora.values():
+        for t in leaf.values():
+            t.grad = None
+    return loss.item(), grads
+
+
+def _log_records():
+    """A handler on the root logger that keeps the messages of the records
+    it sees (WARNING and up)."""
+    import logging
+
+    class Keep(logging.Handler):
+        def __init__(self):
+            super().__init__(logging.WARNING)
+            self.messages = []
+
+        def emit(self, record):
+            self.messages.append(record.getMessage())
+
+    return Keep()
+
+
+def phase_remat_flux(card: str) -> dict:
+    """Phase I (a), (c), (d) on FLUX.1-Kontext at full width (19 + 38
+    blocks, bf16, 512² with one control: S = 2,560).  (a) At bs=1 one
+    step's LoRA gradients at a fixed noise and σ under every policy of
+    I_GRAD_POLICIES, each equal to "full"'s to the bit; then, at bs=1 and bs=2,
+    each policy's own train step (`make_train_step`, AdamW): one warm step
+    and I_STEPS - 1 timed ones, ms per step, the peak device memory, and K1
+    / K2 launches per step as `_flux_k1_per_step` says.  (c) The process
+    capped (`set_per_process_memory_fraction`) between the bs=2 peaks of
+    "full" and "dots": `Trainer.fit` under mesh.remat: minimal at bs=2 runs
+    out of memory in its first step, warns, degrades to "full" and finishes
+    its steps; the cap is lifted after.  (d) `Trainer.fit` with
+    optimizer.class_path qflux_tpu.ops.adam8bit.adamw8bit, I_ADAM_STEPS
+    steps at bs=1: finite losses that move, the moments' bytes beside
+    AdamW's after one step on the same gradients, and one more update on
+    the card against the same update on the CPU from the same state and
+    gradients (codes, scales and parameters to the bit).  Returns each
+    path's (K1, K2) launches."""
+    import logging
+
+    from qflux_tpu_torch.losses import MseLoss
+    from qflux_tpu_torch.ops import flash_nr
+    from qflux_tpu_torch.ops.adam8bit import AdamW8bit
+    from qflux_tpu_torch.ops.layers import mark_trainable
+    from qflux_tpu_torch.trainer.base import Trainer, train_config
+    from qflux_tpu_torch.trainer.train_step import (TrainStepConfig, _loss_for_microbatch,
+                                                    lora_leaves, make_train_step)
+    from qflux_tpu_torch.utils.checkpoint import lora_stacks
+
+    tt = Trainer(train_config(variant="full"), device="cuda")
+    t0 = time.perf_counter()
+    tt.load_model()
+    dit, cfg = tt.bundle.dit_params, tt.bundle.dit_cfg
+    n_dual, n_single = cfg.num_layers, cfg.num_single_layers
+    gh, gw = tt.adapter.latent_grid(HEIGHT, WIDTH)
+    s = 512 + 2 * gh * gw
+    print(f"[remat] FLUX.1-Kontext {n_dual} + {n_single} blocks, dim {cfg.dim}, bf16, S = {s}, "
+          f"built in {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    rng = np.random.default_rng(19)
+    gen = torch.Generator("cuda").manual_seed(19)
+    base = tt.adapter
+    launches = {}
+
+    def fresh_lora():
+        lora = mark_trainable(tt.build_lora())
+        _perturb_b(lora, torch.Generator("cuda").manual_seed(20))
+        return lora
+
+    # (a) bs=1 gradients at a fixed noise and σ, every policy against "full"
+    batch1 = tt._device_batch(_train_batch(rng, cfg, gh, gw, 1))
+    noise = torch.randn(batch1["image_latents"].shape, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    sigma = torch.full((1,), 0.6, device="cuda", dtype=torch.bfloat16)
+    lora = fresh_lora()
+    grads = {p: _grads_at(dit, lora, batch1, noise, sigma,
+                          dataclasses.replace(base, remat_policy=p)) for p in I_GRAD_POLICIES}
+    want_loss, want = grads["full"]
+    for policy, (loss, got) in grads.items():
+        same = loss == want_loss and all(torch.equal(got[p], want[p]) for p in want)
+        print(f"[remat] bs=1 {policy}: loss {loss:.6f}, LoRA gradients equal to full's to the "
+              f"bit: {same} [{card}]", flush=True)
+        if not same:
+            raise AssertionError(f"remat {policy}: bs=1 LoRA gradients differ from full's")
+    del lora, grads, want
+    torch.cuda.empty_cache()
+
+    # (a) each policy's train step at bs=1 and bs=2
+    peaks = {}
+    criterion, step_cfg = tt.build_criterion(), tt._build_step_config()
+    for b in (1, 2):
+        batch = batch1 if b == 1 else tt._device_batch(_train_batch(rng, cfg, gh, gw, b))
+        for policy in I_POLICIES:
+            adapter = dataclasses.replace(base, remat_policy=policy)
+            lora = fresh_lora()
+            optimizer, schedule = tt.build_optimizer(lora_leaves(lora)[0])
+            step = make_train_step(adapter.predict_velocity, criterion, optimizer, schedule,
+                                   step_cfg)
+            step_gen = torch.Generator("cuda").manual_seed(21)
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            ms = []
+            for _ in range(I_STEPS):
+                t1 = time.perf_counter()
+                loss = float(step(dit, lora, batch, step_gen)["loss"])
+                ms.append(1000 * (time.perf_counter() - t1))
+            k1, k2 = flash_nr.KERNEL_LAUNCHES, flash_nr.BWD_KERNEL_LAUNCHES
+            peak = peaks[b, policy] = torch.cuda.max_memory_allocated()
+            want_k1 = _flux_k1_per_step(policy, n_dual, n_single) * I_STEPS
+            want_k2 = (n_dual + n_single) * I_STEPS
+            print(f"[remat] bs={b} {policy}: ms/step {', '.join(f'{m:.1f}' for m in ms)} "
+                  f"(median of the timed {statistics.median(ms[1:]):.1f}), peak mem {peak} "
+                  f"bytes ({peak / 2**30:.2f} GiB), K1 {k1 // I_STEPS} / K2 {k2 // I_STEPS} "
+                  f"a step, loss {loss:.5f} [{card}]", flush=True)
+            if (k1, k2) != (want_k1, want_k2) or not np.isfinite(loss):
+                raise AssertionError(f"remat {policy} bs={b}: K1/K2 launched {k1}/{k2} over "
+                                     f"{I_STEPS} steps, expected {want_k1}/{want_k2}")
+            launches[f"remat_bs{b}_{policy}"] = (k1, k2)
+            del lora, optimizer, step
+        del batch
+    torch.cuda.empty_cache()
+
+    # (c) the out-of-memory fallback under a cap between full's and dots's bs=2 peaks
+    total = torch.cuda.get_device_properties(0).total_memory
+    cap = (peaks[2, "full"] + peaks[2, "dots"]) // 2
+    print(f"[remat] out-of-memory fallback: cap {cap} bytes ({cap / 2**30:.2f} GiB, fraction "
+          f"{cap / total:.4f} of {total}) between the bs=2 peaks of full "
+          f"({peaks[2, 'full']}) and dots ({peaks[2, 'dots']}) [{card}]", flush=True)
+    if not peaks[2, "full"] < cap < peaks[2, "dots"]:
+        raise AssertionError("no room for a cap between full's and dots's bs=2 peaks")
+    config = train_config(variant="full", max_train_steps=I_OOM_STEPS)
+    config.mesh.remat = "minimal"
+    oom = Trainer(config, device="cuda")
+    oom.adapter, oom.bundle = dataclasses.replace(base, remat_policy="dots"), tt.bundle
+    batches = [_train_batch(rng, cfg, gh, gw, 2) for _ in range(I_OOM_STEPS)]
+    keep = _log_records()
+    logging.getLogger().addHandler(keep)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.set_per_process_memory_fraction(cap / total)
+    try:
+        _reset_counts()
+        _fit_in_tmp(oom, batches)
+        k1, k2 = flash_nr.KERNEL_LAUNCHES, flash_nr.BWD_KERNEL_LAUNCHES
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        logging.getLogger().removeHandler(keep)
+    warned = [m for m in keep.messages if "ran out of memory under remat policy 'dots'" in m]
+    hist = oom.history
+    print(f"[remat] fit under mesh.remat: minimal, bs=2, capped: warned {len(warned)} "
+          f"({warned[0][:160] if warned else ''}...), policy after {oom.adapter.remat_policy!r}, "
+          f"{len(hist)} steps, ms/step {', '.join(f'{1000 * h['step_s']:.1f}' for h in hist)}, "
+          f"loss {', '.join(f'{h['loss']:.5f}' for h in hist)}, K1 {k1} / K2 {k2} "
+          f"(the failed attempt's forward K1 launches included) [{card}]", flush=True)
+    if (len(warned) != 1 or oom.adapter.remat_policy != "full" or len(hist) != I_OOM_STEPS
+            or not all(np.isfinite(h["loss"]) for h in hist)):
+        raise AssertionError("the out-of-memory fallback did not degrade once and finish")
+    launches["remat_oom_fallback"] = (k1, k2)
+    del oom, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) adamw8bit: Trainer.fit, the state's bytes, one update card vs CPU
+    config = train_config(variant="full", max_train_steps=I_ADAM_STEPS)
+    config.optimizer.class_path = ADAM8BIT
+    at = Trainer(config, device="cuda")
+    at.adapter, at.bundle = base, tt.bundle
+    batches = [_train_batch(rng, cfg, gh, gw, 1) for _ in range(I_ADAM_STEPS)]
+    _reset_counts()
+    lora = _fit_in_tmp(at, batches)
+    k1, k2 = flash_nr.KERNEL_LAUNCHES, flash_nr.BWD_KERNEL_LAUNCHES
+    launches["adam8bit_fit"] = (k1, k2)
+    hist, opt = at.history, at.optimizer
+    losses = [h["loss"] for h in hist]
+    print(f"[adam8bit] fit {len(hist)} steps at bs=1 (remat {base.remat_policy}): ms/step "
+          f"{', '.join(f'{1000 * h['step_s']:.1f}' for h in hist)}, loss "
+          f"{', '.join(f'{x:.5f}' for x in losses)}, grad_norm "
+          f"{', '.join(f'{h['grad_norm']:.4e}' for h in hist)}, K1 {k1} / K2 {k2} [{card}]",
+          flush=True)
+    want = (_flux_k1_per_step(base.remat_policy, n_dual, n_single) * I_ADAM_STEPS,
+            (n_dual + n_single) * I_ADAM_STEPS)
+    if (type(opt) is not AdamW8bit or len(hist) != I_ADAM_STEPS
+            or not all(np.isfinite(losses)) or len(set(losses)) < 2 or (k1, k2) != want):
+        raise AssertionError(f"the adamw8bit fit: {len(hist)} steps, losses {losses}, K1 / K2 "
+                             f"{(k1, k2)} (expected {want})")
+    params = lora_leaves(lora)[0]
+    # one more update: the gradients of one microbatch on the card, then the
+    # same update on the card and, from copies of the same state, on the CPU
+    batch = at._device_batch(batches[0])
+    loss_step = _loss_for_microbatch(dit, lora, batch, noise, sigma, base.predict_velocity,
+                                     MseLoss(), TrainStepConfig())
+    loss_step.backward()
+    cpu_params = [p.detach().cpu().requires_grad_() for p in params]
+    for c, p in zip(cpu_params, params):
+        c.grad = p.grad.detach().cpu()
+    index = {id(p): i for i, p in enumerate(params)}
+    cpu_stacks = [[cpu_params[index[id(p)]] for p in st] for st in lora_stacks(lora)]
+    cpu_opt = AdamW8bit(cpu_params, lr=opt.param_groups[0]["lr"], stacks=cpu_stacks)
+    for st, cst in zip(opt.stacks, cpu_opt.stacks):
+        cpu_opt.state[cst[0]] = {k: tuple(t.cpu() for t in v) if isinstance(v, tuple) else v
+                                 for k, v in opt.state[st[0]].items()}
+    opt.step()
+    cpu_opt.step()
+    same_params = all(torch.equal(p.detach().cpu(), c.detach()) for p, c in zip(params,
+                                                                                cpu_params))
+    same_state = all(
+        torch.equal(opt.state[st[0]][m][0].view(torch.uint8).cpu(),
+                    cpu_opt.state[cst[0]][m][0].view(torch.uint8))
+        and torch.equal(opt.state[st[0]][m][1].cpu(), cpu_opt.state[cst[0]][m][1])
+        for st, cst in zip(opt.stacks, cpu_opt.stacks) for m in ("m", "v"))
+    state8 = opt.state_bytes()
+    adamw = torch.optim.AdamW([p.detach().clone().requires_grad_() for p in params], lr=1e-4)
+    for q, p in zip(adamw.param_groups[0]["params"], params):
+        q.grad = p.grad.detach().clone()
+    adamw.step()
+    state32 = sum(t.numel() * t.element_size() for st in adamw.state.values()
+                  for t in st.values() if torch.is_tensor(t) and t.dim() > 0)
+    n_params = sum(p.numel() for p in params)
+    print(f"[adam8bit] state after {I_ADAM_STEPS + 1} updates: {state8} bytes (fp8 codes + f32 "
+          f"scales over {n_params} LoRA elements in {len(opt.stacks)} JAX leaves) against "
+          f"AdamW's {state32} bytes ({state32 / state8:.2f}x); one more update on the card "
+          f"vs the same on the CPU (tolerance: to the bit): codes and scales equal "
+          f"{same_state}, parameters equal {same_params} [{card}]", flush=True)
+    if not (same_state and same_params):
+        raise AssertionError("adamw8bit: the card's update differs from the CPU's")
+    del at, lora, batches, batch, loss_step, adamw, cpu_opt, cpu_params, tt, dit
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_remat_qwen(card: str) -> dict:
+    """Phase I (b): the 20B Qwen-Image-Edit DiT over int4_requant cut to
+    CUT_BLOCKS blocks (configs/example_qwen_single_chip_832x576.yaml, S =
+    4,000: the norm + rope, then K3 / K4), bs=1: one step's LoRA gradients
+    at a fixed noise and σ under each of I_QWEN_POLICIES, equal to "full"'s
+    to the bit, with K3 / K4, K5a (`_qwen_rq_per_step`), K5b and the row
+    quantization launched per step as counted, and each step's time and
+    peak memory.  Returns each policy's launches (_launch_counts' order)."""
+    qwen, load_s = _qwen_cut(QWEN_832X576)
+    dit, cfg = qwen.bundle.dit_params, qwen.bundle.dit_cfg
+    n = cfg.num_layers
+    gh, gw = qwen.adapter.latent_grid(QWEN_HEIGHT, QWEN_WIDTH)
+    rng = np.random.default_rng(22)
+    gen = torch.Generator("cuda").manual_seed(22)
+    batch = qwen._device_batch(_qwen_train_batch(rng, cfg, gh, gw, 1))
+    noise = torch.randn(batch["image_latents"].shape, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    sigma = torch.full((1,), 0.6, device="cuda", dtype=torch.bfloat16)
+    lora = qwen.build_lora()
+    _perturb_b(lora, gen)
+    from qflux_tpu_torch.ops.layers import mark_trainable
+
+    lora = mark_trainable(lora)
+    print(f"[remat_qwen] Qwen-Image-Edit {n} of 60 blocks over int4_requant, S = "
+          f"{QWEN_TXT + 2 * gh * gw}, built in {load_s:.1f} s [{card}]", flush=True)
+    runs, launches = {}, {}
+    for policy in I_QWEN_POLICIES:
+        adapter = dataclasses.replace(qwen.adapter, remat_policy=policy)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()
+        t0 = time.perf_counter()
+        runs[policy] = _grads_at(dit, lora, batch, noise, sigma, adapter)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = launches[f"remat_qwen_{policy}"] = _launch_counts()
+        want = _rq((0, 0, _qwen_rq_per_step(policy, n), 6 + 12 * (n - 2) + 9 + 1, 0, 0, 0, 0,
+                    2 * n - (0 if policy in ("full", "dots") else n), n))
+        print(f"[remat_qwen] bs=1 {policy}: loss {runs[policy][0]:.5f}, forward + backward "
+              f"{secs:.3f} s, peak mem {torch.cuda.max_memory_allocated()} bytes, "
+              f"{COUNT_NAMES} launches {got} [{card}]", flush=True)
+        if got != want:
+            raise AssertionError(f"remat_qwen {policy}: {COUNT_NAMES} launched {got}, "
+                                 f"expected {want}")
+    want_loss, want = runs["full"]
+    for policy, (loss, got) in runs.items():
+        same = loss == want_loss and all(torch.equal(got[p], want[p]) for p in want)
+        print(f"[remat_qwen] {policy}: LoRA gradients equal to full's to the bit: {same} "
+              f"[{card}]", flush=True)
+        if not same:
+            raise AssertionError(f"remat_qwen {policy}: LoRA gradients differ from full's")
+    del qwen, dit, lora, batch, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def remat_main() -> int:
+    """`python3 chip_smoke.py --remat`: phase I alone (its kernels built
+    first), for iterating on it; the smoke runs it after phase H."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from qflux_tpu_torch.runtime.build import load_library
+
+    smi = _nvidia_smi()
+    print(smi, flush=True)
+    card = ", ".join(x.strip() for x in smi.split(",", 1))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    load_library()
+    t0 = time.perf_counter()
+    phase_remat_flux(card)
+    with _PathShapes() as rec:
+        phase_remat_qwen(card)
+    print(f"[smoke] phase I: {time.perf_counter() - t0:.1f} s; shapes checked "
+          f"{phase_path_shapes(card, rec, 'phase I')} [{card}]", flush=True)
+    return 0
+
+
 PROFILE_GROUPS = [("K5a rq_int4_fwd", ("rq_int4_fwd",)), ("K5b rq_int4_bwd", ("rq_int4_bwd",)),
                   ("row quant", ("rowquant",)),
                   ("W8A8 int8_gemm", ("int8_gemm",)), ("W8A8 transpose", ("int8_transpose",)),
@@ -6630,7 +7022,7 @@ def main() -> int:
     b_fit, qwen_lora = timed(phase_qwen_train, qwen)
     k5_qt, k5b_qt, k3_qt, k4_qt, rq_qt = b_fit[2], b_fit[3], b_fit[8], b_fit[9], b_fit[10]
     k1_int8_case, k2_int8_case = timed(phase_kernel_int8)
-    qwen_a, _ = _qwen_cut(QWEN_832X576)  # path A's model: path B's config, cut in depth
+    qwen_a, _ = _qwen_cut(QWEN_832X576, AC_BLOCKS)  # path A: path B's config, cut in depth
     k1_a, k5_a, rq_a = timed(phase_qwen512_predict, qwen_a)
     a_fit = timed(phase_qwen512_train, qwen_a)
     del qwen_a
@@ -6696,9 +7088,23 @@ def main() -> int:
           f"images; each kernel then held to its plain version at the shapes they gave it: "
           f"{h_checked}): {time.perf_counter() - t_h:.1f} s [{card}]", flush=True)
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_i = time.perf_counter()
+    i_paths = {k: (k1, k2) + (0,) * 9 for k, (k1, k2) in timed(phase_remat_flux).items()}
+    with _PathShapes() as i_shapes:
+        i_paths.update(timed(phase_remat_qwen))
+    i_checked = timed(phase_path_shapes, i_shapes, "phase I")
+    i_all = tuple(map(sum, zip(*i_paths.values())))
+    print(f"[smoke] phase I (the remat policies on FLUX.1-Kontext and the 20-block Qwen, the "
+          f"out-of-memory fallback, adamw8bit; each kernel the Qwen steps launched then held "
+          f"to its plain version at their shapes: {i_checked}): "
+          f"{time.perf_counter() - t_i:.1f} s [{card}]", flush=True)
+
     def by_path(i):
         return {**{f"qwen_pixels_{k}": v[i] for k, v in g.items() if v[i]},
-                **{k: v[i] for k, v in h.items() if v[i]}}
+                **{k: v[i] for k, v in h.items() if v[i]},
+                **{k: v[i] for k, v in i_paths.items() if v[i]}}
 
     print(f"[smoke] wall time {time.perf_counter() - t_start:.1f} s (build included) [{card}]",
           flush=True)
@@ -6708,7 +7114,7 @@ def main() -> int:
          "replaces": "qflux_tpu/ops/flash_nr.py:192",
          "launches": (k1_predict + k1_train + k1_fa + k1_fb + d_flux[0] + k1_c + k1_ct + k1_e
                       + k1_eq + f["fit"][0] + f["validation"] + f["predict"] + g_all[0]
-                      + h_all[0]),
+                      + h_all[0] + i_all[0]),
          "launches_by_path": {"predict": k1_predict, "train": k1_train,
                               "files_flux_resume": k1_fa, "files_flux_weights": k1_fb,
                               "data_flux_cli": d_flux[0],
@@ -6719,7 +7125,8 @@ def main() -> int:
         {"name": "flash_nr_bwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/flash_nr_bwd.cu",
          "replaces": "qflux_tpu/ops/flash_nr.py:311",
-         "launches": k2_train + k2_fa + d_flux[1] + k2_ct + k2_e + f["fit"][1] + h_all[1],
+         "launches": (k2_train + k2_fa + d_flux[1] + k2_ct + k2_e + f["fit"][1] + h_all[1]
+                      + i_all[1]),
          "launches_by_path": {"train": k2_train, "files_flux_resume": k2_fa,
                               "data_flux_cli": d_flux[1], "int4_train": k2_ct,
                               "w8a8_flux": k2_e, "cache_pass_fit": f["fit"][1],
@@ -6727,20 +7134,21 @@ def main() -> int:
         {"name": "flash_fwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "qflux_tpu/ops/flash_attention.py:105",
-         "launches": k3_qwen + k3_qt + k3_fc + d_flux[8] + d_qwen[8] + g_all[8] + h_all[8],
+         "launches": (k3_qwen + k3_qt + k3_fc + d_flux[8] + d_qwen[8] + g_all[8] + h_all[8]
+                      + i_all[8]),
          "launches_by_path": {"qwen_predict": k3_qwen, "qwen_train": k3_qt,
                               "files_qwen": k3_fc, "data_flux_cli": d_flux[8],
                               "data_qwen_fit": d_qwen[8], **by_path(8)}, **k3_case},
         {"name": "flash_bwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "qflux_tpu/ops/flash_attention.py:288, :215, :251",
-         "launches": k4_qt + d_flux[9] + d_qwen[9] + g_all[9] + h_all[9],
+         "launches": k4_qt + d_flux[9] + d_qwen[9] + g_all[9] + h_all[9] + i_all[9],
          "launches_by_path": {"qwen_train": k4_qt, "data_flux_cli": d_flux[9],
                               "data_qwen_fit": d_qwen[9], **by_path(9)}, **k4_case},
         {"name": "rq_int4_fwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/rq_int4_fwd.cu",
          "replaces": "qflux_tpu/ops/int4_matmul.py:268",
-         "launches": k5_qwen + k5_qt + k5_a + k5_at + k5_fc + d_qwen[2] + g_all[2],
+         "launches": k5_qwen + k5_qt + k5_a + k5_at + k5_fc + d_qwen[2] + g_all[2] + i_all[2],
          "launches_by_path": {"qwen_predict": k5_qwen, "qwen_train": k5_qt,
                               "qwen512_predict": k5_a, "qwen512_train": k5_at,
                               "files_qwen": k5_fc, "data_qwen_fit": d_qwen[2],
@@ -6748,13 +7156,14 @@ def main() -> int:
         {"name": "rq_int4_bwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/rq_int4_bwd.cu",
          "replaces": "qflux_tpu/ops/int4_matmul.py:286",
-         "launches": k5b_qt + k5b_at + d_qwen[3] + g_all[3],
+         "launches": k5b_qt + k5b_at + d_qwen[3] + g_all[3] + i_all[3],
          "launches_by_path": {"qwen_train": k5b_qt, "qwen512_train": k5b_at,
                               "data_qwen_fit": d_qwen[3], **by_path(3)}, **k5b_case},
         {"name": "rowquant", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/rowquant.cu",
          "replaces": "not a TPU kernel: qflux_tpu/ops/quant.py:144 _rowquant, left to XLA",
-         "launches": rq_qwen + rq_qt + rq_a + rq_at + rq_fc + d_qwen[10] + rq_e + g_all[10],
+         "launches": (rq_qwen + rq_qt + rq_a + rq_at + rq_fc + d_qwen[10] + rq_e + g_all[10]
+                      + i_all[10]),
          "launches_by_path": {"qwen_predict": rq_qwen, "qwen_train": rq_qt,
                               "qwen512_predict": rq_a, "qwen512_train": rq_at,
                               "files_qwen": rq_fc, "data_qwen_fit": d_qwen[10],
@@ -6802,4 +7211,6 @@ if __name__ == "__main__":
         sys.exit(ab_main(sys.argv[2]) if torch.cuda.is_available() else 1)
     if len(sys.argv) == 2 and sys.argv[1] == "--data-ab":
         sys.exit(data_ab_main() if torch.cuda.is_available() else 1)
+    if len(sys.argv) == 2 and sys.argv[1] == "--remat":
+        sys.exit(remat_main() if torch.cuda.is_available() else 1)
     sys.exit(main())

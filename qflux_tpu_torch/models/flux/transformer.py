@@ -13,20 +13,27 @@ norm + rope and K3 / K4.
 
 Training recomputes each block in backward (`remat`, the JAX package's
 `jax.checkpoint` per scanned block) with non-reentrant
-`torch.utils.checkpoint`.  Policies ported: "full" saves nothing inside a
-block; "flash" (the config default) saves the attention kernel's out and
-lse through a selective-checkpoint policy that sees the custom ops
-`qflux::flash_nr_fwd` (K1) and `qflux::flash_fwd` (K3), so backward runs K2
-or K4 on them without a second forward kernel; "flash_offload" recomputes
-the block as "full" does but keeps that out and lse in pinned host memory
-between the forward and the recompute, which returns them to the device
-instead of launching again (`flash_attention.offload_contexts`): one
-forward kernel per block and step as under "flash", none of its residuals
-on the device in between, and the same gradients to the bit.  (`torch.autograd.graph.save_on_cpu` would
-not do: the outputs a selective checkpoint keeps are not saved tensors, so
-its hooks never see them.)  The AdaLN modulation vectors
-("mod_out" in JAX) are computed outside the checkpointed region and passed
-in: saved by construction, their f32 GEMV never reruns in backward.
+`torch.utils.checkpoint`, under every policy of the JAX forward, each
+keeping per block what JAX's keeps (ops/remat.py: one store per block,
+filled in its forward and read back in its recompute): "full" keeps
+nothing; "flash" (the config default) the attention op's out and lse, K1's
+`qflux::flash_nr_fwd` or K3's `qflux::flash_fwd`, so backward runs K2 or
+K4 on them without a second forward kernel; "flash_offload" the same pair
+in pinned host memory between the forward and the recompute (JAX's offload
+to pinned_host: none of it on the device in between, the same gradients
+to the bit); "flash_qkv" also the q / k / v that reach the kernel (the raw
+projections on K1's route; on K3's the normed and roped q / k and the raw
+v, whose projection the recompute skips, while the q / k projections run
+again for the norm + rope's backward, as in JAX);
+"flash_mlp" also each MLP's pre-activation (`mlp_h`); "flash_single"
+"full" on the dual blocks and "flash" on the single ones; "dots"
+(`mesh.remat: minimal`) the output of every product with no batch
+dimension, the base product of every dense layer and both LoRA products,
+but not the attention kernels' (a pallas_call is no dot), so the recompute
+runs no GEMM and relaunches K1; "dots_all" also the batched products (the
+W4A8 per-group route's).  The AdaLN modulation vectors ("mod_out" in JAX)
+are computed outside the checkpointed block and passed in: saved by
+construction, their f32 GEMV never reruns in backward.
 """
 
 from __future__ import annotations
@@ -38,12 +45,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
-                                    create_selective_checkpoint_contexts)
+from torch.utils.checkpoint import checkpoint
 
 from qflux_tpu_torch.models.common.embeddings import mlp_silu, sinusoidal_embedding
-from qflux_tpu_torch.ops import flash_attention, flash_nr
-from qflux_tpu_torch.ops.attention import qk_norm_rope_attention
+from qflux_tpu_torch.ops import remat
+from qflux_tpu_torch.ops.attention import fused_route, qk_norm_rope_attention
 from qflux_tpu_torch.ops.layers import MLP, Dense, dense
 from qflux_tpu_torch.ops.norms import ada_ln_mods, layer_norm, modulate
 from qflux_tpu_torch.ops.rope import rope_from_coords
@@ -221,7 +227,14 @@ def _heads(x, n_heads):
 
 
 def _mlp(p: MLP, x):
-    return dense(p.lin_out, F.gelu(dense(p.lin_in, x), approximate="tanh"))
+    return dense(p.lin_out, F.gelu(dense(p.lin_in, x, keep=remat.MLP_H), approximate="tanh"))
+
+
+def qkv_keeps(seq: int, head_dim: int, attn_impl: str):
+    """The remat save points of the q / k and the v projections (QKV where
+    their output reaches the attention kernel as it is: v always, q / k on
+    the fused route only)."""
+    return remat.QKV if fused_route(seq, seq, head_dim, attn_impl) else None, remat.QKV
 
 
 def _dual_block(p: DualBlock, cfg, img, txt, i_mods, t_mods, cos, sin, seg, attn_impl):
@@ -237,9 +250,13 @@ def _dual_block(p: DualBlock, cfg, img, txt, i_mods, t_mods, cos, sin, seg, attn
     a = p.attn
     # RAW q/k: the norm and rope run inside the fused attention (txt rows
     # < st norm with the norm_added_* scales, img rows with norm_q/norm_k)
-    q = torch.cat([_heads(dense(a.add_q, txt_n), n_h), _heads(dense(a.to_q, img_n), n_h)], dim=1)
-    k = torch.cat([_heads(dense(a.add_k, txt_n), n_h), _heads(dense(a.to_k, img_n), n_h)], dim=1)
-    v = torch.cat([_heads(dense(a.add_v, txt_n), n_h), _heads(dense(a.to_v, img_n), n_h)], dim=1)
+    kqk, kv = qkv_keeps(st + img.shape[1], cfg.attention_head_dim, attn_impl)
+    q = torch.cat([_heads(dense(a.add_q, txt_n, keep=kqk), n_h),
+                   _heads(dense(a.to_q, img_n, keep=kqk), n_h)], dim=1)
+    k = torch.cat([_heads(dense(a.add_k, txt_n, keep=kqk), n_h),
+                   _heads(dense(a.to_k, img_n, keep=kqk), n_h)], dim=1)
+    v = torch.cat([_heads(dense(a.add_v, txt_n, keep=kv), n_h),
+                   _heads(dense(a.to_v, img_n, keep=kv), n_h)], dim=1)
     qs2 = torch.stack([a.norm_added_q.scale, a.norm_q.scale])
     ks2 = torch.stack([a.norm_added_k.scale, a.norm_k.scale])
 
@@ -264,9 +281,10 @@ def _single_block(p: SingleBlock, cfg, x, mods, cos, sin, seg, attn_impl):
     x_n = modulate(layer_norm(x), shift, scale)
 
     a = p.attn
-    q = _heads(dense(a.to_q, x_n), n_h)
-    k = _heads(dense(a.to_k, x_n), n_h)
-    v = _heads(dense(a.to_v, x_n), n_h)
+    kqk, kv = qkv_keeps(x.shape[1], cfg.attention_head_dim, attn_impl)
+    q = _heads(dense(a.to_q, x_n, keep=kqk), n_h)
+    k = _heads(dense(a.to_k, x_n, keep=kqk), n_h)
+    v = _heads(dense(a.to_v, x_n, keep=kv), n_h)
     # single-stream: one scale for every row (st=0 → row 1 of the pair)
     qs2 = torch.stack([a.norm_q.scale, a.norm_q.scale])
     ks2 = torch.stack([a.norm_k.scale, a.norm_k.scale])
@@ -274,44 +292,21 @@ def _single_block(p: SingleBlock, cfg, x, mods, cos, sin, seg, attn_impl):
                                segment_ids=seg, impl=attn_impl)
     o = o.reshape(o.shape[0], o.shape[1], -1)
 
-    mlp = F.gelu(dense(p.proj_mlp, x_n), approximate="tanh")
+    mlp = F.gelu(dense(p.proj_mlp, x_n, keep=remat.MLP_H), approximate="tanh")
     out = dense(p.proj_out, o) + dense(p.proj_out_mlp, mlp)
     return x + gate[:, None, :].to(x.dtype) * out
 
 
-# remat policies of the JAX forward that are not ported (ROADMAP.md, queue 1:
-# "The rest of slice B, part 3: the remat policies that still raise")
-UNPORTED_REMAT_POLICIES = ("dots", "dots_all", "flash_qkv", "flash_mlp", "flash_single")
-
-
-def _save_flash_outputs(ctx, op, *args, **kwargs):
-    """Selective-checkpoint policy "flash": keep the attention op's (out,
-    lse), K1's or K3's, and recompute everything else, the plain norm + rope
-    before K3 included (JAX save_only_these_names("flash_out", "flash_lse"),
-    names both of its kernels tag; "mod_out" is saved by computing the mods
-    outside the region)."""
-    if op is flash_nr.FWD_OP or op is flash_attention.FWD_OP:
-        return CheckpointPolicy.MUST_SAVE
-    return CheckpointPolicy.PREFER_RECOMPUTE
-
-
-def _remat(fn, policy: str):
-    """`fn` recomputed in backward under `policy` ("full" | "flash" |
-    "flash_offload")."""
-    if policy == "full":
+def _remat(fn, policy: str, kind: str):
+    """`fn`, a block of `kind` ("flux_dual", "flux_single" or "qwen"),
+    recomputed in backward under `policy`: what `remat.names` says the
+    policy keeps in such a block, in one store per call of `fn`; nothing
+    kept, a plain checkpoint."""
+    names = remat.names(policy, kind)
+    if not names:
         return functools.partial(checkpoint, fn, use_reentrant=False)
-    if policy == "flash":
-        ctx = functools.partial(create_selective_checkpoint_contexts, _save_flash_outputs)
-        return functools.partial(checkpoint, fn, use_reentrant=False, context_fn=ctx)
-    if policy == "flash_offload":
-        return functools.partial(checkpoint, fn, use_reentrant=False,
-                                 context_fn=flash_attention.offload_contexts)
-    if policy in UNPORTED_REMAT_POLICIES:
-        raise NotImplementedError(
-            f"remat_policy {policy!r} is not ported yet (ROADMAP.md, queue 1: \"The rest of "
-            "slice B, part 3: the remat policies that still raise\"; ported: full, flash, "
-            "flash_offload)")
-    raise ValueError(f"unknown remat_policy {policy!r}")
+    ctx = functools.partial(remat.contexts, names, offload=policy == "flash_offload")
+    return functools.partial(checkpoint, fn, use_reentrant=False, context_fn=ctx)
 
 
 def forward(params: FluxTransformer, cfg: FluxConfig,
@@ -325,7 +320,7 @@ def forward(params: FluxTransformer, cfg: FluxConfig,
             segment_ids: Optional[torch.Tensor] = None,  # [B, S_txt+S_img]; 0 = padding
             attn_impl: str = "auto",
             remat: bool = True,
-            remat_policy: str = "full"):     # full | flash | flash_offload
+            remat_policy: str = "full"):     # a name of remat.POLICY_NAMES
     """Returns [B, S_img, out_channels] velocity prediction (full sequence —
     callers slice [:, :S_target] to drop control-image positions).  With
     `remat` and autograd recording, every block is recomputed in backward
@@ -357,7 +352,8 @@ def forward(params: FluxTransformer, cfg: FluxConfig,
     single_fn = lambda p, x, mods: _single_block(  # noqa: E731
         p, cfg, x, mods, cos, sin, segment_ids, attn_impl)
     if remat:  # the policy is checked even where nothing records for backward
-        remat_dual, remat_single = _remat(dual_fn, remat_policy), _remat(single_fn, remat_policy)
+        remat_dual = _remat(dual_fn, remat_policy, "flux_dual")
+        remat_single = _remat(single_fn, remat_policy, "flux_single")
         if torch.is_grad_enabled():
             dual_fn, single_fn = remat_dual, remat_single
     for p in params.dual:

@@ -24,9 +24,11 @@ bf16 tree never exists whole (the int4 DiT is ~11.5 GB, the int8 one
 ~20 GB).
 
 Training recomputes each block in backward under the remat policies of
-models/flux/transformer.py (`_remat`: "full", "flash", "flash_offload"; the
-published 832×576 config runs "flash_offload").  The policies are checked
-only when autograd records, and predict never applies them.  The per-block
+models/flux/transformer.py (`_remat`, every policy of the JAX forward;
+"flash_single" is "flash" here, as in JAX, the architecture having one
+kind of block; the published 832×576 config runs "flash_offload").  A
+policy applies only when autograd records (predict never applies one); an
+unknown name raises either way.  The per-block
 AdaLN mods are computed outside the checkpointed region from temb, which
 depends on σ alone: nothing records for them, so no dequantized mod weight
 is ever saved for backward, and over the W4A16 base their M = B rows launch
@@ -43,7 +45,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from qflux_tpu_torch.models.common.embeddings import mlp_silu, sinusoidal_embedding
-from qflux_tpu_torch.models.flux.transformer import AdaProj, DualAttn, RMSScale, _remat
+from qflux_tpu_torch.models.flux.transformer import (AdaProj, DualAttn, RMSScale, _remat,
+                                                     qkv_keeps)
+from qflux_tpu_torch.ops import remat
 from qflux_tpu_torch.ops.attention import qk_norm_rope_attention
 from qflux_tpu_torch.ops.layers import MLP, Dense, dense
 from qflux_tpu_torch.ops.norms import ada_ln_mods, layer_norm, modulate, rms_norm
@@ -194,7 +198,7 @@ def _modulate3(x, mod):
 
 
 def _mlp(p: MLP, x):
-    return dense(p.lin_out, F.gelu(dense(p.lin_in, x), approximate="tanh"))
+    return dense(p.lin_out, F.gelu(dense(p.lin_in, x, keep=remat.MLP_H), approximate="tanh"))
 
 
 def _block(p: QwenBlock, cfg, img, txt, img_mod, txt_mod, cos, sin, seg, attn_impl):
@@ -209,9 +213,13 @@ def _block(p: QwenBlock, cfg, img, txt, img_mod, txt_mod, cos, sin, seg, attn_im
     a = p.attn
     # RAW q/k, joint order [txt, img]; qk-RMSNorm + rope run inside the fused
     # attention, the text rows (< st) with the norm_added_* scales
-    q = torch.cat([_heads(dense(a.add_q, txt_n), n_h), _heads(dense(a.to_q, img_n), n_h)], dim=1)
-    k = torch.cat([_heads(dense(a.add_k, txt_n), n_h), _heads(dense(a.to_k, img_n), n_h)], dim=1)
-    v = torch.cat([_heads(dense(a.add_v, txt_n), n_h), _heads(dense(a.to_v, img_n), n_h)], dim=1)
+    kqk, kv = qkv_keeps(st + img.shape[1], cfg.attention_head_dim, attn_impl)
+    q = torch.cat([_heads(dense(a.add_q, txt_n, keep=kqk), n_h),
+                   _heads(dense(a.to_q, img_n, keep=kqk), n_h)], dim=1)
+    k = torch.cat([_heads(dense(a.add_k, txt_n, keep=kqk), n_h),
+                   _heads(dense(a.to_k, img_n, keep=kqk), n_h)], dim=1)
+    v = torch.cat([_heads(dense(a.add_v, txt_n, keep=kv), n_h),
+                   _heads(dense(a.to_v, img_n, keep=kv), n_h)], dim=1)
     qs2 = torch.stack([a.norm_added_q.scale, a.norm_q.scale])
     ks2 = torch.stack([a.norm_added_k.scale, a.norm_k.scale])
     o = qk_norm_rope_attention(q, k, v, qs2, ks2, cos, sin, st, segment_ids=seg, impl=attn_impl)
@@ -228,11 +236,6 @@ def _block(p: QwenBlock, cfg, img, txt, img_mod, txt_mod, cos, sin, seg, attn_im
     return img, txt
 
 
-# the JAX forward's remat policies (models/qwen/transformer.py:247-267)
-REMAT_POLICIES = ("dots", "dots_all", "flash", "flash_qkv", "flash_mlp", "flash_single",
-                  "flash_offload", "full")
-
-
 def forward(params: QwenImageTransformer, cfg: QwenImageConfig,
             hidden_states,                  # [B, S_img, in_channels]
             encoder_hidden_states,          # [B, S_txt, joint_attention_dim]
@@ -246,10 +249,8 @@ def forward(params: QwenImageTransformer, cfg: QwenImageConfig,
             remat_policy: str = "full"):
     """Returns [B, S_img, patch²·out_channels] over the full image stream.
     With `remat` and autograd recording, every block is recomputed in
-    backward under `remat_policy` (raising on the policies not ported);
-    without autograd (inference) nothing is, whatever the policy names."""
-    if remat and remat_policy not in REMAT_POLICIES:
-        raise ValueError(f"unknown remat_policy {remat_policy!r}")
+    backward under `remat_policy`; without autograd (inference) nothing is,
+    whatever the policy names."""
     img = dense(params.img_in, hidden_states)
     txt = rms_norm(encoder_hidden_states, params.txt_norm.scale)
     txt = dense(params.txt_in, txt)
@@ -268,8 +269,10 @@ def forward(params: QwenImageTransformer, cfg: QwenImageConfig,
     def block_fn(p, img, txt, img_mod, txt_mod):
         return _block(p, cfg, img, txt, img_mod, txt_mod, cos, sin, segment_ids, attn_impl)
 
-    if remat and torch.is_grad_enabled():
-        block_fn = _remat(block_fn, remat_policy)
+    if remat:  # the policy is checked even where nothing records for backward
+        remat_block = _remat(block_fn, remat_policy, "qwen")
+        if torch.is_grad_enabled():
+            block_fn = remat_block
     temb_s = F.silu(temb.float())
     for p in params.blocks:
         # the "mod_out" save point: f32 mods computed outside the block

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from qflux_tpu_torch.ops import remat
+
 NEG_INF = -1e30
 
 
@@ -81,13 +83,16 @@ def qk_norm_rope_attention(q_raw, k_raw, v, q_scale2, k_scale2, cos, sin,
     _refuse_unported(impl)
     if impl in ("auto", "int8"):
         s_int8 = impl == "int8"
-        if flash_nr.supports(q_raw.shape[1], k_raw.shape[1], q_raw.shape[-1], s_int8):
+        if fused_route(q_raw.shape[1], k_raw.shape[1], q_raw.shape[-1], impl):
             out, _ = flash_nr.flash_attention_nr(q_raw, k_raw, v, q_scale2, k_scale2,
                                                  cos, sin, st, segment_ids=segment_ids,
                                                  s_int8=s_int8)
             return out
-        qn = flash_nr.apply_qk_norm_rope(q_raw, q_scale2, cos, sin, st)
-        kn = flash_nr.apply_qk_norm_rope(k_raw, k_scale2, cos, sin, st)
+        # "flash_q" / "flash_k" on this route: the normed and roped q / k
+        # (the recompute still runs the projections and the norm + rope,
+        # whose backward needs their inputs, as JAX's does)
+        qn = remat.kept(remat.QKV, flash_nr.apply_qk_norm_rope(q_raw, q_scale2, cos, sin, st))
+        kn = remat.kept(remat.QKV, flash_nr.apply_qk_norm_rope(k_raw, k_scale2, cos, sin, st))
         return dot_product_attention(qn, kn, v, segment_ids=segment_ids)
     if impl == "int8_plain":
         d, s = q_raw.shape[-1], q_raw.shape[1]
@@ -101,6 +106,15 @@ def qk_norm_rope_attention(q_raw, k_raw, v, q_scale2, k_scale2, cos, sin,
     qn = flash_nr.apply_qk_norm_rope(q_raw, q_scale2, cos, sin, st)
     kn = flash_nr.apply_qk_norm_rope(k_raw, k_scale2, cos, sin, st)
     return sdpa_reference(qn, kn, v, segment_ids=segment_ids)
+
+
+def fused_route(sq: int, sk: int, d: int, impl: str) -> bool:
+    """Whether `qk_norm_rope_attention` takes the fused route (K1 / K2),
+    which takes the raw q / k projections as they are, rather than the plain
+    norm + rope before K3 / K4 (or the plain composition)."""
+    from qflux_tpu_torch.ops import flash_nr
+
+    return impl in ("auto", "int8") and flash_nr.supports(sq, sk, d, impl == "int8")
 
 
 def _refuse_unported(impl):

@@ -22,12 +22,11 @@ hop's forward and backward.  The parts:
     checkpoint policy sees;
   * `flash_fwd_with_lse` / `flash_bwd_from_residuals` — the ring hop's two
     entry points, without autograd, over the same kernels;
-  * `offload_contexts` — the "flash_offload" remat policy's pair of
-    checkpoint contexts, shared with K1's op: in a checkpointed region's
-    forward either op copies its out and lse to pinned host memory; in the
-    region's recompute it returns them to the device instead of launching
-    again, in call order, so backward runs on the same residuals as under
-    "flash" while the device holds none of them in between.
+  * the op's body is a FLASH save point of ops/remat.py, shared with K1's
+    op: in a checkpointed block whose policy keeps the attention outputs
+    ("flash", "flash_offload", "flash_qkv", "flash_mlp"), the block's
+    forward stores the op's out and lse and its recompute returns them
+    instead of launching again.
 
 `KERNEL_LAUNCHES` counts K3's launches, `BWD_KERNEL_LAUNCHES` K4's.  The
 kernels take every S and mask the ragged edge by index, so JAX's block
@@ -38,11 +37,9 @@ JAX's merged (K4a) and split (K4b + K4c) backward alike.
 
 from __future__ import annotations
 
-import contextlib
-import threading
-
 import torch
 
+from qflux_tpu_torch.ops import remat
 from qflux_tpu_torch.ops.attention import sdpa_with_lse, segment_mask
 
 HEAD_DIM = 128  # the only head dim the kernels take
@@ -205,65 +202,6 @@ def _launch_bwd(kl, stream, q, k, v, q_seg, kv_seg, out, lse, do, scale):
     return dq, dk, dv
 
 
-class _OffloadStore:
-    """The (out, lse) of the attention ops of one checkpointed region, in
-    host memory (pinned for CUDA tensors) from the region's forward to its
-    recompute, in call order."""
-
-    def __init__(self):
-        self.saved = []
-        self.next = 0
-
-    def put(self, out, lse):
-        pin = out.is_cuda
-        self.saved.append([torch.empty(t.shape, dtype=t.dtype, pin_memory=pin).copy_(
-            t, non_blocking=pin) for t in (out, lse)])
-
-    def take(self, device):
-        out, lse = self.saved[self.next]
-        self.next += 1
-        if device.type == "cpu":  # the op's outputs are fresh tensors
-            return out.clone(), lse.clone()
-        return out.to(device, non_blocking=True), lse.to(device, non_blocking=True)
-
-
-_OFFLOAD = threading.local()  # .state: (store, replaying) inside a "flash_offload" region
-
-
-@contextlib.contextmanager
-def _offload_mode(store: _OffloadStore, replaying: bool):
-    prev = getattr(_OFFLOAD, "state", None)
-    store.next = 0
-    _OFFLOAD.state = (store, replaying)
-    try:
-        yield
-    finally:
-        _OFFLOAD.state = prev
-
-
-def offload_contexts():
-    """The `context_fn` of torch.utils.checkpoint for the "flash_offload"
-    policy (JAX's save_and_offload_only_these_names("flash_out",
-    "flash_lse") to pinned_host): (forward context, recompute context) over
-    one fresh store.  The recompute context runs in whichever thread the
-    autograd engine recomputes in, and the state is per thread."""
-    store = _OffloadStore()
-    return _offload_mode(store, False), _offload_mode(store, True)
-
-
-def launch_or_replay(device, launch):
-    """An attention op's body: `launch()` → (out, lse), except in a
-    "flash_offload" recompute, which returns the region's stored pair
-    instead; in the region's forward the pair is also stored."""
-    state = getattr(_OFFLOAD, "state", None)
-    if state is not None and state[1]:
-        return state[0].take(device)
-    out, lse = launch()
-    if state is not None:
-        state[0].put(out, lse)
-    return out, lse
-
-
 # The custom op runs on every device type: on a CUDA tensor it launches K3, on
 # any other `_flash_fwd_cuda` raises (the public entry point sends CPU tensors
 # to the plain version before they reach it).
@@ -278,7 +216,7 @@ def _flash_fwd_op(q, k, v, q_seg, kv_seg, scale):
         KERNEL_LAUNCHES += 1
         return out, lse
 
-    return launch_or_replay(q.device, launch)
+    return remat.keep(remat.FLASH, q.device, launch)
 
 
 def _fwd_setup_context(ctx, inputs, output):

@@ -17,17 +17,16 @@ Counterpart of qflux_tpu/ops/flash_nr.py.  The parts:
     launches K2 (`csrc/flash_nr_bwd.cu`), as the JAX `custom_vjp` runs
     `_fwd_nr` / `_bwd_nr`.  Each launches its kernel or raises; nothing falls
     back.  `KERNEL_LAUNCHES` counts K1's launches, `BWD_KERNEL_LAUNCHES`
-    K2's.  The forward is a `torch.library.custom_op` (not a Python
-    autograd.Function) so that a selective-checkpoint policy can see it and
-    save its out and lse (the "flash" remat policy,
-    models/flux/transformer.py);
+    K2's.  The forward is a `torch.library.custom_op` with a registered
+    autograd formula, whose body a remat policy that keeps the attention
+    outputs replays (below);
   * `supports` — WHERE JAX on a TPU runs this fused path at all: the whole
     K in one kernel block (padded S ≤ 2688 in bf16, ≤ 2560 with the int8
     score GEMM) and self-attention; elsewhere `ops/attention.py` takes
     JAX's other route, the plain norm + rope and then K3 / K4
-    (ops/flash_attention.py).  In a "flash_offload" region the op parks
-    and replays K1's out and lse through `flash_attention.offload_contexts`
-    and `launch_or_replay`, which K3's op shares.
+    (ops/flash_attention.py).  The op's body is a FLASH save point of
+    ops/remat.py, as K3's is: a block whose remat policy keeps the
+    attention outputs replays K1's out and lse in its recompute.
 
 The `s_int8` mode (config `model.quantize.attention`) computes QK^T as an
 int8 x int8 product with one scale per q tile and one per (b, h) for K,
@@ -55,7 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from qflux_tpu_torch.ops.attention import masked_softmax_pv, sdpa_with_lse, segment_mask
-from qflux_tpu_torch.ops.flash_attention import launch_or_replay
+from qflux_tpu_torch.ops import remat
 
 EPS = 1e-6
 HEAD_DIM = 128  # the only head dim the kernels take (every FLUX/Qwen shape)
@@ -561,10 +560,9 @@ def _launch_int8_prep(kl, stream, q, k, qs, ks, cos, sin, cs_bstride, st, q_rows
 
 # The custom op runs on every device type: on a CUDA tensor it launches K1,
 # on any other `_flash_nr_cuda` raises (the public entry point sends CPU
-# tensors to the plain version before they reach it).  Inside a
-# "flash_offload" region it stores its outputs in host memory, and in the
-# region's recompute it returns them instead of launching
-# (`flash_attention.launch_or_replay`).
+# tensors to the plain version before they reach it).  In a checkpointed
+# block that keeps the attention outputs, the block's forward stores them
+# and its recompute returns them instead of launching (`remat.keep`).
 @torch.library.custom_op(
     "qflux::flash_nr_fwd", mutates_args=(),
     schema="(Tensor q, Tensor k, Tensor v, Tensor q_scale2, Tensor k_scale2, Tensor cos, "
@@ -584,7 +582,7 @@ def _flash_nr_fwd_op(q, k, v, q_scale2, k_scale2, cos, sin, segment_ids, st, sca
             KERNEL_LAUNCHES += 1
         return out, lse
 
-    return launch_or_replay(q.device, launch)
+    return remat.keep(remat.FLASH, q.device, launch)
 
 
 def _fwd_setup_context(ctx, inputs, output):

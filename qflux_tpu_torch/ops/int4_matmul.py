@@ -50,8 +50,11 @@ model (K a multiple of 64, N of 16, the group size of 4).
 `RQ_KERNEL_LAUNCHES` counts K5a's launches, `RQ_BWD_KERNEL_LAUNCHES` K5b's,
 `ROWQUANT_LAUNCHES` the row quantization's.
 
-Both forwards are custom ops (not Python autograd.Functions) so that a
-selective-checkpoint policy sees them, as it sees K1.
+Both forwards are custom ops with registered autograd formulas, and their
+bodies are remat save points (`quant.kept_product`): a "dots" block keeps
+K5a's output and replays it in the recompute (K6a's, a pallas_call in JAX,
+no policy keeps), and a block that keeps a dense layer's whole output
+skips either.
 """
 
 from __future__ import annotations
@@ -62,7 +65,7 @@ import functools
 import torch
 
 from qflux_tpu_torch.ops.quant import (_requant_factors, _rowquant, dequantize_kernel_int4,
-                                      requant_int4_matmul)
+                                      kept_product, requant_int4_matmul)
 
 INT4_KERNEL_LAUNCHES = 0    # K6a, csrc/int4_fwd.cu
 INT4_BWD_KERNEL_LAUNCHES = 0  # K6b, csrc/int4_bwd.cu
@@ -129,7 +132,10 @@ class _Int4Matmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, q4, scale):
         ctx.save_for_backward(q4, scale)
-        return int4_matmul_reference(x, q4, scale)
+        # a save point that keeps nothing (the plain K6a, JAX's pallas_call,
+        # is no dot a "dots" policy keeps), but is skipped as a base product
+        return kept_product(x, q4.shape[-1], lambda: int4_matmul_reference(x, q4, scale),
+                            name=None)
 
     @staticmethod
     def backward(ctx, g):
@@ -280,11 +286,16 @@ def int4_bwd_cuda(gb, q4, scale, out_dtype):
 @torch.library.custom_op("qflux::int4_fwd", mutates_args=(),
                          schema="(Tensor x, Tensor q4, Tensor scale) -> Tensor")
 def _int4_fwd_op(x, q4, scale):
-    global INT4_KERNEL_LAUNCHES
-    xb = x.reshape(-1, x.shape[-1]).to(torch.bfloat16).contiguous()
-    y = int4_fwd_cuda(xb, q4, scale, x.dtype)
-    INT4_KERNEL_LAUNCHES += 1
-    return y.reshape(*x.shape[:-1], q4.shape[-1])
+    def launch():
+        global INT4_KERNEL_LAUNCHES
+        xb = x.reshape(-1, x.shape[-1]).to(torch.bfloat16).contiguous()
+        y = int4_fwd_cuda(xb, q4, scale, x.dtype)
+        INT4_KERNEL_LAUNCHES += 1
+        return y.reshape(*x.shape[:-1], q4.shape[-1])
+
+    # skipped as a base product, kept by no policy: JAX's K6a is a
+    # pallas_call, not a dot
+    return kept_product(x, q4.shape[-1], launch, name=None)
 
 
 def _int4_setup_context(ctx, inputs, output):
@@ -538,11 +549,15 @@ def rq_int4_bwd_cuda(gq, q4, f, sg, out_dtype):
 @torch.library.custom_op("qflux::rq_int4_fwd", mutates_args=(),
                          schema="(Tensor x, Tensor q4, Tensor f, Tensor s_vec) -> Tensor")
 def _rq_fwd_op(x, q4, f, s_vec):
-    global RQ_KERNEL_LAUNCHES
-    xq, sx = rowquant(x.reshape(-1, x.shape[-1]))
-    y = rq_int4_fwd_cuda(xq, q4, f, sx, s_vec, x.dtype)
-    RQ_KERNEL_LAUNCHES += 1
-    return y.reshape(*x.shape[:-1], q4.shape[-1])
+    def launch():
+        global RQ_KERNEL_LAUNCHES
+        xq, sx = rowquant(x.reshape(-1, x.shape[-1]))
+        y = rq_int4_fwd_cuda(xq, q4, f, sx, s_vec, x.dtype)
+        RQ_KERNEL_LAUNCHES += 1
+        return y.reshape(*x.shape[:-1], q4.shape[-1])
+
+    # a "dots" policy keeps it: JAX's route is XLA's requant dot
+    return kept_product(x, q4.shape[-1], launch)
 
 
 def _rq_setup_context(ctx, inputs, output):

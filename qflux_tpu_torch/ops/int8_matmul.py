@@ -20,8 +20,8 @@ The split of the narrow grids' contraction is K5a's and K5b's
 (`int4_matmul._rq_plan`), and so is the scratch (`_rq_buffers`: the
 transposed weight at its start, the split partial sums after it).
 `dyn_int8_matmul(x, q, s_vec)`: a CPU tensor takes the plain version; a
-CUDA tensor calls the custom op `qflux::int8_dyn_fwd` (so that a
-selective-checkpoint policy sees it, as it sees K5a) or raises, on a shape
+CUDA tensor calls the custom op `qflux::int8_dyn_fwd` (a remat save point,
+as K5a's: `quant.kept_product`) or raises, on a shape
 the GEMM does not take too (K % 64, N % 16; any length, the AdaLN mods'
 N = 18,432 included: the dx row-quantizes g over N).
 `INT8_GEMM_LAUNCHES` counts the forward GEMM's launches,
@@ -37,6 +37,7 @@ import torch
 
 from qflux_tpu_torch.ops import int4_matmul as i4
 from qflux_tpu_torch.ops.quant import dyn_int8_matmul as dyn_int8_matmul_plain
+from qflux_tpu_torch.ops.quant import kept_product
 
 INT8_GEMM_LAUNCHES = 0       # the W8A8 forward GEMM, csrc/int8_gemm.cu
 INT8_GEMM_DX_LAUNCHES = 0    # its dx GEMM
@@ -148,12 +149,15 @@ def int8_gemm_dx_cuda(gq, qt, sg, out_dtype):
 @torch.library.custom_op("qflux::int8_dyn_fwd", mutates_args=(),
                          schema="(Tensor x, Tensor q, Tensor s_vec) -> Tensor")
 def _int8_fwd_op(x, q, s_vec):
-    global INT8_GEMM_LAUNCHES
-    check_shape(q.shape[1], q.shape[0])
-    xq, sx = i4.rowquant(x.reshape(-1, x.shape[-1]))
-    y = int8_gemm_cuda(xq, q, sx, s_vec, x.dtype)
-    INT8_GEMM_LAUNCHES += 1
-    return y.reshape(*x.shape[:-1], q.shape[0])
+    def launch():
+        global INT8_GEMM_LAUNCHES
+        check_shape(q.shape[1], q.shape[0])
+        xq, sx = i4.rowquant(x.reshape(-1, x.shape[-1]))
+        y = int8_gemm_cuda(xq, q, sx, s_vec, x.dtype)
+        INT8_GEMM_LAUNCHES += 1
+        return y.reshape(*x.shape[:-1], q.shape[0])
+
+    return kept_product(x, q.shape[0], launch)
 
 
 def _int8_setup_context(ctx, inputs, output):

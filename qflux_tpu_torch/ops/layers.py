@@ -63,7 +63,7 @@ from typing import Iterator, Optional
 import torch
 from torch import nn
 
-from qflux_tpu_torch.ops import int4_matmul, int8_matmul, quant
+from qflux_tpu_torch.ops import int4_matmul, int8_matmul, quant, remat
 from qflux_tpu_torch.ops.quant import _matmul_f32
 
 LoraTree = dict  # {"dual/0/attn/to_q": {"a", "b", "scaling"}, ...}
@@ -191,24 +191,44 @@ def _base_matmul(p: Dense, x):
     return _matmul_f32(x, quant.dequantize_kernel_int4(p.q4, p.scale, x.dtype).t())
 
 
-def dense(p: Dense, x, lora_scale: float = 1.0):
+def dense(p: Dense, x, lora_scale: float = 1.0, keep: Optional[str] = None):
     """y = x@W + b [+ lora_scale · scaling · (x@a)@b], returned in x.dtype.
 
     Cast points as in JAX: the base product accumulates and stays in f32
     (the fused int4 matmuls return x.dtype); both LoRA dots emit
     x.dtype and the scaling (a float, or a tensor that autograd
     differentiates) is rounded to x.dtype; the delta and the bias are added
-    in y's dtype."""
-    y = _base_matmul(p, x)
+    in y's dtype.
+
+    Remat save points (ops/remat.py): the base product and both LoRA
+    products are DOTs, which a "dots" block keeps.  `keep` (remat.QKV or
+    remat.MLP_H) names the layer's whole output: a block that keeps it
+    stores the output in its forward, and in its recompute the base product
+    returns a placeholder (its autograd node saves what it always saves),
+    the LoRA products run for their own saved tensors, and the stored
+    output comes back, with their autograd history, in place of the adds,
+    which save nothing."""
+    replay = keep is not None and remat.replays(keep)
+    if replay:
+        with remat.skipping():
+            y = _base_matmul(p, x)
+    else:
+        y = _base_matmul(p, x)
     if p.lora is not None:
         la, lb = p.lora["a"].to(x.dtype), p.lora["b"].to(x.dtype)
         s = p.lora.get("scaling", 1.0)
         s = s * lora_scale if torch.is_tensor(s) else torch.tensor(float(s) * lora_scale)
         s = s.to(device=x.device, dtype=x.dtype)
-        y = y + (torch.matmul(torch.matmul(x, la), lb) * s).to(y.dtype)
+        xa = remat.product(remat.DOT, lambda: torch.matmul(x, la))
+        delta = remat.product(remat.DOT, lambda: torch.matmul(xa, lb)) * s
+        if replay:
+            return remat.take(keep, x.device, y, delta)
+        y = y + delta.to(y.dtype)
+    elif replay:
+        return remat.take(keep, x.device, y)
     if p.bias is not None:
         y = y + p.bias.to(y.dtype)
-    return y.to(x.dtype)
+    return remat.put(keep, y.to(x.dtype)) if keep is not None else y.to(x.dtype)
 
 
 def set_int4_impl(module: nn.Module, impl: str) -> None:

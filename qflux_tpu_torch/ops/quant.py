@@ -60,6 +60,11 @@ divisor is a tensor on the input's device (`_div`), since CUDA divides a
 tensor by a Python scalar, or by a 0-dim CPU tensor, as a product with the
 reciprocal.  The row scales (`_rowquant`, the per-group dx scales) are the
 product with fl32(1/127), as JAX computes them under `jit`.
+
+Every product here is a dense layer's base product, and its forward is a
+save point of ops/remat.py (`remat.keep`): a block under "dots" keeps its
+output (under "dots_all" too the batched one of `dyn_int4_matmul`), and
+a block that keeps a dense layer's whole output skips it in the recompute.
 """
 
 from __future__ import annotations
@@ -67,6 +72,8 @@ from __future__ import annotations
 import re
 
 import torch
+
+from qflux_tpu_torch.ops import remat
 
 
 # the largest magnitude of each per-channel form, and its element type
@@ -220,6 +227,14 @@ def requant_int4_matmul_dx(g, q4, factors):
     return (dxa.reshape(*g.shape[:-1], q8.shape[0]).to(torch.float32) * sg).to(g.dtype)
 
 
+def kept_product(x, n, fn, name=remat.DOT, dtype=None):
+    """`fn()`, a base product of x with n outputs, as a remat save point
+    (`remat.keep`; skipped, it returns an uninitialised [..., n] in `dtype`,
+    x.dtype by default); `name` None for one that no policy keeps."""
+    return remat.keep(name, x.device, fn, lambda: torch.empty(
+        *x.shape[:-1], n, dtype=dtype or x.dtype, device=x.device))
+
+
 class _RequantInt4Matmul(torch.autograd.Function):
     """The plain forward with the plain straight-through backward; q4 and
     the factors are frozen buffers, saved by reference."""
@@ -227,7 +242,7 @@ class _RequantInt4Matmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, q4, f, s_vec):
         ctx.save_for_backward(q4, f, s_vec)
-        return _requant_fwd(x, q4, f, s_vec)
+        return kept_product(x, q4.shape[-1], lambda: _requant_fwd(x, q4, f, s_vec))
 
     @staticmethod
     def backward(ctx, g):
@@ -251,37 +266,56 @@ def requant_int4_matmul(x, q4, g_scale, factors=None):
 # transposed), with the channel scales s_vec [N].
 
 
+def _mm_f32(x2, w):
+    """x2 [M, in] @ w^T (w [out, in], x2's dtype) → f32 [M, out]: f32 operands
+    in f32; bf16 ones accumulate in f32 and keep the f32 result (cuBLAS
+    `out_dtype` on the card; widened operands on the CPU, same math)."""
+    if x2.dtype == torch.float32:
+        return torch.mm(x2, w.t())
+    if x2.is_cuda:
+        return torch.mm(x2, w.t(), out_dtype=torch.float32)
+    return torch.mm(x2.float(), w.float().t())
+
+
 class _MatmulF32Out(torch.autograd.Function):
-    """x2 [N, in] @ W^T with an f32 result through cuBLAS `out_dtype`.  The
-    `aten::mm.dtype` overload has no derivative formula, so this gives it
-    one: dx = g @ W in x's dtype (bf16 operands, f32 accumulation).  W is a
+    """`_mm_f32` with a remat save point, and the input gradient autograd
+    takes through the same ops (the `aten::mm.dtype` overload has none of
+    its own): dx = g @ W, in f32 for an f32 x; for a bf16 x g cast to bf16
+    first on the card (bf16 operands, f32 accumulation), the f32 product
+    cast to bf16 after it on the CPU (where the forward widened x).  W is a
     frozen base weight: no dW is computed."""
 
     @staticmethod
     def forward(ctx, x2, w):
         ctx.save_for_backward(w)
-        return torch.mm(x2, w.t(), out_dtype=torch.float32)
+        return kept_product(x2, w.shape[0], lambda: _mm_f32(x2, w), dtype=torch.float32)
 
     @staticmethod
     def backward(ctx, g):
+        if ctx.needs_input_grad[1]:
+            raise RuntimeError("_matmul_f32 differentiates x only: the base weight is frozen")
         (w,) = ctx.saved_tensors
-        return torch.mm(g.to(w.dtype), w), None
+        if w.dtype == torch.float32:
+            return torch.mm(g, w), None
+        if g.is_cuda:
+            return torch.mm(g.to(w.dtype), w), None
+        return torch.mm(g, w.float()).to(w.dtype), None
 
 
 def _matmul_f32(x, w):
     """x @ w^T (w [out, in]) with an f32 result, as `jnp.dot(...,
-    preferred_element_type=f32)`: f32 inputs multiply in f32 (the weight
-    cast to x.dtype, as JAX); bf16 inputs accumulate in f32 and keep the f32
-    result (cuBLAS `out_dtype` on the card; widened operands on the CPU,
-    same math)."""
-    if x.dtype == torch.float32:
-        return torch.matmul(x, w.to(x.dtype).t())
+    preferred_element_type=f32)`: the weight cast to x.dtype, as JAX.  In a
+    block that keeps tensors, `_MatmulF32Out` over the rows (the save
+    point); elsewhere plain autograd where it has a formula (f32 operands,
+    or bf16 ones widened on the CPU: the same ops and casts as
+    `_MatmulF32Out`'s backward), so inference and unkept blocks pay no
+    autograd.Function per product."""
     w = w.to(x.dtype)
     x2 = x.reshape(-1, x.shape[-1])
-    if x.is_cuda:
-        y = _MatmulF32Out.apply(x2, w)
+    if not remat.in_kept_block() and (x.dtype == torch.float32 or not x.is_cuda):
+        y = _mm_f32(x2, w)
     else:
-        y = torch.mm(x2.float(), w.float().t())
+        y = _MatmulF32Out.apply(x2, w)
     return y.reshape(*x.shape[:-1], w.shape[0])
 
 
@@ -295,7 +329,8 @@ class _WoMatmul(torch.autograd.Function):
     def forward(ctx, x, q, s_vec):
         ctx.save_for_backward(q, s_vec)
         ctx.x_dtype = x.dtype
-        return _matmul_f32(x, dequantize_kernel(q, s_vec[:, None], x.dtype))
+        return kept_product(x, q.shape[0], lambda: _matmul_f32(
+            x, dequantize_kernel(q, s_vec[:, None], x.dtype)), dtype=torch.float32)
 
     @staticmethod
     def backward(ctx, g):
@@ -338,7 +373,7 @@ class _DynInt8Matmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, q, s_vec):
         ctx.save_for_backward(q, s_vec)
-        return dyn_int8_fwd(x, q, s_vec)
+        return kept_product(x, q.shape[0], lambda: dyn_int8_fwd(x, q, s_vec))
 
     @staticmethod
     def backward(ctx, g):
@@ -436,7 +471,8 @@ class _DynInt4Matmul(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, q4, g_scale):
         ctx.save_for_backward(q4, g_scale)
-        return dyn_int4_fwd(x, q4, g_scale)
+        return kept_product(x, q4.shape[-1], lambda: dyn_int4_fwd(x, q4, g_scale),
+                            name=remat.DOT_BATCH)
 
     @staticmethod
     def backward(ctx, g):

@@ -23,7 +23,7 @@ trainer's, so either package resumes the other's run:
         logs/events.out.tfevents.*            TensorBoard events
         checkpoint-{step}/, checkpoint-last-{step}/
             pytorch_lora_weights.safetensors  the LoRA, diffusers names
-            optimizer_state.npz               AdamW's moments, optax's keys
+            optimizer_state.npz               the optimizer's moments, optax's keys
             state.json                        global_step, epoch, is_last, git
             generator_state.npy               the port's noise generator
 
@@ -55,12 +55,17 @@ default; int8 / fp8 weight-only, W8A8 `int8_dynamic`, the int4 forms), and
 int4 matmuls are kernels K5b and K6b, and W8A8's runs the int8 GEMM of
 csrc/int8_gemm.cu).  `quantize.attention` runs the int8 score GEMM of K1
 and K2 wherever JAX on a TPU would (S up to 2560 at head dim 128; bf16
-attention through K3 / K4 elsewhere, as there), and the remat policies not
-ported raise in the transformer.
+attention through K3 / K4 elsewhere, as there).  Every remat policy of the
+JAX forward trains (models/flux/transformer.py), and a step that runs out
+of device memory under one that keeps tensors degrades once to "full" and
+runs again, as JAX's `_degrade_remat_or_raise`.  The optimizers are
+`optax.adamw` (torch.optim.AdamW) and JAX's blockwise-fp8
+`qflux_tpu.ops.adam8bit.adamw8bit` (ops/adam8bit.py).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import logging
@@ -79,6 +84,7 @@ from qflux_tpu_torch import losses
 from qflux_tpu_torch.config import config_from_dict, config_to_dict, load_config_from_yaml
 from qflux_tpu_torch.data.cache import EmbeddingCacheManager
 from qflux_tpu_torch.data.preprocess import ImageProcessor
+from qflux_tpu_torch.ops.adam8bit import AdamW8bit
 from qflux_tpu_torch.ops.layers import (build_lora_tree, iter_dense_paths, mark_trainable,
                                         merge_lora)
 from qflux_tpu_torch.ops.quant import quantize_tree
@@ -109,7 +115,11 @@ ADAPTERS = {"FluxKontextLoraTrainer": FluxKontextAdapter,
 CRITERIA = {f"{pkg}.{name}": getattr(losses, name)
             for pkg in ("qflux_tpu.losses", "qflux_tpu.losses.losses")
             for name in ("MseLoss", "MaskEditLoss", "AttentionMaskMseLoss")}
-ADAMW_ARGS = ("b1", "b2", "eps", "weight_decay")  # the optax.adamw arguments ported
+# optimizer.class_path → the arguments ported
+OPTIMIZER_ARGS = {"optax.adamw": ("b1", "b2", "eps", "weight_decay"),
+                  "qflux_tpu.ops.adam8bit.adamw8bit": ("b1", "b2", "eps", "weight_decay",
+                                                       "block_size")}
+ITEM_7 = "ROADMAP.md, queue 1: \"Optimizers and CLI\""
 ITEM_2 = "ROADMAP.md, queue 1 item 2: \"The rest of slice B, part 1: files, real weights and data\""
 
 
@@ -272,29 +282,40 @@ class Trainer:
         return build_lora_tree(gen, self.bundle.dit_params, targets, rank=lcfg.r,
                                alpha=lcfg.lora_alpha, init=init)
 
-    def build_optimizer(self, params: list):
-        """(torch.optim.AdamW over `params`, lr schedule): `optax.adamw` with
-        the configured b1 / b2 / eps / weight_decay (optax's defaults where
-        absent) and the configured lr schedule.  Any other optimizer or
-        argument raises."""
+    def build_optimizer(self, params: list, stacks=None):
+        """(optimizer over `params`, lr schedule) with the configured lr
+        schedule: `optax.adamw` as torch.optim.AdamW, or JAX's
+        `qflux_tpu.ops.adam8bit.adamw8bit` as `AdamW8bit` (`stacks`: the
+        params grouped as JAX stacks its leaves, `checkpoint.lora_stacks`),
+        each with the configured b1 / b2 / eps / weight_decay (block_size
+        too for adamw8bit; JAX's defaults where absent).  Any other
+        optimizer or argument raises."""
         ocfg = self.config.optimizer
-        if ocfg.class_path != "optax.adamw":
+        ported = OPTIMIZER_ARGS.get(ocfg.class_path)
+        if ported is None:
+            why = ("; no PyTorch counterpart of it is installed"
+                   if ocfg.class_path == "optax.contrib.prodigy" else "")
             raise NotImplementedError(
-                f"optimizer {ocfg.class_path!r} is not ported yet (ROADMAP.md, queue 1: "
-                "\"Optimizers and CLI\"; ported: optax.adamw)")
+                f"optimizer {ocfg.class_path!r} is not ported yet ({ITEM_7}; ported: "
+                f"{sorted(OPTIMIZER_ARGS)}){why}")
         args = dict(ocfg.init_args or {})
-        unknown = sorted(set(args) - set(ADAMW_ARGS))
+        unknown = sorted(set(args) - set(ported))
         if unknown:
             raise NotImplementedError(
-                f"optax.adamw arguments {unknown} are not ported yet (ROADMAP.md, queue 1: "
-                f"\"Optimizers and CLI\"; ported: {list(ADAMW_ARGS)})")
+                f"{ocfg.class_path} arguments {unknown} are not ported yet ({ITEM_7}; "
+                f"ported: {list(ported)})")
         schedule = make_lr_schedule(ocfg.learning_rate, self.config.lr_scheduler.scheduler_type,
                                     self.config.lr_scheduler.warmup_steps,
                                     self.config.train.max_train_steps)
-        opt = torch.optim.AdamW(params, lr=schedule(0),
-                                betas=(args.get("b1", 0.9), args.get("b2", 0.999)),
-                                eps=args.get("eps", 1e-8),
-                                weight_decay=args.get("weight_decay", 1e-4))
+        betas = (args.get("b1", 0.9), args.get("b2", 0.999))
+        if ocfg.class_path == "optax.adamw":
+            opt = torch.optim.AdamW(params, lr=schedule(0), betas=betas,
+                                    eps=args.get("eps", 1e-8),
+                                    weight_decay=args.get("weight_decay", 1e-4))
+        else:
+            opt = AdamW8bit(params, lr=schedule(0), betas=betas, eps=args.get("eps", 1e-8),
+                            weight_decay=args.get("weight_decay", 1e-2),
+                            block_size=args.get("block_size", 256), stacks=stacks)
         return opt, schedule
 
     def build_criterion(self):
@@ -463,7 +484,7 @@ class Trainer:
         logging.profile_dir, torch.profiler traces steps 2–4 into a chrome
         trace there.  Noise and σ come from a generator seeded train.seed.
         With `resume` (a checkpoint directory), the LoRA comes from its
-        file, then AdamW's moments, global_step, epoch and the generator
+        file, then the optimizer's moments, global_step, epoch and the generator
         are restored, so the run goes on as if it had not stopped.
         Returns the LoRA tree, trained in place; `history` holds one entry
         per step: step, loss, grad_norm, lr (of this update), step_s (host
@@ -490,14 +511,15 @@ class Trainer:
         if cfg.resume:
             cfg.model.lora.pretrained_weight = str(cfg.resume)
         self.lora = lora = mark_trainable(self.build_lora())
-        self.optimizer, schedule = self.build_optimizer(lora_leaves(lora)[0])
+        self.optimizer, schedule = self.build_optimizer(lora_leaves(lora)[0],
+                                                        checkpoint.lora_stacks(lora))
         self.generator = torch.Generator(self.device).manual_seed(cfg.train.seed)
         if cfg.resume:
             self._load_train_state(Path(cfg.resume))
         criterion = self._criterion = self.build_criterion()
+        step_cfg = self._build_step_config()
         step = make_train_step(self.adapter.predict_velocity, criterion, self.optimizer,
-                               schedule, self._build_step_config(),
-                               first_update=self.global_step)
+                               schedule, step_cfg, first_update=self.global_step)
         self.logger.log_table("model_summary",
                               model_summary_rows(self.bundle.dit_params, lora), 0)
         self.history = []
@@ -523,7 +545,7 @@ class Trainer:
                         elif self.global_step == 4 and profiler is not None:
                             profiler = self._profile(profiler)
                     t0 = time.perf_counter()
-                    metrics = step(self.bundle.dit_params, lora, emb, self.generator)
+                    metrics, step = self._run_step(step, emb, criterion, schedule, step_cfg)
                     self.global_step += 1
                     if self.global_step == 1:  # the first step alone, before staging
                         loss = float(metrics["loss"])
@@ -575,6 +597,49 @@ class Trainer:
             self.logger.close()
         return lora
 
+    def _run_step(self, step, emb, criterion, schedule, step_cfg):
+        """One train step → (metrics, the step to go on with).  A step that
+        raises torch.OutOfMemoryError before the optimizer began its update,
+        under a remat policy that keeps tensors, is run once more on the
+        same batch and the same noise under "full" (`_degrade_remat_or_raise`)."""
+        rng_state = self.generator.get_state()
+        try:
+            return step(self.bundle.dit_params, self.lora, emb, self.generator), step
+        except torch.OutOfMemoryError as err:
+            step = self._degrade_remat_or_raise(err, step, criterion, schedule, step_cfg)
+        # out of the except block, the failed step's graph is gone with its
+        # traceback: free its gradients and the cached blocks too
+        for t in sum(lora_leaves(self.lora), []):
+            t.grad = None
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        self.generator.set_state(rng_state)
+        return step(self.bundle.dit_params, self.lora, emb, self.generator), step
+
+    def _degrade_remat_or_raise(self, err, step, criterion, schedule, step_cfg):
+        """JAX's rule for a step that ran out of memory: the adapter
+        replaced by one with remat_policy "full", the step rebuilt at the
+        current update count; re-raises `err` unchanged under "full" or
+        without remat, and where the optimizer had begun its update (the
+        LoRA may be half stepped; JAX's donated-state case)."""
+        policy = getattr(self.adapter, "remat_policy", "full")
+        if policy in ("full", "none") or not getattr(self.adapter, "remat", False):
+            raise err
+        if step.began_update:
+            logging.error(
+                "train step ran out of memory AFTER the optimizer began its update — cannot "
+                "retry with a degraded remat policy; set mesh.remat: full in the config and "
+                "rerun")
+            raise err
+        logging.warning(
+            "train step ran out of memory under remat policy %r: %s — retrying with "
+            "mesh.remat: full (save-nothing recompute; slower but minimal-memory). Set "
+            "mesh.remat: full in the config to skip this probe.", policy, str(err)[:300])
+        self.adapter = dataclasses.replace(self.adapter, remat_policy="full")
+        return make_train_step(self.adapter.predict_velocity, criterion, self.optimizer,
+                               schedule, step_cfg, first_update=self.global_step)
+
     def _profile(self, profiler):
         """Start torch.profiler (profiler None), or stop it and write its
         chrome trace into logging.profile_dir; returns the running profiler
@@ -614,7 +679,7 @@ class Trainer:
         return ckpt_dir
 
     def _load_train_state(self, ckpt: Path) -> None:
-        """global_step and epoch from state.json, AdamW's moments from
+        """global_step and epoch from state.json, the optimizer's moments from
         optimizer_state.npz (the JAX trainer's npz route; its orbax route is
         not ported) and the generator's state, each where the checkpoint
         has it."""
@@ -626,7 +691,7 @@ class Trainer:
         opt_file = ckpt / checkpoint.OPTIMIZER_FILE
         if opt_file.exists():
             with np.load(opt_file) as arrays:
-                checkpoint.restore_adamw_state(dict(arrays), self.lora, self.optimizer)
+                checkpoint.restore_optimizer_state(dict(arrays), self.lora, self.optimizer)
         checkpoint.load_generator_state(ckpt, self.generator)
 
     def predict_from_embeddings(self, emb: dict, height: int, width: int,

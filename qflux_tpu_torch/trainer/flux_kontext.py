@@ -178,7 +178,7 @@ def quantize_config(config):
 
 def remat_policy_from_config(remat_cfg: str) -> str:
     """mesh.remat YAML value → transformer remat_policy name (the JAX
-    table; the transformer raises on the names it has not ported)."""
+    table)."""
     return {"minimal": "dots", "full": "full", "flash": "flash",
             "flash_mlp": "flash_mlp", "flash_single": "flash_single",
             "flash_offload": "flash_offload"}.get(remat_cfg, "flash")
@@ -199,7 +199,7 @@ class FluxKontextAdapter:
     cfg: flux.FluxConfig
     attn_impl: str = "auto"
     remat: bool = True
-    remat_policy: str = "flash"
+    remat_policy: str = "dots"  # JAX's adapter default; configs set mesh.remat
     vae_scale: int = 8
 
     lora_module_name_fn = staticmethod(flux_module_name)

@@ -118,12 +118,15 @@ def make_train_step(predict_velocity: PredictFn, criterion, optimizer: torch.opt
     `generator` unless given for the whole batch (a test's injection).  The
     learning rate of update k (from 0) is lr_schedule(k), as optax evaluates
     its schedule at the update count; `first_update` is the count of the
-    step's first call (a resumed run's global_step).
+    step's first call (a resumed run's global_step).  `step.began_update`
+    says whether its last call reached the optimizer's update (an error
+    before it left the LoRA as it was).
     """
     count = first_update
 
     def step(base_params, lora, batch, generator, noise=None, sigma=None):
         nonlocal count
+        step.began_update = False
         params, scalings = lora_leaves(lora)
         leaves = params + scalings
         if not all(t.requires_grad and t.is_leaf for t in leaves):
@@ -155,10 +158,12 @@ def make_train_step(predict_velocity: PredictFn, criterion, optimizer: torch.opt
         lr = lr_schedule(count)
         for group in optimizer.param_groups:
             group["lr"] = lr
+        step.began_update = True
         optimizer.step()
         count += 1
         return {"loss": loss_sum / n, "grad_norm": gnorm, "lr": lr}
 
+    step.began_update = False
     return step
 
 

@@ -1338,7 +1338,8 @@ def test_fit_through_dataloader_equals_in_memory_batches_on_card(tmp_path, bucke
     losses, to the bit, as the same fit over the same collated batches
     handed in from memory: the generator seeded the same, the loader's
     threads only reading and collating numpy.  Every step ran K1 (S = 48 or
-    64; the padded batches with segment ids)."""
+    64; the padded batches with segment ids), twice a block: the adapter's
+    default remat policy is JAX's "dots", which keeps no attention output."""
     import chip_smoke
     from qflux_tpu_torch.config import config_from_dict
     from qflux_tpu_torch.data.dataset import ImageDataset
@@ -1372,7 +1373,7 @@ def test_fit_through_dataloader_equals_in_memory_batches_on_card(tmp_path, bucke
     k1 = tnr.KERNEL_LAUNCHES
     a = trainer()
     a.fit(loader())
-    assert tnr.KERNEL_LAUNCHES - k1 == 4 * 2  # one a block, two blocks, four steps
+    assert tnr.KERNEL_LAUNCHES - k1 == 4 * 2 * 2  # two a block, two blocks, four steps
     dl = loader()
     epochs = iter([list(dl), list(dl)])
 
@@ -1588,3 +1589,48 @@ def test_klein_dit_through_k1_k2_on_card_matches_cpu():
                                for leaf in lora.values() for k in ("a", "b")]))
     for got, want in zip(out["cuda"], out["cpu"]):
         assert ((got - want).norm() / want.norm()).item() <= 5e-2
+
+
+def test_adam8bit_step_on_card_equals_cpu():
+    """One AdamW8bit update on the card against the same update on the CPU,
+    from the same parameters and moments (two earlier updates on the CPU)
+    and the same gradients, over a stack of two tensors whose size is no
+    multiple of the block and a tensor of its own: the codes, the block
+    scales and the parameters equal to the bit (the update is elementwise
+    f32 arithmetic and an exact amax; the bias corrections divide by a 0-dim
+    tensor on the moments' device, a true division on both)."""
+    from qflux_tpu_torch.ops.adam8bit import AdamW8bit
+
+    rng = np.random.default_rng(70)
+    shapes = [(37, 5), (37, 5), (5, 3072)]
+    init = [rng.standard_normal(s).astype(np.float32) * 0.1 for s in shapes]
+    grads = [[(rng.standard_normal(s) * 10.0 ** rng.uniform(-6, 0, s)).astype(np.float32)
+              for s in shapes] for _ in range(3)]
+
+    def optimizer(device, values):
+        params = [torch.tensor(a, device=device, requires_grad=True) for a in values]
+        return params, AdamW8bit(params, lr=1e-2, stacks=[params[:2], params[2:]])
+
+    def update(params, opt, g):
+        for p, a in zip(params, g):
+            p.grad = torch.tensor(a, device=p.device)
+        opt.step()
+
+    cpu_params, cpu_opt = optimizer("cpu", init)
+    for g in grads[:2]:
+        update(cpu_params, cpu_opt, g)
+    card_params, card_opt = optimizer("cuda", [p.detach().numpy() for p in cpu_params])
+    for cpu_stack, card_stack in zip(cpu_opt.stacks, card_opt.stacks):
+        card_opt.state[card_stack[0]] = {
+            k: tuple(t.cuda() for t in v) if isinstance(v, tuple) else v
+            for k, v in cpu_opt.state[cpu_stack[0]].items()}
+    update(cpu_params, cpu_opt, grads[2])
+    update(card_params, card_opt, grads[2])
+    for a, b in zip(cpu_params, card_params):
+        assert torch.equal(a.detach(), b.detach().cpu())
+    for cpu_stack, card_stack in zip(cpu_opt.stacks, card_opt.stacks):
+        sa, sb = cpu_opt.state[cpu_stack[0]], card_opt.state[card_stack[0]]
+        assert sa["count"] == sb["count"] == 3
+        for mom in ("m", "v"):
+            assert torch.equal(sa[mom][0].view(torch.uint8), sb[mom][0].cpu().view(torch.uint8))
+            assert torch.equal(sa[mom][1], sb[mom][1].cpu())

@@ -28,7 +28,7 @@ import numpy as np
 import optax
 import pytest
 import torch
-from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+from torch.utils.checkpoint import checkpoint
 
 from qflux_tpu.losses import losses as jlosses
 from qflux_tpu.models.qwen import transformer as jqwen
@@ -36,11 +36,11 @@ from qflux_tpu.ops import flash_attention as jfa
 from qflux_tpu.ops import flash_nr as jnr
 from qflux_tpu.trainer import qwen_edit as jqe
 from qflux_tpu_torch.models import bridge
-from qflux_tpu_torch.models.flux.transformer import _save_flash_outputs
 from qflux_tpu_torch.models.qwen import transformer as tqwen
 from qflux_tpu_torch.ops import attention as tattn
 from qflux_tpu_torch.ops import flash_attention as tfa
 from qflux_tpu_torch.ops import flash_nr as tnr
+from qflux_tpu_torch.ops import remat as tremat
 from qflux_tpu_torch.trainer import qwen_edit as tqe
 from tests.test_torch_ops import random_tree as _random_tree
 from tests.test_torch_ops import rel_err as _rel_err
@@ -316,8 +316,8 @@ def _remat(fn, remat):
         return fn
     if remat == "full":
         return functools.partial(checkpoint, fn, use_reentrant=False)
-    ctx = (functools.partial(create_selective_checkpoint_contexts, _save_flash_outputs)
-           if remat == "flash" else tfa.offload_contexts)
+    ctx = functools.partial(tremat.contexts, tremat.POLICY_NAMES[remat],
+                            offload=remat == "flash_offload")
     return functools.partial(checkpoint, fn, use_reentrant=False, context_fn=ctx)
 
 
@@ -325,8 +325,8 @@ def _remat(fn, remat):
 def test_custom_op_autograd_and_remat_policies(monkeypatch, remat):
     """The custom op `qflux::flash_fwd` with its registered autograd gives
     the plain gradients of q, k and v (the same under every policy); "flash"
-    saves its out / lse and "flash_offload" parks them in host memory and
-    replays them in the recompute, so a forward + backward launches K3 once
+    keeps its out / lse in the block's store and "flash_offload" parks them
+    in host memory, and either replays them in the recompute, so a forward + backward launches K3 once
     (twice under "full") and K4 once, and the recompute re-runs the norm +
     rope before it (as JAX recomputes its XLA norm + rope)."""
     _plain_flash_launchers(monkeypatch)

@@ -171,12 +171,12 @@ def _plain_launchers(monkeypatch):
 def test_custom_op_autograd_and_checkpoint_policy(monkeypatch, remat):
     """The custom op `qflux::flash_nr_fwd` with its registered autograd gives
     the plain gradients of q, k, v and both scale pairs; under the "flash"
-    selective-checkpoint policy its out / lse are saved,
-    so a forward + backward launches K1 once (twice under "full") and K2
-    once."""
-    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+    policy its out / lse are kept in the block's store (ops/remat.py) and
+    replayed in the recompute, so a forward + backward launches K1 once
+    (twice under "full") and K2 once."""
+    from torch.utils.checkpoint import checkpoint
 
-    from qflux_tpu_torch.models.flux.transformer import _save_flash_outputs
+    from qflux_tpu_torch.ops import remat as tremat
 
     _plain_launchers(monkeypatch)
     q, k, v, qs2, ks2, cos, sin = (torch.from_numpy(a) for a in _inputs(13, s=64))
@@ -195,7 +195,7 @@ def test_custom_op_autograd_and_checkpoint_policy(monkeypatch, remat):
     elif remat == "full":
         loss = checkpoint(fn, *leaves, use_reentrant=False)
     else:
-        ctx = functools.partial(create_selective_checkpoint_contexts, _save_flash_outputs)
+        ctx = functools.partial(tremat.contexts, tremat.POLICY_NAMES["flash"])
         loss = checkpoint(fn, *leaves, use_reentrant=False, context_fn=ctx)
     assert tnr.KERNEL_LAUNCHES == 1 and tnr.BWD_KERNEL_LAUNCHES == 0
     grads = torch.autograd.grad(loss, leaves)

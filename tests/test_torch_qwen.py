@@ -260,9 +260,9 @@ def test_init_quantizes_block_by_block_as_quantize_tree_would():
 
 
 def test_remat_policies_apply_only_under_autograd(tiny_dits):
-    """Predict never applies a remat policy: flash_mlp (not ported) runs in
-    inference and raises only when autograd records; an unknown name always
-    raises."""
+    """Predict never applies a remat policy: flash_mlp runs in inference as
+    remat=False does; under autograd it trains, with the LoRA gradients of
+    "full"; an unknown name always raises."""
     jtree, model = tiny_dits["f32", "full"]
     x = _inputs(3)
     args = [torch.from_numpy(x[k]) for k in ("hidden_states", "encoder_hidden_states",
@@ -273,14 +273,20 @@ def test_remat_policies_apply_only_under_autograd(tiny_dits):
         b = tqwen.forward(model, TCFG, *args, shapes, remat=False)
     assert torch.equal(a, b)
     lora = tlayers.mark_trainable(tlayers.build_lora_tree(
-        torch.Generator().manual_seed(0), model, ["attn/to_q"], 4, 4.0))
+        torch.Generator().manual_seed(0), model, ["attn/to_q", "img_mlp"], 4, 4.0))
     tlayers.merge_lora(model, lora)
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tqwen.forward(model, TCFG, *args, shapes, remat_policy="flash_mlp")
-        y = tqwen.forward(model, TCFG, *args, shapes, remat_policy="full")
-        y.square().mean().backward()
+        grads = {}
+        for policy in ("flash_mlp", "full"):
+            for leaf in lora.values():
+                leaf["a"].grad = leaf["b"].grad = None
+            y = tqwen.forward(model, TCFG, *args, shapes, remat_policy=policy)
+            y.square().mean().backward()
+            grads[policy] = [leaf[k].grad.clone() for leaf in lora.values() for k in "ab"]
         assert lora["blocks/0/attn/to_q"]["b"].grad.abs().sum() > 0
+        assert all(torch.equal(g, f) for g, f in zip(grads["flash_mlp"], grads["full"]))
+        with pytest.raises(ValueError, match="remat_policy"):
+            tqwen.forward(model, TCFG, *args, shapes, remat_policy="bogus")
     finally:
         tlayers.merge_lora(model, None)
     with pytest.raises(ValueError, match="remat_policy"):
@@ -486,7 +492,7 @@ def test_trainer_refusals(tmp_path):
     base (the Plus example config's dtype) now loads, predicts and fits.
     int8 attention (quantize.attention) now runs, in predict and in fit,
     through the s_int8 mode's plain version on CPU tensors, and launches
-    nothing."""
+    nothing.  mesh.remat: flash_mlp, refused before, now fits."""
     base = {"trainer": "QwenImageEditTrainer", "model": {"variant": "test"},
             "logging": {"output_dir": str(tmp_path)}}
     q = {"enabled": True, "dtype": "int4_requant"}
@@ -516,9 +522,11 @@ def test_trainer_refusals(tmp_path):
     assert len(tr.history) == 1 and np.isfinite(tr.history[0]["loss"])
     assert (flash_nr.INT8_KERNEL_LAUNCHES, flash_nr.INT8_BWD_KERNEL_LAUNCHES) == launches
     tr = Trainer(config_from_dict({**base, "mesh": {"remat": "flash_mlp"},
-                                   "model": {"variant": "test", "quantize": q}}), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.fit([batch])
+                                   "model": {"variant": "test", "quantize": q},
+                                   "train": {"max_train_steps": 1}}), device="cpu")
+    tr.fit([batch])
+    assert tr.adapter.remat_policy == "flash_mlp"
+    assert len(tr.history) == 1 and np.isfinite(tr.history[0]["loss"])
 
 
 def test_trainer_defaults_to_the_card():

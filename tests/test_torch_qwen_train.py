@@ -26,10 +26,10 @@ from qflux_tpu_torch import losses as tlosses
 from qflux_tpu_torch.config import config_from_dict
 from qflux_tpu_torch.models import bridge
 from qflux_tpu_torch.models.qwen import transformer as tqwen
-from qflux_tpu_torch.ops import flash_attention as tfa
 from qflux_tpu_torch.ops import flash_nr as tnr
 from qflux_tpu_torch.ops import int4_matmul as ti4
 from qflux_tpu_torch.ops import layers as tlayers
+from qflux_tpu_torch.ops import remat as tremat
 from qflux_tpu_torch.trainer import qwen_edit as tqe
 from qflux_tpu_torch.trainer import train_step as tts
 from qflux_tpu_torch.trainer.base import Trainer, train_config
@@ -274,9 +274,10 @@ def test_kernel_launch_counts_per_step(tiny_int4, monkeypatch, policy, k1_per_st
     for name in ("RQ_KERNEL_LAUNCHES", "RQ_BWD_KERNEL_LAUNCHES"):
         monkeypatch.setattr(ti4, name, 0)
     offloads = []
-    orig_put = tfa._OffloadStore.put
-    monkeypatch.setattr(tfa._OffloadStore, "put",
-                        lambda self, out, lse: offloads.append(out.shape) or orig_put(self, out, lse))
+    orig_put = tremat._Store.put
+    monkeypatch.setattr(tremat._Store, "put",
+                        lambda self, name, value: (offloads.append(name) if self.offload
+                                                   else None) or orig_put(self, name, value))
     got = _grads(model, _np_tree(jl), batch, noise, sigma, policy)
     assert (tnr.KERNEL_LAUNCHES, tnr.BWD_KERNEL_LAUNCHES) == (k1_per_step * n, n)
     assert ti4.RQ_KERNEL_LAUNCHES == 12 * n + 3 + 12 * n

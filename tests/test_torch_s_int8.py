@@ -373,13 +373,13 @@ def _counts():
 def test_custom_op_int8_mode_autograd_and_policies(monkeypatch, remat):
     """The custom op with (fwd_rows, bwd_rows) set: its autograd formula
     gives the plain straight-through gradients of q, k, v and both scale
-    pairs (the backward over its own q tiles); "flash" saves its out / lse
-    and "flash_offload" parks them in host memory and replays them, so K1's
-    s_int8 mode launches once (twice under "full") and K2's once; the bf16
-    modes never."""
-    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+    pairs (the backward over its own q tiles); "flash" keeps its out / lse
+    in the block's store (ops/remat.py) and "flash_offload" parks them in
+    host memory, and either replays them, so K1's s_int8 mode launches once
+    (twice under "full") and K2's once; the bf16 modes never."""
+    from torch.utils.checkpoint import checkpoint
 
-    from qflux_tpu_torch.models.flux.transformer import _save_flash_outputs
+    from qflux_tpu_torch.ops import remat as tremat
 
     _plain_int8_launchers(monkeypatch)
     s = 384  # q tiles 256 / 256, the last one ragged
@@ -396,11 +396,10 @@ def test_custom_op_int8_mode_autograd_and_policies(monkeypatch, remat):
         loss = fn(*leaves)
     elif remat == "full":
         loss = checkpoint(fn, *leaves, use_reentrant=False)
-    elif remat == "flash":
-        ctx = functools.partial(create_selective_checkpoint_contexts, _save_flash_outputs)
-        loss = checkpoint(fn, *leaves, use_reentrant=False, context_fn=ctx)
     else:
-        loss = checkpoint(fn, *leaves, use_reentrant=False, context_fn=tfa.offload_contexts)
+        ctx = functools.partial(tremat.contexts, tremat.POLICY_NAMES[remat],
+                                offload=remat == "flash_offload")
+        loss = checkpoint(fn, *leaves, use_reentrant=False, context_fn=ctx)
     assert _counts() == (0, 0, 1, 0)
     grads = torch.autograd.grad(loss, leaves)
     assert _counts() == (0, 0, 2 if remat == "full" else 1, 1)

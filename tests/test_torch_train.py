@@ -428,9 +428,11 @@ def test_remat_launch_counts_and_grads(tiny_pair, monkeypatch, policy, k1_per_st
 
 
 def test_flash_policy_sees_the_op_in_a_fresh_process(tmp_path):
-    """The "flash" policy names K1's custom op; importing the transformer
-    alone registers it (the attention module imports ops/flash_nr.py only
-    when it first runs)."""
+    """Importing the transformer alone is enough for a policy that keeps
+    tensors: in a fresh process the tiny DiT trains one step under "flash",
+    with LoRA gradients equal to those of "full" (the save points live in
+    the ops themselves, ops/remat.py; no policy needs an op registered
+    first; tests/test_torch_remat.py holds every policy to "full")."""
     import subprocess
     import sys
     from pathlib import Path
@@ -438,12 +440,24 @@ def test_flash_policy_sees_the_op_in_a_fresh_process(tmp_path):
     script = tmp_path / "fresh.py"
     script.write_text(
         "import torch\n"
-        "from torch.utils.checkpoint import CheckpointPolicy\n"
         "from qflux_tpu_torch.models.flux import transformer as t\n"
-        "op = torch.ops.qflux.flash_nr_fwd.default\n"
-        "assert t._save_flash_outputs(None, op) == CheckpointPolicy.MUST_SAVE\n"
-        "assert t._save_flash_outputs(None, torch.ops.aten.mm.default) != "
-        "CheckpointPolicy.MUST_SAVE\n")
+        "from qflux_tpu_torch.ops import layers\n"
+        "cfg = t.FluxConfig.tiny()\n"
+        "m = t.init(torch.Generator().manual_seed(0), cfg, dtype=torch.float32)\n"
+        "g = torch.Generator().manual_seed(1)\n"
+        "x, c = torch.randn(1, 16, 16, generator=g), torch.randn(1, 4, 64, generator=g)\n"
+        "ids = torch.zeros(16, 3), torch.zeros(4, 3)\n"
+        "def grads(policy):\n"
+        "    lora = layers.mark_trainable(layers.build_lora_tree(\n"
+        "        torch.Generator().manual_seed(2), m, ['attn/to_q', 'mlp'], 2, 2.0))\n"
+        "    layers.merge_lora(m, lora)\n"
+        "    y = t.forward(m, cfg, x, c, torch.randn(1, 32, generator=torch.Generator()),\n"
+        "                  torch.full((1,), 0.5), *ids, guidance=torch.ones(1),\n"
+        "                  remat_policy=policy)\n"
+        "    y.square().sum().backward()\n"
+        "    return [leaf[k].grad for leaf in lora.values() for k in ('a', 'b')]\n"
+        "want = grads('full')\n"
+        "assert all(torch.equal(a, b) for a, b in zip(grads('flash'), want))\n")
     env = {"PYTHONPATH": str(Path(__file__).resolve().parent.parent), "PATH": "/usr/bin:/bin"}
     res = subprocess.run([sys.executable, str(script)], cwd=tmp_path, env=env,
                          capture_output=True, text=True, timeout=300)
@@ -452,23 +466,44 @@ def test_flash_policy_sees_the_op_in_a_fresh_process(tmp_path):
 
 @pytest.mark.parametrize("mesh_remat", ["minimal", "flash_mlp", "flash_single"])
 def test_unported_remat_policies_raise(tiny_pair, mesh_remat):
+    """The three policies a config can name beyond full / flash /
+    flash_offload (once refused here) train: a step's LoRA gradients under
+    each equal those of "full" to the bit (the same math; what a policy
+    keeps is replayed, not recomputed).  An unknown name still raises."""
     *_, model = tiny_pair
-    adapter = tfk.FluxKontextAdapter(model.cfg,
-                                     remat_policy=tfk.remat_policy_from_config(mesh_remat))
     b = {k: torch.from_numpy(v) for k, v in _batch(64, 1).items()}
-    lat = b["image_latents"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        adapter.predict_velocity(model, b, lat, torch.full((1,), 0.5))
+    rng = np.random.default_rng(65)
+    noise = torch.from_numpy(rng.standard_normal((1, GH * GW, 16)).astype(np.float32))
+    sigma = torch.tensor([0.4])
+
+    def grads(policy):
+        lora = tlayers.mark_trainable(tlayers.build_lora_tree(
+            torch.Generator().manual_seed(1), model, [r"attn/(to_q|to_v)", "mlp"], 4, 4.0))
+        with torch.no_grad():
+            for leaf in lora.values():
+                leaf["b"].normal_(0.0, 0.05, generator=torch.Generator().manual_seed(2))
+        adapter = tfk.FluxKontextAdapter(model.cfg, remat_policy=policy)
+        tts._loss_for_microbatch(model, lora, b, noise, sigma, adapter.predict_velocity,
+                                 tlosses.MseLoss(), tts.TrainStepConfig()).backward()
+        return bridge.lora_to_numpy(lora, grads=True)
+
+    want = grads("full")
+    got = grads(tfk.remat_policy_from_config(mesh_remat))
+    for path in want:
+        for key in ("a", "b", "scaling"):
+            np.testing.assert_array_equal(got[path][key], want[path][key], err_msg=path)
     with pytest.raises(ValueError):
-        tflux._remat(lambda: None, "nonsense")
+        tflux._remat(lambda: None, "nonsense", "flux_dual")
 
 
 # ---------------------------------------------------------------------------
 # the Trainer
 
 def test_trainer_config_surface():
-    """optax.adamw → torch AdamW with the same hyperparameters; the three
-    losses by their JAX class paths; anything else raises naming ROADMAP.md."""
+    """optax.adamw → torch AdamW and qflux_tpu.ops.adam8bit.adamw8bit →
+    AdamW8bit, with the same hyperparameters (adamw8bit's weight decay
+    defaults to 1e-2); the three losses by their JAX class paths; anything
+    else raises naming ROADMAP.md."""
     cfg = train_config()
     tr = Trainer(cfg, "cpu")
     w = [torch.zeros(3, requires_grad=True)]
@@ -485,8 +520,18 @@ def test_trainer_config_surface():
     sc = tr._build_step_config()
     assert sc.timestep_sampling == "uniform" and sc.weighting_scheme == "table"
     assert sc.weighting_table.shape == (1000,)
+    cfg.optimizer.class_path = "qflux_tpu.ops.adam8bit.adamw8bit"
+    cfg.optimizer.init_args = {"b1": 0.8, "block_size": 128}
+    opt, _ = tr.build_optimizer(w)
+    g = opt.param_groups[0]
+    assert type(opt).__name__ == "AdamW8bit" and g["betas"] == (0.8, 0.999)
+    assert g["weight_decay"] == 1e-2 and g["block_size"] == 128 and g["eps"] == 1e-8
+    cfg.optimizer.init_args = {}
     cfg.optimizer.class_path = "optax.lion"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tr.build_optimizer(w)
+    cfg.optimizer.class_path = "optax.contrib.prodigy"
+    with pytest.raises(NotImplementedError, match="PyTorch counterpart"):
         tr.build_optimizer(w)
     cfg.optimizer.class_path = "optax.adamw"
     cfg.optimizer.init_args = {"b1": 0.9, "nesterov": True}
