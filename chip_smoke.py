@@ -87,13 +87,13 @@ runs K6a and its dx K6b (path C).  In phases:
      each timed alone (its prep apart) beside its bound, bf16 K1 / K2
      alone, the wrapper and SDPA flash;
  12. Qwen 512² predict with int8 attention (path A: path B's
-     configuration at full width cut to 10 of its 60 blocks, AC_BLOCKS,
+     configuration at full width cut to 6 of its 60 blocks, AC_BLOCKS,
      for the smoke's time budget): a forward through K1 s_int8 against
-     the plain int8 attention, two requests with exactly 10 K1 s_int8 and
-     123 K5a launches per denoising step, and a profiled step;
+     the plain int8 attention, two requests with exactly 6 K1 s_int8 and
+     75 K5a launches per denoising step, and a profiled step;
  13. Qwen 512² train (path A): one step's LoRA gradients through the
      kernels against the plain int8 attention, then Trainer.fit at bs=1
-     and bs=2 with exactly 10 K1 s_int8, 10 K2 s_int8, 243 K5a and 112
+     and bs=2 with exactly 6 K1 s_int8, 6 K2 s_int8, 147 K5a and 64
      K5b launches per step, then a profiled step;
  14. kernel K6a (csrc/int4_fwd.cu), the W4A16 matmul, against its plain
      version (the int4-requant model freed first) at every GEMM shape of
@@ -105,15 +105,15 @@ runs K6a and its dx K6b (path C).  In phases:
  15. kernel K6b (csrc/int4_bwd.cu), its backward, in the same way at the dx
      of every K6a case; then the two wrappers' host time per call at the
      main shape and at M = 1;
- 16. Qwen 512² predict over the int4 base (path C, cut to 10 of the 60
+ 16. Qwen 512² predict over the int4 base (path C, cut to 6 of the 60
      blocks as path A): a forward through K6a + K1 against the
      plain W4A16 route and against the default dequant route (which
-     launches no K6a), three requests with exactly 10 K1 and 141 K6a
+     launches no K6a), three requests with exactly 6 K1 and 85 K6a
      launches per denoising step, a profiled step;
  17. Qwen 512² train over the int4 base (path C): one step's LoRA
      gradients through K6a + K6b + K1 + K2 against the plain path, then
-     Trainer.fit at bs=1 and bs=2 with exactly 10 K1, 10 K2, 261 K6a and
-     111 K6b launches per step, then a profiled step.
+     Trainer.fit at bs=1 and bs=2 with exactly 6 K1, 6 K2, 157 K6a and
+     63 K6b launches per step, then a profiled step.
 
 The file layer (checkpoints, resume, weights and LoRA files) runs as three
 more phases, A and B after 6 (on its FLUX model), C after 13 (on its Qwen
@@ -253,10 +253,10 @@ wall time printed (`python3 chip_smoke.py --remat` runs phase I alone):
      and flash_single at bs=1 and bs=2, one warm step and two timed ones:
      ms per step, peak memory, and K1 / K2 a step (114 / 57 under full,
      dots, dots_all; 57 / 57 under flash_qkv, flash_mlp; 76 / 57 under
-     flash_single); (b) the 20B Qwen DiT over int4_requant cut to 20 blocks
+     flash_single); (b) the 20B Qwen DiT over int4_requant cut to 12 blocks
      at 832×576 (S = 4,000, K3 / K4), bs=1, one step each under full, dots
-     and flash_mlp: gradients equal to "full"'s to the bit, K5a 483 / 243 /
-     443 a step, K3 40 / 40 / 20, K4 20, K5b 232, then every kernel held to
+     and flash_mlp: gradients equal to "full"'s to the bit, K5a 291 / 147 /
+     267 a step, K3 24 / 24 / 12, K4 12, K5b 136, then every kernel held to
      its plain version at the shapes the steps launched it at; (c) the
      process capped (`torch.cuda.set_per_process_memory_fraction`, lifted
      after) half-way between (a)'s bs=2 peaks of full and dots:
@@ -266,6 +266,24 @@ wall time printed (`python3 chip_smoke.py --remat` runs phase I alone):
      qflux_tpu.ops.adam8bit.adamw8bit, four bs=1 steps: finite, moving
      losses, the fp8 state's bytes beside AdamW's, and one more update on
      the card against the same update on the CPU, to the bit.
+
+The optax optimizers and async checkpointing run as phase J, after I, each
+line with the card's name and power limit and the phase's wall time
+printed (`python3 chip_smoke.py --optim` runs phase J alone):
+
+  J. on FLUX.1-Kontext-dev at full width (19 + 38 blocks, bf16, 512² with
+     one control, S = 2,560): (a) optax.adamw (and with nesterov, eps_root
+     and a bf16 mu), optax.adam, optax.lion, optax.sgd (nesterov momentum)
+     and optax.contrib.prodigy over the full-width LoRA and its scaling
+     leaves, five updates on the card and on the CPU from seeded
+     gradients: the largest relative error of the parameters and of the
+     state (the elementwise optimizers to the bit, Prodigy within 1e-5),
+     ms per update on the card; (b) `Trainer.fit`, three bs=1 steps under
+     Prodigy and under Lion: finite losses, every LoRA tensor moved, K1 /
+     K2 a step as counted; (c) a four-step fit with a checkpoint every two
+     steps, synchronous and async: every file equal byte for byte, the
+     train thread's blocked ms per save, and a run resumed from the async
+     checkpoint-2 equal to the uninterrupted one to the bit.
 
 Every temporary file (the fits' run dirs included) is removed before the
 smoke exits.  Each path runs with the launch counts set to 0 just before
@@ -2515,10 +2533,10 @@ class _CutDepth:
 
 # the published DiT at full width cut in depth to this many of its 60
 # blocks: Qwen-Image-Edit-Plus (phase H) and the remat policies (phase I)
-CUT_BLOCKS = 20
-# and paths A and C to this many (the smoke's time budget, which phase I
-# shares)
-AC_BLOCKS = 10
+CUT_BLOCKS = 12
+# and paths A and C to this many (the smoke's time budget, which phases I
+# and J share: 20 and 10 before phase J)
+AC_BLOCKS = 6
 
 
 def _qwen_cut(raw: dict, num_layers: int = CUT_BLOCKS):
@@ -6504,6 +6522,254 @@ def remat_main() -> int:
     return 0
 
 
+J_UPDATES = 5                      # optimizer updates on the card against the CPU
+J_FIT_STEPS = 3                    # fit steps under each of J_FIT_OPTIMIZERS
+J_CKPT_STEPS = 4                   # the checkpointing fits' steps, a checkpoint every 2
+J_OPTIMIZERS = [("optax.adamw", {}), ("optax.adamw", {"nesterov": True, "eps_root": 1e-8,
+                                                      "mu_dtype": "bfloat16"}),
+                ("optax.adam", {}), ("optax.lion", {}),
+                ("optax.sgd", {"momentum": 0.9, "nesterov": True}),
+                ("optax.contrib.prodigy", {})]
+# class path → (learning rate, init_args) of the phase J(b) fits: Prodigy at
+# its own lr 1.0 (the lr it scales by its estimate), Lion at the lr its
+# sign update wants
+J_FIT_OPTIMIZERS = {"optax.contrib.prodigy": (1.0, {}), "optax.lion": (1e-5, {})}
+OPTIM_REL_TOL = 1e-5               # Prodigy's card vs CPU: its two f32 sums' order
+
+
+def _rel_max(got, want) -> float:
+    """The largest relative L2 error over pairs of tensors (on any device)."""
+    out = 0.0
+    for g, w in zip(got, want):
+        g, w = g.detach().float().cpu(), w.detach().float().cpu()
+        out = max(out, ((g - w).norm() / w.norm().clamp_min(1e-30)).item())
+    return out
+
+
+def _optim_state(opt, params) -> list:
+    """The optimizer's state tensors over `params` in a fixed order, and
+    Prodigy's tree-wide scalars."""
+    group = opt.param_groups[0]
+    out = [t for p in params for _, t in sorted(opt.state[p].items())
+           if torch.is_tensor(t) and t.dim()]
+    return out + [group[k] for k in ("estim_lr", "numerator_weighted") if k in group]
+
+
+def phase_optim_updates(card: str, lora) -> None:
+    """Phase J (a): every optimizer of J_OPTIMIZERS over the full-width
+    FLUX.1-Kontext LoRA (the adapter's to_q / to_k / to_v / to_out at rank
+    16 in all 57 blocks, and its scaling leaves, which Prodigy holds),
+    J_UPDATES updates on the card and on the CPU from the same tensors and
+    the same seeded gradients (a drift shared by the updates plus noise,
+    the scaling leaves' included): the largest relative error of the
+    parameters and of the state, each elementwise optimizer's equal to the
+    bit, Prodigy's within OPTIM_REL_TOL, and the card's ms per update
+    (CUDA events, the median of the updates after the first)."""
+    from qflux_tpu_torch.trainer import optimizers
+    from qflux_tpu_torch.trainer.train_step import lora_leaves
+
+    params, scalings = lora_leaves(lora)
+    n = sum(p.numel() for p in params)
+    gen = torch.Generator("cuda").manual_seed(31)
+    drift = [torch.randn(p.shape, generator=gen, device="cuda") * 1e-3 for p in params + scalings]
+    grads = [[d * (1 + torch.randn(d.shape, generator=gen, device="cuda")) for d in drift]
+             for _ in range(J_UPDATES)]
+    for class_path, args in J_OPTIMIZERS:
+        lr = 1.0 if class_path == "optax.contrib.prodigy" else 1e-4
+        runs, ms = {}, []
+        for device in ("cuda", "cpu"):
+            ps = [p.detach().to(device).clone().requires_grad_() for p in params]
+            ss = [s.detach().to(device).clone().requires_grad_() for s in scalings]
+            opt = optimizers.build(class_path, ps, lr, args, frozen=ss)
+            for g in grads:
+                for t, gt in zip(ps + ss, g):
+                    t.grad = gt.to(device)
+                if device == "cuda":
+                    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                        enable_timing=True)
+                    start.record()
+                    opt.step()
+                    end.record()
+                    end.synchronize()
+                    ms.append(start.elapsed_time(end))
+                else:
+                    opt.step()
+            runs[device] = (ps + ss, _optim_state(opt, ps + ss))
+        err_p = _rel_max(runs["cuda"][0], runs["cpu"][0])
+        err_s = _rel_max(runs["cuda"][1], runs["cpu"][1])
+        exact = all(torch.equal(a.detach().cpu(), b.detach())
+                    for a, b in zip(runs["cuda"][0] + runs["cuda"][1],
+                                    runs["cpu"][0] + runs["cpu"][1]))
+        prodigy = class_path == "optax.contrib.prodigy"
+        print(f"[optim] {class_path} {args}: {J_UPDATES} updates of {n} LoRA elements in "
+              f"{len(params)} tensors (+ {len(scalings)} scalings{' held' if prodigy else ''}) "
+              f"on the card against the CPU: largest relative error parameters {err_p:.3e}, "
+              f"state {err_s:.3e}, equal to the bit {exact} (tolerance: "
+              f"{OPTIM_REL_TOL if prodigy else 'to the bit'}); ms per update on the card "
+              f"{', '.join(f'{m:.3f}' for m in ms)} (median after the first "
+              f"{statistics.median(ms[1:]):.3f}) [{card}]", flush=True)
+        if not (max(err_p, err_s) <= OPTIM_REL_TOL if prodigy else exact):
+            raise AssertionError(f"{class_path} {args}: the card's updates differ from the CPU's")
+        del runs, opt
+    del grads, drift
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _files(run: Path, names) -> dict:
+    return {f"{d}/{f.name}": f.read_bytes() for d in names for f in sorted((run / d).iterdir())}
+
+
+def phase_optim(card: str) -> dict:
+    """Phase J on FLUX.1-Kontext-dev at full width (19 + 38 blocks, bf16,
+    512² with one control, S = 2,560, the adapter's default remat), from
+    seeded weights: (a) `phase_optim_updates`; (b) `Trainer.fit` for
+    J_FIT_STEPS bs=1 steps under optax.contrib.prodigy and under optax.lion
+    (J_FIT_OPTIMIZERS): finite losses, a LoRA that moved, K1 / K2 a step as
+    `_flux_k1_per_step` says; (c) a J_CKPT_STEPS-step fit with
+    train.checkpointing_steps 2, synchronous and then with
+    train.async_checkpointing: the three checkpoints' files equal byte for
+    byte, the train thread's ms blocked in each save, and a run resumed
+    from the async checkpoint-2 whose steps 3–4 end with the uninterrupted
+    run's LoRA and losses to the bit.  Returns each path's (K1, K2)
+    launches."""
+    from qflux_tpu_torch.ops import flash_nr
+    from qflux_tpu_torch.ops.layers import mark_trainable
+    from qflux_tpu_torch.trainer.base import Trainer, train_config
+
+    tt = Trainer(train_config(variant="full"), device="cuda")
+    t0 = time.perf_counter()
+    tt.load_model()
+    dit, cfg = tt.bundle.dit_params, tt.bundle.dit_cfg
+    n_dual, n_single = cfg.num_layers, cfg.num_single_layers
+    gh, gw = tt.adapter.latent_grid(HEIGHT, WIDTH)
+    print(f"[optim] FLUX.1-Kontext {n_dual} + {n_single} blocks, bf16, S = "
+          f"{512 + 2 * gh * gw}, remat {tt.adapter.remat_policy}, built in "
+          f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    lora0 = mark_trainable(tt.build_lora())
+    _perturb_b(lora0, torch.Generator("cuda").manual_seed(32))
+    t0 = time.perf_counter()
+    phase_optim_updates(card, lora0)
+    print(f"[optim] (a) {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    del lora0
+    rng = np.random.default_rng(33)
+    per_step = (_flux_k1_per_step(tt.adapter.remat_policy, n_dual, n_single), n_dual + n_single)
+    launches = {}
+
+    def trainer(steps, **train):
+        config = train_config(variant="full", max_train_steps=steps)
+        for k, v in train.items():
+            setattr(config.train, k, v)
+        tr = Trainer(config, device="cuda")
+        tr.adapter, tr.bundle = tt.adapter, tt.bundle
+        return tr
+
+    # (b) fits under Prodigy and Lion
+    t0 = time.perf_counter()
+    batches = [_train_batch(rng, cfg, gh, gw, 1) for _ in range(J_FIT_STEPS)]
+    for class_path, (lr, args) in J_FIT_OPTIMIZERS.items():
+        tr = trainer(J_FIT_STEPS)
+        tr.config.optimizer.class_path, tr.config.optimizer.init_args = class_path, args
+        tr.config.optimizer.learning_rate = lr
+        start = {p: {k: leaf[k].detach().clone() for k in ("a", "b")}
+                 for p, leaf in tr.build_lora().items()}
+        _reset_counts()
+        lora = _fit_in_tmp(tr, batches)
+        got = (flash_nr.KERNEL_LAUNCHES, flash_nr.BWD_KERNEL_LAUNCHES)
+        launches[f"optim_fit_{class_path.rsplit('.', 1)[1]}"] = got
+        hist = tr.history
+        moved = sum(not torch.equal(lora[p][k], start[p][k]) for p in lora for k in ("a", "b"))
+        extra = (f", estim_lr {float(tr.optimizer.param_groups[0]['estim_lr']):.4e}"
+                 if "estim_lr" in tr.optimizer.param_groups[0] else "")
+        print(f"[optim] fit under {class_path} (lr {lr}): {len(hist)} bs=1 steps, ms/step "
+              f"{', '.join(f'{1000 * h['step_s']:.1f}' for h in hist)}, loss "
+              f"{', '.join(f'{h['loss']:.5f}' for h in hist)}{extra}, LoRA tensors moved "
+              f"{moved} of {2 * len(lora)}, K1 {got[0] // J_FIT_STEPS} / K2 "
+              f"{got[1] // J_FIT_STEPS} a step [{card}]", flush=True)
+        want = tuple(c * J_FIT_STEPS for c in per_step)
+        if (len(hist) != J_FIT_STEPS or not all(np.isfinite(h["loss"]) for h in hist)
+                or moved != 2 * len(lora) or got != want):
+            raise AssertionError(f"fit under {class_path}: {len(hist)} steps, moved {moved}, "
+                                 f"K1 / K2 {got} (expected {want})")
+        del tr, lora, start
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    print(f"[optim] (b) {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+
+    # (c) checkpoints, synchronous and async
+    t0 = time.perf_counter()
+    batches = [_train_batch(rng, cfg, gh, gw, 1) for _ in range(J_CKPT_STEPS)]
+    tmp = Path(tempfile.mkdtemp(prefix="qflux_smoke_ckpt_"))
+    names = ["checkpoint-2", "checkpoint-4", f"checkpoint-last-{J_CKPT_STEPS}"]
+    try:
+        runs = {}
+        for mode, flag in (("sync", False), ("async", True)):
+            tr = trainer(J_CKPT_STEPS, checkpointing_steps=2, async_checkpointing=flag)
+            tr.config.logging.output_dir = str(tmp / mode)
+            _reset_counts()
+            tr.fit(batches)
+            launches[f"checkpoint_{mode}"] = (flash_nr.KERNEL_LAUNCHES,
+                                              flash_nr.BWD_KERNEL_LAUNCHES)
+            runs[mode] = tr
+            sizes = sum(len(v) for v in _files(tr.output_dir, names[:1]).values())
+            print(f"[optim] {mode} checkpoints: {len(tr.history)} steps, ms/step "
+                  f"{', '.join(f'{1000 * h['step_s']:.1f}' for h in tr.history)}, train thread "
+                  f"blocked per save {', '.join(f'{1000 * s:.1f}' for s in tr.save_blocked_s)} "
+                  f"ms ({sizes} bytes a checkpoint) [{card}]", flush=True)
+        sync, run = runs["sync"], runs["async"]
+        a, b = _files(sync.output_dir, names), _files(run.output_dir, names)
+        same = sorted(a) == sorted(b) and all(a[k] == b[k] for k in a)
+        print(f"[optim] the async checkpoints' {len(b)} files equal the synchronous ones' byte "
+              f"for byte: {same} [{card}]", flush=True)
+        if not same:
+            raise AssertionError("async checkpoint files differ from the synchronous ones")
+        tr = trainer(J_CKPT_STEPS, async_checkpointing=True, checkpointing_steps=2)
+        tr.config.logging.output_dir = str(tmp / "resumed")
+        tr.config.resume = str(run.output_dir / "checkpoint-2")
+        _reset_counts()
+        lora = tr.fit(batches[2:])
+        launches["checkpoint_resume"] = (flash_nr.KERNEL_LAUNCHES, flash_nr.BWD_KERNEL_LAUNCHES)
+        equal = ([h["loss"] for h in tr.history] == [h["loss"] for h in sync.history[2:]]
+                 and all(torch.equal(lora[p][k], sync.lora[p][k])
+                         for p in lora for k in ("a", "b")))
+        print(f"[optim] resumed from the async checkpoint-2: steps "
+              f"{[h['step'] for h in tr.history]}, losses and LoRA equal to the uninterrupted "
+              f"run's to the bit: {equal} [{card}]", flush=True)
+        if not equal or [h["step"] for h in tr.history] != [3, 4]:
+            raise AssertionError("the resume from the async checkpoint differs")
+        for key, (k1, k2) in launches.items():
+            steps = {"checkpoint_resume": 2}.get(key, J_CKPT_STEPS if "checkpoint" in key
+                                                 else J_FIT_STEPS)
+            if (k1, k2) != tuple(c * steps for c in per_step):
+                raise AssertionError(f"{key}: K1 / K2 {(k1, k2)} over {steps} steps")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[optim] (c) {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    del tt, dit, runs, sync, run, tr, lora
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def optim_main() -> int:
+    """`python3 chip_smoke.py --optim`: phase J alone (its kernels built
+    first), for iterating on it; the smoke runs it after phase I."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from qflux_tpu_torch.runtime.build import load_library
+
+    smi = _nvidia_smi()
+    print(smi, flush=True)
+    card = ", ".join(x.strip() for x in smi.split(",", 1))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    load_library()
+    t0 = time.perf_counter()
+    phase_optim(card)
+    print(f"[smoke] phase J: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    return 0
+
+
 PROFILE_GROUPS = [("K5a rq_int4_fwd", ("rq_int4_fwd",)), ("K5b rq_int4_bwd", ("rq_int4_bwd",)),
                   ("row quant", ("rowquant",)),
                   ("W8A8 int8_gemm", ("int8_gemm",)), ("W8A8 transpose", ("int8_transpose",)),
@@ -7096,15 +7362,25 @@ def main() -> int:
         i_paths.update(timed(phase_remat_qwen))
     i_checked = timed(phase_path_shapes, i_shapes, "phase I")
     i_all = tuple(map(sum, zip(*i_paths.values())))
-    print(f"[smoke] phase I (the remat policies on FLUX.1-Kontext and the 20-block Qwen, the "
+    print(f"[smoke] phase I (the remat policies on FLUX.1-Kontext and the 12-block Qwen, the "
           f"out-of-memory fallback, adamw8bit; each kernel the Qwen steps launched then held "
           f"to its plain version at their shapes: {i_checked}): "
           f"{time.perf_counter() - t_i:.1f} s [{card}]", flush=True)
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_j = time.perf_counter()
+    j_paths = {k: (k1, k2) + (0,) * 9 for k, (k1, k2) in timed(phase_optim).items()}
+    j_all = tuple(map(sum, zip(*j_paths.values())))
+    print(f"[smoke] phase J (the optax optimizers on the card against the CPU, FLUX fits under "
+          f"Prodigy and Lion, async checkpoints against synchronous ones and a resume from "
+          f"them): {time.perf_counter() - t_j:.1f} s [{card}]", flush=True)
+
     def by_path(i):
         return {**{f"qwen_pixels_{k}": v[i] for k, v in g.items() if v[i]},
                 **{k: v[i] for k, v in h.items() if v[i]},
-                **{k: v[i] for k, v in i_paths.items() if v[i]}}
+                **{k: v[i] for k, v in i_paths.items() if v[i]},
+                **{k: v[i] for k, v in j_paths.items() if v[i]}}
 
     print(f"[smoke] wall time {time.perf_counter() - t_start:.1f} s (build included) [{card}]",
           flush=True)
@@ -7114,7 +7390,7 @@ def main() -> int:
          "replaces": "qflux_tpu/ops/flash_nr.py:192",
          "launches": (k1_predict + k1_train + k1_fa + k1_fb + d_flux[0] + k1_c + k1_ct + k1_e
                       + k1_eq + f["fit"][0] + f["validation"] + f["predict"] + g_all[0]
-                      + h_all[0] + i_all[0]),
+                      + h_all[0] + i_all[0] + j_all[0]),
          "launches_by_path": {"predict": k1_predict, "train": k1_train,
                               "files_flux_resume": k1_fa, "files_flux_weights": k1_fb,
                               "data_flux_cli": d_flux[0],
@@ -7126,7 +7402,7 @@ def main() -> int:
          "source": "qflux_tpu_torch/csrc/flash_nr_bwd.cu",
          "replaces": "qflux_tpu/ops/flash_nr.py:311",
          "launches": (k2_train + k2_fa + d_flux[1] + k2_ct + k2_e + f["fit"][1] + h_all[1]
-                      + i_all[1]),
+                      + i_all[1] + j_all[1]),
          "launches_by_path": {"train": k2_train, "files_flux_resume": k2_fa,
                               "data_flux_cli": d_flux[1], "int4_train": k2_ct,
                               "w8a8_flux": k2_e, "cache_pass_fit": f["fit"][1],
@@ -7213,4 +7489,6 @@ if __name__ == "__main__":
         sys.exit(data_ab_main() if torch.cuda.is_available() else 1)
     if len(sys.argv) == 2 and sys.argv[1] == "--remat":
         sys.exit(remat_main() if torch.cuda.is_available() else 1)
+    if len(sys.argv) == 2 and sys.argv[1] == "--optim":
+        sys.exit(optim_main() if torch.cuda.is_available() else 1)
     sys.exit(main())

@@ -33,9 +33,11 @@ different sizes; the families whose JAX adapter has it) run each family's
 encoders: FLUX.1-Kontext's and DreamOmni2's VAE encoder, CLIP-L and T5-XXL
 (DreamOmni2's prompts first rewritten by Qwen2.5-VL where its enhancer is
 on); Qwen-Image-Edit's and Qwen-Image-Edit-Plus's 3D VAE encoder and
-Qwen2.5-VL; FLUX.2-Klein's VAE encoder and Qwen3.  Orbax's async
-checkpoints and the hub push are not ported (item 2).  `history` records
-loss, grad_norm, lr and the step's host times per step.
+Qwen2.5-VL; FLUX.2-Klein's VAE encoder and Qwen3.  With
+train.async_checkpointing a writer thread writes the same files
+(`save_checkpoint`); logging.push_to_hub uploads the last LoRA and only
+warns on failure.  JAX's orbax checkpoints are not read (item 2).
+`history` records loss, grad_norm, lr and the step's host times per step.
 
 The Trainer reads its settings by attribute, from the namespaces of the
 port's own loader (`qflux_tpu_torch/config.py`: `Trainer.from_yaml` reads a
@@ -59,7 +61,8 @@ attention through K3 / K4 elsewhere, as there).  Every remat policy of the
 JAX forward trains (models/flux/transformer.py), and a step that runs out
 of device memory under one that keeps tensors degrades once to "full" and
 runs again, as JAX's `_degrade_remat_or_raise`.  The optimizers are
-`optax.adamw` (torch.optim.AdamW) and JAX's blockwise-fp8
+the optax ones of `trainer/optimizers.py` (adamw, adam, lion, sgd,
+contrib.prodigy) and JAX's blockwise-fp8
 `qflux_tpu.ops.adam8bit.adamw8bit` (ops/adam8bit.py).
 """
 
@@ -92,6 +95,7 @@ from qflux_tpu_torch.scheduler.flow_match import FlowMatchScheduler
 from qflux_tpu_torch.scheduler.weighting import default_weighting_table, load_weighting_table
 from qflux_tpu_torch.trainer.dreamomni2 import DreamOmni2Adapter
 from qflux_tpu_torch.trainer.flux2_klein import Flux2KleinAdapter
+from qflux_tpu_torch.trainer import optimizers
 from qflux_tpu_torch.trainer.flux_kontext import FluxKontextAdapter
 from qflux_tpu_torch.trainer.qwen_edit import QwenImageEditAdapter
 from qflux_tpu_torch.trainer.qwen_edit_plus import QwenImageEditPlusAdapter
@@ -101,8 +105,10 @@ from qflux_tpu_torch.trainer.train_step import (TrainStepConfig, lora_leaves,
 from qflux_tpu_torch.utils import checkpoint
 from qflux_tpu_torch.utils.fps import FpsLogger
 from qflux_tpu_torch.utils.logger import LoggerManager, NullLogger
-from qflux_tpu_torch.utils.lora_io import load_lora_safetensors, save_lora_safetensors
+from qflux_tpu_torch.utils.lora_io import (LORA_FILE_BASE_NAME, load_lora_safetensors,
+                                           save_lora_safetensors)
 from qflux_tpu_torch.utils.model_summary import model_summary_rows
+from qflux_tpu_torch.utils.seed import seed_everything
 from qflux_tpu_torch.utils.tensors import numeric_suffix_key
 
 # every trainer of JAX's TrainerKind (qflux_tpu/config.py)
@@ -116,11 +122,13 @@ CRITERIA = {f"{pkg}.{name}": getattr(losses, name)
             for pkg in ("qflux_tpu.losses", "qflux_tpu.losses.losses")
             for name in ("MseLoss", "MaskEditLoss", "AttentionMaskMseLoss")}
 # optimizer.class_path → the arguments ported
-OPTIMIZER_ARGS = {"optax.adamw": ("b1", "b2", "eps", "weight_decay"),
-                  "qflux_tpu.ops.adam8bit.adamw8bit": ("b1", "b2", "eps", "weight_decay",
-                                                       "block_size")}
-ITEM_7 = "ROADMAP.md, queue 1: \"Optimizers and CLI\""
-ITEM_2 = "ROADMAP.md, queue 1 item 2: \"The rest of slice B, part 1: files, real weights and data\""
+ADAM8BIT = "qflux_tpu.ops.adam8bit.adamw8bit"
+OPTIMIZER_ARGS = {**{path: args for path, (_, args) in optimizers.OPTIMIZERS.items()},
+                  ADAM8BIT: ("b1", "b2", "eps", "weight_decay", "block_size")}
+ITEM_7 = ("ROADMAP.md, queue 1 item 7: \"Optimizers and CLI\" (what is left: optax.adafactor "
+          "and the rest of optax.contrib)")
+ITEM_2 = ("ROADMAP.md, queue 1 item 2: \"The rest of slice B, part 1: files, real weights and "
+          "data\" (what is left: reading the JAX trainer's orbax checkpoints)")
 
 
 def get_git_info() -> dict:
@@ -180,9 +188,12 @@ class Trainer:
         self.global_step = 0
         self.epoch = 0
         self.output_dir: Optional[Path] = None
-        # fit's AdamW and noise generator, which checkpoints save
+        # fit's optimizer and noise generator, which checkpoints save
         self.optimizer: Optional[torch.optim.Optimizer] = None
         self.generator: Optional[torch.Generator] = None
+        self._ckpt_writer: Optional[checkpoint.AsyncWriter] = None
+        # the seconds each save_checkpoint of the last fit held the train thread
+        self.save_blocked_s: list[float] = []
         self._interrupted = False
         # what the last predict_from_embeddings call measured: denoise_s,
         # steps, decode_s (host clock around synchronised work) and whether
@@ -282,40 +293,40 @@ class Trainer:
         return build_lora_tree(gen, self.bundle.dit_params, targets, rank=lcfg.r,
                                alpha=lcfg.lora_alpha, init=init)
 
-    def build_optimizer(self, params: list, stacks=None):
+    def build_optimizer(self, params: list, stacks=None, frozen=()):
         """(optimizer over `params`, lr schedule) with the configured lr
-        schedule: `optax.adamw` as torch.optim.AdamW, or JAX's
+        schedule: an optax optimizer of `trainer/optimizers.py` (adamw,
+        adam, lion, sgd, contrib.prodigy), or JAX's
         `qflux_tpu.ops.adam8bit.adamw8bit` as `AdamW8bit` (`stacks`: the
         params grouped as JAX stacks its leaves, `checkpoint.lora_stacks`),
-        each with the configured b1 / b2 / eps / weight_decay (block_size
-        too for adamw8bit; JAX's defaults where absent).  Any other
-        optimizer or argument raises."""
+        each with the configured arguments at optax's defaults where absent.
+        `frozen` (the LoRA's scaling leaves) reaches the optimizers whose
+        update depends on the whole tree (Prodigy).  Any other optimizer or
+        argument raises."""
         ocfg = self.config.optimizer
         ported = OPTIMIZER_ARGS.get(ocfg.class_path)
         if ported is None:
-            why = ("; no PyTorch counterpart of it is installed"
-                   if ocfg.class_path == "optax.contrib.prodigy" else "")
             raise NotImplementedError(
                 f"optimizer {ocfg.class_path!r} is not ported yet ({ITEM_7}; ported: "
-                f"{sorted(OPTIMIZER_ARGS)}){why}")
+                f"{sorted(OPTIMIZER_ARGS)})")
         args = dict(ocfg.init_args or {})
         unknown = sorted(set(args) - set(ported))
         if unknown:
+            why = ("; optax's `mask` takes a pytree or a callable, which a config cannot "
+                   "give" if "mask" in unknown else "")
             raise NotImplementedError(
                 f"{ocfg.class_path} arguments {unknown} are not ported yet ({ITEM_7}; "
-                f"ported: {list(ported)})")
+                f"ported: {list(ported)}{why})")
         schedule = make_lr_schedule(ocfg.learning_rate, self.config.lr_scheduler.scheduler_type,
                                     self.config.lr_scheduler.warmup_steps,
                                     self.config.train.max_train_steps)
-        betas = (args.get("b1", 0.9), args.get("b2", 0.999))
-        if ocfg.class_path == "optax.adamw":
-            opt = torch.optim.AdamW(params, lr=schedule(0), betas=betas,
-                                    eps=args.get("eps", 1e-8),
-                                    weight_decay=args.get("weight_decay", 1e-4))
-        else:
-            opt = AdamW8bit(params, lr=schedule(0), betas=betas, eps=args.get("eps", 1e-8),
-                            weight_decay=args.get("weight_decay", 1e-2),
+        if ocfg.class_path == ADAM8BIT:
+            opt = AdamW8bit(params, lr=schedule(0), betas=(args.get("b1", 0.9),
+                                                           args.get("b2", 0.999)),
+                            eps=args.get("eps", 1e-8), weight_decay=args.get("weight_decay", 1e-2),
                             block_size=args.get("block_size", 256), stacks=stacks)
+        else:
+            opt = optimizers.build(ocfg.class_path, params, schedule(0), args, frozen=frozen)
         return opt, schedule
 
     def build_criterion(self):
@@ -456,15 +467,6 @@ class Trainer:
         lr = self.config.lr_scheduler
         return not (lr.scheduler_type == "constant" and lr.warmup_steps == 0)
 
-    def _refuse_unported(self) -> None:
-        cfg = self.config
-        if cfg.train.async_checkpointing:
-            raise NotImplementedError(
-                f"train.async_checkpointing (orbax) is not ported yet ({ITEM_2}); the "
-                "synchronous checkpoint files are")
-        if cfg.logging.push_to_hub:
-            raise NotImplementedError(f"logging.push_to_hub is not ported yet ({ITEM_2})")
-
     def fit(self, dataloader):
         """Train the LoRA on `dataloader`: a `data.loader.DataLoader`, or any
         re-iterable of cached-embedding batches (collated dicts, or plain
@@ -495,10 +497,11 @@ class Trainer:
         a dataset, `run_validation` samples every validation.steps steps
         (the throughput clock paused), as in JAX."""
         cfg = self.config
-        self._refuse_unported()
+        seed_everything(cfg.train.seed)
         if self.adapter is None:
             self.load_model()
         self.global_step = self.epoch = 0
+        self.save_blocked_s = []
         self._interrupted = False
         self.output_dir = self.setup_versioned_dir()
         config_dict = config_to_dict(cfg)
@@ -511,8 +514,9 @@ class Trainer:
         if cfg.resume:
             cfg.model.lora.pretrained_weight = str(cfg.resume)
         self.lora = lora = mark_trainable(self.build_lora())
-        self.optimizer, schedule = self.build_optimizer(lora_leaves(lora)[0],
-                                                        checkpoint.lora_stacks(lora))
+        params, scalings = lora_leaves(lora)
+        self.optimizer, schedule = self.build_optimizer(params, checkpoint.lora_stacks(lora),
+                                                        frozen=scalings)
         self.generator = torch.Generator(self.device).manual_seed(cfg.train.seed)
         if cfg.resume:
             self._load_train_state(Path(cfg.resume))
@@ -527,6 +531,8 @@ class Trainer:
         old_handlers = self._install_signal_handlers()
         profiler = None
         ema_loss = None
+        if cfg.train.async_checkpointing:
+            self._ckpt_writer = checkpoint.AsyncWriter(self.device)
         try:
             done = False
             self.fps.start()
@@ -588,8 +594,15 @@ class Trainer:
                     break
             if profiler is not None:
                 profiler = self._profile(profiler)
-            self.save_checkpoint(last=True)
+            last_ckpt = self.save_checkpoint(last=True)
+            if self._ckpt_writer is not None:
+                self._ckpt_writer.wait()  # the last save lands before fit returns
+            if cfg.logging.push_to_hub:
+                self._push_to_hub(last_ckpt / LORA_FILE_BASE_NAME, cfg.logging.push_to_hub)
         finally:
+            if self._ckpt_writer is not None:
+                self._ckpt_writer.close()
+                self._ckpt_writer = None
             for sig, handler in old_handlers.items():
                 signal.signal(sig, handler)
             if profiler is not None:
@@ -663,32 +676,76 @@ class Trainer:
 
     def save_checkpoint(self, last: bool = False) -> Path:
         """checkpoint-{step} (checkpoint-last-{step} with `last`) in the run
-        dir: the LoRA file, AdamW's state as the JAX trainer writes it, the
-        generator's state and state.json.  Returns the directory."""
+        dir: the LoRA file, the optimizer's state as the JAX trainer writes
+        it, the generator's state and state.json.  Under
+        train.async_checkpointing the train thread waits for the save
+        before (one in flight) and for host copies of the tensors, and a
+        writer thread writes the same files from them (`utils/checkpoint.py:
+        AsyncWriter`).  `save_blocked_s` gets the seconds the train thread
+        spent here.  Returns the directory."""
+        t0 = time.perf_counter()
         name = f"checkpoint-last-{self.global_step}" if last else f"checkpoint-{self.global_step}"
         ckpt_dir = self.output_dir / name
+        writer = self._ckpt_writer
+        if writer is not None:
+            writer.wait()
         ckpt_dir.mkdir(parents=True, exist_ok=True)
-        save_lora_safetensors(self.lora, ckpt_dir, self.adapter.lora_module_name_fn,
-                              head_dim=self.bundle.dit_cfg.attention_head_dim)
-        checkpoint.save_train_state(ckpt_dir, self.lora, self.optimizer, self.global_step,
-                                    self._schedule_has_count(), self.generator)
-        (ckpt_dir / checkpoint.STATE_FILE).write_text(json.dumps({
-            "global_step": self.global_step, "epoch": self.epoch, "is_last": last,
-            "git": get_git_info()}))
-        logging.info("saved checkpoint %s", ckpt_dir)
+        tensors = {"lora": {path: dict(leaf) for path, leaf in self.lora.items()},
+                   "state": checkpoint.optimizer_state_tensors(
+                       self.lora, self.optimizer, self.global_step, self._schedule_has_count())}
+        meta = {"global_step": self.global_step, "epoch": self.epoch, "is_last": last}
+        generator_state = self.generator.get_state().numpy().copy()
+        if writer is None:
+            self._write_checkpoint(ckpt_dir, tensors, generator_state, meta)
+        else:
+            writer.submit(self._write_checkpoint, ckpt_dir, writer.snapshot(tensors),
+                          generator_state, meta)
+        self.save_blocked_s.append(time.perf_counter() - t0)
         return ckpt_dir
 
+    def _write_checkpoint(self, ckpt_dir: Path, tensors: dict, generator_state, meta: dict):
+        """The checkpoint's files from `save_checkpoint`'s tensors (on the
+        device, or their host copies)."""
+        save_lora_safetensors(tensors["lora"], ckpt_dir, self.adapter.lora_module_name_fn,
+                              head_dim=self.bundle.dit_cfg.attention_head_dim)
+        checkpoint.write_train_state(ckpt_dir, checkpoint.host_arrays(tensors["state"]),
+                                     generator_state)
+        (ckpt_dir / checkpoint.STATE_FILE).write_text(json.dumps({**meta, "git": get_git_info()}))
+        logging.info("saved checkpoint %s", ckpt_dir)
+
+    @staticmethod
+    def _push_to_hub(lora_file: Path, repo_id: str) -> None:
+        """Upload the last LoRA (`utils/hub.py`); a failure only warns, as
+        in JAX (the push needs huggingface_hub and a network)."""
+        try:
+            from qflux_tpu_torch.utils.hub import upload_lora_safetensors
+
+            upload_lora_safetensors(lora_file, repo_id)
+            logging.info("pushed LoRA to hub repo %s", repo_id)
+        except Exception as err:
+            logging.warning("hub push failed: %s", err)
+
     def _load_train_state(self, ckpt: Path) -> None:
-        """global_step and epoch from state.json, the optimizer's moments from
-        optimizer_state.npz (the JAX trainer's npz route; its orbax route is
-        not ported) and the generator's state, each where the checkpoint
-        has it."""
+        """global_step and epoch from state.json, the optimizer's state from
+        optimizer_state.npz (the JAX trainer's npz route) and the
+        generator's state, each where the checkpoint has it.  The JAX
+        trainer's async route keeps its optimizer state in an orbax
+        directory beside the checkpoints instead, which the port does not
+        read: it warns, naming it, and without an npz the moments start
+        fresh."""
         state_file = ckpt / checkpoint.STATE_FILE
         if state_file.exists():
             st = json.loads(state_file.read_text())
             self.global_step = st.get("global_step", 0)
             self.epoch = st.get("epoch", 0)
         opt_file = ckpt / checkpoint.OPTIMIZER_FILE
+        orbax_dir = ckpt.parent / "orbax"
+        if orbax_dir.exists():
+            logging.warning(
+                "%s is an orbax checkpoint (the JAX trainer's train.async_checkpointing), which "
+                "the port does not read (%s); %s", orbax_dir, ITEM_2,
+                f"restoring {opt_file} instead" if opt_file.exists()
+                else "the optimizer's state starts fresh")
         if opt_file.exists():
             with np.load(opt_file) as arrays:
                 checkpoint.restore_optimizer_state(dict(arrays), self.lora, self.optimizer)

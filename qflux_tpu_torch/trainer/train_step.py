@@ -8,13 +8,14 @@ Counterpart of qflux_tpu/trainer/train_step.py (`TrainStepConfig`,
     loss = criterion(v̂, target, masks…);  grads w.r.t. the LoRA tree only
 
 then gradient accumulation over microbatches (means of losses and grads),
-clip by the global norm, and AdamW.  JAX's jitted pure step over a
-`TrainState` becomes an eager step that updates the LoRA tensors in place
-(`torch.optim.AdamW` holds the moments).  `optax.adamw` and
-`torch.optim.AdamW` compute the same update with the same b1, b2, eps and
-weight_decay: decoupled decay, eps outside the sqrt.  The "scaling" leaves
-are differentiated and counted in the global norm, as in JAX, but never
-stepped: they are not given to the optimizer (JAX zeroes their updates).
+clip by the global norm, and the optimizer's update.  JAX's jitted pure
+step over a `TrainState` becomes an eager step that updates the LoRA
+tensors in place (the optimizer, `trainer/optimizers.py` or
+`ops/adam8bit.py`, holds the moments and computes optax's update).  The
+"scaling" leaves are differentiated and counted in the global norm, as in
+JAX, but never stepped: JAX zeroes their updates after the optimizer's.
+An elementwise optimizer is not given them; Prodigy, whose sums run over
+the whole tree, holds them and drops their updates.
 """
 
 from __future__ import annotations

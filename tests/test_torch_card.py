@@ -1634,3 +1634,50 @@ def test_adam8bit_step_on_card_equals_cpu():
         for mom in ("m", "v"):
             assert torch.equal(sa[mom][0].view(torch.uint8), sb[mom][0].cpu().view(torch.uint8))
             assert torch.equal(sa[mom][1], sb[mom][1].cpu())
+
+
+OPTAX_CASES = [("optax.adamw", {}), ("optax.adamw", {"nesterov": True, "mu_dtype": "bfloat16"}),
+               ("optax.adam", {"eps_root": 1e-8}), ("optax.lion", {}),
+               ("optax.lion", {"mu_dtype": "bfloat16"}),
+               ("optax.sgd", {"momentum": 0.9, "nesterov": True}),
+               ("optax.sgd", {"momentum": 0.9, "accumulator_dtype": "bfloat16"}),
+               ("optax.contrib.prodigy", {"weight_decay": 0.01})]
+
+
+@pytest.mark.parametrize("class_path,args", OPTAX_CASES)
+def test_optimizers_on_card_equal_cpu(class_path, args):
+    """Five updates of each optax optimizer of trainer/optimizers.py on the
+    card and on the CPU from the same LoRA-shaped tensors (a / b, and
+    scaling leaves Prodigy holds as `frozen`) and the same gradients, which
+    share a drift: the elementwise optimizers' parameters and state equal
+    to the bit (separate f32 ops, true divisions by a 0-dim tensor on the
+    device, square roots and the fused moment update in f64); Prodigy's
+    within 1e-5 relative (its two tree-wide f32 sums add in another order
+    on the card, the bound tests/test_torch_optimizers.py holds it to
+    against optax for the same reason)."""
+    from qflux_tpu_torch.trainer import optimizers
+
+    rng = np.random.default_rng(71)
+    shapes = [(64, 16), (16, 3072), (3072, 16), (16, 64)]
+    init = [rng.standard_normal(s).astype(np.float32) * 0.1 for s in shapes]
+    drift = [rng.standard_normal(s) * 10.0 ** rng.uniform(-3, 0, s) for s in shapes + [()] * 2]
+    grads = [[(d * (1 + rng.standard_normal(np.shape(d)))).astype(np.float32) for d in drift]
+             for _ in range(5)]
+    lr = 1.0 if class_path == "optax.contrib.prodigy" else 1e-2
+    out = {}
+    for device in ("cpu", "cuda"):
+        params = [torch.tensor(a, device=device, requires_grad=True) for a in init]
+        scalings = [torch.tensor(1.0, device=device, requires_grad=True) for _ in range(2)]
+        opt = optimizers.build(class_path, params, lr, args, frozen=scalings)
+        for g in grads:
+            for p, a in zip(params + scalings, g):
+                p.grad = torch.tensor(a, device=device)
+            opt.step()
+        state = [t.float().cpu() for p in params for _, t in sorted(opt.state[p].items())
+                 if torch.is_tensor(t) and t.dim()]
+        out[device] = [p.detach().cpu() for p in params + scalings] + state
+    for a, b in zip(out["cpu"], out["cuda"]):
+        if class_path == "optax.contrib.prodigy":
+            assert ((a - b).norm() / a.norm().clamp_min(1e-30)).item() <= 1e-5
+        else:
+            assert torch.equal(a, b)

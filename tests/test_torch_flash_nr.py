@@ -361,10 +361,13 @@ def test_port_never_imports_jax(tmp_path):
     process on a cached folder dataset, one padded mixed-resolution step;
     and Qwen-Image-Edit-Plus, FLUX.2-Klein and DreamOmni2 with its prompt
     enhancer, each a predict request on two raw control images and a fit
-    step on a batch of pixels)
-    leaves jax (and the JAX package, its config included) out of
-    sys.modules, and the data layer, the CLI and its logging import none
-    of cv2, PIL, pandas, tensorboardX, tensorboard or datasets."""
+    step on a batch of pixels; the tooling: every model config dumped, a
+    two-step Prodigy fit with async checkpoints, and its two LoRA files
+    compared)
+    leaves jax (and the JAX package, its config included), optax, orbax
+    and huggingface_hub out of sys.modules, and the data layer, the CLI and
+    its logging import none of cv2, PIL, pandas, tensorboardX, tensorboard
+    or datasets."""
     script = tmp_path / "no_jax.py"
     script.write_text(
         "import importlib, pkgutil, sys\n"
@@ -448,10 +451,24 @@ def test_port_never_imports_jax(tmp_path):
         "    assert out.shape == (1, 32, 32, 3) and ft.last_predict['latents_finite']\n"
         "    ft.fit([{'image': img[None], 'control': img[None], 'prompt': ['add a hat']}])\n"
         "    assert ft.global_step == 1 and np.isfinite(ft.history[0]['loss'])\n"
+        "from qflux_tpu_torch.utils import get_model_config, model_compare, seed\n"
+        "for name in get_model_config.KNOWN_CONFIGS:\n"
+        "    assert get_model_config.dump_model_config(name).startswith('{')\n"
+        "ot = Trainer(train_config(variant='test', max_train_steps=2), device='cpu')\n"
+        "ot.config.optimizer.class_path = 'optax.contrib.prodigy'\n"
+        "ot.config.optimizer.init_args = {}\n"
+        "ot.config.train.async_checkpointing = True\n"
+        "ot.config.train.checkpointing_steps = 1\n"
+        "ot.fit([emb] * 2)\n"
+        "files = [str(ot.output_dir / d / 'pytorch_lora_weights.safetensors')\n"
+        "         for d in ('checkpoint-1', 'checkpoint-last-2')]\n"
+        "assert model_compare.summarize(model_compare.compare_lora_files(*files))[\n"
+        "    'value_mismatch']\n"
         "heavy = sorted(m for m in sys.modules if m.split('.')[0] in (\n"
         "    'cv2', 'PIL', 'pandas', 'tensorboardX', 'tensorboard', 'tensorflow', 'datasets'))\n"
         "assert not heavy, heavy\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'qflux_tpu'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in (\n"
+        "    'jax', 'jaxlib', 'qflux_tpu', 'optax', 'orbax', 'huggingface_hub'))\n"
         "assert not bad, bad\n"
         "print('NO_JAX_OK')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -9,6 +9,8 @@ the order of the f32 sums in XLA's and PyTorch's CPU kernels (a few ulps,
 ~1e-7 relative); 1e-5 leaves room for that and nothing else.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +30,16 @@ from qflux_tpu_torch.ops import packing as tpacking
 from qflux_tpu_torch.ops import rope as trope
 
 RTOL, ATOL = 1e-5, 1e-6
+
+# Under pytest-xdist each worker process has its own torch, whose CPU ops
+# take one OpenMP thread per core by default: six workers on eight cores
+# then run 48 threads, and the port's many small ops spin waiting for each
+# other (a tiny FLUX predict took 0.55 s alone and 208 s in a six-worker
+# run).  Every worker collects this module (the port's tests import its
+# helpers), so each gets its share of the cores here.
+_WORKERS = int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "0"))
+if _WORKERS > 1:
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // _WORKERS))
 
 
 def _close(t_out, j_out, rtol=RTOL, atol=ATOL):

@@ -500,15 +500,22 @@ def test_unported_remat_policies_raise(tiny_pair, mesh_remat):
 # the Trainer
 
 def test_trainer_config_surface():
-    """optax.adamw → torch AdamW and qflux_tpu.ops.adam8bit.adamw8bit →
-    AdamW8bit, with the same hyperparameters (adamw8bit's weight decay
-    defaults to 1e-2); the three losses by their JAX class paths; anything
-    else raises naming ROADMAP.md."""
+    """optax.adamw → the port's optax Adam (weight decay 1e-4 at optax's
+    default, the config's 1e-2 here), qflux_tpu.ops.adam8bit.adamw8bit →
+    AdamW8bit, optax.lion / optax.contrib.prodigy / optax.sgd / optax.adam
+    and adamw's nesterov / eps_root / mu_dtype → the port's optimizers
+    (tests/test_torch_optimizers.py holds each to optax); the three losses
+    by their JAX class paths; any other optimizer (optax.adafactor) or
+    argument (optax's `mask`) raises naming ROADMAP.md and listing what is
+    ported."""
+    from qflux_tpu_torch.trainer import optimizers
+
     cfg = train_config()
     tr = Trainer(cfg, "cpu")
     w = [torch.zeros(3, requires_grad=True)]
     opt, schedule = tr.build_optimizer(w)
     g = opt.param_groups[0]
+    assert type(opt) is optimizers.Adam
     assert g["betas"] == (0.9, 0.999) and g["eps"] == 1e-8 and g["weight_decay"] == 1e-2
     assert schedule(0) == g["lr"] == 1e-4
     for name in ("MseLoss", "MaskEditLoss", "AttentionMaskMseLoss"):
@@ -526,16 +533,29 @@ def test_trainer_config_surface():
     g = opt.param_groups[0]
     assert type(opt).__name__ == "AdamW8bit" and g["betas"] == (0.8, 0.999)
     assert g["weight_decay"] == 1e-2 and g["block_size"] == 128 and g["eps"] == 1e-8
-    cfg.optimizer.init_args = {}
-    cfg.optimizer.class_path = "optax.lion"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.build_optimizer(w)
-    cfg.optimizer.class_path = "optax.contrib.prodigy"
-    with pytest.raises(NotImplementedError, match="PyTorch counterpart"):
+    scaling = [torch.ones((), requires_grad=True)]
+    for path, args, cls, want in [
+            ("optax.lion", {}, optimizers.Lion, {"betas": (0.9, 0.99), "weight_decay": 1e-3}),
+            ("optax.contrib.prodigy", {"betas": [0.8, 0.9]}, optimizers.Prodigy,
+             {"betas": (0.8, 0.9), "weight_decay": 0.0, "estim_lr0": 1e-6}),
+            ("optax.sgd", {"momentum": 0.9, "nesterov": True}, optimizers.SGD,
+             {"momentum": 0.9, "nesterov": True, "accumulator_dtype": None}),
+            ("optax.adam", {"mu_dtype": "bfloat16"}, optimizers.Adam,
+             {"weight_decay": None, "mu_dtype": torch.bfloat16}),
+            ("optax.adamw", {"b1": 0.9, "nesterov": True, "eps_root": 1e-9}, optimizers.Adam,
+             {"nesterov": True, "eps_root": 1e-9, "weight_decay": 1e-4})]:
+        cfg.optimizer.class_path, cfg.optimizer.init_args = path, args
+        opt, _ = tr.build_optimizer(w, frozen=scaling)
+        g = opt.param_groups[0]
+        assert type(opt) is cls and all(g[k] == v for k, v in want.items()), path
+        # only Prodigy's update depends on the whole tree: it alone holds the scaling
+        assert (len(g["params"]) == 2) == (cls is optimizers.Prodigy), path
+    cfg.optimizer.class_path, cfg.optimizer.init_args = "optax.adafactor", {}
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 7.*optax.contrib.prodigy"):
         tr.build_optimizer(w)
     cfg.optimizer.class_path = "optax.adamw"
-    cfg.optimizer.init_args = {"b1": 0.9, "nesterov": True}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    cfg.optimizer.init_args = {"b1": 0.9, "mask": {"a": True}}
+    with pytest.raises(NotImplementedError, match="ROADMAP.*mask"):
         tr.build_optimizer(w)
     cfg.loss.class_path = "qflux_tpu.losses.Nope"
     with pytest.raises(NotImplementedError):
