@@ -414,6 +414,19 @@ AB_RQ_CASES = [RQ_MAIN, (3744, 3072, 3072), (256, 12288, 3072)]
 PEAK_BYTES_PER_MS = 3.35e9
 PEAK_BF16_PER_MS = 989e9
 PEAK_INT8_PER_MS = 1979e9
+# f32 FFMA on the CUDA cores (132 SMs x 128 lanes x 2 flops x 1.98 GHz),
+# what csrc/flash_simt.cu's f32 products run on
+PEAK_F32_PER_MS = 67e9
+# __dp4a (the f32 s_int8 mode's scores): the INT32 pipe's 64 lanes per SM per
+# clock, 8 operations each (four multiplies, four adds), at the same 132 SMs
+# and 1.98 GHz; not a data-sheet number
+PEAK_DP4A_PER_MS = 132 * 64 * 8 * 1.98e6
+# csrc/flash_simt.cu's f32 modes against their plain versions on the card
+# (relative L2): the same f32 arithmetic summed in another order, exp and
+# rsqrt an ulp apart: out and lse within 2e-5, and the gradients, sums of
+# five products (and the rope + norm backward), within 1e-4
+F32_REL_TOL = 2e-5
+F32_GRAD_TOL = 1e-4
 
 
 def _nvidia_smi() -> str:
@@ -463,12 +476,11 @@ def _sdpa_flash_ms(qn, kn, v, do=None) -> float:
         return _median_ms(lambda: torch.autograd.grad(out, (q, k, vv), g, retain_graph=True))
 
 
-def _attn_inputs(gen, b, s, h=24, d=128):
+def _attn_inputs(gen, b, s, h=24, d=128, dtype=torch.bfloat16):
     dev = "cuda"
-    q, k, v = (torch.randn(b, s, h, d, device=dev, generator=gen).to(torch.bfloat16)
-               for _ in range(3))
-    qs2 = (1 + 0.1 * torch.randn(2, d, device=dev, generator=gen)).to(torch.bfloat16)
-    ks2 = (1 + 0.1 * torch.randn(2, d, device=dev, generator=gen)).to(torch.bfloat16)
+    q, k, v = (torch.randn(b, s, h, d, device=dev, generator=gen).to(dtype) for _ in range(3))
+    qs2 = (1 + 0.1 * torch.randn(2, d, device=dev, generator=gen)).to(dtype)
+    ks2 = (1 + 0.1 * torch.randn(2, d, device=dev, generator=gen)).to(dtype)
     ang = torch.rand(s, d // 2, device=dev, generator=gen) * 6.28
     cos = torch.cat([ang.cos()] * 2, -1).contiguous()
     sin = torch.cat([ang.sin()] * 2, -1).contiguous()
@@ -871,9 +883,10 @@ FLASH_CASES = [("qwen_832x576", 1, 4000, "text_pad"), ("qwen_832x576_bs2", 2, 40
                ("ring_hop", 1, 2000, "hop")]
 
 
-def _flash_case(gen, b, s, ids, h=24, d=128):
-    """q, k, v bf16 [B, S, H, D] on the card and the (q, kv) ids, or None."""
-    q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=gen).to(torch.bfloat16)
+def _flash_case(gen, b, s, ids, h=24, d=128, dtype=torch.bfloat16):
+    """q, k, v [B, S, H, D] of `dtype` on the card and the (q, kv) ids, or
+    None."""
+    q, k, v = (torch.randn(b, s, h, d, device="cuda", generator=gen).to(dtype)
                for _ in range(3))
     if ids is None:
         return q, k, v, None, None
@@ -910,18 +923,23 @@ def _k3_agrees(q, k, v, q_seg, kv_seg, scale):
     """K3 on these inputs against flash_fwd_reference → (ok, max |out
     error|, max |lse error| over the rows that attend anything, the [B, S]
     rows every head masks, out, lse).  ok: out within OUT_ATOL and lse
-    within LSE_ATOL, out finite, the masked rows' lse at -1e30 and their
-    out 0."""
+    within LSE_ATOL (f32 inputs: both errors relative L2, within
+    F32_REL_TOL), out finite, the masked rows' lse at -1e30 and their out
+    0."""
     from qflux_tpu_torch.ops import flash_attention as fa
 
     out, lse = fa._flash_fwd_cuda(q, k, v, q_seg, kv_seg, scale)
     torch.cuda.synchronize()
     ref, ref_lse = fa.flash_fwd_reference(q, k, v, q_seg, kv_seg, scale)
-    err = (out.float() - ref.float()).abs().max().item()
     valid = ref_lse > -1e29
-    lse_err = (lse - ref_lse).abs()[valid].max().item()
-    ok = (err <= OUT_ATOL and lse_err <= LSE_ATOL and bool(torch.isfinite(out).all())
-          and bool((lse[~valid] == -1e30).all()))
+    if q.dtype == torch.float32:  # relative L2, as `_fwd_agrees`
+        err, lse_err = _rel(out, ref), _rel(lse[valid], ref_lse[valid])
+        ok = err <= F32_REL_TOL and lse_err <= F32_REL_TOL
+    else:
+        err = (out.float() - ref.float()).abs().max().item()
+        lse_err = (lse - ref_lse).abs()[valid].max().item()
+        ok = err <= OUT_ATOL and lse_err <= LSE_ATOL
+    ok = ok and bool(torch.isfinite(out).all()) and bool((lse[~valid] == -1e30).all())
     dead = (~valid).permute(0, 2, 1).all(-1)
     return ok and not out[dead].any(), err, lse_err, dead, out, lse
 
@@ -930,7 +948,8 @@ def _k4_agrees(q, k, v, q_seg, kv_seg, out, lse, do, scale):
     """K4 on these inputs, twice, against flash_bwd_reference → (ok, the
     errors as text, max |error|, (dq, dk, dv)).  ok: the two calls
     identical, and each gradient finite, within BWD_REL_TOL in relative L2
-    and within BWD_MAX_TOL × max |reference|."""
+    and within BWD_MAX_TOL × max |reference| (f32: within F32_GRAD_TOL
+    relative L2, `_grad_agrees`)."""
     from qflux_tpu_torch.ops import flash_attention as fa
 
     got = fa._flash_bwd_cuda(q, k, v, q_seg, kv_seg, out, lse, do, scale)
@@ -941,13 +960,10 @@ def _k4_agrees(q, k, v, q_seg, kv_seg, out, lse, do, scale):
     ref = fa.flash_bwd_reference(q, k, v, q_seg, kv_seg, out, lse, do, scale)
     errs, max_err = [], 0.0
     for gname, g, r in zip(("dq", "dk", "dv"), got, ref):
-        diff = g.float() - r
-        rel = (diff.norm() / r.norm()).item()
-        mx = diff.abs().max().item()
-        ok = ok and rel <= BWD_REL_TOL and mx <= BWD_MAX_TOL * r.abs().max().item()
-        ok = ok and bool(torch.isfinite(g).all())
-        max_err = max(max_err, mx)
-        errs.append(f"{gname} rel {rel:.3e} max {mx:.3e}")
+        g_ok, text = _grad_agrees(g, r, q.dtype == torch.float32)
+        ok = ok and g_ok
+        max_err = max(max_err, (g.float() - r).abs().max().item())
+        errs.append(f"{gname} {text}")
     return ok, "; ".join(errs), max_err, got
 
 
@@ -1204,13 +1220,13 @@ def _train_batch(rng, cfg, gh, gw, b):
 
 
 def _lora_grad_check(card, label, names, dit, lora, batch, noise, sigma, adapter, criterion,
-                     kernels, n_blocks, groups) -> dict:
+                     kernels, n_blocks, groups, tol=GRAD_REL_TOL) -> dict:
     """One step's LoRA gradients through `adapter`'s kernels (its remat
     policy) against the plain attention (remat "full": there is no kernel
     output to save), on the same batch, noise and σ.  The kernel run must
     launch the kernels at `kernels` (two indices of _launch_counts) once a
-    block each; the relative L2 error over all layers must be within
-    GRAD_REL_TOL, and every layer must get a finite, non-zero gradient.
+    block each; the relative L2 error over all layers must be within `tol`
+    (GRAD_REL_TOL), and every layer must get a finite, non-zero gradient.
     Prints the error per projection group in `groups`; returns them."""
     from qflux_tpu_torch.trainer.train_step import TrainStepConfig, _loss_for_microbatch
 
@@ -1243,8 +1259,8 @@ def _lora_grad_check(card, label, names, dit, lora, batch, noise, sigma, adapter
         rels[group or "all"] = (gk - gp).norm().item() / gp.norm().item()
     print(f"{label} LoRA gradients, {names} vs plain attention: rel L2 err "
           + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
-          + f" (tol {GRAD_REL_TOL} on all) [{card}]", flush=True)
-    if not rels["all"] <= GRAD_REL_TOL or not all(
+          + f" (tol {tol} on all) [{card}]", flush=True)
+    if not rels["all"] <= tol or not all(
             bool(torch.isfinite(g).all()) for g in grads["kernels"].values()):
         raise AssertionError(f"{label}: LoRA gradients through {names} disagree with the "
                              "plain path")
@@ -5414,11 +5430,12 @@ def phase_flux_multires(card: str) -> tuple[int, ...]:
 class _PathShapes:
     """Inside the `with` block, records each distinct shape at which the
     launchers of K1, K2, K3, K4, K5a, K5b and the row quantization are
-    called: K1 and K2 by q's shape, st, cos / sin's shape and whether
-    segment ids are given (their bf16 mode; the s_int8 mode's q_rows
-    too), their ids copied at the first launch; K3 and K4 by q's and k's
-    shapes and whether ids are given, their segment ids copied at the first
-    launch; K5a and K5b by M, K, N, the weight's group count and the output
+    called: K1 and K2 by q's shape, st, cos / sin's shape, whether
+    segment ids are given, the s_int8 mode's q_rows and q's dtype, their ids
+    copied at the first launch; K3 and K4 by q's and k's shapes, whether ids
+    are given and q's dtype (bf16 at head dim 128: the wgmma kernels; f32,
+    or bf16 at 32 / 64: csrc/flash_simt.cu), their segment ids copied at the
+    first launch; K5a and K5b by M, K, N, the weight's group count and the output
     dtype; the row quantization by its input's shape and dtype and whether
     s_vec multiplies it first.  Only shapes and ids are kept, so what the
     path measures is unchanged.  `phase_path_shapes` holds each kernel to
@@ -5437,7 +5454,8 @@ class _PathShapes:
         f1, f2, f3, f4, f5a, f5b, frq = self.orig = [getattr(m, n) for m, n in self.saved]
 
         def nr_ids(table, q, cos, st, seg, q_rows):
-            key = (tuple(q.shape), int(st), tuple(cos.shape), seg is not None, int(q_rows))
+            key = (tuple(q.shape), int(st), tuple(cos.shape), seg is not None, int(q_rows),
+                   q.dtype)
             if key not in table:
                 table[key] = None if seg is None else seg.clone()
 
@@ -5450,7 +5468,7 @@ class _PathShapes:
             return f2(q, k, v, qs, ks, cos, sin, st, seg, scale, out, lse, do, q_rows)
 
         def ids(table, q, k, q_seg, kv_seg):
-            key = (tuple(q.shape), tuple(k.shape), q_seg is not None)
+            key = (tuple(q.shape), tuple(k.shape), q_seg is not None, q.dtype)
             if key not in table:
                 table[key] = tuple(None if t is None else t.clone() for t in (q_seg, kv_seg))
 
@@ -5484,53 +5502,131 @@ class _PathShapes:
         return False
 
 
-def _nr_inputs(gen, q_shape, cos_shape):
-    """K1 / K2 inputs at a path's shapes: q, k, v ~ N(0, 1) bf16, norm
+def _nr_inputs(gen, q_shape, cos_shape, dtype=torch.bfloat16):
+    """K1 / K2 inputs at a path's shapes: q, k, v ~ N(0, 1) in `dtype`, norm
     scales 1 + 0.1 · N, cos / sin of random angles [S, D] (or [B, S, D]:
     per-sample ids), as `_attn_inputs`."""
     q, k, v, qs2, ks2, _, _ = _attn_inputs(gen, q_shape[0], q_shape[1], q_shape[2],
-                                           q_shape[3])
+                                           q_shape[3], dtype)
     ang = torch.rand(*cos_shape[:-1], cos_shape[-1] // 2, device="cuda", generator=gen) * 6.28
     return (q, k, v, qs2, ks2, torch.cat([ang.cos()] * 2, -1).contiguous(),
             torch.cat([ang.sin()] * 2, -1).contiguous())
 
 
-def _k1_k2_agree(gen, q_shape, st, cos_shape, seg) -> tuple[bool, str]:
-    """K1 (bf16 mode) at a path's shape, st and segment ids against
-    flash_attention_nr_reference (out within OUT_ATOL, lse within
-    LSE_ATOL, finite), then K2 from K1's out / lse with do ~ N(0, 1)
-    against flash_attention_nr_bwd_reference (each gradient within
-    BWD_REL_TOL relative L2 and BWD_MAX_TOL × max |reference|, finite).
-    Returns (ok, the errors as text)."""
+def _f32_int8_prep(args, st, tiles) -> tuple[tuple, bool, str]:
+    """The f32 s_int8 mode's prep alone (`_int8_operands_cuda`) at each q
+    tile of `tiles`: its qn / kn within F32_REL_TOL of the plain norm +
+    rope, its int8 operands and scales equal to the bit to `quant_rows` of
+    that qn / kn.  Returns ((qn, kn), ok, text), the int8 values that the
+    plain qn / kn would put on another step counted in the text: a qn an
+    f32 ulp away from the plain one can cross a rounding midpoint, so the
+    plain int8 versions are held to the kernel on the kernel's qn / kn."""
+    from qflux_tpu_torch.ops import flash_nr as fnr
+
+    q, k, _, qs2, ks2, cos, sin = args
+    pq, pk = (fnr.apply_qk_norm_rope(x, s2, cos, sin, st) for x, s2 in ((q, qs2), (k, ks2)))
+    ok, flips, s = True, 0, q.shape[1]
+    for rows in sorted(set(tiles)):
+        qn, kn, qq, kq, q_sc, k_sc = fnr._int8_operands_cuda(q, k, qs2, ks2, cos, sin, st, rows)
+        wq, wqs = fnr.quant_rows(qn, rows)
+        wk, wks = fnr.quant_rows(kn, s)
+        ok = (ok and torch.equal(qq, wq) and torch.equal(q_sc, wqs) and torch.equal(kq, wk)
+              and torch.equal(k_sc, wks[:, 0]))
+        flips += int((fnr.quant_rows(pq, rows)[0] != qq).sum() + (fnr.quant_rows(pk, s)[0]
+                                                                   != kq).sum())
+    err = max(_rel(qn, pq), _rel(kn, pk))
+    ok = ok and err <= F32_REL_TOL
+    return (qn, kn), ok, (f"prep: qn / kn rel_err {err:.3e} (tol {F32_REL_TOL}), int8 operands "
+                          f"and scales equal to quant_rows of them: {ok}; {flips} int8 values "
+                          f"the plain qn / kn would round to the next step")
+
+
+def _k1_k2_agree(gen, q_shape, st, cos_shape, seg, dtype=torch.bfloat16,
+                 s_int8=False) -> tuple[bool, str]:
+    """K1 (bf16 mode, or f32 through csrc/flash_simt.cu) at a path's shape,
+    st and segment ids against flash_attention_nr_reference (bf16: out
+    within OUT_ATOL, lse within LSE_ATOL; f32: both within F32_REL_TOL
+    relative L2; finite), then K2 from K1's out / lse with do ~ N(0, 1)
+    against flash_attention_nr_bwd_reference (bf16: each gradient within
+    BWD_REL_TOL relative L2 and BWD_MAX_TOL × max |reference|; f32: within
+    F32_GRAD_TOL relative L2; finite).  s_int8 (f32 only): both in their
+    s_int8 mode at JAX's tiles for this S, the prep held by
+    `_f32_int8_prep`, against the plain int8 versions on the prep's qn /
+    kn.  Returns (ok, the errors as text)."""
     from qflux_tpu_torch.ops import flash_nr
 
-    args = _nr_inputs(gen, q_shape, cos_shape)
+    f32 = dtype == torch.float32
+    args = _nr_inputs(gen, q_shape, cos_shape, dtype)
     scale = q_shape[-1] ** -0.5
-    out, lse = flash_nr._flash_nr_cuda(*args, st, seg, scale)
+    fwd_rows, bwd_rows = flash_nr.s_int8_tiles(q_shape[1], q_shape[-1]) if s_int8 else (0, 0)
+    prep_ok, prep_text, normed = True, "", None
+    if s_int8:  # held on the kernel's qn / kn (`_f32_int8_prep`)
+        normed, prep_ok, prep_text = _f32_int8_prep(args, st, (fwd_rows, bwd_rows))
+        prep_text += "; "
+    out, lse = flash_nr._flash_nr_cuda(*args, st, seg, scale, fwd_rows)
     torch.cuda.synchronize()
-    ref, ref_lse = flash_nr.flash_attention_nr_reference(*args, st, segment_ids=seg)
-    err = (out.float() - ref.float()).abs().max().item()
-    valid = ref_lse > -1e29
-    lse_err = (lse - ref_lse).abs()[valid].max().item()
-    ok = err <= OUT_ATOL and lse_err <= LSE_ATOL and bool(torch.isfinite(out).all())
-    errs = [f"K1 max_abs_err(out) {err:.3e} (tol {OUT_ATOL}), max_abs_err(lse) {lse_err:.3e} "
-            f"(tol {LSE_ATOL})"]
+    if s_int8:
+        ref, ref_lse = flash_nr.flash_attention_nr_int8_reference(
+            *args, st, fwd_rows, segment_ids=seg, scale=scale, normed=normed)
+    else:
+        ref, ref_lse = flash_nr.flash_attention_nr_reference(*args, st, segment_ids=seg)
+    ok, errs = _fwd_agrees(out, lse, ref, ref_lse, f32)
+    ok = ok and prep_ok
+    errs = [prep_text + "K1 " + errs]
     del ref, ref_lse
-    do = torch.randn(q_shape, device="cuda", generator=gen).to(torch.bfloat16)
-    got = flash_nr._flash_nr_bwd_cuda(*args, st, seg, scale, out, lse, do)
+    do = torch.randn(q_shape, device="cuda", generator=gen).to(dtype)
+    got = flash_nr._flash_nr_bwd_cuda(*args, st, seg, scale, out, lse, do, bwd_rows)
     torch.cuda.synchronize()
-    ref = flash_nr.flash_attention_nr_bwd_reference(*args, st, do, segment_ids=seg,
-                                                    scale=scale)
+    if s_int8:
+        ref = flash_nr.flash_attention_nr_int8_bwd_reference(
+            *args, st, do, out, lse, bwd_rows, segment_ids=seg, scale=scale, normed=normed)
+    else:
+        ref = flash_nr.flash_attention_nr_bwd_reference(*args, st, do, segment_ids=seg,
+                                                        scale=scale)
     for gname, g, r in zip(("dq", "dk", "dv", "dqs", "dks"), got, ref):
-        diff = g.float() - r
-        rel = (diff.norm() / r.norm()).item()
-        mx = diff.abs().max().item()
-        ok = ok and rel <= BWD_REL_TOL and mx <= BWD_MAX_TOL * r.abs().max().item()
-        ok = ok and bool(torch.isfinite(g).all())
-        errs.append(f"K2 {gname} rel {rel:.3e} max {mx:.3e}")
+        g_ok, text = _grad_agrees(g, r, f32)
+        ok = ok and g_ok
+        errs.append(f"K2 {gname} {text}")
     del args, out, lse, do, got, ref
     torch.cuda.empty_cache()
-    return ok, "; ".join(errs) + f" (tol rel {BWD_REL_TOL}, max {BWD_MAX_TOL} x max|ref|)"
+    return ok, "; ".join(errs) + f" ({_tol_text(f32)})"
+
+
+def _fwd_agrees(out, lse, ref, ref_lse, f32) -> tuple[bool, str]:
+    """An attention forward against its plain version: bf16, out within
+    OUT_ATOL and lse within LSE_ATOL (max |error|); f32, both within
+    F32_REL_TOL (relative L2); lse over the rows that attend anything, out
+    finite.  Returns (ok, the errors as text)."""
+    valid = ref_lse > -1e29
+    if f32:
+        err, lse_err = _rel(out, ref), _rel(lse[valid], ref_lse[valid])
+        ok = err <= F32_REL_TOL and lse_err <= F32_REL_TOL
+        text = f"rel_err(out) {err:.3e}, rel_err(lse) {lse_err:.3e} (tol {F32_REL_TOL})"
+    else:
+        err = (out.float() - ref.float()).abs().max().item()
+        lse_err = (lse - ref_lse).abs()[valid].max().item()
+        ok = err <= OUT_ATOL and lse_err <= LSE_ATOL
+        text = (f"max_abs_err(out) {err:.3e} (tol {OUT_ATOL}), max_abs_err(lse) "
+                f"{lse_err:.3e} (tol {LSE_ATOL})")
+    return ok and bool(torch.isfinite(out).all()), text
+
+
+def _grad_agrees(g, r, f32) -> tuple[bool, str]:
+    """A gradient against its plain (f32) version: bf16, within BWD_REL_TOL
+    relative L2 and BWD_MAX_TOL × max |reference|; f32, within F32_GRAD_TOL
+    relative L2; finite.  Returns (ok, the errors as text)."""
+    diff = g.float() - r
+    rel = (diff.norm() / r.norm()).item()
+    mx = diff.abs().max().item()
+    ok = rel <= (F32_GRAD_TOL if f32 else BWD_REL_TOL) and bool(torch.isfinite(g).all())
+    if not f32:
+        ok = ok and mx <= BWD_MAX_TOL * r.abs().max().item()
+    return ok, f"rel {rel:.3e} max {mx:.3e}"
+
+
+def _tol_text(f32) -> str:
+    return (f"tol rel {F32_GRAD_TOL}" if f32
+            else f"tol rel {BWD_REL_TOL}, max {BWD_MAX_TOL} x max|ref|")
 
 
 def _rq_agrees(gen, m, k_in, n, n_groups, dtype, backward) -> tuple[bool, float]:
@@ -5558,6 +5654,10 @@ def _rq_agrees(gen, m, k_in, n, n_groups, dtype, backward) -> tuple[bool, float]
     return torch.equal(got, want) and bool(torch.isfinite(got).all()), err
 
 
+def _dt(dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
 def _ids_text(q_seg) -> str:
     if q_seg is None:
         return "no ids"
@@ -5579,40 +5679,44 @@ def phase_path_shapes(card: str, rec: _PathShapes, label: str = "phase G") -> di
 
     gen = torch.Generator("cuda").manual_seed(93)
 
-    def qkv(q_shape, k_shape):
-        return [torch.randn(sh, device="cuda", generator=gen).to(torch.bfloat16)
+    def qkv(q_shape, k_shape, dtype):
+        return [torch.randn(sh, device="cuda", generator=gen).to(dtype)
                 for sh in (q_shape, k_shape, k_shape)]
 
     bad = []
     for key in sorted(set(rec.k1) | set(rec.k2), key=str):
-        q_shape, st, cos_shape, _, q_rows = key
-        if q_rows:  # no phase that records shapes runs quantize.attention
-            raise AssertionError(f"an s_int8 launch at {key} has no shape check here")
+        q_shape, st, cos_shape, _, q_rows, dtype = key
+        if q_rows and dtype != torch.float32:  # no such phase runs bf16 s_int8 attention
+            raise AssertionError(f"a bf16 s_int8 launch at {key} has no shape check here")
         seg = rec.k1.get(key, rec.k2.get(key))
-        ok, errs = _k1_k2_agree(gen, q_shape, st, cos_shape, seg)
-        print(f"[path_shapes] K1 / K2 at q {list(q_shape)}, st {st}, cos {list(cos_shape)}, "
-              f"{_ids_text(seg)} (launched: K1 {key in rec.k1}, K2 {key in rec.k2}): {errs}: "
-              f"{ok} [{card}]", flush=True)
+        ok, errs = _k1_k2_agree(gen, q_shape, st, cos_shape, seg, dtype, s_int8=bool(q_rows))
+        print(f"[path_shapes] K1 / K2{' s_int8' if q_rows else ''} at q {list(q_shape)} "
+              f"{_dt(dtype)}, st {st}, cos "
+              f"{list(cos_shape)}, {_ids_text(seg)} (launched: K1 {key in rec.k1}, K2 "
+              f"{key in rec.k2}): {errs}: {ok} [{card}]", flush=True)
         bad += [] if ok else [f"K1 / K2 {q_shape}"]
-    for (q_shape, k_shape, _), (q_seg, kv_seg) in rec.k3.items():
-        q, k, v = qkv(q_shape, k_shape)
+    for (q_shape, k_shape, _, dtype), (q_seg, kv_seg) in rec.k3.items():
+        q, k, v = qkv(q_shape, k_shape, dtype)
         ok, err, lse_err, dead, _, _ = _k3_agrees(q, k, v, q_seg, kv_seg,
                                                   q_shape[-1] ** -0.5)
-        print(f"[path_shapes] K3 at q {list(q_shape)}, k {list(k_shape)}, {_ids_text(q_seg)}: "
-              f"max_abs_err(out) {err:.3e} (tol {OUT_ATOL}), max_abs_err(lse) {lse_err:.3e} "
-              f"(tol {LSE_ATOL}), {int(dead.sum())} fully masked rows at 0: {ok} [{card}]",
-              flush=True)
+        f32 = dtype == torch.float32
+        print(f"[path_shapes] K3 at q {list(q_shape)} {_dt(dtype)}, k {list(k_shape)}, "
+              f"{_ids_text(q_seg)}: {'rel_err' if f32 else 'max_abs_err'}(out) {err:.3e} "
+              f"(tol {F32_REL_TOL if f32 else OUT_ATOL}), "
+              f"{'rel_err' if f32 else 'max_abs_err'}(lse) {lse_err:.3e} "
+              f"(tol {F32_REL_TOL if f32 else LSE_ATOL}), {int(dead.sum())} fully masked rows "
+              f"at 0: {ok} [{card}]", flush=True)
         bad += [] if ok else [f"K3 {q_shape}"]
         del q, k, v
         torch.cuda.empty_cache()
-    for (q_shape, k_shape, _), (q_seg, kv_seg) in rec.k4.items():
-        q, k, v = qkv(q_shape, k_shape)
+    for (q_shape, k_shape, _, dtype), (q_seg, kv_seg) in rec.k4.items():
+        q, k, v = qkv(q_shape, k_shape, dtype)
         scale = q_shape[-1] ** -0.5
         out, lse = fa._flash_fwd_cuda(q, k, v, q_seg, kv_seg, scale)
-        do = torch.randn(q.shape, device="cuda", generator=gen).to(torch.bfloat16)
+        do = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
         ok, errs, _, _ = _k4_agrees(q, k, v, q_seg, kv_seg, out, lse, do, scale)
-        print(f"[path_shapes] K4 at q {list(q_shape)}, k {list(k_shape)}, {_ids_text(q_seg)}: "
-              f"{errs} (tol rel {BWD_REL_TOL}, max {BWD_MAX_TOL} x max|ref|), two calls "
+        print(f"[path_shapes] K4 at q {list(q_shape)} {_dt(dtype)}, k {list(k_shape)}, "
+              f"{_ids_text(q_seg)}: {errs} ({_tol_text(dtype == torch.float32)}), two calls "
               f"identical: {ok} [{card}]", flush=True)
         bad += [] if ok else [f"K4 {q_shape}"]
         del q, k, v, out, lse, do
@@ -6770,6 +6874,663 @@ def optim_main() -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# phase K: attention in f32 and at head dims 32 / 64 (the CUDA-core modes of
+# csrc/flash_simt.cu), and the first-party tokenizers
+
+K_F32_CASES = [  # name, B, S, H, D, ids: K3 / K4 in f32; the first is the table's
+    ("qwen_832x576_f32", 1, 4000, 24, 128, "text_pad"),
+    ("hop_d64_f32", 1, 2000, 48, 64, "hop"),
+    ("ragged_d32_f32", 2, 777, 8, 32, None)]
+K_NARROW_CASES = [  # bf16 at D = 64 / 32; the first is the table's
+    ("s4000_d64_bf16", 1, 4000, 48, 64, "text_pad"),
+    ("hop_d32_bf16", 1, 2000, 8, 32, "hop")]
+K_NR_CASES = [2560, 2304]  # K1 / K2 in f32: FLUX 512² (the table's) and path A's S
+K_INT8_S = 2304            # the f32 s_int8 mode (forward tiles 256 rows, backward 128)
+K_DEPTH = (4, 8)           # the f32 FLUX.1-Kontext fit: 57 f32 blocks hold ~48 GB
+K_FIT_STEPS = 3            # its fit steps, then K_INT8_STEPS with int8 attention
+K_INT8_STEPS = 2
+K_FLUX_GRAD_TOL = 1e-3     # its LoRA gradients, kernels vs the plain route (relative L2):
+                           # F32_GRAD_TOL per call, carried through 12 blocks
+K_VARIANT_STEPS = 2        # variant `test`'s fit and predict steps
+
+
+def _sdpa_ms(q, k, v, do=None) -> float:
+    """One PyTorch call for the same attention on already normed and roped
+    [B, S, H, D] inputs of any dtype: scaled_dot_product_attention on the
+    backend PyTorch picks (its flash backend takes no f32), its backward
+    with `do`.  Unmasked; a yardstick only: the port never calls it."""
+    import torch.nn.functional as F
+
+    q, k, vv = (t.transpose(1, 2) for t in (q, k, v))
+    if do is None:
+        with torch.no_grad():
+            return _median_ms(lambda: F.scaled_dot_product_attention(q, k, vv), n=3)
+    q, k, vv = (t.detach().requires_grad_() for t in (q, k, vv))
+    out = F.scaled_dot_product_attention(q, k, vv)
+    g = do.transpose(1, 2)
+    return _median_ms(lambda: torch.autograd.grad(out, (q, k, vv), g, retain_graph=True), n=3)
+
+
+def _simt_bound(q, k, q_seg, kv_seg, bwd=False, nr=False, int8=False) -> dict:
+    """csrc/flash_simt.cu's work, from the pairs that attend: K3 4·D·H
+    operations a pair (QK^T and PV), K4 10·D·H (five products), at the peak
+    of the inputs' type (f32: the CUDA cores' FFMA; bf16: the tensor cores,
+    which these modes do not use); the s_int8 mode's 2·D·H score operations
+    a pair at the __dp4a rate, the rest f32, the two times added.  Bytes:
+    each input read once and each output written once (q, k, v, out, lse;
+    the backward also do, dq, dk, dv; the fused modes also cos / sin)."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    pairs = _attending_pairs(q, k, q_seg, kv_seg)
+    n_bytes = (((4 * sq + 4 * sk) if bwd else (2 * sq + 2 * sk)) * b * h * d * q.element_size()
+               + b * h * sq * 4 + (2 * sq * d * 4 if nr else 0))
+    total = (10 if bwd else 4) * d * h * pairs
+    if int8:
+        t_ops = 2 * d * h * pairs / PEAK_DP4A_PER_MS + (total - 2 * d * h * pairs) / PEAK_F32_PER_MS
+    else:
+        t_ops = total / (PEAK_F32_PER_MS if q.dtype == torch.float32 else PEAK_BF16_PER_MS)
+    t_bytes = n_bytes / PEAK_BYTES_PER_MS
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes > t_ops
+            else "operations"}
+
+
+def _k_entry(ms, plain_ms, lib_ms, max_abs_err, bound, **extra) -> dict:
+    return {"max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            **bound, **extra}
+
+
+def _k_flash_case(card, gen, name, b, s, h, d, ids, dtype) -> tuple[dict, dict]:
+    """K3 then K4 in a CUDA-core mode at one shape: against their plain
+    versions (`_fwd_agrees` / `_grad_agrees`: f32 within F32_REL_TOL /
+    F32_GRAD_TOL, bf16 within the bf16 kernels' bounds), two calls identical
+    to the bit, each timed alone (the C call on checked arguments, back to
+    back) beside the plain version, SDPA (unmasked) and the bound.  Returns
+    their table entries."""
+    from qflux_tpu_torch.ops import flash_attention as fa
+    from qflux_tpu_torch.runtime.build import load_library
+
+    f32 = dtype == torch.float32
+    q, k, v, q_seg, kv_seg = _flash_case(gen, b, s, ids, h, d, dtype)
+    scale = d ** -0.5
+    _, _, _, _, qs32, ks32 = fa._kernel_args(q, k, v, q_seg, kv_seg)
+    kl, stream = load_library(), torch.cuda.current_stream().cuda_stream
+    out, lse = fa._flash_fwd_cuda(q, k, v, q_seg, kv_seg, scale)
+    out2, lse2 = fa._flash_fwd_cuda(q, k, v, q_seg, kv_seg, scale)
+    torch.cuda.synchronize()
+    same = torch.equal(out, out2) and torch.equal(lse, lse2)
+    del out2, lse2
+    ref, ref_lse = fa.flash_fwd_reference(q, k, v, q_seg, kv_seg, scale)
+    ok, text = _fwd_agrees(out, lse, ref, ref_lse, f32)
+    dead = (ref_lse <= -1e29).permute(0, 2, 1).all(-1)
+    ok = ok and same and not out[dead].any() and bool((lse[ref_lse <= -1e29] == -1e30).all())
+    err = (out.float() - ref.float()).abs().max().item()
+    del ref, ref_lse
+    ms = _window_ms(lambda: fa._launch_fwd(kl, stream, q, k, v, qs32, ks32, scale), 3, 3)
+    plain_ms = _median_ms(lambda: fa.flash_fwd_reference(q, k, v, q_seg, kv_seg, scale), n=3)
+    lib_ms = _sdpa_ms(q, k, v)
+    bound = _simt_bound(q, k, q_seg, kv_seg)
+    print(f"[simt] K3 {name}: {_dt(dtype)} B={b} S={s} H={h} D={d} ids={ids or 'none'}: {text}; "
+          f"max_abs_err(out) {err:.3e}; {int(dead.sum())} fully masked rows at 0; two calls "
+          f"identical {same}; alone {ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
+          f"({bound['bound_by']}; {100 * bound['bound_ms'] / ms:.1f}% of it), plain "
+          f"{plain_ms:.3f} ms, SDPA (unmasked) {lib_ms:.3f} ms [{card}]", flush=True)
+    if not ok:
+        raise AssertionError(f"K3 in its {_dt(dtype)} mode disagrees with its plain version "
+                             f"(or with itself) at {name}")
+    case = f"{name}: B={b} S={s} H={h} D={d}"
+    fwd = _k_entry(ms, plain_ms, lib_ms, err, bound, case=case)
+    do = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
+    ok, errs, err, _ = _k4_agrees(q, k, v, q_seg, kv_seg, out, lse, do, scale)
+    ms = _window_ms(lambda: fa._launch_bwd(kl, stream, q, k, v, qs32, ks32, out, lse, do,
+                                           scale), 3, 3)
+    plain_ms = _median_ms(lambda: fa.flash_bwd_reference(q, k, v, q_seg, kv_seg, out, lse, do,
+                                                         scale), n=3)
+    lib_ms = _sdpa_ms(q, k, v, do)
+    bound = _simt_bound(q, k, q_seg, kv_seg, bwd=True)
+    print(f"[simt] K4 {name}: {errs} ({_tol_text(f32)}), two calls identical; alone {ms:.4f} "
+          f"ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; "
+          f"{100 * bound['bound_ms'] / ms:.1f}% of it), plain {plain_ms:.3f} ms, SDPA backward "
+          f"(unmasked) {lib_ms:.3f} ms [{card}]", flush=True)
+    if not ok:
+        raise AssertionError(f"K4 in its {_dt(dtype)} mode disagrees with its plain version "
+                             f"(or with itself) at {name}")
+    del q, k, v, out, lse, do
+    torch.cuda.empty_cache()
+    return fwd, _k_entry(ms, plain_ms, lib_ms, err, bound, case=case)
+
+
+def _k_nr_case(card, gen, s, s_int8) -> tuple[dict, dict]:
+    """K1 then K2 in f32 (their s_int8 mode where asked) at the FLUX layout
+    (B = 1, H = 24, D = 128, st = 512 with 20 padding text rows): against
+    the plain versions (f32 within F32_REL_TOL / F32_GRAD_TOL; the s_int8
+    mode's prep held by `_f32_int8_prep` and the plain versions run on its
+    qn / kn, the end-to-end error printed), two calls
+    identical to the bit, each timed alone (prep included) beside the plain
+    version, SDPA on the plain normed q / k and the bound."""
+    from qflux_tpu_torch.ops import flash_nr as fnr
+    from qflux_tpu_torch.runtime.build import load_library
+
+    args = _attn_inputs(gen, 1, s, 24, 128, torch.float32)
+    q, k, v, qs2, ks2, cos, sin = args
+    st, scale = 512, 128 ** -0.5
+    seg = torch.ones(1, s, dtype=torch.int32, device="cuda")
+    seg[0, 492:512] = 0
+    fwd_rows, bwd_rows = fnr.s_int8_tiles(s, 128) if s_int8 else (0, 0)
+    label = f"S={s}" + (f" s_int8 (q tiles {fwd_rows} / {bwd_rows})" if s_int8 else "")
+    qs, ks, csb, seg32 = fnr._kernel_args(q, k, v, qs2, ks2, cos, sin, seg)
+    kl, stream = load_library(), torch.cuda.current_stream().cuda_stream
+    normed, prep_ok, prep_text = (_f32_int8_prep(args, st, (fwd_rows, bwd_rows)) if s_int8
+                                  else (None, True, ""))
+    out, lse = fnr._flash_nr_cuda(*args, st, seg, scale, fwd_rows)
+    out2, lse2 = fnr._flash_nr_cuda(*args, st, seg, scale, fwd_rows)
+    torch.cuda.synchronize()
+    same = torch.equal(out, out2) and torch.equal(lse, lse2)
+    del out2, lse2
+    if s_int8:  # on the kernel's qn / kn, and end to end for the record
+        ref, ref_lse = fnr.flash_attention_nr_int8_reference(*args, st, fwd_rows,
+                                                             segment_ids=seg, scale=scale)
+        prep_text += f"; end to end rel_err(out) {_rel(out, ref):.3e}; "
+        ref, ref_lse = fnr.flash_attention_nr_int8_reference(
+            *args, st, fwd_rows, segment_ids=seg, scale=scale, normed=normed)
+    else:
+        ref, ref_lse = fnr.flash_attention_nr_reference(*args, st, segment_ids=seg, scale=scale)
+    ok, text = _fwd_agrees(out, lse, ref, ref_lse, True)
+    text = prep_text + text
+    ok = ok and same and prep_ok and not out[0, 492:512].any()
+    err = (out - ref).abs().max().item()
+    del ref, ref_lse
+    ms = _window_ms(lambda: fnr._launch_fwd(kl, stream, q, k, v, qs, ks, cos, sin, csb, seg32,
+                                            st, scale, fwd_rows), 3, 3)
+    if s_int8:
+        plain_ms = _median_ms(lambda: fnr.flash_attention_nr_int8_reference(
+            *args, st, fwd_rows, segment_ids=seg, scale=scale), n=3)
+    else:
+        plain_ms = _median_ms(lambda: fnr.flash_attention_nr_reference(
+            *args, st, segment_ids=seg, scale=scale), n=3)
+    qn = fnr.apply_qk_norm_rope(q, qs2, cos, sin, st)
+    kn = fnr.apply_qk_norm_rope(k, ks2, cos, sin, st)
+    lib_ms = _sdpa_ms(qn, kn, v)
+    bound = _simt_bound(q, k, seg, seg, nr=True, int8=s_int8)
+    print(f"[simt] K1 f32 {label}: {text}; max_abs_err(out) {err:.3e}; padded rows at 0; two "
+          f"calls identical {same}; alone {ms:.4f} ms (prep included), bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}; "
+          f"{100 * bound['bound_ms'] / ms:.1f}% of it), plain {plain_ms:.3f} ms, SDPA on the "
+          f"plain normed q / k {lib_ms:.3f} ms [{card}]", flush=True)
+    if not ok:
+        raise AssertionError(f"K1 in f32 disagrees with its plain version at {label}")
+    case = f"B=1 S={s} H=24 D=128, st=512, 20 padding text rows, {label}"
+    fwd = _k_entry(ms, plain_ms, lib_ms, err, bound, case=case)
+    do = torch.randn(q.shape, device="cuda", generator=gen)
+    got = fnr._flash_nr_bwd_cuda(*args, st, seg, scale, out, lse, do, bwd_rows)
+    again = fnr._flash_nr_bwd_cuda(*args, st, seg, scale, out, lse, do, bwd_rows)
+    torch.cuda.synchronize()
+    ok = all(torch.equal(x, y) for x, y in zip(got, again))
+    del again
+    if s_int8:
+        ref = fnr.flash_attention_nr_int8_bwd_reference(*args, st, do, out, lse, bwd_rows,
+                                                        segment_ids=seg, scale=scale,
+                                                        normed=normed)
+    else:
+        ref = fnr.flash_attention_nr_bwd_reference(*args, st, do, segment_ids=seg, scale=scale)
+    errs, err = [], 0.0
+    for gname, g, r in zip(("dq", "dk", "dv", "dqs", "dks"), got, ref):
+        g_ok, t = _grad_agrees(g, r, True)
+        ok = ok and g_ok
+        err = max(err, (g - r).abs().max().item())
+        errs.append(f"{gname} {t}")
+    del got, ref
+    ms = _window_ms(lambda: fnr._launch_bwd(kl, stream, q, k, v, qs, ks, cos, sin, csb, seg32,
+                                            st, scale, out, lse, do, bwd_rows), 3, 3)
+    if s_int8:
+        plain_ms = _median_ms(lambda: fnr.flash_attention_nr_int8_bwd_reference(
+            *args, st, do, out, lse, bwd_rows, segment_ids=seg, scale=scale), n=3)
+    else:
+        plain_ms = _median_ms(lambda: fnr.flash_attention_nr_bwd_reference(
+            *args, st, do, segment_ids=seg, scale=scale), n=3)
+    lib_ms = _sdpa_ms(qn, kn, v, do)
+    bound = _simt_bound(q, k, seg, seg, bwd=True, nr=True, int8=s_int8)
+    print(f"[simt] K2 f32 {label}: {'; '.join(errs)} ({_tol_text(True)}), two calls identical; "
+          f"alone {ms:.4f} ms (prep and rope + norm backward included), bound "
+          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}; "
+          f"{100 * bound['bound_ms'] / ms:.1f}% of it), plain {plain_ms:.3f} ms, SDPA backward "
+          f"on the plain normed q / k {lib_ms:.3f} ms [{card}]", flush=True)
+    if not ok:
+        raise AssertionError(f"K2 in f32 disagrees with its plain version (or with itself) at "
+                             f"{label}")
+    del args, q, k, v, out, lse, do, qn, kn
+    torch.cuda.empty_cache()
+    return fwd, _k_entry(ms, plain_ms, lib_ms, err, bound, case=case)
+
+
+def phase_simt_kernels(card: str) -> dict:
+    """Phase K(a): every CUDA-core mode alone against its plain version
+    (`_k_flash_case`, `_k_nr_case`); returns the table's entries by name."""
+    gen = torch.Generator("cuda").manual_seed(41)
+    table = {}
+    for cases, mode in ((K_F32_CASES, torch.float32), (K_NARROW_CASES, torch.bfloat16)):
+        tag = "f32" if mode == torch.float32 else "narrow"
+        for i, (name, b, s, h, d, ids) in enumerate(cases):
+            fwd, bwd = _k_flash_case(card, gen, name, b, s, h, d, ids, mode)
+            if i == 0:
+                table[f"flash_fwd {tag}"], table[f"flash_bwd {tag}"] = fwd, bwd
+    for i, s in enumerate(K_NR_CASES):
+        fwd, bwd = _k_nr_case(card, gen, s, False)
+        if i == 0:
+            table["flash_nr_fwd f32"], table["flash_nr_bwd f32"] = fwd, bwd
+    table["flash_nr_fwd f32 s_int8"], table["flash_nr_bwd f32 s_int8"] = _k_nr_case(
+        card, gen, K_INT8_S, True)
+    return table
+
+
+def _simt_counts() -> dict:
+    from qflux_tpu_torch.ops import flash_attention as fa
+    from qflux_tpu_torch.ops import flash_nr as fnr
+
+    return {"flash_fwd f32": fa.F32_KERNEL_LAUNCHES, "flash_bwd f32": fa.F32_BWD_KERNEL_LAUNCHES,
+            "flash_fwd narrow": fa.NARROW_KERNEL_LAUNCHES,
+            "flash_bwd narrow": fa.NARROW_BWD_KERNEL_LAUNCHES,
+            "flash_nr_fwd f32": fnr.F32_KERNEL_LAUNCHES,
+            "flash_nr_bwd f32": fnr.F32_BWD_KERNEL_LAUNCHES,
+            "flash_nr_fwd f32 s_int8": fnr.F32_INT8_KERNEL_LAUNCHES,
+            "flash_nr_bwd f32 s_int8": fnr.F32_INT8_BWD_KERNEL_LAUNCHES}
+
+
+def _reset_simt_counts() -> None:
+    from qflux_tpu_torch.ops import flash_attention as fa
+    from qflux_tpu_torch.ops import flash_nr as fnr
+
+    for mod, names in ((fa, ("F32_KERNEL_LAUNCHES", "F32_BWD_KERNEL_LAUNCHES",
+                             "NARROW_KERNEL_LAUNCHES", "NARROW_BWD_KERNEL_LAUNCHES")),
+                       (fnr, ("F32_KERNEL_LAUNCHES", "F32_BWD_KERNEL_LAUNCHES",
+                              "F32_INT8_KERNEL_LAUNCHES", "F32_INT8_BWD_KERNEL_LAUNCHES"))):
+        for n in names:
+            setattr(mod, n, 0)
+
+
+def _k_fit(card, label, trainer, batches, want_k1, want_k2, k1_name, k2_name) -> dict:
+    """Trainer.fit with the CUDA-core counts set to 0 just before it and
+    read just after: finite losses, every LoRA b moved, the kernels launched
+    as `want_k1` / `want_k2` a step.  Returns the two launch counts by
+    kernel name."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_simt_counts()
+    lora = _fit_in_tmp(trainer, batches)
+    torch.cuda.synchronize()
+    counts = _simt_counts()
+    hist = trainer.history
+    k1, k2 = counts[k1_name], counts[k2_name]
+    ms = ", ".join(f"{1000 * h['step_s']:.1f}" for h in hist)
+    losses = ", ".join(f"{h['loss']:.5f}" for h in hist)
+    print(f"[f32] {label}: {len(hist)} steps, ms/step {ms}, loss {losses}, peak mem "
+          f"{torch.cuda.max_memory_allocated()} bytes, {k1_name} {k1}, {k2_name} {k2}, every "
+          f"mode: {counts} [{card}]", flush=True)
+    n = len(hist)
+    if n != len(batches) or not all(np.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"{label}: {n} steps or non-finite losses")
+    if (k1, k2) != (want_k1 * n, want_k2 * n):
+        raise AssertionError(f"{label}: {k1_name} / {k2_name} launched {k1} / {k2} times, "
+                             f"expected {want_k1} / {want_k2} a step")
+    if not all(leaf["b"].abs().sum() > 0 for leaf in lora.values()):
+        raise AssertionError(f"{label}: a LoRA b did not move from zero")
+    return {k1_name: k1, k2_name: k2}
+
+
+def phase_f32_flux(card: str) -> dict:
+    """Phase K(b): FLUX.1-Kontext-dev at full width, f32 weights
+    (train.weight_dtype: float32), cut to K_DEPTH blocks, 512² with one
+    control (S = 2,560): one step's LoRA gradients through the f32 K1 / K2
+    against the plain route (K_FLUX_GRAD_TOL), a K_FIT_STEPS fit through
+    them (one K1 and one K2 a block a step under remat "flash"), then
+    K_INT8_STEPS with quantize.attention (the f32 s_int8 mode).  Returns
+    {path: {kernel name: launches}} of the two fits."""
+    from qflux_tpu_torch.losses import MseLoss
+    from qflux_tpu_torch.models.flux import transformer as tflux
+    from qflux_tpu_torch.ops.layers import mark_trainable
+    from qflux_tpu_torch.trainer.base import Trainer, train_config
+
+    with _CutDepth(tflux, "FluxConfig", num_layers=K_DEPTH[0], num_single_layers=K_DEPTH[1]):
+        cfg_t = train_config(variant="full", max_train_steps=K_FIT_STEPS)
+        cfg_t.train.weight_dtype = "float32"
+        trainer = Trainer(cfg_t, device="cuda")
+        trainer.load_model()
+    dit, cfg = trainer.bundle.dit_params, trainer.bundle.dit_cfg
+    n_blocks = cfg.num_layers + cfg.num_single_layers
+    b_dit = sum(p.numel() * p.element_size() for p in dit.parameters())
+    print(f"[f32] FLUX.1-Kontext-dev dim {cfg.dim}, {cfg.num_layers} dual + "
+          f"{cfg.num_single_layers} single blocks, f32: {b_dit} bytes [{card}]", flush=True)
+    rng = np.random.default_rng(21)
+    gh, gw = trainer.adapter.latent_grid(HEIGHT, WIDTH)
+    batch = trainer._device_batch(_train_batch(rng, cfg, gh, gw, 1))
+    gen = torch.Generator("cuda").manual_seed(22)
+    noise = torch.randn(batch["image_latents"].shape, device="cuda", generator=gen)
+    sigma = torch.full((1,), 0.6, device="cuda")
+    lora = mark_trainable(trainer.build_lora())
+    _perturb_b(lora, gen)
+    c0 = _simt_counts()
+    _lora_grad_check(card, "[f32] FLUX 4 + 8 blocks", "f32 K1+K2", dit, lora, batch, noise,
+                     sigma, trainer.adapter, MseLoss(), (0, 1), n_blocks,
+                     ("to_q", "to_k", "to_v", "to_out"), tol=K_FLUX_GRAD_TOL)
+    c1 = _simt_counts()
+    if (c1["flash_nr_fwd f32"] - c0["flash_nr_fwd f32"],
+            c1["flash_nr_bwd f32"] - c0["flash_nr_bwd f32"]) != (n_blocks, n_blocks):
+        raise AssertionError("the f32 gradient check did not run the f32 K1 / K2 once a block")
+    del lora, batch, noise
+    torch.cuda.empty_cache()
+    paths = {}
+    batches = [_train_batch(rng, cfg, gh, gw, 1) for _ in range(K_FIT_STEPS)]
+    paths["f32_flux_fit"] = _k_fit(card, f"FLUX f32 fit, {n_blocks} blocks", trainer, batches,
+                                   n_blocks, n_blocks, "flash_nr_fwd f32", "flash_nr_bwd f32")
+    trainer.adapter = dataclasses.replace(trainer.adapter, attn_impl="int8")
+    trainer.config.train.max_train_steps = K_INT8_STEPS
+    batches = [_train_batch(rng, cfg, gh, gw, 1) for _ in range(K_INT8_STEPS)]
+    paths["f32_flux_fit_int8_attention"] = _k_fit(
+        card, f"FLUX f32 fit with quantize.attention, {n_blocks} blocks", trainer, batches,
+        n_blocks, n_blocks, "flash_nr_fwd f32 s_int8", "flash_nr_bwd f32 s_int8")
+    del trainer, dit
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths
+
+
+def _variant_test_emb(rng, family) -> tuple[dict, int, int]:
+    """Cached embeddings at variant `test`'s widths (as the CPU tests'
+    tiny slices): (embeddings, image size, latent tokens)."""
+    from qflux_tpu_torch.ops.rope import flux_image_ids, flux_text_ids
+
+    f32 = np.float32
+    if family == "flux":
+        return ({"control_latents": rng.standard_normal((1, 64, 16)).astype(f32),
+                 "prompt_embeds": rng.standard_normal((1, 8, 64)).astype(f32),
+                 "pooled_prompt_embeds": rng.standard_normal((1, 32)).astype(f32),
+                 "tgt_ids": flux_image_ids(8, 8, 0), "ctl_ids": flux_image_ids(8, 8, 1),
+                 "txt_ids": flux_text_ids(8)}, 32, 64)
+    return ({"control_latents": rng.standard_normal((1, 16, 16)).astype(f32),
+             "prompt_embeds": rng.standard_normal((1, 8, 48)).astype(f32),
+             "prompt_embeds_mask": np.array([[1] * 6 + [0] * 2]),
+             "img_shapes_arr": np.array([[1, 4, 4], [1, 4, 4]], np.int32)}, 16, 16)
+
+
+def phase_variant_test(card: str) -> dict:
+    """Phase K(c): variant `test` (head dim 32) of FLUX.1-Kontext and
+    Qwen-Image-Edit on the card, in bf16 (the narrow mode) and f32: a
+    K_VARIANT_STEPS predict from cached embeddings (K3 a whole number of
+    times a block, uint8 images) and a K_VARIANT_STEPS fit (K4 once a block
+    a step, K3 once or twice under the remat policy, finite losses), each
+    with the counts set to 0 just before it.  Returns {path: {kernel name:
+    launches}}."""
+    from qflux_tpu_torch.trainer.base import Trainer, train_config
+
+    paths = {}
+    for trainer_name, family in (("FluxKontextLoraTrainer", "flux"),
+                                 ("QwenImageEditTrainer", "qwen")):
+        for dtype in ("bfloat16", "float32"):
+            tag = "f32" if dtype == "float32" else "narrow"
+            rng = np.random.default_rng(31)
+            cfg = train_config(variant="test", max_train_steps=K_VARIANT_STEPS)
+            cfg.trainer.value = trainer_name
+            cfg.train.weight_dtype = dtype
+            cfg.predict.num_inference_steps = K_VARIANT_STEPS
+            tr = Trainer(cfg, device="cuda")
+            tr.load_model()
+            dcfg = tr.bundle.dit_cfg
+            n_blocks = dcfg.num_layers + getattr(dcfg, "num_single_layers", 0)
+            emb, size, n_lat = _variant_test_emb(rng, family)
+            tr.lora = tr.build_lora()
+            _reset_simt_counts()
+            img = tr.predict_from_embeddings(emb, size, size)
+            torch.cuda.synchronize()
+            k3 = _simt_counts()[f"flash_fwd {tag}"]
+            print(f"[variant_test] {family} {dtype} predict ({K_VARIANT_STEPS} steps, head dim "
+                  f"{dcfg.attention_head_dim}, {n_blocks} blocks): image {img.shape} "
+                  f"{img.dtype}, K3 {tag} {k3} [{card}]", flush=True)
+            if img.shape != (1, size, size, 3) or img.dtype != np.uint8 or not k3 or k3 % n_blocks:
+                raise AssertionError(f"variant test {family} {dtype} predict: image {img.shape} "
+                                     f"{img.dtype}, K3 {k3} launches")
+            paths[f"variant_test_{family}_{tag}_predict"] = {f"flash_fwd {tag}": k3}
+            emb["image_latents"] = rng.standard_normal((1, n_lat, 16)).astype(np.float32)
+            _reset_simt_counts()
+            tr.fit([emb] * (K_VARIANT_STEPS + 1))
+            torch.cuda.synchronize()
+            c = _simt_counts()
+            k3, k4 = c[f"flash_fwd {tag}"], c[f"flash_bwd {tag}"]
+            hist = tr.history
+            losses = ", ".join(f"{h['loss']:.5f}" for h in hist)
+            print(f"[variant_test] {family} {dtype} fit: {len(hist)} steps, loss {losses}, K3 "
+                  f"{tag} {k3}, K4 {tag} {k4} [{card}]", flush=True)
+            want = n_blocks * len(hist)
+            if (len(hist) != K_VARIANT_STEPS or not all(np.isfinite(h["loss"]) for h in hist)
+                    or k4 != want or k3 not in (want, 2 * want)):
+                raise AssertionError(f"variant test {family} {dtype} fit: {len(hist)} steps, "
+                                     f"K3 / K4 {k3} / {k4}, expected K4 {want}")
+            paths[f"variant_test_{family}_{tag}_fit"] = {f"flash_fwd {tag}": k3,
+                                                         f"flash_bwd {tag}": k4}
+            del tr
+            torch.cuda.empty_cache()
+    return paths
+
+
+def phase_f32(card: str) -> tuple[dict, dict]:
+    """Phase K: (a) the CUDA-core modes alone, (b) the f32 FLUX fit, (c)
+    variant `test` on the card, every kernel (b) and (c) launched then held
+    to its plain version at their shapes, (d) the tokenizers.  Returns the
+    table's entries and the launches by path."""
+    t0 = time.perf_counter()
+    table = phase_simt_kernels(card)
+    print(f"[smoke] phase K(a): {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    with _PathShapes() as rec:
+        paths = phase_f32_flux(card)
+        paths.update(phase_variant_test(card))
+    checked = phase_path_shapes(card, rec, "phase K")
+    print(f"[smoke] phase K(b, c) shapes checked {checked} [{card}]", flush=True)
+    phase_tokenizers(card)
+    return table, paths
+
+
+def f32_main() -> int:
+    """`python3 chip_smoke.py --f32`: phase K alone (its kernels built
+    first), for iterating on it; the smoke runs it after phase J."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from qflux_tpu_torch.runtime.build import load_library
+
+    smi = _nvidia_smi()
+    print(smi, flush=True)
+    card = ", ".join(x.strip() for x in smi.split(",", 1))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    load_library()
+    t0 = time.perf_counter()
+    table, paths = phase_f32(card)
+    print(json.dumps({"phase_k": table, "launches_by_path": paths}), flush=True)
+    print(f"[smoke] phase K: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    return 0
+
+
+K_TOKENIZER_PROMPTS = ["turn the sky orange at sunset", "add a red hat to the person", "",
+                       "it's a café, ＡＢＣ ﬁne 東京 😀 12345 ①  -- done"]
+K_WORDS = ["the", "sky", "orange", "sunset", "add", "red", "hat", "person", "turn", "image"]
+K_QWEN3_TEMPLATE = (
+    "{%- for message in messages %}{{- '<|im_start|>' + message.role + '\\n' + "
+    "message.content + '<|im_end|>\\n' }}{%- endfor %}{%- if add_generation_prompt %}"
+    "{{- '<|im_start|>assistant\\n' }}{%- if enable_thinking is defined and enable_thinking "
+    "is false %}{{- '<think>\\n\\n</think>\\n\\n' }}{%- endif %}{%- endif %}")
+QWEN_SPECIALS = ["<|endoftext|>", "<|im_start|>", "<|im_end|>", "<|vision_start|>",
+                 "<|vision_end|>", "<|image_pad|>"]
+
+
+def _bpe_vocab(words, space: str, suffix: str) -> tuple[dict, list]:
+    """A byte-level BPE vocabulary: the 256 byte symbols (and with `suffix`),
+    then each word built left to right by merges (`space` + word for
+    Qwen's leading-space pieces, the last symbol with `suffix` for CLIP)."""
+    from qflux_tpu_torch.models.tokenizers import bytes_to_unicode
+
+    base = sorted(bytes_to_unicode().values())
+    vocab = {}
+    for sym in base + ([b + suffix for b in base] if suffix else []):
+        vocab.setdefault(sym, len(vocab))
+    merges = []
+    for word in words:
+        syms = list(space + word) if space else list(word)
+        syms[-1] += suffix
+        cur = syms[0]
+        for nxt in syms[1:]:
+            if (cur, nxt) not in merges:
+                merges.append((cur, nxt))
+            cur += nxt
+            vocab.setdefault(cur, len(vocab))
+    return vocab, merges
+
+
+def write_tokenizer_dirs(root: Path) -> dict:
+    """Tokenizer directories written with the standard library alone, in
+    the checkpoints' layouts: FLUX's tokenizer/ (CLIP vocab.json +
+    merges.txt, tokenizer_config.json) and tokenizer_2/ (a T5 Unigram
+    tokenizer.json with a Precompiled charsmap: full-width, ligature and
+    compatibility folds), Qwen2.5-VL's tokenizer/ and Klein's Qwen3
+    tokenizer/ (byte-level BPE tokenizer.json with the special tokens, the
+    latter with a chat template).  Returns {family: checkpoint root}."""
+    from qflux_tpu_torch.models.tokenizers import _QWEN2_RE, build_precompiled_charsmap
+
+    flux, qwen, klein = (root / n for n in ("flux", "qwen", "klein"))
+    clip_dir = flux / "tokenizer"
+    clip_dir.mkdir(parents=True)
+    vocab, merges = _bpe_vocab(K_WORDS, "", "</w>")
+    for sym in ("<|startoftext|>", "<|endoftext|>"):
+        vocab[sym] = len(vocab)
+    (clip_dir / "vocab.json").write_text(json.dumps(vocab))
+    (clip_dir / "merges.txt").write_text(
+        "#version: 0.2\n" + "\n".join(" ".join(m) for m in merges) + "\n")
+    (clip_dir / "tokenizer_config.json").write_text(json.dumps({
+        "tokenizer_class": "CLIPTokenizer", "bos_token": "<|startoftext|>",
+        "eos_token": "<|endoftext|>", "pad_token": "<|endoftext|>",
+        "unk_token": "<|endoftext|>", "model_max_length": 77}))
+    t5_dir = flux / "tokenizer_2"
+    t5_dir.mkdir()
+    charsmap = build_precompiled_charsmap({"Ａ": "A", "Ｂ": "B", "Ｃ": "C", "ﬁ": "fi",
+                                           "①": "1", "　": " "})
+    pieces = ([["<pad>", 0.0], ["</s>", 0.0], ["<unk>", 0.0], ["▁", -2.0]]
+              + [["▁" + w, -4.0 - 0.1 * i] for i, w in enumerate(K_WORDS)]
+              + [[c, -8.0] for c in "abcdefghijklmnopqrstuvwxyz0123456789.,'-"])
+    extra = [f"<extra_id_{i}>" for i in range(99, -1, -1)]
+    pieces += [[t, 0.0] for t in extra]
+    specials = ["<pad>", "</s>", "<unk>"] + extra
+    (t5_dir / "tokenizer.json").write_text(json.dumps({
+        "added_tokens": [{"id": [p for p, _ in pieces].index(t), "content": t, "special": True}
+                         for t in specials],
+        "normalizer": {"type": "Sequence", "normalizers": [
+            {"type": "Precompiled",
+             "precompiled_charsmap": __import__("base64").b64encode(charsmap).decode()},
+            {"type": "Replace", "pattern": {"Regex": " {2,}"}, "content": " "}]},
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "WhitespaceSplit"},
+            {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "always",
+             "split": True}]},
+        "post_processor": {"type": "TemplateProcessing",
+                           "single": [{"Sequence": {"id": "A", "type_id": 0}},
+                                      {"SpecialToken": {"id": "</s>", "type_id": 0}}],
+                           "special_tokens": {"</s>": {"id": "</s>", "ids": [1],
+                                                       "tokens": ["</s>"]}}},
+        "decoder": {"type": "Metaspace", "replacement": "▁", "prepend_scheme": "always"},
+        "model": {"type": "Unigram", "unk_id": 2, "vocab": pieces, "byte_fallback": False}}))
+    (t5_dir / "tokenizer_config.json").write_text(json.dumps({
+        "tokenizer_class": "T5Tokenizer", "eos_token": "</s>", "pad_token": "<pad>",
+        "unk_token": "<unk>", "model_max_length": 512}))
+    for ckpt, template in ((qwen, None), (klein, K_QWEN3_TEMPLATE)):
+        tok_dir = ckpt / "tokenizer"
+        tok_dir.mkdir(parents=True)
+        vocab, merges = _bpe_vocab(K_WORDS, "Ġ", "")
+        added = QWEN_SPECIALS + ["<think>", "</think>"]
+        (tok_dir / "tokenizer.json").write_text(json.dumps({
+            "added_tokens": [{"id": len(vocab) + i, "content": t,
+                              "special": t in QWEN_SPECIALS, "normalized": False}
+                             for i, t in enumerate(added)],
+            "normalizer": {"type": "NFC"},
+            "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+                {"type": "Split", "pattern": {"Regex": _QWEN2_RE}, "behavior": "Isolated",
+                 "invert": False},
+                {"type": "ByteLevel", "add_prefix_space": False, "use_regex": False}]},
+            "post_processor": {"type": "ByteLevel"}, "decoder": {"type": "ByteLevel"},
+            "model": {"type": "BPE", "vocab": vocab, "merges": [" ".join(m) for m in merges],
+                      "unk_token": None}}))
+        config = {"tokenizer_class": "Qwen2Tokenizer", "eos_token": "<|im_end|>",
+                  "pad_token": "<|endoftext|>", "padding_side": "right"}
+        if template:
+            config["chat_template"] = template
+        (tok_dir / "tokenizer_config.json").write_text(json.dumps(config))
+    return {"flux": flux, "qwen": qwen, "klein": klein}
+
+
+def phase_tokenizers(card: str) -> None:
+    """Phase K(d): the first-party tokenizers on the card's machine, which
+    has neither transformers nor tokenizers: each family's loader reads a
+    directory this smoke writes (`write_tokenizer_dirs`), and the adapters'
+    calls tokenize K_TOKENIZER_PROMPTS: FLUX's CLIP at 77 and T5 at 512
+    positions, Qwen-Image-Edit's EDIT_TEMPLATE parts, Klein's chat template
+    at 512, DreamOmni2's decode.  Prints the load time and the host ms per
+    prompt of each; checks shapes, masks and a decode round trip."""
+    from qflux_tpu_torch.models.tokenizers import Tokenizer
+    from qflux_tpu_torch.trainer import flux2_klein, flux_kontext, qwen_edit
+
+    for mod in ("transformers", "tokenizers"):
+        if mod in sys.modules:
+            raise AssertionError(f"{mod} was imported by the port")
+    tmp = Path(tempfile.mkdtemp(prefix="qflux_smoke_tokenizers_"))
+    try:
+        roots = write_tokenizer_dirs(tmp)
+        n = len(K_TOKENIZER_PROMPTS)
+        t0 = time.perf_counter()
+        toks = flux_kontext.load_tokenizers(roots["flux"])
+        vl = qwen_edit.load_vl_tokenizer(roots["qwen"])
+        q3 = flux2_klein.load_qwen3_tokenizer(roots["klein"])
+        load_s = time.perf_counter() - t0
+        if not all(isinstance(t, Tokenizer) for t in (*toks.values(), vl, q3)):
+            raise AssertionError("a loader fell back to the hash tokenizer")
+        t0 = time.perf_counter()
+        clip = toks["clip"](K_TOKENIZER_PROMPTS, padding="max_length", truncation=True,
+                            max_length=77, return_tensors="np")
+        t5 = toks["t5"](K_TOKENIZER_PROMPTS, padding="max_length", truncation=True,
+                        max_length=512, return_tensors="np")
+        flux_ms = 1000 * (time.perf_counter() - t0) / n
+        t0 = time.perf_counter()
+        parts = [qwen_edit._VISION_MARKERS.split(qwen_edit.EDIT_TEMPLATE.format(p))
+                 for p in K_TOKENIZER_PROMPTS]
+        vl_ids = [[i for part in ps if part and part not in (
+            "<|vision_start|>", "<|image_pad|>", "<|vision_end|>")
+            for i in vl(part, add_special_tokens=False)["input_ids"]] for ps in parts]
+        qwen_ms = 1000 * (time.perf_counter() - t0) / n
+        t0 = time.perf_counter()
+        texts = [q3.apply_chat_template([{"role": "user", "content": p}], tokenize=False,
+                                        add_generation_prompt=True, enable_thinking=False)
+                 for p in K_TOKENIZER_PROMPTS]
+        klein = q3(texts, padding="max_length", truncation=True, max_length=512,
+                   return_tensors="np")
+        klein_ms = 1000 * (time.perf_counter() - t0) / n
+        t0 = time.perf_counter()
+        decoded = [vl.decode(ids, skip_special_tokens=True) for ids in vl_ids]
+        decode_ms = 1000 * (time.perf_counter() - t0) / n
+        ok = (clip["input_ids"].shape == (n, 77) and t5["input_ids"].shape == (n, 512)
+              and klein["input_ids"].shape == (n, 512)
+              and bool((clip["attention_mask"].sum(1) >= 2).all())
+              and bool((t5["attention_mask"].sum(1) >= 1).all())
+              and all(texts[i].endswith("</think>\n\n") for i in range(n))
+              and decoded[0].startswith("<|im_start|>") is False
+              and K_TOKENIZER_PROMPTS[0] in decoded[0])
+        print(f"[tokenizers] loaded FLUX's CLIP + T5, Qwen2.5-VL's and Klein's Qwen3 from "
+              f"directories written here in {1000 * load_s:.1f} ms (the \\p{{L}} / \\p{{N}} "
+              f"classes built once); host ms per prompt over {n}: FLUX CLIP 77 + T5 512 "
+              f"{flux_ms:.3f}, Qwen-Image-Edit template parts {qwen_ms:.3f}, Klein chat "
+              f"template + 512 {klein_ms:.3f}, DreamOmni2 decode {decode_ms:.3f}; tokens: CLIP "
+              f"{clip['attention_mask'].sum(1).tolist()}, T5 "
+              f"{t5['attention_mask'].sum(1).tolist()}, "
+              f"Qwen {[len(i) for i in vl_ids]}, Klein {klein['attention_mask'].sum(1).tolist()}; "
+              f"neither transformers nor tokenizers imported: {ok} [{card}]", flush=True)
+        if not ok:
+            raise AssertionError("the first-party tokenizers gave wrong shapes or text")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 PROFILE_GROUPS = [("K5a rq_int4_fwd", ("rq_int4_fwd",)), ("K5b rq_int4_bwd", ("rq_int4_bwd",)),
                   ("row quant", ("rowquant",)),
                   ("W8A8 int8_gemm", ("int8_gemm",)), ("W8A8 transpose", ("int8_transpose",)),
@@ -7376,6 +8137,20 @@ def main() -> int:
           f"Prodigy and Lion, async checkpoints against synchronous ones and a resume from "
           f"them): {time.perf_counter() - t_j:.1f} s [{card}]", flush=True)
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_k = time.perf_counter()
+    k_table, k_paths = timed(phase_f32)
+    print(f"[smoke] phase K (attention in f32 and at head dims 32 / 64 through "
+          f"csrc/flash_simt.cu, the f32 FLUX fit, variant test on the card, the first-party "
+          f"tokenizers): {time.perf_counter() - t_k:.1f} s [{card}]", flush=True)
+
+    def simt_entry(name, replaces, mode):
+        by = {path: d[name] for path, d in k_paths.items() if d.get(name)}
+        return {"name": name, "route": "cuda", "source": "qflux_tpu_torch/csrc/flash_simt.cu",
+                "replaces": replaces, "mode": mode, "launches": sum(by.values()),
+                "launches_by_path": by, **k_table[name]}
+
     def by_path(i):
         return {**{f"qwen_pixels_{k}": v[i] for k, v in g.items() if v[i]},
                 **{k: v[i] for k, v in h.items() if v[i]},
@@ -7476,6 +8251,18 @@ def main() -> int:
          "replaces": "not a TPU kernel: the weight transpose before the W8A8 dx (XLA lays out "
                      "qflux_tpu/ops/quant.py:186's operand itself)",
          "launches": w8_t_e, "launches_by_path": {"w8a8_flux": w8_t_e}, **w8_t_case},
+        simt_entry("flash_fwd f32", "qflux_tpu/ops/flash_attention.py:105",
+                   "f32, head dims 32 / 64 / 128"),
+        simt_entry("flash_bwd f32", "qflux_tpu/ops/flash_attention.py:288, :215, :251",
+                   "f32, head dims 32 / 64 / 128"),
+        simt_entry("flash_fwd narrow", "qflux_tpu/ops/flash_attention.py:105",
+                   "bf16, head dims 32 / 64"),
+        simt_entry("flash_bwd narrow", "qflux_tpu/ops/flash_attention.py:288, :215, :251",
+                   "bf16, head dims 32 / 64"),
+        simt_entry("flash_nr_fwd f32", "qflux_tpu/ops/flash_nr.py:192", "f32"),
+        simt_entry("flash_nr_bwd f32", "qflux_tpu/ops/flash_nr.py:311", "f32"),
+        simt_entry("flash_nr_fwd f32 s_int8", "qflux_tpu/ops/flash_nr.py:192", "f32 s_int8"),
+        simt_entry("flash_nr_bwd f32 s_int8", "qflux_tpu/ops/flash_nr.py:311", "f32 s_int8"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -7491,4 +8278,6 @@ if __name__ == "__main__":
         sys.exit(remat_main() if torch.cuda.is_available() else 1)
     if len(sys.argv) == 2 and sys.argv[1] == "--optim":
         sys.exit(optim_main() if torch.cuda.is_available() else 1)
+    if len(sys.argv) == 2 and sys.argv[1] == "--f32":
+        sys.exit(f32_main() if torch.cuda.is_available() else 1)
     sys.exit(main())

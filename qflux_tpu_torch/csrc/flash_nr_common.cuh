@@ -107,6 +107,44 @@ __device__ __forceinline__ float int8_scale(unsigned amax_bits) {
   return fmaxf(__fdiv_rn(__uint_as_float(amax_bits), 127.f), 1e-6f);
 }
 
+// The f32 modes' prep (flash_simt.cu): norm_rope4_in for an f32 row, with no
+// rounding between the steps (the JAX forward's casts to the refs' dtype are the
+// identity in f32).  x: the lane's four channels; s: its scale row's channels;
+// returns the four normed and roped channels and their largest |value| in `m`.
+__device__ __forceinline__ float4 norm_rope4_f32(float4 x, const float* __restrict__ s,
+                                                 float4 c4, float4 s4, int lane, float& m) {
+  const float xv[4] = {x.x, x.y, x.z, x.w};
+  const float cv[4] = {c4.x, c4.y, c4.z, c4.w}, sv[4] = {s4.x, s4.y, s4.z, s4.w};
+  float ss = 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) ss += xv[j] * xv[j];
+  ss = warp_sum(ss);
+  const float r = rsqrtf(ss / (float)D + EPS);
+  float y[4];
+  m = 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float us = __fmul_rn(__fmul_rn(xv[j], r), s[j]);
+    const float partner = __shfl_xor_sync(0xffffffffu, us, 16);
+    const float rot = lane < 16 ? -partner : partner;
+    y[j] = __fadd_rn(__fmul_rn(us, cv[j]), __fmul_rn(rot, sv[j]));
+    m = fmaxf(m, fabsf(y[j]));
+  }
+  return make_float4(y[0], y[1], y[2], y[3]);
+}
+
+// four f32 → four int8 (one 32-bit word, byte j from value j), as quant4w
+__device__ __forceinline__ uint32_t quant4f(float4 x, float scale) {
+  const float v[4] = {x.x, x.y, x.z, x.w};
+  uint32_t w = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int qv = static_cast<int>(rintf(__fdiv_rn(v[j], scale)));
+    w |= (static_cast<uint32_t>(qv) & 0xFFu) << (8 * j);
+  }
+  return w;
+}
+
 // four bf16 (one 64-bit word) → four int8 (one 32-bit word, byte j from value j)
 __device__ __forceinline__ uint32_t quant4w(uint2 raw, float scale) {
   const bf16* p = reinterpret_cast<const bf16*>(&raw);

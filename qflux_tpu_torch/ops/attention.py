@@ -67,8 +67,10 @@ def qk_norm_rope_attention(q_raw, k_raw, v, q_scale2, k_scale2, cos, sin,
     impl="auto", as JAX on one TPU chip: where `flash_nr.supports` holds, the
     fused kernel K1 (ops/flash_nr.py); elsewhere the plain norm + rope on q
     and k (in x.dtype) and `dot_product_attention`, i.e. kernel K3
-    (ops/flash_attention.py).  On CUDA tensors the Hopper kernels, which
-    raise on a shape they do not take; on CPU tensors their plain versions.
+    (ops/flash_attention.py).  The route depends on the shape alone, as
+    JAX's: f32, and head dims 32 / 64, take the kernels' CUDA-core modes.
+    On CUDA tensors the Hopper kernels, which raise on a dtype or head dim
+    they do not take; on CPU tensors their plain versions.
     impl="int8" (config `model.quantize.attention`): the same with the int8
     score GEMM, where JAX on a TPU applies it (`flash_nr.supports(...,
     s_int8=True)`: S up to 2560 at head dim 128) and bf16 K3 elsewhere, as

@@ -28,7 +28,14 @@ hop's forward and backward.  The parts:
     forward stores the op's out and lse and its recompute returns them
     instead of launching again.
 
-`KERNEL_LAUNCHES` counts K3's launches, `BWD_KERNEL_LAUNCHES` K4's.  The
+The wgmma kernels take bf16 at head dim 128.  JAX's Pallas kernels compute
+in f32 and cast to the refs' dtype, and take any head dim, so the same
+route runs f32 (D = 32, 64, 128) and bf16 at D = 32 / 64 too: those go to
+the CUDA-core kernels of csrc/flash_simt.cu (`qflux_simt_fwd` /
+`qflux_simt_bwd`, f32 FFMA: a tensor core's f32 is TF32), chosen by
+`mode`; any other dtype or head dim raises.  `KERNEL_LAUNCHES` counts K3's
+launches and `BWD_KERNEL_LAUNCHES` K4's in every mode; `F32_*` and
+`NARROW_*` count the CUDA-core modes among them.  The
 kernels take every S and mask the ragged edge by index, so JAX's block
 pickers (`_auto_block`, `BLOCK_K_CAP`, `BLOCK_K_CAP_BWD`,
 `_merged_bwd_block_q`) are TPU tuners the port does not carry: K4 serves
@@ -42,11 +49,17 @@ import torch
 from qflux_tpu_torch.ops import remat
 from qflux_tpu_torch.ops.attention import sdpa_with_lse, segment_mask
 
-HEAD_DIM = 128  # the only head dim the kernels take
+HEAD_DIM = 128          # the head dim of the bf16 wgmma kernels
+HEAD_DIMS = (32, 64, 128)  # the head dims csrc/flash_simt.cu takes (f32; bf16 32 / 64)
 
-# launches of the CUDA kernels in this process
-KERNEL_LAUNCHES = 0      # K3, csrc/flash_fwd.cu
-BWD_KERNEL_LAUNCHES = 0  # K4, csrc/flash_bwd.cu
+# launches of the CUDA kernels in this process: every K3 / K4 launch, whatever
+# its mode, and apart the CUDA-core modes of csrc/flash_simt.cu among them
+KERNEL_LAUNCHES = 0             # K3
+BWD_KERNEL_LAUNCHES = 0         # K4
+F32_KERNEL_LAUNCHES = 0         # K3 in f32 (D = 32, 64, 128)
+F32_BWD_KERNEL_LAUNCHES = 0     # K4 in f32
+NARROW_KERNEL_LAUNCHES = 0      # K3 in bf16 at D = 32, 64
+NARROW_BWD_KERNEL_LAUNCHES = 0  # K4 in bf16 at D = 32, 64
 
 
 def _segment_pair(q, q_seg, kv_seg):
@@ -93,7 +106,37 @@ def flash_bwd_reference(q, k, v, q_seg, kv_seg, out, lse, do, scale):
             dv)
 
 
-def _check(name, t, device, dtype, shape):
+def mode(q) -> str:
+    """Which kernel takes q on the card, by its dtype and head dim: "bf16" for
+    the wgmma K3 / K4 (bf16 at D = 128), "f32" (D = 32, 64, 128) and "narrow"
+    (bf16 at D = 32, 64) for the CUDA-core modes of csrc/flash_simt.cu.
+    Raises on anything else, naming what the kernels take."""
+    d = q.shape[-1]
+    if q.dtype == torch.bfloat16 and d == HEAD_DIM:
+        return "bf16"
+    if q.dtype in _DTYPE_CODE and d in HEAD_DIMS:
+        return "f32" if q.dtype == torch.float32 else "narrow"
+    raise ValueError(f"flash_attention: {q.dtype} at head dim {d}; the kernels take "
+                     f"torch.float32 or torch.bfloat16 at head dims {HEAD_DIMS}")
+
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}  # csrc/flash_simt.cu's dtype codes
+
+
+def _count(q, bwd):
+    """One launch of K3 (K4 where bwd) in q's mode: the kernel's count, and
+    the CUDA-core mode's beside it (f32, or bf16 off D = 128)."""
+    name = "BWD_KERNEL_LAUNCHES" if bwd else "KERNEL_LAUNCHES"
+    names = [name]
+    if q.dtype == torch.float32:
+        names.append("F32_" + name)
+    elif q.shape[-1] != HEAD_DIM:
+        names.append("NARROW_" + name)
+    for n in names:
+        globals()[n] += 1
+
+
+def _check(name, t, device, dtype, shape, aligned=True):
     if t.device != device:
         raise ValueError(f"flash_attention: {name} is on {t.device}, q on {device}")
     if t.dtype != dtype:
@@ -103,28 +146,28 @@ def _check(name, t, device, dtype, shape):
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"flash_attention: {name} is not contiguous")
-    if t.data_ptr() % 16 and dtype == torch.bfloat16:  # the kernels load 16-byte vectors
+    if aligned and t.data_ptr() % 16 and dtype == torch.bfloat16:  # 16-byte TMA loads
         raise ValueError(f"flash_attention: {name} is not 16-byte aligned")
 
 
 def _kernel_args(q, k, v, q_seg, kv_seg):
-    """Check q, k, v against what the kernels take (bf16, D = 128, [B, S, H,
-    D] contiguous and 16-byte aligned, as their TMA tensor maps need; k / v
-    of one shape with q's B and H; all on q's device) and return (B, Sq, Sk,
-    H, int32 q ids, int32 kv ids), the ids both None (unmasked) or both
-    set."""
+    """Check q, k, v against what the kernels take (`mode`: bf16 at D = 128
+    for the wgmma kernels, whose TMA tensor maps need 16-byte alignment;
+    f32 at D = 32, 64, 128 or bf16 at D = 32, 64 for csrc/flash_simt.cu;
+    [B, S, H, D] contiguous, k / v of one shape with q's B and H, all of
+    q's dtype and on q's device) and return (B, Sq, Sk, H, int32 q ids,
+    int32 kv ids), the ids both None (unmasked) or both set."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"flash_attention: q / k must be [B, S, H, D], got "
                          f"{tuple(q.shape)} / {tuple(k.shape)}")
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    if d != HEAD_DIM:
-        raise ValueError(f"flash_attention: head dim {d}; the kernel takes {HEAD_DIM}")
+    wgmma = mode(q) == "bf16"
     if sk < 1:
         raise ValueError("flash_attention: no keys")
-    _check("q", q, q.device, torch.bfloat16, (b, sq, h, d))
-    _check("k", k, q.device, torch.bfloat16, (b, sk, h, d))
-    _check("v", v, q.device, torch.bfloat16, (b, sk, h, d))
+    _check("q", q, q.device, q.dtype, (b, sq, h, d), wgmma)
+    _check("k", k, q.device, q.dtype, (b, sk, h, d), wgmma)
+    _check("v", v, q.device, q.dtype, (b, sk, h, d), wgmma)
     q_seg, kv_seg = _segment_pair(q, q_seg, kv_seg)
     if q_seg is not None:
         q_seg, kv_seg = (t.to(torch.int32).contiguous() for t in (q_seg, kv_seg))
@@ -159,14 +202,18 @@ def _flash_fwd_cuda(q, k, v, q_seg, kv_seg, scale):
 def _launch_fwd(kl, stream, q, k, v, q_seg, kv_seg, scale):
     """The C call of `_flash_fwd_cuda` on checked arguments (int32 ids or
     both None): allocates out [B, Sq, H, D] and lse [B, H, Sq] f32,
-    launches through `kl` (a runtime.build KernelLibrary) on `stream` and
-    raises on a CUDA error."""
-    b, sq, h, _ = q.shape
+    launches through `kl` (a runtime.build KernelLibrary) on `stream` (K3,
+    or in the CUDA-core modes `qflux_simt_fwd` with the head dim and the
+    dtype code) and raises on a CUDA error."""
+    b, sq, h, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), device=q.device, dtype=torch.float32)
-    code = kl.lib.qflux_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(q_seg), _ptr(kv_seg), out.data_ptr(),
-        lse.data_ptr(), b, sq, k.shape[1], h, float(scale), stream)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(q_seg), _ptr(kv_seg),
+            out.data_ptr(), lse.data_ptr(), b, sq, k.shape[1], h)
+    if mode(q) == "bf16":
+        code = kl.lib.qflux_flash_fwd(*ptrs, float(scale), stream)
+    else:
+        code = kl.lib.qflux_simt_fwd(*ptrs, d, _DTYPE_CODE[q.dtype], float(scale), stream)
     kl.check(code, "flash_fwd launch")
     return out, lse
 
@@ -177,8 +224,8 @@ def _flash_bwd_cuda(q, k, v, q_seg, kv_seg, out, lse, do, scale):
     Counting is the caller's."""
     _on_cuda("backward", q)
     b, sq, sk, h, q_seg, kv_seg = _kernel_args(q, k, v, q_seg, kv_seg)
-    _check("out", out, q.device, torch.bfloat16, q.shape)
-    _check("do", do, q.device, torch.bfloat16, q.shape)
+    _check("out", out, q.device, q.dtype, q.shape)
+    _check("do", do, q.device, q.dtype, q.shape)
     _check("lse", lse, q.device, torch.float32, (b, h, sq))
 
     from qflux_tpu_torch.runtime.build import load_library
@@ -189,15 +236,20 @@ def _flash_bwd_cuda(q, k, v, q_seg, kv_seg, out, lse, do, scale):
 
 def _launch_bwd(kl, stream, q, k, v, q_seg, kv_seg, out, lse, do, scale):
     """The C call of `_flash_bwd_cuda` on checked arguments: allocates the
-    f32 delta scratch [B, H, Sq] and dq / dk / dv, launches through `kl` (a
-    runtime.build KernelLibrary) on `stream` and raises on a CUDA error."""
-    b, sq, h, _ = q.shape
+    f32 delta scratch [B, H, Sq] and dq / dk / dv (q's dtype), launches
+    through `kl` (a runtime.build KernelLibrary) on `stream` (K4, or
+    `qflux_simt_bwd` with the head dim and dtype code) and raises on a CUDA
+    error."""
+    b, sq, h, d = q.shape
     delta = torch.empty((b, h, sq), device=q.device, dtype=torch.float32)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    code = kl.lib.qflux_flash_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(q_seg), _ptr(kv_seg), out.data_ptr(),
-        lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), b, sq, k.shape[1], h, float(scale), stream)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(q_seg), _ptr(kv_seg), out.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, sq, k.shape[1], h)
+    if mode(q) == "bf16":
+        code = kl.lib.qflux_flash_bwd(*args, float(scale), stream)
+    else:
+        code = kl.lib.qflux_simt_bwd(*args, d, _DTYPE_CODE[q.dtype], float(scale), stream)
     kl.check(code, "flash_bwd launch")
     return dq, dk, dv
 
@@ -211,9 +263,8 @@ def _launch_bwd(kl, stream, q, k, v, q_seg, kv_seg, out, lse, do, scale):
            "-> (Tensor, Tensor)")
 def _flash_fwd_op(q, k, v, q_seg, kv_seg, scale):
     def launch():
-        global KERNEL_LAUNCHES
         out, lse = _flash_fwd_cuda(q, k, v, q_seg, kv_seg, scale)
-        KERNEL_LAUNCHES += 1
+        _count(q, bwd=False)
         return out, lse
 
     return remat.keep(remat.FLASH, q.device, launch)
@@ -230,10 +281,9 @@ def _fwd_setup_context(ctx, inputs, output):
 def _fwd_backward(ctx, dout, _dlse):
     """K4 from the saved residuals; lse is a residual, not differentiated (as
     in the JAX custom_vjp, whose primal returns out alone)."""
-    global BWD_KERNEL_LAUNCHES
     q, k, v, q_seg, kv_seg, out, lse = ctx.saved_tensors
     dq, dk, dv = _flash_bwd_cuda(q, k, v, q_seg, kv_seg, out, lse, dout.contiguous(), ctx.scale)
-    BWD_KERNEL_LAUNCHES += 1
+    _count(q, bwd=True)
     return dq, dk, dv, None, None, None
 
 
@@ -261,11 +311,10 @@ def flash_fwd_with_lse(q, k, v, q_seg, kv_seg, scale):
     """The ring hop's forward: (out [B, Sq, H, D], lse [B, H, Sq] f32) of
     one K3 call, no autograd — pair it with `flash_bwd_from_residuals`.
     CPU tensors take `flash_fwd_reference`."""
-    global KERNEL_LAUNCHES
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, q_seg, kv_seg, scale)
     out, lse = _flash_fwd_cuda(q, k, v, q_seg, kv_seg, scale)
-    KERNEL_LAUNCHES += 1
+    _count(q, bwd=False)
     return out, lse
 
 
@@ -273,10 +322,9 @@ def flash_bwd_from_residuals(q, k, v, q_seg, kv_seg, out, lse, do, scale):
     """The ring hop's backward: (dq, dk, dv) in [B, S, H, D] and the inputs'
     dtypes from caller-supplied (global) out / lse, one K4 call.  CPU
     tensors take `flash_bwd_reference`."""
-    global BWD_KERNEL_LAUNCHES
     if q.device.type == "cpu":
         g = flash_bwd_reference(q, k, v, q_seg, kv_seg, out, lse, do, scale)
         return tuple(x.to(t.dtype) for x, t in zip(g, (q, k, v)))
     grads = _flash_bwd_cuda(q, k, v, q_seg, kv_seg, out, lse, do.contiguous(), scale)
-    BWD_KERNEL_LAUNCHES += 1
+    _count(q, bwd=True)
     return grads

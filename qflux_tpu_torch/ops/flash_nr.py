@@ -28,6 +28,12 @@ Counterpart of qflux_tpu/ops/flash_nr.py.  The parts:
     ops/remat.py, as K3's is: a block whose remat policy keeps the
     attention outputs replays K1's out and lse in its recompute.
 
+f32 inputs (`train.weight_dtype: float32`) run K1 / K2's f32 mode, the
+CUDA-core kernels of csrc/flash_simt.cu (`qflux_simt_nr_fwd` /
+`qflux_simt_nr_bwd`: a prep norms and ropes q and k into f32 scratch, then
+FFMA attention loops, and in the backward a rope + norm backward pass);
+`F32_KERNEL_LAUNCHES` and its siblings count them among all launches.
+
 The `s_int8` mode (config `model.quantize.attention`) computes QK^T as an
 int8 x int8 product with one scale per q tile and one per (b, h) for K,
 as the TPU kernels' `s_int8` branches do:
@@ -58,13 +64,19 @@ from qflux_tpu_torch.ops import remat
 
 EPS = 1e-6
 HEAD_DIM = 128  # the only head dim the kernels take (every FLUX/Qwen shape)
+DTYPES = (torch.bfloat16, torch.float32)  # bf16: the wgmma kernels; f32: csrc/flash_simt.cu
 
 # launches of the CUDA kernels in this process; the custom op and its
-# backward add one per launch
-KERNEL_LAUNCHES = 0           # K1, csrc/flash_nr_fwd.cu
-BWD_KERNEL_LAUNCHES = 0       # K2, csrc/flash_nr_bwd.cu
-INT8_KERNEL_LAUNCHES = 0      # K1 in its s_int8 mode
-INT8_BWD_KERNEL_LAUNCHES = 0  # K2 in its s_int8 mode
+# backward add one per launch, whatever the dtype, and the F32_ counts add
+# the f32 launches among them (csrc/flash_simt.cu)
+KERNEL_LAUNCHES = 0                # K1, csrc/flash_nr_fwd.cu
+BWD_KERNEL_LAUNCHES = 0            # K2, csrc/flash_nr_bwd.cu
+INT8_KERNEL_LAUNCHES = 0           # K1 in its s_int8 mode
+INT8_BWD_KERNEL_LAUNCHES = 0       # K2 in its s_int8 mode
+F32_KERNEL_LAUNCHES = 0            # K1 in f32
+F32_BWD_KERNEL_LAUNCHES = 0        # K2 in f32
+F32_INT8_KERNEL_LAUNCHES = 0       # K1's s_int8 mode in f32
+F32_INT8_BWD_KERNEL_LAUNCHES = 0   # K2's s_int8 mode in f32
 
 # JAX's default VMEM estimates and tile pickers (qflux_tpu/ops/flash_nr.py
 # _nr_block_q / _nr_fwd_block_q at the 13 MB budget and under the raised
@@ -220,22 +232,28 @@ def int8_scores(qq, q_sc, kq, k_sc, scale):
     return acc * fac[..., None]
 
 
-def _int8_operands(q, k, q_scale2, k_scale2, cos, sin, st, q_rows):
-    qn = apply_qk_norm_rope(q, q_scale2, cos, sin, st)
-    kn = apply_qk_norm_rope(k, k_scale2, cos, sin, st)
+def _int8_operands(q, k, q_scale2, k_scale2, cos, sin, st, q_rows, normed=None):
+    """(qn, kn, quant_rows of each); `normed` = (qn, kn) given in place of
+    the plain norm + rope (the f32 mode's prep, whose qn an f32 ulp away
+    from the plain one can land on the other int8 step)."""
+    if normed is None:
+        normed = (apply_qk_norm_rope(q, q_scale2, cos, sin, st),
+                  apply_qk_norm_rope(k, k_scale2, cos, sin, st))
+    qn, kn = normed
     return qn, kn, quant_rows(qn, q_rows), quant_rows(kn, k.shape[1])
 
 
 def flash_attention_nr_int8_reference(q, k, v, q_scale2, k_scale2, cos, sin, st, q_rows,
-                                      segment_ids=None, scale=None):
+                                      segment_ids=None, scale=None, normed=None):
     """Plain version of K1's s_int8 mode (`_fwd_nr_kernel`'s s_int8 branch):
     q and k normed and roped, K quantized with one scale per (b, h) over all
     S rows (masked ones included), q with one per (b, h, `q_rows`-row tile),
     `int8_scores`, then the mask and softmax of the bf16 path.  Returns (out
-    [B, S, H, D] in q.dtype, lse [B, H, S] f32)."""
+    [B, S, H, D] in q.dtype, lse [B, H, S] f32).  `normed`: see
+    `_int8_operands`."""
     scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
     _, _, (qq, q_sc), (kq, k_sc) = _int8_operands(q, k, q_scale2, k_scale2, cos, sin, st,
-                                                  q_rows)
+                                                  q_rows, normed)
     return masked_softmax_pv(int8_scores(qq, q_sc, kq, k_sc, scale), v, segment_ids,
                              out_dtype=q.dtype)
 
@@ -261,18 +279,20 @@ def _rope_norm_bwd(g, x, scale2, cos, sin, st):
 
 
 def flash_attention_nr_int8_bwd_reference(q, k, v, q_scale2, k_scale2, cos, sin, st, do, out,
-                                          lse, q_rows, segment_ids=None, scale=None):
+                                          lse, q_rows, segment_ids=None, scale=None,
+                                          normed=None):
     """Plain version of K2's s_int8 mode, the explicit formula of
     `_bwd_nr_kernel`'s s_int8 branch: the scores recomputed from q
     quantized in `q_rows`-row tiles (the BACKWARD's) against the saved lse,
     p = exp(s - lse) (0 where masked), dv = bf16(p)^T do, ds = bf16(p (dp -
     delta) scale), dqn = ds kn and dkn = ds^T qn on the bf16 normed q / k
     (straight through the quantization), then the rope and norm backward.
-    Returns (dq, dk, dv, dq_scale2, dk_scale2), all f32."""
+    Returns (dq, dk, dv, dq_scale2, dk_scale2), all f32.  `normed`: see
+    `_int8_operands`."""
     scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
     dt = q.dtype
     qn, kn, (qq, q_sc), (kq, k_sc) = _int8_operands(q, k, q_scale2, k_scale2, cos, sin, st,
-                                                    q_rows)
+                                                    q_rows, normed)
     p = torch.exp(int8_scores(qq, q_sc, kq, k_sc, scale) - lse[..., None])
     if segment_ids is not None:
         p = torch.where(segment_mask(segment_ids, segment_ids), p, 0.0)
@@ -330,14 +350,17 @@ def _check_aligned(**tensors):
 
 
 def _kernel_args(q, k, v, q_scale2, k_scale2, cos, sin, segment_ids):
-    """Check the inputs against what csrc/flash_nr_fwd.cu takes and return
-    (f32 scale pairs, cos/sin batch stride, int32 segment ids or None).
-    Raises on a dtype other than bf16, D != 128, cross attention, a tensor
-    on another device than q, a wrong shape, or a q/k/v/cos/sin that is not
-    contiguous or not 16-byte aligned."""
+    """Check the inputs against what csrc/flash_nr_fwd.cu (bf16) and
+    csrc/flash_simt.cu (f32) take and return (f32 scale pairs, cos/sin
+    batch stride, int32 segment ids or None).  Raises on a dtype other than
+    bf16 or f32, D != 128, cross attention, a tensor on another device than
+    q, a wrong shape, or a q/k/v/cos/sin that is not contiguous or not
+    16-byte aligned."""
     if q.dim() != 4:
         raise ValueError(f"flash_attention_nr: q must be [B, S, H, D], got {tuple(q.shape)}")
     b, s, h, d = q.shape
+    if q.dtype not in DTYPES:
+        raise ValueError(f"flash_attention_nr: q is {q.dtype}; the kernels take {DTYPES}")
     if d != HEAD_DIM:
         raise ValueError(f"flash_attention_nr: head dim {d}; the kernel takes {HEAD_DIM}")
     if k.shape[1] != s:
@@ -345,7 +368,7 @@ def _kernel_args(q, k, v, q_scale2, k_scale2, cos, sin, segment_ids):
                          "norm+rope path is self-attention only")
     dev = q.device
     for name, t in (("q", q), ("k", k), ("v", v)):
-        _check(name, t, dev, torch.bfloat16, (b, s, h, d))
+        _check(name, t, dev, q.dtype, (b, s, h, d))
     _check_aligned(q=q, k=k, v=v, cos=cos, sin=sin)
     # the [2, D] scale pairs are tiny: widen to f32 (the kernel's math type)
     qs = q_scale2.to(torch.float32).contiguous()
@@ -416,6 +439,9 @@ def _launch_fwd(kl, stream, q, k, v, qs, ks, cos, sin, cs_bstride, seg, st, scal
     f32 scale pairs, cos / sin batch stride and int32 ids): allocates out,
     lse and the scratch, launches through `kl` (a runtime.build
     KernelLibrary) on `stream` and raises on a CUDA error."""
+    if q.dtype == torch.float32:
+        return _launch_simt_fwd(kl, stream, q, k, v, qs, ks, cos, sin, cs_bstride, seg, st,
+                                scale, q_rows)
     b, s, h, _ = q.shape
     kn, kq, amax = _fwd_scratch(k, q_rows)
     out = torch.empty_like(q)
@@ -426,6 +452,34 @@ def _launch_fwd(kl, stream, q, k, v, qs, ks, cos, sin, cs_bstride, seg, st, scal
         _ptr(amax), int(q_rows), out.data_ptr(), lse.data_ptr(), b, s, h, int(st),
         float(scale), stream)
     kl.check(code, "flash_nr_fwd launch")
+    return out, lse
+
+
+def _simt_fwd_scratch(q, q_rows):
+    """The f32 mode's scratch on q's device: qn, kn (f32 [B, S, H, D], the
+    prep's normed and roped q and k); and the s_int8 mode's qq, kq (int8
+    [B, S, H, D]) and amax (`_int8_scratch`), else None."""
+    qn, kn = torch.empty_like(q), torch.empty_like(q)
+    if not q_rows:
+        return qn, kn, None, None, None
+    return (qn, kn, torch.empty(q.shape, device=q.device, dtype=torch.int8),
+            *_int8_scratch(q, q_rows))
+
+
+def _launch_simt_fwd(kl, stream, q, k, v, qs, ks, cos, sin, cs_bstride, seg, st, scale, q_rows):
+    """K1's f32 mode (`qflux_simt_nr_fwd`, csrc/flash_simt.cu) on checked
+    arguments: allocates the scratch (`_simt_fwd_scratch`), out and lse,
+    launches through `kl` on `stream` and raises on a CUDA error."""
+    b, s, h, _ = q.shape
+    qn, kn, qq, kq, amax = _simt_fwd_scratch(q, q_rows)
+    out = torch.empty_like(q)
+    lse = torch.empty((b, h, s), device=q.device, dtype=torch.float32)
+    code = kl.lib.qflux_simt_nr_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), qs.data_ptr(), ks.data_ptr(),
+        cos.data_ptr(), sin.data_ptr(), cs_bstride, _ptr(seg), qn.data_ptr(), kn.data_ptr(),
+        _ptr(qq), _ptr(kq), _ptr(amax), int(q_rows), out.data_ptr(), lse.data_ptr(), b, s, h,
+        int(st), float(scale), stream)
+    kl.check(code, "flash_nr_fwd f32 launch")
     return out, lse
 
 
@@ -508,6 +562,19 @@ def _launch_bwd(kl, stream, q, k, v, qs, ks, cos, sin, cs_bstride, seg, st, scal
     n_tiles = kl.lib.qflux_flash_nr_bwd_tiles(s)
     dqs_p = torch.empty((b, h, n_tiles, 2, d), device=q.device, dtype=torch.float32)
     dks_p = torch.empty_like(dqs_p)
+    if q.dtype == torch.float32:
+        # the f32 mode (csrc/flash_simt.cu): the loops write f32 dqn / dkn, which
+        # its rope + norm backward pass reads
+        dqn, dkn = torch.empty_like(q), torch.empty_like(k)
+        code = kl.lib.qflux_simt_nr_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), qs.data_ptr(), ks.data_ptr(),
+            cos.data_ptr(), sin.data_ptr(), cs_bstride, _ptr(seg), out.data_ptr(),
+            lse.data_ptr(), do.data_ptr(), qn.data_ptr(), kn.data_ptr(), delta.data_ptr(),
+            dqn.data_ptr(), dkn.data_ptr(), _ptr(qq), _ptr(kq), _ptr(amax), int(q_rows),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dqs_p.data_ptr(), dks_p.data_ptr(), b,
+            s, h, int(st), float(scale), stream)
+        kl.check(code, "flash_nr_bwd f32 launch")
+        return dq, dk, dv, dqs_p.sum(dim=(0, 1, 2)), dks_p.sum(dim=(0, 1, 2))
     code = kl.lib.qflux_flash_nr_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), qs.data_ptr(), ks.data_ptr(),
         cos.data_ptr(), sin.data_ptr(), cs_bstride, _ptr(seg),
@@ -521,8 +588,9 @@ def _launch_bwd(kl, stream, q, k, v, qs, ks, cos, sin, cs_bstride, seg, st, scal
 
 def _int8_operands_cuda(q, k, q_scale2, k_scale2, cos, sin, st, q_rows):
     """The s_int8 prep alone, as K2 runs it (for tests and the smoke): (qn,
-    kn bf16, qq, kq int8 [B, S, H, D], q scales [B, S, H], k scales [B, H])
-    with the scales computed from the kernel's amax the way the kernels do.
+    kn in q's dtype, qq, kq int8 [B, S, H, D], q scales [B, S, H], k scales
+    [B, H]) with the scales computed from the kernel's amax the way the
+    kernels do; f32 q through the f32 mode's prep (`_launch_simt_prep`).
     Raises on CPU tensors."""
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_nr: the kernel runs on CUDA tensors, got {q.device}")
@@ -531,12 +599,28 @@ def _int8_operands_cuda(q, k, q_scale2, k_scale2, cos, sin, st, q_rows):
 
     from qflux_tpu_torch.runtime.build import load_library
 
-    qn, kn, qq, kq, amax = _launch_int8_prep(
+    launch = _launch_simt_prep if q.dtype == torch.float32 else _launch_int8_prep
+    qn, kn, qq, kq, amax = launch(
         load_library(), torch.cuda.current_stream(q.device).cuda_stream, q, k, qs, ks, cos, sin,
         cs_bstride, st, q_rows)
     sc = _int8_scale(amax.view(torch.float32))
     q_sc = sc[:, :, 1:].repeat_interleave(q_rows, dim=2)[:, :, :s].permute(0, 2, 1)
     return qn, kn, qq, kq, q_sc, sc[:, :, 0]
+
+
+def _launch_simt_prep(kl, stream, q, k, qs, ks, cos, sin, cs_bstride, st, q_rows):
+    """The f32 mode's prep alone (`qflux_simt_nr_prep`) on checked
+    arguments: allocates its scratch (`_simt_fwd_scratch`), launches through
+    `kl` on `stream`, raises on a CUDA error and returns (qn, kn, qq, kq,
+    amax)."""
+    b, s, h, _ = q.shape
+    qn, kn, qq, kq, amax = _simt_fwd_scratch(q, q_rows)
+    code = kl.lib.qflux_simt_nr_prep(
+        q.data_ptr(), k.data_ptr(), qs.data_ptr(), ks.data_ptr(), cos.data_ptr(),
+        sin.data_ptr(), cs_bstride, qn.data_ptr(), kn.data_ptr(), _ptr(qq), _ptr(kq), _ptr(amax),
+        int(q_rows), b, s, h, int(st), stream)
+    kl.check(code, "flash_nr f32 prep launch")
+    return qn, kn, qq, kq, amax
 
 
 def _launch_int8_prep(kl, stream, q, k, qs, ks, cos, sin, cs_bstride, st, q_rows):
@@ -558,6 +642,15 @@ def _launch_int8_prep(kl, stream, q, k, qs, ks, cos, sin, cs_bstride, st, q_rows
     return qn, kn, qq, kq, amax
 
 
+def _count(q, q_rows, bwd):
+    """One launch of K1 (K2 where bwd), in its s_int8 mode where q_rows is
+    set: the mode's count, and the f32 one beside it for f32 q."""
+    name = ("INT8_" if q_rows else "") + ("BWD_" if bwd else "") + "KERNEL_LAUNCHES"
+    names = [name] + (["F32_" + name] if q.dtype == torch.float32 else [])
+    for n in names:
+        globals()[n] += 1
+
+
 # The custom op runs on every device type: on a CUDA tensor it launches K1,
 # on any other `_flash_nr_cuda` raises (the public entry point sends CPU
 # tensors to the plain version before they reach it).  In a checkpointed
@@ -573,13 +666,9 @@ def _flash_nr_fwd_op(q, k, v, q_scale2, k_scale2, cos, sin, segment_ids, st, sca
     """fwd_rows = bwd_rows = 0: K1; else K1's s_int8 mode over q tiles of
     fwd_rows rows, whose backward recomputes over tiles of bwd_rows."""
     def launch():
-        global KERNEL_LAUNCHES, INT8_KERNEL_LAUNCHES
         out, lse = _flash_nr_cuda(q, k, v, q_scale2, k_scale2, cos, sin, st, segment_ids,
                                   scale, fwd_rows)
-        if fwd_rows:
-            INT8_KERNEL_LAUNCHES += 1
-        else:
-            KERNEL_LAUNCHES += 1
+        _count(q, fwd_rows, bwd=False)
         return out, lse
 
     return remat.keep(remat.FLASH, q.device, launch)
@@ -597,14 +686,10 @@ def _fwd_backward(ctx, dout, _dlse):
     """K2 (or its s_int8 mode) from the saved residuals; lse is a residual,
     not differentiated (as in the JAX custom_vjp, whose primal returns out
     alone)."""
-    global BWD_KERNEL_LAUNCHES, INT8_BWD_KERNEL_LAUNCHES
     q, k, v, qs, ks, cos, sin, seg, out, lse = ctx.saved_tensors
     dq, dk, dv, dqs, dks = _flash_nr_bwd_cuda(q, k, v, qs, ks, cos, sin, ctx.st, seg, ctx.scale,
                                               out, lse, dout.contiguous(), ctx.bwd_rows)
-    if ctx.bwd_rows:
-        INT8_BWD_KERNEL_LAUNCHES += 1
-    else:
-        BWD_KERNEL_LAUNCHES += 1
+    _count(q, ctx.bwd_rows, bwd=True)
     return (dq, dk, dv, dqs.to(qs.dtype), dks.to(ks.dtype)) + (None,) * 7
 
 

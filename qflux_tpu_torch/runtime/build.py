@@ -51,6 +51,13 @@ _SIGNATURES = {
     "qflux_flash_fwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _P]),
     "qflux_flash_bwd": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                              ctypes.c_float, _P]),
+    "qflux_simt_fwd": (_I, [_P] * 7 + [_I] * 6 + [ctypes.c_float, _P]),
+    "qflux_simt_bwd": (_I, [_P] * 12 + [_I] * 6 + [ctypes.c_float, _P]),
+    "qflux_simt_nr_fwd": (_I, [_P] * 7 + [ctypes.c_longlong] + [_P] * 6 + [_I] + [_P] * 2
+                          + [_I] * 4 + [ctypes.c_float, _P]),
+    "qflux_simt_nr_bwd": (_I, [_P] * 7 + [ctypes.c_longlong] + [_P] * 12 + [_I] + [_P] * 5
+                          + [_I] * 4 + [ctypes.c_float, _P]),
+    "qflux_simt_nr_prep": (_I, [_P] * 6 + [ctypes.c_longlong] + [_P] * 5 + [_I] * 5 + [_P]),
     "qflux_rq_int4_fwd": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
     "qflux_rq_int4_bwd": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
     "qflux_rowquant": (_I, [_P, _P, _P, _P, _I, _I, _I, _P]),

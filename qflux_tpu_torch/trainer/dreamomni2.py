@@ -40,9 +40,10 @@ import numpy as np
 import torch
 
 from qflux_tpu_torch.models.qwen import vl_encoder as vl
+from qflux_tpu_torch.models.tokenizers import load_tokenizer
 from qflux_tpu_torch.ops.layers import Dense, dense, fuse_lora
 from qflux_tpu_torch.ops.rope import dreamomni2_control_ids, flux_image_ids
-from qflux_tpu_torch.trainer.flux_kontext import (ITEM_5C, FluxKontextAdapter, ModelBundle,
+from qflux_tpu_torch.trainer.flux_kontext import (FluxKontextAdapter, ModelBundle,
                                                   SimpleTokenizer)
 from qflux_tpu_torch.utils.lora_io import load_lora_safetensors
 from qflux_tpu_torch.utils.safetensors import SafeTensors
@@ -101,11 +102,9 @@ def vlm_factory(config, device):
         return {"vision": vision, "text": text, "lm_head": head}
 
     try:
-        from transformers import AutoTokenizer
-
-        tok = AutoTokenizer.from_pretrained(path)
-    except Exception as e:
-        logging.warning("VLM tokenizer unavailable (%s); hash fallback (%s)", e, ITEM_5C)
+        tok = load_tokenizer(path)
+    except FileNotFoundError as e:
+        logging.warning("VLM tokenizer unavailable (%s); hash fallback", e)
         tok = SimpleTokenizer(tcfg.vocab_size, 1024)
     return cfgs, tok, factory
 

@@ -42,8 +42,9 @@ from qflux_tpu_torch.models.bridge import load_vae_params
 from qflux_tpu_torch.models.flux import transformer as flux
 from qflux_tpu_torch.models.flux import vae as flux_vae
 from qflux_tpu_torch.models.flux2 import text_encoder as qwen3
+from qflux_tpu_torch.models.tokenizers import load_tokenizer
 from qflux_tpu_torch.ops.packing import pack_latents, unpack_latents
-from qflux_tpu_torch.trainer.flux_kontext import (ITEM_5C, ModelBundle, SimpleTokenizer,
+from qflux_tpu_torch.trainer.flux_kontext import (ModelBundle, SimpleTokenizer,
                                                   _load_dir, attn_impl_from_config,
                                                   checkpoint_dirs, quantize_config,
                                                   remat_policy_from_config, require_vae)
@@ -121,18 +122,16 @@ def qwen3_encoder(bundle: ModelBundle):
 
 
 def load_qwen3_tokenizer(root, tokenizer_path=None):
-    """transformers' AutoTokenizer from <root>/tokenizer (or
+    """The first-party Qwen3 (Qwen2 BPE) tokenizer of <root>/tokenizer (or
     model.tokenizer_path), imported here; where that import or those files
     fail, JAX's hash fallback (`SimpleTokenizer(150000, 512)`) with its
     warning."""
     try:
         if root is None:
             raise FileNotFoundError("no checkpoint directory")
-        from transformers import AutoTokenizer
-
-        return AutoTokenizer.from_pretrained(Path(tokenizer_path or Path(root) / "tokenizer"))
-    except Exception as e:
-        logging.warning("tokenizer unavailable (%s); hash fallback (%s)", e, ITEM_5C)
+        return load_tokenizer(Path(tokenizer_path or Path(root) / "tokenizer"))
+    except FileNotFoundError as e:
+        logging.warning("tokenizer unavailable (%s); hash fallback", e)
         return SimpleTokenizer(150000, 512)
 
 
@@ -250,7 +249,7 @@ class Flux2KleinAdapter:
         """(prompt_embeds [B, L, 3 · D] f32, pooled [B, 3 · D] = their mean
         over all L positions, txt_ids [L, 4] numpy): the hash tokenizer's
         ids at min(max_sequence_length, its max_length) with mask ids != 0,
-        or a transformers tokenizer's chat template (thinking off) padded
+        or the first-party tokenizer's chat template (thinking off) padded
         to max_sequence_length; Qwen3's picked hidden states."""
         enc = qwen3_encoder(bundle)
         tok = bundle.tokenizers["qwen3"]

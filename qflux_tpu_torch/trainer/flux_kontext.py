@@ -18,12 +18,12 @@ embedding-cache format of the JAX package:
 `prepare_embeddings` makes that format from a batch of pixels: CLIP-L's
 pooled output and T5-XXL's sequence for the prompts, the VAE encoder's
 packed latents for the target and every control image (control set ids
-1, 2, … in the ids), all in f32 as JAX computes them.  Tokenizers are
-transformers' AutoTokenizer from the checkpoint's tokenizer dirs where that
-package and those files exist, else `SimpleTokenizer` (a hash of each
-word: the same ids as the JAX package's fallback, not a real vocabulary;
-real CLIP BPE / T5 Unigram tokenizers written in the port are ROADMAP.md
-queue 1 item 5c).
+1, 2, … in the ids), all in f32 as JAX computes them.  Tokenizers are the
+port's own (`models/tokenizers.py`: CLIP's BPE from tokenizer/, T5's
+Unigram from tokenizer_2/), which give the ids transformers' AutoTokenizer
+gives JAX from the same files; where the checkpoint has no tokenizer files
+(no checkpoint, variant "test"), `SimpleTokenizer`, the JAX package's hash
+fallback (a hash of each word, not a real vocabulary).
 """
 
 from __future__ import annotations
@@ -42,14 +42,11 @@ from qflux_tpu_torch.models.bridge import load_text_params, load_vae_params
 from qflux_tpu_torch.models.flux import text_encoders as te
 from qflux_tpu_torch.models.flux import transformer as flux
 from qflux_tpu_torch.models.flux import vae as flux_vae
+from qflux_tpu_torch.models.tokenizers import load_tokenizer
 from qflux_tpu_torch.ops.packing import pack_latents, unpack_latents
 from qflux_tpu_torch.ops.rope import flux_image_ids, flux_text_ids
 from qflux_tpu_torch.utils.lora_io import flux_module_name, flux_tree_path
 from qflux_tpu_torch.utils.safetensors import SafeTensors
-
-
-ITEM_5C = ("ROADMAP.md, queue 1 item 5c: \"First-party CLIP BPE, T5 Unigram and Qwen2 BPE "
-           "tokenizers\"")
 
 
 @dataclasses.dataclass
@@ -118,19 +115,18 @@ class SimpleTokenizer:
 
 
 def load_tokenizers(root: Optional[Path], tokenizer_path=None) -> dict:
-    """{"clip", "t5"}: transformers' AutoTokenizer from <root>/tokenizer
-    (or model.tokenizer_path) and <root>/tokenizer_2, imported here; where
-    that import or those files fail, the JAX package's hash fallback with
-    its warning."""
+    """{"clip", "t5"}: the first-party tokenizers of <root>/tokenizer (or
+    model.tokenizer_path) and <root>/tokenizer_2 (`tokenizers.load_tokenizer`);
+    where those files do not exist, the JAX package's hash fallback with its
+    warning.  Files the port cannot read (a `spiece.model` without
+    `tokenizer.json`) raise."""
     try:
         if root is None:
             raise FileNotFoundError("no checkpoint directory")
-        from transformers import AutoTokenizer
-
-        return {"clip": AutoTokenizer.from_pretrained(Path(tokenizer_path or root / "tokenizer")),
-                "t5": AutoTokenizer.from_pretrained(root / "tokenizer_2")}
-    except Exception as e:
-        logging.warning("tokenizers unavailable (%s); using hash fallback (%s)", e, ITEM_5C)
+        return {"clip": load_tokenizer(Path(tokenizer_path or root / "tokenizer")),
+                "t5": load_tokenizer(root / "tokenizer_2")}
+    except FileNotFoundError as e:
+        logging.warning("tokenizers unavailable (%s); using hash fallback", e)
         return {"clip": SimpleTokenizer(49408, 77, 49407), "t5": SimpleTokenizer(32128, 512)}
 
 
@@ -314,7 +310,7 @@ class FluxKontextAdapter:
         if isinstance(tok_c, SimpleTokenizer):
             clip_ids = tok_c(prompts)
             t5_ids = tok_t(prompts, max_length=max_sequence_length)
-        else:  # transformers tokenizers
+        else:  # the first-party tokenizers
             clip_ids = np.asarray(tok_c(prompts, padding="max_length", truncation=True,
                                         max_length=77, return_tensors="np")["input_ids"])
             t5_ids = np.asarray(tok_t(prompts, padding="max_length", truncation=True,

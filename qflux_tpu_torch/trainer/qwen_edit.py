@@ -25,8 +25,8 @@ the prompt inside the edit chat template with the control images' tokens
 in place of <|image_pad|> through Qwen2.5-VL (`models/qwen/vl_encoder.py`,
 f32), its first `drop_idx` template tokens dropped and each sample re-packed
 to at most max_sequence_length; the 3D VAE encoder's packed latents for the
-target and every control image.  The tokenizer is transformers'
-AutoTokenizer from the checkpoint's tokenizer dir where that package and
+target and every control image.  The tokenizer is the port's Qwen2 BPE
+(`models/tokenizers.py`) from the checkpoint's tokenizer dir where
 those files exist, else `SimpleTokenizer` (the JAX package's hash fallback,
 not a vocabulary; a first-party Qwen2 byte-level BPE is ROADMAP.md queue 1
 item 5c).
@@ -48,9 +48,10 @@ from qflux_tpu_torch.models.qwen import transformer as qwen_dit
 from qflux_tpu_torch.models.qwen import vae as qwen_vae
 from qflux_tpu_torch.models.qwen import vl_encoder as vl
 from qflux_tpu_torch.models.qwen.porting import convert_qwen_vae
+from qflux_tpu_torch.models.tokenizers import load_tokenizer
 from qflux_tpu_torch.ops.packing import pack_latents, unpack_latents
 from qflux_tpu_torch.ops.rope import qwen_rope
-from qflux_tpu_torch.trainer.flux_kontext import (ITEM_5C, ModelBundle, SimpleTokenizer,
+from qflux_tpu_torch.trainer.flux_kontext import (ModelBundle, SimpleTokenizer,
                                                   attn_impl_from_config, checkpoint_dirs,
                                                   quantize_config, remat_policy_from_config,
                                                   require_vae)
@@ -82,17 +83,15 @@ def vl_encoder(bundle: ModelBundle) -> dict:
 
 
 def load_vl_tokenizer(root, tokenizer_path=None):
-    """transformers' AutoTokenizer from <root>/tokenizer (or
+    """The first-party Qwen2 tokenizer of <root>/tokenizer (or
     model.tokenizer_path), imported here; where that import or those files
     fail, the JAX package's hash fallback with its warning."""
     try:
         if root is None:
             raise FileNotFoundError("no checkpoint directory")
-        from transformers import AutoTokenizer
-
-        return AutoTokenizer.from_pretrained(Path(tokenizer_path or Path(root) / "tokenizer"))
-    except Exception as e:
-        logging.warning("tokenizer unavailable (%s); using hash fallback (%s)", e, ITEM_5C)
+        return load_tokenizer(Path(tokenizer_path or Path(root) / "tokenizer"))
+    except FileNotFoundError as e:
+        logging.warning("tokenizer unavailable (%s); using hash fallback", e)
         return SimpleTokenizer(140000, 1024)
 
 
@@ -258,7 +257,7 @@ class QwenImageEditAdapter:
                 ids.append(special[part])
             elif isinstance(tok, SimpleTokenizer):
                 ids.extend(int(i) for i in tok([part])[0] if i != 0)
-            else:  # a transformers tokenizer
+            else:  # the first-party tokenizer
                 ids.extend(tok(part, add_special_tokens=False)["input_ids"])
         return np.asarray(ids, np.int64)
 

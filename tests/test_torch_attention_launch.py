@@ -492,3 +492,250 @@ def test_cpu_tensors_never_reach_the_k2_or_k3_entries(monkeypatch):
     assert all(t.dtype == torch.bfloat16 for t in g)
     assert (tnr.KERNEL_LAUNCHES, tnr.BWD_KERNEL_LAUNCHES, tfa.KERNEL_LAUNCHES,
             tfa.BWD_KERNEL_LAUNCHES) == before
+
+
+# ---------------------------------------------------------------------------
+# the CUDA-core modes of csrc/flash_simt.cu: K3 / K4 in f32 (D = 32, 64, 128)
+# and bf16 (D = 32, 64), K1 / K2 in f32 (and their s_int8 mode)
+
+SIMT_MODES = [(torch.float32, 32), (torch.float32, 64), (torch.float32, 128),
+              (torch.bfloat16, 32), (torch.bfloat16, 64)]
+SIMT_IDS = [f"{'f32' if t == torch.float32 else 'bf16'}_d{d}" for t, d in SIMT_MODES]
+
+
+def _simt_qkv(sq, sk, d, dtype, ids, b=2, h=3):
+    rng = np.random.default_rng(sq + sk + d)
+    q = torch.from_numpy(rng.standard_normal((b, sq, h, d)).astype(np.float32)).to(dtype)
+    k, v = (torch.from_numpy(rng.standard_normal((b, sk, h, d)).astype(np.float32)).to(dtype)
+            for _ in range(2))
+    q_seg = kv_seg = None
+    if ids:
+        q_seg, kv_seg = torch.ones(b, sq, dtype=torch.int32), torch.ones(b, sk, dtype=torch.int32)
+    return q, k, v, q_seg, kv_seg
+
+
+@pytest.mark.parametrize("dtype,d", SIMT_MODES, ids=SIMT_IDS)
+@pytest.mark.parametrize("sq,sk,ids", [(300, 520, True), (77, 77, False)])
+def test_simt_fwd_launch_arguments(sq, sk, ids, dtype, d):
+    """K3 in a CUDA-core mode calls qflux_simt_fwd (never qflux_flash_fwd)
+    with q, k, v, the int32 ids (or None), out and lse, then B, Sq, Sk, H,
+    the head dim, the dtype code (0 f32, 1 bf16), the scale and the stream;
+    out has q's dtype and lse is f32 [B, H, Sq]."""
+    b, h, scale = 2, 3, 0.0625
+    q, k, v, q_seg, kv_seg = _simt_qkv(sq, sk, d, dtype, ids, b, h)
+    _, _, _, _, qs32, ks32 = tfa._kernel_args(q, k, v, q_seg, kv_seg)
+    kl = _library()
+    out, lse = tfa._launch_fwd(kl, 66, q, k, v, qs32, ks32, scale)
+    assert out.shape == q.shape and out.dtype == dtype
+    assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
+    (name, args), = kl.lib.calls
+    assert name == "qflux_simt_fwd" and len(args) == len(build._SIGNATURES[name][1])
+    assert args[:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    assert args[3:5] == ((None, None) if not ids else (qs32.data_ptr(), ks32.data_ptr()))
+    assert args[5:7] == (out.data_ptr(), lse.data_ptr())
+    assert args[7:13] == (b, sq, sk, h, d, 0 if dtype == torch.float32 else 1)
+    assert args[13:15] == (scale, 66)
+
+
+@pytest.mark.parametrize("dtype,d", SIMT_MODES, ids=SIMT_IDS)
+def test_simt_bwd_launch_arguments(dtype, d):
+    """K4 in a CUDA-core mode calls qflux_simt_bwd with the inputs, ids,
+    out / lse / do, an f32 delta scratch [B, H, Sq] and dq / dk / dv in the
+    inputs' dtype, then B, Sq, Sk, H, the head dim, the dtype code, the
+    scale and the stream."""
+    b, h, sq, sk, scale = 2, 3, 200, 320, 0.125
+    q, k, v, q_seg, kv_seg = _simt_qkv(sq, sk, d, dtype, True, b, h)
+    out, do, lse = torch.zeros_like(q), torch.ones_like(q), torch.zeros(b, h, sq)
+    kl = _library()
+    dq, dk, dv = tfa._launch_bwd(kl, 88, q, k, v, q_seg, kv_seg, out, lse, do, scale)
+    assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
+    assert all(t.dtype == dtype for t in (dq, dk, dv))
+    (name, args), = kl.lib.calls
+    assert name == "qflux_simt_bwd" and len(args) == len(build._SIGNATURES[name][1])
+    assert args[:8] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_seg.data_ptr(),
+                        kv_seg.data_ptr(), out.data_ptr(), lse.data_ptr(), do.data_ptr())
+    assert isinstance(args[8], int) and args[8] not in args[:8]
+    assert args[9:12] == (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    assert args[12:18] == (b, sq, sk, h, d, 0 if dtype == torch.float32 else 1)
+    assert args[18:20] == (scale, 88)
+
+
+@pytest.mark.parametrize("d", [16, 96, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_untaken_head_dims_and_dtypes_raise(dtype, d):
+    """No card is needed to refuse what no kernel takes: a head dim off 32,
+    64, 128 or a dtype other than f32 / bf16 raises in the argument check
+    (and so in the CUDA launcher, before any library), naming the head dims
+    the kernels take; bf16 at 128 names the wgmma kernels."""
+    q = torch.zeros(1, 8, 2, d, dtype=dtype)
+    with pytest.raises(ValueError, match=r"head dims \(32, 64, 128\)"):
+        tfa._kernel_args(q, q, q, None, None)
+    with pytest.raises(ValueError, match="head dims"):
+        tfa.mode(q)
+    assert tfa.mode(torch.zeros(1, 8, 2, 128, dtype=torch.bfloat16)) == "bf16"
+    if dtype == torch.float16:
+        q64 = torch.zeros(1, 8, 2, 64, dtype=dtype)
+        with pytest.raises(ValueError, match="head dims"):
+            tfa._kernel_args(q64, q64, q64, None, None)
+
+
+def _f32_k1_args(b, s, h, seg, seed=0):
+    q, k, v, qs2, ks2, cos, sin, ids = _k1_args(b, s, h, seg, False, seed)
+    return (q.float(), k.float(), v.float(), qs2, ks2, cos, sin, ids)
+
+
+@pytest.mark.parametrize("q_rows", [0, 128, 256])
+@pytest.mark.parametrize("seg", [False, True])
+def test_simt_nr_fwd_launch_arguments(monkeypatch, q_rows, seg):
+    """K1 in f32 calls qflux_simt_nr_fwd (not qflux_flash_nr_fwd) with the
+    inputs, the cos / sin batch stride, the ids, its scratch (qn, kn f32
+    [B, S, H, D]; in the s_int8 mode qq, kq int8 and amax [B, H, 1 +
+    ceil(S / q_rows)], else None) and q_rows, out (f32), lse, the shape, st,
+    the scale and the stream."""
+    b, s, h, st, scale = 2, 300, 3, 40, 0.125
+    q, k, v, qs2, ks2, cos, sin, ids = _f32_k1_args(b, s, h, seg)
+    qs, ks, cs_bstride, seg32 = tnr._kernel_args(q, k, v, qs2, ks2, cos, sin, ids)
+    made = []
+    real = tnr._simt_fwd_scratch
+    monkeypatch.setattr(tnr, "_simt_fwd_scratch",
+                        lambda qq_, rows: made.append(real(qq_, rows)) or made[-1])
+    kl = _library()
+    out, lse = tnr._launch_fwd(kl, 31, q, k, v, qs, ks, cos, sin, cs_bstride, seg32, st, scale,
+                               q_rows)
+    assert out.dtype == torch.float32 and lse.shape == (b, h, s)
+    (name, args), = kl.lib.calls
+    assert name == "qflux_simt_nr_fwd" and len(args) == len(build._SIGNATURES[name][1])
+    qn, kn, qq, kq, amax = made[0]
+    assert args[:7] == tuple(t.data_ptr() for t in (q, k, v, qs, ks, cos, sin))
+    assert args[7] == cs_bstride and args[8] == (None if seg32 is None else seg32.data_ptr())
+    assert args[9:11] == (qn.data_ptr(), kn.data_ptr())
+    assert qn.shape == kn.shape == q.shape and qn.dtype == kn.dtype == torch.float32
+    if q_rows:
+        assert args[11:14] == (qq.data_ptr(), kq.data_ptr(), amax.data_ptr())
+        assert qq.dtype == kq.dtype == torch.int8 and qq.shape == q.shape
+        assert amax.shape == (b, h, 1 + -(-s // q_rows)) and amax.dtype == torch.int32
+    else:
+        assert args[11:14] == (None, None, None)
+    assert args[14] == q_rows and args[15:17] == (out.data_ptr(), lse.data_ptr())
+    assert args[17:23] == (b, s, h, st, scale, 31)
+
+
+@pytest.mark.parametrize("q_rows", [0, 128])
+def test_simt_nr_bwd_launch_arguments(monkeypatch, q_rows):
+    """K2 in f32 calls qflux_simt_nr_bwd with the inputs, out / lse / do,
+    the prep's scratch (qn, kn f32, delta f32 [B, H, S]), the f32 dqn / dkn
+    scratch the rope + norm backward reads, qq / kq / amax in the s_int8
+    mode, q_rows, dq / dk / dv (f32), the two [B, H, ceil(S / 64), 2, D]
+    partial buffers, the shape, st, scale and stream; it returns the
+    partials summed."""
+    b, s, h, st, scale = 2, 300, 3, 40, 0.125
+    q, k, v, qs2, ks2, cos, sin, ids = _f32_k1_args(b, s, h, True, seed=4)
+    qs, ks, cs_bstride, seg32 = tnr._kernel_args(q, k, v, qs2, ks2, cos, sin, ids)
+    out, do, lse = torch.zeros_like(q), torch.ones_like(q), torch.zeros(b, h, s)
+    made = []
+    real = tnr._bwd_scratch
+    monkeypatch.setattr(tnr, "_bwd_scratch", lambda qq_, rows: made.append(real(qq_, rows))
+                        or made[-1])
+    kl = _library()
+    fill = _fill_partials(b, s, h)
+    kl.lib.on["qflux_simt_nr_bwd"] = lambda *a: fill(*a[:22], a[24], a[25])
+    dq, dk, dv, dqs, dks = tnr._launch_bwd(kl, 12, q, k, v, qs, ks, cos, sin, cs_bstride, seg32,
+                                           st, scale, out, lse, do, q_rows)
+    assert all(t.dtype == torch.float32 and t.shape == q.shape for t in (dq, dk, dv))
+    n_tiles = -(-s // 64)
+    assert bool((dqs == b * h * n_tiles).all()) and bool((dks == 2 * b * h * n_tiles).all())
+    (name, args), = kl.lib.calls
+    assert name == "qflux_simt_nr_bwd" and len(args) == len(build._SIGNATURES[name][1])
+    qn, kn, delta, qq, kq, amax = made[0]
+    assert args[:7] == tuple(t.data_ptr() for t in (q, k, v, qs, ks, cos, sin))
+    assert args[7] == cs_bstride and args[8] == seg32.data_ptr()
+    assert args[9:12] == (out.data_ptr(), lse.data_ptr(), do.data_ptr())
+    assert args[12:15] == (qn.data_ptr(), kn.data_ptr(), delta.data_ptr())
+    assert qn.dtype == torch.float32 and delta.shape == (b, h, s)
+    assert all(isinstance(a, int) for a in args[15:17]) and len(set(args[12:17])) == 5
+    assert args[17:21] == ((None, None, None, 0) if not q_rows
+                           else (qq.data_ptr(), kq.data_ptr(), amax.data_ptr(), q_rows))
+    assert args[21:24] == (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    assert args[24] != args[25] and args[26:32] == (b, s, h, st, scale, 12)
+
+
+def test_simt_entry_points_are_declared():
+    """The new C entries take 64-bit pointers and the cos / sin batch
+    stride as a 64-bit integer, as the bf16 ones."""
+    for name, n, stride_at in (("qflux_simt_fwd", 15, None), ("qflux_simt_bwd", 20, None),
+                               ("qflux_simt_nr_fwd", 23, 7), ("qflux_simt_nr_bwd", 32, 7)):
+        restype, argtypes = build._SIGNATURES[name]
+        assert restype is ctypes.c_int and len(argtypes) == n, name
+        if stride_at is not None:
+            assert argtypes[stride_at] is ctypes.c_longlong
+        assert argtypes[-2] is ctypes.c_float and argtypes[-1] is ctypes.c_void_p
+
+
+def test_cpu_tensors_never_reach_the_simt_entries(monkeypatch):
+    """f32 and narrow bf16 CPU tensors go to the plain versions through the
+    public entry points (counting no launch), and the launchers refuse them
+    before any library is loaded."""
+    def refuse():
+        raise AssertionError("a CPU tensor reached the kernel library")
+
+    monkeypatch.setattr(build, "load_library", refuse)
+    before = (tfa.F32_KERNEL_LAUNCHES, tfa.NARROW_KERNEL_LAUNCHES, tnr.F32_KERNEL_LAUNCHES)
+    for dtype, d in SIMT_MODES:
+        q, k, v, q_seg, kv_seg = _simt_qkv(40, 40, d, dtype, True, 1, 2)
+        with pytest.raises(ValueError, match="CUDA"):
+            tfa._flash_fwd_cuda(q, k, v, q_seg, kv_seg, 0.1)
+        assert tfa.flash_attention(q, k, v, q_seg).dtype == dtype
+    q, k, v, qs2, ks2, cos, sin, ids = _f32_k1_args(1, 40, 2, True)
+    with pytest.raises(ValueError, match="CUDA"):
+        tnr._flash_nr_cuda(q, k, v, qs2, ks2, cos, sin, 8, ids, 0.1)
+    assert tnr.flash_attention_nr(q, k, v, qs2, ks2, cos, sin, 8, segment_ids=ids)[0].dtype == \
+        torch.float32
+    assert (tfa.F32_KERNEL_LAUNCHES, tfa.NARROW_KERNEL_LAUNCHES,
+            tnr.F32_KERNEL_LAUNCHES) == before
+
+
+def test_simt_prep_launch_arguments():
+    """The f32 mode's prep alone (`_launch_simt_prep`, what
+    `_int8_operands_cuda` runs for f32 q) passes the inputs, the cos / sin
+    batch stride, its scratch (qn, kn f32; qq, kq int8 and amax at q_rows >
+    0), q_rows, the shape, st and the stream."""
+    b, s, h, st, q_rows = 2, 300, 3, 40, 128
+    q, k, v, qs2, ks2, cos, sin, _ = _f32_k1_args(b, s, h, False, seed=9)
+    qs, ks, cs_bstride, _ = tnr._kernel_args(q, k, v, qs2, ks2, cos, sin, None)
+    kl = _library()
+    qn, kn, qq, kq, amax = tnr._launch_simt_prep(kl, 23, q, k, qs, ks, cos, sin, cs_bstride, st,
+                                                 q_rows)
+    (name, args), = kl.lib.calls
+    assert name == "qflux_simt_nr_prep" and len(args) == len(build._SIGNATURES[name][1])
+    assert args[:6] == tuple(t.data_ptr() for t in (q, k, qs, ks, cos, sin))
+    assert args[6] == cs_bstride
+    assert args[7:12] == tuple(t.data_ptr() for t in (qn, kn, qq, kq, amax))
+    assert args[12:18] == (q_rows, b, s, h, st, 23)
+    assert qn.dtype == kn.dtype == torch.float32 and qq.dtype == kq.dtype == torch.int8
+    assert amax.shape == (b, h, 1 + -(-s // q_rows))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_int8_references_on_given_normed_operands(masked):
+    """The plain s_int8 versions on `normed` = their own plain qn / kn equal
+    the default call to the bit (the card's checks pass the f32 prep's qn /
+    kn there), and on a qn one f32 ulp away they quantize that qn."""
+    b, s, h, st = 1, 300, 2, 40
+    q, k, v, qs2, ks2, cos, sin, ids = _f32_k1_args(b, s, h, masked, seed=5)
+    qn = tnr.apply_qk_norm_rope(q, qs2, cos, sin, st)
+    kn = tnr.apply_qk_norm_rope(k, ks2, cos, sin, st)
+    out, lse = tnr.flash_attention_nr_int8_reference(q, k, v, qs2, ks2, cos, sin, st, 128,
+                                                     segment_ids=ids)
+    got = tnr.flash_attention_nr_int8_reference(q, k, v, qs2, ks2, cos, sin, st, 128,
+                                                segment_ids=ids, normed=(qn, kn))
+    assert torch.equal(got[0], out) and torch.equal(got[1], lse)
+    do = torch.ones_like(q)
+    want = tnr.flash_attention_nr_int8_bwd_reference(q, k, v, qs2, ks2, cos, sin, st, do, out,
+                                                     lse, 128, segment_ids=ids)
+    grads = tnr.flash_attention_nr_int8_bwd_reference(q, k, v, qs2, ks2, cos, sin, st, do, out,
+                                                      lse, 128, segment_ids=ids,
+                                                      normed=(qn, kn))
+    assert all(torch.equal(g, w) for g, w in zip(grads, want))
+    nudged = torch.nextafter(qn, torch.full_like(qn, float("inf")))
+    _, _, (qq, _), _ = tnr._int8_operands(q, k, qs2, ks2, cos, sin, st, 128, (nudged, kn))
+    assert torch.equal(qq, tnr.quant_rows(nudged, 128)[0])

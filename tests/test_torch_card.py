@@ -1681,3 +1681,295 @@ def test_optimizers_on_card_equal_cpu(class_path, args):
             assert ((a - b).norm() / a.norm().clamp_min(1e-30)).item() <= 1e-5
         else:
             assert torch.equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA-core modes of csrc/flash_simt.cu: K3 / K4 in f32 at head dims 32, 64
+# and 128 and in bf16 at 32 and 64; K1 / K2 and their s_int8 mode in f32.  The
+# f32 bounds are chip_smoke.py's phase K ones: out and lse within 2e-5, the
+# gradients within 1e-4 (relative L2: the kernels and the plain versions sum in
+# other orders, and exp / rsqrt differ by an ulp); the narrow bf16 modes are held
+# to the bf16 K3 / K4 bounds above.
+
+F32_REL_TOL = 2e-5
+F32_GRAD_TOL = 1e-4
+SIMT_CASES = [(300, 520, True), (520, 300, True), (200, 200, False)]
+
+
+def _rel_l2(got, want):
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+def _simt_inputs(seed, sq, sk, d, dtype, masked):
+    """q [B, Sq, H, d], k / v [B, Sk, H, d] of `dtype` on the card and the
+    ids of `_k3_inputs` (sample 0's q rows padded from 150, its keys from Sk
+    - 60; sample 1 in two segments)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, sq, H, d)).astype(np.float32)
+    k, v = (rng.standard_normal((B, sk, H, d)).astype(np.float32) for _ in range(2))
+    qkv = [torch.from_numpy(a).cuda().to(dtype) for a in (q, k, v)]
+    if not masked:
+        return qkv + [None, None]
+    q_seg, kv_seg = np.ones((B, sq), np.int32), np.ones((B, sk), np.int32)
+    q_seg[0, 150:], q_seg[1, 96:] = 0, 2
+    kv_seg[0, sk - 60:], kv_seg[1, sk // 3:] = 0, 2
+    return qkv + [torch.from_numpy(a).cuda() for a in (q_seg, kv_seg)]
+
+
+def _simt_counts():
+    from qflux_tpu_torch.ops import flash_attention as tfa
+
+    return (tfa.F32_KERNEL_LAUNCHES, tfa.F32_BWD_KERNEL_LAUNCHES, tfa.NARROW_KERNEL_LAUNCHES,
+            tfa.NARROW_BWD_KERNEL_LAUNCHES, tnr.F32_KERNEL_LAUNCHES, tnr.F32_BWD_KERNEL_LAUNCHES,
+            tnr.F32_INT8_KERNEL_LAUNCHES, tnr.F32_INT8_BWD_KERNEL_LAUNCHES)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("sq,sk,masked", SIMT_CASES)
+def test_simt_k3_k4_match_plain_on_card(sq, sk, masked, d, dtype):
+    """K3 / K4 through the ring hop's entry points in the CUDA-core modes:
+    f32 at D = 32, 64, 128 (out and lse within 2e-5, every gradient within
+    1e-4, relative L2) and bf16 at D = 32, 64 (the bf16 K3 / K4 bounds);
+    fully masked rows output 0 with lse = -1e30 and a zero dq; one launch of
+    the mode's counter each way, and bf16 at D = 128 stays on the wgmma
+    kernels."""
+    from qflux_tpu_torch.ops import flash_attention as tfa
+
+    if dtype == torch.bfloat16 and d == 128:
+        assert tfa.mode(torch.empty(1, 1, 1, d, dtype=dtype)) == "bf16"
+        return
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, q_seg, kv_seg = _simt_inputs(41 + sq + d, sq, sk, d, dtype, masked)
+    scale = d ** -0.5
+    c0 = _simt_counts()
+    out, lse = tfa.flash_fwd_with_lse(q, k, v, q_seg, kv_seg, scale)
+    do = torch.randn(q.shape, device="cuda").to(dtype)
+    got = tfa.flash_bwd_from_residuals(q, k, v, q_seg, kv_seg, out, lse, do, scale)
+    torch.cuda.synchronize()
+    moved = [b - a for a, b in zip(c0, _simt_counts())]
+    assert moved[:4] == ([1, 1, 0, 0] if dtype == torch.float32 else [0, 0, 1, 1])
+    ref, ref_lse = tfa.flash_fwd_reference(q, k, v, q_seg, kv_seg, scale)
+    valid = ref_lse > -1e29
+    assert bool((lse[~valid] == -1e30).all())
+    want = tfa.flash_bwd_reference(q, k, v, q_seg, kv_seg, out, lse, do, scale)
+    if dtype == torch.float32:
+        assert _rel_l2(out, ref) <= F32_REL_TOL
+        assert _rel_l2(lse[valid], ref_lse[valid]) <= F32_REL_TOL
+        for g, w in zip(got, want):
+            assert g.dtype == torch.float32 and _rel_l2(g, w) <= F32_GRAD_TOL
+    else:
+        assert (out.float() - ref.float()).abs().max().item() <= 1.6e-2
+        assert (lse - ref_lse).abs()[valid].max().item() <= 1e-4
+        for g, w in zip(got, want):
+            assert g.dtype == torch.bfloat16 and _rel_l2(g, w) <= 1.5e-2
+    if masked:
+        dead = _dead_rows(q_seg, kv_seg)
+        assert bool(dead.any()) and not out[dead].any() and not got[0][dead].any()
+
+
+def test_simt_modes_never_reach_the_plain_version(monkeypatch):
+    """f32 and narrow bf16 attention on CUDA tensors launch csrc/flash_simt.cu
+    through `flash_attention` (forward and autograd) and the fused K1 / K2 in
+    f32, and never call the plain versions (replaced by functions that
+    raise); an f16 q or a head dim of 96 raises, naming what the kernels
+    take."""
+    from qflux_tpu_torch.ops import flash_attention as tfa
+
+    def refuse(*a, **kw):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    for name in ("flash_fwd_reference", "flash_bwd_reference"):
+        monkeypatch.setattr(tfa, name, refuse)
+    for name in ("flash_attention_nr_reference", "flash_attention_nr_bwd_reference"):
+        monkeypatch.setattr(tnr, name, refuse)
+    for dtype, d in ((torch.float32, 32), (torch.bfloat16, 64), (torch.float32, 128)):
+        q, k, v, q_seg, kv_seg = _simt_inputs(7, 200, 200, d, dtype, True)
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        tfa.flash_attention(*leaves, segment_ids=q_seg).float().square().sum().backward()
+        assert all(bool(torch.isfinite(x.grad).all()) for x in leaves)
+    args = _inputs(8, 300)
+    args = [a.float() for a in args[:3]] + args[3:]
+    leaves = [a.clone().requires_grad_() for a in args[:3]]
+    c0 = _simt_counts()
+    out, _ = tnr.flash_attention_nr(*leaves, *args[3:], ST)
+    out.square().sum().backward()
+    torch.cuda.synchronize()
+    assert [b - a for a, b in zip(c0, _simt_counts())][4:6] == [1, 1]
+    for dtype, d in ((torch.float16, 64), (torch.float32, 96)):
+        q = torch.zeros(1, 8, 2, d, device="cuda", dtype=dtype)
+        with pytest.raises(ValueError, match="head dims"):
+            tfa.flash_attention(q, q, q)
+
+
+def _nr_f32_inputs(seed, s, h=4):
+    """f32 q / k / v [1, S, h, 128], scale pairs and [S, 128] rope tables on
+    the card, and the FLUX text layout: 512 text rows (st), the last 20 of
+    them padding."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((1, s, h, D)).astype(np.float32) for _ in range(3))
+    qs2, ks2 = ((1 + 0.1 * rng.standard_normal((2, D))).astype(np.float32) for _ in range(2))
+    ang = rng.uniform(0, 6.28, (s, D // 2)).astype(np.float32)
+    cos, sin = np.concatenate([np.cos(ang)] * 2, -1), np.concatenate([np.sin(ang)] * 2, -1)
+    seg = np.ones((1, s), np.int32)
+    seg[0, 492:512] = 0
+    return ([torch.from_numpy(a).cuda() for a in (q, k, v, qs2, ks2, cos, sin)],
+            torch.from_numpy(seg).cuda())
+
+
+@pytest.mark.parametrize("s", [2304, 2560])
+def test_simt_k1_k2_f32_match_plain_on_card(s):
+    """K1 / K2 in f32 at FLUX's S = 2560 and path A's 2304 with text
+    padding, through the custom op and its autograd: out and lse within
+    2e-5, dq / dk / dv and both scale-pair gradients within 1e-4 of the
+    plain versions (f32 autograd through the plain forward); one f32 launch
+    each way."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args, seg = _nr_f32_inputs(s, s)
+    do = torch.randn(args[0].shape, device="cuda")
+    leaves = [a.clone().requires_grad_() for a in args[:5]]
+    c0 = _simt_counts()
+    out, lse = tnr.flash_attention_nr(*leaves, *args[5:], 512, segment_ids=seg)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert [b - a for a, b in zip(c0, _simt_counts())][4:8] == [1, 1, 0, 0]
+    ref, ref_lse = tnr.flash_attention_nr_reference(*args, 512, segment_ids=seg)
+    valid = ref_lse > -1e29
+    assert _rel_l2(out, ref) <= F32_REL_TOL
+    assert _rel_l2(lse[valid], ref_lse[valid]) <= F32_REL_TOL
+    want = tnr.flash_attention_nr_bwd_reference(*args, 512, do, segment_ids=seg)
+    for name, g, w in zip(("dq", "dk", "dv", "dqs", "dks"), got, want):
+        assert _rel_l2(g, w) <= F32_GRAD_TOL, name
+    assert not got[0][0, 492:512].any()
+
+
+def test_simt_s_int8_f32_matches_plain_on_card():
+    """K1 / K2's s_int8 mode in f32 at S = 2304 (forward q tiles of 256
+    rows, backward 128): the prep's qn / kn within 2e-5 of the plain norm +
+    rope and its int8 operands equal to `quant_rows` of them to the bit;
+    on those qn / kn (an f32 ulp from the plain ones can cross an int8
+    rounding midpoint) the __dp4a scores' out and lse within 2e-5 of the
+    plain int8 versions and the straight-through gradients within 1e-4;
+    one f32 s_int8 launch each way, two calls identical to the bit."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    s = 2304
+    args, seg = _nr_f32_inputs(9, s)
+    q, k, v, qs2, ks2, cos, sin = args
+    fwd_rows, bwd_rows = tnr.s_int8_tiles(s, D)
+    for rows in (fwd_rows, bwd_rows):
+        qn, kn, qq, kq, q_sc, k_sc = tnr._int8_operands_cuda(q, k, qs2, ks2, cos, sin, 512, rows)
+        assert _rel_l2(qn, tnr.apply_qk_norm_rope(q, qs2, cos, sin, 512)) <= F32_REL_TOL
+        assert _rel_l2(kn, tnr.apply_qk_norm_rope(k, ks2, cos, sin, 512)) <= F32_REL_TOL
+        wq, wqs = tnr.quant_rows(qn, rows)
+        wk, wks = tnr.quant_rows(kn, s)
+        assert torch.equal(qq, wq) and torch.equal(q_sc, wqs)
+        assert torch.equal(kq, wk) and torch.equal(k_sc, wks[:, 0])
+    do = torch.randn(q.shape, device="cuda")
+    leaves = [a.clone().requires_grad_() for a in args[:5]]
+    c0 = _simt_counts()
+    out, lse = tnr.flash_attention_nr(*leaves, *args[5:], 512, segment_ids=seg, s_int8=True)
+    got = torch.autograd.grad(out, leaves, do)
+    again, _ = tnr.flash_attention_nr(*args, 512, segment_ids=seg, s_int8=True)
+    torch.cuda.synchronize()
+    assert [b - a for a, b in zip(c0, _simt_counts())][4:8] == [0, 0, 2, 1]
+    assert torch.equal(again, out.detach())
+    ref, ref_lse = tnr.flash_attention_nr_int8_reference(*args, 512, fwd_rows, segment_ids=seg,
+                                                         normed=(qn, kn))
+    valid = ref_lse > -1e29
+    assert _rel_l2(out, ref) <= F32_REL_TOL
+    assert _rel_l2(lse[valid], ref_lse[valid]) <= F32_REL_TOL
+    want = tnr.flash_attention_nr_int8_bwd_reference(*args, 512, do, out.detach(), lse,
+                                                     bwd_rows, segment_ids=seg,
+                                                     normed=(qn, kn))
+    for name, g, w in zip(("dq", "dk", "dv", "dqs", "dks"), got, want):
+        assert _rel_l2(g, w) <= F32_GRAD_TOL, name
+
+
+def test_flux_block_f32_forward_and_lora_grads_on_card():
+    """One dual and one single FLUX.1 block at full width (3072, 24 heads ×
+    128), f32, at the 512² shape with one control (S = 512 + 2 · 1024):
+    the forward runs the f32 K1 once a block and the backward the f32 K2,
+    and the output and the to_q / to_k / to_v / to_out LoRA gradients are
+    within 1e-4 (relative L2) of the plain attention's."""
+    from qflux_tpu_torch.models.flux import transformer as tflux
+    from qflux_tpu_torch.ops.layers import build_lora_tree, mark_trainable, merge_lora
+    from qflux_tpu_torch.ops.rope import flux_image_ids, flux_text_ids
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(tflux.FluxConfig(), num_layers=1, num_single_layers=1)
+    gen = torch.Generator("cuda").manual_seed(0)
+    model = tflux.init(gen, cfg, "cuda", torch.float32)
+    lora = mark_trainable(build_lora_tree(gen, model, [r"attn/(to_q|to_k|to_v|to_out)"], 16,
+                                          16.0))
+    with torch.no_grad():
+        for leaf in lora.values():
+            leaf["b"].normal_(0.0, 0.01, generator=gen)
+    merge_lora(model, lora)
+    ids = torch.from_numpy(np.concatenate([flux_image_ids(32, 32, 0),
+                                           flux_image_ids(32, 32, 1)])).cuda()
+    txt_ids = torch.from_numpy(flux_text_ids(512)).cuda()
+    x = torch.randn(1, 2048, cfg.in_channels, device="cuda", generator=gen)
+    txt = torch.randn(1, 512, cfg.joint_attention_dim, device="cuda", generator=gen)
+    pooled = torch.randn(1, cfg.pooled_projection_dim, device="cuda", generator=gen)
+    t = torch.full((1,), 0.5, device="cuda")
+
+    def run(attn_impl):
+        for leaf in lora.values():
+            leaf["a"].grad = leaf["b"].grad = None
+        y = tflux.forward(model, cfg, x, txt, pooled, t, ids, txt_ids, guidance=t,
+                          attn_impl=attn_impl, remat_policy="flash")
+        y.pow(2).mean().backward()
+        return y.detach(), torch.cat([leaf[k].grad.flatten() for leaf in lora.values()
+                                      for k in ("a", "b")])
+
+    c0 = _simt_counts()
+    y_k, g_k = run("auto")
+    torch.cuda.synchronize()
+    assert [b - a for a, b in zip(c0, _simt_counts())][4:6] == [2, 2]
+    y_p, g_p = run("plain")
+    assert _rel_l2(y_k, y_p) <= F32_GRAD_TOL and _rel_l2(g_k, g_p) <= F32_GRAD_TOL
+    assert bool(g_k.abs().sum() > 0)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("trainer", ["FluxKontextLoraTrainer", "QwenImageEditTrainer"])
+def test_variant_test_fit_and_predict_on_card(trainer, dtype):
+    """Variant `test` (head dim 32) on the card: a two-step fit and a
+    two-step predict from cached embeddings, their attention through K3 /
+    K4 in the narrow bf16 mode or the f32 mode (K3 on every block of every
+    forward, K4 on every block of every step), finite losses and uint8
+    images."""
+    from qflux_tpu_torch.ops import flash_attention as tfa
+    from qflux_tpu_torch.ops.rope import flux_image_ids, flux_text_ids
+    from qflux_tpu_torch.trainer.base import Trainer, train_config
+
+    cfg = train_config(variant="test", max_train_steps=2)
+    cfg.trainer.value = trainer
+    cfg.train.weight_dtype = dtype
+    tr = Trainer(cfg, device="cuda")
+    tr.load_model()
+    rng = np.random.default_rng(0)
+    if trainer == "FluxKontextLoraTrainer":
+        emb = {"control_latents": rng.standard_normal((1, 64, 16)).astype(np.float32),
+               "prompt_embeds": rng.standard_normal((1, 8, 64)).astype(np.float32),
+               "pooled_prompt_embeds": rng.standard_normal((1, 32)).astype(np.float32),
+               "tgt_ids": flux_image_ids(8, 8, 0), "ctl_ids": flux_image_ids(8, 8, 1),
+               "txt_ids": flux_text_ids(8)}
+        size, n_lat = 32, 64
+    else:
+        emb = {"control_latents": rng.standard_normal((1, 16, 16)).astype(np.float32),
+               "prompt_embeds": rng.standard_normal((1, 8, 48)).astype(np.float32),
+               "prompt_embeds_mask": np.array([[1] * 6 + [0] * 2]),
+               "img_shapes_arr": np.array([[1, 4, 4], [1, 4, 4]], np.int32)}
+        size, n_lat = 16, 16
+    mode = "F32_" if dtype == "float32" else "NARROW_"
+    c0 = {n: getattr(tfa, mode + n) for n in ("KERNEL_LAUNCHES", "BWD_KERNEL_LAUNCHES")}
+    tr.lora = tr.build_lora()
+    img = tr.predict_from_embeddings(emb, size, size)
+    assert img.shape == (1, size, size, 3) and img.dtype == np.uint8
+    emb["image_latents"] = rng.standard_normal((1, n_lat, 16)).astype(np.float32)
+    tr.fit([emb] * 3)
+    torch.cuda.synchronize()
+    assert len(tr.history) == 2 and all(np.isfinite(h["loss"]) for h in tr.history)
+    assert getattr(tfa, mode + "KERNEL_LAUNCHES") > c0["KERNEL_LAUNCHES"]
+    assert getattr(tfa, mode + "BWD_KERNEL_LAUNCHES") > c0["BWD_KERNEL_LAUNCHES"]

@@ -200,19 +200,60 @@ def test_plain_k4_from_global_residuals_as_a_ring_hop():
                                    full[i].numpy(), atol=ATOL)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("s_int8", [False, True])
-@pytest.mark.parametrize("d", [32, 128])
-def test_supports_matches_jax(s_int8, d):
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_supports_matches_jax(s_int8, d, dtype):
     """`flash_nr.supports` = JAX's `flash_nr.supports` at its defaults, on
     both sides of each boundary (padded S 2688 in bf16, 2560 in int8), and
     cross attention; `s_int8_tiles` is None exactly where the int8 route
-    does not apply."""
+    does not apply.  JAX routes by shape alone, so the dtype changes
+    nothing: the port's `fused_route` is JAX's choice in f32 and bf16, and
+    a kernel takes each route's inputs on the card (K1 / K2 at D = 128 in
+    both dtypes; `flash_attention.mode` names K3 / K4's mode at every head
+    dim, the wgmma kernels for bf16 at 128 only)."""
+    impl = "int8" if s_int8 else "auto"
     for s in (2304, 2560, 2561, 2688, 2689, 4000, 4256):
         assert tnr.supports(s, s, d, s_int8) == jnr.supports(s, s, d, s_int8), s
+        assert tattn.fused_route(s, s, d, impl) == jnr.supports(s, s, d, s_int8), s
         assert (tnr.s_int8_tiles(s, d) is not None) == jnr.supports(s, s, d, True), s
     assert not tnr.supports(256, 512, d, s_int8) and not jnr.supports(256, 512, d, s_int8)
     if d == 128:
         assert tnr.supports(2688, 2688, d, s_int8) == (not s_int8)
+        q = torch.zeros(1, 64, 2, d, dtype=dtype)
+        cos = torch.zeros(64, d)
+        assert tnr._kernel_args(q, q, q, cos[:2], cos[:2], cos, cos, None)[2] == 0
+    want = {(torch.bfloat16, 128): "bf16"}.get((dtype, d),
+                                               "f32" if dtype == torch.float32 else "narrow")
+    assert tfa.mode(torch.zeros(1, 8, 2, d, dtype=dtype)) == want
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("case", ["cross", "ragged"])
+def test_plain_k3_k4_narrow_heads_match_jax(case, d):
+    """At head dims 32 and 64 (variant `test`'s DiTs, and what the card's
+    CUDA-core modes take), f32: the plain K3 / K4 against JAX's Pallas
+    `flash_fwd_with_lse` / `flash_attention` and jax.grad of it in
+    interpret mode, out, lse and the three gradients within 2e-5 relative
+    L2 (measured ~4e-7: the same f32 arithmetic in another order)."""
+    tol = 2e-5
+    sq, sk, qs, ks = CASES[case]
+    rng = np.random.default_rng(d + sq)
+    q = rng.standard_normal((B, sq, H, d)).astype(np.float32)
+    k, v = (rng.standard_normal((B, sk, H, d)).astype(np.float32) for _ in range(2))
+    do = rng.standard_normal(q.shape).astype(np.float32)
+    scale = d ** -0.5
+    out, lse = tfa.flash_fwd_reference(*_t(q, k, v, qs, ks), scale)
+    j_out = jfa.flash_attention(*_j(q, k, v), segment_ids=_j(qs)[0], kv_segment_ids=_j(ks)[0])
+    assert _rel_err(out.numpy(), np.asarray(j_out)) < tol
+    if qs is not None:
+        _, j_lse = jfa.flash_fwd_with_lse(*_j(q, k, v, qs, ks), scale)
+        valid = np.asarray(j_lse) > -1e29
+        assert _rel_err(lse.numpy()[valid], np.asarray(j_lse)[valid]) < tol
+    got = tfa.flash_bwd_reference(*_t(q, k, v, qs, ks), out, lse, torch.from_numpy(do), scale)
+    want = _jax_grads(q, k, v, qs, ks, do)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert _rel_err(g.numpy(), np.asarray(w)) < tol, name
 
 
 @pytest.mark.parametrize("s", [2560, 2688, 4000])

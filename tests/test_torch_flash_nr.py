@@ -129,6 +129,38 @@ def test_plain_k2_matches_jax_flash_nr_grads(masked):
             assert not t[0, 239:].any()
 
 
+@pytest.mark.parametrize("masked", [False, True], ids=["unmasked", "masked"])
+def test_plain_k1_k2_f32_relative_error_vs_jax(masked):
+    """What the card's f32 K1 / K2 are held to, held to JAX here: the plain
+    versions against JAX's `flash_attention_nr` and jax.grad of it (the
+    Pallas kernels in interpret mode), f32, out and every gradient within
+    2e-5 relative L2 (measured ~4e-7)."""
+    tol = 2e-5
+    q, k, v, qs2, ks2, cos, sin = _inputs(20)
+    do = np.random.default_rng(21).standard_normal((B, S, H, D)).astype(np.float32)
+    seg = _segments("masked" if masked else None, S)
+    j_seg = None if seg is None else jnp.asarray(seg)
+    t_seg = None if seg is None else torch.from_numpy(seg)
+
+    def jfn(*xs):
+        return jnr.flash_attention_nr(*xs, jnp.asarray(cos), jnp.asarray(sin), ST,
+                                      segment_ids=j_seg)
+
+    j_out, vjp = jax.vjp(jfn, *map(jnp.asarray, (q, k, v, qs2, ks2)))
+    t_args = [torch.from_numpy(a) for a in (q, k, v, qs2, ks2, cos, sin)]
+    out, _ = tnr.flash_attention_nr_reference(*t_args, ST, segment_ids=t_seg)
+    assert _rel(out.numpy(), np.asarray(j_out)) < tol
+    t_grads = tnr.flash_attention_nr_bwd_reference(*t_args, ST, torch.from_numpy(do),
+                                                   segment_ids=t_seg)
+    for name, t, j in zip(("dq", "dk", "dv", "dqs", "dks"), t_grads, vjp(jnp.asarray(do))):
+        assert _rel(t.numpy(), np.asarray(j)) < tol, name
+
+
+def _rel(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
 def _plain_launchers(monkeypatch):
     """Test doubles: the two low-level launchers replaced by plain math (the
     s_int8 mode's where q_rows is set), the dispatch sending CPU tensors to
@@ -305,7 +337,8 @@ def test_c_signatures_match_sources():
 
 
 def test_kernel_arg_checks():
-    """What csrc/flash_nr_fwd.cu does not take is refused before a launch."""
+    """What the kernels (csrc/flash_nr_fwd.cu, csrc/flash_simt.cu) do not take is
+    refused before a launch."""
     q, k, v, qs2, ks2, cos, sin = (torch.from_numpy(a) for a in _inputs(10, s=64))
     bq, bk, bv = (x.to(torch.bfloat16) for x in (q, k, v))
     qs, ks, stride, seg = tnr._kernel_args(bq, bk, bv, qs2, ks2, cos, sin, None)
@@ -315,7 +348,7 @@ def test_kernel_arg_checks():
                                          .contiguous(), torch.ones(B, 64, dtype=torch.int64))
     assert stride == 64 * D and seg.dtype == torch.int32
     bad = [
-        ((q, k, v, qs2, ks2, cos, sin, None), "bfloat16"),                 # f32 q/k/v
+        ((q.half(), k.half(), v.half(), qs2, ks2, cos, sin, None), "bfloat16"),  # f16 q/k/v
         ((bq[..., :64], bk[..., :64], bv[..., :64], qs2[:, :64], ks2[:, :64],
           cos[:, :64], sin[:, :64], None), "head dim"),                    # D = 64
         ((bq, bk[:, :32], bv[:, :32], qs2, ks2, cos, sin, None), "sk"),    # cross attention

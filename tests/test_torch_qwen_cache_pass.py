@@ -563,7 +563,7 @@ def test_fit_holds_the_text_encoders_only_where_it_needs_them(tmp_path, monkeypa
 
 _BLOCKED_RUN = r"""
 import importlib.abc, sys
-BLOCKED = ("jax", "jaxlib", "qflux_tpu", "PIL", "cv2", "transformers", "yaml")
+BLOCKED = ("jax", "jaxlib", "qflux_tpu", "PIL", "cv2", "transformers", "tokenizers", "yaml")
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -581,6 +581,22 @@ tr = cli.main(["--config", cfg, "--device", "cpu", "--fit-no-cache"])
 assert tr.global_step == 2
 tr = cli.main(["--config", cfg, "--device", "cpu", "--predict", "--control", ctl,
                "--prompt", "make it blue", "--output", out, "--steps", "2"])
+from pathlib import Path
+from qflux_tpu_torch.trainer import flux2_klein, flux_kontext, qwen_edit
+flux_root, qwen_root, klein_root = map(Path, sys.argv[5:8])
+toks = flux_kontext.load_tokenizers(flux_root)
+clip = toks["clip"](["a photo of a cat"], padding="max_length", truncation=True, max_length=77,
+                    return_tensors="np")
+t5 = toks["t5"](["a photo, ＡＢＣ"], padding="max_length", truncation=True, max_length=512,
+                return_tensors="np")
+assert clip["input_ids"].shape == (1, 77) and t5["input_ids"].shape == (1, 512)
+assert clip["attention_mask"].sum() > 2 and t5["attention_mask"].sum() > 1
+vl = qwen_edit.load_vl_tokenizer(qwen_root)
+assert len(vl("a red hat", add_special_tokens=False)["input_ids"]) > 1
+q3 = flux2_klein.load_qwen3_tokenizer(klein_root)
+text = q3.apply_chat_template([{"role": "user", "content": "hi"}], tokenize=False,
+                              add_generation_prompt=True, enable_thinking=False)
+assert text.endswith("</think>\n\n") and q3.decode(q3(text)["input_ids"]) == text
 loaded = sorted(m.split(".")[0] for m in sys.modules)
 assert not set(BLOCKED) & set(loaded), loaded
 print("OK", tr.last_predict["latents_finite"])
@@ -588,16 +604,26 @@ print("OK", tr.last_predict["latents_finite"])
 
 
 def test_card_path_imports_nothing_it_may_not(tmp_path):
-    """In a fresh interpreter where jax, qflux_tpu, PIL, cv2, transformers
-    and yaml cannot be imported (as on the card's machine): the Qwen
-    `--cache`, `--fit-no-cache` and `--predict` of a variant-test JSON
-    config run (the tokenizer the hash fallback: transformers' import
-    fails inside the adapter's load, as JAX's does)."""
+    """In a fresh interpreter where jax, qflux_tpu, PIL, cv2, transformers,
+    tokenizers and yaml cannot be imported (as on the card's machine): the
+    Qwen `--cache`, `--fit-no-cache` and `--predict` of a variant-test JSON
+    config run (variant test has no tokenizer files: the hash fallback, as
+    in JAX), and the adapters' loaders read tokenizer directories written
+    here (FLUX's CLIP and T5, Qwen2.5-VL's, Klein's Qwen3 with its chat
+    template) into the first-party tokenizers, which tokenize."""
+    from tests.test_torch_tokenizers import QWEN3_TEMPLATE, _write_clip, _write_qwen, _write_t5
+
     data = write_qwen_folder(tmp_path, 2)
     cfg = qwen_config(tmp_path, data)
     out = tmp_path / "edit.png"
+    roots = [tmp_path / name for name in ("flux", "qwen", "klein")]
+    _write_clip(roots[0] / "tokenizer")
+    _write_t5(roots[0] / "tokenizer_2")
+    _write_qwen(roots[1] / "tokenizer", True)
+    _write_qwen(roots[2] / "tokenizer", True, QWEN3_TEMPLATE)
     res = subprocess.run([sys.executable, "-c", _BLOCKED_RUN, str(REPO), str(cfg),
-                          str(data / "control_images" / "sample_000.png"), str(out)],
+                          str(data / "control_images" / "sample_000.png"), str(out),
+                          *map(str, roots)],
                          capture_output=True, text=True, timeout=300,
                          env={"PATH": "/usr/bin:/bin", "HOME": str(tmp_path)})
     assert res.returncode == 0, res.stderr[-3000:]
