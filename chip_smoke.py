@@ -421,6 +421,11 @@ PEAK_F32_PER_MS = 67e9
 # clock, 8 operations each (four multiplies, four adds), at the same 132 SMs
 # and 1.98 GHz; not a data-sheet number
 PEAK_DP4A_PER_MS = 132 * 64 * 8 * 1.98e6
+# the SFU's ex2 (one a softmax score): 16 a clock on each of 132 SMs at the
+# same 1.98 GHz as the two rates above; not a data-sheet number.  An ex2
+# emulated by a polynomial on the FMA pipe (which no kernel here does) would
+# add to this rate, so a time from it is the floor of the SFU's exponentials
+PEAK_EXP_PER_MS = 16 * 132 * 1.98e6
 # csrc/flash_simt.cu's f32 modes against their plain versions on the card
 # (relative L2): the same f32 arithmetic summed in another order, exp and
 # rsqrt an ulp apart: out and lse within 2e-5, and the gradients, sums of
@@ -571,11 +576,12 @@ def _k4_alone(q, k, v, q_seg, kv_seg, out, lse, do, scale, reps=5) -> dict:
     qp, kp = ((None, None) if q_seg is None else
               (q_seg.to(torch.int32).contiguous(), kv_seg.to(torch.int32).contiguous()))
     stream = torch.cuda.current_stream().cuda_stream
+    hd = _head_dim_arg(lib.qflux_flash_bwd, 19, q)
     ms = _window_ms(lambda: lib.qflux_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if qp is None else qp.data_ptr(),
         None if kp is None else kp.data_ptr(), out.data_ptr(), lse.data_ptr(), do.data_ptr(),
         delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, sq, k.shape[1], h,
-        scale, stream), reps)
+        *hd, scale, stream), reps)
     host_us = _host_us(lambda: fa._flash_bwd_cuda(q, k, v, q_seg, kv_seg, out, lse, do, scale),
                        n=50)
     return {"ms": ms, "wrapper_host_us": host_us}
@@ -706,6 +712,12 @@ def _k2_int8_alone(args, st, seg, scale, out, lse, do, rows, reps=5) -> dict:
             "wrapper_host_us": host_us}
 
 
+def _head_dim_arg(entry, n_args, q) -> tuple:
+    """(D,) where K3's / K4's C entry takes the head dim (n_args arguments),
+    else () (an earlier checkout's entry, D = 128 only, in --ab)."""
+    return (q.shape[-1],) if len(entry.argtypes) == n_args else ()
+
+
 def _k3_alone(q, k, v, q_seg, kv_seg, scale, reps=10) -> dict:
     """K3 alone: `ms`, the device time of the C entry point into
     preallocated out / lse, back to back, and `wrapper_host_us`, the host time
@@ -721,10 +733,11 @@ def _k3_alone(q, k, v, q_seg, kv_seg, scale, reps=10) -> dict:
     qp, kp = ((None, None) if q_seg is None else
               (q_seg.to(torch.int32).contiguous(), kv_seg.to(torch.int32).contiguous()))
     stream = torch.cuda.current_stream().cuda_stream
+    hd = _head_dim_arg(lib.qflux_flash_fwd, 14, q)
     ms = _window_ms(lambda: lib.qflux_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), None if qp is None else qp.data_ptr(),
         None if kp is None else kp.data_ptr(), out.data_ptr(), lse.data_ptr(), b, sq, k.shape[1],
-        h, scale, stream), reps)
+        h, *hd, scale, stream), reps)
     host_us = _host_us(lambda: fa._flash_fwd_cuda(q, k, v, q_seg, kv_seg, scale), n=50)
     return {"ms": ms, "wrapper_host_us": host_us}
 
@@ -6875,14 +6888,15 @@ def optim_main() -> int:
 
 
 # ---------------------------------------------------------------------------
-# phase K: attention in f32 and at head dims 32 / 64 (the CUDA-core modes of
-# csrc/flash_simt.cu), and the first-party tokenizers
+# phase K: attention in f32 (the CUDA-core modes of csrc/flash_simt.cu) and in
+# bf16 at head dims 32 / 64 (the narrow mode of the wgmma K3 / K4), and the
+# first-party tokenizers
 
 K_F32_CASES = [  # name, B, S, H, D, ids: K3 / K4 in f32; the first is the table's
     ("qwen_832x576_f32", 1, 4000, 24, 128, "text_pad"),
     ("hop_d64_f32", 1, 2000, 48, 64, "hop"),
     ("ragged_d32_f32", 2, 777, 8, 32, None)]
-K_NARROW_CASES = [  # bf16 at D = 64 / 32; the first is the table's
+K_NARROW_CASES = [  # bf16 at D = 64 / 32 (the wgmma K3 / K4); the first is the table's
     ("s4000_d64_bf16", 1, 4000, 48, 64, "text_pad"),
     ("hop_d32_bf16", 1, 2000, 8, 32, "hop")]
 K_NR_CASES = [2560, 2304]  # K1 / K2 in f32: FLUX 512² (the table's) and path A's S
@@ -6935,18 +6949,45 @@ def _simt_bound(q, k, q_seg, kv_seg, bwd=False, nr=False, int8=False) -> dict:
             else "operations"}
 
 
+def _narrow_bound(q, k, q_seg, kv_seg, bwd=False) -> dict:
+    """The narrow mode's (bf16 at D = 32 / 64, the wgmma K3 / K4) least time:
+    the larger of the bytes (`_simt_bound`'s count), the tensor cores' time
+    for the function's products (4·D·H operations an attending pair forward,
+    10·D·H backward, at the bf16 peak) and the SFU's time for its
+    exponentials (one an attending pair, forward and backward: the function
+    needs p once; the kernels' recomputing it in both backward loops is the
+    design's cost, not the function's) at PEAK_EXP_PER_MS; "operations" when
+    either of the last two is the larger.  The exponentials bound only the
+    forward at D = 32 (1.85x the products); elsewhere the tensor cores do
+    (the exponentials 0.92x the products in the forward at D = 64, 0.37x /
+    0.74x in the backward at 64 / 32)."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    pairs = _attending_pairs(q, k, q_seg, kv_seg)
+    n_bytes = ((4 * sq + 4 * sk) if bwd else (2 * sq + 2 * sk)) * b * h * d * 2 + b * h * sq * 4
+    t_mma = (10 if bwd else 4) * d * h * pairs / PEAK_BF16_PER_MS
+    t_exp = h * pairs / PEAK_EXP_PER_MS
+    t_ops, t_bytes = max(t_mma, t_exp), n_bytes / PEAK_BYTES_PER_MS
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes > t_ops else "operations",
+            "tensor_core_ms": t_mma, "exp_ms": t_exp}
+
+
 def _k_entry(ms, plain_ms, lib_ms, max_abs_err, bound, **extra) -> dict:
     return {"max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
             **bound, **extra}
 
 
 def _k_flash_case(card, gen, name, b, s, h, d, ids, dtype) -> tuple[dict, dict]:
-    """K3 then K4 in a CUDA-core mode at one shape: against their plain
-    versions (`_fwd_agrees` / `_grad_agrees`: f32 within F32_REL_TOL /
+    """K3 then K4 in the f32 mode (csrc/flash_simt.cu) or the narrow mode
+    (bf16 at D = 32 / 64: the wgmma kernels) at one shape: against their
+    plain versions (`_fwd_agrees` / `_grad_agrees`: f32 within F32_REL_TOL /
     F32_GRAD_TOL, bf16 within the bf16 kernels' bounds), two calls identical
     to the bit, each timed alone (the C call on checked arguments, back to
-    back) beside the plain version, SDPA (unmasked) and the bound.  Returns
-    their table entries."""
+    back; narrow: into preallocated outputs, `_k3_alone` / `_k4_alone`, as
+    the bf16 K3 / K4 at D = 128) beside the plain version, SDPA (unmasked)
+    and the bound (`_simt_bound`, narrow `_narrow_bound`).  Returns their
+    table entries."""
     from qflux_tpu_torch.ops import flash_attention as fa
     from qflux_tpu_torch.runtime.build import load_library
 
@@ -6966,11 +7007,15 @@ def _k_flash_case(card, gen, name, b, s, h, d, ids, dtype) -> tuple[dict, dict]:
     ok = ok and same and not out[dead].any() and bool((lse[ref_lse <= -1e29] == -1e30).all())
     err = (out.float() - ref.float()).abs().max().item()
     del ref, ref_lse
-    ms = _window_ms(lambda: fa._launch_fwd(kl, stream, q, k, v, qs32, ks32, scale), 3, 3)
+    tag = "simt" if f32 else "narrow"
+    if f32:
+        ms = _window_ms(lambda: fa._launch_fwd(kl, stream, q, k, v, qs32, ks32, scale), 3, 3)
+    else:
+        ms = _k3_alone(q, k, v, q_seg, kv_seg, scale)["ms"]
     plain_ms = _median_ms(lambda: fa.flash_fwd_reference(q, k, v, q_seg, kv_seg, scale), n=3)
     lib_ms = _sdpa_ms(q, k, v)
-    bound = _simt_bound(q, k, q_seg, kv_seg)
-    print(f"[simt] K3 {name}: {_dt(dtype)} B={b} S={s} H={h} D={d} ids={ids or 'none'}: {text}; "
+    bound = (_simt_bound if f32 else _narrow_bound)(q, k, q_seg, kv_seg)
+    print(f"[{tag}] K3 {name}: {_dt(dtype)} B={b} S={s} H={h} D={d} ids={ids or 'none'}: {text}; "
           f"max_abs_err(out) {err:.3e}; {int(dead.sum())} fully masked rows at 0; two calls "
           f"identical {same}; alone {ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
           f"({bound['bound_by']}; {100 * bound['bound_ms'] / ms:.1f}% of it), plain "
@@ -6982,13 +7027,16 @@ def _k_flash_case(card, gen, name, b, s, h, d, ids, dtype) -> tuple[dict, dict]:
     fwd = _k_entry(ms, plain_ms, lib_ms, err, bound, case=case)
     do = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
     ok, errs, err, _ = _k4_agrees(q, k, v, q_seg, kv_seg, out, lse, do, scale)
-    ms = _window_ms(lambda: fa._launch_bwd(kl, stream, q, k, v, qs32, ks32, out, lse, do,
-                                           scale), 3, 3)
+    if f32:
+        ms = _window_ms(lambda: fa._launch_bwd(kl, stream, q, k, v, qs32, ks32, out, lse, do,
+                                               scale), 3, 3)
+    else:
+        ms = _k4_alone(q, k, v, q_seg, kv_seg, out, lse, do, scale)["ms"]
     plain_ms = _median_ms(lambda: fa.flash_bwd_reference(q, k, v, q_seg, kv_seg, out, lse, do,
                                                          scale), n=3)
     lib_ms = _sdpa_ms(q, k, v, do)
-    bound = _simt_bound(q, k, q_seg, kv_seg, bwd=True)
-    print(f"[simt] K4 {name}: {errs} ({_tol_text(f32)}), two calls identical; alone {ms:.4f} "
+    bound = (_simt_bound if f32 else _narrow_bound)(q, k, q_seg, kv_seg, bwd=True)
+    print(f"[{tag}] K4 {name}: {errs} ({_tol_text(f32)}), two calls identical; alone {ms:.4f} "
           f"ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; "
           f"{100 * bound['bound_ms'] / ms:.1f}% of it), plain {plain_ms:.3f} ms, SDPA backward "
           f"(unmasked) {lib_ms:.3f} ms [{card}]", flush=True)
@@ -7104,8 +7152,9 @@ def _k_nr_case(card, gen, s, s_int8) -> tuple[dict, dict]:
 
 
 def phase_simt_kernels(card: str) -> dict:
-    """Phase K(a): every CUDA-core mode alone against its plain version
-    (`_k_flash_case`, `_k_nr_case`); returns the table's entries by name."""
+    """Phase K(a): every CUDA-core mode and the narrow mode alone against
+    its plain version (`_k_flash_case`, `_k_nr_case`); returns the table's
+    entries by name."""
     gen = torch.Generator("cuda").manual_seed(41)
     table = {}
     for cases, mode in ((K_F32_CASES, torch.float32), (K_NARROW_CASES, torch.bfloat16)):
@@ -7312,10 +7361,10 @@ def phase_variant_test(card: str) -> dict:
 
 
 def phase_f32(card: str) -> tuple[dict, dict]:
-    """Phase K: (a) the CUDA-core modes alone, (b) the f32 FLUX fit, (c)
-    variant `test` on the card, every kernel (b) and (c) launched then held
-    to its plain version at their shapes, (d) the tokenizers.  Returns the
-    table's entries and the launches by path."""
+    """Phase K: (a) the CUDA-core modes and the narrow mode alone, (b) the
+    f32 FLUX fit, (c) variant `test` on the card, every kernel (b) and (c)
+    launched then held to its plain version at their shapes, (d) the
+    tokenizers.  Returns the table's entries and the launches by path."""
     t0 = time.perf_counter()
     table = phase_simt_kernels(card)
     print(f"[smoke] phase K(a): {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
@@ -7624,7 +7673,10 @@ def _ab_child() -> None:
         relative L2 errors of out and the five gradients against the plain
         versions;
       * at every AB_RQ_CASES entry, K5a and K5b alone (`_k5_alone`, weights
-        rotated past the L2 cache) and the digests of their outputs.
+        rotated past the L2 cache) and the digests of their outputs;
+      * at every K_NARROW_CASES entry (bf16 at D = 64 / 32), K3 and K4 through
+        `_launch_fwd` / `_launch_bwd` (whichever kernel the checkout sends the
+        narrow mode to), timed back to back.
     Prints one line, AB_RESULT and a JSON object."""
     from qflux_tpu_torch.ops import flash_attention as fa
     from qflux_tpu_torch.ops import flash_nr
@@ -7634,7 +7686,8 @@ def _ab_child() -> None:
     res = {"card": _nvidia_smi(), "k1": {}, "k2": {}, "k3": {}, "k4": {}, "k6": {},
            "k1_digest": {}, "k4_digest": {}, "k2_same": {}, "k3_same": {}, "k2_digest": {},
            "k3_digest": {}, "k5a": {}, "k5b": {}, "k5_digest": {}, "k1_int8": {},
-           "k2_int8": {}, "int8_prep_digest": {}, "int8_same": {}, "int8_rel": {}}
+           "k2_int8": {}, "int8_prep_digest": {}, "int8_same": {}, "int8_rel": {},
+           "k3_narrow": {}, "k4_narrow": {}}
     scale = 128 ** -0.5
     gen = torch.Generator("cuda").manual_seed(0)
     for name, b, s, st, seg_kind in CASES:
@@ -7722,6 +7775,22 @@ def _ab_child() -> None:
         res["k5a"][key], res["k5b"][key] = {"ms": fw["ms"]}, {"ms": bw["ms"]}
         res["k5_digest"][key] = [_digest(fw["out"]), _digest(bw["out"])]
         del weights, x, g, xq, gq, fw, bw
+        torch.cuda.empty_cache()
+    from qflux_tpu_torch.runtime.build import load_library
+
+    kl, stream = load_library(), torch.cuda.current_stream().cuda_stream
+    gen = torch.Generator("cuda").manual_seed(17)
+    for name, b, s, h, d, ids in K_NARROW_CASES:
+        q, k, v, q_seg, kv_seg = _flash_case(gen, b, s, ids, h, d)
+        _, _, _, _, qs32, ks32 = fa._kernel_args(q, k, v, q_seg, kv_seg)
+        sc_n = d ** -0.5
+        res["k3_narrow"][name] = _median_run(lambda: {"ms": _window_ms(
+            lambda: fa._launch_fwd(kl, stream, q, k, v, qs32, ks32, sc_n), 5, 3)})
+        out, lse = fa._launch_fwd(kl, stream, q, k, v, qs32, ks32, sc_n)
+        do = torch.randn(q.shape, device="cuda", generator=gen).to(torch.bfloat16)
+        res["k4_narrow"][name] = _median_run(lambda: {"ms": _window_ms(
+            lambda: fa._launch_bwd(kl, stream, q, k, v, qs32, ks32, out, lse, do, sc_n), 3, 3)})
+        del q, k, v, out, lse, do
         torch.cuda.empty_cache()
     print("AB_RESULT " + json.dumps(res), flush=True)
 
@@ -7892,8 +7961,9 @@ def data_ab_main() -> int:
 
 
 def ab_main(parent: str) -> int:
-    """`python3 chip_smoke.py --ab PARENT`: K1, K2 (bf16 and s_int8), K3, K4,
-    K5a and K5b alone, before and after, on one card.  PARENT is an unpacked
+    """`python3 chip_smoke.py --ab PARENT`: K1, K2 (bf16 and s_int8), K3, K4
+    (at D = 128, and in the narrow mode at K_NARROW_CASES), K5a and K5b
+    alone, before and after, on one card.  PARENT is an unpacked
     checkout of an earlier commit (git archive); each side runs `_ab_child` from this file
     in its own process with its own package first on sys.path, in turns
     parent, change, change, parent.  Prints each case's times (mean of the
@@ -7955,6 +8025,14 @@ def ab_main(parent: str) -> int:
                   f"{pm:.4f} ms ({', '.join(f'{x:.4f}' for x in p)}), change {cm:.4f} ms "
                   f"({', '.join(f'{x:.4f}' for x in c)}), {pm / cm:.2f}x; change "
                   f"{2.0 * m * k_in * n / cm / 1e9:.1f} TOPS [{card}]", flush=True)
+    for kern, label in (("k3_narrow", "K3 narrow"), ("k4_narrow", "K4 narrow")):
+        for case in K_NARROW_CASES:
+            p = [r[kern][case[0]]["ms"] for r in runs["parent"]]
+            c = [r[kern][case[0]]["ms"] for r in runs["change"]]
+            print(f"[ab] {label} {case[0]} (B={case[1]} S={case[2]} H={case[3]} D={case[4]}): "
+                  f"parent {mean(p):.4f} ms ({', '.join(f'{x:.4f}' for x in p)}), change "
+                  f"{mean(c):.4f} ms ({', '.join(f'{x:.4f}' for x in c)}), "
+                  f"{mean(p) / mean(c):.2f}x [{card}]", flush=True)
     every = runs["parent"] + runs["change"]
 
     def same_across(key):
@@ -8141,13 +8219,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     t_k = time.perf_counter()
     k_table, k_paths = timed(phase_f32)
-    print(f"[smoke] phase K (attention in f32 and at head dims 32 / 64 through "
-          f"csrc/flash_simt.cu, the f32 FLUX fit, variant test on the card, the first-party "
-          f"tokenizers): {time.perf_counter() - t_k:.1f} s [{card}]", flush=True)
+    print(f"[smoke] phase K (attention in f32 through csrc/flash_simt.cu and in bf16 at head "
+          f"dims 32 / 64 through the wgmma K3 / K4, the f32 FLUX fit, variant test on the card, "
+          f"the first-party tokenizers): {time.perf_counter() - t_k:.1f} s [{card}]", flush=True)
 
-    def simt_entry(name, replaces, mode):
+    def simt_entry(name, replaces, mode, source="qflux_tpu_torch/csrc/flash_simt.cu"):
         by = {path: d[name] for path, d in k_paths.items() if d.get(name)}
-        return {"name": name, "route": "cuda", "source": "qflux_tpu_torch/csrc/flash_simt.cu",
+        return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "mode": mode, "launches": sum(by.values()),
                 "launches_by_path": by, **k_table[name]}
 
@@ -8256,9 +8334,9 @@ def main() -> int:
         simt_entry("flash_bwd f32", "qflux_tpu/ops/flash_attention.py:288, :215, :251",
                    "f32, head dims 32 / 64 / 128"),
         simt_entry("flash_fwd narrow", "qflux_tpu/ops/flash_attention.py:105",
-                   "bf16, head dims 32 / 64"),
+                   "bf16, head dims 32 / 64", "qflux_tpu_torch/csrc/flash_fwd.cu"),
         simt_entry("flash_bwd narrow", "qflux_tpu/ops/flash_attention.py:288, :215, :251",
-                   "bf16, head dims 32 / 64"),
+                   "bf16, head dims 32 / 64", "qflux_tpu_torch/csrc/flash_bwd.cu"),
         simt_entry("flash_nr_fwd f32", "qflux_tpu/ops/flash_nr.py:192", "f32"),
         simt_entry("flash_nr_bwd f32", "qflux_tpu/ops/flash_nr.py:311", "f32"),
         simt_entry("flash_nr_fwd f32 s_int8", "qflux_tpu/ops/flash_nr.py:192", "f32 s_int8"),

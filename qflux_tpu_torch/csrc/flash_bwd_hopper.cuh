@@ -10,14 +10,26 @@
 //     backward of each complete dkn / dqn row, and the norm-scale gradient's
 //     partial sums.
 // An epilogue gets the consumer warp's accumulators after the loop, the block's
-// two own [BLK, 128] tiles (k and v in dkv, q and do in dq), which nothing reads
+// two own [BLK, HD] tiles (k and v in dkv, q and do in dq), which nothing reads
 // any more in the warp's own rows r0 .. r0 + 15, and the block's coordinates:
-//   void epilogue_dkv(const float (&dva)[64], const float (&dka)[64],
+//   void epilogue_dkv(const float (&dva)[HD / 2], const float (&dka)[HD / 2],
 //                     uint8_t* k_tile, uint8_t* v_tile, int b, int h, int k0, int c,
 //                     int r0, int Sk, int H)
-//   void epilogue_dq(const float (&dqa)[64], uint8_t* q_tile, uint8_t* do_tile,
+//   void epilogue_dq(const float (&dqa)[HD / 2], uint8_t* q_tile, uint8_t* do_tile,
 //                    int b, int h, int q0, int c, int r0, int Sq, int H)
 // (c: the consumer warpgroup, 0 or 1; r0 = 64 c + 16 * warp).
+//
+// HD, a template parameter of both bodies, is the head dim: 128 for K2 (and its
+// s_int8 mode) and K4, 64 or 32 for K4's narrow instances.  Every tile and
+// shared-memory offset follows from it (KvLayout / QLayout); the score products
+// keep their m64n64k16 with HD / 16 k16 steps, the products along the head dim
+// (dv, dk, dq) become m64n{HD}k16 into HD / 2 accumulators, and a [rows, 64] or
+// [rows, 32] tile is one TMA box (hopper.cuh's layouts).  The narrow instances
+// also skip the per-score mask on a step whose streamed rows (dkv: q rows, dq:
+// keys) all carry one nonzero id that every row of the warp carries too: the
+// producer reduces each step's ids to that id, or 0 (dkv: the int slot after
+// the ids; dq: SEGU_OFF), and the mask, which would change nothing there, is
+// not evaluated.  The D = 128 instances keep their loop.
 //
 // Both bodies: 384 threads, one block per SM.  Warpgroup 0's first warp is the
 // producer: it loads the block's own tiles once by TMA (k and v, or q and do) and
@@ -30,7 +42,7 @@
 //       in shared memory, K-major), p^T and ds^T in registers (exp in log2 units:
 //       lse times log2 e, one fused multiply-add and ex2.approx a score; a
 //       masked pair selects p = 0 before any exponential), then dv += p^T do and
-//       dk += ds^T q (m64n128k16, p^T / ds^T as the register A operand, do / q an
+//       dk += ds^T q (m64n{HD}k16, p^T / ds^T as the register A operand, do / q an
 //       MN-major B);
 //   dq, per 64-key tile: s = q k^T and dp = do v^T (m64n64k16; p is formed while dp
 //       is in the tensor cores), ds in registers, then dq += ds k (register A, k an
@@ -62,29 +74,29 @@
 
 #pragma once
 
+#include <type_traits>
+
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace {
 namespace bwd_wg {
 
-constexpr int D = 128;         // the only head dim the kernels take
 constexpr int NTHREADS = 384;  // producer warpgroup + two consumer warpgroups
 constexpr int BLK = 128;       // rows a dkv / dq block owns: 64 per consumer warpgroup
 constexpr int KV_STEP = 64;    // q rows streamed per step of dkv
 constexpr int STEP = 64;       // keys streamed per step of dq
-constexpr int OWN = BLK * D * 2;    // bytes of one [128, 128] bf16 tile of the block's own
-constexpr int OWN8 = BLK * D;       // the int8 own tile's bytes (the first half of its region)
-constexpr int STEP_T = STEP * D * 2;  // bytes of one streamed [64, 128] bf16 tile
-constexpr int KV_STEP_T = KV_STEP * D * 2;
-constexpr int STEP8 = STEP * D;     // bytes of one streamed [64, 128] int8 tile
+constexpr int OWN8 = BLK * 128;  // the int8 own tile's bytes (the first half of its region)
+constexpr int STEP8 = STEP * 128;  // bytes of one streamed [64, 128] int8 tile
 
 // dkv: the block's k and v; per stage the q and do tiles (INT8: and the int8 q
 // tile, stages 0 and 1 in the own k region's second half, 2 and 3 after the do
 // tiles) and the q rows' lse, delta and segment ids (INT8: and the tile's factor)
-template <bool INT8>
+template <bool INT8, int HD = 128>
 struct KvLayout {
   static constexpr int STAGES = 4;  // streamed steps in flight
+  static constexpr int OWN = BLK * HD * 2;           // one [BLK, HD] bf16 tile of the block's own
+  static constexpr int KV_STEP_T = KV_STEP * HD * 2;  // one streamed [KV_STEP, HD] bf16 tile
   static constexpr int K_OFF = 0;
   static constexpr int V_OFF = K_OFF + OWN;
   static constexpr int Q_OFF = V_OFF + OWN;
@@ -95,22 +107,26 @@ struct KvLayout {
   static __device__ __forceinline__ int q8_off(int s) {
     return s < 2 ? K_OFF + OWN8 + s * STEP8 : Q8_OFF + (s - 2) * STEP8;
   }
-  static constexpr int ROWS = INT8 ? 4 : 3;  // [STAGES][lse, delta, seg(, factor)][KV_STEP]
+  // [STAGES][lse, delta, seg(, INT8: factor; HD < 128: the step's one id)][KV_STEP]
+  static constexpr int ROWS = INT8 || HD < 128 ? 4 : 3;
   static constexpr int BAR_OFF = ROW_OFF + STAGES * ROWS * KV_STEP * 4;
   static constexpr int SMEM = BAR_OFF + (1 + 2 * STAGES) * 8 + 1024;  // + slack to align to 1024
 };
 // dq: the block's q and do; per stage the k and v tiles (INT8: and the int8 k
 // tile) and the keys' segment ids
-template <bool INT8>
+template <bool INT8, int HD = 128>
 struct QLayout {
   static constexpr int STAGES = 4;
+  static constexpr int OWN = BLK * HD * 2;     // one [BLK, HD] bf16 tile of the block's own
+  static constexpr int STEP_T = STEP * HD * 2;  // one streamed [STEP, HD] bf16 tile
   static constexpr int Q_OFF = 0;
   static constexpr int DO_OFF = Q_OFF + OWN;
   static constexpr int K_OFF = DO_OFF + OWN;
   static constexpr int V_OFF = K_OFF + STAGES * STEP_T;
   static constexpr int K8_OFF = V_OFF + STAGES * STEP_T;
   static constexpr int SEG_OFF = K8_OFF + (INT8 ? STAGES * STEP8 : 0);  // [STAGES][STEP]
-  static constexpr int BAR_OFF = SEG_OFF + STAGES * STEP * 4;
+  static constexpr int SEGU_OFF = SEG_OFF + STAGES * STEP * 4;  // HD < 128: [STAGES] step ids
+  static constexpr int BAR_OFF = SEGU_OFF + (HD < 128 ? STAGES * 4 : 0);
   static constexpr int SMEM = BAR_OFF + (1 + 2 * STAGES) * 8 + 1024;
 };
 constexpr int KV_SMEM = KvLayout<false>::SMEM, Q_SMEM = QLayout<false>::SMEM;
@@ -133,7 +149,7 @@ __device__ __forceinline__ int seg_of(const int* __restrict__ seg, int row, int 
 // 64 c + 63.  Per q tile of KV_STEP rows: s^T = k q^T and dp^T = v do^T, then p^T and
 // ds^T in registers, then dv += p^T do and dk += ds^T q.  I8::ON: k_map is the int8
 // k in [BLK, 128] boxes, q_map the bf16 qn, i8.step_map the int8 q.
-template <class Epi, class I8 = NoInt8>
+template <class Epi, class I8 = NoInt8, int HD = 128>
 __device__ __forceinline__ void attn_dkv_body(const CUtensorMap& k_map, const CUtensorMap& v_map,
                                               const CUtensorMap& q_map, const CUtensorMap& do_map,
                                               const float* __restrict__ lse,
@@ -142,8 +158,9 @@ __device__ __forceinline__ void attn_dkv_body(const CUtensorMap& k_map, const CU
                                               const int* __restrict__ kv_seg, int Sq, int Sk,
                                               int H, float scale, const Epi& epi,
                                               const I8& i8 = I8()) {
-  using L = KvLayout<I8::ON>;
-  constexpr int STAGES = L::STAGES;
+  static_assert(!I8::ON || HD == 128, "the s_int8 mode takes head dim 128");
+  using L = KvLayout<I8::ON, HD>;
+  constexpr int STAGES = L::STAGES, OWN = L::OWN, KV_STEP_T = L::KV_STEP_T;
   constexpr int KV_K_OFF = L::K_OFF, KV_V_OFF = L::V_OFF, KV_Q_OFF = L::Q_OFF;
   constexpr int KV_DO_OFF = L::DO_OFF, KV_ROW_OFF = L::ROW_OFF, ROWS = L::ROWS;
   extern __shared__ uint8_t smem_raw[];
@@ -172,10 +189,11 @@ __device__ __forceinline__ void attn_dkv_body(const CUtensorMap& k_map, const CU
       const int lane = threadIdx.x;
       if (lane == 0) {
         mbar_expect_tx(own, (I8::ON ? OWN8 : OWN) + OWN);
-        tma_load_4d(smem + KV_K_OFF, &k_map, own, 0, h, k0, b);
-        if constexpr (!I8::ON) tma_load_4d(smem + KV_K_OFF + OWN / 2, &k_map, own, 64, h, k0, b);
-        tma_load_4d(smem + KV_V_OFF, &v_map, own, 0, h, k0, b);
-        tma_load_4d(smem + KV_V_OFF + OWN / 2, &v_map, own, 64, h, k0, b);
+        if constexpr (I8::ON)
+          tma_load_4d(smem + KV_K_OFF, &k_map, own, 0, h, k0, b);
+        else
+          tma_load_head<HD>(smem + KV_K_OFF, &k_map, own, BLK, h, k0, b);
+        tma_load_head<HD>(smem + KV_V_OFF, &v_map, own, BLK, h, k0, b);
       }
       const float* lse_bh = lse + ((size_t)b * H + h) * Sq;
       const float* del_bh = delta + ((size_t)b * H + h) * Sq;
@@ -187,10 +205,8 @@ __device__ __forceinline__ void attn_dkv_body(const CUtensorMap& k_map, const CU
           uint8_t* qt = smem + KV_Q_OFF + s * KV_STEP_T;
           uint8_t* dt = smem + KV_DO_OFF + s * KV_STEP_T;
           mbar_expect_tx(&full[s], 2 * KV_STEP_T + (I8::ON ? STEP8 : 0));
-          tma_load_4d(qt, &q_map, &full[s], 0, h, q0, b);
-          tma_load_4d(qt + KV_STEP_T / 2, &q_map, &full[s], 64, h, q0, b);
-          tma_load_4d(dt, &do_map, &full[s], 0, h, q0, b);
-          tma_load_4d(dt + KV_STEP_T / 2, &do_map, &full[s], 64, h, q0, b);
+          tma_load_head<HD>(qt, &q_map, &full[s], KV_STEP, h, q0, b);
+          tma_load_head<HD>(dt, &do_map, &full[s], KV_STEP, h, q0, b);
           if constexpr (I8::ON) {
             tma_load_4d(smem + L::q8_off(s), &i8.step_map, &full[s], 0, h, q0, b);
           }
@@ -199,12 +215,21 @@ __device__ __forceinline__ void attn_dkv_body(const CUtensorMap& k_map, const CU
         if constexpr (I8::ON) {
           if (lane == 0) rows[3 * KV_STEP] = i8.factor(b, h, H, Sq, q0);
         }
+        int lo = 0, hi = 0;  // narrow: the least and largest id of the step
         for (int j = lane; j < KV_STEP; j += 32) {
           const int row = q0 + j;
           const bool in = row < Sq;
           rows[j] = in ? lse_bh[row] * LOG2E : 0.f;  // in log2 units
           rows[KV_STEP + j] = in ? del_bh[row] : 0.f;
-          reinterpret_cast<int*>(rows)[2 * KV_STEP + j] = seg_of(qsegb, row, Sq);
+          const int id = seg_of(qsegb, row, Sq);
+          reinterpret_cast<int*>(rows)[2 * KV_STEP + j] = id;
+          lo = j == lane ? id : min(lo, id);
+          hi = j == lane ? id : max(hi, id);
+        }
+        if constexpr (HD < 128) {
+          lo = __reduce_min_sync(0xffffffffu, lo);
+          hi = __reduce_max_sync(0xffffffffu, hi);
+          if (lane == 0) reinterpret_cast<int*>(rows)[3 * KV_STEP] = lo == hi ? lo : 0;
         }
         mbar_arrive(&full[s]);
       }
@@ -223,12 +248,11 @@ __device__ __forceinline__ void attn_dkv_body(const CUtensorMap& k_map, const CU
 #pragma unroll
   for (int i = 0; i < 2; ++i) segk[i] = seg_of(ksegb, k0 + r0 + g + 8 * i, Sk);
 
-  float dva[64], dka[64];
+  float dva[HD / 2], dka[HD / 2];
 #pragma unroll
-  for (int x = 0; x < 64; ++x) dva[x] = dka[x] = 0.f;
+  for (int x = 0; x < HD / 2; ++x) dva[x] = dka[x] = 0.f;
   const uint32_t kt = smem_u32(smem + KV_K_OFF), vt = smem_u32(smem + KV_V_OFF);
   mbar_wait(own, 0);
-
 #pragma unroll 1
   for (int i = 0; i < nq; ++i) {
     const int s = i % STAGES;
@@ -246,18 +270,18 @@ __device__ __forceinline__ void attn_dkv_body(const CUtensorMap& k_map, const CU
     if constexpr (I8::ON) {
       const uint32_t q8t = smem_u32(smem + L::q8_off(s));
 #pragma unroll
-      for (int kk = 0; kk < D / 32; ++kk)
+      for (int kk = 0; kk < HD / 32; ++kk)
         wgmma_m64n64k32_s8(si, desc_kmajor8(kt, 64 * c, kk), desc_kmajor8(q8t, 0, kk), kk > 0);
     } else {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_m64n64k16_ss(sT, desc_kmajor(kt, BLK, 64 * c, kk),
-                           desc_kmajor(qt, KV_STEP, 0, kk), kk > 0);
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_m64n64k16_ss(sT, desc_kmajor<HD>(kt, BLK, 64 * c, kk),
+                           desc_kmajor<HD>(qt, KV_STEP, 0, kk), kk > 0);
     }
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_m64n64k16_ss(dpT, desc_kmajor(vt, BLK, 64 * c, kk), desc_kmajor(dt, KV_STEP, 0, kk),
-                         kk > 0);
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_m64n64k16_ss(dpT, desc_kmajor<HD>(vt, BLK, 64 * c, kk),
+                         desc_kmajor<HD>(dt, KV_STEP, 0, kk), kk > 0);
     wgmma_commit();
     wgmma_wait<0>();
     float sl2s = sl2;  // the scores' scale in log2 units: the int8 path's factor
@@ -270,33 +294,46 @@ __device__ __forceinline__ void attn_dkv_body(const CUtensorMap& k_map, const CU
       fence_regs(sT);
     }
     fence_regs(dpT);
+    // p^T and ds^T; MASK: by the ids, else every pair attends
+    auto probs = [&](auto mask) {
+      constexpr bool MASK = decltype(mask)::value;
 #pragma unroll
-    for (int j = 0; j < KV_STEP / 8; ++j) {
+      for (int j = 0; j < KV_STEP / 8; ++j) {
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = 8 * j + 2 * t + e;
-        const float ls = lse_s[col], dl = del_s[col];
-        const int sq = segq_s[col];
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * j + 2 * t + e;
+          const float ls = lse_s[col], dl = del_s[col];
+          const int sq = MASK ? segq_s[col] : 0;
 #pragma unroll
-        for (int i2 = 0; i2 < 2; ++i2) {
-          const int x = 4 * j + 2 * i2 + e;
-          const bool ok = segk[i2] != 0 && sq == segk[i2];
-          const float p = ok ? ex2_approx(fmaf(sT[x], sl2s, -ls)) : 0.f;
-          sT[x] = p;
-          dpT[x] = p * (dpT[x] - dl) * scale;
+          for (int i2 = 0; i2 < 2; ++i2) {
+            const int x = 4 * j + 2 * i2 + e;
+            const bool ok = !MASK || (segk[i2] != 0 && sq == segk[i2]);
+            const float p = ok ? ex2_approx(fmaf(sT[x], sl2s, -ls)) : 0.f;
+            sT[x] = p;
+            dpT[x] = p * (dpT[x] - dl) * scale;
+          }
         }
       }
+    };
+    bool masked = true;
+    if constexpr (HD < 128) {
+      const int u = segq_s[KV_STEP];  // the step's one id, or 0
+      masked = !__all_sync(0xffffffffu, u != 0 && segk[0] == u && segk[1] == u);
     }
+    if (masked)
+      probs(std::true_type());
+    else
+      probs(std::false_type());
     uint32_t pa[KV_STEP / 16][4], sa[KV_STEP / 16][4];
     to_a_frags(sT, pa);
     to_a_frags(dpT, sa);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < KV_STEP / 16; ++kk)
-      wgmma_m64n128k16_rs(dva, pa[kk], desc_mnmajor(dt, KV_STEP, kk));
+      wgmma_rs<HD>(dva, pa[kk], desc_mnmajor<HD>(dt, KV_STEP, kk));
 #pragma unroll
     for (int kk = 0; kk < KV_STEP / 16; ++kk)
-      wgmma_m64n128k16_rs(dka, sa[kk], desc_mnmajor(qt, KV_STEP, kk));
+      wgmma_rs<HD>(dka, sa[kk], desc_mnmajor<HD>(qt, KV_STEP, kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dva);
@@ -320,7 +357,7 @@ __device__ __forceinline__ void attn_dkv_body(const CUtensorMap& k_map, const CU
 // 63.  Per K tile of 64 keys: s = q k^T and dp = do v^T, p and ds in registers, then
 // dq += ds k.  I8::ON: q_map is the int8 q in [BLK, 128] boxes, k_map the bf16 kn,
 // i8.step_map the int8 k; the block's 128 rows lie in one q tile, so one factor.
-template <class Epi, class I8 = NoInt8>
+template <class Epi, class I8 = NoInt8, int HD = 128>
 __device__ __forceinline__ void attn_dq_body(const CUtensorMap& q_map, const CUtensorMap& do_map,
                                              const CUtensorMap& k_map, const CUtensorMap& v_map,
                                              const float* __restrict__ lse,
@@ -329,8 +366,9 @@ __device__ __forceinline__ void attn_dq_body(const CUtensorMap& q_map, const CUt
                                              const int* __restrict__ kv_seg, int Sq, int Sk,
                                              int H, float scale, const Epi& epi,
                                              const I8& i8 = I8()) {
-  using L = QLayout<I8::ON>;
-  constexpr int STAGES = L::STAGES;
+  static_assert(!I8::ON || HD == 128, "the s_int8 mode takes head dim 128");
+  using L = QLayout<I8::ON, HD>;
+  constexpr int STAGES = L::STAGES, OWN = L::OWN, STEP_T = L::STEP_T;
   constexpr int Q_Q_OFF = L::Q_OFF, Q_DO_OFF = L::DO_OFF, Q_K_OFF = L::K_OFF;
   constexpr int Q_V_OFF = L::V_OFF, Q_SEG_OFF = L::SEG_OFF;
   extern __shared__ uint8_t smem_raw[];
@@ -359,10 +397,11 @@ __device__ __forceinline__ void attn_dq_body(const CUtensorMap& q_map, const CUt
       const int lane = threadIdx.x;
       if (lane == 0) {
         mbar_expect_tx(own, (I8::ON ? OWN8 : OWN) + OWN);
-        tma_load_4d(smem + Q_Q_OFF, &q_map, own, 0, h, q0, b);
-        if constexpr (!I8::ON) tma_load_4d(smem + Q_Q_OFF + OWN / 2, &q_map, own, 64, h, q0, b);
-        tma_load_4d(smem + Q_DO_OFF, &do_map, own, 0, h, q0, b);
-        tma_load_4d(smem + Q_DO_OFF + OWN / 2, &do_map, own, 64, h, q0, b);
+        if constexpr (I8::ON)
+          tma_load_4d(smem + Q_Q_OFF, &q_map, own, 0, h, q0, b);
+        else
+          tma_load_head<HD>(smem + Q_Q_OFF, &q_map, own, BLK, h, q0, b);
+        tma_load_head<HD>(smem + Q_DO_OFF, &do_map, own, BLK, h, q0, b);
       }
       const int* ksegb = kv_seg ? kv_seg + (size_t)b * Sk : nullptr;
       for (int i = 0; i < nk; ++i) {
@@ -372,16 +411,25 @@ __device__ __forceinline__ void attn_dq_body(const CUtensorMap& q_map, const CUt
           uint8_t* kt = smem + Q_K_OFF + s * STEP_T;
           uint8_t* vt = smem + Q_V_OFF + s * STEP_T;
           mbar_expect_tx(&full[s], 2 * STEP_T + (I8::ON ? STEP8 : 0));
-          tma_load_4d(kt, &k_map, &full[s], 0, h, k0, b);
-          tma_load_4d(kt + STEP_T / 2, &k_map, &full[s], 64, h, k0, b);
-          tma_load_4d(vt, &v_map, &full[s], 0, h, k0, b);
-          tma_load_4d(vt + STEP_T / 2, &v_map, &full[s], 64, h, k0, b);
+          tma_load_head<HD>(kt, &k_map, &full[s], STEP, h, k0, b);
+          tma_load_head<HD>(vt, &v_map, &full[s], STEP, h, k0, b);
           if constexpr (I8::ON) {
             tma_load_4d(smem + L::K8_OFF + s * STEP8, &i8.step_map, &full[s], 0, h, k0, b);
           }
         }
         int* segs = reinterpret_cast<int*>(smem + Q_SEG_OFF) + s * STEP;
-        for (int j = lane; j < STEP; j += 32) segs[j] = seg_of(ksegb, k0 + j, Sk);
+        int lo = 0, hi = 0;  // narrow: the least and largest id of the step
+        for (int j = lane; j < STEP; j += 32) {
+          const int id = seg_of(ksegb, k0 + j, Sk);
+          segs[j] = id;
+          lo = j == lane ? id : min(lo, id);
+          hi = j == lane ? id : max(hi, id);
+        }
+        if constexpr (HD < 128) {
+          lo = __reduce_min_sync(0xffffffffu, lo);
+          hi = __reduce_max_sync(0xffffffffu, hi);
+          if (lane == 0) reinterpret_cast<int*>(smem + L::SEGU_OFF)[s] = lo == hi ? lo : 0;
+        }
         mbar_arrive(&full[s]);
       }
     }
@@ -408,9 +456,9 @@ __device__ __forceinline__ void attn_dq_body(const CUtensorMap& q_map, const CUt
     segq[i] = seg_of(qsegb, row, Sq);
   }
 
-  float dqa[64];
+  float dqa[HD / 2];
 #pragma unroll
-  for (int x = 0; x < 64; ++x) dqa[x] = 0.f;
+  for (int x = 0; x < HD / 2; ++x) dqa[x] = 0.f;
   const uint32_t qt = smem_u32(smem + Q_Q_OFF), dt = smem_u32(smem + Q_DO_OFF);
   mbar_wait(own, 0);
 
@@ -430,19 +478,19 @@ __device__ __forceinline__ void attn_dq_body(const CUtensorMap& q_map, const CUt
     if constexpr (I8::ON) {
       const uint32_t k8t = smem_u32(smem + L::K8_OFF + s * STEP8);
 #pragma unroll
-      for (int kk = 0; kk < D / 32; ++kk)
+      for (int kk = 0; kk < HD / 32; ++kk)
         wgmma_m64n64k32_s8(si, desc_kmajor8(qt, 64 * c, kk), desc_kmajor8(k8t, 0, kk), kk > 0);
     } else {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_m64n64k16_ss(sc, desc_kmajor(qt, BLK, 64 * c, kk), desc_kmajor(kt, STEP, 0, kk),
-                           kk > 0);
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_m64n64k16_ss(sc, desc_kmajor<HD>(qt, BLK, 64 * c, kk),
+                           desc_kmajor<HD>(kt, STEP, 0, kk), kk > 0);
     }
     wgmma_commit();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_m64n64k16_ss(dp, desc_kmajor(dt, BLK, 64 * c, kk), desc_kmajor(vt, STEP, 0, kk),
-                         kk > 0);
+    for (int kk = 0; kk < HD / 16; ++kk)
+      wgmma_m64n64k16_ss(dp, desc_kmajor<HD>(dt, BLK, 64 * c, kk),
+                         desc_kmajor<HD>(vt, STEP, 0, kk), kk > 0);
     wgmma_commit();
     wgmma_wait<1>();
     if constexpr (I8::ON) {
@@ -452,19 +500,32 @@ __device__ __forceinline__ void attn_dq_body(const CUtensorMap& q_map, const CUt
     } else {
       fence_regs(sc);
     }
+    // p; MASK: by the ids, else every pair attends
+    auto probs = [&](auto mask) {
+      constexpr bool MASK = decltype(mask)::value;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < 8; ++j) {
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int sk = segk_s[8 * j + 2 * t + e];
+        for (int e = 0; e < 2; ++e) {
+          const int sk = MASK ? segk_s[8 * j + 2 * t + e] : 0;
 #pragma unroll
-        for (int i2 = 0; i2 < 2; ++i2) {
-          const int x = 4 * j + 2 * i2 + e;
-          const bool ok = segq[i2] != 0 && sk == segq[i2];
-          sc[x] = ok ? ex2_approx(fmaf(sc[x], sl2s, -lse_r[i2])) : 0.f;
+          for (int i2 = 0; i2 < 2; ++i2) {
+            const int x = 4 * j + 2 * i2 + e;
+            const bool ok = !MASK || (segq[i2] != 0 && sk == segq[i2]);
+            sc[x] = ok ? ex2_approx(fmaf(sc[x], sl2s, -lse_r[i2])) : 0.f;
+          }
         }
       }
+    };
+    bool masked = true;
+    if constexpr (HD < 128) {
+      const int u = reinterpret_cast<const int*>(smem + L::SEGU_OFF)[s];  // the step's id, or 0
+      masked = !__all_sync(0xffffffffu, u != 0 && segq[0] == u && segq[1] == u);
     }
+    if (masked)
+      probs(std::true_type());
+    else
+      probs(std::false_type());
     wgmma_wait<0>();
     fence_regs(dp);
     // sc becomes ds
@@ -476,7 +537,7 @@ __device__ __forceinline__ void attn_dq_body(const CUtensorMap& q_map, const CUt
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < STEP / 16; ++kk)
-      wgmma_m64n128k16_rs(dqa, sa[kk], desc_mnmajor(kt, STEP, kk));
+      wgmma_rs<HD>(dqa, sa[kk], desc_mnmajor<HD>(kt, STEP, kk));
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(dqa);
@@ -490,29 +551,32 @@ __device__ __forceinline__ void attn_dq_body(const CUtensorMap& q_map, const CUt
 }
 
 
-// K4's epilogue: each warp's rows of the f32 accumulators as bf16, staged in its
-// own rows of the block's tiles for 16-byte stores
+// K4's epilogue: each warp's rows of the f32 accumulators (HD / 2 a thread) as
+// bf16, staged in its own rows of the block's tiles for 16-byte stores
 struct StoreGrads {
   bf16* dq;
   bf16* dk;
   bf16* dv;
 
-  __device__ __forceinline__ void epilogue_dkv(const float (&dva)[64],
-                                               const float (&dka)[64], uint8_t* k_tile,
-                                               uint8_t* v_tile, int b, int h, int k0, int c,
-                                               int r0, int Sk, int H) const {
+  template <int R>
+  __device__ __forceinline__ void epilogue_dkv(const float (&dva)[R], const float (&dka)[R],
+                                               uint8_t* k_tile, uint8_t* v_tile, int b, int h,
+                                               int k0, int c, int r0, int Sk, int H) const {
+    constexpr int HD = 2 * R;
     const float one[2] = {1.f, 1.f};
-    const size_t kh = ((size_t)b * Sk * H + h) * D;
-    store_rows_wg(dva, one, v_tile, BLK, r0, dv + kh, H * D, k0 + r0, Sk);
-    store_rows_wg(dka, one, k_tile, BLK, r0, dk + kh, H * D, k0 + r0, Sk);
+    const size_t kh = ((size_t)b * Sk * H + h) * HD;
+    store_rows_wg<HD>(dva, one, v_tile, BLK, r0, dv + kh, H * HD, k0 + r0, Sk);
+    store_rows_wg<HD>(dka, one, k_tile, BLK, r0, dk + kh, H * HD, k0 + r0, Sk);
   }
 
-  __device__ __forceinline__ void epilogue_dq(const float (&dqa)[64], uint8_t* q_tile,
+  template <int R>
+  __device__ __forceinline__ void epilogue_dq(const float (&dqa)[R], uint8_t* q_tile,
                                               uint8_t* do_tile, int b, int h, int q0, int c,
                                               int r0, int Sq, int H) const {
+    constexpr int HD = 2 * R;
     const float one[2] = {1.f, 1.f};
-    store_rows_wg(dqa, one, q_tile, BLK, r0, dq + ((size_t)b * Sq * H + h) * D, H * D,
-                  q0 + r0, Sq);
+    store_rows_wg<HD>(dqa, one, q_tile, BLK, r0, dq + ((size_t)b * Sq * H + h) * HD, H * HD,
+                      q0 + r0, Sq);
   }
 };
 

@@ -1,9 +1,12 @@
 // The Hopper flash-attention forward main loop that K1 (flash_nr_fwd.cu:
 // flash_nr_fwd_bf16_kernel, and flash_nr_fwd_int8_kernel for its s_int8 mode)
 // and K3 (flash_fwd.cu, flash_fwd_kernel) share.  Each kernel is a thin
-// __global__ wrapper around attn_fwd_body<SEG, NORM_Q, INT8>; the body is
-// inlined into it, so the three keep their names (and their profile groups)
-// and compile to the same loop.
+// __global__ wrapper around attn_fwd_body<SEG, NORM_Q, INT8, HD>; the body is
+// inlined into it, so the kernels keep their names (and their profile groups)
+// and compile to the same loop.  HD is the head dim: 128 for K1 (NORM_Q, and
+// its INT8 mode) and K3, 64 or 32 for K3's narrow instances; every tile and
+// shared-memory offset follows from it (Layout<HD>), and the products that
+// run along the head dim become m64n{HD}k16 with HD / 2 accumulator registers.
 //
 // Block (q tile of 128 rows, h, b), 384 threads.  Warpgroup 0 is the producer:
 // its first warp keeps STAGES (k, v) tile pairs of 128 keys in flight by TMA
@@ -40,8 +43,35 @@
 // Registers: setmaxnreg gives the consumers 240 a thread (the 64 of the score
 // accumulator, the 64 of O and P's 32 fit) and the producer 24; the mbarrier
 // wait's trap is out of line (hopper.cuh's mbar_timeout says why).
+//
+// The narrow instances (HD = 64, 32) keep the 128-key score tile (S = q k^T is
+// HD / 16 steps of m64n128k16) and the intra-warpgroup overlap, and O += P V
+// is m64n{HD}k16 from registers into HD / 2 accumulators.  A [rows, 64] tile is
+// one 128-byte swizzle span, so each tile is one TMA box; a [rows, 32] tile has
+// 64-byte rows and takes the 64-byte swizzle (hopper.cuh).  The shared memory
+// they free buys K/V stages: four in flight instead of two, since the
+// look-ahead below keeps three tiles live (i - 1 for its v, i, i + 1 for its k; on
+// an H100 at 700 W two stages made the narrow K3 1.37-1.43x slower at D = 64
+// and 32: scripts/ablate_narrow_flash_torch.py, variant stages2).  There the softmax
+// weighs as much as the products (one ex2 a score against 4 HD multiply-adds),
+// so the narrow instances also
+//   * issue tile i + 1's scores, into a second score buffer (64 registers:
+//     the narrow O leaves room for them), behind tile i - 1's P V before tile
+//     i's softmax, so the tensor cores have work while the softmax runs;
+//   * let the two consumer warpgroups take turns to issue their products
+//     (hopper.cuh's turn_take), so one's softmax runs while the other's
+//     products are in the tensor cores;
+//   * skip the per-score mask on a tile whose keys all carry one nonzero id
+//     that every row of the warp carries too (the producer reduces each tile's
+//     ids to that id, or 0), which is every tile but the few at a segment's
+//     edge: the mask then changes nothing, and the scores go straight to the
+//     exponentials.
+// All three leave every value as it was; the D = 128 instances keep their
+// loop.  scripts/ablate_narrow_flash_torch.py times each against its absence.
 
 #pragma once
+
+#include <type_traits>
 
 #include "flash_nr_common.cuh"
 #include "hopper.cuh"
@@ -51,16 +81,26 @@ namespace fwd_wg {
 
 constexpr int BQ = 128;       // q rows of a block: 64 per consumer warpgroup
 constexpr int BK = 128;       // keys of a K/V tile
-constexpr int STAGES = 2;     // K/V tiles in flight
 constexpr int THREADS = 384;  // producer warpgroup + two consumer warpgroups
-constexpr int TILE = BK * D * 2;  // bytes of one [BK, 128] bf16 tile (the int8 k fills half)
-constexpr int Q_OFF = 0;                            // the block's q tile
-constexpr int K_OFF = Q_OFF + BQ * D * 2;           // STAGES k tiles
-constexpr int V_OFF = K_OFF + STAGES * TILE;        // STAGES v tiles
-constexpr int SEG_OFF = V_OFF + STAGES * TILE;      // STAGES x BK key ids
-constexpr int BAR_OFF = SEG_OFF + STAGES * BK * 4;  // 4 x STAGES ring barriers, then q's
-constexpr int SMEM = BAR_OFF + (4 * STAGES + 1) * 8 + 1024;  // + slack to align to 1024
-static_assert(SMEM <= 232448, "shared memory of one block");
+
+// the shared memory of a block at head dim HD
+template <int HD>
+struct Layout {
+  static constexpr int STAGES = HD == 128 ? 2 : 4;  // K/V tiles in flight (the notes above)
+  // bytes of one [BK, HD] bf16 tile (the int8 k fills half)
+  static constexpr int TILE = BK * HD * 2;
+  static constexpr int Q_OFF = 0;                            // the block's q tile
+  static constexpr int K_OFF = Q_OFF + BQ * HD * 2;          // STAGES k tiles
+  static constexpr int V_OFF = K_OFF + STAGES * TILE;        // STAGES v tiles
+  static constexpr int SEG_OFF = V_OFF + STAGES * TILE;      // STAGES x BK key ids
+  // the narrow instances: STAGES tile ids (the keys' one id, or 0)
+  static constexpr int SEGU_OFF = SEG_OFF + STAGES * BK * 4;
+  // 4 x STAGES ring barriers, then q's
+  static constexpr int BAR_OFF = SEGU_OFF + (HD < 128 ? STAGES * 4 : 0);
+  static constexpr int SMEM = BAR_OFF + (4 * STAGES + 1) * 8 + 1024;  // + slack to align to 1024
+  static_assert(SMEM <= 232448, "shared memory of one block");
+};
+constexpr int SMEM = Layout<128>::SMEM;  // K1's
 constexpr float NEG_INF = -1e30f;
 
 // K1's raw q and what norms and ropes it (unused by K3); in the s_int8 mode
@@ -77,27 +117,35 @@ struct RawQ {
   int q_rows;
 };
 
-// q_map: K3's normed q over [B, Sq, H, 128] in [BQ, 64] boxes (unused by K1);
-// k_map / v_map over [B, Sk, H, 128] in [BK, 64] boxes (INT8: k_map over the
-// int8 k in [BK, 128] boxes).  out [B, Sq, H, D] bf16, lse [B, H, Sq] f32.
-template <bool SEG, bool NORM_Q, bool INT8 = false>
+// q_map: K3's normed q over [B, Sq, H, HD] in [BQ, min(HD, 64)] boxes (unused by
+// K1); k_map / v_map over [B, Sk, H, HD] in [BK, min(HD, 64)] boxes (INT8: k_map
+// over the int8 k in [BK, 128] boxes).  out [B, Sq, H, HD] bf16, lse [B, H, Sq]
+// f32.
+template <bool SEG, bool NORM_Q, bool INT8 = false, int HD = 128>
 __device__ __forceinline__ void attn_fwd_body(const CUtensorMap& q_map, const CUtensorMap& k_map,
                                               const CUtensorMap& v_map, const RawQ& rq,
                                               const int* __restrict__ q_seg,
                                               const int* __restrict__ kv_seg,
                                               bf16* __restrict__ out, float* __restrict__ lse,
                                               int Sq, int Sk, int H, float scale) {
+  using L = Layout<HD>;
+  constexpr int STAGES = L::STAGES, TILE = L::TILE;
+  constexpr int Q_OFF = L::Q_OFF, K_OFF = L::K_OFF, V_OFF = L::V_OFF;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
-  uint64_t* full_k = reinterpret_cast<uint64_t*>(smem + BAR_OFF);
+  uint64_t* full_k = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
   uint64_t* full_v = full_k + STAGES;
   uint64_t* empty_k = full_v + STAGES;
   uint64_t* empty_v = empty_k + STAGES;
   uint64_t* full_q = empty_v + STAGES;
-  int* segk = reinterpret_cast<int*>(smem + SEG_OFF);
+  int* segk = reinterpret_cast<int*>(smem + L::SEG_OFF);
+  int* segu = reinterpret_cast<int*>(smem + L::SEGU_OFF);
+  // the narrow instances' turns and tile ids (the notes above)
+  constexpr bool NARROW = HD < 128, UNIFORM = NARROW && SEG;
 
   static_assert(NORM_Q || !INT8, "the s_int8 mode quantizes the q rows its consumers norm");
-  constexpr int KBYTES = INT8 ? BK * D : TILE;  // bytes of one k tile
+  static_assert(!NORM_Q || HD == D, "K1 (and its s_int8 mode) takes head dim 128");
+  constexpr int KBYTES = INT8 ? BK * HD : TILE;  // bytes of one k tile
   const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * BQ;
   const int ntiles = (Sk + BK - 1) / BK;
   const int* qsegb = q_seg ? q_seg + (size_t)b * Sq : nullptr;
@@ -123,9 +171,8 @@ __device__ __forceinline__ void attn_fwd_body(const CUtensorMap& q_map, const CU
       const int lane = threadIdx.x;
       if constexpr (!NORM_Q) {
         if (lane == 0) {
-          mbar_expect_tx(full_q, BQ * D * 2);
-          tma_load_4d(smem + Q_OFF, &q_map, full_q, 0, h, q0, b);
-          tma_load_4d(smem + Q_OFF + BQ * 128, &q_map, full_q, 64, h, q0, b);
+          mbar_expect_tx(full_q, BQ * HD * 2);
+          tma_load_head<HD>(smem + Q_OFF, &q_map, full_q, BQ, h, q0, b);
         }
       }
       for (int i = 0; i < ntiles; ++i) {
@@ -136,20 +183,32 @@ __device__ __forceinline__ void attn_fwd_body(const CUtensorMap& q_map, const CU
         if (lane == 0) {
           uint8_t* kt = smem + K_OFF + s * TILE;
           mbar_expect_tx(&full_k[s], KBYTES);
-          tma_load_4d(kt, &k_map, &full_k[s], 0, h, k0, b);
-          if constexpr (!INT8) tma_load_4d(kt + TILE / 2, &k_map, &full_k[s], 64, h, k0, b);
+          if constexpr (INT8)
+            tma_load_4d(kt, &k_map, &full_k[s], 0, h, k0, b);
+          else
+            tma_load_head<HD>(kt, &k_map, &full_k[s], BK, h, k0, b);
         }
+        int lo = 0, hi = 0;  // UNIFORM: the least and largest id of the tile
         for (int j = lane; j < BK; j += 32) {
           const int key = k0 + j;
-          segk[s * BK + j] = key < Sk ? (ksegb ? ksegb[key] : 1) : 0;
+          const int id = key < Sk ? (ksegb ? ksegb[key] : 1) : 0;
+          segk[s * BK + j] = id;
+          if constexpr (UNIFORM) {
+            lo = j == lane ? id : min(lo, id);
+            hi = j == lane ? id : max(hi, id);
+          }
+        }
+        if constexpr (UNIFORM) {
+          lo = __reduce_min_sync(0xffffffffu, lo);
+          hi = __reduce_max_sync(0xffffffffu, hi);
+          if (lane == 0) segu[s] = lo == hi ? lo : 0;
         }
         mbar_arrive(&full_k[s]);
         if (i >= STAGES) mbar_wait(&empty_v[s], ph);
         if (lane == 0) {
           uint8_t* vt = smem + V_OFF + s * TILE;
           mbar_expect_tx(&full_v[s], TILE);
-          tma_load_4d(vt, &v_map, &full_v[s], 0, h, k0, b);
-          tma_load_4d(vt + TILE / 2, &v_map, &full_v[s], 64, h, k0, b);
+          tma_load_head<HD>(vt, &v_map, &full_v[s], BK, h, k0, b);
         }
       }
     }
@@ -160,8 +219,8 @@ __device__ __forceinline__ void attn_fwd_body(const CUtensorMap& q_map, const CU
   setmaxnreg_inc<240>();
   const int c = wg - 1, wt = threadIdx.x - 128 * wg;
   const int warp = wt >> 5, lane = wt & 31, g = lane >> 2, t = lane & 3;
-  const int rs = H * D;
-  const size_t head_off = ((size_t)b * Sq * H + h) * D;  // q / out rows of (b, h)
+  const int rs = H * HD;
+  const size_t head_off = ((size_t)b * Sq * H + h) * HD;  // q / out rows of (b, h)
   uint8_t* qs = smem + Q_OFF;
   const int r0 = 64 * c + 16 * warp;  // this warp's first row of the q tile
 
@@ -206,30 +265,34 @@ __device__ __forceinline__ void attn_fwd_body(const CUtensorMap& q_map, const CU
     segq[i] = row < Sq ? (qsegb ? qsegb[row] : 1) : 0;
   }
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  float o[64];
+  float o[HD / 2];
 #pragma unroll
-  for (int x = 0; x < 64; ++x) o[x] = 0.f;
+  for (int x = 0; x < HD / 2; ++x) o[x] = 0.f;
   const uint32_t qa = smem_u32(qs);
 
   // Tile `it`'s scores into sc (INT8: into the s32 si, which `softmax`
   // converts; si is declared afresh for each tile, so its registers are free
   // between the conversion and the next tile's products), issued as one wgmma
-  // group: sc[4 j + 2 i + e] is row r0 + g + 8 i, key 8 j + 2 t + e
-  float sc[BK / 2];
+  // group: sc[4 j + 2 i + e] is row r0 + g + 8 i, key 8 j + 2 t + e.  NARROW:
+  // tiles alternate between sc and sc2 (the loop below says why).
+  float sc[BK / 2], sc2[NARROW ? BK / 2 : 1];
   constexpr int NSI = INT8 ? BK / 2 : 1;
-  auto issue_scores = [&](int it, uint32_t (&si)[NSI]) {
+  // NARROW: a wgmma.fence after each mbarrier wait, between it and the products
+  // (without it ptxas serializes the narrow instances' wgmmas, C7520)
+  auto issue_scores = [&](int it, float (&sc)[BK / 2], uint32_t (&si)[NSI]) {
     const int s = it % STAGES;
     const uint32_t kt = smem_u32(smem + K_OFF + s * TILE);
     mbar_wait(&full_k[s], (it / STAGES) & 1);
+    if constexpr (NARROW) wgmma_fence();
     if constexpr (INT8) {
 #pragma unroll
-      for (int kk = 0; kk < D / 32; ++kk)
+      for (int kk = 0; kk < HD / 32; ++kk)
         wgmma_m64n128k32_s8(si, desc_kmajor8(qa, 64 * c, kk), desc_kmajor8(kt, 0, kk), kk > 0);
     } else {
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
-        wgmma_m64n128k16<0>(sc, desc_kmajor(qa, BQ, 64 * c, kk), desc_kmajor(kt, BK, 0, kk),
-                            kk > 0);
+      for (int kk = 0; kk < HD / 16; ++kk)
+        wgmma_m64n128k16<0>(sc, desc_kmajor<HD>(qa, BQ, 64 * c, kk),
+                            desc_kmajor<HD>(kt, BK, 0, kk), kk > 0);
     }
     wgmma_commit();
   };
@@ -240,9 +303,10 @@ __device__ __forceinline__ void attn_fwd_body(const CUtensorMap& q_map, const CU
     const int s = it % STAGES;
     const uint32_t vt = smem_u32(smem + V_OFF + s * TILE);
     mbar_wait(&full_v[s], (it / STAGES) & 1);
+    if constexpr (NARROW) wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_m64n128k16_rs(o, pf[kk], desc_mnmajor(vt, BK, kk));
+      wgmma_rs<HD>(o, pf[kk], desc_mnmajor<HD>(vt, BK, kk));
     wgmma_commit();
   };
   // once tile `it`'s scores are in sc: turn them into p with the online-softmax
@@ -251,7 +315,7 @@ __device__ __forceinline__ void attn_fwd_body(const CUtensorMap& q_map, const CU
   // for o and l
   const float sl2 = sscale * LOG2E;  // raw scores to log2 units
   float alpha[2], psum[2];
-  auto softmax = [&](int it, uint32_t (&si)[NSI]) {
+  auto softmax = [&](int it, float (&sc)[BK / 2], uint32_t (&si)[NSI]) {
     if constexpr (INT8) {
       fence_regs(si);
 #pragma unroll
@@ -261,8 +325,13 @@ __device__ __forceinline__ void attn_fwd_body(const CUtensorMap& q_map, const CU
     }
     const int* sk = segk + (it % STAGES) * BK;
     float tmax[2] = {NEG_INF, NEG_INF};
-    // masking by id is needed with segment ids, else only in a tile past Sk
-    const bool masked = SEG || (it + 1) * BK > Sk;
+    // masking by id is needed with segment ids, else only in a tile past Sk;
+    // UNIFORM: not where the tile's one id is every row's of the warp
+    bool masked = SEG || (it + 1) * BK > Sk;
+    if constexpr (UNIFORM) {
+      const int u = segu[it % STAGES];
+      masked = !__all_sync(0xffffffffu, u != 0 && segq[0] == u && segq[1] == u);
+    }
     if (masked) {
 #pragma unroll
       for (int j = 0; j < BK / 8; ++j) {
@@ -319,7 +388,7 @@ __device__ __forceinline__ void attn_fwd_body(const CUtensorMap& q_map, const CU
     }
   };
   // after tile it - 1's p v: free its v tile, rescale o and l, pack tile it's p
-  auto rescale_and_pack = [&](int it_done) {
+  auto rescale_and_pack = [&](int it_done, const float (&sc)[BK / 2]) {
     fence_regs(o);
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) fence_regs(pf[kk]);
@@ -330,9 +399,18 @@ __device__ __forceinline__ void attn_fwd_body(const CUtensorMap& q_map, const CU
 #pragma unroll
     for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + psum[i];
 #pragma unroll
-    for (int x = 0; x < 64; ++x) o[x] *= alpha[(x >> 1) & 1];
+    for (int x = 0; x < HD / 2; ++x) o[x] *= alpha[(x >> 1) & 1];
     to_a_frags(sc, pf);
   };
+
+  // NARROW: the warpgroups' turns to issue products (hopper.cuh's turn_take)
+  auto take_turn = [&]() {
+    if constexpr (NARROW) turn_take(c);
+  };
+  auto pass_turn = [&](bool last) {
+    if constexpr (NARROW) turn_pass(c, last);
+  };
+  if constexpr (NARROW) turns_start(c);
 
   // Software pipeline within the warpgroup: tile it's scores are issued with tile
   // it - 1's p v behind them, so the softmax of tile it runs while p v is in the
@@ -340,25 +418,76 @@ __device__ __forceinline__ void attn_fwd_body(const CUtensorMap& q_map, const CU
   // rescaled by tile it's alpha after tile it - 1's p v has been added.
   {
     uint32_t si[NSI];
+    take_turn();
     wgmma_fence();
-    issue_scores(0, si);
+    issue_scores(0, sc, si);
+    pass_turn(false);
     wgmma_wait<0>();
-    softmax(0, si);
-    rescale_and_pack(-1);
+    softmax(0, sc, si);
+    rescale_and_pack(-1, sc);
   }
+  if constexpr (NARROW) {
+    // One tile further ahead: tile it + 1's scores (into the other buffer) are
+    // issued behind tile it - 1's p v before tile it's softmax, so the tensor
+    // cores have both to work on while it runs.  Groups complete in order: with
+    // S(it), PV(it - 1), S(it + 1) in flight, wait<2> is S(it) and wait<1>
+    // PV(it - 1).  No branch joins while a product is in flight (ptxas would
+    // move the accumulators there and serialize the wgmmas, C7515): the last
+    // tile's step, which issues no scores, is apart.
+    auto step = [&](int it, float (&cur)[BK / 2], float (&next)[BK / 2], auto ahead) {
+      uint32_t si[NSI];
+      take_turn();
+      wgmma_fence();
+      issue_pv(it - 1);
+      if constexpr (decltype(ahead)::value) issue_scores(it + 1, next, si);
+      pass_turn(false);
+      if constexpr (decltype(ahead)::value) {
+        wgmma_wait<2>();
+        softmax(it, cur, si);
+        wgmma_wait<1>();
+      } else {
+        wgmma_wait<1>();
+        softmax(it, cur, si);
+        wgmma_wait<0>();
+      }
+      rescale_and_pack(it - 1, cur);
+    };
+    if (ntiles > 1) {
+      uint32_t si[NSI];
+      take_turn();
+      wgmma_fence();
+      issue_scores(1, sc2, si);
+      pass_turn(false);
+      int it = 1;
 #pragma unroll 1
-  for (int it = 1; it < ntiles; ++it) {
-    uint32_t si[NSI];
-    wgmma_fence();
-    issue_scores(it, si);
-    issue_pv(it - 1);
-    wgmma_wait<1>();
-    softmax(it, si);
-    wgmma_wait<0>();
-    rescale_and_pack(it - 1);
+      for (; it + 2 < ntiles; it += 2) {
+        step(it, sc2, sc, std::true_type());
+        step(it + 1, sc, sc2, std::true_type());
+      }
+      if (it + 1 < ntiles) {  // two tiles left
+        step(it, sc2, sc, std::true_type());
+        step(it + 1, sc, sc2, std::false_type());
+      } else {
+        step(it, sc2, sc, std::false_type());
+      }
+    }
+  } else {
+#pragma unroll 1
+    for (int it = 1; it < ntiles; ++it) {
+      uint32_t si[NSI];
+      wgmma_fence();
+      issue_scores(it, sc, si);
+      issue_pv(it - 1);
+      wgmma_wait<1>();
+      softmax(it, sc, si);
+      wgmma_wait<0>();
+      rescale_and_pack(it - 1, sc);
+    }
   }
+  take_turn();
   wgmma_fence();
   issue_pv(ntiles - 1);
+  pass_turn(true);
   wgmma_wait<0>();
   fence_regs(o);
 #pragma unroll
@@ -368,7 +497,7 @@ __device__ __forceinline__ void attn_fwd_body(const CUtensorMap& q_map, const CU
   float inv[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) inv[i] = 1.f / (l[i] == 0.f ? 1.f : l[i]);
-  store_rows_wg(o, inv, qs, BQ, r0, out + head_off, rs, q0 + r0, Sq);
+  store_rows_wg<HD>(o, inv, qs, BQ, r0, out + head_off, rs, q0 + r0, Sq);
   if (t == 0) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {

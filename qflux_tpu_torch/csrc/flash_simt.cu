@@ -1,35 +1,34 @@
 // Flash attention on the CUDA cores, for the inputs the wgmma kernels do not take:
-// f32 q / k / v at head dim 32, 64 or 128, and bf16 at head dim 32 or 64.
+// f32 q / k / v at head dim 32, 64 or 128.  (bf16 at head dim 32 / 64 runs on the
+// wgmma K3 / K4 of flash_fwd.cu / flash_bwd.cu, templated on the head dim.)
 //
 // Replaces the same Pallas TPU kernels as the wgmma kernels, in the modes JAX runs
 // them in without a dtype or head-dim condition of its own (its kernels compute in
 // f32 and cast to the refs' dtype, and qflux_tpu/ops/flash_attention.py:542 takes
 // any head dim):
 //   * K3 (qflux_tpu/ops/flash_attention.py:105 _fwd_kernel) and K4 (:288
-//     _dqdkv_kernel, :215 _dq_kernel, :251 _dkv_kernel) in f32 at D = 32 / 64 / 128
-//     and in bf16 at D = 32 / 64: qflux_simt_fwd, qflux_simt_bwd;
+//     _dqdkv_kernel, :215 _dq_kernel, :251 _dkv_kernel) in f32 at D = 32 / 64 / 128:
+//     qflux_simt_fwd, qflux_simt_bwd;
 //   * K1 (qflux_tpu/ops/flash_nr.py:192 _fwd_nr_kernel) and K2 (:311
 //     _bwd_nr_kernel) in f32 at D = 128, also in their s_int8 mode:
 //     qflux_simt_nr_fwd, qflux_simt_nr_bwd.
 //
 // The function is K3's / K4's (flash_fwd.cu, flash_bwd.cu say it in full): for
 // every (b, h), out = softmax(q k^T * scale + segment mask) v and lse, with f32
-// scores, p rounded to T before the P V product and the sum divided by l at the
-// end; fully masked rows write 0 and lse = -1e30; separate q / kv ids, Sq != Sk;
-// keys past Sk carry segment 0.  The backward: delta = rowsum(do * out), p =
-// exp(s - lse) (0 by select where masked), dv = T(p)^T do, ds = T(p (do v^T -
-// delta) scale), dq = ds k, dk = ds^T q.  In f32 every T(...) is the identity.
+// scores, p kept in f32 for the P V product and the sum divided by l at the
+// end (the bf16 kernels round p to bf16 first); fully masked rows write 0 and
+// lse = -1e30; separate q / kv ids, Sq != Sk; keys past Sk carry segment 0.  The
+// backward: delta = rowsum(do * out), p = exp(s - lse) (0 by select where
+// masked), dv = p^T do, ds = p (do v^T - delta) scale, dq = ds k, dk = ds^T q.
 //
 // Why the CUDA cores.  A Hopper tensor core takes f32 only as TF32, which keeps
 // about three digits: the f32 modes must be f32-accurate (ops/layers.py
-// require_f32), so every product is an FFMA with an f32 accumulator.  The narrow
-// bf16 heads (32 / 64) run the same loops: the wgmma kernels are built around
-// 128-wide rows.
+// require_f32), so every product is an FFMA with an f32 accumulator.
 //
 // What bounds it on an H100: 4 * B * H * Sq * Sk * D operations forward (QK^T and
 // PV) and 10 * B * H * Sq * Sk * D backward (five products), against the card's 67
 // TFLOP/s of f32 FFMA: at FLUX's 512^2 shape (S = 2560, H = 24, D = 128) 80.5
-// GFLOP, 1.20 ms forward.  The bytes are (2 Sq + 2 Sk) * B * H * D * sizeof(T),
+// GFLOP, 1.20 ms forward.  The bytes are (2 Sq + 2 Sk) * B * H * D * 4 bytes,
 // 126 MB at that shape, 0.038 ms at 3.35 TB/s: compute-bound.
 //
 // What the design does about that: it is simple first.  A block of 256 threads
@@ -58,11 +57,12 @@
 // into int32 (exact), times (q tile scale * k scale) * scale.  The gradient is
 // straight through: dq = ds kn and dk = ds^T qn on the f32 copies.
 //
-// Layouts: q/out/do/dq [B, Sq, H, D] and k/v/dk/dv [B, Sk, H, D] of T (the
+// Layouts: q/out/do/dq [B, Sq, H, D] and k/v/dk/dv [B, Sk, H, D] of f32 (the
 // projection layout), lse and delta [B, H, Sq] f32, ids [B, Sq] / [B, Sk] int32
 // or both null (the unmasked case: every real token is segment 1).  The fused
 // modes: scale pairs [2, D] f32, cos / sin [S, D] (batch stride 0) or [B, S, D]
-// f32, their inputs 16-byte aligned (float4 rows).  dtype codes: 0 f32, 1 bf16.
+// f32, their inputs 16-byte aligned (float4 rows).  dtype code: 0 (f32), the only
+// one the entries take.
 
 #include "flash_nr_common.cuh"
 
@@ -74,22 +74,7 @@ constexpr int BK = 64;        // keys of a block (dkv) or of a streamed tile (fo
 constexpr int THREADS = 256;  // 16 x 16; thread (ty, tx) owns rows 4 ty .. 4 ty + 3
 constexpr float NEG = -1e30f;
 
-template <typename T>
-struct Elem;
-template <>
-struct Elem<float> {
-  static __device__ __forceinline__ float load(const float* p) { return *p; }
-  static __device__ __forceinline__ float store(float x) { return x; }
-  static __device__ __forceinline__ float round(float x) { return x; }
-};
-template <>
-struct Elem<bf16> {
-  static __device__ __forceinline__ float load(const bf16* p) { return __bfloat162float(*p); }
-  static __device__ __forceinline__ bf16 store(float x) { return __float2bfloat16(x); }
-  static __device__ __forceinline__ float round(float x) { return bf16_round(x); }
-};
-
-// What the loops read: q / k / v of T (the fused modes' qn / kn), the int8 q / k and
+// What the loops read: q / k / v in f32 (the fused modes' qn / kn), the int8 q / k and
 // their amax where the scores are int8, the ids, and the backward's residuals.
 struct Args {
   const void* q;
@@ -103,7 +88,7 @@ struct Args {
   const int* kv_seg;
   const float* lse;      // backward
   const float* delta;    // backward
-  const void* dout;      // backward, [B, Sq, H, D] T
+  const void* dout;      // backward, [B, Sq, H, D] f32
   int Sq, Sk, H;
   float scale;
 };
@@ -117,14 +102,14 @@ __device__ __forceinline__ float int8_factor(const Args& a, int b, int h, int ro
 
 // rows r0 .. r0 + ROWS - 1 of head h of sample b (zeros past S) as f32 rows of
 // stride HD + 4 at dst
-template <typename T, int HD, int ROWS>
+template <int HD, int ROWS>
 __device__ __forceinline__ void load_tile(float* dst, const void* src, int b, int r0, int S,
                                           int H, int h) {
-  const T* x = static_cast<const T*>(src);
+  const float* x = static_cast<const float*>(src);
   for (int idx = threadIdx.x; idx < ROWS * HD; idx += THREADS) {
     const int r = idx / HD, d = idx % HD, s = r0 + r;
     dst[r * (HD + 4) + d] =
-        s < S ? Elem<T>::load(x + (((size_t)b * S + s) * H + h) * HD + d) : 0.f;
+        s < S ? x[(((size_t)b * S + s) * H + h) * HD + d] : 0.f;
   }
 }
 
@@ -270,9 +255,9 @@ __host__ __device__ constexpr int fwd_smem() {  // V, P, key ids, Q, K
 // ---------------------------------------------------------------------------
 // forward: block = 64 q rows of one (b, h), the keys in 64-row tiles
 
-template <typename T, int HD, bool SEG, bool INT8>
+template <int HD, bool SEG, bool INT8>
 __global__ void __launch_bounds__(THREADS)
-simt_fwd_kernel(const Args a, T* __restrict__ out, float* __restrict__ lse) {
+simt_fwd_kernel(const Args a, float* __restrict__ out, float* __restrict__ lse) {
   constexpr int NC = HD / 16;
   extern __shared__ __align__(16) unsigned char smem[];
   float* sV = reinterpret_cast<float*>(smem);
@@ -285,7 +270,7 @@ simt_fwd_kernel(const Args a, T* __restrict__ out, float* __restrict__ lse) {
   if constexpr (INT8)
     load_tile8<HD, BQ>(reinterpret_cast<int*>(sQ), a.qq, b, q0, a.Sq, a.H, h);
   else
-    load_tile<T, HD, BQ>(reinterpret_cast<float*>(sQ), a.q, b, q0, a.Sq, a.H, h);
+    load_tile<HD, BQ>(reinterpret_cast<float*>(sQ), a.q, b, q0, a.Sq, a.H, h);
   int qseg[4];
   float fac[4], m[4], l[4], o[4][NC];
 #pragma unroll
@@ -306,8 +291,8 @@ simt_fwd_kernel(const Args a, T* __restrict__ out, float* __restrict__ lse) {
     if constexpr (INT8)
       load_tile8<HD, BK>(reinterpret_cast<int*>(sK), a.kq, b, k0, a.Sk, a.H, h);
     else
-      load_tile<T, HD, BK>(reinterpret_cast<float*>(sK), a.k, b, k0, a.Sk, a.H, h);
-    load_tile<T, HD, BK>(sV, a.v, b, k0, a.Sk, a.H, h);
+      load_tile<HD, BK>(reinterpret_cast<float*>(sK), a.k, b, k0, a.Sk, a.H, h);
+    load_tile<HD, BK>(sV, a.v, b, k0, a.Sk, a.H, h);
     if (threadIdx.x < BK) sKseg[threadIdx.x] = seg_of<SEG>(a.kv_seg, b, k0 + threadIdx.x, a.Sk);
     __syncthreads();
     float s[4][4];
@@ -329,7 +314,7 @@ simt_fwd_kernel(const Args a, T* __restrict__ out, float* __restrict__ lse) {
       for (int j = 0; j < 4; ++j) {
         const float p = ok[j] ? expf(s[i][j] - mn) : 0.f;
         ps += p;
-        sP[(4 * ty + i) * BK + tx + 16 * j] = Elem<T>::round(p);
+        sP[(4 * ty + i) * BK + tx + 16 * j] = p;
       }
       l[i] = l[i] * alpha + row_sum(ps);
       m[i] = mn;
@@ -344,9 +329,9 @@ simt_fwd_kernel(const Args a, T* __restrict__ out, float* __restrict__ lse) {
     const int r = q0 + 4 * ty + i;
     if (r >= a.Sq) break;
     const float inv = l[i] == 0.f ? 0.f : 1.f / l[i];
-    T* dst = out + (((size_t)b * a.Sq + r) * a.H + h) * HD + tx;
+    float* dst = out + (((size_t)b * a.Sq + r) * a.H + h) * HD + tx;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) dst[16 * c] = Elem<T>::store(o[i][c] * inv);
+    for (int c = 0; c < NC; ++c) dst[16 * c] = o[i][c] * inv;
     if (tx == 0) lse[((size_t)b * a.H + h) * a.Sq + r] = l[i] == 0.f ? NEG : m[i] + logf(l[i]);
   }
 }
@@ -355,15 +340,15 @@ simt_fwd_kernel(const Args a, T* __restrict__ out, float* __restrict__ lse) {
 // backward
 
 // delta[b, h, s] = sum over d of do * out, in f32; one warp per (b, s, h) row
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(PREP_WARPS * 32)
-simt_delta_kernel(const T* __restrict__ dout, const T* __restrict__ out,
+simt_delta_kernel(const float* __restrict__ dout, const float* __restrict__ out,
                   float* __restrict__ delta, int rows, int Sq, int H) {
   const int row = blockIdx.x * PREP_WARPS + threadIdx.x / 32, lane = threadIdx.x % 32;
   if (row >= rows) return;  // warp-uniform
   float acc = 0.f;
   for (int d = lane; d < HD; d += 32)
-    acc += Elem<T>::load(dout + (size_t)row * HD + d) * Elem<T>::load(out + (size_t)row * HD + d);
+    acc += dout[(size_t)row * HD + d] * out[(size_t)row * HD + d];
   acc = warp_sum(acc);
   const int h = row % H, s = (row / H) % Sq, b = row / (H * Sq);
   if (lane == 0) delta[((size_t)b * H + h) * Sq + s] = acc;
@@ -386,9 +371,9 @@ __host__ __device__ constexpr int dq_smem() {
 // dk / dv: block = 64 keys of one (b, h), the q rows in 64-row tiles.  In the
 // s_int8 mode a q tile of 64 rows lies in one quantization tile (q_rows is a
 // multiple of 64), so it has one factor.
-template <typename T, int HD, bool SEG, bool INT8>
+template <int HD, bool SEG, bool INT8>
 __global__ void __launch_bounds__(THREADS)
-simt_dkv_kernel(const Args a, T* __restrict__ dk, T* __restrict__ dv) {
+simt_dkv_kernel(const Args a, float* __restrict__ dk, float* __restrict__ dv) {
   constexpr int NC = HD / 16;
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* sK = smem;
@@ -407,8 +392,8 @@ simt_dkv_kernel(const Args a, T* __restrict__ dk, T* __restrict__ dv) {
   if constexpr (INT8)
     load_tile8<HD, BK>(reinterpret_cast<int*>(sK), a.kq, b, k0, a.Sk, a.H, h);
   else
-    load_tile<T, HD, BK>(reinterpret_cast<float*>(sK), a.k, b, k0, a.Sk, a.H, h);
-  load_tile<T, HD, BK>(sV, a.v, b, k0, a.Sk, a.H, h);
+    load_tile<HD, BK>(reinterpret_cast<float*>(sK), a.k, b, k0, a.Sk, a.H, h);
+  load_tile<HD, BK>(sV, a.v, b, k0, a.Sk, a.H, h);
   int kseg[4];
   float dka[4][NC], dva[4][NC];
 #pragma unroll
@@ -420,9 +405,9 @@ simt_dkv_kernel(const Args a, T* __restrict__ dk, T* __restrict__ dv) {
   const float one[4] = {1.f, 1.f, 1.f, 1.f};
   for (int q0 = 0; q0 < a.Sq; q0 += BQ) {
     __syncthreads();
-    load_tile<T, HD, BQ>(sQ, a.q, b, q0, a.Sq, a.H, h);
+    load_tile<HD, BQ>(sQ, a.q, b, q0, a.Sq, a.H, h);
     if constexpr (INT8) load_tile8<HD, BQ>(sQ8, a.qq, b, q0, a.Sq, a.H, h);
-    load_tile<T, HD, BQ>(sDO, a.dout, b, q0, a.Sq, a.H, h);
+    load_tile<HD, BQ>(sDO, a.dout, b, q0, a.Sq, a.H, h);
     if (threadIdx.x < BQ) {
       const int r = q0 + threadIdx.x;
       const size_t row = ((size_t)b * a.H + h) * a.Sq + r;
@@ -452,8 +437,8 @@ simt_dkv_kernel(const Args a, T* __restrict__ dk, T* __restrict__ dv) {
         const int qj = tx + 16 * j, qs = sQseg[qj];
         const float p = qs != 0 && qs == kseg[i] ? expf(s[i][j] - sLse[qj]) : 0.f;
         const float ds = __fmul_rn(__fmul_rn(p, dp[i][j] - sDelta[qj]), a.scale);
-        sPt[(4 * ty + i) * BQ + qj] = Elem<T>::round(p);
-        sDSt[(4 * ty + i) * BQ + qj] = Elem<T>::round(ds);
+        sPt[(4 * ty + i) * BQ + qj] = p;
+        sDSt[(4 * ty + i) * BQ + qj] = ds;
       }
     __syncthreads();
     pv_tile<HD, BQ>(sPt, sDO, ty, tx, dva);
@@ -466,15 +451,15 @@ simt_dkv_kernel(const Args a, T* __restrict__ dk, T* __restrict__ dv) {
     const size_t off = (((size_t)b * a.Sk + r) * a.H + h) * HD + tx;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      dk[off + 16 * c] = Elem<T>::store(dka[i][c]);
-      dv[off + 16 * c] = Elem<T>::store(dva[i][c]);
+      dk[off + 16 * c] = dka[i][c];
+      dv[off + 16 * c] = dva[i][c];
     }
   }
 }
 
 // dq: block = 64 q rows of one (b, h), the keys in 64-row tiles
-template <typename T, int HD, bool SEG, bool INT8>
-__global__ void __launch_bounds__(THREADS) simt_dq_kernel(const Args a, T* __restrict__ dq) {
+template <int HD, bool SEG, bool INT8>
+__global__ void __launch_bounds__(THREADS) simt_dq_kernel(const Args a, float* __restrict__ dq) {
   constexpr int NC = HD / 16;
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* sQ = smem;
@@ -490,8 +475,8 @@ __global__ void __launch_bounds__(THREADS) simt_dq_kernel(const Args a, T* __res
   if constexpr (INT8)
     load_tile8<HD, BQ>(reinterpret_cast<int*>(sQ), a.qq, b, q0, a.Sq, a.H, h);
   else
-    load_tile<T, HD, BQ>(reinterpret_cast<float*>(sQ), a.q, b, q0, a.Sq, a.H, h);
-  load_tile<T, HD, BQ>(sDO, a.dout, b, q0, a.Sq, a.H, h);
+    load_tile<HD, BQ>(reinterpret_cast<float*>(sQ), a.q, b, q0, a.Sq, a.H, h);
+  load_tile<HD, BQ>(sDO, a.dout, b, q0, a.Sq, a.H, h);
   int qseg[4];
   float fac[4], lse[4], delta[4], dqa[4][NC];
   const float one[4] = {1.f, 1.f, 1.f, 1.f};
@@ -511,9 +496,9 @@ __global__ void __launch_bounds__(THREADS) simt_dq_kernel(const Args a, T* __res
   }
   for (int k0 = 0; k0 < a.Sk; k0 += BK) {
     __syncthreads();
-    load_tile<T, HD, BK>(sK, a.k, b, k0, a.Sk, a.H, h);
+    load_tile<HD, BK>(sK, a.k, b, k0, a.Sk, a.H, h);
     if constexpr (INT8) load_tile8<HD, BK>(sK8, a.kq, b, k0, a.Sk, a.H, h);
-    load_tile<T, HD, BK>(sV, a.v, b, k0, a.Sk, a.H, h);
+    load_tile<HD, BK>(sV, a.v, b, k0, a.Sk, a.H, h);
     if (threadIdx.x < BK) sKseg[threadIdx.x] = seg_of<SEG>(a.kv_seg, b, k0 + threadIdx.x, a.Sk);
     __syncthreads();
     float s[4][4], dp[4][4];
@@ -529,7 +514,7 @@ __global__ void __launch_bounds__(THREADS) simt_dq_kernel(const Args a, T* __res
         const int kj = tx + 16 * j, ks = sKseg[kj];
         const float p = ks != 0 && ks == qseg[i] ? expf(s[i][j] - lse[i]) : 0.f;
         const float ds = __fmul_rn(__fmul_rn(p, dp[i][j] - delta[i]), a.scale);
-        sDS[(4 * ty + i) * BK + kj] = Elem<T>::round(ds);
+        sDS[(4 * ty + i) * BK + kj] = ds;
       }
     __syncthreads();
     pv_tile<HD, BK>(sDS, sK, ty, tx, dqa);
@@ -538,9 +523,9 @@ __global__ void __launch_bounds__(THREADS) simt_dq_kernel(const Args a, T* __res
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + 4 * ty + i;
     if (r >= a.Sq) break;
-    T* dst = dq + (((size_t)b * a.Sq + r) * a.H + h) * HD + tx;
+    float* dst = dq + (((size_t)b * a.Sq + r) * a.H + h) * HD + tx;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) dst[16 * c] = Elem<T>::store(dqa[i][c]);
+    for (int c = 0; c < NC; ++c) dst[16 * c] = dqa[i][c];
   }
 }
 
@@ -690,67 +675,65 @@ cudaError_t set_smem(bool& done, K kernel, int bytes) {
   return err;
 }
 
-template <typename T, int HD, bool INT8>
+template <int HD, bool INT8>
 cudaError_t launch_fwd(const Args& a, void* out, float* lse, int B, cudaStream_t st) {
   constexpr int smem = fwd_smem<HD, INT8>();
   static bool done[2] = {false, false};
-  cudaError_t e = set_smem(done[0], simt_fwd_kernel<T, HD, true, INT8>, smem);
-  if (e == cudaSuccess) e = set_smem(done[1], simt_fwd_kernel<T, HD, false, INT8>, smem);
+  cudaError_t e = set_smem(done[0], simt_fwd_kernel<HD, true, INT8>, smem);
+  if (e == cudaSuccess) e = set_smem(done[1], simt_fwd_kernel<HD, false, INT8>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((a.Sq + BQ - 1) / BQ, a.H, B);
-  (a.q_seg ? simt_fwd_kernel<T, HD, true, INT8> : simt_fwd_kernel<T, HD, false, INT8>)<<<
-      grid, THREADS, smem, st>>>(a, static_cast<T*>(out), lse);
+  (a.q_seg ? simt_fwd_kernel<HD, true, INT8> : simt_fwd_kernel<HD, false, INT8>)<<<
+      grid, THREADS, smem, st>>>(a, static_cast<float*>(out), lse);
   return cudaGetLastError();
 }
 
 // delta (where `out` is not null: K4; the fused modes' prep wrote it), then dk /
 // dv, then dq
-template <typename T, int HD, bool INT8>
+template <int HD, bool INT8>
 cudaError_t launch_bwd(Args a, const void* out, float* delta, void* dq, void* dk, void* dv,
                        int B, cudaStream_t st) {
   constexpr int kv_smem = dkv_smem<HD, INT8>(), q_smem = dq_smem<HD, INT8>();
   static bool done[4] = {false, false, false, false};
-  cudaError_t e = set_smem(done[0], simt_dkv_kernel<T, HD, true, INT8>, kv_smem);
-  if (e == cudaSuccess) e = set_smem(done[1], simt_dkv_kernel<T, HD, false, INT8>, kv_smem);
-  if (e == cudaSuccess) e = set_smem(done[2], simt_dq_kernel<T, HD, true, INT8>, q_smem);
-  if (e == cudaSuccess) e = set_smem(done[3], simt_dq_kernel<T, HD, false, INT8>, q_smem);
+  cudaError_t e = set_smem(done[0], simt_dkv_kernel<HD, true, INT8>, kv_smem);
+  if (e == cudaSuccess) e = set_smem(done[1], simt_dkv_kernel<HD, false, INT8>, kv_smem);
+  if (e == cudaSuccess) e = set_smem(done[2], simt_dq_kernel<HD, true, INT8>, q_smem);
+  if (e == cudaSuccess) e = set_smem(done[3], simt_dq_kernel<HD, false, INT8>, q_smem);
   if (e != cudaSuccess) return e;
   if (out) {
     const int rows = B * a.Sq * a.H;
-    simt_delta_kernel<T, HD><<<(rows + PREP_WARPS - 1) / PREP_WARPS, PREP_WARPS * 32, 0, st>>>(
-        static_cast<const T*>(a.dout), static_cast<const T*>(out), delta, rows, a.Sq, a.H);
+    simt_delta_kernel<HD><<<(rows + PREP_WARPS - 1) / PREP_WARPS, PREP_WARPS * 32, 0, st>>>(
+        static_cast<const float*>(a.dout), static_cast<const float*>(out), delta, rows, a.Sq, a.H);
     e = cudaGetLastError();
     if (e != cudaSuccess) return e;
   }
   a.delta = delta;
   const bool seg = a.q_seg != nullptr;
-  (seg ? simt_dkv_kernel<T, HD, true, INT8> : simt_dkv_kernel<T, HD, false, INT8>)<<<
-      dim3((a.Sk + BK - 1) / BK, a.H, B), THREADS, kv_smem, st>>>(a, static_cast<T*>(dk),
-                                                                  static_cast<T*>(dv));
+  (seg ? simt_dkv_kernel<HD, true, INT8> : simt_dkv_kernel<HD, false, INT8>)<<<
+      dim3((a.Sk + BK - 1) / BK, a.H, B), THREADS, kv_smem, st>>>(a, static_cast<float*>(dk),
+                                                                  static_cast<float*>(dv));
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  (seg ? simt_dq_kernel<T, HD, true, INT8> : simt_dq_kernel<T, HD, false, INT8>)<<<
-      dim3((a.Sq + BQ - 1) / BQ, a.H, B), THREADS, q_smem, st>>>(a, static_cast<T*>(dq));
+  (seg ? simt_dq_kernel<HD, true, INT8> : simt_dq_kernel<HD, false, INT8>)<<<
+      dim3((a.Sq + BQ - 1) / BQ, a.H, B), THREADS, q_smem, st>>>(a, static_cast<float*>(dq));
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t fwd_by_dim(int D_, const Args& a, void* out, float* lse, int B, cudaStream_t st) {
   switch (D_) {
-    case 32: return launch_fwd<T, 32, false>(a, out, lse, B, st);
-    case 64: return launch_fwd<T, 64, false>(a, out, lse, B, st);
-    case 128: return launch_fwd<T, 128, false>(a, out, lse, B, st);
+    case 32: return launch_fwd<32, false>(a, out, lse, B, st);
+    case 64: return launch_fwd<64, false>(a, out, lse, B, st);
+    case 128: return launch_fwd<128, false>(a, out, lse, B, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
 cudaError_t bwd_by_dim(int D_, const Args& a, const void* out, float* delta, void* dq, void* dk,
                        void* dv, int B, cudaStream_t st) {
   switch (D_) {
-    case 32: return launch_bwd<T, 32, false>(a, out, delta, dq, dk, dv, B, st);
-    case 64: return launch_bwd<T, 64, false>(a, out, delta, dq, dk, dv, B, st);
-    case 128: return launch_bwd<T, 128, false>(a, out, delta, dq, dk, dv, B, st);
+    case 32: return launch_bwd<32, false>(a, out, delta, dq, dk, dv, B, st);
+    case 64: return launch_bwd<64, false>(a, out, delta, dq, dk, dv, B, st);
+    case 128: return launch_bwd<128, false>(a, out, delta, dq, dk, dv, B, st);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -780,39 +763,34 @@ cudaError_t launch_nr_prep(const float* q, const float* k, const float* qs, cons
 }  // namespace simt
 }  // namespace
 
-// K3 in its f32 (D = 32, 64, 128) and narrow bf16 (D = 32, 64) modes on `stream`:
-// out [B, Sq, H, D] of the inputs' dtype, lse [B, H, Sq] f32.  Returns a cudaError_t.
+// K3 in its f32 mode (D = 32, 64, 128) on `stream`: out [B, Sq, H, D] f32, lse [B, H,
+// Sq] f32.  dtype must be 0 (f32).  Returns a cudaError_t (cudaErrorInvalidValue for
+// any other dtype or head dim).
 extern "C" int qflux_simt_fwd(const void* q, const void* k, const void* v, const void* q_seg,
                               const void* kv_seg, void* out, void* lse, int B, int Sq, int Sk,
                               int H, int D_, int dtype, float scale, void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || (!q_seg != !kv_seg))
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || (!q_seg != !kv_seg) || dtype != 0)
     return (int)cudaErrorInvalidValue;
   simt::Args a{q, k, v, nullptr, nullptr, nullptr, 0, static_cast<const int*>(q_seg),
                static_cast<const int*>(kv_seg), nullptr, nullptr, nullptr, Sq, Sk, H, scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* l = static_cast<float*>(lse);
-  if (dtype == 0) return (int)simt::fwd_by_dim<float>(D_, a, out, l, B, st);
-  if (dtype == 1) return (int)simt::fwd_by_dim<bf16>(D_, a, out, l, B, st);
-  return (int)cudaErrorInvalidValue;
+  return (int)simt::fwd_by_dim(D_, a, out, static_cast<float*>(lse), B,
+                               static_cast<cudaStream_t>(stream));
 }
 
-// K4 in the same modes: delta (f32 [B, H, Sq] scratch), then dk / dv, then dq, in
-// the inputs' dtype.  Returns a cudaError_t.
+// K4 in the same mode: delta (f32 [B, H, Sq] scratch), then dk / dv, then dq, f32.
+// dtype must be 0 (f32).  Returns a cudaError_t.
 extern "C" int qflux_simt_bwd(const void* q, const void* k, const void* v, const void* q_seg,
                               const void* kv_seg, const void* out, const void* lse,
                               const void* dout, void* delta, void* dq, void* dk, void* dv, int B,
                               int Sq, int Sk, int H, int D_, int dtype, float scale,
                               void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || !delta || (!q_seg != !kv_seg))
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || !delta || (!q_seg != !kv_seg) || dtype != 0)
     return (int)cudaErrorInvalidValue;
   simt::Args a{q, k, v, nullptr, nullptr, nullptr, 0, static_cast<const int*>(q_seg),
                static_cast<const int*>(kv_seg), static_cast<const float*>(lse), nullptr, dout,
                Sq, Sk, H, scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* dl = static_cast<float*>(delta);
-  if (dtype == 0) return (int)simt::bwd_by_dim<float>(D_, a, out, dl, dq, dk, dv, B, st);
-  if (dtype == 1) return (int)simt::bwd_by_dim<bf16>(D_, a, out, dl, dq, dk, dv, B, st);
-  return (int)cudaErrorInvalidValue;
+  return (int)simt::bwd_by_dim(D_, a, out, static_cast<float*>(delta), dq, dk, dv, B,
+                               static_cast<cudaStream_t>(stream));
 }
 
 // K1 in its f32 mode (D = 128): the prep (qn, kn: f32 [B, S, H, D] scratch), then the
@@ -843,8 +821,8 @@ extern "C" int qflux_simt_nr_fwd(const void* q, const void* k, const void* v,
                      static_cast<const unsigned*>(amax), q_rows, sg, sg, nullptr, nullptr,
                      nullptr, S, S, H, scale};
   float* l = static_cast<float*>(lse);
-  return (int)(q_rows ? simt::launch_fwd<float, D, true>(a, out, l, B, st_)
-                      : simt::launch_fwd<float, D, false>(a, out, l, B, st_));
+  return (int)(q_rows ? simt::launch_fwd<D, true>(a, out, l, B, st_)
+                      : simt::launch_fwd<D, false>(a, out, l, B, st_));
 }
 
 // The f32 modes' prep alone, as K1 runs it (for tests and the smoke, which hold
@@ -904,8 +882,8 @@ extern "C" int qflux_simt_nr_bwd(const void* q, const void* k, const void* v,
   const simt::Args a{qnf, knf, v, static_cast<const int8_t*>(qq), static_cast<const int8_t*>(kq),
                      static_cast<const unsigned*>(amax), q_rows, sg, sg,
                      static_cast<const float*>(lse), dl, dout, S, S, H, scale};
-  e = q_rows ? simt::launch_bwd<float, D, true>(a, nullptr, dl, dqn, dkn, dv, B, st_)
-             : simt::launch_bwd<float, D, false>(a, nullptr, dl, dqn, dkn, dv, B, st_);
+  e = q_rows ? simt::launch_bwd<D, true>(a, nullptr, dl, dqn, dkn, dv, B, st_)
+             : simt::launch_bwd<D, false>(a, nullptr, dl, dqn, dkn, dv, B, st_);
   if (e != cudaSuccess) return (int)e;
   const int n_tiles = (S + 63) / 64;
   const dim3 grid(n_tiles, H, B);

@@ -9,18 +9,23 @@
 // needs no -lcuda) with a cache of encoded maps.  Each translation unit gets its
 // own copy (anonymous namespace), as with common.cuh.
 //
-// Shared-memory tile layout of every TMA load here: 128-byte rows (64 bf16),
-// 8-row swizzle atoms of 1024 bytes, 16-byte chunk c of row r stored at chunk
-// c ^ (r & 7) (CU_TENSOR_MAP_SWIZZLE_128B; tile bases 1024-aligned).  A
-// [R, 128] bf16 tile is two such [R, 64] halves, R * 128 bytes apart.  wgmma
-// reads it
-//   * K-major (the contraction along the 128 columns: q·kᵀ's q and k):
-//     descriptor at half (kk / 4) + (kk % 4) * 32 bytes for k16 step kk,
-//     SBO = 1024 (the 8-row groups), layout 1 (128-byte swizzle);
+// Shared-memory tile layout of every TMA load of a [R, HD] bf16 head tile (HD =
+// 128, 64 or 32: the template parameter of the helpers below, 128 by default).
+// HD = 128 and 64: 128-byte rows (64 bf16), 8-row swizzle atoms of 1024 bytes,
+// 16-byte chunk c of row r stored at chunk c ^ (r & 7)
+// (CU_TENSOR_MAP_SWIZZLE_128B; tile bases 1024-aligned); a [R, 128] tile is two
+// such [R, 64] halves, R * 128 bytes apart, a [R, 64] tile one.  HD = 32: 64-byte
+// rows, 8-row atoms of 512 bytes, chunk c of row r at chunk c ^ ((r >> 1) & 3)
+// (CU_TENSOR_MAP_SWIZZLE_64B, the same address bits XORed).  Call SPAN the row
+// bytes of one swizzle span (128, or 64 at HD = 32).  wgmma reads the tile
+//   * K-major (the contraction along the HD columns: q·kᵀ's q and k):
+//     descriptor at span (kk / (SPAN / 32)) + (kk % (SPAN / 32)) * 32 bytes for
+//     k16 step kk, SBO = 8 * SPAN (the 8-row groups), layout 1 (128-byte
+//     swizzle) or 2 (64-byte);
 //   * MN-major (the contraction along the rows: p·v's v): descriptor at
-//     kk * 2048 bytes (16 rows) for k16 step kk, LBO = R * 128 (the second
-//     64-column half), SBO = 1024, layout 1, transposed B.
-// An [R, 128] int8 tile is one such [R, 128-byte] block (a row is a single
+//     kk * 16 * SPAN bytes (16 rows) for k16 step kk, LBO = R * SPAN (the second
+//     64-column half at HD = 128), SBO = 8 * SPAN, the same layout, transposed B.
+// An [R, 128] int8 tile is one [R, 128-byte] block (a row is a single
 // swizzle span); wgmma reads it K-major only: descriptor at kk * 32 bytes for
 // k32 step kk, SBO = 1024, layout 1 (desc_kmajor8).
 
@@ -98,6 +103,34 @@ __device__ __forceinline__ void consumers_sync() {
 // the 128 threads of consumer warpgroup c (0 or 1) meet, on named barrier 2 + c
 __device__ __forceinline__ void warpgroup_sync(int c) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(2 + c) : "memory");
+}
+
+// named barrier `id` over `n` threads: wait for the others, or arrive without waiting
+__device__ __forceinline__ void named_bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void named_bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Two consumer warpgroups (c = 0, 1) taking turns to issue their products, so
+// that one's softmax runs while the other's products are in the tensor cores:
+// warpgroup c waits on named barrier 4 + c for its turn (turn_take), issues,
+// and hands the turn to the other on its barrier (turn_pass).  Warpgroup 1
+// hands warpgroup 0 its first turn (turns_start) and leaves out its last
+// hand-over, which nobody would take; both take the same number of turns.
+// ptxas serializes the wgmmas unless a wgmma.fence follows any wait between a
+// turn and its products (C7520).  K3's narrow instances take turns; the
+// backward's loops, tried with them on an H100, ran slower.
+__device__ __forceinline__ void turns_start(int c) {
+  if (c == 1) named_bar_arrive(4, 256);
+}
+
+__device__ __forceinline__ void turn_take(int c) { named_bar_sync(4 + c, 256); }
+
+__device__ __forceinline__ void turn_pass(int c, bool last) {
+  if (!(last && c == 1)) named_bar_arrive(4 + (c ^ 1), 256);
 }
 
 // Moves registers between warpgroups at run time; ptxas compiles the code after
@@ -298,6 +331,67 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
       : "memory");
 }
 
+// d[64 x 64] += A[64 x 16] * B[16 x 64], A from registers (the fragment of
+// wgmma_m64n128k16_rs), B MN-major from shared memory (transposed); the
+// accumulator layout of the 128-column shape over 8 column tiles
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
+
+// d[64 x 32] += A[64 x 16] * B[16 x 32], A from registers (the fragment of
+// wgmma_m64n128k16_rs), B MN-major from shared memory (transposed); the
+// accumulator layout of the 128-column shape over 4 column tiles
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16], const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
+
+// d[64 x N] += A[64 x 16] * B[16 x N] for the output width N = HD of a head
+// tile (128, 64 or 32), A from registers, B MN-major
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 128) {
+    wgmma_m64n128k16_rs(d, a, db);
+  } else if constexpr (N == 64) {
+    wgmma_m64n64k16_rs(d, a, db);
+  } else {
+    static_assert(N == 32, "head dims 32, 64 and 128");
+    wgmma_m64n32k16_rs(d, a, db);
+  }
+}
+
 // d[64 x 128] (+)= A[64 x 32] * B[32 x 128], s8 in, s32 accumulators; A and B
 // K-major in shared memory; acc = 0 overwrites d.  Accumulator layout as the
 // f32 shapes': d[4 j + 0..1] = (row 16 w + g, cols 8 j + 2 t, + 1), d[4 j +
@@ -395,13 +489,31 @@ __device__ __forceinline__ void to_a_frags(const float (&x)[R], uint32_t (&a)[R 
   }
 }
 
-// descriptors of the tile layout above (base 1024-aligned, R rows)
-__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int rows, int row0, int kk) {
-  return wgmma_desc(tile + (kk >> 2) * rows * 128 + row0 * 128 + (kk & 3) * 32, 16, 1024, 1);
+// the bytes of one swizzle span of a [R, HD] bf16 head tile (128, or 64 at HD = 32)
+// and its descriptor layout (1: the 128-byte swizzle, 2: the 64-byte one)
+template <int HD>
+__host__ __device__ constexpr int span_bytes() {
+  static_assert(HD == 128 || HD == 64 || HD == 32, "head dims 32, 64 and 128");
+  return HD == 32 ? 64 : 128;
 }
 
+template <int HD>
+__host__ __device__ constexpr uint32_t span_layout() {
+  return span_bytes<HD>() == 128 ? 1 : 2;
+}
+
+// descriptors of the tile layout above (base 1024-aligned, R rows)
+template <int HD = 128>
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t tile, int rows, int row0, int kk) {
+  constexpr int SPAN = span_bytes<HD>(), KS = SPAN / 32;  // k16 steps in a span
+  return wgmma_desc(tile + (kk / KS) * rows * SPAN + row0 * SPAN + (kk % KS) * 32, 16, 8 * SPAN,
+                    span_layout<HD>());
+}
+
+template <int HD = 128>
 __device__ __forceinline__ uint64_t desc_mnmajor(uint32_t tile, int rows, int kk) {
-  return wgmma_desc(tile + kk * 2048, rows * 128, 1024, 1);
+  constexpr int SPAN = span_bytes<HD>();
+  return wgmma_desc(tile + kk * 16 * SPAN, rows * SPAN, 8 * SPAN, span_layout<HD>());
 }
 
 // the int8 tile's K-major descriptor at rows row0.. for k32 step kk
@@ -414,34 +526,50 @@ __device__ __forceinline__ uint32_t swz8_offset(int row, int col) {
   return row * 128 + ((((col >> 4) ^ (row & 7)) << 4) | (col & 15));
 }
 
-// byte offset of element (row, col) of a [rows, 128] bf16 tile in that layout
+// byte offset of element (row, col) of a [rows, HD] bf16 tile in that layout
+template <int HD = 128>
 __device__ __forceinline__ uint32_t swz_offset(int rows, int row, int col) {
-  return (col >> 6) * rows * 128 + row * 128 + ((((col >> 3) & 7) ^ (row & 7)) << 4) +
-         (col & 7) * 2;
+  if constexpr (span_bytes<HD>() == 128)
+    return (col >> 6) * rows * 128 + row * 128 + ((((col >> 3) & 7) ^ (row & 7)) << 4) +
+           (col & 7) * 2;
+  else
+    return row * 64 + ((((col >> 3) & 3) ^ ((row >> 1) & 3)) << 4) + (col & 7) * 2;
 }
 
-// this warp's 16 rows of a 64 x 128 f32 accumulator (wgmma layout), each times
+// this warp's 16 rows of a 64 x HD f32 accumulator (wgmma layout), each times
 // mul[row half], as bf16 to rows grow0 .. grow0 + 15 of one head (row stride
 // rs; rows >= n skipped), staged in the warp's own rows trow0 .. trow0 + 15 of
-// the swizzled [rows, 128] smem tile `tile` for 16-byte coalesced stores
-__device__ __forceinline__ void store_rows_wg(const float (&acc)[64], const float (&mul)[2],
+// the swizzled [rows, HD] smem tile `tile` for 16-byte coalesced stores
+template <int HD = 128>
+__device__ __forceinline__ void store_rows_wg(const float (&acc)[HD / 2], const float (&mul)[2],
                                               uint8_t* tile, int rows, int trow0,
                                               bf16* __restrict__ dst, int rs, int grow0, int n) {
+  constexpr int CPR = HD / 8;  // 16-byte chunks of a row
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int j = 0; j < 16; ++j)
+  for (int j = 0; j < HD / 8; ++j)
 #pragma unroll
     for (int i = 0; i < 2; ++i)
-      *reinterpret_cast<uint32_t*>(tile + swz_offset(rows, trow0 + g + 8 * i, 8 * j + 2 * t)) =
+      *reinterpret_cast<uint32_t*>(tile +
+                                   swz_offset<HD>(rows, trow0 + g + 8 * i, 8 * j + 2 * t)) =
           pack_bf16(acc[4 * j + 2 * i] * mul[i], acc[4 * j + 2 * i + 1] * mul[i]);
   __syncwarp();
 #pragma unroll
-  for (int jj = 0; jj < 8; ++jj) {
-    const int idx = jj * 32 + lane, r = idx >> 4, cc = idx & 15;
+  for (int jj = 0; jj < HD / 16; ++jj) {
+    const int idx = jj * 32 + lane, r = idx / CPR, cc = idx % CPR;
     if (grow0 + r < n)
       *reinterpret_cast<uint4*>(dst + (size_t)(grow0 + r) * rs + cc * 8) =
-          *reinterpret_cast<const uint4*>(tile + swz_offset(rows, trow0 + r, cc * 8));
+          *reinterpret_cast<const uint4*>(tile + swz_offset<HD>(rows, trow0 + r, cc * 8));
   }
+}
+
+// a [rows, HD] tile of head h, rows row0.. of sample b, by TMA on `bar` (map:
+// encode_heads at head dim HD); HD = 128 as its two [rows, 64] halves
+template <int HD = 128>
+__device__ __forceinline__ void tma_load_head(uint8_t* dst, const CUtensorMap* map,
+                                              uint64_t* bar, int rows, int h, int row0, int b) {
+  tma_load_4d(dst, map, bar, 0, h, row0, b);
+  if constexpr (HD == 128) tma_load_4d(dst + rows * 128, map, bar, 64, h, row0, b);
 }
 
 // ---------------------------------------------------------------------------
@@ -565,16 +693,18 @@ inline bool encode_2d_cached(CUtensorMap* map, CUtensorMapDataType type, int ele
   return encode_cached(map, type, ptr, 2, dims, strides, box, swizzle);
 }
 
-// one head's rows of a [B, S, H, 128] bf16 tensor, read in [box_rows, 64] boxes
-// with the 128-byte swizzle (coordinates: column 0 or 64, h, s, b); rows past S
-// of each sample are zero-filled
+// one head's rows of a [B, S, H, D] bf16 tensor (D = 128, 64 or 32), read in
+// [box_rows, min(D, 64)] boxes with the 128-byte swizzle (D = 32: [box_rows, 32]
+// with the 64-byte one) (coordinates: column 0 or 64, h, s, b); rows past S of
+// each sample are zero-filled
 inline bool encode_heads(CUtensorMap* map, const void* ptr, int B, int S, int H,
-                         uint32_t box_rows) {
-  const uint64_t dims[4] = {128, (uint64_t)H, (uint64_t)S, (uint64_t)B};
-  const uint64_t strides[3] = {256, 256ull * H, 256ull * H * S};
-  const uint32_t box[4] = {64, 1, box_rows, 1};
+                         uint32_t box_rows, int D = 128) {
+  const uint64_t row = 2ull * D;
+  const uint64_t dims[4] = {(uint64_t)D, (uint64_t)H, (uint64_t)S, (uint64_t)B};
+  const uint64_t strides[3] = {row, row * H, row * H * S};
+  const uint32_t box[4] = {(uint32_t)(D < 64 ? D : 64), 1, box_rows, 1};
   return encode_cached(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, ptr, 4, dims, strides, box,
-                       CU_TENSOR_MAP_SWIZZLE_128B);
+                       D == 32 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // the same for a [B, S, H, 128] int8 tensor: a row is one 128-byte swizzle span,

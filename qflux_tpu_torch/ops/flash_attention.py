@@ -28,14 +28,15 @@ hop's forward and backward.  The parts:
     forward stores the op's out and lse and its recompute returns them
     instead of launching again.
 
-The wgmma kernels take bf16 at head dim 128.  JAX's Pallas kernels compute
-in f32 and cast to the refs' dtype, and take any head dim, so the same
-route runs f32 (D = 32, 64, 128) and bf16 at D = 32 / 64 too: those go to
-the CUDA-core kernels of csrc/flash_simt.cu (`qflux_simt_fwd` /
+The wgmma kernels take bf16 at head dims 128, 64 and 32 (their loops are
+templated on the head dim; 64 and 32 are the "narrow" mode).  JAX's Pallas
+kernels compute in f32 and cast to the refs' dtype, and take any head dim,
+so the same route runs f32 (D = 32, 64, 128) too: that goes to the
+CUDA-core kernels of csrc/flash_simt.cu (`qflux_simt_fwd` /
 `qflux_simt_bwd`, f32 FFMA: a tensor core's f32 is TF32), chosen by
 `mode`; any other dtype or head dim raises.  `KERNEL_LAUNCHES` counts K3's
-launches and `BWD_KERNEL_LAUNCHES` K4's in every mode; `F32_*` and
-`NARROW_*` count the CUDA-core modes among them.  The
+launches and `BWD_KERNEL_LAUNCHES` K4's in every mode; `F32_*` counts the
+f32 mode among them and `NARROW_*` bf16 at D = 32 / 64.  The
 kernels take every S and mask the ragged edge by index, so JAX's block
 pickers (`_auto_block`, `BLOCK_K_CAP`, `BLOCK_K_CAP_BWD`,
 `_merged_bwd_block_q`) are TPU tuners the port does not carry: K4 serves
@@ -49,16 +50,17 @@ import torch
 from qflux_tpu_torch.ops import remat
 from qflux_tpu_torch.ops.attention import sdpa_with_lse, segment_mask
 
-HEAD_DIM = 128          # the head dim of the bf16 wgmma kernels
-HEAD_DIMS = (32, 64, 128)  # the head dims csrc/flash_simt.cu takes (f32; bf16 32 / 64)
+HEAD_DIM = 128             # the head dim of the "bf16" mode
+HEAD_DIMS = (32, 64, 128)  # the head dims the kernels take, in f32 and in bf16
 
 # launches of the CUDA kernels in this process: every K3 / K4 launch, whatever
-# its mode, and apart the CUDA-core modes of csrc/flash_simt.cu among them
+# its mode, and apart the f32 mode (csrc/flash_simt.cu) and the narrow bf16
+# mode among them
 KERNEL_LAUNCHES = 0             # K3
 BWD_KERNEL_LAUNCHES = 0         # K4
 F32_KERNEL_LAUNCHES = 0         # K3 in f32 (D = 32, 64, 128)
 F32_BWD_KERNEL_LAUNCHES = 0     # K4 in f32
-NARROW_KERNEL_LAUNCHES = 0      # K3 in bf16 at D = 32, 64
+NARROW_KERNEL_LAUNCHES = 0      # K3 in bf16 at D = 32, 64 (the wgmma kernel)
 NARROW_BWD_KERNEL_LAUNCHES = 0  # K4 in bf16 at D = 32, 64
 
 
@@ -107,25 +109,26 @@ def flash_bwd_reference(q, k, v, q_seg, kv_seg, out, lse, do, scale):
 
 
 def mode(q) -> str:
-    """Which kernel takes q on the card, by its dtype and head dim: "bf16" for
-    the wgmma K3 / K4 (bf16 at D = 128), "f32" (D = 32, 64, 128) and "narrow"
-    (bf16 at D = 32, 64) for the CUDA-core modes of csrc/flash_simt.cu.
-    Raises on anything else, naming what the kernels take."""
+    """Which kernel takes q on the card, by its dtype and head dim: "bf16"
+    (bf16 at D = 128) and "narrow" (bf16 at D = 32, 64) for the wgmma K3 /
+    K4 of csrc/flash_fwd.cu / flash_bwd.cu, "f32" (D = 32, 64, 128) for the
+    CUDA-core kernels of csrc/flash_simt.cu.  Raises on anything else,
+    naming what the kernels take."""
     d = q.shape[-1]
-    if q.dtype == torch.bfloat16 and d == HEAD_DIM:
-        return "bf16"
-    if q.dtype in _DTYPE_CODE and d in HEAD_DIMS:
-        return "f32" if q.dtype == torch.float32 else "narrow"
+    if q.dtype in (torch.float32, torch.bfloat16) and d in HEAD_DIMS:
+        if q.dtype == torch.float32:
+            return "f32"
+        return "bf16" if d == HEAD_DIM else "narrow"
     raise ValueError(f"flash_attention: {q.dtype} at head dim {d}; the kernels take "
                      f"torch.float32 or torch.bfloat16 at head dims {HEAD_DIMS}")
 
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}  # csrc/flash_simt.cu's dtype codes
+SIMT_F32 = 0  # csrc/flash_simt.cu's dtype code for f32, the one its K3 / K4 entries take
 
 
 def _count(q, bwd):
     """One launch of K3 (K4 where bwd) in q's mode: the kernel's count, and
-    the CUDA-core mode's beside it (f32, or bf16 off D = 128)."""
+    the f32 or narrow mode's beside it."""
     name = "BWD_KERNEL_LAUNCHES" if bwd else "KERNEL_LAUNCHES"
     names = [name]
     if q.dtype == torch.float32:
@@ -151,18 +154,18 @@ def _check(name, t, device, dtype, shape, aligned=True):
 
 
 def _kernel_args(q, k, v, q_seg, kv_seg):
-    """Check q, k, v against what the kernels take (`mode`: bf16 at D = 128
-    for the wgmma kernels, whose TMA tensor maps need 16-byte alignment;
-    f32 at D = 32, 64, 128 or bf16 at D = 32, 64 for csrc/flash_simt.cu;
-    [B, S, H, D] contiguous, k / v of one shape with q's B and H, all of
-    q's dtype and on q's device) and return (B, Sq, Sk, H, int32 q ids,
-    int32 kv ids), the ids both None (unmasked) or both set."""
+    """Check q, k, v against what the kernels take (`mode`: bf16 at D = 32,
+    64, 128 for the wgmma kernels, whose TMA tensor maps need 16-byte
+    alignment; f32 at D = 32, 64, 128 for csrc/flash_simt.cu; [B, S, H, D]
+    contiguous, k / v of one shape with q's B and H, all of q's dtype and on
+    q's device) and return (B, Sq, Sk, H, int32 q ids, int32 kv ids), the
+    ids both None (unmasked) or both set."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"flash_attention: q / k must be [B, S, H, D], got "
                          f"{tuple(q.shape)} / {tuple(k.shape)}")
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    wgmma = mode(q) == "bf16"
+    wgmma = mode(q) != "f32"
     if sk < 1:
         raise ValueError("flash_attention: no keys")
     _check("q", q, q.device, q.dtype, (b, sq, h, d), wgmma)
@@ -202,18 +205,18 @@ def _flash_fwd_cuda(q, k, v, q_seg, kv_seg, scale):
 def _launch_fwd(kl, stream, q, k, v, q_seg, kv_seg, scale):
     """The C call of `_flash_fwd_cuda` on checked arguments (int32 ids or
     both None): allocates out [B, Sq, H, D] and lse [B, H, Sq] f32,
-    launches through `kl` (a runtime.build KernelLibrary) on `stream` (K3,
-    or in the CUDA-core modes `qflux_simt_fwd` with the head dim and the
-    dtype code) and raises on a CUDA error."""
+    launches through `kl` (a runtime.build KernelLibrary) on `stream` (K3
+    with the head dim in bf16, or `qflux_simt_fwd` with the head dim and
+    the f32 dtype code) and raises on a CUDA error."""
     b, sq, h, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), device=q.device, dtype=torch.float32)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(q_seg), _ptr(kv_seg),
-            out.data_ptr(), lse.data_ptr(), b, sq, k.shape[1], h)
-    if mode(q) == "bf16":
-        code = kl.lib.qflux_flash_fwd(*ptrs, float(scale), stream)
+            out.data_ptr(), lse.data_ptr(), b, sq, k.shape[1], h, d)
+    if mode(q) == "f32":
+        code = kl.lib.qflux_simt_fwd(*ptrs, SIMT_F32, float(scale), stream)
     else:
-        code = kl.lib.qflux_simt_fwd(*ptrs, d, _DTYPE_CODE[q.dtype], float(scale), stream)
+        code = kl.lib.qflux_flash_fwd(*ptrs, float(scale), stream)
     kl.check(code, "flash_fwd launch")
     return out, lse
 
@@ -237,19 +240,19 @@ def _flash_bwd_cuda(q, k, v, q_seg, kv_seg, out, lse, do, scale):
 def _launch_bwd(kl, stream, q, k, v, q_seg, kv_seg, out, lse, do, scale):
     """The C call of `_flash_bwd_cuda` on checked arguments: allocates the
     f32 delta scratch [B, H, Sq] and dq / dk / dv (q's dtype), launches
-    through `kl` (a runtime.build KernelLibrary) on `stream` (K4, or
-    `qflux_simt_bwd` with the head dim and dtype code) and raises on a CUDA
-    error."""
+    through `kl` (a runtime.build KernelLibrary) on `stream` (K4 with the
+    head dim in bf16, or `qflux_simt_bwd` with the head dim and the f32
+    dtype code) and raises on a CUDA error."""
     b, sq, h, d = q.shape
     delta = torch.empty((b, h, sq), device=q.device, dtype=torch.float32)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(q_seg), _ptr(kv_seg), out.data_ptr(),
             lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), b, sq, k.shape[1], h)
-    if mode(q) == "bf16":
-        code = kl.lib.qflux_flash_bwd(*args, float(scale), stream)
+            dv.data_ptr(), b, sq, k.shape[1], h, d)
+    if mode(q) == "f32":
+        code = kl.lib.qflux_simt_bwd(*args, SIMT_F32, float(scale), stream)
     else:
-        code = kl.lib.qflux_simt_bwd(*args, d, _DTYPE_CODE[q.dtype], float(scale), stream)
+        code = kl.lib.qflux_flash_bwd(*args, float(scale), stream)
     kl.check(code, "flash_bwd launch")
     return dq, dk, dv
 

@@ -11,7 +11,9 @@ scale-gradient partials are one [2, D] per (b, h, 64-row tile) in both.  The
 s_int8 modes take q tiles of a multiple of 128 rows (a K1 or dq block's
 rows lie in one tile); the s_int8 prep alone (`_launch_int8_prep`) is the
 entry that times it apart.  K3 reads q, k and v by TMA (16-byte aligned,
-contiguous).  K4 takes an f32 delta scratch [B, H, Sq].
+contiguous), at head dim 128 and in the narrow mode (bf16 at 32 / 64)
+alike, with the head dim as an argument.  K4 takes an f32 delta scratch
+[B, H, Sq].  f32 takes the CUDA-core kernels of csrc/flash_simt.cu.
 """
 
 import ctypes
@@ -136,8 +138,8 @@ def test_fwd_launch_raises_on_a_cuda_error():
 def test_bwd_launch_arguments(sq, sk, ids):
     """`_launch_bwd` hands qflux_flash_bwd the inputs, the ids (or None),
     out / lse / do, an f32 delta scratch [B, H, Sq] and dq / dk / dv, then
-    B, Sq, Sk, H and the scale; it returns the three gradients in the
-    inputs' shapes and dtype."""
+    B, Sq, Sk, H, the head dim and the scale; it returns the three
+    gradients in the inputs' shapes and dtype."""
     b, h, scale = 2, 3, 0.0625
     rng = np.random.default_rng(sq + sk)
     q = torch.from_numpy(rng.standard_normal((b, sq, h, D)).astype(np.float32)).bfloat16()
@@ -160,7 +162,7 @@ def test_bwd_launch_arguments(sq, sk, ids):
     assert args[5:8] == (out.data_ptr(), lse.data_ptr(), do.data_ptr())
     assert isinstance(args[8], int) and args[8] not in (q.data_ptr(), out.data_ptr())
     assert args[9:12] == (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
-    assert args[12:17] == (b, sq, sk, h, scale) and args[17] == 77
+    assert args[12:18] == (b, sq, sk, h, D, scale) and args[18] == 77
 
 
 def test_kn_prep_entry_point_is_declared():
@@ -422,8 +424,8 @@ def _k3_args(sq, sk, ids, b=2, h=3):
                                        (4000, 2000, False)])
 def test_fwd_launch_arguments_k3(sq, sk, ids):
     """`_launch_fwd` hands qflux_flash_fwd q, k, v, the int32 ids (or None),
-    out and lse, then B, Sq, Sk, H, the scale and the stream; it returns out
-    [B, Sq, H, D] bf16 and lse [B, H, Sq] f32."""
+    out and lse, then B, Sq, Sk, H, the head dim, the scale and the stream;
+    it returns out [B, Sq, H, D] bf16 and lse [B, H, Sq] f32."""
     b, h, scale = 2, 3, 0.0625
     q, k, v, q_seg, kv_seg = _k3_args(sq, sk, ids, b, h)
     _, _, _, _, qs32, ks32 = tfa._kernel_args(q, k, v, q_seg, kv_seg)
@@ -437,7 +439,7 @@ def test_fwd_launch_arguments_k3(sq, sk, ids):
     assert args[:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
     assert args[3:5] == ((None, None) if not ids else (qs32.data_ptr(), ks32.data_ptr()))
     assert args[5:7] == (out.data_ptr(), lse.data_ptr())
-    assert args[7:12] == (b, sq, sk, h, scale) and args[12] == 55
+    assert args[7:13] == (b, sq, sk, h, D, scale) and args[13] == 55
 
 
 def test_fwd_launch_raises_on_a_cuda_error_k3():
@@ -495,8 +497,9 @@ def test_cpu_tensors_never_reach_the_k2_or_k3_entries(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# the CUDA-core modes of csrc/flash_simt.cu: K3 / K4 in f32 (D = 32, 64, 128)
-# and bf16 (D = 32, 64), K1 / K2 in f32 (and their s_int8 mode)
+# the modes off bf16 at D = 128: K3 / K4 in f32 (D = 32, 64, 128) on the
+# CUDA-core kernels of csrc/flash_simt.cu and in bf16 at D = 32, 64 (the
+# narrow mode) on the wgmma kernels; K1 / K2 in f32 (and their s_int8 mode)
 
 SIMT_MODES = [(torch.float32, 32), (torch.float32, 64), (torch.float32, 128),
               (torch.bfloat16, 32), (torch.bfloat16, 64)]
@@ -517,10 +520,11 @@ def _simt_qkv(sq, sk, d, dtype, ids, b=2, h=3):
 @pytest.mark.parametrize("dtype,d", SIMT_MODES, ids=SIMT_IDS)
 @pytest.mark.parametrize("sq,sk,ids", [(300, 520, True), (77, 77, False)])
 def test_simt_fwd_launch_arguments(sq, sk, ids, dtype, d):
-    """K3 in a CUDA-core mode calls qflux_simt_fwd (never qflux_flash_fwd)
-    with q, k, v, the int32 ids (or None), out and lse, then B, Sq, Sk, H,
-    the head dim, the dtype code (0 f32, 1 bf16), the scale and the stream;
-    out has q's dtype and lse is f32 [B, H, Sq]."""
+    """K3 in f32 calls qflux_simt_fwd (never qflux_flash_fwd) with q, k, v,
+    the int32 ids (or None), out and lse, then B, Sq, Sk, H, the head dim,
+    the f32 dtype code 0, the scale and the stream; in the narrow mode (bf16
+    at D = 32, 64) it calls the wgmma qflux_flash_fwd with the head dim
+    (never qflux_simt_*).  out has q's dtype and lse is f32 [B, H, Sq]."""
     b, h, scale = 2, 3, 0.0625
     q, k, v, q_seg, kv_seg = _simt_qkv(sq, sk, d, dtype, ids, b, h)
     _, _, _, _, qs32, ks32 = tfa._kernel_args(q, k, v, q_seg, kv_seg)
@@ -529,20 +533,23 @@ def test_simt_fwd_launch_arguments(sq, sk, ids, dtype, d):
     assert out.shape == q.shape and out.dtype == dtype
     assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
     (name, args), = kl.lib.calls
-    assert name == "qflux_simt_fwd" and len(args) == len(build._SIGNATURES[name][1])
+    f32 = dtype == torch.float32
+    assert name == ("qflux_simt_fwd" if f32 else "qflux_flash_fwd")
+    assert len(args) == len(build._SIGNATURES[name][1])
     assert args[:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
     assert args[3:5] == ((None, None) if not ids else (qs32.data_ptr(), ks32.data_ptr()))
     assert args[5:7] == (out.data_ptr(), lse.data_ptr())
-    assert args[7:13] == (b, sq, sk, h, d, 0 if dtype == torch.float32 else 1)
-    assert args[13:15] == (scale, 66)
+    assert args[7:12] == (b, sq, sk, h, d)
+    assert args[12:] == ((0, scale, 66) if f32 else (scale, 66))
 
 
 @pytest.mark.parametrize("dtype,d", SIMT_MODES, ids=SIMT_IDS)
 def test_simt_bwd_launch_arguments(dtype, d):
-    """K4 in a CUDA-core mode calls qflux_simt_bwd with the inputs, ids,
-    out / lse / do, an f32 delta scratch [B, H, Sq] and dq / dk / dv in the
-    inputs' dtype, then B, Sq, Sk, H, the head dim, the dtype code, the
-    scale and the stream."""
+    """K4 in f32 calls qflux_simt_bwd with the inputs, ids, out / lse / do,
+    an f32 delta scratch [B, H, Sq] and dq / dk / dv in the inputs' dtype,
+    then B, Sq, Sk, H, the head dim, the f32 dtype code 0, the scale and
+    the stream; in the narrow mode it calls the wgmma qflux_flash_bwd with
+    the same arguments but the dtype code (never qflux_simt_*)."""
     b, h, sq, sk, scale = 2, 3, 200, 320, 0.125
     q, k, v, q_seg, kv_seg = _simt_qkv(sq, sk, d, dtype, True, b, h)
     out, do, lse = torch.zeros_like(q), torch.ones_like(q), torch.zeros(b, h, sq)
@@ -551,13 +558,91 @@ def test_simt_bwd_launch_arguments(dtype, d):
     assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
     assert all(t.dtype == dtype for t in (dq, dk, dv))
     (name, args), = kl.lib.calls
-    assert name == "qflux_simt_bwd" and len(args) == len(build._SIGNATURES[name][1])
+    f32 = dtype == torch.float32
+    assert name == ("qflux_simt_bwd" if f32 else "qflux_flash_bwd")
+    assert len(args) == len(build._SIGNATURES[name][1])
     assert args[:8] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_seg.data_ptr(),
                         kv_seg.data_ptr(), out.data_ptr(), lse.data_ptr(), do.data_ptr())
     assert isinstance(args[8], int) and args[8] not in args[:8]
     assert args[9:12] == (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
-    assert args[12:18] == (b, sq, sk, h, d, 0 if dtype == torch.float32 else 1)
-    assert args[18:20] == (scale, 88)
+    assert args[12:17] == (b, sq, sk, h, d)
+    assert args[17:] == ((0, scale, 88) if f32 else (scale, 88))
+
+
+@pytest.mark.parametrize("d", [32, 64])
+def test_narrow_refuses_misaligned_or_non_contiguous_inputs(monkeypatch, d):
+    """The narrow mode reads q, k, v (and the backward's out and do) by TMA,
+    as bf16 at D = 128: any of them off 16-byte alignment, or not
+    contiguous, is refused before the library is loaded (the launchers run
+    here with their device check lifted)."""
+    def refuse():
+        raise AssertionError("refused inputs reached the kernel library")
+
+    monkeypatch.setattr(build, "load_library", refuse)
+    monkeypatch.setattr(tfa, "_on_cuda", lambda what, q: None)
+    q, k, v, q_seg, kv_seg = _simt_qkv(64, 64, d, torch.bfloat16, True, 1, 2)
+    shifted = torch.zeros(q.numel() + 1, dtype=torch.bfloat16)[1:].view(q.shape)
+    assert shifted.data_ptr() % 16
+    strided = torch.zeros(1, 2, 64, d, dtype=torch.bfloat16).transpose(1, 2)
+    assert strided.shape == q.shape and not strided.is_contiguous()
+    for args, what in [((shifted, k, v), "q is not 16-byte aligned"),
+                       ((q, shifted, v), "k is not 16-byte aligned"),
+                       ((q, k, shifted), "v is not 16-byte aligned"),
+                       ((strided, k, v), "q is not contiguous")]:
+        with pytest.raises(ValueError, match=what):
+            tfa._flash_fwd_cuda(*args, q_seg, kv_seg, 0.125)
+    lse = torch.zeros(1, 2, 64)
+    for out, do, what in [(shifted, q, "out is not 16-byte aligned"),
+                          (q, shifted, "do is not 16-byte aligned")]:
+        with pytest.raises(ValueError, match=what):
+            tfa._flash_bwd_cuda(q, k, v, q_seg, kv_seg, out, lse, do, 0.125)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_modes_take_their_entries(d):
+    """bf16 at every head dim takes the wgmma K3 / K4 (mode "bf16" at 128,
+    "narrow" at 32 / 64, the head dim passed to qflux_flash_fwd / _bwd),
+    f32 the CUDA-core ones with dtype code 0: one call each way, no other."""
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, q_seg, kv_seg = _simt_qkv(77, 130, d, dtype, True, 1, 2)
+        kl = _library()
+        out, lse = tfa._launch_fwd(kl, 5, q, k, v, q_seg, kv_seg, 0.25)
+        tfa._launch_bwd(kl, 5, q, k, v, q_seg, kv_seg, out, lse, torch.ones_like(q), 0.25)
+        names = [name for name, _ in kl.lib.calls]
+        if dtype == torch.bfloat16:
+            assert tfa.mode(q) == ("bf16" if d == 128 else "narrow")
+            assert names == ["qflux_flash_fwd", "qflux_flash_bwd"]
+            assert [args[11] for _, args in kl.lib.calls[:1]] == [d]
+            assert kl.lib.calls[1][1][16] == d
+        else:
+            assert tfa.mode(q) == "f32"
+            assert names == ["qflux_simt_fwd", "qflux_simt_bwd"]
+            assert kl.lib.calls[0][1][11:13] == (d, 0) and kl.lib.calls[1][1][16:18] == (d, 0)
+
+
+def test_simt_entries_take_f32_only():
+    """csrc/flash_simt.cu's K3 / K4 entries refuse every dtype code but 0
+    (f32) in their argument checks, and the file holds no bf16 instance: bf16
+    at D = 32 / 64 runs on the wgmma kernels.  (The card test
+    `test_simt_entries_refuse_bf16_on_card` runs the refusal.)"""
+    src = (build.CSRC / "flash_simt.cu").read_text()
+    assert "Elem<bf16>" not in src and "<bf16>" not in src
+    for entry in ("qflux_simt_fwd", "qflux_simt_bwd"):
+        body = src[src.index(f'extern "C" int {entry}('):]
+        check = body[:body.index("return (int)cudaErrorInvalidValue;")]
+        assert "dtype != 0" in check, entry
+    assert tfa.SIMT_F32 == 0
+
+
+def test_wgmma_entry_points_take_the_head_dim():
+    """K3's and K4's C entries take the head dim as an int before the scale:
+    14 and 19 arguments, pointers as 64-bit."""
+    for name, n, n_ptr in (("qflux_flash_fwd", 14, 7), ("qflux_flash_bwd", 19, 12)):
+        restype, argtypes = build._SIGNATURES[name]
+        assert restype is ctypes.c_int and len(argtypes) == n, name
+        assert argtypes[:n_ptr] == [ctypes.c_void_p] * n_ptr
+        assert argtypes[n_ptr:n - 2] == [ctypes.c_int] * 5
+        assert argtypes[-2] is ctypes.c_float and argtypes[-1] is ctypes.c_void_p
 
 
 @pytest.mark.parametrize("d", [16, 96, 256])

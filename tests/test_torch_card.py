@@ -1684,12 +1684,13 @@ def test_optimizers_on_card_equal_cpu(class_path, args):
 
 
 # ---------------------------------------------------------------------------
-# The CUDA-core modes of csrc/flash_simt.cu: K3 / K4 in f32 at head dims 32, 64
-# and 128 and in bf16 at 32 and 64; K1 / K2 and their s_int8 mode in f32.  The
-# f32 bounds are chip_smoke.py's phase K ones: out and lse within 2e-5, the
-# gradients within 1e-4 (relative L2: the kernels and the plain versions sum in
-# other orders, and exp / rsqrt differ by an ulp); the narrow bf16 modes are held
-# to the bf16 K3 / K4 bounds above.
+# The modes off bf16 at D = 128: the CUDA-core kernels of csrc/flash_simt.cu (K3
+# / K4 in f32 at head dims 32, 64 and 128; K1 / K2 and their s_int8 mode in f32)
+# and the narrow mode (K3 / K4 in bf16 at 32 and 64, the wgmma kernels templated
+# on the head dim).  The f32 bounds are chip_smoke.py's phase K ones: out and lse
+# within 2e-5, the gradients within 1e-4 (relative L2: the kernels and the plain
+# versions sum in other orders, and exp / rsqrt differ by an ulp); the narrow
+# mode is held to the bf16 K3 / K4 bounds above.
 
 F32_REL_TOL = 2e-5
 F32_GRAD_TOL = 1e-4
@@ -1727,13 +1728,12 @@ def _simt_counts():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("d", [32, 64, 128])
 @pytest.mark.parametrize("sq,sk,masked", SIMT_CASES)
-def test_simt_k3_k4_match_plain_on_card(sq, sk, masked, d, dtype):
-    """K3 / K4 through the ring hop's entry points in the CUDA-core modes:
-    f32 at D = 32, 64, 128 (out and lse within 2e-5, every gradient within
-    1e-4, relative L2) and bf16 at D = 32, 64 (the bf16 K3 / K4 bounds);
+def test_f32_and_narrow_k3_k4_match_plain_on_card(sq, sk, masked, d, dtype):
+    """K3 / K4 through the ring hop's entry points in the f32 mode (D = 32,
+    64, 128: out and lse within 2e-5, every gradient within 1e-4, relative
+    L2) and the narrow mode (bf16 at D = 32, 64: the bf16 K3 / K4 bounds);
     fully masked rows output 0 with lse = -1e30 and a zero dq; one launch of
-    the mode's counter each way, and bf16 at D = 128 stays on the wgmma
-    kernels."""
+    the mode's counter each way, and bf16 at D = 128 is the "bf16" mode."""
     from qflux_tpu_torch.ops import flash_attention as tfa
 
     if dtype == torch.bfloat16 and d == 128:
@@ -1768,13 +1768,33 @@ def test_simt_k3_k4_match_plain_on_card(sq, sk, masked, d, dtype):
         assert bool(dead.any()) and not out[dead].any() and not got[0][dead].any()
 
 
+class _EntrySpy:
+    """Stands in for the ctypes library: forwards every call and records
+    the names of the C entry points called."""
+
+    def __init__(self, lib):
+        self._lib, self.names = lib, []
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if not name.startswith("qflux_") or name == "qflux_cuda_error_string":
+            return fn
+
+        def call(*args):
+            self.names.append(name)
+            return fn(*args)
+        return call
+
+
 def test_simt_modes_never_reach_the_plain_version(monkeypatch):
-    """f32 and narrow bf16 attention on CUDA tensors launch csrc/flash_simt.cu
-    through `flash_attention` (forward and autograd) and the fused K1 / K2 in
-    f32, and never call the plain versions (replaced by functions that
-    raise); an f16 q or a head dim of 96 raises, naming what the kernels
-    take."""
+    """f32 attention on CUDA tensors launches csrc/flash_simt.cu and bf16 at
+    D = 32 / 64 the wgmma K3 / K4 (qflux_flash_fwd / _bwd, never a
+    qflux_simt_* entry), through `flash_attention` (forward and autograd),
+    and the fused K1 / K2 in f32 launch csrc/flash_simt.cu; none calls the
+    plain versions (replaced by functions that raise); an f16 q or a head
+    dim of 96 raises, naming what the kernels take."""
     from qflux_tpu_torch.ops import flash_attention as tfa
+    from qflux_tpu_torch.runtime import build
 
     def refuse(*a, **kw):
         raise AssertionError("a CUDA tensor reached the plain version")
@@ -1783,11 +1803,19 @@ def test_simt_modes_never_reach_the_plain_version(monkeypatch):
         monkeypatch.setattr(tfa, name, refuse)
     for name in ("flash_attention_nr_reference", "flash_attention_nr_bwd_reference"):
         monkeypatch.setattr(tnr, name, refuse)
-    for dtype, d in ((torch.float32, 32), (torch.bfloat16, 64), (torch.float32, 128)):
+    kl = build.load_library()
+    spy = _EntrySpy(kl.lib)
+    monkeypatch.setattr(build, "load_library", lambda: dataclasses.replace(kl, lib=spy))
+    for dtype, d in ((torch.float32, 32), (torch.bfloat16, 64), (torch.bfloat16, 32),
+                     (torch.float32, 128)):
         q, k, v, q_seg, kv_seg = _simt_inputs(7, 200, 200, d, dtype, True)
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        spy.names.clear()
         tfa.flash_attention(*leaves, segment_ids=q_seg).float().square().sum().backward()
+        torch.cuda.synchronize()
         assert all(bool(torch.isfinite(x.grad).all()) for x in leaves)
+        assert spy.names == (["qflux_simt_fwd", "qflux_simt_bwd"] if dtype == torch.float32
+                             else ["qflux_flash_fwd", "qflux_flash_bwd"]), (dtype, d)
     args = _inputs(8, 300)
     args = [a.float() for a in args[:3]] + args[3:]
     leaves = [a.clone().requires_grad_() for a in args[:3]]
@@ -1800,6 +1828,89 @@ def test_simt_modes_never_reach_the_plain_version(monkeypatch):
         q = torch.zeros(1, 8, 2, d, device="cuda", dtype=dtype)
         with pytest.raises(ValueError, match="head dims"):
             tfa.flash_attention(q, q, q)
+
+
+# the narrow mode at the edges TMA creates: S below one 64-row tile, S off the
+# 64- and 128-row tiles, Sq != Sk, fully masked rows, the unmasked case
+NARROW_EDGE_CASES = [(40, 40, True), (40, 40, False), (300, 520, True), (520, 300, False),
+                     (129, 777, True), (777, 129, True), (1, 130, True)]
+
+
+def _narrow_edge_inputs(seed, sq, sk, d, masked):
+    """bf16 q [2, Sq, H, d] and k / v [2, Sk, H, d] on the card; with ids,
+    sample 0's last quarter of q rows is padding (segment 0) and its last
+    third of keys too, sample 1 is two segments, and its last q row is
+    segment 3, which no key has: two kinds of fully masked row."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, sq, H, d)).astype(np.float32)
+    k, v = (rng.standard_normal((B, sk, H, d)).astype(np.float32) for _ in range(2))
+    qkv = [torch.from_numpy(a).cuda().to(torch.bfloat16) for a in (q, k, v)]
+    if not masked:
+        return qkv + [None, None]
+    q_seg, kv_seg = np.ones((B, sq), np.int32), np.ones((B, sk), np.int32)
+    q_seg[0, sq - sq // 4:], kv_seg[0, sk - sk // 3:] = 0, 0
+    q_seg[1, sq // 2:], kv_seg[1, sk // 2:] = 2, 2
+    q_seg[1, -1] = 3
+    return qkv + [torch.from_numpy(a).cuda() for a in (q_seg, kv_seg)]
+
+
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("sq,sk,masked", NARROW_EDGE_CASES)
+def test_narrow_k3_k4_edges_match_plain_on_card(sq, sk, masked, d):
+    """The narrow wgmma K3 / K4 (bf16 at D = 32, 64) at the edges of their
+    TMA tiles, through `flash_fwd_with_lse` / `flash_bwd_from_residuals`:
+    out within 1.6e-2 and lse within 1e-4 of the plain version, every
+    gradient within 1.5e-2 relative L2 of the plain formula with nonzero do
+    on every row, fully masked rows at 0 with lse = -1e30 and a zero dq,
+    two calls identical to the bit, one narrow launch each way."""
+    from qflux_tpu_torch.ops import flash_attention as tfa
+
+    q, k, v, q_seg, kv_seg = _narrow_edge_inputs(sq + 7 * sk + d, sq, sk, d, masked)
+    scale = d ** -0.5
+    c0 = _simt_counts()
+    out, lse = tfa.flash_fwd_with_lse(q, k, v, q_seg, kv_seg, scale)
+    do = torch.randn(q.shape, device="cuda").to(torch.bfloat16)
+    got = tfa.flash_bwd_from_residuals(q, k, v, q_seg, kv_seg, out, lse, do, scale)
+    torch.cuda.synchronize()
+    assert [b - a for a, b in zip(c0, _simt_counts())][:4] == [0, 0, 1, 1]
+    out2, lse2 = tfa.flash_fwd_with_lse(q, k, v, q_seg, kv_seg, scale)
+    again = tfa.flash_bwd_from_residuals(q, k, v, q_seg, kv_seg, out, lse, do, scale)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    ref, ref_lse = tfa.flash_fwd_reference(q, k, v, q_seg, kv_seg, scale)
+    valid = ref_lse > -1e29
+    assert (out.float() - ref.float()).abs().max().item() <= 1.6e-2
+    assert (lse - ref_lse).abs()[valid].max().item() <= 1e-4
+    assert bool((lse[~valid] == -1e30).all())
+    want = tfa.flash_bwd_reference(q, k, v, q_seg, kv_seg, out, lse, do, scale)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == w.shape and _rel_l2(g, w) <= 1.5e-2
+    if masked:
+        dead = _dead_rows(q_seg, kv_seg)
+        assert bool(dead[1, -1]) and not out[dead].any() and not got[0][dead].any()
+
+
+def test_simt_entries_refuse_bf16_on_card():
+    """csrc/flash_simt.cu's K3 / K4 entries take f32 only: dtype code 1
+    (bf16, which the narrow mode now sends to the wgmma kernels) returns
+    cudaErrorInvalidValue (1) from the argument check, launching nothing."""
+    from qflux_tpu_torch.runtime.build import load_library
+
+    lib = load_library().lib
+    q, k, v, q_seg, kv_seg = _simt_inputs(3, 64, 64, 64, torch.bfloat16, True)
+    b, s, h, d = q.shape
+    out, do = torch.zeros_like(q), torch.ones_like(q)
+    lse, delta = (torch.zeros(b, h, s, device="cuda") for _ in range(2))
+    grads = [torch.zeros_like(q) for _ in range(3)]
+    stream = torch.cuda.current_stream().cuda_stream
+    p = [t.data_ptr() for t in (q, k, v, q_seg, kv_seg)]
+    assert lib.qflux_simt_fwd(*p, out.data_ptr(), lse.data_ptr(), b, s, s, h, d, 1, 0.125,
+                              stream) == 1
+    assert lib.qflux_simt_bwd(*p, out.data_ptr(), lse.data_ptr(), do.data_ptr(),
+                              delta.data_ptr(), *(g.data_ptr() for g in grads), b, s, s, h, d,
+                              1, 0.125, stream) == 1
+    torch.cuda.synchronize()
+    assert not any(g.any() for g in grads)
 
 
 def _nr_f32_inputs(seed, s, h=4):

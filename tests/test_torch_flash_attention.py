@@ -211,7 +211,8 @@ def test_supports_matches_jax(s_int8, d, dtype):
     nothing: the port's `fused_route` is JAX's choice in f32 and bf16, and
     a kernel takes each route's inputs on the card (K1 / K2 at D = 128 in
     both dtypes; `flash_attention.mode` names K3 / K4's mode at every head
-    dim, the wgmma kernels for bf16 at 128 only)."""
+    dim: "bf16" at 128 and "narrow" at 32 / 64 for the wgmma kernels, "f32"
+    for the CUDA-core ones)."""
     impl = "int8" if s_int8 else "auto"
     for s in (2304, 2560, 2561, 2688, 2689, 4000, 4256):
         assert tnr.supports(s, s, d, s_int8) == jnr.supports(s, s, d, s_int8), s
@@ -232,7 +233,7 @@ def test_supports_matches_jax(s_int8, d, dtype):
 @pytest.mark.parametrize("case", ["cross", "ragged"])
 def test_plain_k3_k4_narrow_heads_match_jax(case, d):
     """At head dims 32 and 64 (variant `test`'s DiTs, and what the card's
-    CUDA-core modes take), f32: the plain K3 / K4 against JAX's Pallas
+    narrow and f32 modes take), f32: the plain K3 / K4 against JAX's Pallas
     `flash_fwd_with_lse` / `flash_attention` and jax.grad of it in
     interpret mode, out, lse and the three gradients within 2e-5 relative
     L2 (measured ~4e-7: the same f32 arithmetic in another order)."""
