@@ -414,19 +414,16 @@ AB_RQ_CASES = [RQ_MAIN, (3744, 3072, 3072), (256, 12288, 3072)]
 PEAK_BYTES_PER_MS = 3.35e9
 PEAK_BF16_PER_MS = 989e9
 PEAK_INT8_PER_MS = 1979e9
-# f32 FFMA on the CUDA cores (132 SMs x 128 lanes x 2 flops x 1.98 GHz),
-# what csrc/flash_simt.cu's f32 products run on
-PEAK_F32_PER_MS = 67e9
-# __dp4a (the f32 s_int8 mode's scores): the INT32 pipe's 64 lanes per SM per
-# clock, 8 operations each (four multiplies, four adds), at the same 132 SMs
-# and 1.98 GHz; not a data-sheet number
-PEAK_DP4A_PER_MS = 132 * 64 * 8 * 1.98e6
+# f32-accurate products on the tensor cores: three TF32 products (495 TFLOP/s
+# dense) a product, the 3xTF32 split csrc/flash_f32_fwd.cu runs
+PEAK_F32_SPLIT_PER_MS = 495e9 / 3
 # the SFU's ex2 (one a softmax score): 16 a clock on each of 132 SMs at the
 # same 1.98 GHz as the two rates above; not a data-sheet number.  An ex2
 # emulated by a polynomial on the FMA pipe (which no kernel here does) would
 # add to this rate, so a time from it is the floor of the SFU's exponentials
 PEAK_EXP_PER_MS = 16 * 132 * 1.98e6
-# csrc/flash_simt.cu's f32 modes against their plain versions on the card
+# the f32 modes (csrc/flash_f32_fwd.cu, csrc/flash_simt.cu) against their plain
+# versions on the card
 # (relative L2): the same f32 arithmetic summed in another order, exp and
 # rsqrt an ulp apart: out and lse within 2e-5, and the gradients, sums of
 # five products (and the rope + norm backward), within 1e-4
@@ -5446,8 +5443,8 @@ class _PathShapes:
     called: K1 and K2 by q's shape, st, cos / sin's shape, whether
     segment ids are given, the s_int8 mode's q_rows and q's dtype, their ids
     copied at the first launch; K3 and K4 by q's and k's shapes, whether ids
-    are given and q's dtype (bf16 at head dim 128: the wgmma kernels; f32,
-    or bf16 at 32 / 64: csrc/flash_simt.cu), their segment ids copied at the
+    are given and q's dtype (bf16: the wgmma kernels; f32: K3 on
+    csrc/flash_f32_fwd.cu, K4 on csrc/flash_simt.cu), their segment ids copied at the
     first launch; K5a and K5b by M, K, N, the weight's group count and the output
     dtype; the row quantization by its input's shape and dtype and whether
     s_vec multiplies it first.  Only shapes and ids are kept, so what the
@@ -5556,7 +5553,7 @@ def _f32_int8_prep(args, st, tiles) -> tuple[tuple, bool, str]:
 
 def _k1_k2_agree(gen, q_shape, st, cos_shape, seg, dtype=torch.bfloat16,
                  s_int8=False) -> tuple[bool, str]:
-    """K1 (bf16 mode, or f32 through csrc/flash_simt.cu) at a path's shape,
+    """K1 (bf16 mode, or f32 through csrc/flash_f32_fwd.cu) at a path's shape,
     st and segment ids against flash_attention_nr_reference (bf16: out
     within OUT_ATOL, lse within LSE_ATOL; f32: both within F32_REL_TOL
     relative L2; finite), then K2 from K1's out / lse with do ~ N(0, 1)
@@ -6888,9 +6885,9 @@ def optim_main() -> int:
 
 
 # ---------------------------------------------------------------------------
-# phase K: attention in f32 (the CUDA-core modes of csrc/flash_simt.cu) and in
-# bf16 at head dims 32 / 64 (the narrow mode of the wgmma K3 / K4), and the
-# first-party tokenizers
+# phase K: attention in f32 (the 3xTF32 forwards of csrc/flash_f32_fwd.cu, the
+# CUDA-core modes of csrc/flash_simt.cu) and in bf16 at head dims 32 / 64 (the
+# narrow mode of the wgmma K3 / K4), and the first-party tokenizers
 
 K_F32_CASES = [  # name, B, S, H, D, ids: K3 / K4 in f32; the first is the table's
     ("qwen_832x576_f32", 1, 4000, 24, 128, "text_pad"),
@@ -6926,32 +6923,56 @@ def _sdpa_ms(q, k, v, do=None) -> float:
     return _median_ms(lambda: torch.autograd.grad(out, (q, k, vv), g, retain_graph=True), n=3)
 
 
-def _simt_bound(q, k, q_seg, kv_seg, bwd=False, nr=False, int8=False) -> dict:
-    """csrc/flash_simt.cu's work, from the pairs that attend: K3 4·D·H
-    operations a pair (QK^T and PV), K4 10·D·H (five products), at the peak
-    of the inputs' type (f32: the CUDA cores' FFMA; bf16: the tensor cores,
-    which these modes do not use); the s_int8 mode's 2·D·H score operations
-    a pair at the __dp4a rate, the rest f32, the two times added.  Bytes:
-    each input read once and each output written once (q, k, v, out, lse;
-    the backward also do, dq, dk, dv; the fused modes also cos / sin)."""
+def _f32_bound(q, k, q_seg, kv_seg, bwd=False, nr=False, int8=False) -> dict:
+    """The least time the card could take for an f32 mode's work, whatever
+    design runs it, from the pairs that attend: the products, K3 4·D·H
+    operations a pair (QK^T and PV) and K4 10·D·H (five products), as
+    f32-accurate products on the tensor cores (PEAK_F32_SPLIT_PER_MS: three
+    TF32 products a product); the s_int8 mode's 2·D·H score operations a
+    pair at the int8 tensor-core rate instead; the exponentials, one an
+    attending pair either way, at the SFU's PEAK_EXP_PER_MS; the bytes, each
+    input read once and each output written once (q, k, v, out, lse; the
+    backward also do, dq, dk, dv; the fused modes also cos / sin).  The
+    larger of the three; "operations" when the products or the exponentials
+    bound it.  (The CUDA cores' 67 TFLOP/s of FFMA, and the __dp4a rate for
+    the s_int8 scores, would give one design's floor, not the card's.)"""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     pairs = _attending_pairs(q, k, q_seg, kv_seg)
     n_bytes = (((4 * sq + 4 * sk) if bwd else (2 * sq + 2 * sk)) * b * h * d * q.element_size()
                + b * h * sq * 4 + (2 * sq * d * 4 if nr else 0))
     total = (10 if bwd else 4) * d * h * pairs
-    if int8:
-        t_ops = 2 * d * h * pairs / PEAK_DP4A_PER_MS + (total - 2 * d * h * pairs) / PEAK_F32_PER_MS
-    else:
-        t_ops = total / (PEAK_F32_PER_MS if q.dtype == torch.float32 else PEAK_BF16_PER_MS)
-    t_bytes = n_bytes / PEAK_BYTES_PER_MS
-    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes > t_ops
-            else "operations"}
+    scores = 2 * d * h * pairs if int8 else 0
+    t_mma = scores / PEAK_INT8_PER_MS + (total - scores) / PEAK_F32_SPLIT_PER_MS
+    t_exp = h * pairs / PEAK_EXP_PER_MS
+    t_ops, t_bytes = max(t_mma, t_exp), n_bytes / PEAK_BYTES_PER_MS
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes > t_ops else "operations",
+            "tensor_core_ms": t_mma, "exp_ms": t_exp}
+
+
+def _sdpa_kernels(q, k, v) -> str:
+    """Which backend one `_sdpa_ms` forward call takes: PyTorch's own choice
+    (`torch._fused_sdp_choice`) and the names of the CUDA kernels the call
+    launched under torch.profiler (which, late in a long process, can record
+    the launches and not the kernels)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
+    from torch.profiler import ProfilerActivity, profile
+
+    q, k, vv = (t.transpose(1, 2) for t in (q, k, v))
+    choice = SDPBackend(torch._fused_sdp_choice(q, k, vv)).name
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        F.scaled_dot_product_attention(q, k, vv)
+        torch.cuda.synchronize()
+    names = [e.key[:60] for e in prof.key_averages()
+             if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    return f"backend {choice}; kernels: {', '.join(names) or 'none recorded'}"
 
 
 def _narrow_bound(q, k, q_seg, kv_seg, bwd=False) -> dict:
     """The narrow mode's (bf16 at D = 32 / 64, the wgmma K3 / K4) least time:
-    the larger of the bytes (`_simt_bound`'s count), the tensor cores' time
+    the larger of the bytes (`_f32_bound`'s count), the tensor cores' time
     for the function's products (4·D·H operations an attending pair forward,
     10·D·H backward, at the bf16 peak) and the SFU's time for its
     exponentials (one an attending pair, forward and backward: the function
@@ -6979,15 +7000,16 @@ def _k_entry(ms, plain_ms, lib_ms, max_abs_err, bound, **extra) -> dict:
 
 
 def _k_flash_case(card, gen, name, b, s, h, d, ids, dtype) -> tuple[dict, dict]:
-    """K3 then K4 in the f32 mode (csrc/flash_simt.cu) or the narrow mode
-    (bf16 at D = 32 / 64: the wgmma kernels) at one shape: against their
-    plain versions (`_fwd_agrees` / `_grad_agrees`: f32 within F32_REL_TOL /
+    """K3 then K4 in the f32 mode (K3: the 3xTF32 loop of
+    csrc/flash_f32_fwd.cu; K4: csrc/flash_simt.cu) or the narrow mode (bf16
+    at D = 32 / 64: the wgmma kernels) at one shape: against their plain
+    versions (`_fwd_agrees` / `_grad_agrees`: f32 within F32_REL_TOL /
     F32_GRAD_TOL, bf16 within the bf16 kernels' bounds), two calls identical
     to the bit, each timed alone (the C call on checked arguments, back to
     back; narrow: into preallocated outputs, `_k3_alone` / `_k4_alone`, as
-    the bf16 K3 / K4 at D = 128) beside the plain version, SDPA (unmasked)
-    and the bound (`_simt_bound`, narrow `_narrow_bound`).  Returns their
-    table entries."""
+    the bf16 K3 / K4 at D = 128) beside the plain version, SDPA (unmasked;
+    in f32 the kernels it ran, `_sdpa_kernels`) and the bound (`_f32_bound`,
+    narrow `_narrow_bound`).  Returns their table entries."""
     from qflux_tpu_torch.ops import flash_attention as fa
     from qflux_tpu_torch.runtime.build import load_library
 
@@ -7007,19 +7029,20 @@ def _k_flash_case(card, gen, name, b, s, h, d, ids, dtype) -> tuple[dict, dict]:
     ok = ok and same and not out[dead].any() and bool((lse[ref_lse <= -1e29] == -1e30).all())
     err = (out.float() - ref.float()).abs().max().item()
     del ref, ref_lse
-    tag = "simt" if f32 else "narrow"
+    tag = "f32" if f32 else "narrow"
     if f32:
         ms = _window_ms(lambda: fa._launch_fwd(kl, stream, q, k, v, qs32, ks32, scale), 3, 3)
     else:
         ms = _k3_alone(q, k, v, q_seg, kv_seg, scale)["ms"]
     plain_ms = _median_ms(lambda: fa.flash_fwd_reference(q, k, v, q_seg, kv_seg, scale), n=3)
     lib_ms = _sdpa_ms(q, k, v)
-    bound = (_simt_bound if f32 else _narrow_bound)(q, k, q_seg, kv_seg)
+    sdpa_ran = f" ({_sdpa_kernels(q, k, v)})" if f32 else ""
+    bound = (_f32_bound if f32 else _narrow_bound)(q, k, q_seg, kv_seg)
     print(f"[{tag}] K3 {name}: {_dt(dtype)} B={b} S={s} H={h} D={d} ids={ids or 'none'}: {text}; "
           f"max_abs_err(out) {err:.3e}; {int(dead.sum())} fully masked rows at 0; two calls "
           f"identical {same}; alone {ms:.4f} ms, bound {bound['bound_ms']:.4f} ms "
           f"({bound['bound_by']}; {100 * bound['bound_ms'] / ms:.1f}% of it), plain "
-          f"{plain_ms:.3f} ms, SDPA (unmasked) {lib_ms:.3f} ms [{card}]", flush=True)
+          f"{plain_ms:.3f} ms, SDPA (unmasked) {lib_ms:.3f} ms{sdpa_ran} [{card}]", flush=True)
     if not ok:
         raise AssertionError(f"K3 in its {_dt(dtype)} mode disagrees with its plain version "
                              f"(or with itself) at {name}")
@@ -7035,9 +7058,9 @@ def _k_flash_case(card, gen, name, b, s, h, d, ids, dtype) -> tuple[dict, dict]:
     plain_ms = _median_ms(lambda: fa.flash_bwd_reference(q, k, v, q_seg, kv_seg, out, lse, do,
                                                          scale), n=3)
     lib_ms = _sdpa_ms(q, k, v, do)
-    bound = (_simt_bound if f32 else _narrow_bound)(q, k, q_seg, kv_seg, bwd=True)
-    print(f"[{tag}] K4 {name}: {errs} ({_tol_text(f32)}), two calls identical; alone {ms:.4f} "
-          f"ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; "
+    bound = (_f32_bound if f32 else _narrow_bound)(q, k, q_seg, kv_seg, bwd=True)
+    print(f"[{'simt' if f32 else tag}] K4 {name}: {errs} ({_tol_text(f32)}), two calls "
+          f"identical; alone {ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; "
           f"{100 * bound['bound_ms'] / ms:.1f}% of it), plain {plain_ms:.3f} ms, SDPA backward "
           f"(unmasked) {lib_ms:.3f} ms [{card}]", flush=True)
     if not ok:
@@ -7050,12 +7073,15 @@ def _k_flash_case(card, gen, name, b, s, h, d, ids, dtype) -> tuple[dict, dict]:
 
 def _k_nr_case(card, gen, s, s_int8) -> tuple[dict, dict]:
     """K1 then K2 in f32 (their s_int8 mode where asked) at the FLUX layout
-    (B = 1, H = 24, D = 128, st = 512 with 20 padding text rows): against
+    (B = 1, H = 24, D = 128, st = 512 with 20 padding text rows; K1 on the
+    3xTF32 loop of csrc/flash_f32_fwd.cu outside the s_int8 mode, the rest on
+    csrc/flash_simt.cu): against
     the plain versions (f32 within F32_REL_TOL / F32_GRAD_TOL; the s_int8
     mode's prep held by `_f32_int8_prep` and the plain versions run on its
     qn / kn, the end-to-end error printed), two calls
     identical to the bit, each timed alone (prep included) beside the plain
-    version, SDPA on the plain normed q / k and the bound."""
+    version, SDPA on the plain normed q / k (the kernels it ran) and the
+    bound (`_f32_bound`)."""
     from qflux_tpu_torch.ops import flash_nr as fnr
     from qflux_tpu_torch.runtime.build import load_library
 
@@ -7099,12 +7125,13 @@ def _k_nr_case(card, gen, s, s_int8) -> tuple[dict, dict]:
     qn = fnr.apply_qk_norm_rope(q, qs2, cos, sin, st)
     kn = fnr.apply_qk_norm_rope(k, ks2, cos, sin, st)
     lib_ms = _sdpa_ms(qn, kn, v)
-    bound = _simt_bound(q, k, seg, seg, nr=True, int8=s_int8)
-    print(f"[simt] K1 f32 {label}: {text}; max_abs_err(out) {err:.3e}; padded rows at 0; two "
-          f"calls identical {same}; alone {ms:.4f} ms (prep included), bound "
-          f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}; "
+    bound = _f32_bound(q, k, seg, seg, nr=True, int8=s_int8)
+    print(f"[{'simt' if s_int8 else 'f32'}] K1 f32 {label}: {text}; max_abs_err(out) "
+          f"{err:.3e}; padded rows at 0; two calls identical {same}; alone {ms:.4f} ms (prep "
+          f"included), bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; "
           f"{100 * bound['bound_ms'] / ms:.1f}% of it), plain {plain_ms:.3f} ms, SDPA on the "
-          f"plain normed q / k {lib_ms:.3f} ms [{card}]", flush=True)
+          f"plain normed q / k {lib_ms:.3f} ms ({_sdpa_kernels(qn, kn, v)}) [{card}]",
+          flush=True)
     if not ok:
         raise AssertionError(f"K1 in f32 disagrees with its plain version at {label}")
     case = f"B=1 S={s} H=24 D=128, st=512, 20 padding text rows, {label}"
@@ -7137,7 +7164,7 @@ def _k_nr_case(card, gen, s, s_int8) -> tuple[dict, dict]:
         plain_ms = _median_ms(lambda: fnr.flash_attention_nr_bwd_reference(
             *args, st, do, segment_ids=seg, scale=scale), n=3)
     lib_ms = _sdpa_ms(qn, kn, v, do)
-    bound = _simt_bound(q, k, seg, seg, bwd=True, nr=True, int8=s_int8)
+    bound = _f32_bound(q, k, seg, seg, bwd=True, nr=True, int8=s_int8)
     print(f"[simt] K2 f32 {label}: {'; '.join(errs)} ({_tol_text(True)}), two calls identical; "
           f"alone {ms:.4f} ms (prep and rope + norm backward included), bound "
           f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}; "
@@ -7152,9 +7179,10 @@ def _k_nr_case(card, gen, s, s_int8) -> tuple[dict, dict]:
 
 
 def phase_simt_kernels(card: str) -> dict:
-    """Phase K(a): every CUDA-core mode and the narrow mode alone against
-    its plain version (`_k_flash_case`, `_k_nr_case`); returns the table's
-    entries by name."""
+    """Phase K(a): every f32 mode (the 3xTF32 forwards, the CUDA-core
+    backwards and s_int8 mode) and the narrow mode alone against its plain
+    version (`_k_flash_case`, `_k_nr_case`); returns the table's entries by
+    name."""
     gen = torch.Generator("cuda").manual_seed(41)
     table = {}
     for cases, mode in ((K_F32_CASES, torch.float32), (K_NARROW_CASES, torch.bfloat16)):
@@ -7198,7 +7226,7 @@ def _reset_simt_counts() -> None:
 
 
 def _k_fit(card, label, trainer, batches, want_k1, want_k2, k1_name, k2_name) -> dict:
-    """Trainer.fit with the CUDA-core counts set to 0 just before it and
+    """Trainer.fit with the f32 and narrow counts set to 0 just before it and
     read just after: finite losses, every LoRA b moved, the kernels launched
     as `want_k1` / `want_k2` a step.  Returns the two launch counts by
     kernel name."""
@@ -7361,7 +7389,7 @@ def phase_variant_test(card: str) -> dict:
 
 
 def phase_f32(card: str) -> tuple[dict, dict]:
-    """Phase K: (a) the CUDA-core modes and the narrow mode alone, (b) the
+    """Phase K: (a) the f32 modes and the narrow mode alone, (b) the
     f32 FLUX fit, (c) variant `test` on the card, every kernel (b) and (c)
     launched then held to its plain version at their shapes, (d) the
     tokenizers.  Returns the table's entries and the launches by path."""
@@ -7676,7 +7704,12 @@ def _ab_child() -> None:
         rotated past the L2 cache) and the digests of their outputs;
       * at every K_NARROW_CASES entry (bf16 at D = 64 / 32), K3 and K4 through
         `_launch_fwd` / `_launch_bwd` (whichever kernel the checkout sends the
-        narrow mode to), timed back to back.
+        narrow mode to), timed back to back;
+      * the f32 modes (`_ab_f32`): at every K_F32_CASES entry K3 and K4, at
+        every K_NR_CASES entry K1 and K2, and K1 / K2's s_int8 mode at
+        K_INT8_S, timed back to back; the forwards' relative L2 errors
+        against their plain versions, and the digests of the backwards fed
+        the plain forward's out / lse and of the s_int8 forward.
     Prints one line, AB_RESULT and a JSON object."""
     from qflux_tpu_torch.ops import flash_attention as fa
     from qflux_tpu_torch.ops import flash_nr
@@ -7792,7 +7825,83 @@ def _ab_child() -> None:
             lambda: fa._launch_bwd(kl, stream, q, k, v, qs32, ks32, out, lse, do, sc_n), 3, 3)})
         del q, k, v, out, lse, do
         torch.cuda.empty_cache()
+    res.update(_ab_f32(kl, stream))
     print("AB_RESULT " + json.dumps(res), flush=True)
+
+
+def _f32_rels(out, lse, ref, ref_lse) -> list:
+    """Relative L2 errors of an f32 forward's out and lse (over the rows
+    that attend) against its plain version."""
+    live = ref_lse > -1e29
+    return [_rel(out, ref), _rel(lse[live], ref_lse[live])]
+
+
+def _ab_f32(kl, stream) -> dict:
+    """`_ab_child`'s f32 part, through the checkout's launchers on checked
+    arguments (`_launch_fwd` / `_launch_bwd` of both modules), on inputs from
+    fixed seeds: "k3_f32" / "k4_f32" at K_F32_CASES, "k1_f32" / "k2_f32" at
+    K_NR_CASES (FLUX's layout, as `_k_nr_case`), "k1_f32_int8" / "k2_f32_int8"
+    at K_INT8_S, each the median of three timings; "f32_rel", the forwards'
+    errors against their plain versions (the 3xTF32 forwards are held to
+    those, not to the parent's bits); "f32_digest", the digests of K4 / K2
+    (and their s_int8 mode) fed the plain forward's out / lse, and of the
+    s_int8 K1's out / lse, which this comparison holds to the bit."""
+    from qflux_tpu_torch.ops import flash_attention as fa
+    from qflux_tpu_torch.ops import flash_nr as fnr
+
+    res = {key: {} for key in ("k3_f32", "k4_f32", "k1_f32", "k2_f32", "k1_f32_int8",
+                               "k2_f32_int8", "f32_rel", "f32_digest")}
+    gen = torch.Generator("cuda").manual_seed(19)
+    for name, b, s, h, d, ids in K_F32_CASES:
+        q, k, v, q_seg, kv_seg = _flash_case(gen, b, s, ids, h, d, torch.float32)
+        _, _, _, _, qs32, ks32 = fa._kernel_args(q, k, v, q_seg, kv_seg)
+        sc = d ** -0.5
+        res["k3_f32"][name] = _median_run(lambda: {"ms": _window_ms(
+            lambda: fa._launch_fwd(kl, stream, q, k, v, qs32, ks32, sc), 3, 3)})
+        out, lse = fa._launch_fwd(kl, stream, q, k, v, qs32, ks32, sc)
+        ref, ref_lse = (t.contiguous() for t in fa.flash_fwd_reference(q, k, v, q_seg, kv_seg,
+                                                                      sc))
+        res["f32_rel"][f"K3 {name}"] = _f32_rels(out, lse, ref, ref_lse)
+        do = torch.randn(q.shape, device="cuda", generator=gen)
+        res["k4_f32"][name] = _median_run(lambda: {"ms": _window_ms(
+            lambda: fa._launch_bwd(kl, stream, q, k, v, qs32, ks32, ref, ref_lse, do, sc),
+            3, 3)})
+        res["f32_digest"][f"K4 {name}"] = [_digest(g) for g in fa._launch_bwd(
+            kl, stream, q, k, v, qs32, ks32, ref, ref_lse, do, sc)]
+        del q, k, v, out, lse, ref, ref_lse, do
+        torch.cuda.empty_cache()
+    st, sc = 512, 128 ** -0.5
+    for s, rows in [(s, 0) for s in K_NR_CASES] + [(K_INT8_S, -1)]:
+        args = _attn_inputs(gen, 1, s, 24, 128, torch.float32)
+        q, k, v, qs2, ks2, cos, sin = args
+        seg = torch.ones(1, s, dtype=torch.int32, device="cuda")
+        seg[0, 492:512] = 0
+        fwd_rows, bwd_rows = fnr.s_int8_tiles(s, 128) if rows else (0, 0)
+        qs, ks, csb, seg32 = fnr._kernel_args(q, k, v, qs2, ks2, cos, sin, seg)
+        name, tag = f"S={s}", "_int8" if rows else ""
+        res[f"k1_f32{tag}"][name] = _median_run(lambda: {"ms": _window_ms(
+            lambda: fnr._launch_fwd(kl, stream, q, k, v, qs, ks, cos, sin, csb, seg32, st, sc,
+                                    fwd_rows), 3, 3)})
+        out, lse = fnr._launch_fwd(kl, stream, q, k, v, qs, ks, cos, sin, csb, seg32, st, sc,
+                                   fwd_rows)
+        if rows:
+            res["f32_digest"][f"K1 s_int8 {name}"] = [_digest(out), _digest(lse)]
+            ref, ref_lse = fnr.flash_attention_nr_int8_reference(*args, st, fwd_rows,
+                                                                 segment_ids=seg, scale=sc)
+        else:
+            ref, ref_lse = fnr.flash_attention_nr_reference(*args, st, segment_ids=seg, scale=sc)
+            res["f32_rel"][f"K1 {name}"] = _f32_rels(out, lse, ref, ref_lse)
+        ref, ref_lse = ref.contiguous(), ref_lse.contiguous()
+        do = torch.randn(q.shape, device="cuda", generator=gen)
+        res[f"k2_f32{tag}"][name] = _median_run(lambda: {"ms": _window_ms(
+            lambda: fnr._launch_bwd(kl, stream, q, k, v, qs, ks, cos, sin, csb, seg32, st, sc,
+                                    ref, ref_lse, do, bwd_rows), 3, 3)})
+        res["f32_digest"][f"K2{' s_int8' if rows else ''} {name}"] = [
+            _digest(g) for g in fnr._launch_bwd(kl, stream, q, k, v, qs, ks, cos, sin, csb,
+                                                seg32, st, sc, ref, ref_lse, do, bwd_rows)]
+        del args, q, k, v, out, lse, ref, ref_lse, do
+        torch.cuda.empty_cache()
+    return res
 
 
 # `--data-ab`: the FLUX fit through the data layer against the same batches
@@ -7963,14 +8072,17 @@ def data_ab_main() -> int:
 def ab_main(parent: str) -> int:
     """`python3 chip_smoke.py --ab PARENT`: K1, K2 (bf16 and s_int8), K3, K4
     (at D = 128, and in the narrow mode at K_NARROW_CASES), K5a and K5b
-    alone, before and after, on one card.  PARENT is an unpacked
+    alone, and K1–K4 in f32 (`_ab_f32`), before and after, on one card.  PARENT is an unpacked
     checkout of an earlier commit (git archive); each side runs `_ab_child` from this file
     in its own process with its own package first on sys.path, in turns
     parent, change, change, parent.  Prints each case's times (mean of the
     two runs of each side), whether the change's K2, K3 and K1 / K2 s_int8
     gave the same bits on two calls, the digests (K1 and K2 bf16, K3, K4,
-    K5a / K5b, K6a / K6b, the s_int8 prep's operands) compared across all
-    four runs, and the change's K1 / K2 s_int8 against their plain versions
+    K5a / K5b, K6a / K6b, the s_int8 prep's operands; the f32 K2 / K4 and the
+    f32 s_int8 K1 / K2, `_ab_f32`) compared across all four runs, every
+    run's f32 K3 / K1 against their plain versions (F32_REL_TOL: the 3xTF32
+    forwards are not held to the parent's bits), and the change's K1 / K2
+    s_int8 against their plain versions
     (INT8_FWD_REL_TOL / INT8_BWD_REL_TOL: their outputs are not compared
     across the trees, because the redesign moved their online softmax into
     log2 units and the scale inside the exponent); writes the runs to
@@ -8033,7 +8145,28 @@ def ab_main(parent: str) -> int:
                   f"parent {mean(p):.4f} ms ({', '.join(f'{x:.4f}' for x in p)}), change "
                   f"{mean(c):.4f} ms ({', '.join(f'{x:.4f}' for x in c)}), "
                   f"{mean(p) / mean(c):.2f}x [{card}]", flush=True)
+    f32_cases = ([("k3_f32", "K3 f32", c[0]) for c in K_F32_CASES]
+                 + [("k4_f32", "K4 f32", c[0]) for c in K_F32_CASES]
+                 + [(kern, label, f"S={s}") for kern, label in (("k1_f32", "K1 f32"),
+                                                                ("k2_f32", "K2 f32"))
+                    for s in K_NR_CASES]
+                 + [(kern, label, f"S={K_INT8_S}") for kern, label in
+                    (("k1_f32_int8", "K1 f32 s_int8"), ("k2_f32_int8", "K2 f32 s_int8"))])
+    for kern, label, name in f32_cases:
+        p = [r[kern][name]["ms"] for r in runs["parent"]]
+        c = [r[kern][name]["ms"] for r in runs["change"]]
+        print(f"[ab] {label} {name}: parent {mean(p):.4f} ms ({', '.join(f'{x:.4f}' for x in p)}), "
+              f"change {mean(c):.4f} ms ({', '.join(f'{x:.4f}' for x in c)}), "
+              f"{mean(p) / mean(c):.2f}x [{card}]", flush=True)
     every = runs["parent"] + runs["change"]
+    f32_close = {}
+    for name in every[0]["f32_rel"]:
+        errs = [r["f32_rel"][name] for r in every]
+        f32_close[name] = all(max(e) <= F32_REL_TOL for e in errs)
+        print(f"[ab] f32 {name} against its plain version, rel L2 (out, lse): parent "
+              + ", ".join(f"{e[0]:.2e} / {e[1]:.2e}" for e in errs[:2]) + "; change "
+              + ", ".join(f"{e[0]:.2e} / {e[1]:.2e}" for e in errs[2:])
+              + f" (tol {F32_REL_TOL}) [{card}]", flush=True)
 
     def same_across(key):
         return {case: all(r[key][case] == every[0][key][case] for r in every)
@@ -8044,6 +8177,8 @@ def ab_main(parent: str) -> int:
     k2_same, k3_same, k5_same = same_across("k2_digest"), same_across("k3_digest"), \
         same_across("k5_digest")
     prep_same = same_across("int8_prep_digest")
+    f32_same = same_across("f32_digest")
+    f32_differ = ", ".join(n for n, ok in f32_same.items() if not ok) or "none differ"
     repeat = {key: all(all(r[key].values()) for r in runs["change"])
               for key in ("k2_same", "k3_same", "int8_same")}
     int8_rel = {name: max(r["int8_rel"][name][0] for r in runs["change"])
@@ -8059,7 +8194,9 @@ def ab_main(parent: str) -> int:
           f"{sum(k3_same.values())} of {len(k3_same)} cases; K4 dq / dk / dv at "
           f"{sum(k4_same.values())} of {len(k4_same)} cases; K5a / K5b outputs at "
           f"{sum(k5_same.values())} of {len(k5_same)} cases; the s_int8 prep's qn / kn / qq / "
-          f"kq / scales at {sum(prep_same.values())} of {len(prep_same)} cases. The change's "
+          f"kq / scales at {sum(prep_same.values())} of {len(prep_same)} cases; the f32 K4 / K2 "
+          f"gradients and the f32 s_int8 K1 / K2 outputs at {sum(f32_same.values())} of "
+          f"{len(f32_same)} cases ({f32_differ}). The change's "
           f"two calls identical: K2 bf16 {repeat['k2_same']}, K3 {repeat['k3_same']}, K1 / K2 "
           f"s_int8 {repeat['int8_same']}. The change's K1 / K2 s_int8 against their plain "
           f"versions: " + "; ".join(
@@ -8071,7 +8208,7 @@ def ab_main(parent: str) -> int:
     (out_dir / "ab.json").write_text(json.dumps(runs, indent=1))
     checks = [*k6_same.values(), *k1_same.values(), *k2_same.values(), *k3_same.values(),
               *k4_same.values(), *k5_same.values(), *prep_same.values(), *repeat.values(),
-              *int8_close.values()]
+              *int8_close.values(), *f32_same.values(), *f32_close.values()]
     return 0 if all(checks) else 1
 
 
@@ -8219,9 +8356,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     t_k = time.perf_counter()
     k_table, k_paths = timed(phase_f32)
-    print(f"[smoke] phase K (attention in f32 through csrc/flash_simt.cu and in bf16 at head "
-          f"dims 32 / 64 through the wgmma K3 / K4, the f32 FLUX fit, variant test on the card, "
-          f"the first-party tokenizers): {time.perf_counter() - t_k:.1f} s [{card}]", flush=True)
+    print(f"[smoke] phase K (attention in f32 through csrc/flash_f32_fwd.cu and "
+          f"csrc/flash_simt.cu and in bf16 at head dims 32 / 64 through the wgmma K3 / K4, the "
+          f"f32 FLUX fit, variant test on the card, the first-party tokenizers): "
+          f"{time.perf_counter() - t_k:.1f} s [{card}]", flush=True)
 
     def simt_entry(name, replaces, mode, source="qflux_tpu_torch/csrc/flash_simt.cu"):
         by = {path: d[name] for path, d in k_paths.items() if d.get(name)}
@@ -8330,14 +8468,15 @@ def main() -> int:
                      "qflux_tpu/ops/quant.py:186's operand itself)",
          "launches": w8_t_e, "launches_by_path": {"w8a8_flux": w8_t_e}, **w8_t_case},
         simt_entry("flash_fwd f32", "qflux_tpu/ops/flash_attention.py:105",
-                   "f32, head dims 32 / 64 / 128"),
+                   "f32, head dims 32 / 64 / 128", "qflux_tpu_torch/csrc/flash_f32_fwd.cu"),
         simt_entry("flash_bwd f32", "qflux_tpu/ops/flash_attention.py:288, :215, :251",
                    "f32, head dims 32 / 64 / 128"),
         simt_entry("flash_fwd narrow", "qflux_tpu/ops/flash_attention.py:105",
                    "bf16, head dims 32 / 64", "qflux_tpu_torch/csrc/flash_fwd.cu"),
         simt_entry("flash_bwd narrow", "qflux_tpu/ops/flash_attention.py:288, :215, :251",
                    "bf16, head dims 32 / 64", "qflux_tpu_torch/csrc/flash_bwd.cu"),
-        simt_entry("flash_nr_fwd f32", "qflux_tpu/ops/flash_nr.py:192", "f32"),
+        simt_entry("flash_nr_fwd f32", "qflux_tpu/ops/flash_nr.py:192", "f32",
+                   "qflux_tpu_torch/csrc/flash_f32_fwd.cu"),
         simt_entry("flash_nr_bwd f32", "qflux_tpu/ops/flash_nr.py:311", "f32"),
         simt_entry("flash_nr_fwd f32 s_int8", "qflux_tpu/ops/flash_nr.py:192", "f32 s_int8"),
         simt_entry("flash_nr_bwd f32 s_int8", "qflux_tpu/ops/flash_nr.py:311", "f32 s_int8"),

@@ -1,17 +1,18 @@
-// Flash attention on the CUDA cores, for the inputs the wgmma kernels do not take:
-// f32 q / k / v at head dim 32, 64 or 128.  (bf16 at head dim 32 / 64 runs on the
-// wgmma K3 / K4 of flash_fwd.cu / flash_bwd.cu, templated on the head dim.)
+// Flash attention on the CUDA cores, for the f32 modes no tensor-core kernel takes
+// yet: K3's backward K4 in f32 at head dim 32, 64 or 128, and K1 / K2 in f32 at head
+// dim 128 (K1 only in its s_int8 mode; its plain f32 mode, and K3 in f32, run on the
+// tensor cores as a 3xTF32 split: flash_f32_fwd.cu, which takes this file's prep).
 //
 // Replaces the same Pallas TPU kernels as the wgmma kernels, in the modes JAX runs
 // them in without a dtype or head-dim condition of its own (its kernels compute in
 // f32 and cast to the refs' dtype, and qflux_tpu/ops/flash_attention.py:542 takes
 // any head dim):
-//   * K3 (qflux_tpu/ops/flash_attention.py:105 _fwd_kernel) and K4 (:288
-//     _dqdkv_kernel, :215 _dq_kernel, :251 _dkv_kernel) in f32 at D = 32 / 64 / 128:
-//     qflux_simt_fwd, qflux_simt_bwd;
-//   * K1 (qflux_tpu/ops/flash_nr.py:192 _fwd_nr_kernel) and K2 (:311
-//     _bwd_nr_kernel) in f32 at D = 128, also in their s_int8 mode:
-//     qflux_simt_nr_fwd, qflux_simt_nr_bwd.
+//   * K4 (qflux_tpu/ops/flash_attention.py:288 _dqdkv_kernel, :215 _dq_kernel, :251
+//     _dkv_kernel) in f32 at D = 32 / 64 / 128: qflux_simt_bwd;
+//   * K1 (qflux_tpu/ops/flash_nr.py:192 _fwd_nr_kernel) in f32 in its s_int8 mode
+//     and K2 (:311 _bwd_nr_kernel) in f32, also in its s_int8 mode, at D = 128:
+//     qflux_simt_nr_fwd, qflux_simt_nr_bwd; and their prep alone, qflux_simt_nr_prep,
+//     which flash_f32_fwd.cu's K1 runs before its loop.
 //
 // The function is K3's / K4's (flash_fwd.cu, flash_bwd.cu say it in full): for
 // every (b, h), out = softmax(q k^T * scale + segment mask) v and lse, with f32
@@ -22,14 +23,19 @@
 // masked), dv = p^T do, ds = p (do v^T - delta) scale, dq = ds k, dk = ds^T q.
 //
 // Why the CUDA cores.  A Hopper tensor core takes f32 only as TF32, which keeps
-// about three digits: the f32 modes must be f32-accurate (ops/layers.py
-// require_f32), so every product is an FFMA with an f32 accumulator.
+// about three digits, and the f32 modes must be f32-accurate (ops/layers.py
+// require_f32): these loops were written with every product an FFMA with an f32
+// accumulator, before the forward moved to a 3xTF32 split on the tensor cores
+// (flash_f32_fwd.cu); the backward's five products are the next to move (ROADMAP.md
+// queue 2).
 //
-// What bounds it on an H100: 4 * B * H * Sq * Sk * D operations forward (QK^T and
-// PV) and 10 * B * H * Sq * Sk * D backward (five products), against the card's 67
-// TFLOP/s of f32 FFMA: at FLUX's 512^2 shape (S = 2560, H = 24, D = 128) 80.5
-// GFLOP, 1.20 ms forward.  The bytes are (2 Sq + 2 Sk) * B * H * D * 4 bytes,
-// 126 MB at that shape, 0.038 ms at 3.35 TB/s: compute-bound.
+// What bounds it on an H100: 10 * B * H * Sq * Sk * D operations backward (five
+// products), which the tensor cores could run f32-accurately as 3xTF32 splits at
+// 495 / 3 TFLOP/s: at FLUX's 512^2 shape (S = 2560, H = 24, D = 128) 201 GFLOP,
+// 1.22 ms; the FFMA these loops run does 67 TFLOP/s (3.0 ms).  The s_int8 forward's
+// score products are int8 (the tensor cores' 1,979 TOPS could take them), its P V
+// f32.  The bytes are (4 Sq + 4 Sk) * B * H * D * 4 backward, 252 MB at that
+// shape, 0.075 ms at 3.35 TB/s: compute-bound.
 //
 // What the design does about that: it is simple first.  A block of 256 threads
 // (16 x 16) owns 64 rows (the forward's and dq's q rows, dkv's keys) and streams
@@ -40,8 +46,7 @@
 // shuffles, p (or ds) goes through shared memory, and the thread accumulates
 // rows 4 ty + i, columns tx + 16 c of the output.  The backward is K4's split:
 // dk / dv over the keys of a block, then dq over its q rows, each recomputing
-// the scores, no atomics, deterministic.  A 3xTF32 split or mma.sync loop is
-// later work (ROADMAP.md queue 2).
+// the scores, no atomics, deterministic.
 //
 // The fused f32 modes (K1 / K2) first run a prep, one warp per (b, s, h) row
 // (flash_nr_common.cuh's norm_rope4_f32: flash_nr_fwd.cu's flash_nr_kn_kernel
@@ -62,7 +67,7 @@
 // or both null (the unmasked case: every real token is segment 1).  The fused
 // modes: scale pairs [2, D] f32, cos / sin [S, D] (batch stride 0) or [B, S, D]
 // f32, their inputs 16-byte aligned (float4 rows).  dtype code: 0 (f32), the only
-// one the entries take.
+// one qflux_simt_bwd takes.
 
 #include "flash_nr_common.cuh"
 
@@ -247,40 +252,34 @@ __host__ __device__ constexpr int rows_bytes(bool int8) {  // a 64-row tile in s
   return 64 * (int8 ? HD / 4 + 4 : HD + 4) * 4;
 }
 
-template <int HD, bool INT8>
-__host__ __device__ constexpr int fwd_smem() {  // V, P, key ids, Q, K
-  return rows_bytes<HD>(false) + BQ * BK * 4 + BK * 4 + 2 * rows_bytes<HD>(INT8);
+template <int HD>
+__host__ __device__ constexpr int fwd_smem() {  // V, P, key ids, Q (int8), K (int8)
+  return rows_bytes<HD>(false) + BQ * BK * 4 + BK * 4 + 2 * rows_bytes<HD>(true);
 }
 
 // ---------------------------------------------------------------------------
-// forward: block = 64 q rows of one (b, h), the keys in 64-row tiles
+// the s_int8 forward: block = 64 q rows of one (b, h), the keys in 64-row tiles
 
-template <int HD, bool SEG, bool INT8>
+template <int HD, bool SEG>
 __global__ void __launch_bounds__(THREADS)
-simt_fwd_kernel(const Args a, float* __restrict__ out, float* __restrict__ lse) {
+simt_fwd_int8_kernel(const Args a, float* __restrict__ out, float* __restrict__ lse) {
   constexpr int NC = HD / 16;
   extern __shared__ __align__(16) unsigned char smem[];
   float* sV = reinterpret_cast<float*>(smem);
   float* sP = reinterpret_cast<float*>(smem + rows_bytes<HD>(false));
   int* sKseg = reinterpret_cast<int*>(sP + BQ * BK);
-  unsigned char* sQ = reinterpret_cast<unsigned char*>(sKseg + BK);
-  unsigned char* sK = sQ + rows_bytes<HD>(INT8);
+  int* sQ = sKseg + BK;
+  int* sK = sQ + rows_bytes<HD>(true) / 4;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  if constexpr (INT8)
-    load_tile8<HD, BQ>(reinterpret_cast<int*>(sQ), a.qq, b, q0, a.Sq, a.H, h);
-  else
-    load_tile<HD, BQ>(reinterpret_cast<float*>(sQ), a.q, b, q0, a.Sq, a.H, h);
+  load_tile8<HD, BQ>(sQ, a.qq, b, q0, a.Sq, a.H, h);
   int qseg[4];
   float fac[4], m[4], l[4], o[4][NC];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = q0 + 4 * ty + i;
     qseg[i] = seg_of<SEG>(a.q_seg, b, r, a.Sq);
-    if constexpr (INT8)
-      fac[i] = int8_factor(a, b, h, min(r, a.Sq - 1));
-    else
-      fac[i] = a.scale;
+    fac[i] = int8_factor(a, b, h, min(r, a.Sq - 1));
     m[i] = NEG;
     l[i] = 0.f;
 #pragma unroll
@@ -288,15 +287,12 @@ simt_fwd_kernel(const Args a, float* __restrict__ out, float* __restrict__ lse) 
   }
   for (int k0 = 0; k0 < a.Sk; k0 += BK) {
     __syncthreads();  // the last tile's readers are done
-    if constexpr (INT8)
-      load_tile8<HD, BK>(reinterpret_cast<int*>(sK), a.kq, b, k0, a.Sk, a.H, h);
-    else
-      load_tile<HD, BK>(reinterpret_cast<float*>(sK), a.k, b, k0, a.Sk, a.H, h);
+    load_tile8<HD, BK>(sK, a.kq, b, k0, a.Sk, a.H, h);
     load_tile<HD, BK>(sV, a.v, b, k0, a.Sk, a.H, h);
     if (threadIdx.x < BK) sKseg[threadIdx.x] = seg_of<SEG>(a.kv_seg, b, k0 + threadIdx.x, a.Sk);
     __syncthreads();
     float s[4][4];
-    scores<HD, INT8>(sQ, sK, ty, tx, fac, s);
+    scores<HD, true>(sQ, sK, ty, tx, fac, s);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       bool ok[4];
@@ -675,15 +671,15 @@ cudaError_t set_smem(bool& done, K kernel, int bytes) {
   return err;
 }
 
-template <int HD, bool INT8>
-cudaError_t launch_fwd(const Args& a, void* out, float* lse, int B, cudaStream_t st) {
-  constexpr int smem = fwd_smem<HD, INT8>();
+template <int HD>
+cudaError_t launch_fwd_int8(const Args& a, void* out, float* lse, int B, cudaStream_t st) {
+  constexpr int smem = fwd_smem<HD>();
   static bool done[2] = {false, false};
-  cudaError_t e = set_smem(done[0], simt_fwd_kernel<HD, true, INT8>, smem);
-  if (e == cudaSuccess) e = set_smem(done[1], simt_fwd_kernel<HD, false, INT8>, smem);
+  cudaError_t e = set_smem(done[0], simt_fwd_int8_kernel<HD, true>, smem);
+  if (e == cudaSuccess) e = set_smem(done[1], simt_fwd_int8_kernel<HD, false>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((a.Sq + BQ - 1) / BQ, a.H, B);
-  (a.q_seg ? simt_fwd_kernel<HD, true, INT8> : simt_fwd_kernel<HD, false, INT8>)<<<
+  (a.q_seg ? simt_fwd_int8_kernel<HD, true> : simt_fwd_int8_kernel<HD, false>)<<<
       grid, THREADS, smem, st>>>(a, static_cast<float*>(out), lse);
   return cudaGetLastError();
 }
@@ -717,15 +713,6 @@ cudaError_t launch_bwd(Args a, const void* out, float* delta, void* dq, void* dk
   (seg ? simt_dq_kernel<HD, true, INT8> : simt_dq_kernel<HD, false, INT8>)<<<
       dim3((a.Sq + BQ - 1) / BQ, a.H, B), THREADS, q_smem, st>>>(a, static_cast<float*>(dq));
   return cudaGetLastError();
-}
-
-cudaError_t fwd_by_dim(int D_, const Args& a, void* out, float* lse, int B, cudaStream_t st) {
-  switch (D_) {
-    case 32: return launch_fwd<32, false>(a, out, lse, B, st);
-    case 64: return launch_fwd<64, false>(a, out, lse, B, st);
-    case 128: return launch_fwd<128, false>(a, out, lse, B, st);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 cudaError_t bwd_by_dim(int D_, const Args& a, const void* out, float* delta, void* dq, void* dk,
@@ -763,22 +750,8 @@ cudaError_t launch_nr_prep(const float* q, const float* k, const float* qs, cons
 }  // namespace simt
 }  // namespace
 
-// K3 in its f32 mode (D = 32, 64, 128) on `stream`: out [B, Sq, H, D] f32, lse [B, H,
-// Sq] f32.  dtype must be 0 (f32).  Returns a cudaError_t (cudaErrorInvalidValue for
-// any other dtype or head dim).
-extern "C" int qflux_simt_fwd(const void* q, const void* k, const void* v, const void* q_seg,
-                              const void* kv_seg, void* out, void* lse, int B, int Sq, int Sk,
-                              int H, int D_, int dtype, float scale, void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || (!q_seg != !kv_seg) || dtype != 0)
-    return (int)cudaErrorInvalidValue;
-  simt::Args a{q, k, v, nullptr, nullptr, nullptr, 0, static_cast<const int*>(q_seg),
-               static_cast<const int*>(kv_seg), nullptr, nullptr, nullptr, Sq, Sk, H, scale};
-  return (int)simt::fwd_by_dim(D_, a, out, static_cast<float*>(lse), B,
-                               static_cast<cudaStream_t>(stream));
-}
-
-// K4 in the same mode: delta (f32 [B, H, Sq] scratch), then dk / dv, then dq, f32.
-// dtype must be 0 (f32).  Returns a cudaError_t.
+// K4 in its f32 mode (D = 32, 64, 128) on `stream`: delta (f32 [B, H, Sq] scratch),
+// then dk / dv, then dq, f32.  dtype must be 0 (f32).  Returns a cudaError_t.
 extern "C" int qflux_simt_bwd(const void* q, const void* k, const void* v, const void* q_seg,
                               const void* kv_seg, const void* out, const void* lse,
                               const void* dout, void* delta, void* dq, void* dk, void* dv, int B,
@@ -793,18 +766,18 @@ extern "C" int qflux_simt_bwd(const void* q, const void* k, const void* v, const
                                static_cast<cudaStream_t>(stream));
 }
 
-// K1 in its f32 mode (D = 128): the prep (qn, kn: f32 [B, S, H, D] scratch), then the
-// forward over qn / kn / v.  q_rows > 0 (a multiple of 64): the s_int8 mode, whose
-// prep also writes amax ([B, H, 1 + ceil(S / q_rows)] u32 scratch) and qq / kq (int8
-// [B, S, H, D] scratch).  Returns a cudaError_t.
+// K1's s_int8 mode in f32 (D = 128): the prep (qn, kn: f32 [B, S, H, D] scratch; amax
+// [B, H, 1 + ceil(S / q_rows)] u32 scratch; qq / kq int8 [B, S, H, D] scratch), then the
+// forward over qq / kq / v.  q_rows > 0, a multiple of 64 (K1's plain f32 mode is
+// flash_f32_fwd.cu's qflux_f32_nr_fwd).  Returns a cudaError_t.
 extern "C" int qflux_simt_nr_fwd(const void* q, const void* k, const void* v,
                                  const void* q_scale2, const void* k_scale2, const void* cos,
                                  const void* sin, long long cs_bstride, const void* seg,
                                  void* qn, void* kn, void* qq, void* kq, void* amax, int q_rows,
                                  void* out, void* lse, int B, int S, int H, int st, float scale,
                                  void* stream) {
-  if (q_rows < 0 || q_rows % simt::BQ || !qn || !kn || (q_rows && (!qq || !kq || !amax)) ||
-      B <= 0 || S <= 0 || H <= 0)
+  if (q_rows <= 0 || q_rows % simt::BQ || !qn || !kn || !qq || !kq || !amax || B <= 0 ||
+      S <= 0 || H <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st_ = static_cast<cudaStream_t>(stream);
   float* qnf = static_cast<float*>(qn);
@@ -820,14 +793,13 @@ extern "C" int qflux_simt_nr_fwd(const void* q, const void* k, const void* v,
   const simt::Args a{qnf, knf, v, static_cast<const int8_t*>(qq), static_cast<const int8_t*>(kq),
                      static_cast<const unsigned*>(amax), q_rows, sg, sg, nullptr, nullptr,
                      nullptr, S, S, H, scale};
-  float* l = static_cast<float*>(lse);
-  return (int)(q_rows ? simt::launch_fwd<D, true>(a, out, l, B, st_)
-                      : simt::launch_fwd<D, false>(a, out, l, B, st_));
+  return (int)simt::launch_fwd_int8<D>(a, out, static_cast<float*>(lse), B, st_);
 }
 
-// The f32 modes' prep alone, as K1 runs it (for tests and the smoke, which hold
-// its qn / kn to the plain norm + rope and its qq / kq to `_quant_tile` of that
-// qn / kn): qn, kn f32 [B, S, H, D]; at q_rows > 0 also amax and qq / kq int8.
+// The f32 modes' prep alone, as K1 runs it (flash_f32_fwd.cu's K1 runs it before its
+// loop; tests and the smoke hold its qn / kn to the plain norm + rope and its qq / kq to
+// `_quant_tile` of that qn / kn): qn, kn f32 [B, S, H, D]; at q_rows > 0 also amax and
+// qq / kq int8.
 // Returns a cudaError_t.
 extern "C" int qflux_simt_nr_prep(const void* q, const void* k, const void* q_scale2,
                                   const void* k_scale2, const void* cos, const void* sin,

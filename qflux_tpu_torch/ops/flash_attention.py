@@ -31,10 +31,12 @@ hop's forward and backward.  The parts:
 The wgmma kernels take bf16 at head dims 128, 64 and 32 (their loops are
 templated on the head dim; 64 and 32 are the "narrow" mode).  JAX's Pallas
 kernels compute in f32 and cast to the refs' dtype, and take any head dim,
-so the same route runs f32 (D = 32, 64, 128) too: that goes to the
-CUDA-core kernels of csrc/flash_simt.cu (`qflux_simt_fwd` /
-`qflux_simt_bwd`, f32 FFMA: a tensor core's f32 is TF32), chosen by
-`mode`; any other dtype or head dim raises.  `KERNEL_LAUNCHES` counts K3's
+so the same route runs f32 (D = 32, 64, 128) too, chosen by `mode`: K3 on
+the tensor cores as a 3xTF32 split (csrc/flash_f32_fwd.cu,
+`qflux_f32_fwd`: every f32 product as three TF32 products, f32-accurate),
+K4 on the CUDA cores (csrc/flash_simt.cu, `qflux_simt_bwd`, f32 FFMA); any
+other dtype or head dim raises.  Every mode reads q, k and v by TMA, so
+they must be 16-byte aligned.  `KERNEL_LAUNCHES` counts K3's
 launches and `BWD_KERNEL_LAUNCHES` K4's in every mode; `F32_*` counts the
 f32 mode among them and `NARROW_*` bf16 at D = 32 / 64.  The
 kernels take every S and mask the ragged edge by index, so JAX's block
@@ -54,8 +56,8 @@ HEAD_DIM = 128             # the head dim of the "bf16" mode
 HEAD_DIMS = (32, 64, 128)  # the head dims the kernels take, in f32 and in bf16
 
 # launches of the CUDA kernels in this process: every K3 / K4 launch, whatever
-# its mode, and apart the f32 mode (csrc/flash_simt.cu) and the narrow bf16
-# mode among them
+# its mode, and apart the f32 mode (csrc/flash_f32_fwd.cu, csrc/flash_simt.cu)
+# and the narrow bf16 mode among them
 KERNEL_LAUNCHES = 0             # K3
 BWD_KERNEL_LAUNCHES = 0         # K4
 F32_KERNEL_LAUNCHES = 0         # K3 in f32 (D = 32, 64, 128)
@@ -112,8 +114,9 @@ def mode(q) -> str:
     """Which kernel takes q on the card, by its dtype and head dim: "bf16"
     (bf16 at D = 128) and "narrow" (bf16 at D = 32, 64) for the wgmma K3 /
     K4 of csrc/flash_fwd.cu / flash_bwd.cu, "f32" (D = 32, 64, 128) for the
-    CUDA-core kernels of csrc/flash_simt.cu.  Raises on anything else,
-    naming what the kernels take."""
+    3xTF32 K3 of csrc/flash_f32_fwd.cu and the CUDA-core K4 of
+    csrc/flash_simt.cu.  Raises on anything else, naming what the kernels
+    take."""
     d = q.shape[-1]
     if q.dtype in (torch.float32, torch.bfloat16) and d in HEAD_DIMS:
         if q.dtype == torch.float32:
@@ -123,7 +126,7 @@ def mode(q) -> str:
                      f"torch.float32 or torch.bfloat16 at head dims {HEAD_DIMS}")
 
 
-SIMT_F32 = 0  # csrc/flash_simt.cu's dtype code for f32, the one its K3 / K4 entries take
+SIMT_F32 = 0  # csrc/flash_simt.cu's dtype code for f32, the one its K4 entry takes
 
 
 def _count(q, bwd):
@@ -139,7 +142,7 @@ def _count(q, bwd):
         globals()[n] += 1
 
 
-def _check(name, t, device, dtype, shape, aligned=True):
+def _check(name, t, device, dtype, shape, aligned=False):
     if t.device != device:
         raise ValueError(f"flash_attention: {name} is on {t.device}, q on {device}")
     if t.dtype != dtype:
@@ -149,28 +152,27 @@ def _check(name, t, device, dtype, shape, aligned=True):
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"flash_attention: {name} is not contiguous")
-    if aligned and t.data_ptr() % 16 and dtype == torch.bfloat16:  # 16-byte TMA loads
+    if aligned and t.data_ptr() % 16:  # 16-byte TMA loads
         raise ValueError(f"flash_attention: {name} is not 16-byte aligned")
 
 
 def _kernel_args(q, k, v, q_seg, kv_seg):
-    """Check q, k, v against what the kernels take (`mode`: bf16 at D = 32,
-    64, 128 for the wgmma kernels, whose TMA tensor maps need 16-byte
-    alignment; f32 at D = 32, 64, 128 for csrc/flash_simt.cu; [B, S, H, D]
-    contiguous, k / v of one shape with q's B and H, all of q's dtype and on
-    q's device) and return (B, Sq, Sk, H, int32 q ids, int32 kv ids), the
-    ids both None (unmasked) or both set."""
+    """Check q, k, v against what the kernels take (`mode`: bf16 or f32 at
+    D = 32, 64, 128; [B, S, H, D] contiguous and 16-byte aligned, for the
+    forwards' TMA tensor maps; k / v of one shape with q's B and H, all of
+    q's dtype and on q's device) and return (B, Sq, Sk, H, int32 q ids,
+    int32 kv ids), the ids both None (unmasked) or both set."""
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"flash_attention: q / k must be [B, S, H, D], got "
                          f"{tuple(q.shape)} / {tuple(k.shape)}")
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    wgmma = mode(q) != "f32"
+    mode(q)  # raises on a dtype or head dim no kernel takes
     if sk < 1:
         raise ValueError("flash_attention: no keys")
-    _check("q", q, q.device, q.dtype, (b, sq, h, d), wgmma)
-    _check("k", k, q.device, q.dtype, (b, sk, h, d), wgmma)
-    _check("v", v, q.device, q.dtype, (b, sk, h, d), wgmma)
+    _check("q", q, q.device, q.dtype, (b, sq, h, d), True)
+    _check("k", k, q.device, q.dtype, (b, sk, h, d), True)
+    _check("v", v, q.device, q.dtype, (b, sk, h, d), True)
     q_seg, kv_seg = _segment_pair(q, q_seg, kv_seg)
     if q_seg is not None:
         q_seg, kv_seg = (t.to(torch.int32).contiguous() for t in (q_seg, kv_seg))
@@ -190,9 +192,9 @@ def _ptr(t):
 
 
 def _flash_fwd_cuda(q, k, v, q_seg, kv_seg, scale):
-    """Launch K3 (csrc/flash_fwd.cu) on CUDA tensors → (out, lse); raises on
-    anything the kernel does not take (`_kernel_args`) and on a CUDA error.
-    Counting is the caller's."""
+    """Launch K3 (csrc/flash_fwd.cu; f32: csrc/flash_f32_fwd.cu) on CUDA
+    tensors → (out, lse); raises on anything the kernel does not take
+    (`_kernel_args`) and on a CUDA error.  Counting is the caller's."""
     _on_cuda("forward", q)
     _, _, _, _, q_seg, kv_seg = _kernel_args(q, k, v, q_seg, kv_seg)
 
@@ -206,17 +208,14 @@ def _launch_fwd(kl, stream, q, k, v, q_seg, kv_seg, scale):
     """The C call of `_flash_fwd_cuda` on checked arguments (int32 ids or
     both None): allocates out [B, Sq, H, D] and lse [B, H, Sq] f32,
     launches through `kl` (a runtime.build KernelLibrary) on `stream` (K3
-    with the head dim in bf16, or `qflux_simt_fwd` with the head dim and
-    the f32 dtype code) and raises on a CUDA error."""
+    with the head dim: `qflux_flash_fwd` in bf16, `qflux_f32_fwd` in f32)
+    and raises on a CUDA error."""
     b, sq, h, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), device=q.device, dtype=torch.float32)
-    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(q_seg), _ptr(kv_seg),
-            out.data_ptr(), lse.data_ptr(), b, sq, k.shape[1], h, d)
-    if mode(q) == "f32":
-        code = kl.lib.qflux_simt_fwd(*ptrs, SIMT_F32, float(scale), stream)
-    else:
-        code = kl.lib.qflux_flash_fwd(*ptrs, float(scale), stream)
+    entry = kl.lib.qflux_f32_fwd if mode(q) == "f32" else kl.lib.qflux_flash_fwd
+    code = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(q_seg), _ptr(kv_seg),
+                 out.data_ptr(), lse.data_ptr(), b, sq, k.shape[1], h, d, float(scale), stream)
     kl.check(code, "flash_fwd launch")
     return out, lse
 
@@ -227,8 +226,9 @@ def _flash_bwd_cuda(q, k, v, q_seg, kv_seg, out, lse, do, scale):
     Counting is the caller's."""
     _on_cuda("backward", q)
     b, sq, sk, h, q_seg, kv_seg = _kernel_args(q, k, v, q_seg, kv_seg)
-    _check("out", out, q.device, q.dtype, q.shape)
-    _check("do", do, q.device, q.dtype, q.shape)
+    wgmma = mode(q) != "f32"  # the bf16 backward reads out and do by TMA too
+    _check("out", out, q.device, q.dtype, q.shape, wgmma)
+    _check("do", do, q.device, q.dtype, q.shape, wgmma)
     _check("lse", lse, q.device, torch.float32, (b, h, sq))
 
     from qflux_tpu_torch.runtime.build import load_library

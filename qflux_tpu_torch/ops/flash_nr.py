@@ -28,10 +28,12 @@ Counterpart of qflux_tpu/ops/flash_nr.py.  The parts:
     ops/remat.py, as K3's is: a block whose remat policy keeps the
     attention outputs replays K1's out and lse in its recompute.
 
-f32 inputs (`train.weight_dtype: float32`) run K1 / K2's f32 mode, the
-CUDA-core kernels of csrc/flash_simt.cu (`qflux_simt_nr_fwd` /
-`qflux_simt_nr_bwd`: a prep norms and ropes q and k into f32 scratch, then
-FFMA attention loops, and in the backward a rope + norm backward pass);
+f32 inputs (`train.weight_dtype: float32`) run K1 / K2's f32 mode: a prep
+(csrc/flash_simt.cu) norms and ropes q and k into f32 scratch, then K1 runs
+K3's f32 loop on the tensor cores, every product a 3xTF32 split
+(csrc/flash_f32_fwd.cu, `qflux_f32_nr_fwd`), and K2 the CUDA-core FFMA
+loops and a rope + norm backward pass (`qflux_simt_nr_bwd`); K1's f32
+s_int8 mode stays on the CUDA cores (`qflux_simt_nr_fwd`).
 `F32_KERNEL_LAUNCHES` and its siblings count them among all launches.
 
 The `s_int8` mode (config `model.quantize.attention`) computes QK^T as an
@@ -64,11 +66,11 @@ from qflux_tpu_torch.ops import remat
 
 EPS = 1e-6
 HEAD_DIM = 128  # the only head dim the kernels take (every FLUX/Qwen shape)
-DTYPES = (torch.bfloat16, torch.float32)  # bf16: the wgmma kernels; f32: csrc/flash_simt.cu
+DTYPES = (torch.bfloat16, torch.float32)  # bf16: the wgmma kernels; f32: the f32 modes
 
 # launches of the CUDA kernels in this process; the custom op and its
 # backward add one per launch, whatever the dtype, and the F32_ counts add
-# the f32 launches among them (csrc/flash_simt.cu)
+# the f32 launches among them (csrc/flash_f32_fwd.cu, csrc/flash_simt.cu)
 KERNEL_LAUNCHES = 0                # K1, csrc/flash_nr_fwd.cu
 BWD_KERNEL_LAUNCHES = 0            # K2, csrc/flash_nr_bwd.cu
 INT8_KERNEL_LAUNCHES = 0           # K1 in its s_int8 mode
@@ -350,12 +352,12 @@ def _check_aligned(**tensors):
 
 
 def _kernel_args(q, k, v, q_scale2, k_scale2, cos, sin, segment_ids):
-    """Check the inputs against what csrc/flash_nr_fwd.cu (bf16) and
-    csrc/flash_simt.cu (f32) take and return (f32 scale pairs, cos/sin
-    batch stride, int32 segment ids or None).  Raises on a dtype other than
-    bf16 or f32, D != 128, cross attention, a tensor on another device than
-    q, a wrong shape, or a q/k/v/cos/sin that is not contiguous or not
-    16-byte aligned."""
+    """Check the inputs against what csrc/flash_nr_fwd.cu (bf16) and the f32
+    modes (csrc/flash_f32_fwd.cu, csrc/flash_simt.cu) take and return (f32
+    scale pairs, cos/sin batch stride, int32 segment ids or None).  Raises
+    on a dtype other than bf16 or f32, D != 128, cross attention, a tensor
+    on another device than q, a wrong shape, or a q/k/v/cos/sin that is not
+    contiguous or not 16-byte aligned."""
     if q.dim() != 4:
         raise ValueError(f"flash_attention_nr: q must be [B, S, H, D], got {tuple(q.shape)}")
     b, s, h, d = q.shape
@@ -421,8 +423,9 @@ def _flash_nr_cuda(q, k, v, q_scale2, k_scale2, cos, sin, st, segment_ids, scale
     h, row) into the scratch kn.  q_rows = 0: the bf16 mode, then the wgmma
     kernel.  q_rows > 0: the s_int8 mode, whose prep also quantizes k per
     (b, h) and reduces the largest |qn| of each `q_rows`-row tile, then its
-    kernel, the same wgmma loop with int8 score products.  Counting is the
-    caller's (`_flash_nr_fwd_op`)."""
+    kernel, the same wgmma loop with int8 score products.  f32 q takes the
+    f32 modes (`_launch_f32_fwd`).  Counting is the caller's
+    (`_flash_nr_fwd_op`)."""
     _check_rows(q_rows, 128, "")
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_nr: the kernel runs on CUDA tensors, got {q.device}")
@@ -440,8 +443,8 @@ def _launch_fwd(kl, stream, q, k, v, qs, ks, cos, sin, cs_bstride, seg, st, scal
     lse and the scratch, launches through `kl` (a runtime.build
     KernelLibrary) on `stream` and raises on a CUDA error."""
     if q.dtype == torch.float32:
-        return _launch_simt_fwd(kl, stream, q, k, v, qs, ks, cos, sin, cs_bstride, seg, st,
-                                scale, q_rows)
+        return _launch_f32_fwd(kl, stream, q, k, v, qs, ks, cos, sin, cs_bstride, seg, st,
+                               scale, q_rows)
     b, s, h, _ = q.shape
     kn, kq, amax = _fwd_scratch(k, q_rows)
     out = torch.empty_like(q)
@@ -466,19 +469,27 @@ def _simt_fwd_scratch(q, q_rows):
             *_int8_scratch(q, q_rows))
 
 
-def _launch_simt_fwd(kl, stream, q, k, v, qs, ks, cos, sin, cs_bstride, seg, st, scale, q_rows):
-    """K1's f32 mode (`qflux_simt_nr_fwd`, csrc/flash_simt.cu) on checked
-    arguments: allocates the scratch (`_simt_fwd_scratch`), out and lse,
-    launches through `kl` on `stream` and raises on a CUDA error."""
+def _launch_f32_fwd(kl, stream, q, k, v, qs, ks, cos, sin, cs_bstride, seg, st, scale, q_rows):
+    """K1's f32 mode on checked arguments: allocates the scratch
+    (`_simt_fwd_scratch`), out and lse, launches through `kl` on `stream`
+    and raises on a CUDA error.  q_rows = 0: `qflux_f32_nr_fwd`
+    (csrc/flash_f32_fwd.cu: the prep, then the 3xTF32 tensor-core loop over
+    qn / kn); q_rows > 0, the s_int8 mode: `qflux_simt_nr_fwd`
+    (csrc/flash_simt.cu, __dp4a scores)."""
     b, s, h, _ = q.shape
     qn, kn, qq, kq, amax = _simt_fwd_scratch(q, q_rows)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), device=q.device, dtype=torch.float32)
-    code = kl.lib.qflux_simt_nr_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), qs.data_ptr(), ks.data_ptr(),
-        cos.data_ptr(), sin.data_ptr(), cs_bstride, _ptr(seg), qn.data_ptr(), kn.data_ptr(),
-        _ptr(qq), _ptr(kq), _ptr(amax), int(q_rows), out.data_ptr(), lse.data_ptr(), b, s, h,
-        int(st), float(scale), stream)
+    inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), qs.data_ptr(), ks.data_ptr(),
+              cos.data_ptr(), sin.data_ptr(), cs_bstride, _ptr(seg), qn.data_ptr(),
+              kn.data_ptr())
+    if q_rows:
+        code = kl.lib.qflux_simt_nr_fwd(
+            *inputs, qq.data_ptr(), kq.data_ptr(), amax.data_ptr(), int(q_rows),
+            out.data_ptr(), lse.data_ptr(), b, s, h, int(st), float(scale), stream)
+    else:
+        code = kl.lib.qflux_f32_nr_fwd(*inputs, out.data_ptr(), lse.data_ptr(), b, s, h, int(st),
+                                       float(scale), stream)
     kl.check(code, "flash_nr_fwd f32 launch")
     return out, lse
 

@@ -50,7 +50,9 @@ _SIGNATURES = {
     "qflux_flash_nr_bwd_tiles": (_I, [_I]),
     "qflux_flash_fwd": (_I, [_P] * 7 + [_I] * 5 + [ctypes.c_float, _P]),
     "qflux_flash_bwd": (_I, [_P] * 12 + [_I] * 5 + [ctypes.c_float, _P]),
-    "qflux_simt_fwd": (_I, [_P] * 7 + [_I] * 6 + [ctypes.c_float, _P]),
+    "qflux_f32_fwd": (_I, [_P] * 7 + [_I] * 5 + [ctypes.c_float, _P]),
+    "qflux_f32_nr_fwd": (_I, [_P] * 7 + [ctypes.c_longlong] + [_P] * 5 + [_I] * 4
+                         + [ctypes.c_float, _P]),
     "qflux_simt_bwd": (_I, [_P] * 12 + [_I] * 6 + [ctypes.c_float, _P]),
     "qflux_simt_nr_fwd": (_I, [_P] * 7 + [ctypes.c_longlong] + [_P] * 6 + [_I] + [_P] * 2
                           + [_I] * 4 + [ctypes.c_float, _P]),

@@ -13,7 +13,10 @@ rows lie in one tile); the s_int8 prep alone (`_launch_int8_prep`) is the
 entry that times it apart.  K3 reads q, k and v by TMA (16-byte aligned,
 contiguous), at head dim 128 and in the narrow mode (bf16 at 32 / 64)
 alike, with the head dim as an argument.  K4 takes an f32 delta scratch
-[B, H, Sq].  f32 takes the CUDA-core kernels of csrc/flash_simt.cu.
+[B, H, Sq].  In f32, K3 and K1 take the 3xTF32 tensor-core loop of
+csrc/flash_f32_fwd.cu (16-byte aligned, as every forward), K4, K2 and K1's
+s_int8 mode the CUDA-core kernels of csrc/flash_simt.cu; a torch emulation
+of the split (below) shows why three TF32 products and not one.
 """
 
 import ctypes
@@ -497,9 +500,10 @@ def test_cpu_tensors_never_reach_the_k2_or_k3_entries(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# the modes off bf16 at D = 128: K3 / K4 in f32 (D = 32, 64, 128) on the
-# CUDA-core kernels of csrc/flash_simt.cu and in bf16 at D = 32, 64 (the
-# narrow mode) on the wgmma kernels; K1 / K2 in f32 (and their s_int8 mode)
+# the modes off bf16 at D = 128: K3 in f32 (D = 32, 64, 128) on the 3xTF32
+# loop of csrc/flash_f32_fwd.cu and K4 in f32 on the CUDA-core kernels of
+# csrc/flash_simt.cu; K3 / K4 in bf16 at D = 32, 64 (the narrow mode) on the
+# wgmma kernels; K1 / K2 in f32 (and their s_int8 mode)
 
 SIMT_MODES = [(torch.float32, 32), (torch.float32, 64), (torch.float32, 128),
               (torch.bfloat16, 32), (torch.bfloat16, 64)]
@@ -520,11 +524,11 @@ def _simt_qkv(sq, sk, d, dtype, ids, b=2, h=3):
 @pytest.mark.parametrize("dtype,d", SIMT_MODES, ids=SIMT_IDS)
 @pytest.mark.parametrize("sq,sk,ids", [(300, 520, True), (77, 77, False)])
 def test_simt_fwd_launch_arguments(sq, sk, ids, dtype, d):
-    """K3 in f32 calls qflux_simt_fwd (never qflux_flash_fwd) with q, k, v,
-    the int32 ids (or None), out and lse, then B, Sq, Sk, H, the head dim,
-    the f32 dtype code 0, the scale and the stream; in the narrow mode (bf16
-    at D = 32, 64) it calls the wgmma qflux_flash_fwd with the head dim
-    (never qflux_simt_*).  out has q's dtype and lse is f32 [B, H, Sq]."""
+    """K3 in f32 calls the 3xTF32 qflux_f32_fwd (never qflux_flash_fwd or a
+    qflux_simt_* entry) with q, k, v, the int32 ids (or None), out and lse,
+    then B, Sq, Sk, H, the head dim, the scale and the stream; in the narrow
+    mode (bf16 at D = 32, 64) it calls the wgmma qflux_flash_fwd with the
+    same arguments.  out has q's dtype and lse is f32 [B, H, Sq]."""
     b, h, scale = 2, 3, 0.0625
     q, k, v, q_seg, kv_seg = _simt_qkv(sq, sk, d, dtype, ids, b, h)
     _, _, _, _, qs32, ks32 = tfa._kernel_args(q, k, v, q_seg, kv_seg)
@@ -534,13 +538,13 @@ def test_simt_fwd_launch_arguments(sq, sk, ids, dtype, d):
     assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
     (name, args), = kl.lib.calls
     f32 = dtype == torch.float32
-    assert name == ("qflux_simt_fwd" if f32 else "qflux_flash_fwd")
+    assert name == ("qflux_f32_fwd" if f32 else "qflux_flash_fwd")
     assert len(args) == len(build._SIGNATURES[name][1])
     assert args[:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
     assert args[3:5] == ((None, None) if not ids else (qs32.data_ptr(), ks32.data_ptr()))
     assert args[5:7] == (out.data_ptr(), lse.data_ptr())
     assert args[7:12] == (b, sq, sk, h, d)
-    assert args[12:] == ((0, scale, 66) if f32 else (scale, 66))
+    assert args[12:] == (scale, 66)
 
 
 @pytest.mark.parametrize("dtype,d", SIMT_MODES, ids=SIMT_IDS)
@@ -599,10 +603,106 @@ def test_narrow_refuses_misaligned_or_non_contiguous_inputs(monkeypatch, d):
 
 
 @pytest.mark.parametrize("d", [32, 64, 128])
+def test_f32_refuses_misaligned_inputs(monkeypatch, d):
+    """The f32 K3 reads q, k and v by TMA too: any of them off 16-byte
+    alignment is refused before the library is loaded, through the
+    forward's launcher and `_kernel_args` (which K4 shares); K1 in f32
+    refuses them as in bf16."""
+    def refuse():
+        raise AssertionError("refused inputs reached the kernel library")
+
+    monkeypatch.setattr(build, "load_library", refuse)
+    monkeypatch.setattr(tfa, "_on_cuda", lambda what, q: None)
+    q, k, v, q_seg, kv_seg = _simt_qkv(64, 96, d, torch.float32, True, 1, 2)
+    for t, i in ((q, 0), (k, 1), (v, 2)):
+        shifted = torch.zeros(t.numel() + 1)[1:].view(t.shape)  # a 4-byte offset
+        assert shifted.data_ptr() % 16
+        args = [q, k, v]
+        args[i] = shifted
+        what = f"{'qkv'[i]} is not 16-byte aligned"
+        with pytest.raises(ValueError, match=what):
+            tfa._flash_fwd_cuda(*args, q_seg, kv_seg, 0.125)
+        with pytest.raises(ValueError, match=what):
+            tfa._kernel_args(*args, None, None)
+    if d == 128:
+        args = list(_f32_k1_args(1, 64, 2, True))
+        args[0] = torch.zeros(args[0].numel() + 1)[1:].view(args[0].shape)
+        with pytest.raises(ValueError, match="q is not 16-byte aligned"):
+            tnr._kernel_args(*args)
+
+
+def _tf32(x):
+    """x rounded to TF32 as cvt.rna.tf32.f32 does: to the nearest value with
+    10 stored mantissa bits, ties away from zero (the sign-magnitude bits
+    plus half the dropped ulp, then the 13 low bits cleared)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _split(x):
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _emulated_fwd(q, k, v, scale, split=True):
+    """csrc/flash_f32_fwd.cu's arithmetic in torch on [B, S, H, D] f32, the
+    unmasked case: every product of S = q k^T and of P V as hi_a hi_b +
+    hi_a lo_b + lo_a hi_b of TF32 pieces (each product exact in f32, the
+    sums f32), p = exp(s - m) split the same way, the sum divided by l at
+    the end; split=False takes one TF32 product instead (TF32 operands).
+    Returns (out, lse [B, H, Sq])."""
+    qf, kf, vf = (t.permute(0, 2, 1, 3) for t in (q, k, v))  # [B, H, S, D]
+
+    def mm(a, b):
+        if not split:
+            return _tf32(a) @ _tf32(b)
+        (ah, al), (bh, bl) = _split(a), _split(b)
+        return ah @ bh + ah @ bl + al @ bh
+
+    s = mm(qf, kf.transpose(-1, -2))
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp((s - m) * scale)
+    l = p.sum(-1, keepdim=True)
+    out = (mm(p, vf) / l).permute(0, 2, 1, 3)
+    return out, (m * scale + l.log()).squeeze(-1)
+
+
+@pytest.mark.parametrize("d", [32, 128])
+def test_tf32_split_arithmetic_meets_the_f32_tolerance(d):
+    """Why the f32 K3 runs three TF32 products a product: in a torch
+    emulation of its arithmetic (TF32 rounding by mantissa masking with
+    round-to-nearest, hi_a hi_b + hi_a lo_b + lo_a hi_b, f32 sums; the
+    emulation lives here and on no path) out and lse are within the f32
+    modes' 2e-5 relative L2 (chip_smoke.py's F32_REL_TOL) of
+    `flash_fwd_reference`, while one TF32 product misses it by more than
+    an order of magnitude.  The rounding is cvt.rna's: 1 + 2^-11 (a tie)
+    rounds away from zero, 1 + 2^-12 to 1."""
+    one = torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 2 ** -12, 3.0], dtype=torch.float32)
+    assert _tf32(one).tolist() == [1 + 2 ** -10, -(1 + 2 ** -10), 1.0, 3.0]
+    rng = np.random.default_rng(23 + d)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, 96, 2, d)).astype(np.float32))
+               for _ in range(3))
+    scale = d ** -0.5
+    ref, ref_lse = tfa.flash_fwd_reference(q, k, v, None, None, scale)
+
+    def rel(a, b):
+        return ((a.double() - b.double()).norm() / b.double().norm()).item()
+
+    out, lse = _emulated_fwd(q, k, v, scale)
+    assert rel(out, ref) <= 2e-5 and rel(lse, ref_lse) <= 2e-5
+    hi, lo = _split(q)  # what the split drops: lo's own rounding, at most 2^-22 of |x|
+    assert bool(((hi + lo - q).abs() <= 2.0 ** -22 * q.abs()).all())
+    out1, lse1 = _emulated_fwd(q, k, v, scale, split=False)
+    assert rel(out1, ref) > 10 * 2e-5
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
 def test_modes_take_their_entries(d):
     """bf16 at every head dim takes the wgmma K3 / K4 (mode "bf16" at 128,
     "narrow" at 32 / 64, the head dim passed to qflux_flash_fwd / _bwd),
-    f32 the CUDA-core ones with dtype code 0: one call each way, no other."""
+    f32 the 3xTF32 K3 (qflux_f32_fwd with the head dim) and the CUDA-core K4
+    (qflux_simt_bwd with the head dim and dtype code 0): one call each way,
+    no other."""
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v, q_seg, kv_seg = _simt_qkv(77, 130, d, dtype, True, 1, 2)
         kl = _library()
@@ -616,21 +716,26 @@ def test_modes_take_their_entries(d):
             assert kl.lib.calls[1][1][16] == d
         else:
             assert tfa.mode(q) == "f32"
-            assert names == ["qflux_simt_fwd", "qflux_simt_bwd"]
-            assert kl.lib.calls[0][1][11:13] == (d, 0) and kl.lib.calls[1][1][16:18] == (d, 0)
+            assert names == ["qflux_f32_fwd", "qflux_simt_bwd"]
+            assert kl.lib.calls[0][1][11] == d and kl.lib.calls[1][1][16:18] == (d, 0)
 
 
 def test_simt_entries_take_f32_only():
-    """csrc/flash_simt.cu's K3 / K4 entries refuse every dtype code but 0
-    (f32) in their argument checks, and the file holds no bf16 instance: bf16
-    at D = 32 / 64 runs on the wgmma kernels.  (The card test
+    """csrc/flash_simt.cu's K4 entry refuses every dtype code but 0 (f32) in
+    its argument check, the file holds no bf16 instance (bf16 at D = 32 / 64
+    runs on the wgmma kernels) and no K3 forward any more: f32 K3 and K1 run
+    the 3xTF32 loop of csrc/flash_f32_fwd.cu, and the CUDA-core forward is
+    the s_int8 one alone, whose entry refuses q_rows = 0.  (The card test
     `test_simt_entries_refuse_bf16_on_card` runs the refusal.)"""
     src = (build.CSRC / "flash_simt.cu").read_text()
     assert "Elem<bf16>" not in src and "<bf16>" not in src
-    for entry in ("qflux_simt_fwd", "qflux_simt_bwd"):
-        body = src[src.index(f'extern "C" int {entry}('):]
-        check = body[:body.index("return (int)cudaErrorInvalidValue;")]
-        assert "dtype != 0" in check, entry
+    body = src[src.index('extern "C" int qflux_simt_bwd('):]
+    check = body[:body.index("return (int)cudaErrorInvalidValue;")]
+    assert "dtype != 0" in check
+    assert "qflux_simt_fwd" not in src and "fwd_by_dim" not in src
+    assert "qflux_simt_fwd" not in build._SIGNATURES
+    body = src[src.index('extern "C" int qflux_simt_nr_fwd('):]
+    assert "q_rows <= 0" in body[:body.index("return (int)cudaErrorInvalidValue;")]
     assert tfa.SIMT_F32 == 0
 
 
@@ -672,11 +777,12 @@ def _f32_k1_args(b, s, h, seg, seed=0):
 @pytest.mark.parametrize("q_rows", [0, 128, 256])
 @pytest.mark.parametrize("seg", [False, True])
 def test_simt_nr_fwd_launch_arguments(monkeypatch, q_rows, seg):
-    """K1 in f32 calls qflux_simt_nr_fwd (not qflux_flash_nr_fwd) with the
-    inputs, the cos / sin batch stride, the ids, its scratch (qn, kn f32
-    [B, S, H, D]; in the s_int8 mode qq, kq int8 and amax [B, H, 1 +
-    ceil(S / q_rows)], else None) and q_rows, out (f32), lse, the shape, st,
-    the scale and the stream."""
+    """K1 in f32 (never qflux_flash_nr_fwd) calls the 3xTF32
+    qflux_f32_nr_fwd with the inputs, the cos / sin batch stride, the ids,
+    its scratch (qn, kn f32 [B, S, H, D]), out (f32), lse, the shape, st,
+    the scale and the stream; in the s_int8 mode it calls the CUDA-core
+    qflux_simt_nr_fwd with qq, kq int8, amax [B, H, 1 + ceil(S / q_rows)]
+    and q_rows after qn / kn."""
     b, s, h, st, scale = 2, 300, 3, 40, 0.125
     q, k, v, qs2, ks2, cos, sin, ids = _f32_k1_args(b, s, h, seg)
     qs, ks, cs_bstride, seg32 = tnr._kernel_args(q, k, v, qs2, ks2, cos, sin, ids)
@@ -689,20 +795,22 @@ def test_simt_nr_fwd_launch_arguments(monkeypatch, q_rows, seg):
                                q_rows)
     assert out.dtype == torch.float32 and lse.shape == (b, h, s)
     (name, args), = kl.lib.calls
-    assert name == "qflux_simt_nr_fwd" and len(args) == len(build._SIGNATURES[name][1])
+    assert name == ("qflux_simt_nr_fwd" if q_rows else "qflux_f32_nr_fwd")
+    assert len(args) == len(build._SIGNATURES[name][1])
     qn, kn, qq, kq, amax = made[0]
     assert args[:7] == tuple(t.data_ptr() for t in (q, k, v, qs, ks, cos, sin))
     assert args[7] == cs_bstride and args[8] == (None if seg32 is None else seg32.data_ptr())
     assert args[9:11] == (qn.data_ptr(), kn.data_ptr())
     assert qn.shape == kn.shape == q.shape and qn.dtype == kn.dtype == torch.float32
     if q_rows:
-        assert args[11:14] == (qq.data_ptr(), kq.data_ptr(), amax.data_ptr())
+        assert args[11:15] == (qq.data_ptr(), kq.data_ptr(), amax.data_ptr(), q_rows)
         assert qq.dtype == kq.dtype == torch.int8 and qq.shape == q.shape
         assert amax.shape == (b, h, 1 + -(-s // q_rows)) and amax.dtype == torch.int32
+        args = args[:11] + args[15:]
     else:
-        assert args[11:14] == (None, None, None)
-    assert args[14] == q_rows and args[15:17] == (out.data_ptr(), lse.data_ptr())
-    assert args[17:23] == (b, s, h, st, scale, 31)
+        assert qq is None and kq is None and amax is None
+    assert args[11:13] == (out.data_ptr(), lse.data_ptr())
+    assert args[13:19] == (b, s, h, st, scale, 31)
 
 
 @pytest.mark.parametrize("q_rows", [0, 128])
@@ -745,10 +853,13 @@ def test_simt_nr_bwd_launch_arguments(monkeypatch, q_rows):
 
 
 def test_simt_entry_points_are_declared():
-    """The new C entries take 64-bit pointers and the cos / sin batch
-    stride as a 64-bit integer, as the bf16 ones."""
-    for name, n, stride_at in (("qflux_simt_fwd", 15, None), ("qflux_simt_bwd", 20, None),
-                               ("qflux_simt_nr_fwd", 23, 7), ("qflux_simt_nr_bwd", 32, 7)):
+    """The f32 modes' C entries take 64-bit pointers and the cos / sin batch
+    stride as a 64-bit integer, as the bf16 ones; the 3xTF32 K3 entry takes
+    qflux_flash_fwd's arguments."""
+    assert build._SIGNATURES["qflux_f32_fwd"] == build._SIGNATURES["qflux_flash_fwd"]
+    for name, n, stride_at in (("qflux_f32_fwd", 14, None), ("qflux_simt_bwd", 20, None),
+                               ("qflux_f32_nr_fwd", 19, 7), ("qflux_simt_nr_fwd", 23, 7),
+                               ("qflux_simt_nr_bwd", 32, 7)):
         restype, argtypes = build._SIGNATURES[name]
         assert restype is ctypes.c_int and len(argtypes) == n, name
         if stride_at is not None:

@@ -1684,10 +1684,11 @@ def test_optimizers_on_card_equal_cpu(class_path, args):
 
 
 # ---------------------------------------------------------------------------
-# The modes off bf16 at D = 128: the CUDA-core kernels of csrc/flash_simt.cu (K3
-# / K4 in f32 at head dims 32, 64 and 128; K1 / K2 and their s_int8 mode in f32)
-# and the narrow mode (K3 / K4 in bf16 at 32 and 64, the wgmma kernels templated
-# on the head dim).  The f32 bounds are chip_smoke.py's phase K ones: out and lse
+# The modes off bf16 at D = 128: the f32 modes (K3 and K1 on the 3xTF32
+# tensor-core loop of csrc/flash_f32_fwd.cu; K4 at head dims 32, 64 and 128, K2
+# and K1 / K2's s_int8 mode on the CUDA-core kernels of csrc/flash_simt.cu) and
+# the narrow mode (K3 / K4 in bf16 at 32 and 64, the wgmma kernels templated on
+# the head dim).  The f32 bounds are chip_smoke.py's phase K ones: out and lse
 # within 2e-5, the gradients within 1e-4 (relative L2: the kernels and the plain
 # versions sum in other orders, and exp / rsqrt differ by an ulp); the narrow
 # mode is held to the bf16 K3 / K4 bounds above.
@@ -1787,12 +1788,15 @@ class _EntrySpy:
 
 
 def test_simt_modes_never_reach_the_plain_version(monkeypatch):
-    """f32 attention on CUDA tensors launches csrc/flash_simt.cu and bf16 at
-    D = 32 / 64 the wgmma K3 / K4 (qflux_flash_fwd / _bwd, never a
-    qflux_simt_* entry), through `flash_attention` (forward and autograd),
-    and the fused K1 / K2 in f32 launch csrc/flash_simt.cu; none calls the
-    plain versions (replaced by functions that raise); an f16 q or a head
-    dim of 96 raises, naming what the kernels take."""
+    """f32 attention on CUDA tensors launches the 3xTF32 K3 of
+    csrc/flash_f32_fwd.cu and csrc/flash_simt.cu's K4, and bf16 at D = 32 /
+    64 the wgmma K3 / K4 (qflux_flash_fwd / _bwd, never a qflux_simt_*
+    entry), through `flash_attention` (forward and autograd); the fused K1
+    in f32 launches qflux_f32_nr_fwd and K2 csrc/flash_simt.cu: no f32
+    forward reaches flash_simt.cu's forward loop (qflux_simt_nr_fwd, now
+    the s_int8 mode's alone), and none calls the plain versions (replaced
+    by functions that raise); an f16 q or a head dim of 96 raises, naming
+    what the kernels take."""
     from qflux_tpu_torch.ops import flash_attention as tfa
     from qflux_tpu_torch.runtime import build
 
@@ -1814,16 +1818,19 @@ def test_simt_modes_never_reach_the_plain_version(monkeypatch):
         tfa.flash_attention(*leaves, segment_ids=q_seg).float().square().sum().backward()
         torch.cuda.synchronize()
         assert all(bool(torch.isfinite(x.grad).all()) for x in leaves)
-        assert spy.names == (["qflux_simt_fwd", "qflux_simt_bwd"] if dtype == torch.float32
+        assert spy.names == (["qflux_f32_fwd", "qflux_simt_bwd"] if dtype == torch.float32
                              else ["qflux_flash_fwd", "qflux_flash_bwd"]), (dtype, d)
     args = _inputs(8, 300)
     args = [a.float() for a in args[:3]] + args[3:]
     leaves = [a.clone().requires_grad_() for a in args[:3]]
     c0 = _simt_counts()
+    spy.names.clear()
     out, _ = tnr.flash_attention_nr(*leaves, *args[3:], ST)
     out.square().sum().backward()
     torch.cuda.synchronize()
     assert [b - a for a, b in zip(c0, _simt_counts())][4:6] == [1, 1]
+    assert [n for n in spy.names if n != "qflux_flash_nr_bwd_tiles"] == [
+        "qflux_f32_nr_fwd", "qflux_simt_nr_bwd"]
     for dtype, d in ((torch.float16, 64), (torch.float32, 96)):
         q = torch.zeros(1, 8, 2, d, device="cuda", dtype=dtype)
         with pytest.raises(ValueError, match="head dims"):
@@ -1836,15 +1843,15 @@ NARROW_EDGE_CASES = [(40, 40, True), (40, 40, False), (300, 520, True), (520, 30
                      (129, 777, True), (777, 129, True), (1, 130, True)]
 
 
-def _narrow_edge_inputs(seed, sq, sk, d, masked):
-    """bf16 q [2, Sq, H, d] and k / v [2, Sk, H, d] on the card; with ids,
+def _narrow_edge_inputs(seed, sq, sk, d, masked, dtype=torch.bfloat16):
+    """q [2, Sq, H, d] and k / v [2, Sk, H, d] of `dtype` on the card; with ids,
     sample 0's last quarter of q rows is padding (segment 0) and its last
     third of keys too, sample 1 is two segments, and its last q row is
     segment 3, which no key has: two kinds of fully masked row."""
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((B, sq, H, d)).astype(np.float32)
     k, v = (rng.standard_normal((B, sk, H, d)).astype(np.float32) for _ in range(2))
-    qkv = [torch.from_numpy(a).cuda().to(torch.bfloat16) for a in (q, k, v)]
+    qkv = [torch.from_numpy(a).cuda().to(dtype) for a in (q, k, v)]
     if not masked:
         return qkv + [None, None]
     q_seg, kv_seg = np.ones((B, sq), np.int32), np.ones((B, sk), np.int32)
@@ -1890,10 +1897,47 @@ def test_narrow_k3_k4_edges_match_plain_on_card(sq, sk, masked, d):
         assert bool(dead[1, -1]) and not out[dead].any() and not got[0][dead].any()
 
 
+# the f32 K3 at the edges its tiles (128 q rows, 64 keys) and TMA create: S
+# below one tile, S off the tiles, Sq != Sk, B = 2 with fully masked rows, the
+# unmasked case, one q row
+F32_EDGE_CASES = NARROW_EDGE_CASES + [(256, 256, False)]
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("sq,sk,masked", F32_EDGE_CASES)
+def test_f32_k3_edges_match_plain_on_card(sq, sk, masked, d):
+    """The 3xTF32 K3 (csrc/flash_f32_fwd.cu) at the edges of its tiles,
+    through `flash_fwd_with_lse`: out and lse within 2e-5 relative L2 of
+    the plain version, fully masked rows at exactly 0 with lse = -1e30, two
+    calls identical to the bit, one f32 K3 launch a call."""
+    from qflux_tpu_torch.ops import flash_attention as tfa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, q_seg, kv_seg = _narrow_edge_inputs(3 * sq + sk + d, sq, sk, d, masked,
+                                                 torch.float32)
+    scale = d ** -0.5
+    c0 = _simt_counts()
+    out, lse = tfa.flash_fwd_with_lse(q, k, v, q_seg, kv_seg, scale)
+    out2, lse2 = tfa.flash_fwd_with_lse(q, k, v, q_seg, kv_seg, scale)
+    torch.cuda.synchronize()
+    assert [b - a for a, b in zip(c0, _simt_counts())][:4] == [2, 0, 0, 0]
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    ref, ref_lse = tfa.flash_fwd_reference(q, k, v, q_seg, kv_seg, scale)
+    valid = ref_lse > -1e29
+    assert out.dtype == torch.float32 and _rel_l2(out, ref) <= F32_REL_TOL
+    assert _rel_l2(lse[valid], ref_lse[valid]) <= F32_REL_TOL
+    assert bool((lse[~valid] == -1e30).all())
+    if masked:
+        dead = _dead_rows(q_seg, kv_seg)
+        assert bool(dead[1, -1]) and bool((out[dead] == 0).all())
+
+
 def test_simt_entries_refuse_bf16_on_card():
-    """csrc/flash_simt.cu's K3 / K4 entries take f32 only: dtype code 1
-    (bf16, which the narrow mode now sends to the wgmma kernels) returns
-    cudaErrorInvalidValue (1) from the argument check, launching nothing."""
+    """csrc/flash_simt.cu's K4 entry takes f32 only: dtype code 1 (bf16,
+    which the narrow mode sends to the wgmma kernels) returns
+    cudaErrorInvalidValue (1) from the argument check, launching nothing;
+    its K1 entry refuses q_rows = 0 (K1's plain f32 mode runs
+    csrc/flash_f32_fwd.cu), so no f32 forward reaches its forward loop."""
     from qflux_tpu_torch.runtime.build import load_library
 
     lib = load_library().lib
@@ -1904,8 +1948,10 @@ def test_simt_entries_refuse_bf16_on_card():
     grads = [torch.zeros_like(q) for _ in range(3)]
     stream = torch.cuda.current_stream().cuda_stream
     p = [t.data_ptr() for t in (q, k, v, q_seg, kv_seg)]
-    assert lib.qflux_simt_fwd(*p, out.data_ptr(), lse.data_ptr(), b, s, s, h, d, 1, 0.125,
-                              stream) == 1
+    z = torch.zeros(b, s, h, D, device="cuda")
+    assert lib.qflux_simt_nr_fwd(*(z.data_ptr() for _ in range(3)), None, None, None, None, 0,
+                                 None, z.data_ptr(), z.data_ptr(), None, None, None, 0,
+                                 out.data_ptr(), lse.data_ptr(), b, s, h, 0, 0.125, stream) == 1
     assert lib.qflux_simt_bwd(*p, out.data_ptr(), lse.data_ptr(), do.data_ptr(),
                               delta.data_ptr(), *(g.data_ptr() for g in grads), b, s, s, h, d,
                               1, 0.125, stream) == 1
