@@ -422,8 +422,8 @@ PEAK_F32_SPLIT_PER_MS = 495e9 / 3
 # emulated by a polynomial on the FMA pipe (which no kernel here does) would
 # add to this rate, so a time from it is the floor of the SFU's exponentials
 PEAK_EXP_PER_MS = 16 * 132 * 1.98e6
-# the f32 modes (csrc/flash_f32_fwd.cu, csrc/flash_simt.cu) against their plain
-# versions on the card
+# the f32 modes (csrc/flash_f32_fwd.cu, csrc/flash_f32_bwd.cu, csrc/flash_simt.cu)
+# against their plain versions on the card
 # (relative L2): the same f32 arithmetic summed in another order, exp and
 # rsqrt an ulp apart: out and lse within 2e-5, and the gradients, sums of
 # five products (and the rope + norm backward), within 1e-4
@@ -5444,7 +5444,7 @@ class _PathShapes:
     segment ids are given, the s_int8 mode's q_rows and q's dtype, their ids
     copied at the first launch; K3 and K4 by q's and k's shapes, whether ids
     are given and q's dtype (bf16: the wgmma kernels; f32: K3 on
-    csrc/flash_f32_fwd.cu, K4 on csrc/flash_simt.cu), their segment ids copied at the
+    csrc/flash_f32_fwd.cu, K4 on csrc/flash_f32_bwd.cu), their segment ids copied at the
     first launch; K5a and K5b by M, K, N, the weight's group count and the output
     dtype; the row quantization by its input's shape and dtype and whether
     s_vec multiplies it first.  Only shapes and ids are kept, so what the
@@ -6885,9 +6885,11 @@ def optim_main() -> int:
 
 
 # ---------------------------------------------------------------------------
-# phase K: attention in f32 (the 3xTF32 forwards of csrc/flash_f32_fwd.cu, the
-# CUDA-core modes of csrc/flash_simt.cu) and in bf16 at head dims 32 / 64 (the
-# narrow mode of the wgmma K3 / K4), and the first-party tokenizers
+# phase K: attention in f32 (the 3xTF32 forwards of csrc/flash_f32_fwd.cu and
+# backwards of csrc/flash_f32_bwd.cu, the CUDA-core s_int8 modes of
+# csrc/flash_simt.cu), in bf16 at head dims 32 / 64 (the narrow mode of the
+# wgmma K3 / K4), at a head dim no kernel takes (zero-padded), and the
+# first-party tokenizers
 
 K_F32_CASES = [  # name, B, S, H, D, ids: K3 / K4 in f32; the first is the table's
     ("qwen_832x576_f32", 1, 4000, 24, 128, "text_pad"),
@@ -6897,6 +6899,7 @@ K_NARROW_CASES = [  # bf16 at D = 64 / 32 (the wgmma K3 / K4); the first is the 
     ("s4000_d64_bf16", 1, 4000, 48, 64, "text_pad"),
     ("hop_d32_bf16", 1, 2000, 8, 32, "hop")]
 K_NR_CASES = [2560, 2304]  # K1 / K2 in f32: FLUX 512² (the table's) and path A's S
+K_PAD_CASE = ("pad_d96", 1, 1000, 8, 96, "text_pad")  # a head dim no kernel takes
 K_INT8_S = 2304            # the f32 s_int8 mode (forward tiles 256 rows, backward 128)
 K_DEPTH = (4, 8)           # the f32 FLUX.1-Kontext fit: 57 f32 blocks hold ~48 GB
 K_FIT_STEPS = 3            # its fit steps, then K_INT8_STEPS with int8 attention
@@ -6951,17 +6954,26 @@ def _f32_bound(q, k, q_seg, kv_seg, bwd=False, nr=False, int8=False) -> dict:
             "tensor_core_ms": t_mma, "exp_ms": t_exp}
 
 
-def _sdpa_kernels(q, k, v) -> str:
-    """Which backend one `_sdpa_ms` forward call takes: PyTorch's own choice
-    (`torch._fused_sdp_choice`) and the names of the CUDA kernels the call
-    launched under torch.profiler (which, late in a long process, can record
-    the launches and not the kernels)."""
+def _sdpa_kernels(q, k, v, do=None) -> str:
+    """Which backend one `_sdpa_ms` forward call takes (its backward with
+    `do`): PyTorch's own choice (`torch._fused_sdp_choice`) and the names of
+    the CUDA kernels the call launched under torch.profiler (which, late in
+    a long process, can record the launches and not the kernels)."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend
     from torch.profiler import ProfilerActivity, profile
 
     q, k, vv = (t.transpose(1, 2) for t in (q, k, v))
     choice = SDPBackend(torch._fused_sdp_choice(q, k, vv)).name
+    if do is not None:
+        q, k, vv = (t.detach().requires_grad_() for t in (q, k, vv))
+        out = F.scaled_dot_product_attention(q, k, vv)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.autograd.grad(out, (q, k, vv), do.transpose(1, 2))
+            torch.cuda.synchronize()
+        names = [e.key[:60] for e in prof.key_averages()
+                 if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        return f"backend {choice}; backward kernels: {', '.join(names) or 'none recorded'}"
     with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
         F.scaled_dot_product_attention(q, k, vv)
         torch.cuda.synchronize()
@@ -7000,9 +7012,9 @@ def _k_entry(ms, plain_ms, lib_ms, max_abs_err, bound, **extra) -> dict:
 
 
 def _k_flash_case(card, gen, name, b, s, h, d, ids, dtype) -> tuple[dict, dict]:
-    """K3 then K4 in the f32 mode (K3: the 3xTF32 loop of
-    csrc/flash_f32_fwd.cu; K4: csrc/flash_simt.cu) or the narrow mode (bf16
-    at D = 32 / 64: the wgmma kernels) at one shape: against their plain
+    """K3 then K4 in the f32 mode (the 3xTF32 loops of csrc/flash_f32_fwd.cu
+    and csrc/flash_f32_bwd.cu) or the narrow mode (bf16 at D = 32 / 64: the
+    wgmma kernels) at one shape: against their plain
     versions (`_fwd_agrees` / `_grad_agrees`: f32 within F32_REL_TOL /
     F32_GRAD_TOL, bf16 within the bf16 kernels' bounds), two calls identical
     to the bit, each timed alone (the C call on checked arguments, back to
@@ -7058,11 +7070,12 @@ def _k_flash_case(card, gen, name, b, s, h, d, ids, dtype) -> tuple[dict, dict]:
     plain_ms = _median_ms(lambda: fa.flash_bwd_reference(q, k, v, q_seg, kv_seg, out, lse, do,
                                                          scale), n=3)
     lib_ms = _sdpa_ms(q, k, v, do)
+    sdpa_ran = f" ({_sdpa_kernels(q, k, v, do)})" if f32 else ""
     bound = (_f32_bound if f32 else _narrow_bound)(q, k, q_seg, kv_seg, bwd=True)
-    print(f"[{'simt' if f32 else tag}] K4 {name}: {errs} ({_tol_text(f32)}), two calls "
+    print(f"[{tag}] K4 {name}: {errs} ({_tol_text(f32)}), two calls "
           f"identical; alone {ms:.4f} ms, bound {bound['bound_ms']:.4f} ms ({bound['bound_by']}; "
           f"{100 * bound['bound_ms'] / ms:.1f}% of it), plain {plain_ms:.3f} ms, SDPA backward "
-          f"(unmasked) {lib_ms:.3f} ms [{card}]", flush=True)
+          f"(unmasked) {lib_ms:.3f} ms{sdpa_ran} [{card}]", flush=True)
     if not ok:
         raise AssertionError(f"K4 in its {_dt(dtype)} mode disagrees with its plain version "
                              f"(or with itself) at {name}")
@@ -7073,9 +7086,9 @@ def _k_flash_case(card, gen, name, b, s, h, d, ids, dtype) -> tuple[dict, dict]:
 
 def _k_nr_case(card, gen, s, s_int8) -> tuple[dict, dict]:
     """K1 then K2 in f32 (their s_int8 mode where asked) at the FLUX layout
-    (B = 1, H = 24, D = 128, st = 512 with 20 padding text rows; K1 on the
-    3xTF32 loop of csrc/flash_f32_fwd.cu outside the s_int8 mode, the rest on
-    csrc/flash_simt.cu): against
+    (B = 1, H = 24, D = 128, st = 512 with 20 padding text rows; outside the
+    s_int8 mode K1 / K2 on the 3xTF32 loops of csrc/flash_f32_fwd.cu /
+    flash_f32_bwd.cu, in it on csrc/flash_simt.cu): against
     the plain versions (f32 within F32_REL_TOL / F32_GRAD_TOL; the s_int8
     mode's prep held by `_f32_int8_prep` and the plain versions run on its
     qn / kn, the end-to-end error printed), two calls
@@ -7164,12 +7177,14 @@ def _k_nr_case(card, gen, s, s_int8) -> tuple[dict, dict]:
         plain_ms = _median_ms(lambda: fnr.flash_attention_nr_bwd_reference(
             *args, st, do, segment_ids=seg, scale=scale), n=3)
     lib_ms = _sdpa_ms(qn, kn, v, do)
+    sdpa_ran = "" if s_int8 else f" ({_sdpa_kernels(qn, kn, v, do)})"
     bound = _f32_bound(q, k, seg, seg, bwd=True, nr=True, int8=s_int8)
-    print(f"[simt] K2 f32 {label}: {'; '.join(errs)} ({_tol_text(True)}), two calls identical; "
+    print(f"[{'simt' if s_int8 else 'f32'}] K2 f32 {label}: {'; '.join(errs)} "
+          f"({_tol_text(True)}), two calls identical; "
           f"alone {ms:.4f} ms (prep and rope + norm backward included), bound "
           f"{bound['bound_ms']:.4f} ms ({bound['bound_by']}; "
           f"{100 * bound['bound_ms'] / ms:.1f}% of it), plain {plain_ms:.3f} ms, SDPA backward "
-          f"on the plain normed q / k {lib_ms:.3f} ms [{card}]", flush=True)
+          f"on the plain normed q / k {lib_ms:.3f} ms{sdpa_ran} [{card}]", flush=True)
     if not ok:
         raise AssertionError(f"K2 in f32 disagrees with its plain version (or with itself) at "
                              f"{label}")
@@ -7178,11 +7193,40 @@ def _k_nr_case(card, gen, s, s_int8) -> tuple[dict, dict]:
     return fwd, _k_entry(ms, plain_ms, lib_ms, err, bound, case=case)
 
 
+def _k_pad_case(card, gen) -> None:
+    """The head-dim repair at K_PAD_CASE: attention at D = 96, which no kernel
+    takes, through the CUDA launchers (zero-padded to 128, the caller's
+    scale), in f32 and in bf16: K3 and K4 against their plain versions at D
+    = 96 (`_fwd_agrees`, `_k4_agrees`: f32 within F32_REL_TOL /
+    F32_GRAD_TOL, bf16 within the bf16 kernels' bounds; K4's two calls
+    identical)."""
+    from qflux_tpu_torch.ops import flash_attention as fa
+
+    name, b, s, h, d, ids = K_PAD_CASE
+    for dtype in (torch.float32, torch.bfloat16):
+        f32 = dtype == torch.float32
+        q, k, v, q_seg, kv_seg = _flash_case(gen, b, s, ids, h, d, dtype)
+        scale = d ** -0.5
+        out, lse = fa._flash_fwd_cuda(q, k, v, q_seg, kv_seg, scale)
+        ref, ref_lse = fa.flash_fwd_reference(q, k, v, q_seg, kv_seg, scale)
+        ok, text = _fwd_agrees(out, lse, ref, ref_lse, f32)
+        do = torch.randn(q.shape, device="cuda", generator=gen).to(dtype)
+        g_ok, errs, _, _ = _k4_agrees(q, k, v, q_seg, kv_seg, out, lse, do, scale)
+        print(f"[pad] K3 / K4 {name}: {_dt(dtype)} B={b} S={s} H={h} D={d} ids={ids}, run at "
+              f"D={fa.run_head_dim(d)} zero-padded: K3 {text}; K4 {errs} ({_tol_text(f32)}) "
+              f"[{card}]", flush=True)
+        if not (ok and g_ok):
+            raise AssertionError(f"K3 / K4 at head dim {d} in {_dt(dtype)} disagree with their "
+                                 f"plain versions")
+        del q, k, v, out, lse, ref, ref_lse, do
+        torch.cuda.empty_cache()
+
+
 def phase_simt_kernels(card: str) -> dict:
-    """Phase K(a): every f32 mode (the 3xTF32 forwards, the CUDA-core
-    backwards and s_int8 mode) and the narrow mode alone against its plain
-    version (`_k_flash_case`, `_k_nr_case`); returns the table's entries by
-    name."""
+    """Phase K(a): every f32 mode (the 3xTF32 forwards and backwards, the
+    CUDA-core s_int8 modes) and the narrow mode alone against its plain
+    version (`_k_flash_case`, `_k_nr_case`), and a head dim no kernel takes
+    (`_k_pad_case`); returns the table's entries by name."""
     gen = torch.Generator("cuda").manual_seed(41)
     table = {}
     for cases, mode in ((K_F32_CASES, torch.float32), (K_NARROW_CASES, torch.bfloat16)):
@@ -7197,6 +7241,7 @@ def phase_simt_kernels(card: str) -> dict:
             table["flash_nr_fwd f32"], table["flash_nr_bwd f32"] = fwd, bwd
     table["flash_nr_fwd f32 s_int8"], table["flash_nr_bwd f32 s_int8"] = _k_nr_case(
         card, gen, K_INT8_S, True)
+    _k_pad_case(card, gen)
     return table
 
 
@@ -7842,15 +7887,17 @@ def _ab_f32(kl, stream) -> dict:
     fixed seeds: "k3_f32" / "k4_f32" at K_F32_CASES, "k1_f32" / "k2_f32" at
     K_NR_CASES (FLUX's layout, as `_k_nr_case`), "k1_f32_int8" / "k2_f32_int8"
     at K_INT8_S, each the median of three timings; "f32_rel", the forwards'
-    errors against their plain versions (the 3xTF32 forwards are held to
-    those, not to the parent's bits); "f32_digest", the digests of K4 / K2
-    (and their s_int8 mode) fed the plain forward's out / lse, and of the
-    s_int8 K1's out / lse, which this comparison holds to the bit."""
+    errors against their plain versions; "f32_grad_rel", the errors of K4 /
+    K2 outside the s_int8 mode (fed the plain forward's out / lse) against
+    theirs (the 3xTF32 backwards are held to those, not to the parent's
+    bits); "f32_digest", the digests of the f32 K3 / K1 forwards, of K2's
+    s_int8 mode fed the plain forward's out / lse and of the s_int8 K1's
+    out / lse, which this comparison holds to the bit."""
     from qflux_tpu_torch.ops import flash_attention as fa
     from qflux_tpu_torch.ops import flash_nr as fnr
 
     res = {key: {} for key in ("k3_f32", "k4_f32", "k1_f32", "k2_f32", "k1_f32_int8",
-                               "k2_f32_int8", "f32_rel", "f32_digest")}
+                               "k2_f32_int8", "f32_rel", "f32_grad_rel", "f32_digest")}
     gen = torch.Generator("cuda").manual_seed(19)
     for name, b, s, h, d, ids in K_F32_CASES:
         q, k, v, q_seg, kv_seg = _flash_case(gen, b, s, ids, h, d, torch.float32)
@@ -7862,12 +7909,15 @@ def _ab_f32(kl, stream) -> dict:
         ref, ref_lse = (t.contiguous() for t in fa.flash_fwd_reference(q, k, v, q_seg, kv_seg,
                                                                       sc))
         res["f32_rel"][f"K3 {name}"] = _f32_rels(out, lse, ref, ref_lse)
+        res["f32_digest"][f"K3 {name}"] = [_digest(out), _digest(lse)]
         do = torch.randn(q.shape, device="cuda", generator=gen)
         res["k4_f32"][name] = _median_run(lambda: {"ms": _window_ms(
             lambda: fa._launch_bwd(kl, stream, q, k, v, qs32, ks32, ref, ref_lse, do, sc),
             3, 3)})
-        res["f32_digest"][f"K4 {name}"] = [_digest(g) for g in fa._launch_bwd(
-            kl, stream, q, k, v, qs32, ks32, ref, ref_lse, do, sc)]
+        got = fa._launch_bwd(kl, stream, q, k, v, qs32, ks32, ref, ref_lse, do, sc)
+        want = fa.flash_bwd_reference(q, k, v, q_seg, kv_seg, ref, ref_lse, do, sc)
+        res["f32_grad_rel"][f"K4 {name}"] = [_rel(g, r) for g, r in zip(got, want)]
+        del got, want
         del q, k, v, out, lse, ref, ref_lse, do
         torch.cuda.empty_cache()
     st, sc = 512, 128 ** -0.5
@@ -7884,8 +7934,8 @@ def _ab_f32(kl, stream) -> dict:
                                     fwd_rows), 3, 3)})
         out, lse = fnr._launch_fwd(kl, stream, q, k, v, qs, ks, cos, sin, csb, seg32, st, sc,
                                    fwd_rows)
+        res["f32_digest"][f"K1{' s_int8' if rows else ''} {name}"] = [_digest(out), _digest(lse)]
         if rows:
-            res["f32_digest"][f"K1 s_int8 {name}"] = [_digest(out), _digest(lse)]
             ref, ref_lse = fnr.flash_attention_nr_int8_reference(*args, st, fwd_rows,
                                                                  segment_ids=seg, scale=sc)
         else:
@@ -7896,9 +7946,15 @@ def _ab_f32(kl, stream) -> dict:
         res[f"k2_f32{tag}"][name] = _median_run(lambda: {"ms": _window_ms(
             lambda: fnr._launch_bwd(kl, stream, q, k, v, qs, ks, cos, sin, csb, seg32, st, sc,
                                     ref, ref_lse, do, bwd_rows), 3, 3)})
-        res["f32_digest"][f"K2{' s_int8' if rows else ''} {name}"] = [
-            _digest(g) for g in fnr._launch_bwd(kl, stream, q, k, v, qs, ks, cos, sin, csb,
-                                                seg32, st, sc, ref, ref_lse, do, bwd_rows)]
+        got = fnr._launch_bwd(kl, stream, q, k, v, qs, ks, cos, sin, csb, seg32, st, sc, ref,
+                              ref_lse, do, bwd_rows)
+        if rows:
+            res["f32_digest"][f"K2 s_int8 {name}"] = [_digest(g) for g in got]
+        else:
+            want = fnr.flash_attention_nr_bwd_reference(*args, st, do, segment_ids=seg, scale=sc)
+            res["f32_grad_rel"][f"K2 {name}"] = [_rel(g, r) for g, r in zip(got, want)]
+            del want
+        del got
         del args, q, k, v, out, lse, ref, ref_lse, do
         torch.cuda.empty_cache()
     return res
@@ -8078,10 +8134,11 @@ def ab_main(parent: str) -> int:
     parent, change, change, parent.  Prints each case's times (mean of the
     two runs of each side), whether the change's K2, K3 and K1 / K2 s_int8
     gave the same bits on two calls, the digests (K1 and K2 bf16, K3, K4,
-    K5a / K5b, K6a / K6b, the s_int8 prep's operands; the f32 K2 / K4 and the
+    K5a / K5b, K6a / K6b, the s_int8 prep's operands; the f32 K3 / K1 and the
     f32 s_int8 K1 / K2, `_ab_f32`) compared across all four runs, every
-    run's f32 K3 / K1 against their plain versions (F32_REL_TOL: the 3xTF32
-    forwards are not held to the parent's bits), and the change's K1 / K2
+    run's f32 K3 / K1 against their plain versions (F32_REL_TOL) and f32 K4
+    / K2 (F32_GRAD_TOL: the 3xTF32 backwards are not held to the parent's
+    bits), and the change's K1 / K2
     s_int8 against their plain versions
     (INT8_FWD_REL_TOL / INT8_BWD_REL_TOL: their outputs are not compared
     across the trees, because the redesign moved their online softmax into
@@ -8167,6 +8224,13 @@ def ab_main(parent: str) -> int:
               + ", ".join(f"{e[0]:.2e} / {e[1]:.2e}" for e in errs[:2]) + "; change "
               + ", ".join(f"{e[0]:.2e} / {e[1]:.2e}" for e in errs[2:])
               + f" (tol {F32_REL_TOL}) [{card}]", flush=True)
+    for name in every[0]["f32_grad_rel"]:
+        errs = [r["f32_grad_rel"][name] for r in every]
+        f32_close[name] = all(max(e) <= F32_GRAD_TOL for e in errs)
+        print(f"[ab] f32 {name} against its plain version, rel L2 of the gradients: parent "
+              + ", ".join(" / ".join(f"{x:.2e}" for x in e) for e in errs[:2]) + "; change "
+              + ", ".join(" / ".join(f"{x:.2e}" for x in e) for e in errs[2:])
+              + f" (tol {F32_GRAD_TOL}) [{card}]", flush=True)
 
     def same_across(key):
         return {case: all(r[key][case] == every[0][key][case] for r in every)
@@ -8194,8 +8258,8 @@ def ab_main(parent: str) -> int:
           f"{sum(k3_same.values())} of {len(k3_same)} cases; K4 dq / dk / dv at "
           f"{sum(k4_same.values())} of {len(k4_same)} cases; K5a / K5b outputs at "
           f"{sum(k5_same.values())} of {len(k5_same)} cases; the s_int8 prep's qn / kn / qq / "
-          f"kq / scales at {sum(prep_same.values())} of {len(prep_same)} cases; the f32 K4 / K2 "
-          f"gradients and the f32 s_int8 K1 / K2 outputs at {sum(f32_same.values())} of "
+          f"kq / scales at {sum(prep_same.values())} of {len(prep_same)} cases; the f32 K3 / K1 "
+          f"outputs and the f32 s_int8 K1 / K2 outputs at {sum(f32_same.values())} of "
           f"{len(f32_same)} cases ({f32_differ}). The change's "
           f"two calls identical: K2 bf16 {repeat['k2_same']}, K3 {repeat['k3_same']}, K1 / K2 "
           f"s_int8 {repeat['int8_same']}. The change's K1 / K2 s_int8 against their plain "
@@ -8356,9 +8420,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     t_k = time.perf_counter()
     k_table, k_paths = timed(phase_f32)
-    print(f"[smoke] phase K (attention in f32 through csrc/flash_f32_fwd.cu and "
-          f"csrc/flash_simt.cu and in bf16 at head dims 32 / 64 through the wgmma K3 / K4, the "
-          f"f32 FLUX fit, variant test on the card, the first-party tokenizers): "
+    print(f"[smoke] phase K (attention in f32 through csrc/flash_f32_fwd.cu, "
+          f"csrc/flash_f32_bwd.cu and csrc/flash_simt.cu, in bf16 at head dims 32 / 64 through "
+          f"the wgmma K3 / K4 and at head dim 96 zero-padded, the f32 FLUX fit, variant test "
+          f"on the card, the first-party tokenizers): "
           f"{time.perf_counter() - t_k:.1f} s [{card}]", flush=True)
 
     def simt_entry(name, replaces, mode, source="qflux_tpu_torch/csrc/flash_simt.cu"):
@@ -8470,14 +8535,15 @@ def main() -> int:
         simt_entry("flash_fwd f32", "qflux_tpu/ops/flash_attention.py:105",
                    "f32, head dims 32 / 64 / 128", "qflux_tpu_torch/csrc/flash_f32_fwd.cu"),
         simt_entry("flash_bwd f32", "qflux_tpu/ops/flash_attention.py:288, :215, :251",
-                   "f32, head dims 32 / 64 / 128"),
+                   "f32, head dims 32 / 64 / 128", "qflux_tpu_torch/csrc/flash_f32_bwd.cu"),
         simt_entry("flash_fwd narrow", "qflux_tpu/ops/flash_attention.py:105",
                    "bf16, head dims 32 / 64", "qflux_tpu_torch/csrc/flash_fwd.cu"),
         simt_entry("flash_bwd narrow", "qflux_tpu/ops/flash_attention.py:288, :215, :251",
                    "bf16, head dims 32 / 64", "qflux_tpu_torch/csrc/flash_bwd.cu"),
         simt_entry("flash_nr_fwd f32", "qflux_tpu/ops/flash_nr.py:192", "f32",
                    "qflux_tpu_torch/csrc/flash_f32_fwd.cu"),
-        simt_entry("flash_nr_bwd f32", "qflux_tpu/ops/flash_nr.py:311", "f32"),
+        simt_entry("flash_nr_bwd f32", "qflux_tpu/ops/flash_nr.py:311", "f32",
+                   "qflux_tpu_torch/csrc/flash_f32_bwd.cu"),
         simt_entry("flash_nr_fwd f32 s_int8", "qflux_tpu/ops/flash_nr.py:192", "f32 s_int8"),
         simt_entry("flash_nr_bwd f32 s_int8", "qflux_tpu/ops/flash_nr.py:311", "f32 s_int8"),
     ]}), flush=True)

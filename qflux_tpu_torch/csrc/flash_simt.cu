@@ -1,73 +1,60 @@
 // Flash attention on the CUDA cores, for the f32 modes no tensor-core kernel takes
-// yet: K3's backward K4 in f32 at head dim 32, 64 or 128, and K1 / K2 in f32 at head
-// dim 128 (K1 only in its s_int8 mode; its plain f32 mode, and K3 in f32, run on the
-// tensor cores as a 3xTF32 split: flash_f32_fwd.cu, which takes this file's prep).
+// yet: K1 / K2 in f32 at head dim 128 in their s_int8 mode; and the f32 prep and rope
+// + norm backward that every f32 mode of K1 / K2 runs (the plain f32 K1 / K3 run on the
+// tensor cores as a 3xTF32 split, flash_f32_fwd.cu, and K2 / K4 likewise,
+// flash_f32_bwd.cu; both call this file's prep, and K2 its rope + norm backward).
 //
-// Replaces the same Pallas TPU kernels as the wgmma kernels, in the modes JAX runs
-// them in without a dtype or head-dim condition of its own (its kernels compute in
-// f32 and cast to the refs' dtype, and qflux_tpu/ops/flash_attention.py:542 takes
-// any head dim):
-//   * K4 (qflux_tpu/ops/flash_attention.py:288 _dqdkv_kernel, :215 _dq_kernel, :251
-//     _dkv_kernel) in f32 at D = 32 / 64 / 128: qflux_simt_bwd;
-//   * K1 (qflux_tpu/ops/flash_nr.py:192 _fwd_nr_kernel) in f32 in its s_int8 mode
-//     and K2 (:311 _bwd_nr_kernel) in f32, also in its s_int8 mode, at D = 128:
-//     qflux_simt_nr_fwd, qflux_simt_nr_bwd; and their prep alone, qflux_simt_nr_prep,
-//     which flash_f32_fwd.cu's K1 runs before its loop.
+// Replaces the same Pallas TPU kernels as the wgmma kernels, in the mode JAX runs
+// them in without a dtype condition of its own (its kernels compute in f32 and cast
+// to the refs' dtype):
+//   * K1 (qflux_tpu/ops/flash_nr.py:192 _fwd_nr_kernel) and K2 (:311 _bwd_nr_kernel)
+//     in f32 in their s_int8 mode, at D = 128: qflux_simt_nr_fwd, qflux_simt_nr_bwd;
+//   * their prep alone, qflux_simt_nr_prep (which flash_f32_fwd.cu's K1 and
+//     flash_f32_bwd.cu's K2 run before their loops), and the rope + norm backward
+//     alone, qflux_simt_nr_rope_norm_bwd (which K2's f32 modes end with).
 //
-// The function is K3's / K4's (flash_fwd.cu, flash_bwd.cu say it in full): for
-// every (b, h), out = softmax(q k^T * scale + segment mask) v and lse, with f32
-// scores, p kept in f32 for the P V product and the sum divided by l at the
-// end (the bf16 kernels round p to bf16 first); fully masked rows write 0 and
-// lse = -1e30; separate q / kv ids, Sq != Sk; keys past Sk carry segment 0.  The
-// backward: delta = rowsum(do * out), p = exp(s - lse) (0 by select where
-// masked), dv = p^T do, ds = p (do v^T - delta) scale, dq = ds k, dk = ds^T q.
+// The function is K1's / K2's (flash_nr_fwd.cu, flash_nr_bwd.cu say it in full) over
+// the int8 scores: for every (b, h), out = softmax(s + segment mask) v and lse, with
+// p kept in f32 for the P V product and the sum divided by l at the end; fully
+// masked rows write 0 and lse = -1e30; keys past S carry segment 0.  The backward:
+// delta = rowsum(do * out), p = exp(s - lse) (0 by select where masked), dv = p^T do,
+// ds = p (do v^T - delta) scale, dq = ds kn, dk = ds^T qn.
 //
-// Why the CUDA cores.  A Hopper tensor core takes f32 only as TF32, which keeps
-// about three digits, and the f32 modes must be f32-accurate (ops/layers.py
-// require_f32): these loops were written with every product an FFMA with an f32
-// accumulator, before the forward moved to a 3xTF32 split on the tensor cores
-// (flash_f32_fwd.cu); the backward's five products are the next to move (ROADMAP.md
-// queue 2).
+// The s_int8 scores.  The prep, one warp per (b, s, h) row (flash_nr_common.cuh's
+// norm_rope4_f32: flash_nr_fwd.cu's flash_nr_kn_kernel widened to f32 in and out,
+// applied to q as well as k, the scale row picked at st), writes f32 scratch qn / kn
+// (with delta for K2), reduces the largest |qn| of each (b, h, q tile of q_rows rows)
+// and |kn| of each (b, h) into amax (atomicMax on the bits of non-negative floats:
+// order-free) and quantizes qn / kn as `_quant_tile` does; the scores are then __dp4a
+// products of the int8 rows into int32 (exact), times (q tile scale * k scale) *
+// scale.  The gradient is straight through: dq = ds kn and dk = ds^T qn on the f32
+// copies.  K2 ends with a rope + norm backward pass (flash_nr_bwd.cu's NormRopeGrads
+// arithmetic in f32): dq / dk of the raw projections and one [2, D] scale-gradient
+// partial per (b, h, 64-row tile), split at st, which the wrapper sums as K2's bf16
+// mode's.
 //
-// What bounds it on an H100: 10 * B * H * Sq * Sk * D operations backward (five
-// products), which the tensor cores could run f32-accurately as 3xTF32 splits at
-// 495 / 3 TFLOP/s: at FLUX's 512^2 shape (S = 2560, H = 24, D = 128) 201 GFLOP,
-// 1.22 ms; the FFMA these loops run does 67 TFLOP/s (3.0 ms).  The s_int8 forward's
-// score products are int8 (the tensor cores' 1,979 TOPS could take them), its P V
-// f32.  The bytes are (4 Sq + 4 Sk) * B * H * D * 4 backward, 252 MB at that
-// shape, 0.075 ms at 3.35 TB/s: compute-bound.
+// What bounds it on an H100: the int8 score products at the tensor cores' 1,979 TOPS,
+// the other products f32-accurate at 495 / 3 TFLOP/s (chip_smoke.py's _f32_bound);
+// these loops run the int8 scores on __dp4a and every other product as FFMA at 67
+// TFLOP/s.  The bytes ((4 Sq + 4 Sk) * B * H * D * 4 backward, 252 MB at FLUX's 512^2
+// shape, 0.075 ms at 3.35 TB/s) are far below: compute-bound.  The s_int8 modes are
+// the next to move to the tensor cores (ROADMAP.md queue 2).
 //
 // What the design does about that: it is simple first.  A block of 256 threads
 // (16 x 16) owns 64 rows (the forward's and dq's q rows, dkv's keys) and streams
 // 64-row tiles of the other side through shared memory as f32 rows padded to D +
-// 4 floats (16-byte loads, no bank conflicts); thread (ty, tx) computes a 4 x 4
-// block of scores (rows 4 ty .. 4 ty + 3, columns tx + 16 j) from float4 loads,
-// the online softmax's row max and sum go over the 16 threads of a row by
-// shuffles, p (or ds) goes through shared memory, and the thread accumulates
-// rows 4 ty + i, columns tx + 16 c of the output.  The backward is K4's split:
-// dk / dv over the keys of a block, then dq over its q rows, each recomputing
-// the scores, no atomics, deterministic.
+// 4 floats (16-byte loads, no bank conflicts; int8 rows padded likewise); thread
+// (ty, tx) computes a 4 x 4 block of scores (rows 4 ty .. 4 ty + 3, columns tx + 16
+// j), the online softmax's row max and sum go over the 16 threads of a row by
+// shuffles, p (or ds) goes through shared memory, and the thread accumulates rows 4
+// ty + i, columns tx + 16 c of the output.  The backward is K4's split: dk / dv over
+// the keys of a block, then dq over its q rows, each recomputing the scores, no
+// atomics, deterministic.
 //
-// The fused f32 modes (K1 / K2) first run a prep, one warp per (b, s, h) row
-// (flash_nr_common.cuh's norm_rope4_f32: flash_nr_fwd.cu's flash_nr_kn_kernel
-// widened to f32 in and out, applied to q as well as k, the scale row picked at
-// st), into f32 scratch qn / kn, with delta for K2.  K2 then runs the loops into
-// f32 dqn / dkn and a rope + norm backward pass (flash_nr_bwd.cu's
-// NormRopeGrads arithmetic in f32): dq / dk of the raw projections and one [2, D]
-// scale-gradient partial per (b, h, 64-row tile), split at st, which the wrapper
-// sums as K2's bf16 mode's.  The s_int8 mode's prep also reduces the largest
-// |qn| of each (b, h, q tile of q_rows rows) and |kn| of each (b, h) into amax
-// (atomicMax on the bits of non-negative floats: order-free) and quantizes qn /
-// kn as `_quant_tile` does; the scores are then __dp4a products of the int8 rows
-// into int32 (exact), times (q tile scale * k scale) * scale.  The gradient is
-// straight through: dq = ds kn and dk = ds^T qn on the f32 copies.
-//
-// Layouts: q/out/do/dq [B, Sq, H, D] and k/v/dk/dv [B, Sk, H, D] of f32 (the
-// projection layout), lse and delta [B, H, Sq] f32, ids [B, Sq] / [B, Sk] int32
-// or both null (the unmasked case: every real token is segment 1).  The fused
-// modes: scale pairs [2, D] f32, cos / sin [S, D] (batch stride 0) or [B, S, D]
-// f32, their inputs 16-byte aligned (float4 rows).  dtype code: 0 (f32), the only
-// one qflux_simt_bwd takes.
+// Layouts: q/out/do/dq and k/v/dk/dv [B, S, H, 128] f32 (the projection layout), lse
+// and delta [B, H, S] f32, ids [B, S] int32 or null (the unmasked case: every real
+// token is segment 1); scale pairs [2, D] f32, cos / sin [S, D] (batch stride 0) or
+// [B, S, D] f32, their inputs 16-byte aligned (float4 rows).
 
 #include "flash_nr_common.cuh"
 
@@ -335,49 +322,34 @@ simt_fwd_int8_kernel(const Args a, float* __restrict__ out, float* __restrict__ 
 // ---------------------------------------------------------------------------
 // backward
 
-// delta[b, h, s] = sum over d of do * out, in f32; one warp per (b, s, h) row
+// K int8 (own), V (own), Q, Q int8, dO, P^T, dS^T, lse, delta, q ids
 template <int HD>
-__global__ void __launch_bounds__(PREP_WARPS * 32)
-simt_delta_kernel(const float* __restrict__ dout, const float* __restrict__ out,
-                  float* __restrict__ delta, int rows, int Sq, int H) {
-  const int row = blockIdx.x * PREP_WARPS + threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (row >= rows) return;  // warp-uniform
-  float acc = 0.f;
-  for (int d = lane; d < HD; d += 32)
-    acc += dout[(size_t)row * HD + d] * out[(size_t)row * HD + d];
-  acc = warp_sum(acc);
-  const int h = row % H, s = (row / H) % Sq, b = row / (H * Sq);
-  if (lane == 0) delta[((size_t)b * H + h) * Sq + s] = acc;
-}
-
-// K (own), V (own), Q, Q int8, dO, P^T, dS^T, lse, delta, q ids
-template <int HD, bool INT8>
 __host__ __device__ constexpr int dkv_smem() {
-  return rows_bytes<HD>(INT8) + rows_bytes<HD>(false) + rows_bytes<HD>(false) +
-         (INT8 ? rows_bytes<HD>(true) : 0) + rows_bytes<HD>(false) + 2 * BK * BQ * 4 + 3 * BQ * 4;
+  return rows_bytes<HD>(true) + rows_bytes<HD>(false) + rows_bytes<HD>(false) +
+         rows_bytes<HD>(true) + rows_bytes<HD>(false) + 2 * BK * BQ * 4 + 3 * BQ * 4;
 }
 
-// Q (own), dO (own), K, K int8, V, dS, key ids
-template <int HD, bool INT8>
+// Q int8 (own), dO (own), K, K int8, V, dS, key ids
+template <int HD>
 __host__ __device__ constexpr int dq_smem() {
-  return rows_bytes<HD>(INT8) + rows_bytes<HD>(false) + rows_bytes<HD>(false) +
-         (INT8 ? rows_bytes<HD>(true) : 0) + rows_bytes<HD>(false) + BQ * BK * 4 + BK * 4;
+  return rows_bytes<HD>(true) + rows_bytes<HD>(false) + rows_bytes<HD>(false) +
+         rows_bytes<HD>(true) + rows_bytes<HD>(false) + BQ * BK * 4 + BK * 4;
 }
 
-// dk / dv: block = 64 keys of one (b, h), the q rows in 64-row tiles.  In the
-// s_int8 mode a q tile of 64 rows lies in one quantization tile (q_rows is a
-// multiple of 64), so it has one factor.
-template <int HD, bool SEG, bool INT8>
+// the s_int8 backward's dk / dv: block = 64 keys of one (b, h), the q rows in 64-row
+// tiles.  A q tile of 64 rows lies in one quantization tile (q_rows is a multiple of
+// 64), so it has one factor.
+template <int HD, bool SEG>
 __global__ void __launch_bounds__(THREADS)
 simt_dkv_kernel(const Args a, float* __restrict__ dk, float* __restrict__ dv) {
   constexpr int NC = HD / 16;
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* sK = smem;
-  float* sV = reinterpret_cast<float*>(sK + rows_bytes<HD>(INT8));
+  float* sV = reinterpret_cast<float*>(sK + rows_bytes<HD>(true));
   float* sQ = sV + rows_bytes<HD>(false) / 4;
   int* sQ8 = reinterpret_cast<int*>(sQ + rows_bytes<HD>(false) / 4);
   float* sDO = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(sQ8) +
-                                        (INT8 ? rows_bytes<HD>(true) : 0));
+                                        rows_bytes<HD>(true));
   float* sPt = sDO + rows_bytes<HD>(false) / 4;
   float* sDSt = sPt + BK * BQ;
   float* sLse = sDSt + BK * BQ;
@@ -385,10 +357,7 @@ simt_dkv_kernel(const Args a, float* __restrict__ dk, float* __restrict__ dv) {
   int* sQseg = reinterpret_cast<int*>(sDelta + BQ);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int k0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
-  if constexpr (INT8)
-    load_tile8<HD, BK>(reinterpret_cast<int*>(sK), a.kq, b, k0, a.Sk, a.H, h);
-  else
-    load_tile<HD, BK>(reinterpret_cast<float*>(sK), a.k, b, k0, a.Sk, a.H, h);
+  load_tile8<HD, BK>(reinterpret_cast<int*>(sK), a.kq, b, k0, a.Sk, a.H, h);
   load_tile<HD, BK>(sV, a.v, b, k0, a.Sk, a.H, h);
   int kseg[4];
   float dka[4][NC], dva[4][NC];
@@ -402,7 +371,7 @@ simt_dkv_kernel(const Args a, float* __restrict__ dk, float* __restrict__ dv) {
   for (int q0 = 0; q0 < a.Sq; q0 += BQ) {
     __syncthreads();
     load_tile<HD, BQ>(sQ, a.q, b, q0, a.Sq, a.H, h);
-    if constexpr (INT8) load_tile8<HD, BQ>(sQ8, a.qq, b, q0, a.Sq, a.H, h);
+    load_tile8<HD, BQ>(sQ8, a.qq, b, q0, a.Sq, a.H, h);
     load_tile<HD, BQ>(sDO, a.dout, b, q0, a.Sq, a.H, h);
     if (threadIdx.x < BQ) {
       const int r = q0 + threadIdx.x;
@@ -414,17 +383,9 @@ simt_dkv_kernel(const Args a, float* __restrict__ dk, float* __restrict__ dv) {
     __syncthreads();
     float fac[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if constexpr (INT8)
-        fac[i] = int8_factor(a, b, h, q0);
-      else
-        fac[i] = a.scale;
-    }
+    for (int i = 0; i < 4; ++i) fac[i] = int8_factor(a, b, h, q0);
     float s[4][4], dp[4][4];
-    if constexpr (INT8)
-      scores<HD, true>(sK, sQ8, ty, tx, fac, s);  // s^T: keys x q rows
-    else
-      scores<HD, false>(sK, sQ, ty, tx, fac, s);
+    scores<HD, true>(sK, sQ8, ty, tx, fac, s);    // s^T: keys x q rows
     scores<HD, false>(sV, sDO, ty, tx, one, dp);  // dp^T
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -453,25 +414,22 @@ simt_dkv_kernel(const Args a, float* __restrict__ dk, float* __restrict__ dv) {
   }
 }
 
-// dq: block = 64 q rows of one (b, h), the keys in 64-row tiles
-template <int HD, bool SEG, bool INT8>
+// the s_int8 backward's dq: block = 64 q rows of one (b, h), the keys in 64-row tiles
+template <int HD, bool SEG>
 __global__ void __launch_bounds__(THREADS) simt_dq_kernel(const Args a, float* __restrict__ dq) {
   constexpr int NC = HD / 16;
   extern __shared__ __align__(16) unsigned char smem[];
   unsigned char* sQ = smem;
-  float* sDO = reinterpret_cast<float*>(sQ + rows_bytes<HD>(INT8));
+  float* sDO = reinterpret_cast<float*>(sQ + rows_bytes<HD>(true));
   float* sK = sDO + rows_bytes<HD>(false) / 4;
   int* sK8 = reinterpret_cast<int*>(sK + rows_bytes<HD>(false) / 4);
   float* sV = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(sK8) +
-                                       (INT8 ? rows_bytes<HD>(true) : 0));
+                                       rows_bytes<HD>(true));
   float* sDS = sV + rows_bytes<HD>(false) / 4;
   int* sKseg = reinterpret_cast<int*>(sDS + BQ * BK);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  if constexpr (INT8)
-    load_tile8<HD, BQ>(reinterpret_cast<int*>(sQ), a.qq, b, q0, a.Sq, a.H, h);
-  else
-    load_tile<HD, BQ>(reinterpret_cast<float*>(sQ), a.q, b, q0, a.Sq, a.H, h);
+  load_tile8<HD, BQ>(reinterpret_cast<int*>(sQ), a.qq, b, q0, a.Sq, a.H, h);
   load_tile<HD, BQ>(sDO, a.dout, b, q0, a.Sq, a.H, h);
   int qseg[4];
   float fac[4], lse[4], delta[4], dqa[4][NC];
@@ -483,25 +441,19 @@ __global__ void __launch_bounds__(THREADS) simt_dq_kernel(const Args a, float* _
     qseg[i] = seg_of<SEG>(a.q_seg, b, r, a.Sq);
     lse[i] = a.lse[row];
     delta[i] = a.delta[row];
-    if constexpr (INT8)
-      fac[i] = int8_factor(a, b, h, q0);
-    else
-      fac[i] = a.scale;
+    fac[i] = int8_factor(a, b, h, q0);
 #pragma unroll
     for (int c = 0; c < NC; ++c) dqa[i][c] = 0.f;
   }
   for (int k0 = 0; k0 < a.Sk; k0 += BK) {
     __syncthreads();
     load_tile<HD, BK>(sK, a.k, b, k0, a.Sk, a.H, h);
-    if constexpr (INT8) load_tile8<HD, BK>(sK8, a.kq, b, k0, a.Sk, a.H, h);
+    load_tile8<HD, BK>(sK8, a.kq, b, k0, a.Sk, a.H, h);
     load_tile<HD, BK>(sV, a.v, b, k0, a.Sk, a.H, h);
     if (threadIdx.x < BK) sKseg[threadIdx.x] = seg_of<SEG>(a.kv_seg, b, k0 + threadIdx.x, a.Sk);
     __syncthreads();
     float s[4][4], dp[4][4];
-    if constexpr (INT8)
-      scores<HD, true>(sQ, sK8, ty, tx, fac, s);
-    else
-      scores<HD, false>(sQ, sK, ty, tx, fac, s);
+    scores<HD, true>(sQ, sK8, ty, tx, fac, s);
     scores<HD, false>(sDO, sV, ty, tx, one, dp);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -684,45 +636,25 @@ cudaError_t launch_fwd_int8(const Args& a, void* out, float* lse, int B, cudaStr
   return cudaGetLastError();
 }
 
-// delta (where `out` is not null: K4; the fused modes' prep wrote it), then dk /
-// dv, then dq
-template <int HD, bool INT8>
-cudaError_t launch_bwd(Args a, const void* out, float* delta, void* dq, void* dk, void* dv,
-                       int B, cudaStream_t st) {
-  constexpr int kv_smem = dkv_smem<HD, INT8>(), q_smem = dq_smem<HD, INT8>();
+// the s_int8 backward's dk / dv, then dq (the prep wrote delta)
+template <int HD>
+cudaError_t launch_bwd_int8(const Args& a, void* dq, void* dk, void* dv, int B, cudaStream_t st) {
+  constexpr int kv_smem = dkv_smem<HD>(), q_smem = dq_smem<HD>();
   static bool done[4] = {false, false, false, false};
-  cudaError_t e = set_smem(done[0], simt_dkv_kernel<HD, true, INT8>, kv_smem);
-  if (e == cudaSuccess) e = set_smem(done[1], simt_dkv_kernel<HD, false, INT8>, kv_smem);
-  if (e == cudaSuccess) e = set_smem(done[2], simt_dq_kernel<HD, true, INT8>, q_smem);
-  if (e == cudaSuccess) e = set_smem(done[3], simt_dq_kernel<HD, false, INT8>, q_smem);
+  cudaError_t e = set_smem(done[0], simt_dkv_kernel<HD, true>, kv_smem);
+  if (e == cudaSuccess) e = set_smem(done[1], simt_dkv_kernel<HD, false>, kv_smem);
+  if (e == cudaSuccess) e = set_smem(done[2], simt_dq_kernel<HD, true>, q_smem);
+  if (e == cudaSuccess) e = set_smem(done[3], simt_dq_kernel<HD, false>, q_smem);
   if (e != cudaSuccess) return e;
-  if (out) {
-    const int rows = B * a.Sq * a.H;
-    simt_delta_kernel<HD><<<(rows + PREP_WARPS - 1) / PREP_WARPS, PREP_WARPS * 32, 0, st>>>(
-        static_cast<const float*>(a.dout), static_cast<const float*>(out), delta, rows, a.Sq, a.H);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return e;
-  }
-  a.delta = delta;
   const bool seg = a.q_seg != nullptr;
-  (seg ? simt_dkv_kernel<HD, true, INT8> : simt_dkv_kernel<HD, false, INT8>)<<<
+  (seg ? simt_dkv_kernel<HD, true> : simt_dkv_kernel<HD, false>)<<<
       dim3((a.Sk + BK - 1) / BK, a.H, B), THREADS, kv_smem, st>>>(a, static_cast<float*>(dk),
                                                                   static_cast<float*>(dv));
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  (seg ? simt_dq_kernel<HD, true, INT8> : simt_dq_kernel<HD, false, INT8>)<<<
+  (seg ? simt_dq_kernel<HD, true> : simt_dq_kernel<HD, false>)<<<
       dim3((a.Sq + BQ - 1) / BQ, a.H, B), THREADS, q_smem, st>>>(a, static_cast<float*>(dq));
   return cudaGetLastError();
-}
-
-cudaError_t bwd_by_dim(int D_, const Args& a, const void* out, float* delta, void* dq, void* dk,
-                       void* dv, int B, cudaStream_t st) {
-  switch (D_) {
-    case 32: return launch_bwd<32, false>(a, out, delta, dq, dk, dv, B, st);
-    case 64: return launch_bwd<64, false>(a, out, delta, dq, dk, dv, B, st);
-    case 128: return launch_bwd<128, false>(a, out, delta, dq, dk, dv, B, st);
-    default: return cudaErrorInvalidValue;
-  }
 }
 
 // the fused modes' prep (and the s_int8 quantization) on `stream`
@@ -750,21 +682,12 @@ cudaError_t launch_nr_prep(const float* q, const float* k, const float* qs, cons
 }  // namespace simt
 }  // namespace
 
-// K4 in its f32 mode (D = 32, 64, 128) on `stream`: delta (f32 [B, H, Sq] scratch),
-// then dk / dv, then dq, f32.  dtype must be 0 (f32).  Returns a cudaError_t.
-extern "C" int qflux_simt_bwd(const void* q, const void* k, const void* v, const void* q_seg,
-                              const void* kv_seg, const void* out, const void* lse,
-                              const void* dout, void* delta, void* dq, void* dk, void* dv, int B,
-                              int Sq, int Sk, int H, int D_, int dtype, float scale,
-                              void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || !delta || (!q_seg != !kv_seg) || dtype != 0)
-    return (int)cudaErrorInvalidValue;
-  simt::Args a{q, k, v, nullptr, nullptr, nullptr, 0, static_cast<const int*>(q_seg),
-               static_cast<const int*>(kv_seg), static_cast<const float*>(lse), nullptr, dout,
-               Sq, Sk, H, scale};
-  return (int)simt::bwd_by_dim(D_, a, out, static_cast<float*>(delta), dq, dk, dv, B,
-                               static_cast<cudaStream_t>(stream));
-}
+extern "C" int qflux_simt_nr_rope_norm_bwd(const void* dqn, const void* dkn, const void* q,
+                                           const void* k, const void* q_scale2,
+                                           const void* k_scale2, const void* cos,
+                                           const void* sin, long long cs_bstride, void* dq,
+                                           void* dk, void* dqs_part, void* dks_part, int B, int S,
+                                           int H, int st, void* stream);
 
 // K1's s_int8 mode in f32 (D = 128): the prep (qn, kn: f32 [B, S, H, D] scratch; amax
 // [B, H, 1 + ceil(S / q_rows)] u32 scratch; qq / kq int8 [B, S, H, D] scratch), then the
@@ -818,12 +741,11 @@ extern "C" int qflux_simt_nr_prep(const void* q, const void* k, const void* q_sc
       B, S, H, st, static_cast<cudaStream_t>(stream));
 }
 
-// K2 in its f32 mode (D = 128): the prep (qn, kn, delta), then dk / dv into dv and the
-// f32 scratch dkn, dq into the f32 scratch dqn, then the rope + norm backward of
-// dqn and dkn into dq / dk and the [B, H, n_tiles, 2, D] scale-gradient partials
-// (n_tiles = qflux_flash_nr_bwd_tiles(S), as K2's bf16 mode).  q_rows > 0 (a multiple
-// of 64): the s_int8 mode, its scores recomputed from qq / kq (the prep writes them
-// and amax, as in qflux_simt_nr_fwd).  Returns a cudaError_t.
+// K2's s_int8 mode in f32 (D = 128): the prep (qn, kn, delta, amax, qq / kq), then dk /
+// dv into dv and the f32 scratch dkn, dq into the f32 scratch dqn, the scores recomputed
+// from qq / kq, then the rope + norm backward of dqn and dkn
+// (qflux_simt_nr_rope_norm_bwd).  q_rows > 0, a multiple of 64 (K2's plain f32 mode is
+// flash_f32_bwd.cu's qflux_f32_nr_bwd).  Returns a cudaError_t.
 extern "C" int qflux_simt_nr_bwd(const void* q, const void* k, const void* v,
                                  const void* q_scale2, const void* k_scale2, const void* cos,
                                  const void* sin, long long cs_bstride, const void* seg,
@@ -832,40 +754,57 @@ extern "C" int qflux_simt_nr_bwd(const void* q, const void* k, const void* v,
                                  void* amax, int q_rows, void* dq, void* dk, void* dv,
                                  void* dqs_part, void* dks_part, int B, int S, int H, int st,
                                  float scale, void* stream) {
-  if (q_rows < 0 || q_rows % simt::BQ || !qn || !kn || !delta || !dqn || !dkn ||
-      (q_rows && (!qq || !kq || !amax)) || B <= 0 || S <= 0 || H <= 0)
+  if (q_rows <= 0 || q_rows % simt::BQ || !qn || !kn || !delta || !dqn || !dkn || !qq ||
+      !kq || !amax || B <= 0 || S <= 0 || H <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st_ = static_cast<cudaStream_t>(stream);
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* qs = static_cast<const float*>(q_scale2);
-  const float* ks = static_cast<const float*>(k_scale2);
-  const float* cs = static_cast<const float*>(cos);
-  const float* sn = static_cast<const float*>(sin);
   float* qnf = static_cast<float*>(qn);
   float* knf = static_cast<float*>(kn);
   float* dl = static_cast<float*>(delta);
   cudaError_t e = simt::launch_nr_prep(
-      qf, kf, qs, ks, cs, sn, cs_bstride, qnf, knf, static_cast<const float*>(dout),
-      static_cast<const float*>(out), dl, static_cast<int8_t*>(qq), static_cast<int8_t*>(kq),
-      static_cast<unsigned*>(amax), q_rows, B, S, H, st, st_);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(q_scale2), static_cast<const float*>(k_scale2),
+      static_cast<const float*>(cos), static_cast<const float*>(sin), cs_bstride, qnf, knf,
+      static_cast<const float*>(dout), static_cast<const float*>(out), dl,
+      static_cast<int8_t*>(qq), static_cast<int8_t*>(kq), static_cast<unsigned*>(amax), q_rows,
+      B, S, H, st, st_);
   if (e != cudaSuccess) return (int)e;
   const int* sg = static_cast<const int*>(seg);
   const simt::Args a{qnf, knf, v, static_cast<const int8_t*>(qq), static_cast<const int8_t*>(kq),
                      static_cast<const unsigned*>(amax), q_rows, sg, sg,
                      static_cast<const float*>(lse), dl, dout, S, S, H, scale};
-  e = q_rows ? simt::launch_bwd<D, true>(a, nullptr, dl, dqn, dkn, dv, B, st_)
-             : simt::launch_bwd<D, false>(a, nullptr, dl, dqn, dkn, dv, B, st_);
+  e = simt::launch_bwd_int8<D>(a, dqn, dkn, dv, B, st_);
   if (e != cudaSuccess) return (int)e;
+  return qflux_simt_nr_rope_norm_bwd(dqn, dkn, q, k, q_scale2, k_scale2, cos, sin, cs_bstride,
+                                     dq, dk, dqs_part, dks_part, B, S, H, st, stream);
+}
+
+// The rope + norm backward of K2's f32 modes (D = 128) on `stream`, two passes: dq from
+// dqn (the gradient w.r.t. the normed + roped q) and the raw q, dk from dkn and k, and
+// the [B, H, n_tiles, 2, D] scale-gradient partials (n_tiles = ceil(S / 64), split at st)
+// of each.  K2's s_int8 mode above and flash_f32_bwd.cu's qflux_f32_nr_bwd end with it.
+// Returns a cudaError_t.
+extern "C" int qflux_simt_nr_rope_norm_bwd(const void* dqn, const void* dkn, const void* q,
+                                           const void* k, const void* q_scale2,
+                                           const void* k_scale2, const void* cos,
+                                           const void* sin, long long cs_bstride, void* dq,
+                                           void* dk, void* dqs_part, void* dks_part, int B, int S,
+                                           int H, int st, void* stream) {
+  if (B <= 0 || S <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t st_ = static_cast<cudaStream_t>(stream);
+  const float* cs = static_cast<const float*>(cos);
+  const float* sn = static_cast<const float*>(sin);
   const int n_tiles = (S + 63) / 64;
   const dim3 grid(n_tiles, H, B);
   simt::simt_nr_rope_norm_bwd_kernel<<<grid, 256, 0, st_>>>(
-      static_cast<const float*>(dqn), qf, qs, cs, sn, cs_bstride, static_cast<float*>(dq),
+      static_cast<const float*>(dqn), static_cast<const float*>(q),
+      static_cast<const float*>(q_scale2), cs, sn, cs_bstride, static_cast<float*>(dq),
       static_cast<float*>(dqs_part), S, H, st, n_tiles);
-  e = cudaGetLastError();
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   simt::simt_nr_rope_norm_bwd_kernel<<<grid, 256, 0, st_>>>(
-      static_cast<const float*>(dkn), kf, ks, cs, sn, cs_bstride, static_cast<float*>(dk),
+      static_cast<const float*>(dkn), static_cast<const float*>(k),
+      static_cast<const float*>(k_scale2), cs, sn, cs_bstride, static_cast<float*>(dk),
       static_cast<float*>(dks_part), S, H, st, n_tiles);
   return (int)cudaGetLastError();
 }

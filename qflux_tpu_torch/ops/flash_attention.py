@@ -31,11 +31,15 @@ hop's forward and backward.  The parts:
 The wgmma kernels take bf16 at head dims 128, 64 and 32 (their loops are
 templated on the head dim; 64 and 32 are the "narrow" mode).  JAX's Pallas
 kernels compute in f32 and cast to the refs' dtype, and take any head dim,
-so the same route runs f32 (D = 32, 64, 128) too, chosen by `mode`: K3 on
-the tensor cores as a 3xTF32 split (csrc/flash_f32_fwd.cu,
-`qflux_f32_fwd`: every f32 product as three TF32 products, f32-accurate),
-K4 on the CUDA cores (csrc/flash_simt.cu, `qflux_simt_bwd`, f32 FFMA); any
-other dtype or head dim raises.  Every mode reads q, k and v by TMA, so
+so the same route runs f32 (D = 32, 64, 128) too, chosen by `mode`: K3 and
+K4 on the tensor cores as a 3xTF32 split (csrc/flash_f32_fwd.cu,
+`qflux_f32_fwd`, and csrc/flash_f32_bwd.cu, `qflux_f32_bwd`: every f32
+product as three TF32 products, f32-accurate).  A head dim below 128 that
+no kernel takes (16, 48, 96, ...) runs at the next one they take, its
+columns zero-padded in the CUDA launchers (`run_head_dim`: exact, since
+zero columns add nothing to a score and the padded gradient columns are
+sliced away) with the caller's scale; any other dtype, or a head dim above
+128, raises.  Every mode reads q, k and v (the backward also do) by TMA, so
 they must be 16-byte aligned.  `KERNEL_LAUNCHES` counts K3's
 launches and `BWD_KERNEL_LAUNCHES` K4's in every mode; `F32_*` counts the
 f32 mode among them and `NARROW_*` bf16 at D = 32 / 64.  The
@@ -56,8 +60,8 @@ HEAD_DIM = 128             # the head dim of the "bf16" mode
 HEAD_DIMS = (32, 64, 128)  # the head dims the kernels take, in f32 and in bf16
 
 # launches of the CUDA kernels in this process: every K3 / K4 launch, whatever
-# its mode, and apart the f32 mode (csrc/flash_f32_fwd.cu, csrc/flash_simt.cu)
-# and the narrow bf16 mode among them
+# its mode, and apart the f32 mode (csrc/flash_f32_fwd.cu, csrc/flash_f32_bwd.cu)
+# and the narrow bf16 mode among them, each under the head dim it ran at
 KERNEL_LAUNCHES = 0             # K3
 BWD_KERNEL_LAUNCHES = 0         # K4
 F32_KERNEL_LAUNCHES = 0         # K3 in f32 (D = 32, 64, 128)
@@ -114,9 +118,9 @@ def mode(q) -> str:
     """Which kernel takes q on the card, by its dtype and head dim: "bf16"
     (bf16 at D = 128) and "narrow" (bf16 at D = 32, 64) for the wgmma K3 /
     K4 of csrc/flash_fwd.cu / flash_bwd.cu, "f32" (D = 32, 64, 128) for the
-    3xTF32 K3 of csrc/flash_f32_fwd.cu and the CUDA-core K4 of
-    csrc/flash_simt.cu.  Raises on anything else, naming what the kernels
-    take."""
+    3xTF32 K3 / K4 of csrc/flash_f32_fwd.cu / flash_f32_bwd.cu.  Raises on
+    anything else, naming what the kernels take (the launchers pad a head
+    dim below 128 to one of them first: `run_head_dim`)."""
     d = q.shape[-1]
     if q.dtype in (torch.float32, torch.bfloat16) and d in HEAD_DIMS:
         if q.dtype == torch.float32:
@@ -126,17 +130,39 @@ def mode(q) -> str:
                      f"torch.float32 or torch.bfloat16 at head dims {HEAD_DIMS}")
 
 
-SIMT_F32 = 0  # csrc/flash_simt.cu's dtype code for f32, the one its K4 entry takes
+def run_head_dim(d: int) -> int | None:
+    """The head dim the kernels run head dim d at: d where they take it,
+    else the next of HEAD_DIMS above it (the launchers zero-pad the
+    columns); None above 128, which no kernel takes."""
+    return next((x for x in HEAD_DIMS if x >= d), None)
+
+
+def pad_head(t, d):
+    """t [..., D] with its last dim zero-padded to d (t itself at D = d)."""
+    return t if t.shape[-1] == d else torch.nn.functional.pad(t, (0, d - t.shape[-1]))
+
+
+def _padded_dim(q, *others):
+    """The head dim to pad q and `others` to before a launch, or None: f32
+    or bf16 tensors of one head dim below 128 that the kernels do not take.
+    Anything else goes to the checks as it is (and raises there if no
+    kernel takes it)."""
+    d = q.shape[-1]
+    if (q.dtype not in (torch.float32, torch.bfloat16) or d in HEAD_DIMS
+            or run_head_dim(d) is None or any(t.shape[-1] != d for t in others)):
+        return None
+    return run_head_dim(d)
 
 
 def _count(q, bwd):
-    """One launch of K3 (K4 where bwd) in q's mode: the kernel's count, and
-    the f32 or narrow mode's beside it."""
+    """One launch of K3 (K4 where bwd) in q's mode at the head dim it ran at
+    (`run_head_dim`): the kernel's count, and the f32 or narrow mode's
+    beside it."""
     name = "BWD_KERNEL_LAUNCHES" if bwd else "KERNEL_LAUNCHES"
     names = [name]
     if q.dtype == torch.float32:
         names.append("F32_" + name)
-    elif q.shape[-1] != HEAD_DIM:
+    elif run_head_dim(q.shape[-1]) != HEAD_DIM:
         names.append("NARROW_" + name)
     for n in names:
         globals()[n] += 1
@@ -194,8 +220,14 @@ def _ptr(t):
 def _flash_fwd_cuda(q, k, v, q_seg, kv_seg, scale):
     """Launch K3 (csrc/flash_fwd.cu; f32: csrc/flash_f32_fwd.cu) on CUDA
     tensors → (out, lse); raises on anything the kernel does not take
-    (`_kernel_args`) and on a CUDA error.  Counting is the caller's."""
+    (`_kernel_args`) and on a CUDA error.  A head dim below 128 that no
+    kernel takes runs zero-padded (`_padded_dim`) with the caller's scale,
+    out sliced back to it.  Counting is the caller's."""
     _on_cuda("forward", q)
+    d, dp = q.shape[-1], _padded_dim(q, k, v)
+    if dp is not None:
+        out, lse = _flash_fwd_cuda(*(pad_head(t, dp) for t in (q, k, v)), q_seg, kv_seg, scale)
+        return out[..., :d].contiguous(), lse
     _, _, _, _, q_seg, kv_seg = _kernel_args(q, k, v, q_seg, kv_seg)
 
     from qflux_tpu_torch.runtime.build import load_library
@@ -221,14 +253,20 @@ def _launch_fwd(kl, stream, q, k, v, q_seg, kv_seg, scale):
 
 
 def _flash_bwd_cuda(q, k, v, q_seg, kv_seg, out, lse, do, scale):
-    """Launch K4 (csrc/flash_bwd.cu: delta, then dk / dv, then dq) on CUDA
-    tensors → (dq, dk, dv) in q's dtype; raises as `_flash_fwd_cuda`.
-    Counting is the caller's."""
+    """Launch K4 (csrc/flash_bwd.cu; f32: csrc/flash_f32_bwd.cu: delta,
+    then dk / dv, then dq) on CUDA tensors → (dq, dk, dv) in q's dtype;
+    raises as `_flash_fwd_cuda`, and pads as it does (out and do too; lse as
+    it is), the gradients sliced back.  Counting is the caller's."""
     _on_cuda("backward", q)
+    d, dp = q.shape[-1], _padded_dim(q, k, v, out, do)
+    if dp is not None:
+        q, k, v, out, do = (pad_head(t, dp) for t in (q, k, v, out, do))
+        grads = _flash_bwd_cuda(q, k, v, q_seg, kv_seg, out, lse, do, scale)
+        return tuple(g[..., :d].contiguous() for g in grads)
     b, sq, sk, h, q_seg, kv_seg = _kernel_args(q, k, v, q_seg, kv_seg)
-    wgmma = mode(q) != "f32"  # the bf16 backward reads out and do by TMA too
-    _check("out", out, q.device, q.dtype, q.shape, wgmma)
-    _check("do", do, q.device, q.dtype, q.shape, wgmma)
+    # every backward reads do by TMA, and its delta pass reads out
+    _check("out", out, q.device, q.dtype, q.shape, True)
+    _check("do", do, q.device, q.dtype, q.shape, True)
     _check("lse", lse, q.device, torch.float32, (b, h, sq))
 
     from qflux_tpu_torch.runtime.build import load_library
@@ -241,18 +279,16 @@ def _launch_bwd(kl, stream, q, k, v, q_seg, kv_seg, out, lse, do, scale):
     """The C call of `_flash_bwd_cuda` on checked arguments: allocates the
     f32 delta scratch [B, H, Sq] and dq / dk / dv (q's dtype), launches
     through `kl` (a runtime.build KernelLibrary) on `stream` (K4 with the
-    head dim in bf16, or `qflux_simt_bwd` with the head dim and the f32
-    dtype code) and raises on a CUDA error."""
+    head dim: `qflux_flash_bwd` in bf16, `qflux_f32_bwd` in f32) and raises
+    on a CUDA error."""
     b, sq, h, d = q.shape
     delta = torch.empty((b, h, sq), device=q.device, dtype=torch.float32)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(q_seg), _ptr(kv_seg), out.data_ptr(),
             lse.data_ptr(), do.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), b, sq, k.shape[1], h, d)
-    if mode(q) == "f32":
-        code = kl.lib.qflux_simt_bwd(*args, SIMT_F32, float(scale), stream)
-    else:
-        code = kl.lib.qflux_flash_bwd(*args, float(scale), stream)
+    entry = kl.lib.qflux_f32_bwd if mode(q) == "f32" else kl.lib.qflux_flash_bwd
+    code = entry(*args, float(scale), stream)
     kl.check(code, "flash_bwd launch")
     return dq, dk, dv
 

@@ -30,11 +30,12 @@ Counterpart of qflux_tpu/ops/flash_nr.py.  The parts:
 
 f32 inputs (`train.weight_dtype: float32`) run K1 / K2's f32 mode: a prep
 (csrc/flash_simt.cu) norms and ropes q and k into f32 scratch, then K1 runs
-K3's f32 loop on the tensor cores, every product a 3xTF32 split
-(csrc/flash_f32_fwd.cu, `qflux_f32_nr_fwd`), and K2 the CUDA-core FFMA
-loops and a rope + norm backward pass (`qflux_simt_nr_bwd`); K1's f32
-s_int8 mode stays on the CUDA cores (`qflux_simt_nr_fwd`).
-`F32_KERNEL_LAUNCHES` and its siblings count them among all launches.
+K3's f32 loop and K2 K4's f32 loops on the tensor cores, every product a
+3xTF32 split (csrc/flash_f32_fwd.cu, `qflux_f32_nr_fwd`;
+csrc/flash_f32_bwd.cu, `qflux_f32_nr_bwd`, which ends with flash_simt.cu's
+rope + norm backward pass); the f32 s_int8 modes stay on the CUDA cores
+(`qflux_simt_nr_fwd`, `qflux_simt_nr_bwd`).  `F32_KERNEL_LAUNCHES` and its
+siblings count them among all launches.
 
 The `s_int8` mode (config `model.quantize.attention`) computes QK^T as an
 int8 x int8 product with one scale per q tile and one per (b, h) for K,
@@ -70,7 +71,8 @@ DTYPES = (torch.bfloat16, torch.float32)  # bf16: the wgmma kernels; f32: the f3
 
 # launches of the CUDA kernels in this process; the custom op and its
 # backward add one per launch, whatever the dtype, and the F32_ counts add
-# the f32 launches among them (csrc/flash_f32_fwd.cu, csrc/flash_simt.cu)
+# the f32 launches among them (csrc/flash_f32_fwd.cu, csrc/flash_f32_bwd.cu,
+# csrc/flash_simt.cu)
 KERNEL_LAUNCHES = 0                # K1, csrc/flash_nr_fwd.cu
 BWD_KERNEL_LAUNCHES = 0            # K2, csrc/flash_nr_bwd.cu
 INT8_KERNEL_LAUNCHES = 0           # K1 in its s_int8 mode
@@ -353,7 +355,8 @@ def _check_aligned(**tensors):
 
 def _kernel_args(q, k, v, q_scale2, k_scale2, cos, sin, segment_ids):
     """Check the inputs against what csrc/flash_nr_fwd.cu (bf16) and the f32
-    modes (csrc/flash_f32_fwd.cu, csrc/flash_simt.cu) take and return (f32
+    modes (csrc/flash_f32_fwd.cu, csrc/flash_f32_bwd.cu, csrc/flash_simt.cu)
+    take and return (f32
     scale pairs, cos/sin batch stride, int32 segment ids or None).  Raises
     on a dtype other than bf16 or f32, D != 128, cross attention, a tensor
     on another device than q, a wrong shape, or a q/k/v/cos/sin that is not
@@ -574,16 +577,21 @@ def _launch_bwd(kl, stream, q, k, v, qs, ks, cos, sin, cs_bstride, seg, st, scal
     dqs_p = torch.empty((b, h, n_tiles, 2, d), device=q.device, dtype=torch.float32)
     dks_p = torch.empty_like(dqs_p)
     if q.dtype == torch.float32:
-        # the f32 mode (csrc/flash_simt.cu): the loops write f32 dqn / dkn, which
-        # its rope + norm backward pass reads
+        # the f32 modes: the loops write f32 dqn / dkn, which the rope + norm
+        # backward pass reads; q_rows = 0 the 3xTF32 loops (csrc/flash_f32_bwd.cu),
+        # the s_int8 mode the CUDA-core ones (csrc/flash_simt.cu)
         dqn, dkn = torch.empty_like(q), torch.empty_like(k)
-        code = kl.lib.qflux_simt_nr_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), qs.data_ptr(), ks.data_ptr(),
-            cos.data_ptr(), sin.data_ptr(), cs_bstride, _ptr(seg), out.data_ptr(),
-            lse.data_ptr(), do.data_ptr(), qn.data_ptr(), kn.data_ptr(), delta.data_ptr(),
-            dqn.data_ptr(), dkn.data_ptr(), _ptr(qq), _ptr(kq), _ptr(amax), int(q_rows),
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dqs_p.data_ptr(), dks_p.data_ptr(), b,
-            s, h, int(st), float(scale), stream)
+        inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), qs.data_ptr(), ks.data_ptr(),
+                  cos.data_ptr(), sin.data_ptr(), cs_bstride, _ptr(seg), out.data_ptr(),
+                  lse.data_ptr(), do.data_ptr(), qn.data_ptr(), kn.data_ptr(),
+                  delta.data_ptr(), dqn.data_ptr(), dkn.data_ptr())
+        grads = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dqs_p.data_ptr(),
+                 dks_p.data_ptr(), b, s, h, int(st), float(scale), stream)
+        if q_rows:
+            code = kl.lib.qflux_simt_nr_bwd(*inputs, qq.data_ptr(), kq.data_ptr(),
+                                            amax.data_ptr(), int(q_rows), *grads)
+        else:
+            code = kl.lib.qflux_f32_nr_bwd(*inputs, *grads)
         kl.check(code, "flash_nr_bwd f32 launch")
         return dq, dk, dv, dqs_p.sum(dim=(0, 1, 2)), dks_p.sum(dim=(0, 1, 2))
     code = kl.lib.qflux_flash_nr_bwd(

@@ -14,9 +14,11 @@ entry that times it apart.  K3 reads q, k and v by TMA (16-byte aligned,
 contiguous), at head dim 128 and in the narrow mode (bf16 at 32 / 64)
 alike, with the head dim as an argument.  K4 takes an f32 delta scratch
 [B, H, Sq].  In f32, K3 and K1 take the 3xTF32 tensor-core loop of
-csrc/flash_f32_fwd.cu (16-byte aligned, as every forward), K4, K2 and K1's
-s_int8 mode the CUDA-core kernels of csrc/flash_simt.cu; a torch emulation
-of the split (below) shows why three TF32 products and not one.
+csrc/flash_f32_fwd.cu and K4 and K2 that of csrc/flash_f32_bwd.cu (16-byte
+aligned, the backward's out and do too), the s_int8 modes of K1 / K2 the
+CUDA-core kernels of csrc/flash_simt.cu; torch emulations of the split
+(below) show why three TF32 products and not one.  A head dim below 128
+that no kernel takes runs zero-padded to the next one they take.
 """
 
 import ctypes
@@ -500,10 +502,10 @@ def test_cpu_tensors_never_reach_the_k2_or_k3_entries(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
-# the modes off bf16 at D = 128: K3 in f32 (D = 32, 64, 128) on the 3xTF32
-# loop of csrc/flash_f32_fwd.cu and K4 in f32 on the CUDA-core kernels of
-# csrc/flash_simt.cu; K3 / K4 in bf16 at D = 32, 64 (the narrow mode) on the
-# wgmma kernels; K1 / K2 in f32 (and their s_int8 mode)
+# the modes off bf16 at D = 128: K3 / K4 in f32 (D = 32, 64, 128) on the
+# 3xTF32 loops of csrc/flash_f32_fwd.cu / flash_f32_bwd.cu; K3 / K4 in bf16
+# at D = 32, 64 (the narrow mode) on the wgmma kernels; K1 / K2 in f32 (and
+# their s_int8 mode on csrc/flash_simt.cu)
 
 SIMT_MODES = [(torch.float32, 32), (torch.float32, 64), (torch.float32, 128),
               (torch.bfloat16, 32), (torch.bfloat16, 64)]
@@ -549,11 +551,11 @@ def test_simt_fwd_launch_arguments(sq, sk, ids, dtype, d):
 
 @pytest.mark.parametrize("dtype,d", SIMT_MODES, ids=SIMT_IDS)
 def test_simt_bwd_launch_arguments(dtype, d):
-    """K4 in f32 calls qflux_simt_bwd with the inputs, ids, out / lse / do,
-    an f32 delta scratch [B, H, Sq] and dq / dk / dv in the inputs' dtype,
-    then B, Sq, Sk, H, the head dim, the f32 dtype code 0, the scale and
-    the stream; in the narrow mode it calls the wgmma qflux_flash_bwd with
-    the same arguments but the dtype code (never qflux_simt_*)."""
+    """K4 in f32 calls the 3xTF32 qflux_f32_bwd (never a qflux_simt_*
+    entry) with the inputs, ids, out / lse / do, an f32 delta scratch [B,
+    H, Sq] and dq / dk / dv in the inputs' dtype, then B, Sq, Sk, H, the
+    head dim, the scale and the stream; in the narrow mode it calls the
+    wgmma qflux_flash_bwd with the same arguments."""
     b, h, sq, sk, scale = 2, 3, 200, 320, 0.125
     q, k, v, q_seg, kv_seg = _simt_qkv(sq, sk, d, dtype, True, b, h)
     out, do, lse = torch.zeros_like(q), torch.ones_like(q), torch.zeros(b, h, sq)
@@ -563,14 +565,14 @@ def test_simt_bwd_launch_arguments(dtype, d):
     assert all(t.dtype == dtype for t in (dq, dk, dv))
     (name, args), = kl.lib.calls
     f32 = dtype == torch.float32
-    assert name == ("qflux_simt_bwd" if f32 else "qflux_flash_bwd")
+    assert name == ("qflux_f32_bwd" if f32 else "qflux_flash_bwd")
     assert len(args) == len(build._SIGNATURES[name][1])
     assert args[:8] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), q_seg.data_ptr(),
                         kv_seg.data_ptr(), out.data_ptr(), lse.data_ptr(), do.data_ptr())
     assert isinstance(args[8], int) and args[8] not in args[:8]
     assert args[9:12] == (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
     assert args[12:17] == (b, sq, sk, h, d)
-    assert args[17:] == ((0, scale, 88) if f32 else (scale, 88))
+    assert args[17:] == (scale, 88)
 
 
 @pytest.mark.parametrize("d", [32, 64])
@@ -696,13 +698,168 @@ def test_tf32_split_arithmetic_meets_the_f32_tolerance(d):
     assert rel(out1, ref) > 10 * 2e-5
 
 
+def _emulated_bwd(q, k, v, out, lse, do, scale, split=True, step=32):
+    """csrc/flash_f32_bwd.cu's arithmetic in torch on [B, S, H, D] f32, the
+    unmasked case: every one of the seven products (s and dp in both
+    passes) as hi_a hi_b + hi_a lo_b + lo_a hi_b of TF32 pieces, p and ds
+    split as operands; each gradient summed over `step`-row steps of the
+    streamed rows, each step's products into a fresh f32 partial that is
+    added to the gradient in order (the kernel's fresh accumulator: R = 32
+    rows a step at D = 128, 64 at 32 / 64).  split=False takes one TF32
+    product each.  Returns (dq, dk, dv)."""
+    qf, kf, vf, dof, of = (t.permute(0, 2, 1, 3) for t in (q, k, v, do, out))
+
+    def mm(a, b):
+        if not split:
+            return _tf32(a) @ _tf32(b)
+        (ah, al), (bh, bl) = _split(a), _split(b)
+        return ah @ bh + ah @ bl + al @ bh
+
+    def stepped(a, b):  # a [.., M, K] b [.., K, N], the K rows streamed `step` at a time
+        acc = torch.zeros(a.shape[:-1] + b.shape[-1:])
+        for k0 in range(0, a.shape[-1], step):
+            acc = acc + mm(a[..., k0:k0 + step].contiguous(), b[..., k0:k0 + step, :])
+        return acc
+
+    p = torch.exp(mm(qf, kf.transpose(-1, -2)) * scale - lse[..., None])
+    delta = (dof * of).sum(-1, keepdim=True)
+    ds = p * (mm(dof, vf.transpose(-1, -2)) - delta) * scale
+    pt, dst = p.transpose(-1, -2).contiguous(), ds.transpose(-1, -2).contiguous()
+    grads = stepped(ds, kf), stepped(dst, qf), stepped(pt, dof)
+    return tuple(g.permute(0, 2, 1, 3) for g in grads)
+
+
+@pytest.mark.parametrize("d", [32, 128])
+def test_tf32_split_backward_arithmetic_meets_the_f32_tolerance(d):
+    """Why the f32 K4 / K2 run three TF32 products a product and sum the
+    gradients in a fresh accumulator a step: in a torch emulation of
+    csrc/flash_f32_bwd.cu's arithmetic (`_emulated_bwd`; it lives here and
+    on no path) dq, dk and dv are within the f32 gradients' 1e-4 relative
+    L2 (chip_smoke.py's F32_GRAD_TOL) of `flash_bwd_reference`, while one
+    TF32 product each misses it."""
+    rng = np.random.default_rng(29 + d)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal((1, 96, 2, d)).astype(np.float32))
+                   for _ in range(4))
+    scale = d ** -0.5
+    out, lse = tfa.flash_fwd_reference(q, k, v, None, None, scale)
+    out = out.contiguous()
+    ref = tfa.flash_bwd_reference(q, k, v, None, None, out, lse, do, scale)
+
+    def rel(a, b):
+        return ((a.double() - b.double()).norm() / b.double().norm()).item()
+
+    step = 32 if d == 128 else 64
+    got = _emulated_bwd(q, k, v, out, lse, do, scale, step=step)
+    assert max(rel(g, r) for g, r in zip(got, ref)) <= 1e-4
+    one = _emulated_bwd(q, k, v, out, lse, do, scale, split=False, step=step)
+    assert min(rel(g, r) for g, r in zip(one, ref)) > 1e-4
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_f32_bwd_refuses_misaligned_out_or_do(monkeypatch, d):
+    """The f32 K4 reads do by TMA and its delta pass reads out: either off
+    16-byte alignment is refused before the library is loaded, as in bf16
+    (the launcher runs here with its device check lifted)."""
+    def refuse():
+        raise AssertionError("refused inputs reached the kernel library")
+
+    monkeypatch.setattr(build, "load_library", refuse)
+    monkeypatch.setattr(tfa, "_on_cuda", lambda what, q: None)
+    q, k, v, q_seg, kv_seg = _simt_qkv(64, 96, d, torch.float32, True, 1, 2)
+    shifted = torch.zeros(q.numel() + 1)[1:].view(q.shape)  # a 4-byte offset
+    assert shifted.data_ptr() % 16
+    lse = torch.zeros(1, 2, 64)
+    for out, do, what in [(shifted, q, "out is not 16-byte aligned"),
+                          (q, shifted, "do is not 16-byte aligned")]:
+        with pytest.raises(ValueError, match=what):
+            tfa._flash_bwd_cuda(q, k, v, q_seg, kv_seg, out, lse, do, 0.125)
+
+
+PAD_CASES = [(d, t) for d in (16, 48, 96) for t in (torch.float32, torch.bfloat16)]
+PAD_IDS = [f"{'f32' if t == torch.float32 else 'bf16'}_d{d}" for d, t in PAD_CASES]
+
+
+@pytest.mark.parametrize("d,dtype", PAD_CASES, ids=PAD_IDS)
+def test_padded_head_dims_launch_at_a_taken_dim(monkeypatch, d, dtype):
+    """A head dim below 128 that no kernel takes (16, 48, 96) reaches the C
+    entries zero-padded to the next one they take (32, 64, 128), with the
+    caller's scale (the original head dim's, never the padded one's): K3
+    and K4 alike, out and dq / dk / dv sliced back to D, lse as it is.  A
+    launch counts under the head dim it ran at (bf16 at 96 is not
+    "narrow").  Above 128 the launchers still raise, naming the head dims
+    the kernels take."""
+    import types
+
+    kl = _library()
+    monkeypatch.setattr(build, "load_library", lambda: kl)
+    monkeypatch.setattr(tfa, "_on_cuda", lambda what, q: None)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=7))
+    b, sq, sk, h = 1, 70, 90, 2
+    q, k, v, q_seg, kv_seg = _simt_qkv(sq, sk, d, dtype, True, b, h)
+    scale = d ** -0.5
+    dp = tfa.run_head_dim(d)
+    assert dp == {16: 32, 48: 64, 96: 128}[d]
+    out, lse = tfa._flash_fwd_cuda(q, k, v, q_seg, kv_seg, scale)
+    assert out.shape == q.shape and out.dtype == dtype and out.is_contiguous()
+    assert lse.shape == (b, h, sq)
+    dq, dk, dv = tfa._flash_bwd_cuda(q, k, v, q_seg, kv_seg, out, lse, torch.ones_like(q), scale)
+    assert (dq.shape, dk.shape, dv.shape) == (q.shape, k.shape, v.shape)
+    assert all(t.dtype == dtype and t.is_contiguous() for t in (dq, dk, dv))
+    (fname, fargs), (bname, bargs) = kl.lib.calls
+    f32 = dtype == torch.float32
+    assert (fname, bname) == (("qflux_f32_fwd", "qflux_f32_bwd") if f32
+                              else ("qflux_flash_fwd", "qflux_flash_bwd"))
+    assert fargs[7:13] == (b, sq, sk, h, dp, scale) and bargs[12:18] == (b, sq, sk, h, dp, scale)
+    assert q.data_ptr() not in fargs[:3] and q.data_ptr() not in bargs[:3]  # padded copies
+    assert bargs[6] == lse.data_ptr()
+    names = ("KERNEL_LAUNCHES", "F32_KERNEL_LAUNCHES", "NARROW_KERNEL_LAUNCHES")
+    before = [getattr(tfa, n) for n in names]
+    tfa._count(q, bwd=False)
+    grew = [getattr(tfa, n) - x for n, x in zip(names, before)]
+    assert grew == [1, int(f32), int(not f32 and dp != 128)]
+    if d == 96:
+        wide = torch.zeros(1, 8, 2, 160, dtype=dtype)
+        with pytest.raises(ValueError, match=r"head dims \(32, 64, 128\)"):
+            tfa._flash_fwd_cuda(wide, wide, wide, None, None, 0.1)
+
+
+@pytest.mark.parametrize("d,dtype", PAD_CASES, ids=PAD_IDS)
+def test_padded_plain_versions_equal_the_unpadded(d, dtype):
+    """Why the padding is exact: the plain K3 and K4 over q / k / v (and
+    out / do) zero-padded to the head dim the kernels run, with the
+    original scale, give the unpadded plain versions' out, lse and dq / dk
+    / dv in the first D columns and zeros in the padded ones (masked rows
+    included): zero columns add nothing to a score, and delta = rowsum(do
+    out) is unchanged."""
+    q, k, v, q_seg, kv_seg = _simt_qkv(70, 90, d, dtype, True, 1, 2)
+    q_seg[:, -6:] = 0  # fully masked q rows
+    kv_seg[:, :5] = 2
+    scale = d ** -0.5
+    dp = tfa.run_head_dim(d)
+    pq, pk, pv = (tfa.pad_head(t, dp) for t in (q, k, v))
+    out, lse = tfa.flash_fwd_reference(q, k, v, q_seg, kv_seg, scale)
+    pout, plse = tfa.flash_fwd_reference(pq, pk, pv, q_seg, kv_seg, scale)
+    tol = {"rtol": 1e-5, "atol": 1e-6} if dtype == torch.float32 else {}
+    torch.testing.assert_close(pout[..., :d], out, **tol)
+    torch.testing.assert_close(plse, lse, rtol=1e-5, atol=1e-6)
+    assert not pout[..., d:].any()
+    do = torch.from_numpy(np.random.default_rng(d).standard_normal(q.shape).astype(np.float32)
+                          ).to(dtype)
+    grads = tfa.flash_bwd_reference(q, k, v, q_seg, kv_seg, out, lse, do, scale)
+    pgrads = tfa.flash_bwd_reference(pq, pk, pv, q_seg, kv_seg, tfa.pad_head(out, dp), lse,
+                                     tfa.pad_head(do, dp), scale)
+    for g, pg in zip(grads, pgrads):
+        torch.testing.assert_close(pg[..., :d], g, rtol=1e-5, atol=1e-5)
+        assert not pg[..., d:].any()
+
+
 @pytest.mark.parametrize("d", [32, 64, 128])
 def test_modes_take_their_entries(d):
     """bf16 at every head dim takes the wgmma K3 / K4 (mode "bf16" at 128,
     "narrow" at 32 / 64, the head dim passed to qflux_flash_fwd / _bwd),
-    f32 the 3xTF32 K3 (qflux_f32_fwd with the head dim) and the CUDA-core K4
-    (qflux_simt_bwd with the head dim and dtype code 0): one call each way,
-    no other."""
+    f32 the 3xTF32 K3 and K4 (qflux_f32_fwd / qflux_f32_bwd with the head
+    dim): one call each way, no other."""
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v, q_seg, kv_seg = _simt_qkv(77, 130, d, dtype, True, 1, 2)
         kl = _library()
@@ -716,27 +873,28 @@ def test_modes_take_their_entries(d):
             assert kl.lib.calls[1][1][16] == d
         else:
             assert tfa.mode(q) == "f32"
-            assert names == ["qflux_f32_fwd", "qflux_simt_bwd"]
-            assert kl.lib.calls[0][1][11] == d and kl.lib.calls[1][1][16:18] == (d, 0)
+            assert names == ["qflux_f32_fwd", "qflux_f32_bwd"]
+            assert kl.lib.calls[0][1][11] == d and kl.lib.calls[1][1][16] == d
 
 
 def test_simt_entries_take_f32_only():
-    """csrc/flash_simt.cu's K4 entry refuses every dtype code but 0 (f32) in
-    its argument check, the file holds no bf16 instance (bf16 at D = 32 / 64
-    runs on the wgmma kernels) and no K3 forward any more: f32 K3 and K1 run
-    the 3xTF32 loop of csrc/flash_f32_fwd.cu, and the CUDA-core forward is
-    the s_int8 one alone, whose entry refuses q_rows = 0.  (The card test
-    `test_simt_entries_refuse_bf16_on_card` runs the refusal.)"""
+    """csrc/flash_simt.cu holds the f32 s_int8 modes alone: no bf16
+    instance (bf16 at D = 32 / 64 runs on the wgmma kernels), no K3 forward
+    and no K4 backward any more (f32 K3 / K1 and K4 / K2 run the 3xTF32
+    loops of csrc/flash_f32_fwd.cu / flash_f32_bwd.cu), no non-int8 loop
+    instance, and both its K1 and its K2 entry refuse q_rows = 0 (the plain
+    f32 modes).  (The card test `test_simt_entries_refuse_bf16_on_card`
+    runs the refusals.)"""
     src = (build.CSRC / "flash_simt.cu").read_text()
     assert "Elem<bf16>" not in src and "<bf16>" not in src
-    body = src[src.index('extern "C" int qflux_simt_bwd('):]
-    check = body[:body.index("return (int)cudaErrorInvalidValue;")]
-    assert "dtype != 0" in check
-    assert "qflux_simt_fwd" not in src and "fwd_by_dim" not in src
-    assert "qflux_simt_fwd" not in build._SIGNATURES
-    body = src[src.index('extern "C" int qflux_simt_nr_fwd('):]
-    assert "q_rows <= 0" in body[:body.index("return (int)cudaErrorInvalidValue;")]
-    assert tfa.SIMT_F32 == 0
+    for gone in ("qflux_simt_bwd", "bwd_by_dim", "simt_delta_kernel", "qflux_simt_fwd",
+                 "fwd_by_dim", "template <int HD, bool SEG, bool INT8>", "launch_bwd<"):
+        assert gone not in src, gone
+    assert "qflux_simt_fwd" not in build._SIGNATURES and "qflux_simt_bwd" not in build._SIGNATURES
+    assert not hasattr(tfa, "SIMT_F32")
+    for entry in ("qflux_simt_nr_fwd", "qflux_simt_nr_bwd"):
+        body = src[src.index(f'extern "C" int {entry}('):]
+        assert "q_rows <= 0" in body[:body.index("return (int)cudaErrorInvalidValue;")], entry
 
 
 def test_wgmma_entry_points_take_the_head_dim():
@@ -815,11 +973,12 @@ def test_simt_nr_fwd_launch_arguments(monkeypatch, q_rows, seg):
 
 @pytest.mark.parametrize("q_rows", [0, 128])
 def test_simt_nr_bwd_launch_arguments(monkeypatch, q_rows):
-    """K2 in f32 calls qflux_simt_nr_bwd with the inputs, out / lse / do,
-    the prep's scratch (qn, kn f32, delta f32 [B, H, S]), the f32 dqn / dkn
-    scratch the rope + norm backward reads, qq / kq / amax in the s_int8
-    mode, q_rows, dq / dk / dv (f32), the two [B, H, ceil(S / 64), 2, D]
-    partial buffers, the shape, st, scale and stream; it returns the
+    """K2 in f32 calls the 3xTF32 qflux_f32_nr_bwd (its s_int8 mode the
+    CUDA-core qflux_simt_nr_bwd) with the inputs, out / lse / do, the
+    prep's scratch (qn, kn f32, delta f32 [B, H, S]), the f32 dqn / dkn
+    scratch the rope + norm backward reads, in the s_int8 mode qq / kq /
+    amax and q_rows, then dq / dk / dv (f32), the two [B, H, ceil(S / 64),
+    2, D] partial buffers, the shape, st, scale and stream; it returns the
     partials summed."""
     b, s, h, st, scale = 2, 300, 3, 40, 0.125
     q, k, v, qs2, ks2, cos, sin, ids = _f32_k1_args(b, s, h, True, seed=4)
@@ -832,13 +991,15 @@ def test_simt_nr_bwd_launch_arguments(monkeypatch, q_rows):
     kl = _library()
     fill = _fill_partials(b, s, h)
     kl.lib.on["qflux_simt_nr_bwd"] = lambda *a: fill(*a[:22], a[24], a[25])
+    kl.lib.on["qflux_f32_nr_bwd"] = lambda *a: fill(*a[:22], a[20], a[21])
     dq, dk, dv, dqs, dks = tnr._launch_bwd(kl, 12, q, k, v, qs, ks, cos, sin, cs_bstride, seg32,
                                            st, scale, out, lse, do, q_rows)
     assert all(t.dtype == torch.float32 and t.shape == q.shape for t in (dq, dk, dv))
     n_tiles = -(-s // 64)
     assert bool((dqs == b * h * n_tiles).all()) and bool((dks == 2 * b * h * n_tiles).all())
     (name, args), = kl.lib.calls
-    assert name == "qflux_simt_nr_bwd" and len(args) == len(build._SIGNATURES[name][1])
+    assert name == ("qflux_simt_nr_bwd" if q_rows else "qflux_f32_nr_bwd")
+    assert len(args) == len(build._SIGNATURES[name][1])
     qn, kn, delta, qq, kq, amax = made[0]
     assert args[:7] == tuple(t.data_ptr() for t in (q, k, v, qs, ks, cos, sin))
     assert args[7] == cs_bstride and args[8] == seg32.data_ptr()
@@ -846,20 +1007,27 @@ def test_simt_nr_bwd_launch_arguments(monkeypatch, q_rows):
     assert args[12:15] == (qn.data_ptr(), kn.data_ptr(), delta.data_ptr())
     assert qn.dtype == torch.float32 and delta.shape == (b, h, s)
     assert all(isinstance(a, int) for a in args[15:17]) and len(set(args[12:17])) == 5
-    assert args[17:21] == ((None, None, None, 0) if not q_rows
-                           else (qq.data_ptr(), kq.data_ptr(), amax.data_ptr(), q_rows))
-    assert args[21:24] == (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
-    assert args[24] != args[25] and args[26:32] == (b, s, h, st, scale, 12)
+    if q_rows:
+        assert args[17:21] == (qq.data_ptr(), kq.data_ptr(), amax.data_ptr(), q_rows)
+        args = args[:17] + args[21:]
+    else:
+        assert qq is None and kq is None and amax is None
+    assert args[17:20] == (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    assert args[20] != args[21] and args[22:28] == (b, s, h, st, scale, 12)
 
 
 def test_simt_entry_points_are_declared():
     """The f32 modes' C entries take 64-bit pointers and the cos / sin batch
-    stride as a 64-bit integer, as the bf16 ones; the 3xTF32 K3 entry takes
-    qflux_flash_fwd's arguments."""
+    stride as a 64-bit integer, as the bf16 ones; the 3xTF32 K3 / K4 entries
+    take qflux_flash_fwd's / qflux_flash_bwd's arguments, and the 3xTF32 K2
+    entry the s_int8 one's without qq, kq, amax and q_rows."""
     assert build._SIGNATURES["qflux_f32_fwd"] == build._SIGNATURES["qflux_flash_fwd"]
-    for name, n, stride_at in (("qflux_f32_fwd", 14, None), ("qflux_simt_bwd", 20, None),
+    assert build._SIGNATURES["qflux_f32_bwd"] == build._SIGNATURES["qflux_flash_bwd"]
+    nr = build._SIGNATURES["qflux_simt_nr_bwd"][1]
+    assert build._SIGNATURES["qflux_f32_nr_bwd"][1] == nr[:17] + nr[21:]
+    for name, n, stride_at in (("qflux_f32_fwd", 14, None), ("qflux_f32_bwd", 19, None),
                                ("qflux_f32_nr_fwd", 19, 7), ("qflux_simt_nr_fwd", 23, 7),
-                               ("qflux_simt_nr_bwd", 32, 7)):
+                               ("qflux_f32_nr_bwd", 28, 7), ("qflux_simt_nr_bwd", 32, 7)):
         restype, argtypes = build._SIGNATURES[name]
         assert restype is ctypes.c_int and len(argtypes) == n, name
         if stride_at is not None:

@@ -1685,11 +1685,13 @@ def test_optimizers_on_card_equal_cpu(class_path, args):
 
 # ---------------------------------------------------------------------------
 # The modes off bf16 at D = 128: the f32 modes (K3 and K1 on the 3xTF32
-# tensor-core loop of csrc/flash_f32_fwd.cu; K4 at head dims 32, 64 and 128, K2
-# and K1 / K2's s_int8 mode on the CUDA-core kernels of csrc/flash_simt.cu) and
-# the narrow mode (K3 / K4 in bf16 at 32 and 64, the wgmma kernels templated on
-# the head dim).  The f32 bounds are chip_smoke.py's phase K ones: out and lse
-# within 2e-5, the gradients within 1e-4 (relative L2: the kernels and the plain
+# tensor-core loop of csrc/flash_f32_fwd.cu, K4 at head dims 32, 64 and 128 and
+# K2 on that of csrc/flash_f32_bwd.cu; K1 / K2's s_int8 mode on the CUDA-core
+# kernels of csrc/flash_simt.cu), the narrow mode (K3 / K4 in bf16 at 32 and
+# 64, the wgmma kernels templated on the head dim) and the head dims below 128
+# no kernel takes (zero-padded to the next one).  The f32 bounds are
+# chip_smoke.py's phase K ones: out and lse within 2e-5, the gradients within
+# 1e-4 (relative L2: the kernels and the plain
 # versions sum in other orders, and exp / rsqrt differ by an ulp); the narrow
 # mode is held to the bf16 K3 / K4 bounds above.
 
@@ -1787,18 +1789,22 @@ class _EntrySpy:
         return call
 
 
-def test_simt_modes_never_reach_the_plain_version(monkeypatch):
-    """f32 attention on CUDA tensors launches the 3xTF32 K3 of
-    csrc/flash_f32_fwd.cu and csrc/flash_simt.cu's K4, and bf16 at D = 32 /
-    64 the wgmma K3 / K4 (qflux_flash_fwd / _bwd, never a qflux_simt_*
-    entry), through `flash_attention` (forward and autograd); the fused K1
-    in f32 launches qflux_f32_nr_fwd and K2 csrc/flash_simt.cu: no f32
-    forward reaches flash_simt.cu's forward loop (qflux_simt_nr_fwd, now
-    the s_int8 mode's alone), and none calls the plain versions (replaced
-    by functions that raise); an f16 q or a head dim of 96 raises, naming
+def test_f32_and_narrow_modes_never_reach_the_plain_version(monkeypatch):
+    """f32 attention on CUDA tensors launches the 3xTF32 K3 and K4 of
+    csrc/flash_f32_fwd.cu / flash_f32_bwd.cu, and bf16 at D = 32 / 64 the
+    wgmma K3 / K4 (qflux_flash_fwd / _bwd, never a qflux_simt_* entry),
+    through `flash_attention` (forward and autograd); the fused K1 / K2 in
+    f32 launch qflux_f32_nr_fwd / qflux_f32_nr_bwd: no f32 pass outside the
+    s_int8 modes reaches flash_simt.cu's loops (qflux_simt_nr_fwd / _bwd,
+    the s_int8 modes' alone), and none calls the plain versions (replaced
+    by functions that raise).  f32 at head dim 96 runs the kernels
+    zero-padded to 128 (qflux_f32_fwd / _bwd) and matches the plain
+    version forward and backward (2e-5 / 1e-4); an f16 q raises, naming
     what the kernels take."""
     from qflux_tpu_torch.ops import flash_attention as tfa
     from qflux_tpu_torch.runtime import build
+
+    plain_fwd, plain_bwd = tfa.flash_fwd_reference, tfa.flash_bwd_reference
 
     def refuse(*a, **kw):
         raise AssertionError("a CUDA tensor reached the plain version")
@@ -1818,7 +1824,7 @@ def test_simt_modes_never_reach_the_plain_version(monkeypatch):
         tfa.flash_attention(*leaves, segment_ids=q_seg).float().square().sum().backward()
         torch.cuda.synchronize()
         assert all(bool(torch.isfinite(x.grad).all()) for x in leaves)
-        assert spy.names == (["qflux_f32_fwd", "qflux_simt_bwd"] if dtype == torch.float32
+        assert spy.names == (["qflux_f32_fwd", "qflux_f32_bwd"] if dtype == torch.float32
                              else ["qflux_flash_fwd", "qflux_flash_bwd"]), (dtype, d)
     args = _inputs(8, 300)
     args = [a.float() for a in args[:3]] + args[3:]
@@ -1830,11 +1836,23 @@ def test_simt_modes_never_reach_the_plain_version(monkeypatch):
     torch.cuda.synchronize()
     assert [b - a for a, b in zip(c0, _simt_counts())][4:6] == [1, 1]
     assert [n for n in spy.names if n != "qflux_flash_nr_bwd_tiles"] == [
-        "qflux_f32_nr_fwd", "qflux_simt_nr_bwd"]
-    for dtype, d in ((torch.float16, 64), (torch.float32, 96)):
-        q = torch.zeros(1, 8, 2, d, device="cuda", dtype=dtype)
-        with pytest.raises(ValueError, match="head dims"):
-            tfa.flash_attention(q, q, q)
+        "qflux_f32_nr_fwd", "qflux_f32_nr_bwd"]
+    q, k, v, q_seg, kv_seg = _simt_inputs(9, 200, 200, 96, torch.float32, True)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    do = torch.randn(q.shape, device="cuda")
+    spy.names.clear()
+    out = tfa.flash_attention(*leaves, segment_ids=q_seg, kv_segment_ids=kv_seg)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert spy.names == ["qflux_f32_fwd", "qflux_f32_bwd"]
+    scale = 96 ** -0.5
+    ref, lse = plain_fwd(q, k, v, q_seg, kv_seg, scale)
+    assert out.shape == q.shape and _rel_l2(out, ref) <= F32_REL_TOL
+    for g, w in zip(got, plain_bwd(q, k, v, q_seg, kv_seg, ref, lse, do, scale)):
+        assert g.shape == w.shape and _rel_l2(g, w) <= F32_GRAD_TOL
+    q = torch.zeros(1, 8, 2, 64, device="cuda", dtype=torch.float16)
+    with pytest.raises(ValueError, match="head dims"):
+        tfa.flash_attention(q, q, q)
 
 
 # the narrow mode at the edges TMA creates: S below one 64-row tile, S off the
@@ -1932,31 +1950,105 @@ def test_f32_k3_edges_match_plain_on_card(sq, sk, masked, d):
         assert bool(dead[1, -1]) and bool((out[dead] == 0).all())
 
 
-def test_simt_entries_refuse_bf16_on_card():
-    """csrc/flash_simt.cu's K4 entry takes f32 only: dtype code 1 (bf16,
-    which the narrow mode sends to the wgmma kernels) returns
-    cudaErrorInvalidValue (1) from the argument check, launching nothing;
-    its K1 entry refuses q_rows = 0 (K1's plain f32 mode runs
-    csrc/flash_f32_fwd.cu), so no f32 forward reaches its forward loop."""
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("sq,sk,masked", F32_EDGE_CASES)
+def test_f32_k4_edges_match_plain_on_card(sq, sk, masked, d):
+    """The 3xTF32 K4 (csrc/flash_f32_bwd.cu) at the edges of its tiles (64
+    own rows, 32 or 64 streamed ones) and TMA's, through
+    `flash_bwd_from_residuals` fed the plain forward's out / lse with
+    nonzero do on every row: dq, dk and dv within 1e-4 relative L2 of the
+    plain formula, the fully masked rows' dq exactly 0 (and with them their
+    keys' dk / dv where no row attends), two calls identical to the bit, one
+    f32 K4 launch a call."""
+    from qflux_tpu_torch.ops import flash_attention as tfa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, q_seg, kv_seg = _narrow_edge_inputs(5 * sq + sk + d, sq, sk, d, masked,
+                                                 torch.float32)
+    scale = d ** -0.5
+    out, lse = (t.contiguous() for t in tfa.flash_fwd_reference(q, k, v, q_seg, kv_seg, scale))
+    do = torch.randn(q.shape, device="cuda")
+    c0 = _simt_counts()
+    got = tfa.flash_bwd_from_residuals(q, k, v, q_seg, kv_seg, out, lse, do, scale)
+    again = tfa.flash_bwd_from_residuals(q, k, v, q_seg, kv_seg, out, lse, do, scale)
+    torch.cuda.synchronize()
+    assert [b - a for a, b in zip(c0, _simt_counts())][:4] == [0, 2, 0, 0]
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    want = tfa.flash_bwd_reference(q, k, v, q_seg, kv_seg, out, lse, do, scale)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape and _rel_l2(g, w) <= F32_GRAD_TOL
+    if masked:
+        dead = _dead_rows(q_seg, kv_seg)
+        assert bool(dead[1, -1]) and bool((got[0][dead] == 0).all())
+        lone = _dead_rows(kv_seg, q_seg)  # keys no q row attends
+        assert bool((got[1][lone] == 0).all()) and bool((got[2][lone] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [16, 48, 96])
+def test_padded_head_dims_match_plain_on_card(d, dtype):
+    """A head dim below 128 that no kernel takes runs K3 / K4 zero-padded to
+    the next one (32, 64, 128) with the caller's scale, through the ring
+    hop's entry points: out, lse and the gradients at D against the plain
+    version (f32 within 2e-5 / 1e-4 relative L2, bf16 within the bf16 K3 /
+    K4 bounds), fully masked rows at 0; one launch of the mode's counter
+    each way (bf16 at 96 runs the D = 128 kernels, not the narrow ones)."""
+    from qflux_tpu_torch.ops import flash_attention as tfa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, q_seg, kv_seg = _narrow_edge_inputs(11 * d, 300, 520, d, True, dtype)
+    scale = d ** -0.5
+    c0 = _simt_counts()
+    out, lse = tfa.flash_fwd_with_lse(q, k, v, q_seg, kv_seg, scale)
+    do = torch.randn(q.shape, device="cuda").to(dtype)
+    got = tfa.flash_bwd_from_residuals(q, k, v, q_seg, kv_seg, out, lse, do, scale)
+    torch.cuda.synchronize()
+    moved = [b - a for a, b in zip(c0, _simt_counts())][:4]
+    narrow = dtype == torch.bfloat16 and tfa.run_head_dim(d) < 128
+    assert moved == ([1, 1, 0, 0] if dtype == torch.float32 else [0, 0, int(narrow), int(narrow)])
+    ref, ref_lse = tfa.flash_fwd_reference(q, k, v, q_seg, kv_seg, scale)
+    valid = ref_lse > -1e29
+    want = tfa.flash_bwd_reference(q, k, v, q_seg, kv_seg, out, lse, do, scale)
+    assert out.shape == q.shape and all(g.shape == w.shape for g, w in zip(got, want))
+    if dtype == torch.float32:
+        assert _rel_l2(out, ref) <= F32_REL_TOL
+        assert _rel_l2(lse[valid], ref_lse[valid]) <= F32_REL_TOL
+        assert all(_rel_l2(g, w) <= F32_GRAD_TOL for g, w in zip(got, want))
+    else:
+        assert (out.float() - ref.float()).abs().max().item() <= 1.6e-2
+        assert (lse - ref_lse).abs()[valid].max().item() <= 1e-4
+        assert all(_rel_l2(g, w) <= 1.5e-2 for g, w in zip(got, want))
+    dead = _dead_rows(q_seg, kv_seg)
+    assert not out[dead].any() and not got[0][dead].any()
+
+
+def test_simt_entries_refuse_the_plain_f32_modes_on_card():
+    """csrc/flash_simt.cu takes the f32 s_int8 modes alone: its K1 and K2
+    entries refuse q_rows = 0 (K1's and K2's plain f32 modes run
+    csrc/flash_f32_fwd.cu / flash_f32_bwd.cu) with cudaErrorInvalidValue
+    (1) from the argument check, launching nothing, so no plain f32 pass
+    reaches its loops."""
     from qflux_tpu_torch.runtime.build import load_library
 
     lib = load_library().lib
-    q, k, v, q_seg, kv_seg = _simt_inputs(3, 64, 64, 64, torch.bfloat16, True)
-    b, s, h, d = q.shape
-    out, do = torch.zeros_like(q), torch.ones_like(q)
-    lse, delta = (torch.zeros(b, h, s, device="cuda") for _ in range(2))
-    grads = [torch.zeros_like(q) for _ in range(3)]
-    stream = torch.cuda.current_stream().cuda_stream
-    p = [t.data_ptr() for t in (q, k, v, q_seg, kv_seg)]
+    b, s, h = 1, 64, 2
     z = torch.zeros(b, s, h, D, device="cuda")
-    assert lib.qflux_simt_nr_fwd(*(z.data_ptr() for _ in range(3)), None, None, None, None, 0,
-                                 None, z.data_ptr(), z.data_ptr(), None, None, None, 0,
-                                 out.data_ptr(), lse.data_ptr(), b, s, h, 0, 0.125, stream) == 1
-    assert lib.qflux_simt_bwd(*p, out.data_ptr(), lse.data_ptr(), do.data_ptr(),
-                              delta.data_ptr(), *(g.data_ptr() for g in grads), b, s, s, h, d,
-                              1, 0.125, stream) == 1
+    out = torch.zeros_like(z)
+    lse, delta = (torch.zeros(b, h, s, device="cuda") for _ in range(2))
+    grads = [torch.zeros_like(z) for _ in range(3)]
+    parts = [torch.zeros(b, h, 1, 2, D, device="cuda") for _ in range(2)]
+    stream = torch.cuda.current_stream().cuda_stream
+    zp = z.data_ptr()
+    assert lib.qflux_simt_nr_fwd(zp, zp, zp, None, None, None, None, 0, None, zp, zp, None,
+                                 None, None, 0, out.data_ptr(), lse.data_ptr(), b, s, h, 0,
+                                 0.125, stream) == 1
+    assert lib.qflux_simt_nr_bwd(zp, zp, zp, None, None, None, None, 0, None, zp, zp, zp, zp,
+                                 zp, delta.data_ptr(), zp, zp, None, None, None, 0,
+                                 *(g.data_ptr() for g in grads),
+                                 *(t.data_ptr() for t in parts), b, s, h, 0, 0.125,
+                                 stream) == 1
     torch.cuda.synchronize()
-    assert not any(g.any() for g in grads)
+    assert not any(g.any() for g in grads) and not out.any()
 
 
 def _nr_f32_inputs(seed, s, h=4):
@@ -1975,7 +2067,7 @@ def _nr_f32_inputs(seed, s, h=4):
 
 
 @pytest.mark.parametrize("s", [2304, 2560])
-def test_simt_k1_k2_f32_match_plain_on_card(s):
+def test_f32_k1_k2_match_plain_on_card(s):
     """K1 / K2 in f32 at FLUX's S = 2560 and path A's 2304 with text
     padding, through the custom op and its autograd: out and lse within
     2e-5, dq / dk / dv and both scale-pair gradients within 1e-4 of the
