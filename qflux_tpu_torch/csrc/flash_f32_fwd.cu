@@ -9,7 +9,11 @@
 //     128 outside its s_int8 mode: qflux_f32_nr_fwd, which first runs
 //     flash_simt.cu's prep (qflux_simt_nr_prep: RMSNorm with the scale row picked at
 //     st and rotate-half rope of q and k into f32 scratch qn / kn), then this loop
-//     over qn / kn / v.  (K1's f32 s_int8 mode stays on flash_simt.cu.)
+//     over qn / kn / v;
+//   * K1 in its s_int8 mode (the branch at flash_nr.py:209-225), at head dim 128:
+//     qflux_f32_nr_int8_fwd, the same prep also quantizing qn per q tile and kn per
+//     (b, h) into int8 qq / kq (`_quant_tile`), then this loop with int8 scores (I8,
+//     below).
 //
 // The function is K3's (flash_fwd.cu says it in full): for every (b, h), out =
 // softmax(q k^T * scale + segment mask) v and lse, with f32 scores, p kept in f32 for
@@ -75,6 +79,21 @@
 // scores 32, p's lo 32) leave no room at D = 128 to overlap a warpgroup's own softmax
 // with its P V, as the bf16 loop does.
 //
+// The s_int8 mode (I8).  S = qq kq^T is exact in s32 (|sum| <= 127^2 128 < 2^21):
+// four wgmma m64n64k32 s8 steps a tile from the int8 q tile (16 KB, loaded by TMA: the
+// block's 128 rows lie in one of the prep's q tiles, which are multiples of 128 rows,
+// so one factor) and int8 k tiles (8 KB, streamed by TMA), converted to f32 exactly
+// (hopper.cuh's s32_to_f32).  The softmax takes the integer score in place of the raw
+// one and the factor (q tile scale * k scale) * scale, IEEE products in that order, in
+// place of the scale, as the bf16 K1's s_int8 loop (flash_fwd_hopper.cuh) folds it:
+// p = ex2(s * factor * log2 e - m * factor * log2 e), lse = m * factor + log l.  P V
+// stays 3xTF32 on the f32 v.  k needs no split and q no lo fragments, so the stage
+// (8 KB of int8 k, 64 KB of v^T hi / lo) fits twice at D = 128 (192 KB with the q
+// tile and the v staging tile), and the 64 registers q's lo fragments held take P V
+// as one m64n128k8 a k8 step (a fresh accumulator of 64 registers over all of O's
+// columns) in place of four m64n32k8 chunks, each waited for: the same sums, 2-3%
+// faster (scripts/ablate_f32_int8_torch.py).
+//
 // Two choices the card forced (scripts/ablate_f32_flash_torch.py measures both):
 //   * the tensor cores' f32 accumulation truncates, so P V accumulated in O across
 //     the key tiles, as the bf16 loop does, drifts with the number of tiles (out
@@ -82,7 +101,8 @@
 //     fresh accumulator a tile, added to O in f32 on the CUDA cores, stays near 3e-6;
 //   * P V at D = 64 as m64n64k8 from registers, the shape of S's lo_q hi_k product,
 //     went wrong by ~1e-4 on every tile after the first; in m64n32k8 chunks it is
-//     right, so P V runs 32 columns of O at a time at every head dim.
+//     right, so P V runs 32 columns of O at a time at every head dim outside I8 (I8's
+//     m64n128k8 is held to the plain version on the card like every instance).
 // Tensor maps are 4-D over [B, S, H, D] f32 in [rows, 32] boxes (128 bytes, the
 // 128-byte swizzle), so TMA zero-fills rows past Sq or Sk of each sample; every sum
 // runs in a fixed order and nothing is atomic, so two calls give identical bits.
@@ -105,15 +125,18 @@ constexpr int BK = 64;        // keys of a k / v tile
 constexpr int THREADS = 384;  // producer warpgroup + two consumer warpgroups
 constexpr float NEG_INF = -1e30f;
 
-template <int HD>
+// I8: the s_int8 mode (int8 q and k tiles, the notes above), at D = 128 only
+template <int HD, bool I8 = false>
 struct Layout {
   static_assert(HD == 128 || HD == 64 || HD == 32, "head dims 32, 64 and 128");
-  static constexpr int STAGES = HD == 128 ? 1 : HD == 64 ? 2 : 4;
-  static constexpr int QT = BQ * HD * 4;                   // the q tile
+  static_assert(!I8 || HD == 128, "the s_int8 mode is at D = 128");
+  static constexpr int STAGES = I8 ? 2 : HD == 128 ? 1 : HD == 64 ? 2 : 4;
+  static constexpr int QT = BQ * (I8 ? 128 : HD * 4);     // the q tile
   static constexpr int KT = BK * HD * 4;                   // one [BK, HD] or [HD, BK] tile
+  static constexpr int KS = I8 ? BK * 128 : 2 * KT;       // a stage's k: int8, or hi and lo
   static constexpr int Q_OFF = 0;
-  static constexpr int K_OFF = Q_OFF + QT;                 // STAGES x (k hi, k lo)
-  static constexpr int V_OFF = K_OFF + STAGES * 2 * KT;    // STAGES x (v^T hi, v^T lo)
+  static constexpr int K_OFF = Q_OFF + QT;                 // STAGES x k
+  static constexpr int V_OFF = K_OFF + STAGES * KS;        // STAGES x (v^T hi, v^T lo)
   static constexpr int RAW_OFF = V_OFF + STAGES * 2 * KT;  // the raw v tile
   static constexpr int SEG_OFF = RAW_OFF + KT;             // STAGES x BK key ids
   // full_k, full_v, empty_k, empty_v, k_raw (STAGES each), then v_raw and q
@@ -136,17 +159,21 @@ __device__ __forceinline__ int vt_col(int key) {
 
 // Block (q tile of 128 rows, h, b), 384 threads (SEG: ids given).  q_map over q [B,
 // Sq, H, HD] in [BQ, 32] boxes, k_map / v_map over k / v [B, Sk, H, HD] in [BK, 32]
-// boxes; out [B, Sq, H, HD] f32, lse [B, H, Sq] f32.
-template <int HD, bool SEG>
+// boxes (I8: q_map / k_map over the int8 qq / kq [B, S, H, 128] in [BQ, 128] / [BK,
+// 128] boxes, and amax [B, H, 1 + ceil(Sq / q_rows)], the prep's k slot and q tile
+// slots, that the factor comes from); out [B, Sq, H, HD] f32, lse [B, H, Sq] f32.
+template <int HD, bool SEG, bool I8>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_f32_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
                      const __grid_constant__ CUtensorMap k_map,
                      const __grid_constant__ CUtensorMap v_map, const int* __restrict__ q_seg,
-                     const int* __restrict__ kv_seg, float* __restrict__ out,
-                     float* __restrict__ lse, int Sq, int Sk, int H, float scale) {
-  using L = Layout<HD>;
+                     const int* __restrict__ kv_seg, const unsigned* __restrict__ amax,
+                     int q_rows, float* __restrict__ out, float* __restrict__ lse, int Sq,
+                     int Sk, int H, float scale) {
+  using L = Layout<HD, I8>;
   constexpr int STAGES = L::STAGES, KT = L::KT;
-  constexpr int PV_N = 32;  // the columns of O a P V chunk covers (the notes above)
+  // the columns of O a P V chunk covers (the notes above; I8: all of them)
+  constexpr int PV_N = I8 ? HD : 32;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = align1024(smem_raw);
   uint64_t* full_k = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
@@ -159,7 +186,7 @@ flash_f32_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   int* segk = reinterpret_cast<int*>(smem + L::SEG_OFF);
   uint8_t* qs = smem + L::Q_OFF;
   uint8_t* vraw = smem + L::RAW_OFF;
-  auto k_hi = [&](int s) { return smem + L::K_OFF + s * 2 * KT; };
+  auto k_hi = [&](int s) { return smem + L::K_OFF + s * L::KS; };
   auto v_hi = [&](int s) { return smem + L::V_OFF + s * 2 * KT; };
 
   const int h = blockIdx.y, b = blockIdx.z, q0 = blockIdx.x * BQ;
@@ -187,7 +214,8 @@ flash_f32_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
     if (tid == 0) {
       mbar_expect_tx(full_q, L::QT);
 #pragma unroll
-      for (int j = 0; j < HD / 32; ++j) tma_load_4d(qs + j * BQ * 128, &q_map, full_q, 32 * j, h, q0, b);
+      for (int j = 0; j < (I8 ? 1 : HD / 32); ++j)
+        tma_load_4d(qs + j * BQ * 128, &q_map, full_q, 32 * j, h, q0, b);
     }
     const int* ksegb = kv_seg ? kv_seg + (size_t)b * Sk : nullptr;
 #pragma unroll 1
@@ -202,9 +230,9 @@ flash_f32_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       // into the staging tile, which the last transposition freed
       if (i >= STAGES) mbar_wait(&empty_k[s], ph);
       if (tid == 0) {
-        mbar_expect_tx(&raw_k[s], KT);
+        mbar_expect_tx(&raw_k[s], I8 ? L::KS : KT);
 #pragma unroll
-        for (int j = 0; j < HD / 32; ++j)
+        for (int j = 0; j < (I8 ? 1 : HD / 32); ++j)
           tma_load_4d(khi + j * BK * 128, &k_map, &raw_k[s], 32 * j, h, k0, b);
         mbar_expect_tx(raw_v, KT);
 #pragma unroll
@@ -215,18 +243,21 @@ flash_f32_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
         const int key = k0 + tid;
         segk[s * BK + tid] = key < Sk ? (ksegb ? ksegb[key] : 1) : 0;
       }
-      // split k in place: hi over the raw tile, lo at the same offsets beside it
+      // split k in place: hi over the raw tile, lo at the same offsets beside it (I8:
+      // the int8 tile as it arrived)
       mbar_wait(&raw_k[s], use);
+      if constexpr (!I8) {
 #pragma unroll 4
-      for (int c = tid; c < KT / 16; c += 128) {
-        float4 x = *reinterpret_cast<const float4*>(khi + 16 * c);
-        uint4 hi, lo;
-        split(x.x, hi.x, lo.x);
-        split(x.y, hi.y, lo.y);
-        split(x.z, hi.z, lo.z);
-        split(x.w, hi.w, lo.w);
-        *reinterpret_cast<uint4*>(khi + 16 * c) = hi;
-        *reinterpret_cast<uint4*>(klo + 16 * c) = lo;
+        for (int c = tid; c < KT / 16; c += 128) {
+          float4 x = *reinterpret_cast<const float4*>(khi + 16 * c);
+          uint4 hi, lo;
+          split(x.x, hi.x, lo.x);
+          split(x.y, hi.y, lo.y);
+          split(x.z, hi.z, lo.z);
+          split(x.w, hi.w, lo.w);
+          *reinterpret_cast<uint4*>(khi + 16 * c) = hi;
+          *reinterpret_cast<uint4*>(klo + 16 * c) = lo;
+        }
       }
       fence_proxy_async();
       named_bar_sync(6, 128);
@@ -269,21 +300,32 @@ flash_f32_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
     segq[i] = row < Sq ? (q_seg ? q_seg[(size_t)b * Sq + row] : 1) : 0;
   }
 
-  // the warpgroup's q rows split once: hi back in place, lo as A fragments
-  uint32_t qlo[HD / 8][4];
-  mbar_wait(full_q, 0);
-#pragma unroll
-  for (int kk = 0; kk < HD / 8; ++kk) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const uint32_t off = f32_offset(BQ, r0 + g + 8 * (e & 1), 8 * kk + t + 4 * (e >> 1));
-      uint32_t hi;
-      split(*reinterpret_cast<const float*>(qs + off), hi, qlo[kk][e]);
-      *reinterpret_cast<uint32_t*>(qs + off) = hi;
-    }
+  // the scores' scale: I8, the int8 factor of the block's q tile and k (their
+  // quantization scales times scale, in that order)
+  float sscale = scale;
+  if constexpr (I8) {
+    const unsigned* am = amax + ((size_t)b * H + h) * (1 + (Sq + q_rows - 1) / q_rows);
+    sscale = __fmul_rn(__fmul_rn(int8_scale(am[1 + q0 / q_rows]), int8_scale(am[0])), scale);
   }
-  fence_proxy_async();
-  warpgroup_sync(c);
+
+  // the warpgroup's q rows split once: hi back in place, lo as A fragments (I8: the
+  // int8 tile as it arrived)
+  uint32_t qlo[I8 ? 1 : HD / 8][4];
+  mbar_wait(full_q, 0);
+  if constexpr (!I8) {
+#pragma unroll
+    for (int kk = 0; kk < HD / 8; ++kk) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t off = f32_offset(BQ, r0 + g + 8 * (e & 1), 8 * kk + t + 4 * (e >> 1));
+        uint32_t hi;
+        split(*reinterpret_cast<const float*>(qs + off), hi, qlo[kk][e]);
+        *reinterpret_cast<uint32_t*>(qs + off) = hi;
+      }
+    }
+    fence_proxy_async();
+    warpgroup_sync(c);
+  }
 
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
   float o[HD / 2];
@@ -292,7 +334,7 @@ flash_f32_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   float sc[BK / 2];  // the scores, then p's hi; sc[4 j + 2 i + e] is row g + 8 i, key 8 j + 2 t + e
   uint32_t plo[BK / 8][4];
   const uint32_t qa = smem_u32(qs);
-  const float sl2 = scale * LOG2E;  // raw scores to log2 units
+  const float sl2 = sscale * LOG2E;  // raw scores to log2 units
 
 #pragma unroll 1
   for (int it = 0; it < ntiles; ++it) {
@@ -301,20 +343,36 @@ flash_f32_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
     const uint32_t kh = smem_u32(k_hi(s)), kl = kh + KT;
     const uint32_t vh = smem_u32(v_hi(s)), vl = vh + KT;
 
-    // S = q_hi k_hi + q_hi k_lo + q_lo k_hi
+    // S = q_hi k_hi + q_hi k_lo + q_lo k_hi (I8: qq kq^T, exact in s32; si is declared
+    // afresh for each tile, so its registers are free once converted)
     mbar_wait(&full_k[s], use);
-    wgmma_fence();
+    if constexpr (I8) {
+      mbar_wait(&raw_k[s], use);  // the int8 tile's TMA, which the producer saw complete
+      uint32_t si[BK / 2];
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < HD / 8; ++kk)
-      wgmma_tf32_m64n64_ss(sc, desc_f32(qa, BQ, 64 * c, kk), desc_f32(kh, BK, 0, kk), kk > 0);
+      for (int kk = 0; kk < HD / 32; ++kk)
+        wgmma_s8<BK>(si, desc_kmajor8(qa, 64 * c, kk), desc_kmajor8(kh, 0, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(si);
 #pragma unroll
-    for (int kk = 0; kk < HD / 8; ++kk)
-      wgmma_tf32_m64n64_ss(sc, desc_f32(qa, BQ, 64 * c, kk), desc_f32(kl, BK, 0, kk), 1);
+      for (int x = 0; x < BK / 2; ++x) sc[x] = s32_to_f32(si[x]);
+    } else {
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < HD / 8; ++kk) wgmma_tf32_m64n64_rs(sc, qlo[kk], desc_f32(kh, BK, 0, kk));
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(sc);
+      for (int kk = 0; kk < HD / 8; ++kk)
+        wgmma_tf32_m64n64_ss(sc, desc_f32(qa, BQ, 64 * c, kk), desc_f32(kh, BK, 0, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < HD / 8; ++kk)
+        wgmma_tf32_m64n64_ss(sc, desc_f32(qa, BQ, 64 * c, kk), desc_f32(kl, BK, 0, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < HD / 8; ++kk)
+        wgmma_tf32_m64n64_rs(sc, qlo[kk], desc_f32(kh, BK, 0, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+    }
 
     // the online softmax: a masked score is exactly NEG_INF and gets p = 0
     const int* sk = segk + s * BK;
@@ -420,31 +478,34 @@ flash_f32_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
           make_float2(o[4 * j + 2 * i] * inv[i], o[4 * j + 2 * i + 1] * inv[i]);
     if (t == 0)
       lse[((size_t)b * H + h) * Sq + row] =
-          m[i] == NEG_INF ? NEG_INF : m[i] * scale + logf(l[i] == 0.f ? 1.f : l[i]);
+          m[i] == NEG_INF ? NEG_INF : m[i] * sscale + logf(l[i] == 0.f ? 1.f : l[i]);
   }
 }
 
 // ---------------------------------------------------------------------------
 // host
 
-template <int HD>
+// I8: q / k are the int8 qq / kq (the prep's, with amax and its q tile rows q_rows)
+template <int HD, bool I8 = false>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* q_seg,
                    const int* kv_seg, float* out, float* lse, int B, int Sq, int Sk, int H,
-                   float scale, cudaStream_t stream) {
+                   float scale, cudaStream_t stream, const unsigned* amax = nullptr,
+                   int q_rows = 0) {
   CUtensorMap q_map, k_map, v_map;
-  if (!encode_heads_f32(&q_map, q, B, Sq, H, BQ, HD) ||
-      !encode_heads_f32(&k_map, k, B, Sk, H, BK, HD) ||
-      !encode_heads_f32(&v_map, v, B, Sk, H, BK, HD))
-    return cudaErrorInvalidValue;
-  constexpr int SMEM = Layout<HD>::SMEM;
+  const bool maps = I8 ? encode_heads8(&q_map, q, B, Sq, H, BQ) &&
+                             encode_heads8(&k_map, k, B, Sk, H, BK)
+                       : encode_heads_f32(&q_map, q, B, Sq, H, BQ, HD) &&
+                             encode_heads_f32(&k_map, k, B, Sk, H, BK, HD);
+  if (!maps || !encode_heads_f32(&v_map, v, B, Sk, H, BK, HD)) return cudaErrorInvalidValue;
+  constexpr int SMEM = Layout<HD, I8>::SMEM;
   static bool attr[2] = {false, false};
-  cudaError_t e = set_smem(attr[0], flash_f32_fwd_kernel<HD, true>, SMEM);
-  if (e == cudaSuccess) e = set_smem(attr[1], flash_f32_fwd_kernel<HD, false>, SMEM);
+  cudaError_t e = set_smem(attr[0], flash_f32_fwd_kernel<HD, true, I8>, SMEM);
+  if (e == cudaSuccess) e = set_smem(attr[1], flash_f32_fwd_kernel<HD, false, I8>, SMEM);
   if (e != cudaSuccess) return e;
   const dim3 grid((Sq + BQ - 1) / BQ, H, B);
-  (q_seg ? flash_f32_fwd_kernel<HD, true> : flash_f32_fwd_kernel<HD, false>)<<<
-      grid, THREADS, SMEM, stream>>>(q_map, k_map, v_map, q_seg, kv_seg, out, lse, Sq, Sk, H,
-                                     scale);
+  (q_seg ? flash_f32_fwd_kernel<HD, true, I8> : flash_f32_fwd_kernel<HD, false, I8>)<<<
+      grid, THREADS, SMEM, stream>>>(q_map, k_map, v_map, q_seg, kv_seg, amax, q_rows, out, lse,
+                                     Sq, Sk, H, scale);
   return cudaGetLastError();
 }
 
@@ -462,7 +523,8 @@ cudaError_t launch_by_dim(int HD, const void* q, const void* k, const void* v, c
 }  // namespace f32fwd
 }  // namespace
 
-// flash_simt.cu's prep (the f32 norm + rope of q and k into qn / kn)
+// flash_simt.cu's prep (the f32 norm + rope of q and k into qn / kn; the s_int8 mode's
+// quantization into qq / kq and amax where q_rows > 0)
 extern "C" int qflux_simt_nr_prep(const void* q, const void* k, const void* q_scale2,
                                   const void* k_scale2, const void* cos, const void* sin,
                                   long long cs_bstride, void* qn, void* kn, void* qq, void* kq,
@@ -501,4 +563,29 @@ extern "C" int qflux_f32_nr_fwd(const void* q, const void* k, const void* v,
   return (int)f32fwd::launch<128>(qn, kn, v, sg, sg, static_cast<float*>(out),
                                   static_cast<float*>(lse), B, S, S, H, scale,
                                   static_cast<cudaStream_t>(stream));
+}
+
+// K1's s_int8 mode in f32 (D = 128) on `stream`: flash_simt.cu's prep (qn, kn: f32 [B, S,
+// H, 128] scratch; qq / kq int8 [B, S, H, 128] scratch, q quantized in tiles of q_rows
+// rows; amax [B, H, 1 + ceil(S / q_rows)] u32 scratch), then this loop over qq / kq / v
+// (I8) with the one [B, S] id array (or null) for q and kv.  q_rows > 0, a multiple of
+// 128 (a block's rows lie in one q tile).  out [B, S, H, 128] f32, lse [B, H, S] f32.
+// Returns a cudaError_t.
+extern "C" int qflux_f32_nr_int8_fwd(const void* q, const void* k, const void* v,
+                                     const void* q_scale2, const void* k_scale2, const void* cos,
+                                     const void* sin, long long cs_bstride, const void* seg,
+                                     void* qn, void* kn, void* qq, void* kq, void* amax,
+                                     int q_rows, void* out, void* lse, int B, int S, int H,
+                                     int st, float scale, void* stream) {
+  if (q_rows <= 0 || q_rows % f32fwd::BQ || !qn || !kn || !qq || !kq || !amax || B <= 0 ||
+      S <= 0 || H <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int e = qflux_simt_nr_prep(q, k, q_scale2, k_scale2, cos, sin, cs_bstride, qn, kn, qq,
+                                   kq, amax, q_rows, B, S, H, st, stream);
+  if (e != 0) return e;
+  const int* sg = static_cast<const int*>(seg);
+  return (int)f32fwd::launch<128, true>(qq, kq, v, sg, sg, static_cast<float*>(out),
+                                        static_cast<float*>(lse), B, S, S, H, scale,
+                                        static_cast<cudaStream_t>(stream),
+                                        static_cast<const unsigned*>(amax), q_rows);
 }

@@ -455,6 +455,26 @@ __device__ __forceinline__ void wgmma_m64n64k32_s8(uint32_t (&d)[32], uint64_t d
       : "memory");
 }
 
+// the same for N = 32 (the f32 backward's int8 scores over 32 streamed rows): the
+// accumulator layout of the 128-column shape over 4 column tiles
+__device__ __forceinline__ void wgmma_m64n32k32_s8(uint32_t (&d)[16], uint64_t da, uint64_t db,
+                                                   int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "l"(da), "l"(db), "r"(acc)
+      : "memory");
+}
+
 // An s32 accumulator element as f32, exactly for |x| < 2^22 (every int8 score
 // of a 128-wide head: |sum| <= 127^2 * 128 < 2^21): the integer added to the
 // bits of 1.5 * 2^23 is that float plus x, and one subtraction takes the bias

@@ -33,9 +33,10 @@ f32 inputs (`train.weight_dtype: float32`) run K1 / K2's f32 mode: a prep
 K3's f32 loop and K2 K4's f32 loops on the tensor cores, every product a
 3xTF32 split (csrc/flash_f32_fwd.cu, `qflux_f32_nr_fwd`;
 csrc/flash_f32_bwd.cu, `qflux_f32_nr_bwd`, which ends with flash_simt.cu's
-rope + norm backward pass); the f32 s_int8 modes stay on the CUDA cores
-(`qflux_simt_nr_fwd`, `qflux_simt_nr_bwd`).  `F32_KERNEL_LAUNCHES` and its
-siblings count them among all launches.
+rope + norm backward pass).  Their s_int8 modes run the same loops with
+int8 `wgmma` scores (the prep also quantizes qn / kn):
+`qflux_f32_nr_int8_fwd`, `qflux_f32_nr_int8_bwd`.  `F32_KERNEL_LAUNCHES`
+and its siblings count them among all launches.
 
 The `s_int8` mode (config `model.quantize.attention`) computes QK^T as an
 int8 x int8 product with one scale per q tile and one per (b, h) for K,
@@ -71,8 +72,7 @@ DTYPES = (torch.bfloat16, torch.float32)  # bf16: the wgmma kernels; f32: the f3
 
 # launches of the CUDA kernels in this process; the custom op and its
 # backward add one per launch, whatever the dtype, and the F32_ counts add
-# the f32 launches among them (csrc/flash_f32_fwd.cu, csrc/flash_f32_bwd.cu,
-# csrc/flash_simt.cu)
+# the f32 launches among them (csrc/flash_f32_fwd.cu, csrc/flash_f32_bwd.cu)
 KERNEL_LAUNCHES = 0                # K1, csrc/flash_nr_fwd.cu
 BWD_KERNEL_LAUNCHES = 0            # K2, csrc/flash_nr_bwd.cu
 INT8_KERNEL_LAUNCHES = 0           # K1 in its s_int8 mode
@@ -477,8 +477,9 @@ def _launch_f32_fwd(kl, stream, q, k, v, qs, ks, cos, sin, cs_bstride, seg, st, 
     (`_simt_fwd_scratch`), out and lse, launches through `kl` on `stream`
     and raises on a CUDA error.  q_rows = 0: `qflux_f32_nr_fwd`
     (csrc/flash_f32_fwd.cu: the prep, then the 3xTF32 tensor-core loop over
-    qn / kn); q_rows > 0, the s_int8 mode: `qflux_simt_nr_fwd`
-    (csrc/flash_simt.cu, __dp4a scores)."""
+    qn / kn); q_rows > 0, the s_int8 mode: `qflux_f32_nr_int8_fwd` (the
+    same file: the prep also quantizes qn / kn, then the loop with int8
+    `wgmma` scores over qq / kq)."""
     b, s, h, _ = q.shape
     qn, kn, qq, kq, amax = _simt_fwd_scratch(q, q_rows)
     out = torch.empty_like(q)
@@ -487,7 +488,7 @@ def _launch_f32_fwd(kl, stream, q, k, v, qs, ks, cos, sin, cs_bstride, seg, st, 
               cos.data_ptr(), sin.data_ptr(), cs_bstride, _ptr(seg), qn.data_ptr(),
               kn.data_ptr())
     if q_rows:
-        code = kl.lib.qflux_simt_nr_fwd(
+        code = kl.lib.qflux_f32_nr_int8_fwd(
             *inputs, qq.data_ptr(), kq.data_ptr(), amax.data_ptr(), int(q_rows),
             out.data_ptr(), lse.data_ptr(), b, s, h, int(st), float(scale), stream)
     else:
@@ -577,9 +578,9 @@ def _launch_bwd(kl, stream, q, k, v, qs, ks, cos, sin, cs_bstride, seg, st, scal
     dqs_p = torch.empty((b, h, n_tiles, 2, d), device=q.device, dtype=torch.float32)
     dks_p = torch.empty_like(dqs_p)
     if q.dtype == torch.float32:
-        # the f32 modes: the loops write f32 dqn / dkn, which the rope + norm
-        # backward pass reads; q_rows = 0 the 3xTF32 loops (csrc/flash_f32_bwd.cu),
-        # the s_int8 mode the CUDA-core ones (csrc/flash_simt.cu)
+        # the f32 modes (csrc/flash_f32_bwd.cu): the loops write f32 dqn / dkn,
+        # which the rope + norm backward pass reads; q_rows = 0 the 3xTF32 loops,
+        # the s_int8 mode the same loops with int8 wgmma scores
         dqn, dkn = torch.empty_like(q), torch.empty_like(k)
         inputs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), qs.data_ptr(), ks.data_ptr(),
                   cos.data_ptr(), sin.data_ptr(), cs_bstride, _ptr(seg), out.data_ptr(),
@@ -588,8 +589,8 @@ def _launch_bwd(kl, stream, q, k, v, qs, ks, cos, sin, cs_bstride, seg, st, scal
         grads = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dqs_p.data_ptr(),
                  dks_p.data_ptr(), b, s, h, int(st), float(scale), stream)
         if q_rows:
-            code = kl.lib.qflux_simt_nr_bwd(*inputs, qq.data_ptr(), kq.data_ptr(),
-                                            amax.data_ptr(), int(q_rows), *grads)
+            code = kl.lib.qflux_f32_nr_int8_bwd(*inputs, qq.data_ptr(), kq.data_ptr(),
+                                                amax.data_ptr(), int(q_rows), *grads)
         else:
             code = kl.lib.qflux_f32_nr_bwd(*inputs, *grads)
         kl.check(code, "flash_nr_bwd f32 launch")

@@ -56,10 +56,10 @@ _SIGNATURES = {
     "qflux_f32_bwd": (_I, [_P] * 12 + [_I] * 5 + [ctypes.c_float, _P]),
     "qflux_f32_nr_bwd": (_I, [_P] * 7 + [ctypes.c_longlong] + [_P] * 14 + [_I] * 4
                          + [ctypes.c_float, _P]),
-    "qflux_simt_nr_fwd": (_I, [_P] * 7 + [ctypes.c_longlong] + [_P] * 6 + [_I] + [_P] * 2
-                          + [_I] * 4 + [ctypes.c_float, _P]),
-    "qflux_simt_nr_bwd": (_I, [_P] * 7 + [ctypes.c_longlong] + [_P] * 12 + [_I] + [_P] * 5
-                          + [_I] * 4 + [ctypes.c_float, _P]),
+    "qflux_f32_nr_int8_fwd": (_I, [_P] * 7 + [ctypes.c_longlong] + [_P] * 6 + [_I]
+                              + [_P] * 2 + [_I] * 4 + [ctypes.c_float, _P]),
+    "qflux_f32_nr_int8_bwd": (_I, [_P] * 7 + [ctypes.c_longlong] + [_P] * 12 + [_I]
+                              + [_P] * 5 + [_I] * 4 + [ctypes.c_float, _P]),
     "qflux_simt_nr_prep": (_I, [_P] * 6 + [ctypes.c_longlong] + [_P] * 5 + [_I] * 5 + [_P]),
     "qflux_rq_int4_fwd": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P]),
     "qflux_rq_int4_bwd": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P]),

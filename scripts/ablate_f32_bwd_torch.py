@@ -2,9 +2,8 @@
 qflux_tpu_torch/csrc/flash_f32_bwd.cu) buy, in accuracy and time, on one card:
 the accumulation of the gradients and the streamed rows a step.  Each build is
 a copy of csrc/ under build/f32_bwd_ablation/<name>/ with text substitutions,
-built by nvcc into a library of its own (flash_f32_bwd.cu and flash_simt.cu,
-whose prep and rope + norm backward the K2 entry calls, with the port's nvcc
-flags and C signatures from qflux_tpu_torch/runtime/build.py):
+built into a library of its own by scripts/ablate_common.py (flash_f32_bwd.cu
+and flash_simt.cu, whose prep and rope + norm backward the K2 entry calls):
 
     python3 scripts/ablate_f32_bwd_torch.py [--variants base,r64] [--head-dims 64]
 
@@ -17,7 +16,7 @@ flags and C signatures from qflux_tpu_torch/runtime/build.py):
   r64_no_grad_lo  r64 without the gradients' hi lo and lo hi products.
 
 Every build's ptxas log is searched for the notes by which ptxas says it
-serialized wgmmas (C7514, C7515, C7520) and for spills, printed per build with
+serialized wgmmas (C7514, C7515, C7518, C7520) and for spills, printed per build with
 the registers of the loop kernels.  At every case each build's dq, dk and dv
 (and each one's two head-dim halves) are held to the plain version
 (`flash_bwd_reference`, relative L2; the f32 gradients' bound is 1e-4,
@@ -35,24 +34,17 @@ JAX.
 
 from __future__ import annotations
 
-import ctypes
+import argparse
 import json
-import re
-import shutil
-import subprocess
 import sys
-from pathlib import Path
 
 import torch
 
-ROOT = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(ROOT))
-from qflux_tpu_torch.ops import flash_nr as fnr  # noqa: E402
-from qflux_tpu_torch.ops.flash_attention import (  # noqa: E402
-    flash_bwd_reference, flash_fwd_reference)
-from qflux_tpu_torch.runtime.build import NVCC_FLAGS, _SIGNATURES  # noqa: E402
+import ablate_common as ab
+from ablate_common import ROOT
+from qflux_tpu_torch.ops import flash_nr as fnr
+from qflux_tpu_torch.ops.flash_attention import flash_bwd_reference, flash_fwd_reference
 
-CSRC = ROOT / "qflux_tpu_torch" / "csrc"
 OUT = ROOT / "build" / "f32_bwd_ablation"
 SRC = "flash_f32_bwd.cu"
 VARIANTS = {
@@ -78,72 +70,8 @@ CASES = ([(1, 4000, 4000, 24, 128, "text_pad", True), (1, 2000, 2000, 48, 64, "h
 K2_S = 2560
 
 
-def _build(name, patches) -> subprocess.Popen:
-    d = OUT / name
-    if d.exists():
-        shutil.rmtree(d)
-    shutil.copytree(CSRC, d)
-    for old, new in patches:
-        text = (d / SRC).read_text()
-        if old not in text:
-            raise SystemExit(f"{name}: the text to substitute is not in {SRC}: {old!r}")
-        (d / SRC).write_text(text.replace(old, new))
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    return subprocess.Popen([nvcc, *NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
-                             str(d / SRC), str(d / "flash_simt.cu")],
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-
-
-def _ptxas_notes(log: str) -> str:
-    """The serialization notes, spills and registers of flash_f32_bwd.cu's kernels."""
-    notes = sorted(set(re.findall(r"C75\d\d[^\n]*", log)))
-    lines, fn = [], None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:
-            fn = m.group(1)
-        if fn and "flash_f32_bwd_kernel" in fn and re.search(r"registers|spill", line):
-            lines.append(f"{fn[-40:]}: {line.split(':', 1)[-1].strip()}")
-    return "; ".join(notes) + (" | " if notes else "") + " | ".join(lines)
-
-
-def _ms(call, reps=5) -> float:
-    if call() != 0:
-        raise SystemExit("a launch returned a CUDA error")
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(5):
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(reps):
-            call()
-        e1.record()
-        torch.cuda.synchronize()
-        times.append(e0.elapsed_time(e1) / reps)
-    return sorted(times)[2]
-
-
-def _rel(a, b) -> float:
-    a, b = a.double(), b.double()
-    return ((a - b).norm() / b.norm()).item()
-
-
-def _inputs(gen, b, sq, sk, h, d, ids):
-    q = torch.randn(b, sq, h, d, device="cuda", generator=gen)
-    k, v = (torch.randn(b, sk, h, d, device="cuda", generator=gen) for _ in range(2))
-    q_seg = kv_seg = None
-    if ids:
-        q_seg = torch.ones(b, sq, dtype=torch.int32, device="cuda")
-        q_seg[:, 486:512] = 0  # path B's 26 padding rows at the end of 512 text rows
-        kv_seg = q_seg
-        if ids == "hop":
-            kv_seg = torch.ones(b, sk, dtype=torch.int32, device="cuda")
-            kv_seg[:, sk - 400:] = 2
-    return q, k, v, q_seg, kv_seg
-
-
 def _k4_case(libs, order, gen, stream, card, b, sq, sk, h, d, ids, timed) -> dict:
-    q, k, v, q_seg, kv_seg = _inputs(gen, b, sq, sk, h, d, ids)
+    q, k, v, q_seg, kv_seg = ab.flash_inputs(gen, b, sq, sk, h, d, ids)
     qp = None if q_seg is None else q_seg.data_ptr()
     kp = None if kv_seg is None else kv_seg.data_ptr()
     scale = d ** -0.5
@@ -167,13 +95,13 @@ def _k4_case(libs, order, gen, stream, card, b, sq, sk, h, d, ids, timed) -> dic
         torch.cuda.synchronize()
         got = [t.clone() for t in (dq, dk, dv)]
         # by gradient, then by halves of the head dim
-        errs[name] = [_rel(g, r) for g, r in zip(got, ref)] + [
-            _rel(g[..., hf * d // 2:(hf + 1) * d // 2], r[..., hf * d // 2:(hf + 1) * d // 2])
+        errs[name] = [ab.rel(g, r) for g, r in zip(got, ref)] + [
+            ab.rel(g[..., hf * d // 2:(hf + 1) * d // 2], r[..., hf * d // 2:(hf + 1) * d // 2])
             for g, r in zip(got, ref) for hf in (0, 1)]
         bwd(libs[name])()
         torch.cuda.synchronize()
         same[name] = all(torch.equal(g, t) for g, t in zip(got, (dq, dk, dv)))
-    times = [(n, _ms(bwd(libs[n]))) for n in order] if timed else []
+    times = [(n, ab.ms(bwd(libs[n]))) for n in order] if timed else []
     label = f"B={b} Sq={sq} Sk={sk} H={h} D={d} ids={ids or 'none'}"
     print(f"[ablate] K4 f32 {label}: rel L2 dq / dk / dv " + ", ".join(
         f"{n} {e[0]:.2e} / {e[1]:.2e} / {e[2]:.2e} (halves " + " ".join(f"{x:.1e}" for x in e[3:])
@@ -218,8 +146,8 @@ def _k2_case(libs, order, gen, stream, card, s) -> dict:
             raise SystemExit(f"{name}: a K2 launch returned a CUDA error")
         torch.cuda.synchronize()
         got = (dq, dk, dv, dqs.sum(dim=(0, 1, 2)), dks.sum(dim=(0, 1, 2)))
-        errs[name] = [_rel(g, r) for g, r in zip(got, ref)]
-    times = [(n, _ms(bwd(libs[n]))) for n in order]
+        errs[name] = [ab.rel(g, r) for g, r in zip(got, ref)]
+    times = [(n, ab.ms(bwd(libs[n]))) for n in order]
     print(f"[ablate] K2 f32 B=1 S={s} H=24 D=128 st=512: rel L2 dq / dk / dv / dqs / dks "
           + ", ".join(f"{n} " + " / ".join(f"{x:.2e}" for x in e) for n, e in errs.items())
           + "; K2 " + ", ".join(f"{n} {t:.4f}" for n, t in times) + " ms (prep and rope + "
@@ -232,11 +160,8 @@ def main() -> int:
         print("ablate_f32_bwd_torch.py needs a CUDA card", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True).stdout.strip().splitlines()[0]
+    card = ab.card()
     print(card, flush=True)
-    import argparse
-
     ap = argparse.ArgumentParser()
     ap.add_argument("--variants", default="base,accumulate,r32,r64",
                     help=f"comma-separated builds among {', '.join(VARIANTS)} (base first)")
@@ -244,18 +169,12 @@ def main() -> int:
     opts = ap.parse_args()
     names = opts.variants.split(",")
     dims = {int(x) for x in opts.head_dims.split(",")}
-    procs = {name: _build(name, VARIANTS[name]) for name in names}
+    built = ab.build(OUT, {n: [(SRC, old, new) for old, new in VARIANTS[n]] for n in names},
+                     (SRC, "flash_simt.cu"), ENTRIES)
     libs = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            print(f"{name}: nvcc failed\n{log[-6000:]}", file=sys.stderr)
-            return 1
-        print(f"[ablate] {name} ptxas: {_ptxas_notes(log)}", flush=True)
-        lib = ctypes.CDLL(str(OUT / name / "lib.so"))
-        for entry in ENTRIES:
-            fn = getattr(lib, entry)
-            fn.restype, fn.argtypes = _SIGNATURES[entry]
+    for name, (lib, log) in built.items():
+        print(f"[ablate] {name} ptxas: {ab.ptxas_notes(log, 'flash_f32_bwd_kernel')}",
+              flush=True)
         libs[name] = lib
     stream = torch.cuda.current_stream().cuda_stream
     gen = torch.Generator("cuda").manual_seed(0)

@@ -1,10 +1,9 @@
 """What two choices of the f32 K3 (the 3xTF32 loop of
 qflux_tpu_torch/csrc/flash_f32_fwd.cu) buy, in accuracy and time, on one card.
 Each ablation is a copy of csrc/ under build/f32_ablation/<name>/ with text
-substitutions, built by nvcc into a library of its own (flash_f32_fwd.cu and
-flash_simt.cu, whose prep the K1 entry calls, with the port's nvcc flags and
-C signatures from qflux_tpu_torch/runtime/build.py), and run beside the
-unchanged copy ("base"):
+substitutions, built into a library of its own by scripts/ablate_common.py
+(flash_f32_fwd.cu and flash_simt.cu, whose prep the K1 entry calls), and run
+beside the unchanged copy ("base"):
 
     python3 scripts/ablate_f32_flash_torch.py
 
@@ -26,21 +25,15 @@ fails.  Imports no JAX.
 
 from __future__ import annotations
 
-import ctypes
 import json
-import shutil
-import subprocess
 import sys
-from pathlib import Path
 
 import torch
 
-ROOT = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(ROOT))
-from qflux_tpu_torch.ops.flash_attention import flash_fwd_reference  # noqa: E402
-from qflux_tpu_torch.runtime.build import NVCC_FLAGS, _SIGNATURES  # noqa: E402
+import ablate_common as ab
+from ablate_common import ROOT
+from qflux_tpu_torch.ops.flash_attention import flash_fwd_reference
 
-CSRC = ROOT / "qflux_tpu_torch" / "csrc"
 OUT = ROOT / "build" / "f32_ablation"
 SRC = "flash_f32_fwd.cu"
 VARIANTS = {
@@ -55,7 +48,8 @@ VARIANTS = {
         ("    mbar_wait(&full_v[s], use);\n",
          "#pragma unroll\n    for (int x = 0; x < HD / 2; ++x) o[x] *= alpha[(x >> 1) & 1];\n"
          "    mbar_wait(&full_v[s], use);\n")],
-    "pv_n64": [("constexpr int PV_N = 32;", "constexpr int PV_N = HD == 32 ? 32 : 64;")],
+    "pv_n64": [("constexpr int PV_N = I8 ? HD : 32;",
+                "constexpr int PV_N = I8 ? HD : HD == 32 ? 32 : 64;")],
 }
 # B, Sq, Sk, H, D, ids, timed: the smoke's f32 K3 cases, then long key ranges
 CASES = [(1, 4000, 4000, 24, 128, "text_pad", True), (1, 2000, 2000, 48, 64, "hop", True),
@@ -63,81 +57,26 @@ CASES = [(1, 4000, 4000, 24, 128, "text_pad", True), (1, 2000, 2000, 48, 64, "ho
                                               for d in (128, 64, 32)]
 
 
-def _build(name, patches) -> subprocess.Popen:
-    d = OUT / name
-    if d.exists():
-        shutil.rmtree(d)
-    shutil.copytree(CSRC, d)
-    for old, new in patches:
-        text = (d / SRC).read_text()
-        if old not in text:
-            raise SystemExit(f"{name}: the text to substitute is not in {SRC}: {old!r}")
-        (d / SRC).write_text(text.replace(old, new))
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    return subprocess.Popen([nvcc, *NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
-                             str(d / SRC), str(d / "flash_simt.cu")],
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-
-
-def _ms(call, reps=10) -> float:
-    if call() != 0:
-        raise SystemExit("a launch returned a CUDA error")
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(5):
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(reps):
-            call()
-        e1.record()
-        torch.cuda.synchronize()
-        times.append(e0.elapsed_time(e1) / reps)
-    return sorted(times)[2]
-
-
-def _rel(a, b) -> float:
-    a, b = a.double(), b.double()
-    return ((a - b).norm() / b.norm()).item()
-
-
-def _inputs(gen, b, sq, sk, h, d, ids):
-    q = torch.randn(b, sq, h, d, device="cuda", generator=gen)
-    k, v = (torch.randn(b, sk, h, d, device="cuda", generator=gen) for _ in range(2))
-    q_seg = kv_seg = None
-    if ids:
-        q_seg = torch.ones(b, sq, dtype=torch.int32, device="cuda")
-        q_seg[:, 486:512] = 0  # path B's 26 padding rows at the end of 512 text rows
-        kv_seg = q_seg
-        if ids == "hop":
-            kv_seg = torch.ones(b, sk, dtype=torch.int32, device="cuda")
-            kv_seg[:, sk - 400:] = 2
-    return q, k, v, q_seg, kv_seg
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("ablate_f32_flash_torch.py needs a CUDA card", file=sys.stderr)
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True).stdout.strip().splitlines()[0]
+    card = ab.card()
     print(card, flush=True)
-    procs = {name: _build(name, patches) for name, patches in VARIANTS.items()}
+    built = ab.build(OUT, {n: [(SRC, old, new) for old, new in patches]
+                           for n, patches in VARIANTS.items()},
+                     (SRC, "flash_simt.cu"), ("qflux_f32_fwd",))
     libs = {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            print(f"{name}: nvcc failed\n{log[-3000:]}", file=sys.stderr)
-            return 1
-        lib = ctypes.CDLL(str(OUT / name / "lib.so"))
-        lib.qflux_f32_fwd.restype, lib.qflux_f32_fwd.argtypes = _SIGNATURES["qflux_f32_fwd"]
+    for name, (lib, log) in built.items():
+        print(f"[ablate] {name} ptxas: {ab.ptxas_notes(log)}", flush=True)
         libs[name] = lib
     stream = torch.cuda.current_stream().cuda_stream
     gen = torch.Generator("cuda").manual_seed(0)
     res = {"card": card, "cases": []}
     order = ["base", *[n for n in VARIANTS if n != "base"], "base"]
     for b, sq, sk, h, d, ids, timed in CASES:
-        q, k, v, q_seg, kv_seg = _inputs(gen, b, sq, sk, h, d, ids)
+        q, k, v, q_seg, kv_seg = ab.flash_inputs(gen, b, sq, sk, h, d, ids)
         qp = None if q_seg is None else q_seg.data_ptr()
         kp = None if kv_seg is None else kv_seg.data_ptr()
         scale = d ** -0.5
@@ -156,8 +95,8 @@ def main() -> int:
             if fwd(libs[name])() != 0:
                 raise SystemExit(f"{name}: a launch returned a CUDA error")
             torch.cuda.synchronize()
-            errs[name] = [_rel(out, ref), _rel(lse[live], ref_lse[live])]
-        times = [(n, _ms(fwd(libs[n]))) for n in order] if timed else []
+            errs[name] = [ab.rel(out, ref), ab.rel(lse[live], ref_lse[live])]
+        times = [(n, ab.ms(fwd(libs[n]), 10)) for n in order] if timed else []
         label = f"B={b} Sq={sq} Sk={sk} H={h} D={d} ids={ids or 'none'}"
         print(f"[ablate] {label}: rel L2 out / lse " + ", ".join(
             f"{n} {e[0]:.2e} / {e[1]:.2e}" for n, e in errs.items())

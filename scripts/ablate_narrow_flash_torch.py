@@ -1,10 +1,9 @@
 """Where the narrow K3 / K4 (bf16 at head dims 32 / 64, the wgmma loops of
 qflux_tpu_torch/csrc/flash_fwd_hopper.cuh and flash_bwd_hopper.cuh) spend
 their time on one card.  Each ablation is a copy of csrc/ under
-build/narrow_ablation/<name>/ with one text substitution, built by nvcc into
-a library of its own (flash_fwd.cu and flash_bwd.cu only, with the port's
-nvcc flags and C signatures from qflux_tpu_torch/runtime/build.py), and timed at the
-narrow shapes beside the unchanged copy ("base"):
+build/narrow_ablation/<name>/ with one text substitution, built into a
+library of its own by scripts/ablate_common.py (flash_fwd.cu and flash_bwd.cu
+only), and timed at the narrow shapes beside the unchanged copy ("base"):
 
     python3 scripts/ablate_narrow_flash_torch.py
 
@@ -18,7 +17,8 @@ narrow shapes beside the unchanged copy ("base"):
 
 Each leaves the outputs as they were; only the times are compared.
 Every build's ptxas log is searched for the notes by which ptxas says it
-serialized wgmmas (C7514, C7515, C7520), printed per build.  Times of K3 and
+serialized wgmmas (C7514, C7515, C7518, C7520) and for spills, printed per
+build.  Times of K3 and
 K4 are CUDA-event medians of 5 windows of back-to-back calls into
 preallocated outputs (10 calls forward, 5 backward), in turns base,
 variants, base.  The base's K4 is also split by kernel (delta, dk / dv, dq)
@@ -29,20 +29,14 @@ Exits non-zero without a card or when a build fails.  Imports no JAX.
 
 from __future__ import annotations
 
-import ctypes
 import json
-import shutil
-import subprocess
 import sys
-from pathlib import Path
 
 import torch
 
-ROOT = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(ROOT))
-from qflux_tpu_torch.runtime.build import NVCC_FLAGS, _SIGNATURES  # noqa: E402
+import ablate_common as ab
+from ablate_common import ROOT
 
-CSRC = ROOT / "qflux_tpu_torch" / "csrc"
 OUT = ROOT / "build" / "narrow_ablation"
 FWD = "flash_fwd_hopper.cuh"
 BWD = "flash_bwd_hopper.cuh"
@@ -62,82 +56,27 @@ VARIANTS = {
 # hop), the table's shape unmasked, and D = 128 for reference
 CASES = [(1, 4000, 48, 64, "text_pad"), (1, 4000, 48, 64, None), (1, 2000, 8, 32, "hop"),
          (1, 4000, 24, 128, "text_pad")]
-NOTES = ("C7514", "C7515", "C7520")
-
-
-def _build(name, patches) -> subprocess.Popen:
-    d = OUT / name
-    if d.exists():
-        shutil.rmtree(d)
-    shutil.copytree(CSRC, d)
-    for f, old, new in patches:
-        text = (d / f).read_text()
-        if old not in text:
-            raise SystemExit(f"{name}: the text to substitute is not in {f}: {old!r}")
-        (d / f).write_text(text.replace(old, new))
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    return subprocess.Popen([nvcc, *NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
-                             str(d / "flash_fwd.cu"), str(d / "flash_bwd.cu")],
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-
-
-def _load(name):
-    lib = ctypes.CDLL(str(OUT / name / "lib.so"))
-    for entry in ("qflux_flash_fwd", "qflux_flash_bwd"):
-        fn = getattr(lib, entry)
-        fn.restype, fn.argtypes = _SIGNATURES[entry]
-    return lib
-
-
-def _ms(call, reps) -> float:
-    if call() != 0:
-        raise SystemExit("a launch returned a CUDA error")
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(5):
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(reps):
-            call()
-        e1.record()
-        torch.cuda.synchronize()
-        times.append(e0.elapsed_time(e1) / reps)
-    return sorted(times)[2]
 
 
 def _inputs(gen, b, s, h, d, ids):
-    q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen).bfloat16()
-                   for _ in range(4))
-    q_seg = kv_seg = None
-    if ids:
-        q_seg = torch.ones(b, s, dtype=torch.int32, device="cuda")
-        q_seg[:, 486:512] = 0  # path B's 26 padding rows at the end of 512 text rows
-        kv_seg = q_seg
-        if ids == "hop":
-            kv_seg = torch.ones(b, s, dtype=torch.int32, device="cuda")
-            kv_seg[:, s - 400:] = 2
-    return q, k, v, do, q_seg, kv_seg
+    q, k, v, q_seg, kv_seg = ab.flash_inputs(gen, b, s, s, h, d, ids)
+    do = torch.randn(q.shape, device="cuda", generator=gen)
+    return (*(t.bfloat16() for t in (q, k, v, do)), q_seg, kv_seg)
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("ablate_narrow_flash_torch.py needs a CUDA card", file=sys.stderr)
         return 1
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True).stdout.strip().splitlines()[0]
+    card = ab.card()
     print(card, flush=True)
-    procs = {name: _build(name, patches) for name, patches in VARIANTS.items()}
+    built = ab.build(OUT, VARIANTS, ("flash_fwd.cu", "flash_bwd.cu"),
+                     ("qflux_flash_fwd", "qflux_flash_bwd"))
     libs, notes = {}, {}
-    for name, proc in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode:
-            print(f"{name}: nvcc failed\n{log[-3000:]}", file=sys.stderr)
-            return 1
-        notes[name] = sorted({ln.split("(")[1].split(")")[0] + " " + ln.split("_kernel")[0][-10:]
-                              + ln.split("_kernel")[1][:10] for ln in log.splitlines()
-                              if any(n in ln for n in NOTES)})
-        print(f"[ablate] {name}: ptxas serialization notes {notes[name] or 'none'}", flush=True)
-        libs[name] = _load(name)
+    for name, (lib, log) in built.items():
+        notes[name] = ab.ptxas_notes(log)
+        print(f"[ablate] {name}: ptxas {notes[name]}", flush=True)
+        libs[name] = lib
     stream = torch.cuda.current_stream().cuda_stream
     gen = torch.Generator("cuda").manual_seed(0)
     res = {"card": card, "notes": notes, "cases": []}
@@ -165,8 +104,8 @@ def main() -> int:
                 do.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b,
                 s, s, h, d, scale, stream)
 
-        k3 = [(n, _ms(fwd(libs[n]), 10)) for n in order]
-        k4 = [(n, _ms(bwd(libs[n]), 5)) for n in order]
+        k3 = [(n, ab.ms(fwd(libs[n]), 10)) for n in order]
+        k4 = [(n, ab.ms(bwd(libs[n]), 5)) for n in order]
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             for _ in range(3):
                 bwd(base)()

@@ -16,8 +16,9 @@ alike, with the head dim as an argument.  K4 takes an f32 delta scratch
 [B, H, Sq].  In f32, K3 and K1 take the 3xTF32 tensor-core loop of
 csrc/flash_f32_fwd.cu and K4 and K2 that of csrc/flash_f32_bwd.cu (16-byte
 aligned, the backward's out and do too), the s_int8 modes of K1 / K2 the
-CUDA-core kernels of csrc/flash_simt.cu; torch emulations of the split
-(below) show why three TF32 products and not one.  A head dim below 128
+same loops with int8 scores (qflux_f32_nr_int8_fwd / _bwd); torch
+emulations of the split (below) show why three TF32 products and not one,
+and that the int8-score loops' order meets the f32 tolerances.  A head dim below 128
 that no kernel takes runs zero-padded to the next one they take.
 """
 
@@ -646,6 +647,25 @@ def _split(x):
     return hi, _tf32(x - hi)
 
 
+def _mm3(a, b, split=True):
+    """a @ b as the f32 loops run it: hi_a hi_b + hi_a lo_b + lo_a hi_b of
+    TF32 pieces (each product exact in f32, the sums f32), or one TF32
+    product (split=False)."""
+    if not split:
+        return _tf32(a) @ _tf32(b)
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    return ah @ bh + ah @ bl + al @ bh
+
+
+def _stepped(a, b, step, split=True):
+    """a [.., M, K] @ b [.., K, N], the K rows streamed `step` at a time:
+    each step's `_mm3` into a fresh f32 partial added to the sum in order."""
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    for k0 in range(0, a.shape[-1], step):
+        acc = acc + _mm3(a[..., k0:k0 + step].contiguous(), b[..., k0:k0 + step, :], split)
+    return acc
+
+
 def _emulated_fwd(q, k, v, scale, split=True):
     """csrc/flash_f32_fwd.cu's arithmetic in torch on [B, S, H, D] f32, the
     unmasked case: every product of S = q k^T and of P V as hi_a hi_b +
@@ -654,18 +674,11 @@ def _emulated_fwd(q, k, v, scale, split=True):
     the end; split=False takes one TF32 product instead (TF32 operands).
     Returns (out, lse [B, H, Sq])."""
     qf, kf, vf = (t.permute(0, 2, 1, 3) for t in (q, k, v))  # [B, H, S, D]
-
-    def mm(a, b):
-        if not split:
-            return _tf32(a) @ _tf32(b)
-        (ah, al), (bh, bl) = _split(a), _split(b)
-        return ah @ bh + ah @ bl + al @ bh
-
-    s = mm(qf, kf.transpose(-1, -2))
+    s = _mm3(qf, kf.transpose(-1, -2), split)
     m = s.amax(-1, keepdim=True)
     p = torch.exp((s - m) * scale)
     l = p.sum(-1, keepdim=True)
-    out = (mm(p, vf) / l).permute(0, 2, 1, 3)
+    out = (_mm3(p, vf, split) / l).permute(0, 2, 1, 3)
     return out, (m * scale + l.log()).squeeze(-1)
 
 
@@ -708,24 +721,12 @@ def _emulated_bwd(q, k, v, out, lse, do, scale, split=True, step=32):
     rows a step at D = 128, 64 at 32 / 64).  split=False takes one TF32
     product each.  Returns (dq, dk, dv)."""
     qf, kf, vf, dof, of = (t.permute(0, 2, 1, 3) for t in (q, k, v, do, out))
-
-    def mm(a, b):
-        if not split:
-            return _tf32(a) @ _tf32(b)
-        (ah, al), (bh, bl) = _split(a), _split(b)
-        return ah @ bh + ah @ bl + al @ bh
-
-    def stepped(a, b):  # a [.., M, K] b [.., K, N], the K rows streamed `step` at a time
-        acc = torch.zeros(a.shape[:-1] + b.shape[-1:])
-        for k0 in range(0, a.shape[-1], step):
-            acc = acc + mm(a[..., k0:k0 + step].contiguous(), b[..., k0:k0 + step, :])
-        return acc
-
-    p = torch.exp(mm(qf, kf.transpose(-1, -2)) * scale - lse[..., None])
+    p = torch.exp(_mm3(qf, kf.transpose(-1, -2), split) * scale - lse[..., None])
     delta = (dof * of).sum(-1, keepdim=True)
-    ds = p * (mm(dof, vf.transpose(-1, -2)) - delta) * scale
+    ds = p * (_mm3(dof, vf.transpose(-1, -2), split) - delta) * scale
     pt, dst = p.transpose(-1, -2).contiguous(), ds.transpose(-1, -2).contiguous()
-    grads = stepped(ds, kf), stepped(dst, qf), stepped(pt, dof)
+    grads = _stepped(ds, kf, step, split), _stepped(dst, qf, step, split), _stepped(pt, dof, step,
+                                                                                   split)
     return tuple(g.permute(0, 2, 1, 3) for g in grads)
 
 
@@ -753,6 +754,126 @@ def test_tf32_split_backward_arithmetic_meets_the_f32_tolerance(d):
     assert max(rel(g, r) for g, r in zip(got, ref)) <= 1e-4
     one = _emulated_bwd(q, k, v, out, lse, do, scale, split=False, step=step)
     assert min(rel(g, r) for g, r in zip(one, ref)) > 1e-4
+
+
+def _int8_nr_inputs(s, seed):
+    """f32 q / k / v [1, S, 1, 128], scale pairs and [S, 128] rope tables."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, s, 1, D)).astype(np.float32))
+               for _ in range(3))
+    qs2, ks2 = (torch.from_numpy((1 + 0.1 * rng.standard_normal((2, D))).astype(np.float32))
+                for _ in range(2))
+    ang = rng.uniform(0, 6.28, (s, D // 2)).astype(np.float32)
+    cos, sin = (torch.from_numpy(np.concatenate([f(ang)] * 2, -1)) for f in (np.cos, np.sin))
+    return q, k, v, qs2, ks2, cos, sin
+
+
+def _int8_score_exp2(q, k, qs2, ks2, cos, sin, st, rows, scale, shift):
+    """p of the f32 s_int8 loops: the exact integer scores of the prep's
+    int8 operands (q in `rows`-row tiles), the factor (q tile scale * k
+    scale) * scale as f32 products in that order, times log2 e, and 2^(acc
+    * that + shift) with the sum rounded once (the kernels' fmaf; float64
+    exp2 stands in for ex2.approx).  shift(acc, fl2) gives the [B, H, S, 1]
+    offset in log2 units.  Returns (p, the factor) [B, H, S, S], [B, H, S, 1]."""
+    qn = tnr.apply_qk_norm_rope(q, qs2, cos, sin, st)
+    kn = tnr.apply_qk_norm_rope(k, ks2, cos, sin, st)
+    qq, q_sc = tnr.quant_rows(qn, rows)
+    kq, k_sc = tnr.quant_rows(kn, k.shape[1])
+    acc = torch.einsum("bqhd,bkhd->bhqk", qq.double(), kq.double()).float()
+    fac = ((q_sc.permute(0, 2, 1) * k_sc[:, 0][:, :, None]) * scale)[..., None]
+    fl2 = fac * 1.4426950408889634
+    arg = (acc.double() * fl2.double() + shift(acc, fl2).double()).float()
+    return torch.exp2(arg.double()).float(), fac
+
+
+def _emulated_int8_fwd(q, k, v, qs2, ks2, cos, sin, st, rows, scale, split=True):
+    """csrc/flash_f32_fwd.cu's s_int8 loop (I8) in torch, unmasked: the
+    exact int8 scores and factor of `_int8_score_exp2` (the softmax in
+    log2 units against the row max m), P V 3xTF32 into a fresh accumulator
+    each 64-key tile added in order, the sum divided by l, lse = m factor +
+    log l.  Returns (out [B, S, H, D], lse [B, H, S])."""
+    m = {}
+
+    def shift(acc, fl2):
+        m["raw"] = acc.amax(-1, keepdim=True)
+        return -(m["raw"] * fl2)
+
+    p, fac = _int8_score_exp2(q, k, qs2, ks2, cos, sin, st, rows, scale, shift)
+    l = p.sum(-1, keepdim=True)
+    o = _stepped(p, v.permute(0, 2, 1, 3), 64, split)
+    return (o / l).permute(0, 2, 1, 3), (m["raw"] * fac + l.log()).squeeze(-1)
+
+
+def _emulated_int8_bwd(q, k, v, qs2, ks2, cos, sin, st, do, out, lse, rows, scale, split=True):
+    """csrc/flash_f32_bwd.cu's s_int8 loops (I8) in torch, unmasked: p from
+    the exact int8 scores of the backward's `rows`-row q tiles against the
+    forward's lse (`_int8_score_exp2`); dp = do v^T as the two warpgroups'
+    halves of the head dims, each 3xTF32, added; ds = p (dp - delta)
+    scale; dqn = ds kn, dkn = ds^T qn and dv = p^T do 3xTF32 over 32-row
+    steps, each into a fresh accumulator; then the plain rope + norm
+    backward.  Returns (dq, dk, dv, dq_scale2, dk_scale2)."""
+    p, _ = _int8_score_exp2(q, k, qs2, ks2, cos, sin, st, rows, scale,
+                            lambda acc, fl2: -(lse[..., None] * 1.4426950408889634))
+    qn = tnr.apply_qk_norm_rope(q, qs2, cos, sin, st)
+    kn = tnr.apply_qk_norm_rope(k, ks2, cos, sin, st)
+    qf, kf, vf, dof, of = (t.permute(0, 2, 1, 3) for t in (qn, kn, v, do, out))
+    delta = (dof * of).sum(-1, keepdim=True)
+    h = D // 2
+    dp = (_mm3(dof[..., :h], vf[..., :h].transpose(-1, -2), split)
+          + _mm3(dof[..., h:], vf[..., h:].transpose(-1, -2), split))
+    ds = p * (dp - delta) * scale
+    pt, dst = p.transpose(-1, -2).contiguous(), ds.transpose(-1, -2).contiguous()
+    dqn, dkn, dv = (_stepped(a, b, 32, split).permute(0, 2, 1, 3)
+                    for a, b in ((ds, kf), (dst, qf), (pt, dof)))
+    dq, dqs = tnr._rope_norm_bwd(dqn, q, qs2, cos, sin, st)
+    dk, dks = tnr._rope_norm_bwd(dkn, k, ks2, cos, sin, st)
+    return dq, dk, dv, dqs, dks
+
+
+def _rel(a, b):
+    return ((a.double() - b.double()).norm() / b.double().norm()).item()
+
+
+def test_int8_score_forward_arithmetic_meets_the_f32_tolerance():
+    """Why K1's f32 s_int8 loop (csrc/flash_f32_fwd.cu, I8) may take its
+    order: in a torch emulation (`_emulated_int8_fwd`: exact int32 scores
+    times the factor inside the log2-unit exponent, P V 3xTF32 into a fresh
+    accumulator each 64-key tile; it lives here and on no path) at S =
+    2304 with the forward's 256-row q tiles, out and lse are within the
+    f32 modes' 2e-5 relative L2 of `flash_attention_nr_int8_reference`,
+    while P V as one TF32 product misses it."""
+    s, st, scale = 2304, 512, D ** -0.5
+    args = _int8_nr_inputs(s, 31)
+    fwd_rows, _ = tnr.s_int8_tiles(s, D)
+    assert fwd_rows == 256
+    ref, ref_lse = tnr.flash_attention_nr_int8_reference(*args, st, fwd_rows, scale=scale)
+    out, lse = _emulated_int8_fwd(*args, st, fwd_rows, scale)
+    assert _rel(out, ref) <= 2e-5 and _rel(lse, ref_lse) <= 2e-5
+    out1, _ = _emulated_int8_fwd(*args, st, fwd_rows, scale, split=False)
+    assert _rel(out1, ref) > 2e-5
+
+
+def test_int8_score_backward_arithmetic_meets_the_f32_tolerance():
+    """Why K2's f32 s_int8 loops (csrc/flash_f32_bwd.cu, I8) may take their
+    order: in a torch emulation (`_emulated_int8_bwd`: the backward's
+    128-row q tiles against the forward's lse, dp as two added halves of
+    the head dims, every other product 3xTF32 with a fresh accumulator a
+    32-row step; it lives here and on no path) at S = 2304, dq, dk, dv and
+    both scale-pair gradients are within the f32 gradients' 1e-4 relative
+    L2 of `flash_attention_nr_int8_bwd_reference`, while one TF32 product
+    each misses it on dq, dk and dv."""
+    s, st, scale = 2304, 512, D ** -0.5
+    args = _int8_nr_inputs(s, 37)
+    fwd_rows, bwd_rows = tnr.s_int8_tiles(s, D)
+    assert (fwd_rows, bwd_rows) == (256, 128)
+    out, lse = tnr.flash_attention_nr_int8_reference(*args, st, fwd_rows, scale=scale)
+    do = torch.from_numpy(np.random.default_rng(38).standard_normal(out.shape).astype(np.float32))
+    want = tnr.flash_attention_nr_int8_bwd_reference(*args, st, do, out, lse, bwd_rows,
+                                                     scale=scale)
+    got = _emulated_int8_bwd(*args, st, do, out, lse, bwd_rows, scale)
+    assert max(_rel(g, w) for g, w in zip(got, want)) <= 1e-4
+    one = _emulated_int8_bwd(*args, st, do, out, lse, bwd_rows, scale, split=False)
+    assert min(_rel(g, w) for g, w in zip(one[:3], want[:3])) > 1e-4
 
 
 @pytest.mark.parametrize("d", [32, 64, 128])
@@ -878,22 +999,32 @@ def test_modes_take_their_entries(d):
 
 
 def test_simt_entries_take_f32_only():
-    """csrc/flash_simt.cu holds the f32 s_int8 modes alone: no bf16
-    instance (bf16 at D = 32 / 64 runs on the wgmma kernels), no K3 forward
-    and no K4 backward any more (f32 K3 / K1 and K4 / K2 run the 3xTF32
-    loops of csrc/flash_f32_fwd.cu / flash_f32_bwd.cu), no non-int8 loop
-    instance, and both its K1 and its K2 entry refuse q_rows = 0 (the plain
-    f32 modes).  (The card test `test_simt_entries_refuse_bf16_on_card`
-    runs the refusals.)"""
+    """csrc/flash_simt.cu holds the f32 modes' prep and rope + norm backward
+    alone: no bf16 instance, no attention loop (K3 / K1 and K4 / K2 in f32,
+    their s_int8 modes included, run the tensor-core loops of
+    csrc/flash_f32_fwd.cu / flash_f32_bwd.cu), and no entry but those two.
+    The s_int8 modes' entries there refuse q_rows <= 0 (the plain f32
+    modes).  (The card test
+    `test_f32_s_int8_entries_refuse_untaken_q_tiles_on_card` runs the
+    refusals.)"""
+    import re
+
     src = (build.CSRC / "flash_simt.cu").read_text()
     assert "Elem<bf16>" not in src and "<bf16>" not in src
     for gone in ("qflux_simt_bwd", "bwd_by_dim", "simt_delta_kernel", "qflux_simt_fwd",
-                 "fwd_by_dim", "template <int HD, bool SEG, bool INT8>", "launch_bwd<"):
+                 "fwd_by_dim", "template <int HD, bool SEG, bool INT8>", "launch_bwd<",
+                 "qflux_simt_nr_fwd", "qflux_simt_nr_bwd", "__dp4a", "simt_fwd_int8_kernel",
+                 "simt_dkv_kernel", "simt_dq_kernel", "struct Args", "pv_tile", "load_tile"):
         assert gone not in src, gone
-    assert "qflux_simt_fwd" not in build._SIGNATURES and "qflux_simt_bwd" not in build._SIGNATURES
+    assert re.findall(r'extern "C" int (\w+)\(', src) == ["qflux_simt_nr_prep",
+                                                           "qflux_simt_nr_rope_norm_bwd"]
+    for gone in ("qflux_simt_fwd", "qflux_simt_bwd", "qflux_simt_nr_fwd", "qflux_simt_nr_bwd"):
+        assert gone not in build._SIGNATURES, gone
     assert not hasattr(tfa, "SIMT_F32")
-    for entry in ("qflux_simt_nr_fwd", "qflux_simt_nr_bwd"):
-        body = src[src.index(f'extern "C" int {entry}('):]
+    for file, entry in (("flash_f32_fwd.cu", "qflux_f32_nr_int8_fwd"),
+                        ("flash_f32_bwd.cu", "qflux_f32_nr_int8_bwd")):
+        body = (build.CSRC / file).read_text()
+        body = body[body.index(f'extern "C" int {entry}('):]
         assert "q_rows <= 0" in body[:body.index("return (int)cudaErrorInvalidValue;")], entry
 
 
@@ -938,9 +1069,9 @@ def test_simt_nr_fwd_launch_arguments(monkeypatch, q_rows, seg):
     """K1 in f32 (never qflux_flash_nr_fwd) calls the 3xTF32
     qflux_f32_nr_fwd with the inputs, the cos / sin batch stride, the ids,
     its scratch (qn, kn f32 [B, S, H, D]), out (f32), lse, the shape, st,
-    the scale and the stream; in the s_int8 mode it calls the CUDA-core
-    qflux_simt_nr_fwd with qq, kq int8, amax [B, H, 1 + ceil(S / q_rows)]
-    and q_rows after qn / kn."""
+    the scale and the stream; in the s_int8 mode it calls the int8-score
+    qflux_f32_nr_int8_fwd with qq, kq int8, amax [B, H, 1 + ceil(S /
+    q_rows)] and q_rows after qn / kn."""
     b, s, h, st, scale = 2, 300, 3, 40, 0.125
     q, k, v, qs2, ks2, cos, sin, ids = _f32_k1_args(b, s, h, seg)
     qs, ks, cs_bstride, seg32 = tnr._kernel_args(q, k, v, qs2, ks2, cos, sin, ids)
@@ -953,7 +1084,7 @@ def test_simt_nr_fwd_launch_arguments(monkeypatch, q_rows, seg):
                                q_rows)
     assert out.dtype == torch.float32 and lse.shape == (b, h, s)
     (name, args), = kl.lib.calls
-    assert name == ("qflux_simt_nr_fwd" if q_rows else "qflux_f32_nr_fwd")
+    assert name == ("qflux_f32_nr_int8_fwd" if q_rows else "qflux_f32_nr_fwd")
     assert len(args) == len(build._SIGNATURES[name][1])
     qn, kn, qq, kq, amax = made[0]
     assert args[:7] == tuple(t.data_ptr() for t in (q, k, v, qs, ks, cos, sin))
@@ -974,7 +1105,7 @@ def test_simt_nr_fwd_launch_arguments(monkeypatch, q_rows, seg):
 @pytest.mark.parametrize("q_rows", [0, 128])
 def test_simt_nr_bwd_launch_arguments(monkeypatch, q_rows):
     """K2 in f32 calls the 3xTF32 qflux_f32_nr_bwd (its s_int8 mode the
-    CUDA-core qflux_simt_nr_bwd) with the inputs, out / lse / do, the
+    int8-score qflux_f32_nr_int8_bwd) with the inputs, out / lse / do, the
     prep's scratch (qn, kn f32, delta f32 [B, H, S]), the f32 dqn / dkn
     scratch the rope + norm backward reads, in the s_int8 mode qq / kq /
     amax and q_rows, then dq / dk / dv (f32), the two [B, H, ceil(S / 64),
@@ -990,7 +1121,7 @@ def test_simt_nr_bwd_launch_arguments(monkeypatch, q_rows):
                         or made[-1])
     kl = _library()
     fill = _fill_partials(b, s, h)
-    kl.lib.on["qflux_simt_nr_bwd"] = lambda *a: fill(*a[:22], a[24], a[25])
+    kl.lib.on["qflux_f32_nr_int8_bwd"] = lambda *a: fill(*a[:22], a[24], a[25])
     kl.lib.on["qflux_f32_nr_bwd"] = lambda *a: fill(*a[:22], a[20], a[21])
     dq, dk, dv, dqs, dks = tnr._launch_bwd(kl, 12, q, k, v, qs, ks, cos, sin, cs_bstride, seg32,
                                            st, scale, out, lse, do, q_rows)
@@ -998,7 +1129,7 @@ def test_simt_nr_bwd_launch_arguments(monkeypatch, q_rows):
     n_tiles = -(-s // 64)
     assert bool((dqs == b * h * n_tiles).all()) and bool((dks == 2 * b * h * n_tiles).all())
     (name, args), = kl.lib.calls
-    assert name == ("qflux_simt_nr_bwd" if q_rows else "qflux_f32_nr_bwd")
+    assert name == ("qflux_f32_nr_int8_bwd" if q_rows else "qflux_f32_nr_bwd")
     assert len(args) == len(build._SIGNATURES[name][1])
     qn, kn, delta, qq, kq, amax = made[0]
     assert args[:7] == tuple(t.data_ptr() for t in (q, k, v, qs, ks, cos, sin))
@@ -1019,15 +1150,17 @@ def test_simt_nr_bwd_launch_arguments(monkeypatch, q_rows):
 def test_simt_entry_points_are_declared():
     """The f32 modes' C entries take 64-bit pointers and the cos / sin batch
     stride as a 64-bit integer, as the bf16 ones; the 3xTF32 K3 / K4 entries
-    take qflux_flash_fwd's / qflux_flash_bwd's arguments, and the 3xTF32 K2
-    entry the s_int8 one's without qq, kq, amax and q_rows."""
+    take qflux_flash_fwd's / qflux_flash_bwd's arguments, and the 3xTF32 K1
+    / K2 entries their s_int8 ones' without qq, kq, amax and q_rows."""
     assert build._SIGNATURES["qflux_f32_fwd"] == build._SIGNATURES["qflux_flash_fwd"]
     assert build._SIGNATURES["qflux_f32_bwd"] == build._SIGNATURES["qflux_flash_bwd"]
-    nr = build._SIGNATURES["qflux_simt_nr_bwd"][1]
+    nr = build._SIGNATURES["qflux_f32_nr_int8_bwd"][1]
     assert build._SIGNATURES["qflux_f32_nr_bwd"][1] == nr[:17] + nr[21:]
+    nf = build._SIGNATURES["qflux_f32_nr_int8_fwd"][1]
+    assert build._SIGNATURES["qflux_f32_nr_fwd"][1] == nf[:11] + nf[15:]
     for name, n, stride_at in (("qflux_f32_fwd", 14, None), ("qflux_f32_bwd", 19, None),
-                               ("qflux_f32_nr_fwd", 19, 7), ("qflux_simt_nr_fwd", 23, 7),
-                               ("qflux_f32_nr_bwd", 28, 7), ("qflux_simt_nr_bwd", 32, 7)):
+                               ("qflux_f32_nr_fwd", 19, 7), ("qflux_f32_nr_int8_fwd", 23, 7),
+                               ("qflux_f32_nr_bwd", 28, 7), ("qflux_f32_nr_int8_bwd", 32, 7)):
         restype, argtypes = build._SIGNATURES[name]
         assert restype is ctypes.c_int and len(argtypes) == n, name
         if stride_at is not None:

@@ -1794,10 +1794,9 @@ def test_f32_and_narrow_modes_never_reach_the_plain_version(monkeypatch):
     csrc/flash_f32_fwd.cu / flash_f32_bwd.cu, and bf16 at D = 32 / 64 the
     wgmma K3 / K4 (qflux_flash_fwd / _bwd, never a qflux_simt_* entry),
     through `flash_attention` (forward and autograd); the fused K1 / K2 in
-    f32 launch qflux_f32_nr_fwd / qflux_f32_nr_bwd: no f32 pass outside the
-    s_int8 modes reaches flash_simt.cu's loops (qflux_simt_nr_fwd / _bwd,
-    the s_int8 modes' alone), and none calls the plain versions (replaced
-    by functions that raise).  f32 at head dim 96 runs the kernels
+    f32 launch qflux_f32_nr_fwd / qflux_f32_nr_bwd (never the s_int8
+    modes' qflux_f32_nr_int8_*), and none calls the plain versions
+    (replaced by functions that raise).  f32 at head dim 96 runs the kernels
     zero-padded to 128 (qflux_f32_fwd / _bwd) and matches the plain
     version forward and backward (2e-5 / 1e-4); an f16 q raises, naming
     what the kernels take."""
@@ -2022,15 +2021,18 @@ def test_padded_head_dims_match_plain_on_card(d, dtype):
     assert not out[dead].any() and not got[0][dead].any()
 
 
-def test_simt_entries_refuse_the_plain_f32_modes_on_card():
-    """csrc/flash_simt.cu takes the f32 s_int8 modes alone: its K1 and K2
-    entries refuse q_rows = 0 (K1's and K2's plain f32 modes run
-    csrc/flash_f32_fwd.cu / flash_f32_bwd.cu) with cudaErrorInvalidValue
-    (1) from the argument check, launching nothing, so no plain f32 pass
-    reaches its loops."""
+def test_f32_s_int8_entries_refuse_untaken_q_tiles_on_card():
+    """csrc/flash_simt.cu exports no attention loop (no qflux_simt_nr_fwd /
+    _bwd); the f32 s_int8 modes' entries, qflux_f32_nr_int8_fwd / _bwd in
+    csrc/flash_f32_fwd.cu / flash_f32_bwd.cu, refuse q_rows = 0 (K1's and
+    K2's plain f32 modes run qflux_f32_nr_fwd / _bwd) and q tiles a block's
+    rows would straddle (the forward's 128 rows: 64 and 96; the backward's
+    64: 96) with cudaErrorInvalidValue (1) from the argument check,
+    launching nothing."""
     from qflux_tpu_torch.runtime.build import load_library
 
     lib = load_library().lib
+    assert not hasattr(lib, "qflux_simt_nr_fwd") and not hasattr(lib, "qflux_simt_nr_bwd")
     b, s, h = 1, 64, 2
     z = torch.zeros(b, s, h, D, device="cuda")
     out = torch.zeros_like(z)
@@ -2039,14 +2041,16 @@ def test_simt_entries_refuse_the_plain_f32_modes_on_card():
     parts = [torch.zeros(b, h, 1, 2, D, device="cuda") for _ in range(2)]
     stream = torch.cuda.current_stream().cuda_stream
     zp = z.data_ptr()
-    assert lib.qflux_simt_nr_fwd(zp, zp, zp, None, None, None, None, 0, None, zp, zp, None,
-                                 None, None, 0, out.data_ptr(), lse.data_ptr(), b, s, h, 0,
-                                 0.125, stream) == 1
-    assert lib.qflux_simt_nr_bwd(zp, zp, zp, None, None, None, None, 0, None, zp, zp, zp, zp,
-                                 zp, delta.data_ptr(), zp, zp, None, None, None, 0,
-                                 *(g.data_ptr() for g in grads),
-                                 *(t.data_ptr() for t in parts), b, s, h, 0, 0.125,
-                                 stream) == 1
+    for rows in (0, 64, 96):
+        assert lib.qflux_f32_nr_int8_fwd(zp, zp, zp, None, None, None, None, 0, None, zp, zp,
+                                         zp, zp, zp, rows, out.data_ptr(), lse.data_ptr(), b, s,
+                                         h, 0, 0.125, stream) == 1, rows
+    for rows in (0, 96):
+        assert lib.qflux_f32_nr_int8_bwd(zp, zp, zp, None, None, None, None, 0, None, zp, zp, zp,
+                                         zp, zp, delta.data_ptr(), zp, zp, zp, zp, zp, rows,
+                                         *(g.data_ptr() for g in grads),
+                                         *(t.data_ptr() for t in parts), b, s, h, 0, 0.125,
+                                         stream) == 1, rows
     torch.cuda.synchronize()
     assert not any(g.any() for g in grads) and not out.any()
 
@@ -2092,46 +2096,97 @@ def test_f32_k1_k2_match_plain_on_card(s):
     assert not got[0][0, 492:512].any()
 
 
-def test_simt_s_int8_f32_matches_plain_on_card():
-    """K1 / K2's s_int8 mode in f32 at S = 2304 (forward q tiles of 256
-    rows, backward 128): the prep's qn / kn within 2e-5 of the plain norm +
-    rope and its int8 operands equal to `quant_rows` of them to the bit;
-    on those qn / kn (an f32 ulp from the plain ones can cross an int8
-    rounding midpoint) the __dp4a scores' out and lse within 2e-5 of the
-    plain int8 versions and the straight-through gradients within 1e-4;
-    one f32 s_int8 launch each way, two calls identical to the bit."""
+# the f32 s_int8 cases: S (q tiles from s_int8_tiles), B, H, st, the id layout:
+# FLUX's text padding (rows 492..511 at segment 0); "qwen": B = 2, sample 0 with
+# Qwen's text padding (`_f32_int8_ids`), sample 1 fully masked; H = 5 and 3 are off
+# the bf16 prep's groups of four heads
+F32_INT8_CASES = [(2304, 1, 4, 512, "flux"), (2560, 1, 4, 512, "flux"),
+                  (1024, 1, 4, 512, "flux"), (2304, 2, 5, 64, "qwen"),
+                  (2560, 2, 3, 300, "qwen")]
+
+
+def _f32_int8_ids(s, b, layout):
+    """[B, S] int32 ids on the card and the [B, S] bool rows that attend nothing."""
+    seg = np.ones((b, s), np.int32)
+    if layout == "flux":
+        seg[:, 492:512] = 0
+    else:
+        seg[0, 230:256] = 0
+        seg[1] = 0
+    return torch.from_numpy(seg).cuda(), torch.from_numpy(seg == 0).cuda()
+
+
+@pytest.mark.parametrize("s,b,h,st,layout", F32_INT8_CASES,
+                         ids=[f"s{c[0]}_b{c[1]}_h{c[2]}_st{c[3]}" for c in F32_INT8_CASES])
+def test_f32_s_int8_matches_plain_on_card(monkeypatch, s, b, h, st, layout):
+    """K1 / K2's s_int8 mode in f32, the int8-score wgmma loops of
+    csrc/flash_f32_fwd.cu / flash_f32_bwd.cu, at S = 1024, 2304 and 2560 with
+    s_int8_tiles' rows (F32_INT8_CASES: B = 2 with Qwen's text padding and a
+    fully masked sample, st at 64 and ragged, H off the groups of four):
+    the prep's qn / kn within 2e-5 of the plain norm + rope and its int8
+    operands equal to `quant_rows` of them to the bit; on those qn / kn (an
+    f32 ulp from the plain ones can cross an int8 rounding midpoint) out and
+    lse within 2e-5 of the plain int8 versions and the straight-through
+    gradients within 1e-4 (relative L2), the rows that attend nothing 0 in
+    out, dq, dk and dv with lse -1e30.  Through flash_attention_nr(s_int8=
+    True) and autograd, twice: identical to the bit, one
+    qflux_f32_nr_int8_fwd and one qflux_f32_nr_int8_bwd a call and no other
+    entry, no plain version called (replaced by functions that raise)."""
+    from qflux_tpu_torch.runtime import build
+
     torch.backends.cuda.matmul.allow_tf32 = False
-    s = 2304
-    args, seg = _nr_f32_inputs(9, s)
-    q, k, v, qs2, ks2, cos, sin = args
+    rng = np.random.default_rng(9 + s + b)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, s, h, D)).astype(np.float32)).cuda()
+               for _ in range(3))
+    qs2, ks2 = (torch.from_numpy((1 + 0.1 * rng.standard_normal((2, D))).astype(np.float32))
+                .cuda() for _ in range(2))
+    ang = rng.uniform(0, 6.28, (s, D // 2)).astype(np.float32)
+    cos, sin = (torch.from_numpy(np.concatenate([f(ang)] * 2, -1)).cuda() for f in (np.cos, np.sin))
+    args = [q, k, v, qs2, ks2, cos, sin]
+    seg, dead = _f32_int8_ids(s, b, layout)
     fwd_rows, bwd_rows = tnr.s_int8_tiles(s, D)
     for rows in (fwd_rows, bwd_rows):
-        qn, kn, qq, kq, q_sc, k_sc = tnr._int8_operands_cuda(q, k, qs2, ks2, cos, sin, 512, rows)
-        assert _rel_l2(qn, tnr.apply_qk_norm_rope(q, qs2, cos, sin, 512)) <= F32_REL_TOL
-        assert _rel_l2(kn, tnr.apply_qk_norm_rope(k, ks2, cos, sin, 512)) <= F32_REL_TOL
+        qn, kn, qq, kq, q_sc, k_sc = tnr._int8_operands_cuda(q, k, qs2, ks2, cos, sin, st, rows)
+        assert _rel_l2(qn, tnr.apply_qk_norm_rope(q, qs2, cos, sin, st)) <= F32_REL_TOL
+        assert _rel_l2(kn, tnr.apply_qk_norm_rope(k, ks2, cos, sin, st)) <= F32_REL_TOL
         wq, wqs = tnr.quant_rows(qn, rows)
         wk, wks = tnr.quant_rows(kn, s)
         assert torch.equal(qq, wq) and torch.equal(q_sc, wqs)
         assert torch.equal(kq, wk) and torch.equal(k_sc, wks[:, 0])
+    plain_fwd = tnr.flash_attention_nr_int8_reference
+    plain_bwd = tnr.flash_attention_nr_int8_bwd_reference
+
+    def refuse(*a, **kw):
+        raise AssertionError("a CUDA tensor reached the plain version")
+
+    for name in ("flash_attention_nr_int8_reference", "flash_attention_nr_int8_bwd_reference",
+                 "flash_attention_nr_reference", "flash_attention_nr_bwd_reference"):
+        monkeypatch.setattr(tnr, name, refuse)
+    kl = build.load_library()
+    spy = _EntrySpy(kl.lib)
+    monkeypatch.setattr(build, "load_library", lambda: dataclasses.replace(kl, lib=spy))
     do = torch.randn(q.shape, device="cuda")
-    leaves = [a.clone().requires_grad_() for a in args[:5]]
     c0 = _simt_counts()
-    out, lse = tnr.flash_attention_nr(*leaves, *args[5:], 512, segment_ids=seg, s_int8=True)
-    got = torch.autograd.grad(out, leaves, do)
-    again, _ = tnr.flash_attention_nr(*args, 512, segment_ids=seg, s_int8=True)
+    runs = []
+    for _ in range(2):
+        leaves = [a.clone().requires_grad_() for a in args[:5]]
+        out, lse = tnr.flash_attention_nr(*leaves, cos, sin, st, segment_ids=seg, s_int8=True)
+        runs.append((out.detach(), lse, *torch.autograd.grad(out, leaves, do)))
     torch.cuda.synchronize()
-    assert [b - a for a, b in zip(c0, _simt_counts())][4:8] == [0, 0, 2, 1]
-    assert torch.equal(again, out.detach())
-    ref, ref_lse = tnr.flash_attention_nr_int8_reference(*args, 512, fwd_rows, segment_ids=seg,
-                                                         normed=(qn, kn))
+    assert [y - x for x, y in zip(c0, _simt_counts())][4:8] == [0, 0, 2, 2]
+    assert [n for n in spy.names if n != "qflux_flash_nr_bwd_tiles"] == [
+        "qflux_f32_nr_int8_fwd", "qflux_f32_nr_int8_bwd"] * 2
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+    out, lse, *got = runs[0]
+    ref, ref_lse = plain_fwd(*args, st, fwd_rows, segment_ids=seg, normed=(qn, kn))
     valid = ref_lse > -1e29
     assert _rel_l2(out, ref) <= F32_REL_TOL
     assert _rel_l2(lse[valid], ref_lse[valid]) <= F32_REL_TOL
-    want = tnr.flash_attention_nr_int8_bwd_reference(*args, 512, do, out.detach(), lse,
-                                                     bwd_rows, segment_ids=seg,
-                                                     normed=(qn, kn))
+    assert bool((lse[~valid] == -1e30).all()) and not out[dead].any()
+    want = plain_bwd(*args, st, do, out, lse, bwd_rows, segment_ids=seg, normed=(qn, kn))
     for name, g, w in zip(("dq", "dk", "dv", "dqs", "dks"), got, want):
-        assert _rel_l2(g, w) <= F32_GRAD_TOL, name
+        assert bool(torch.isfinite(g).all()) and _rel_l2(g, w) <= F32_GRAD_TOL, name
+    assert all(not g[dead].any() for g in got[:3])
 
 
 def test_flux_block_f32_forward_and_lora_grads_on_card():
