@@ -198,11 +198,20 @@ phase's wall time printed:
      33 rows, 3072 → 18432, each equal to its plain version (float64
      products on the card) to the bit, forward and dx, and timed;
      int4_dynamic's dx equal to the CPU's to the bit and its forward within
-     one bf16 ulp of it; (b) FLUX.1-Kontext-dev at full width (19 +
+     one bf16 ulp of it; (a') the image decoders over the committed 512²
+     fixtures of tests/fixtures/images (written by
+     scripts/make_image_fixtures.py: baseline 4:2:0, progressive, 4:4:4
+     with restart markers and optimized tables, 4:2:2, 4:4:0 and Adobe RGB
+     JPEGs, a 24-bit BMP, a PNG): each JPEG decoded by the native decoder
+     (csrc/jpeg_decode.cu, host code in the kernel library) and by the
+     plain Python one, equal to the bit, and every decode equal to the
+     committed digest of cv2's, images and masks, with host ms a decode for
+     each path; (b) FLUX.1-Kontext-dev at full width (19 +
      38 blocks, the full VAE, CLIP-L, T5-XXL at 512 tokens, synthetic
      weights) through `qflux_tpu_torch.main` in process: `--cache` over
-     four 512² target / control PNG pairs listed in a CSV (the nine cached
-     keys at JAX's shapes, s per sample, peak memory), then the first
+     the four target / control pairs of those fixtures listed in a CSV
+     (read through the native JPEG decoder: the nine cached keys at JAX's
+     shapes, s per sample, peak memory), then the first
      sample's prompt embeds, pooled output and target / control latents
      computed whole on the CPU (CLIP-L, all 24 T5-XXL blocks at 512
      tokens, the VAE encoder at 512²), against which the card's f32
@@ -210,9 +219,10 @@ phase's wall time printed:
      encoder timed on the card; (c) + (e) a fit
      of three steps from that cache (57 K1 and 57 K2 launches a step) whose
      validation section samples once at the last step (57 K1 a denoising
-     step) and logs the image; (d) `--predict` on a raw control PNG, 20
-     steps at 512² (57 K1 a step), the output PNG [512, 512, 3] uint8 with
-     finite latents, and a second request on the loaded model timed.
+     step) and logs the image; (d) `--predict` on the 4:2:2 JPEG control,
+     20 steps at 512² (57 K1 a step), the output PNG [512, 512, 3] uint8
+     with finite latents, and a second request on the loaded model timed.
+     `python3 chip_smoke.py --decode` runs (a') alone.
 
 The Qwen-Image-Edit cache pass and `predict_multires` run as phase G,
 after F, with the card's name and power limit on every line and the
@@ -4608,7 +4618,15 @@ REPAIR_SHAPE = (33, 3072, 18432)  # the AdaLN mods at bs = 33: rows, K, N
 # which moves a bf16 output by at most one ulp (2^-8 of its magnitude), as
 # tests/test_torch_quant8.py holds the port to JAX
 INT4_DYN_CPU_TOL = 2 ** -8
-F_PAIRS = 4                       # target / control PNG pairs the cache pass encodes
+F_PAIRS = 4                       # target / control pairs the cache pass encodes
+# the committed fixtures (scripts/make_image_fixtures.py) phase F reads
+IMAGE_FIXTURES = Path(__file__).resolve().parent / "tests" / "fixtures" / "images"
+F_TARGETS = ["target_0.jpg", "target_1.jpg", "target_2.bmp", "target_3.jpg"]
+F_CONTROLS = ["control_0.jpg", "control_1.jpg", "control_2.png", "control_3.jpg"]
+F_JPEGS = sum(n.endswith(".jpg") for n in F_TARGETS + F_CONTROLS)
+# the host ms a native decode of the 512² baseline 4:2:0 JPEG may take: 5% of
+# the 0.514 s a FLUX cache-pass sample takes (PERF.md §5)
+DECODE_MS_BOUND = 25.0
 F_FIT_STEPS = 3                   # fit steps from that cache, validation at the last
 F_VALIDATION_STEPS = 4            # the validation sample's denoising steps
 F_PROMPTS = ["turn the sky orange at sunset", "add a red hat to the person",
@@ -4815,39 +4833,126 @@ def _encoders_against_cpu(card: str, trainer, csv_path: Path) -> None:
     del cpu, t5_cpu, want, got
 
 
+def phase_decoders(card: str) -> dict:
+    """Phase F(a'): every fixture of tests/fixtures/images read as
+    `_read_image` (cv2's IMREAD_UNCHANGED) and `_read_mask`
+    (IMREAD_GRAYSCALE) read it: each JPEG by the native decoder
+    (csrc/jpeg_decode.cu through utils/jpeg.py) and by the plain one, equal
+    to the bit; every array's sha256 equal to the committed digest of
+    cv2's decode (a colour PNG's mask excepted: the port's PNG gray
+    conversion is within one step of cv2's libpng, by design).  Prints
+    host ms a decode for each path (native: median of 20; plain: median of
+    2), and fails if the native decode of the baseline 4:2:0 fixture takes
+    more than DECODE_MS_BOUND.  Returns {fixture: {mode: {path: ms}}}."""
+    import hashlib
+
+    from qflux_tpu_torch.utils import bmp, jpeg
+    from qflux_tpu_torch.utils.png import decode_png
+
+    table = json.loads((IMAGE_FIXTURES / "digests.json").read_text())
+    out, lines = {}, []
+    for name, want in table.items():
+        data = (IMAGE_FIXTURES / name).read_bytes()
+        if hashlib.sha256(data).hexdigest() != want["file_sha256"]:
+            raise AssertionError(f"fixture {name} differs from the one its digests were taken of")
+        out[name] = {}
+        for mode in ("unchanged", "grayscale"):
+            gray = mode == "grayscale"
+            if name.endswith(".jpg"):
+                paths = {p: (lambda p=p: jpeg.decode_jpeg(data, gray, p))
+                         for p in ("native", "plain")}
+            elif name.endswith(".bmp"):
+                paths = {"numpy": lambda: bmp.decode_bmp(data, gray)}
+            elif gray:
+                continue  # see the docstring
+            else:
+                paths = {"numpy": lambda: decode_png(data)}
+            arrays, ms = {}, {}
+            for path, fn in paths.items():
+                arrays[path] = fn()
+                n = 20 if path == "native" else 2
+                times = []
+                for _ in range(n):
+                    t0 = time.perf_counter()
+                    fn()
+                    times.append(1000 * (time.perf_counter() - t0))
+                ms[path] = statistics.median(times)
+            first = next(iter(arrays.values()))
+            same = all(np.array_equal(a, first) for a in arrays.values())
+            digest = hashlib.sha256(np.ascontiguousarray(first).tobytes()).hexdigest()
+            ok = (same and digest == want[f"{mode}_sha256"]
+                  and list(first.shape) == want[f"{mode}_shape"])
+            lines.append(f"[decode] {name} ({want['what']}, {want['bytes']} bytes) {mode}: "
+                         + ", ".join(f"{p} {v:.3f} ms" for p, v in ms.items())
+                         + f" host a decode; paths equal to the bit {same}, equal to cv2's "
+                         f"digest {ok} {list(first.shape)} [{card}]")
+            if not ok:
+                print("\n".join(lines), flush=True)
+                raise AssertionError(f"{name} ({mode}) decodes differ: paths equal {same}, "
+                                     f"digest {digest} against cv2's {want[f'{mode}_sha256']}")
+            out[name][mode] = ms
+    base = out["target_0.jpg"]["unchanged"]["native"]
+    lines.append(f"[decode] the native decode of the 512² baseline 4:2:0 JPEG: {base:.3f} ms "
+                 f"host (bound {DECODE_MS_BOUND} ms); native decodes in this process "
+                 f"{jpeg.NATIVE_DECODES} [{card}]")
+    print("\n".join(lines), flush=True)
+    if base > DECODE_MS_BOUND:
+        raise AssertionError(f"the native JPEG decode took {base:.3f} ms > {DECODE_MS_BOUND}")
+    return out
+
+
+def decode_main() -> int:
+    """`python3 chip_smoke.py --decode`: phase F(a') alone (the kernel
+    library built first)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from qflux_tpu_torch.runtime.build import load_library
+
+    smi = _nvidia_smi()
+    print(smi, flush=True)
+    card = ", ".join(x.strip() for x in smi.split(",", 1))
+    kl = load_library()
+    print(f"[build] {kl.path.name}, nvcc {kl.build_seconds:.2f} s [{card}]", flush=True)
+    t0 = time.perf_counter()
+    phase_decoders(card)
+    print(f"[smoke] phase F(a'): {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    return 0
+
+
 def phase_cache_pass(card: str) -> dict:
     """Phase F(b)-(e), FLUX.1-Kontext-dev at full width (19 + 38 blocks, the
     full VAE, CLIP-L 12 × 768, T5-XXL 24 × 4096 at 512 tokens, synthetic
     weights drawn on the card from seeds) through `qflux_tpu_torch.main`
-    in process: (b) `--cache` over F_PAIRS 512² target / control PNG pairs
-    (seeded numpy through encode_png) listed in a CSV with their prompts:
-    the nine keys of cache_embeddings at JAX's shapes, s per sample, peak
-    memory, the encoders against the CPU; (c) + (e) a fit of F_FIT_STEPS
+    in process: (b) `--cache` over F_PAIRS 512² target / control pairs of
+    the committed fixtures (F_TARGETS / F_CONTROLS: JPEGs of five kinds, a
+    BMP, a PNG) listed in a CSV with their prompts, each JPEG read through
+    the native decoder (its count rises by F_JPEGS at least): the nine keys
+    of cache_embeddings at JAX's shapes, s per sample, peak memory, the
+    encoders against the CPU; (c) + (e) a fit of F_FIT_STEPS
     steps from that cache with exactly 57 K1 and 57 K2 launches a step,
     its validation section sampling once (one control image,
     F_VALIDATION_STEPS steps, 57 K1 a step) and logging the image; (d)
-    `--predict` on a raw control PNG: 20 steps at 512², 57 K1 a step, the
-    PNG decoding to [512, 512, 3] uint8, finite latents.  Returns the K1 /
-    K2 launches of each path."""
+    `--predict` on the 4:2:2 JPEG control (one native decode): 20 steps at
+    512², 57 K1 a step, the output PNG decoding to [512, 512, 3] uint8,
+    finite latents.  Returns the K1 / K2 launches of each path."""
     from qflux_tpu_torch import main as cli
+    from qflux_tpu_torch.data.dataset import _read_image
     from qflux_tpu_torch.models.flux.transformer import FluxConfig
     from qflux_tpu_torch.ops import flash_nr
-    from qflux_tpu_torch.utils.png import encode_png, read_png
+    from qflux_tpu_torch.utils import jpeg
+    from qflux_tpu_torch.utils.png import read_png
 
     n_blocks = FluxConfig().num_layers + FluxConfig().num_single_layers
     tmp = Path(tempfile.mkdtemp(prefix="qflux_smoke_pixels_"))
     try:
-        rng = np.random.default_rng(80)
         rows = ["path_target,path_control,prompt"]
         for i in range(F_PAIRS):
-            for kind in ("target", "control"):
-                img = rng.integers(0, 256, (HEIGHT, WIDTH, 3), dtype=np.uint8)
-                (tmp / f"{kind}_{i}.png").write_bytes(encode_png(img))
-            rows.append(f"target_{i}.png,control_{i}.png,{F_PROMPTS[i]}")
+            for name in (F_TARGETS[i], F_CONTROLS[i]):
+                shutil.copyfile(IMAGE_FIXTURES / name, tmp / name)
+            rows.append(f"{F_TARGETS[i]},{F_CONTROLS[i]},{F_PROMPTS[i]}")
         csv_path = tmp / "pairs.csv"
         csv_path.write_text("\n".join(rows) + "\n")
         val = {"enabled": True, "steps": F_FIT_STEPS, "num_inference_steps": F_VALIDATION_STEPS,
-               "samples": [{"prompt": F_PROMPTS[0], "images": [str(tmp / "control_0.png")]}]}
+               "samples": [{"prompt": F_PROMPTS[0], "images": [str(tmp / F_CONTROLS[0])]}]}
         path = tmp / "pixels.json"
         path.write_text(json.dumps(_f_config(csv_path, tmp, validation=val)))
 
@@ -4855,10 +4960,12 @@ def phase_cache_pass(card: str) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()
+        decodes = jpeg.NATIVE_DECODES
         t0 = time.perf_counter()
         trainer = cli.main(["--config", str(path), "--cache"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        decodes = jpeg.NATIVE_DECODES - decodes
         stats = trainer.last_cache
         peak = torch.cuda.max_memory_allocated()
         from qflux_tpu_torch.data.cache import EmbeddingCacheManager, read_npz_data
@@ -4876,16 +4983,18 @@ def phase_cache_pass(card: str) -> dict:
         enc, wr = stats["encode_s"], stats["write_s"]
         print(f"[cache] --cache over {F_PAIRS} 512² pairs: {wall:.1f} s in main() (DiT, VAE "
               f"built; CLIP-L and T5-XXL drawn on first use), the pass {stats['seconds']:.2f} s "
-              f"(the loader's PNG reads inside); per sample encode "
+              f"(the loader's image reads inside); per sample encode "
               + ", ".join(f"{s:.3f}" for s in enc) + " s (the first draws T5-XXL), write "
               + ", ".join(f"{s:.3f}" for s in wr) + f" s; after the first "
               f"{statistics.median(a + b for a, b in zip(enc[1:], wr[1:])):.3f} s/sample "
               f"(median); peak mem {peak} bytes, {len(metas)} samples, keys {shapes}; K1/K2 "
-              f"launches {_launch_counts()[:2]} [{card}]", flush=True)
+              f"launches {_launch_counts()[:2]}; native JPEG decodes {decodes} (the pairs hold "
+              f"{F_JPEGS} JPEGs) [{card}]", flush=True)
         if (stats["samples"] != F_PAIRS or len(metas) != F_PAIRS or shapes != F_CACHE_SHAPES
-                or _launch_counts()[:2] != (0, 0) or not cm.exists(metas[0].stem)):
+                or _launch_counts()[:2] != (0, 0) or not cm.exists(metas[0].stem)
+                or decodes < F_JPEGS):
             raise AssertionError(f"the cache pass wrote {stats}, {len(metas)} metadata, "
-                                 f"shapes {shapes}")
+                                 f"shapes {shapes}, {decodes} native JPEG decodes")
         _encoders_against_cpu(card, trainer, csv_path)
         del trainer
         gc.collect()
@@ -4920,32 +5029,36 @@ def phase_cache_pass(card: str) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
 
-        # (d) predict on a raw control image
+        # (d) predict on a raw control image: a JPEG
         out = tmp / "edit.png"
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()
+        decodes = jpeg.NATIVE_DECODES
         t0 = time.perf_counter()
         trainer = cli.main(["--config", str(path), "--predict", "--control",
-                            str(tmp / "control_1.png"), "--prompt", F_PROMPTS[1],
+                            str(tmp / F_CONTROLS[1]), "--prompt", F_PROMPTS[1],
                             "--output", str(out)])
         wall = time.perf_counter() - t0
+        decodes = jpeg.NATIVE_DECODES - decodes
         pred = trainer.last_predict
         k1 = flash_nr.KERNEL_LAUNCHES
         img = read_png(out)
         t0 = time.perf_counter()
-        trainer.predict([read_png(tmp / "control_2.png")], F_PROMPTS[2])
+        trainer.predict([_read_image(tmp / F_CONTROLS[2])], F_PROMPTS[2])
         torch.cuda.synchronize()
         again = time.perf_counter() - t0
-        print(f"[cache] --predict from a 512² PNG: {wall:.1f} s in main() (DiT, VAE built, "
-              f"T5-XXL drawn), {pred['steps']} steps {1000 * pred['denoise_s'] / pred['steps']:.1f} "
-              f"ms/step, decode {1000 * pred['decode_s']:.1f} ms; a second request on the loaded "
+        print(f"[cache] --predict from a 512² JPEG ({decodes} native decode): {wall:.1f} s in "
+              f"main() (DiT, VAE built, T5-XXL drawn), {pred['steps']} steps "
+              f"{1000 * pred['denoise_s'] / pred['steps']:.1f} ms/step, decode "
+              f"{1000 * pred['decode_s']:.1f} ms; a second request on the loaded "
               f"model {again:.2f} s (encode, 20 steps, decode); peak mem "
               f"{torch.cuda.max_memory_allocated()} bytes; output {img.dtype} {list(img.shape)}, "
               f"latents finite {pred['latents_finite']}, K1 launches {k1} [{card}]", flush=True)
         if (img.dtype != np.uint8 or img.shape != (HEIGHT, WIDTH, 3)
-                or not pred["latents_finite"] or k1 != pred["steps"] * n_blocks):
-            raise AssertionError(f"--predict gave {img.dtype} {img.shape}, K1 {k1}")
+                or not pred["latents_finite"] or k1 != pred["steps"] * n_blocks or decodes != 1):
+            raise AssertionError(f"--predict gave {img.dtype} {img.shape}, K1 {k1}, "
+                                 f"{decodes} native decodes")
         del trainer
         gc.collect()
         torch.cuda.empty_cache()
@@ -8418,6 +8531,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     t_f = time.perf_counter()
     timed(phase_repair_probe)
+    timed(phase_decoders)
     f = timed(phase_cache_pass)
     print(f"[smoke] phase F (the FLUX.1-Kontext cache pass and raw-image entry points): "
           f"{time.perf_counter() - t_f:.1f} s [{card}]", flush=True)
@@ -8618,4 +8732,6 @@ if __name__ == "__main__":
         sys.exit(optim_main() if torch.cuda.is_available() else 1)
     if len(sys.argv) == 2 and sys.argv[1] == "--f32":
         sys.exit(f32_main() if torch.cuda.is_available() else 1)
+    if len(sys.argv) == 2 and sys.argv[1] == "--decode":
+        sys.exit(decode_main() if torch.cuda.is_available() else 1)
     sys.exit(main())

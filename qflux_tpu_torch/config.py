@@ -1,13 +1,20 @@
 """The port's configuration: a YAML or JSON file (or a dict) → plain namespaces.
 
 Counterpart of qflux_tpu/config.py.  The JAX package validates its YAML
-with pydantic; the port only needs the values, so it merges the file over
-the JAX `Config`'s defaults and returns nested `SimpleNamespace`s, read by
-attribute exactly as the JAX `Config` is (`config.model.lora.r`,
-`config.trainer.value`, `config.data.processor.target_size`).  Sections
-and keys the port does not read are carried over as they are; the
-defaults below are those of qflux_tpu/config.py for every field the port
-reads.  Its validators are mirrored:
+with pydantic; the port merges the file over the JAX `Config`'s defaults
+and returns nested `SimpleNamespace`s, read by attribute exactly as the
+JAX `Config` is (`config.model.lora.r`, `config.trainer.value`,
+`config.data.processor.target_size`).  Before that it refuses what the JAX
+`Config` refuses by its schema (`SCHEMA`, a table of every section's keys
+and every `Literal`'s choices, kept here because the port imports no
+pydantic): a key no section of that schema has, a value outside a
+`Literal` or enum, a section given as something other than a mapping, and a
+validation sample with keys other than prompt / images / height / width.
+Keys that JAX accepts and the port does not read (`mesh.dp`,
+`train.auto_entry_layouts`, …) are carried over as they are; the values of
+the dict-valued fields (`_DICT_FIELDS`) are free.  The defaults below are
+those of qflux_tpu/config.py for every field the port reads.  Its
+validators are mirrored:
 
   * `${a.b}` references resolve against the file's own document before
     anything else (`resolve_interpolations`; a whole-string reference
@@ -96,6 +103,91 @@ _DICT_FIELDS = {("optimizer", "init_args"), ("loss", "init_args"), ("data", "ini
 
 _INTERP = re.compile(r"\$\{([a-zA-Z0-9_.]+)\}")
 
+# qflux_tpu/config.py's Config schema, section by section: a dict is a
+# section (a StrictModel: no other keys), a tuple a Literal's (or an enum's)
+# choices, None a value the schema types otherwise (the port leaves those to
+# the code that reads them)
+_REMAT = ("none", "minimal", "full", "flash", "flash_mlp", "flash_single", "flash_offload")
+_QUANT_DTYPES = ("int8", "int8_dynamic", "int4", "int4_dynamic", "int4_requant", "fp8_e4m3",
+                 "fp8_e5m2")
+SCHEMA: dict = {
+    "trainer": ("FluxKontextLoraTrainer", "QwenImageEditTrainer", "QwenImageEditPlusTrainer",
+                "DreamOmni2Trainer", "Flux2KleinLoraTrainer"),
+    "mode": ("fit", "cache", "predict"),
+    "resume": None,
+    "mesh": {"dp": None, "fsdp": None, "tp": None, "sp": None, "dcn_axes": None,
+             "remat": _REMAT},
+    "model": {
+        "pretrained_model_name_or_path": None, "dit_path": None, "vae_path": None,
+        "text_encoder_path": None, "text_encoder_2_path": None, "tokenizer_path": None,
+        "lora": {"r": None, "lora_alpha": None, "init_lora_weights": None,
+                 "target_modules": None, "pretrained_weight": None},
+        "quantize": {"enabled": None, "dtype": _QUANT_DTYPES, "group_size": None,
+                     "attention": None, "skip_patterns": None},
+        "pretrained_embeddings": None, "use_vlm_prompt_enhancer": None, "vlm_path": None,
+        "variant": None},
+    "data": {"class_path": None, "init_args": None,
+             "processor": {"process_type": ("resize", "center_crop", "center_padding",
+                                            "right_padding", "fixed_pixels"),
+                           "resize_mode": None, "target_size": None, "controls_size": None,
+                           "target_pixels": None, "controls_pixels": None,
+                           "multi_resolutions": None, "max_aspect_ratio": None,
+                           "divisible_by": None},
+             "batch_size": None, "shuffle": None, "drop_last": None, "num_workers": None,
+             "caption_dropout_rate": None, "use_edit_mask": None, "bucket_by_shape": None},
+    "cache": {"use_cache": None, "cache_dir": None},
+    "train": {"gradient_accumulation_steps": None, "max_train_steps": None, "num_epochs": None,
+              "checkpointing_steps": None, "max_grad_norm": None,
+              "timestep_sampling": ("uniform", "logit_normal", "shift", "weighted"),
+              "logit_mean": None, "logit_std": None,
+              "weighting_scheme": ("none", "bell", "half_bell", "weighted"),
+              "weighting_table": None, "seed": None, "weight_dtype": ("bfloat16", "float32"),
+              "low_memory": None, "async_checkpointing": None, "auto_entry_layouts": None},
+    "optimizer": {"class_path": None, "init_args": None, "learning_rate": None},
+    "lr_scheduler": {"scheduler_type": ("constant", "cosine", "linear", "constant_with_warmup"),
+                     "warmup_steps": None},
+    "validation": {"enabled": None, "steps": None, "num_inference_steps": None,
+                   "true_cfg_scale": None, "guidance": None, "samples": None, "dataset": None,
+                   "max_samples": None, "fail_on_error": None},
+    "logging": {"output_dir": None, "project": None,
+                "report_to": ("tensorboard", "wandb", "swanlab", "none"),
+                "tracker_project_name": None, "sampling_seed": None, "profile_dir": None,
+                "push_to_hub": None},
+    "predict": {"num_inference_steps": None, "guidance": None, "true_cfg_scale": None,
+                "max_sequence_length": None},
+    "loss": {"class_path": None, "init_args": None},
+}
+# sections that may also be given as a bare bool (ModelSection.quantize)
+_BOOL_SECTIONS = {("model", "quantize")}
+# ValidationSection._check_sample_keys
+_SAMPLE_KEYS = ("height", "images", "prompt", "width")
+
+
+def check_schema(raw: Mapping, schema: Mapping = SCHEMA, path: tuple = ()) -> None:
+    """Refuse what qflux_tpu/config.py's Config refuses by its schema (see
+    the module docstring); ValueError naming the key and what it allows."""
+    for key, val in raw.items():
+        where = ".".join(path + (str(key),))
+        if key not in schema:
+            raise ValueError(f"config: unknown key {where!r}; "
+                             f"{'.'.join(path) or 'the top level'} takes {sorted(schema)}")
+        rule = schema[key]
+        if isinstance(rule, dict):
+            if isinstance(val, bool) and path + (key,) in _BOOL_SECTIONS:
+                continue
+            if not isinstance(val, Mapping):
+                raise ValueError(f"config: {where} must be a mapping of {sorted(rule)}, "
+                                 f"got {val!r}")
+            check_schema(val, rule, path + (key,))
+        elif isinstance(rule, tuple) and not any(val == c and type(val) is type(c)
+                                                 for c in rule):
+            raise ValueError(f"config: unknown {where} {val!r}; {where} is one of {list(rule)}")
+    for i, sample in enumerate((raw.get("samples") or []) if path == ("validation",) else []):
+        unknown = sorted(set(sample) - set(_SAMPLE_KEYS)) if isinstance(sample, Mapping) else []
+        if unknown:
+            raise ValueError(f"config: validation.samples[{i}]: unknown keys {unknown}; "
+                             f"allowed keys are {list(_SAMPLE_KEYS)}")
+
 
 def _lookup(tree: Any, dotted: str) -> Any:
     node = tree
@@ -173,8 +265,10 @@ def _namespace(node: Any, path: tuple = ()) -> Any:
 
 
 def config_from_dict(raw: Mapping) -> SimpleNamespace:
-    """A config dict (as a YAML file holds it) merged over the JAX defaults
-    → namespaces.  `trainer` becomes `trainer.value`, as the JAX enum."""
+    """A config dict (as a YAML file holds it), checked against `SCHEMA` and
+    merged over the JAX defaults → namespaces.  `trainer` becomes
+    `trainer.value`, as the JAX enum."""
+    check_schema(raw or {})
     tree = _merge(DEFAULTS, raw or {})
     qz = tree["model"]["quantize"]
     if isinstance(qz, bool) or qz is None:

@@ -15,14 +15,15 @@ Counterpart of qflux_tpu/data/dataset.py:
     sample index, visit) as in JAX, so they repeat JAX's on every visit
     whatever order the loader's threads fetch in;
   * a sample the cache does not hold (or every sample, with the cache off):
-    its images read (`_read_image`: PNG by the port's own decoder,
-    utils/png.py; any other format through cv2, imported when needed, as
-    the JAX package reads every format), resampled by the processor, and
-    returned as pixels with `drop_context` for the Trainer to encode.
+    its images read (`_read_image`, `_read_mask`: as the JAX package's
+    cv2.imread reads them, by the port's own decoders, chosen by the
+    file's signature as cv2 chooses: PNG utils/png.py, JPEG utils/jpeg.py,
+    BMP utils/bmp.py), resampled by the processor, and returned as pixels
+    with `drop_context` for the Trainer to encode.
 
-An HF Hub dataset needs the network and the `datasets` package: it raises
-NotImplementedError naming ROADMAP.md queue 1 item 5b.  Batching is
-data/loader.py's.
+A WebP image, or any other format, raises NotImplementedError, and so does
+an HF Hub dataset (it needs the network and the `datasets` package); both
+name ROADMAP.md queue 1 item 5b.  Batching is data/loader.py's.
 """
 
 from __future__ import annotations
@@ -40,8 +41,9 @@ import numpy as np
 
 from qflux_tpu_torch.data.cache import EmbeddingCacheManager
 from qflux_tpu_torch.data.preprocess import ITEM_5B, ImageProcessor
+from qflux_tpu_torch.utils import bmp, jpeg
 from qflux_tpu_torch.utils.hashing import md5_string
-from qflux_tpu_torch.utils.png import SIGNATURE, read_png
+from qflux_tpu_torch.utils.png import SIGNATURE, decode_png
 
 IMG_EXTS = (".jpg", ".jpeg", ".png", ".bmp", ".webp")
 IMAGE_DIR_ALIASES = ["training_images", "images", "target_images", "target", "targets"]
@@ -63,54 +65,41 @@ _FLOAT = re.compile(r"[+-]?(\d+\.?\d*([eE][+-]?\d+)?|\.\d+([eE][+-]?\d+)?|inf|in
 _GRAY_WEIGHTS = (9797, 19235, 3736)
 
 
-def _is_png(path) -> bool:
+def _decode(path, grayscale: bool) -> np.ndarray:
+    """An image file's bytes → the decoder its signature names, as cv2.imread
+    picks one: PNG, JPEG (FF D8 FF) or BMP; WebP and anything else raise."""
+    if not os.path.exists(path):
+        raise FileNotFoundError(path)
     with open(path, "rb") as f:
-        return f.read(8) == SIGNATURE
-
-
-def _cv2(path, what: str):
-    try:
-        import cv2
-    except ImportError:
-        raise NotImplementedError(
-            f"{path}: reading {what} other than PNG needs cv2, which is not installed "
-            f"(decoding JPEG / BMP / WebP without it is {ITEM_5B}); convert the images "
-            "to PNG") from None
-    return cv2
+        data = f.read()
+    if data[:8] == SIGNATURE:
+        return decode_png(data)
+    if data[:3] == jpeg.SIGNATURE + b"\xff":
+        return jpeg.decode_jpeg(data, grayscale)
+    if data[:2] == bmp.SIGNATURE:
+        return bmp.decode_bmp(data, grayscale)
+    what = "WebP" if data[:4] == b"RIFF" and data[8:12] == b"WEBP" else "this format"
+    raise NotImplementedError(f"{path}: {what} is not decoded by the port ({ITEM_5B}); "
+                              "convert the image to PNG or JPEG")
 
 
 def _read_image(path) -> np.ndarray:
     """An image file → uint8 [H, W] (gray) or [H, W, 3] RGB, as the JAX
     package's cv2.imread(IMREAD_UNCHANGED) read gives it: alpha dropped,
-    gray + alpha as three equal channels.  PNG decodes here; other formats
-    through cv2."""
-    if not os.path.exists(path):
-        raise FileNotFoundError(path)
-    if _is_png(path):
-        img = read_png(path)
-        if img.ndim == 3:
-            img = np.repeat(img[:, :, :1], 3, axis=2) if img.shape[2] == 2 else img[:, :, :3]
-        return np.ascontiguousarray(img)
-    cv2 = _cv2(path, "images")
-    img = cv2.imread(str(path), cv2.IMREAD_UNCHANGED)
-    if img is None:
-        raise FileNotFoundError(path)
+    gray + alpha as three equal channels, no EXIF rotation."""
+    img = _decode(path, grayscale=False)
     if img.ndim == 3:
-        img = img[:, :, :3][:, :, ::-1]  # BGRA/BGR → RGB
+        img = np.repeat(img[:, :, :1], 3, axis=2) if img.shape[2] == 2 else img[:, :, :3]
     return np.ascontiguousarray(img)
 
 
 def _read_mask(path) -> np.ndarray:
-    """A mask file → uint8 [H, W], as cv2.imread(IMREAD_GRAYSCALE): a gray
-    PNG (with or without alpha) as it is, a color one through libpng's
-    truncating 15-bit weights (cv2's libpng converts in linear light: within
-    one step), other formats through cv2."""
-    if not os.path.exists(path):
-        raise FileNotFoundError(path)
-    if not _is_png(path):
-        cv2 = _cv2(path, "masks")
-        return cv2.imread(str(path), cv2.IMREAD_GRAYSCALE)
-    img = read_png(path)
+    """A mask file → uint8 [H, W], as cv2.imread(IMREAD_GRAYSCALE): a JPEG
+    or BMP by its decoder's grayscale read (a JPEG turned by its EXIF
+    orientation); a gray PNG (with or without alpha) as it is, a color one
+    through libpng's truncating 15-bit weights (cv2's libpng converts in
+    linear light: within one step)."""
+    img = _decode(path, grayscale=True)
     if img.ndim == 2:
         return img
     if img.shape[2] == 2:

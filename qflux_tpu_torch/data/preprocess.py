@@ -44,8 +44,8 @@ import numpy as np
 
 from qflux_tpu_torch.config import DEFAULTS, parse_pixels
 
-ITEM_5B = ("ROADMAP.md, queue 1 item 5b: \"The rest of the pixel path: non-PNG images "
-           "without cv2, HF Hub datasets\"")
+ITEM_5B = ("ROADMAP.md, queue 1 item 5b: \"The rest of the pixel path\", whose WebP "
+           "images and HF Hub datasets the port does not read")
 
 
 # ---------------------------------------------------------------------------

@@ -69,6 +69,8 @@ _SIGNATURES = {
     "qflux_int4_fwd": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]),
     "qflux_int4_bwd": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P]),
     "qflux_cuda_error_string": (ctypes.c_char_p, [_I]),
+    # host code (csrc/jpeg_decode.cu): utils/jpeg.py's native decoder
+    "qflux_jpeg_decode": (_I, [_P, _P, _I, _P, _P, _P, _P] + [_I] * 7 + [_P]),
 }
 
 

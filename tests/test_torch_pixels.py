@@ -215,8 +215,9 @@ def test_png_decoder_refuses_what_it_does_not_decode(tmp_path):
                                           (".jpg", 1), (".jpg", 3), (".bmp", 3)])
 def test_read_image_matches_jax(tmp_path, ext, channels):
     """_read_image against the JAX package's (cv2.imread UNCHANGED, BGR →
-    RGB, alpha dropped): PNG by the port's decoder, JPEG / BMP through cv2;
-    gray + alpha PNGs (written by PIL) as three equal channels."""
+    RGB, alpha dropped): PNG, JPEG and BMP each by the port's own decoder
+    (utils/png.py, utils/jpeg.py's plain version, utils/bmp.py); gray +
+    alpha PNGs (written by PIL) as three equal channels."""
     img = _photo(np.random.default_rng(channels), 24, 40, channels if channels != 2 else 1)
     path = tmp_path / f"x{ext}"
     if channels == 2:
@@ -266,11 +267,20 @@ def test_tensor_helpers_match_jax():
 
 
 def test_non_png_without_cv2_names_item_5b(tmp_path, monkeypatch):
+    """Without cv2 (the card's machine): a WebP image raises naming the
+    format and item 5b; a JPEG, a BMP and a PNG decode, images and masks."""
     cv2.imwrite(str(tmp_path / "x.jpg"), np.zeros((8, 8, 3), np.uint8))
+    cv2.imwrite(str(tmp_path / "x.bmp"), np.full((8, 8, 3), 5, np.uint8))
     cv2.imwrite(str(tmp_path / "x.png"), np.full((8, 8, 3), 9, np.uint8))
+    cv2.imwrite(str(tmp_path / "x.webp"), np.zeros((8, 8, 3), np.uint8))
     monkeypatch.setitem(sys.modules, "cv2", None)
-    with pytest.raises(NotImplementedError, match="item 5b"):
-        tdataset._read_image(tmp_path / "x.jpg")
+    with pytest.raises(NotImplementedError, match="WebP is not decoded by the port.*item 5b"):
+        tdataset._read_image(tmp_path / "x.webp")
+    with pytest.raises(NotImplementedError, match="WebP"):
+        tdataset._read_mask(tmp_path / "x.webp")
+    assert (tdataset._read_image(tmp_path / "x.jpg") == 0).all()
+    assert (tdataset._read_image(tmp_path / "x.bmp") == 5).all()
+    assert tdataset._read_mask(tmp_path / "x.jpg").shape == (8, 8)
     assert (tdataset._read_image(tmp_path / "x.png") == 9).all()
     with pytest.raises(FileNotFoundError):
         tdataset._read_image(tmp_path / "missing.png")
