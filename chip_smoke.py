@@ -295,6 +295,27 @@ printed (`python3 chip_smoke.py --optim` runs phase J alone):
      train thread's blocked ms per save, and a run resumed from the async
      checkpoint-2 equal to the uninterrupted one to the bit.
 
+Phase K (attention in f32 and the narrow modes, the f32 FLUX fit, variant
+test, the tokenizers; `--f32` alone) runs after J.  Multi-GPU distribution
+runs last, as phase L (`python3 chip_smoke.py --dist` runs it alone), on
+the one card as a world of one (NCCL refuses two ranks on one device):
+
+  L. (a) FLUX.1-Kontext-dev at full width, Trainer.fit 2 steps at bs=2
+     with no process group, then inside init_process_group("nccl",
+     world_size=1) with the base sharded by FSDP2 over the one-rank fsdp
+     group (K1 / K2 and cuBLAS read what FSDP2 unshards): the losses and
+     the LoRA held to each other (the largest difference printed; 0 is
+     expected), 57 / 57 K1 / K2 launches a step; (a′) path A's model (the
+     20B Qwen over int4_requant cut to AC_BLOCKS) one fit step at 512² the
+     same two ways, K5a / K5b (24n + 3 / 12n − 8) and K1 / K2 s_int8 as
+     counted unsharded; (b) `ring_attention_sharded` over the one-rank sp
+     group at S = 4,000, H = 24, D = 128, bf16, 26 masked rows, forward and
+     backward: out, dq, dk and dv equal to K3 / K4's to the bit, one K3 and
+     one K4 launch, the ring's ms against K3 + K4 alone; then
+     `python -m qflux_tpu_torch.main --distributed` as a subprocess with
+     torchrun's variables for a world of one (variant test, 2 steps): one
+     run dir, one checkpoint.
+
 Every temporary file (the fits' run dirs included) is removed before the
 smoke exits.  Each path runs with the launch counts set to 0 just before
 it and read just after.
@@ -3232,9 +3253,13 @@ def _flux_w8_counts(dit, b: int, s_img: int, s_txt: int) -> tuple[int, int, int]
 
 def _q_bytes(dit) -> tuple[int, int]:
     """(bytes of every quantized leaf and scale, bytes of the rest) of a DiT."""
-    qb = sum(t.numel() * t.element_size() for n, t in dit.named_buffers()
-             if n.rsplit(".", 1)[-1] in ("q", "q4", "scale"))
-    return qb, sum(p.numel() * p.element_size() for p in dit.parameters())
+    from qflux_tpu_torch.ops.layers import QUANT_LEAVES, iter_dense_paths
+
+    quant = {id(t): name for _, m in iter_dense_paths(dit) for name in QUANT_LEAVES
+             if (t := getattr(m, name)) is not None}
+    qb = sum(t.numel() * t.element_size() for t in dit.parameters()
+             if quant.get(id(t)) in ("q", "q4", "scale"))
+    return qb, sum(p.numel() * p.element_size() for p in dit.parameters() if id(p) not in quant)
 
 
 def phase_w8a8_flux(card: str) -> tuple[int, int, int, int]:
@@ -3437,7 +3462,7 @@ def _dequantized(model):
     multiplies the same weights as the weight-only route, which dequantizes
     to x.dtype (f32 for the AdaLN mods' f32 conditioning, bf16 elsewhere)."""
     from qflux_tpu_torch.ops import quant
-    from qflux_tpu_torch.ops.layers import iter_dense_paths
+    from qflux_tpu_torch.ops.layers import QUANT_LEAVES, iter_dense_paths
 
     ref = copy.deepcopy(model)
     for _, m in iter_dense_paths(ref):
@@ -3447,8 +3472,8 @@ def _dequantized(model):
             w = quant.dequantize_kernel_int4(m.q4, m.scale, torch.float32).t()
         else:
             w = quant.dequantize_kernel(m.q, m.scale.reshape(-1, 1), torch.float32)
-        for name in ("q4", "q", "scale", "rq_f", "rq_s_vec"):
-            m.register_buffer(name, None)
+        for name in QUANT_LEAVES:
+            setattr(m, name, None)
         m.weight = torch.nn.Parameter(w.contiguous(), requires_grad=False)
         m.q_form = None
     return ref
@@ -7810,6 +7835,290 @@ PROFILE_GROUPS = [("K5a rq_int4_fwd", ("rq_int4_fwd",)), ("K5b rq_int4_bwd", ("r
                   ("elementwise", ("elementwise", "vectorized", "unrolled"))]
 
 
+# ---------------------------------------------------------------------------
+# phase L: multi-GPU distribution on one card — a world of one under NCCL,
+# the frozen base sharded by FSDP2 over the one-rank fsdp group, the ring's
+# one-hop path over K3 / K4 at path B's width, and the --distributed CLI
+
+L_FIT_STEPS = 2     # FLUX.1-Kontext fit steps, bs = 2, sharded and not
+L_RING = (1, 4000, 24, 128, 26)  # the ring: B, S, H, D, masked rows (K3's row)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _l_shard(card: str, label: str, model, mesh) -> None:
+    """`shard_base` of `model` over `mesh`'s one-rank fsdp group (a world
+    of one under NCCL; the Trainer shards only where fsdp > 1, so phase L
+    calls it itself), then
+    checked: the root and every block are FSDPModules, and the parameters
+    that `param_specs` puts on the fsdp axis, and no others, are DTensors."""
+    from torch.distributed.fsdp import FSDPModule
+    from torch.distributed.tensor import DTensor
+
+    from qflux_tpu_torch.parallel.partitioning import block_lists, param_specs, shard_base
+
+    want = {n for n, (_, _, d) in param_specs(model, mesh.shape).items() if d is not None}
+    shard_base(model, mesh)
+    blocks = [b for _, bl in block_lists(model) for b in bl]
+    got = {n for n, p in model.named_parameters() if isinstance(p, DTensor)}
+    n_params = len(list(model.parameters()))
+    wrapped = isinstance(model, FSDPModule) and all(isinstance(b, FSDPModule) for b in blocks)
+    print(f"[dist] {label}: FSDP2 over the root and {len(blocks)} blocks: {wrapped}; "
+          f"{len(got)} parameters sharded (DTensors), {n_params - len(got)} left whole "
+          f"[{card}]", flush=True)
+    if not (wrapped and blocks and got and got == want):
+        raise AssertionError(f"{label}: the base is not sharded as the rules say: wrapped "
+                             f"{wrapped}, {len(got)} DTensors, {len(want)} expected, "
+                             f"{len(got ^ want)} differ")
+
+
+def _l_flux_fit(card: str, label: str, shard: bool = False) -> dict:
+    """FLUX.1-Kontext-dev at full width (synthetic weights from its seeds),
+    Trainer.fit L_FIT_STEPS steps at bs = 2: its losses, grad norms, LoRA
+    (on the host) and K1 / K2 launches, counted from just before the fit to
+    just after it.  With `shard` the base is sharded over the Trainer's
+    mesh (`_l_shard`)."""
+    from qflux_tpu_torch.trainer.base import Trainer, train_config
+
+    tt = Trainer(train_config(variant="full", max_train_steps=L_FIT_STEPS), device="cuda")
+    t0 = time.perf_counter()
+    tt.load_model()
+    if shard:
+        _l_shard(card, label, tt.bundle.dit_params, tt.mesh)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    cfg = tt.bundle.dit_cfg
+    gh, gw = tt.adapter.latent_grid(HEIGHT, WIDTH)
+    rng = np.random.default_rng(30)
+    batches = [_train_batch(rng, cfg, gh, gw, 2) for _ in range(L_FIT_STEPS)]
+    _reset_counts()
+    lora = _fit_in_tmp(tt, batches)
+    counts = _launch_counts()
+    hist = tt.history
+    step_ms = ", ".join(f"{1000 * h['step_s']:.1f}" for h in hist)
+    out = {"loss": [h["loss"] for h in hist], "grad_norm": [h["grad_norm"] for h in hist],
+           "lora": {p: {k: leaf[k].detach().cpu() for k in ("a", "b")}
+                    for p, leaf in lora.items()},
+           "counts": counts, "blocks": cfg.num_layers + cfg.num_single_layers}
+    print(f"[dist] {label}: FLUX.1-Kontext-dev {cfg.num_layers} + {cfg.num_single_layers} "
+          f"blocks loaded in {load_s:.1f} s, fit bs=2 ms/step {step_ms}, loss "
+          f"{', '.join(f'{v:.6f}' for v in out['loss'])}, K1 / K2 launches {counts[0]} / "
+          f"{counts[1]} [{card}]", flush=True)
+    del tt, lora, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _l_qwen_fit(card: str, label: str, shard: bool = False) -> dict:
+    """Path A's model (the 20B Qwen over int4_requant, cut to AC_BLOCKS)
+    at 512², one Trainer.fit step at bs = 1 under remat "flash": its loss,
+    LoRA and launches (_launch_counts' order).  With `shard` the quantized
+    base is sharded over the Trainer's mesh (`_l_shard`)."""
+    from qflux_tpu_torch.config import config_from_dict
+    from qflux_tpu_torch.trainer.base import Trainer
+
+    raw = copy.deepcopy(QWEN_832X576)
+    raw["mesh"]["remat"] = "flash"
+    raw["train"]["max_train_steps"] = 1
+    trainer, load_s = _qwen_cut(raw, AC_BLOCKS)
+    if shard:
+        _l_shard(card, label, trainer.bundle.dit_params, trainer.mesh)
+    cfg = trainer.bundle.dit_cfg
+    gh, gw = trainer.adapter.latent_grid(QWEN512, QWEN512)
+    batches = [_qwen_train_batch(np.random.default_rng(31), cfg, gh, gw, 1)]
+    tt = Trainer(config_from_dict(raw), device="cuda")
+    tt.adapter = dataclasses.replace(trainer.adapter, remat_policy="flash")
+    tt.bundle = trainer.bundle
+    _reset_counts()
+    lora = _fit_in_tmp(tt, batches)
+    counts = _launch_counts()
+    out = {"loss": [h["loss"] for h in tt.history],
+           "lora": {p: {k: leaf[k].detach().cpu() for k in ("a", "b")}
+                    for p, leaf in lora.items()}, "counts": counts, "blocks": cfg.num_layers}
+    print(f"[dist] {label}: the 20B Qwen over int4_requant, {cfg.num_layers} blocks, loaded in "
+          f"{load_s:.1f} s, one fit step at 512² bs=1 in {1000 * tt.history[0]['step_s']:.1f} "
+          f"ms, loss {out['loss'][0]:.6f}, launches ({COUNT_NAMES}) {counts} [{card}]",
+          flush=True)
+    del tt, trainer, lora
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _l_compare(card: str, label: str, plain: dict, sharded: dict) -> None:
+    """The sharded run against the unsharded one: prints the largest
+    difference of the losses and of the LoRA after the steps (0 where equal
+    to the bit); raises past 1e-3 of their size."""
+    d_loss = max(abs(a - b) for a, b in zip(plain["loss"], sharded["loss"]))
+    d_lora = max(float((plain["lora"][p][k] - sharded["lora"][p][k]).abs().max())
+                 for p in plain["lora"] for k in ("a", "b"))
+    scale = max(float(plain["lora"][p][k].abs().max()) for p in plain["lora"] for k in "ab")
+
+    def said(d):
+        return "equal to the bit" if d == 0 else f"max diff {d:.3e}"
+
+    why = ("" if d_loss == d_lora == 0 else " (FSDP2 hands the kernels copies of the same "
+           "weights, so a difference is an algorithm choice that depends on the pointers, "
+           "not different numbers)")
+    print(f"[dist] {label}: sharded (FSDP2 over the one-rank fsdp group, NCCL) against no "
+          f"process group: losses {said(d_loss)}, LoRA {said(d_lora)} (LoRA max |x| "
+          f"{scale:.3e}){why} [{card}]", flush=True)
+    if len(plain["loss"]) != len(sharded["loss"]) or not (
+            d_loss <= 1e-3 * max(abs(v) for v in plain["loss"]) and d_lora <= 1e-3 * scale):
+        raise AssertionError(f"{label}: the sharded run left the unsharded one: loss "
+                             f"{d_loss:.3e}, LoRA {d_lora:.3e}")
+
+
+def _l_ring(card: str, mesh) -> dict:
+    """`ring_attention_sharded` over the one-rank sp group at path B's
+    width, bf16, forward and backward: one hop merges with weights 0 and 1,
+    so out, dq, dk and dv must equal `flash_attention`'s K3 / K4 on the same
+    inputs to the bit; one K3 and one K4 launch in the ring; the ring's ms
+    against K3 + K4 alone (CUDA events, forward and backward)."""
+    from qflux_tpu_torch.ops import flash_attention
+    from qflux_tpu_torch.ops.ring_attention import ring_attention_sharded
+
+    b, s, h, d, masked = L_RING
+    gen = torch.Generator("cuda").manual_seed(32)
+    q, k, v, do = (torch.randn(b, s, h, d, device="cuda", generator=gen).to(torch.bfloat16)
+                   for _ in range(4))
+    seg = torch.ones(b, s, dtype=torch.int32, device="cuda")
+    seg[:, s - masked:] = 0
+
+    def run(fn):
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves)
+        out.backward(do)
+        return [out.detach()] + [t.grad for t in leaves]
+
+    def ring(q_, k_, v_):
+        return ring_attention_sharded(q_, k_, v_, mesh, segment_ids=seg)
+
+    def k3k4(q_, k_, v_):
+        return flash_attention.flash_attention(q_, k_, v_, segment_ids=seg)
+
+    _reset_counts()
+    got = run(ring)
+    torch.cuda.synchronize()
+    launches = (flash_attention.KERNEL_LAUNCHES, flash_attention.BWD_KERNEL_LAUNCHES)
+    want = run(k3k4)
+    diffs = [float((g.float() - w.float()).abs().max()) for g, w in zip(got, want)]
+    ring_ms = _rotating_ms(lambda i: run(ring), 1, reps=5)
+    k_ms = _rotating_ms(lambda i: run(k3k4), 1, reps=5)
+    print(f"[dist] ring over the one-rank sp group, B={b} S={s} H={h} D={d} bf16, {masked} "
+          f"masked rows: out / dq / dk / dv max diff against K3 / K4 {diffs} (expected 0: "
+          f"one hop, weights 0 and 1); K3 / K4 launches in the ring {launches}; ring fwd+bwd "
+          f"{ring_ms:.4f} ms against K3 + K4 alone {k_ms:.4f} ms (overhead "
+          f"{ring_ms - k_ms:.4f} ms: the merge, the sp group's gather and chunk copies) "
+          f"[{card}]", flush=True)
+    if any(x != 0 for x in diffs) or launches != (1, 1):
+        raise AssertionError(f"the one-hop ring left K3 / K4: {diffs}, launches {launches}")
+    return {"launches": launches, "ring_ms": ring_ms, "k3k4_ms": k_ms}
+
+
+def _l_cli(card: str) -> None:
+    """`python -m qflux_tpu_torch.main --distributed` as a subprocess with
+    torchrun's variables for a world of one (NCCL on cuda:0), variant test
+    from a cached folder, 2 steps: one run dir and one checkpoint."""
+    from qflux_tpu_torch.models.flux.transformer import FluxConfig
+
+    tmp = Path(tempfile.mkdtemp(prefix="qflux_smoke_dist_"))
+    try:
+        rng = np.random.default_rng(33)
+        items = [flux_cache_item(rng, FluxConfig.tiny(), 4, 4, s_txt=8) for _ in range(4)]
+        data, _ = write_cached_dataset(tmp, items, FLUX_HASH_KEYS)
+        raw = multires_config(data, tmp, True, variant="test", steps=2)
+        path = tmp / "dist.json"
+        path.write_text(json.dumps(raw))
+        env = {**os.environ, "RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+               "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(_free_port()),
+               "PYTHONPATH": str(Path(__file__).resolve().parent)}
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "qflux_tpu_torch.main", "--config",
+                               str(path), "--distributed"], cwd=tmp, env=env,
+                              capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        runs = sorted((tmp / "flux_multires").glob("v*"))
+        ckpts = sorted(c.name for r in runs for c in r.glob("checkpoint*"))
+        print(f"[dist] python -m qflux_tpu_torch.main --distributed (RANK 0 of WORLD_SIZE 1, "
+              f"NCCL): exit {proc.returncode} in {wall:.1f} s, run dirs "
+              f"{[r.name for r in runs]}, checkpoints {ckpts} [{card}]", flush=True)
+        if proc.returncode != 0 or [r.name for r in runs] != ["v0"] or ckpts != [
+                "checkpoint-last-2"]:
+            raise AssertionError(f"--distributed run failed:\n{proc.stdout[-3000:]}\n"
+                                 f"{proc.stderr[-3000:]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_distributed(card: str) -> dict:
+    """Phase L.  (a) FLUX.1-Kontext-dev's fit, then (a′) path A's int4-requant
+    step, each first with no process group, then inside
+    init_process_group("nccl", world_size=1) with the base sharded by FSDP2
+    over the one-rank fsdp group (`_l_shard`: the Trainer itself shards
+    only where fsdp > 1; here the kernels read what FSDP2 unshards), held
+    to each other; (b) the ring at path B's width over the one-rank sp
+    group against K3 / K4; then the --distributed CLI.  Returns the launches
+    of the sharded runs ({path: _launch_counts' order})."""
+    import torch.distributed as dist
+
+    from qflux_tpu_torch.parallel.mesh import MeshConfig, build_mesh, set_active_mesh
+
+    flux_plain = _l_flux_fit(card, "(a) unsharded")
+    qwen_plain = _l_qwen_fit(card, "(a') unsharded")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}", rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        flux = _l_flux_fit(card, "(a) sharded", shard=True)
+        _l_compare(card, "(a) FLUX.1-Kontext-dev fit", flux_plain, flux)
+        n = flux["blocks"]
+        want = (n * L_FIT_STEPS, n * L_FIT_STEPS)
+        print(f"[dist] (a) K1 / K2 launches {flux['counts'][:2]}, {n} / {n} a step [{card}]",
+              flush=True)
+        if flux["counts"][:2] != want or flux_plain["counts"][:2] != want:
+            raise AssertionError(f"(a) K1 / K2 launched {flux['counts'][:2]}, expected {want}")
+        qwen = _l_qwen_fit(card, "(a') sharded", shard=True)
+        _l_compare(card, "(a') int4-requant Qwen step", qwen_plain, qwen)
+        nq = qwen["blocks"]
+        want_q = (2 * 12 * nq + 3, 6 + 12 * (nq - 2) + 9 + 1)
+        if qwen["counts"] != qwen_plain["counts"] or qwen["counts"][2:4] != want_q:
+            raise AssertionError(f"(a') launches {qwen['counts']} (unsharded "
+                                 f"{qwen_plain['counts']}), K5a / K5b expected {want_q}")
+        ring = _l_ring(card, build_mesh(MeshConfig(dp=1, fsdp=1, sp=1)))
+    finally:
+        set_active_mesh(None)
+        dist.destroy_process_group()
+    _l_cli(card)
+    return {"distributed_fit": flux["counts"], "distributed_int4": qwen["counts"],
+            "ring": (0,) * 8 + ring["launches"] + (0,)}
+
+
+def dist_main() -> int:
+    """`python3 chip_smoke.py --dist`: phase L alone (its kernels built
+    first), for iterating on it; the smoke runs it after phase K."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from qflux_tpu_torch.runtime.build import load_library
+
+    smi = _nvidia_smi()
+    print(smi, flush=True)
+    card = ", ".join(x.strip() for x in smi.split(",", 1))
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    load_library()
+    t0 = time.perf_counter()
+    phase_distributed(card)
+    print(f"[smoke] phase L: {time.perf_counter() - t0:.1f} s [{card}]", flush=True)
+    return 0
+
+
 def _profile(card: str, label: str, fn) -> None:
     """`fn` once to warm up, then once under torch.profiler: wall time,
     device busy time and share, and device time by kernel group, by kernel
@@ -8593,6 +8902,16 @@ def main() -> int:
           f"test on the card, the first-party tokenizers): "
           f"{time.perf_counter() - t_k:.1f} s [{card}]", flush=True)
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_l = time.perf_counter()
+    l_paths = timed(phase_distributed)
+    l_all = tuple(map(sum, zip(*l_paths.values())))
+    print(f"[smoke] phase L (a world of one under NCCL: FLUX.1-Kontext-dev's fit and path A's "
+          f"int4-requant step over the FSDP2-sharded base against the unsharded runs, the "
+          f"one-hop ring at path B's width against K3 / K4, the --distributed CLI): "
+          f"{time.perf_counter() - t_l:.1f} s [{card}]", flush=True)
+
     def simt_entry(name, replaces, mode, source):
         by = {path: d[name] for path, d in k_paths.items() if d.get(name)}
         return {"name": name, "route": "cuda", "source": source,
@@ -8603,7 +8922,8 @@ def main() -> int:
         return {**{f"qwen_pixels_{k}": v[i] for k, v in g.items() if v[i]},
                 **{k: v[i] for k, v in h.items() if v[i]},
                 **{k: v[i] for k, v in i_paths.items() if v[i]},
-                **{k: v[i] for k, v in j_paths.items() if v[i]}}
+                **{k: v[i] for k, v in j_paths.items() if v[i]},
+                **{k: v[i] for k, v in l_paths.items() if v[i]}}
 
     print(f"[smoke] wall time {time.perf_counter() - t_start:.1f} s (build included) [{card}]",
           flush=True)
@@ -8613,7 +8933,7 @@ def main() -> int:
          "replaces": "qflux_tpu/ops/flash_nr.py:192",
          "launches": (k1_predict + k1_train + k1_fa + k1_fb + d_flux[0] + k1_c + k1_ct + k1_e
                       + k1_eq + f["fit"][0] + f["validation"] + f["predict"] + g_all[0]
-                      + h_all[0] + i_all[0] + j_all[0]),
+                      + h_all[0] + i_all[0] + j_all[0] + l_all[0]),
          "launches_by_path": {"predict": k1_predict, "train": k1_train,
                               "files_flux_resume": k1_fa, "files_flux_weights": k1_fb,
                               "data_flux_cli": d_flux[0],
@@ -8625,7 +8945,7 @@ def main() -> int:
          "source": "qflux_tpu_torch/csrc/flash_nr_bwd.cu",
          "replaces": "qflux_tpu/ops/flash_nr.py:311",
          "launches": (k2_train + k2_fa + d_flux[1] + k2_ct + k2_e + f["fit"][1] + h_all[1]
-                      + i_all[1] + j_all[1]),
+                      + i_all[1] + j_all[1] + l_all[1]),
          "launches_by_path": {"train": k2_train, "files_flux_resume": k2_fa,
                               "data_flux_cli": d_flux[1], "int4_train": k2_ct,
                               "w8a8_flux": k2_e, "cache_pass_fit": f["fit"][1],
@@ -8634,20 +8954,22 @@ def main() -> int:
          "source": "qflux_tpu_torch/csrc/flash_fwd.cu",
          "replaces": "qflux_tpu/ops/flash_attention.py:105",
          "launches": (k3_qwen + k3_qt + k3_fc + d_flux[8] + d_qwen[8] + g_all[8] + h_all[8]
-                      + i_all[8]),
+                      + i_all[8] + l_all[8]),
          "launches_by_path": {"qwen_predict": k3_qwen, "qwen_train": k3_qt,
                               "files_qwen": k3_fc, "data_flux_cli": d_flux[8],
                               "data_qwen_fit": d_qwen[8], **by_path(8)}, **k3_case},
         {"name": "flash_bwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/flash_bwd.cu",
          "replaces": "qflux_tpu/ops/flash_attention.py:288, :215, :251",
-         "launches": k4_qt + d_flux[9] + d_qwen[9] + g_all[9] + h_all[9] + i_all[9],
+         "launches": (k4_qt + d_flux[9] + d_qwen[9] + g_all[9] + h_all[9] + i_all[9]
+                      + l_all[9]),
          "launches_by_path": {"qwen_train": k4_qt, "data_flux_cli": d_flux[9],
                               "data_qwen_fit": d_qwen[9], **by_path(9)}, **k4_case},
         {"name": "rq_int4_fwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/rq_int4_fwd.cu",
          "replaces": "qflux_tpu/ops/int4_matmul.py:268",
-         "launches": k5_qwen + k5_qt + k5_a + k5_at + k5_fc + d_qwen[2] + g_all[2] + i_all[2],
+         "launches": (k5_qwen + k5_qt + k5_a + k5_at + k5_fc + d_qwen[2] + g_all[2] + i_all[2]
+                      + l_all[2]),
          "launches_by_path": {"qwen_predict": k5_qwen, "qwen_train": k5_qt,
                               "qwen512_predict": k5_a, "qwen512_train": k5_at,
                               "files_qwen": k5_fc, "data_qwen_fit": d_qwen[2],
@@ -8655,14 +8977,14 @@ def main() -> int:
         {"name": "rq_int4_bwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/rq_int4_bwd.cu",
          "replaces": "qflux_tpu/ops/int4_matmul.py:286",
-         "launches": k5b_qt + k5b_at + d_qwen[3] + g_all[3] + i_all[3],
+         "launches": k5b_qt + k5b_at + d_qwen[3] + g_all[3] + i_all[3] + l_all[3],
          "launches_by_path": {"qwen_train": k5b_qt, "qwen512_train": k5b_at,
                               "data_qwen_fit": d_qwen[3], **by_path(3)}, **k5b_case},
         {"name": "rowquant", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/rowquant.cu",
          "replaces": "not a TPU kernel: qflux_tpu/ops/quant.py:144 _rowquant, left to XLA",
          "launches": (rq_qwen + rq_qt + rq_a + rq_at + rq_fc + d_qwen[10] + rq_e + g_all[10]
-                      + i_all[10]),
+                      + i_all[10] + l_all[10]),
          "launches_by_path": {"qwen_predict": rq_qwen, "qwen_train": rq_qt,
                               "qwen512_predict": rq_a, "qwen512_train": rq_at,
                               "files_qwen": rq_fc, "data_qwen_fit": d_qwen[10],
@@ -8671,12 +8993,15 @@ def main() -> int:
         {"name": "flash_nr_fwd s_int8", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/flash_nr_fwd.cu",
          "replaces": "qflux_tpu/ops/flash_nr.py:192", "mode": "s_int8",
-         "launches": k1_a + k1_at,
-         "launches_by_path": {"qwen512_predict": k1_a, "qwen512_train": k1_at}, **k1_int8_case},
+         "launches": k1_a + k1_at + l_all[4],
+         "launches_by_path": {"qwen512_predict": k1_a, "qwen512_train": k1_at,
+                              **{k: v[4] for k, v in l_paths.items() if v[4]}}, **k1_int8_case},
         {"name": "flash_nr_bwd s_int8", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/flash_nr_bwd.cu",
          "replaces": "qflux_tpu/ops/flash_nr.py:311", "mode": "s_int8",
-         "launches": k2_at, "launches_by_path": {"qwen512_train": k2_at}, **k2_int8_case},
+         "launches": k2_at + l_all[5],
+         "launches_by_path": {"qwen512_train": k2_at,
+                              **{k: v[5] for k, v in l_paths.items() if v[5]}}, **k2_int8_case},
         {"name": "int4_fwd", "route": "cuda",
          "source": "qflux_tpu_torch/csrc/int4_fwd.cu",
          "replaces": "qflux_tpu/ops/int4_matmul.py:59",
@@ -8730,6 +9055,8 @@ if __name__ == "__main__":
         sys.exit(remat_main() if torch.cuda.is_available() else 1)
     if len(sys.argv) == 2 and sys.argv[1] == "--optim":
         sys.exit(optim_main() if torch.cuda.is_available() else 1)
+    if len(sys.argv) == 2 and sys.argv[1] == "--dist":
+        sys.exit(dist_main() if torch.cuda.is_available() else 1)
     if len(sys.argv) == 2 and sys.argv[1] == "--f32":
         sys.exit(f32_main() if torch.cuda.is_available() else 1)
     if len(sys.argv) == 2 and sys.argv[1] == "--decode":

@@ -10,7 +10,7 @@ and every `Literal`'s choices, kept here because the port imports no
 pydantic): a key no section of that schema has, a value outside a
 `Literal` or enum, a section given as something other than a mapping, and a
 validation sample with keys other than prompt / images / height / width.
-Keys that JAX accepts and the port does not read (`mesh.dp`,
+Keys that JAX accepts and the port does not read (`mesh.dcn_axes`,
 `train.auto_entry_layouts`, …) are carried over as they are; the values of
 the dict-valued fields (`_DICT_FIELDS`) are free.  The defaults below are
 those of qflux_tpu/config.py for every field the port reads.  Its
@@ -48,7 +48,7 @@ DEFAULTS: dict = {
     "trainer": "FluxKontextLoraTrainer",
     "mode": "fit",
     "resume": None,
-    "mesh": {"remat": "flash"},
+    "mesh": {"dp": 1, "fsdp": -1, "tp": 1, "sp": 1, "dcn_axes": [], "remat": "flash"},
     "model": {
         "pretrained_model_name_or_path": None,
         "dit_path": None,

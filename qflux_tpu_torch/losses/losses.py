@@ -10,6 +10,16 @@ reductions:
 
 Every loss takes the full kwargs set (weighting / edit_mask /
 attention_mask) and ignores what it does not use.
+
+Under data parallelism each rank holds its rows of the global batch, and
+`data` (a `DataShard`: this rank's index among the data ranks, their
+number, their process group) makes a loss return the rank's SHARE of the
+global loss, so that the shares sum over the data ranks to JAX's
+global-batch value (and their gradients, summed, to its gradient): "mean"
+reductions divide the rank's mean of per-sample means by the number of
+ranks (the ranks hold equal row counts), `AttentionMaskMseLoss` divides by
+the global Σa (summed over the ranks, eps added once), and "sum" is the
+rank's own sum.
 """
 
 from __future__ import annotations
@@ -17,6 +27,31 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class DataShard:
+    """This rank's place among the data ranks (dp × fsdp): `index` of
+    `size`, reducing over `group` (None: one rank, nothing to reduce)."""
+
+    index: int = 0
+    size: int = 1
+    group: object = None
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        """t summed over the data ranks (no gradient flows through it)."""
+        if self.size == 1:
+            return t
+        import torch.distributed as dist
+
+        t = t.detach().clone()
+        dist.all_reduce(t, group=self.group)
+        return t
+
+
+def _share(x, data):
+    """A rank's mean as its share of the global mean."""
+    return x if data is None or data.size == 1 else x / data.size
 
 
 def map_mask_to_latent(image_mask, vae_scale: int = 8):
@@ -50,15 +85,15 @@ def _edit_weights(edit_mask, fg: float, bg: float):
 class MseLoss:
     reduction: str = "mean"
 
-    def __call__(self, model_pred, target, weighting=None, **_):
+    def __call__(self, model_pred, target, weighting=None, data=None, **_):
         err = _sq_err(model_pred, target, weighting)
         if weighting is not None and self.reduction == "mean":
-            return _sample_mean(err)
+            return _share(_sample_mean(err), data)
         if self.reduction == "none":
             return err
         if self.reduction == "sum":
             return err.sum()
-        return err.mean()
+        return _share(err.mean(), data)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,7 +102,7 @@ class MaskEditLoss:
     background_weight: float = 1.0
     reduction: str = "mean"
 
-    def __call__(self, model_pred, target, weighting=None, edit_mask=None, **_):
+    def __call__(self, model_pred, target, weighting=None, edit_mask=None, data=None, **_):
         err = _sq_err(model_pred, target, weighting)
         if edit_mask is None:
             edit_mask = torch.ones(model_pred.shape[:2], device=model_pred.device)
@@ -77,7 +112,7 @@ class MaskEditLoss:
             return err
         if self.reduction == "sum":
             return err.sum()
-        return _sample_mean(err)
+        return _share(_sample_mean(err), data)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,7 +126,7 @@ class AttentionMaskMseLoss:
     reduction: str = "mean"
 
     def __call__(self, model_pred, target, attention_mask=None, edit_mask=None,
-                 weighting=None, **_):
+                 weighting=None, data=None, **_):
         err = _sq_err(model_pred, target, weighting)
         if edit_mask is not None:
             err = err * _edit_weights(edit_mask, self.foreground_weight,
@@ -103,4 +138,5 @@ class AttentionMaskMseLoss:
             return token_loss * a
         if self.reduction == "sum":
             return (token_loss * a).sum()
-        return (token_loss * a).sum() / (a.sum() + self.eps)
+        total = a.sum() if data is None else data.sum(a.sum())
+        return (token_loss * a).sum() / (total + self.eps)

@@ -24,8 +24,22 @@ trainer of JAX's (FLUX.1-Kontext and DreamOmni2: CLIP-L, T5-XXL and the VAE
 encoder, with DreamOmni2's Qwen2.5-VL prompt enhancer where it is on;
 Qwen-Image-Edit and -Plus: Qwen2.5-VL and the 3D VAE encoder; FLUX.2-Klein:
 Qwen3 and the VAE encoder).  The device defaults to cuda; `--device
-cpu` runs the kernels' plain versions (tests, tiny models).  Not ported: `--distributed` (item
-8) and `--plan` (XLA's memory analysis: not ported at all).
+cpu` runs the kernels' plain versions (tests, tiny models).
+
+--distributed joins the process group from torchrun's environment (RANK,
+WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT), as JAX calls
+`jax.distributed.initialize()`: NCCL on cuda (this rank's device
+cuda:LOCAL_RANK), gloo only with `--device cpu`; a failed rendezvous
+raises.  The Trainer then builds config.mesh over the ranks (dp, fsdp and
+sp run; tp > 1 raises, naming queue 1 item 8b):
+
+    torchrun --nproc-per-node N -m qflux_tpu_torch.main --distributed --config cfg.yaml
+
+Every rank iterates the same seeded loader order and takes its own rows of
+each batch (`Trainer._rank_rows`), as JAX's processes do; only the main
+rank writes files (the run dir's logs and checkpoints, --predict's
+images, the cache).  A rank's exception ends the run with a non-zero exit.
+Not ported: `--plan` (XLA's memory analysis: on the "Do not port" list).
 """
 
 from __future__ import annotations
@@ -35,7 +49,6 @@ import logging
 import os
 import sys
 
-ITEM_8 = "ROADMAP.md, queue 1 item 8: \"Distribution\""
 PREDICT_ONLY = ("control", "prompt", "output", "steps")
 
 
@@ -55,7 +68,7 @@ def parse_args(argv=None):
                    "(default prediction.png)")
     p.add_argument("--steps", type=int, default=None, help="inference steps for --predict")
     p.add_argument("--distributed", action="store_true",
-                   help="multi-process training (not ported)")
+                   help="join torchrun's process group (NCCL on cuda, gloo on cpu)")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a torch.profiler trace of steps 2-4 into DIR")
     p.add_argument("--plan", action="store_true", help="memory preflight (not ported)")
@@ -69,8 +82,6 @@ def parse_args(argv=None):
 
 
 def _refuse_unported(args) -> None:
-    if args.distributed:
-        raise NotImplementedError(f"--distributed is not ported yet ({ITEM_8})")
     if args.plan:
         raise NotImplementedError(
             "--plan (XLA memory_analysis) is not ported: it is on ROADMAP.md's \"Do not port\" "
@@ -80,6 +91,7 @@ def _refuse_unported(args) -> None:
 def _predict(trainer, args) -> list:
     """--predict: read the controls, edit, write every output image."""
     from qflux_tpu_torch.data.dataset import _read_image
+    from qflux_tpu_torch.parallel.collectives import is_main_process
     from qflux_tpu_torch.utils.png import encode_png
 
     if not args.control or args.prompt is None:
@@ -92,9 +104,10 @@ def _predict(trainer, args) -> list:
     paths = []
     for i, im in enumerate(imgs):
         path = output if i == 0 else f"{stem}-{i}{ext}"
-        with open(path, "wb") as f:
-            f.write(encode_png(im))
-        logging.info("wrote %s", path)
+        if is_main_process():  # every rank edits (in step, over a sharded base); one writes
+            with open(path, "wb") as f:
+                f.write(encode_png(im))
+            logging.info("wrote %s", path)
         paths.append(path)
     return paths
 
@@ -106,6 +119,11 @@ def main(argv=None):
         format="%(asctime)s %(process)d %(filename)s:%(lineno)d %(levelname)s %(message)s")
     args = parse_args(argv)
     _refuse_unported(args)
+    device = args.device
+    if args.distributed:
+        from qflux_tpu_torch.parallel.mesh import init_distributed
+
+        device = str(init_distributed(args.device))
 
     from qflux_tpu_torch.config import load_config_from_yaml
     from qflux_tpu_torch.data.loader import DataLoader
@@ -128,7 +146,7 @@ def main(argv=None):
     if args.profile:
         config.logging.profile_dir = args.profile
 
-    trainer = Trainer(config, device=args.device)
+    trainer = Trainer(config, device=device)
     if config.mode == "predict":
         trainer.last_outputs = _predict(trainer, args)
         return trainer

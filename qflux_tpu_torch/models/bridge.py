@@ -99,6 +99,7 @@ def _load(module: nn.Module, tree: Mapping[str, Any], loaded: set, path: str) ->
                 raise ValueError(f"{path}{key}: {q.dtype} is no quantized form")
             q = q.t() if q.dim() == 2 else q
         module.set_quantized(q.to(dev), scale, form)
+        loaded.update(id(p) for p in module.parameters(recurse=False))
         tree = {k: v for k, v in tree.items() if k not in (key, "kernel_scale")}
     for key, val in tree.items():
         if isinstance(val, Mapping):

@@ -136,6 +136,15 @@ class DualBlock(nn.Module):
         self.img_mlp = MLP(dim, hidden, **kw)
         self.txt_mlp = MLP(dim, hidden, **kw)
 
+    def forward(self, fn, img, txt, temb):
+        """`fn(self, img, txt, i_mods, t_mods)` (`_dual_block`, under its
+        checkpoint in training) after the AdaLN mods, computed here and
+        outside the checkpoint.  A module call, so that FSDP2's hooks gather
+        a sharded block's weights before its forward and before the
+        recompute in backward."""
+        return fn(self, img, txt, ada_ln_mods(self.img_mod.proj, temb, 6),
+                  ada_ln_mods(self.txt_mod.proj, temb, 6))
+
 
 class SingleBlock(nn.Module):
     def __init__(self, cfg: FluxConfig, device=None, dtype=None):
@@ -148,6 +157,10 @@ class SingleBlock(nn.Module):
         # split proj_out, as the JAX tree: o @ W[:d] (+ bias) + mlp @ W[d:]
         self.proj_out = Dense(dim, dim, **kw)
         self.proj_out_mlp = Dense(hidden, dim, bias=False, **kw)
+
+    def forward(self, fn, x, temb):
+        """`fn(self, x, mods)` after the AdaLN mods, as `DualBlock.forward`."""
+        return fn(self, x, ada_ln_mods(self.mod.proj, temb, 3))
 
 
 class FluxTransformer(nn.Module):
@@ -172,6 +185,11 @@ class FluxTransformer(nn.Module):
         self.norm_out = AdaProj(dim, 2, **kw)
         self.proj_out = Dense(dim, cfg.patch_size ** 2 * cfg.out_channels, **kw)
 
+    def forward(self, cfg: FluxConfig, *args, **kwargs):
+        """The module-level `forward` over this model, through a module call
+        (FSDP2's root hooks, `parallel/partitioning.py:shard_base`)."""
+        return _forward(self, cfg, *args, **kwargs)
+
 
 def init(generator: torch.Generator, cfg: FluxConfig, device=None,
          dtype=torch.bfloat16) -> FluxTransformer:
@@ -186,7 +204,7 @@ def init(generator: torch.Generator, cfg: FluxConfig, device=None,
 
 
 def load_from_state_dict(sd, cfg: FluxConfig, device=None, dtype=torch.bfloat16,
-                         quantize=None) -> FluxTransformer:
+                         quantize=None, mesh=None) -> FluxTransformer:
     """The DiT from a diffusers state dict (`utils/safetensors.SafeTensors`
     reads it lazily), one block at a time: each block's tensors are read,
     converted (`models/porting.py`, in f32, as the JAX loader converts),
@@ -196,10 +214,12 @@ def load_from_state_dict(sd, cfg: FluxConfig, device=None, dtype=torch.bfloat16,
     time, on the host or the device.  The parameters equal those of
     `bridge.load_params` over `porting.convert_flux_transformer` of the
     whole dict.  Tensors that no converter reads are reported in a
-    warning."""
+    warning.  With `mesh` (a parallel/mesh.Mesh) each block is sharded
+    over its fsdp ranks as it loads (`parallel/partitioning.py:shard_module`)."""
     from qflux_tpu_torch.models import porting
     from qflux_tpu_torch.models.bridge import load_params
     from qflux_tpu_torch.ops.quant import quantize_tree
+    from qflux_tpu_torch.parallel.partitioning import shard_module
 
     tsd = porting.TrackingStateDict(sd)
     dh = cfg.attention_head_dim
@@ -213,6 +233,8 @@ def load_from_state_dict(sd, cfg: FluxConfig, device=None, dtype=torch.bfloat16,
                                 convert(tsd, i, head_dim=dh))
             if quantize is not None:
                 quantize_tree(block, quantize, prefix=f"{name}/{i}/")
+            if mesh is not None:
+                shard_module(block, mesh, f"{name}/{i}/")
             getattr(model, name).append(block)
     porting.report_unconsumed(tsd.unconsumed(), len(sd), "the FLUX DiT loader")
     return model
@@ -309,18 +331,27 @@ def _remat(fn, policy: str, kind: str):
     return functools.partial(checkpoint, fn, use_reentrant=False, context_fn=ctx)
 
 
-def forward(params: FluxTransformer, cfg: FluxConfig,
-            hidden_states,              # [B, S_img, in_channels] packed latents
-            encoder_hidden_states,      # [B, S_txt, joint_attention_dim]
-            pooled_projections,         # [B, pooled_projection_dim] or None
-            timestep,                   # [B] in [0, 1]
-            img_ids,                    # [S_img, 3] or [B, S_img, 3]
-            txt_ids,                    # [S_txt, 3] or [B, S_txt, 3]
-            guidance=None,              # [B]
-            segment_ids: Optional[torch.Tensor] = None,  # [B, S_txt+S_img]; 0 = padding
-            attn_impl: str = "auto",
-            remat: bool = True,
-            remat_policy: str = "full"):     # a name of remat.POLICY_NAMES
+def forward(params: FluxTransformer, cfg: FluxConfig, *args, **kwargs):
+    """Returns [B, S_img, out_channels] velocity prediction (full sequence —
+    callers slice [:, :S_target] to drop control-image positions); the
+    arguments are `_forward`'s.  Runs as a call of `params`, and each block
+    as a call of its module, so that a base sharded by FSDP2 is gathered
+    block by block."""
+    return params(cfg, *args, **kwargs)
+
+
+def _forward(params: FluxTransformer, cfg: FluxConfig,
+             hidden_states,              # [B, S_img, in_channels] packed latents
+             encoder_hidden_states,      # [B, S_txt, joint_attention_dim]
+             pooled_projections,         # [B, pooled_projection_dim] or None
+             timestep,                   # [B] in [0, 1]
+             img_ids,                    # [S_img, 3] or [B, S_img, 3]
+             txt_ids,                    # [S_txt, 3] or [B, S_txt, 3]
+             guidance=None,              # [B]
+             segment_ids: Optional[torch.Tensor] = None,  # [B, S_txt+S_img]; 0 = padding
+             attn_impl: str = "auto",
+             remat: bool = True,
+             remat_policy: str = "full"):     # a name of remat.POLICY_NAMES
     """Returns [B, S_img, out_channels] velocity prediction (full sequence —
     callers slice [:, :S_target] to drop control-image positions).  With
     `remat` and autograd recording, every block is recomputed in backward
@@ -357,11 +388,10 @@ def forward(params: FluxTransformer, cfg: FluxConfig,
         if torch.is_grad_enabled():
             dual_fn, single_fn = remat_dual, remat_single
     for p in params.dual:
-        img, txt = dual_fn(p, img, txt, ada_ln_mods(p.img_mod.proj, temb, 6),
-                           ada_ln_mods(p.txt_mod.proj, temb, 6))
+        img, txt = p(dual_fn, img, txt, temb)
     x = torch.cat([txt, img], dim=1)
     for p in params.single:
-        x = single_fn(p, x, ada_ln_mods(p.mod.proj, temb, 3))
+        x = p(single_fn, x, temb)
     img = x[:, st:]
 
     scale, shift = ada_ln_mods(params.norm_out.proj, temb, 2)  # continuous: scale first

@@ -94,6 +94,15 @@ class QwenBlock(nn.Module):
         self.img_mlp = MLP(dim, hidden, **kw)
         self.txt_mlp = MLP(dim, hidden, **kw)
 
+    def forward(self, fn, img, txt, temb_s):
+        """`fn(self, img, txt, img_mod, txt_mod)` (`_block`, under its
+        checkpoint in training) after the f32 mods ("mod_out"), computed
+        here and outside the checkpoint.  A module call, so that FSDP2's
+        hooks gather a sharded block's weights before its forward and
+        before the recompute in backward."""
+        return fn(self, img, txt, dense(self.img_mod.proj, temb_s),
+                  dense(self.txt_mod.proj, temb_s))
+
 
 class QwenImageTransformer(nn.Module):
     """`blocks=False` leaves the block list empty, for `init` to fill."""
@@ -114,6 +123,11 @@ class QwenImageTransformer(nn.Module):
         self.norm_out = AdaProj(dim, 2, **kw)
         self.proj_out = Dense(dim, cfg.patch_size ** 2 * cfg.out_channels, **kw)
 
+    def forward(self, cfg: QwenImageConfig, *args, **kwargs):
+        """The module-level `forward` over this model, through a module call
+        (FSDP2's root hooks, `parallel/partitioning.py:shard_base`)."""
+        return _forward(self, cfg, *args, **kwargs)
+
 
 def _init_denses(module: nn.Module, generator: torch.Generator) -> None:
     with torch.no_grad():
@@ -123,13 +137,16 @@ def _init_denses(module: nn.Module, generator: torch.Generator) -> None:
 
 
 def init(generator: torch.Generator, cfg: QwenImageConfig, device=None,
-         dtype=torch.bfloat16, quantize=None) -> QwenImageTransformer:
+         dtype=torch.bfloat16, quantize=None, mesh=None) -> QwenImageTransformer:
     """Random weights on `device` from `generator`, with `dense_init`'s
     bounds (U(±1/sqrt(in)) for kernel and bias) and unit norm scales.  The
     blocks are drawn one at a time; with `quantize` (a quantize config, as
     ops/quant.quantize_tree takes) each block is quantized right after it is
-    drawn, so only one block's full-precision weights exist at a time."""
+    drawn, so only one block's full-precision weights exist at a time; with
+    `mesh` (a parallel/mesh.Mesh) each block is then sharded over its fsdp
+    ranks (`parallel/partitioning.py:shard_module`)."""
     from qflux_tpu_torch.ops.quant import quantize_tree
+    from qflux_tpu_torch.parallel.partitioning import shard_module
 
     model = QwenImageTransformer(cfg, device=device, dtype=dtype, blocks=False)
     _init_denses(model, generator)
@@ -138,23 +155,27 @@ def init(generator: torch.Generator, cfg: QwenImageConfig, device=None,
         _init_denses(block, generator)
         if quantize is not None:
             quantize_tree(block, quantize, prefix=f"blocks/{i}/")
+        if mesh is not None:
+            shard_module(block, mesh, f"blocks/{i}/")
         model.blocks.append(block)
     return model
 
 
 def load_from_state_dict(sd, cfg: QwenImageConfig, device=None, dtype=torch.bfloat16,
-                         quantize=None) -> QwenImageTransformer:
+                         quantize=None, mesh=None) -> QwenImageTransformer:
     """The DiT from a diffusers state dict (`utils/safetensors.SafeTensors`
     reads it lazily), one block at a time, as `init` draws it: each block's
     tensors are read, converted (`models/qwen/porting.py`, in f32), loaded
     through the bridge in `dtype` on `device` and, with `quantize`,
     quantized right after, so no more than one block's full-precision
-    weights exist at a time, on the host or the device.  Tensors that no
-    converter reads are reported in a warning."""
+    weights exist at a time, on the host or the device; with `mesh`, each
+    block is then sharded, as `init` shards it.  Tensors that no converter
+    reads are reported in a warning."""
     from qflux_tpu_torch.models import porting
     from qflux_tpu_torch.models.bridge import load_params
     from qflux_tpu_torch.models.qwen.porting import qwen_block, qwen_transformer_top
     from qflux_tpu_torch.ops.quant import quantize_tree
+    from qflux_tpu_torch.parallel.partitioning import shard_module
 
     tsd = porting.TrackingStateDict(sd)
     model = QwenImageTransformer(cfg, device=device, dtype=dtype, blocks=False)
@@ -164,6 +185,8 @@ def load_from_state_dict(sd, cfg: QwenImageConfig, device=None, dtype=torch.bflo
                             qwen_block(tsd, i, head_dim=cfg.attention_head_dim))
         if quantize is not None:
             quantize_tree(block, quantize, prefix=f"blocks/{i}/")
+        if mesh is not None:
+            shard_module(block, mesh, f"blocks/{i}/")
         model.blocks.append(block)
     porting.report_unconsumed(tsd.unconsumed(), len(sd), "the Qwen DiT loader")
     return model
@@ -236,17 +259,25 @@ def _block(p: QwenBlock, cfg, img, txt, img_mod, txt_mod, cos, sin, seg, attn_im
     return img, txt
 
 
-def forward(params: QwenImageTransformer, cfg: QwenImageConfig,
-            hidden_states,                  # [B, S_img, in_channels]
-            encoder_hidden_states,          # [B, S_txt, joint_attention_dim]
-            timestep,                       # [B] σ ∈ [0, 1]
-            img_shapes: Optional[list] = None,  # [(f, h, w), …] per image plane
-            guidance=None,
-            segment_ids: Optional[torch.Tensor] = None,  # [B, S_txt + S_img]
-            rope: Optional[tuple] = None,   # (vid_cos, vid_sin, txt_cos, txt_sin)
-            attn_impl: str = "auto",
-            remat: bool = True,
-            remat_policy: str = "full"):
+def forward(params: QwenImageTransformer, cfg: QwenImageConfig, *args, **kwargs):
+    """Returns [B, S_img, patch²·out_channels] over the full image stream;
+    the arguments are `_forward`'s.  Runs as a call of `params`, and each
+    block as a call of its module, so that a base sharded by FSDP2 is
+    gathered block by block."""
+    return params(cfg, *args, **kwargs)
+
+
+def _forward(params: QwenImageTransformer, cfg: QwenImageConfig,
+             hidden_states,                  # [B, S_img, in_channels]
+             encoder_hidden_states,          # [B, S_txt, joint_attention_dim]
+             timestep,                       # [B] σ ∈ [0, 1]
+             img_shapes: Optional[list] = None,  # [(f, h, w), …] per image plane
+             guidance=None,
+             segment_ids: Optional[torch.Tensor] = None,  # [B, S_txt + S_img]
+             rope: Optional[tuple] = None,   # (vid_cos, vid_sin, txt_cos, txt_sin)
+             attn_impl: str = "auto",
+             remat: bool = True,
+             remat_policy: str = "full"):
     """Returns [B, S_img, patch²·out_channels] over the full image stream.
     With `remat` and autograd recording, every block is recomputed in
     backward under `remat_policy`; without autograd (inference) nothing is,
@@ -276,8 +307,7 @@ def forward(params: QwenImageTransformer, cfg: QwenImageConfig,
     temb_s = F.silu(temb.float())
     for p in params.blocks:
         # the "mod_out" save point: f32 mods computed outside the block
-        img, txt = block_fn(p, img, txt, dense(p.img_mod.proj, temb_s),
-                            dense(p.txt_mod.proj, temb_s))
+        img, txt = p(block_fn, img, txt, temb_s)
 
     scale, shift = ada_ln_mods(params.norm_out.proj, temb, 2)
     img = modulate(layer_norm(img), shift, scale)

@@ -5,7 +5,10 @@ as JAX on one TPU chip: the fused norm + rope kernels K1 / K2
 (ops/flash_nr.py) where `flash_nr.supports` holds (the whole K in one TPU
 block: padded S ≤ 2688 in bf16, ≤ 2560 with int8 scores), else the plain
 norm + rope and `dot_product_attention` → kernels K3 / K4
-(ops/flash_attention.py).  Segment-id convention as there: seg == 0 is a
+(ops/flash_attention.py); under an active mesh whose sp axis is > 1, the
+plain norm + rope and ring attention over the sp ranks
+(ops/ring_attention.py), as JAX's dispatch.  Segment-id convention as
+there: seg == 0 is a
 padding token; tokens attend iff their segment ids are equal and nonzero; a
 fully masked row outputs 0.
 """
@@ -74,7 +77,10 @@ def qk_norm_rope_attention(q_raw, k_raw, v, q_scale2, k_scale2, cos, sin,
     impl="int8" (config `model.quantize.attention`): the same with the int8
     score GEMM, where JAX on a TPU applies it (`flash_nr.supports(...,
     s_int8=True)`: S up to 2560 at head dim 128) and bf16 K3 elsewhere, as
-    there.  impl="plain": the plain composition on any device (the
+    there.  Under an active mesh whose sp axis is > 1 ("auto", "int8") or
+    with impl="ring": the plain norm + rope, then ring attention over the
+    sp ranks, in bf16 scores (JAX's route there).  impl="plain": the plain
+    composition on any device (the
     comparison point for the kernels on the card); impl="int8_plain": the
     same for "int8" (the s_int8 mode's plain versions where it applies).
     q_scale2/k_scale2: [2, D] — row 0 norms positions < st (txt stream), row
@@ -83,6 +89,13 @@ def qk_norm_rope_attention(q_raw, k_raw, v, q_scale2, k_scale2, cos, sin,
     from qflux_tpu_torch.ops import flash_nr
 
     _refuse_unported(impl)
+    if impl in ("auto", "int8", "ring") and (impl == "ring" or _sp_mesh() is not None):
+        # sequence parallel (JAX: an active mesh with sp > 1): the plain
+        # norm + rope, then the ring, never K1 / K2; int8 scores do not
+        # apply there (bf16 hops, as JAX)
+        qn = flash_nr.apply_qk_norm_rope(q_raw, q_scale2, cos, sin, st)
+        kn = flash_nr.apply_qk_norm_rope(k_raw, k_scale2, cos, sin, st)
+        return dot_product_attention(qn, kn, v, segment_ids=segment_ids, impl="ring")
     if impl in ("auto", "int8"):
         s_int8 = impl == "int8"
         if fused_route(q_raw.shape[1], k_raw.shape[1], q_raw.shape[-1], impl):
@@ -104,7 +117,8 @@ def qk_norm_rope_attention(q_raw, k_raw, v, q_scale2, k_scale2, cos, sin,
                                                  segment_ids, st, 1.0 / (d ** 0.5), tiles)[0]
         impl = "plain"
     if impl != "plain":
-        raise ValueError(f"unknown attention impl {impl!r} (auto | int8 | plain | int8_plain)")
+        raise ValueError(f"unknown attention impl {impl!r} "
+                         "(auto | int8 | ring | plain | int8_plain)")
     qn = flash_nr.apply_qk_norm_rope(q_raw, q_scale2, cos, sin, st)
     kn = flash_nr.apply_qk_norm_rope(k_raw, k_scale2, cos, sin, st)
     return sdpa_reference(qn, kn, v, segment_ids=segment_ids)
@@ -120,22 +134,43 @@ def fused_route(sq: int, sk: int, d: int, impl: str) -> bool:
 
 
 def _refuse_unported(impl):
-    if impl in ("ring", "stub"):
+    if impl == "stub":
         raise NotImplementedError(
-            f"attention impl={impl!r} is not ported yet (ROADMAP.md, queue 1 item 8: ring "
-            "attention over torch.distributed, with the distribution modules)")
+            "attention impl='stub' (JAX's planning stub for XLA's memory analysis) is not "
+            "ported: it is on ROADMAP.md's \"Do not port\" list")
+
+
+def _sp_mesh():
+    """The active mesh where its sp axis is > 1 (the ring's), else None."""
+    from qflux_tpu_torch.parallel.mesh import active_mesh
+
+    mesh = active_mesh()
+    return mesh if mesh is not None and mesh.shape.get("sp", 1) > 1 else None
 
 
 def dot_product_attention(q, k, v, segment_ids=None, impl: str = "auto"):
     """q, k, v: [B, S, H, D] (q / k already normed and roped); segment_ids:
-    optional [B, S] int.  impl="auto": `flash_attention.flash_attention`
-    (kernels K3 / K4 on CUDA tensors, their plain version on CPU ones), as
-    JAX's "pallas" on one chip; impl="plain": `sdpa_reference`."""
+    optional [B, S] int.  impl="auto": ring attention over the sp ranks
+    (`ops/ring_attention.py`) under an active mesh whose sp axis is > 1, as
+    JAX's; else `flash_attention.flash_attention` (kernels K3 / K4 on CUDA
+    tensors, their plain version on CPU ones), as JAX's "pallas" on one
+    chip.  impl="ring" requires such a mesh (JAX's ValueError without one);
+    impl="plain": `sdpa_reference`."""
     _refuse_unported(impl)
+    if impl == "auto" and _sp_mesh() is not None:
+        impl = "ring"
+    if impl == "ring":
+        from qflux_tpu_torch.ops.ring_attention import ring_attention_sharded
+
+        mesh = _sp_mesh()
+        if mesh is None:
+            raise ValueError("impl='ring' needs an active mesh with sp > 1 "
+                             "(build_mesh(MeshConfig(sp=...)) first)")
+        return ring_attention_sharded(q, k, v, mesh, segment_ids=segment_ids)
     if impl == "auto":
         from qflux_tpu_torch.ops import flash_attention
 
         return flash_attention.flash_attention(q, k, v, segment_ids=segment_ids)
     if impl == "plain":
         return sdpa_reference(q, k, v, segment_ids=segment_ids)
-    raise ValueError(f"unknown attention impl {impl!r} (auto | plain)")
+    raise ValueError(f"unknown attention impl {impl!r} (auto | ring | plain)")

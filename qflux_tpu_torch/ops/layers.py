@@ -9,7 +9,7 @@ nn.Linear) and a LoRA tree is a flat dict keyed by the module's '/'-path
 beside the frozen base weight: there is never a second copy of the base.
 
 A dense layer may also hold its frozen weight quantized, as frozen
-buffers, in any form of JAX's `quantize_tree` (`Dense.set_quantized`;
+parameters (`QUANT_LEAVES`), in any form of JAX's `quantize_tree` (`Dense.set_quantized`;
 `q_form` names the form).  The int4 forms keep packed int4 `q4 [K/2, N]`
 and group scales `scale [K/G, N]` in the JAX layout; the per-channel forms
 keep `q [N, K]` (int8 or fp8, laid out as the weight) and `scale [1, N]`.
@@ -79,10 +79,20 @@ def require_f32(t: torch.Tensor, what: str) -> None:
                            "and torch.backends.cuda.matmul.allow_tf32 to False first")
 
 
+# the frozen parameters a quantized Dense holds in place of its weight
+QUANT_LEAVES = ("q4", "q", "scale", "rq_f", "rq_s_vec")
+
+
+def _frozen(t: torch.Tensor) -> nn.Parameter:
+    """A frozen parameter over t's values, contiguous (parameters, not
+    buffers, so that FSDP2 shards them with the rest of the base)."""
+    return nn.Parameter(t.detach().contiguous(), requires_grad=False)
+
+
 class Dense(nn.Module):
     """y = x @ W^T + b.  `lora` is None or the {"a", "b", "scaling"} dict
     set by `merge_lora`.  The weight is `weight [out, in]`, or, after
-    `set_quantized`, the buffers of the form `q_form` names: `q4` and
+    `set_quantized`, the frozen parameters of the form `q_form` names: `q4` and
     `scale` (+ `rq_f`, `rq_s_vec` for "int4_requant") for the int4 forms,
     `q` and `scale` for the per-channel ones."""
 
@@ -95,8 +105,8 @@ class Dense(nn.Module):
         self.bias = (nn.Parameter(torch.empty(out_dim, **kw), requires_grad=False)
                      if bias else None)
         self.lora: Optional[dict] = None
-        for name in ("q4", "q", "scale", "rq_f", "rq_s_vec"):
-            self.register_buffer(name, None)
+        for name in QUANT_LEAVES:
+            self.register_parameter(name, None)
         self.q_form: Optional[str] = None  # quant.INT4_FORMS / CHANNEL_FORMS once quantized
         self.impl = "auto"  # "plain": the plain matmuls instead of K5a / K6a / W8A8
 
@@ -130,14 +140,14 @@ class Dense(nn.Module):
                              f"{self.in_dim}→{self.out_dim}")
         self.weight = None
         self.q_form = form
-        for n in ("q4", "q", "rq_f", "rq_s_vec"):
-            self.register_buffer(n, None)
+        for n in QUANT_LEAVES:
+            setattr(self, n, None)
         for n, t in ((name, q), ("scale", scale.float())):
-            self.register_buffer(n, t.contiguous())
+            setattr(self, n, _frozen(t))
         if form == "int4_requant":
             f, s_vec = quant._requant_factors(self.scale)
             for n, t in (("rq_f", f), ("rq_s_vec", s_vec)):
-                self.register_buffer(n, t.contiguous())
+                setattr(self, n, _frozen(t))
 
     def init_(self, generator: torch.Generator) -> None:
         """Torch-nn.Linear-compatible init, as `dense_init`: U(±1/sqrt(in))."""

@@ -91,6 +91,9 @@ from qflux_tpu_torch.ops.adam8bit import AdamW8bit
 from qflux_tpu_torch.ops.layers import (build_lora_tree, iter_dense_paths, mark_trainable,
                                         merge_lora)
 from qflux_tpu_torch.ops.quant import quantize_tree
+from qflux_tpu_torch.parallel import collectives
+from qflux_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+from qflux_tpu_torch.parallel.partitioning import shard_base
 from qflux_tpu_torch.scheduler.flow_match import FlowMatchScheduler
 from qflux_tpu_torch.scheduler.weighting import default_weighting_table, load_weighting_table
 from qflux_tpu_torch.trainer.dreamomni2 import DreamOmni2Adapter
@@ -100,8 +103,9 @@ from qflux_tpu_torch.trainer.flux_kontext import FluxKontextAdapter
 from qflux_tpu_torch.trainer.qwen_edit import QwenImageEditAdapter
 from qflux_tpu_torch.trainer.qwen_edit_plus import QwenImageEditPlusAdapter
 from qflux_tpu_torch.trainer.sampling import SamplingConfig, make_sampler
-from qflux_tpu_torch.trainer.train_step import (TrainStepConfig, lora_leaves,
-                                                make_lr_schedule, make_train_step)
+from qflux_tpu_torch.trainer.train_step import (SHARED_BATCH_KEY_PREFIXES, TrainStepConfig,
+                                                lora_leaves, make_lr_schedule,
+                                                make_train_step)
 from qflux_tpu_torch.utils import checkpoint
 from qflux_tpu_torch.utils.fps import FpsLogger
 from qflux_tpu_torch.utils.logger import LoggerManager, NullLogger
@@ -129,6 +133,9 @@ ITEM_7 = ("ROADMAP.md, queue 1 item 7: \"Optimizers and CLI\" (what is left: opt
           "and the rest of optax.contrib)")
 ITEM_2 = ("ROADMAP.md, queue 1 item 2: \"The rest of slice B, part 1: files, real weights and "
           "data\" (what is left: reading the JAX trainer's orbax checkpoints)")
+# the joint sequence from which `_advise_sequence_parallel` suggests mesh.sp
+# (qflux_tpu/parallel/planner.py:SP_ADVICE_SEQ; the planner is not ported)
+SP_ADVICE_SEQ = 16384
 
 
 def get_git_info() -> dict:
@@ -168,6 +175,7 @@ class Trainer:
     def __init__(self, config, device="cuda"):
         self.config = config
         self.device = torch.device(device)
+        self.mesh = self._build_mesh()
         if self.device.type == "cuda":
             # the f32 VAE and text encoders (and any f32 matmul) must not run
             # in TF32 (they raise otherwise: ops.layers.require_f32)
@@ -203,6 +211,26 @@ class Trainer:
         # clock around the step, which ends by reading the loss)
         self.history: list[dict] = []
 
+    def _build_mesh(self):
+        """The mesh of config.mesh over the process group (a world of one
+        without one), as the JAX Trainer builds it; under a process group
+        the device is this rank's (cuda:LOCAL_RANK, as `init_distributed`
+        set it) and must match the backend: NCCL for cuda, gloo for cpu."""
+        import torch.distributed as dist
+
+        m = self.config.mesh
+        if dist.is_available() and dist.is_initialized():
+            want = {"cuda": "nccl", "cpu": "gloo"}.get(self.device.type)
+            if dist.get_backend() != want:
+                raise RuntimeError(f"a {self.device.type} Trainer under a "
+                                   f"{dist.get_backend()} process group: {self.device.type} "
+                                   f"runs over {want}")
+            if self.device.type == "cuda" and self.device.index is None:
+                self.device = torch.device("cuda", torch.cuda.current_device())
+        return build_mesh(MeshConfig(dp=m.dp, fsdp=m.fsdp, tp=m.tp, sp=m.sp,
+                                     dcn_axes=tuple(m.dcn_axes or ())),
+                          device_type=self.device.type)
+
     @classmethod
     def from_yaml(cls, path: str, device="cuda") -> "Trainer":
         return cls(load_config_from_yaml(path), device=device)
@@ -215,37 +243,74 @@ class Trainer:
         """The adapter's model, then (as the JAX Trainer) the DiT quantized
         with `quantize_tree` where model.quantize.enabled.  An adapter may
         already have quantized its blocks while drawing them; quantize_tree
-        leaves a quantized layer as it is."""
-        self.adapter, self.bundle = self.adapter_cls.load(self.config, self.device, self.dtype)
+        leaves a quantized layer as it is.  Where the mesh shards the base
+        (`Mesh.shards_base`: fsdp > 1 ranks) the frozen base is then sharded
+        over the fsdp axis (JAX's `shard_pytree(dit_params, mmdit_rules(),
+        mesh)`): each block as it loads where the adapter's loader builds
+        it block by block (the adapter is given the mesh), the rest and the
+        root after the quantization."""
+        mesh = self.mesh if self.mesh.shards_base else None
+        self.adapter, self.bundle = self.adapter_cls.load(self.config, self.device, self.dtype,
+                                                          mesh=mesh)
         qz = self.config.model.quantize
         if qz and qz.enabled:
             self.bundle.dit_params = quantize_tree(self.bundle.dit_params, qz)
+        if mesh is not None:
+            self.bundle.dit_params = shard_base(self.bundle.dit_params, mesh)
+        self._advise_sequence_parallel()
+
+    def _advise_sequence_parallel(self) -> None:
+        """Warn where the configured resolution gives a joint sequence long
+        enough for ring attention (SP_ADVICE_SEQ) while mesh.sp is 1, as the
+        JAX Trainer does."""
+        ts = self.config.data.processor.target_size
+        if not ts or self.adapter is None or self.mesh.shape.get("sp", 1) > 1:
+            return
+        h = int(ts[0])
+        w = int(ts[1]) if len(ts) > 1 else h
+        try:
+            gh, gw = self.adapter.latent_grid(h, w)
+        except Exception:
+            return
+        joint = (self.config.predict.max_sequence_length or 512) + 2 * gh * gw
+        if joint >= SP_ADVICE_SEQ:
+            logging.warning(
+                "joint sequence ~%d tokens at %dx%d (target + control + text); set mesh.sp >= "
+                "2 to split it with ring attention — per-device attention residency scales "
+                "1/sp", joint, h, w)
 
     def setup_versioned_dir(self) -> Path:
         """<logging.output_dir>/<logging.project>/vN, one past the highest
         kept version, as the JAX Trainer numbers them: an old vN whose
         state.json says global_step < 5 and that holds no *.safetensors is
-        an invalid run and is deleted first."""
+        an invalid run and is deleted first.  Under several ranks only the
+        main rank scans, deletes and makes the directory; the version is
+        broadcast, so every rank names the same run dir."""
         root = Path(self.config.logging.output_dir) / self.config.logging.project
-        root.mkdir(parents=True, exist_ok=True)
-        versions = []
-        for d in root.iterdir():
-            m = re.fullmatch(r"v(\d+)", d.name)
-            if not (m and d.is_dir()):
-                continue
-            state_file = d / checkpoint.STATE_FILE
-            step = 0
-            if state_file.exists():
-                try:
-                    step = json.loads(state_file.read_text()).get("global_step", 0)
-                except (OSError, ValueError, AttributeError):
-                    step = 0
-            if step < 5 and not any(d.rglob("*.safetensors")):
-                shutil.rmtree(d, ignore_errors=True)  # an invalid run
-            else:
-                versions.append(int(m.group(1)))
-        out = root / f"v{max(versions, default=-1) + 1}"
-        out.mkdir(parents=True, exist_ok=True)
+        main = collectives.is_main_process()
+        v = 0
+        if main:
+            root.mkdir(parents=True, exist_ok=True)
+            versions = []
+            for d in root.iterdir():
+                m = re.fullmatch(r"v(\d+)", d.name)
+                if not (m and d.is_dir()):
+                    continue
+                state_file = d / checkpoint.STATE_FILE
+                step = 0
+                if state_file.exists():
+                    try:
+                        step = json.loads(state_file.read_text()).get("global_step", 0)
+                    except (OSError, ValueError, AttributeError):
+                        step = 0
+                if step < 5 and not any(d.rglob("*.safetensors")):
+                    shutil.rmtree(d, ignore_errors=True)  # an invalid run
+                else:
+                    versions.append(int(m.group(1)))
+            v = max(versions, default=-1) + 1
+        out = root / f"v{int(collectives.broadcast_from_main(v))}"
+        if main:
+            out.mkdir(parents=True, exist_ok=True)
         return out
 
     def _install_signal_handlers(self) -> dict:
@@ -292,6 +357,21 @@ class Trainer:
         gen = torch.Generator(self.device).manual_seed(self.config.train.seed + 1)
         return build_lora_tree(gen, self.bundle.dit_params, targets, rank=lcfg.r,
                                alpha=lcfg.lora_alpha, init=init)
+
+    @staticmethod
+    def _broadcast_lora(lora) -> None:
+        """Every rank's LoRA made the main rank's, in place (one broadcast
+        over the device's process group), so the replicas start equal."""
+        if collectives.process_count() == 1:
+            return
+        import torch.distributed as dist
+
+        leaves = [leaf[k] for leaf in lora.values() for k in ("a", "b", "scaling")]
+        with torch.no_grad():
+            flat = torch.cat([t.reshape(-1).float() for t in leaves])
+            dist.broadcast(flat, src=0)
+            for t, part in zip(leaves, torch.split(flat, [t.numel() for t in leaves])):
+                t.copy_(part.view_as(t))
 
     def build_optimizer(self, params: list, stacks=None, frozen=()):
         """(optimizer over `params`, lr schedule) with the configured lr
@@ -373,6 +453,53 @@ class Trainer:
                 t = t.pin_memory()
             out[k] = t.to(self.device, non_blocking=cuda)
         return out
+
+    def _rank_rows(self, emb: dict):
+        """This rank's rows of a global batch → (emb, losses.DataShard), as
+        JAX shards a batch over (dp, fsdp): each per-sample array's rows of
+        every global microbatch of train.gradient_accumulation_steps in turn
+        (microbatch i's rows split in data-rank order); shared arrays (ids,
+        RoPE tables) whole, their per-sample [B, S, ·] forms (a mixed-size
+        batch's) split too.  A batch of one on a data mesh trains
+        replicated, with JAX's one warning; any other batch that the data
+        ranks (times the microbatches) do not divide raises JAX's error."""
+        mesh = getattr(self, "mesh", None)
+        n_data = mesh.data_size if mesh is not None else 1
+        if n_data == 1:
+            return emb, losses.DataShard()
+        lat = emb.get("image_latents")
+        b = lat.shape[0] if lat is not None else self._batch_items(emb)
+        if b == 1:
+            if not getattr(self, "_warned_replicated_batch", False):
+                self._warned_replicated_batch = True
+                logging.warning(
+                    "batch size 1 on a dp×fsdp=%d mesh trains fully REPLICATED (every rank "
+                    "computes the same sample); raise data.batch_size to a multiple of %d "
+                    "for data parallelism", n_data, n_data)
+            return emb, losses.DataShard()
+        n = self.config.train.gradient_accumulation_steps
+        split = {k for k, v in emb.items() if hasattr(v, "shape") and len(v.shape) >= 1
+                 and v.shape[0] > 1 and (not k.startswith(SHARED_BATCH_KEY_PREFIXES)
+                                         or (len(v.shape) >= 3 and v.shape[0] == b))}
+        for k in sorted(split):
+            if emb[k].shape[0] % (n_data * n):
+                raise ValueError(
+                    f"batch size {emb[k].shape[0]} (key {k!r}) must be divisible by dp×fsdp = "
+                    f"{n_data} (mesh {dict(mesh.shape)})"
+                    + (f" times grad_accum_steps = {n}" if n > 1 else "")
+                    + "; adjust data.batch_size or the mesh section")
+        m = b // (n_data * n)
+        rows = [i * (b // n) + mesh.data_index * m + j for i in range(n) for j in range(m)]
+        out = {k: (v[rows] if k in split else v) for k, v in emb.items()}
+        return out, losses.DataShard(mesh.data_index, n_data, mesh.data_group)
+
+    def _fit_batch(self, batch):
+        """A loader's batch → (this rank's device batch, its DataShard), or
+        None at the end."""
+        if batch is None:
+            return None
+        emb, data = self._rank_rows(self._embeddings_for_batch(batch))
+        return self._device_batch(emb), data
 
     def _embeddings_for_batch(self, batch: dict) -> dict:
         """A collated batch (or a plain dict of arrays) → the step's
@@ -505,15 +632,21 @@ class Trainer:
         self._interrupted = False
         self.output_dir = self.setup_versioned_dir()
         config_dict = config_to_dict(cfg)
-        (self.output_dir / "train_config.yaml").write_text(json.dumps(config_dict, indent=2)
-                                                           + "\n")
-        self.logger = LoggerManager(report_to=cfg.logging.report_to,
-                                    log_dir=self.output_dir / "logs",
-                                    project=cfg.logging.tracker_project_name
-                                    or cfg.logging.project, config=config_dict)
+        main = collectives.is_main_process()
+        if main:  # rank-gated: one config file, one logger
+            (self.output_dir / "train_config.yaml").write_text(json.dumps(config_dict, indent=2)
+                                                               + "\n")
+            self.logger = LoggerManager(report_to=cfg.logging.report_to,
+                                        log_dir=self.output_dir / "logs",
+                                        project=cfg.logging.tracker_project_name
+                                        or cfg.logging.project, config=config_dict)
+        else:
+            self.logger = NullLogger()
         if cfg.resume:
             cfg.model.lora.pretrained_weight = str(cfg.resume)
-        self.lora = lora = mark_trainable(self.build_lora())
+        lora = self.build_lora()
+        self._broadcast_lora(lora)
+        self.lora = lora = mark_trainable(lora)
         params, scalings = lora_leaves(lora)
         self.optimizer, schedule = self.build_optimizer(params, checkpoint.lora_stacks(lora),
                                                         frozen=scalings)
@@ -542,8 +675,7 @@ class Trainer:
                 t0 = time.perf_counter()
                 batch = next(batch_iter, None)
                 wait = time.perf_counter() - t0
-                emb = (self._device_batch(self._embeddings_for_batch(batch))
-                       if batch is not None else None)
+                staged = self._fit_batch(batch)
                 while batch is not None:
                     if cfg.logging.profile_dir:  # trace steps 2-4: past the first
                         if self.global_step == 1 and profiler is None:
@@ -551,7 +683,8 @@ class Trainer:
                         elif self.global_step == 4 and profiler is not None:
                             profiler = self._profile(profiler)
                     t0 = time.perf_counter()
-                    metrics, step = self._run_step(step, emb, criterion, schedule, step_cfg)
+                    metrics, step = self._run_step(step, *staged, criterion, schedule,
+                                                   step_cfg)
                     self.global_step += 1
                     if self.global_step == 1:  # the first step alone, before staging
                         loss = float(metrics["loss"])
@@ -561,8 +694,7 @@ class Trainer:
                     t_stage = time.perf_counter()
                     next_batch = next(batch_iter, None)
                     next_wait = time.perf_counter() - t_stage
-                    emb = (self._device_batch(self._embeddings_for_batch(next_batch))
-                           if next_batch is not None else None)
+                    staged = self._fit_batch(next_batch)
                     stage_s = time.perf_counter() - t_stage
                     loss = float(metrics["loss"])
                     step_s = time.perf_counter() - t0
@@ -586,7 +718,9 @@ class Trainer:
                         self.fps.pause()
                         self.run_validation()
                         self.fps.resume()
-                    if self._interrupted or self.global_step >= cfg.train.max_train_steps:
+                    # a stop is every rank's, or the others would wait in a collective
+                    if (collectives.any_across(self._interrupted)
+                            or self.global_step >= cfg.train.max_train_steps):
                         done = True
                         break
                     batch = next_batch
@@ -610,15 +744,27 @@ class Trainer:
             self.logger.close()
         return lora
 
-    def _run_step(self, step, emb, criterion, schedule, step_cfg):
-        """One train step → (metrics, the step to go on with).  A step that
-        raises torch.OutOfMemoryError before the optimizer began its update,
+    def _run_step(self, step, emb, data, criterion, schedule, step_cfg):
+        """One train step on this rank's rows (`data`, a losses.DataShard)
+        → (metrics, the step to go on with).  A step that raises
+        torch.OutOfMemoryError before the optimizer began its update,
         under a remat policy that keeps tensors, is run once more on the
-        same batch and the same noise under "full" (`_degrade_remat_or_raise`)."""
+        same batch and the same noise under "full" (`_degrade_remat_or_raise`).
+        Under a dp-only mesh the step raises on every rank where any ran
+        out (`make_train_step`), so all retry together; where the step
+        exchanges tensors with other ranks (`Mesh.step_collectives`: a
+        sharded base, the ring) the others wait in its collectives, so the
+        error is raised, not retried, and ends the run."""
         rng_state = self.generator.get_state()
         try:
-            return step(self.bundle.dit_params, self.lora, emb, self.generator), step
+            return step(self.bundle.dit_params, self.lora, emb, self.generator, data=data), step
         except torch.OutOfMemoryError as err:
+            if self.mesh.step_collectives:
+                logging.error(
+                    "train step ran out of memory under a mesh whose step exchanges tensors "
+                    "between ranks (fsdp > 1 or sp > 1): the other ranks cannot join a retry; "
+                    "set mesh.remat: full or raise fsdp / sp, and rerun")
+                raise
             step = self._degrade_remat_or_raise(err, step, criterion, schedule, step_cfg)
         # out of the except block, the failed step's graph is gone with its
         # traceback: free its gradients and the cached blocks too
@@ -628,7 +774,7 @@ class Trainer:
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
         self.generator.set_state(rng_state)
-        return step(self.bundle.dit_params, self.lora, emb, self.generator), step
+        return step(self.bundle.dit_params, self.lora, emb, self.generator, data=data), step
 
     def _degrade_remat_or_raise(self, err, step, criterion, schedule, step_cfg):
         """JAX's rule for a step that ran out of memory: the adapter
@@ -682,10 +828,14 @@ class Trainer:
         before (one in flight) and for host copies of the tensors, and a
         writer thread writes the same files from them (`utils/checkpoint.py:
         AsyncWriter`).  `save_blocked_s` gets the seconds the train thread
-        spent here.  Returns the directory."""
+        spent here.  Only the main rank writes (the LoRA and the optimizer's
+        state are replicated); every rank reads on resume.  Returns the
+        directory."""
         t0 = time.perf_counter()
         name = f"checkpoint-last-{self.global_step}" if last else f"checkpoint-{self.global_step}"
         ckpt_dir = self.output_dir / name
+        if not collectives.is_main_process():
+            return ckpt_dir
         writer = self._ckpt_writer
         if writer is not None:
             writer.wait()
@@ -827,8 +977,9 @@ class Trainer:
             arrays, hash_keys = self.adapter.cache_embeddings(
                 self.bundle, batch, self.config.predict.max_sequence_length)
             t2 = time.perf_counter()
-            cm.save(hashes["main_hash"], arrays,
-                    {k: hashes[v] if v in hashes else v for k, v in hash_keys.items()})
+            if collectives.is_main_process():  # one writer under several ranks
+                cm.save(hashes["main_hash"], arrays,
+                        {k: hashes[v] if v in hashes else v for k, v in hash_keys.items()})
             encode_s.append(t2 - t1)
             write_s.append(time.perf_counter() - t2)
         n = len(encode_s)
@@ -964,7 +1115,8 @@ class Trainer:
 
     def setup_validation(self) -> None:
         """Encode the validation samples once (the JAX Trainer's
-        `setup_validation`, one process): each sample's controls resampled
+        `setup_validation`), this rank's shard of them (`_validation_shard`):
+        each sample's controls resampled
         by data.processor, its size that of the sample, else of its first
         control, else processor.target_size, else 512².  Text encoders
         that were not built before (a fit from the embedding cache) are
@@ -977,7 +1129,10 @@ class Trainer:
         self._validation_embeddings = []
         self._validation_setup_done = True
         tgt = self.config.data.processor.target_size or (512, 512)
+        mine = set(self._validation_shard(len(samples)))
         for i, s in enumerate(samples):
+            if i not in mine:
+                continue
             h, w = s.get("height"), s.get("width")
             if not s["images"]:
                 h, w = h or tgt[0], w or tgt[1]
@@ -989,6 +1144,17 @@ class Trainer:
             gc.collect()
             if self.device.type == "cuda":
                 torch.cuda.empty_cache()
+
+    def _validation_shard(self, n: int) -> list[int]:
+        """The validation samples this rank samples: round-robin over the dp
+        index (JAX shards over processes).  The ranks of one dp index (their
+        fsdp and sp ranks) sample the same ones together, as their gathered
+        weights and the ring need them to."""
+        mesh = getattr(self, "mesh", None)
+        if mesh is None:
+            return collectives.shard_validation_samples(n)
+        return collectives.shard_validation_samples(n, rank=mesh.coords["dp"],
+                                                    world=mesh.shape["dp"])
 
     def run_validation(self) -> list:
         """Sample every validation embedding with validation's own steps,
@@ -1015,6 +1181,23 @@ class Trainer:
                 if vcfg.fail_on_error:
                     raise
                 logging.warning("validation sample %d failed: %s", rec["index"], e)
+        if collectives.process_count() > 1:
+            # every rank sampled its dp index's shard; gather the images so the
+            # main rank's logger writes all of them (one copy of each: the
+            # first fsdp / sp rank of each dp index contributes)
+            mesh = self.mesh
+            lead = all(mesh.coords[a] == 0 for a in ("fsdp", "tp", "sp"))
+            mine = results if lead else []
+            try:
+                idxs, imgs = collectives.gather_validation_images(
+                    [i for i, _ in mine], [im for _, im in mine],
+                    n_total=len(self._validation_prompts))
+                results = list(zip(idxs, imgs))
+            except Exception as e:
+                if vcfg.fail_on_error:
+                    raise
+                logging.warning("validation image gather failed (%s); logging only this "
+                                "rank's shard", e)
         prompts = getattr(self, "_validation_prompts", None) or []
         for idx, img in results:
             self.logger.log_images(f"validation/sample_{idx}", list(img), self.global_step)

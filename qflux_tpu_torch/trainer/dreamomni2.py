@@ -114,18 +114,21 @@ class DreamOmni2Adapter(FluxKontextAdapter):
     use_vlm_prompt_enhancer: bool = False
 
     @classmethod
-    def _load_quantize(cls, config):
-        """None where an edit-LoRA is given: JAX fuses it into the
+    def _per_block(cls, config, mesh) -> dict:
+        """Nothing where an edit-LoRA is given: JAX fuses it into the
         full-precision DiT and quantizes after, so the checkpoint's blocks
-        load unquantized and the Trainer quantizes the fused model."""
-        return None if config.model.pretrained_embeddings else super()._load_quantize(config)
+        load unquantized and whole, and the Trainer quantizes and shards
+        the fused model."""
+        if config.model.pretrained_embeddings:
+            return {"quantize": None, "mesh": None}
+        return super()._per_block(config, mesh)
 
     @classmethod
-    def load(cls, config, device, dtype=torch.bfloat16):
+    def load(cls, config, device, dtype=torch.bfloat16, mesh=None):
         """FLUX.1-Kontext's load (`FluxKontextAdapter.load`), then the
         edit-LoRA fused and, with model.use_vlm_prompt_enhancer, the VL
         stack joined to the text encoders' factory (`vlm_factory`)."""
-        adapter, bundle = super().load(config, device, dtype)
+        adapter, bundle = super().load(config, device, dtype, mesh)
         edit_lora = config.model.pretrained_embeddings
         if edit_lora:
             try:

@@ -149,8 +149,8 @@ class Flux2KleinAdapter:
     default_lora_targets = (r"attn/(to_q|to_k|to_v|to_out|add_q|add_k|add_v|add_out)",)
 
     @classmethod
-    def load(cls, config, device, dtype=torch.bfloat16) -> tuple["Flux2KleinAdapter",
-                                                                 ModelBundle]:
+    def load(cls, config, device, dtype=torch.bfloat16,
+             mesh=None) -> tuple["Flux2KleinAdapter", ModelBundle]:
         """The DiT in `dtype`, the FLUX VAE and Qwen3 in float32 on
         `device`.  Variant "test": JAX's tiny set (`flux2_config` at 2 + 2
         blocks, 4 heads × 32, axes (8, 8, 8, 8), joint_attention_dim 3 · 48;
@@ -162,7 +162,7 @@ class Flux2KleinAdapter:
         18, 27); synthetic from the same seeds without a checkpoint, else
         read as JAX reads it (`flux_kontext.checkpoint_dirs`): the DiT block
         by block (`transformer.load_from_state_dict`, quantized per block
-        under model.quantize) with the depth the file has, the VAE with
+        under model.quantize and sharded over `mesh`) with the depth the file has, the VAE with
         its `bn.running_mean` / `bn.running_var`, Qwen3 from
         model.text_encoder_path or <root>/text_encoder one layer at a time,
         the tokenizer from <root>/tokenizer (`load_qwen3_tokenizer`).
@@ -206,7 +206,8 @@ class Flux2KleinAdapter:
                 dit_cfg, num_layers=porting.count_blocks(sd, "transformer_blocks"),
                 num_single_layers=porting.count_blocks(sd, "single_transformer_blocks"))
             bundle.dit_params = flux.load_from_state_dict(sd, dit_cfg, device, dtype,
-                                                          quantize=quantize_config(config))
+                                                          quantize=quantize_config(config),
+                                                          mesh=mesh)
             if vae_path is not None:
                 vsd = SafeTensors(vae_path)
                 tree = _load_dir(vae_path, porting.convert_flux_vae, "the VAE",

@@ -205,13 +205,16 @@ class FluxKontextAdapter:
     )
 
     @classmethod
-    def _load_quantize(cls, config):
-        """The quantization applied to each DiT block as a checkpoint loads
-        (`quantize_config`; the Trainer quantizes the rest after `load`)."""
-        return quantize_config(config)
+    def _per_block(cls, config, mesh) -> dict:
+        """What the loader does to each DiT block as a checkpoint loads: the
+        quantization (`quantize_config`) and the sharding over `mesh`'s
+        fsdp ranks; the Trainer quantizes and shards the rest after
+        `load`."""
+        return {"quantize": quantize_config(config), "mesh": mesh}
 
     @classmethod
-    def load(cls, config, device, dtype=torch.bfloat16) -> tuple["FluxKontextAdapter", ModelBundle]:
+    def load(cls, config, device, dtype=torch.bfloat16,
+             mesh=None) -> tuple["FluxKontextAdapter", ModelBundle]:
         """The DiT in `dtype`, the VAE and the text encoders in float32 on
         `device`, at the widths of the variant's config: `FluxConfig()` /
         `VAEConfig()` / `CLIPTextConfig()` / `T5Config()` (FLUX.1-Kontext-dev),
@@ -222,7 +225,8 @@ class FluxKontextAdapter:
         weights are read from a diffusers checkpoint, as the JAX adapter
         reads them (`checkpoint_dirs`): the DiT from a safetensors file or a
         directory of shards, block by block (`flux.load_from_state_dict`,
-        each block quantized as it loads under model.quantize), with the
+        each block quantized as it loads under model.quantize and, with
+        `mesh` (a parallel/mesh.Mesh that shards the base), sharded), with the
         depth the file has (a file with fewer blocks builds a cut model); a
         missing DiT raises FileNotFoundError.  The VAE (encoder and decoder)
         from model.vae_path or <root>/vae, CLIP-L from
@@ -265,7 +269,7 @@ class FluxKontextAdapter:
                 dit_cfg, num_layers=porting.count_blocks(sd, "transformer_blocks"),
                 num_single_layers=porting.count_blocks(sd, "single_transformer_blocks"))
             bundle.dit_params = flux.load_from_state_dict(sd, dit_cfg, device, dtype,
-                                                          quantize=cls._load_quantize(config))
+                                                          **cls._per_block(config, mesh))
             if files[1] is not None:
                 tree = _load_dir(files[1], porting.convert_flux_vae, "the VAE",
                                  num_blocks=len(vae_cfg.block_out_channels),

@@ -141,8 +141,8 @@ class QwenImageEditAdapter:
     )
 
     @classmethod
-    def load(cls, config, device, dtype=torch.bfloat16) -> tuple["QwenImageEditAdapter",
-                                                                 ModelBundle]:
+    def load(cls, config, device, dtype=torch.bfloat16,
+             mesh=None) -> tuple["QwenImageEditAdapter", ModelBundle]:
         """The DiT in `dtype`, the VAE and Qwen2.5-VL in float32 on
         `device`, at the widths of the variant's config: the published
         Qwen-Image-Edit topology (`QwenImageConfig()`: 60 blocks, 24 heads ×
@@ -153,7 +153,9 @@ class QwenImageEditAdapter:
         tiny VAE and the tiny VL with JAX's special tokens (500, 502, 503)
         and hash tokenizer (`SimpleTokenizer(480, 512)`).  With
         model.quantize enabled each DiT block is quantized as soon as it
-        exists, so only one block's full-precision weights exist at a time.
+        exists, so only one block's full-precision weights exist at a time;
+        with `mesh` (a parallel/mesh.Mesh that shards the base) each block
+        is then sharded.
 
         With model.pretrained_model_name_or_path or model.dit_path, the
         weights are read from a diffusers checkpoint as the JAX adapter
@@ -188,7 +190,8 @@ class QwenImageEditAdapter:
                              text_cfgs=text_cfgs)
         if files is None:
             bundle.dit_params = qwen_dit.init(torch.Generator(device).manual_seed(0), dit_cfg,
-                                              device, dtype, quantize=quantize_config(config))
+                                              device, dtype, quantize=quantize_config(config),
+                                              mesh=mesh)
             bundle.vae_params = qwen_vae.init(torch.Generator(device).manual_seed(1), vae_cfg,
                                               device)
 
@@ -202,7 +205,8 @@ class QwenImageEditAdapter:
             dit_cfg = bundle.dit_cfg = dataclasses.replace(
                 dit_cfg, num_layers=count_blocks(sd, "transformer_blocks"))
             bundle.dit_params = qwen_dit.load_from_state_dict(sd, dit_cfg, device, dtype,
-                                                              quantize=quantize_config(config))
+                                                              quantize=quantize_config(config),
+                                                              mesh=mesh)
             if files[1] is not None:
                 vsd = SafeTensors(files[1])
                 bundle.vae_params = load_vae_params(

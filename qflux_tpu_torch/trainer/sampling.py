@@ -34,11 +34,20 @@ def make_sampler(predict_velocity: PredictFn, cfg: SamplingConfig = SamplingConf
 
     For true-CFG the batch also holds the negative embeddings under
     "neg_"-prefixed keys; the negative pass sees them under the plain keys.
+    The loop runs under `torch.inference_mode`, or `torch.no_grad` where
+    `params` is sharded by FSDP2 (whose gathers write into tensors made
+    outside inference mode).
     """
     use_cfg = cfg.true_cfg_scale > 1.0
 
-    @torch.inference_mode()
     def sample(params, batch, latents, sigmas: np.ndarray):
+        from torch.distributed.fsdp import FSDPModule
+
+        mode = torch.no_grad if isinstance(params, FSDPModule) else torch.inference_mode
+        with mode():
+            return _loop(params, batch, latents, sigmas)
+
+    def _loop(params, batch, latents, sigmas):
         lat = latents
         for sigma, sigma_next in zip(sigmas[:-1], sigmas[1:]):
             t = torch.full((lat.shape[0],), float(sigma), dtype=lat.dtype, device=lat.device)

@@ -16,6 +16,26 @@ tensors in place (the optimizer, `trainer/optimizers.py` or
 JAX, but never stepped: JAX zeroes their updates after the optimizer's.
 An elementwise optimizer is not given them; Prodigy, whose sums run over
 the whole tree, holds them and drops their updates.
+
+Under data parallelism (dp × fsdp ranks, `losses.DataShard`) the step
+gives JAX's global-batch numbers on any mesh: each rank holds its rows of
+every global microbatch (the Trainer's `_rank_rows` picks them), draws
+the noise and σ of the whole global microbatch from the same generator as
+every other rank and keeps its rows, the criterion returns the rank's share
+of the global loss, and the LoRA gradients are summed over the data ranks
+before the global-norm clip (the logged loss too).  Every rank then takes
+the same update, so the LoRA stays replicated, as JAX's `_replicate`
+keeps it.
+
+A rank that runs out of device memory in the forward or backward tells
+the others after its `grads` (`collectives.any_across`), and the step
+raises on every rank, so the Trainer's retry runs on all together.  That
+holds only where the forward and backward exchange nothing with other
+ranks (a dp-only mesh): under a sharded base or the ring
+(`Mesh.step_collectives`) the other ranks wait in this step's collectives
+and never reach the decision, so the error is raised at once on the rank
+that ran out, and its exit ends the run (torchrun stops the other
+ranks; without it, NCCL's watchdog times them out).
 """
 
 from __future__ import annotations
@@ -26,7 +46,10 @@ from typing import Any, Callable
 
 import torch
 
+from qflux_tpu_torch.losses import DataShard
 from qflux_tpu_torch.ops.layers import merge_lora
+from qflux_tpu_torch.parallel import collectives
+from qflux_tpu_torch.parallel.mesh import active_mesh
 from qflux_tpu_torch.scheduler.flow_match import FlowMatchScheduler, sample_training_sigmas
 from qflux_tpu_torch.scheduler.weighting import weights_for_sigmas
 
@@ -52,19 +75,26 @@ SHARED_BATCH_KEY_PREFIXES = ("img_ids", "txt_ids", "rope_", "img_shapes")
 PredictFn = Callable[[Any, dict, torch.Tensor, torch.Tensor], torch.Tensor]
 
 
-def draw_noise_and_sigma(generator: torch.Generator, latents, cfg: TrainStepConfig):
+def draw_noise_and_sigma(generator: torch.Generator, latents, cfg: TrainStepConfig,
+                         data: DataShard = DataShard()):
     """ε ~ N(0, 1) in f32 then latents' dtype, and σ from the configured
-    sampler in latents' dtype, as the JAX step draws them."""
-    noise = torch.randn(latents.shape, generator=generator, device=latents.device,
+    sampler in latents' dtype, as the JAX step draws them: for the global
+    microbatch of which `latents` are this rank's rows (`data`), the rank's
+    rows of it."""
+    b = latents.shape[0]
+    rows = slice(data.index * b, (data.index + 1) * b)
+    shape = (b * data.size,) + tuple(latents.shape[1:])
+    noise = torch.randn(shape, generator=generator, device=latents.device,
                         dtype=torch.float32).to(latents.dtype)
-    sigma = sample_training_sigmas(generator, latents.shape[0], scheme=cfg.timestep_sampling,
+    sigma = sample_training_sigmas(generator, shape[0], scheme=cfg.timestep_sampling,
                                    logit_mean=cfg.logit_mean, logit_std=cfg.logit_std,
                                    shift=cfg.sigma_shift)
-    return noise, sigma.to(latents.dtype)
+    return noise[rows], sigma.to(latents.dtype)[rows]
 
 
 def _loss_for_microbatch(base_params, lora, batch, noise, sigma,
-                         predict_velocity: PredictFn, criterion, cfg: TrainStepConfig):
+                         predict_velocity: PredictFn, criterion, cfg: TrainStepConfig,
+                         data: DataShard = DataShard()):
     """The loss of one microbatch at the given noise and σ (the JAX function
     draws them from its key; here the caller does, so a test can inject
     them)."""
@@ -77,7 +107,7 @@ def _loss_for_microbatch(base_params, lora, batch, noise, sigma,
         weighting = weights_for_sigmas(sigma, cfg.weighting_scheme,
                                        table=cfg.weighting_table)[:, None, None]
     return criterion(pred, target, weighting=weighting, edit_mask=batch.get("edit_mask"),
-                     attention_mask=batch.get("attention_mask"))
+                     attention_mask=batch.get("attention_mask"), data=data)
 
 
 def lora_leaves(lora) -> tuple[list, list]:
@@ -90,6 +120,18 @@ def lora_leaves(lora) -> tuple[list, list]:
 def global_norm(tensors) -> torch.Tensor:
     """sqrt(Σ ||t||²) in f32, as optax.global_norm."""
     return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
+
+
+def _all_reduce_sum(tensors, data: DataShard) -> None:
+    """Sum `tensors` (f32) over the data ranks, in place, in one collective."""
+    if data.size == 1 or not tensors:
+        return
+    import torch.distributed as dist
+
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=data.group)
+    for t, part in zip(tensors, torch.split(flat, [t.numel() for t in tensors])):
+        t.copy_(part.view_as(t))
 
 
 def _microbatches(batch: dict, n: int):
@@ -110,7 +152,7 @@ def make_train_step(predict_velocity: PredictFn, criterion, optimizer: torch.opt
                     lr_schedule: Callable[[int], float],
                     cfg: TrainStepConfig = TrainStepConfig(), first_update: int = 0):
     """Returns `step(base_params, lora, batch, generator, noise=None,
-    sigma=None) -> {"loss", "grad_norm", "lr"}`.
+    sigma=None, data=None) -> {"loss", "grad_norm", "lr"}`.
 
     `optimizer` holds the LoRA's a/b tensors (`lora_leaves`); the step
     updates them in place.  With cfg.grad_accum_steps = n > 1 the step takes
@@ -121,12 +163,40 @@ def make_train_step(predict_velocity: PredictFn, criterion, optimizer: torch.opt
     its schedule at the update count; `first_update` is the count of the
     step's first call (a resumed run's global_step).  `step.began_update`
     says whether its last call reached the optimizer's update (an error
-    before it left the LoRA as it was).
+    before it left the LoRA as it was).  `data` (a `losses.DataShard`) is
+    this rank's share of a global batch split over data ranks: `batch`
+    then holds the rank's rows of each global microbatch in turn, and
+    injected noise / σ are the global batch's.  Under a dp-only mesh of
+    several ranks a step that runs out of device memory on any rank raises
+    on every rank, before the gradients' collective, so that the Trainer's
+    retry is every rank's; where the step holds collectives of its own
+    (`Mesh.step_collectives`) it raises on the rank that ran out alone.
     """
     count = first_update
 
-    def step(base_params, lora, batch, generator, noise=None, sigma=None):
+    def grads(base_params, lora, batch, generator, noise, sigma, data):
+        """The microbatches' forward and backward → the summed loss shares."""
+        n = cfg.grad_accum_steps
+        loss_sum = 0.0
+        for i, mb in enumerate(_microbatches(batch, n)):
+            lat = mb["image_latents"]
+            if noise is None:  # one process: the draw as it always was
+                nz, sg = draw_noise_and_sigma(generator, lat, cfg,
+                                              *((data,) if data.size > 1 else ()))
+            else:  # the global batch's: this rank's rows of microbatch i
+                b = lat.shape[0]
+                rows = slice((i * data.size + data.index) * b,
+                             (i * data.size + data.index + 1) * b)
+                nz, sg = noise[rows], sigma[rows]
+            loss = _loss_for_microbatch(base_params, lora, mb, nz, sg, predict_velocity,
+                                        criterion, cfg, data)
+            (loss / n).backward()
+            loss_sum = loss_sum + loss.detach().float()
+        return loss_sum
+
+    def step(base_params, lora, batch, generator, noise=None, sigma=None, data=None):
         nonlocal count
+        data = data or DataShard()
         step.began_update = False
         params, scalings = lora_leaves(lora)
         leaves = params + scalings
@@ -136,21 +206,25 @@ def make_train_step(predict_velocity: PredictFn, criterion, optimizer: torch.opt
         for t in leaves:
             t.grad = None
         n = cfg.grad_accum_steps
-        loss_sum = 0.0
-        for i, mb in enumerate(_microbatches(batch, n)):
-            lat = mb["image_latents"]
-            if noise is None:
-                nz, sg = draw_noise_and_sigma(generator, lat, cfg)
-            else:
-                b = lat.shape[0]
-                nz, sg = noise[i * b:(i + 1) * b], sigma[i * b:(i + 1) * b]
-            loss = _loss_for_microbatch(base_params, lora, mb, nz, sg, predict_velocity,
-                                        criterion, cfg)
-            (loss / n).backward()
-            loss_sum = loss_sum + loss.detach().float()
+        failed = None
+        try:
+            loss_sum = grads(base_params, lora, batch, generator, noise, sigma, data)
+        except torch.OutOfMemoryError as err:
+            mesh = active_mesh()
+            if mesh is not None and mesh.step_collectives:
+                raise  # the other ranks wait in this step's collectives
+            failed = err
+        if collectives.any_across(failed is not None):
+            raise failed or torch.OutOfMemoryError("another rank ran out of device memory "
+                                                   "in this train step")
         for t in leaves:  # a leaf the forward never reached has a zero gradient
             if t.grad is None:
                 t.grad = torch.zeros_like(t)
+        if data.size > 1:  # the global gradient and loss: the ranks' shares summed
+            loss_sum = torch.as_tensor(loss_sum, dtype=torch.float32,
+                                       device=leaves[0].device).reshape(1)
+            _all_reduce_sum([t.grad for t in leaves] + [loss_sum], data)
+            loss_sum = loss_sum[0]
         gnorm = global_norm([t.grad for t in leaves])
         if cfg.max_grad_norm > 0:  # clip by the global norm
             scale = torch.clamp(cfg.max_grad_norm / (gnorm + 1e-12), max=1.0)

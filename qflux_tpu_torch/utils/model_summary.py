@@ -34,11 +34,9 @@ def _dtype_name(t: torch.Tensor) -> str:
 def _tensors(module: nn.Module):
     """(name, tensor) of every parameter and buffer, the cached requant
     factors excepted."""
-    for name, p in module.named_parameters():
-        yield name, p
-    for name, b in module.named_buffers():
-        if b is not None and name.rsplit(".", 1)[-1] not in _DERIVED:
-            yield name, b
+    for name, t in (*module.named_parameters(), *module.named_buffers()):
+        if t is not None and name.rsplit(".", 1)[-1] not in _DERIVED:
+            yield name, t
 
 
 def _stats(named_tensors):

@@ -474,13 +474,35 @@ def _qwen_cli_config(tmp_path, **over):
                                         ("--plan", "Do not port")])
 def test_cli_refuses_unported_modes(tmp_path, flag, match, monkeypatch):
     """The name dates from when --cache, --fit-no-cache and --predict
-    refused a Qwen config; they now run.  --distributed and --plan are not
-    ported.  --cache, --fit-no-cache and
+    refused a Qwen config; they now run.  --plan is not ported.
+    --distributed runs (tests/test_torch_distributed.py); what it still
+    refuses is a mesh with tp > 1, naming item 8b (here a world of one
+    from torchrun's variables, over gloo with --device cpu).  --cache,
+    --fit-no-cache and
     --predict run for FLUX.1-Kontext (tests/test_torch_cache_pass.py) and,
     since item 5b's Qwen half, for Qwen-Image-Edit: each held to JAX's on
     the same weights (`run_qwen_cli_mode`: the cache file for file, the
     pixel batch's embeddings, the edited image from the same noise)."""
-    if flag in ("--distributed", "--plan"):
+    if flag == "--distributed":
+        import socket
+
+        import torch.distributed as dist
+
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        for k, v in {"RANK": "0", "WORLD_SIZE": "1", "LOCAL_RANK": "0",
+                     "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}.items():
+            monkeypatch.setenv(k, v)
+        path = _cli_config(tmp_path, mesh={"tp": 2, "fsdp": 1})
+        try:
+            with pytest.raises(NotImplementedError, match=match):
+                cli.main(["--config", str(path), flag, "--device", "cpu"])
+            assert dist.get_backend() == "gloo" and dist.get_world_size() == 1
+        finally:
+            dist.destroy_process_group()
+        return
+    if flag == "--plan":
         with pytest.raises(NotImplementedError, match=match):
             cli.main(["--config", str(tmp_path / "never-read.json"), flag])
         return

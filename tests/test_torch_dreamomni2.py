@@ -148,8 +148,8 @@ def test_fused_edit_lora_equals_jax(tmp_path, d2, caplog, monkeypatch):
     lora_file = _edit_lora(trees, tmp_path)
     real = tfk.FluxKontextAdapter.load.__func__
 
-    def load(cls, config, device, dtype=torch.bfloat16):
-        adapter, bundle = real(cls, config, device, dtype)
+    def load(cls, config, device, dtype=torch.bfloat16, mesh=None):
+        adapter, bundle = real(cls, config, device, dtype, mesh)
         bridge.load_params(bundle.dit_params, trees["dit"])
         return adapter, bundle
 

@@ -296,15 +296,18 @@ def test_dispatch_follows_jax_on_one_chip(monkeypatch, s):
 def test_dot_product_attention_impls():
     """`dot_product_attention`: "auto" is K3's `flash_attention` (its plain
     version on CPU tensors), "plain" `sdpa_reference`, the same numbers;
-    "ring" and "stub" raise naming ROADMAP.md."""
+    "ring" without an active mesh whose sp axis is > 1 raises JAX's
+    ValueError, and "stub" (JAX's planning stub) raises naming ROADMAP.md's
+    "Do not port" list."""
     q, k, v = _t(*_qkv(7, 64))
     seg = torch.from_numpy(_seg(64, 40, 20))
     auto = tattn.dot_product_attention(q, k, v, segment_ids=seg)
     assert torch.equal(auto, tfa.flash_attention(q, k, v, segment_ids=seg))
     assert torch.equal(auto, tattn.dot_product_attention(q, k, v, segment_ids=seg, impl="plain"))
-    for impl in ("ring", "stub"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tattn.dot_product_attention(q, k, v, impl=impl)
+    with pytest.raises(ValueError, match="sp > 1"):
+        tattn.dot_product_attention(q, k, v, impl="ring")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md's \"Do not port\""):
+        tattn.dot_product_attention(q, k, v, impl="stub")
     with pytest.raises(ValueError):
         tattn.dot_product_attention(q, k, v, impl="pallas")
 

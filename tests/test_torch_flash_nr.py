@@ -290,14 +290,17 @@ def test_sdpa_reference_matches_jax():
 # what is not ported raises; nothing falls back
 
 def test_unported_modes_raise():
-    """ring and stub still raise, naming ROADMAP.md; int8 (the s_int8 mode)
-    now runs, and its output is the s_int8 entry point's."""
+    """ring raises JAX's ValueError without an active mesh whose sp axis is
+    > 1 (tests/test_torch_parallel.py runs it with one), stub raises naming
+    ROADMAP.md's "Do not port" list; int8 (the s_int8 mode) now runs, and
+    its output is the s_int8 entry point's."""
     t_args = [torch.from_numpy(a) for a in _inputs(8, s=16)]
     out, _ = tnr.flash_attention_nr(*t_args, 4, s_int8=True)
     assert torch.equal(tattn.qk_norm_rope_attention(*t_args, 4, impl="int8"), out)
-    for impl in ("ring", "stub"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tattn.qk_norm_rope_attention(*t_args, 4, impl=impl)
+    with pytest.raises(ValueError, match="sp > 1"):
+        tattn.qk_norm_rope_attention(*t_args, 4, impl="ring")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md's \"Do not port\""):
+        tattn.qk_norm_rope_attention(*t_args, 4, impl="stub")
     with pytest.raises(ValueError):
         tattn.qk_norm_rope_attention(*t_args, 4, impl="pallas")
 
